@@ -9,23 +9,33 @@ Phases (any failure raises and the script exits non-zero):
    ``src/repro_torch/csrc`` with nvcc (into ``build/``; the compiler log
    goes to ``build_log.txt`` in the output directory).
 2. Kernels against their plain PyTorch versions on the card: B1
-   ``mte_gemm``, B2 ``splitk_gemm``, B4 ``flash_decode_paged``, B5
+   ``mte_gemm``, B2 ``splitk_gemm``, B3 ``grouped_gemm``, both halves of
+   B8 (``rigid_gemm``, ``epilogue_pass``), B4 ``flash_decode_paged``, B5
    ``flash_attention`` — at the exact shapes the serving phase launches
    (bf16) and at small ragged shapes in every mode each kernel takes.  Each
    prints its max error beside the tolerance; the main-path shapes also
    print the kernel time (CUDA events, median of 10), its bound
-   (max(FLOP / peak, bytes / 3.35 TB/s)), the plain version's time and the
-   time of one library call for the same function (``torch.matmul`` or
-   ``F.scaled_dot_product_attention``), timed only as a yardstick.
+   (max(operations / peak, bytes / 3.35 TB/s)), the plain version's time
+   and the time of one library call for the same function
+   (``torch.matmul``, ``torch.bmm`` on the stacked operands,
+   ``F.gelu`` or ``F.scaled_dot_product_attention``), timed only as a
+   yardstick.
 3. The whole path held against the CPU: gemma_2b.reduced() in fp32 with
    one seed, served by the port's engine on the card (kernels) and on the
-   CPU (plain versions): first-token logits within 1e-3, identical greedy
-   token streams.
+   CPU (plain versions), in the default configuration (graph programs +
+   the grouped decode q/k/v) and under ``gemm_policy="amx"``: first-token
+   logits within 1e-3, identical greedy token streams.
 4. Full-width serving: gemma_2b (18 layers, d_model 2048, vocab 256000) in
    bf16 with seeded random weights, 4 slots, 16-token pages, 1024-token
    prompts in 512-token chunks, 6 requests × 24 greedy tokens, two
-   sharing their first 512 tokens.  Launch counters are zeroed just
-   before and read just after; every kernel must have launched.
+   sharing their first 512 tokens, in three configurations
+   (``CONFIGS``): the defaults, the rigid ``amx`` policy and slice 1's
+   eager path.  For each, launch counters are zeroed just before the
+   run and read just after (every kernel of that path must have
+   launched), and it prints decode ms per step, prefill tokens/s, peak
+   memory, each compiled program's grouping decision and plans, and a
+   profile of a decode step and a prefill chunk (idle share, launches per
+   call).
 
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -226,6 +236,177 @@ def gemm_phase(dev, rows):
                 f"torch.matmul {row['library_ms']:.4f} ms")
 
 
+def grouped_phase(dev, rows):
+    """B3 against its plain version: ragged shapes in every mode (shared x
+    with member widths, and a per-group x), then the two main-path shapes:
+    the decode q/k/v group and the prefill gate+up group."""
+    import torch
+    from repro_torch.core.autotune import GemmSignature, PlanCache
+    from repro_torch.core.epilogue import Epilogue
+    from repro_torch.core.geometry import BlockGeometry, SEW
+    from repro_torch.graph import stack_group_weights
+    from repro_torch.kernels.grouped_gemm import (grouped_gemm_kernel,
+                                                  grouped_gemm_torch)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    modes = [("fp32", torch.float32, None, torch.float32, 1e-4),
+             ("bf16", torch.bfloat16, None, torch.bfloat16, 2e-2),
+             ("bf16acc", torch.bfloat16, torch.bfloat16, torch.float32,
+              3e-2),
+             ("int8", torch.int8, None, torch.int32, 0.0)]
+    for label, dt, acc, out_dt, tol in modes:
+        for g, c, k, n, shared in [(3, 4, 130, 300, True),
+                                   (2, 70, 1000, 90, False),
+                                   (3, 33, 65, 257, True)]:
+            if dt == torch.int8:
+                x = torch.randint(-127, 128, (g, c, k), generator=gen,
+                                  device=dev, dtype=dt)
+                w = torch.randint(-127, 128, (g, k, n), generator=gen,
+                                  device=dev, dtype=dt)
+                epi = Epilogue()
+            else:
+                x = (torch.randn(g, c, k, generator=gen, device=dev)
+                     / math.sqrt(k)).to(dt)
+                w = torch.randn(g, k, n, generator=gen, device=dev).to(dt)
+                epi = Epilogue(alpha=0.7, softcap=20.0, activation="gelu")
+            widths = None
+            if shared:
+                x = x[:1].expand(g, c, k)
+                widths = [n, n // 3, n // 2 + 1][:g]
+            bm, bn = (16, 128) if c <= 16 else (64, 64)
+            geom = BlockGeometry(bm, bn, 64, 1, 1, False, SEW.E32, SEW.E32,
+                                 "mte")
+            kw = dict(geom=geom, epilogue=epi, out_dtype=out_dt,
+                      acc_dtype=acc, widths=widths)
+            check(f"grouped_gemm {label} G={g} {c}x{n}x{k}"
+                  f"{' shared-x widths' if shared else ''}",
+                  grouped_gemm_kernel(x, w, **kw),
+                  grouped_gemm_torch(x, w, **kw), tol)
+
+    cache = PlanCache()
+
+    def main_path(label, g, c, k, widths, out_dt):
+        n = max(widths)
+        x = (torch.randn(c, k, generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        ws = [torch.randn(k, wd, generator=gen, device=dev)
+              .to(torch.bfloat16) for wd in widths]
+        wstack = stack_group_weights(ws)
+        xg = x[None].expand(g, c, k)
+        sig = GemmSignature.make(c, n, k, "bfloat16", out_dt, Epilogue(),
+                                 group=g, fmt="bf16")
+        plan = cache.plan(sig)
+        kw = dict(geom=plan.geometry, out_dtype=out_dt,
+                  widths=list(widths))
+        run = lambda: grouped_gemm_kernel(xg, wstack, **kw)  # noqa: E731
+        plain = lambda: grouped_gemm_torch(xg, wstack, **kw)  # noqa: E731
+        err = check(f"grouped_gemm main-path {label} [{plan.describe()}]",
+                    run(), plain(), 2e-2)
+        live = sum(widths)
+        flops = 2.0 * c * k * live
+        out_b = torch.empty((), dtype=out_dt).element_size()
+        nbytes = 2.0 * (c * k + k * live) + out_b * g * c * n
+        row = {"kernel": "grouped_gemm", "shape": label,
+               "plan": plan.describe(), "max_abs_err": err, "tol": 2e-2,
+               "ms": time_ms(run), "plain_ms": time_ms(plain),
+               "bound_ms": bound_ms(flops, nbytes, PEAK["bf16"]),
+               "bound_by": bound_by(flops, nbytes, PEAK["bf16"]),
+               "library_ms": time_ms(lambda: torch.bmm(xg, wstack))}
+        rows.append(row)
+        log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}; live columns only), plain "
+            f"{row['plain_ms']:.4f} ms, torch.bmm {row['library_ms']:.4f} ms")
+
+    # The decode step's q/k/v group over the prestacked weight (k and v
+    # padded from 256 to 2048 columns; their padding tiles are skipped),
+    # and the prefill chunk's gate+up group (the member path: f32 out).
+    main_path("qkv decode 3x4x2048x2048", 3, 4, 2048, (2048, 256, 256),
+              torch.bfloat16)
+    main_path("gate+up prefill 2x512x2048x16384", 2, 512, 2048,
+              (16384, 16384), torch.float32)
+
+
+def rigid_phase(dev, rows):
+    """Both halves of B8 against their plain versions: ragged shapes in
+    every mode (a rigid route has no narrow accumulator: bf16acc runs as
+    bf16), then the main path's gate projection with its GeGLU epilogue."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.epilogue import Epilogue
+    from repro_torch.kernels.rigid_gemm import (
+        epilogue_pass_kernel, epilogue_pass_torch, rigid_accumulate_kernel,
+        rigid_accumulate_torch, rigid_gemm_kernel, rigid_gemm_torch)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    epi_full = Epilogue(alpha=0.7, beta=0.5, has_bias=True, softcap=20.0,
+                        activation="silu")
+    for label, dt, tol in [("fp32", torch.float32, 1e-4),
+                           ("bf16", torch.bfloat16, 1e-4),
+                           ("int8", torch.int8, 0.0)]:
+        for m, n, k in [(4, 300, 1000), (130, 257, 65), (100, 70, 130)]:
+            if dt == torch.int8:
+                a = torch.randint(-127, 128, (m, k), generator=gen,
+                                  device=dev, dtype=dt)
+                b = torch.randint(-127, 128, (k, n), generator=gen,
+                                  device=dev, dtype=dt)
+                check(f"rigid_gemm int8 {m}x{n}x{k}",
+                      rigid_gemm_kernel(a, b, out_dtype=torch.int32),
+                      rigid_gemm_torch(a, b, out_dtype=torch.int32), 0.0)
+                continue
+            a = (torch.randn(m, k, generator=gen, device=dev)
+                 / math.sqrt(k)).to(dt)
+            b = torch.randn(k, n, generator=gen, device=dev).to(dt)
+            c = torch.randn(m, n, generator=gen, device=dev)
+            bias = torch.randn(n, generator=gen, device=dev)
+            check(f"rigid_gemm {label} {m}x{n}x{k} (both stages)",
+                  rigid_gemm_kernel(a, b, c, bias, epilogue=epi_full),
+                  rigid_gemm_torch(a, b, c, bias, epilogue=epi_full), tol)
+
+    # The gate projection of a 512-token prefill chunk, GeGLU's gelu on it.
+    m, n, k = 512, 16384, 2048
+    a = (torch.randn(m, k, generator=gen, device=dev)
+         / math.sqrt(k)).to(torch.bfloat16)
+    b = torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16)
+    epi = Epilogue(activation="gelu")
+    run1 = lambda: rigid_accumulate_kernel(a, b)  # noqa: E731
+    plain1 = lambda: rigid_accumulate_torch(a, b)  # noqa: E731
+    acc = run1()
+    err1 = check("rigid_gemm main-path gate 512x16384x2048 (stage 1, f32 "
+                 "accumulator)", acc, plain1(), 1e-4)
+    run2 = lambda: epilogue_pass_kernel(  # noqa: E731
+        acc, epilogue=epi, out_dtype=torch.bfloat16)
+    plain2 = lambda: epilogue_pass_torch(  # noqa: E731
+        acc, epilogue=epi, out_dtype=torch.bfloat16)
+    err2 = check("epilogue_pass main-path gelu 512x16384 (stage 2)", run2(),
+                 plain2(), 1e-2)
+    check("rigid_gemm main-path gate 512x16384x2048 (both stages)",
+          rigid_gemm_kernel(a, b, epilogue=epi, out_dtype=torch.bfloat16),
+          rigid_gemm_torch(a, b, epilogue=epi, out_dtype=torch.bfloat16),
+          2e-2)
+    flops = 2.0 * m * n * k
+    nbytes = 2.0 * (m * k + k * n) + 4.0 * m * n
+    rows.append({"kernel": "rigid_gemm", "shape": "gate 512x16384x2048",
+                 "max_abs_err": err1, "tol": 1e-4, "ms": time_ms(run1),
+                 "plain_ms": time_ms(plain1),
+                 "bound_ms": bound_ms(flops, nbytes, PEAK["bf16"]),
+                 "bound_by": bound_by(flops, nbytes, PEAK["bf16"]),
+                 "library_ms": time_ms(lambda: torch.matmul(a, b))})
+    pass_flops = 15.0 * m * n        # the tanh-gelu's element-wise ops
+    pass_bytes = 4.0 * m * n + 2.0 * m * n
+    rows.append({"kernel": "epilogue_pass", "shape": "gelu 512x16384",
+                 "max_abs_err": err2, "tol": 1e-2, "ms": time_ms(run2),
+                 "plain_ms": time_ms(plain2),
+                 "bound_ms": bound_ms(pass_flops, pass_bytes,
+                                      PEAK["fp32"]),
+                 "bound_by": bound_by(pass_flops, pass_bytes, PEAK["fp32"]),
+                 "library_ms": time_ms(
+                     lambda: F.gelu(acc, approximate="tanh"))})
+    for row in rows[-2:]:
+        log(f"    {row['kernel']}: time {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms")
+
+
 def paged_inputs(dev, *, b, h, hkv, d, page, lens, dtype, gen, stale=False):
     import torch
     maxp = max(-(-int(s) // page) for s in lens) + 1
@@ -375,15 +556,44 @@ def attention_phase(dev, rows):
 
 # -- phase 3: the whole path on the card against the CPU -----------------------
 
+# The configurations phase 3 and phase 4 serve: the port's defaults (the
+# JAX package's kernel configuration: graph programs + the grouped decode
+# q/k/v), the rigid AMX-style baseline, and slice 1's eager path.
+CONFIGS = {
+    "default": {},
+    "amx": {"gemm_policy": "amx"},
+    "eager": {"use_graph": False},
+}
+# Kernels each configuration's main path must launch.
+PATH_KERNELS = {
+    "default": ("mte_gemm", "splitk_gemm", "grouped_gemm",
+                "flash_decode_paged", "flash_attention"),
+    "amx": ("rigid_gemm", "epilogue_pass", "flash_decode_paged",
+            "flash_attention"),
+    "eager": ("mte_gemm", "splitk_gemm", "flash_decode_paged",
+              "flash_attention"),
+}
+
+
+def reset_planning():
+    """A fresh plan cache and program memo, so each configuration's plans
+    and programs are its own."""
+    from repro_torch.core import autotune
+    from repro_torch.graph import schedule
+    autotune.reset_cache()
+    schedule.reset_programs()
+
+
 def reduced_phase(dev):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import Request, ServingEngine
 
-    cfg = get_config("gemma_2b").reduced()       # fp32
-    params_cpu = model_lib.init_params(cfg, seed=0, device="cpu")
+    base = get_config("gemma_2b").reduced()       # fp32
+    params_cpu = model_lib.init_params(base, seed=0, device="cpu")
 
     def to(tree, device):
         if isinstance(tree, dict):
@@ -394,59 +604,76 @@ def reduced_phase(dev):
 
     params_gpu = to(params_cpu, dev)
     rng = np.random.default_rng(0)
-    head = rng.integers(0, cfg.vocab, 24, dtype=np.int32)
-    prompts = [np.concatenate([head, rng.integers(0, cfg.vocab, 8,
+    head = rng.integers(0, base.vocab, 24, dtype=np.int32)
+    prompts = [np.concatenate([head, rng.integers(0, base.vocab, 8,
                                                   dtype=np.int32)])
-               for _ in range(3)] + [rng.integers(0, cfg.vocab, 20,
+               for _ in range(3)] + [rng.integers(0, base.vocab, 20,
                                                   dtype=np.int32)]
     kw = dict(slots=2, cache_len=64, prefill_len=32, page_size=8,
               prefill_chunk=16)
 
-    # First-token logits of one prompt through both chunks.
-    logits = {}
-    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
-        cache = model_lib.init_paged_cache(cfg, 1, 64, num_pages=9,
-                                           page_size=8, device=device)
-        table = torch.arange(1, 9, dtype=torch.int32,
-                             device=device)[None]
-        toks = torch.as_tensor(prompts[0].astype(np.int64), device=device)
-        for p0 in (0, 16):
-            out, cache = model_lib.prefill_chunk(
-                params, {"tokens": toks[None, p0:p0 + 16],
-                         "page_table": table}, cache, cfg, pos0=p0)
-        logits[str(device)] = out.cpu()
-    err = max_err(logits[str(dev)], logits["cpu"])
-    log(f"  reduced fp32 first-token logits cuda vs cpu: max_abs_err="
-        f"{err:.3e} tol=1e-3")
-    require(err <= 1e-3, f"first-token logits differ by {err}")
+    for name in ("default", "amx"):
+        cfg = dataclasses.replace(base, **CONFIGS[name])
+        reset_planning()
+        # First-token logits of one prompt through both chunks.
+        logits = {}
+        for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+            cache = model_lib.init_paged_cache(cfg, 1, 64, num_pages=9,
+                                               page_size=8, device=device)
+            table = torch.arange(1, 9, dtype=torch.int32,
+                                 device=device)[None]
+            toks = torch.as_tensor(prompts[0].astype(np.int64),
+                                   device=device)
+            for p0 in (0, 16):
+                out, cache = model_lib.prefill_chunk(
+                    params, {"tokens": toks[None, p0:p0 + 16],
+                             "page_table": table}, cache, cfg, pos0=p0)
+            logits[str(device)] = out.cpu()
+        err = max_err(logits[str(dev)], logits["cpu"])
+        log(f"  reduced fp32 [{name}] first-token logits cuda vs cpu: "
+            f"max_abs_err={err:.3e} tol=1e-3")
+        require(err <= 1e-3, f"[{name}] first-token logits differ by {err}")
 
-    outs = {}
-    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
-        eng = ServingEngine(params, cfg, device=device, **kw)
-        for rid, p in enumerate(prompts):
-            eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
-        outs[str(device)] = eng.run()
-        log(f"  reduced engine on {device}: "
-            f"{ {r: list(v) for r, v in outs[str(device)].items()} }")
-    for rid in outs["cpu"]:
-        require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
-        require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
-                f"greedy stream of request {rid} differs")
-    log("  reduced engine: greedy streams identical on cuda and cpu")
+        outs = {}
+        for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+            eng = ServingEngine(params, cfg, device=device, **kw)
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
+            build.reset_launch_counts()
+            outs[str(device)] = eng.run()
+            counts = build.launch_counts()
+            log(f"  reduced engine [{name}] on {device}: "
+                f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
+                f"launches {counts}")
+            if device == dev:
+                mark = "grouped_gemm" if name == "default" else "rigid_gemm"
+                require(counts[mark] > 0,
+                        f"[{name}] {mark} not launched on the card")
+        for rid in outs["cpu"]:
+            require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
+            require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
+                    f"[{name}] greedy stream of request {rid} differs")
+        log(f"  reduced engine [{name}]: greedy streams identical on cuda "
+            f"and cpu")
 
 
 # -- phase 4: full-width serving ---------------------------------------------
 
-def serving_phase(dev):
+def serving_phase(dev, name):
+    """Serve full-width gemma_2b (bf16, seed 0) in configuration ``name``;
+    launch counters are zeroed just before ``run`` and read just after."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import autotune
+    from repro_torch.graph import schedule
     from repro_torch.kernels import build
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import Request, ServingEngine
 
-    cfg = get_config("gemma_2b")
+    cfg = dataclasses.replace(get_config("gemma_2b"), **CONFIGS[name])
+    max_tokens = 24
+    reset_planning()
     t0 = time.perf_counter()
     params = model_lib.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -480,43 +707,47 @@ def serving_phase(dev):
     eng = TimedEngine(params, cfg, slots=4, page_size=16, prefill_len=1024,
                       cache_len=1088, prefill_chunk=512, device=dev)
     del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, 1024, dtype=np.int32)
                for _ in range(6)]
     # Request 4 is admitted when 0 finishes and aliases its first chunk.
     prompts[4][:512] = prompts[0][:512]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     t = time.perf_counter()
     for rid, p in enumerate(prompts):
-        eng.submit(Request(rid=rid, prompt=p, max_tokens=24))
+        eng.submit(Request(rid=rid, prompt=p, max_tokens=max_tokens))
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     m = eng.metrics()
-    log(f"  served {len(out)} requests in {wall:.2f} s: statuses "
+    log(f"  [{name}] served {len(out)} requests in {wall:.2f} s: statuses "
         f"{ {r: v.status for r, v in out.items()} }")
-    log(f"  launch counts: {counts}")
-    log(f"  prefill: {timing['prefill_tokens']} tokens in "
+    log(f"  [{name}] launch counts: {counts}")
+    log(f"  [{name}] prefill: {timing['prefill_tokens']} tokens in "
         f"{timing['prefill_s']:.3f} s = "
         f"{timing['prefill_tokens'] / timing['prefill_s']:.1f} tokens/s")
-    log(f"  decode: {timing['decode_tokens']} tokens in "
+    log(f"  [{name}] decode: {timing['decode_tokens']} tokens in "
         f"{timing['decode_steps']} steps, {timing['decode_s']:.3f} s = "
         f"{timing['decode_tokens'] / timing['decode_s']:.1f} tokens/s, "
         f"{1e3 * timing['decode_s'] / timing['decode_steps']:.3f} ms/step")
-    log(f"  peak memory: {peak / 2**30:.2f} GiB; prefix_hit_pages="
+    log(f"  [{name}] peak memory: {peak / 2**30:.2f} GiB; prefix_hit_pages="
         f"{m['prefix_hit_pages']}, prefill_tokens={m['prefill_tokens']}, "
-        f"cached_prefill_tokens={m['cached_prefill_tokens']}")
+        f"cached_prefill_tokens={m['cached_prefill_tokens']}, programs "
+        f"compiled={m['graph_programs_compiled']} "
+        f"hits={m['graph_program_hits']}")
     for rid, resp in out.items():
         require(resp.status == "ok", resp)
-        require(len(resp) == 24, (rid, len(resp)))
+        require(len(resp) == max_tokens, (rid, len(resp)))
         require(all(0 <= tok < cfg.vocab for tok in resp), rid)
     require(m["prefix_hit_pages"] > 0, m)
-    for name, n in counts.items():
-        require(n > 0, f"{name} was never launched on the main path")
+    for kernel in PATH_KERNELS[name]:
+        require(counts[kernel] > 0,
+                f"[{name}] {kernel} was never launched on the main path")
     # Finite logits at full width (the engine quarantines non-finite rows;
     # check one prefill's logits directly too).
     cache = model_lib.init_paged_cache(cfg, 1, 1024, num_pages=65,
@@ -529,12 +760,26 @@ def serving_phase(dev):
     require(logits.shape == (1, cfg.vocab)
             and bool(torch.isfinite(logits).all()),
             "full-width prefill logits not finite")
+    del cache, logits
+    programs = []
+    for prog in schedule.compiled_programs():
+        kinds = [type(n).__name__ for n in prog.graph.nodes]
+        head = prog.describe().splitlines()[0]
+        plans = [prog.plans[i].describe() for i in sorted(prog.plans)]
+        log(f"  [{name}] {head}: grouped={prog.grouped} nodes={kinds}")
+        for line in plans:
+            log(f"      plan {line}")
+        programs.append({"program": head, "grouped": prog.grouped,
+                         "nodes": kinds, "plans": plans})
     plans = sorted({(p.signature.m, p.signature.n, p.signature.k,
-                     p.describe()) for p in autotune.plan_cache()._plans.values()})
+                     p.signature.group, p.describe())
+                    for p in autotune.plan_cache()._plans.values()})
     for plan in plans:
-        log(f"  plan {plan[0]}x{plan[1]}x{plan[2]}: {plan[3]}")
+        log(f"  [{name}] plan {plan[0]}x{plan[1]}x{plan[2]} G={plan[3]}: "
+            f"{plan[4]}")
     profile = profile_steps(eng, dev)
-    return counts, {
+    summary = {
+        "config": name, "requests": len(out), "max_tokens": max_tokens,
         "prefill_tokens_per_s": timing["prefill_tokens"]
         / timing["prefill_s"],
         "decode_tokens_per_s": timing["decode_tokens"] / timing["decode_s"],
@@ -542,7 +787,12 @@ def serving_phase(dev):
         / timing["decode_steps"],
         "decode_steps": timing["decode_steps"],
         "peak_memory_gib": peak / 2**30, "wall_s": wall,
-        "prefix_hit_pages": m["prefix_hit_pages"], "profile": profile}
+        "prefix_hit_pages": m["prefix_hit_pages"],
+        "launch_counts": counts, "programs": programs,
+        "profile": profile}
+    del eng
+    torch.cuda.empty_cache()
+    return counts, summary
 
 
 def step_bounds(eng, positions, chunk: int, pos0: int):
@@ -552,7 +802,8 @@ def step_bounds(eng, positions, chunk: int, pos0: int):
     byte read once, at the widths the engine holds them in."""
     cfg, params = eng.cfg, eng.params
     weights = [d["w"] for lp in params["layers"]
-               for grp in ("mixer", "ffn") for d in lp[grp].values()]
+               for grp in ("mixer", "ffn") for d in lp[grp].values()
+               if isinstance(d, dict)]      # not the stacked decode qkv
     w_params = sum(w.numel() for w in weights)
     w_bytes = sum(w.numel() * w.element_size() for w in weights)
     head = params["embedding"]["unembed"]
@@ -577,7 +828,7 @@ def step_bounds(eng, positions, chunk: int, pos0: int):
                               "tflop": pre_flops / 1e12}}
 
 
-def profile_steps(eng, dev, steps: int = 3):
+def profile_steps(eng, dev, steps: int = 10):
     """``torch.profiler`` over a few full-width decode steps (4 slots at
     ~1040 cached tokens, over pages left in the pool by the serving run)
     and one 512-token prefill chunk: wall time per call, device busy time
@@ -585,6 +836,7 @@ def profile_steps(eng, dev, steps: int = 3):
     the most device time, and the call's bound (:func:`step_bounds`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
     from repro_torch.models import model as model_lib
 
     maxp = eng.sched.max_pages_per_seq
@@ -616,11 +868,13 @@ def profile_steps(eng, dev, steps: int = 3):
         torch.cuda.synchronize()
         # Wall time without the profiler, whose own overhead would inflate
         # the idle share; then the device time under it.
+        build.reset_launch_counts()
         t = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t) / n
+        per_call = {k: v / n for k, v in build.launch_counts().items() if v}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -631,36 +885,57 @@ def profile_steps(eng, dev, steps: int = 3):
             dev_us = (getattr(e, "self_device_time_total", None)
                       or getattr(e, "self_cuda_time_total", 0) or 0)
             # An aten op reports the kernels it launched as its own device
-            # time; count the kernels only.
-            if dev_us > 0 and not e.key.startswith("aten::"):
+            # time, and a runtime call (cudaLaunchKernel) can carry the
+            # time of the kernel it launched; count the kernels only.
+            if dev_us > 0 and not e.key.startswith(("aten::", "cuda")):
                 rows.append((dev_us / n / 1e3, e.key, e.count // n))
         busy_ms = sum(r[0] for r in rows)
+        device_kernels = sum(r[2] for r in rows)
         rows.sort(reverse=True)
         top = [{"kernel": k[:60], "ms": ms, "calls": c}
                for ms, k, c in rows[:8]]
+        every = [{"kernel": k[:120], "ms": ms, "calls": c}
+                 for ms, k, c in rows]
         out[name] = {"wall_ms": wall_ms,
+                     "wrapper_launches": per_call,
+                     "device_kernels": device_kernels if rows else None,
                      "device_busy_ms": busy_ms if rows else None,
                      "idle_share": (1 - busy_ms / wall_ms) if rows
-                     else None, "top": top, **bounds[name]}
+                     else None, "top": top, "kernels": every,
+                     **bounds[name]}
         busy = (f"device busy {busy_ms:.3f} ms" if rows else
                 "device time not measured (no device events)")
         log(f"  profile {name}: wall {wall_ms:.3f} ms, {busy}, bound "
-            f"{bounds[name]['bound_ms']:.3f} ms")
+            f"{bounds[name]['bound_ms']:.3f} ms, idle share "
+            f"{out[name]['idle_share']}; device kernels per call "
+            f"{out[name]['device_kernels']}, wrapper launches per call "
+            f"{per_call}")
         for r in top:
             log(f"    {r['ms']:.4f} ms x{r['calls']} {r['kernel']}")
     return out
 
 
+# (counter, source, the TPU kernel it replaces, the row of phase 2 that
+# stands for it, the configuration whose main path counts its launches)
 KERNELS = [
     ("mte_gemm", "src/repro_torch/csrc/mte_gemm.cu",
-     "src/repro/kernels/mte_gemm.py:114", "gate 512x16384x2048"),
+     "src/repro/kernels/mte_gemm.py:114", "gate 512x16384x2048", "default"),
     ("splitk_gemm", "src/repro_torch/csrc/splitk_gemm.cu",
-     "src/repro/kernels/splitk_gemm.py:60", "gate 4x16384x2048"),
+     "src/repro/kernels/splitk_gemm.py:60", "gate 4x16384x2048", "default"),
+    ("grouped_gemm", "src/repro_torch/csrc/grouped_gemm.cu",
+     "src/repro/kernels/grouped_gemm.py:60", "qkv decode 3x4x2048x2048",
+     "default"),
     ("flash_decode_paged", "src/repro_torch/csrc/flash_decode_paged.cu",
-     "src/repro/kernels/flash_decode.py:208", None),
+     "src/repro/kernels/flash_decode.py:208", None, "default"),
     ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-     "src/repro/kernels/flash_attention.py:108", "512x1024 H=8 D=256"),
+     "src/repro/kernels/flash_attention.py:108", "512x1024 H=8 D=256",
+     "default"),
+    ("rigid_gemm", "src/repro_torch/csrc/rigid_gemm.cu",
+     "src/repro/kernels/rigid_gemm.py:80", "gate 512x16384x2048", "amx"),
+    ("epilogue_pass", "src/repro_torch/csrc/rigid_gemm.cu",
+     "src/repro/kernels/rigid_gemm.py:43", "gelu 512x16384", "amx"),
 ]
+
 
 
 def parse_args():
@@ -701,22 +976,28 @@ def main() -> int:
     rows = []
     log("== 2. kernels against their plain versions on the card")
     gemm_phase(dev, rows)
+    grouped_phase(dev, rows)
+    rigid_phase(dev, rows)
     decode_phase(dev, rows)
     attention_phase(dev, rows)
-    log("== 3. reduced gemma_2b (fp32): card against CPU")
+    log("== 3. reduced gemma_2b (fp32): card against CPU, default and amx")
     reduced_phase(dev)
-    log("== 4. full-width gemma_2b serving (bf16)")
-    counts, serving = serving_phase(dev)
-    log(f"  serving summary: {json.dumps(serving)}")
+    counts, serving = {}, {}
+    for name in CONFIGS:
+        log(f"== 4. full-width gemma_2b serving (bf16), configuration "
+            f"[{name}] {CONFIGS[name] or '(defaults)'}")
+        counts[name], serving[name] = serving_phase(dev, name)
+        log(f"  [{name}] serving summary: {json.dumps(serving[name])}")
 
     kernels = []
-    for name, source, replaces, shape in KERNELS:
+    for name, source, replaces, shape, path in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
         rep = next((r for r in mine if shape is None or shape == r["shape"]),
                    mine[0])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": counts[path][name],
+            "path": path,
             "shape": rep["shape"],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],

@@ -1,10 +1,11 @@
 """Architecture configuration (the port's copy of ``repro.configs.base``).
 
-``ArchConfig`` carries the same fields as the JAX package's, with two
-defaults changed: ``gemm_backend`` is ``"kernels"`` (the hand-written
+``ArchConfig`` carries the same fields as the JAX package's, with one
+default changed: ``gemm_backend`` is ``"kernels"`` (the hand-written
 Hopper kernels, the counterpart of JAX's ``"pallas"``; the plain
-formulation ``"torch"``, JAX's ``"xla"``, is queued), and ``use_graph``
-is False (the ``repro.graph`` IR is queued).
+formulation ``"torch"``, JAX's ``"xla"``, is queued).  ``use_graph``
+defaults to True, as in JAX: the MLP and q/k/v projections run as
+compiled :mod:`repro_torch.graph` programs.
 ``input_specs`` returns ``(shape, dtype-name)`` tuples instead of
 ``jax.ShapeDtypeStruct``s.
 
@@ -91,8 +92,8 @@ class ArchConfig:
     cache_quant: bool = False
     kv_cache_format: Optional[str] = None
     decode_qkv_grouped: bool = False
-    use_graph: bool = False                 # the repro.graph IR is ROADMAP
-    #                                         A7; True raises until then
+    use_graph: bool = True                  # compiled repro_torch.graph
+    #                                         programs (kernels backend)
 
     def __post_init__(self):
         from repro_torch.core.formats import FORMATS

@@ -31,7 +31,7 @@ from repro_torch.core.tile_state import SEW, dtype_name
 __all__ = [
     "GemmSignature", "ExecutionPlan", "PlanCache", "CacheStats",
     "enumerate_candidates", "score_geometry", "execute_plan", "get_plan",
-    "plan_cache", "reset_cache", "cache_stats",
+    "plan_cache", "reset_cache", "cache_stats", "cache_generation",
 ]
 
 _SPLIT_CANDIDATES = (2, 4, 8, 16)
@@ -86,10 +86,11 @@ class ExecutionPlan:
 
     signature: GemmSignature
     geometry: BlockGeometry
-    route: str                       # "mte" | "splitk"
+    route: str                       # "mte" | "splitk" | "grouped" | "rigid"
     predicted_s: float
     measured_s: Optional[float] = None
-    source: str = "analytic"
+    source: str = "analytic"   # "analytic" | "program" (pinned by
+    #                            repro_torch.graph.schedule)
 
     @property
     def n_split(self) -> int:
@@ -104,10 +105,12 @@ class ExecutionPlan:
 
 
 def _route_for(sig: GemmSignature, geom: BlockGeometry) -> str:
+    """The kernel route of a geometry, in the JAX package's order
+    (``autotune.py:190-197`` there)."""
     if sig.policy == "amx":
-        raise NotImplementedError("the rigid route is ROADMAP B8")
+        return "rigid"
     if sig.group > 1:
-        raise NotImplementedError("the grouped route is ROADMAP B3")
+        return "grouped"
     if geom.split_k > 1:
         return "splitk"
     return "mte"
@@ -123,10 +126,15 @@ def enumerate_candidates(sig: GemmSignature,
                          ) -> List[BlockGeometry]:
     """Candidate geometries for one signature, the solver's base first
     (its tile is the kernel tile for this M), then split-K slices when
-    the (M, N) tile grid is below the SM count."""
+    the (M, N) tile grid is below the SM count.  The rigid policy gets
+    exactly its fixed block (a rigid ISA cannot adapt), and grouped
+    signatures no split (B3 has no split-K path; its group axis already
+    multiplies the grid)."""
     base = solve_block_geometry(sig.m, sig.n, sig.k, sig.sew_i, sig.sew_o,
                                 profile=profile, policy=sig.policy)
     cands: List[BlockGeometry] = [base]
+    if sig.policy != "mte":
+        return cands
     grid_mn = cdiv(sig.m, base.bm) * cdiv(sig.n, base.bn)
     if sig.group == 1 and grid_mn < profile.sm_count and sig.k > INNER_BK:
         for s in _SPLIT_CANDIDATES:
@@ -145,23 +153,32 @@ def score_geometry(sig: GemmSignature, geom: BlockGeometry,
     peak and operand/partial traffic over HBM bandwidth, stretched by the
     share of the card the block grid leaves idle (a grid below
     ``sm_count * blocks_per_sm`` resident blocks cannot cover memory
-    latency), plus launch overhead (split-K pays a second launch for the
-    reduction)."""
+    latency), plus launch overhead.  Split-K pays a second launch for the
+    reduction; the rigid route pays the accumulator's write and read
+    back and, with a non-identity epilogue, the epilogue pass's launch.
+    A grouped signature is priced as G GEMMs' worth of tiles on one
+    grid: G times the work and the traffic, G times the blocks."""
     m, n, k = sig.m, sig.n, sig.k
+    g = max(sig.group, 1)
     gm, gn = cdiv(m, geom.bm), cdiv(n, geom.bn)
     s = geom.split_k
-    blocks = gm * gn * s
-    flops = 2.0 * round_up(m, geom.bm) * round_up(n, geom.bn) * k
+    blocks = g * gm * gn * s
+    flops = 2.0 * g * round_up(m, geom.bm) * round_up(n, geom.bn) * k
     acc_b = sig.format_policy.sew_o.bytes
-    bytes_ = ((m * k * gn + k * n * gm) * sig.sew_i.bytes
-              + m * n * sig.sew_o.bytes)
+    bytes_ = g * ((m * k * gn + k * n * gm) * sig.sew_i.bytes
+                  + m * n * sig.sew_o.bytes)
+    launches = 1
     if s > 1:
         bytes_ += 2 * s * m * n * acc_b
+        launches = 2
+    if sig.policy == "amx":
+        bytes_ += 2 * m * n * 4
+        launches = 1 if sig.epilogue.is_identity else 2
     t = max(flops / profile.peak_flops(sig.sew_i),
             bytes_ / profile.hbm_bw_bytes_per_s)
     slots = profile.sm_count * profile.blocks_per_sm
     occupancy = min(blocks, slots) / slots
-    return t / occupancy + profile.launch_s * (2 if s > 1 else 1)
+    return t / occupancy + profile.launch_s * launches
 
 
 @dataclasses.dataclass
@@ -224,16 +241,32 @@ class PlanCache:
                              predicted_s=best_s)
 
 
-def execute_plan(plan: ExecutionPlan, a, b, c=None, bias=None):
+def execute_plan(plan: ExecutionPlan, a, b, c=None, bias=None, *,
+                 widths=None):
     """Launch the plan's route on concrete operands (already cast or
-    quantized to the format by the caller)."""
+    quantized to the format by the caller).  The grouped route takes
+    x (G, C, K) and w (G, K, N) as ``a`` and ``b`` and, in ``widths``,
+    each member's true output width.  The rigid route ignores the
+    narrow accumulator: a rigid ISA cannot adapt its width."""
     from repro_torch.core.formats import to_torch_dtype
+    from repro_torch.kernels.grouped_gemm import grouped_gemm_kernel
     from repro_torch.kernels.mte_gemm import mte_gemm_kernel
+    from repro_torch.kernels.rigid_gemm import rigid_gemm_kernel
     from repro_torch.kernels.splitk_gemm import mte_gemm_splitk_kernel
 
     sig = plan.signature
     out_dtype = to_torch_dtype(sig.dtype_out)
     acc_dtype = sig.format_policy.accum_torch
+    if plan.route == "rigid":
+        return rigid_gemm_kernel(a, b, c, bias, epilogue=sig.epilogue,
+                                 out_dtype=out_dtype)
+    if plan.route == "grouped":
+        if c is not None or bias is not None:
+            raise ValueError("the grouped route takes no C or bias")
+        return grouped_gemm_kernel(a, b, geom=plan.geometry,
+                                   epilogue=sig.epilogue,
+                                   out_dtype=out_dtype, acc_dtype=acc_dtype,
+                                   widths=widths)
     if plan.route == "splitk":
         return mte_gemm_splitk_kernel(
             a, b, c, bias, geom=plan.geometry, n_split=plan.n_split,
@@ -244,6 +277,13 @@ def execute_plan(plan: ExecutionPlan, a, b, c=None, bias=None):
 
 
 _GLOBAL: Optional[PlanCache] = None
+_GENERATION = 0
+
+
+def cache_generation() -> int:
+    """Bumped on every :func:`reset_cache`: memoized compiled programs
+    pin plans granted by the cache of their generation."""
+    return _GENERATION
 
 
 def plan_cache() -> PlanCache:
@@ -255,8 +295,9 @@ def plan_cache() -> PlanCache:
 
 def reset_cache(maxsize: int = 4096,
                 profile: Optional[HopperProfile] = None) -> PlanCache:
-    global _GLOBAL
+    global _GLOBAL, _GENERATION
     _GLOBAL = PlanCache(maxsize=maxsize, profile=profile)
+    _GENERATION += 1
     return _GLOBAL
 
 

@@ -3,8 +3,9 @@
 The port's copy of ``repro.core.formats``: the same :class:`FormatPolicy`
 table (fp32, bf16, bf16acc, int8, int8pt), and bit-exact ``quantize`` /
 ``dequantize`` / ``quantize_operands`` (symmetric, scale = max|x|/127, a
-zero scale becomes 1, round half to even).  ``xla_gemm`` becomes
-:func:`torch_gemm`, the plain-formulation GEMM under a policy.
+zero scale becomes 1, round half to even).  ``xla_gemm`` and
+``xla_grouped`` become :func:`torch_gemm` and :func:`torch_grouped`, the
+plain-formulation GEMMs under a policy.
 
 ========  ==========  ===========  =======================================
 name      operands    accumulator  notes
@@ -28,7 +29,8 @@ from repro_torch.core.tile_state import SEW, dtype_name
 __all__ = [
     "FormatPolicy", "FORMATS", "FP32", "BF16", "BF16_ACCUM", "INT8",
     "INT8_PT", "resolve_format", "infer_format", "quantize", "dequantize",
-    "quantize_operands", "torch_gemm", "to_torch_dtype", "int_matmul",
+    "quantize_operands", "torch_gemm", "torch_grouped", "to_torch_dtype",
+    "int_matmul",
 ]
 
 
@@ -163,3 +165,14 @@ def torch_gemm(a: torch.Tensor, b: torch.Tensor, fmt: FormatPolicy):
     ac = a.to(fmt.operand_torch).float()
     bc = b.to(fmt.operand_torch).float()
     return torch.matmul(ac, bc).to(fmt.accum_torch)
+
+
+def torch_grouped(x: torch.Tensor, w: torch.Tensor, fmt: FormatPolicy):
+    """Grouped ``(G,C,K) @ (G,K,N)`` under the policy, in plain torch
+    (per-group per-channel scales for int8)."""
+    if fmt.quantized:
+        xq, wq, sx, sw = quantize_operands(x, w, fmt)
+        return dequantize(int_matmul(xq, wq), sx, sw)
+    xc = x.to(fmt.operand_torch).float()
+    wc = w.to(fmt.operand_torch).float()
+    return torch.matmul(xc, wc).to(fmt.accum_torch)

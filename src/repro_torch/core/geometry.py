@@ -11,6 +11,11 @@ shapes the hand-written kernels in ``csrc/gemm_tile.cuh`` implement:
   MMA fragment, wide in N);
 - ``(bm, bn) = (64, 64)`` otherwise.
 
+The rigid ``"amx"`` policy (the AMX-style baseline, ``csrc/rigid_gemm.cu``)
+adapts nothing: it is always granted the one rigid tile, 128 x 128 with a
+128-deep K block and no split, as the JAX solver grants it
+(``geometry.py:422-426`` there).
+
 ``bk`` is the K slice a plan works in: the split-K slice granularity and,
 under ``bf16acc``, the block after which the running sum is rounded to
 bf16.  It is a multiple of the kernels' 32-deep inner tile.  Split-K is
@@ -26,13 +31,16 @@ from repro_torch.core.tile_state import SEW
 
 __all__ = ["HopperProfile", "BlockGeometry", "H100_SPEC", "hopper_profile",
            "solve_block_geometry", "round_up", "cdiv", "KERNEL_TILES",
-           "INNER_BK"]
+           "INNER_BK", "RIGID_TILE", "check_kernel_tile"]
 
 Policy = Literal["mte", "amx", "sifive", "vector"]
 
 # (bm, bn) tiles the CUDA GEMM kernels are compiled for, and their fixed
-# inner K depth (one shared-memory stage).
-KERNEL_TILES: Tuple[Tuple[int, int], ...] = ((16, 128), (64, 64))
+# inner K depth (one shared-memory stage).  The MTE kernels (B1, B2, B3)
+# take the first two; only the rigid route (B8) takes the last, always
+# with a 128-deep K block (RIGID_TILE).
+KERNEL_TILES: Tuple[Tuple[int, int], ...] = ((16, 128), (64, 64), (128, 128))
+RIGID_TILE = (128, 128, 128)                 # (bm, bn, bk)
 INNER_BK = 32
 
 
@@ -120,25 +128,51 @@ def _tile_for(m: int) -> Tuple[int, int]:
     return KERNEL_TILES[0] if m <= KERNEL_TILES[0][0] else KERNEL_TILES[1]
 
 
+def check_kernel_tile(geom: "BlockGeometry") -> None:
+    """Raise unless the kernels of ``geom``'s policy are compiled for its
+    tile: a pinned geometry is launched as it is or refused, never
+    replanned."""
+    if geom.policy == "amx":
+        ok = (geom.bm, geom.bn, geom.bk) == RIGID_TILE and geom.split_k == 1
+    else:
+        ok = ((geom.bm, geom.bn) in KERNEL_TILES[:2]
+              and geom.bk % INNER_BK == 0 and geom.split_k >= 1)
+    if not ok:
+        raise ValueError(
+            f"no {geom.policy!r} kernel is compiled for the tile "
+            f"{geom.bm}x{geom.bn}x{geom.bk} split_k={geom.split_k}; "
+            f"compiled: MTE {KERNEL_TILES[:2]} (bk a multiple of "
+            f"{INNER_BK}), "
+            f"rigid {RIGID_TILE}")
+
+
 def solve_block_geometry(m: int, n: int, k: int, sew_i: SEW, sew_o: SEW,
                          profile: HopperProfile = H100_SPEC,
                          policy: Policy = "mte",
                          split_k: Optional[int] = None) -> BlockGeometry:
     """Shared-memory-budgeted geometry for one GEMM on Hopper.
 
-    ``policy="mte"`` (the only one ported; the rigid ``"amx"`` baseline
-    is B8 in ROADMAP queue B) picks the kernel tile by M, the widest
-    ``bk`` up to 256 that K needs, and ``split_k`` (None ⇒ 1; the plan
-    cache enumerates the split candidates)."""
-    if policy != "mte":
+    ``policy="mte"`` picks the kernel tile by M, the widest ``bk`` up to
+    256 that K needs, and ``split_k`` (None ⇒ 1; the plan cache
+    enumerates the split candidates).  ``policy="amx"`` always returns
+    the rigid (128, 128, 128) block with ``split_k=1``.  The other
+    policies of the JAX solver (``"vector"``, ``"sifive"``) have no
+    kernel here."""
+    if policy == "amx":
+        bm, bn, bk = RIGID_TILE
+        geom = BlockGeometry(bm=bm, bn=bn, bk=bk, split_k=1, n_acc=8,
+                             transposed_b=False, sew_i=sew_i, sew_o=sew_o,
+                             policy=policy)
+    elif policy == "mte":
+        bm, bn = _tile_for(m)
+        bk = min(round_up(max(k, 1), INNER_BK), 256)
+        geom = BlockGeometry(bm=bm, bn=bn, bk=bk, split_k=split_k or 1,
+                             n_acc=1, transposed_b=False, sew_i=sew_i,
+                             sew_o=sew_o, policy=policy)
+    else:
         raise NotImplementedError(
-            f"policy {policy!r} is not ported yet (ROADMAP B8: the rigid "
-            f"AMX-style baseline)")
-    bm, bn = _tile_for(m)
-    bk = min(round_up(max(k, 1), INNER_BK), 256)
-    geom = BlockGeometry(bm=bm, bn=bn, bk=bk, split_k=split_k or 1,
-                         n_acc=1, transposed_b=False, sew_i=sew_i,
-                         sew_o=sew_o, policy=policy)
+            f"policy {policy!r} has no Hopper kernel (ported: 'mte', "
+            f"'amx')")
     if geom.smem_bytes() > profile.smem_per_block:
         raise ValueError(f"tile {bm}x{bn} needs {geom.smem_bytes()} B of "
                          f"shared memory, the card offers "

@@ -39,8 +39,11 @@ __all__ = ["CSRC", "build_dir", "build_all", "load", "entry", "check",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-KERNEL_NAMES = ("mte_gemm", "splitk_gemm", "flash_decode_paged",
-                "flash_attention")
+# The launch counters, one per kernel (``rigid_gemm.cu`` holds two: the
+# rigid product and its separate epilogue pass).
+KERNEL_NAMES = ("mte_gemm", "splitk_gemm", "grouped_gemm",
+                "flash_decode_paged", "flash_attention", "rigid_gemm",
+                "epilogue_pass")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,126 @@
+"""B3: the grouped GEMM — CUDA kernel and plain version.
+
+:func:`grouped_gemm_kernel` is the counterpart of ``grouped_gemm_pallas``
+(``repro/kernels/grouped_gemm.py``): x (G, C, K) @ w (G, K, N) → (G, C, N)
+with the epilogue (no C, no bias) applied to each group's accumulator.  On
+CUDA tensors it launches ``csrc/grouped_gemm.cu`` (or raises); on CPU
+tensors it runs :func:`grouped_gemm_torch`, the plain PyTorch version.
+
+- x may be shared across the group: an ``expand`` of a (C, K) matrix has
+  group stride 0, and the kernel reads it through that stride, no copy.
+  Each group's rows must be contiguous in K with a common row stride.
+- ``widths`` (optional, one per group) marks each member's true output
+  width: columns at or past it come back as zeros, and the kernel skips
+  the tiles that lie wholly there (a member's zero-padded weight
+  columns, which the graph programs drop).
+- Accumulators as in B1: f32, int32 (int8 operands; identity epilogue)
+  or bf16 (``bf16acc``: the running sum rounded to bf16 once per
+  ``geom.bk``-deep K block).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
+from repro_torch.core.geometry import BlockGeometry, cdiv
+from repro_torch.kernels import build
+from repro_torch.kernels.mte_gemm import (DTYPE_CODES, _acc_dtype,
+                                          bf16_scalar, raw_accumulate)
+
+__all__ = ["grouped_gemm_kernel", "grouped_gemm_torch"]
+
+MAX_WIDTHS = 8           # members that carry a width in one launch
+
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+             + [ctypes.c_long] * 2 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                ctypes.c_void_p])
+
+
+def _check(x, w, epilogue, widths):
+    if x.ndim != 3 or w.ndim != 3:
+        raise ValueError(f"grouped_gemm: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} must be 3-D")
+    g, m, k = x.shape
+    gw, kw, n = w.shape
+    if gw != g or kw != k:
+        raise ValueError(f"group shapes mismatch: {tuple(x.shape)} x "
+                         f"{tuple(w.shape)}")
+    if epilogue.needs_c_input or epilogue.has_bias:
+        raise ValueError("grouped_gemm: the epilogue takes no C and no bias")
+    if widths is not None and (len(widths) != g or g > MAX_WIDTHS):
+        raise ValueError(f"grouped_gemm: {len(widths)} widths for {g} "
+                         f"groups (at most {MAX_WIDTHS} carry a width)")
+    return g, m, n, k
+
+
+def grouped_gemm_torch(x, w, *, geom: BlockGeometry,
+                       epilogue: Epilogue = Epilogue(),
+                       out_dtype=torch.float32, acc_dtype=None,
+                       widths: Optional[Sequence[int]] = None
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`grouped_gemm_kernel`."""
+    g, m, n, k = _check(x, w, epilogue, widths)
+    acc_dtype = _acc_dtype(x, acc_dtype)
+    bk = min(geom.bk, max(1, k))
+    out = torch.stack([
+        epilogue.apply(raw_accumulate(x[i], w[i], acc_dtype, bk)
+                       ).to(out_dtype) for i in range(g)])
+    if widths is not None:
+        for i, wd in enumerate(widths):
+            out[i, :, wd:] = 0
+    return out
+
+
+def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
+                        epilogue: Epilogue = Epilogue(),
+                        out_dtype=torch.float32, acc_dtype=None,
+                        widths: Optional[Sequence[int]] = None
+                        ) -> torch.Tensor:
+    """x (G, C, K) @ w (G, K, N) → (G, C, N), epilogue per group: the B3
+    CUDA kernel on CUDA tensors, :func:`grouped_gemm_torch` on CPU
+    tensors."""
+    dev = build.require_cuda(x, w, what="grouped_gemm")
+    if dev is None:
+        return grouped_gemm_torch(x, w, geom=geom, epilogue=epilogue,
+                                  out_dtype=out_dtype, acc_dtype=acc_dtype,
+                                  widths=widths)
+    g, m, n, k = _check(x, w, epilogue, widths)
+    acc_dtype = _acc_dtype(x, acc_dtype)
+    bf16acc = acc_dtype == torch.bfloat16
+    if x.dtype != w.dtype or x.dtype not in (torch.float32, torch.bfloat16,
+                                             torch.int8):
+        raise TypeError(f"grouped_gemm: operands {x.dtype} x {w.dtype} "
+                        f"unsupported")
+    if bf16acc and x.dtype != torch.bfloat16:
+        raise TypeError("grouped_gemm: bf16acc needs bf16 operands")
+    if not acc_dtype.is_floating_point and not epilogue.is_identity:
+        raise ValueError("grouped_gemm: an integer accumulator takes the "
+                         "identity epilogue (dequantize first)")
+    if out_dtype not in (torch.float32, torch.bfloat16, torch.int32):
+        raise TypeError(f"grouped_gemm: out_dtype {out_dtype} unsupported")
+    if x.stride(2) != 1 or (m > 1 and x.stride(1) < k):
+        x = x.contiguous()
+    w = w.contiguous()
+    n_widths = 0 if widths is None else g
+    wd = (ctypes.c_int * MAX_WIDTHS)(*[int(v) for v in (widths or ())])
+    out = torch.empty(g, m, n, dtype=out_dtype, device=dev)
+    alpha = float(epilogue.alpha)
+    softcap = float(epilogue.softcap or 0.0)
+    if bf16acc:
+        alpha, softcap = bf16_scalar(alpha), bf16_scalar(softcap)
+    rbk = max(32, min(geom.bk, cdiv(k, 32) * 32))
+    lib, fn = build.entry("grouped_gemm", "grouped_gemm_launch", _ARGTYPES)
+    build.count_launch("grouped_gemm")
+    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), g, m, n, k,
+             x.stride(0), x.stride(1), DTYPE_CODES[x.dtype],
+             DTYPE_CODES[out_dtype], int(bf16acc), geom.bm, geom.bn, rbk,
+             alpha, int(epilogue.softcap is not None), softcap,
+             ACTIVATION_CODES[epilogue.activation], n_widths, wd,
+             build.stream_ptr(dev))
+    build.check(lib, err, "grouped_gemm")
+    return out

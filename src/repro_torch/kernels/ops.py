@@ -2,12 +2,18 @@
 ``repro/kernels/ops.py``).
 
 Each wrapper asks the plan cache (:mod:`repro_torch.core.autotune`) for an
-execution plan and launches the granted route: B1 (``mte``) or B2
-(``splitk``).  ``format_policy`` sets the operand and accumulator widths;
-the operand cast or int8 quantize happens once, here, as in
-``autodiff.mte_gemm_ad`` (forward only — the backward is ROADMAP A3).
+execution plan and launches the granted route: B1 (``mte``), B2
+(``splitk``), B3 (``grouped``) or, for ``policy="amx"``, the rigid
+baseline B8 (``rigid``: one fixed tile whatever the shape).
+``format_policy`` sets the operand and accumulator widths; the operand
+cast or int8 quantize happens once, here, as in ``autodiff.mte_gemm_ad``
+and ``grouped_gemm_ad`` (forward only — the backward is ROADMAP A3).
 A CUDA tensor goes to its kernel or raises; a CPU tensor goes to the
 kernel's plain version.
+
+While a :func:`repro_torch.graph.trace.trace_gemms` capture is active,
+every GEMM issued here is recorded in it (``record_gemm`` /
+``record_grouped``).
 """
 from __future__ import annotations
 
@@ -18,16 +24,26 @@ import torch
 from repro_torch.core import autotune
 from repro_torch.core import formats as formats_lib
 from repro_torch.core.epilogue import Epilogue
+from repro_torch.core.geometry import check_kernel_tile
 
-__all__ = ["mte_gemm", "flash_attention", "flash_decode_paged"]
+__all__ = ["mte_gemm", "grouped_gemm", "flash_attention",
+           "flash_decode_paged"]
 
 
-def _plan(m, n, k, dt_in, dt_out, policy, epilogue, fmt, geometry):
+def _trace_sink():
+    """The active repro_torch.graph capture, if any."""
+    from repro_torch.graph import trace
+    return trace.active()
+
+
+def _plan(m, n, k, dt_in, dt_out, policy, epilogue, fmt, geometry,
+          group: int = 1):
     if geometry is None:
         return autotune.get_plan(m, n, k, dt_in, dt_out, epilogue=epilogue,
-                                 policy=policy, fmt=fmt)
+                                 policy=policy, fmt=fmt, group=group)
+    check_kernel_tile(geometry)
     sig = autotune.GemmSignature.make(m, n, k, dt_in, dt_out, epilogue,
-                                      policy, fmt=fmt)
+                                      policy, group=group, fmt=fmt)
     return autotune.ExecutionPlan(
         signature=sig, geometry=geometry,
         route=autotune._route_for(sig, geometry),
@@ -39,9 +55,12 @@ def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
              policy: str = "mte", out_dtype=torch.float32,
              format_policy=None, geometry=None):
     """``epilogue(a @ b [, c, bias])`` through the plan cache under a
-    format policy.  ``geometry`` pins the plan to a block geometry."""
-    if policy == "amx":
-        raise NotImplementedError("the rigid AMX-style route is ROADMAP B8")
+    format policy.  ``geometry`` pins the plan to a block geometry, which
+    must be a tile the kernels are compiled for (else ValueError).
+    ``policy="amx"`` routes to the rigid baseline (B8): it cannot adapt
+    its geometry or its accumulator to the format, but it still executes
+    the format's arithmetic (int8: quantize, rigid product into int32,
+    dequantize and epilogue outside, as ``ops.py:72-84`` in JAX)."""
     fmt = formats_lib.resolve_format(format_policy, a.dtype)
     m, k = a.shape
     n = b.shape[1]
@@ -51,12 +70,51 @@ def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
                      fmt.name, geometry)
         acc = autotune.execute_plan(plan, aq, bq)
         acc = formats_lib.dequantize(acc, sa, sb)
-        return epilogue.apply(acc.float(), c_in=c, bias=bias).to(out_dtype)
-    ac = a.to(fmt.operand_torch)
-    bc = b.to(fmt.operand_torch)
-    plan = _plan(m, n, k, ac.dtype, out_dtype, policy, epilogue, fmt.name,
-                 geometry)
-    return autotune.execute_plan(plan, ac, bc, c, bias)
+        out = epilogue.apply(acc.float(), c_in=c, bias=bias).to(out_dtype)
+    else:
+        ac = a.to(fmt.operand_torch)
+        bc = b.to(fmt.operand_torch)
+        plan = _plan(m, n, k, ac.dtype, out_dtype, policy, epilogue,
+                     fmt.name, geometry)
+        out = autotune.execute_plan(plan, ac, bc, c, bias)
+    sink = _trace_sink()
+    if sink is not None:
+        sink.record_gemm(a, b, out, c=c, bias=bias, epilogue=epilogue,
+                         fmt=fmt.name, policy=policy, out_dtype=out_dtype,
+                         backend="kernels")
+    return out
+
+
+def grouped_gemm(x, w, *, epilogue: Epilogue = Epilogue(),
+                 out_dtype=torch.float32, format_policy=None,
+                 geometry=None, widths=None):
+    """Grouped GEMM x (G, C, K) @ w (G, K, N) → (G, C, N) through the
+    plan cache (route ``grouped``, B3) under a format policy (per-group
+    per-channel scales for int8).  ``geometry`` pins a program-scheduled
+    block shape; ``widths`` marks each member's true output width (the
+    columns past it come back as zeros and cost the kernel no reads).
+    The quantize, cast and dequantize follow ``autodiff.py:165-191`` of
+    the JAX package."""
+    fmt = formats_lib.resolve_format(format_policy, x.dtype)
+    g, cap, k = x.shape
+    n = w.shape[2]
+    if fmt.quantized:
+        xq, wq, sx, sw = formats_lib.quantize_operands(x, w, fmt)
+        plan = _plan(cap, n, k, xq.dtype, torch.int32, "mte", Epilogue(),
+                     fmt.name, geometry, group=g)
+        acc = autotune.execute_plan(plan, xq, wq, widths=widths)
+        acc = formats_lib.dequantize(acc, sx, sw)
+        out = epilogue.apply(acc.float()).to(out_dtype)
+    else:
+        plan = _plan(cap, n, k, fmt.operand_torch, out_dtype, "mte",
+                     epilogue, fmt.name, geometry, group=g)
+        out = autotune.execute_plan(plan, x.to(fmt.operand_torch),
+                                    w.to(fmt.operand_torch), widths=widths)
+    sink = _trace_sink()
+    if sink is not None:
+        sink.record_grouped(x, w, out, epilogue=epilogue, fmt=fmt.name,
+                            out_dtype=out_dtype, backend="kernels")
+    return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.core.epilogue import Epilogue
 
-__all__ = ["mte_gemm", "flash_attention", "flash_decode"]
+__all__ = ["mte_gemm", "grouped_gemm", "rigid_gemm", "flash_attention",
+           "flash_decode"]
 
 
 def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
@@ -35,6 +36,39 @@ def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
     else:
         acc = torch.matmul(a.float(), b.float())
     return epilogue.apply(acc, c_in=c, bias=bias).to(out_dtype)
+
+
+def grouped_gemm(x, w, *, epilogue: Epilogue = Epilogue(),
+                 out_dtype=torch.float32, format_policy=None):
+    """Oracle for the grouped GEMM: x (G, C, K) @ w (G, K, N) → (G, C, N),
+    one batched dot + epilogue (no C, no bias).  ``format_policy``
+    replicates the policy's contract as in :func:`mte_gemm`."""
+    if format_policy is not None:
+        from repro_torch.core import formats
+        fmt = formats.resolve_format(format_policy, x.dtype)
+        acc = formats.torch_grouped(x, w, fmt)
+        out = epilogue.apply(acc.float() if fmt.quantized else acc)
+        return out.to(out_dtype)
+    if not x.dtype.is_floating_point:
+        from repro_torch.core.formats import int_matmul
+        acc = int_matmul(x, w)
+    else:
+        acc = torch.matmul(x.float(), w.float())
+    return epilogue.apply(acc).to(out_dtype)
+
+
+def rigid_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
+               out_dtype=torch.float32):
+    """Oracle for the rigid baseline: the raw accumulator of one dot (f32,
+    int32 for integer operands), then the epilogue as a separate step."""
+    if not a.dtype.is_floating_point:
+        from repro_torch.core.formats import int_matmul
+        acc = int_matmul(a, b)
+    else:
+        acc = torch.matmul(a.float(), b.float())
+    if epilogue.is_identity:
+        return acc.to(out_dtype)
+    return epilogue.apply(acc.float(), c_in=c, bias=bias).to(out_dtype)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -1,0 +1,160 @@
+"""B8: the rigid AMX-style baseline — two CUDA kernels and their plain
+versions.
+
+The counterpart of ``rigid_gemm_pallas`` + ``epilogue_pass_pallas``
+(``repro/kernels/rigid_gemm.py``), the paper's stand-in for a rigid
+matrix ISA (§II-D).  It keeps both handicaps on purpose:
+
+1. **Fixed geometry.** :func:`rigid_accumulate_kernel` runs B1's tile loop
+   at one 128 x 128 tile whatever the shape, with the identity epilogue,
+   and writes the raw accumulator (f32 for float operands, int32 for
+   int8) to device memory.
+2. **No matrix↔vector interplay.** :func:`epilogue_pass_kernel` is a
+   separate element-wise kernel that reads the accumulator back and
+   applies α, β·C, bias, softcap and the activation.
+
+:func:`rigid_gemm_kernel` chains the two (an identity epilogue skips the
+pass and casts, as in JAX).  On CUDA tensors each launches its kernel in
+``csrc/rigid_gemm.cu`` (or raises); on CPU tensors each runs its plain
+PyTorch version.  B is row-major (K, N).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
+from repro_torch.core.formats import int_matmul
+from repro_torch.kernels import build
+from repro_torch.kernels.mte_gemm import DTYPE_CODES
+
+__all__ = ["rigid_gemm_kernel", "rigid_gemm_torch",
+           "rigid_accumulate_kernel", "rigid_accumulate_torch",
+           "epilogue_pass_kernel", "epilogue_pass_torch"]
+
+_RIGID_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_long] * 2 + [ctypes.c_int, ctypes.c_void_p])
+_PASS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_long] * 3
+                  + [ctypes.c_float] * 2
+                  + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_void_p])
+
+
+def _check(a, b):
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"contraction mismatch: {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    return a.shape[0], b.shape[1], a.shape[1]
+
+
+def _acc_dtype(a) -> torch.dtype:
+    return torch.float32 if a.dtype.is_floating_point else torch.int32
+
+
+def rigid_accumulate_torch(a, b) -> torch.Tensor:
+    """Plain version of stage 1: the raw accumulator of ``a @ b``."""
+    _check(a, b)
+    if not a.dtype.is_floating_point:
+        return int_matmul(a, b)
+    return torch.matmul(a.float(), b.float())
+
+
+def rigid_accumulate_kernel(a, b) -> torch.Tensor:
+    """Stage 1: ``a @ b`` at the fixed 128 x 128 tile into an f32 (int32
+    for int8) accumulator in device memory."""
+    dev = build.require_cuda(a, b, what="rigid_gemm")
+    if dev is None:
+        return rigid_accumulate_torch(a, b)
+    m, n, k = _check(a, b)
+    if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16,
+                                             torch.int8):
+        raise TypeError(f"rigid_gemm: operands {a.dtype} x {b.dtype} "
+                        f"unsupported")
+    a = a.contiguous()
+    b = b.contiguous()
+    acc = torch.empty(m, n, dtype=_acc_dtype(a), device=dev)
+    lib, fn = build.entry("rigid_gemm", "rigid_gemm_launch", _RIGID_ARGTYPES)
+    build.count_launch("rigid_gemm")
+    err = fn(a.data_ptr(), b.data_ptr(), acc.data_ptr(), m, n, k,
+             a.stride(0), b.stride(0), DTYPE_CODES[a.dtype],
+             build.stream_ptr(dev))
+    build.check(lib, err, "rigid_gemm")
+    return acc
+
+
+def _check_pass(acc, c, bias, epilogue):
+    if acc.dtype != torch.float32 or acc.ndim != 2:
+        raise TypeError(f"epilogue_pass: takes a 2-D f32 accumulator, got "
+                        f"{acc.dtype} {tuple(acc.shape)}")
+    if epilogue.needs_c_input and c is None:
+        raise ValueError("epilogue.beta != 0 requires c operand")
+    if epilogue.has_bias and bias is None:
+        raise ValueError("epilogue.has_bias requires bias operand")
+    if epilogue.has_bias and epilogue.bias_axis != "row":
+        raise NotImplementedError("the epilogue pass takes a row bias only")
+
+
+def epilogue_pass_torch(acc, c=None, bias=None, *,
+                        epilogue: Epilogue = Epilogue(),
+                        out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of stage 2."""
+    _check_pass(acc, c, bias, epilogue)
+    return epilogue.apply(acc, c_in=c, bias=bias).to(out_dtype)
+
+
+def epilogue_pass_kernel(acc, c=None, bias=None, *,
+                         epilogue: Epilogue = Epilogue(),
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """Stage 2: ``epilogue(acc [, c, bias])`` as a separate element-wise
+    pass over the f32 accumulator read back from device memory."""
+    dev = build.require_cuda(acc, c, bias, what="epilogue_pass")
+    if dev is None:
+        return epilogue_pass_torch(acc, c, bias, epilogue=epilogue,
+                                   out_dtype=out_dtype)
+    _check_pass(acc, c, bias, epilogue)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"epilogue_pass: out_dtype {out_dtype} unsupported")
+    m, n = acc.shape
+    acc = acc.contiguous()
+    c_ = c.float().contiguous() if epilogue.needs_c_input else None
+    bias_ = bias.float().contiguous() if epilogue.has_bias else None
+    out = torch.empty(m, n, dtype=out_dtype, device=dev)
+    lib, fn = build.entry("rigid_gemm", "epilogue_pass_launch",
+                          _PASS_ARGTYPES)
+    build.count_launch("epilogue_pass")
+    err = fn(acc.data_ptr(), c_.data_ptr() if c_ is not None else None,
+             bias_.data_ptr() if bias_ is not None else None,
+             out.data_ptr(), m, n, n, float(epilogue.alpha),
+             float(epilogue.beta), int(epilogue.softcap is not None),
+             float(epilogue.softcap or 0.0),
+             ACTIVATION_CODES[epilogue.activation], DTYPE_CODES[out_dtype],
+             build.stream_ptr(dev))
+    build.check(lib, err, "epilogue_pass")
+    return out
+
+
+def rigid_gemm_torch(a, b, c=None, bias=None, *,
+                     epilogue: Epilogue = Epilogue(),
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rigid_gemm_kernel`."""
+    acc = rigid_accumulate_torch(a, b)
+    if epilogue.is_identity:
+        return acc.to(out_dtype)
+    return epilogue_pass_torch(acc, c, bias, epilogue=epilogue,
+                               out_dtype=out_dtype)
+
+
+def rigid_gemm_kernel(a, b, c=None, bias=None, *,
+                      epilogue: Epilogue = Epilogue(),
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """AMX-semantics GEMM: the fixed-tile product, then (unless the
+    epilogue is the identity) the epilogue through a memory round trip."""
+    if not a.dtype.is_floating_point and not epilogue.is_identity:
+        raise ValueError("rigid_gemm: int8 operands take the identity "
+                         "epilogue (dequantize first)")
+    acc = rigid_accumulate_kernel(a, b)
+    if epilogue.is_identity:
+        return acc.to(out_dtype)
+    return epilogue_pass_kernel(acc, c, bias, epilogue=epilogue,
+                                out_dtype=out_dtype)

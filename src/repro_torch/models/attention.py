@@ -1,11 +1,15 @@
 """MQA/GQA attention over the paged KV pool (the port of the serving half
 of ``repro/models/attention.py``).
 
-Projections run through the kernel GEMMs; prefill-chunk attention through
-B5 (``flash_attention``) and decode attention through B4
-(``flash_decode_paged``).  The KV scatter into pages, the prefix-page
-gather and the dequantize outside the kernels stay plain PyTorch, as they
-are plain jnp in JAX.
+Projections run through the kernel GEMMs: with ``cfg.use_graph`` (the
+default) the q/k/v projections are ONE compiled :mod:`repro_torch.graph`
+program (:func:`_qkv_compiled`), and the decode step's q/k/v, under
+``cfg.decode_qkv_grouped``, ONE grouped GEMM (B3) over the prestacked
+(3, D, Nmax) weight (:func:`_project_qkv_grouped`).  Prefill-chunk
+attention runs through B5 (``flash_attention``) and decode attention
+through B4 (``flash_decode_paged``).  The KV scatter into pages, the
+prefix-page gather and the dequantize outside the kernels stay plain
+PyTorch, as they are plain jnp in JAX.
 
 Unlike JAX, the port updates the page slabs **in place** (``index_put_``)
 instead of returning fresh arrays: a decode step then allocates no new
@@ -18,12 +22,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.formats import resolve_format, to_torch_dtype
 from repro_torch.models.layers import (compute_dtype, dense, init_dense,
-                                       rmsnorm, rope)
+                                       model_format, rmsnorm, rope,
+                                       use_graph)
 
 __all__ = ["init_attention", "init_paged_attn_cache",
-           "paged_decode_attention", "paged_prefill_attention"]
+           "paged_decode_attention", "paged_prefill_attention",
+           "grouped_decode"]
 
 
 def init_attention(gen: torch.Generator, cfg, device=None):
@@ -43,17 +50,143 @@ def init_attention(gen: torch.Generator, cfg, device=None):
     }
 
 
-def _project_qkv(x, p, cfg, positions):
-    b, s, _ = x.shape
-    hd = cfg.hd
-    q = dense(x, p["q"], cfg).reshape(b, s, cfg.n_heads, hd)
-    k = dense(x, p["k"], cfg).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense(x, p["v"], cfg).reshape(b, s, cfg.n_kv_heads, hd)
+def _finish_qkv(q, k, v, p, cfg, positions):
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     return rope(q, positions, cfg.rope_theta), rope(k, positions,
                                                     cfg.rope_theta), v
+
+
+def _project_qkv(x, p, cfg, positions):
+    b, s, _ = x.shape
+    hd = cfg.hd
+    if use_graph(cfg):
+        q2, k2, v2 = _qkv_compiled(x.reshape(b * s, -1), p, cfg)
+        q = q2.reshape(b, s, cfg.n_heads, hd)
+        k = k2.reshape(b, s, cfg.n_kv_heads, hd)
+        v = v2.reshape(b, s, cfg.n_kv_heads, hd)
+    else:
+        q = dense(x, p["q"], cfg).reshape(b, s, cfg.n_heads, hd)
+        k = dense(x, p["k"], cfg).reshape(b, s, cfg.n_kv_heads, hd)
+        v = dense(x, p["v"], cfg).reshape(b, s, cfg.n_kv_heads, hd)
+    return _finish_qkv(q, k, v, p, cfg, positions)
+
+
+def _qkv_compiled(x2, p, cfg):
+    """The q/k/v projections as ONE compiled :mod:`repro_torch.graph`
+    program (``attention.py:69-115`` of the JAX package).
+
+    Three GemmNodes sharing the input: the sibling-grouping rewrite turns
+    them into one GroupNode (one B3 launch) when the scheduler's program
+    score favours it — it prices the k/v zero-padding and the per-call
+    weight restacking, so grouping is a modelled choice.  Each node
+    carries the epilogue ``dense`` would fuse (the QKV bias)."""
+    from repro_torch.graph import schedule as graph_schedule
+    from repro_torch.graph.trace import GraphBuilder
+
+    cdt = compute_dtype(cfg)
+    fmt = model_format(cfg)
+    m, d = x2.shape
+
+    def build():
+        b = GraphBuilder()
+        xv = b.input((m, d), x2.dtype, "x")
+        outs = []
+        for name in ("q", "k", "v"):
+            wv = b.input(p[name]["w"].shape, p[name]["w"].dtype,
+                         f"w_{name}")
+            bv = (b.input((p[name]["w"].shape[1],), "float32",
+                          f"b_{name}") if cfg.qkv_bias else None)
+            outs.append(b.gemm(
+                xv, wv, bias=bv,
+                epilogue=Epilogue(has_bias=cfg.qkv_bias),
+                fmt=fmt.name, out_dtype=cdt, policy=cfg.gemm_policy,
+                name=name))
+        b.output(*outs)
+        return b.build()
+
+    key = ("qkv", m, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, fmt.name,
+           str(cdt), cfg.gemm_policy, cfg.qkv_bias, str(x2.dtype),
+           str(p["q"]["w"].dtype))
+    prog = graph_schedule.compile_cached(key, build)
+    args = [x2]
+    for name in ("q", "k", "v"):
+        args.append(p[name]["w"])
+        if cfg.qkv_bias:
+            args.append(p[name]["b"].float())
+    return prog(*args)
+
+
+def _project_qkv_grouped(x, p, cfg, positions):
+    """Decode q/k/v as ONE GroupNode program (G=3) through the plan cache
+    (``attention.py:118-177`` of the JAX package).
+
+    A decode step's three projection GEMVs share M = B and K = d_model
+    and differ only in N; the GroupNode batches them as one B3 launch, so
+    the plan cache sees one grouped signature per step instead of three.
+    k/v columns are zero-padded up to q's width (the kernel skips the
+    tiles wholly in that padding) and sliced back off.  The stacked
+    (3, D, Nmax) weight is pure layout (:func:`repro_torch.graph.
+    stack_group_weights`): the serving engine precomputes it once per
+    layer (``p["qkv"]``); the inline stack here serves direct
+    ``model.decode`` calls."""
+    from repro_torch.graph import schedule as graph_schedule
+    from repro_torch.graph import stack_group_weights
+    from repro_torch.graph.trace import GraphBuilder
+    b, s, dm = x.shape
+    hd = cfg.hd
+    nq = cfg.n_heads * hd
+    nkv = cfg.n_kv_heads * hd
+
+    wstack = p.get("qkv")
+    if wstack is None:
+        wstack = stack_group_weights([p["q"]["w"], p["k"]["w"],
+                                      p["v"]["w"]])       # (3, D, Nmax)
+    x2 = x.reshape(b * s, dm)
+    cdt = compute_dtype(cfg)
+    fmt = model_format(cfg)
+
+    def build():
+        bld = GraphBuilder()
+        xv = bld.input((b * s, dm), x2.dtype, "x")
+        wv = bld.input(wstack.shape, wstack.dtype, "qkv")
+        outs = bld.group(xv, stacked=wv, widths=(nq, nkv, nkv),
+                         fmt=fmt.name, out_dtype=cdt,
+                         policy=cfg.gemm_policy)
+        bld.output(*outs)
+        return bld.build()
+
+    key = ("qkv_decode", b * s, dm, nq, nkv, fmt.name, str(cdt),
+           cfg.gemm_policy, str(x2.dtype), str(wstack.dtype))
+    prog = graph_schedule.compile_cached(key, build)
+    q, k, v = prog(x2, wstack)
+    if cfg.qkv_bias:
+        q = q + p["q"]["b"].to(q.dtype)
+        k = k + p["k"]["b"].to(k.dtype)
+        v = v + p["v"]["b"].to(v.dtype)
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    return _finish_qkv(q, k, v, p, cfg, positions)
+
+
+def grouped_decode(cfg) -> bool:
+    """True when the decode step projects q/k/v as one grouped GEMM:
+    ``cfg.decode_qkv_grouped`` on the graph path (use_graph=False keeps
+    eager per-GEMM dispatch, as in JAX) under the MTE policy.  Unlike
+    JAX, whose GroupNode launches the grouped kernel whatever
+    ``gemm_policy`` says, the rigid ``"amx"`` baseline keeps its three
+    rigid GEMMs: a rigid ISA has no grouped launch, and the grouping
+    rewrite itself never groups rigid GEMMs (``fuse._groupable``)."""
+    return (bool(getattr(cfg, "decode_qkv_grouped", False))
+            and use_graph(cfg) and cfg.gemm_policy == "mte")
+
+
+def _project_qkv_decode(x, p, cfg, positions):
+    if grouped_decode(cfg):
+        return _project_qkv_grouped(x, p, cfg, positions)
+    return _project_qkv(x, p, cfg, positions)
 
 
 def _quantize_kv(x: torch.Tensor, per_channel: bool = True):
@@ -133,7 +266,7 @@ def paged_decode_attention(x, p, cfg, cache, pos, page_table, *,
     b = x.shape[0]
     pos_b = torch.as_tensor(pos, dtype=torch.int64,
                             device=x.device).reshape(-1).expand(b)
-    q, k, v = _project_qkv(x, p, cfg, pos_b[:, None])
+    q, k, v = _project_qkv_decode(x, p, cfg, pos_b[:, None])
     page = cache["k_pages"].shape[1]
     rows = torch.arange(b, device=x.device)
     phys = page_table[rows, pos_b // page].long().clamp(min=0)

@@ -1,11 +1,13 @@
-"""Shared layers (the port of ``repro/models/layers.py``, eager path).
+"""Shared layers (the port of ``repro/models/layers.py``).
 
 Every projection goes through :func:`repro_torch.kernels.ops.mte_gemm`
 under the model's :class:`~repro_torch.core.formats.FormatPolicy`, with
-bias and activation fused into the kernel's epilogue.  Parameters are plain
-dictionaries of tensors, as in the JAX package.  ``init_*`` functions draw
-from the same distributions as JAX's, from an explicit ``torch.Generator``
-(so not the same bits).
+bias and activation fused into the kernel's epilogue.  With
+``cfg.use_graph`` (the default) the MLP block runs as ONE compiled
+:mod:`repro_torch.graph` program (:func:`_mlp_compiled`).  Parameters are
+plain dictionaries of tensors, as in the JAX package.  ``init_*``
+functions draw from the same distributions as JAX's, from an explicit
+``torch.Generator`` (so not the same bits).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.core.formats import to_torch_dtype
 
 __all__ = ["dense", "rmsnorm", "rope", "init_dense", "init_norm", "mlp",
            "init_mlp", "init_embedding", "embed", "unembed", "model_format",
-           "check_backend", "compute_dtype"]
+           "check_backend", "compute_dtype", "use_graph"]
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -41,9 +43,14 @@ def check_backend(cfg) -> None:
             "(ROADMAP queue A: the 'torch' backend)")
     if cfg.gemm_backend != "kernels":
         raise ValueError(f"unknown gemm_backend {cfg.gemm_backend!r}")
-    if cfg.use_graph:
-        raise NotImplementedError("use_graph=True needs the repro.graph "
-                                  "port (ROADMAP A7)")
+
+
+def use_graph(cfg) -> bool:
+    """True when layer pipelines execute as compiled
+    :mod:`repro_torch.graph` programs: ``cfg.use_graph`` on the kernel
+    backend (the program's decisions are plan-cache grants)."""
+    return (bool(getattr(cfg, "use_graph", False))
+            and cfg.gemm_backend == "kernels")
 
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -116,14 +123,72 @@ def init_mlp(gen: torch.Generator, cfg, device=None):
     }
 
 
-def mlp(x: torch.Tensor, p, cfg) -> torch.Tensor:
-    """Gated MLP, eager: gate (fused activation) · up → down."""
+def _mlp_act(cfg) -> str:
     act = {"swiglu": "silu", "geglu": "gelu"}.get(cfg.mlp_type)
     if act is None:
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is ROADMAP A10")
+    return act
+
+
+def mlp(x: torch.Tensor, p, cfg) -> torch.Tensor:
+    """Gated MLP: gate (fused activation) · up → down, eager or as one
+    compiled program."""
+    act = _mlp_act(cfg)
+    if use_graph(cfg):
+        return _mlp_compiled(x, p, cfg)
     g = dense(x, p["gate"], cfg, activation=act)
     u = dense(x, p["up"], cfg)
     return dense(g * u, p["down"], cfg)
+
+
+def _mlp_compiled(x: torch.Tensor, p, cfg) -> torch.Tensor:
+    """The gated MLP block as ONE compiled :mod:`repro_torch.graph`
+    program (``layers.py:173-226`` of the JAX package).
+
+    Same math as the eager path (each projection a GemmNode carrying the
+    dense epilogue), scheduled at program level: gate and up share the
+    input and become one grouped launch (B3) when the Hopper model says
+    grouping pays.  Memoized per (shape, format, type): repeat calls skip
+    graph construction."""
+    from repro_torch.graph import schedule as graph_schedule
+    from repro_torch.graph.trace import GraphBuilder
+
+    check_backend(cfg)
+    cdt = compute_dtype(cfg)
+    fmt = model_format(cfg)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    m, d = x2.shape
+    act = _mlp_act(cfg)
+    names = ("gate", "up", "down")
+    biased = tuple(n for n in names if "b" in p[n])
+
+    def build():
+        b = GraphBuilder()
+        xv = b.input((m, d), x2.dtype, "x")
+        wv = {n: b.input(p[n]["w"].shape, p[n]["w"].dtype, f"w_{n}")
+              for n in names}
+        bv = {n: b.input((p[n]["w"].shape[1],), "float32", f"b_{n}")
+              for n in biased}
+
+        def proj(src, n, activation="none"):
+            return b.gemm(src, wv[n], bias=bv.get(n),
+                          epilogue=Epilogue(has_bias=n in biased,
+                                            activation=activation),
+                          fmt=fmt.name, out_dtype=cdt,
+                          policy=cfg.gemm_policy, name=n)
+
+        h = b.mul(proj(xv, "gate", act), proj(xv, "up"))
+        b.output(proj(h, "down"))
+        return b.build()
+
+    key = ("mlp", cfg.mlp_type, m, d, cfg.d_ff, fmt.name, str(cdt),
+           cfg.gemm_policy, biased, str(x2.dtype),
+           str(p[names[0]]["w"].dtype))
+    prog = graph_schedule.compile_cached(key, build)
+    args = [x2] + [p[n]["w"] for n in names] \
+        + [p[n]["b"].float() for n in biased]
+    return prog(*args).reshape(*lead, -1)
 
 
 def init_embedding(gen: torch.Generator, cfg, device=None):

@@ -20,8 +20,15 @@ engine's ``async_steps=False`` structure, step for step.
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: ``async_steps=True`` / ``pipeline_depth > 1`` and ``spec_k ≥ 2``
 (ROADMAP A8), ``fault``, deadlines, load shedding, ``watchdog_s``,
-``prefix_index_path``, ``plan_cache_path`` (A6/A4), ``slo_monitor`` (A9),
-and the grouped decode q/k/v (``grouped_qkv``, B3).
+``prefix_index_path``, ``plan_cache_path`` (A6/A4) and ``slo_monitor``
+(A9).
+
+The grouped decode q/k/v (``grouped_qkv``) defaults as in JAX: on with the
+kernel backend.  Then every attention layer gains a prestacked
+(3, D, Nmax) ``qkv`` weight (:func:`_stack_decode_qkv`) and the decode
+step projects q/k/v as ONE grouped GEMM (B3) over it, whenever
+:func:`repro_torch.models.attention.grouped_decode` says the path takes
+it (the graph path under the MTE policy).
 
 Weights: the engine keeps the projection weights, and the embedding table
 when the compute dtype equals the operand dtype, already cast to the
@@ -42,6 +49,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.geometry import cdiv
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import (compute_dtype, model_format,
                                        unembed_operand_dtype)
@@ -52,6 +60,28 @@ from repro_torch.serving.resilience import (CapacityExceeded,
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler
 
 __all__ = ["Request", "ServingEngine", "serving_params"]
+
+
+def _stack_decode_qkv(params):
+    """Precompute the grouped decode-projection layout
+    (``engine.py:136-163`` of the JAX package): every attention mixer
+    gains a stacked (3, D, Nmax) ``qkv`` weight
+    (:func:`repro_torch.graph.stack_group_weights`, the same stacking the
+    GroupNode path executes), so the decode step reads the grouped operand
+    directly instead of re-padding q/k/v on every step; prefill ignores
+    the extra leaf.  Shallow copies; the caller's tree is untouched."""
+    from repro_torch.graph import stack_group_weights
+
+    def aug_layer(lp):
+        m = lp.get("mixer")
+        if not (isinstance(m, dict) and {"q", "k", "v"} <= m.keys()):
+            return lp
+        m = dict(m)
+        m["qkv"] = stack_group_weights([m["q"]["w"], m["k"]["w"],
+                                        m["v"]["w"]])
+        return {**lp, "mixer": m}
+
+    return {**params, "layers": [aug_layer(lp) for lp in params["layers"]]}
 
 
 @dataclasses.dataclass
@@ -135,7 +165,6 @@ class ServingEngine:
             "prefix_index_path (ROADMAP A6)": prefix_index_path is not None,
             "plan_cache_path (ROADMAP A4)": plan_cache_path is not None,
             "slo_monitor (ROADMAP A9)": slo_monitor is not None,
-            "grouped_qkv=True (ROADMAP B3)": bool(grouped_qkv),
         }
         asked = [name for name, on in queued.items() if on]
         if asked:
@@ -149,12 +178,17 @@ class ServingEngine:
         if kv_format is not None:
             from repro_torch.core.formats import resolve_format
             resolve_format(kv_format)
+        if grouped_qkv is None:
+            grouped_qkv = (cfg.gemm_backend == "kernels"
+                           or cfg.decode_qkv_grouped)
         cache_len = cdiv(cache_len, page_size) * page_size
         cfg = dataclasses.replace(cfg, cache_quant=False,
                                   kv_cache_format=kv_format,
-                                  decode_qkv_grouped=False)
+                                  decode_qkv_grouped=bool(grouped_qkv))
         self.cfg = cfg
         self.params = serving_params(params, cfg)
+        if attn_mod.grouped_decode(cfg):
+            self.params = _stack_decode_qkv(self.params)
         self.slots = slots
         self.cache_len = cache_len
         self.prefill_len = prefill_len
@@ -246,9 +280,10 @@ class ServingEngine:
         return out
 
     def metrics(self) -> Dict[str, float]:
-        """Scheduler counters plus pool sharing state and plan-cache
-        hit counts."""
+        """Scheduler counters plus pool sharing state, plan-cache hit
+        counts and compiled-program counts."""
         from repro_torch.core import autotune
+        from repro_torch.graph import schedule as graph_schedule
         m = dict(self.sched.metrics())
         pool = self.sched.pool
         m.update(slots=self.slots, page_size=self.page_size,
@@ -264,6 +299,9 @@ class ServingEngine:
         cs = autotune.cache_stats()
         m.update(plan_cache_hits=cs.hits, plan_cache_misses=cs.misses,
                  plan_solver_calls=cs.solver_calls)
+        ps = graph_schedule.program_stats()
+        m.update(graph_programs_compiled=ps["compiles"],
+                 graph_program_hits=ps["hits"])
         return m
 
     # -- scheduler ------------------------------------------------------------

@@ -99,3 +99,80 @@ def test_attention_kernels_match_plain(card):
         got = tattn.flash_attention_kernel(qa.to(card), ka.to(card),
                                            va.to(card), **kw)
         _close(got, want, 1e-5)
+
+
+tgrouped = LazyModule("repro_torch.kernels.grouped_gemm")
+trigid = LazyModule("repro_torch.kernels.rigid_gemm")
+
+
+@pytest.mark.parametrize("dtype,acc", [("float32", None),
+                                       ("bfloat16", None),
+                                       ("bfloat16", "bfloat16"),
+                                       ("int8", None)])
+def test_grouped_gemm_kernel_matches_plain(card, dtype, acc):
+    """B3 against its plain version: ragged C/N/K, a shared x (group
+    stride 0) with member widths, and a per-group x."""
+    dt = getattr(torch, dtype)
+    acc = getattr(torch, acc) if acc else None
+    gen = torch.Generator().manual_seed(3)
+    before = build.launch_counts()["grouped_gemm"]
+    for g, c, n, k, shared in [(3, 4, 300, 130, True), (2, 70, 90, 1000,
+                                                        False)]:
+        if dt == torch.int8:
+            x = torch.randint(-127, 128, (g, c, k), generator=gen,
+                              dtype=dt)
+            w = torch.randint(-127, 128, (g, k, n), generator=gen,
+                              dtype=dt)
+            epi, out_dt, tol = tepilogue.Epilogue(), torch.int32, 0.0
+        else:
+            x = (torch.randn(g, c, k, generator=gen) / k ** 0.5).to(dt)
+            w = torch.randn(g, k, n, generator=gen).to(dt)
+            epi = tepilogue.Epilogue(activation="gelu", softcap=20.0)
+            out_dt = torch.float32
+            tol = 1e-4 if dt == torch.float32 else 3e-2
+        widths = None
+        if shared:
+            x = x[:1].expand(g, c, k)
+            widths = [n, 40, 129]
+        bm, bn = (16, 128) if c <= 16 else (64, 64)
+        sew = tgeometry.SEW.E32
+        geo = tgeometry.BlockGeometry(bm, bn, 64, 1, 1, False, sew, sew,
+                                      "mte")
+        kw = dict(geom=geo, epilogue=epi, out_dtype=out_dt, acc_dtype=acc,
+                  widths=widths)
+        want = tgrouped.grouped_gemm_torch(x, w, **kw)
+        got = tgrouped.grouped_gemm_kernel(x.to(card), w.to(card), **kw)
+        _close(got, want, tol)
+    assert build.launch_counts()["grouped_gemm"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_rigid_gemm_kernels_match_plain(card, dtype):
+    """Both halves of B8 against their plain versions, with C, bias,
+    softcap and an activation (int8: identity epilogue, int32 exact)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(4)
+    counts = build.launch_counts()
+    for m, n, k in [(4, 300, 1000), (130, 257, 65)]:
+        if dt == torch.int8:
+            a = torch.randint(-127, 128, (m, k), generator=gen, dtype=dt)
+            b = torch.randint(-127, 128, (k, n), generator=gen, dtype=dt)
+            want = trigid.rigid_gemm_torch(a, b, out_dtype=torch.int32)
+            got = trigid.rigid_gemm_kernel(a.to(card), b.to(card),
+                                           out_dtype=torch.int32)
+            _close(got, want, 0.0)
+            continue
+        a = (torch.randn(m, k, generator=gen) / k ** 0.5).to(dt)
+        b = torch.randn(k, n, generator=gen).to(dt)
+        c = torch.randn(m, n, generator=gen)
+        bias = torch.randn(n, generator=gen)
+        epi = tepilogue.Epilogue(alpha=0.7, beta=0.5, has_bias=True,
+                                 softcap=20.0, activation="silu")
+        want = trigid.rigid_gemm_torch(a, b, c, bias, epilogue=epi)
+        got = trigid.rigid_gemm_kernel(a.to(card), b.to(card), c.to(card),
+                                       bias.to(card), epilogue=epi)
+        _close(got, want, 1e-4 if dt == torch.float32 else 1e-3)
+    after = build.launch_counts()
+    assert after["rigid_gemm"] == counts["rigid_gemm"] + 2
+    assert after["epilogue_pass"] == counts["epilogue_pass"] + (
+        0 if dt == torch.int8 else 2)

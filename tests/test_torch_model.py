@@ -31,8 +31,9 @@ def test_greedy_tokens_equal_over_16_decode_steps():
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_gemma_2b_config_matches_jax(reduced):
-    """Every field equal, full width and ``reduced()``, except the two
-    execution knobs whose defaults the port changes on purpose."""
+    """Every field equal, full width and ``reduced()``, except the
+    execution knob whose default the port changes on purpose (the kernel
+    backend's name); ``use_graph`` defaults to True in both."""
     import dataclasses
     from repro.configs import get_config as jget
     from repro_torch.configs import get_config as tget
@@ -42,8 +43,8 @@ def test_gemma_2b_config_matches_jax(reduced):
     names = {f.name for f in dataclasses.fields(j)}
     assert names == {f.name for f in dataclasses.fields(t)}
     differ = {k for k in names if getattr(j, k) != getattr(t, k)}
-    assert differ == {"gemm_backend", "use_graph"}
-    assert (t.gemm_backend, t.use_graph) == ("kernels", False)
+    assert differ == {"gemm_backend"}
+    assert (t.gemm_backend, t.use_graph) == ("kernels", True)
     with pytest.raises(ValueError, match="format_policy"):
         dataclasses.replace(t, format_policy="fp8")
     with pytest.raises(ValueError, match="n_kv_heads"):
@@ -59,11 +60,11 @@ def test_port_refuses_unported_layer_kinds_and_configs():
         torch_model.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="queue A"):
         get_config("gemma2_27b")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="queue A"):
         torch_model.prefill_chunk(
             torch_model.init_params(torch_cfg(), device="cpu"),
             {"tokens": torch.zeros(1, 4, dtype=torch.int64),
              "page_table": torch.ones(1, 2, dtype=torch.int32)},
             torch_model.init_paged_cache(torch_cfg(), 1, 8, num_pages=3,
                                          page_size=4, device="cpu"),
-            dataclasses.replace(torch_cfg(), use_graph=True), pos0=0)
+            dataclasses.replace(torch_cfg(), gemm_backend="torch"), pos0=0)

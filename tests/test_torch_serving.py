@@ -173,7 +173,7 @@ def test_prefix_cache_fp32_bit_identical_on_and_off():
 
 @pytest.mark.parametrize("kw", [dict(async_steps=True), dict(spec_k=2),
                                 dict(deadline_ms=5.0),
-                                dict(grouped_qkv=True),
+                                dict(watchdog_s=1.0),
                                 dict(shed_queue_depth=1)])
 def test_engine_refuses_unported_options(kw):
     cfg = torch_cfg()

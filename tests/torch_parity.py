@@ -50,7 +50,10 @@ def jax_cfg(**kw):
 
 
 def torch_cfg(**kw):
+    """gemma_2b.reduced() on the port's side, pinned like :func:`jax_cfg`
+    to the eager path (no graph programs) unless ``use_graph`` is given."""
     from repro_torch.configs import get_config
+    kw.setdefault("use_graph", False)
     return dataclasses.replace(get_config("gemma_2b").reduced(), **kw)
 
 
