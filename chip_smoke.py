@@ -11,26 +11,31 @@ Phases (any failure raises and the script exits non-zero):
 2. Kernels against their plain PyTorch versions on the card: B1
    ``mte_gemm``, B2 ``splitk_gemm``, B3 ``grouped_gemm``, both halves of
    B8 (``rigid_gemm``, ``epilogue_pass``), B4 ``flash_decode_paged``, B5
-   ``flash_attention`` — at the exact shapes the serving phase launches
-   (bf16) and at small ragged shapes in every mode each kernel takes.  Each
+   ``flash_attention``, B6 ``flash_decode`` (ring), B7 ``rglru_scan`` —
+   at the exact shapes the serving phase launches (bf16; f32 for B7) and
+   at small ragged shapes in every mode each kernel takes.  Each
    prints its max error beside the tolerance; the main-path shapes also
    print the kernel time (CUDA events, median of 10), its bound
    (max(operations / peak, bytes / 3.35 TB/s)), the plain version's time
    and the time of one library call for the same function
    (``torch.matmul``, ``torch.bmm`` on the stacked operands,
-   ``F.gelu`` or ``F.scaled_dot_product_attention``), timed only as a
-   yardstick.
+   ``F.gelu`` or ``F.scaled_dot_product_attention``; none for B7), timed
+   only as a yardstick.
 3. The whole path held against the CPU: gemma_2b.reduced() in fp32 with
    one seed, served by the port's engine on the card (kernels) and on the
    CPU (plain versions), in the default configuration (graph programs +
-   the grouped decode q/k/v) and under ``gemm_policy="amx"``: first-token
-   logits within 1e-3, identical greedy token streams.
-4. Full-width serving: gemma_2b (18 layers, d_model 2048, vocab 256000) in
-   bf16 with seeded random weights, 4 slots, 16-token pages, 1024-token
-   prompts in 512-token chunks, 6 requests × 24 greedy tokens, two
-   sharing their first 512 tokens, in three configurations
-   (``CONFIGS``): the defaults, the rigid ``amx`` policy and slice 1's
-   eager path.  For each, launch counters are zeroed just before the
+   the grouped decode q/k/v) and under ``gemm_policy="amx"``, and
+   recurrentgemma_9b.reduced() in the default configuration (prompts
+   longer than its 16-slot ring, chunks of 8): first-token logits within
+   1e-3, identical greedy token streams.
+4. Full-width serving (``CONFIGS``, ``WORKLOADS``) in bf16 with seeded
+   random weights, 4 slots, 16-token pages, 512-token prefill chunks, 6
+   requests × 24 greedy tokens: gemma_2b (18 layers, d_model 2048, vocab
+   256000; 1024-token prompts, two sharing their first 512 tokens) in
+   three configurations — the defaults, the rigid ``amx`` policy and
+   slice 1's eager path — then recurrentgemma_9b (38 layers, d_model 4096;
+   2560-token prompts, so its 2048-slot rings wrap in prefill and decode)
+   in the defaults.  For each, launch counters are zeroed just before the
    run and read just after (every kernel of that path must have
    launched), and it prints decode ms per step, prefill tokens/s, peak
    memory, each compiled program's grouping decision and plans, and a
@@ -554,15 +559,123 @@ def attention_phase(dev, rows):
             f"sdpa {row['library_ms']:.4f} ms")
 
 
+def ring_decode_phase(dev, rows):
+    """B6 against its plain version: small ragged cases (G = 4, S not a
+    multiple of the 16-slot chunk, -1 slots, window and softcap, an empty
+    row), then the full-width decode of recurrentgemma_9b's local layers:
+    4 slots x 16 query heads on 1 kv head x D 256 over a wrapped
+    2048-slot bf16 ring, read through its (B, L, Hkv, D) storage."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import (flash_decode_kernel,
+                                                  flash_decode_torch)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def ring(b, length, hkv, d, q_pos, dtype):
+        k = torch.randn(b, length, hkv, d, generator=gen, device=dev)
+        v = torch.randn(b, length, hkv, d, generator=gen, device=dev)
+        qp = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+        idx = torch.arange(length, device=dev)
+        kvp = qp[:, None] - (qp[:, None] - idx) % length
+        kvp = torch.where(kvp >= 0, kvp, -1).to(torch.int32)
+        return (k.to(dtype).transpose(1, 2), v.to(dtype).transpose(1, 2),
+                kvp, qp)
+
+    for label, dtype, tol in [("fp32", torch.float32, 1e-5),
+                              ("bf16", torch.bfloat16, 1e-2)]:
+        for kw in [{}, {"window": 9, "softcap": 5.0}]:
+            k, v, kvp, qp = ring(4, 37, 2, 64, [60, 20, 5, 36], dtype)
+            kvp[3] = -1                      # an empty row: zeros out
+            q = torch.randn(4, 8, 64, generator=gen, device=dev).to(dtype)
+            got = flash_decode_kernel(q, k, v, kvp, qp, **kw)
+            want = flash_decode_torch(q, k, v, kvp, qp, **kw)
+            check(f"flash_decode {label} ring S=37 G=4 {kw or 'plain'}",
+                  got, want, tol)
+            require(float(got[3].float().abs().max()) == 0.0,
+                    "flash_decode: an empty row must give zeros")
+
+    # The serving run's decode of a local layer: positions past the wrap.
+    b, h, hkv, d, length = 4, 16, 1, 256, 2048
+    q_pos = [2570, 2581, 2564, 2587]
+    k, v, kvp, qp = ring(b, length, hkv, d, q_pos, torch.bfloat16)
+    q = torch.randn(b, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(window=2048)
+    run = lambda: flash_decode_kernel(q, k, v, kvp, qp, **kw)  # noqa: E731
+    plain = lambda: flash_decode_torch(q, k, v, kvp, qp, **kw)  # noqa: E731
+    err = check("flash_decode main-path bf16 4x16x256 ring L=2048",
+                run(), plain(), 1e-2)
+    kvl = kvp.long()[:, None, None, :]
+    qpl = qp.long()[:, None, None, None]
+    mask = (kvl >= 0) & (kvl <= qpl) & (kvl > qpl - kw["window"])
+    qs = q[:, :, None, :]
+    kx, vx = k.expand(b, h, length, d), v.expand(b, h, length, d)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, kx, vx, attn_mask=mask)
+    visible = int(mask.sum())
+    flops = 4.0 * visible * h * d
+    nbytes = (2.0 * (2 * visible * hkv * d + 2 * b * h * d)
+              + 4 * (kvp.numel() + b))
+    row = {"kernel": "flash_decode", "shape": "ring 4x16x256 L=2048",
+           "max_abs_err": err, "tol": 1e-2, "ms": time_ms(run),
+           "plain_ms": time_ms(plain),
+           "bound_ms": bound_ms(flops, nbytes, PEAK["bf16"]),
+           "bound_by": bound_by(flops, nbytes, PEAK["bf16"]),
+           "library_ms": time_ms(lib)}
+    rows.append(row)
+    log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+        f"sdpa {row['library_ms']:.4f} ms")
+
+
+def rglru_phase(dev, rows):
+    """B7 against its plain version, bit for bit: ragged S (not a multiple
+    of the Pallas kernel's 64-step chunks) at W = 48, then the serving
+    prefill's (1, 512, 4096) f32.  No single PyTorch call computes this
+    recurrence, so it has no library time."""
+    import torch
+    from repro_torch.kernels.rglru_scan import (rglru_scan_kernel,
+                                                rglru_scan_torch)
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def inputs(b, s, w):
+        a = torch.rand(b, s, w, generator=gen, device=dev) * 0.5 + 0.5
+        return a, torch.randn(b, s, w, generator=gen, device=dev)
+
+    for b, s, w in [(2, 1, 48), (2, 63, 48), (3, 100, 48), (1, 70, 4100)]:
+        a, x = inputs(b, s, w)
+        check(f"rglru_scan {b}x{s}x{w}", rglru_scan_kernel(a, x),
+              rglru_scan_torch(a, x), 0.0)
+    a, x = inputs(1, 512, 4096)
+    run = lambda: rglru_scan_kernel(a, x)  # noqa: E731
+    plain = lambda: rglru_scan_torch(a, x)  # noqa: E731
+    err = check("rglru_scan main-path 1x512x4096 f32", run(), plain(), 0.0)
+    flops = 2.0 * a.numel()
+    nbytes = 12.0 * a.numel()
+    row = {"kernel": "rglru_scan", "shape": "1x512x4096",
+           "max_abs_err": err, "tol": 0.0, "ms": time_ms(run),
+           "plain_ms": time_ms(plain),
+           "bound_ms": bound_ms(flops, nbytes, PEAK["fp32"]),
+           "bound_by": bound_by(flops, nbytes, PEAK["fp32"]),
+           "library_ms": None}
+    rows.append(row)
+    log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+        f"library none (no single PyTorch call computes the recurrence)")
+
+
 # -- phase 3: the whole path on the card against the CPU -----------------------
 
-# The configurations phase 3 and phase 4 serve: the port's defaults (the
-# JAX package's kernel configuration: graph programs + the grouped decode
-# q/k/v), the rigid AMX-style baseline, and slice 1's eager path.
+# The configurations phase 3 and phase 4 serve, each (arch, overrides):
+# gemma_2b in the port's defaults (the JAX package's kernel
+# configuration: graph programs + the grouped decode q/k/v), under the
+# rigid AMX-style baseline and on slice 1's eager path; recurrentgemma_9b
+# in the defaults (its weights built in bf16: in f32 they would take 37.6
+# GB before the engine's cast).
 CONFIGS = {
-    "default": {},
-    "amx": {"gemm_policy": "amx"},
-    "eager": {"use_graph": False},
+    "default": ("gemma_2b", {}),
+    "amx": ("gemma_2b", {"gemm_policy": "amx"}),
+    "eager": ("gemma_2b", {"use_graph": False}),
+    "recurrentgemma": ("recurrentgemma_9b", {"param_dtype": "bfloat16"}),
 }
 # Kernels each configuration's main path must launch.
 PATH_KERNELS = {
@@ -572,6 +685,20 @@ PATH_KERNELS = {
             "flash_attention"),
     "eager": ("mte_gemm", "splitk_gemm", "flash_decode_paged",
               "flash_attention"),
+    "recurrentgemma": ("mte_gemm", "splitk_gemm", "grouped_gemm",
+                       "flash_decode", "rglru_scan"),
+}
+# Phase 4's workload per arch: 4 slots, 16-token pages, 512-token prefill
+# chunks, 6 requests x 24 greedy tokens.  gemma_2b: 1024-token prompts, two
+# sharing their first chunk (the prefix cache).  recurrentgemma_9b:
+# 2560-token prompts, so the 2048-slot ring wraps in prefill (the chunk
+# at 2048) and in decode; no prefix cache (stateful layers).  ``decode``
+# and ``pos0`` place the profiled decode step and prefill chunk.
+WORKLOADS = {
+    "gemma_2b": dict(prefill_len=1024, cache_len=1088, shared=512,
+                     decode=[1030, 1041, 1024, 1047], pos0=512),
+    "recurrentgemma_9b": dict(prefill_len=2560, cache_len=2592, shared=0,
+                              decode=[2570, 2581, 2564, 2587], pos0=2048),
 }
 
 
@@ -584,6 +711,14 @@ def reset_planning():
     schedule.reset_programs()
 
 
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
 def reduced_phase(dev):
     import numpy as np
     import torch
@@ -594,15 +729,7 @@ def reduced_phase(dev):
 
     base = get_config("gemma_2b").reduced()       # fp32
     params_cpu = model_lib.init_params(base, seed=0, device="cpu")
-
-    def to(tree, device):
-        if isinstance(tree, dict):
-            return {k: to(v, device) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, device) for v in tree]
-        return tree.to(device)
-
-    params_gpu = to(params_cpu, dev)
+    params_gpu = to_device(params_cpu, dev)
     rng = np.random.default_rng(0)
     head = rng.integers(0, base.vocab, 24, dtype=np.int32)
     prompts = [np.concatenate([head, rng.integers(0, base.vocab, 8,
@@ -613,7 +740,7 @@ def reduced_phase(dev):
               prefill_chunk=16)
 
     for name in ("default", "amx"):
-        cfg = dataclasses.replace(base, **CONFIGS[name])
+        cfg = dataclasses.replace(base, **CONFIGS[name][1])
         reset_planning()
         # First-token logits of one prompt through both chunks.
         logits = {}
@@ -657,11 +784,72 @@ def reduced_phase(dev):
             f"and cpu")
 
 
+def reduced_recurrent_phase(dev):
+    """recurrentgemma_9b.reduced() in fp32, default configuration, card
+    against CPU: 32-token prompts (twice the 16-slot ring) in chunks of 8,
+    first-token logits within 1e-3, identical greedy streams from the
+    engine (3 requests on 2 slots, so one prefills while others decode)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = get_config("recurrentgemma_9b").reduced()      # fp32
+    reset_planning()
+    params_cpu = model_lib.init_params(cfg, seed=0, device="cpu")
+    params_gpu = to_device(params_cpu, dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n_tok, dtype=np.int32)
+               for n_tok in (32, 9, 30, 17)]
+    logits = {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        cache = model_lib.init_paged_cache(cfg, 2, 64, num_pages=17,
+                                           page_size=8, device=device)
+        table = torch.arange(1, 9, dtype=torch.int32, device=device)[None]
+        toks = torch.as_tensor(prompts[0].astype(np.int64), device=device)
+        for p0 in range(0, 32, 8):
+            out, cache = model_lib.prefill_chunk(
+                params, {"tokens": toks[None, p0:p0 + 8],
+                         "page_table": table, "slot": 1}, cache, cfg,
+                pos0=p0)
+        logits[str(device)] = out.cpu()
+    err = max_err(logits[str(dev)], logits["cpu"])
+    log(f"  reduced recurrentgemma fp32 first-token logits cuda vs cpu: "
+        f"max_abs_err={err:.3e} tol=1e-3")
+    require(err <= 1e-3, f"recurrentgemma first-token logits differ by {err}")
+    outs = {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        eng = ServingEngine(params, cfg, device=device, slots=2,
+                            cache_len=64, prefill_len=32, page_size=8,
+                            prefill_chunk=8)
+        for rid, p in enumerate(prompts[1:]):
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
+        build.reset_launch_counts()
+        outs[str(device)] = eng.run()
+        counts = build.launch_counts()
+        log(f"  reduced recurrentgemma engine on {device}: "
+            f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
+            f"launches {counts}")
+        if device == dev:
+            for kernel in ("grouped_gemm", "flash_decode", "rglru_scan"):
+                require(counts[kernel] > 0,
+                        f"reduced recurrentgemma: {kernel} not launched")
+    for rid in outs["cpu"]:
+        require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
+        require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
+                f"recurrentgemma greedy stream of request {rid} differs")
+    log("  reduced recurrentgemma engine: greedy streams identical on cuda "
+        "and cpu")
+
+
 # -- phase 4: full-width serving ---------------------------------------------
 
 def serving_phase(dev, name):
-    """Serve full-width gemma_2b (bf16, seed 0) in configuration ``name``;
-    launch counters are zeroed just before ``run`` and read just after."""
+    """Serve configuration ``name`` at full width (bf16, seed 0) on its
+    arch's workload (``WORKLOADS``); launch counters are zeroed just
+    before ``run`` and read just after."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -671,14 +859,16 @@ def serving_phase(dev, name):
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import Request, ServingEngine
 
-    cfg = dataclasses.replace(get_config("gemma_2b"), **CONFIGS[name])
+    arch, overrides = CONFIGS[name]
+    work = WORKLOADS[arch]
+    cfg = dataclasses.replace(get_config(arch), **overrides)
     max_tokens = 24
     reset_planning()
     t0 = time.perf_counter()
     params = model_lib.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    log(f"  gemma_2b params: {model_lib.param_count(params) / 1e9:.3f} B "
-        f"(f32), init {time.perf_counter() - t0:.1f} s")
+    log(f"  {arch} params: {model_lib.param_count(params) / 1e9:.3f} B "
+        f"({cfg.param_dtype}), init {time.perf_counter() - t0:.1f} s")
 
     timing = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
               "decode_steps": 0, "decode_tokens": 0}
@@ -704,16 +894,20 @@ def serving_phase(dev, name):
             timing["decode_steps"] += 1
             timing["decode_tokens"] += len(decoding)
 
-    eng = TimedEngine(params, cfg, slots=4, page_size=16, prefill_len=1024,
-                      cache_len=1088, prefill_chunk=512, device=dev)
+    eng = TimedEngine(params, cfg, slots=4, page_size=16,
+                      prefill_len=work["prefill_len"],
+                      cache_len=work["cache_len"], prefill_chunk=512,
+                      device=dev)
     del params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, 1024, dtype=np.int32)
-               for _ in range(6)]
-    # Request 4 is admitted when 0 finishes and aliases its first chunk.
-    prompts[4][:512] = prompts[0][:512]
+    prompts = [rng.integers(0, cfg.vocab, work["prefill_len"],
+                            dtype=np.int32) for _ in range(6)]
+    if work["shared"]:
+        # Request 4 is admitted when 0 finishes and aliases its first
+        # chunk.
+        prompts[4][:work["shared"]] = prompts[0][:work["shared"]]
     torch.cuda.synchronize()
     build.reset_launch_counts()
     t = time.perf_counter()
@@ -744,7 +938,8 @@ def serving_phase(dev, name):
         require(resp.status == "ok", resp)
         require(len(resp) == max_tokens, (rid, len(resp)))
         require(all(0 <= tok < cfg.vocab for tok in resp), rid)
-    require(m["prefix_hit_pages"] > 0, m)
+    if work["shared"]:
+        require(m["prefix_hit_pages"] > 0, m)
     for kernel in PATH_KERNELS[name]:
         require(counts[kernel] > 0,
                 f"[{name}] {kernel} was never launched on the main path")
@@ -777,15 +972,17 @@ def serving_phase(dev, name):
     for plan in plans:
         log(f"  [{name}] plan {plan[0]}x{plan[1]}x{plan[2]} G={plan[3]}: "
             f"{plan[4]}")
-    profile = profile_steps(eng, dev)
+    profile = profile_steps(eng, dev, work)
     summary = {
-        "config": name, "requests": len(out), "max_tokens": max_tokens,
+        "config": name, "arch": arch, "requests": len(out),
+        "max_tokens": max_tokens,
         "prefill_tokens_per_s": timing["prefill_tokens"]
         / timing["prefill_s"],
         "decode_tokens_per_s": timing["decode_tokens"] / timing["decode_s"],
         "ms_per_decode_step": 1e3 * timing["decode_s"]
         / timing["decode_steps"],
         "decode_steps": timing["decode_steps"],
+        "prefill_chunks": timing["prefill_tokens"] // 512,
         "peak_memory_gib": peak / 2**30, "wall_s": wall,
         "prefix_hit_pages": m["prefix_hit_pages"],
         "launch_counts": counts, "programs": programs,
@@ -798,50 +995,72 @@ def serving_phase(dev, name):
 def step_bounds(eng, positions, chunk: int, pos0: int):
     """Least device time of one decode step (a token at each of
     ``positions``) and of one ``chunk``-token prefill chunk at ``pos0``:
-    max(operations / bf16 peak, bytes / HBM rate), each weight and KV
-    byte read once, at the widths the engine holds them in."""
+    max(operations / bf16 peak, bytes / HBM rate).  Bytes: every weight
+    read once at the width the engine holds it in (not the stacked decode
+    q/k/v), the f32 LM-head copy, the KV the step attends to (a global
+    layer's whole prefix, a local layer's ring slots inside the window),
+    and each RG-LRU state row read and written.  Operations: the GEMMs
+    and the (query, key) pairs the masks let through."""
+    from repro_torch.core.formats import to_torch_dtype
     cfg, params = eng.cfg, eng.params
-    weights = [d["w"] for lp in params["layers"]
-               for grp in ("mixer", "ffn") for d in lp[grp].values()
-               if isinstance(d, dict)]      # not the stacked decode qkv
+    weights = [leaf["w"] for lp in params["layers"]
+               for grp in ("mixer", "ffn") for leaf in lp[grp].values()
+               if isinstance(leaf, dict) and "w" in leaf]
     w_params = sum(w.numel() for w in weights)
     w_bytes = sum(w.numel() * w.element_size() for w in weights)
     head = params["embedding"]["unembed"]
     head_bytes = head.numel() * head.element_size()
-    kv = eng.cache["layers"][0]["k_pages"]
-    kv_row = 2 * cfg.n_kv_heads * cfg.hd * kv.element_size() * cfg.n_layers
-    attn = 4 * cfg.n_heads * cfg.hd * cfg.n_layers   # FLOP per (q, kv) pair
-    seen = sum(p + 1 for p in positions)
-    dec_flops = (2 * len(positions) * (w_params + head.numel())
-                 + attn * seen)
-    dec_bytes = w_bytes + head_bytes + kv_row * seen
-    pairs = chunk * pos0 + chunk * (chunk + 1) // 2
-    pre_flops = 2 * chunk * w_params + attn * pairs + 2 * head.numel()
-    pre_bytes = w_bytes + head_bytes + kv_row * (pos0 + chunk)
+    elt = to_torch_dtype(cfg.compute_dtype).itemsize
+    kv_row = 2 * cfg.n_kv_heads * cfg.hd * elt    # one position, one layer
+    pair = 4 * cfg.n_heads * cfg.hd               # FLOP per (q, kv) pair
+    kinds = [mixer for mixer, _ in cfg.layer_kinds]
+    n_attn, n_local = kinds.count("attn"), kinds.count("local")
+    n_rglru = kinds.count("rglru")
+    window = cfg.window or 0
+
+    def seen(p, kind):                            # keys visible to query p
+        return p + 1 if kind == "attn" else min(p + 1, window)
+
+    dec_pairs = sum(n_attn * seen(p, "attn") + n_local * seen(p, "local")
+                    for p in positions)
+    rg = cfg.rglru                  # h in f32, the conv tail, both ways
+    rg_state = (2 * n_rglru * rg.width * (4 + rg.conv_width * elt)
+                if n_rglru else 0)
+    dec_flops = 2 * len(positions) * (w_params + head.numel()) \
+        + pair * dec_pairs
+    dec_kv = kv_row * dec_pairs
+    dec_bytes = w_bytes + head_bytes + dec_kv + rg_state * len(positions)
+    pre_pairs = sum(n_attn * seen(p, "attn") + n_local * seen(p, "local")
+                    for p in range(pos0, pos0 + chunk))
+    pre_kv = kv_row * (n_attn * (pos0 + chunk)
+                       + n_local * (min(pos0, window) + chunk))
+    pre_flops = 2 * chunk * w_params + pair * pre_pairs + 2 * head.numel()
+    pre_bytes = w_bytes + head_bytes + pre_kv + rg_state
     return {"decode_step": {"bound_ms": bound_ms(dec_flops, dec_bytes,
                                                  PEAK["bf16"]),
                             "weight_gb": w_bytes / 1e9,
                             "lm_head_gb": head_bytes / 1e9,
-                            "kv_gb": kv_row * seen / 1e9},
+                            "kv_gb": dec_kv / 1e9},
             "prefill_chunk": {"bound_ms": bound_ms(pre_flops, pre_bytes,
                                                    PEAK["bf16"]),
                               "tflop": pre_flops / 1e12}}
 
 
-def profile_steps(eng, dev, steps: int = 10):
+def profile_steps(eng, dev, work, steps: int = 10):
     """``torch.profiler`` over a few full-width decode steps (4 slots at
-    ~1040 cached tokens, over pages left in the pool by the serving run)
-    and one 512-token prefill chunk: wall time per call, device busy time
-    (sum of kernel times), the device's idle share, the kernels that take
-    the most device time, and the call's bound (:func:`step_bounds`)."""
+    the workload's ``decode`` positions, over the cache the serving run
+    left) and one 512-token prefill chunk at ``pos0`` into slot 0: wall
+    time per call, device busy time (sum of kernel times), the device's
+    idle share, the kernels that take the most device time, and the
+    call's bound (:func:`step_bounds`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build
     from repro_torch.models import model as model_lib
 
     maxp = eng.sched.max_pages_per_seq
-    positions = [1030, 1041, 1024, 1047]
-    bounds = step_bounds(eng, positions, chunk=512, pos0=512)
+    positions = work["decode"]
+    bounds = step_bounds(eng, positions, chunk=512, pos0=work["pos0"])
     table = (1 + torch.arange(4 * maxp, dtype=torch.int32,
                               device=dev)).reshape(4, maxp)
     batch = {"tokens": torch.zeros(4, 1, dtype=torch.int32, device=dev),
@@ -849,6 +1068,8 @@ def profile_steps(eng, dev, steps: int = 10):
              "page_table": table}
     temps = torch.zeros(4, device=dev)
     active = torch.ones(4, dtype=torch.bool, device=dev)
+    if eng._stateful_rows:
+        batch["row_valid"] = active
 
     def decode():
         return model_lib.decode_and_sample(
@@ -858,8 +1079,8 @@ def profile_steps(eng, dev, steps: int = 10):
     def prefill():
         return model_lib.prefill_chunk(
             eng.params, {"tokens": batch["tokens"].new_zeros(1, 512).long(),
-                         "page_table": table[:1]}, eng.cache, eng.cfg,
-            pos0=512)
+                         "page_table": table[:1], "slot": 0}, eng.cache,
+            eng.cfg, pos0=work["pos0"])
 
     out = {}
     for name, fn, n in (("decode_step", decode, steps),
@@ -934,6 +1155,11 @@ KERNELS = [
      "src/repro/kernels/rigid_gemm.py:80", "gate 512x16384x2048", "amx"),
     ("epilogue_pass", "src/repro_torch/csrc/rigid_gemm.cu",
      "src/repro/kernels/rigid_gemm.py:43", "gelu 512x16384", "amx"),
+    ("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_decode.py:87", "ring 4x16x256 L=2048",
+     "recurrentgemma"),
+    ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
+     "src/repro/kernels/rglru_scan.py:45", "1x512x4096", "recurrentgemma"),
 ]
 
 
@@ -980,12 +1206,16 @@ def main() -> int:
     rigid_phase(dev, rows)
     decode_phase(dev, rows)
     attention_phase(dev, rows)
+    ring_decode_phase(dev, rows)
+    rglru_phase(dev, rows)
     log("== 3. reduced gemma_2b (fp32): card against CPU, default and amx")
     reduced_phase(dev)
+    log("== 3. reduced recurrentgemma_9b (fp32): card against CPU, default")
+    reduced_recurrent_phase(dev)
     counts, serving = {}, {}
-    for name in CONFIGS:
-        log(f"== 4. full-width gemma_2b serving (bf16), configuration "
-            f"[{name}] {CONFIGS[name] or '(defaults)'}")
+    for name, (arch, overrides) in CONFIGS.items():
+        log(f"== 4. full-width {arch} serving (bf16), configuration "
+            f"[{name}] {overrides or '(defaults)'}")
         counts[name], serving[name] = serving_phase(dev, name)
         log(f"  [{name}] serving summary: {json.dumps(serving[name])}")
 

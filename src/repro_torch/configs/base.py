@@ -202,7 +202,7 @@ ARCH_NAMES = [
     "musicgen_medium", "chameleon_34b", "gemma2_27b", "starcoder2_7b",
     "gemma_2b", "qwen15_4b", "mamba2_130m",
 ]
-PORTED_ARCHS = ("gemma_2b",)
+PORTED_ARCHS = ("gemma_2b", "recurrentgemma_9b")
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 

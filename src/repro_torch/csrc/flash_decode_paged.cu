@@ -16,7 +16,8 @@
 //   head) would keep 4 of 132 SMs busy walking ~65 chunks in order.  Each
 //   block walks its slice 16 logical positions at a time with an online
 //   softmax and writes its partial (max, denominator, accumulator); a
-//   second small kernel merges the slices of a (sequence, kv head).
+//   second small kernel (decode_combine.cuh) merges the slices of a
+//   (sequence, kv head).
 // - Each block reads its own page-table row.  Only positions the mask
 //   can reach are loaded (the sequence's length; the window when there is
 //   one): a slice wholly outside writes an empty partial.  A -1 table
@@ -26,7 +27,7 @@
 // - The TPU's 8-sublane head-group pad and 128-lane softmax scratch are
 //   gone: running max and sum live in shared memory per head, the output
 //   accumulator in registers.
-#include "common.cuh"
+#include "decode_combine.cuh"
 
 namespace {
 
@@ -160,35 +161,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Merge the KV slices of one (sequence, kv head) and write the output:
-// one thread per output element, THREADS of them per block (grid = B*Hkv x
-// the G*D elements in blocks of THREADS).
-__global__ void __launch_bounds__(THREADS)
-    paged_decode_combine_kernel(const float* part_m, const float* part_l,
-                                const float* part_acc, void* out,
-                                int out_type, int H, int Hkv, int D,
-                                int n_split) {
-  const int bh = blockIdx.x;
-  const int b = bh / Hkv, kvh = bh % Hkv;
-  const int G = H / Hkv;
-  const long base = static_cast<long>(bh) * n_split;
-  const int e = blockIdx.y * THREADS + threadIdx.x;
-  if (e < G * D) {
-    const int g = e / D;
-    float m = NEG_INF;
-    for (int s = 0; s < n_split; ++s)
-      m = fmaxf(m, part_m[(base + s) * G + g]);
-    float l = 0.0f, a = 0.0f;
-    for (int s = 0; s < n_split; ++s) {
-      const float w = expf(part_m[(base + s) * G + g] - m);
-      l += w * part_l[(base + s) * G + g];
-      a += w * part_acc[(base + s) * G * D + e];
-    }
-    store_from_f32(out, (static_cast<long>(b) * H + kvh * G) * D + e,
-                   out_type, a / (l == 0.0f ? 1.0f : l));
-  }
-}
-
 template <typename TKV>
 int launch(const void* q, int q_type, const void* kp, const void* vp,
            const float* ksc, const float* vsc, const int* table,
@@ -211,10 +183,8 @@ int launch(const void* q, int q_type, const void* kp, const void* vp,
       window, has_softcap, softcap, scale, chunks_per_split);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 merge_grid(B * Hkv, (G * D + THREADS - 1) / THREADS);
-  paged_decode_combine_kernel<<<merge_grid, THREADS, 0, st>>>(
-      part_m, part_l, part_acc, out, q_type, H, Hkv, D, n_split);
-  return static_cast<int>(cudaGetLastError());
+  return decode::launch_combine(part_m, part_l, part_acc, out, q_type, B, H,
+                                Hkv, D, n_split, st);
 }
 
 }  // namespace

@@ -43,7 +43,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # rigid product and its separate epilogue pass).
 KERNEL_NAMES = ("mte_gemm", "splitk_gemm", "grouped_gemm",
                 "flash_decode_paged", "flash_attention", "rigid_gemm",
-                "epilogue_pass")
+                "epilogue_pass", "flash_decode", "rglru_scan")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

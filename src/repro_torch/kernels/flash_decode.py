@@ -1,7 +1,7 @@
-"""B4: one-token attention over the paged KV pool — CUDA kernel and plain
-version.
+"""B4 and B6: one-token attention over the paged KV pool and over a flat
+or ring cache — CUDA kernels and plain versions.
 
-The kernel splits each sequence's KV axis over blocks (about two blocks
+Each kernel splits each sequence's KV axis over blocks (about two blocks
 per SM in all) and merges the slices' partial softmax states in a second
 small kernel of the same launch; the wrapper allocates the partials.
 
@@ -15,7 +15,15 @@ pages in the kernel.  Mask: ``kvpos < seq_len``, page mapped, and
 ``kvpos > seq_len − 1 − window`` with a window.  A row whose softmax
 denominator is 0 returns zeros.  Returns (B, H, D) in q.dtype.
 
-The flat-cache variant (``flash_decode_pallas``, B6) is queued.
+:func:`flash_decode_kernel` is the counterpart of ``flash_decode_pallas``
+(B6).  q (B, H, D); k/v (B, Hkv, S, D) in f32 or bf16, in any layout whose
+D axis is contiguous (the serving ring is its (B, L, Hkv, D) storage seen
+through ``transpose(1, 2)``: the kernel reads it through strides, without
+a copy); kv_positions (B, S) int32 (−1 ⇒ unwritten slot); q_pos (B,)
+int32.  Mask: ``kvpos ≥ 0``, ``kvpos ≤ q_pos`` and, with a window,
+``kvpos > q_pos − window``; the softcap applies before it; V rows with
+``kvpos < 0`` never reach the output.  A row whose softmax denominator is
+0 returns zeros.  Returns (B, H, D) in q.dtype.
 """
 from __future__ import annotations
 
@@ -28,13 +36,19 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.mte_gemm import DTYPE_CODES
 
-__all__ = ["flash_decode_paged_kernel", "flash_decode_paged_torch"]
+__all__ = ["flash_decode_paged_kernel", "flash_decode_paged_torch",
+           "flash_decode_kernel", "flash_decode_torch"]
 
 _NEG_INF = -1e30
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
              + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
              + [ctypes.c_void_p])
+_FLAT_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_long] * 6
+                  + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p])
 _CHUNK = 16   # logical positions a block processes at a time (csrc)
 
 
@@ -146,4 +160,88 @@ def flash_decode_paged_kernel(q, k_pages, v_pages, page_table, seq_lens,
              int(softcap is not None), float(softcap or 0.0), float(scale),
              n_split, per_split, build.stream_ptr(dev))
     build.check(lib, err, "flash_decode_paged")
+    return out
+
+
+def flash_decode_torch(q, k, v, kv_positions, q_pos, *,
+                       window: Optional[int] = None,
+                       softcap: Optional[float] = None,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_decode_kernel` (the Pallas
+    kernel's arithmetic: masked logits at −1e30, V rows with kvpos < 0
+    zeroed, a zero denominator divided as 1)."""
+    b, h, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    kp = kv_positions.to(torch.int64)[:, None, None, :]     # (B, 1, 1, S)
+    qp = q_pos.to(torch.int64).reshape(b, 1, 1, 1)
+    mask = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    qg = q.float().reshape(b, hkv, g, d)
+    logits = torch.einsum("bngd,bnsd->bngs", qg, k.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
+    l = p.sum(dim=-1, keepdim=True)
+    written = (kv_positions >= 0)[:, None, :, None]          # (B, 1, S, 1)
+    vf = torch.where(written, v.float(), torch.zeros((), device=v.device))
+    out = torch.einsum("bngs,bnsd->bngd", p, vf)
+    out = out / torch.where(l == 0.0, torch.ones_like(l), l)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def flash_decode_kernel(q, k, v, kv_positions, q_pos, *,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """One-token attention over a flat or ring cache: the B6 CUDA kernel
+    on CUDA tensors, :func:`flash_decode_torch` on CPU tensors."""
+    dev = build.require_cuda(q, k, v, kv_positions, q_pos,
+                             what="flash_decode")
+    if dev is None:
+        return flash_decode_torch(q, k, v, kv_positions, q_pos,
+                                  window=window, softcap=softcap,
+                                  scale=scale)
+    b, h, d = q.shape
+    _, hkv, s, _ = k.shape
+    if v.shape != k.shape or kv_positions.shape != (b, s):
+        raise ValueError(f"flash_decode: k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, kv_positions "
+                         f"{tuple(kv_positions.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if h % hkv or (h // hkv) * d > 4096:
+        raise ValueError(f"flash_decode: H={h}, Hkv={hkv}, D={d} "
+                         f"unsupported (G*D <= 4096)")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_decode: q dtype {q.dtype}")
+    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+        raise TypeError(f"flash_decode: cache dtypes {k.dtype}, {v.dtype}")
+    if k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_decode: the D axis of k and v must be "
+                         "contiguous")
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    q = q.contiguous()
+    kvp = kv_positions.to(torch.int32).contiguous()
+    qp = q_pos.to(torch.int32).reshape(b).contiguous()
+    out = torch.empty_like(q)
+    n_split, per_split = _kv_split(b * hkv, s, dev)
+    g = h // hkv
+    part_m = torch.empty(b * hkv, n_split, g, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty(b * hkv, n_split, g * d, device=dev)
+    lib, fn = build.entry("flash_decode", "flash_decode_launch",
+                          _FLAT_ARGTYPES)
+    build.count_launch("flash_decode")
+    err = fn(q.data_ptr(), DTYPE_CODES[q.dtype], k.data_ptr(), v.data_ptr(),
+             DTYPE_CODES[k.dtype], *k.stride()[:3], *v.stride()[:3],
+             kvp.data_ptr(), qp.data_ptr(), part_m.data_ptr(),
+             part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+             b, h, hkv, d, s, -1 if window is None else int(window),
+             int(softcap is not None), float(softcap or 0.0), float(scale),
+             n_split, per_split, build.stream_ptr(dev))
+    build.check(lib, err, "flash_decode")
     return out

@@ -27,7 +27,7 @@ from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.geometry import check_kernel_tile
 
 __all__ = ["mte_gemm", "grouped_gemm", "flash_attention",
-           "flash_decode_paged"]
+           "flash_decode", "flash_decode_paged", "rglru_scan"]
 
 
 def _trace_sink():
@@ -127,6 +127,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                   softcap=softcap, scale=scale)
 
 
+def flash_decode(q, k, v, kv_positions, q_pos, *, window=None, softcap=None,
+                 scale=None):
+    """Single-token attention over a flat or ring KV cache (B6); k/v may
+    be strided views of the cache."""
+    from repro_torch.kernels.flash_decode import flash_decode_kernel
+    return flash_decode_kernel(q, k, v, kv_positions, q_pos, window=window,
+                               softcap=softcap, scale=scale)
+
+
 def flash_decode_paged(q, k_pages, v_pages, page_table, seq_lens, *,
                        k_scale=None, v_scale=None, window=None,
                        softcap=None, scale=None):
@@ -137,3 +146,10 @@ def flash_decode_paged(q, k_pages, v_pages, page_table, seq_lens, *,
                                      seq_lens, k_scale, v_scale,
                                      window=window, softcap=softcap,
                                      scale=scale)
+
+
+def rglru_scan(a, b):
+    """RG-LRU linear recurrence h_t = a_t·h_{t-1} + b_t (B7, serving
+    prefill)."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+    return rglru_scan_kernel(a, b)

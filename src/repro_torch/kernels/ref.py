@@ -12,7 +12,7 @@ import torch
 from repro_torch.core.epilogue import Epilogue
 
 __all__ = ["mte_gemm", "grouped_gemm", "rigid_gemm", "flash_attention",
-           "flash_decode"]
+           "flash_decode", "rglru_scan"]
 
 
 def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
@@ -119,3 +119,14 @@ def flash_decode(q, k, v, kv_positions, q_pos, *, window=None, softcap=None,
     logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1).nan_to_num(0.0)
     return torch.einsum("bhk,bhkd->bhd", probs, v.float()).to(q.dtype)
+
+
+def rglru_scan(a, b):
+    """Oracle for the RG-LRU recurrence kernel: h_t = a_t·h_{t-1} + b_t
+    along axis 1 from h_{-1} = 0.  a, b: (B, S, W)."""
+    h = torch.zeros_like(a[:, 0])
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)

@@ -1,5 +1,5 @@
-"""MQA/GQA attention over the paged KV pool (the port of the serving half
-of ``repro/models/attention.py``).
+"""MQA/GQA attention over the paged KV pool and over sliding-window ring
+caches (the port of the serving half of ``repro/models/attention.py``).
 
 Projections run through the kernel GEMMs: with ``cfg.use_graph`` (the
 default) the q/k/v projections are ONE compiled :mod:`repro_torch.graph`
@@ -7,14 +7,20 @@ program (:func:`_qkv_compiled`), and the decode step's q/k/v, under
 ``cfg.decode_qkv_grouped``, ONE grouped GEMM (B3) over the prestacked
 (3, D, Nmax) weight (:func:`_project_qkv_grouped`).  Prefill-chunk
 attention runs through B5 (``flash_attention``) and decode attention
-through B4 (``flash_decode_paged``).  The KV scatter into pages, the
-prefix-page gather and the dequantize outside the kernels stay plain
-PyTorch, as they are plain jnp in JAX.
+through B4 (``flash_decode_paged``).  Sliding-window (``local``) layers
+keep a per-slot ring of L = min(window, cache_len) slots: a decode step
+reads it through B6 (``flash_decode``), a prefill chunk attends to it
+with :func:`_xla_attention`, the plain mirror of JAX's non-Pallas path
+(JAX's ring chunk does not reach a Pallas kernel either).  The KV scatter
+into pages and rings, the prefix-page gather and the dequantize outside
+the kernels stay plain PyTorch, as they are plain jnp in JAX.
 
-Unlike JAX, the port updates the page slabs **in place** (``index_put_``)
-instead of returning fresh arrays: a decode step then allocates no new
-cache and writes only the new token's KV.  The functions still return the
-cache, so call sites read as in JAX.
+Unlike JAX, the port updates the page slabs and rings **in place**
+(``index_put_``) instead of returning fresh arrays: a decode step then
+allocates no new cache and writes only the new token's KV.  A ring row
+whose ``row_valid`` is False is left untouched (JAX writes every row and
+merges the old rows back).  The functions still return the cache, so
+call sites read as in JAX.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ from repro_torch.models.layers import (compute_dtype, dense, init_dense,
                                        model_format, rmsnorm, rope,
                                        use_graph)
 
-__all__ = ["init_attention", "init_paged_attn_cache",
+__all__ = ["init_attention", "init_attn_cache", "decode_attention",
+           "ring_chunk_attention", "init_paged_attn_cache",
            "paged_decode_attention", "paged_prefill_attention",
            "grouped_decode"]
 
@@ -213,6 +220,119 @@ def _kv_storage_format(cfg):
 
 def _scale(cfg) -> float:
     return cfg.attn_scale if cfg.attn_scale is not None else cfg.hd ** -0.5
+
+
+_NEG_INF = -1e30
+
+
+def _xla_attention(q, k, v, *, causal, window, softcap, scale,
+                   kv_positions, q_positions):
+    """Plain attention in the BHSD layout with the flash kernels' mask
+    semantics (``kvpos ≥ 0``, causal, window) over explicit (B, Skv) kv
+    and (B, Sq) query positions: the mirror of ``_xla_attention``
+    (``attention.py:215-253`` of the JAX package).
+    GQA runs as a grouped einsum, KV heads never repeated.  Always the
+    unchunked formulation: above 2048 kv positions JAX switches to an
+    online-softmax scan over kv chunks, which differs from this only in
+    rounding (f32 logits either way; the bf16 cast of the probabilities
+    here, as JAX's unchunked path does)."""
+    b, h, sq, hd = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    qp = q_positions[:, :, None]
+    kp = kv_positions[:, None, :]
+    mask = kp >= 0
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    qg = q.reshape(b, hkv, g, sq, hd)
+    logits = torch.einsum("bngqd,bnkd->bngqk", qg.float(), k.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full((), _NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bngqk,bnkd->bngqd", probs, v)
+    return out.reshape(b, h, sq, hd)
+
+
+def init_attn_cache(cfg, batch: int, seq_len: int, window: int, dtype,
+                    device=None):
+    """A local layer's KV ring (B, L, Hkv, D) of L = min(window, seq_len)
+    slots.  (Global layers keep their KV in the paged pool.)"""
+    if getattr(cfg, "cache_quant", False):
+        raise NotImplementedError("int8 ring caches (cache_quant) are "
+                                  "ROADMAP A10")
+    shape = (batch, min(window, seq_len), cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(x, p, cfg, cache, pos, *, window: int, row_valid=None):
+    """One-token decode over a local layer's ring (``attention.py:372-429``
+    of the JAX package).  x: (B, 1, D); pos: (B,) positions.  The new
+    token's K/V are written at slot pos mod L of every row whose
+    ``row_valid`` is True (all rows without it), in place; then B6 reads
+    the ring in its stored layout, slot i holding absolute position
+    pos − ((pos − i) mod L).  Returns (out, cache)."""
+    from repro_torch.kernels import ops
+    b = x.shape[0]
+    pos_b = torch.as_tensor(pos, dtype=torch.int64,
+                            device=x.device).reshape(-1).expand(b)
+    q, k, v = _project_qkv_decode(x, p, cfg, pos_b[:, None])
+    length = cache["k"].shape[1]
+    rows = torch.arange(b, device=x.device)
+    slot_b = pos_b % length
+    for name, new in (("k", k[:, 0]), ("v", v[:, 0])):
+        new = new.to(cache[name].dtype)
+        if row_valid is not None:
+            keep = row_valid.reshape(b, 1, 1)
+            new = torch.where(keep, new, cache[name][rows, slot_b])
+        cache[name][rows, slot_b] = new
+    idx = torch.arange(length, device=x.device)[None, :]
+    kv_positions = pos_b[:, None] - (pos_b[:, None] - idx) % length
+    out = ops.flash_decode(
+        q[:, 0], cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
+        kv_positions, pos_b, window=window, softcap=cfg.attn_softcap,
+        scale=_scale(cfg))
+    return dense(out.reshape(b, 1, -1), p["o"], cfg), cache
+
+
+def ring_chunk_attention(x, p, cfg, cache, positions, *, pos0: int,
+                         window: int):
+    """One prefill chunk of a sliding-window layer over its ring
+    (``attention.py:720-763`` of the JAX package).  x: (1, C, D); cache:
+    the slot's (1, L, Hkv, D) ring (a view into the batch's ring);
+    ``pos0`` the chunk's first absolute position.  The chunk attends to
+    the ring's pre-chunk contents plus itself under the window mask, then
+    its last min(C, L) tokens overwrite their ring slots (slot = pos mod
+    L), in place — the layout decode reads.  Returns (out, cache)."""
+    b, c_len, _ = x.shape
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    ring_k, ring_v = cache["k"], cache["v"]
+    length = ring_k.shape[1]
+    idx = torch.arange(length, device=x.device)
+    # Ring slot i holds the most recent absolute position ≡ i (mod L)
+    # strictly before the chunk; never-written slots are masked (−1).
+    rp = pos0 - (pos0 - idx) % length
+    rp = torch.where((rp >= pos0) | (rp < 0), torch.full_like(rp, -1), rp)
+    kv_positions = torch.cat([rp[None].expand(b, length),
+                              positions.to(rp.dtype)], dim=1)
+    kc = torch.cat([ring_k, k.to(ring_k.dtype)], dim=1)
+    vc = torch.cat([ring_v, v.to(ring_v.dtype)], dim=1)
+    out = _xla_attention(
+        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+        causal=True, window=window, softcap=cfg.attn_softcap,
+        scale=_scale(cfg), kv_positions=kv_positions,
+        q_positions=positions)
+    out = out.transpose(1, 2)
+    keep = min(c_len, length)
+    slots = (pos0 + c_len - keep
+             + torch.arange(keep, device=x.device)) % length
+    ring_k[:, slots] = k[:, c_len - keep:].to(ring_k.dtype)
+    ring_v[:, slots] = v[:, c_len - keep:].to(ring_v.dtype)
+    return dense(out.reshape(b, c_len, -1), p["o"], cfg), cache
 
 
 def init_paged_attn_cache(cfg, num_pages: int, page_size: int, dtype,

@@ -4,13 +4,17 @@
 Parameters are plain dictionaries: ``{"embedding": {"table"}, "layers":
 [per-layer dict], "final_norm": {"scale"}}`` — JAX's ``lax.scan`` group
 stack (``params["groups"]``) becomes a Python list of layers
-(:func:`repro_torch.convert.params_from_jax` unstacks it).  The layer kind
-ported is ``("attn", "mlp")``: dense global attention + gated MLP; other
-kinds raise, naming the ROADMAP item (A10).
+(:func:`repro_torch.convert.params_from_jax` unstacks it).  The layer
+kinds ported are ``("attn", "mlp")`` (global attention over the paged
+pool), ``("local", "mlp")`` (sliding-window attention over a per-slot
+ring) and ``("rglru", "mlp")`` (the RG-LRU block with its per-slot
+state), each followed by a gated MLP; other kinds raise, naming the
+ROADMAP item (A10).
 
 Entry points: :func:`init_params`, :func:`init_paged_cache`,
 :func:`prefill_chunk`, :func:`decode`, :func:`sample_token`,
-:func:`decode_and_sample`.  The paged cache is updated in place.
+:func:`decode_and_sample`.  The cache is updated in place: the page
+slabs, the rings and the RG-LRU state rows.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.formats import to_torch_dtype
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import (check_backend, compute_dtype, embed,
                                        init_embedding, init_mlp, init_norm,
                                        mlp, rmsnorm, unembed)
@@ -28,15 +33,15 @@ from repro_torch.models.layers import (check_backend, compute_dtype, embed,
 __all__ = ["init_params", "init_paged_cache", "prefill_chunk", "decode",
            "sample_token", "decode_and_sample", "param_count"]
 
-_PORTED_KIND = ("attn", "mlp")
+_PORTED_KINDS = (("attn", "mlp"), ("local", "mlp"), ("rglru", "mlp"))
 
 
 def _check_kinds(cfg) -> None:
     for kind in cfg.layer_kinds:
-        if tuple(kind) != _PORTED_KIND:
+        if tuple(kind) not in _PORTED_KINDS:
             raise NotImplementedError(
                 f"layer kind {kind} is not ported yet (ROADMAP A10: "
-                f"off-main-path models); ported: {_PORTED_KIND}")
+                f"off-main-path models); ported: {_PORTED_KINDS}")
 
 
 def init_params(cfg, *, seed: int = 0, device=None) -> Dict[str, Any]:
@@ -49,10 +54,11 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Dict[str, Any]:
     gen.manual_seed(seed)
     dt = to_torch_dtype(cfg.param_dtype)
     layers = []
-    for _ in range(cfg.n_layers):
+    for mixer, _ in cfg.layer_kinds:
         layers.append({
             "norm1": init_norm(cfg.d_model, cfg.norm_type, dt, dev),
-            "mixer": attn_mod.init_attention(gen, cfg, dev),
+            "mixer": (rglru_mod.init_rglru(gen, cfg, dev) if mixer == "rglru"
+                      else attn_mod.init_attention(gen, cfg, dev)),
             "norm2": init_norm(cfg.d_model, cfg.norm_type, dt, dev),
             "ffn": init_mlp(gen, cfg, dev),
         })
@@ -74,28 +80,69 @@ def param_count(params) -> int:
 
 def init_paged_cache(cfg, batch: int, seq_len: int, *, num_pages: int,
                      page_size: int, device=None):
-    """Paged KV storage for every layer (page 0 reserved as the null
-    page).  ``cfg.kv_cache_format`` selects the stored element type."""
+    """The serving cache of every layer, by kind (``model.py:609-647`` of
+    the JAX package): global attention layers store KV in pages of a
+    shared pool (page 0 reserved as the null page; ``cfg.kv_cache_format``
+    selects the stored element type), local layers a (batch, L, Hkv, D)
+    ring of L = min(window, seq_len) slots, RG-LRU layers their
+    ``{"h", "conv"}`` rows."""
     _check_kinds(cfg)
     dev = resolve_device(device)
     cdt = compute_dtype(cfg)
-    return {"layers": [attn_mod.init_paged_attn_cache(cfg, num_pages,
-                                                      page_size, cdt, dev)
-                       for _ in range(cfg.n_layers)]}
+
+    def layer_cache(mixer):
+        if mixer == "attn":
+            return attn_mod.init_paged_attn_cache(cfg, num_pages, page_size,
+                                                  cdt, dev)
+        if mixer == "local":
+            return attn_mod.init_attn_cache(cfg, batch, seq_len, cfg.window,
+                                            cdt, dev)
+        return rglru_mod.init_rglru_cache(cfg, batch, cdt, dev)
+
+    return {"layers": [layer_cache(mixer) for mixer, _ in cfg.layer_kinds]}
 
 
-def _apply_layer(x, lp, cfg, positions, mode, cache, *, pos=None,
-                 page_table=None, chunk_pos0=None):
+def _slot_view(cache, slot: int):
+    """One slot's (1, ...) view of a batch-axis cache: writes through it
+    land in the batch's rows."""
+    return {name: leaf[slot:slot + 1] for name, leaf in cache.items()}
+
+
+def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
+                 page_table=None, chunk_pos0=None, slot=0, row_valid=None):
     if cfg.post_norms:
         raise NotImplementedError("post_norms is ROADMAP A10")
     h = rmsnorm(x, lp["norm1"])
+    window = cfg.window if mixer == "local" else None
     if mode == "prefill_chunk":
-        out, cache = attn_mod.paged_prefill_attention(
-            h, lp["mixer"], cfg, cache, positions, page_table,
-            kv_len=chunk_pos0 + h.shape[1])
-    else:
+        if mixer == "attn":
+            out, cache = attn_mod.paged_prefill_attention(
+                h, lp["mixer"], cfg, cache, positions, page_table,
+                kv_len=chunk_pos0 + h.shape[1])
+        elif mixer == "local":
+            out, _ = attn_mod.ring_chunk_attention(
+                h, lp["mixer"], cfg, _slot_view(cache, slot), positions,
+                pos0=chunk_pos0, window=window)
+        else:
+            # Chunk 0 starts fresh (the slot row holds its previous
+            # occupant's state); later chunks resume the carried state.
+            one = _slot_view(cache, slot) if chunk_pos0 else None
+            out, one = rglru_mod.rglru_forward(h, lp["mixer"], cfg,
+                                               cache=one)
+            for name, leaf in one.items():
+                cache[name][slot] = leaf[0].to(cache[name].dtype)
+    elif mixer == "attn":
+        # Inactive rows write into the null page through their all-(−1)
+        # page-table row, so ``row_valid`` has nothing to guard here.
         out, cache = attn_mod.paged_decode_attention(
             h, lp["mixer"], cfg, cache, pos, page_table)
+    elif mixer == "local":
+        out, cache = attn_mod.decode_attention(
+            h, lp["mixer"], cfg, cache, pos, window=window,
+            row_valid=row_valid)
+    else:
+        out, cache = rglru_mod.rglru_decode(h, lp["mixer"], cfg, cache,
+                                            row_valid=row_valid)
     x = x + out
     h = rmsnorm(x, lp["norm2"])
     return x + mlp(h, lp["ffn"], cfg), cache
@@ -104,37 +151,49 @@ def _apply_layer(x, lp, cfg, positions, mode, cache, *, pos=None,
 def _run_stack(x, params, cfg, positions, mode, cache, **kw):
     check_backend(cfg)
     _check_kinds(cfg)
-    for i, lp in enumerate(params["layers"]):
-        x, cache["layers"][i] = _apply_layer(x, lp, cfg, positions, mode,
-                                             cache["layers"][i], **kw)
+    for i, (lp, (mixer, _)) in enumerate(zip(params["layers"],
+                                             cfg.layer_kinds)):
+        x, cache["layers"][i] = _apply_layer(x, lp, cfg, mixer, positions,
+                                             mode, cache["layers"][i], **kw)
     return x, cache
 
 
 def prefill_chunk(params, batch, cache, cfg, *, pos0: int):
-    """One prompt chunk into the paged cache: ``batch["tokens"]`` (1, C)
-    at positions [pos0, pos0+C), ``batch["page_table"]`` (1, max_pages).
-    Returns (last-position logits (1, V) f32, cache)."""
+    """One prompt chunk into the serving cache: ``batch["tokens"]`` (1, C)
+    at positions [pos0, pos0+C), ``batch["page_table"]`` (1, max_pages),
+    ``batch["slot"]`` (int, default 0) the batch row whose ring and
+    RG-LRU state the chunk advances.  Returns (last-position logits
+    (1, V) f32, cache)."""
     tokens = batch["tokens"]
     x = embed(tokens, params["embedding"], cfg)
     positions = pos0 + torch.arange(tokens.shape[1], device=x.device)[None]
     x, cache = _run_stack(x, params, cfg, positions, "prefill_chunk", cache,
-                          page_table=batch["page_table"], chunk_pos0=pos0)
+                          page_table=batch["page_table"], chunk_pos0=pos0,
+                          slot=int(batch.get("slot", 0)))
     x = rmsnorm(x, params["final_norm"])
     return unembed(x[:, -1:], params["embedding"], cfg)[:, 0], cache
 
 
 def decode(params, batch, cache, cfg):
     """One-token decode: ``batch["tokens"]`` (B, 1), ``batch["pos"]`` (B,)
-    per-slot positions, ``batch["page_table"]`` (B, max_pages).  Returns
-    (logits (B, V) f32, cache)."""
+    per-slot positions, ``batch["page_table"]`` (B, max_pages) and
+    optionally ``batch["row_valid"]`` (B,) bool: the rows whose ring and
+    RG-LRU state the step may change (JAX's ``_mask_rows`` contract; the
+    others — slots still prefilling — keep theirs).  Returns (logits
+    (B, V) f32, cache)."""
     tokens = batch["tokens"]
     b = tokens.shape[0]
     x = embed(tokens, params["embedding"], cfg)
     pos = torch.as_tensor(batch["pos"], device=x.device).reshape(-1)
     positions = pos.to(torch.int64).expand(b).reshape(b, 1)
+    row_valid = batch.get("row_valid")
+    if row_valid is not None:
+        row_valid = torch.as_tensor(row_valid, dtype=torch.bool,
+                                    device=x.device).reshape(-1)
     x, cache = _run_stack(x, params, cfg, positions, "decode", cache,
                           pos=positions[:, 0],
-                          page_table=batch["page_table"])
+                          page_table=batch["page_table"],
+                          row_valid=row_valid)
     x = rmsnorm(x, params["final_norm"])
     return unembed(x, params["embedding"], cfg)[:, 0], cache
 

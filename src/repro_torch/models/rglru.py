@@ -1,0 +1,140 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427):
+the port of ``repro/models/rglru.py``.
+
+Two linear branches from the input: the gate branch through a GeLU, the
+other through a short causal temporal conv and the Real-Gated Linear
+Recurrent Unit; their product goes through an output projection::
+
+    r_t = σ(W_a x_t + b_a)            # recurrence gate
+    i_t = σ(W_x x_t + b_x)            # input gate
+    a_t = exp(-c · softplus(Λ) · r_t)
+    h_t = a_t · h_{t-1} + sqrt(1 - a_t²) · (i_t · x_t)
+
+Every projection runs through the kernel GEMMs (:func:`dense`).  A
+prefill chunk evaluates the recurrence through B7 (``ops.rglru_scan``),
+a decode step as one element-wise update (plain PyTorch: it runs no
+kernel in JAX either).  The serving cache of a layer is ``{"h": (B, W)
+f32, "conv": (B, conv_width, W)}``: the state and the raw-projection tail
+the conv of the next chunk or step needs.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.formats import to_torch_dtype
+from repro_torch.models.layers import compute_dtype, dense, init_dense
+
+__all__ = ["init_rglru", "rglru_forward", "init_rglru_cache",
+           "rglru_decode"]
+
+
+def _width(cfg) -> int:
+    return cfg.rglru.width or cfg.d_model
+
+
+def init_rglru(gen: torch.Generator, cfg, device=None):
+    """Random parameters with JAX's distributions (not its bits)."""
+    d, w = cfg.d_model, _width(cfg)
+    dt = to_torch_dtype(cfg.param_dtype)
+
+    def lin(d_in, d_out, **kw):
+        return init_dense(gen, d_in, d_out, dtype=dt, device=device, **kw)
+
+    return {
+        "gate_proj": lin(d, w),                    # GeLU branch
+        "rec_proj": lin(d, w),                     # recurrent branch
+        "conv_w": torch.randn(cfg.rglru.conv_width, w, generator=gen,
+                              dtype=dt, device=device) * 0.1,
+        "conv_b": torch.zeros(w, dtype=dt, device=device),
+        "wa": lin(w, w, bias=True),
+        "wx": lin(w, w, bias=True),
+        "lam": torch.full((w,), 0.65, dtype=dt, device=device),
+        "out_proj": lin(w, d, scale=w ** -0.5),
+    }
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv along S: x (B, S, W), w (width, W), b (W)."""
+    width = w.shape[0]
+    out = x * w[-1]
+    for i in range(1, width):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :x.shape[1]]
+        out = out + shifted * w[-1 - i]
+    return out + b
+
+
+def _gates(x, p, cfg):
+    """log_a (B, S, W) and the gated input (B, S, W), both f32."""
+    r = torch.sigmoid(dense(x, p["wa"], cfg).float())
+    i = torch.sigmoid(dense(x, p["wx"], cfg).float())
+    log_a = -cfg.rglru.c * F.softplus(p["lam"].float()) * r
+    return log_a, i * x.float()
+
+
+def _scan_inputs(log_a, gated):
+    return (torch.exp(log_a),
+            torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+            * gated)
+
+
+def rglru_forward(x, p, cfg, *, cache: Optional[dict] = None):
+    """One prefill chunk x (B, S, D) → (out (B, S, D), new cache).
+
+    ``cache`` (the previous chunk's ``{"h", "conv"}``) resumes the
+    recurrence mid-sequence: the conv sees the previous chunk's raw tail
+    instead of zero padding, and the initial state folds in as
+    ``h_t += exp(Σ_{k≤t} log a_k)·h₀`` on top of the zero-state scan (a
+    cumulative sum of logs, as JAX computes it).  The scan runs through
+    B7.  The returned cache is new tensors; the caller stores it."""
+    from repro_torch.kernels import ops
+    gate = dense(x, p["gate_proj"], cfg, activation="gelu")
+    u_raw = dense(x, p["rec_proj"], cfg)
+    conv_in, hist = u_raw, 0
+    if cache is not None:
+        hist = cache["conv"].shape[1]
+        conv_in = torch.cat([cache["conv"].to(u_raw.dtype), u_raw], dim=1)
+    u = _causal_conv(conv_in.float(), p["conv_w"].float(),
+                     p["conv_b"].float())[:, hist:].to(u_raw.dtype)
+    log_a, gated = _gates(u, p, cfg)
+    h = ops.rglru_scan(*_scan_inputs(log_a, gated))
+    if cache is not None:
+        h = h + torch.exp(torch.cumsum(log_a, dim=1)) * cache["h"][:, None]
+    out = dense(gate * h.to(x.dtype), p["out_proj"], cfg)
+    width = cfg.rglru.conv_width
+    tail = conv_in[:, -width:]
+    if tail.shape[1] < width:
+        tail = F.pad(tail, (0, 0, width - tail.shape[1], 0))
+    return out, {"h": h[:, -1], "conv": tail.to(compute_dtype(cfg))}
+
+
+def init_rglru_cache(cfg, batch: int, dtype, device=None):
+    w = _width(cfg)
+    return {"h": torch.zeros(batch, w, device=device),
+            "conv": torch.zeros(batch, cfg.rglru.conv_width, w, dtype=dtype,
+                                device=device)}
+
+
+def rglru_decode(x, p, cfg, cache, *, row_valid=None):
+    """One-token step x (B, 1, D) → (out, cache).  The state of every row
+    whose ``row_valid`` is True (all rows without it) is updated in
+    place; the others keep theirs."""
+    gate = dense(x, p["gate_proj"], cfg, activation="gelu")
+    u = dense(x, p["rec_proj"], cfg)                       # (B, 1, W)
+    conv = torch.cat([cache["conv"][:, 1:], u.to(cache["conv"].dtype)],
+                     dim=1)
+    u = (torch.einsum("bwc,wc->bc", conv.float(), p["conv_w"].float())
+         + p["conv_b"].float())[:, None].to(x.dtype)
+    log_a, gated = _gates(u, p, cfg)
+    a, b = _scan_inputs(log_a[:, 0], gated[:, 0])
+    h = a * cache["h"] + b
+    out = dense(gate * h[:, None].to(x.dtype), p["out_proj"], cfg)
+    if row_valid is not None:
+        keep = row_valid.reshape(-1, 1)
+        h = torch.where(keep, h, cache["h"])
+        conv = torch.where(keep[:, :, None], conv, cache["conv"])
+    cache["h"].copy_(h)
+    cache["conv"].copy_(conv)
+    return out, cache

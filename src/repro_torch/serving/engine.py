@@ -99,21 +99,29 @@ class Request:
 
 
 def serving_params(params, cfg: ArchConfig):
-    """The parameter tree the engine serves from: dense weights cast to
-    the model format's operand dtype (float formats only: int8 quantizes
-    the full-precision weights), the embedding table likewise when the
-    compute dtype is that operand dtype, and ``embedding["unembed"]`` =
-    the table rounded to the LM head's operand dtype and widened to f32.
-    Shallow copies; the caller's tensors are untouched."""
+    """The parameter tree the engine serves from: dense weights (every
+    ``{"w", ...}`` leaf) cast to the model format's operand dtype (float
+    formats only: int8 quantizes the full-precision weights), the
+    embedding table likewise when the compute dtype is that operand
+    dtype, and ``embedding["unembed"]`` = the table rounded to the LM
+    head's operand dtype and widened to f32.  Shallow copies; the
+    caller's tensors are untouched."""
     fmt = model_format(cfg)
     op = fmt.operand_torch
     cast_w = not fmt.quantized
 
+    def cast(leaf):
+        # Dense projections only: the RG-LRU mixer's bare tensors
+        # (conv_w, conv_b, lam) pass through and are widened to f32 at
+        # use, as in JAX.
+        if cast_w and isinstance(leaf, dict) and "w" in leaf:
+            return {**leaf, "w": leaf["w"].to(op)}
+        return leaf
+
     def layer(lp):
         out = dict(lp)
         for group in ("mixer", "ffn"):
-            out[group] = {name: ({**d, "w": d["w"].to(op)} if cast_w else d)
-                          for name, d in lp[group].items()}
+            out[group] = {name: cast(leaf) for name, leaf in lp[group].items()}
         return out
 
     emb = dict(params["embedding"])
@@ -222,6 +230,11 @@ class ServingEngine:
         self.slot_req: List[Optional[Request]] = [None] * slots
         self.slot_pos = np.zeros(slots, np.int32)
         self.completed: List[Request] = []
+        # Ring/recurrent layers keep per-slot rows that a batched decode
+        # step must not touch for a slot that is still prefilling: such
+        # archs pass the decoding rows as ``row_valid``.
+        self._stateful_rows = any(kind[0] != "attn"
+                                  for kind in cfg.layer_kinds)
         self._prefilling: Dict[int, dict] = {}
         self._inflight: Deque[dict] = collections.deque()
         self._last_tok = torch.zeros((slots, 1), dtype=torch.int32,
@@ -416,6 +429,8 @@ class ServingEngine:
                  "pos": torch.as_tensor(self.slot_pos.astype(np.int64),
                                         device=self.device),
                  "page_table": self._table(table)}
+        if self._stateful_rows:
+            batch["row_valid"] = torch.as_tensor(active, device=self.device)
         tok, finite, logits, self._last_tok, self.cache = \
             model_lib.decode_and_sample(
                 self.params, batch, self.cache, self.cfg,
@@ -504,7 +519,8 @@ class ServingEngine:
         toks = st["tokens"][c * size:(c + 1) * size]
         batch = {"tokens": torch.as_tensor(toks[None].astype(np.int64),
                                            device=self.device),
-                 "page_table": self._table(self.sched.table_row(slot)[None])}
+                 "page_table": self._table(self.sched.table_row(slot)[None]),
+                 "slot": slot}
         logits, self.cache = model_lib.prefill_chunk(
             self.params, batch, self.cache,
             self._chunk_cfg(req.format_policy), pos0=c * size)
@@ -578,8 +594,11 @@ class ServingEngine:
             self._copy_page(old, new)
 
     def _copy_page(self, old: int, new: int):
-        """Duplicate one physical page across every layer's slabs."""
+        """Duplicate one physical page across every paged layer's slabs
+        (ring and RG-LRU layers hold per-slot rows, not pages)."""
         for layer in self.cache["layers"]:
+            if "k_pages" not in layer:
+                continue
             for leaf in layer.values():
                 leaf[new] = leaf[old]
 

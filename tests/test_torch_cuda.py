@@ -176,3 +176,48 @@ def test_rigid_gemm_kernels_match_plain(card, dtype):
     assert after["rigid_gemm"] == counts["rigid_gemm"] + 2
     assert after["epilogue_pass"] == counts["epilogue_pass"] + (
         0 if dt == torch.int8 else 2)
+
+
+tscan = LazyModule("repro_torch.kernels.rglru_scan")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flat_decode_kernel_matches_plain(card, dtype):
+    """B6 against its plain version: G = 4, a ragged S that is not a
+    multiple of the 16-slot chunk, -1 slots, window and softcap, and a
+    wrapped ring read through its (B, L, Hkv, D) storage's strided view."""
+    dt = getattr(torch, dtype)
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    gen = torch.Generator().manual_seed(6)
+    b, h, hkv, s, d = 3, 8, 2, 37, 32
+    q = torch.randn(b, h, d, generator=gen).to(dt)
+    ring_k = torch.randn(b, s, hkv, d, generator=gen).to(dt)
+    ring_v = torch.randn(b, s, hkv, d, generator=gen).to(dt)
+    q_pos = torch.tensor([60, 20, 5], dtype=torch.int32)
+    idx = torch.arange(s)
+    kv_pos = q_pos[:, None] - (q_pos[:, None] - idx) % s
+    kv_pos = torch.where(kv_pos >= 0, kv_pos, -1).to(torch.int32)
+    before = build.launch_counts()["flash_decode"]
+    for kw in ({}, {"window": 9, "softcap": 5.0}):
+        args = (q, ring_k.transpose(1, 2), ring_v.transpose(1, 2), kv_pos,
+                q_pos)
+        want = tdecode.flash_decode_torch(*args, **kw)
+        got = tdecode.flash_decode_kernel(*(x.to(card) for x in args), **kw)
+        _close(got, want, tol)
+    empty = torch.full_like(kv_pos, -1)
+    got = tdecode.flash_decode_kernel(q.to(card), *(
+        x.transpose(1, 2).to(card) for x in (ring_k, ring_v)),
+        empty.to(card), q_pos.to(card))
+    assert torch.count_nonzero(got) == 0
+    assert build.launch_counts()["flash_decode"] == before + 3
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 100])
+def test_rglru_scan_kernel_matches_plain_bit_for_bit(card, s):
+    gen = torch.Generator().manual_seed(s)
+    a = torch.rand(2, s, 48, generator=gen) * 0.5 + 0.5
+    b = torch.randn(2, s, 48, generator=gen)
+    before = build.launch_counts()["rglru_scan"]
+    got = tscan.rglru_scan_kernel(a.to(card), b.to(card))
+    _close(got, tscan.rglru_scan_torch(a, b), 0.0)
+    assert build.launch_counts()["rglru_scan"] == before + 1

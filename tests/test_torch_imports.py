@@ -36,7 +36,9 @@ def test_module_imports_no_jax_and_no_jax_package(path):
 
 def test_port_imports_without_a_card():
     code = ("import sys, repro_torch, repro_torch.kernels.ops, "
-            "repro_torch.serving.engine, repro_torch.convert; "
+            "repro_torch.serving.engine, repro_torch.convert, "
+            "repro_torch.models.rglru, repro_torch.kernels.rglru_scan, "
+            "repro_torch.configs.recurrentgemma_9b; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules")
     env = {"PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
            "PATH": "/usr/bin:/bin"}

@@ -54,8 +54,7 @@ def test_gemma_2b_config_matches_jax(reduced):
 def test_port_refuses_unported_layer_kinds_and_configs():
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(torch_cfg(), pattern=(("local", "mlp"),),
-                              window=8)
+    cfg = dataclasses.replace(torch_cfg(), pattern=(("ssd", "mlp"),))
     with pytest.raises(NotImplementedError, match="A10"):
         torch_model.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="queue A"):

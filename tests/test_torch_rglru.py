@@ -1,0 +1,219 @@
+"""The port's B7 and B6 plain versions and its RG-LRU block against the
+JAX package, on the CPU: the same numpy inputs through the Pallas kernels
+(interpret mode) and ``repro.models.rglru`` on one side, the port's plain
+versions and ``repro_torch.models.rglru`` on the other.  The CUDA kernels
+themselves are held against these plain versions on the card
+(``tests/test_torch_cuda.py``)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import get_config as jget_config
+from repro.kernels import ref as jref
+from repro.kernels.flash_decode import flash_decode_pallas
+from repro.kernels.rglru_scan import rglru_scan_pallas
+from repro.models import rglru as jrglru
+
+from torch_lazy import LazyModule, torch
+from torch_parity import TOL, n, t
+
+# The port, imported at first use (see torch_lazy).
+tconfigs = LazyModule("repro_torch.configs")
+tref = LazyModule("repro_torch.kernels.ref")
+tscan = LazyModule("repro_torch.kernels.rglru_scan")
+tdecode = LazyModule("repro_torch.kernels.flash_decode")
+trglru = LazyModule("repro_torch.models.rglru")
+
+
+def test_config_matches_jax_and_reduces_like_it():
+    full = tconfigs.get_config("recurrentgemma_9b")
+    jfull = jget_config("recurrentgemma_9b")
+    for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "hd",
+                  "d_ff", "vocab", "window", "pattern", "mlp_type",
+                  "rope_theta", "embed_scale", "tied_embeddings"):
+        assert getattr(full, field) == getattr(jfull, field), field
+    assert dataclasses.asdict(full.rglru) == dataclasses.asdict(jfull.rglru)
+    red, jred = full.reduced(), jfull.reduced()
+    assert (red.window, red.rglru.width, red.n_layers) == (16, 128, 6)
+    for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "hd",
+                  "d_ff", "vocab", "window", "compute_dtype"):
+        assert getattr(red, field) == getattr(jred, field), field
+    assert dataclasses.asdict(red.rglru) == dataclasses.asdict(jred.rglru)
+    assert full.layer_kinds == jfull.layer_kinds
+
+
+# -- B7: the RG-LRU scan -----------------------------------------------------
+
+def _scan_inputs(s, w=48, b=2, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 1.0, (b, s, w)).astype(np.float32)
+    x = rng.standard_normal((b, s, w)).astype(np.float32)
+    return a, x
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 100])
+def test_rglru_scan_plain_matches_pallas(s):
+    a, b = _scan_inputs(s, seed=s)
+    want = rglru_scan_pallas(jnp.asarray(a), jnp.asarray(b), interpret=True)
+    got = tscan.rglru_scan_torch(t(a), t(b))
+    np.testing.assert_allclose(n(got), n(want), rtol=1e-6, atol=1e-6)
+    if s == 64:
+        np.testing.assert_allclose(
+            n(tref.rglru_scan(t(a), t(b))),
+            n(jref.rglru_scan(jnp.asarray(a), jnp.asarray(b))),
+            rtol=1e-6, atol=1e-6)
+
+
+def test_rglru_scan_refuses_other_dtypes():
+    a, b = _scan_inputs(4)
+    with pytest.raises(TypeError):
+        tscan.rglru_scan_kernel(t(a).double(), t(b).double())
+
+
+# -- B6: flat / ring flash decode (the cases of tests/test_flash_decode.py) --
+
+def _decode_case(case, seed=0):
+    """q (B,H,D), k/v (B,Hkv,S,D), kv_positions (B,S), q_pos (B,) and the
+    kernel options for one case."""
+    rng = np.random.default_rng(seed)
+    b, h, hkv, d = 3, 8, 2, 32                 # G = 4
+    lens = np.array([5, 17, 25], np.int32)     # ragged: straddles blocks
+    s = int(lens.max())
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    idx = np.arange(s)[None]
+    kvpos = np.where(idx < lens[:, None], idx, -1).astype(np.int32)
+    qpos = (lens - 1).astype(np.int32)
+    kw = {}
+    if case == "window_softcap":
+        kw = dict(window=8, softcap=30.0)
+    elif case == "ring":
+        # A 16-slot ring at positions past one wrap, one row not yet full:
+        # slot i holds pos - ((pos - i) mod 16), unwritten slots -1.
+        length = 16
+        k, v = k[:, :, :length], v[:, :, :length]
+        qpos = np.array([37, 16, 9], np.int32)
+        ring = qpos[:, None] - (qpos[:, None] - np.arange(length)) % length
+        kvpos = np.where(ring >= 0, ring, -1).astype(np.int32)
+        kw = dict(window=16)
+    elif case == "empty_row":
+        kvpos[1] = -1
+    return q, k, v, kvpos, qpos, kw
+
+
+@pytest.mark.parametrize("case", ["ragged", "window_softcap", "ring",
+                                  "empty_row"])
+def test_flash_decode_plain_matches_pallas(case):
+    q, k, v, kvpos, qpos, kw = _decode_case(case)
+    want = flash_decode_pallas(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), jnp.asarray(kvpos),
+                               jnp.asarray(qpos), interpret=True, **kw)
+    got = tdecode.flash_decode_torch(t(q), t(k), t(v), t(kvpos), t(qpos),
+                                     **kw)
+    np.testing.assert_allclose(n(got), n(want), rtol=TOL["fp32"],
+                               atol=TOL["fp32"])
+    if case == "empty_row":
+        assert torch.count_nonzero(got[1]) == 0
+
+
+def test_flash_decode_plain_bf16_storage_and_strided_ring():
+    """bf16 storage, read through the (B, L, Hkv, D) ring layout's
+    transposed view; NaN in an unwritten slot must not reach the output
+    (the Pallas kernel zeroes V rows with kvpos < 0)."""
+    q, k, v, kvpos, qpos, kw = _decode_case("ring", seed=1)
+    v[2, :, 12] = np.nan                       # row 2 has never reached 12
+    assert kvpos[2, 12] == -1
+    qb, kb, vb = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    want = flash_decode_pallas(qb, kb, vb, jnp.asarray(kvpos),
+                               jnp.asarray(qpos), interpret=True, **kw)
+    ring_k = t(np.asarray(kb)).transpose(1, 2).contiguous()
+    ring_v = t(np.asarray(vb)).transpose(1, 2).contiguous()
+    got = tdecode.flash_decode_torch(
+        t(np.asarray(qb)), ring_k.transpose(1, 2), ring_v.transpose(1, 2),
+        t(kvpos), t(qpos), **kw)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    np.testing.assert_allclose(n(got), n(want), rtol=TOL["bf16"],
+                               atol=TOL["bf16"])
+
+
+# -- the RG-LRU block -----------------------------------------------------------
+
+def _cfgs(**kw):
+    jcfg = dataclasses.replace(jget_config("recurrentgemma_9b").reduced(),
+                               gemm_backend="pallas", **kw)
+    tcfg = dataclasses.replace(
+        tconfigs.get_config("recurrentgemma_9b").reduced(), **kw)
+    return jcfg, tcfg
+
+
+def _block_params(jcfg, seed=0):
+    from repro_torch.convert import _map
+    jp = jrglru.init_rglru(jax.random.PRNGKey(seed), jcfg)
+    # lam away from its constant init, so the gates see distinct values
+    jp["lam"] = jnp.linspace(-1.0, 2.0, jp["lam"].shape[0])
+    tp = _map(jax.tree.map(np.asarray, jax.device_get(jp)),
+              lambda a: t(np.asarray(a, np.float32)))
+    return jp, tp
+
+
+def _close_tree(got, want, tol):
+    for name in want:
+        np.testing.assert_allclose(n(got[name]), n(want[name]), rtol=tol,
+                                   atol=tol, err_msg=name)
+
+
+def test_rglru_forward_matches_jax_whole_and_resumed():
+    jcfg, tcfg = _cfgs()
+    jp, tp = _block_params(jcfg)
+    x = np.random.default_rng(1).standard_normal(
+        (1, 24, jcfg.d_model)).astype(np.float32)
+    jout, jcache = jrglru.rglru_forward(jnp.asarray(x), jp, jcfg,
+                                        return_cache=True)
+    tout, tcache = trglru.rglru_forward(t(x), tp, tcfg)
+    np.testing.assert_allclose(n(tout), n(jout), rtol=TOL["fp32"],
+                               atol=TOL["fp32"])
+    _close_tree(tcache, jcache, TOL["fp32"])
+    # Two chunks: the second resumes the first's state.
+    outs = []
+    jc = tc = None
+    for lo, hi in ((0, 12), (12, 24)):
+        jo, jc = jrglru.rglru_forward(jnp.asarray(x[:, lo:hi]), jp, jcfg,
+                                      return_cache=True, cache=jc)
+        to, tc = trglru.rglru_forward(t(x[:, lo:hi]), tp, tcfg, cache=tc)
+        np.testing.assert_allclose(n(to), n(jo), rtol=TOL["fp32"],
+                                   atol=TOL["fp32"])
+        outs.append(to)
+    _close_tree(tc, jc, TOL["fp32"])
+    np.testing.assert_allclose(n(torch.cat(outs, dim=1)), n(tout),
+                               rtol=TOL["fp32"], atol=TOL["fp32"])
+
+
+def test_rglru_decode_matches_jax_and_keeps_invalid_rows():
+    jcfg, tcfg = _cfgs()
+    jp, tp = _block_params(jcfg, seed=2)
+    rng = np.random.default_rng(3)
+    w = jcfg.rglru.width
+    cache = {"h": rng.standard_normal((3, w)).astype(np.float32),
+             "conv": rng.standard_normal((3, 4, w)).astype(np.float32)}
+    x = rng.standard_normal((3, 1, jcfg.d_model)).astype(np.float32)
+    jout, jc = jrglru.rglru_decode(jnp.asarray(x), jp, jcfg,
+                                   {k: jnp.asarray(v)
+                                    for k, v in cache.items()})
+    tc = {k: t(v) for k, v in cache.items()}
+    tout, tc = trglru.rglru_decode(t(x), tp, tcfg, tc)
+    np.testing.assert_allclose(n(tout), n(jout), rtol=TOL["fp32"],
+                               atol=TOL["fp32"])
+    _close_tree(tc, jc, TOL["fp32"])
+    # With row_valid, rows marked False keep their state exactly.
+    tc = {k: t(v) for k, v in cache.items()}
+    _, tc = trglru.rglru_decode(t(x), tp, tcfg, tc,
+                                row_valid=torch.tensor([True, False, True]))
+    for name in cache:
+        np.testing.assert_array_equal(tc[name][1].numpy(), cache[name][1])
+        np.testing.assert_allclose(n(tc[name][[0, 2]]),
+                                   n(jc[name])[[0, 2]], rtol=TOL["fp32"],
+                                   atol=TOL["fp32"])
