@@ -9,22 +9,28 @@ Phases (any failure raises and the script exits non-zero):
    ``src/repro_torch/csrc`` with nvcc (into ``build/``; the compiler log
    goes to ``build_log.txt`` in the output directory).
 2. Kernels against their plain PyTorch versions on the card: B1
-   ``mte_gemm``, B2 ``splitk_gemm``, B3 ``grouped_gemm``, both halves of
-   B8 (``rigid_gemm``, ``epilogue_pass``), B4 ``flash_decode_paged``, B5
-   ``flash_attention``, B6 ``flash_decode`` (ring), B7 ``rglru_scan`` —
-   at the exact shapes the serving phase launches (bf16; f32 for B7) and
-   at small ragged shapes in every mode each kernel takes.  Each
-   prints its max error beside the tolerance; the main-path shapes also
-   print the kernel time (CUDA events, median of 10), its bound
-   (max(operations / peak, bytes / 3.35 TB/s)), the plain version's time
-   and the time of one library call for the same function
-   (``torch.matmul``, ``torch.bmm`` on the stacked operands,
-   ``F.gelu`` or ``F.scaled_dot_product_attention``; none for B7), timed
-   only as a yardstick.
+   ``mte_gemm`` on both of its engines (the TMA + wgmma mainloop, counter
+   ``mte_gemm_wgmma``, and the tile loop, counter ``mte_gemm``), B2
+   ``splitk_gemm``, B3 ``grouped_gemm``, both halves of B8 (stage 1 on
+   its two engines, ``rigid_gemm_wgmma`` and ``rigid_gemm``, and
+   ``epilogue_pass``), B4 ``flash_decode_paged``, B5 ``flash_attention``,
+   B6 ``flash_decode`` (ring), B7 ``rglru_scan`` -- at the exact shapes
+   the serving phase launches (bf16; f32 for B7; gemma_2b's and
+   recurrentgemma_9b's prefill projections for B1 and B8 stage 1, each
+   printed with its plan's engine and tile) and at small ragged shapes in
+   every mode each kernel takes.  Each prints its max error beside the
+   tolerance; the main-path shapes also print the kernel time (CUDA
+   events, median of 10), its bound (max(operations / peak, bytes /
+   3.35 TB/s)), the plain version's time and the time of one library
+   call for the same function (``torch.matmul``, ``torch.bmm`` on the
+   stacked operands, ``F.gelu`` or ``F.scaled_dot_product_attention``;
+   none for B7), timed only as a yardstick.
 3. The whole path held against the CPU: gemma_2b.reduced() in fp32 with
    one seed, served by the port's engine on the card (kernels) and on the
    CPU (plain versions), in the default configuration (graph programs +
-   the grouped decode q/k/v) and under ``gemm_policy="amx"``, and
+   the grouped decode q/k/v) and under ``gemm_policy="amx"`` (B8 stage 1
+   on its tile loop), one 4096-token chunk through it on the eager path
+   (B1's tile loop: fp32 GEMMs whose grid fills the card), and
    recurrentgemma_9b.reduced() in the default configuration (prompts
    longer than its 16-slot ring, chunks of 8): first-token logits within
    1e-3, identical greedy token streams.
@@ -37,10 +43,12 @@ Phases (any failure raises and the script exits non-zero):
    2560-token prompts, so its 2048-slot rings wrap in prefill and decode)
    in the defaults.  For each, launch counters are zeroed just before the
    run and read just after (every kernel of that path must have
-   launched), and it prints decode ms per step, prefill tokens/s, peak
-   memory, each compiled program's grouping decision and plans, and a
-   profile of a decode step and a prefill chunk (idle share, launches per
-   call).
+   launched, every bf16 B1 and B8 stage-1 launch on the wgmma engine:
+   the tile loops' counters must stay 0, and no prefill projection may be
+   planned off B1 or B8), and it prints decode ms per step, prefill
+   tokens/s, peak memory, each compiled program's grouping decision and
+   plans, and a profile of a decode step and a prefill chunk (idle share,
+   launches per call).
 
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -134,10 +142,20 @@ def check(name, got, want, tol, rel=True):
 # -- phase 2: kernels against their plain versions -----------------------------
 
 def gemm_phase(dev, rows):
+    """B1 on both of its engines and B2 against their plain versions:
+    small ragged shapes in every mode (the TMA-aligned ones, M, N and K
+    multiples of 8, run bf16 and bf16acc on the wgmma engine at several
+    tiles, the others the tile loop), then the bf16 GEMMs of the
+    full-width serving runs through the plans those runs get: gemma_2b's
+    prefill (M = 512) and decode (M = 4) projections and
+    recurrentgemma_9b's prefill projections, each printed with its engine
+    and tile.  The tile loop's own row is the reduced fp32 model's
+    4096-token chunk's gate, the shape phase 3 gives it."""
     import torch
-    from repro_torch.core.autotune import PlanCache, GemmSignature
+    from repro_torch.core.autotune import PlanCache, GemmSignature, \
+        plan_engine
     from repro_torch.core.epilogue import Epilogue
-    from repro_torch.core.geometry import BlockGeometry, SEW
+    from repro_torch.core.geometry import BlockGeometry, SEW, gemm_engine
     from repro_torch.kernels.mte_gemm import mte_gemm_kernel, mte_gemm_torch
     from repro_torch.kernels.splitk_gemm import (mte_gemm_splitk_kernel,
                                                  mte_gemm_splitk_torch)
@@ -164,26 +182,39 @@ def gemm_phase(dev, rows):
     epi_full = Epilogue(alpha=0.7, beta=0.5, has_bias=True, softcap=20.0,
                         activation="gelu")
     for label, dt, acc, out_dt, tol in modes:
-        for m, n, k in [(100, 70, 130), (7, 300, 1000), (33, 257, 65)]:
+        for m, n, k in [(100, 70, 130), (7, 300, 1000), (33, 257, 65),
+                        (520, 2056, 1032), (64, 64, 64)]:
             a, b = operands(m, n, k, dt)
             bm, bn = (16, 128) if m <= 16 else (64, 64)
             geom = BlockGeometry(bm, bn, 64, 1, 1, False, SEW.E32, SEW.E32,
                                  "mte")
+            tiles = [(bm, bn)]
+            if gemm_engine(dt, bm, bn, n, k, bf16acc=acc is not None) \
+                    == "wgmma":
+                tiles += [(128, 128), (64, 128)] if acc is not None \
+                    else [(128, 128), (128, 256)]
             epi = Epilogue() if dt == torch.int8 else epi_full
             c = torch.randn(m, n, device=dev)
             bias = torch.randn(n, device=dev)
             c_, bias_ = (None, None) if dt == torch.int8 else (c, bias)
             want = mte_gemm_torch(a, b, c_, bias_, geom=geom, epilogue=epi,
                                   out_dtype=out_dt, acc_dtype=acc)
-            got = mte_gemm_kernel(a, b, c_, bias_, geom=geom, epilogue=epi,
-                                  out_dtype=out_dt, acc_dtype=acc)
-            check(f"mte_gemm {label} {m}x{n}x{k}", got, want, tol)
             bt = b.t().contiguous()
-            tgeom = dataclasses.replace(geom, transposed_b=True)
-            got = mte_gemm_kernel(a, bt, c_, bias_, geom=tgeom, epilogue=epi,
-                                  out_dtype=out_dt, acc_dtype=acc)
-            check(f"mte_gemm {label} transposed-B {m}x{n}x{k}", got, want,
-                  tol)
+            for tile in tiles:
+                g = dataclasses.replace(geom, bm=tile[0], bn=tile[1])
+                eng = gemm_engine(dt, *tile, n, k, bf16acc=acc is not None)
+                got = mte_gemm_kernel(a, b, c_, bias_, geom=g, epilogue=epi,
+                                      out_dtype=out_dt, acc_dtype=acc)
+                check(f"mte_gemm[{eng} {tile[0]}x{tile[1]}] {label} "
+                      f"{m}x{n}x{k}", got, want, tol)
+                tgeom = dataclasses.replace(g, transposed_b=True)
+                got = mte_gemm_kernel(a, bt, c_, bias_, geom=tgeom,
+                                      epilogue=epi, out_dtype=out_dt,
+                                      acc_dtype=acc)
+                check(f"mte_gemm[{eng} {tile[0]}x{tile[1]}] {label} "
+                      f"transposed-B {m}x{n}x{k}", got, want, tol)
+            if (m, n, k) in ((520, 2056, 1032), (64, 64, 64)):
+                continue         # split-K: the first three shapes
             for s in (3, 4):
                 want = mte_gemm_splitk_torch(a, b, c_, bias_, geom=geom,
                                              n_split=s, epilogue=epi,
@@ -196,49 +227,64 @@ def gemm_phase(dev, rows):
                 check(f"splitk_gemm {label} n_split={s} {m}x{n}x{k}", got,
                       want, tol)
 
-    # The bf16 GEMMs of the full-width serving run, through the plans the
-    # serving run gets (prefill chunk M = 512, decode M = 4 slots).
-    d, f, hd = 2048, 16384, 256
-    shapes = [("q/o", d, d, "none"), ("k/v", hd, d, "none"),
-              ("gate", f, d, "gelu"), ("up", f, d, "none"),
-              ("down", d, f, "none")]
+    def main_path(label, m, n, k, act, dt=torch.bfloat16, tol=2e-2,
+                  fmt="bf16"):
+        epi = Epilogue(activation=act)
+        sig = GemmSignature.make(m, n, k, dt, dt, epi, fmt=fmt)
+        plan = cache.plan(sig)
+        a, b = operands(m, n, k, dt)
+        if plan.route == "splitk":
+            kern = "splitk_gemm"
+            run = lambda: mte_gemm_splitk_kernel(  # noqa: E731
+                a, b, geom=plan.geometry, n_split=plan.n_split,
+                epilogue=epi, out_dtype=dt)
+            plain = lambda: mte_gemm_splitk_torch(  # noqa: E731
+                a, b, geom=plan.geometry, n_split=plan.n_split,
+                epilogue=epi, out_dtype=dt)
+        else:
+            engine = plan_engine(sig, plan.geometry)
+            kern = "mte_gemm_wgmma" if engine == "wgmma" else "mte_gemm"
+            run = lambda: mte_gemm_kernel(  # noqa: E731
+                a, b, geom=plan.geometry, epilogue=epi, out_dtype=dt)
+            plain = lambda: mte_gemm_torch(  # noqa: E731
+                a, b, geom=plan.geometry, epilogue=epi, out_dtype=dt)
+        shape = f"{label} {m}x{n}x{k}"
+        err = check(f"{kern} main-path {shape} [{plan.describe()}]", run(),
+                    plain(), tol)
+        flops = 2.0 * m * n * k
+        nbytes = a.element_size() * (m * k + k * n + m * n)
+        peak = PEAK["bf16" if dt == torch.bfloat16 else "fp32"]
+        row = {"kernel": kern, "shape": shape,
+               "plan": plan.describe(), "max_abs_err": err,
+               "tol": tol, "ms": time_ms(run), "plain_ms": time_ms(plain),
+               "bound_ms": bound_ms(flops, nbytes, peak),
+               "bound_by": bound_by(flops, nbytes, peak),
+               "library_ms": time_ms(lambda: torch.matmul(a, b))}
+        rows.append(row)
+        log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+            f"torch.matmul {row['library_ms']:.4f} ms "
+            f"({row['ms'] / row['library_ms']:.2f}x)")
+
+    # The bf16 GEMMs of the full-width serving runs, through the plans the
+    # serving runs get (prefill chunk M = 512, decode M = 4 slots):
+    # gemma_2b (d 2048, d_ff 16384, one 256-wide kv head) and
+    # recurrentgemma_9b's prefill (d and RG-LRU width 4096, d_ff 12288).
+    gemma = [("q/o", 2048, 2048, "none"), ("k/v", 256, 2048, "none"),
+             ("gate", 16384, 2048, "gelu"), ("up", 16384, 2048, "none"),
+             ("down", 2048, 16384, "none")]
     for m in (512, 4):
-        for label, n, k, act in shapes:
-            epi = Epilogue(activation=act)
-            sig = GemmSignature.make(m, n, k, "bfloat16", "bfloat16", epi,
-                                     fmt="bf16")
-            plan = cache.plan(sig)
-            a, b = operands(m, n, k, torch.bfloat16)
-            if plan.route == "splitk":
-                kern = "splitk_gemm"
-                run = lambda: mte_gemm_splitk_kernel(  # noqa: E731
-                    a, b, geom=plan.geometry, n_split=plan.n_split,
-                    epilogue=epi, out_dtype=torch.bfloat16)
-                plain = lambda: mte_gemm_splitk_torch(  # noqa: E731
-                    a, b, geom=plan.geometry, n_split=plan.n_split,
-                    epilogue=epi, out_dtype=torch.bfloat16)
-            else:
-                kern = "mte_gemm"
-                run = lambda: mte_gemm_kernel(  # noqa: E731
-                    a, b, geom=plan.geometry, epilogue=epi,
-                    out_dtype=torch.bfloat16)
-                plain = lambda: mte_gemm_torch(  # noqa: E731
-                    a, b, geom=plan.geometry, epilogue=epi,
-                    out_dtype=torch.bfloat16)
-            err = check(f"{kern} main-path {label} {m}x{n}x{k} "
-                        f"[{plan.describe()}]", run(), plain(), 2e-2)
-            flops = 2.0 * m * n * k
-            nbytes = 2.0 * (m * k + k * n + m * n)
-            row = {"kernel": kern, "shape": f"{label} {m}x{n}x{k}",
-                   "plan": plan.describe(), "max_abs_err": err,
-                   "tol": 2e-2, "ms": time_ms(run), "plain_ms": time_ms(plain),
-                   "bound_ms": bound_ms(flops, nbytes, PEAK["bf16"]),
-                   "bound_by": bound_by(flops, nbytes, PEAK["bf16"]),
-                   "library_ms": time_ms(lambda: torch.matmul(a, b))}
-            rows.append(row)
-            log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
-                f"ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-                f"torch.matmul {row['library_ms']:.4f} ms")
+        for label, n, k, act in gemma:
+            main_path(label, m, n, k, act)
+    for label, n, k, act in [("rg q/o/rglru", 4096, 4096, "none"),
+                             ("rg k/v", 256, 4096, "none"),
+                             ("rg gate", 12288, 4096, "gelu"),
+                             ("rg down", 4096, 12288, "none")]:
+        main_path(label, 512, n, k, act)
+    # The tile loop's row: the reduced fp32 gemma_2b's gate projection
+    # (d_model 128, d_ff 256) in the 4096-token chunk phase 3 runs.
+    main_path("gate fp32", 4096, 256, 128, "gelu", dt=torch.float32,
+              tol=1e-4, fmt="fp32")
 
 
 def grouped_phase(dev, rows):
@@ -334,10 +380,16 @@ def grouped_phase(dev, rows):
 def rigid_phase(dev, rows):
     """Both halves of B8 against their plain versions: ragged shapes in
     every mode (a rigid route has no narrow accumulator: bf16acc runs as
-    bf16), then the main path's gate projection with its GeGLU epilogue."""
+    bf16; TMA-aligned bf16 shapes run stage 1 on the wgmma engine, the
+    others on the tile loop), then the main path's gate projection with
+    its GeGLU epilogue, stage 1 also at recurrentgemma_9b's prefill gate
+    and at a 4-slot decode GEMV (the 128-row tile's padding), and the tile
+    loop's row at the reduced fp32 model's prefill gate, where phase 3
+    runs it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.epilogue import Epilogue
+    from repro_torch.core.geometry import RIGID_TILE, gemm_engine
     from repro_torch.kernels.rigid_gemm import (
         epilogue_pass_kernel, epilogue_pass_torch, rigid_accumulate_kernel,
         rigid_accumulate_torch, rigid_gemm_kernel, rigid_gemm_torch)
@@ -348,13 +400,15 @@ def rigid_phase(dev, rows):
     for label, dt, tol in [("fp32", torch.float32, 1e-4),
                            ("bf16", torch.bfloat16, 1e-4),
                            ("int8", torch.int8, 0.0)]:
-        for m, n, k in [(4, 300, 1000), (130, 257, 65), (100, 70, 130)]:
+        for m, n, k in [(4, 300, 1000), (130, 257, 65), (100, 70, 130),
+                        (520, 2056, 1032), (64, 64, 64), (4, 16384, 2048)]:
+            eng = gemm_engine(dt, *RIGID_TILE[:2], n, k, rigid=True)
             if dt == torch.int8:
                 a = torch.randint(-127, 128, (m, k), generator=gen,
                                   device=dev, dtype=dt)
                 b = torch.randint(-127, 128, (k, n), generator=gen,
                                   device=dev, dtype=dt)
-                check(f"rigid_gemm int8 {m}x{n}x{k}",
+                check(f"rigid_gemm[{eng}] int8 {m}x{n}x{k}",
                       rigid_gemm_kernel(a, b, out_dtype=torch.int32),
                       rigid_gemm_torch(a, b, out_dtype=torch.int32), 0.0)
                 continue
@@ -363,21 +417,47 @@ def rigid_phase(dev, rows):
             b = torch.randn(k, n, generator=gen, device=dev).to(dt)
             c = torch.randn(m, n, generator=gen, device=dev)
             bias = torch.randn(n, generator=gen, device=dev)
-            check(f"rigid_gemm {label} {m}x{n}x{k} (both stages)",
+            check(f"rigid_gemm[{eng}] {label} {m}x{n}x{k} (stage 1, f32 "
+                  f"accumulator)", rigid_accumulate_kernel(a, b),
+                  rigid_accumulate_torch(a, b), tol)
+            check(f"rigid_gemm[{eng}] {label} {m}x{n}x{k} (both stages)",
                   rigid_gemm_kernel(a, b, c, bias, epilogue=epi_full),
                   rigid_gemm_torch(a, b, c, bias, epilogue=epi_full), tol)
 
+    def stage1(label, m, n, k, dt=torch.bfloat16):
+        """Stage 1 at one main-path shape: check (the f32 accumulator
+        within 1e-4) and time it; returns its operands and accumulator."""
+        a = (torch.randn(m, k, generator=gen, device=dev)
+             / math.sqrt(k)).to(dt)
+        b = torch.randn(k, n, generator=gen, device=dev).to(dt)
+        eng = gemm_engine(dt, *RIGID_TILE[:2], n, k, rigid=True)
+        kern = "rigid_gemm_wgmma" if eng == "wgmma" else "rigid_gemm"
+        run = lambda: rigid_accumulate_kernel(a, b)  # noqa: E731
+        plain = lambda: rigid_accumulate_torch(a, b)  # noqa: E731
+        acc = run()
+        shape = f"{label} {m}x{n}x{k}"
+        err = check(f"{kern} main-path {shape} (stage 1, f32 accumulator)",
+                    acc, plain(), 1e-4)
+        flops = 2.0 * m * n * k
+        nbytes = a.element_size() * (m * k + k * n) + 4.0 * m * n
+        peak = PEAK["bf16" if dt == torch.bfloat16 else "fp32"]
+        row = {"kernel": kern, "shape": shape, "max_abs_err": err,
+               "tol": 1e-4, "ms": time_ms(run), "plain_ms": time_ms(plain),
+               "bound_ms": bound_ms(flops, nbytes, peak),
+               "bound_by": bound_by(flops, nbytes, peak),
+               "library_ms": time_ms(lambda: torch.matmul(a, b))}
+        rows.append(row)
+        log(f"    {kern}: time {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, torch.matmul "
+            f"{row['library_ms']:.4f} ms "
+            f"({row['ms'] / row['library_ms']:.2f}x)")
+        return a, b, acc
+
     # The gate projection of a 512-token prefill chunk, GeGLU's gelu on it.
-    m, n, k = 512, 16384, 2048
-    a = (torch.randn(m, k, generator=gen, device=dev)
-         / math.sqrt(k)).to(torch.bfloat16)
-    b = torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16)
+    m, n = 512, 16384
+    a, b, acc = stage1("gate", m, n, 2048)
     epi = Epilogue(activation="gelu")
-    run1 = lambda: rigid_accumulate_kernel(a, b)  # noqa: E731
-    plain1 = lambda: rigid_accumulate_torch(a, b)  # noqa: E731
-    acc = run1()
-    err1 = check("rigid_gemm main-path gate 512x16384x2048 (stage 1, f32 "
-                 "accumulator)", acc, plain1(), 1e-4)
     run2 = lambda: epilogue_pass_kernel(  # noqa: E731
         acc, epilogue=epi, out_dtype=torch.bfloat16)
     plain2 = lambda: epilogue_pass_torch(  # noqa: E731
@@ -388,14 +468,6 @@ def rigid_phase(dev, rows):
           rigid_gemm_kernel(a, b, epilogue=epi, out_dtype=torch.bfloat16),
           rigid_gemm_torch(a, b, epilogue=epi, out_dtype=torch.bfloat16),
           2e-2)
-    flops = 2.0 * m * n * k
-    nbytes = 2.0 * (m * k + k * n) + 4.0 * m * n
-    rows.append({"kernel": "rigid_gemm", "shape": "gate 512x16384x2048",
-                 "max_abs_err": err1, "tol": 1e-4, "ms": time_ms(run1),
-                 "plain_ms": time_ms(plain1),
-                 "bound_ms": bound_ms(flops, nbytes, PEAK["bf16"]),
-                 "bound_by": bound_by(flops, nbytes, PEAK["bf16"]),
-                 "library_ms": time_ms(lambda: torch.matmul(a, b))})
     pass_flops = 15.0 * m * n        # the tanh-gelu's element-wise ops
     pass_bytes = 4.0 * m * n + 2.0 * m * n
     rows.append({"kernel": "epilogue_pass", "shape": "gelu 512x16384",
@@ -406,10 +478,13 @@ def rigid_phase(dev, rows):
                  "bound_by": bound_by(pass_flops, pass_bytes, PEAK["fp32"]),
                  "library_ms": time_ms(
                      lambda: F.gelu(acc, approximate="tanh"))})
-    for row in rows[-2:]:
-        log(f"    {row['kernel']}: time {row['ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
-            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms")
+    row = rows[-1]
+    log(f"    epilogue_pass: time {row['ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms")
+    stage1("rg gate", 512, 12288, 4096)
+    stage1("decode gate", 4, 16384, 2048)
+    stage1("gate fp32", 16, 256, 128, dt=torch.float32)  # phase 3's amx
 
 
 def paged_inputs(dev, *, b, h, hkv, d, page, lens, dtype, gen, stale=False):
@@ -679,15 +754,20 @@ CONFIGS = {
 }
 # Kernels each configuration's main path must launch.
 PATH_KERNELS = {
-    "default": ("mte_gemm", "splitk_gemm", "grouped_gemm",
+    "default": ("mte_gemm_wgmma", "splitk_gemm", "grouped_gemm",
                 "flash_decode_paged", "flash_attention"),
-    "amx": ("rigid_gemm", "epilogue_pass", "flash_decode_paged",
+    "amx": ("rigid_gemm_wgmma", "epilogue_pass", "flash_decode_paged",
             "flash_attention"),
-    "eager": ("mte_gemm", "splitk_gemm", "flash_decode_paged",
+    "eager": ("mte_gemm_wgmma", "splitk_gemm", "flash_decode_paged",
               "flash_attention"),
-    "recurrentgemma": ("mte_gemm", "splitk_gemm", "grouped_gemm",
+    "recurrentgemma": ("mte_gemm_wgmma", "splitk_gemm", "grouped_gemm",
                        "flash_decode", "rglru_scan"),
 }
+# Tile-loop counters that must stay 0 at full width: every bf16 B1 launch
+# (all of them prefill projections) and every bf16 B8 stage-1 launch runs
+# on the wgmma engine.
+NOT_ON_PATH = {"default": "mte_gemm", "amx": "rigid_gemm",
+               "eager": "mte_gemm", "recurrentgemma": "mte_gemm"}
 # Phase 4's workload per arch: 4 slots, 16-token pages, 512-token prefill
 # chunks, 6 requests x 24 greedy tokens.  gemma_2b: 1024-token prompts, two
 # sharing their first chunk (the prefix cache).  recurrentgemma_9b:
@@ -720,6 +800,10 @@ def to_device(tree, device):
 
 
 def reduced_phase(dev):
+    """gemma_2b.reduced() in fp32, card against CPU, in the default and
+    ``amx`` configurations; returns the card's launch counts of each
+    engine run (keys ``reduced-default``, ``reduced-amx``): fp32 runs B1
+    and B8 stage 1 on their tile loops, whose launches count here."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -739,6 +823,7 @@ def reduced_phase(dev):
     kw = dict(slots=2, cache_len=64, prefill_len=32, page_size=8,
               prefill_chunk=16)
 
+    path_counts = {}
     for name in ("default", "amx"):
         cfg = dataclasses.replace(base, **CONFIGS[name][1])
         reset_planning()
@@ -773,6 +858,7 @@ def reduced_phase(dev):
                 f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
                 f"launches {counts}")
             if device == dev:
+                path_counts[f"reduced-{name}"] = counts
                 mark = "grouped_gemm" if name == "default" else "rigid_gemm"
                 require(counts[mark] > 0,
                         f"[{name}] {mark} not launched on the card")
@@ -782,6 +868,37 @@ def reduced_phase(dev):
                     f"[{name}] greedy stream of request {rid} differs")
         log(f"  reduced engine [{name}]: greedy streams identical on cuda "
             f"and cpu")
+
+    # B1's tile loop runs where an fp32 GEMM's tile grid fills the card:
+    # one 4096-token chunk through the reduced model on the eager path
+    # (its gate and up projections, 4096x256x128, make 256 blocks of
+    # 64x64, so they are planned without split-K).
+    cfg = dataclasses.replace(base, **CONFIGS["eager"][1])
+    reset_planning()
+    toks_np = rng.integers(0, base.vocab, 4096).astype(np.int64)
+    logits = {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        cache = model_lib.init_paged_cache(cfg, 1, 4096, num_pages=257,
+                                           page_size=16, device=device)
+        table = torch.arange(1, 257, dtype=torch.int32, device=device)[None]
+        toks = torch.as_tensor(toks_np, device=device)
+        build.reset_launch_counts()
+        out, _ = model_lib.prefill_chunk(
+            params, {"tokens": toks[None], "page_table": table}, cache, cfg,
+            pos0=0)
+        logits[str(device)] = out.cpu()
+        if device == dev:
+            path_counts["reduced-long-prefill"] = counts = \
+                build.launch_counts()
+            log(f"  reduced fp32 [eager] one 4096-token chunk on {device}: "
+                f"launches {counts}")
+            require(counts["mte_gemm"] > 0, "the 4096-token chunk did not "
+                    "launch B1's tile loop")
+    err = max_err(logits[str(dev)], logits["cpu"])
+    log(f"  reduced fp32 [eager] 4096-token chunk logits cuda vs cpu: "
+        f"max_abs_err={err:.3e} tol=1e-3")
+    require(err <= 1e-3, f"4096-token chunk logits differ by {err}")
+    return path_counts
 
 
 def reduced_recurrent_phase(dev):
@@ -943,6 +1060,10 @@ def serving_phase(dev, name):
     for kernel in PATH_KERNELS[name]:
         require(counts[kernel] > 0,
                 f"[{name}] {kernel} was never launched on the main path")
+    require(counts[NOT_ON_PATH[name]] == 0,
+            f"[{name}] {counts[NOT_ON_PATH[name]]} launches of "
+            f"{NOT_ON_PATH[name]} (the tile loop) at full width: every bf16 "
+            f"launch must run on the wgmma engine")
     # Finite logits at full width (the engine quarantines non-finite rows;
     # check one prefill's logits directly too).
     cache = model_lib.init_paged_cache(cfg, 1, 1024, num_pages=65,
@@ -967,11 +1088,16 @@ def serving_phase(dev, name):
         programs.append({"program": head, "grouped": prog.grouped,
                          "nodes": kinds, "plans": plans})
     plans = sorted({(p.signature.m, p.signature.n, p.signature.k,
-                     p.signature.group, p.describe())
+                     p.signature.group, p.describe(), p.route)
                     for p in autotune.plan_cache()._plans.values()})
     for plan in plans:
         log(f"  [{name}] plan {plan[0]}x{plan[1]}x{plan[2]} G={plan[3]}: "
             f"{plan[4]}")
+    # The prefill chunk's projections (M = 512) stay on B1 (or B8 under
+    # amx): the pricing must not move one into a grouped launch (B3).
+    chunk_routes = {p[5] for p in plans if p[0] == 512}
+    require(chunk_routes <= {"mte", "rigid"},
+            f"[{name}] prefill projections planned on {chunk_routes}")
     profile = profile_steps(eng, dev, work)
     summary = {
         "config": name, "arch": arch, "requests": len(out),
@@ -1139,8 +1265,11 @@ def profile_steps(eng, dev, work, steps: int = 10):
 # (counter, source, the TPU kernel it replaces, the row of phase 2 that
 # stands for it, the configuration whose main path counts its launches)
 KERNELS = [
-    ("mte_gemm", "src/repro_torch/csrc/mte_gemm.cu",
+    ("mte_gemm_wgmma", "src/repro_torch/csrc/mte_gemm.cu",
      "src/repro/kernels/mte_gemm.py:114", "gate 512x16384x2048", "default"),
+    ("mte_gemm", "src/repro_torch/csrc/mte_gemm.cu",
+     "src/repro/kernels/mte_gemm.py:114", "gate fp32 4096x256x128",
+     "reduced-long-prefill"),
     ("splitk_gemm", "src/repro_torch/csrc/splitk_gemm.cu",
      "src/repro/kernels/splitk_gemm.py:60", "gate 4x16384x2048", "default"),
     ("grouped_gemm", "src/repro_torch/csrc/grouped_gemm.cu",
@@ -1151,8 +1280,11 @@ KERNELS = [
     ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:108", "512x1024 H=8 D=256",
      "default"),
-    ("rigid_gemm", "src/repro_torch/csrc/rigid_gemm.cu",
+    ("rigid_gemm_wgmma", "src/repro_torch/csrc/rigid_gemm.cu",
      "src/repro/kernels/rigid_gemm.py:80", "gate 512x16384x2048", "amx"),
+    ("rigid_gemm", "src/repro_torch/csrc/rigid_gemm.cu",
+     "src/repro/kernels/rigid_gemm.py:80", "gate fp32 16x256x128",
+     "reduced-amx"),
     ("epilogue_pass", "src/repro_torch/csrc/rigid_gemm.cu",
      "src/repro/kernels/rigid_gemm.py:43", "gelu 512x16384", "amx"),
     ("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
@@ -1209,10 +1341,9 @@ def main() -> int:
     ring_decode_phase(dev, rows)
     rglru_phase(dev, rows)
     log("== 3. reduced gemma_2b (fp32): card against CPU, default and amx")
-    reduced_phase(dev)
+    counts, serving = reduced_phase(dev), {}
     log("== 3. reduced recurrentgemma_9b (fp32): card against CPU, default")
     reduced_recurrent_phase(dev)
-    counts, serving = {}, {}
     for name, (arch, overrides) in CONFIGS.items():
         log(f"== 4. full-width {arch} serving (bf16), configuration "
             f"[{name}] {overrides or '(defaults)'}")

@@ -6,11 +6,12 @@ For every distinct GEMM signature
     (M, N, K, dtype_in, dtype_out, epilogue, policy, backend, group, fmt)
 
 the cache enumerates candidate geometries from the Hopper solver
-(:func:`repro_torch.core.geometry.solve_block_geometry`), scores them
-with an analytic Hopper time (:func:`score_geometry`), and memoizes the
-winner in an LRU.  Routes: ``"mte"`` (the B1 kernel, ``csrc/mte_gemm.cu``)
-and ``"splitk"`` (the B2 kernel, ``csrc/splitk_gemm.cu``), offered when
-the (M, N) tile grid leaves SMs idle.
+(:func:`repro_torch.core.geometry.solve_block_geometry`) and, for bf16
+shapes the wgmma engine takes, its tiles; scores them with an analytic
+Hopper time (:func:`score_geometry`), and memoizes the winner in an LRU.
+Routes: ``"mte"`` (the B1 kernel, ``csrc/mte_gemm.cu``), ``"splitk"``
+(the B2 kernel, ``csrc/splitk_gemm.cu``), offered when the (M, N) tile
+grid leaves SMs idle, ``"grouped"`` (B3) and ``"rigid"`` (B8).
 
 Queued (ROADMAP A4): the JSON warm start, measured refinement
 (``measure=True``), ``runner_up`` and ``recalibrate``.
@@ -23,14 +24,16 @@ from typing import Dict, List, Optional
 
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.geometry import (
-    INNER_BK, BlockGeometry, H100_SPEC, HopperProfile, Policy,
-    cdiv, hopper_profile, round_up, solve_block_geometry,
+    INNER_BK, WGMMA_BK, WGMMA_TILES, BlockGeometry, H100_SPEC,
+    HopperProfile, Policy, cdiv, gemm_engine, hopper_profile, round_up,
+    solve_block_geometry,
 )
 from repro_torch.core.tile_state import SEW, dtype_name
 
 __all__ = [
     "GemmSignature", "ExecutionPlan", "PlanCache", "CacheStats",
     "enumerate_candidates", "score_geometry", "execute_plan", "get_plan",
+    "plan_engine",
     "plan_cache", "reset_cache", "cache_stats", "cache_generation",
 ]
 
@@ -116,6 +119,25 @@ def _route_for(sig: GemmSignature, geom: BlockGeometry) -> str:
     return "mte"
 
 
+def plan_engine(sig: GemmSignature, geom: BlockGeometry) -> str:
+    """The mainloop a plan launches: ``"wgmma"`` or ``"tile"``.  B2 and
+    B3 (split or grouped plans) run the tile loop; B1 and B8 stage 1
+    follow :func:`repro_torch.core.geometry.gemm_engine` (ValueError when
+    no engine takes the geometry)."""
+    if sig.group > 1 or geom.split_k > 1:
+        return "tile"
+    return gemm_engine(sig.dtype_in, geom.bm, geom.bn, sig.n, sig.k,
+                       bf16acc=sig.format_policy.accum_dtype == "bfloat16",
+                       rigid=sig.policy == "amx")
+
+
+def _on_wgmma(sig: GemmSignature, geom: BlockGeometry) -> bool:
+    try:
+        return plan_engine(sig, geom) == "wgmma"
+    except ValueError:
+        return False
+
+
 def _split_bk(base_bk: int, k: int, s: int) -> int:
     """Largest inner-tile-aligned K slice ≤ base that gives ≥ s slices."""
     return min(base_bk, max(INNER_BK, round_up(cdiv(k, s), INNER_BK)))
@@ -125,16 +147,24 @@ def enumerate_candidates(sig: GemmSignature,
                          profile: HopperProfile = H100_SPEC
                          ) -> List[BlockGeometry]:
     """Candidate geometries for one signature, the solver's base first
-    (its tile is the kernel tile for this M), then split-K slices when
-    the (M, N) tile grid is below the SM count.  The rigid policy gets
-    exactly its fixed block (a rigid ISA cannot adapt), and grouped
-    signatures no split (B3 has no split-K path; its group axis already
-    multiplies the grid)."""
+    (its tile is the tile loop's tile for this M), then, for M ≥ 64, the
+    wgmma tiles the engine takes for this signature (bf16 or bf16acc —
+    whose two register sets stop at ``bn`` 128 —, K and N multiples of
+    8; same ``bk``), then split-K slices of the base when its (M, N) tile
+    grid is below the SM count (B2 never gets a wgmma tile).  The rigid
+    policy gets exactly its fixed block (a rigid ISA cannot adapt), and
+    grouped signatures no split (B3 has no split-K path; its group axis
+    already multiplies the grid)."""
     base = solve_block_geometry(sig.m, sig.n, sig.k, sig.sew_i, sig.sew_o,
                                 profile=profile, policy=sig.policy)
     cands: List[BlockGeometry] = [base]
     if sig.policy != "mte":
         return cands
+    if sig.group == 1 and sig.m >= 64:     # at least one 64-row wgmma
+        for bm, bn in WGMMA_TILES:
+            g = dataclasses.replace(base, bm=bm, bn=bn)
+            if g not in cands and _on_wgmma(sig, g):
+                cands.append(g)
     grid_mn = cdiv(sig.m, base.bm) * cdiv(sig.n, base.bn)
     if sig.group == 1 and grid_mn < profile.sm_count and sig.k > INNER_BK:
         for s in _SPLIT_CANDIDATES:
@@ -147,18 +177,49 @@ def enumerate_candidates(sig: GemmSignature,
     return cands
 
 
+def _wgmma_seconds(sig: GemmSignature, geom: BlockGeometry,
+                   profile: HopperProfile, extra_bytes: float) -> float:
+    """The wgmma engine's time: whole waves of tiles over the SMs, each
+    tile taking the longer of its MMAs at one SM's share of the peak and
+    its operand loads at one SM's share of the L2 rate (the stage ring
+    overlaps the two), and never less than every operand, the output and
+    ``extra_bytes`` moved once through device memory."""
+    m, n, k = sig.m, sig.n, sig.k
+    bm, bn = geom.bm, geom.bn
+    sms = profile.sm_count
+    kp = round_up(k, WGMMA_BK)
+    tile_mma = 2.0 * bm * bn * kp / (profile.peak_flops(sig.sew_i) / sms)
+    tile_load = ((bm + bn) * kp * sig.sew_i.bytes
+                 / (profile.l2_bw_bytes_per_s / sms))
+    waves = cdiv(cdiv(m, bm) * cdiv(n, bn), sms)
+    hbm = ((m * k + k * n) * sig.sew_i.bytes + m * n * sig.sew_o.bytes
+           + extra_bytes) / profile.hbm_bw_bytes_per_s
+    return max(waves * max(tile_mma, tile_load), hbm)
+
+
 def score_geometry(sig: GemmSignature, geom: BlockGeometry,
                    profile: HopperProfile = H100_SPEC) -> float:
-    """Predicted seconds: the larger of padded MMA work over the format's
-    peak and operand/partial traffic over HBM bandwidth, stretched by the
-    share of the card the block grid leaves idle (a grid below
-    ``sm_count * blocks_per_sm`` resident blocks cannot cover memory
-    latency), plus launch overhead.  Split-K pays a second launch for the
-    reduction; the rigid route pays the accumulator's write and read
-    back and, with a non-identity epilogue, the epilogue pass's launch.
-    A grouped signature is priced as G GEMMs' worth of tiles on one
-    grid: G times the work and the traffic, G times the blocks."""
+    """Predicted seconds, plus launch overhead.  On the wgmma engine
+    (:func:`plan_engine`): tile waves on the SMs against operand traffic
+    (:func:`_wgmma_seconds`).  On the tile loop: the larger of padded MMA
+    work over the format's peak and operand/partial traffic over HBM
+    bandwidth, stretched by the share of the card the block grid leaves
+    idle (a grid below ``sm_count * blocks_per_sm`` resident blocks cannot
+    cover memory latency: its loads are not pipelined).  Split-K pays a
+    second launch for the reduction; the rigid route pays the
+    accumulator's write and read back and, with a non-identity epilogue,
+    the epilogue pass's launch.  A grouped signature is priced as G
+    GEMMs' worth of tiles on one grid: G times the work and the traffic,
+    G times the blocks."""
     m, n, k = sig.m, sig.n, sig.k
+    launches = 1
+    rigid_bytes = 0.0
+    if sig.policy == "amx":
+        rigid_bytes = 2.0 * m * n * 4
+        launches = 1 if sig.epilogue.is_identity else 2
+    if plan_engine(sig, geom) == "wgmma":
+        return (_wgmma_seconds(sig, geom, profile, rigid_bytes)
+                + profile.launch_s * launches)
     g = max(sig.group, 1)
     gm, gn = cdiv(m, geom.bm), cdiv(n, geom.bn)
     s = geom.split_k
@@ -166,14 +227,10 @@ def score_geometry(sig: GemmSignature, geom: BlockGeometry,
     flops = 2.0 * g * round_up(m, geom.bm) * round_up(n, geom.bn) * k
     acc_b = sig.format_policy.sew_o.bytes
     bytes_ = g * ((m * k * gn + k * n * gm) * sig.sew_i.bytes
-                  + m * n * sig.sew_o.bytes)
-    launches = 1
+                  + m * n * sig.sew_o.bytes) + rigid_bytes
     if s > 1:
         bytes_ += 2 * s * m * n * acc_b
         launches = 2
-    if sig.policy == "amx":
-        bytes_ += 2 * m * n * 4
-        launches = 1 if sig.epilogue.is_identity else 2
     t = max(flops / profile.peak_flops(sig.sew_i),
             bytes_ / profile.hbm_bw_bytes_per_s)
     slots = profile.sm_count * profile.blocks_per_sm

@@ -9,19 +9,28 @@
 // S II-D): the tile does not adapt to the shape, and the epilogue does not
 // ride the accumulator registers but takes a round trip through memory.
 //
-// Stage 1 (rigid_gemm_kernel): B1's tile loop (gemm_tile.cuh) instantiated
-// at ONE tile, 128 x 128 outputs per 128-thread block, whatever M, N and K
-// are -- a decode GEMV with M = 4 still pays a 128-row tile.  The plan's
-// 128-deep K block is walked as four 32-deep shared-memory stages: the
-// inner depth BK is B1's (a compile-time constant of the tile loop), which
-// changes the loads, not the arithmetic.  A block takes 86 KB (bf16),
-// 103 KB (f32) or 78 KB (int8) of shared memory, most of it the 128 x 128
-// accumulator staging tile: above the 48 KB default, so the launch raises
-// the limit with cudaFuncSetAttribute and returns the launch error.
-// It writes the raw accumulator -- f32 for fp32/bf16 operands (a rigid ISA
-// has no narrow accumulator, so bf16acc runs f32 here, as in JAX), int32
-// for int8 -- to device memory.  The JAX kernel writes the int8 route's
-// accumulator through f32 (exact only below 2^24); this one keeps int32.
+// Stage 1 runs ONE tile, 128 x 128 outputs per block with a 128-deep K
+// block, whatever M, N and K are -- a decode GEMV with M = 4 still pays a
+// 128-row tile's MMAs.  It writes the raw accumulator -- f32 for
+// fp32/bf16 operands (a rigid ISA has no narrow accumulator, so bf16acc
+// runs f32 here, as in JAX), int32 for int8 -- to device memory.  The JAX
+// kernel writes the int8 route's accumulator through f32 (exact only
+// below 2^24); this one keeps int32.  Two engines, as for B1
+// (core/geometry.py:gemm_engine), so that MTE against rigid compares the
+// ISAs' flexibility at equal mainloop quality:
+//
+// - rigid_gemm_wgmma_launch (counter "rigid_gemm_wgmma"): bf16 operands
+//   with K and N multiples of 8 -- B1's TMA + mbarrier + wgmma mainloop
+//   (wgmma_mainloop.cuh) at the 128 x 128 tile, the 128-deep K block
+//   walked as two 64-deep TMA stages (that changes the loads, not the
+//   arithmetic); AccStore writes the f32 accumulator the mainloop staged
+//   in shared memory.
+// - rigid_gemm_launch (counter "rigid_gemm"): B1's tile loop
+//   (gemm_tile.cuh) at the 128 x 128 tile, the K block walked as four
+//   32-deep shared-memory stages, for f32, int8 and what TMA cannot take.
+//   A block takes 86 KB (bf16), 103 KB (f32) or 78 KB (int8) of shared
+//   memory, most of it the accumulator staging tile: above the 48 KB
+//   default, so the launch raises the limit with cudaFuncSetAttribute.
 //
 // Stage 2 (epilogue_pass_kernel): one thread per output element, grid
 // stride; reads the f32 accumulator (and C, and the bias) back from device
@@ -29,17 +38,20 @@
 // writes out_dtype.  An identity epilogue skips stage 2 (the wrapper casts
 // the accumulator instead), as rigid_gemm_pallas does.
 //
-// What bounds it on the H100: the same as B1/B2 for the product, plus the
-// accumulator's write and read (8 bytes per output element) and a second
-// launch -- the costs the comparison with the MTE route is meant to show.
+// What bounds it on the H100: the product's tensor-core rate and its
+// operand traffic, as for B1, plus the accumulator's write and read (8
+// bytes per output element), a second launch, and the 128-row tile's
+// padding when M is small -- the costs the comparison with the MTE route
+// is meant to show.
 #include <type_traits>
 
 #include "epilogue.cuh"
 #include "gemm_tile.cuh"
+#include "wgmma_mainloop.cuh"
 
 namespace {
 
-constexpr int RM = 128, RN = 128;
+constexpr int RM = 128, RN = 128, RK = 128;
 
 template <typename T, typename Acc, int ENGINE>
 __global__ void __launch_bounds__(gemm::THREADS)
@@ -78,6 +90,17 @@ int launch_rigid(const void* a, const void* b, void* acc, int M, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Stage 1 on the wgmma engine: the raw f32 accumulator, four columns at
+// a time from the mainloop's staged tile, to device memory.
+struct AccStore {
+  float* acc;
+  int M, N;
+  __device__ __forceinline__ void operator()(int r, int c, float4 v) const {
+    if (r >= M || c >= N) return;  // N % 8 == 0: c < N covers c + 3
+    *reinterpret_cast<float4*>(acc + static_cast<long>(r) * N + c) = v;
+  }
+};
+
 __global__ void __launch_bounds__(256)
     epilogue_pass_kernel(const float* acc, long M, long N, Epi epi) {
   const long total = M * N;
@@ -108,6 +131,19 @@ extern "C" int rigid_gemm_launch(const void* a, const void* b, void* acc,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+extern "C" int rigid_gemm_wgmma_launch(const void* a, const void* b,
+                                       void* acc, int M, int N, int K,
+                                       long lda, long ldb, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 ||
+      lda % 8 != 0 || ldb % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(b) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return wg::launch<RM, RN, false, false>(
+      a, b, M, N, K, lda, ldb, RK, AccStore{static_cast<float*>(acc), M, N},
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int epilogue_pass_launch(const void* acc, const void* c,

@@ -21,9 +21,11 @@ program*:
 3. **Tile stabilization.**  Chains of plain-MTE nodes may trade their
    per-GEMM-optimal geometries for ONE shared geometry when the modeled
    total beats the per-node optima plus their reconfigurations.  Every
-   candidate is a geometry some node of the chain was granted, so a
-   pinned geometry is always a tile the kernels are compiled for;
-   ``ops.mte_gemm(geometry=...)`` refuses any other.
+   candidate is a geometry some node of the chain was granted and that
+   an engine takes for every node of the chain (a wgmma tile granted to
+   one bf16 node may not suit another's alignment), so a pinned geometry
+   is always one a kernel is compiled for; ``ops.mte_gemm(geometry=...)``
+   refuses any other.
 4. **Weight prefetch.**  For every consecutive kernel-node pair the
    program records which graph-input weights of the next node could
    stream while the current one computes, and the modeled time that
@@ -58,7 +60,8 @@ import torch
 from repro_torch.core import autotune
 from repro_torch.core import formats as formats_lib
 from repro_torch.core.autotune import (ExecutionPlan, GemmSignature,
-                                       PlanCache, _route_for, score_geometry)
+                                       PlanCache, _route_for, plan_engine,
+                                       score_geometry)
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.formats import to_torch_dtype
 from repro_torch.graph import fuse as fuse_mod
@@ -220,8 +223,14 @@ def _prefetch_plan(g: Graph, plans: Dict[int, ExecutionPlan],
     return plan, saved
 
 
-def _smem_ok(geom, profile) -> bool:
-    return geom.smem_bytes() <= profile.smem_per_block
+def _runs_on(sig, geom, profile) -> bool:
+    """An engine takes ``geom`` for ``sig`` within the block's shared
+    memory."""
+    try:
+        engine = plan_engine(sig, geom)
+    except ValueError:
+        return False
+    return geom.smem_bytes(engine) <= profile.smem_per_block
 
 
 def _stabilize_tiles(g: Graph, plans: Dict[int, ExecutionPlan],
@@ -230,7 +239,8 @@ def _stabilize_tiles(g: Graph, plans: Dict[int, ExecutionPlan],
     a chain of plain-MTE nodes when the modeled total (zero tile
     reconfigurations) beats the per-node optima plus their reconfig
     cost.  Candidates are the chain's own granted geometries (no split),
-    so the pinned tile is always one the kernels are compiled for."""
+    and only those every node's engine takes, so the pinned tile is
+    always one a kernel is compiled for."""
     idxs = [i for i in g.kernel_nodes()
             if isinstance(g.nodes[i], GemmNode)
             and i in plans and plans[i].route == "mte"]
@@ -245,7 +255,8 @@ def _stabilize_tiles(g: Graph, plans: Dict[int, ExecutionPlan],
     best_geom, best_t = None, current
     for cand in sorted({plans[i].geometry for i in idxs},
                        key=lambda geo: (geo.bm, geo.bn, geo.bk)):
-        if cand.split_k > 1 or not _smem_ok(cand, profile):
+        if cand.split_k > 1 or not all(
+                _runs_on(plans[i].signature, cand, profile) for i in idxs):
             continue
         t = sum(score_geometry(plans[i].signature, cand, profile)
                 for i in idxs)

@@ -39,11 +39,14 @@ __all__ = ["CSRC", "build_dir", "build_all", "load", "entry", "check",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-# The launch counters, one per kernel (``rigid_gemm.cu`` holds two: the
-# rigid product and its separate epilogue pass).
-KERNEL_NAMES = ("mte_gemm", "splitk_gemm", "grouped_gemm",
+# The launch counters, one per kernel: B1 and B8 stage 1 count each
+# engine apart (``mte_gemm`` / ``rigid_gemm`` the tile loop,
+# ``mte_gemm_wgmma`` / ``rigid_gemm_wgmma`` the wgmma mainloop), and
+# ``rigid_gemm.cu`` holds the separate epilogue pass too.
+KERNEL_NAMES = ("mte_gemm", "mte_gemm_wgmma", "splitk_gemm", "grouped_gemm",
                 "flash_decode_paged", "flash_attention", "rigid_gemm",
-                "epilogue_pass", "flash_decode", "rglru_scan")
+                "rigid_gemm_wgmma", "epilogue_pass", "flash_decode",
+                "rglru_scan")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -158,10 +161,19 @@ def entry(name: str, symbol: str, argtypes):
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise when a C entry returned a non-zero ``cudaError_t``."""
-    if err != 0:
+    """Raise when a C entry returned a non-zero ``cudaError_t`` (or one of
+    ``wgmma_mainloop.cuh``'s tensor-map codes: 1000 + the ``CUresult`` of
+    a failed ``cuTensorMapEncodeTiled``, 2000 for its missing entry
+    point)."""
+    if err == 0:
+        return
+    if err >= 2000:
+        msg = "cuTensorMapEncodeTiled: no driver entry point"
+    elif err >= 1000:
+        msg = f"cuTensorMapEncodeTiled failed (CUresult {err - 1000})"
+    else:
         msg = lib.repro_cuda_error_string(int(err)).decode()
-        raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")
+    raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")
 
 
 def stream_ptr(device) -> int:

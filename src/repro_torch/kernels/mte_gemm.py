@@ -3,8 +3,12 @@
 :func:`mte_gemm_kernel` is the counterpart of ``mte_gemm_pallas``
 (``repro/kernels/mte_gemm.py``): ``epilogue(a @ b [, c, bias])`` with a
 block schedule granted by the plan cache.  On CUDA tensors it launches
-``csrc/mte_gemm.cu`` (or raises); on CPU tensors it runs
-:func:`mte_gemm_torch`, the plain PyTorch version of the same function.
+``csrc/mte_gemm.cu`` (or raises) on the engine
+:func:`repro_torch.core.geometry.gemm_engine` names — the TMA + wgmma
+mainloop (counter ``mte_gemm_wgmma``) or the tile loop (counter
+``mte_gemm``); on CPU tensors it runs :func:`mte_gemm_torch`, the plain
+PyTorch version of the same function, after the same engine check, so a
+tile no engine takes raises on either device.
 
 a: (M, K); b: (K, N), or (N, K) when ``geom.transposed_b``.  Operands are
 f32, bf16 or int8; the accumulator is f32, int32 (int8 operands — the
@@ -22,11 +26,11 @@ import torch
 
 from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
 from repro_torch.core.formats import int_matmul
-from repro_torch.core.geometry import BlockGeometry, cdiv
+from repro_torch.core.geometry import BlockGeometry, cdiv, gemm_engine
 from repro_torch.kernels import build
 
 __all__ = ["mte_gemm_kernel", "mte_gemm_torch", "DTYPE_CODES",
-           "bf16_scalar"]
+           "bf16_scalar", "tma_ready"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.int32: 3}
@@ -35,6 +39,16 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
              + [ctypes.c_long] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_float,
                                        ctypes.c_int, ctypes.c_void_p])
+# mte_gemm_wgmma_launch: as mte_gemm_launch without the operand type
+# (always bf16).
+_WG_ARGTYPES = _ARGTYPES[:12] + _ARGTYPES[13:]
+
+
+def tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at a 16-byte aligned address, as TMA reads it (a
+    view at an odd offset is copied)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _acc_dtype(a: torch.Tensor, acc_dtype) -> torch.dtype:
@@ -114,12 +128,13 @@ def mte_gemm_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
     """``epilogue(a @ b [, c, bias])``: the B1 CUDA kernel on CUDA
     tensors, :func:`mte_gemm_torch` on CPU tensors."""
     dev = build.require_cuda(a, b, c, bias, what="mte_gemm")
-    if dev is None:
-        return mte_gemm_torch(a, b, c, bias, geom=geom, epilogue=epilogue,
-                              out_dtype=out_dtype, acc_dtype=acc_dtype)
     m, n, k = _check(a, b, c, bias, geom, epilogue)
     acc_dtype = _acc_dtype(a, acc_dtype)
     bf16acc = acc_dtype == torch.bfloat16
+    engine = gemm_engine(a.dtype, geom.bm, geom.bn, n, k, bf16acc=bf16acc)
+    if dev is None:
+        return mte_gemm_torch(a, b, c, bias, geom=geom, epilogue=epilogue,
+                              out_dtype=out_dtype, acc_dtype=acc_dtype)
     if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16,
                                              torch.int8):
         raise TypeError(f"mte_gemm: operands {a.dtype} x {b.dtype} "
@@ -131,8 +146,6 @@ def mte_gemm_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
                          "identity epilogue (dequantize first)")
     if out_dtype not in (torch.float32, torch.bfloat16, torch.int32):
         raise TypeError(f"mte_gemm: out_dtype {out_dtype} unsupported")
-    a = a.contiguous()
-    b = b.contiguous()
     acc_f = torch.bfloat16 if bf16acc else torch.float32
     c_ = (c.to(acc_f).float().contiguous()
           if epilogue.needs_c_input else None)
@@ -144,15 +157,24 @@ def mte_gemm_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
     if bf16acc:
         alpha, beta, softcap = map(bf16_scalar, (alpha, beta, softcap))
     rbk = max(32, min(geom.bk, cdiv(k, 32) * 32))
-    lib, fn = build.entry("mte_gemm", "mte_gemm_launch", _ARGTYPES)
-    build.count_launch("mte_gemm")
+    if engine == "wgmma":
+        a, b = tma_ready(a), tma_ready(b)
+        lib, fn = build.entry("mte_gemm", "mte_gemm_wgmma_launch",
+                              _WG_ARGTYPES)
+        build.count_launch("mte_gemm_wgmma")
+        head = ()
+    else:
+        a, b = a.contiguous(), b.contiguous()
+        lib, fn = build.entry("mte_gemm", "mte_gemm_launch", _ARGTYPES)
+        build.count_launch("mte_gemm")
+        head = (DTYPE_CODES[a.dtype],)
     err = fn(a.data_ptr(), b.data_ptr(),
              c_.data_ptr() if c_ is not None else None,
              bias_.data_ptr() if bias_ is not None else None,
              out.data_ptr(), m, n, k, a.stride(0), b.stride(0),
-             n, n, DTYPE_CODES[a.dtype], DTYPE_CODES[out_dtype],
+             n, n, *head, DTYPE_CODES[out_dtype],
              int(bf16acc), geom.bm, geom.bn, rbk, int(geom.transposed_b),
              alpha, beta, int(epilogue.softcap is not None), softcap,
              ACTIVATION_CODES[epilogue.activation], build.stream_ptr(dev))
-    build.check(lib, err, "mte_gemm")
+    build.check(lib, err, f"mte_gemm[{engine}]")
     return out

@@ -41,7 +41,7 @@ def _plan(m, n, k, dt_in, dt_out, policy, epilogue, fmt, geometry,
     if geometry is None:
         return autotune.get_plan(m, n, k, dt_in, dt_out, epilogue=epilogue,
                                  policy=policy, fmt=fmt, group=group)
-    check_kernel_tile(geometry)
+    check_kernel_tile(geometry, group)
     sig = autotune.GemmSignature.make(m, n, k, dt_in, dt_out, epilogue,
                                       policy, group=group, fmt=fmt)
     return autotune.ExecutionPlan(

@@ -5,10 +5,14 @@ The counterpart of ``rigid_gemm_pallas`` + ``epilogue_pass_pallas``
 (``repro/kernels/rigid_gemm.py``), the paper's stand-in for a rigid
 matrix ISA (§II-D).  It keeps both handicaps on purpose:
 
-1. **Fixed geometry.** :func:`rigid_accumulate_kernel` runs B1's tile loop
-   at one 128 x 128 tile whatever the shape, with the identity epilogue,
-   and writes the raw accumulator (f32 for float operands, int32 for
-   int8) to device memory.
+1. **Fixed geometry.** :func:`rigid_accumulate_kernel` runs one 128 x 128
+   tile with a 128-deep K block whatever the shape, with the identity
+   epilogue, and writes the raw accumulator (f32 for float operands,
+   int32 for int8) to device memory.  Its mainloop is B1's, on the engine
+   :func:`repro_torch.core.geometry.gemm_engine` names: the TMA + wgmma
+   mainloop for bf16 with K and N multiples of 8 (counter
+   ``rigid_gemm_wgmma``), else the tile loop (counter ``rigid_gemm``) —
+   so that MTE against rigid compares flexibility, not mainloops.
 2. **No matrix↔vector interplay.** :func:`epilogue_pass_kernel` is a
    separate element-wise kernel that reads the accumulator back and
    applies α, β·C, bias, softcap and the activation.
@@ -26,8 +30,9 @@ import torch
 
 from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
 from repro_torch.core.formats import int_matmul
+from repro_torch.core.geometry import RIGID_TILE, gemm_engine
 from repro_torch.kernels import build
-from repro_torch.kernels.mte_gemm import DTYPE_CODES
+from repro_torch.kernels.mte_gemm import DTYPE_CODES, tma_ready
 
 __all__ = ["rigid_gemm_kernel", "rigid_gemm_torch",
            "rigid_accumulate_kernel", "rigid_accumulate_torch",
@@ -35,6 +40,8 @@ __all__ = ["rigid_gemm_kernel", "rigid_gemm_torch",
 
 _RIGID_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_long] * 2 + [ctypes.c_int, ctypes.c_void_p])
+# rigid_gemm_wgmma_launch: as rigid_gemm_launch without the operand type.
+_RIGID_WG_ARGTYPES = _RIGID_ARGTYPES[:8] + _RIGID_ARGTYPES[9:]
 _PASS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_long] * 3
                   + [ctypes.c_float] * 2
                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
@@ -71,15 +78,23 @@ def rigid_accumulate_kernel(a, b) -> torch.Tensor:
                                              torch.int8):
         raise TypeError(f"rigid_gemm: operands {a.dtype} x {b.dtype} "
                         f"unsupported")
-    a = a.contiguous()
-    b = b.contiguous()
+    engine = gemm_engine(a.dtype, *RIGID_TILE[:2], n, k, rigid=True)
     acc = torch.empty(m, n, dtype=_acc_dtype(a), device=dev)
-    lib, fn = build.entry("rigid_gemm", "rigid_gemm_launch", _RIGID_ARGTYPES)
-    build.count_launch("rigid_gemm")
+    if engine == "wgmma":
+        a, b = tma_ready(a), tma_ready(b)
+        lib, fn = build.entry("rigid_gemm", "rigid_gemm_wgmma_launch",
+                              _RIGID_WG_ARGTYPES)
+        build.count_launch("rigid_gemm_wgmma")
+        head = ()
+    else:
+        a, b = a.contiguous(), b.contiguous()
+        lib, fn = build.entry("rigid_gemm", "rigid_gemm_launch",
+                              _RIGID_ARGTYPES)
+        build.count_launch("rigid_gemm")
+        head = (DTYPE_CODES[a.dtype],)
     err = fn(a.data_ptr(), b.data_ptr(), acc.data_ptr(), m, n, k,
-             a.stride(0), b.stride(0), DTYPE_CODES[a.dtype],
-             build.stream_ptr(dev))
-    build.check(lib, err, "rigid_gemm")
+             a.stride(0), b.stride(0), *head, build.stream_ptr(dev))
+    build.check(lib, err, f"rigid_gemm[{engine}]")
     return acc
 
 

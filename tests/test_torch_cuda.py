@@ -3,6 +3,7 @@ Hopper card.  Imports torch and the port only (no JAX), so it runs on a
 machine with the card: ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_cuda.py``.  Elsewhere every test skips, naming what is
 missing."""
+import dataclasses
 import os
 import shutil
 
@@ -221,3 +222,124 @@ def test_rglru_scan_kernel_matches_plain_bit_for_bit(card, s):
     got = tscan.rglru_scan_kernel(a.to(card), b.to(card))
     _close(got, tscan.rglru_scan_torch(a, b), 0.0)
     assert build.launch_counts()["rglru_scan"] == before + 1
+
+
+# -- the wgmma engine of B1 and B8 stage 1 ------------------------------------
+
+tops = LazyModule("repro_torch.kernels.ops")
+
+# Ragged but TMA-aligned shapes: M, N, K are multiples of 8 but not of the
+# tiles, so every edge of the grid and the K loop is partial.
+WGMMA_SHAPES = [(520, 2056, 1032), (64, 64, 64)]
+WGMMA_TILES = [(64, 64), (64, 128), (64, 256), (128, 64), (128, 128),
+               (128, 256)]
+
+
+def _wg_operands(m, n, k, gen):
+    a = (torch.randn(m, k, generator=gen) / k ** 0.5).to(torch.bfloat16)
+    b = torch.randn(k, n, generator=gen).to(torch.bfloat16)
+    return a, b
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["kn", "nk"])
+@pytest.mark.parametrize("tile", WGMMA_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+def test_wgmma_gemm_matches_plain(card, tile, transposed):
+    """B1 on the wgmma engine against its plain version at every compiled
+    tile, with both B layouts and every epilogue field (alpha, beta * C,
+    row bias, softcap, activation), bf16 out (tolerance 2e-2, bf16's
+    rounding of O(1) outputs); the counters show the engine that ran."""
+    gen = torch.Generator().manual_seed(7)
+    before = build.launch_counts()
+    epi = tepilogue.Epilogue(alpha=0.7, beta=0.5, has_bias=True,
+                             softcap=20.0, activation="gelu")
+    sew = tgeometry.SEW.E16
+    geom = tgeometry.BlockGeometry(*tile, 128, 1, 1, transposed, sew, sew,
+                                   "mte")
+    for m, n, k in WGMMA_SHAPES:
+        a, b = _wg_operands(m, n, k, gen)
+        c = torch.randn(m, n, generator=gen)
+        bias = torch.randn(n, generator=gen)
+        want = tgemm.mte_gemm_torch(a, b, c, bias, geom=dataclasses.replace(
+            geom, transposed_b=False), epilogue=epi,
+            out_dtype=torch.bfloat16)
+        bk = b.t().contiguous() if transposed else b
+        got = tgemm.mte_gemm_kernel(a.to(card), bk.to(card), c.to(card),
+                                    bias.to(card), geom=geom, epilogue=epi,
+                                    out_dtype=torch.bfloat16)
+        _close(got, want, 2e-2)
+    after = build.launch_counts()
+    assert after["mte_gemm_wgmma"] == before["mte_gemm_wgmma"] + 2
+    assert after["mte_gemm"] == before["mte_gemm"]
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["kn", "nk"])
+@pytest.mark.parametrize("rbk", [32, 96, 256])
+@pytest.mark.parametrize("tile", [(64, 128), (128, 64), (128, 128)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+def test_wgmma_bf16acc_matches_plain(card, tile, rbk, transposed):
+    """bf16acc on the wgmma engine: the running sum is rounded to bf16 at
+    every rbk-deep K block boundary, including the ones that fall inside a
+    64-deep stage (rbk 32, 96); tolerance 3e-2 as for the tile loop."""
+    gen = torch.Generator().manual_seed(rbk)
+    before = build.launch_counts()["mte_gemm_wgmma"]
+    epi = tepilogue.Epilogue(alpha=0.5, has_bias=True, activation="silu")
+    sew = tgeometry.SEW.E16
+    geom = tgeometry.BlockGeometry(*tile, rbk, 1, 1, transposed, sew, sew,
+                                   "mte")
+    m, n, k = 520, 264, 1032
+    a, b = _wg_operands(m, n, k, gen)
+    bias = torch.randn(n, generator=gen)
+    kw = dict(epilogue=epi, out_dtype=torch.float32,
+              acc_dtype=torch.bfloat16)
+    want = tgemm.mte_gemm_torch(a, b, None, bias, geom=dataclasses.replace(
+        geom, transposed_b=False), **kw)
+    bk = b.t().contiguous() if transposed else b
+    got = tgemm.mte_gemm_kernel(a.to(card), bk.to(card), None, bias.to(card),
+                                geom=geom, **kw)
+    _close(got, want, 3e-2)
+    assert build.launch_counts()["mte_gemm_wgmma"] == before + 1
+
+
+@pytest.mark.parametrize("m,n,k", [(520, 2056, 1032), (64, 64, 64),
+                                   (4, 16384, 2048)])
+def test_rigid_wgmma_matches_plain(card, m, n, k):
+    """B8 stage 1 on the wgmma engine: always the 128 x 128 tile (M = 4
+    pays a 128-row tile), the raw f32 accumulator in device memory within
+    1e-4 of the plain f32 product; then the separate epilogue pass."""
+    gen = torch.Generator().manual_seed(m)
+    a, b = _wg_operands(m, n, k, gen)
+    before = build.launch_counts()
+    acc = trigid.rigid_accumulate_kernel(a.to(card), b.to(card))
+    assert acc.dtype == torch.float32
+    _close(acc, trigid.rigid_accumulate_torch(a, b), 1e-4)
+    epi = tepilogue.Epilogue(activation="gelu", softcap=30.0)
+    got = trigid.rigid_gemm_kernel(a.to(card), b.to(card), epilogue=epi,
+                                   out_dtype=torch.bfloat16)
+    _close(got, trigid.rigid_gemm_torch(a, b, epilogue=epi,
+                                        out_dtype=torch.bfloat16), 2e-2)
+    after = build.launch_counts()
+    assert after["rigid_gemm_wgmma"] == before["rigid_gemm_wgmma"] + 2
+    assert after["rigid_gemm"] == before["rigid_gemm"]
+    assert after["epilogue_pass"] == before["epilogue_pass"] + 1
+
+
+def test_wgmma_refuses_what_it_cannot_take(card):
+    """A pinned tile no engine takes raises before anything launches:
+    a wgmma-only tile for fp32 operands, for a K that TMA cannot stride,
+    and BN = 256 under bf16acc."""
+    gen = torch.Generator().manual_seed(9)
+    before = build.launch_counts()
+    sew = tgeometry.SEW.E16
+    big = tgeometry.BlockGeometry(128, 256, 128, 1, 1, False, sew, sew,
+                                  "mte")
+    a, b = _wg_operands(128, 256, 128, gen)
+    with pytest.raises(ValueError, match="no mte GEMM engine"):
+        tops.mte_gemm(a.float().to(card), b.float().to(card), geometry=big)
+    a7, b7 = _wg_operands(128, 256, 100, gen)
+    with pytest.raises(ValueError, match="no mte GEMM engine"):
+        tops.mte_gemm(a7.to(card), b7.to(card), format_policy="bf16",
+                      geometry=big)
+    with pytest.raises(ValueError, match="no mte GEMM engine"):
+        tops.mte_gemm(a.to(card), b.to(card), format_policy="bf16acc",
+                      geometry=big)
+    assert build.launch_counts() == before
