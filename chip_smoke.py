@@ -11,13 +11,17 @@ Phases (any failure raises and the script exits non-zero):
 2. Kernels against their plain PyTorch versions on the card: B1
    ``mte_gemm`` on both of its engines (the TMA + wgmma mainloop, counter
    ``mte_gemm_wgmma``, and the tile loop, counter ``mte_gemm``), B2
-   ``splitk_gemm``, B3 ``grouped_gemm``, both halves of B8 (stage 1 on
-   its two engines, ``rigid_gemm_wgmma`` and ``rigid_gemm``, and
-   ``epilogue_pass``), B4 ``flash_decode_paged``, B5 ``flash_attention``,
-   B6 ``flash_decode`` (ring), B7 ``rglru_scan`` -- at the exact shapes
-   the serving phase launches (bf16; f32 for B7; gemma_2b's and
-   recurrentgemma_9b's prefill projections for B1 and B8 stage 1, each
-   printed with its plan's engine and tile) and at small ragged shapes in
+   ``splitk_gemm``, B3 on both of its engines (the cluster split-K
+   kernel, ``grouped_gemm_splitk``, and the tile loop, ``grouped_gemm``),
+   both halves of B8 (stage 1 on its two engines, ``rigid_gemm_wgmma``
+   and ``rigid_gemm``, and ``epilogue_pass``), B4 ``flash_decode_paged``,
+   B5 on both of its engines (TMA + wgmma, ``flash_attention_wgmma``, and
+   SIMT, ``flash_attention``), B6 ``flash_decode`` (ring), B7
+   ``rglru_scan`` -- at the exact shapes the serving phase launches
+   (bf16; f32 for B7; gemma_2b's and recurrentgemma_9b's prefill
+   projections for B1 and B8 stage 1 and decode q/k/v groups for B3, each
+   printed with its plan's engine and tile; the old engines' own rows in
+   fp32 or at the prefill gate+up group) and at small ragged shapes in
    every mode each kernel takes.  Each prints its max error beside the
    tolerance; the main-path shapes also print the kernel time (CUDA
    events, median of 10), its bound (max(operations / peak, bytes /
@@ -43,9 +47,11 @@ Phases (any failure raises and the script exits non-zero):
    2560-token prompts, so its 2048-slot rings wrap in prefill and decode)
    in the defaults.  For each, launch counters are zeroed just before the
    run and read just after (every kernel of that path must have
-   launched, every bf16 B1 and B8 stage-1 launch on the wgmma engine:
-   the tile loops' counters must stay 0, and no prefill projection may be
-   planned off B1 or B8), and it prints decode ms per step, prefill
+   launched, every bf16 B1 and B8 stage-1 launch on the wgmma engine,
+   every decode q/k/v group on B3's split-K engine and every prefill
+   attention on B5's wgmma engine: the tile loops' and the SIMT kernel's
+   counters must stay 0, and no prefill projection may be planned off B1
+   or B8), and it prints decode ms per step, prefill
    tokens/s, peak memory, each compiled program's grouping decision and
    plans, and a profile of a decode step and a prefill chunk (idle share,
    launches per call).
@@ -100,6 +106,30 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     events[-1].synchronize()
     return statistics.median(a.elapsed_time(b)
                              for a, b in zip(events, events[1:]))
+
+
+def time_ms_cold(fn, iters: int = 10) -> float:
+    """Median device milliseconds of one call that finds the L2 cache cold,
+    as a decode step finds each layer's weights: 128 MB (over twice the
+    H100's 50 MB of L2) are written before each call, then a sleep kernel
+    holds the device while the host enqueues the call between its own
+    two CUDA events."""
+    import torch
+    flush = torch.empty(128 << 20, dtype=torch.int8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        fn()
+        pair[1].record()
+        pairs.append(pair)
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def bound_ms(flops: float, nbytes: float, peak: float) -> float:
@@ -288,13 +318,19 @@ def gemm_phase(dev, rows):
 
 
 def grouped_phase(dev, rows):
-    """B3 against its plain version: ragged shapes in every mode (shared x
-    with member widths, and a per-group x), then the two main-path shapes:
-    the decode q/k/v group and the prefill gate+up group."""
+    """B3 on both of its engines against its plain version: ragged shapes
+    in every mode on the tile loop (shared x with member widths, and a
+    per-group x) and, for bf16 into f32 with C <= 16, on the cluster
+    split-K engine (widths that straddle a tile, one of 0, a K the slice
+    depth does not divide; two calls bit-equal), then the main-path
+    shapes: the decode q/k/v groups of gemma_2b and recurrentgemma_9b
+    (split-K) and the prefill gate+up group (the tile loop)."""
     import torch
-    from repro_torch.core.autotune import GemmSignature, PlanCache
+    from repro_torch.core.autotune import (GemmSignature, PlanCache,
+                                           plan_engine)
     from repro_torch.core.epilogue import Epilogue
-    from repro_torch.core.geometry import BlockGeometry, SEW
+    from repro_torch.core.geometry import (BlockGeometry, SEW,
+                                           grouped_engine)
     from repro_torch.graph import stack_group_weights
     from repro_torch.kernels.grouped_gemm import (grouped_gemm_kernel,
                                                   grouped_gemm_torch)
@@ -305,10 +341,15 @@ def grouped_phase(dev, rows):
              ("bf16acc", torch.bfloat16, torch.bfloat16, torch.float32,
               3e-2),
              ("int8", torch.int8, None, torch.int32, 0.0)]
+    ragged = [(3, 4, 130, 300, True, None), (2, 70, 1000, 90, False, None),
+              (3, 33, 65, 257, True, None)]
+    splitk = [(3, 4, 1000, 392, True, (392, 129, 0)),
+              (8, 16, 1000, 392, False, (392, 40, 129, 0, 8, 300, 256,
+                                         500)),
+              (2, 1, 130, 136, True, None)]
     for label, dt, acc, out_dt, tol in modes:
-        for g, c, k, n, shared in [(3, 4, 130, 300, True),
-                                   (2, 70, 1000, 90, False),
-                                   (3, 33, 65, 257, True)]:
+        cases = ragged + (splitk if label == "bf16" else [])
+        for g, c, k, n, shared, widths in cases:
             if dt == torch.int8:
                 x = torch.randint(-127, 128, (g, c, k), generator=gen,
                                   device=dev, dtype=dt)
@@ -320,19 +361,29 @@ def grouped_phase(dev, rows):
                      / math.sqrt(k)).to(dt)
                 w = torch.randn(g, k, n, generator=gen, device=dev).to(dt)
                 epi = Epilogue(alpha=0.7, softcap=20.0, activation="gelu")
-            widths = None
             if shared:
                 x = x[:1].expand(g, c, k)
-                widths = [n, n // 3, n // 2 + 1][:g]
+                widths = widths or [n, n // 3, n // 2 + 1][:g]
             bm, bn = (16, 128) if c <= 16 else (64, 64)
             geom = BlockGeometry(bm, bn, 64, 1, 1, False, SEW.E32, SEW.E32,
                                  "mte")
             kw = dict(geom=geom, epilogue=epi, out_dtype=out_dt,
                       acc_dtype=acc, widths=widths)
-            check(f"grouped_gemm {label} G={g} {c}x{n}x{k}"
-                  f"{' shared-x widths' if shared else ''}",
-                  grouped_gemm_kernel(x, w, **kw),
-                  grouped_gemm_torch(x, w, **kw), tol)
+            engine = grouped_engine(dt, c, n, k,
+                                    bf16acc=acc is not None)
+            got = grouped_gemm_kernel(x, w, **kw)
+            kernel = "grouped_gemm_splitk" if engine == "splitk" \
+                else "grouped_gemm"
+            shape = (f"{label} G={g} {c}x{n}x{k}"
+                     f"{' shared-x' if shared else ''}"
+                     f"{' widths' if widths else ''}")
+            err = check(f"{kernel} {shape}", got,
+                        grouped_gemm_torch(x, w, **kw), tol)
+            rows.append({"kernel": kernel, "shape": shape,
+                         "max_abs_err": err, "tol": tol})
+            if engine == "splitk":
+                require(torch.equal(got, grouped_gemm_kernel(x, w, **kw)),
+                        f"{kernel}: two calls differ")
 
     cache = PlanCache()
 
@@ -347,31 +398,58 @@ def grouped_phase(dev, rows):
         sig = GemmSignature.make(c, n, k, "bfloat16", out_dt, Epilogue(),
                                  group=g, fmt="bf16")
         plan = cache.plan(sig)
+        engine = plan_engine(sig, plan.geometry)
+        name = "grouped_gemm_splitk" if engine == "splitk" \
+            else "grouped_gemm"
         kw = dict(geom=plan.geometry, out_dtype=out_dt,
                   widths=list(widths))
         run = lambda: grouped_gemm_kernel(xg, wstack, **kw)  # noqa: E731
         plain = lambda: grouped_gemm_torch(xg, wstack, **kw)  # noqa: E731
-        err = check(f"grouped_gemm main-path {label} [{plan.describe()}]",
-                    run(), plain(), 2e-2)
+        got = run()
+        err = check(f"{name} main-path {label} [{plan.describe()}, "
+                    f"engine {engine}]", got, plain(), 2e-2)
+        if engine == "splitk":
+            require(torch.equal(got, run()), f"{name}: two calls differ")
         live = sum(widths)
         flops = 2.0 * c * k * live
         out_b = torch.empty((), dtype=out_dt).element_size()
         nbytes = 2.0 * (c * k + k * live) + out_b * g * c * n
-        row = {"kernel": "grouped_gemm", "shape": label,
-               "plan": plan.describe(), "max_abs_err": err, "tol": 2e-2,
+        lib = lambda: torch.bmm(xg, wstack)  # noqa: E731
+        row = {"kernel": name, "shape": label,
+               "plan": plan.describe(), "engine": engine,
+               "max_abs_err": err, "tol": 2e-2,
                "ms": time_ms(run), "plain_ms": time_ms(plain),
                "bound_ms": bound_ms(flops, nbytes, PEAK["bf16"]),
                "bound_by": bound_by(flops, nbytes, PEAK["bf16"]),
-               "library_ms": time_ms(lambda: torch.bmm(xg, wstack))}
+               "library_ms": time_ms(lib)}
+        if engine == "splitk":
+            # With the weights cold in L2, as in a decode step, and at
+            # every split the engine takes (the planner's in "ms").
+            row["cold_ms"] = time_ms_cold(run)
+            row["library_cold_ms"] = time_ms_cold(lib)
+            row["ms_by_split"] = {}
+            want = plain()
+            for s in (1, 2, 4, 8):
+                pinned = lambda: grouped_gemm_kernel(  # noqa: E731
+                    xg, wstack, n_split=s, **kw)
+                err = max(err, check(f"{name} main-path {label} {s} "
+                                     f"slices", pinned(), want, 2e-2))
+                row["ms_by_split"][s] = time_ms(pinned)
+            row["max_abs_err"] = err
         rows.append(row)
         log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}; live columns only), plain "
-            f"{row['plain_ms']:.4f} ms, torch.bmm {row['library_ms']:.4f} ms")
+            f"{row['plain_ms']:.4f} ms, torch.bmm {row['library_ms']:.4f} ms"
+            + (f"; L2 cold {row['cold_ms']:.4f} ms, torch.bmm "
+               f"{row['library_cold_ms']:.4f} ms; by split "
+               f"{row['ms_by_split']}" if engine == "splitk" else ""))
 
-    # The decode step's q/k/v group over the prestacked weight (k and v
-    # padded from 256 to 2048 columns; their padding tiles are skipped),
-    # and the prefill chunk's gate+up group (the member path: f32 out).
+    # The decode steps' q/k/v groups over the prestacked weights (k and v
+    # padded from 256 to q's width; their padding tiles are skipped), and
+    # the prefill chunk's gate+up group (the member path: f32 out).
     main_path("qkv decode 3x4x2048x2048", 3, 4, 2048, (2048, 256, 256),
+              torch.bfloat16)
+    main_path("qkv decode 3x4x4096x4096", 3, 4, 4096, (4096, 256, 256),
               torch.bfloat16)
     main_path("gate+up prefill 2x512x2048x16384", 2, 512, 2048,
               (16384, 16384), torch.float32)
@@ -576,8 +654,16 @@ def decode_phase(dev, rows):
 
 
 def attention_phase(dev, rows):
+    """B5 on both of its engines against its plain version: small ragged
+    cases on the SIMT kernel (fp32, and bf16 at D = 16 and 32) and on the
+    wgmma engine (bf16 at D = 64, 128 and 256: causal, GQA, window,
+    softcap, Sq < Skv, ragged Skv, non-causal), then the serving run's
+    prefill chunks on the wgmma engine, and the SIMT kernel at the same
+    shape in fp32 for its row."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.core.geometry import attention_engine, \
+        attention_kv_split
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      flash_attention_torch)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -596,24 +682,51 @@ def attention_phase(dev, rows):
         ("softcap", (1, 2, 2, 33, 33, 16), {"softcap": 20.0}),
         ("Sq<Skv", (1, 4, 2, 20, 83, 32), {}),
         ("non-causal", (1, 2, 1, 24, 56, 32), {"causal": False}),
+        ("GQA 8:1 D=256", (1, 8, 1, 130, 130, 256), {}),
+        ("GQA 2:1 Sq<Skv D=128", (2, 4, 2, 100, 333, 128), {}),
+        ("window D=64", (1, 2, 1, 128, 200, 64), {"window": 48}),
+        ("softcap D=256", (1, 2, 2, 64, 130, 256), {"softcap": 20.0}),
+        ("non-causal D=128", (1, 2, 1, 70, 90, 128), {"causal": False}),
     ]
     for label, dtype, tol in [("fp32", torch.float32, 1e-5),
                               ("bf16", torch.bfloat16, 1e-2)]:
         for name, shape, kw in cases:
             q, k, v = qkv(*shape, dtype)
-            check(f"flash_attention {label} {name}",
-                  flash_attention_kernel(q, k, v, **kw),
-                  flash_attention_torch(q, k, v, **kw), tol)
+            engine = attention_engine(dtype, shape[-1])
+            kernel = "flash_attention_wgmma" if engine == "wgmma" \
+                else "flash_attention"
+            err = check(f"{kernel} {label} {name}",
+                        flash_attention_kernel(q, k, v, **kw),
+                        flash_attention_torch(q, k, v, **kw), tol)
+            rows.append({"kernel": kernel, "shape": f"{label} {name}",
+                         "max_abs_err": err, "tol": tol})
 
     # The serving run's prefill chunks: 512 queries x 8 heads against the
-    # 512-token chunk itself and against 512 prefix + 512 chunk tokens.
-    for skv in (512, 1024):
+    # 512-token chunk itself and against 512 prefix + 512 chunk tokens, on
+    # the wgmma engine (bf16); the SIMT kernel at the second shape in fp32.
+    for skv, dtype in ((512, torch.bfloat16), (1024, torch.bfloat16),
+                       (1024, torch.float32)):
         b, h, hkv, sq, d = 1, 8, 1, 512, 256
-        q, k, v = qkv(b, h, hkv, sq, skv, d, torch.bfloat16)
+        q, k, v = qkv(b, h, hkv, sq, skv, d, dtype)
+        simt = attention_engine(dtype, d) == "simt"
+        kernel = "flash_attention" if simt else "flash_attention_wgmma"
+        shape = f"{'fp32 ' if simt else ''}{sq}x{skv} H=8 D=256"
+        tol = 1e-5 if simt else 1e-2
         run = lambda: flash_attention_kernel(q, k, v)  # noqa: E731
         plain = lambda: flash_attention_torch(q, k, v)  # noqa: E731
-        err = check(f"flash_attention main-path bf16 {sq}x{skv} H=8 D=256",
-                    run(), plain(), 1e-2)
+        want = plain()
+        err = check(f"{kernel} main-path {shape}", run(), want, tol)
+        by_split = {}
+        if not simt:
+            # Both kv splits, the planner's choice first: each held to the
+            # plain version, each timed.
+            chosen = attention_kv_split(b * h * (sq // 64), skv // 64)
+            for split in (chosen, 3 - chosen):
+                got = flash_attention_kernel(q, k, v, kv_split=split)
+                err = max(err, check(f"{kernel} main-path {shape} kv_split="
+                                     f"{split}", got, want, tol))
+                by_split[split] = time_ms(
+                    lambda: flash_attention_kernel(q, k, v, kv_split=split))
         qp = torch.arange(sq, device=dev)[:, None] + (skv - sq)
         mask = torch.arange(skv, device=dev)[None] <= qp
         kx, vx = k.expand(b, h, skv, d), v.expand(b, h, skv, d)
@@ -621,17 +734,23 @@ def attention_phase(dev, rows):
             q, kx, vx, attn_mask=mask)
         visible = sq * (skv - sq) + sq * (sq + 1) // 2
         flops = 4.0 * b * h * d * visible
-        nbytes = 2.0 * (2 * b * h * sq * d + 2 * b * hkv * skv * d)
-        row = {"kernel": "flash_attention", "shape": f"{sq}x{skv} H=8 D=256",
-               "max_abs_err": err, "tol": 1e-2, "ms": time_ms(run),
-               "plain_ms": time_ms(plain),
-               "bound_ms": bound_ms(flops, nbytes, PEAK["bf16"]),
-               "bound_by": bound_by(flops, nbytes, PEAK["bf16"]),
+        elt = q.element_size()
+        nbytes = elt * (2 * b * h * sq * d + 2 * b * hkv * skv * d)
+        peak = PEAK["fp32" if simt else "bf16"]
+        row = {"kernel": kernel, "shape": shape, "max_abs_err": err,
+               "tol": tol, "ms": time_ms(run), "plain_ms": time_ms(plain),
+               "bound_ms": bound_ms(flops, nbytes, peak),
+               "bound_by": bound_by(flops, nbytes, peak),
                "library_ms": time_ms(lib)}
+        if by_split:
+            row["kv_split"] = chosen
+            row["ms_by_kv_split"] = by_split
         rows.append(row)
         log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-            f"sdpa {row['library_ms']:.4f} ms")
+            f"sdpa {row['library_ms']:.4f} ms"
+            + (f"; by kv split {by_split} (planned {chosen})"
+               if by_split else ""))
 
 
 def ring_decode_phase(dev, rows):
@@ -754,20 +873,26 @@ CONFIGS = {
 }
 # Kernels each configuration's main path must launch.
 PATH_KERNELS = {
-    "default": ("mte_gemm_wgmma", "splitk_gemm", "grouped_gemm",
-                "flash_decode_paged", "flash_attention"),
+    "default": ("mte_gemm_wgmma", "splitk_gemm", "grouped_gemm_splitk",
+                "flash_decode_paged", "flash_attention_wgmma"),
     "amx": ("rigid_gemm_wgmma", "epilogue_pass", "flash_decode_paged",
-            "flash_attention"),
+            "flash_attention_wgmma"),
     "eager": ("mte_gemm_wgmma", "splitk_gemm", "flash_decode_paged",
-              "flash_attention"),
-    "recurrentgemma": ("mte_gemm_wgmma", "splitk_gemm", "grouped_gemm",
-                       "flash_decode", "rglru_scan"),
+              "flash_attention_wgmma"),
+    "recurrentgemma": ("mte_gemm_wgmma", "splitk_gemm",
+                       "grouped_gemm_splitk", "flash_decode", "rglru_scan"),
 }
-# Tile-loop counters that must stay 0 at full width: every bf16 B1 launch
-# (all of them prefill projections) and every bf16 B8 stage-1 launch runs
-# on the wgmma engine.
-NOT_ON_PATH = {"default": "mte_gemm", "amx": "rigid_gemm",
-               "eager": "mte_gemm", "recurrentgemma": "mte_gemm"}
+# Counters that must stay 0 at full width: every bf16 B1 launch (all of
+# them prefill projections) and every bf16 B8 stage-1 launch runs on the
+# wgmma engine, every decode q/k/v group on B3's split-K engine, every
+# prefill attention on B5's wgmma engine -- not on the tile loops or the
+# SIMT kernel.
+NOT_ON_PATH = {
+    "default": ("mte_gemm", "grouped_gemm", "flash_attention"),
+    "amx": ("rigid_gemm", "flash_attention"),
+    "eager": ("mte_gemm", "flash_attention"),
+    "recurrentgemma": ("mte_gemm", "grouped_gemm"),
+}
 # Phase 4's workload per arch: 4 slots, 16-token pages, 512-token prefill
 # chunks, 6 requests x 24 greedy tokens.  gemma_2b: 1024-token prompts, two
 # sharing their first chunk (the prefix cache).  recurrentgemma_9b:
@@ -859,9 +984,11 @@ def reduced_phase(dev):
                 f"launches {counts}")
             if device == dev:
                 path_counts[f"reduced-{name}"] = counts
-                mark = "grouped_gemm" if name == "default" else "rigid_gemm"
-                require(counts[mark] > 0,
-                        f"[{name}] {mark} not launched on the card")
+                marks = (("grouped_gemm", "flash_attention")
+                         if name == "default" else ("rigid_gemm",))
+                for mark in marks:
+                    require(counts[mark] > 0,
+                            f"[{name}] {mark} not launched on the card")
         for rid in outs["cpu"]:
             require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
             require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
@@ -973,6 +1100,7 @@ def serving_phase(dev, name):
     from repro_torch.core import autotune
     from repro_torch.graph import schedule
     from repro_torch.kernels import build
+    from repro_torch.models import attention as attn_lib
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -1060,10 +1188,10 @@ def serving_phase(dev, name):
     for kernel in PATH_KERNELS[name]:
         require(counts[kernel] > 0,
                 f"[{name}] {kernel} was never launched on the main path")
-    require(counts[NOT_ON_PATH[name]] == 0,
-            f"[{name}] {counts[NOT_ON_PATH[name]]} launches of "
-            f"{NOT_ON_PATH[name]} (the tile loop) at full width: every bf16 "
-            f"launch must run on the wgmma engine")
+    for kernel in NOT_ON_PATH[name]:
+        require(counts[kernel] == 0,
+                f"[{name}] {counts[kernel]} launches of {kernel} at full "
+                f"width: every bf16 launch must run on its new engine")
     # Finite logits at full width (the engine quarantines non-finite rows;
     # check one prefill's logits directly too).
     cache = model_lib.init_paged_cache(cfg, 1, 1024, num_pages=65,
@@ -1099,6 +1227,21 @@ def serving_phase(dev, name):
     require(chunk_routes <= {"mte", "rigid"},
             f"[{name}] prefill projections planned on {chunk_routes}")
     profile = profile_steps(eng, dev, work)
+    # Every decode q/k/v group (one per attention layer where the decode
+    # step groups them) and every paged prefill attention (one per global
+    # attention layer) ran on the new engines.
+    kinds = [mixer for mixer, _ in eng.cfg.layer_kinds]
+    per_step = profile["decode_step"]["wrapper_launches"]
+    per_chunk = profile["prefill_chunk"]["wrapper_launches"]
+    if attn_lib.grouped_decode(eng.cfg):
+        want = kinds.count("attn") + kinds.count("local")
+        require(per_step.get("grouped_gemm_splitk") == want,
+                f"[{name}] {per_step.get('grouped_gemm_splitk')} split-K "
+                f"B3 launches per decode step, want {want}")
+    if kinds.count("attn"):
+        require(per_chunk.get("flash_attention_wgmma") == kinds.count("attn"),
+                f"[{name}] {per_chunk.get('flash_attention_wgmma')} wgmma "
+                f"B5 launches per prefill chunk, want {kinds.count('attn')}")
     summary = {
         "config": name, "arch": arch, "requests": len(out),
         "max_tokens": max_tokens,
@@ -1272,14 +1415,20 @@ KERNELS = [
      "reduced-long-prefill"),
     ("splitk_gemm", "src/repro_torch/csrc/splitk_gemm.cu",
      "src/repro/kernels/splitk_gemm.py:60", "gate 4x16384x2048", "default"),
-    ("grouped_gemm", "src/repro_torch/csrc/grouped_gemm.cu",
+    ("grouped_gemm_splitk", "src/repro_torch/csrc/grouped_gemm_splitk.cu",
      "src/repro/kernels/grouped_gemm.py:60", "qkv decode 3x4x2048x2048",
      "default"),
+    ("grouped_gemm", "src/repro_torch/csrc/grouped_gemm.cu",
+     "src/repro/kernels/grouped_gemm.py:60",
+     "gate+up prefill 2x512x2048x16384", "reduced-default"),
     ("flash_decode_paged", "src/repro_torch/csrc/flash_decode_paged.cu",
      "src/repro/kernels/flash_decode.py:208", None, "default"),
-    ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+    ("flash_attention_wgmma", "src/repro_torch/csrc/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention.py:108", "512x1024 H=8 D=256",
      "default"),
+    ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:108", "fp32 512x1024 H=8 D=256",
+     "reduced-default"),
     ("rigid_gemm_wgmma", "src/repro_torch/csrc/rigid_gemm.cu",
      "src/repro/kernels/rigid_gemm.py:80", "gate 512x16384x2048", "amx"),
     ("rigid_gemm", "src/repro_torch/csrc/rigid_gemm.cu",
@@ -1293,7 +1442,6 @@ KERNELS = [
     ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
      "src/repro/kernels/rglru_scan.py:45", "1x512x4096", "recurrentgemma"),
 ]
-
 
 
 def parse_args():

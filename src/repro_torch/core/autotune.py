@@ -25,8 +25,8 @@ from typing import Dict, List, Optional
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.geometry import (
     INNER_BK, WGMMA_BK, WGMMA_TILES, BlockGeometry, H100_SPEC,
-    HopperProfile, Policy, cdiv, gemm_engine, hopper_profile, round_up,
-    solve_block_geometry,
+    HopperProfile, Policy, cdiv, gemm_engine, grouped_engine,
+    hopper_profile, round_up, solve_block_geometry,
 )
 from repro_torch.core.tile_state import SEW, dtype_name
 
@@ -120,11 +120,18 @@ def _route_for(sig: GemmSignature, geom: BlockGeometry) -> str:
 
 
 def plan_engine(sig: GemmSignature, geom: BlockGeometry) -> str:
-    """The mainloop a plan launches: ``"wgmma"`` or ``"tile"``.  B2 and
-    B3 (split or grouped plans) run the tile loop; B1 and B8 stage 1
-    follow :func:`repro_torch.core.geometry.gemm_engine` (ValueError when
-    no engine takes the geometry)."""
-    if sig.group > 1 or geom.split_k > 1:
+    """The mainloop a plan launches: ``"wgmma"``, ``"splitk"`` or
+    ``"tile"``.  B3 (grouped plans) follows
+    :func:`repro_torch.core.geometry.grouped_engine` (its cluster split-K
+    kernel for the bf16 decode group; the price stays the tile loop's, so
+    no grouping decision moves); B2 (split plans) runs the tile loop; B1
+    and B8 stage 1 follow :func:`repro_torch.core.geometry.gemm_engine`
+    (ValueError when no engine takes the geometry)."""
+    if sig.group > 1:
+        return grouped_engine(
+            sig.dtype_in, sig.m, sig.n, sig.k,
+            bf16acc=sig.format_policy.accum_dtype == "bfloat16")
+    if geom.split_k > 1:
         return "tile"
     return gemm_engine(sig.dtype_in, geom.bm, geom.bn, sig.n, sig.k,
                        bf16acc=sig.format_policy.accum_dtype == "bfloat16",

@@ -7,10 +7,11 @@ JAX package) budgets VMEM and snaps to the (8·32/SEW, 128) native tile;
 this one budgets a block's shared memory and grants the tile shapes the
 hand-written kernels implement.  Two mainloops exist (``csrc/``):
 
-- the **tile loop** (``gemm_tile.cuh``; B1's fp32/int8 path, B2, B3, and
-  B8's fp32/int8 path): ``(bm, bn) = (16, 128)`` for skinny M ≤ 16
-  (decode GEMVs: one 16-row MMA fragment, wide in N), ``(64, 64)``
-  otherwise (:data:`TILE_LOOP_TILES`), 32 deep in K, loads not pipelined;
+- the **tile loop** (``gemm_tile.cuh``; B1's fp32/int8 path, B2, B3 off
+  its split-K engine, and B8's fp32/int8 path): ``(bm, bn) = (16, 128)``
+  for skinny M ≤ 16 (decode GEMVs: one 16-row MMA fragment, wide in N),
+  ``(64, 64)`` otherwise (:data:`TILE_LOOP_TILES`), 32 deep in K, loads
+  not pipelined;
 - the **wgmma engine** (``wgmma_mainloop.cuh``; B1 and B8 stage 1 on bf16
   operands): TMA loads 64 deep in K into a ring of shared-memory stages,
   wgmma with the accumulator in registers, at ``bm`` ∈ {64, 128} × ``bn``
@@ -18,6 +19,10 @@ hand-written kernels implement.  Two mainloops exist (``csrc/``):
 
 :func:`gemm_engine` says which one runs a launch: a pure function of the
 operand type, the accumulator, the tile and the alignment of K and N.
+B3 and B5 have a second engine each, chosen the same way:
+:func:`grouped_engine` (the cluster split-K kernel for the bf16 decode
+group, else the tile loop) and :func:`attention_engine` (TMA + wgmma for
+bf16 at head dims 64/128/256, else the SIMT kernel).
 The solver's base tile is the tile loop's tile for M; the plan cache
 (``core/autotune.py``) adds the wgmma tiles the shape and format allow and
 prices every candidate.
@@ -38,14 +43,18 @@ replaces the TPU's 8-core horizon.
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Optional, Tuple
+from typing import Literal, Optional, Sequence, Tuple
 
 from repro_torch.core.tile_state import SEW, dtype_name
 
 __all__ = ["HopperProfile", "BlockGeometry", "H100_SPEC", "hopper_profile",
            "solve_block_geometry", "round_up", "cdiv", "TILE_LOOP_TILES",
            "WGMMA_TILES", "INNER_BK", "WGMMA_BK", "RIGID_TILE",
-           "check_kernel_tile", "gemm_engine", "wgmma_stages"]
+           "check_kernel_tile", "gemm_engine", "wgmma_stages",
+           "GROUPED_BN", "GROUPED_MAX_M", "GROUPED_BK", "MAX_CLUSTER",
+           "GROUPED_X_BYTES", "GROUPED_FILL_SPLIT", "grouped_max_depth",
+           "grouped_engine", "grouped_live_tiles", "grouped_split",
+           "attention_engine", "attention_kv_split"]
 
 Policy = Literal["mte", "amx", "sifive", "vector"]
 
@@ -107,6 +116,98 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *,
         f"N={n}: the wgmma engine takes bf16 operands, K and N multiples "
         f"of {WGMMA_ALIGN} and the tiles {WGMMA_TILES} (bf16acc: bn <= "
         f"{WGMMA_BF16ACC_MAX_BN}); the tile loop {TILE_LOOP_TILES}")
+
+
+# B3's split-K engine (grouped_gemm_splitk.cu): output tiles GROUPED_BN
+# columns wide, at most GROUPED_MAX_M rows (one m16n8k16 fragment), K
+# sliced in multiples of one GROUPED_BK-deep TMA stage across a thread-block
+# cluster of at most MAX_CLUSTER CTAs (the portable cluster size); a CTA
+# holds its slice of x in at most GROUPED_X_BYTES of shared memory.
+GROUPED_BN = 128
+GROUPED_MAX_M = 16
+GROUPED_BK = 64
+MAX_CLUSTER = 8
+GROUPED_X_BYTES = 128 * 1024
+# The most slices the split takes to fill the card: on an H100 (the
+# by-split timings of chip_smoke.py), 8 slices ran slower than 4 at
+# gemma_2b's decode group -- 160 CTAs put two on some SMs, doubling those
+# SMs' bytes -- and no faster at recurrentgemma_9b's; more than 4 only
+# where x would not fit otherwise.
+GROUPED_FILL_SPLIT = 4
+
+
+def grouped_max_depth(m: int) -> int:
+    """The deepest K slice whose m rows of x (bf16, rows padded by 8)
+    fit the split-K engine's x budget, a multiple of GROUPED_BK."""
+    return (GROUPED_X_BYTES // (2 * max(m, 1)) - 8) // GROUPED_BK \
+        * GROUPED_BK
+
+
+def grouped_engine(dtype_in, m: int, n: int, k: int, *,
+                   bf16acc: bool = False) -> str:
+    """The engine that runs one B3 launch: ``"splitk"`` or ``"tile"``.
+
+    A pure function of the operand type, the accumulator and the shape;
+    the wrapper launches what it names and nothing else:
+
+    - ``"splitk"`` (the cluster split-K kernel) for bf16 operands with an
+      f32 accumulator, at most 16 rows (the decode group), N a multiple of
+      8 (TMA's 16-byte row alignment of the weight) and a K that 8 slices
+      of x cover in shared memory (m = 16: K ≤ 32256);
+    - ``"tile"`` (the tile loop) otherwise: fp32, int8, C > 16, and
+      bf16acc, whose running sum is rounded once per K block in K order,
+      a contract a split-K sum cannot keep."""
+    if (dtype_name(dtype_in) == "bfloat16" and not bf16acc
+            and m <= GROUPED_MAX_M and n % WGMMA_ALIGN == 0
+            and k <= MAX_CLUSTER * grouped_max_depth(m)):
+        return "splitk"
+    return "tile"
+
+
+def grouped_live_tiles(n: int, widths: Optional[Sequence[int]],
+                       g: int) -> Tuple[int, ...]:
+    """Output tiles of each member that hold a live column: a member of
+    width w has ``cdiv(min(w, n), GROUPED_BN)``; without widths every
+    member is n wide."""
+    ws = list(widths) if widths is not None else [n] * g
+    return tuple(cdiv(min(int(w), n), GROUPED_BN) for w in ws)
+
+
+def grouped_split(live_tiles: int, k: int, m: int = 1,
+                  sm_count: int = 132) -> Tuple[int, int]:
+    """(slices, slice depth) of the split-K engine: the fewest slices,
+    doubling, that give live tiles x slices >= the SM count (up to
+    GROUPED_FILL_SPLIT) and slices no deeper than
+    :func:`grouped_max_depth` (up to MAX_CLUSTER), each at least one
+    GROUPED_BK stage deep; the depth is a multiple of GROUPED_BK and
+    every slice holds at least one K row."""
+    stages = cdiv(max(k, 1), GROUPED_BK)
+    deepest = grouped_max_depth(m)
+    s = 1
+    while s * 2 <= MAX_CLUSTER and s * 2 <= stages and (
+            (live_tiles * s < sm_count and s < GROUPED_FILL_SPLIT)
+            or s * deepest < k):
+        s *= 2
+    depth = round_up(cdiv(max(k, 1), s), GROUPED_BK)
+    return cdiv(max(k, 1), depth), depth
+
+
+def attention_engine(dtype, d: int) -> str:
+    """The engine that runs one B5 launch: ``"wgmma"`` (TMA + wgmma,
+    ``flash_attention_wgmma.cu``) for bf16 at a head dim of 64, 128 or
+    256 (every ported config's), ``"simt"`` (``flash_attention.cu``)
+    otherwise: fp32, and the reduced configs' head dims."""
+    if dtype_name(dtype) == "bfloat16" and d in (64, 128, 256):
+        return "wgmma"
+    return "simt"
+
+
+def attention_kv_split(ctas: int, kv_tiles: int, sm_count: int = 132) -> int:
+    """How many CTAs (a cluster) share one query tile's kv range on B5's
+    wgmma engine: 2 when the grid of (batch·head, 64-query tile) CTAs
+    fills at most half the card and the kv range holds at least two
+    64-row tiles (gemma_2b's prefill chunk: 64 CTAs), else 1."""
+    return 2 if 2 * ctas <= sm_count and kv_tiles >= 2 else 1
 
 
 def cdiv(a: int, b: int) -> int:

@@ -1,7 +1,10 @@
 // The Hopper GEMM mainloop shared by mte_gemm.cu (B1) and rigid_gemm.cu
 // (B8 stage 1): TMA loads into a ring of shared-memory stages, mbarrier
 // hand-off between one producer warp and the consumer warpgroups, and
-// wgmma with the f32 accumulator in registers.  sm_90a only.
+// wgmma with the f32 accumulator in registers.  sm_90a only.  Its PTX
+// wrappers (TMA, mbarriers, wgmma, cluster barriers and distributed
+// shared memory) also serve grouped_gemm_splitk.cu (B3) and
+// flash_attention_wgmma.cu (B5).
 //
 // - Block: BM/64 consumer warpgroups (each owns 64 rows of the BM x BN
 //   output tile) and one producer warp, BM/64 * 128 + 32 threads, one
@@ -122,6 +125,53 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// 3-D TMA load of one box at (c0 innermost, c1, c2), for the kernels
+// whose boxes must not cross from one matrix of a batch into the next
+// (B3's split-K engine, B5's wgmma engine): rows past the middle
+// dimension are filled with zeros, not read from the next matrix.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Order this thread's ordinary shared-memory writes before later reads by
+// the async proxy (wgmma operands written by the threads themselves).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Thread-block cluster barrier, in two halves (arrive with release
+// semantics, wait with acquire), usable from divergent code.
+__device__ __forceinline__ void cluster_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// A float of cluster CTA `rank`'s shared memory at the address of `local`
+// in ours (distributed shared memory).  No memory clobber: the cluster
+// barriers around the reads order them, and a batch of them can be in
+// flight at once.
+__device__ __forceinline__ float ld_cluster(const float* local,
+                                            uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(local)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote));
+  return v;
 }
 
 // A shared-memory matrix descriptor for the 128-byte swizzle: start
@@ -458,6 +508,31 @@ inline int make_map(CUtensorMap* map, const void* ptr, long inner,
                              static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + static_cast<int>(r);
+}
+
+// A 3-D bf16 tensor map over `batch` row-major (outer, inner) matrices,
+// row stride `inner` elements, matrix stride `outer * inner`, box
+// (1, box_outer, box_inner), 128-byte swizzle, zero fill outside.
+inline int make_map_3d(CUtensorMap* map, const void* ptr, long inner,
+                       long outer, long batch, int box_inner,
+                       int box_outer) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ENTRY_ERROR;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 2,
+                                 static_cast<cuuint64_t>(inner * outer) * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                         const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

@@ -16,6 +16,14 @@ tensors it runs :func:`grouped_gemm_torch`, the plain PyTorch version.
 - Accumulators as in B1: f32, int32 (int8 operands; identity epilogue)
   or bf16 (``bf16acc``: the running sum rounded to bf16 once per
   ``geom.bk``-deep K block).
+
+Two engines, chosen by :func:`repro_torch.core.geometry.grouped_engine`
+(never a fallback): the cluster split-K kernel
+(``csrc/grouped_gemm_splitk.cu``, counter ``grouped_gemm_splitk``) for
+bf16 operands with an f32 accumulator, C ≤ 16, N a multiple of 8 and K
+within 8 slices of x in shared memory — the decode group —, and the
+tile loop (``csrc/grouped_gemm.cu``, counter ``grouped_gemm``, at
+``geom``'s tile) for everything else.
 """
 from __future__ import annotations
 
@@ -25,7 +33,10 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
-from repro_torch.core.geometry import BlockGeometry, cdiv
+from repro_torch.core.geometry import (GROUPED_BK, MAX_CLUSTER,
+                                       BlockGeometry, cdiv, grouped_engine,
+                                       grouped_live_tiles, grouped_max_depth,
+                                       grouped_split, round_up)
 from repro_torch.kernels import build
 from repro_torch.kernels.mte_gemm import (DTYPE_CODES, _acc_dtype,
                                           bf16_scalar, raw_accumulate)
@@ -39,6 +50,11 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                 ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                 ctypes.c_void_p])
+_SPLITK_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                    + [ctypes.c_long] * 2 + [ctypes.c_int] * 4
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 
 
 def _check(x, w, epilogue, widths):
@@ -79,11 +95,13 @@ def grouped_gemm_torch(x, w, *, geom: BlockGeometry,
 def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
                         epilogue: Epilogue = Epilogue(),
                         out_dtype=torch.float32, acc_dtype=None,
-                        widths: Optional[Sequence[int]] = None
-                        ) -> torch.Tensor:
+                        widths: Optional[Sequence[int]] = None,
+                        n_split: Optional[int] = None) -> torch.Tensor:
     """x (G, C, K) @ w (G, K, N) → (G, C, N), epilogue per group: the B3
     CUDA kernel on CUDA tensors, :func:`grouped_gemm_torch` on CPU
-    tensors."""
+    tensors.  ``n_split`` (split-K engine only) pins the number of K
+    slices, at most 8; None takes
+    :func:`repro_torch.core.geometry.grouped_split`'s choice."""
     dev = build.require_cuda(x, w, what="grouped_gemm")
     if dev is None:
         return grouped_gemm_torch(x, w, geom=geom, epilogue=epilogue,
@@ -103,6 +121,10 @@ def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
                          "identity epilogue (dequantize first)")
     if out_dtype not in (torch.float32, torch.bfloat16, torch.int32):
         raise TypeError(f"grouped_gemm: out_dtype {out_dtype} unsupported")
+    engine = grouped_engine(x.dtype, m, n, k, bf16acc=bf16acc)
+    if n_split is not None and engine != "splitk":
+        raise ValueError("grouped_gemm: n_split pins the split-K engine's "
+                         "slices; the tile loop takes its split from geom")
     if x.stride(2) != 1 or (m > 1 and x.stride(1) < k):
         x = x.contiguous()
     w = w.contiguous()
@@ -111,6 +133,34 @@ def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
     out = torch.empty(g, m, n, dtype=out_dtype, device=dev)
     alpha = float(epilogue.alpha)
     softcap = float(epilogue.softcap or 0.0)
+    if engine == "splitk":
+        if out_dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"grouped_gemm: the split-K engine writes f32 "
+                            f"or bf16, not {out_dtype}")
+        tiles = sum(grouped_live_tiles(n, widths, g))
+        if n_split is None:
+            n_split, depth = grouped_split(
+                tiles, k, m,
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+        else:
+            depth = round_up(cdiv(k, n_split), GROUPED_BK)
+            if not 1 <= n_split <= MAX_CLUSTER or cdiv(k, depth) != n_split \
+                    or depth > grouped_max_depth(m):
+                raise ValueError(f"grouped_gemm: {n_split} slices of K={k} "
+                                 f"for {m} rows is not a split the split-K "
+                                 f"engine takes")
+        lib, fn = build.entry("grouped_gemm_splitk",
+                              "grouped_gemm_splitk_launch",
+                              _SPLITK_ARGTYPES)
+        build.count_launch("grouped_gemm_splitk")
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), g, m, n, k,
+                 x.stride(0), x.stride(1), DTYPE_CODES[out_dtype], n_split,
+                 depth, max(tiles, 1), alpha,
+                 int(epilogue.softcap is not None), softcap,
+                 ACTIVATION_CODES[epilogue.activation], n_widths, wd,
+                 build.stream_ptr(dev))
+        build.check(lib, err, "grouped_gemm_splitk")
+        return out
     if bf16acc:
         alpha, softcap = bf16_scalar(alpha), bf16_scalar(softcap)
     rbk = max(32, min(geom.bk, cdiv(k, 32) * 32))

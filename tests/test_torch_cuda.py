@@ -343,3 +343,150 @@ def test_wgmma_refuses_what_it_cannot_take(card):
         tops.mte_gemm(a.to(card), b.to(card), format_policy="bf16acc",
                       geometry=big)
     assert build.launch_counts() == before
+
+
+# -- B3's cluster split-K engine and B5's wgmma engine ------------------------
+
+# (G, K, N, shared x, widths): the gemma_2b decode group, eight members
+# of a per-group x whose widths straddle the 128-column tile (one width
+# 0, one past N) over a K the slice depth does not divide, and
+# recurrentgemma_9b's decode group.
+SPLITK_CASES = [(3, 2048, 2048, True, (2048, 256, 256)),
+                (8, 1000, 392, False, (392, 40, 129, 0, 8, 300, 256, 500)),
+                (3, 4096, 4096, True, (4096, 256, 256))]
+
+
+@pytest.mark.parametrize("c", [1, 4, 16])
+def test_grouped_splitk_matches_plain(card, c):
+    """B3's split-K engine against its plain version (bf16 operands, f32
+    accumulator; tolerance 2e-2, bf16's rounding of O(1) outputs), with
+    the epilogue and both output types; two calls are bit-equal (the
+    cluster reduction sums the slices in rank order); the counters show
+    that only the split-K engine ran."""
+    gen = torch.Generator().manual_seed(c)
+    before = build.launch_counts()
+    epi = tepilogue.Epilogue(alpha=0.7, softcap=20.0, activation="gelu")
+    sew = tgeometry.SEW.E16
+    geo = tgeometry.BlockGeometry(16, 128, 64, 1, 1, False, sew, sew, "mte")
+    for (g, k, n, shared, widths), out_dt in zip(
+            SPLITK_CASES, (torch.bfloat16, torch.float32, torch.bfloat16)):
+        assert tgeometry.grouped_engine(torch.bfloat16, c, n, k) == "splitk"
+        x = (torch.randn(g, c, k, generator=gen) / k ** 0.5).to(
+            torch.bfloat16)
+        if shared:
+            x = x[:1].expand(g, c, k)
+        w = torch.randn(g, k, n, generator=gen).to(torch.bfloat16)
+        kw = dict(geom=geo, epilogue=epi, out_dtype=out_dt,
+                  widths=list(widths))
+        want = tgrouped.grouped_gemm_torch(x, w, **kw)
+        xd, wd = x.to(card), w.to(card)
+        got = tgrouped.grouped_gemm_kernel(xd, wd, **kw)
+        _close(got, want, 2e-2)
+        again = tgrouped.grouped_gemm_kernel(xd, wd, **kw)
+        assert torch.equal(got, again)
+    after = build.launch_counts()
+    assert after["grouped_gemm_splitk"] == (before["grouped_gemm_splitk"]
+                                            + 2 * len(SPLITK_CASES))
+    assert after["grouped_gemm"] == before["grouped_gemm"]
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4, 8])
+def test_grouped_splitk_every_split_matches_plain(card, n_split):
+    """Every cluster size the split-K engine takes, pinned, at gemma_2b's
+    decode group: the same sums within 2e-2 of the plain version."""
+    gen = torch.Generator().manual_seed(n_split)
+    g, k, n, widths = 3, 2048, 2048, [2048, 256, 256]
+    x = (torch.randn(1, 4, k, generator=gen) / k ** 0.5).to(
+        torch.bfloat16).expand(g, 4, k)
+    w = torch.randn(g, k, n, generator=gen).to(torch.bfloat16)
+    sew = tgeometry.SEW.E16
+    geo = tgeometry.BlockGeometry(16, 128, 64, 1, 1, False, sew, sew, "mte")
+    kw = dict(geom=geo, out_dtype=torch.float32, widths=widths)
+    before = build.launch_counts()["grouped_gemm_splitk"]
+    got = tgrouped.grouped_gemm_kernel(x.to(card), w.to(card),
+                                       n_split=n_split, **kw)
+    _close(got, tgrouped.grouped_gemm_torch(x, w, **kw), 2e-2)
+    assert build.launch_counts()["grouped_gemm_splitk"] == before + 1
+
+
+def test_grouped_engines_split_by_rows_and_format(card):
+    """C = 17 and bf16acc stay on the tile loop, C = 16 goes to split-K:
+    each launch counts on its own engine's counter only."""
+    gen = torch.Generator().manual_seed(17)
+    sew = tgeometry.SEW.E16
+    k, n = 256, 384
+    w = torch.randn(2, k, n, generator=gen).to(torch.bfloat16)
+    for c, acc, counter in [(17, None, "grouped_gemm"),
+                            (4, torch.bfloat16, "grouped_gemm"),
+                            (16, None, "grouped_gemm_splitk")]:
+        x = (torch.randn(2, c, k, generator=gen) / k ** 0.5).to(
+            torch.bfloat16)
+        bm, bn = (16, 128) if c <= 16 else (64, 64)
+        geo = tgeometry.BlockGeometry(bm, bn, 64, 1, 1, False, sew, sew,
+                                      "mte")
+        kw = dict(geom=geo, out_dtype=torch.float32, acc_dtype=acc)
+        before = build.launch_counts()
+        got = tgrouped.grouped_gemm_kernel(x.to(card), w.to(card), **kw)
+        after = build.launch_counts()
+        _close(got, tgrouped.grouped_gemm_torch(x, w, **kw), 3e-2)
+        assert {name for name in after if after[name] != before[name]} \
+            == {counter}
+
+
+# (B, H, Hkv, Sq, Skv, options): causal GQA 8:1 at the first prefill
+# chunk, 2:1 with Sq < Skv and a ragged Skv, a window, a softcap,
+# non-causal over a ragged Skv, and a ragged Sq.
+WGMMA_ATTN_CASES = [(1, 8, 1, 512, 512, {}),
+                    (2, 4, 2, 100, 333, {}),
+                    (1, 2, 1, 128, 200, {"window": 48}),
+                    (1, 2, 2, 64, 130, {"softcap": 20.0}),
+                    (1, 2, 1, 70, 90, {"causal": False}),
+                    (1, 2, 1, 33, 97, {"window": 40, "softcap": 30.0})]
+
+
+@pytest.mark.parametrize("kv_split", [1, 2])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_wgmma_matches_plain(card, d, kv_split):
+    """B5's wgmma engine against its plain version (bf16; tolerance 1e-2:
+    P is rounded to bf16 before P V, where the plain version keeps it in
+    f32), with each query tile's kv range on one CTA or split over a
+    cluster of two; the counters show that only the wgmma engine ran."""
+    gen = torch.Generator().manual_seed(d)
+    before = build.launch_counts()
+    for b, h, hkv, sq, skv, kw in WGMMA_ATTN_CASES:
+        q = torch.randn(b, h, sq, d, generator=gen).to(torch.bfloat16)
+        k = torch.randn(b, hkv, skv, d, generator=gen).to(torch.bfloat16)
+        v = torch.randn(b, hkv, skv, d, generator=gen).to(torch.bfloat16)
+        want = tattn.flash_attention_torch(q, k, v, **kw)
+        got = tattn.flash_attention_kernel(q.to(card), k.to(card),
+                                           v.to(card), kv_split=kv_split,
+                                           **kw)
+        _close(got, want, 1e-2)
+    after = build.launch_counts()
+    assert after["flash_attention_wgmma"] == (
+        before["flash_attention_wgmma"] + len(WGMMA_ATTN_CASES))
+    assert after["flash_attention"] == before["flash_attention"]
+
+
+def test_flash_attention_engines_split_by_type_and_dim(card):
+    """fp32 and D = 32 stay on the SIMT kernel, bf16 at D = 128 goes to
+    wgmma; D = 320 raises before anything launches."""
+    gen = torch.Generator().manual_seed(32)
+    for dt, d, counter in [(torch.float32, 128, "flash_attention"),
+                           (torch.bfloat16, 32, "flash_attention"),
+                           (torch.bfloat16, 128, "flash_attention_wgmma")]:
+        q, k, v = (torch.randn(1, 2, 40, d, generator=gen).to(dt)
+                   for _ in range(3))
+        before = build.launch_counts()
+        got = tattn.flash_attention_kernel(q.to(card), k.to(card),
+                                           v.to(card))
+        after = build.launch_counts()
+        _close(got, tattn.flash_attention_torch(q, k, v),
+               1e-5 if dt == torch.float32 else 1e-2)
+        assert {name for name in after if after[name] != before[name]} \
+            == {counter}
+    q = torch.randn(1, 2, 8, 320).to(torch.bfloat16).to(card)
+    before = build.launch_counts()
+    with pytest.raises(ValueError, match="D=320"):
+        tattn.flash_attention_kernel(q, q, q)
+    assert build.launch_counts() == before
