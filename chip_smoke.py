@@ -10,25 +10,29 @@ Phases (any failure raises and the script exits non-zero):
    goes to ``build_log.txt`` in the output directory).
 2. Kernels against their plain PyTorch versions on the card: B1
    ``mte_gemm`` on both of its engines (the TMA + wgmma mainloop, counter
-   ``mte_gemm_wgmma``, and the tile loop, counter ``mte_gemm``), B2
-   ``splitk_gemm``, B3 on both of its engines (the cluster split-K
-   kernel, ``grouped_gemm_splitk``, and the tile loop, ``grouped_gemm``),
-   both halves of B8 (stage 1 on its two engines, ``rigid_gemm_wgmma``
-   and ``rigid_gemm``, and ``epilogue_pass``), B4 ``flash_decode_paged``,
-   B5 on both of its engines (TMA + wgmma, ``flash_attention_wgmma``, and
-   SIMT, ``flash_attention``), B6 ``flash_decode`` (ring), B7
-   ``rglru_scan`` -- at the exact shapes the serving phase launches
-   (bf16; f32 for B7; gemma_2b's and recurrentgemma_9b's prefill
-   projections for B1 and B8 stage 1 and decode q/k/v groups for B3, each
-   printed with its plan's engine and tile; the old engines' own rows in
-   fp32 or at the prefill gate+up group) and at small ragged shapes in
-   every mode each kernel takes.  Each prints its max error beside the
-   tolerance; the main-path shapes also print the kernel time (CUDA
-   events, median of 10), its bound (max(operations / peak, bytes /
-   3.35 TB/s)), the plain version's time and the time of one library
-   call for the same function (``torch.matmul``, ``torch.bmm`` on the
-   stacked operands, ``F.gelu`` or ``F.scaled_dot_product_attention``;
-   none for B7), timed only as a yardstick.
+   ``mte_gemm_wgmma``, and the tile loop, counter ``mte_gemm``), B2 on
+   both of its engines (the cluster split-K kernel,
+   ``splitk_gemm_cluster``, and the tile loop, ``splitk_gemm``), B3 on
+   both of its engines (the cluster split-K kernel, ``grouped_gemm_splitk``,
+   and the tile loop, ``grouped_gemm``), both halves of B8 (stage 1 on its
+   two engines, ``rigid_gemm_wgmma`` and ``rigid_gemm``, and
+   ``epilogue_pass``), B4 on both of its engines (the mma kernel,
+   ``flash_decode_paged_mma``, and SIMT, ``flash_decode_paged``), B5 on
+   both of its engines (TMA + wgmma, ``flash_attention_wgmma``, and SIMT,
+   ``flash_attention``), B6 ``flash_decode`` (ring), B7 ``rglru_scan`` --
+   at the exact shapes the serving phase launches (bf16; f32 for B7;
+   gemma_2b's and recurrentgemma_9b's prefill and decode projections for
+   B1, B2 and B8 stage 1 and decode q/k/v groups for B3, each printed with
+   its plan's engine and tile; the old engines' own rows at the fp32
+   shapes phase 3 gives them, or at the prefill gate+up group) and at
+   small ragged shapes in every mode each kernel takes.  Each prints its
+   max error beside the tolerance; the main-path shapes also print the
+   kernel time (CUDA events, median of 10), its bound (max(operations /
+   peak, bytes / 3.35 TB/s)), the plain version's time and the time of one
+   library call for the same function (``torch.matmul``, ``torch.bmm`` on
+   the stacked operands, ``F.gelu`` or ``F.scaled_dot_product_attention``;
+   none for B7), timed only as a yardstick; the decode rows of B2, B3 and
+   B4 also with the L2 cache cold and at every cluster size.
 3. The whole path held against the CPU: gemma_2b.reduced() in fp32 with
    one seed, served by the port's engine on the card (kernels) and on the
    CPU (plain versions), in the default configuration (graph programs +
@@ -48,13 +52,15 @@ Phases (any failure raises and the script exits non-zero):
    in the defaults.  For each, launch counters are zeroed just before the
    run and read just after (every kernel of that path must have
    launched, every bf16 B1 and B8 stage-1 launch on the wgmma engine,
-   every decode q/k/v group on B3's split-K engine and every prefill
-   attention on B5's wgmma engine: the tile loops' and the SIMT kernel's
-   counters must stay 0, and no prefill projection may be planned off B1
-   or B8), and it prints decode ms per step, prefill
-   tokens/s, peak memory, each compiled program's grouping decision and
-   plans, and a profile of a decode step and a prefill chunk (idle share,
-   launches per call).
+   every decode GEMM on B2's cluster engine, every decode q/k/v group on
+   B3's split-K engine, every paged decode attention on B4's mma engine
+   and every prefill attention on B5's wgmma engine: the tile loops' and
+   the SIMT kernels' counters must stay 0, the profiled decode step must
+   count the launches ``DECODE_STEP_LAUNCHES`` names, and no prefill
+   projection may be planned off B1 or B8), and it prints decode ms per
+   step, prefill tokens/s, peak memory, each compiled program's grouping
+   decision and plans, and a profile of a decode step and a prefill chunk
+   (idle share, launches per call).
 
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -172,22 +178,26 @@ def check(name, got, want, tol, rel=True):
 # -- phase 2: kernels against their plain versions -----------------------------
 
 def gemm_phase(dev, rows):
-    """B1 on both of its engines and B2 against their plain versions:
+    """B1 and B2 on both of their engines against their plain versions:
     small ragged shapes in every mode (the TMA-aligned ones, M, N and K
-    multiples of 8, run bf16 and bf16acc on the wgmma engine at several
-    tiles, the others the tile loop), then the bf16 GEMMs of the
+    multiples of 8, run bf16 and bf16acc on B1's wgmma engine at several
+    tiles, the others the tile loops; bf16 at M <= 16 on B2's cluster
+    engine with every epilogue term), then the bf16 GEMMs of the
     full-width serving runs through the plans those runs get: gemma_2b's
     prefill (M = 512) and decode (M = 4) projections and
-    recurrentgemma_9b's prefill projections, each printed with its engine
-    and tile.  The tile loop's own row is the reduced fp32 model's
-    4096-token chunk's gate, the shape phase 3 gives it."""
+    recurrentgemma_9b's, each printed with its engine and tile; the decode
+    rows also with the weight cold in L2 and at every split.  The tile
+    loops' own rows are the reduced fp32 model's gate, at the shapes phase
+    3 gives them (a 4096-token chunk for B1, a 2-slot decode for B2)."""
     import torch
     from repro_torch.core.autotune import PlanCache, GemmSignature, \
         plan_engine
     from repro_torch.core.epilogue import Epilogue
-    from repro_torch.core.geometry import BlockGeometry, SEW, gemm_engine
+    from repro_torch.core.geometry import (GROUPED_BK, BlockGeometry, SEW,
+                                           gemm_engine, splitk_engine)
     from repro_torch.kernels.mte_gemm import mte_gemm_kernel, mte_gemm_torch
-    from repro_torch.kernels.splitk_gemm import (mte_gemm_splitk_kernel,
+    from repro_torch.kernels.splitk_gemm import (cluster_layout,
+                                                 mte_gemm_splitk_kernel,
                                                  mte_gemm_splitk_torch)
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -257,44 +267,117 @@ def gemm_phase(dev, rows):
                 check(f"splitk_gemm {label} n_split={s} {m}x{n}x{k}", got,
                       want, tol)
 
+    # B2's cluster engine at small shapes: M 1-16, a ragged K, N a multiple
+    # of 8 but not of 128, every epilogue term (C in f32 and bf16, a row
+    # and a column bias), both output types; two calls bit-equal.
+    sew16 = SEW.E16
+    for m, n, k, c_dt, axis, out_dt in [
+            (1, 2048, 2048, torch.float32, "row", torch.bfloat16),
+            (7, 392, 1000, torch.bfloat16, "row", torch.float32),
+            (16, 136, 40, torch.bfloat16, "col", torch.bfloat16)]:
+        a, b = operands(m, n, k, torch.bfloat16)
+        c = torch.randn(m, n, generator=gen, device=dev).to(c_dt)
+        bias = torch.randn(n if axis == "row" else m, generator=gen,
+                           device=dev)
+        epi = Epilogue(alpha=0.7, beta=0.5, has_bias=True, bias_axis=axis,
+                       softcap=20.0, activation="gelu")
+        geom = BlockGeometry(16, 128, 64, 4, 1, False, sew16, sew16, "mte")
+        require(splitk_engine(a.dtype, m, n, k) == "cluster",
+                f"{m}x{n}x{k} is not on the cluster engine")
+        slices, _ = cluster_layout(m, n, k, dev)
+        kw = dict(geom=geom, epilogue=epi, out_dtype=out_dt)
+        got = mte_gemm_splitk_kernel(a, b, c, bias, **kw)
+        check(f"splitk_gemm_cluster {m}x{n}x{k} ({slices} slices, C "
+              f"{str(c_dt)[6:]}, {axis} bias)", got,
+              mte_gemm_splitk_torch(a, b, c, bias, n_split=slices, **kw),
+              2e-2)
+        require(torch.equal(got, mte_gemm_splitk_kernel(a, b, c, bias,
+                                                         **kw)),
+                "splitk_gemm_cluster: two calls differ")
+
     def main_path(label, m, n, k, act, dt=torch.bfloat16, tol=2e-2,
                   fmt="bf16"):
         epi = Epilogue(activation=act)
         sig = GemmSignature.make(m, n, k, dt, dt, epi, fmt=fmt)
         plan = cache.plan(sig)
+        engine = plan_engine(sig, plan.geometry)
         a, b = operands(m, n, k, dt)
-        if plan.route == "splitk":
+        geom, extra = plan.geometry, {}
+        if engine == "cluster":
+            kern = "splitk_gemm_cluster"
+            slices, _ = cluster_layout(m, n, k, dev)
+            extra["slices"] = slices
+            run = lambda: mte_gemm_splitk_kernel(  # noqa: E731
+                a, b, geom=geom, n_split=plan.n_split, epilogue=epi,
+                out_dtype=dt)
+            # The plain version in the engine's slices (64-row stages).
+            pgeom = dataclasses.replace(geom, bk=GROUPED_BK)
+            plain = lambda: mte_gemm_splitk_torch(  # noqa: E731
+                a, b, geom=pgeom, n_split=slices, epilogue=epi,
+                out_dtype=dt)
+        elif plan.route == "splitk":
             kern = "splitk_gemm"
             run = lambda: mte_gemm_splitk_kernel(  # noqa: E731
-                a, b, geom=plan.geometry, n_split=plan.n_split,
-                epilogue=epi, out_dtype=dt)
+                a, b, geom=geom, n_split=plan.n_split, epilogue=epi,
+                out_dtype=dt)
             plain = lambda: mte_gemm_splitk_torch(  # noqa: E731
-                a, b, geom=plan.geometry, n_split=plan.n_split,
-                epilogue=epi, out_dtype=dt)
+                a, b, geom=geom, n_split=plan.n_split, epilogue=epi,
+                out_dtype=dt)
         else:
-            engine = plan_engine(sig, plan.geometry)
             kern = "mte_gemm_wgmma" if engine == "wgmma" else "mte_gemm"
             run = lambda: mte_gemm_kernel(  # noqa: E731
-                a, b, geom=plan.geometry, epilogue=epi, out_dtype=dt)
+                a, b, geom=geom, epilogue=epi, out_dtype=dt)
             plain = lambda: mte_gemm_torch(  # noqa: E731
-                a, b, geom=plan.geometry, epilogue=epi, out_dtype=dt)
+                a, b, geom=geom, epilogue=epi, out_dtype=dt)
         shape = f"{label} {m}x{n}x{k}"
-        err = check(f"{kern} main-path {shape} [{plan.describe()}]", run(),
-                    plain(), tol)
+        want = plain()
+        got = run()
+        err = check(f"{kern} main-path {shape} [{plan.describe()}, engine "
+                    f"{engine}]", got, want, tol)
+        if engine == "cluster":
+            require(torch.equal(got, run()), f"{kern}: two calls differ")
         flops = 2.0 * m * n * k
         nbytes = a.element_size() * (m * k + k * n + m * n)
         peak = PEAK["bf16" if dt == torch.bfloat16 else "fp32"]
-        row = {"kernel": kern, "shape": shape,
+        lib = lambda: torch.matmul(a, b)  # noqa: E731
+        row = {"kernel": kern, "shape": shape, "engine": engine,
                "plan": plan.describe(), "max_abs_err": err,
                "tol": tol, "ms": time_ms(run), "plain_ms": time_ms(plain),
                "bound_ms": bound_ms(flops, nbytes, peak),
                "bound_by": bound_by(flops, nbytes, peak),
-               "library_ms": time_ms(lambda: torch.matmul(a, b))}
+               "library_ms": time_ms(lib), **extra}
+        if m <= 16 and kern != "mte_gemm":
+            # A decode GEMM: with the weight cold in L2, as a decode step
+            # finds it, and (cluster engine) at every power-of-two split,
+            # each held to the plain version at its own split.
+            row["cold_ms"] = time_ms_cold(run)
+            row["library_cold_ms"] = time_ms_cold(lib)
+        if engine == "cluster":
+            row["ms_by_split"] = {}
+            for s in (1, 2, 4, 8):
+                try:
+                    cluster_layout(m, n, k, dev, s)
+                except ValueError:
+                    continue     # x's slice would not fit, or empty slices
+                pinned = lambda: mte_gemm_splitk_kernel(  # noqa: E731
+                    a, b, geom=geom, epilogue=epi, out_dtype=dt,
+                    cluster_split=s)
+                want_s = mte_gemm_splitk_torch(a, b, geom=pgeom, n_split=s,
+                                               epilogue=epi, out_dtype=dt)
+                err = max(err, check(f"{kern} main-path {shape} {s} "
+                                     f"slices", pinned(), want_s, tol))
+                row["ms_by_split"][s] = time_ms(pinned)
+            row["max_abs_err"] = err
         rows.append(row)
         log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
             f"ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
             f"torch.matmul {row['library_ms']:.4f} ms "
-            f"({row['ms'] / row['library_ms']:.2f}x)")
+            f"({row['ms'] / row['library_ms']:.2f}x)"
+            + (f"; L2 cold {row['cold_ms']:.4f} ms, torch.matmul "
+               f"{row['library_cold_ms']:.4f} ms" if "cold_ms" in row
+               else "")
+            + (f"; by split {row['ms_by_split']} (planned {slices})"
+               if engine == "cluster" else ""))
 
     # The bf16 GEMMs of the full-width serving runs, through the plans the
     # serving runs get (prefill chunk M = 512, decode M = 4 slots):
@@ -303,17 +386,24 @@ def gemm_phase(dev, rows):
     gemma = [("q/o", 2048, 2048, "none"), ("k/v", 256, 2048, "none"),
              ("gate", 16384, 2048, "gelu"), ("up", 16384, 2048, "none"),
              ("down", 2048, 16384, "none")]
+    rg = [("rg q/o/rglru", 4096, 4096, "none"),
+          ("rg k/v", 256, 4096, "none"),
+          ("rg gate", 12288, 4096, "gelu"),
+          ("rg down", 4096, 12288, "none")]
     for m in (512, 4):
         for label, n, k, act in gemma:
             main_path(label, m, n, k, act)
-    for label, n, k, act in [("rg q/o/rglru", 4096, 4096, "none"),
-                             ("rg k/v", 256, 4096, "none"),
-                             ("rg gate", 12288, 4096, "gelu"),
-                             ("rg down", 4096, 12288, "none")]:
+    for label, n, k, act in rg:
         main_path(label, 512, n, k, act)
-    # The tile loop's row: the reduced fp32 gemma_2b's gate projection
-    # (d_model 128, d_ff 256) in the 4096-token chunk phase 3 runs.
+    # recurrentgemma_9b's decode GEMMs on B2 (its k/v run in B3's group).
+    for label, n, k, act in rg[:1] + rg[2:]:
+        main_path(label, 4, n, k, act)
+    # The tile loops' rows, at the shapes phase 3's reduced fp32 gemma_2b
+    # (d_model 128, d_ff 256) gives them: B1's gate in the 4096-token
+    # chunk, B2's gate in the 2-slot decode.
     main_path("gate fp32", 4096, 256, 128, "gelu", dt=torch.float32,
+              tol=1e-4, fmt="fp32")
+    main_path("gate fp32", 2, 256, 128, "gelu", dt=torch.float32,
               tol=1e-4, fmt="fp32")
 
 
@@ -587,12 +677,27 @@ def paged_inputs(dev, *, b, h, hkv, d, page, lens, dtype, gen, stale=False):
 
 
 def decode_phase(dev, rows):
+    """B4 on both of its engines against its plain version: small ragged
+    cases (stale and unmapped pages, an empty row, window and softcap) in
+    fp32 and int8 pages on the SIMT kernel and in bf16 on the mma engine,
+    the mma engine at G 1/8/16 x D 64/128/256 over lengths 0, 1, 15, 16,
+    17 and 1037; then the serving run's decode on the mma engine (also
+    with the pages cold in L2 and at every cluster size) and the SIMT
+    kernel's row at the reduced fp32 decode phase 3 gives it."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.core.geometry import decode_engine, decode_kv_split
     from repro_torch.kernels.flash_decode import (flash_decode_paged_kernel,
                                                   flash_decode_paged_torch)
     from repro_torch.models.attention import _quantize_kv
     gen = torch.Generator(device=dev).manual_seed(2)
+
+    def kernel_of(q, kp):
+        g = q.shape[1] // kp.shape[2]
+        return ("flash_decode_paged_mma"
+                if decode_engine(kp.dtype, q.dtype, g, q.shape[2]) == "mma"
+                else "flash_decode_paged")
+
     for label, dtype, tol in [("fp32", torch.float32, 1e-5),
                               ("bf16", torch.bfloat16, 1e-2)]:
         for kw in [{}, {"window": 6, "softcap": 5.0}]:
@@ -602,10 +707,13 @@ def decode_phase(dev, rows):
             table[3] = -1         # an empty row: zeros out
             got = flash_decode_paged_kernel(q, kp, vp, table, lens, **kw)
             want = flash_decode_paged_torch(q, kp, vp, table, lens, **kw)
-            check(f"flash_decode_paged {label} {kw or 'plain'}", got, want,
-                  tol)
+            name = kernel_of(q, kp)
+            err = check(f"{name} {label} page 8 {kw or 'plain'}", got, want,
+                        tol)
+            rows.append({"kernel": name, "shape": f"{label} page 8 "
+                         f"{kw or 'plain'}", "max_abs_err": err, "tol": tol})
             require(float(got[3].float().abs().max()) == 0.0,
-                    "flash_decode_paged: an empty row must give zeros")
+                    f"{name}: an empty row must give zeros")
     q, kp, vp, table, lens = paged_inputs(
         dev, b=3, h=4, hkv=1, d=32, page=4, lens=[5, 17, 26],
         dtype=torch.float32, gen=gen)
@@ -613,44 +721,101 @@ def decode_phase(dev, rows):
     vq, vs = _quantize_kv(vp)
     got = flash_decode_paged_kernel(q, kq, vq, table, lens, ks, vs)
     want = flash_decode_paged_torch(q, kq, vq, table, lens, ks, vs)
-    check("flash_decode_paged int8 pages", got, want, 1e-5)
+    err = check("flash_decode_paged int8 pages", got, want, 1e-5)
+    rows.append({"kernel": "flash_decode_paged", "shape": "int8 pages",
+                 "max_abs_err": err, "tol": 1e-5})
+    # The mma engine at every G and D it takes, over two kv heads: lengths
+    # 0, 1, 15, 16, 17 and 1037 (a stale page mapped in the empty row, an
+    # unmapped page inside the long row), plain and windowed + softcapped.
+    lens_mma = [0, 1, 15, 16, 17, 1037]
+    for g in (1, 8, 16):
+        for d in (64, 128, 256):
+            q, kp, vp, table, lens = paged_inputs(
+                dev, b=len(lens_mma), h=2 * g, hkv=2, d=d, page=16,
+                lens=lens_mma, dtype=torch.bfloat16, gen=gen, stale=True)
+            table[5, 3] = -1
+            for kw in [{}, {"window": 40, "softcap": 30.0}]:
+                got = flash_decode_paged_kernel(q, kp, vp, table, lens, **kw)
+                want = flash_decode_paged_torch(q, kp, vp, table, lens,
+                                                **kw)
+                shape = f"G={g} D={d} {kw or 'plain'}"
+                err = check(f"flash_decode_paged_mma {shape}", got, want,
+                            1e-2)
+                require(torch.equal(got, flash_decode_paged_kernel(
+                    q, kp, vp, table, lens, **kw)),
+                    "flash_decode_paged_mma: two calls differ")
+                require(float(got[0].float().abs().max()) == 0.0,
+                        "flash_decode_paged_mma: an empty row must give "
+                        "zeros")
+                rows.append({"kernel": "flash_decode_paged_mma",
+                             "shape": shape, "max_abs_err": err,
+                             "tol": 1e-2})
+
+    def main_path(label, b, h, hkv, d, page, lens, dtype, tol):
+        q, kp, vp, table, lens_t = paged_inputs(
+            dev, b=b, h=h, hkv=hkv, d=d, page=page, lens=lens, dtype=dtype,
+            gen=gen)
+        name = kernel_of(q, kp)
+        run = lambda: flash_decode_paged_kernel(  # noqa: E731
+            q, kp, vp, table, lens_t)
+        plain = lambda: flash_decode_paged_torch(  # noqa: E731
+            q, kp, vp, table, lens_t)
+        want = plain()
+        got = run()
+        err = check(f"{name} main-path {label}", got, want, tol)
+        idx = table.clamp(min=0).long()
+        kg = kp[idx].reshape(b, -1, hkv, d).permute(0, 2, 1, 3)
+        vg = vp[idx].reshape(b, -1, hkv, d).permute(0, 2, 1, 3)
+        pos = torch.arange(kg.shape[2], device=dev)[None]
+        mask = ((pos < lens_t[:, None].long())
+                & (table >= 0).repeat_interleave(page, 1))[:, None, None, :]
+        qs = q[:, :, None, :]
+        kx, vx = ((x.expand(b, h, -1, d) if hkv == 1
+                   else x.repeat_interleave(h // hkv, 1)) for x in (kg, vg))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, kx, vx, attn_mask=mask)
+        live = sum(lens)
+        elt = q.element_size()
+        flops = 4.0 * live * h * d
+        nbytes = (elt * (2 * live * hkv * d + 2 * b * h * d)
+                  + 4 * (table.numel() + b))
+        peak = PEAK["bf16" if dtype == torch.bfloat16 else "fp32"]
+        row = {"kernel": name, "shape": label, "max_abs_err": err,
+               "tol": tol, "ms": time_ms(run), "plain_ms": time_ms(plain),
+               "bound_ms": bound_ms(flops, nbytes, peak),
+               "bound_by": bound_by(flops, nbytes, peak),
+               "library_ms": time_ms(lib),
+               "cold_ms": time_ms_cold(run),
+               "library_cold_ms": time_ms_cold(lib)}
+        if name == "flash_decode_paged_mma":
+            require(torch.equal(got, run()), f"{name}: two calls differ")
+            row["kv_split"] = decode_kv_split(
+                b * hkv, table.shape[1],
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+            row["ms_by_split"] = {}
+            for s in (1, 2, 4, 8):
+                pinned = lambda: flash_decode_paged_kernel(  # noqa: E731
+                    q, kp, vp, table, lens_t, kv_split=s)
+                err = max(err, check(f"{name} main-path {label} kv_split="
+                                     f"{s}", pinned(), want, tol))
+                row["ms_by_split"][s] = time_ms(pinned)
+            row["max_abs_err"] = err
+        rows.append(row)
+        log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+            f"sdpa {row['library_ms']:.4f} ms; L2 cold {row['cold_ms']:.4f}"
+            f" ms, sdpa {row['library_cold_ms']:.4f} ms"
+            + (f"; by kv split {row['ms_by_split']} (planned "
+               f"{row['kv_split']})" if "ms_by_split" in row else ""))
 
     # The serving run's decode: 4 slots, 8 query heads on 1 kv head,
-    # D = 256, 16-token pages, ~1024-1048 cached tokens per slot.
-    b, h, hkv, d, page = 4, 8, 1, 256, 16
-    lens = [1030, 1041, 1024, 1047]
-    q, kp, vp, table, lens_t = paged_inputs(dev, b=b, h=h, hkv=hkv, d=d,
-                                            page=page, lens=lens,
-                                            dtype=torch.bfloat16, gen=gen)
-    run = lambda: flash_decode_paged_kernel(  # noqa: E731
-        q, kp, vp, table, lens_t)
-    plain = lambda: flash_decode_paged_torch(  # noqa: E731
-        q, kp, vp, table, lens_t)
-    err = check("flash_decode_paged main-path bf16 4x8x256 ~1035 tokens",
-                run(), plain(), 1e-2)
-    idx = table.clamp(min=0).long()
-    kg = kp[idx].reshape(b, -1, hkv, d).permute(0, 2, 1, 3)
-    vg = vp[idx].reshape(b, -1, hkv, d).permute(0, 2, 1, 3)
-    pos = torch.arange(kg.shape[2], device=dev)[None]
-    mask = ((pos < lens_t[:, None].long())
-            & (table >= 0).repeat_interleave(page, 1))[:, None, None, :]
-    qs = q[:, :, None, :]
-    kx, vx = kg.expand(b, h, -1, d), vg.expand(b, h, -1, d)
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qs, kx, vx, attn_mask=mask)
-    live = sum(lens)
-    flops = 4.0 * live * h * d
-    nbytes = 2.0 * (2 * live * hkv * d + 2 * b * h * d) + 4 * table.numel()
-    row = {"kernel": "flash_decode_paged", "shape": "4 slots x 8 heads x "
-           "256, ~1035 tokens", "max_abs_err": err, "tol": 1e-2,
-           "ms": time_ms(run), "plain_ms": time_ms(plain),
-           "bound_ms": bound_ms(flops, nbytes, PEAK["bf16"]),
-           "bound_by": bound_by(flops, nbytes, PEAK["bf16"]),
-           "library_ms": time_ms(lib)}
-    rows.append(row)
-    log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-        f"sdpa {row['library_ms']:.4f} ms")
+    # D = 256, 16-token pages, ~1024-1048 cached tokens per slot (the mma
+    # engine); the reduced fp32 engine's: 2 slots, 4 heads on 1 kv head,
+    # D = 32, 8-token pages (the SIMT kernel).
+    main_path("4 slots x 8 heads x 256, ~1035 tokens", 4, 8, 1, 256, 16,
+              [1030, 1041, 1024, 1047], torch.bfloat16, 1e-2)
+    main_path("fp32 2 slots x 4 heads x 32, 40 tokens", 2, 4, 1, 32, 8,
+              [37, 43], torch.float32, 1e-5)
 
 
 def attention_phase(dev, rows):
@@ -873,25 +1038,37 @@ CONFIGS = {
 }
 # Kernels each configuration's main path must launch.
 PATH_KERNELS = {
-    "default": ("mte_gemm_wgmma", "splitk_gemm", "grouped_gemm_splitk",
-                "flash_decode_paged", "flash_attention_wgmma"),
-    "amx": ("rigid_gemm_wgmma", "epilogue_pass", "flash_decode_paged",
+    "default": ("mte_gemm_wgmma", "splitk_gemm_cluster", "grouped_gemm_splitk",
+                "flash_decode_paged_mma", "flash_attention_wgmma"),
+    "amx": ("rigid_gemm_wgmma", "epilogue_pass", "flash_decode_paged_mma",
             "flash_attention_wgmma"),
-    "eager": ("mte_gemm_wgmma", "splitk_gemm", "flash_decode_paged",
-              "flash_attention_wgmma"),
-    "recurrentgemma": ("mte_gemm_wgmma", "splitk_gemm",
+    "eager": ("mte_gemm_wgmma", "splitk_gemm_cluster",
+              "flash_decode_paged_mma", "flash_attention_wgmma"),
+    "recurrentgemma": ("mte_gemm_wgmma", "splitk_gemm_cluster",
                        "grouped_gemm_splitk", "flash_decode", "rglru_scan"),
 }
 # Counters that must stay 0 at full width: every bf16 B1 launch (all of
 # them prefill projections) and every bf16 B8 stage-1 launch runs on the
-# wgmma engine, every decode q/k/v group on B3's split-K engine, every
-# prefill attention on B5's wgmma engine -- not on the tile loops or the
-# SIMT kernel.
+# wgmma engine, every decode GEMM on B2's cluster engine, every decode
+# q/k/v group on B3's split-K engine, every paged decode attention on B4's
+# mma engine, every prefill attention on B5's wgmma engine -- not on the
+# tile loops or the SIMT kernels.
 NOT_ON_PATH = {
-    "default": ("mte_gemm", "grouped_gemm", "flash_attention"),
-    "amx": ("rigid_gemm", "flash_attention"),
-    "eager": ("mte_gemm", "flash_attention"),
-    "recurrentgemma": ("mte_gemm", "grouped_gemm"),
+    "default": ("mte_gemm", "splitk_gemm", "grouped_gemm",
+                "flash_decode_paged", "flash_attention"),
+    "amx": ("rigid_gemm", "flash_decode_paged", "flash_attention"),
+    "eager": ("mte_gemm", "splitk_gemm", "flash_decode_paged",
+              "flash_attention"),
+    "recurrentgemma": ("mte_gemm", "splitk_gemm", "grouped_gemm"),
+}
+# Launches of the new engines per profiled decode step: gemma_2b's 18
+# layers run B2 on o, gate, up and down (and on q, k, v on the eager path)
+# and B4 once; recurrentgemma_9b's decode GEMMs make 256 B2 launches.
+DECODE_STEP_LAUNCHES = {
+    "default": {"splitk_gemm_cluster": 72, "flash_decode_paged_mma": 18},
+    "amx": {"flash_decode_paged_mma": 18},
+    "eager": {"splitk_gemm_cluster": 126, "flash_decode_paged_mma": 18},
+    "recurrentgemma": {"splitk_gemm_cluster": 256},
 }
 # Phase 4's workload per arch: 4 slots, 16-token pages, 512-token prefill
 # chunks, 6 requests x 24 greedy tokens.  gemma_2b: 1024-token prompts, two
@@ -984,7 +1161,8 @@ def reduced_phase(dev):
                 f"launches {counts}")
             if device == dev:
                 path_counts[f"reduced-{name}"] = counts
-                marks = (("grouped_gemm", "flash_attention")
+                marks = (("splitk_gemm", "grouped_gemm",
+                          "flash_decode_paged", "flash_attention")
                          if name == "default" else ("rigid_gemm",))
                 for mark in marks:
                     require(counts[mark] > 0,
@@ -1238,6 +1416,10 @@ def serving_phase(dev, name):
         require(per_step.get("grouped_gemm_splitk") == want,
                 f"[{name}] {per_step.get('grouped_gemm_splitk')} split-K "
                 f"B3 launches per decode step, want {want}")
+    for kernel, want in DECODE_STEP_LAUNCHES[name].items():
+        require(per_step.get(kernel) == want,
+                f"[{name}] {per_step.get(kernel)} launches of {kernel} per "
+                f"decode step, want {want}")
     if kinds.count("attn"):
         require(per_chunk.get("flash_attention_wgmma") == kinds.count("attn"),
                 f"[{name}] {per_chunk.get('flash_attention_wgmma')} wgmma "
@@ -1413,16 +1595,24 @@ KERNELS = [
     ("mte_gemm", "src/repro_torch/csrc/mte_gemm.cu",
      "src/repro/kernels/mte_gemm.py:114", "gate fp32 4096x256x128",
      "reduced-long-prefill"),
-    ("splitk_gemm", "src/repro_torch/csrc/splitk_gemm.cu",
+    ("splitk_gemm_cluster", "src/repro_torch/csrc/splitk_gemm_cluster.cu",
      "src/repro/kernels/splitk_gemm.py:60", "gate 4x16384x2048", "default"),
+    ("splitk_gemm", "src/repro_torch/csrc/splitk_gemm.cu",
+     "src/repro/kernels/splitk_gemm.py:60", "gate fp32 2x256x128",
+     "reduced-default"),
     ("grouped_gemm_splitk", "src/repro_torch/csrc/grouped_gemm_splitk.cu",
      "src/repro/kernels/grouped_gemm.py:60", "qkv decode 3x4x2048x2048",
      "default"),
     ("grouped_gemm", "src/repro_torch/csrc/grouped_gemm.cu",
      "src/repro/kernels/grouped_gemm.py:60",
      "gate+up prefill 2x512x2048x16384", "reduced-default"),
+    ("flash_decode_paged_mma",
+     "src/repro_torch/csrc/flash_decode_paged_mma.cu",
+     "src/repro/kernels/flash_decode.py:208",
+     "4 slots x 8 heads x 256, ~1035 tokens", "default"),
     ("flash_decode_paged", "src/repro_torch/csrc/flash_decode_paged.cu",
-     "src/repro/kernels/flash_decode.py:208", None, "default"),
+     "src/repro/kernels/flash_decode.py:208",
+     "fp32 2 slots x 4 heads x 32, 40 tokens", "reduced-default"),
     ("flash_attention_wgmma", "src/repro_torch/csrc/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention.py:108", "512x1024 H=8 D=256",
      "default"),
@@ -1501,8 +1691,7 @@ def main() -> int:
     kernels = []
     for name, source, replaces, shape, path in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
-        rep = next((r for r in mine if shape is None or shape == r["shape"]),
-                   mine[0])
+        rep = next(r for r in mine if r["shape"] == shape)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[path][name],

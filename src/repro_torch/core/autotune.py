@@ -10,8 +10,9 @@ the cache enumerates candidate geometries from the Hopper solver
 shapes the wgmma engine takes, its tiles; scores them with an analytic
 Hopper time (:func:`score_geometry`), and memoizes the winner in an LRU.
 Routes: ``"mte"`` (the B1 kernel, ``csrc/mte_gemm.cu``), ``"splitk"``
-(the B2 kernel, ``csrc/splitk_gemm.cu``), offered when the (M, N) tile
-grid leaves SMs idle, ``"grouped"`` (B3) and ``"rigid"`` (B8).
+(B2: ``csrc/splitk_gemm_cluster.cu`` or ``csrc/splitk_gemm.cu``), offered
+when the (M, N) tile grid leaves SMs idle, ``"grouped"`` (B3) and
+``"rigid"`` (B8).
 
 Queued (ROADMAP A4): the JSON warm start, measured refinement
 (``measure=True``), ``runner_up`` and ``recalibrate``.
@@ -26,7 +27,7 @@ from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.geometry import (
     INNER_BK, WGMMA_BK, WGMMA_TILES, BlockGeometry, H100_SPEC,
     HopperProfile, Policy, cdiv, gemm_engine, grouped_engine,
-    hopper_profile, round_up, solve_block_geometry,
+    hopper_profile, round_up, solve_block_geometry, splitk_engine,
 )
 from repro_torch.core.tile_state import SEW, dtype_name
 
@@ -120,22 +121,24 @@ def _route_for(sig: GemmSignature, geom: BlockGeometry) -> str:
 
 
 def plan_engine(sig: GemmSignature, geom: BlockGeometry) -> str:
-    """The mainloop a plan launches: ``"wgmma"``, ``"splitk"`` or
-    ``"tile"``.  B3 (grouped plans) follows
-    :func:`repro_torch.core.geometry.grouped_engine` (its cluster split-K
-    kernel for the bf16 decode group; the price stays the tile loop's, so
-    no grouping decision moves); B2 (split plans) runs the tile loop; B1
-    and B8 stage 1 follow :func:`repro_torch.core.geometry.gemm_engine`
+    """The mainloop a plan launches: ``"wgmma"``, ``"splitk"``,
+    ``"cluster"`` or ``"tile"``.  B3 (grouped plans) follows
+    :func:`repro_torch.core.geometry.grouped_engine` (``"splitk"``, its
+    cluster split-K kernel for the bf16 decode group) and B2 (split plans)
+    :func:`repro_torch.core.geometry.splitk_engine` (``"cluster"``, the
+    same mainloop at G = 1 for the bf16 decode GEMMs); both keep the tile
+    loop's price, so no route or grouping decision moves.  B1 and B8
+    stage 1 follow :func:`repro_torch.core.geometry.gemm_engine`
     (ValueError when no engine takes the geometry)."""
+    bf16acc = sig.format_policy.accum_dtype == "bfloat16"
     if sig.group > 1:
-        return grouped_engine(
-            sig.dtype_in, sig.m, sig.n, sig.k,
-            bf16acc=sig.format_policy.accum_dtype == "bfloat16")
+        return grouped_engine(sig.dtype_in, sig.m, sig.n, sig.k,
+                              bf16acc=bf16acc)
     if geom.split_k > 1:
-        return "tile"
+        return splitk_engine(sig.dtype_in, sig.m, sig.n, sig.k,
+                             bf16acc=bf16acc)
     return gemm_engine(sig.dtype_in, geom.bm, geom.bn, sig.n, sig.k,
-                       bf16acc=sig.format_policy.accum_dtype == "bfloat16",
-                       rigid=sig.policy == "amx")
+                       bf16acc=bf16acc, rigid=sig.policy == "amx")
 
 
 def _on_wgmma(sig: GemmSignature, geom: BlockGeometry) -> bool:

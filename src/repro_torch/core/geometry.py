@@ -7,11 +7,11 @@ JAX package) budgets VMEM and snaps to the (8·32/SEW, 128) native tile;
 this one budgets a block's shared memory and grants the tile shapes the
 hand-written kernels implement.  Two mainloops exist (``csrc/``):
 
-- the **tile loop** (``gemm_tile.cuh``; B1's fp32/int8 path, B2, B3 off
-  its split-K engine, and B8's fp32/int8 path): ``(bm, bn) = (16, 128)``
-  for skinny M ≤ 16 (decode GEMVs: one 16-row MMA fragment, wide in N),
-  ``(64, 64)`` otherwise (:data:`TILE_LOOP_TILES`), 32 deep in K, loads
-  not pipelined;
+- the **tile loop** (``gemm_tile.cuh``; B1's fp32/int8 path, B2 and B3
+  off their cluster engines, and B8's fp32/int8 path):
+  ``(bm, bn) = (16, 128)`` for skinny M ≤ 16 (decode GEMVs: one 16-row
+  MMA fragment, wide in N), ``(64, 64)`` otherwise
+  (:data:`TILE_LOOP_TILES`), 32 deep in K, loads not pipelined;
 - the **wgmma engine** (``wgmma_mainloop.cuh``; B1 and B8 stage 1 on bf16
   operands): TMA loads 64 deep in K into a ring of shared-memory stages,
   wgmma with the accumulator in registers, at ``bm`` ∈ {64, 128} × ``bn``
@@ -19,10 +19,12 @@ hand-written kernels implement.  Two mainloops exist (``csrc/``):
 
 :func:`gemm_engine` says which one runs a launch: a pure function of the
 operand type, the accumulator, the tile and the alignment of K and N.
-B3 and B5 have a second engine each, chosen the same way:
-:func:`grouped_engine` (the cluster split-K kernel for the bf16 decode
-group, else the tile loop) and :func:`attention_engine` (TMA + wgmma for
-bf16 at head dims 64/128/256, else the SIMT kernel).
+B2, B3, B4 and B5 have a second engine each, chosen the same way:
+:func:`splitk_engine` and :func:`grouped_engine` (the cluster split-K
+mainloop of ``splitk_cluster.cuh`` for bf16 GEMMs of at most 16 rows,
+else the tile loop), :func:`decode_engine` (mma.sync over whole pages for
+bf16 pages, else the SIMT kernel) and :func:`attention_engine` (TMA +
+wgmma for bf16 at head dims 64/128/256, else the SIMT kernel).
 The solver's base tile is the tile loop's tile for M; the plan cache
 (``core/autotune.py``) adds the wgmma tiles the shape and format allow and
 prices every candidate.
@@ -36,9 +38,8 @@ names.
 ``bk`` is the K slice a plan works in: the split-K slice granularity and,
 under ``bf16acc``, the block after which the running sum is rounded to
 bf16.  It is a multiple of the tile loop's 32-deep inner tile.  Split-K
-(tile loop only) is offered when the (M, N) tile grid,
-``cdiv(M,bm)·cdiv(N,bn)``, is below the card's SM count — the rule that
-replaces the TPU's 8-core horizon.
+is offered when the (M, N) tile grid, ``cdiv(M,bm)·cdiv(N,bn)``, is below
+the card's SM count — the rule that replaces the TPU's 8-core horizon.
 """
 from __future__ import annotations
 
@@ -54,7 +55,9 @@ __all__ = ["HopperProfile", "BlockGeometry", "H100_SPEC", "hopper_profile",
            "GROUPED_BN", "GROUPED_MAX_M", "GROUPED_BK", "MAX_CLUSTER",
            "GROUPED_X_BYTES", "GROUPED_FILL_SPLIT", "grouped_max_depth",
            "grouped_engine", "grouped_live_tiles", "grouped_split",
-           "attention_engine", "attention_kv_split"]
+           "SPLITK_DEEP_DEPTH", "splitk_engine", "splitk_cluster_split",
+           "DECODE_MMA_MAX_G", "DECODE_MMA_DIMS", "decode_engine",
+           "decode_kv_split", "attention_engine", "attention_kv_split"]
 
 Policy = Literal["mte", "amx", "sifive", "vector"]
 
@@ -173,6 +176,18 @@ def grouped_live_tiles(n: int, widths: Optional[Sequence[int]],
     return tuple(cdiv(min(int(w), n), GROUPED_BN) for w in ws)
 
 
+def _cluster_split(tiles: int, k: int, m: int, sm_count: int,
+                   fill: int) -> Tuple[int, int]:
+    stages = cdiv(max(k, 1), GROUPED_BK)
+    deepest = grouped_max_depth(m)
+    s = 1
+    while s * 2 <= MAX_CLUSTER and s * 2 <= stages and (
+            (tiles * s < sm_count and s < fill) or s * deepest < k):
+        s *= 2
+    depth = round_up(cdiv(max(k, 1), s), GROUPED_BK)
+    return cdiv(max(k, 1), depth), depth
+
+
 def grouped_split(live_tiles: int, k: int, m: int = 1,
                   sm_count: int = 132) -> Tuple[int, int]:
     """(slices, slice depth) of the split-K engine: the fewest slices,
@@ -181,15 +196,89 @@ def grouped_split(live_tiles: int, k: int, m: int = 1,
     :func:`grouped_max_depth` (up to MAX_CLUSTER), each at least one
     GROUPED_BK stage deep; the depth is a multiple of GROUPED_BK and
     every slice holds at least one K row."""
-    stages = cdiv(max(k, 1), GROUPED_BK)
-    deepest = grouped_max_depth(m)
-    s = 1
-    while s * 2 <= MAX_CLUSTER and s * 2 <= stages and (
-            (live_tiles * s < sm_count and s < GROUPED_FILL_SPLIT)
-            or s * deepest < k):
+    return _cluster_split(live_tiles, k, m, sm_count, GROUPED_FILL_SPLIT)
+
+
+# B2's cluster engine (splitk_gemm_cluster.cu) runs B3's mainloop at G = 1:
+# the same tile, stage, row and x budget, and the same split rule with the
+# same cap on the filling split, plus one step past it for deep K.  On an
+# H100 (chip_smoke.py's by-split timings at the decode GEMMs of gemma_2b and
+# recurrentgemma_9b) the cap of 4 was the fastest split, or within noise of
+# it, everywhere but at gemma_2b's down (16 tiles, K = 16384), where 8
+# slices of 2048 rows beat 4.
+SPLITK_DEEP_DEPTH = 2048
+
+
+def splitk_engine(dtype_in, m: int, n: int, k: int, *,
+                  bf16acc: bool = False) -> str:
+    """The engine that runs one B2 launch: ``"cluster"`` or ``"tile"``.
+
+    A pure function of the operand type, the accumulator and the shape;
+    the wrapper launches what it names and nothing else:
+
+    - ``"cluster"`` (B3's cluster split-K mainloop at G = 1, the reduction
+      and the whole epilogue in the launch) for bf16 operands with an f32
+      accumulator, at most 16 rows (decode, and the verify GEMMs of
+      speculation), N a multiple of 8 (TMA's 16-byte row alignment of the
+      weight) and a K that 8 slices of x cover in shared memory;
+    - ``"tile"`` (the tile loop, partials summed in PyTorch) otherwise:
+      fp32, int8, M > 16 and bf16acc, whose running sum is rounded once
+      per K block in K order."""
+    if (dtype_name(dtype_in) == "bfloat16" and not bf16acc
+            and m <= GROUPED_MAX_M and n % WGMMA_ALIGN == 0
+            and k <= MAX_CLUSTER * grouped_max_depth(m)):
+        return "cluster"
+    return "tile"
+
+
+def splitk_cluster_split(tiles: int, k: int, m: int = 1,
+                         sm_count: int = 132) -> Tuple[int, int]:
+    """(slices, slice depth) of B2's cluster engine for ``tiles``
+    128-column output tiles: :func:`grouped_split`'s rule -- the fewest
+    slices (up to GROUPED_FILL_SPLIT) that fill the SMs, each a
+    multiple of a 64-deep stage, none deeper than x's shared-memory budget
+    allows --, then doubling on, up to 8 (the portable cluster), while the
+    grid stays within one CTA per SM and every slice stays at least
+    SPLITK_DEEP_DEPTH rows deep.  The plan's ``split_k`` (the tile
+    loop's) plays no part."""
+    s, depth = _cluster_split(tiles, k, m, sm_count, GROUPED_FILL_SPLIT)
+    while (s * 2 <= MAX_CLUSTER and tiles * s * 2 <= sm_count
+           and round_up(cdiv(k, s * 2), GROUPED_BK) >= SPLITK_DEEP_DEPTH):
         s *= 2
-    depth = round_up(cdiv(max(k, 1), s), GROUPED_BK)
-    return cdiv(max(k, 1), depth), depth
+        depth = round_up(cdiv(k, s), GROUPED_BK)
+    return cdiv(k, depth), depth
+
+
+# B4's mma engine (flash_decode_paged_mma.cu): the G query heads of a kv
+# head are the rows of one m16n8k16 A fragment, the head dim a whole number
+# of k16 steps held in registers as the output accumulator.
+DECODE_MMA_MAX_G = 16
+DECODE_MMA_DIMS = (64, 128, 256)
+
+
+def decode_engine(kv_dtype, q_dtype, g: int, d: int) -> str:
+    """The engine that runs one B4 launch: ``"mma"`` (one launch: a
+    cluster per (sequence, kv head) walks whole pages by bulk copy and
+    runs QK^T and PV on mma.sync) for bf16 pages and a bf16 query with
+    G = H/Hkv <= 16 and D in {64, 128, 256}; ``"simt"``
+    (``flash_decode_paged.cu`` + its merge pass) otherwise: f32 and int8
+    pages, and other head counts and dims."""
+    if (dtype_name(kv_dtype) == "bfloat16"
+            and dtype_name(q_dtype) == "bfloat16"
+            and 1 <= g <= DECODE_MMA_MAX_G and d in DECODE_MMA_DIMS):
+        return "mma"
+    return "simt"
+
+
+def decode_kv_split(rows: int, pages: int, sm_count: int = 132) -> int:
+    """KV slices (one cluster) per (sequence, kv head) row of B4's mma
+    engine: the fewest, doubling up to MAX_CLUSTER, that give rows x
+    slices >= the SM count, with at least one page of the table's width
+    per slice (gemma_2b's decode, 4 rows of 68 pages: 8)."""
+    s = 1
+    while s * 2 <= MAX_CLUSTER and s * 2 <= pages and rows * s < sm_count:
+        s *= 2
+    return s
 
 
 def attention_engine(dtype, d: int) -> str:

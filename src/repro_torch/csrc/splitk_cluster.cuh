@@ -1,0 +1,280 @@
+// The cluster split-K mainloop for GEMMs of at most 16 rows (sm_90a), shared
+// by grouped_gemm_splitk.cu (B3's decode group) and splitk_gemm_cluster.cu
+// (B2's decode GEMMs).  Each kernel keeps its own grid mapping, weight map
+// and epilogue; this header holds what they have in common.
+//
+// What bounds these GEMMs on the H100: bytes.  At M <= 16 rows a weight
+// byte feeds 2M FLOP, so the kernel is a stream of the weight through the
+// SMs, and what matters is keeping every SM's loads in flight:
+//
+// - One CTA per (128-column output tile, K slice); the slices of a tile are
+//   one thread-block cluster (cluster dimension = slices along grid x, so
+//   the cluster rank is the slice), at most 8 CTAs (the portable cluster).
+// - Weights: one producer warp streams the slice through a ring of STAGES
+//   stages by TMA; one stage is a 64 x 128 tile as two 64 x 64 panels in
+//   the 128-byte swizzle, 16 KB, so 64 KB of weight loads stay in flight
+//   per CTA.  The kernel's Load functor issues one panel's TMA load (a 2-D
+//   or 3-D map: rows past K come back as zeros); a panel wholly past the
+//   tile's live columns is not loaded.
+// - x: the M <= 16 rows are the A operand of mma.sync.m16n8k16 (bf16 ->
+//   f32).  The consumers copy the CTA's slice of them (M x depth) into
+//   shared memory once, with independent 16-byte loads, while the first
+//   stages land: read per stage from global memory instead, each stage
+//   waited one L2 round trip.  Rows >= M are zeros in registers, never
+//   stored or read.  The slice is at most GROUPED_X_BYTES
+//   (core/geometry.py), 128 KB.
+//   mma.sync and not wgmma: wgmma needs 64 rows, 16x the work at M = 4,
+//   and the tensor cores are idle here either way.
+// - W: four consumer warps, 32 columns each, read their B fragments with
+//   ldmatrix.trans from the swizzled (K, N) row-major panels: the swizzle
+//   makes the 8 rows of each 8 x 8 matrix hit 8 different bank groups.
+// - Reduction (reduce()): each CTA leaves its f32 partial (16 x 128) in its
+//   idle ring; after a cluster barrier, rank r takes every S-th run of
+//   THREADS elements from the r-th on, sums each over the ranks in rank
+//   order 0..S-1 through distributed shared memory and hands the sum to the
+//   kernel's Store functor, which applies its epilogue and writes.  One
+//   launch, no atomics, the same sum order on every call: the output is
+//   bit-equal from call to call.  A second cluster barrier keeps every
+//   CTA's shared memory alive until the last read.
+#pragma once
+
+#include "wgmma_mainloop.cuh"
+
+namespace skc {
+
+constexpr int BN = 128;                  // output columns of one tile
+constexpr int BK = 64;                   // K rows of one stage
+constexpr int STAGES = 4;
+constexpr int CONSUMERS = 128;           // 4 warps x 32 columns
+constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
+constexpr int PANEL = BK * 64 * 2;       // 64 x 64 bf16
+constexpr int STAGE_BYTES = 2 * PANEL;
+constexpr int MAX_M = 16;
+constexpr int MAX_SPLIT = 8;
+// The ring (which holds the f32 partial once the loop is done), the
+// barriers; then the x slice, M rows of depth + 8 bf16 (the pad puts the 8
+// rows a fragment load reads in 8 different bank groups).
+constexpr int SMEM_FIXED = 1024 + STAGES * STAGE_BYTES + 16 * STAGES;
+static_assert(MAX_M * BN * 4 <= STAGES * STAGE_BYTES, "no room for the sum");
+constexpr int X_PAD = 8;
+
+// Dynamic shared memory for m rows of a depth-deep slice of x.
+inline int smem_bytes(int m, int depth) {
+  return SMEM_FIXED + m * (depth + X_PAD) * 2;
+}
+
+// The carve of the dynamic shared memory: the 1024-aligned ring, the f32
+// partial over it, the barriers, the x slice.
+struct Smem {
+  unsigned char* ring;
+  float* part;
+  uint64_t* full;
+  uint64_t* empty;
+  unsigned short* xs;
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* smem) {
+  Smem s;
+  s.ring = smem + ((1024 - (wg::smem_u32(smem) & 1023)) & 1023);
+  s.part = reinterpret_cast<float*>(s.ring);
+  s.full = reinterpret_cast<uint64_t*>(s.ring + STAGES * STAGE_BYTES);
+  s.empty = s.full + STAGES;
+  s.xs = reinterpret_cast<unsigned short*>(s.empty + STAGES);
+  return s;
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One CTA's slice: x rows [0, M) (row stride ldx) times the weight rows
+// [k0, k0 + nst * BK) of the tile's columns [n0, n0 + BN), of which those
+// below n_live are live.  Every thread of the CTA calls it.
+// load(dst, bar, column, k row) issues one 64 x 64 panel's TMA load
+// through `map` (prefetched once by the producer); the consumers call
+// side() (work that overlaps the first stages' loads) before they copy x.
+// On return the CTA's f32 partial is in sm.part.
+template <class Load, class Side>
+__device__ __forceinline__ void mainloop(
+    const Smem& sm, const CUtensorMap* map, const unsigned short* xg,
+    long ldx, int M, int K, int k0, int depth, int nst, int n0, int n_live,
+    const Load& load, const Side& side) {
+  const int ldxs = depth + X_PAD;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const bool two_panels = n0 + 64 < n_live;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(&sm.full[s], 1);
+      wg::mbar_init(&sm.empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    // The producer: one thread keeps up to STAGES stages in flight.
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(map))
+                   : "memory");
+      for (int kb = 0; kb < nst; ++kb) {
+        const int s = kb % STAGES;
+        wg::mbar_wait(&sm.empty[s], ((kb / STAGES) & 1) ^ 1);
+        unsigned char* st = sm.ring + s * STAGE_BYTES;
+        wg::mbar_expect_tx(&sm.full[s], two_panels ? STAGE_BYTES : PANEL);
+        load(st, &sm.full[s], n0, k0 + kb * BK);
+        if (two_panels)
+          load(st + PANEL, &sm.full[s], n0 + 64, k0 + kb * BK);
+      }
+    }
+    return;
+  }
+  // A consumer warp: columns [32 warp, 32 warp + 32) of the tile, as four
+  // m16n8 accumulators (c0, c1: row gid; c2, c3: row gid + 8).
+  const int gid = lane >> 2, tq = lane & 3;
+  side();
+  // This slice of x's M rows into shared memory once, zeros past K,
+  // overlapped with the first stages' TMA loads: 16 bytes a load where the
+  // rows are 16-byte aligned, four loads in flight a thread.
+  unsigned short* xs = sm.xs;
+  if (nst > 0) {
+    const bool vec =
+        ((reinterpret_cast<uintptr_t>(xg) | (ldx * 2)) & 15) == 0;
+    if (vec) {
+      const int chunks = depth / 8;
+#pragma unroll 4
+      for (int e = tid; e < M * chunks; e += CONSUMERS) {
+        const int r = e / chunks, c = 8 * (e % chunks);
+        const unsigned short* src = xg + static_cast<long>(r) * ldx + k0 + c;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (k0 + c + 8 <= K) {
+          v = __ldg(reinterpret_cast<const uint4*>(src));
+        } else {
+          __align__(16) unsigned short t[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            t[i] = k0 + c + i < K ? __ldg(src + i)
+                                  : static_cast<unsigned short>(0);
+          v = *reinterpret_cast<const uint4*>(t);
+        }
+        *reinterpret_cast<uint4*>(xs + r * ldxs + c) = v;
+      }
+    } else {
+      for (int r = 0; r < M; ++r)
+        for (int c = tid; c < depth; c += CONSUMERS)
+          xs[r * ldxs + c] =
+              k0 + c < K ? __ldg(xg + static_cast<long>(r) * ldx + k0 + c)
+                         : static_cast<unsigned short>(0);
+    }
+  }
+  wg::consumer_sync<CONSUMERS>();
+  const unsigned short* x0 = xs + gid * ldxs;
+  const unsigned short* x1 = xs + (gid + 8) * ldxs;
+  const bool v0 = gid < M, v1 = gid + 8 < M;
+  const bool live = n0 + 32 * warp < n_live;
+  // ldmatrix row addresses: lanes 0-7 / 8-15 / 16-23 / 24-31 give the
+  // rows of the four 8 x 8 matrices (k 0-7 | 8-15) x (n 0-7 | 8-15) of a
+  // k16 x n16 block; the 128-byte swizzle XORs the 16-byte chunk with the
+  // row's index in its 8-row atom, which is lane & 7 at every k16.
+  uint32_t off[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int n = 32 * warp + 16 * p + 8 * (lane >> 4);
+    const int krow = (lane & 7) + 8 * ((lane >> 3) & 1);
+    off[p] = (n >> 6) * PANEL + krow * 128 +
+             ((((n & 63) >> 3) ^ (lane & 7)) << 4);
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+  for (int kb = 0; kb < nst; ++kb) {
+    const int s = kb % STAGES;
+    wg::mbar_wait(&sm.full[s], (kb / STAGES) & 1);
+    if (live) {
+      const uint32_t base = wg::smem_u32(sm.ring + s * STAGE_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // A: rows gid and gid + 8, K pairs 2tq and 2tq + 8.
+        const int kx = kb * BK + kk * 16 + 2 * tq;
+        uint32_t a[4];
+        a[0] = v0 ? *reinterpret_cast<const uint32_t*>(x0 + kx) : 0u;
+        a[1] = v1 ? *reinterpret_cast<const uint32_t*>(x1 + kx) : 0u;
+        a[2] = v0 ? *reinterpret_cast<const uint32_t*>(x0 + kx + 8) : 0u;
+        a[3] = v1 ? *reinterpret_cast<const uint32_t*>(x1 + kx + 8) : 0u;
+        uint32_t b0[4], b1[4];
+        ldsm_x4_trans(b0, base + off[0] + kk * 16 * 128);
+        ldsm_x4_trans(b1, base + off[1] + kk * 16 * 128);
+        mma_16816(acc[0], a, b0[0], b0[1]);
+        mma_16816(acc[1], a, b0[2], b0[3]);
+        mma_16816(acc[2], a, b1[0], b1[1]);
+        mma_16816(acc[3], a, b1[2], b1[3]);
+      }
+    }
+    wg::mbar_arrive(&sm.empty[s]);
+  }
+  // Every warp is done with the ring (and every load into it has landed):
+  // the partial goes where the stages were.
+  wg::consumer_sync<CONSUMERS>();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = 32 * warp + 8 * j + 2 * tq;
+    sm.part[gid * BN + c] = acc[j][0];
+    sm.part[gid * BN + c + 1] = acc[j][1];
+    sm.part[(gid + 8) * BN + c] = acc[j][2];
+    sm.part[(gid + 8) * BN + c + 1] = acc[j][3];
+  }
+}
+
+// The cluster's reduction: after every CTA's partial is in place, rank r
+// sums its share of the tile's M x BN elements (columns below n_cols only)
+// over the ranks in rank order and calls store(row, column in the tile,
+// sum).  Every thread of every CTA of the cluster calls it; `active` false
+// takes part in the barriers only.
+template <class Store>
+__device__ __forceinline__ void reduce(const Smem& sm, int M, int n_cols,
+                                       bool active, const Store& store) {
+  const int S = gridDim.x, rank = blockIdx.x, tid = threadIdx.x;
+  // Every partial of the cluster is in place.
+  wg::cluster_arrive();
+  wg::cluster_wait();
+  if (active) {
+    for (int e = rank * THREADS + tid; e < M * BN; e += S * THREADS) {
+      const int r = e / BN, c = e % BN;
+      if (c >= n_cols) continue;
+      float p[MAX_SPLIT];
+#pragma unroll
+      for (int q = 0; q < MAX_SPLIT; ++q)
+        p[q] = q < S ? wg::ld_cluster(sm.part + e, q) : 0.0f;
+      float v = 0.0f;
+#pragma unroll
+      for (int q = 0; q < MAX_SPLIT; ++q) v += p[q];
+      store(r, c, v);
+    }
+  }
+  // This CTA has read the others' partials; no CTA leaves while another
+  // may still read its partial.
+  wg::cluster_arrive();
+  wg::cluster_wait();
+}
+
+}  // namespace skc

@@ -1,0 +1,119 @@
+// B2's cluster engine: the split-K decode GEMM for Hopper (sm_90a), in one
+// launch.
+//
+// Replaces, for bf16 operands with an f32 accumulator and at most 16 rows:
+// src/repro/kernels/splitk_gemm.py, mte_gemm_splitk_pallas / _kernel (K cut
+// into n_split slices on the TPU grid, each slice's partial written to an
+// (n_split, M, N) buffer, then the sum over slices and the epilogue
+// outside the kernel, so beta * C and the bias join once).  fp32, int8,
+// bf16acc and M > 16 stay on the tile loop (splitk_gemm.cu);
+// core/geometry.py:splitk_engine chooses.
+//
+// What bounds it on the H100: bytes.  The decode projections (M = the 4
+// serving slots; gemma_2b's o 2048 x 2048, gate and up 2048 x 16384, down
+// 16384 x 2048) read every weight byte once for 2M FLOP per byte.  The tile
+// loop ran 16 x 128 tiles with no load in flight across its K steps, made
+// a round trip through device memory with n_split x M x N f32 partials,
+// and left the sum, the epilogue and the cast to 2-3 more PyTorch launches.
+// This kernel runs B3's cluster split-K mainloop (splitk_cluster.cuh: a
+// 4-stage TMA ring per CTA, x's slice in shared memory, mma.sync, the
+// partials summed in rank order through distributed shared memory) at
+// G = 1, and puts the rest in the same launch:
+//
+// - Grid (slices, N / 128 tiles); core/geometry.py:splitk_cluster_split
+//   picks the slices (the plan's split_k is the tile loop's, not this).
+// - The weight (K, N) row-major through a 2-D TMA map; rows past K and
+//   columns past N come back as zeros, so a ragged K needs no mask.
+// - The reduction rank applies the whole epilogue in f32, in the order of
+//   Epilogue.apply (core/epilogue.py): alpha, then beta * C (C read in its
+//   own dtype, f32 or bf16), then the bias (row or column; f32 or bf16),
+//   softcap and activation, and writes out_dtype once.  No partials in
+//   device memory, no atomics; the same sum order on every call, so the
+//   output is bit-equal from call to call.
+#include "epilogue.cuh"
+#include "splitk_cluster.cuh"
+
+namespace {
+
+struct SplitkEpi {
+  float alpha, beta;
+  const void* c;      // (M, ldc) in c_type, or nullptr when beta == 0
+  long ldc;
+  int c_type;
+  const void* bias;   // (N,) or (M,) in bias_type, or nullptr
+  int bias_type;
+  int bias_col;       // 1: one bias per row of the output (bias_axis "col")
+  float softcap;
+  int has_softcap;
+  int act;
+  void* out;
+  long ldo;
+  int out_type;
+};
+
+__device__ __forceinline__ float splitk_epi(float v, long r, long c,
+                                            const SplitkEpi& e) {
+  float x = e.alpha * v;
+  if (e.beta != 0.0f)
+    x = x + e.beta * load_as_f32(e.c, r * e.ldc + c, e.c_type);
+  if (e.bias != nullptr)
+    x = x + load_as_f32(e.bias, e.bias_col ? r : c, e.bias_type);
+  if (e.has_softcap) x = e.softcap * tanhf(x / e.softcap);
+  if (e.act) x = act_fn(x, e.act);
+  return x;
+}
+
+__global__ void __launch_bounds__(skc::THREADS, 1)
+    splitk_cluster_kernel(const __grid_constant__ CUtensorMap tmw,
+                          const unsigned short* A, long lda, int M, int N,
+                          int K, int depth, SplitkEpi epi) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const skc::Smem sm = skc::carve(smem);
+  const int n0 = blockIdx.y * skc::BN;
+  const int k0 = blockIdx.x * depth;
+  const int nst = (min(depth, K - k0) + skc::BK - 1) / skc::BK;
+  const auto load = [&](void* dst, uint64_t* bar, int col, int krow) {
+    wg::tma_load(dst, &tmw, bar, col, krow);
+  };
+  skc::mainloop(sm, &tmw, A, lda, M, K, k0, depth, nst, n0, N, load,
+                [] {});
+  skc::reduce(sm, M, N - n0, true, [&](int r, int c, float v) {
+    const long gc = n0 + c;
+    store_from_f32(epi.out, r * epi.ldo + gc, epi.out_type,
+                   splitk_epi(v, r, gc, epi));
+  });
+}
+
+}  // namespace
+
+// a (M, K) bf16, row stride lda; w (K, N) bf16 row-major, N % 8 == 0 and a
+// 16-byte aligned base (TMA); c (M, ldc) and bias in their type codes (or
+// null); out (M, N) f32 or bf16.  K is cut into n_split slices of `depth`
+// rows (a multiple of 64; the last may be short).
+extern "C" int splitk_gemm_cluster_launch(
+    const void* a, const void* w, const void* c, const void* bias, void* out,
+    int M, int N, int K, long lda, long ldc, int c_type, int bias_type,
+    int bias_col, int out_type, int n_split, int depth, float alpha,
+    float beta, int has_softcap, float softcap, int act, void* stream) {
+  if (M <= 0 || M > skc::MAX_M || N <= 0 || N % 8 != 0 || K <= 0 ||
+      n_split < 1 || n_split > skc::MAX_SPLIT || depth <= 0 ||
+      depth % skc::BK != 0 || static_cast<long>(n_split - 1) * depth >= K ||
+      static_cast<long>(n_split) * depth < K ||
+      (beta != 0.0f && c == nullptr) ||
+      (c_type != DT_F32 && c_type != DT_BF16) ||
+      (bias_type != DT_F32 && bias_type != DT_BF16) ||
+      (out_type != DT_F32 && out_type != DT_BF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tmw;
+  const int e = wg::make_map(&tmw, w, N, K, N, 64, skc::BK);
+  if (e != 0) return e;
+  const SplitkEpi epi{alpha,   beta,        c,   ldc, c_type,
+                      bias,    bias_type,   bias_col, softcap,
+                      has_softcap, act, out, N,   out_type};
+  const int smem = skc::smem_bytes(M, depth);
+  if (smem > wg::SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  return wg::launch_cluster<splitk_cluster_kernel>(
+      dim3(n_split, (N + skc::BN - 1) / skc::BN), skc::THREADS, n_split,
+      smem, static_cast<cudaStream_t>(stream), tmw,
+      static_cast<const unsigned short*>(a), lda, M, N, K, depth, epi);
+}

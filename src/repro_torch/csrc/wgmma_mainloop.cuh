@@ -3,8 +3,8 @@
 // hand-off between one producer warp and the consumer warpgroups, and
 // wgmma with the f32 accumulator in registers.  sm_90a only.  Its PTX
 // wrappers (TMA, mbarriers, wgmma, cluster barriers and distributed
-// shared memory) also serve grouped_gemm_splitk.cu (B3) and
-// flash_attention_wgmma.cu (B5).
+// shared memory) and its cluster launch also serve the cluster kernels
+// of B2, B3 and B4 and flash_attention_wgmma.cu (B5).
 //
 // - Block: BM/64 consumer warpgroups (each owns 64 rows of the BM x BN
 //   output tile) and one producer warp, BM/64 * 128 + 32 threads, one
@@ -566,6 +566,38 @@ int launch(const void* a, const void* b, int M, int N, int K, long lda,
   }
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
   kernel<<<grid, C::THREADS, C::SMEM, st>>>(ta, tb, K, rbk, store);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch KERNEL on `grid` blocks of `threads` in thread-block clusters of
+// `cluster` blocks along x, with `smem` bytes of dynamic shared memory
+// (the kernel's limit is raised to SMEM_LIMIT at its first launch);
+// returns the launch's cudaError_t.  Serves the cluster kernels of B2, B3
+// (splitk_cluster.cuh) and B4 (flash_decode_paged_mma.cu).
+template <auto KERNEL, class... Args>
+int launch_cluster(dim3 grid, int threads, int cluster, int smem,
+                   cudaStream_t stream, Args... args) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t ce = cudaFuncSetAttribute(
+        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (ce != cudaSuccess) return static_cast<int>(ce);
+    sized = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t le = cudaLaunchKernelEx(&cfg, KERNEL, args...);
+  if (le != cudaSuccess) return static_cast<int>(le);
   return static_cast<int>(cudaGetLastError());
 }
 

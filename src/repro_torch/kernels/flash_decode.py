@@ -1,12 +1,23 @@
 """B4 and B6: one-token attention over the paged KV pool and over a flat
 or ring cache — CUDA kernels and plain versions.
 
-Each kernel splits each sequence's KV axis over blocks (about two blocks
-per SM in all) and merges the slices' partial softmax states in a second
-small kernel of the same launch; the wrapper allocates the partials.
+The SIMT kernels (``csrc/flash_decode_paged.cu``, ``csrc/flash_decode.cu``)
+split each sequence's KV axis over blocks (about two blocks per SM in all)
+and merge the slices' partial softmax states in a second small kernel of
+the same entry (``decode_combine.cuh``); the wrapper allocates the
+partials.
 
 :func:`flash_decode_paged_kernel` is the counterpart of
-``flash_decode_paged_pallas`` (``repro/kernels/flash_decode.py``).
+``flash_decode_paged_pallas`` (``repro/kernels/flash_decode.py``).  Two
+engines, chosen by :func:`repro_torch.core.geometry.decode_engine` (never
+a fallback): for bf16 pages and a bf16 query with G = H/Hkv ≤ 16 and D in
+{64, 128, 256}, the mma engine (``csrc/flash_decode_paged_mma.cu``,
+counter ``flash_decode_paged_mma``): one launch, a cluster of up to 8
+CTAs per (sequence, kv head) over whole pages (split by
+:func:`repro_torch.core.geometry.decode_kv_split`, pinned with
+``kv_split``), QKᵀ and PV on the tensor cores with P rounded to bf16, the
+slices merged through distributed shared memory; for everything else the
+SIMT kernel (counter ``flash_decode_paged``).
 q (B, H, D); k_pages/v_pages (P, page, Hkv, D) in f32, bf16 or int8;
 page_table (B, maxp) int32 (−1 ⇒ unmapped: clamps to page 0 and is
 masked); seq_lens (B,) int32 counts the written tokens including the
@@ -33,8 +44,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.geometry import (MAX_CLUSTER, decode_engine,
+                                       decode_kv_split)
 from repro_torch.kernels import build
-from repro_torch.kernels.mte_gemm import DTYPE_CODES
+from repro_torch.kernels.mte_gemm import DTYPE_CODES, tma_ready
 
 __all__ = ["flash_decode_paged_kernel", "flash_decode_paged_torch",
            "flash_decode_kernel", "flash_decode_torch"]
@@ -49,6 +62,10 @@ _FLAT_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                   + [ctypes.c_void_p])
+_MMA_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p])
 _CHUNK = 16   # logical positions a block processes at a time (csrc)
 
 
@@ -112,9 +129,12 @@ def flash_decode_paged_kernel(q, k_pages, v_pages, page_table, seq_lens,
                               k_scale=None, v_scale=None, *,
                               window: Optional[int] = None,
                               softcap: Optional[float] = None,
-                              scale: Optional[float] = None) -> torch.Tensor:
-    """Paged one-token attention: the B4 CUDA kernel on CUDA tensors,
-    :func:`flash_decode_paged_torch` on CPU tensors."""
+                              scale: Optional[float] = None,
+                              kv_split: Optional[int] = None) -> torch.Tensor:
+    """Paged one-token attention: on CUDA tensors the B4 engine
+    :func:`repro_torch.core.geometry.decode_engine` names (``kv_split``
+    pins the mma engine's slices per row, 1–8), on CPU tensors
+    :func:`flash_decode_paged_torch`."""
     dev = build.require_cuda(q, k_pages, v_pages, page_table, seq_lens,
                              k_scale, v_scale, what="flash_decode_paged")
     if dev is None:
@@ -123,7 +143,39 @@ def flash_decode_paged_kernel(q, k_pages, v_pages, page_table, seq_lens,
             window=window, softcap=softcap, scale=scale)
     b, h, d = q.shape
     _, page, hkv, _ = k_pages.shape
-    if h % hkv or (h // hkv) * d > 4096:
+    if h % hkv:
+        raise ValueError(f"flash_decode_paged: H={h} is not a multiple of "
+                         f"Hkv={hkv}")
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    table = page_table.to(torch.int32).contiguous()
+    lens = seq_lens.to(torch.int32).contiguous()
+    maxp = table.shape[1]
+    if decode_engine(k_pages.dtype, q.dtype, h // hkv, d) == "mma":
+        if v_pages.dtype != k_pages.dtype or k_scale is not None:
+            raise TypeError("flash_decode_paged: the mma engine takes bf16 "
+                            "K and V pages without scales")
+        if kv_split is None:
+            kv_split = decode_kv_split(b * hkv, maxp, _sm_count(dev))
+        elif not 1 <= kv_split <= MAX_CLUSTER:
+            raise ValueError(f"flash_decode_paged: kv_split={kv_split} "
+                             f"(1..{MAX_CLUSTER})")
+        per_split = -(-maxp // kv_split)
+        q_, kp, vp = (tma_ready(x) for x in (q, k_pages, v_pages))
+        out = torch.empty_like(q_)
+        lib, fn = build.entry("flash_decode_paged_mma",
+                              "flash_decode_paged_mma_launch", _MMA_ARGTYPES)
+        build.count_launch("flash_decode_paged_mma")
+        err = fn(q_.data_ptr(), kp.data_ptr(), vp.data_ptr(), kp.shape[0],
+                 table.data_ptr(), lens.data_ptr(), out.data_ptr(), b, h,
+                 hkv, d, page, maxp, -1 if window is None else int(window),
+                 int(softcap is not None), float(softcap or 0.0),
+                 float(scale), kv_split, per_split, build.stream_ptr(dev))
+        build.check(lib, err, "flash_decode_paged_mma")
+        return out
+    if kv_split is not None:
+        raise ValueError("flash_decode_paged: kv_split pins the mma "
+                         "engine's slices; the SIMT kernel sizes its own")
+    if (h // hkv) * d > 4096:
         raise ValueError(f"flash_decode_paged: H={h}, Hkv={hkv}, D={d} "
                          f"unsupported (G*D <= 4096)")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -132,15 +184,11 @@ def flash_decode_paged_kernel(q, k_pages, v_pages, page_table, seq_lens,
         raise TypeError(f"flash_decode_paged: page dtype {k_pages.dtype}")
     if (k_pages.dtype == torch.int8) != (k_scale is not None):
         raise ValueError("flash_decode_paged: int8 pages need scales")
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
     q = q.contiguous()
     kp, vp = k_pages.contiguous(), v_pages.contiguous()
     ks = k_scale.float().contiguous() if k_scale is not None else None
     vs = v_scale.float().contiguous() if v_scale is not None else None
-    table = page_table.to(torch.int32).contiguous()
-    lens = seq_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    maxp = table.shape[1]
     n_split, per_split = _kv_split(b * hkv, maxp * page, dev)
     g = h // hkv
     part_m = torch.empty(b * hkv, n_split, g, device=dev)

@@ -1,31 +1,54 @@
-"""B2: split-K GEMM — CUDA kernel and plain version.
+"""B2: split-K GEMM — CUDA kernels and plain version.
 
 :func:`mte_gemm_splitk_kernel` is the counterpart of
 ``mte_gemm_splitk_pallas`` (``repro/kernels/splitk_gemm.py``): K is cut
-into ``n_split`` slices of ``k_per_split`` (a multiple of the plan's
-``bk``); each slice's partial accumulator, in the accumulator dtype, goes
-into an (n_split, M, N) buffer; the sum over slices and the epilogue run
-outside the kernel, in plain PyTorch (as in JAX), so β·C and the bias join
-once.  The reduction is a plain ``sum`` — no atomics, the same bits every
-run.  B is row-major (K, N) only.
+into slices, each slice's partial accumulator is summed over the slices,
+and the epilogue joins once, after the sum, so β·C and the bias are added
+once.  B is row-major (K, N) only.  Two engines, chosen by
+:func:`repro_torch.core.geometry.splitk_engine` (never a fallback):
+
+- the cluster engine (``csrc/splitk_gemm_cluster.cu``, counter
+  ``splitk_gemm_cluster``) for bf16 operands with an f32 accumulator,
+  M ≤ 16, N a multiple of 8 and K within 8 slices of x in shared memory —
+  the decode GEMMs.  One launch: the slices of a 128-column tile are one
+  thread-block cluster, their partials are summed in rank order through
+  distributed shared memory, and the reduction applies the whole epilogue
+  in f32 and writes ``out_dtype``.  Its slices come from
+  :func:`repro_torch.core.geometry.splitk_cluster_split` (``cluster_split``
+  pins them), not from the plan's ``n_split``;
+- the tile loop (``csrc/splitk_gemm.cu``, counter ``splitk_gemm``) for
+  fp32, int8, bf16acc and M > 16: ``n_split`` slices of ``k_per_split``
+  (a multiple of the plan's ``bk``), each slice's partial in the
+  accumulator dtype into an (n_split, M, N) buffer; the sum over slices
+  and the epilogue run in plain PyTorch, as in JAX.
+
+Neither uses atomics: every call gives the same bits.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from repro_torch.core.epilogue import Epilogue
-from repro_torch.core.geometry import BlockGeometry, cdiv
+from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
+from repro_torch.core.geometry import (GROUPED_BK, GROUPED_BN, MAX_CLUSTER,
+                                       BlockGeometry, cdiv,
+                                       grouped_max_depth, round_up,
+                                       splitk_cluster_split, splitk_engine)
 from repro_torch.kernels import build
 from repro_torch.kernels.mte_gemm import (DTYPE_CODES, _acc_dtype,
-                                          raw_accumulate)
+                                          raw_accumulate, tma_ready)
 
 __all__ = ["mte_gemm_splitk_kernel", "mte_gemm_splitk_torch",
-           "splitk_partials_torch", "splitk_layout"]
+           "splitk_partials_torch", "splitk_layout", "cluster_layout"]
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
              + [ctypes.c_long] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                     + [ctypes.c_long] * 2 + [ctypes.c_int] * 6
+                     + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_float,
+                                               ctypes.c_int, ctypes.c_void_p])
 
 
 def splitk_layout(k: int, geom: BlockGeometry, n_split: int):
@@ -113,14 +136,74 @@ def launch_partials(a, b, *, geom: BlockGeometry, n_split: int,
     return partials
 
 
+def cluster_layout(m: int, n: int, k: int, dev,
+                   cluster_split: Optional[int] = None):
+    """(slices, slice depth) of the cluster engine: the planner's
+    :func:`splitk_cluster_split` for the card's SM count, or the pinned
+    ``cluster_split`` (ValueError when the engine cannot take it)."""
+    if cluster_split is None:
+        return splitk_cluster_split(
+            cdiv(n, GROUPED_BN), k, m,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+    depth = round_up(cdiv(k, cluster_split), GROUPED_BK)
+    if not 1 <= cluster_split <= MAX_CLUSTER \
+            or cdiv(k, depth) != cluster_split \
+            or depth > grouped_max_depth(m):
+        raise ValueError(f"splitk_gemm: {cluster_split} slices of K={k} for "
+                         f"{m} rows is not a split the cluster engine takes")
+    return cluster_split, depth
+
+
+def _launch_cluster(a, b, c, bias, epilogue, out_dtype, n_split, depth):
+    dev = a.device
+    m, k = a.shape
+    n = b.shape[1]
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"splitk_gemm: the cluster engine writes f32 or "
+                        f"bf16, not {out_dtype}")
+    if a.stride(1) != 1 or (m > 1 and a.stride(0) < k):
+        a = a.contiguous()
+    b = tma_ready(b)
+
+    def operand(x):
+        if x is None:
+            return None, DTYPE_CODES[torch.float32]
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            x = x.float()
+        return x.contiguous(), DTYPE_CODES[x.dtype]
+
+    c_, c_type = operand(c if epilogue.needs_c_input else None)
+    bias_, bias_type = operand(bias if epilogue.has_bias else None)
+    out = torch.empty(m, n, dtype=out_dtype, device=dev)
+    lib, fn = build.entry("splitk_gemm_cluster", "splitk_gemm_cluster_launch",
+                          _CLUSTER_ARGTYPES)
+    build.count_launch("splitk_gemm_cluster")
+    err = fn(a.data_ptr(), b.data_ptr(),
+             c_.data_ptr() if c_ is not None else None,
+             bias_.data_ptr() if bias_ is not None else None,
+             out.data_ptr(), m, n, k, a.stride(0),
+             c_.stride(0) if c_ is not None else n, c_type, bias_type,
+             int(epilogue.bias_axis == "col"), DTYPE_CODES[out_dtype],
+             n_split, depth, float(epilogue.alpha), float(epilogue.beta),
+             int(epilogue.softcap is not None),
+             float(epilogue.softcap or 0.0),
+             ACTIVATION_CODES[epilogue.activation], build.stream_ptr(dev))
+    build.check(lib, err, "splitk_gemm_cluster")
+    return out
+
+
 def mte_gemm_splitk_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
                            n_split: int = 4,
                            epilogue: Epilogue = Epilogue(),
                            out_dtype=torch.float32,
-                           acc_dtype=None) -> torch.Tensor:
-    """``epilogue(a @ b [, c, bias])`` with K split over ``n_split``
-    slices: the B2 CUDA kernel writes the partials on CUDA tensors (the
-    sum and epilogue follow in PyTorch); CPU tensors run
+                           acc_dtype=None,
+                           cluster_split: Optional[int] = None
+                           ) -> torch.Tensor:
+    """``epilogue(a @ b [, c, bias])`` with K split into slices: on CUDA
+    tensors the engine :func:`repro_torch.core.geometry.splitk_engine`
+    names — the cluster engine in one launch (its own slices, pinned with
+    ``cluster_split``), or the tile loop at ``n_split`` slices with the
+    sum and epilogue in PyTorch; CPU tensors run
     :func:`mte_gemm_splitk_torch`."""
     dev = build.require_cuda(a, b, c, bias, what="splitk_gemm")
     if dev is None:
@@ -128,8 +211,20 @@ def mte_gemm_splitk_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
                                      n_split=n_split, epilogue=epilogue,
                                      out_dtype=out_dtype,
                                      acc_dtype=acc_dtype)
-    _check(a, b, c, bias, epilogue)
+    m, n, k = _check(a, b, c, bias, epilogue)
     acc_dtype = _acc_dtype(a, acc_dtype)
+    engine = splitk_engine(a.dtype, m, n, k,
+                           bf16acc=acc_dtype == torch.bfloat16)
+    if engine == "cluster":
+        if b.dtype != a.dtype:
+            raise TypeError(f"splitk_gemm: operands {a.dtype} x {b.dtype} "
+                            f"unsupported")
+        slices, depth = cluster_layout(m, n, k, dev, cluster_split)
+        return _launch_cluster(a, b, c, bias, epilogue, out_dtype, slices,
+                               depth)
+    if cluster_split is not None:
+        raise ValueError("splitk_gemm: cluster_split pins the cluster "
+                         "engine's slices; the tile loop takes n_split")
     parts = launch_partials(a, b, geom=geom, n_split=n_split,
                             acc_dtype=acc_dtype)
     return epilogue.apply(_reduce(parts, acc_dtype), c_in=c,

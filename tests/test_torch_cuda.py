@@ -490,3 +490,211 @@ def test_flash_attention_engines_split_by_type_and_dim(card):
     with pytest.raises(ValueError, match="D=320"):
         tattn.flash_attention_kernel(q, q, q)
     assert build.launch_counts() == before
+
+
+# -- B2's cluster engine and B4's mma engine ----------------------------------
+
+# (N, K): gemma_2b's o (2048 x 2048), a ragged K the slice depth does not
+# divide with N a multiple of 8 but not of the 128-column tile, and a K
+# shorter than one 64-deep stage.
+CLUSTER_CASES = [(2048, 2048), (392, 1000), (136, 40)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 9, 16])
+def test_splitk_cluster_matches_plain(card, m):
+    """B2's cluster engine against its plain version at the engine's split
+    (bf16 operands, f32 accumulator; tolerance 2e-2, bf16's rounding of
+    O(1) outputs) with every epilogue term -- alpha, beta * C (C in f32 and
+    in bf16), a row or a column bias, softcap, gelu -- and both output
+    types; two calls are bit-equal (the cluster reduction sums the slices
+    in rank order); the counters show that only the cluster engine ran."""
+    gen = torch.Generator().manual_seed(m)
+    sew = tgeometry.SEW.E16
+    geo = tgeometry.BlockGeometry(16, 128, 64, 4, 1, False, sew, sew, "mte")
+    before = build.launch_counts()
+    calls = 0
+    for (n, k), out_dt, c_dt, axis in [
+            (CLUSTER_CASES[0], torch.bfloat16, torch.float32, "row"),
+            (CLUSTER_CASES[1], torch.float32, torch.bfloat16, "row"),
+            (CLUSTER_CASES[2], torch.bfloat16, torch.bfloat16, "col")]:
+        assert tgeometry.splitk_engine(torch.bfloat16, m, n, k) == "cluster"
+        a = (torch.randn(m, k, generator=gen) / k ** 0.5).to(torch.bfloat16)
+        b = torch.randn(k, n, generator=gen).to(torch.bfloat16)
+        c = torch.randn(m, n, generator=gen).to(c_dt)
+        bias = torch.randn(n if axis == "row" else m, generator=gen)
+        epi = tepilogue.Epilogue(alpha=0.7, beta=0.5, has_bias=True,
+                                 bias_axis=axis, softcap=20.0,
+                                 activation="gelu")
+        s, _ = tgeometry.splitk_cluster_split(
+            tgeometry.cdiv(n, 128), k, m,
+            torch.cuda.get_device_properties(card).multi_processor_count)
+        kw = dict(geom=geo, epilogue=epi, out_dtype=out_dt)
+        want = tsplitk.mte_gemm_splitk_torch(a, b, c, bias, n_split=s, **kw)
+        args = [x.to(card) for x in (a, b, c, bias)]
+        got = tsplitk.mte_gemm_splitk_kernel(*args, n_split=4, **kw)
+        assert got.dtype == out_dt
+        _close(got, want, 2e-2)
+        assert torch.equal(got, tsplitk.mte_gemm_splitk_kernel(
+            *args, n_split=4, **kw))
+        calls += 2
+    after = build.launch_counts()
+    assert after["splitk_gemm_cluster"] == (before["splitk_gemm_cluster"]
+                                            + calls)
+    assert after["splitk_gemm"] == before["splitk_gemm"]
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_splitk_cluster_every_split_matches_plain(card, n_split):
+    """Every cluster size the engine takes, pinned, at gemma_2b's o
+    projection (4 x 2048 x 2048) with a gelu and a row bias: within 2e-2
+    of the plain version at the same split, bit-equal from call to call."""
+    gen = torch.Generator().manual_seed(100 + n_split)
+    m, n, k = 4, 2048, 2048
+    a = (torch.randn(m, k, generator=gen) / k ** 0.5).to(torch.bfloat16)
+    b = torch.randn(k, n, generator=gen).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen).to(torch.bfloat16)
+    sew = tgeometry.SEW.E16
+    geo = tgeometry.BlockGeometry(16, 128, 64, 2, 1, False, sew, sew, "mte")
+    kw = dict(geom=geo, epilogue=tepilogue.Epilogue(
+        has_bias=True, activation="gelu"), out_dtype=torch.bfloat16)
+    before = build.launch_counts()["splitk_gemm_cluster"]
+    ad, bd, biasd = a.to(card), b.to(card), bias.to(card)
+    got = tsplitk.mte_gemm_splitk_kernel(ad, bd, None, biasd,
+                                         cluster_split=n_split, **kw)
+    _close(got, tsplitk.mte_gemm_splitk_torch(a, b, None, bias,
+                                              n_split=n_split, **kw), 2e-2)
+    assert torch.equal(got, tsplitk.mte_gemm_splitk_kernel(
+        ad, bd, None, biasd, cluster_split=n_split, **kw))
+    assert build.launch_counts()["splitk_gemm_cluster"] == before + 2
+
+
+def test_splitk_engines_split_by_rows_and_format(card):
+    """M = 17, bf16acc and fp32 stay on the tile loop, M = 16 bf16 goes to
+    the cluster engine: each launch counts on its own engine's counter
+    only; a pinned cluster split on the tile loop raises."""
+    gen = torch.Generator().manual_seed(17)
+    k, n = 512, 384
+    sew = tgeometry.SEW.E16
+    geo = tgeometry.BlockGeometry(16, 128, 64, 4, 1, False, sew, sew, "mte")
+    for m, dt, acc, counter in [
+            (17, torch.bfloat16, None, "splitk_gemm"),
+            (4, torch.bfloat16, torch.bfloat16, "splitk_gemm"),
+            (4, torch.float32, None, "splitk_gemm"),
+            (16, torch.bfloat16, None, "splitk_gemm_cluster")]:
+        a = (torch.randn(m, k, generator=gen) / k ** 0.5).to(dt)
+        b = torch.randn(k, n, generator=gen).to(dt)
+        kw = dict(geom=geo, n_split=4, out_dtype=torch.float32,
+                  acc_dtype=acc)
+        before = build.launch_counts()
+        got = tsplitk.mte_gemm_splitk_kernel(a.to(card), b.to(card), **kw)
+        after = build.launch_counts()
+        _close(got, tsplitk.mte_gemm_splitk_torch(a, b, **kw), 3e-2)
+        assert {name for name in after if after[name] != before[name]} \
+            == {counter}
+    a = torch.randn(17, k).to(torch.bfloat16).to(card)
+    with pytest.raises(ValueError, match="cluster_split"):
+        tsplitk.mte_gemm_splitk_kernel(a, a.new_zeros(k, n), geom=geo,
+                                       cluster_split=2)
+
+
+def _mma_pages(b, g, hkv, d, lens, gen, page=16):
+    """bf16 pages for rows of the given lengths: each row's pages in a
+    shuffled order, one -1 page inside every row longer than 3 pages, and a
+    mapped stale page past the length of every other row."""
+    maxp = max(-(-s // page) for s in lens) + 2
+    table = torch.full((b, maxp), -1, dtype=torch.int32)
+    nxt = 1
+    for bi, s in enumerate(lens):
+        used = -(-s // page)
+        for i in range(used):
+            table[bi, i] = nxt
+            nxt += 1
+        if used > 3:
+            table[bi, 2] = -1
+        if bi % 2 and used < maxp:
+            table[bi, used] = nxt
+            nxt += 1
+    perm = torch.randperm(nxt, generator=gen)
+    table = torch.where(table >= 0, perm[table.clamp(min=0).long()].int(),
+                        table)
+    kp = torch.randn(nxt, page, hkv, d, generator=gen).to(torch.bfloat16)
+    vp = torch.randn(nxt, page, hkv, d, generator=gen).to(torch.bfloat16)
+    q = torch.randn(b, g * hkv, d, generator=gen).to(torch.bfloat16)
+    return q, kp, vp, table, torch.tensor(lens, dtype=torch.int32)
+
+
+MMA_LENS = [0, 1, 15, 16, 17, 1037]
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 8, 16])
+def test_paged_decode_mma_matches_plain(card, g, d):
+    """B4's mma engine against its plain version (bf16; tolerance 1e-2:
+    P is rounded to bf16 before P V, where the plain version keeps it in
+    f32) at lengths 0, 1, 15, 16, 17 and over 1000, with -1 pages inside
+    rows and stale pages past them, plain and with a window and a softcap,
+    over two kv heads; a zero-length row gives zeros; the counters show
+    that only the mma engine ran."""
+    gen = torch.Generator().manual_seed(g * 1000 + d)
+    hkv = 2
+    q, kp, vp, table, lens = _mma_pages(len(MMA_LENS), g, hkv, d, MMA_LENS,
+                                        gen)
+    assert tgeometry.decode_engine(kp.dtype, q.dtype, g, d) == "mma"
+    before = build.launch_counts()
+    args = [x.to(card) for x in (q, kp, vp, table, lens)]
+    for kw in ({}, {"window": 40, "softcap": 30.0}):
+        want = tdecode.flash_decode_paged_torch(q, kp, vp, table, lens, **kw)
+        got = tdecode.flash_decode_paged_kernel(*args, **kw)
+        assert got.dtype == torch.bfloat16
+        _close(got, want, 1e-2)
+        assert torch.count_nonzero(got[0]) == 0
+    after = build.launch_counts()
+    assert after["flash_decode_paged_mma"] == (
+        before["flash_decode_paged_mma"] + 2)
+    assert after["flash_decode_paged"] == before["flash_decode_paged"]
+
+
+@pytest.mark.parametrize("kv_split", [1, 2, 3, 4, 8])
+def test_paged_decode_mma_every_split(card, kv_split):
+    """Each cluster size, pinned, at gemma_2b's decode (4 slots, 8 heads on
+    one kv head, D = 256, ~1035 tokens): within 1e-2 of the plain version,
+    bit-equal from call to call."""
+    gen = torch.Generator().manual_seed(kv_split)
+    q, kp, vp, table, lens = _mma_pages(4, 8, 1, 256,
+                                        [1030, 1041, 1024, 1047], gen)
+    args = [x.to(card) for x in (q, kp, vp, table, lens)]
+    got = tdecode.flash_decode_paged_kernel(*args, kv_split=kv_split)
+    _close(got, tdecode.flash_decode_paged_torch(q, kp, vp, table, lens),
+           1e-2)
+    assert torch.equal(got, tdecode.flash_decode_paged_kernel(
+        *args, kv_split=kv_split))
+
+
+def test_paged_decode_engines_split_by_type(card):
+    """f32 pages, int8 pages and D = 32 stay on the SIMT kernel, bf16 at
+    D = 64 goes to the mma engine: each launch counts on its own engine's
+    counter only."""
+    from repro_torch.models.attention import _quantize_kv
+    gen = torch.Generator().manual_seed(64)
+    for dt, d, counter in [(torch.float32, 64, "flash_decode_paged"),
+                           (torch.bfloat16, 32, "flash_decode_paged"),
+                           ("int8", 64, "flash_decode_paged"),
+                           (torch.bfloat16, 64, "flash_decode_paged_mma")]:
+        q, kp, vp, table, lens = _mma_pages(3, 4, 1, d, [5, 17, 40], gen)
+        scales = ()
+        if dt == "int8":
+            q, kp, vp = q.float(), kp.float(), vp.float()
+            kp, ks = _quantize_kv(kp)
+            vp, vs = _quantize_kv(vp)
+            scales = (ks, vs)
+        elif dt == torch.float32:
+            q, kp, vp = q.float(), kp.float(), vp.float()
+        before = build.launch_counts()
+        got = tdecode.flash_decode_paged_kernel(
+            *(x.to(card) for x in (q, kp, vp, table, lens, *scales)))
+        after = build.launch_counts()
+        _close(got, tdecode.flash_decode_paged_torch(
+            q, kp, vp, table, lens, *scales),
+            1e-5 if q.dtype == torch.float32 else 1e-2)
+        assert {name for name in after if after[name] != before[name]} \
+            == {counter}
