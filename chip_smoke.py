@@ -19,7 +19,9 @@ Phases (any failure raises and the script exits non-zero):
    ``epilogue_pass``), B4 on both of its engines (the mma kernel,
    ``flash_decode_paged_mma``, and SIMT, ``flash_decode_paged``), B5 on
    both of its engines (TMA + wgmma, ``flash_attention_wgmma``, and SIMT,
-   ``flash_attention``), B6 ``flash_decode`` (ring), B7 ``rglru_scan`` --
+   ``flash_attention``), B6 on both of its engines (the mma kernel over
+   the ring, ``flash_decode_mma``, and SIMT, ``flash_decode``), B7
+   ``rglru_scan`` --
    at the exact shapes the serving phase launches (bf16; f32 for B7;
    gemma_2b's and recurrentgemma_9b's prefill and decode projections for
    B1, B2 and B8 stage 1 and decode q/k/v groups for B3, each printed with
@@ -31,8 +33,10 @@ Phases (any failure raises and the script exits non-zero):
    peak, bytes / 3.35 TB/s)), the plain version's time and the time of one
    library call for the same function (``torch.matmul``, ``torch.bmm`` on
    the stacked operands, ``F.gelu`` or ``F.scaled_dot_product_attention``;
-   none for B7), timed only as a yardstick; the decode rows of B2, B3 and
-   B4 also with the L2 cache cold and at every cluster size.
+   none for B7), timed only as a yardstick; the decode rows of B2, B3, B4
+   and B6 also with the L2 cache cold and at every cluster size, and B8's
+   pass at three shapes (the prefill gate's gelu, the same with beta*C +
+   bias + softcap, the decode gate's gelu).
 3. The whole path held against the CPU: gemma_2b.reduced() in fp32 with
    one seed, served by the port's engine on the card (kernels) and on the
    CPU (plain versions), in the default configuration (graph programs +
@@ -53,8 +57,9 @@ Phases (any failure raises and the script exits non-zero):
    run and read just after (every kernel of that path must have
    launched, every bf16 B1 and B8 stage-1 launch on the wgmma engine,
    every decode GEMM on B2's cluster engine, every decode q/k/v group on
-   B3's split-K engine, every paged decode attention on B4's mma engine
-   and every prefill attention on B5's wgmma engine: the tile loops' and
+   B3's split-K engine, every paged decode attention on B4's mma engine,
+   every ring decode attention on B6's mma engine and every prefill
+   attention on B5's wgmma engine: the tile loops' and
    the SIMT kernels' counters must stay 0, the profiled decode step must
    count the launches ``DECODE_STEP_LAUNCHES`` names, and no prefill
    projection may be planned off B1 or B8), and it prints decode ms per
@@ -550,10 +555,11 @@ def rigid_phase(dev, rows):
     every mode (a rigid route has no narrow accumulator: bf16acc runs as
     bf16; TMA-aligned bf16 shapes run stage 1 on the wgmma engine, the
     others on the tile loop), then the main path's gate projection with
-    its GeGLU epilogue, stage 1 also at recurrentgemma_9b's prefill gate
-    and at a 4-slot decode GEMV (the 128-row tile's padding), and the tile
-    loop's row at the reduced fp32 model's prefill gate, where phase 3
-    runs it."""
+    its GeGLU epilogue (the pass also with beta*C + bias + softcap, and at
+    the decode gate's 4 rows), stage 1 also at recurrentgemma_9b's prefill
+    gate and at a 4-slot decode GEMV (the 128-row tile's padding), and the
+    tile loop's row at the reduced fp32 model's prefill gate, where phase
+    3 runs it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.epilogue import Epilogue
@@ -622,34 +628,52 @@ def rigid_phase(dev, rows):
             f"({row['ms'] / row['library_ms']:.2f}x)")
         return a, b, acc
 
-    # The gate projection of a 512-token prefill chunk, GeGLU's gelu on it.
+    def pass_row(label, acc, epi, c=None, bias=None):
+        """The epilogue pass at one main-path shape: check (bf16 out
+        within 1e-2) and time it beside F.gelu on the same accumulator."""
+        m, n = acc.shape
+        run = lambda: epilogue_pass_kernel(  # noqa: E731
+            acc, c, bias, epilogue=epi, out_dtype=torch.bfloat16)
+        plain = lambda: epilogue_pass_torch(  # noqa: E731
+            acc, c, bias, epilogue=epi, out_dtype=torch.bfloat16)
+        err = check(f"epilogue_pass main-path {label} (stage 2)", run(),
+                    plain(), 1e-2)
+        # Element-wise operations: the tanh-gelu's 15, and alpha (1),
+        # beta*C (2), the bias (1) and the softcap (3) where present.
+        ops_per = (15 + 1 + 2 * (c is not None) + (bias is not None)
+                   + 3 * (epi.softcap is not None))
+        flops = float(ops_per * m * n)
+        nbytes = (4.0 * m * n * (1 + (c is not None)) + 2.0 * m * n
+                  + 4.0 * n * (bias is not None))
+        row = {"kernel": "epilogue_pass", "shape": label,
+               "max_abs_err": err, "tol": 1e-2, "ms": time_ms(run),
+               "plain_ms": time_ms(plain),
+               "bound_ms": bound_ms(flops, nbytes, PEAK["fp32"]),
+               "bound_by": bound_by(flops, nbytes, PEAK["fp32"]),
+               "library_ms": time_ms(
+                   lambda: F.gelu(acc, approximate="tanh"))}
+        rows.append(row)
+        log(f"    epilogue_pass: time {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, F.gelu {row['library_ms']:.4f} ms")
+
+    # The gate projection of a 512-token prefill chunk, GeGLU's gelu on it
+    # (the amx path's pass); the same with beta*C, a row bias and a
+    # softcap; and the decode gate's pass (4 slots).
     m, n = 512, 16384
     a, b, acc = stage1("gate", m, n, 2048)
     epi = Epilogue(activation="gelu")
-    run2 = lambda: epilogue_pass_kernel(  # noqa: E731
-        acc, epilogue=epi, out_dtype=torch.bfloat16)
-    plain2 = lambda: epilogue_pass_torch(  # noqa: E731
-        acc, epilogue=epi, out_dtype=torch.bfloat16)
-    err2 = check("epilogue_pass main-path gelu 512x16384 (stage 2)", run2(),
-                 plain2(), 1e-2)
+    pass_row("gelu 512x16384", acc, epi)
     check("rigid_gemm main-path gate 512x16384x2048 (both stages)",
           rigid_gemm_kernel(a, b, epilogue=epi, out_dtype=torch.bfloat16),
           rigid_gemm_torch(a, b, epilogue=epi, out_dtype=torch.bfloat16),
           2e-2)
-    pass_flops = 15.0 * m * n        # the tanh-gelu's element-wise ops
-    pass_bytes = 4.0 * m * n + 2.0 * m * n
-    rows.append({"kernel": "epilogue_pass", "shape": "gelu 512x16384",
-                 "max_abs_err": err2, "tol": 1e-2, "ms": time_ms(run2),
-                 "plain_ms": time_ms(plain2),
-                 "bound_ms": bound_ms(pass_flops, pass_bytes,
-                                      PEAK["fp32"]),
-                 "bound_by": bound_by(pass_flops, pass_bytes, PEAK["fp32"]),
-                 "library_ms": time_ms(
-                     lambda: F.gelu(acc, approximate="tanh"))})
-    row = rows[-1]
-    log(f"    epilogue_pass: time {row['ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
-        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms")
+    pass_row("beta*C+bias+softcap gelu 512x16384", acc,
+             Epilogue(alpha=0.7, beta=0.5, has_bias=True, softcap=20.0,
+                      activation="gelu"),
+             torch.randn(m, n, generator=gen, device=dev),
+             torch.randn(n, generator=gen, device=dev))
+    pass_row("gelu 4x16384", acc[:4].clone(), epi)
     stage1("rg gate", 512, 12288, 4096)
     stage1("decode gate", 4, 16384, 2048)
     stage1("gate fp32", 16, 256, 128, dt=torch.float32)  # phase 3's amx
@@ -919,71 +943,135 @@ def attention_phase(dev, rows):
 
 
 def ring_decode_phase(dev, rows):
-    """B6 against its plain version: small ragged cases (G = 4, S not a
-    multiple of the 16-slot chunk, -1 slots, window and softcap, an empty
-    row), then the full-width decode of recurrentgemma_9b's local layers:
-    4 slots x 16 query heads on 1 kv head x D 256 over a wrapped
-    2048-slot bf16 ring, read through its (B, L, Hkv, D) storage."""
+    """B6 on both of its engines against its plain version: small ragged
+    cases (S = 37, not a multiple of the 16-slot tile; a wrapped ring, -1
+    slots, window and softcap, an empty row) in fp32 on the SIMT kernel
+    and in bf16 on the mma engine at G 1/4/16 x D 64/128/256, over the
+    ring's strided view and over a contiguous cache; then the full-width
+    decode of recurrentgemma_9b's local layers on the mma engine -- 4
+    slots x 16 query heads on 1 kv head x D 256 over a wrapped 2048-slot
+    bf16 ring, read through its (B, L, Hkv, D) storage -- also with the
+    cache cold in L2 and at every cluster size, and the SIMT kernel's row
+    at the reduced fp32 decode phase 3 gives it."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.core.geometry import decode_kv_split, flat_decode_engine
     from repro_torch.kernels.flash_decode import (flash_decode_kernel,
-                                                  flash_decode_torch)
+                                                  flash_decode_torch,
+                                                  tma_strided)
     gen = torch.Generator(device=dev).manual_seed(7)
 
-    def ring(b, length, hkv, d, q_pos, dtype):
+    def ring(b, length, hkv, d, q_pos, dtype, strided=True):
         k = torch.randn(b, length, hkv, d, generator=gen, device=dev)
         v = torch.randn(b, length, hkv, d, generator=gen, device=dev)
         qp = torch.tensor(q_pos, dtype=torch.int32, device=dev)
         idx = torch.arange(length, device=dev)
         kvp = qp[:, None] - (qp[:, None] - idx) % length
         kvp = torch.where(kvp >= 0, kvp, -1).to(torch.int32)
-        return (k.to(dtype).transpose(1, 2), v.to(dtype).transpose(1, 2),
-                kvp, qp)
+        k, v = (x.to(dtype).transpose(1, 2) for x in (k, v))
+        if not strided:
+            k, v = k.contiguous(), v.contiguous()
+        return k, v, kvp, qp
 
-    for label, dtype, tol in [("fp32", torch.float32, 1e-5),
-                              ("bf16", torch.bfloat16, 1e-2)]:
+    def kernel_of(q, k, v):
+        g = q.shape[1] // k.shape[1]
+        return ("flash_decode_mma"
+                if flat_decode_engine(k.dtype, q.dtype, g, q.shape[2],
+                                      tma_strided(k, v)) == "mma"
+                else "flash_decode")
+
+    def small(label, dtype, g, d, tol, strided=True):
         for kw in [{}, {"window": 9, "softcap": 5.0}]:
-            k, v, kvp, qp = ring(4, 37, 2, 64, [60, 20, 5, 36], dtype)
+            k, v, kvp, qp = ring(4, 37, 2, d, [60, 20, 5, 36], dtype,
+                                 strided)
             kvp[3] = -1                      # an empty row: zeros out
-            q = torch.randn(4, 8, 64, generator=gen, device=dev).to(dtype)
+            q = torch.randn(4, 2 * g, d, generator=gen,
+                            device=dev).to(dtype)
             got = flash_decode_kernel(q, k, v, kvp, qp, **kw)
             want = flash_decode_torch(q, k, v, kvp, qp, **kw)
-            check(f"flash_decode {label} ring S=37 G=4 {kw or 'plain'}",
-                  got, want, tol)
+            name = kernel_of(q, k, v)
+            shape = f"{label} {kw or 'plain'}"
+            err = check(f"{name} {shape}", got, want, tol)
             require(float(got[3].float().abs().max()) == 0.0,
-                    "flash_decode: an empty row must give zeros")
+                    f"{name}: an empty row must give zeros")
+            if name == "flash_decode_mma":
+                require(torch.equal(got, flash_decode_kernel(
+                    q, k, v, kvp, qp, **kw)), f"{name}: two calls differ")
+            rows.append({"kernel": name, "shape": shape, "max_abs_err": err,
+                         "tol": tol})
 
-    # The serving run's decode of a local layer: positions past the wrap.
-    b, h, hkv, d, length = 4, 16, 1, 256, 2048
-    q_pos = [2570, 2581, 2564, 2587]
-    k, v, kvp, qp = ring(b, length, hkv, d, q_pos, torch.bfloat16)
-    q = torch.randn(b, h, d, generator=gen, device=dev).to(torch.bfloat16)
-    kw = dict(window=2048)
-    run = lambda: flash_decode_kernel(q, k, v, kvp, qp, **kw)  # noqa: E731
-    plain = lambda: flash_decode_torch(q, k, v, kvp, qp, **kw)  # noqa: E731
-    err = check("flash_decode main-path bf16 4x16x256 ring L=2048",
-                run(), plain(), 1e-2)
-    kvl = kvp.long()[:, None, None, :]
-    qpl = qp.long()[:, None, None, None]
-    mask = (kvl >= 0) & (kvl <= qpl) & (kvl > qpl - kw["window"])
-    qs = q[:, :, None, :]
-    kx, vx = k.expand(b, h, length, d), v.expand(b, h, length, d)
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qs, kx, vx, attn_mask=mask)
-    visible = int(mask.sum())
-    flops = 4.0 * visible * h * d
-    nbytes = (2.0 * (2 * visible * hkv * d + 2 * b * h * d)
-              + 4 * (kvp.numel() + b))
-    row = {"kernel": "flash_decode", "shape": "ring 4x16x256 L=2048",
-           "max_abs_err": err, "tol": 1e-2, "ms": time_ms(run),
-           "plain_ms": time_ms(plain),
-           "bound_ms": bound_ms(flops, nbytes, PEAK["bf16"]),
-           "bound_by": bound_by(flops, nbytes, PEAK["bf16"]),
-           "library_ms": time_ms(lib)}
-    rows.append(row)
-    log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-        f"sdpa {row['library_ms']:.4f} ms")
+    small("fp32 ring S=37 G=4 D=64", torch.float32, 4, 64, 1e-5)
+    for g in (1, 4, 16):
+        for d in (64, 128, 256):
+            small(f"ring S=37 G={g} D={d}", torch.bfloat16, g, d, 1e-2)
+            small(f"contiguous S=37 G={g} D={d}", torch.bfloat16, g, d,
+                  1e-2, strided=False)
+
+    def main_path(label, b, h, hkv, d, length, q_pos, dtype, tol, window):
+        k, v, kvp, qp = ring(b, length, hkv, d, q_pos, dtype)
+        q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
+        name = kernel_of(q, k, v)
+        kw = dict(window=window)
+        run = lambda: flash_decode_kernel(  # noqa: E731
+            q, k, v, kvp, qp, **kw)
+        plain = lambda: flash_decode_torch(  # noqa: E731
+            q, k, v, kvp, qp, **kw)
+        want = plain()
+        got = run()
+        err = check(f"{name} main-path {label}", got, want, tol)
+        kvl = kvp.long()[:, None, None, :]
+        qpl = qp.long()[:, None, None, None]
+        mask = (kvl >= 0) & (kvl <= qpl) & (kvl > qpl - window)
+        qs = q[:, :, None, :]
+        kx, vx = ((x.expand(b, h, length, d) if hkv == 1
+                   else x.repeat_interleave(h // hkv, 1)) for x in (k, v))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, kx, vx, attn_mask=mask)
+        visible = int(mask.sum())
+        elt = q.element_size()
+        flops = 4.0 * visible * h * d
+        nbytes = (elt * (2 * visible * hkv * d + 2 * b * h * d)
+                  + 4 * (kvp.numel() + b))
+        peak = PEAK["bf16" if dtype == torch.bfloat16 else "fp32"]
+        row = {"kernel": name, "shape": label, "max_abs_err": err,
+               "tol": tol, "ms": time_ms(run), "plain_ms": time_ms(plain),
+               "bound_ms": bound_ms(flops, nbytes, peak),
+               "bound_by": bound_by(flops, nbytes, peak),
+               "library_ms": time_ms(lib),
+               "cold_ms": time_ms_cold(run),
+               "library_cold_ms": time_ms_cold(lib)}
+        if name == "flash_decode_mma":
+            require(torch.equal(got, run()), f"{name}: two calls differ")
+            row["kv_split"] = decode_kv_split(
+                b * hkv, -(-length // 16),
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+            row["ms_by_split"] = {}
+            for s in (1, 2, 4, 8):
+                pinned = lambda: flash_decode_kernel(  # noqa: E731
+                    q, k, v, kvp, qp, kv_split=s, **kw)
+                err = max(err, check(f"{name} main-path {label} kv_split="
+                                     f"{s}", pinned(), want, tol))
+                row["ms_by_split"][s] = time_ms(pinned)
+            row["max_abs_err"] = err
+        rows.append(row)
+        log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+            f"sdpa {row['library_ms']:.4f} ms; L2 cold {row['cold_ms']:.4f}"
+            f" ms, sdpa {row['library_cold_ms']:.4f} ms"
+            + (f"; by kv split {row['ms_by_split']} (planned "
+               f"{row['kv_split']})" if "ms_by_split" in row else ""))
+        return name
+
+    # The serving run's decode of a local layer, positions past the wrap
+    # (the mma engine); the reduced fp32 engine's: 2 slots, 4 heads on 1
+    # kv head, D = 32 over a 16-slot ring (the SIMT kernel).
+    require(main_path("ring 4x16x256 L=2048", 4, 16, 1, 256, 2048,
+                      [2570, 2581, 2564, 2587], torch.bfloat16, 1e-2, 2048)
+            == "flash_decode_mma",
+            "the serving ring's decode must run on B6's mma engine")
+    require(main_path("fp32 ring 2x4x32 L=16", 2, 4, 1, 32, 16, [37, 20],
+                      torch.float32, 1e-5, 16) == "flash_decode",
+            "fp32 ring decode must run on B6's SIMT kernel")
 
 
 def rglru_phase(dev, rows):
@@ -1045,30 +1133,34 @@ PATH_KERNELS = {
     "eager": ("mte_gemm_wgmma", "splitk_gemm_cluster",
               "flash_decode_paged_mma", "flash_attention_wgmma"),
     "recurrentgemma": ("mte_gemm_wgmma", "splitk_gemm_cluster",
-                       "grouped_gemm_splitk", "flash_decode", "rglru_scan"),
+                       "grouped_gemm_splitk", "flash_decode_mma",
+                       "rglru_scan"),
 }
 # Counters that must stay 0 at full width: every bf16 B1 launch (all of
 # them prefill projections) and every bf16 B8 stage-1 launch runs on the
 # wgmma engine, every decode GEMM on B2's cluster engine, every decode
 # q/k/v group on B3's split-K engine, every paged decode attention on B4's
-# mma engine, every prefill attention on B5's wgmma engine -- not on the
-# tile loops or the SIMT kernels.
+# mma engine, every prefill attention on B5's wgmma engine, every ring
+# decode attention on B6's mma engine -- not on the tile loops or the SIMT
+# kernels.
 NOT_ON_PATH = {
     "default": ("mte_gemm", "splitk_gemm", "grouped_gemm",
                 "flash_decode_paged", "flash_attention"),
     "amx": ("rigid_gemm", "flash_decode_paged", "flash_attention"),
     "eager": ("mte_gemm", "splitk_gemm", "flash_decode_paged",
               "flash_attention"),
-    "recurrentgemma": ("mte_gemm", "splitk_gemm", "grouped_gemm"),
+    "recurrentgemma": ("mte_gemm", "splitk_gemm", "grouped_gemm",
+                       "flash_decode"),
 }
 # Launches of the new engines per profiled decode step: gemma_2b's 18
 # layers run B2 on o, gate, up and down (and on q, k, v on the eager path)
-# and B4 once; recurrentgemma_9b's decode GEMMs make 256 B2 launches.
+# and B4 once; recurrentgemma_9b's decode GEMMs make 256 B2 launches and
+# its 12 local layers 12 B6 launches.
 DECODE_STEP_LAUNCHES = {
     "default": {"splitk_gemm_cluster": 72, "flash_decode_paged_mma": 18},
     "amx": {"flash_decode_paged_mma": 18},
     "eager": {"splitk_gemm_cluster": 126, "flash_decode_paged_mma": 18},
-    "recurrentgemma": {"splitk_gemm_cluster": 256},
+    "recurrentgemma": {"splitk_gemm_cluster": 256, "flash_decode_mma": 12},
 }
 # Phase 4's workload per arch: 4 slots, 16-token pages, 512-token prefill
 # chunks, 6 requests x 24 greedy tokens.  gemma_2b: 1024-token prompts, two
@@ -1210,7 +1302,9 @@ def reduced_recurrent_phase(dev):
     """recurrentgemma_9b.reduced() in fp32, default configuration, card
     against CPU: 32-token prompts (twice the 16-slot ring) in chunks of 8,
     first-token logits within 1e-3, identical greedy streams from the
-    engine (3 requests on 2 slots, so one prefills while others decode)."""
+    engine (3 requests on 2 slots, so one prefills while others decode).
+    Returns the card's launch counts of the engine run (fp32 runs B3's
+    tile loop and B6's SIMT kernel, whose launches count here)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1255,6 +1349,7 @@ def reduced_recurrent_phase(dev):
             f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
             f"launches {counts}")
         if device == dev:
+            path_counts = counts
             for kernel in ("grouped_gemm", "flash_decode", "rglru_scan"):
                 require(counts[kernel] > 0,
                         f"reduced recurrentgemma: {kernel} not launched")
@@ -1264,6 +1359,7 @@ def reduced_recurrent_phase(dev):
                 f"recurrentgemma greedy stream of request {rid} differs")
     log("  reduced recurrentgemma engine: greedy streams identical on cuda "
         "and cpu")
+    return path_counts
 
 
 # -- phase 4: full-width serving ---------------------------------------------
@@ -1626,9 +1722,12 @@ KERNELS = [
      "reduced-amx"),
     ("epilogue_pass", "src/repro_torch/csrc/rigid_gemm.cu",
      "src/repro/kernels/rigid_gemm.py:43", "gelu 512x16384", "amx"),
-    ("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
+    ("flash_decode_mma", "src/repro_torch/csrc/flash_decode_mma.cu",
      "src/repro/kernels/flash_decode.py:87", "ring 4x16x256 L=2048",
      "recurrentgemma"),
+    ("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_decode.py:87", "fp32 ring 2x4x32 L=16",
+     "reduced-recurrent"),
     ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
      "src/repro/kernels/rglru_scan.py:45", "1x512x4096", "recurrentgemma"),
 ]
@@ -1681,7 +1780,7 @@ def main() -> int:
     log("== 3. reduced gemma_2b (fp32): card against CPU, default and amx")
     counts, serving = reduced_phase(dev), {}
     log("== 3. reduced recurrentgemma_9b (fp32): card against CPU, default")
-    reduced_recurrent_phase(dev)
+    counts["reduced-recurrent"] = reduced_recurrent_phase(dev)
     for name, (arch, overrides) in CONFIGS.items():
         log(f"== 4. full-width {arch} serving (bf16), configuration "
             f"[{name}] {overrides or '(defaults)'}")

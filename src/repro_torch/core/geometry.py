@@ -19,11 +19,12 @@ hand-written kernels implement.  Two mainloops exist (``csrc/``):
 
 :func:`gemm_engine` says which one runs a launch: a pure function of the
 operand type, the accumulator, the tile and the alignment of K and N.
-B2, B3, B4 and B5 have a second engine each, chosen the same way:
+B2, B3, B4, B5 and B6 have a second engine each, chosen the same way:
 :func:`splitk_engine` and :func:`grouped_engine` (the cluster split-K
 mainloop of ``splitk_cluster.cuh`` for bf16 GEMMs of at most 16 rows,
-else the tile loop), :func:`decode_engine` (mma.sync over whole pages for
-bf16 pages, else the SIMT kernel) and :func:`attention_engine` (TMA +
+else the tile loop), :func:`decode_engine` and :func:`flat_decode_engine`
+(mma.sync over 16-position tiles of the pages or of the flat or ring
+cache for bf16, else the SIMT kernel) and :func:`attention_engine` (TMA +
 wgmma for bf16 at head dims 64/128/256, else the SIMT kernel).
 The solver's base tile is the tile loop's tile for M; the plan cache
 (``core/autotune.py``) adds the wgmma tiles the shape and format allow and
@@ -57,7 +58,8 @@ __all__ = ["HopperProfile", "BlockGeometry", "H100_SPEC", "hopper_profile",
            "grouped_engine", "grouped_live_tiles", "grouped_split",
            "SPLITK_DEEP_DEPTH", "splitk_engine", "splitk_cluster_split",
            "DECODE_MMA_MAX_G", "DECODE_MMA_DIMS", "decode_engine",
-           "decode_kv_split", "attention_engine", "attention_kv_split"]
+           "flat_decode_engine", "decode_kv_split", "attention_engine",
+           "attention_kv_split"]
 
 Policy = Literal["mte", "amx", "sifive", "vector"]
 
@@ -270,11 +272,27 @@ def decode_engine(kv_dtype, q_dtype, g: int, d: int) -> str:
     return "simt"
 
 
+def flat_decode_engine(kv_dtype, q_dtype, g: int, d: int,
+                       aligned: bool) -> str:
+    """The engine that runs one B6 launch: ``"mma"`` (B4's mma engine over
+    16-slot tiles of the flat or ring cache, ``flash_decode_mma.cu``: one
+    launch, a cluster per (sequence, kv head)) for a bf16 cache and a bf16
+    query with G = H/Hkv <= 16, D in {64, 128, 256} and an ``aligned``
+    cache (D contiguous, every other stride of k and v a multiple of 16
+    bytes, 16-byte aligned bases: what TMA can read); ``"simt"``
+    (``flash_decode.cu`` + its merge pass) otherwise: f32 caches, other
+    head counts and dims, and views TMA cannot take."""
+    if aligned and decode_engine(kv_dtype, q_dtype, g, d) == "mma":
+        return "mma"
+    return "simt"
+
+
 def decode_kv_split(rows: int, pages: int, sm_count: int = 132) -> int:
-    """KV slices (one cluster) per (sequence, kv head) row of B4's mma
-    engine: the fewest, doubling up to MAX_CLUSTER, that give rows x
-    slices >= the SM count, with at least one page of the table's width
-    per slice (gemma_2b's decode, 4 rows of 68 pages: 8)."""
+    """KV slices (one cluster) per (sequence, kv head) row of B4's and
+    B6's mma engines: the fewest, doubling up to MAX_CLUSTER, that give
+    rows x slices >= the SM count, with at least one page (B4) or 16-slot
+    tile (B6) per slice (gemma_2b's decode, 4 rows of 68 pages: 8;
+    recurrentgemma_9b's ring decode, 4 rows of 128 tiles: 8)."""
     s = 1
     while s * 2 <= MAX_CLUSTER and s * 2 <= pages and rows * s < sm_count:
         s *= 2

@@ -41,14 +41,24 @@ __device__ __forceinline__ float rnd(float x) {
   return R ? bf16_round(x) : x;
 }
 
+// The epilogue of one accumulator element v, given its element `cv` of C
+// (used only when beta != 0) and of the bias `bv` (only with a bias).
 template <bool R>
-__device__ __forceinline__ float apply_epi(float v, long r, long c,
-                                           const Epi& e) {
+__device__ __forceinline__ float apply_epi_at(float v, float cv, float bv,
+                                              const Epi& e) {
   float x = rnd<R>(e.alpha * v);
-  if (e.beta != 0.0f) x = rnd<R>(x + rnd<R>(e.beta * e.c[r * e.ldc + c]));
-  if (e.bias != nullptr) x = rnd<R>(x + e.bias[c]);
+  if (e.beta != 0.0f) x = rnd<R>(x + rnd<R>(e.beta * cv));
+  if (e.bias != nullptr) x = rnd<R>(x + bv);
   if (e.has_softcap)
     x = rnd<R>(e.softcap * rnd<R>(tanhf(rnd<R>(x / e.softcap))));
   if (e.act) x = rnd<R>(act_fn(x, e.act));
   return x;
+}
+
+template <bool R>
+__device__ __forceinline__ float apply_epi(float v, long r, long c,
+                                           const Epi& e) {
+  const float cv = e.beta != 0.0f ? e.c[r * e.ldc + c] : 0.0f;
+  const float bv = e.bias != nullptr ? e.bias[c] : 0.0f;
+  return apply_epi_at<R>(v, cv, bv, e);
 }

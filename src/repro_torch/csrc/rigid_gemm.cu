@@ -32,17 +32,29 @@
 //   memory, most of it the accumulator staging tile: above the 48 KB
 //   default, so the launch raises the limit with cudaFuncSetAttribute.
 //
-// Stage 2 (epilogue_pass_kernel): one thread per output element, grid
-// stride; reads the f32 accumulator (and C, and the bias) back from device
-// memory, applies the epilogue in Epilogue.apply's order (epilogue.cuh) and
-// writes out_dtype.  An identity epilogue skips stage 2 (the wrapper casts
-// the accumulator instead), as rigid_gemm_pallas does.
+// Stage 2 (epilogue_pass_kernel) reads the f32 accumulator (and C, and the
+// bias) back from device memory, applies the epilogue per element in
+// Epilogue.apply's order (the arithmetic of apply_epi<false> in
+// epilogue.cuh, which B1 fuses) and writes out_dtype.  It is bound by bytes
+// (4 read and 2 or 4 written per element, 4 more read with C) and, for the
+// tanh-gelu, close to bound by instruction issue, so what feeds it is
+// lean: a 2-D grid (column blocks x rows, rows strided past 65535) with
+// row and column from 32-bit block arithmetic, no division per element;
+// each thread takes 8 consecutive columns of a row with two 16-byte
+// streaming loads of the accumulator (two more of C, two of the bias
+// once) issued before first use, and one 16-byte store of 8 bf16 outputs
+// (two of f32) -- 2 columns where the pass is too small to fill the card
+// so (launch_pass).  Rows whose N, leading dimensions or pointers are not
+// 16-byte aligned take a scalar path in the same kernel.  An identity
+// epilogue skips stage 2 (the wrapper casts the accumulator instead), as
+// rigid_gemm_pallas does.
 //
 // What bounds it on the H100: the product's tensor-core rate and its
 // operand traffic, as for B1, plus the accumulator's write and read (8
 // bytes per output element), a second launch, and the 128-row tile's
 // padding when M is small -- the costs the comparison with the MTE route
 // is meant to show.
+#include <climits>
 #include <type_traits>
 
 #include "epilogue.cuh"
@@ -101,15 +113,143 @@ struct AccStore {
   }
 };
 
-__global__ void __launch_bounds__(256)
-    epilogue_pass_kernel(const float* acc, long M, long N, Epi epi) {
-  const long total = M * N;
-  for (long i = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<long>(gridDim.x) * blockDim.x) {
-    const long r = i / N, c = i % N;
-    store_from_f32(epi.out, r * epi.ldo + c, epi.out_type,
-                   apply_epi<false>(acc[i], r, c, epi));
+constexpr int PASS_THREADS = 128;
+
+// COLS (2 or 8) consecutive floats from p (aligned to 4 * COLS bytes),
+// streamed.
+template <int COLS>
+__device__ __forceinline__ void load_cols(float (&x)[COLS], const float* p) {
+  static_assert(COLS == 2 || COLS == 8, "2 or 8 columns a thread");
+  if constexpr (COLS == 8) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(p) + i);
+      x[4 * i] = v.x, x[4 * i + 1] = v.y, x[4 * i + 2] = v.z;
+      x[4 * i + 3] = v.w;
+    }
+  } else {
+    const float2 v = __ldcs(reinterpret_cast<const float2*>(p));
+    x[0] = v.x, x[1] = v.y;
   }
+}
+
+template <int COLS>
+__device__ __forceinline__ void store_cols(float* p, const float (&y)[COLS]) {
+  if constexpr (COLS == 8) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      __stcs(reinterpret_cast<float4*>(p) + i,
+             make_float4(y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]));
+  } else {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(y[0], y[1]));
+  }
+}
+
+// COLS bf16 outputs as one store of 2 * COLS bytes.
+template <int COLS>
+__device__ __forceinline__ void store_cols(__nv_bfloat16* p,
+                                           const float (&y)[COLS]) {
+  uint32_t h[COLS / 2];
+#pragma unroll
+  for (int j = 0; j < COLS / 2; ++j) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(y[2 * j], y[2 * j + 1]);
+    h[j] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  if constexpr (COLS == 8)
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(h[0], h[1], h[2], h[3]));
+  else
+    __stcs(reinterpret_cast<unsigned int*>(p), h[0]);
+}
+
+// Block (x, y): columns [PASS_THREADS * COLS * x, ...) of rows y,
+// y + gridDim.y, ...; each thread COLS consecutive columns of a row, every
+// load of which is issued before its first use.  `vec`: N, ldc, ldo and
+// every pointer allow 16-byte accesses; otherwise (and at a row's ragged
+// end) scalar loads and stores.
+template <typename TOut, int COLS>
+__global__ void __launch_bounds__(PASS_THREADS)
+    epilogue_pass_kernel(const float* acc, int M, int N, Epi epi, int vec) {
+  const int c0 = (blockIdx.x * PASS_THREADS + threadIdx.x) * COLS;
+  if (c0 >= N) return;
+  TOut* out = static_cast<TOut*>(epi.out);
+  const bool full = vec && c0 + COLS <= N;
+  const int n = min(COLS, N - c0);
+  float bv[COLS] = {};
+  if (epi.bias != nullptr) {
+    if (full) {
+      load_cols<COLS>(bv, epi.bias + c0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < COLS; ++j)
+        if (j < n) bv[j] = epi.bias[c0 + j];
+    }
+  }
+  for (int r = blockIdx.y; r < M; r += gridDim.y) {
+    const float* a = acc + static_cast<long>(r) * N + c0;
+    const float* c = epi.c + r * epi.ldc + c0;
+    TOut* o = out + r * epi.ldo + c0;
+    float x[COLS] = {}, cv[COLS] = {}, y[COLS];
+    if (full) {
+      load_cols<COLS>(x, a);
+      if (epi.beta != 0.0f) load_cols<COLS>(cv, c);
+    } else {
+#pragma unroll
+      for (int j = 0; j < COLS; ++j)
+        if (j < n) {
+          x[j] = a[j];
+          if (epi.beta != 0.0f) cv[j] = c[j];
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < COLS; ++j)
+      y[j] = apply_epi_at<false>(x[j], cv[j], bv[j], epi);
+    if (full) {
+      store_cols<COLS>(o, y);
+    } else {
+#pragma unroll
+      for (int j = 0; j < COLS; ++j)
+        if (j < n) o[j] = from_f32<TOut>(y[j]);
+    }
+  }
+}
+
+template <typename TOut, int COLS>
+int launch_pass(const float* acc, int M, int N, const Epi& epi,
+                cudaStream_t st) {
+  const auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = N % 8 == 0 && epi.ldc % 8 == 0 && epi.ldo % 8 == 0 &&
+                  a16(acc) && a16(epi.c) && a16(epi.bias) && a16(epi.out);
+  const dim3 grid((N + PASS_THREADS * COLS - 1) / (PASS_THREADS * COLS),
+                  M < 65535 ? M : 65535);
+  epilogue_pass_kernel<TOut, COLS><<<grid, PASS_THREADS, 0, st>>>(
+      acc, M, N, epi, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Columns a thread takes: 8 (two 16-byte loads in flight, the fewest
+// instructions per byte) where that grid still puts at least 4 blocks on
+// every SM; else 2, so that a small pass (a decode GEMV's, 4 rows) spreads
+// over more of the card with less code per thread: inside a decode step,
+// between the step's other kernels, such a pass ran slower at 8 columns a
+// thread than the one-element-a-thread pass before it, though not when
+// timed alone (PERF.md, Findings).
+template <typename TOut>
+int launch_pass(const float* acc, int M, int N, const Epi& epi,
+                cudaStream_t st) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long blocks8 = static_cast<long>((N + PASS_THREADS * 8 - 1) /
+                                         (PASS_THREADS * 8)) * M;
+  return blocks8 >= 4L * sms ? launch_pass<TOut, 8>(acc, M, N, epi, st)
+                             : launch_pass<TOut, 2>(acc, M, N, epi, st);
 }
 
 }  // namespace
@@ -151,13 +291,16 @@ extern "C" int epilogue_pass_launch(const void* acc, const void* c,
                                     long N, long ldc, float alpha, float beta,
                                     int has_softcap, float softcap, int act,
                                     int out_type, void* stream) {
-  if (M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || M > INT_MAX || N > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   Epi epi{alpha, beta, static_cast<const float*>(c), ldc,
           static_cast<const float*>(bias), softcap, has_softcap, act, out, N,
           out_type};
-  const long blocks = (M * N + 255) / 256;
-  const int grid = static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16);
-  epilogue_pass_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(acc), M, N, epi);
-  return (int)cudaGetLastError();
+  const float* a = static_cast<const float*>(acc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (out_type) {
+    case DT_F32: return launch_pass<float>(a, M, N, epi, st);
+    case DT_BF16: return launch_pass<__nv_bfloat16>(a, M, N, epi, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

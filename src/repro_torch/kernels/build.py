@@ -46,14 +46,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ``grouped_gemm_splitk`` B2's and B3's cluster split-K kernels,
 # ``flash_decode_paged`` / ``flash_decode_paged_mma`` B4's SIMT and mma
 # kernels, ``flash_attention`` / ``flash_attention_wgmma`` B5's SIMT and
-# wgmma kernels), and ``rigid_gemm.cu`` holds the separate epilogue pass
-# too.
+# wgmma kernels, ``flash_decode`` / ``flash_decode_mma`` B6's SIMT and mma
+# kernels), and ``rigid_gemm.cu`` holds the separate epilogue pass too.
 KERNEL_NAMES = ("mte_gemm", "mte_gemm_wgmma", "splitk_gemm",
                 "splitk_gemm_cluster", "grouped_gemm", "grouped_gemm_splitk",
                 "flash_decode_paged", "flash_decode_paged_mma",
                 "flash_attention", "flash_attention_wgmma", "rigid_gemm",
                 "rigid_gemm_wgmma", "epilogue_pass", "flash_decode",
-                "rglru_scan")
+                "flash_decode_mma", "rglru_scan")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -29,12 +29,19 @@ denominator is 0 returns zeros.  Returns (B, H, D) in q.dtype.
 :func:`flash_decode_kernel` is the counterpart of ``flash_decode_pallas``
 (B6).  q (B, H, D); k/v (B, Hkv, S, D) in f32 or bf16, in any layout whose
 D axis is contiguous (the serving ring is its (B, L, Hkv, D) storage seen
-through ``transpose(1, 2)``: the kernel reads it through strides, without
+through ``transpose(1, 2)``: the kernels read it through strides, without
 a copy); kv_positions (B, S) int32 (−1 ⇒ unwritten slot); q_pos (B,)
 int32.  Mask: ``kvpos ≥ 0``, ``kvpos ≤ q_pos`` and, with a window,
 ``kvpos > q_pos − window``; the softcap applies before it; V rows with
 ``kvpos < 0`` never reach the output.  A row whose softmax denominator is
-0 returns zeros.  Returns (B, H, D) in q.dtype.
+0 returns zeros.  Returns (B, H, D) in q.dtype.  Two engines, chosen by
+:func:`repro_torch.core.geometry.flat_decode_engine` (never a fallback):
+for a bf16 cache and query with G ≤ 16, D in {64, 128, 256} and strides
+TMA can take (:func:`tma_strided`), B4's mma engine over 16-slot tiles of
+the cache (``csrc/flash_decode_mma.cu``, counter ``flash_decode_mma``:
+one launch, a cluster of ``decode_kv_split`` CTAs per (sequence, kv
+head), pinned with ``kv_split``); for everything else the SIMT kernel
+(counter ``flash_decode``).
 """
 from __future__ import annotations
 
@@ -45,12 +52,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core.geometry import (MAX_CLUSTER, decode_engine,
-                                       decode_kv_split)
+                                       decode_kv_split, flat_decode_engine)
 from repro_torch.kernels import build
 from repro_torch.kernels.mte_gemm import DTYPE_CODES, tma_ready
 
 __all__ = ["flash_decode_paged_kernel", "flash_decode_paged_torch",
-           "flash_decode_kernel", "flash_decode_torch"]
+           "flash_decode_kernel", "flash_decode_torch", "tma_strided"]
 
 _NEG_INF = -1e30
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -66,7 +73,11 @@ _MMA_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                  + [ctypes.c_void_p])
-_CHUNK = 16   # logical positions a block processes at a time (csrc)
+_FLAT_MMA_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_long] * 6
+                      + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                      + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                      + [ctypes.c_void_p])
+_CHUNK = 16   # positions a SIMT block or an mma stage takes at a time (csrc)
 
 
 def flash_decode_paged_torch(q, k_pages, v_pages, page_table, seq_lens,
@@ -242,12 +253,29 @@ def flash_decode_torch(q, k, v, kv_positions, q_pos, *,
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def tma_strided(*tensors) -> bool:
+    """Whether TMA can read each tensor in place: its last axis contiguous,
+    every other axis of more than one element a positive multiple of 16
+    bytes apart, its first element 16-byte aligned."""
+    for x in tensors:
+        if x.stride(-1) != 1 or x.data_ptr() % 16:
+            return False
+        for size, stride in zip(x.shape[:-1], x.stride()[:-1]):
+            if size > 1 and (stride <= 0
+                             or stride * x.element_size() % 16):
+                return False
+    return True
+
+
 def flash_decode_kernel(q, k, v, kv_positions, q_pos, *,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
-    """One-token attention over a flat or ring cache: the B6 CUDA kernel
-    on CUDA tensors, :func:`flash_decode_torch` on CPU tensors."""
+                        scale: Optional[float] = None,
+                        kv_split: Optional[int] = None) -> torch.Tensor:
+    """One-token attention over a flat or ring cache: on CUDA tensors the
+    B6 engine :func:`repro_torch.core.geometry.flat_decode_engine` names
+    (``kv_split`` pins the mma engine's slices per row, 1–8), on CPU
+    tensors :func:`flash_decode_torch`."""
     dev = build.require_cuda(q, k, v, kv_positions, q_pos,
                              what="flash_decode")
     if dev is None:
@@ -261,20 +289,48 @@ def flash_decode_kernel(q, k, v, kv_positions, q_pos, *,
                          f"{tuple(v.shape)}, kv_positions "
                          f"{tuple(kv_positions.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if h % hkv or (h // hkv) * d > 4096:
-        raise ValueError(f"flash_decode: H={h}, Hkv={hkv}, D={d} "
-                         f"unsupported (G*D <= 4096)")
+    if h % hkv:
+        raise ValueError(f"flash_decode: H={h} is not a multiple of "
+                         f"Hkv={hkv}")
+    if k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_decode: the D axis of k and v must be "
+                         "contiguous")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_decode: q dtype {q.dtype}")
     if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
         raise TypeError(f"flash_decode: cache dtypes {k.dtype}, {v.dtype}")
-    if k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("flash_decode: the D axis of k and v must be "
-                         "contiguous")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    q = q.contiguous()
     kvp = kv_positions.to(torch.int32).contiguous()
     qp = q_pos.to(torch.int32).reshape(b).contiguous()
+    window_ = -1 if window is None else int(window)
+    if flat_decode_engine(k.dtype, q.dtype, h // hkv, d,
+                          tma_strided(k, v)) == "mma":
+        tiles = -(-s // _CHUNK)
+        if kv_split is None:
+            kv_split = decode_kv_split(b * hkv, tiles, _sm_count(dev))
+        elif not 1 <= kv_split <= MAX_CLUSTER:
+            raise ValueError(f"flash_decode: kv_split={kv_split} "
+                             f"(1..{MAX_CLUSTER})")
+        per_split = -(-tiles // kv_split)
+        q_ = tma_ready(q)
+        out = torch.empty_like(q_)
+        lib, fn = build.entry("flash_decode_mma", "flash_decode_mma_launch",
+                              _FLAT_MMA_ARGTYPES)
+        build.count_launch("flash_decode_mma")
+        err = fn(q_.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 *k.stride()[:3], *v.stride()[:3], kvp.data_ptr(),
+                 qp.data_ptr(), out.data_ptr(), b, h, hkv, d, s, window_,
+                 int(softcap is not None), float(softcap or 0.0),
+                 float(scale), kv_split, per_split, build.stream_ptr(dev))
+        build.check(lib, err, "flash_decode_mma")
+        return out
+    if kv_split is not None:
+        raise ValueError("flash_decode: kv_split pins the mma engine's "
+                         "slices; the SIMT kernel sizes its own")
+    if (h // hkv) * d > 4096:
+        raise ValueError(f"flash_decode: H={h}, Hkv={hkv}, D={d} "
+                         f"unsupported (G*D <= 4096)")
+    q = q.contiguous()
     out = torch.empty_like(q)
     n_split, per_split = _kv_split(b * hkv, s, dev)
     g = h // hkv
@@ -288,8 +344,8 @@ def flash_decode_kernel(q, k, v, kv_positions, q_pos, *,
              DTYPE_CODES[k.dtype], *k.stride()[:3], *v.stride()[:3],
              kvp.data_ptr(), qp.data_ptr(), part_m.data_ptr(),
              part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-             b, h, hkv, d, s, -1 if window is None else int(window),
-             int(softcap is not None), float(softcap or 0.0), float(scale),
-             n_split, per_split, build.stream_ptr(dev))
+             b, h, hkv, d, s, window_, int(softcap is not None),
+             float(softcap or 0.0), float(scale), n_split, per_split,
+             build.stream_ptr(dev))
     build.check(lib, err, "flash_decode")
     return out

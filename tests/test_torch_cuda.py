@@ -698,3 +698,130 @@ def test_paged_decode_engines_split_by_type(card):
             1e-5 if q.dtype == torch.float32 else 1e-2)
         assert {name for name in after if after[name] != before[name]} \
             == {counter}
+
+
+# -- B6's mma engine and B8's streaming epilogue pass -------------------------
+
+def _ring(b, length, g, hkv, d, q_pos, gen, strided=True):
+    """bf16 q and a (B, Hkv, L, D) cache -- the ring's (B, L, Hkv, D)
+    storage seen through transpose(1, 2), or contiguous -- with slot i
+    holding the newest position = i (mod L) at or before q_pos (-1 where
+    none has been written yet)."""
+    q = torch.randn(b, g * hkv, d, generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(b, length, hkv, d, generator=gen).to(
+        torch.bfloat16).transpose(1, 2) for _ in range(2))
+    if not strided:
+        k, v = k.contiguous(), v.contiguous()
+    qp = torch.tensor(q_pos, dtype=torch.int32)
+    kvp = qp[:, None] - (qp[:, None] - torch.arange(length)) % length
+    return q, k, v, torch.where(kvp >= 0, kvp, -1).to(torch.int32), qp
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 4, 16])
+def test_ring_decode_mma_every_split_matches_plain(card, g, d):
+    """B6's mma engine against its plain version (bf16; 1e-2 x (1 +
+    |ref|): P is rounded to bf16 before P V) at every cluster size 1-8,
+    over a 37-slot ring (not a multiple of the 16-slot tile) and a wrapped
+    2048-slot one, read through the ring's strided view and from a
+    contiguous cache, with -1 slots, plain and with a window and a
+    softcap, and an empty row (zeros out); bit-equal from call to call;
+    only the mma engine's counter moves."""
+    gen = torch.Generator().manual_seed(g * 1000 + d)
+    before = build.launch_counts()
+    launches = 0
+    for length, q_pos in [(37, [60, 20, 5, 36]),
+                          (2048, [2570, 1000, 2564, 2047])]:
+        for strided in (True, False):
+            q, k, v, kvp, qp = _ring(4, length, g, 2, d, q_pos, gen,
+                                     strided)
+            kvp[2] = -1                              # an empty row
+            assert tgeometry.flat_decode_engine(
+                k.dtype, q.dtype, g, d, tdecode.tma_strided(k, v)) == "mma"
+            args = [x.to(card) for x in (q, k, v, kvp, qp)]
+            for kw in ({}, {"window": 300, "softcap": 30.0}):
+                want = tdecode.flash_decode_torch(q, k, v, kvp, qp, **kw)
+                for split in range(1, 9):
+                    got = tdecode.flash_decode_kernel(*args, kv_split=split,
+                                                      **kw)
+                    assert got.dtype == torch.bfloat16
+                    _close(got, want, 1e-2)
+                    assert torch.count_nonzero(got[2]) == 0
+                    assert torch.equal(got, tdecode.flash_decode_kernel(
+                        *args, kv_split=split, **kw))
+                    launches += 2
+    after = build.launch_counts()
+    assert after["flash_decode_mma"] == before["flash_decode_mma"] + launches
+    assert after["flash_decode"] == before["flash_decode"]
+
+
+def test_ring_decode_engines_split_by_type_and_stride(card):
+    """f32 caches, D = 32, G > 16 and views TMA cannot read stay on the
+    SIMT kernel; the serving ring goes to the mma engine: each launch
+    counts on its own engine's counter only."""
+    gen = torch.Generator().manual_seed(17)
+    for case, counter in [("f32", "flash_decode"), ("d32", "flash_decode"),
+                          ("g17", "flash_decode"),
+                          ("padded", "flash_decode"),
+                          ("ring", "flash_decode_mma")]:
+        g, d = (17, 64) if case == "g17" else (4, 32 if case == "d32" else 64)
+        q, k, v, kvp, qp = _ring(3, 40, g, 1, d, [45, 17, 39], gen)
+        if case == "f32":
+            q, k, v = q.float(), k.float(), v.float()
+        args = [x.to(card) for x in (q, k, v, kvp, qp)]
+        if case == "padded":
+            # Rows 68 bf16 apart, made on the card (a copy to the card
+            # would be dense).
+            args[1], args[2] = (torch.nn.functional.pad(x, (0, 4))[..., :d]
+                                for x in args[1:3])
+            assert not tdecode.tma_strided(args[1], args[2])
+        before = build.launch_counts()
+        got = tdecode.flash_decode_kernel(*args, window=32)
+        after = build.launch_counts()
+        _close(got, tdecode.flash_decode_torch(q, k, v, kvp, qp, window=32),
+               1e-5 if q.dtype == torch.float32 else 1e-2)
+        assert {name for name in after if after[name] != before[name]} \
+            == {counter}
+
+
+def _bf16_ulp(x):
+    """One bf16 unit in the last place at each element of ``x`` (f32)."""
+    mag = x.abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("n", [16384, 2056, 257, 7])
+def test_epilogue_pass_every_option_matches_plain(card, n):
+    """B8's pass against its plain version at aligned N (the 16-byte
+    vector path) and odd N (the scalar path in the same kernel), with each
+    epilogue option alone and all together, each activation: f32 out
+    within 1e-5 x (1 + |ref|) (tanhf against PyTorch's tanh), bf16 out
+    within one bf16 ulp of the plain version's f32 result beyond that same
+    f32 difference; one ``epilogue_pass`` launch per call."""
+    gen = torch.Generator().manual_seed(n)
+    m = 9
+    acc = torch.randn(m, n, generator=gen) * 3
+    c = torch.randn(m, n, generator=gen)
+    bias = torch.randn(n, generator=gen)
+    epis = [tepilogue.Epilogue(activation=act)
+            for act in ("none", "relu", "gelu", "silu", "tanh")]
+    epis += [tepilogue.Epilogue(alpha=0.7, beta=0.5),
+             tepilogue.Epilogue(has_bias=True),
+             tepilogue.Epilogue(softcap=4.0),
+             tepilogue.Epilogue(alpha=0.7, beta=0.5, has_bias=True,
+                                softcap=20.0, activation="gelu")]
+    before = build.launch_counts()["epilogue_pass"]
+    for epi in epis:
+        want = trigid.epilogue_pass_torch(acc, c, bias, epilogue=epi)
+        for out in (torch.float32, torch.bfloat16):
+            got = trigid.epilogue_pass_kernel(
+                acc.to(card), c.to(card), bias.to(card), epilogue=epi,
+                out_dtype=out).cpu()
+            assert got.dtype == out
+            if out == torch.float32:
+                _close(got, want, 1e-5)
+            else:
+                diff = (got.float() - want).abs()
+                lim = _bf16_ulp(want) + 1e-5 * (1 + want.abs())
+                assert bool((diff <= lim).all()), epi
+    assert build.launch_counts()["epilogue_pass"] == before + 2 * len(epis)

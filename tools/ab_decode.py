@@ -2,8 +2,10 @@
 """Decode kernels of one checkout of the repo, timed on the card: B2 at the
 decode GEMMs of gemma_2b and recurrentgemma_9b (through the plan the plan
 cache grants, with the weight warm and cold in L2), B3 at the two decode
-q/k/v groups (with a SHA-256 of each output) and B4 at gemma_2b's decode
-attention.  Inputs are made on the card from fixed seeds, so two checkouts
+q/k/v groups, B4 at gemma_2b's decode attention, B6 at recurrentgemma_9b's
+ring decode attention (warm and cold) and B8's epilogue pass at the amx
+path's shapes and at a ragged one, each with a SHA-256 of its output (B2:
+none).  Inputs are made on the card from fixed seeds, so two checkouts
 see the same operands.
 
 Run it on two checkouts in turns (A, B, B, A), each in its own process, to
@@ -13,7 +15,9 @@ compare them on one card:
 
 ROOT is the checkout whose ``src/repro_torch`` and ``chip_smoke.py`` (for
 its timers) are used; the kernels build into ``ROOT/build``.  ``--same``
-FILE fails the run unless every B3 output hash equals the one in FILE.
+FILE fails the run unless every B3, B4 and epilogue-pass output hash
+equals the one in FILE (B6's engine may differ between checkouts; its
+hash shows that repeated calls agree).
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root")
     ap.add_argument("--out", required=True)
-    ap.add_argument("--same", help="a JSON file of an earlier run whose B3 "
-                    "output hashes this run must reproduce")
+    ap.add_argument("--same", help="a JSON file of an earlier run whose B3, "
+                    "B4 and pass output hashes this run must reproduce")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path[:0] = [os.path.join(root, "src"), root]
@@ -44,16 +48,36 @@ def main() -> int:
     from repro_torch.core.epilogue import Epilogue
     from repro_torch.graph import stack_group_weights
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_decode import flash_decode_paged_kernel
+    from repro_torch.kernels.flash_decode import (flash_decode_kernel,
+                                                  flash_decode_paged_kernel)
     from repro_torch.kernels.grouped_gemm import grouped_gemm_kernel
+    from repro_torch.kernels.rigid_gemm import epilogue_pass_kernel
     from repro_torch.kernels.splitk_gemm import mte_gemm_splitk_kernel
+
+    def sha(x):
+        torch.cuda.synchronize()
+        return hashlib.sha256(x.detach().contiguous().cpu().view(
+            torch.uint8).numpy().tobytes()).hexdigest()
+
+    def timed(run, cold=True):
+        """Hash of the first call's output (the same as a second call's,
+        or the run fails), and the warm (and cold) times."""
+        out = run()
+        row = {"sha256": sha(out)}
+        if sha(run()) != row["sha256"]:
+            raise AssertionError("ab_decode: two calls differ")
+        row["ms"] = chip_smoke.time_ms(run)
+        if cold:
+            row["cold_ms"] = chip_smoke.time_ms_cold(run)
+        return row
 
     build.build_all()
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    res = {"root": root, "nvidia_smi": smi, "b2": {}, "b3": {}, "b4": {}}
+    res = {"root": root, "nvidia_smi": smi, "b2": {}, "b3": {}, "b4": {},
+           "b6": {}, "pass": {}}
     cache = PlanCache()
     bf16 = torch.bfloat16
     for label, m, n, k, act in [
@@ -93,36 +117,66 @@ def main() -> int:
                                              group=len(widths), fmt="bf16"))
         run = lambda: grouped_gemm_kernel(  # noqa: E731
             xg, ws, geom=plan.geometry, out_dtype=bf16, widths=list(widths))
-        out = run()
-        torch.cuda.synchronize()
-        res["b3"][label] = {
-            "sha256": hashlib.sha256(
-                out.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
-            "ms": chip_smoke.time_ms(run),
-            "cold_ms": chip_smoke.time_ms_cold(run)}
+        res["b3"][label] = timed(run)
     gen = torch.Generator(device=dev).manual_seed(2)
     q, kp, vp, table, lens = chip_smoke.paged_inputs(
         dev, b=4, h=8, hkv=1, d=256, page=16, lens=[1030, 1041, 1024, 1047],
         dtype=bf16, gen=gen)
     run = lambda: flash_decode_paged_kernel(  # noqa: E731
         q, kp, vp, table, lens)
-    res["b4"]["4 slots x 8 heads x 256, ~1035 tokens"] = {
-        "ms": chip_smoke.time_ms(run),
-        "cold_ms": chip_smoke.time_ms_cold(run)}
+    res["b4"]["4 slots x 8 heads x 256, ~1035 tokens"] = timed(run)
+    # recurrentgemma_9b's local-layer decode: 4 slots x 16 heads on one kv
+    # head x D 256 over its wrapped 2048-slot ring, read through the
+    # (B, L, Hkv, D) storage, window 2048.
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, h, d, length = 4, 16, 256, 2048
+    ring_k, ring_v = (torch.randn(b, length, 1, d, generator=gen,
+                                  device=dev).to(bf16) for _ in range(2))
+    qp = torch.tensor([2570, 2581, 2564, 2587], dtype=torch.int32,
+                      device=dev)
+    idx = torch.arange(length, device=dev)
+    kvp = (qp[:, None] - (qp[:, None] - idx) % length).to(torch.int32)
+    q = torch.randn(b, h, d, generator=gen, device=dev).to(bf16)
+    run = lambda: flash_decode_kernel(  # noqa: E731
+        q, ring_k.transpose(1, 2), ring_v.transpose(1, 2), kvp, qp,
+        window=2048)
+    res["b6"]["ring 4x16x256 L=2048"] = timed(run)
+    # B8's pass: the amx path's gate (prefill chunk and decode) with gelu,
+    # the prefill shape with beta*C + bias + softcap, and a ragged N
+    # (not a multiple of 8) with every option.
+    gen = torch.Generator(device=dev).manual_seed(9)
+    full = Epilogue(alpha=0.7, beta=0.5, has_bias=True, softcap=20.0,
+                    activation="gelu")
+    for label, m, n, epi, out_dtype in [
+            ("gelu 512x16384 bf16", 512, 16384, Epilogue(activation="gelu"),
+             bf16),
+            ("gelu 4x16384 bf16", 4, 16384, Epilogue(activation="gelu"),
+             bf16),
+            ("beta*C+bias+softcap gelu 512x16384 bf16", 512, 16384, full,
+             bf16),
+            ("beta*C+bias+softcap gelu 130x257 f32", 130, 257, full,
+             torch.float32)]:
+        acc = torch.randn(m, n, generator=gen, device=dev) * 3
+        c = torch.randn(m, n, generator=gen, device=dev)
+        bias = torch.randn(n, generator=gen, device=dev)
+        run = lambda: epilogue_pass_kernel(  # noqa: E731
+            acc, c, bias, epilogue=epi, out_dtype=out_dtype)
+        res["pass"][label] = timed(run, cold=False)
     res["launches"] = {k: v for k, v in build.launch_counts().items() if v}
     with open(args.out, "w") as fh:
         json.dump(res, fh, indent=1)
     print(json.dumps(res))
     if args.same:
         with open(args.same) as fh:
-            ref = json.load(fh)["b3"]
-        for label, row in res["b3"].items():
-            if row["sha256"] != ref[label]["sha256"]:
-                print(f"ab_decode: B3 output at {label} differs from "
-                      f"{args.same}", file=sys.stderr)
-                return 1
-        print("ab_decode: every B3 output equals the reference's bit for "
-              "bit")
+            ref = json.load(fh)
+        for part in ("b3", "b4", "pass"):
+            for label, row in res[part].items():
+                if row["sha256"] != ref[part][label]["sha256"]:
+                    print(f"ab_decode: {part} output at {label} differs "
+                          f"from {args.same}", file=sys.stderr)
+                    return 1
+        print("ab_decode: every B3, B4 and pass output equals the "
+              "reference's bit for bit")
     return 0
 
 
