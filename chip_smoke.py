@@ -20,8 +20,9 @@ Phases (any failure raises and the script exits non-zero):
    ``flash_decode_paged_mma``, and SIMT, ``flash_decode_paged``), B5 on
    both of its engines (TMA + wgmma, ``flash_attention_wgmma``, and SIMT,
    ``flash_attention``), B6 on both of its engines (the mma kernel over
-   the ring, ``flash_decode_mma``, and SIMT, ``flash_decode``), B7
-   ``rglru_scan`` --
+   the ring, ``flash_decode_mma``, and SIMT, ``flash_decode``), B7 on
+   both of its engines (the staged scan, ``rglru_scan_staged``, and the
+   direct one, ``rglru_scan``; bit for bit, from zero and from h0) --
    at the exact shapes the serving phase launches (bf16; f32 for B7;
    gemma_2b's and recurrentgemma_9b's prefill and decode projections for
    B1, B2 and B8 stage 1 and decode q/k/v groups for B3, each printed with
@@ -34,7 +35,8 @@ Phases (any failure raises and the script exits non-zero):
    library call for the same function (``torch.matmul``, ``torch.bmm`` on
    the stacked operands, ``F.gelu`` or ``F.scaled_dot_product_attention``;
    none for B7), timed only as a yardstick; the decode rows of B2, B3, B4
-   and B6 also with the L2 cache cold and at every cluster size, and B8's
+   and B6 also with the L2 cache cold and at every cluster size, B7's
+   staged engine cold too, and B8's
    pass at three shapes (the prefill gate's gelu, the same with beta*C +
    bias + softcap, the decode gate's gelu).
 3. The whole path held against the CPU: gemma_2b.reduced() in fp32 with
@@ -44,7 +46,8 @@ Phases (any failure raises and the script exits non-zero):
    on its tile loop), one 4096-token chunk through it on the eager path
    (B1's tile loop: fp32 GEMMs whose grid fills the card), and
    recurrentgemma_9b.reduced() in the default configuration (prompts
-   longer than its 16-slot ring, chunks of 8): first-token logits within
+   longer than its 16-slot ring, chunks of 8; and with an RG-LRU width of
+   126, which B7 runs on its direct engine): first-token logits within
    1e-3, identical greedy token streams.
 4. Full-width serving (``CONFIGS``, ``WORKLOADS``) in bf16 with seeded
    random weights, 4 slots, 16-token pages, 512-token prefill chunks, 6
@@ -58,14 +61,16 @@ Phases (any failure raises and the script exits non-zero):
    launched, every bf16 B1 and B8 stage-1 launch on the wgmma engine,
    every decode GEMM on B2's cluster engine, every decode q/k/v group on
    B3's split-K engine, every paged decode attention on B4's mma engine,
-   every ring decode attention on B6's mma engine and every prefill
-   attention on B5's wgmma engine: the tile loops' and
-   the SIMT kernels' counters must stay 0, the profiled decode step must
-   count the launches ``DECODE_STEP_LAUNCHES`` names, and no prefill
-   projection may be planned off B1 or B8), and it prints decode ms per
-   step, prefill tokens/s, peak memory, each compiled program's grouping
-   decision and plans, and a profile of a decode step and a prefill chunk
-   (idle share, launches per call).
+   every ring decode attention on B6's mma engine, every prefill
+   attention on B5's wgmma engine and every prefill scan on B7's staged
+   engine: the tile loops', the SIMT kernels' and B7's direct engine's
+   counters must stay 0, the profiled decode step must count the launches
+   ``DECODE_STEP_LAUNCHES`` names, the profiled resumed prefill chunk one
+   staged B7 launch per RG-LRU layer and no cumulative sum, and no
+   prefill projection may be planned off B1 or B8), and it prints decode
+   ms per step, prefill tokens/s, peak memory, each compiled program's
+   grouping decision and plans, and a profile of a decode step and a
+   prefill chunk (idle share, launches per call).
 
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -1075,39 +1080,84 @@ def ring_decode_phase(dev, rows):
 
 
 def rglru_phase(dev, rows):
-    """B7 against its plain version, bit for bit: ragged S (not a multiple
-    of the Pallas kernel's 64-step chunks) at W = 48, then the serving
-    prefill's (1, 512, 4096) f32.  No single PyTorch call computes this
-    recurrence, so it has no library time."""
+    """B7 on both of its engines against its plain version, bit for bit,
+    from zero and from a random h0: ragged S (not a multiple of the staged
+    engine's 64-step span) at W = 48, a partial last slab (W = 4100), W
+    not a multiple of 4 (4098: the direct engine by choice) and S = 4096
+    (a 4096-token chunk); then the serving prefill's (1, 512, 4096) f32
+    from h0 (a resumed chunk): the staged engine warm and with the L2
+    cold, the direct engine beside it, the staged engine at a 4096-token chunk, and
+    the direct engine's own row at the (1, 8, 126) chunk phase 3 gives
+    it.  No single PyTorch call computes
+    this recurrence, so it has no library time."""
     import torch
+    from repro_torch.core.geometry import scan_engine
     from repro_torch.kernels.rglru_scan import (rglru_scan_kernel,
                                                 rglru_scan_torch)
     gen = torch.Generator(device=dev).manual_seed(8)
 
     def inputs(b, s, w):
         a = torch.rand(b, s, w, generator=gen, device=dev) * 0.5 + 0.5
-        return a, torch.randn(b, s, w, generator=gen, device=dev)
+        return (a, torch.randn(b, s, w, generator=gen, device=dev),
+                torch.randn(b, w, generator=gen, device=dev))
 
-    for b, s, w in [(2, 1, 48), (2, 63, 48), (3, 100, 48), (1, 70, 4100)]:
-        a, x = inputs(b, s, w)
-        check(f"rglru_scan {b}x{s}x{w}", rglru_scan_kernel(a, x),
-              rglru_scan_torch(a, x), 0.0)
-    a, x = inputs(1, 512, 4096)
-    run = lambda: rglru_scan_kernel(a, x)  # noqa: E731
-    plain = lambda: rglru_scan_torch(a, x)  # noqa: E731
-    err = check("rglru_scan main-path 1x512x4096 f32", run(), plain(), 0.0)
-    flops = 2.0 * a.numel()
-    nbytes = 12.0 * a.numel()
-    row = {"kernel": "rglru_scan", "shape": "1x512x4096",
-           "max_abs_err": err, "tol": 0.0, "ms": time_ms(run),
-           "plain_ms": time_ms(plain),
-           "bound_ms": bound_ms(flops, nbytes, PEAK["fp32"]),
-           "bound_by": bound_by(flops, nbytes, PEAK["fp32"]),
-           "library_ms": None}
-    rows.append(row)
-    log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-        f"library none (no single PyTorch call computes the recurrence)")
+    def variants(b, s, w):
+        """(counter, engine) of every engine that can run the shape."""
+        out = [("rglru_scan", "direct")]
+        if scan_engine(torch.float32, b, s, w) == "staged":
+            out.append(("rglru_scan_staged", "staged"))
+        return out
+
+    for b, s, w in [(2, 1, 48), (2, 63, 48), (3, 100, 48), (1, 70, 4100),
+                    (1, 70, 4098), (1, 4096, 4096)]:
+        a, x, h0 = inputs(b, s, w)
+        for h in (None, h0):
+            want = rglru_scan_torch(a, x, h)
+            start = "none" if h is None else "random"
+            for name, engine in variants(b, s, w):
+                got = rglru_scan_kernel(a, x, h, engine=engine)
+                check(f"{name} {b}x{s}x{w} h0={start}", got, want, 0.0)
+
+    def timed_row(name, shape, a, x, h, cold, **kw):
+        run = lambda: rglru_scan_kernel(a, x, h, **kw)  # noqa: E731
+        plain = lambda: rglru_scan_torch(a, x, h)  # noqa: E731
+        err = check(f"{name} main-path {shape} f32", run(), plain(), 0.0)
+        flops = 2.0 * a.numel()
+        nbytes = 12.0 * a.numel() + (4.0 * h.numel() if h is not None
+                                     else 0.0)
+        row = {"kernel": name, "shape": shape, "max_abs_err": err,
+               "tol": 0.0, "ms": time_ms(run), "plain_ms": time_ms(plain),
+               "bound_ms": bound_ms(flops, nbytes, PEAK["fp32"]),
+               "bound_by": bound_by(flops, nbytes, PEAK["fp32"]),
+               "library_ms": None}
+        if cold:
+            row["cold_ms"] = time_ms_cold(run)
+        rows.append(row)
+        return row
+
+    a, x, h0 = inputs(1, 512, 4096)
+    require(scan_engine(a.dtype, 1, 512, 4096) == "staged",
+            "the serving chunk's scan must run on B7's staged engine")
+    row = timed_row("rglru_scan_staged", "1x512x4096", a, x, h0, True)
+    direct = timed_row("rglru_scan", "1x512x4096", a, x, h0, True,
+                       engine="direct")
+    log(f"    staged: time {row['ms']:.4f} ms, L2 cold "
+        f"{row['cold_ms']:.4f} ms; direct {direct['ms']:.4f} ms (cold "
+        f"{direct['cold_ms']:.4f}); bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, library none "
+        f"(no single PyTorch call computes the recurrence)")
+    # A 4096-token chunk: long enough that bytes, not the chain of S
+    # dependent multiply-adds per channel, set the staged engine's time.
+    a, x, h0 = inputs(1, 4096, 4096)
+    long = timed_row("rglru_scan_staged", "1x4096x4096", a, x, h0, True)
+    log(f"    staged at 1x4096x4096: time {long['ms']:.4f} ms, L2 cold "
+        f"{long['cold_ms']:.4f} ms, bound {long['bound_ms']:.4f} ms")
+    a, x, h0 = inputs(1, 8, 126)
+    require(scan_engine(a.dtype, 1, 8, 126) == "direct",
+            "W = 126 must run on B7's direct engine")
+    small = timed_row("rglru_scan", "1x8x126", a, x, h0, False)
+    log(f"    direct at 1x8x126: time {small['ms']:.4f} ms, bound "
+        f"{small['bound_ms']:.4f} ms, plain {small['plain_ms']:.4f} ms")
 
 
 # -- phase 3: the whole path on the card against the CPU -----------------------
@@ -1134,15 +1184,15 @@ PATH_KERNELS = {
               "flash_decode_paged_mma", "flash_attention_wgmma"),
     "recurrentgemma": ("mte_gemm_wgmma", "splitk_gemm_cluster",
                        "grouped_gemm_splitk", "flash_decode_mma",
-                       "rglru_scan"),
+                       "rglru_scan_staged"),
 }
 # Counters that must stay 0 at full width: every bf16 B1 launch (all of
 # them prefill projections) and every bf16 B8 stage-1 launch runs on the
 # wgmma engine, every decode GEMM on B2's cluster engine, every decode
 # q/k/v group on B3's split-K engine, every paged decode attention on B4's
 # mma engine, every prefill attention on B5's wgmma engine, every ring
-# decode attention on B6's mma engine -- not on the tile loops or the SIMT
-# kernels.
+# decode attention on B6's mma engine, every prefill scan on B7's staged
+# engine -- not on the tile loops, the SIMT kernels or B7's direct engine.
 NOT_ON_PATH = {
     "default": ("mte_gemm", "splitk_gemm", "grouped_gemm",
                 "flash_decode_paged", "flash_attention"),
@@ -1150,7 +1200,7 @@ NOT_ON_PATH = {
     "eager": ("mte_gemm", "splitk_gemm", "flash_decode_paged",
               "flash_attention"),
     "recurrentgemma": ("mte_gemm", "splitk_gemm", "grouped_gemm",
-                       "flash_decode"),
+                       "flash_decode", "rglru_scan"),
 }
 # Launches of the new engines per profiled decode step: gemma_2b's 18
 # layers run B2 on o, gate, up and down (and on q, k, v on the eager path)
@@ -1302,9 +1352,12 @@ def reduced_recurrent_phase(dev):
     """recurrentgemma_9b.reduced() in fp32, default configuration, card
     against CPU: 32-token prompts (twice the 16-slot ring) in chunks of 8,
     first-token logits within 1e-3, identical greedy streams from the
-    engine (3 requests on 2 slots, so one prefills while others decode).
-    Returns the card's launch counts of the engine run (fp32 runs B3's
-    tile loop and B6's SIMT kernel, whose launches count here)."""
+    engine (3 requests on 2 slots, so one prefills while others decode);
+    then the same prompt's logits with an RG-LRU width of 126 (not a
+    multiple of 4, so B7 runs on its direct engine).  Returns the card's
+    launch counts of the engine run (key ``reduced-recurrent``: fp32 runs
+    B3's tile loop and B6's SIMT kernel, whose launches count here) and of
+    the width-126 chunks (``reduced-recurrent-w126``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1313,28 +1366,47 @@ def reduced_recurrent_phase(dev):
     from repro_torch.serving.engine import Request, ServingEngine
 
     cfg = get_config("recurrentgemma_9b").reduced()      # fp32
-    reset_planning()
-    params_cpu = model_lib.init_params(cfg, seed=0, device="cpu")
-    params_gpu = to_device(params_cpu, dev)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n_tok, dtype=np.int32)
                for n_tok in (32, 9, 30, 17)]
-    logits = {}
-    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
-        cache = model_lib.init_paged_cache(cfg, 2, 64, num_pages=17,
-                                           page_size=8, device=device)
-        table = torch.arange(1, 9, dtype=torch.int32, device=device)[None]
-        toks = torch.as_tensor(prompts[0].astype(np.int64), device=device)
-        for p0 in range(0, 32, 8):
-            out, cache = model_lib.prefill_chunk(
-                params, {"tokens": toks[None, p0:p0 + 8],
-                         "page_table": table, "slot": 1}, cache, cfg,
-                pos0=p0)
-        logits[str(device)] = out.cpu()
-    err = max_err(logits[str(dev)], logits["cpu"])
-    log(f"  reduced recurrentgemma fp32 first-token logits cuda vs cpu: "
-        f"max_abs_err={err:.3e} tol=1e-3")
-    require(err <= 1e-3, f"recurrentgemma first-token logits differ by {err}")
+
+    def first_token_logits(cfg, label):
+        """The first prompt through four 8-token chunks on both devices;
+        returns the parameters and the card's launch counts."""
+        reset_planning()
+        params_cpu = model_lib.init_params(cfg, seed=0, device="cpu")
+        params_gpu = to_device(params_cpu, dev)
+        logits = {}
+        for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+            cache = model_lib.init_paged_cache(cfg, 2, 64, num_pages=17,
+                                               page_size=8, device=device)
+            table = torch.arange(1, 9, dtype=torch.int32,
+                                 device=device)[None]
+            toks = torch.as_tensor(prompts[0].astype(np.int64),
+                                   device=device)
+            build.reset_launch_counts()
+            for p0 in range(0, 32, 8):
+                out, cache = model_lib.prefill_chunk(
+                    params, {"tokens": toks[None, p0:p0 + 8],
+                             "page_table": table, "slot": 1}, cache, cfg,
+                    pos0=p0)
+            logits[str(device)] = out.cpu()
+            if device == dev:
+                counts = build.launch_counts()
+        err = max_err(logits[str(dev)], logits["cpu"])
+        log(f"  reduced recurrentgemma fp32 {label}first-token logits cuda "
+            f"vs cpu: max_abs_err={err:.3e} tol=1e-3")
+        require(err <= 1e-3,
+                f"recurrentgemma {label}first-token logits differ by {err}")
+        return params_cpu, params_gpu, counts
+
+    wide = dataclasses.replace(cfg, rglru=dataclasses.replace(cfg.rglru,
+                                                              width=126))
+    _, _, w126 = first_token_logits(wide, "(RG-LRU width 126) ")
+    log(f"  reduced recurrentgemma width 126 launches {w126}")
+    require(w126["rglru_scan"] > 0 and w126["rglru_scan_staged"] == 0,
+            "RG-LRU width 126 must run B7's direct engine only")
+    params_cpu, params_gpu, _ = first_token_logits(cfg, "")
     outs = {}
     for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
         eng = ServingEngine(params, cfg, device=device, slots=2,
@@ -1350,7 +1422,8 @@ def reduced_recurrent_phase(dev):
             f"launches {counts}")
         if device == dev:
             path_counts = counts
-            for kernel in ("grouped_gemm", "flash_decode", "rglru_scan"):
+            for kernel in ("grouped_gemm", "flash_decode",
+                           "rglru_scan_staged"):
                 require(counts[kernel] > 0,
                         f"reduced recurrentgemma: {kernel} not launched")
     for rid in outs["cpu"]:
@@ -1359,7 +1432,8 @@ def reduced_recurrent_phase(dev):
                 f"recurrentgemma greedy stream of request {rid} differs")
     log("  reduced recurrentgemma engine: greedy streams identical on cuda "
         "and cpu")
-    return path_counts
+    return {"reduced-recurrent": path_counts,
+            "reduced-recurrent-w126": w126}
 
 
 # -- phase 4: full-width serving ---------------------------------------------
@@ -1520,6 +1594,21 @@ def serving_phase(dev, name):
         require(per_chunk.get("flash_attention_wgmma") == kinds.count("attn"),
                 f"[{name}] {per_chunk.get('flash_attention_wgmma')} wgmma "
                 f"B5 launches per prefill chunk, want {kinds.count('attn')}")
+    if kinds.count("rglru"):
+        # Every RG-LRU layer of the resumed chunk scans once, on the staged
+        # engine, from the carried state: no cumulative sum is left.
+        require(per_chunk.get("rglru_scan_staged") == kinds.count("rglru"),
+                f"[{name}] {per_chunk.get('rglru_scan_staged')} staged B7 "
+                f"launches per prefill chunk, want {kinds.count('rglru')}")
+        chunk = profile["prefill_chunk"]
+        scans = [r["kernel"] for r in chunk["kernels"]
+                 if "cumsum" in r["kernel"].lower()
+                 or "tensor_kernel_scan" in r["kernel"]
+                 or "DeviceScan" in r["kernel"]]
+        require(chunk["cumsum_calls"] == 0 and not scans,
+                f"[{name}] the resumed prefill chunk ran "
+                f"{chunk['cumsum_calls']} torch.cumsum calls, kernels "
+                f"{scans}")
     summary = {
         "config": name, "arch": arch, "requests": len(out),
         "max_tokens": max_tokens,
@@ -1657,6 +1746,8 @@ def profile_steps(eng, dev, work, steps: int = 10):
             # time of the kernel it launched; count the kernels only.
             if dev_us > 0 and not e.key.startswith(("aten::", "cuda")):
                 rows.append((dev_us / n / 1e3, e.key, e.count // n))
+        cumsum_calls = sum(e.count for e in prof.key_averages()
+                           if e.key == "aten::cumsum") // n
         busy_ms = sum(r[0] for r in rows)
         device_kernels = sum(r[2] for r in rows)
         rows.sort(reverse=True)
@@ -1666,6 +1757,7 @@ def profile_steps(eng, dev, work, steps: int = 10):
                  for ms, k, c in rows]
         out[name] = {"wall_ms": wall_ms,
                      "wrapper_launches": per_call,
+                     "cumsum_calls": cumsum_calls,
                      "device_kernels": device_kernels if rows else None,
                      "device_busy_ms": busy_ms if rows else None,
                      "idle_share": (1 - busy_ms / wall_ms) if rows
@@ -1728,8 +1820,11 @@ KERNELS = [
     ("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
      "src/repro/kernels/flash_decode.py:87", "fp32 ring 2x4x32 L=16",
      "reduced-recurrent"),
-    ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
+    ("rglru_scan_staged", "src/repro_torch/csrc/rglru_scan_staged.cu",
      "src/repro/kernels/rglru_scan.py:45", "1x512x4096", "recurrentgemma"),
+    ("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
+     "src/repro/kernels/rglru_scan.py:45", "1x8x126",
+     "reduced-recurrent-w126"),
 ]
 
 
@@ -1780,7 +1875,7 @@ def main() -> int:
     log("== 3. reduced gemma_2b (fp32): card against CPU, default and amx")
     counts, serving = reduced_phase(dev), {}
     log("== 3. reduced recurrentgemma_9b (fp32): card against CPU, default")
-    counts["reduced-recurrent"] = reduced_recurrent_phase(dev)
+    counts.update(reduced_recurrent_phase(dev))
     for name, (arch, overrides) in CONFIGS.items():
         log(f"== 4. full-width {arch} serving (bf16), configuration "
             f"[{name}] {overrides or '(defaults)'}")

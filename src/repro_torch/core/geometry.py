@@ -19,13 +19,15 @@ hand-written kernels implement.  Two mainloops exist (``csrc/``):
 
 :func:`gemm_engine` says which one runs a launch: a pure function of the
 operand type, the accumulator, the tile and the alignment of K and N.
-B2, B3, B4, B5 and B6 have a second engine each, chosen the same way:
+B2–B7 have a second engine each, chosen the same way:
 :func:`splitk_engine` and :func:`grouped_engine` (the cluster split-K
 mainloop of ``splitk_cluster.cuh`` for bf16 GEMMs of at most 16 rows,
 else the tile loop), :func:`decode_engine` and :func:`flat_decode_engine`
 (mma.sync over 16-position tiles of the pages or of the flat or ring
-cache for bf16, else the SIMT kernel) and :func:`attention_engine` (TMA +
-wgmma for bf16 at head dims 64/128/256, else the SIMT kernel).
+cache for bf16, else the SIMT kernel), :func:`attention_engine` (TMA +
+wgmma for bf16 at head dims 64/128/256, else the SIMT kernel) and
+:func:`scan_engine` (B7: spans staged in shared memory by TMA for f32
+with W a multiple of 4, else one thread per channel).
 The solver's base tile is the tile loop's tile for M; the plan cache
 (``core/autotune.py``) adds the wgmma tiles the shape and format allow and
 prices every candidate.
@@ -59,7 +61,7 @@ __all__ = ["HopperProfile", "BlockGeometry", "H100_SPEC", "hopper_profile",
            "SPLITK_DEEP_DEPTH", "splitk_engine", "splitk_cluster_split",
            "DECODE_MMA_MAX_G", "DECODE_MMA_DIMS", "decode_engine",
            "flat_decode_engine", "decode_kv_split", "attention_engine",
-           "attention_kv_split"]
+           "attention_kv_split", "scan_engine"]
 
 Policy = Literal["mte", "amx", "sifive", "vector"]
 
@@ -285,6 +287,20 @@ def flat_decode_engine(kv_dtype, q_dtype, g: int, d: int,
     if aligned and decode_engine(kv_dtype, q_dtype, g, d) == "mma":
         return "mma"
     return "simt"
+
+
+def scan_engine(dtype, b: int, s: int, w: int, aligned: bool = True) -> str:
+    """The engine that runs one B7 launch: ``"staged"`` (a block per batch
+    row and slab of 32 channels, the spans of a and b brought
+    into shared memory by TMA, ``rglru_scan_staged.cu``) for f32 with W a
+    multiple of 4 (TMA's 16-byte row stride), 16-byte aligned bases of a
+    and b (``aligned``), 1 <= B <= 65535 and S >= 1; ``"direct"`` (one
+    thread per channel reading device memory, ``rglru_scan.cu``)
+    otherwise."""
+    if (dtype_name(dtype) == "float32" and w % 4 == 0 and aligned
+            and 1 <= b <= 65535 and s >= 1):
+        return "staged"
+    return "direct"
 
 
 def decode_kv_split(rows: int, pages: int, sm_count: int = 132) -> int:

@@ -148,8 +148,8 @@ def flash_decode_paged(q, k_pages, v_pages, page_table, seq_lens, *,
                                      scale=scale)
 
 
-def rglru_scan(a, b):
-    """RG-LRU linear recurrence h_t = a_t·h_{t-1} + b_t (B7, serving
-    prefill)."""
+def rglru_scan(a, b, h0=None):
+    """RG-LRU linear recurrence h_t = a_t·h_{t-1} + b_t from h_{-1} = h0
+    (zeros when None) (B7, serving prefill)."""
     from repro_torch.kernels.rglru_scan import rglru_scan_kernel
-    return rglru_scan_kernel(a, b)
+    return rglru_scan_kernel(a, b, h0)

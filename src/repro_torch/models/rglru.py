@@ -11,11 +11,11 @@ Recurrent Unit; their product goes through an output projection::
     h_t = a_t · h_{t-1} + sqrt(1 - a_t²) · (i_t · x_t)
 
 Every projection runs through the kernel GEMMs (:func:`dense`).  A
-prefill chunk evaluates the recurrence through B7 (``ops.rglru_scan``),
-a decode step as one element-wise update (plain PyTorch: it runs no
-kernel in JAX either).  The serving cache of a layer is ``{"h": (B, W)
-f32, "conv": (B, conv_width, W)}``: the state and the raw-projection tail
-the conv of the next chunk or step needs.
+prefill chunk evaluates the recurrence through B7 (``ops.rglru_scan``,
+from the carried state), a decode step as one element-wise update (plain
+PyTorch: it runs no kernel in JAX either).  The serving cache of a layer
+is ``{"h": (B, W) f32, "conv": (B, conv_width, W)}``: the state and the
+raw-projection tail the conv of the next chunk or step needs.
 """
 from __future__ import annotations
 
@@ -85,10 +85,12 @@ def rglru_forward(x, p, cfg, *, cache: Optional[dict] = None):
 
     ``cache`` (the previous chunk's ``{"h", "conv"}``) resumes the
     recurrence mid-sequence: the conv sees the previous chunk's raw tail
-    instead of zero padding, and the initial state folds in as
-    ``h_t += exp(Σ_{k≤t} log a_k)·h₀`` on top of the zero-state scan (a
-    cumulative sum of logs, as JAX computes it).  The scan runs through
-    B7.  The returned cache is new tensors; the caller stores it."""
+    instead of zero padding, and the scan (B7) starts from the carried
+    state h₀.  JAX scans from zero and folds the state in afterwards as
+    ``h_t += exp(Σ_{k≤t} log a_k)·h₀`` (a cumulative sum of logs); the
+    two agree within float32 rounding.  Scanned in several chunks, the
+    same inputs give bit for bit the states of one scan.  The returned
+    cache is new tensors; the caller stores it."""
     from repro_torch.kernels import ops
     gate = dense(x, p["gate_proj"], cfg, activation="gelu")
     u_raw = dense(x, p["rec_proj"], cfg)
@@ -99,9 +101,8 @@ def rglru_forward(x, p, cfg, *, cache: Optional[dict] = None):
     u = _causal_conv(conv_in.float(), p["conv_w"].float(),
                      p["conv_b"].float())[:, hist:].to(u_raw.dtype)
     log_a, gated = _gates(u, p, cfg)
-    h = ops.rglru_scan(*_scan_inputs(log_a, gated))
-    if cache is not None:
-        h = h + torch.exp(torch.cumsum(log_a, dim=1)) * cache["h"][:, None]
+    h = ops.rglru_scan(*_scan_inputs(log_a, gated),
+                       None if cache is None else cache["h"])
     out = dense(gate * h.to(x.dtype), p["out_proj"], cfg)
     width = cfg.rglru.conv_width
     tail = conv_in[:, -width:]

@@ -213,15 +213,50 @@ def test_flat_decode_kernel_matches_plain(card, dtype):
     assert build.launch_counts()["flash_decode"] == before + 3
 
 
-@pytest.mark.parametrize("s", [1, 63, 64, 100])
-def test_rglru_scan_kernel_matches_plain_bit_for_bit(card, s):
-    gen = torch.Generator().manual_seed(s)
-    a = torch.rand(2, s, 48, generator=gen) * 0.5 + 0.5
-    b = torch.randn(2, s, 48, generator=gen)
-    before = build.launch_counts()["rglru_scan"]
-    got = tscan.rglru_scan_kernel(a.to(card), b.to(card))
-    _close(got, tscan.rglru_scan_torch(a, b), 0.0)
-    assert build.launch_counts()["rglru_scan"] == before + 1
+def _scan_case(s, w, with_h0, seed):
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.rand(2, s, w, generator=gen) * 0.5 + 0.5
+    b = torch.randn(2, s, w, generator=gen)
+    h0 = torch.randn(2, w, generator=gen) if with_h0 else None
+    return a, b, h0
+
+
+@pytest.mark.parametrize("engine", ["staged", "direct"])
+@pytest.mark.parametrize("s", [1, 63, 64, 100, 4096])
+@pytest.mark.parametrize("w", [48, 4096])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_kernel_matches_plain_bit_for_bit(card, engine, s, w,
+                                                     with_h0):
+    """Both B7 engines against the plain version, bit for bit, from zero and from h0; the counter of the
+    engine that ran moves by one."""
+    a, b, h0 = _scan_case(s, w, with_h0, seed=s + w)
+    counter = "rglru_scan_staged" if engine == "staged" else "rglru_scan"
+    before = build.launch_counts()
+    got = tscan.rglru_scan_kernel(
+        a.to(card), b.to(card), None if h0 is None else h0.to(card),
+        engine=engine)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    assert torch.equal(got.cpu(), tscan.rglru_scan_torch(a, b, h0))
+    for name in ("rglru_scan", "rglru_scan_staged"):
+        assert after[name] == before[name] + (name == counter)
+
+
+@pytest.mark.parametrize("w,counter", [(4096, "rglru_scan_staged"),
+                                       (4100, "rglru_scan_staged"),
+                                       (4098, "rglru_scan")])
+def test_rglru_scan_kernel_runs_the_chosen_engine(card, w, counter):
+    """Unpinned, the wrapper launches the engine ``scan_engine`` names (a
+    partial last slab at W = 4100; W = 4098 is not a multiple of 4), and
+    the staged engine cannot be pinned where it does not apply."""
+    a, b, h0 = _scan_case(70, w, True, seed=w)
+    before = build.launch_counts()[counter]
+    got = tscan.rglru_scan_kernel(a.to(card), b.to(card), h0.to(card))
+    assert torch.equal(got.cpu(), tscan.rglru_scan_torch(a, b, h0))
+    assert build.launch_counts()[counter] == before + 1
+    if counter == "rglru_scan":
+        with pytest.raises(ValueError):
+            tscan.rglru_scan_kernel(a.to(card), b.to(card), engine="staged")
 
 
 # -- the wgmma engine of B1 and B8 stage 1 ------------------------------------

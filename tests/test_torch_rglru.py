@@ -73,6 +73,109 @@ def test_rglru_scan_refuses_other_dtypes():
         tscan.rglru_scan_kernel(t(a).double(), t(b).double())
 
 
+def _h0(b=2, w=48, seed=0):
+    rng = np.random.default_rng(1000 + seed)
+    return rng.standard_normal((b, w)).astype(np.float32)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 100, 512])
+def test_rglru_scan_from_h0_matches_pallas_and_fold(s):
+    """The scan from h0 against JAX's resumed chunk: the zero-state Pallas
+    scan plus exp(cumsum(log a))·h0 (``repro/models/rglru.py``), up to
+    the served chunk's 512 steps.  The two round differently (a product
+    of the a's against the exp of a sum of their logs): within 1e-5
+    (``TOL["fp32"]``)."""
+    a, b = _scan_inputs(s, seed=s)
+    h0 = _h0(seed=s)
+    ja = jnp.asarray(a)
+    want = (rglru_scan_pallas(ja, jnp.asarray(b), interpret=True)
+            + jnp.exp(jnp.cumsum(jnp.log(ja), axis=1))
+            * jnp.asarray(h0)[:, None])
+    got = tscan.rglru_scan_torch(t(a), t(b), t(h0))
+    np.testing.assert_allclose(n(got), n(want), rtol=TOL["fp32"],
+                               atol=TOL["fp32"])
+    # On CPU tensors the kernel wrapper is the plain version.
+    assert torch.equal(tscan.rglru_scan_kernel(t(a), t(b), t(h0)), got)
+
+
+@pytest.mark.parametrize("lo", [0.9, 0.99, 0.999])
+def test_rglru_scan_from_h0_matches_fold_at_served_chunk(lo):
+    """The same comparison at the served chunk's 512 steps with the decay
+    near 1, as RG-LRU's gates give it, and the input scaled by
+    sqrt(1 - a²) as ``models/rglru.py:_scan_inputs`` scales it (so h
+    stays O(1)): within 1e-5 (``TOL["fp32"]``).  Unscaled inputs let h
+    grow far past 1 there, and the two then differ by a few ulps of h
+    (ROADMAP §C)."""
+    rng = np.random.default_rng(512)
+    a = rng.uniform(lo, 1.0, (2, 512, 48)).astype(np.float32)
+    b = (rng.standard_normal((2, 512, 48))
+         * np.sqrt(1.0 - a.astype(np.float64) ** 2)).astype(np.float32)
+    h0 = _h0(seed=512)
+    ja = jnp.asarray(a)
+    want = (rglru_scan_pallas(ja, jnp.asarray(b), interpret=True)
+            + jnp.exp(jnp.cumsum(jnp.log(ja), axis=1))
+            * jnp.asarray(h0)[:, None])
+    got = tscan.rglru_scan_torch(t(a), t(b), t(h0))
+    np.testing.assert_allclose(n(got), n(want), rtol=TOL["fp32"],
+                               atol=TOL["fp32"])
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 100])
+def test_rglru_scan_zero_state_is_unchanged(s):
+    """Without h0 the plain version gives the zero-state scan bit for bit:
+    the oracle's (``kernels/ref.py``, one step per position from zeros)
+    and an explicit zero h0's."""
+    a, b = _scan_inputs(s, seed=s)
+    got = tscan.rglru_scan_torch(t(a), t(b))
+    assert torch.equal(got, tref.rglru_scan(t(a), t(b)))
+    assert torch.equal(got, tscan.rglru_scan_torch(t(a), t(b),
+                                                   torch.zeros(2, 48)))
+
+
+@pytest.mark.parametrize("cut", [1, 37, 64, 99])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_chained_equals_one_scan(cut, with_h0):
+    """Two chained calls, the second from the first's last row, give one
+    call's states bit for bit: a chunked prefill carries exactly the
+    state of one scan."""
+    a, b = _scan_inputs(100, seed=cut)
+    ta, tb = t(a), t(b)
+    h0 = t(_h0(seed=cut)) if with_h0 else None
+    whole = tscan.rglru_scan_torch(ta, tb, h0)
+    first = tscan.rglru_scan_torch(ta[:, :cut], tb[:, :cut], h0)
+    second = tscan.rglru_scan_torch(ta[:, cut:], tb[:, cut:], first[:, -1])
+    assert torch.equal(torch.cat([first, second], dim=1), whole)
+
+
+@pytest.mark.parametrize("shape,bad", [((2, 47), ValueError),
+                                       ((48,), ValueError),
+                                       ((2, 48), TypeError)])
+def test_rglru_scan_refuses_bad_h0(shape, bad):
+    a, b = _scan_inputs(4)
+    h0 = torch.zeros(shape, dtype=torch.float64 if bad is TypeError
+                     else torch.float32)
+    with pytest.raises(bad):
+        tscan.rglru_scan_kernel(t(a), t(b), h0)
+
+
+@pytest.mark.parametrize("dtype,b,s,w,aligned,want", [
+    ("float32", 1, 512, 4096, True, "staged"),     # the serving chunk
+    ("float32", 1, 4096, 4096, True, "staged"),    # a 4096-token chunk
+    ("float32", 1, 8, 128, True, "staged"),        # reduced recurrentgemma
+    ("float32", 2, 1, 48, True, "staged"),
+    ("float32", 1, 70, 4100, True, "staged"),      # a partial last slab
+    ("float32", 1, 8, 126, True, "direct"),        # W not a multiple of 4
+    ("float32", 1, 70, 4098, True, "direct"),
+    ("float32", 1, 512, 4096, False, "direct"),    # unaligned bases
+    ("bfloat16", 1, 512, 4096, True, "direct"),
+    ("float32", 70000, 4, 48, True, "direct"),     # past the grid's B
+])
+def test_scan_engine_table(dtype, b, s, w, aligned, want):
+    from repro_torch.core import geometry
+    assert geometry.scan_engine(getattr(torch, dtype), b, s, w,
+                                aligned) == want
+
+
 # -- B6: flat / ring flash decode (the cases of tests/test_flash_decode.py) --
 
 def _decode_case(case, seed=0):

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Decode kernels of one checkout of the repo, timed on the card: B2 at the
-decode GEMMs of gemma_2b and recurrentgemma_9b (through the plan the plan
-cache grants, with the weight warm and cold in L2), B3 at the two decode
-q/k/v groups, B4 at gemma_2b's decode attention, B6 at recurrentgemma_9b's
-ring decode attention (warm and cold) and B8's epilogue pass at the amx
-path's shapes and at a ragged one, each with a SHA-256 of its output (B2:
-none).  Inputs are made on the card from fixed seeds, so two checkouts
-see the same operands.
+"""Decode kernels and B7 of one checkout of the repo, timed on the card: B2
+at the decode GEMMs of gemma_2b and recurrentgemma_9b (through the plan
+the plan cache grants, with the weight warm and cold in L2), B3 at the two
+decode q/k/v groups, B4 at gemma_2b's decode attention, B6 at
+recurrentgemma_9b's ring decode attention (warm and cold), B8's epilogue
+pass at the amx path's shapes and at a ragged one, and B7 at the serving
+prefill's (1, 512, 4096) on every engine the checkout has,
+from zero and, where the checkout takes one, from h0, each with a SHA-256
+of its output (B2: none).  Inputs are made on the card from fixed seeds,
+so two checkouts see the same operands.
 
 Run it on two checkouts in turns (A, B, B, A), each in its own process, to
 compare them on one card:
@@ -16,13 +18,17 @@ compare them on one card:
 ROOT is the checkout whose ``src/repro_torch`` and ``chip_smoke.py`` (for
 its timers) are used; the kernels build into ``ROOT/build``.  ``--same``
 FILE fails the run unless every B3, B4 and epilogue-pass output hash
-equals the one in FILE (B6's engine may differ between checkouts; its
-hash shows that repeated calls agree).
+equals the one in FILE, and every B7 row FILE has too (the direct
+engine from zero, in a checkout before the staged engine) equals FILE's
+(B6's engine may differ between checkouts; its hash shows that repeated
+calls agree).  Every run fails unless its B7 rows from zero share one
+hash, and its rows from h0 another: the engines agree bit for bit.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import math
 import os
@@ -50,6 +56,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_decode import (flash_decode_kernel,
                                                   flash_decode_paged_kernel)
+    from repro_torch.kernels import rglru_scan as scan_mod
     from repro_torch.kernels.grouped_gemm import grouped_gemm_kernel
     from repro_torch.kernels.rigid_gemm import epilogue_pass_kernel
     from repro_torch.kernels.splitk_gemm import mte_gemm_splitk_kernel
@@ -77,7 +84,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     res = {"root": root, "nvidia_smi": smi, "b2": {}, "b3": {}, "b4": {},
-           "b6": {}, "pass": {}}
+           "b6": {}, "pass": {}, "b7": {}}
     cache = PlanCache()
     bf16 = torch.bfloat16
     for label, m, n, k, act in [
@@ -162,20 +169,46 @@ def main() -> int:
         run = lambda: epilogue_pass_kernel(  # noqa: E731
             acc, c, bias, epilogue=epi, out_dtype=out_dtype)
         res["pass"][label] = timed(run, cold=False)
+    # B7 at the serving prefill's (1, 512, 4096) f32, on every engine the
+    # checkout's wrapper can pin, from zero and, where it takes one, from
+    # h0 (a resumed chunk).
+    gen = torch.Generator(device=dev).manual_seed(8)
+    a = torch.rand(1, 512, 4096, generator=gen, device=dev) * 0.5 + 0.5
+    x = torch.randn(1, 512, 4096, generator=gen, device=dev)
+    h0 = torch.randn(1, 4096, generator=gen, device=dev)
+    takes = inspect.signature(scan_mod.rglru_scan_kernel).parameters
+    for engine in ["direct"] + (["staged"] if "engine" in takes else []):
+        kw = {"engine": engine} if "engine" in takes else {}
+        for operands in ([(a, x)] + ([(a, x, h0)] if "h0" in takes
+                                     else [])):
+            start = "random" if len(operands) == 3 else "none"
+            label = f"{engine} 1x512x4096 h0={start}"
+            run = lambda: scan_mod.rglru_scan_kernel(  # noqa: E731
+                *operands, **kw)
+            res["b7"][label] = timed(run)
     res["launches"] = {k: v for k, v in build.launch_counts().items() if v}
     with open(args.out, "w") as fh:
         json.dump(res, fh, indent=1)
     print(json.dumps(res))
+    for start in ("none", "random"):
+        hashes = {row["sha256"] for label, row in res["b7"].items()
+                  if label.endswith(f"h0={start}")}
+        if len(hashes) > 1:
+            print(f"ab_decode: B7's engines differ from h0={start}",
+                  file=sys.stderr)
+            return 1
     if args.same:
         with open(args.same) as fh:
             ref = json.load(fh)
-        for part in ("b3", "b4", "pass"):
+        for part in ("b3", "b4", "pass", "b7"):
             for label, row in res[part].items():
+                if part == "b7" and label not in ref.get(part, {}):
+                    continue
                 if row["sha256"] != ref[part][label]["sha256"]:
                     print(f"ab_decode: {part} output at {label} differs "
                           f"from {args.same}", file=sys.stderr)
                     return 1
-        print("ab_decode: every B3, B4 and pass output equals the "
+        print("ab_decode: every B3, B4, pass and B7 output equals the "
               "reference's bit for bit")
     return 0
 
