@@ -48,7 +48,9 @@ Phases (any failure raises and the script exits non-zero):
    recurrentgemma_9b.reduced() in the default configuration (prompts
    longer than its 16-slot ring, chunks of 8; and with an RG-LRU width of
    126, which B7 runs on its direct engine): first-token logits within
-   1e-3, identical greedy token streams.
+   1e-3, identical greedy token streams from the card's engine in its
+   defaults (async, depth 2, the decode step replayed as a CUDA graph)
+   and the CPU's synchronous eager engine.
 4. Full-width serving (``CONFIGS``, ``WORKLOADS``) in bf16 with seeded
    random weights, 4 slots, 16-token pages, 512-token prefill chunks, 6
    requests × 24 greedy tokens: gemma_2b (18 layers, d_model 2048, vocab
@@ -56,8 +58,16 @@ Phases (any failure raises and the script exits non-zero):
    three configurations — the defaults, the rigid ``amx`` policy and
    slice 1's eager path — then recurrentgemma_9b (38 layers, d_model 4096;
    2560-token prompts, so its 2048-slot rings wrap in prefill and decode)
-   in the defaults.  For each, launch counters are zeroed just before the
-   run and read just after (every kernel of that path must have
+   in the defaults.  Each configuration is served twice: (a) with
+   ``async_steps=False`` and the eager decode step, synchronised around
+   each prefill chunk and decode launch (the earlier slices' numbers),
+   and (b) in the engine's defaults (async, depth 2, the decode step
+   replayed as one CUDA graph) with nothing synchronised inside; the
+   greedy tokens of (a) and (b) must be equal request for request, (b)
+   must reach ``steps_in_flight_max`` 2, and one steady step of (b) runs
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no sync but the
+   retire's event wait).  For each run, launch counters are zeroed just
+   before it and read just after (every kernel of that path must have
    launched, every bf16 B1 and B8 stage-1 launch on the wgmma engine,
    every decode GEMM on B2's cluster engine, every decode q/k/v group on
    B3's split-K engine, every paged decode attention on B4's mma engine,
@@ -65,12 +75,15 @@ Phases (any failure raises and the script exits non-zero):
    attention on B5's wgmma engine and every prefill scan on B7's staged
    engine: the tile loops', the SIMT kernels' and B7's direct engine's
    counters must stay 0, the profiled decode step must count the launches
-   ``DECODE_STEP_LAUNCHES`` names, the profiled resumed prefill chunk one
-   staged B7 launch per RG-LRU layer and no cumulative sum, and no
-   prefill projection may be planned off B1 or B8), and it prints decode
-   ms per step, prefill tokens/s, peak memory, each compiled program's
-   grouping decision and plans, and a profile of a decode step and a
-   prefill chunk (idle share, launches per call).
+   ``DECODE_STEP_LAUNCHES`` names, eager and replayed (captured delta x
+   replays), the profiled resumed prefill chunk one staged B7 launch per
+   RG-LRU layer and no cumulative sum, and no prefill projection may be
+   planned off B1 or B8), and it prints (a)'s decode ms per step and
+   prefill tokens/s, (b)'s run wall time, decode tokens/s over the run
+   and unsynchronised wall ms of the steps that ran no prefill chunk,
+   peak memory, each compiled program's grouping decision and plans, and
+   a profile of a decode step (eager and replayed) and a prefill chunk
+   (idle share, launches per call).
 
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -1292,7 +1305,10 @@ def reduced_phase(dev):
 
         outs = {}
         for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
-            eng = ServingEngine(params, cfg, device=device, **kw)
+            # The card in the engine's defaults (async, the decode step as
+            # a CUDA graph), the CPU synchronous and eager.
+            eng = ServingEngine(params, cfg, device=device,
+                                async_steps=device == dev, **kw)
             for rid, p in enumerate(prompts):
                 eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
             build.reset_launch_counts()
@@ -1300,8 +1316,13 @@ def reduced_phase(dev):
             counts = build.launch_counts()
             log(f"  reduced engine [{name}] on {device}: "
                 f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
-                f"launches {counts}")
+                f"launches {counts}; steps_in_flight_max "
+                f"{eng.steps_in_flight_max}, graphs "
+                f"{sorted(eng.decode_step.graphs)}")
             if device == dev:
+                require(eng.decode_step.graph and eng.decode_step.graphs,
+                        f"[{name}] the card's decode step was not replayed "
+                        f"as a CUDA graph")
                 path_counts[f"reduced-{name}"] = counts
                 marks = (("splitk_gemm", "grouped_gemm",
                           "flash_decode_paged", "flash_attention")
@@ -1314,7 +1335,7 @@ def reduced_phase(dev):
             require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
                     f"[{name}] greedy stream of request {rid} differs")
         log(f"  reduced engine [{name}]: greedy streams identical on cuda "
-            f"and cpu")
+            f"(async + graph) and cpu (synchronous, eager)")
 
     # B1's tile loop runs where an fp32 GEMM's tile grid fills the card:
     # one 4096-token chunk through the reduced model on the eager path
@@ -1411,7 +1432,7 @@ def reduced_recurrent_phase(dev):
     for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
         eng = ServingEngine(params, cfg, device=device, slots=2,
                             cache_len=64, prefill_len=32, page_size=8,
-                            prefill_chunk=8)
+                            prefill_chunk=8, async_steps=device == dev)
         for rid, p in enumerate(prompts[1:]):
             eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
         build.reset_launch_counts()
@@ -1419,8 +1440,13 @@ def reduced_recurrent_phase(dev):
         counts = build.launch_counts()
         log(f"  reduced recurrentgemma engine on {device}: "
             f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
-            f"launches {counts}")
+            f"launches {counts}; steps_in_flight_max "
+            f"{eng.steps_in_flight_max}, graphs "
+            f"{sorted(eng.decode_step.graphs)}")
         if device == dev:
+            require(eng.decode_step.graph and eng.decode_step.graphs,
+                    "reduced recurrentgemma: the card's decode step was not "
+                    "replayed as a CUDA graph")
             path_counts = counts
             for kernel in ("grouped_gemm", "flash_decode",
                            "rglru_scan_staged"):
@@ -1431,7 +1457,7 @@ def reduced_recurrent_phase(dev):
         require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
                 f"recurrentgemma greedy stream of request {rid} differs")
     log("  reduced recurrentgemma engine: greedy streams identical on cuda "
-        "and cpu")
+        "(async + graph) and cpu (synchronous, eager)")
     return {"reduced-recurrent": path_counts,
             "reduced-recurrent-w126": w126}
 
@@ -1440,8 +1466,14 @@ def reduced_recurrent_phase(dev):
 
 def serving_phase(dev, name):
     """Serve configuration ``name`` at full width (bf16, seed 0) on its
-    arch's workload (``WORKLOADS``); launch counters are zeroed just
-    before ``run`` and read just after."""
+    arch's workload (``WORKLOADS``), twice: (a) synchronous with the eager
+    decode step (``async_steps=False, cuda_graph=False``), synchronised
+    around each prefill chunk and decode launch so the host clock
+    measures device work, as in the earlier slices; (b) in the engine's
+    defaults (async, depth 2, the decode step replayed as a CUDA graph)
+    with nothing synchronised inside.  Launch counters are zeroed just
+    before each run and read just after; the greedy tokens of (a) and (b)
+    must be equal request for request."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1456,19 +1488,35 @@ def serving_phase(dev, name):
     work = WORKLOADS[arch]
     cfg = dataclasses.replace(get_config(arch), **overrides)
     max_tokens = 24
-    reset_planning()
-    t0 = time.perf_counter()
-    params = model_lib.init_params(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    log(f"  {arch} params: {model_lib.param_count(params) / 1e9:.3f} B "
-        f"({cfg.param_dtype}), init {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, work["prefill_len"],
+                            dtype=np.int32) for _ in range(6)]
+    if work["shared"]:
+        # Request 4 is admitted when 0 finishes and aliases its first
+        # chunk.
+        prompts[4][:work["shared"]] = prompts[0][:work["shared"]]
+    engine_kw = dict(slots=4, page_size=16, prefill_len=work["prefill_len"],
+                     cache_len=work["cache_len"], prefill_chunk=512,
+                     device=dev)
+
+    def build_engine(engine_cls, **kw):
+        """A fresh plan cache, the seed-0 weights, the engine; the raw
+        weights are dropped once the engine holds its own (each run
+        builds them anew, so neither run's peak holds the other's)."""
+        reset_planning()
+        t0 = time.perf_counter()
+        params = model_lib.init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        log(f"  {arch} params: {model_lib.param_count(params) / 1e9:.3f} B "
+            f"({cfg.param_dtype}), init {time.perf_counter() - t0:.1f} s")
+        return engine_cls(params, cfg, **kw, **engine_kw)
 
     timing = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
               "decode_steps": 0, "decode_tokens": 0}
 
     class TimedEngine(ServingEngine):
-        """Synchronises around each prefill chunk and decode launch so the
-        host clock measures device work."""
+        """(a): synchronises around each prefill chunk and decode launch
+        so the host clock measures device work."""
 
         def _advance_prefill(self, slot):
             torch.cuda.synchronize()
@@ -1487,59 +1535,135 @@ def serving_phase(dev, name):
             timing["decode_steps"] += 1
             timing["decode_tokens"] += len(decoding)
 
-    eng = TimedEngine(params, cfg, slots=4, page_size=16,
-                      prefill_len=work["prefill_len"],
-                      cache_len=work["cache_len"], prefill_chunk=512,
-                      device=dev)
-    del params
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, work["prefill_len"],
-                            dtype=np.int32) for _ in range(6)]
-    if work["shared"]:
-        # Request 4 is admitted when 0 finishes and aliases its first
-        # chunk.
-        prompts[4][:work["shared"]] = prompts[0][:work["shared"]]
-    torch.cuda.synchronize()
-    build.reset_launch_counts()
-    t = time.perf_counter()
-    for rid, p in enumerate(prompts):
-        eng.submit(Request(rid=rid, prompt=p, max_tokens=max_tokens))
-    out = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    counts = build.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    steps = []     # (b): (wall ms, ran a prefill chunk, captured a graph)
+
+    class StepTimedEngine(ServingEngine):
+        """(b): the host clock around each engine step, unsynchronised,
+        noting whether the step ran a prefill chunk or a capture; one
+        steady step (a decode in flight, nothing prefilling or waiting,
+        the graph captured) runs under
+        ``torch.cuda.set_sync_debug_mode("error")``: any synchronising
+        call but the retire's event wait raises."""
+        sync_checked_at = None
+
+        def _advance_prefill(self, slot):
+            self._ran_prefill = True
+            super()._advance_prefill(slot)
+
+        def step(self):
+            self._ran_prefill = False
+            graphs = len(self.decode_step.graphs)
+            check = (self.sync_checked_at is None and graphs
+                     and self.steps_in_flight >= 1 and not self._prefilling
+                     and not self.sched.waiting)
+            t = time.perf_counter()
+            if check:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    super().step()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                self.sync_checked_at = self.step_idx
+            else:
+                super().step()
+            steps.append((1e3 * (time.perf_counter() - t),
+                          self._ran_prefill,
+                          len(self.decode_step.graphs) != graphs))
+
+    def serve(eng):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t = time.perf_counter()
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=max_tokens))
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = build.launch_counts()
+        log(f"  [{name}{eng.label}] served {len(out)} requests in "
+            f"{wall:.3f} s: statuses "
+            f"{ {r: v.status for r, v in out.items()} }")
+        log(f"  [{name}{eng.label}] launch counts: {counts}")
+        for rid, resp in out.items():
+            require(resp.status == "ok", resp)
+            require(len(resp) == max_tokens, (rid, len(resp)))
+            require(all(0 <= tok < cfg.vocab for tok in resp), rid)
+        for kernel in PATH_KERNELS[name]:
+            require(counts[kernel] > 0, f"[{name}{eng.label}] {kernel} was "
+                    f"never launched on the main path")
+        for kernel in NOT_ON_PATH[name]:
+            require(counts[kernel] == 0,
+                    f"[{name}{eng.label}] {counts[kernel]} launches of "
+                    f"{kernel} at full width: every bf16 launch must run on "
+                    f"its new engine")
+        return out, counts, wall, torch.cuda.max_memory_allocated()
+
+    eng = build_engine(TimedEngine, async_steps=False, cuda_graph=False)
+    eng.label = " (a) sync eager"
+    out_a, counts_a, wall_a, peak_a = serve(eng)
     m = eng.metrics()
-    log(f"  [{name}] served {len(out)} requests in {wall:.2f} s: statuses "
-        f"{ {r: v.status for r, v in out.items()} }")
-    log(f"  [{name}] launch counts: {counts}")
-    log(f"  [{name}] prefill: {timing['prefill_tokens']} tokens in "
+    log(f"  [{name} (a)] prefill: {timing['prefill_tokens']} tokens in "
         f"{timing['prefill_s']:.3f} s = "
         f"{timing['prefill_tokens'] / timing['prefill_s']:.1f} tokens/s")
-    log(f"  [{name}] decode: {timing['decode_tokens']} tokens in "
+    log(f"  [{name} (a)] decode: {timing['decode_tokens']} tokens in "
         f"{timing['decode_steps']} steps, {timing['decode_s']:.3f} s = "
         f"{timing['decode_tokens'] / timing['decode_s']:.1f} tokens/s, "
         f"{1e3 * timing['decode_s'] / timing['decode_steps']:.3f} ms/step")
-    log(f"  [{name}] peak memory: {peak / 2**30:.2f} GiB; prefix_hit_pages="
-        f"{m['prefix_hit_pages']}, prefill_tokens={m['prefill_tokens']}, "
-        f"cached_prefill_tokens={m['cached_prefill_tokens']}, programs "
-        f"compiled={m['graph_programs_compiled']} "
-        f"hits={m['graph_program_hits']}")
-    for rid, resp in out.items():
-        require(resp.status == "ok", resp)
-        require(len(resp) == max_tokens, (rid, len(resp)))
-        require(all(0 <= tok < cfg.vocab for tok in resp), rid)
+    log(f"  [{name} (a)] peak memory: {peak_a / 2**30:.2f} GiB; "
+        f"prefix_hit_pages={m['prefix_hit_pages']}, prefill_tokens="
+        f"{m['prefill_tokens']}, cached_prefill_tokens="
+        f"{m['cached_prefill_tokens']}")
     if work["shared"]:
         require(m["prefix_hit_pages"] > 0, m)
-    for kernel in PATH_KERNELS[name]:
-        require(counts[kernel] > 0,
-                f"[{name}] {kernel} was never launched on the main path")
-    for kernel in NOT_ON_PATH[name]:
-        require(counts[kernel] == 0,
-                f"[{name}] {counts[kernel]} launches of {kernel} at full "
-                f"width: every bf16 launch must run on its new engine")
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = build_engine(StepTimedEngine)
+    eng.label = " (b) async graph"
+    require(eng.async_steps and eng.pipeline_depth == 2
+            and eng.decode_step.graph, "(b) must run the engine's defaults")
+    out_b, counts, wall_b, peak_b = serve(eng)
+    m = eng.metrics()
+    for rid in out_a:
+        require(list(out_b[rid]) == list(out_a[rid]),
+                f"[{name}] request {rid}: the async + graph run's greedy "
+                f"tokens differ from the synchronous eager run's")
+    require(eng.steps_in_flight_max >= 2,
+            f"[{name}] steps_in_flight_max {eng.steps_in_flight_max} < 2")
+    require(eng.sync_checked_at is not None,
+            f"[{name}] no steady step ran under the sync check")
+    if work["shared"]:
+        require(m["prefix_hit_pages"] > 0, m)
+    steady = [ms for ms, prefill, captured in steps
+              if not prefill and not captured]
+    async_run = {
+        "wall_s": wall_b, "steps": len(steps),
+        "decode_tokens": m["decode_tokens"],
+        "decode_tokens_per_s": m["decode_tokens"] / wall_b,
+        "steady_steps": len(steady),
+        "steady_ms_per_step_mean": statistics.mean(steady),
+        "steady_ms_per_step_median": statistics.median(steady),
+        "prefill_step_ms_mean": statistics.mean(
+            [ms for ms, prefill, _ in steps if prefill]),
+        "steps_in_flight_max": eng.steps_in_flight_max,
+        "delivery_lag_mean": m["delivery_lag_mean"],
+        "sync_checked_at_step": eng.sync_checked_at,
+        "captured_deltas": {str(k): v[2]
+                            for k, v in eng.decode_step.graphs.items()},
+        "peak_memory_gib": peak_b / 2**30}
+    log(f"  [{name} (b)] greedy tokens equal to (a) for all {len(out_a)} "
+        f"requests; steps_in_flight_max {eng.steps_in_flight_max}, "
+        f"delivery_lag_mean {m['delivery_lag_mean']:.3f}; step "
+        f"{eng.sync_checked_at} ran under set_sync_debug_mode('error') "
+        f"with no sync but the retire's event wait")
+    log(f"  [{name} (b)] run wall {wall_b:.3f} s (a: {wall_a:.3f} s), "
+        f"{async_run['decode_tokens_per_s']:.1f} decode tokens/s over the "
+        f"run; {len(steady)} steady steps (no prefill chunk): "
+        f"{async_run['steady_ms_per_step_mean']:.3f} ms/step mean, "
+        f"{async_run['steady_ms_per_step_median']:.3f} median; peak memory "
+        f"{peak_b / 2**30:.2f} GiB; captured deltas "
+        f"{async_run['captured_deltas']}")
     # Finite logits at full width (the engine quarantines non-finite rows;
     # check one prefill's logits directly too).
     cache = model_lib.init_paged_cache(cfg, 1, 1024, num_pages=65,
@@ -1577,19 +1701,24 @@ def serving_phase(dev, name):
     profile = profile_steps(eng, dev, work)
     # Every decode q/k/v group (one per attention layer where the decode
     # step groups them) and every paged prefill attention (one per global
-    # attention layer) ran on the new engines.
+    # attention layer) ran on the new engines; the replayed step counts
+    # (captured delta x replays) what the eager step launches.
     kinds = [mixer for mixer, _ in eng.cfg.layer_kinds]
-    per_step = profile["decode_step"]["wrapper_launches"]
     per_chunk = profile["prefill_chunk"]["wrapper_launches"]
-    if attn_lib.grouped_decode(eng.cfg):
-        want = kinds.count("attn") + kinds.count("local")
-        require(per_step.get("grouped_gemm_splitk") == want,
-                f"[{name}] {per_step.get('grouped_gemm_splitk')} split-K "
-                f"B3 launches per decode step, want {want}")
-    for kernel, want in DECODE_STEP_LAUNCHES[name].items():
-        require(per_step.get(kernel) == want,
-                f"[{name}] {per_step.get(kernel)} launches of {kernel} per "
-                f"decode step, want {want}")
+    for call in ("decode_step", "decode_replay"):
+        per_step = profile[call]["wrapper_launches"]
+        if attn_lib.grouped_decode(eng.cfg):
+            want = kinds.count("attn") + kinds.count("local")
+            require(per_step.get("grouped_gemm_splitk") == want,
+                    f"[{name}] {call}: {per_step.get('grouped_gemm_splitk')}"
+                    f" split-K B3 launches per decode step, want {want}")
+        for kernel, want in DECODE_STEP_LAUNCHES[name].items():
+            require(per_step.get(kernel) == want,
+                    f"[{name}] {call}: {per_step.get(kernel)} launches of "
+                    f"{kernel} per decode step, want {want}")
+    require(profile["decode_replay"]["wrapper_launches"]
+            == profile["decode_step"]["wrapper_launches"],
+            f"[{name}] a replay counts other launches than the eager step")
     if kinds.count("attn"):
         require(per_chunk.get("flash_attention_wgmma") == kinds.count("attn"),
                 f"[{name}] {per_chunk.get('flash_attention_wgmma')} wgmma "
@@ -1610,7 +1739,7 @@ def serving_phase(dev, name):
                 f"{chunk['cumsum_calls']} torch.cumsum calls, kernels "
                 f"{scans}")
     summary = {
-        "config": name, "arch": arch, "requests": len(out),
+        "config": name, "arch": arch, "requests": len(out_b),
         "max_tokens": max_tokens,
         "prefill_tokens_per_s": timing["prefill_tokens"]
         / timing["prefill_s"],
@@ -1619,10 +1748,10 @@ def serving_phase(dev, name):
         / timing["decode_steps"],
         "decode_steps": timing["decode_steps"],
         "prefill_chunks": timing["prefill_tokens"] // 512,
-        "peak_memory_gib": peak / 2**30, "wall_s": wall,
+        "peak_memory_gib": peak_a / 2**30, "wall_s": wall_a,
         "prefix_hit_pages": m["prefix_hit_pages"],
-        "launch_counts": counts, "programs": programs,
-        "profile": profile}
+        "launch_counts_sync": counts_a, "launch_counts": counts,
+        "async": async_run, "programs": programs, "profile": profile}
     del eng
     torch.cuda.empty_cache()
     return counts, summary
@@ -1685,10 +1814,15 @@ def step_bounds(eng, positions, chunk: int, pos0: int):
 def profile_steps(eng, dev, work, steps: int = 10):
     """``torch.profiler`` over a few full-width decode steps (4 slots at
     the workload's ``decode`` positions, over the cache the serving run
-    left) and one 512-token prefill chunk at ``pos0`` into slot 0: wall
-    time per call, device busy time (sum of kernel times), the device's
-    idle share, the kernels that take the most device time, and the
-    call's bound (:func:`step_bounds`)."""
+    left), run eagerly and as replays of the engine's captured greedy
+    step (the same staged inputs: :class:`DecodeStep`), and one
+    512-token prefill chunk at ``pos0`` into slot 0: wall time per call,
+    device busy time (sum of kernel times), the device's idle share, the
+    kernels that take the most device time, and the call's bound
+    (:func:`step_bounds`).  The replay's idle share is also given against
+    the eager step's kernel sum (the same kernels), and its launches per
+    call come from the counters (captured delta x replays)."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build
@@ -1697,29 +1831,23 @@ def profile_steps(eng, dev, work, steps: int = 10):
     maxp = eng.sched.max_pages_per_seq
     positions = work["decode"]
     bounds = step_bounds(eng, positions, chunk=512, pos0=work["pos0"])
-    table = (1 + torch.arange(4 * maxp, dtype=torch.int32,
-                              device=dev)).reshape(4, maxp)
-    batch = {"tokens": torch.zeros(4, 1, dtype=torch.int32, device=dev),
-             "pos": torch.tensor(positions, device=dev),
-             "page_table": table}
-    temps = torch.zeros(4, device=dev)
-    active = torch.ones(4, dtype=torch.bool, device=dev)
-    if eng._stateful_rows:
-        batch["row_valid"] = active
-
-    def decode():
-        return model_lib.decode_and_sample(
-            eng.params, batch, eng.cache, eng.cfg, generator=None,
-            temperatures=temps, active_rows=active)
+    bounds["decode_replay"] = bounds["decode_step"]
+    table = (1 + np.arange(4 * maxp, dtype=np.int32)).reshape(4, maxp)
+    step = eng.decode_step
+    step.stage(np.asarray(positions, np.int64), table,
+               np.zeros(4, np.float32), np.ones(4, bool))
+    prefill_table = torch.as_tensor(table[:1], device=dev)
+    prefill_tokens = torch.zeros(1, 512, dtype=torch.int64, device=dev)
 
     def prefill():
         return model_lib.prefill_chunk(
-            eng.params, {"tokens": batch["tokens"].new_zeros(1, 512).long(),
-                         "page_table": table[:1], "slot": 0}, eng.cache,
-            eng.cfg, pos0=work["pos0"])
+            eng.params, {"tokens": prefill_tokens,
+                         "page_table": prefill_table, "slot": 0},
+            eng.cache, eng.cfg, pos0=work["pos0"])
 
     out = {}
-    for name, fn, n in (("decode_step", decode, steps),
+    for name, fn, n in (("decode_step", lambda: step.eager(False), steps),
+                        ("decode_replay", lambda: step(False), steps),
                         ("prefill_chunk", prefill, 1)):
         fn()
         torch.cuda.synchronize()
@@ -1742,8 +1870,9 @@ def profile_steps(eng, dev, work, steps: int = 10):
             dev_us = (getattr(e, "self_device_time_total", None)
                       or getattr(e, "self_cuda_time_total", 0) or 0)
             # An aten op reports the kernels it launched as its own device
-            # time, and a runtime call (cudaLaunchKernel) can carry the
-            # time of the kernel it launched; count the kernels only.
+            # time, and a runtime call (cudaLaunchKernel, cudaGraphLaunch)
+            # can carry the time of what it launched; count the kernels
+            # only.
             if dev_us > 0 and not e.key.startswith(("aten::", "cuda")):
                 rows.append((dev_us / n / 1e3, e.key, e.count // n))
         cumsum_calls = sum(e.count for e in prof.key_averages()
@@ -1763,13 +1892,20 @@ def profile_steps(eng, dev, work, steps: int = 10):
                      "idle_share": (1 - busy_ms / wall_ms) if rows
                      else None, "top": top, "kernels": every,
                      **bounds[name]}
+        if name == "decode_replay":
+            eager_busy = out["decode_step"]["device_busy_ms"]
+            out[name]["idle_share_vs_eager_kernels"] = (
+                1 - eager_busy / wall_ms if eager_busy else None)
         busy = (f"device busy {busy_ms:.3f} ms" if rows else
                 "device time not measured (no device events)")
         log(f"  profile {name}: wall {wall_ms:.3f} ms, {busy}, bound "
             f"{bounds[name]['bound_ms']:.3f} ms, idle share "
-            f"{out[name]['idle_share']}; device kernels per call "
-            f"{out[name]['device_kernels']}, wrapper launches per call "
-            f"{per_call}")
+            f"{out[name]['idle_share']}"
+            + (f" (against the eager step's kernel sum: "
+               f"{out[name]['idle_share_vs_eager_kernels']})"
+               if name == "decode_replay" else "")
+            + f"; device kernels per call {out[name]['device_kernels']}, "
+            f"wrapper launches per call {per_call}")
         for r in top:
             log(f"    {r['ms']:.4f} ms x{r['calls']} {r['kernel']}")
     return out

@@ -17,10 +17,24 @@ Building needs ``nvcc`` (``/usr/local/cuda/bin`` is searched after
 ``PATH``).  There is no fallback: a kernel that does not build raises.
 
 The launch counters live here too: each kernel wrapper calls
-:func:`count_launch` where it launches its kernel, and nowhere else.
+:func:`count_launch` where it launches its kernel, and nowhere else.  A
+CUDA graph replay passes no wrapper, so a captured region is wrapped in
+:func:`capturing`, which takes back the counts its capture made (nothing
+ran) and hands them out as the capture's delta; each replay then adds
+that delta (:func:`add_launches`), and the counters keep meaning kernel
+launches executed.
+
+Capture safety: every C entry launches only on the stream it is given
+(:func:`stream_ptr`, PyTorch's current stream, which is the capture
+stream inside ``torch.cuda.graph``) and makes no ``cudaMalloc``, no
+synchronous copy and no default-stream work; its scratch comes from the
+wrapper's ``torch.empty``.  The one-time ``cudaFuncSetAttribute`` calls
+behind a ``static bool sized`` run at a kernel's first launch, which an
+eager warm-up makes before any capture.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,11 +43,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 __all__ = ["CSRC", "build_dir", "build_all", "load", "entry", "check",
            "stream_ptr",
            "count_launch", "launch_counts", "reset_launch_counts",
+           "capturing", "add_launches",
            "KERNEL_NAMES", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -202,6 +217,29 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph capture: yields a dict that holds, on exit, the
+    launches the captured region made (its delta, non-zero counters
+    only), and leaves the counters as they were before it — a capture
+    runs no kernel."""
+    before = dict(_LAUNCHES)
+    delta: Dict[str, int] = {}
+    try:
+        yield delta
+    finally:
+        for name, count in before.items():
+            if _LAUNCHES[name] != count:
+                delta[name] = _LAUNCHES[name] - count
+            _LAUNCHES[name] = count
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Count the launches of one replay of a captured region."""
+    for name, count in delta.items():
+        _LAUNCHES[name] += count
 
 
 def require_cuda(*tensors, what: str) -> Optional[object]:

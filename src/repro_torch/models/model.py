@@ -198,33 +198,47 @@ def decode(params, batch, cache, cfg):
     return unembed(x, params["embedding"], cfg)[:, 0], cache
 
 
-def sample_token(logits, generator: Optional[torch.Generator], temperature):
+def sample_token(logits, generator: Optional[torch.Generator], temperature,
+                 *, sampled: bool):
     """One token per row: rows with temperature <= 0 take the f32 argmax
     (lowest index on ties, as XLA and numpy); rows above 0 draw from the
     tempered softmax with ``generator`` (torch's stream, not JAX's — only
-    greedy rows are comparable across the two packages).  → (tokens (B,)
+    greedy rows are comparable across the two packages).  ``sampled`` is
+    the caller's host-side knowledge of whether any row's temperature is
+    above 0 (JAX splits its key only then): with False no draw is made
+    and the generator is untouched, and the device is never asked.  The
+    draw is the exponential race argmax(p / E), E ~ Exp(1) per entry —
+    what ``torch.multinomial`` computes for one sample, without its
+    host-side checks, which a CUDA graph cannot hold.  → (tokens (B,)
     int32, finite (B,) bool)."""
     lf = logits.float()
     temps = torch.as_tensor(temperature, dtype=torch.float32,
                             device=lf.device).reshape(-1).expand(lf.shape[0])
     tokens = lf.argmax(dim=-1).to(torch.int32)
-    if bool((temps > 0).any()):
-        safe = torch.where(temps > 0, temps, torch.ones_like(temps))
+    if sampled:
+        hot = temps > 0
+        safe = torch.where(hot, temps, torch.ones_like(temps))
         probs = torch.softmax(lf / safe[:, None], dim=-1)
-        drawn = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        tokens = torch.where(temps > 0, drawn.to(torch.int32), tokens)
+        race = torch.empty_like(probs).exponential_(generator=generator)
+        drawn = (probs / race).argmax(dim=-1).to(torch.int32)
+        tokens = torch.where(hot, drawn, tokens)
     return tokens, torch.isfinite(lf).all(dim=-1)
 
 
 def decode_and_sample(params, batch, cache, cfg, *, generator,
-                      temperatures, active_rows):
+                      temperatures, active_rows, sampled: bool):
     """Decode + sample in one call: → (tokens (B,), finite (B,),
-    logits f32 (B, V), next_tokens (B, 1), cache); inactive rows keep
-    their previous ``batch["tokens"]``."""
+    logits f32 (B, V), next_tokens (B, 1), cache).  ``batch["tokens"]``
+    (B, 1) int32 is the carried last-token buffer: the sampled token of
+    every row in ``active_rows`` is written into it in place (inactive
+    rows keep theirs), so a CUDA graph replay of this call chains the
+    token on the device; ``next_tokens`` is that buffer.  ``sampled``:
+    see :func:`sample_token`."""
     logits, cache = decode(params, batch, cache, cfg)
-    tokens, finite = sample_token(logits, generator, temperatures)
+    tokens, finite = sample_token(logits, generator, temperatures,
+                                  sampled=sampled)
     active = torch.as_tensor(active_rows, dtype=torch.bool,
                              device=logits.device).reshape(-1)
-    next_tokens = torch.where(active[:, None], tokens[:, None],
-                              batch["tokens"].to(torch.int32))
-    return tokens, finite, logits, next_tokens, cache
+    carried = batch["tokens"]
+    carried.copy_(torch.where(active[:, None], tokens[:, None], carried))
+    return tokens, finite, logits, carried, cache

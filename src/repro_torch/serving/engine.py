@@ -1,5 +1,5 @@
 """Serving engine: continuous batching over the paged KV pool (the port of
-``repro/serving/engine.py``, synchronous path).
+``repro/serving/engine.py``).
 
 The scheduler (:mod:`repro_torch.serving.scheduler`) owns every policy
 decision — FIFO admission by token budget, page growth, prefix aliasing,
@@ -13,15 +13,30 @@ formats), copy-on-write of shared pages before a decode writes them, and
 ONE batched decode + sample over the fixed slots per step
 (``models.decode_and_sample``).
 
-Steps run at pipeline depth 1: every launched decode and every prefill
-seed token is delivered within its own step, in launch order — the JAX
-engine's ``async_steps=False`` structure, step for step.
+Steps are pipelined as in the JAX engine (``async_steps=True``,
+``pipeline_depth=2``, its defaults): a step launches its decode and
+returns; the next step's prefill chunks run while it is on the device,
+and its tokens are delivered (retired) after them, before the next
+decode is planned.  Prefill seed tokens are delivered within their own
+step.  The pipeline flushes at the horizon and before an eviction.
+``async_steps=False`` delivers every launch within its step (depth 1).
+Greedy streams are the same in both modes.
+
+The decode step (:class:`DecodeStep`) reads static device buffers and,
+on a CUDA device, is replayed as one CUDA graph per sampling variant
+(all-greedy, sampled), captured at its first use — the counterpart of
+the JAX engine's ``jax.jit`` of ``decode_and_sample``.  ``cuda_graph``
+picks the graph (the default on a CUDA device) or the eager step (the
+default, and the only choice, on the CPU).  A failed capture or replay
+raises.  Every per-step copy to the device goes through pinned staging
+buffers without blocking, and the tokens come back through pinned
+buffers and an event: a step's one host sync is the retire's wait on
+that event.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: ``async_steps=True`` / ``pipeline_depth > 1`` and ``spec_k ≥ 2``
-(ROADMAP A8), ``fault``, deadlines, load shedding, ``watchdog_s``,
-``prefix_index_path``, ``plan_cache_path`` (A6/A4) and ``slo_monitor``
-(A9).
+ignored: ``spec_k ≥ 2`` (ROADMAP A8 part 2), ``fault``, deadlines, load
+shedding, ``watchdog_s``, ``prefix_index_path``, ``plan_cache_path``
+(A6/A4) and ``slo_monitor`` (A9).
 
 The grouped decode q/k/v (``grouped_qkv``) defaults as in JAX: on with the
 kernel backend.  Then every attention layer gains a prestacked
@@ -41,6 +56,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import weakref
 from typing import Deque, Dict, List, Optional
 
 import numpy as np
@@ -49,6 +65,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.geometry import cdiv
+from repro_torch.kernels import build
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import (compute_dtype, model_format,
@@ -59,7 +76,8 @@ from repro_torch.serving.resilience import (CapacityExceeded,
                                             Response)
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler
 
-__all__ = ["Request", "ServingEngine", "serving_params"]
+__all__ = ["Request", "ServingEngine", "DecodeStep", "HostStaging",
+           "serving_params"]
 
 
 def _stack_decode_qkv(params):
@@ -135,6 +153,185 @@ def serving_params(params, cfg: ArchConfig):
             "final_norm": params["final_norm"]}
 
 
+class HostStaging:
+    """The engine's host ↔ device copies, none of which blocks the host.
+
+    On a CUDA device a host array goes to the device through a pinned
+    buffer and ``copy_(non_blocking=True)``: the host has written the
+    buffer before the copy is enqueued, and the copy may run much later
+    (step N+1's prefill chunks are enqueued before step N retires).  So
+    each pinned buffer carries the event recorded after its copy, and the
+    host rewrites only a buffer whose event has completed — it takes the
+    first free one of a ring per (shape, dtype) and adds a buffer when
+    none is free, so it never waits.  Device results come back the same
+    way (:meth:`fetch`): a non-blocking copy into pinned buffers and an
+    event, which :meth:`wait` waits on — the one host sync of a step.
+    On the CPU there is nothing to pin: plain tensors, copied at once."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self._rings: Dict[tuple, List[tuple]] = {}
+        self._spare: Dict[tuple, List[torch.Tensor]] = {}
+
+    def to_device(self, array: np.ndarray,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``array`` on the device: into ``out`` when given, else into a
+        new tensor."""
+        host = torch.from_numpy(np.array(array))
+        if not self.pinned:
+            return host if out is None else out.copy_(host)
+        ring = self._rings.setdefault((host.shape, host.dtype), [])
+        for buf, done in ring:
+            if done.query():
+                break
+        else:
+            buf = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+            done = torch.cuda.Event()
+            ring.append((buf, done))
+        buf.copy_(host)
+        if out is None:
+            out = torch.empty_like(host, device=self.device)
+        out.copy_(buf, non_blocking=True)
+        done.record()
+        return out
+
+    def fetch(self, *tensors: torch.Tensor):
+        """Start copying ``tensors`` to the host; → a handle for
+        :meth:`wait`."""
+        if not self.pinned:
+            return [t.numpy().copy() for t in tensors], None
+        bufs = []
+        for t in tensors:
+            spare = self._spare.setdefault((t.shape, t.dtype), [])
+            buf = (spare.pop() if spare else
+                   torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
+            buf.copy_(t, non_blocking=True)
+            bufs.append(buf)
+        done = torch.cuda.Event()
+        done.record()
+        return bufs, done
+
+    def wait(self, handle) -> List[np.ndarray]:
+        """The fetched tensors as numpy arrays, once their copy is done."""
+        bufs, done = handle
+        if done is None:
+            return bufs
+        done.synchronize()
+        out = [b.numpy().copy() for b in bufs]
+        for b in bufs:
+            self._spare[(b.shape, b.dtype)].append(b)
+        return out
+
+
+class DecodeStep:
+    """The engine's batched decode + sample over its fixed slots (the
+    JAX engine's ``jax.jit`` of ``decode_and_sample``,
+    ``src/repro/serving/engine.py:318``).
+
+    It reads static device buffers, written by :meth:`stage` before each
+    call: the carried (slots, 1) token buffer (which the step itself
+    updates), ``pos``, ``page_table``, ``temps`` and ``active`` (also the
+    stateful archs' ``row_valid``); parameters and cache are updated in
+    place.  With ``graph=True`` each sampling variant (all-greedy,
+    sampled) is captured once as a CUDA graph at its first call and
+    replayed after; its outputs ``tok``, ``finite`` and ``logits`` live
+    in the graph's memory pool.  Before the capture it runs once eagerly
+    on the capture stream (plans, compiled programs, kernel attributes,
+    cuBLAS's workspace) with every row inactive: page-table rows all −1
+    (the writes land in the null page 0) and ``active`` all False, so no
+    live KV, ring or RG-LRU row changes; the generator's state is put
+    back after it, so a sampled replay draws what the eager step would.
+    A replay adds the launches its capture recorded to the counters
+    (:func:`repro_torch.kernels.build.capturing`)."""
+
+    def __init__(self, engine: "ServingEngine", *, graph: bool):
+        dev = engine.device
+        if graph and dev.type != "cuda":
+            raise ValueError(f"DecodeStep: a CUDA graph needs a CUDA "
+                             f"device, not {dev}")
+        slots, maxp = engine.slots, engine.sched.max_pages_per_seq
+        # A proxy, not a reference: the engine holds this step, and a
+        # cycle would keep a dropped engine's device memory until the
+        # cycle collector ran.
+        self.engine = weakref.proxy(engine)
+        self.graph = graph
+        self.tokens = engine._last_tok
+        self.pos = torch.zeros(slots, dtype=torch.int64, device=dev)
+        self.page_table = torch.full((slots, maxp), -1, dtype=torch.int32,
+                                     device=dev)
+        self.temps = torch.zeros(slots, dtype=torch.float32, device=dev)
+        self.active = torch.zeros(slots, dtype=torch.bool, device=dev)
+        self.graphs: Dict[bool, tuple] = {}
+
+    def stage(self, pos, page_table, temps, active) -> None:
+        """Write one step's host inputs into the static buffers."""
+        stage = self.engine._stage
+        stage.to_device(np.asarray(pos, np.int64), out=self.pos)
+        stage.to_device(np.asarray(page_table, np.int32),
+                        out=self.page_table)
+        stage.to_device(np.asarray(temps, np.float32), out=self.temps)
+        stage.to_device(np.asarray(active, bool), out=self.active)
+
+    def eager(self, sampled: bool):
+        """One eager call: → (tok, finite, logits)."""
+        eng = self.engine
+        batch = {"tokens": self.tokens, "pos": self.pos,
+                 "page_table": self.page_table}
+        if eng._stateful_rows:
+            batch["row_valid"] = self.active
+        tok, finite, logits, _, eng.cache = model_lib.decode_and_sample(
+            eng.params, batch, eng.cache, eng.cfg, generator=eng._gen,
+            temperatures=self.temps, active_rows=self.active,
+            sampled=sampled)
+        return tok, finite, logits
+
+    def __call__(self, sampled: bool):
+        """One step over the staged inputs: a replay of the variant's
+        graph (captured first if needed), or an eager call."""
+        if not self.graph:
+            return self.eager(sampled)
+        if sampled not in self.graphs:
+            self.capture(sampled)
+        graph, outputs, delta = self.graphs[sampled]
+        graph.replay()
+        build.add_launches(delta)
+        return outputs
+
+    def warm_up(self, sampled: bool):
+        """One eager call with every row inactive (see the class)."""
+        self.page_table.fill_(-1)
+        self.pos.zero_()
+        self.temps.zero_()
+        self.active.fill_(False)
+        return self.eager(sampled)
+
+    def capture(self, sampled: bool) -> None:
+        """Warm up, then capture the variant under ``torch.cuda.graph``
+        on one side stream; the staged inputs are kept across both.
+        Raises if the capture fails."""
+        dev = self.engine.device
+        gen = self.engine._gen
+        state = gen.get_state()
+        inputs = (self.pos, self.page_table, self.temps, self.active)
+        staged = [buf.clone() for buf in inputs]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.warm_up(sampled)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        gen.set_state(state)
+        graph = torch.cuda.CUDAGraph()
+        if sampled:
+            graph.register_generator_state(gen)
+        with build.capturing() as delta:
+            with torch.cuda.graph(graph, stream=side):
+                outputs = self.eager(sampled)
+        self.graphs[sampled] = (graph, outputs, delta)
+        for buf, value in zip(inputs, staged):
+            buf.copy_(value)
+
+
 class ServingEngine:
     def __init__(self, params, cfg: ArchConfig, *, slots: int = 4,
                  cache_len: int = 512, prefill_len: int = 128,
@@ -157,13 +354,12 @@ class ServingEngine:
                  spec_k: int = 0,
                  prefix_index_path: Optional[str] = None,
                  slo_monitor=None,
-                 async_steps: bool = False,
-                 pipeline_depth: int = 1,
+                 async_steps: bool = True,
+                 pipeline_depth: int = 2,
+                 cuda_graph: Optional[bool] = None,
                  device=None):
         queued = {
-            "async_steps=True (ROADMAP A8)": async_steps,
-            "pipeline_depth > 1 (ROADMAP A8)": pipeline_depth > 1,
-            "spec_k >= 2 (ROADMAP A8)": spec_k >= 2,
+            "spec_k >= 2 (ROADMAP A8 part 2)": spec_k >= 2,
             "fault injection (ROADMAP A6)": fault is not None,
             "deadline_ms (ROADMAP A6)": deadline_ms is not None,
             "load shedding (ROADMAP A6)": (shed_queue_depth is not None
@@ -236,9 +432,21 @@ class ServingEngine:
         self._stateful_rows = any(kind[0] != "attn"
                                   for kind in cfg.layer_kinds)
         self._prefilling: Dict[int, dict] = {}
+        # The async pipeline (``src/repro/serving/engine.py:304-315``): the
+        # in-flight deque is the lagging delivery queue; at depth 2 a
+        # step's decode stays launched across the next step's prefill.
+        self.async_steps = bool(async_steps)
+        self.pipeline_depth = (max(1, int(pipeline_depth))
+                               if self.async_steps else 1)
         self._inflight: Deque[dict] = collections.deque()
+        self._flushing = False
+        self.steps_in_flight_max = 0   # deepest pipeline ever
+        self._stage = HostStaging(self.device)
         self._last_tok = torch.zeros((slots, 1), dtype=torch.int32,
                                      device=self.device)
+        if cuda_graph is None:
+            cuda_graph = self.device.type == "cuda"
+        self.decode_step = DecodeStep(self, graph=bool(cuda_graph))
         self.debug_audit = bool(debug_audit)
         self.quarantine = bool(quarantine)
         self.step_idx = 0
@@ -256,8 +464,13 @@ class ServingEngine:
         return dataclasses.replace(self.cfg, format_policy=format_policy)
 
     def _table(self, rows) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(rows, np.int32),
-                               device=self.device)
+        return self._stage.to_device(np.asarray(rows, np.int32))
+
+    @property
+    def steps_in_flight(self) -> int:
+        """Distinct engine steps launched but not yet delivered (0: the
+        host state is exact)."""
+        return len({e["step"] for e in self._inflight})
 
     # -- client API -----------------------------------------------------------
     def submit(self, req: Request):
@@ -359,25 +572,31 @@ class ServingEngine:
             }
 
     def step(self):
-        """One engine step: up to ``prefill_chunk_quota`` prefill chunks,
-        delivery of their seed tokens, re-admission into freed slots,
-        page growth (evicting the youngest request when the pool runs
-        dry), copy-on-write, then one batched decode + sample and its
-        delivery."""
+        """One engine step, in the JAX engine's order
+        (``src/repro/serving/engine.py:721-827``): up to
+        ``prefill_chunk_quota`` prefill chunks, the retire of the previous
+        step's decode (after the chunks, which its device time overlaps),
+        a second admission pass into slots the retire freed, the flush
+        boundaries (horizon, predicted eviction), page growth (evicting
+        the youngest request when the pool runs dry), copy-on-write, then
+        one batched decode + sample launch, which stays in flight at
+        depth 2."""
         self.step_idx += 1
         self._run_prefill_chunks()
-        self._flush_pipeline()
+        self._drain_to_depth()
         if self.sched.waiting and any(r is None for r in self.slot_req):
             self._admit()
             self._run_prefill_chunks()
         decoding = self._decoding()
-        # Seeds queued by the re-admission above land before a horizon
-        # check or an eviction can act on stale host state (the JAX
-        # engine's flush boundaries).
-        if self._inflight and (
-                any(int(self.slot_pos[s]) >= self.cache_len
-                    for s in decoding)
-                or (decoding and self._needs_eviction(decoding))):
+        # Horizon boundary: a slot whose launched position reached
+        # cache_len finishes at delivery.
+        if self._inflight and any(int(self.slot_pos[s]) >= self.cache_len
+                                  for s in decoding):
+            self._flush_pipeline()
+            decoding = self._decoding()
+        # Eviction boundary: preemption requeues the victim with its
+        # host-visible output, so in-flight tokens land first.
+        if self._inflight and decoding and self._needs_eviction(decoding):
             self._flush_pipeline()
             decoding = self._decoding()
         for slot in decoding:
@@ -387,13 +606,12 @@ class ServingEngine:
                                                int(self.slot_pos[slot]) + 1)
             for vslot, _ventry in evicted:
                 self._clear_slot(vslot)
-        decoding = [s for s in decoding if self.slot_req[s] is not None
-                    and s not in self._prefilling]
+        decoding = self._decoding()
         if decoding:
             for slot in decoding:
                 self._cow_guard(slot)
             self._launch_decode(decoding)
-        self._flush_pipeline()
+        self._drain_to_depth()
         if self.debug_audit:
             self.sched.pool.audit()
 
@@ -415,8 +633,11 @@ class ServingEngine:
             need += max(0, want - owned)
         return need > pool.free_pages
 
-    # -- decode launch / delivery ------------------------------------------------
+    # -- decode launch / delivery ---------------------------------------------
     def _launch_decode(self, decoding):
+        """Stage the step's inputs, launch the decode + sample and queue
+        its delivery; nothing here waits for the device.  The token input
+        is the carried device buffer, which the previous launch updated."""
         table = np.full((self.slots, self.sched.max_pages_per_seq), -1,
                         np.int32)
         temps = np.zeros(self.slots, np.float32)
@@ -425,40 +646,59 @@ class ServingEngine:
             table[slot] = self.sched.table_row(slot)
             temps[slot] = max(0.0, float(self.slot_req[slot].temperature))
             active[slot] = True
-        batch = {"tokens": self._last_tok,
-                 "pos": torch.as_tensor(self.slot_pos.astype(np.int64),
-                                        device=self.device),
-                 "page_table": self._table(table)}
-        if self._stateful_rows:
-            batch["row_valid"] = torch.as_tensor(active, device=self.device)
-        tok, finite, logits, self._last_tok, self.cache = \
-            model_lib.decode_and_sample(
-                self.params, batch, self.cache, self.cfg,
-                generator=self._gen,
-                temperatures=torch.as_tensor(temps, device=self.device),
-                active_rows=torch.as_tensor(active, device=self.device))
+        step = self.decode_step
+        step.stage(self.slot_pos, table, temps, active)
+        tok, finite, _ = step(bool(temps.any()))
         self._inflight.append({
             "kind": "decode", "step": self.step_idx,
             "slots": list(decoding),
             "reqs": {s: self.slot_req[s] for s in decoding},
             "pos_after": {s: int(self.slot_pos[s]) + 1 for s in decoding},
-            "tok": tok, "finite": finite,
+            "fetch": self._stage.fetch(tok, finite),
         })
         for slot in decoding:
             self.slot_pos[slot] += 1
+        self.steps_in_flight_max = max(self.steps_in_flight_max,
+                                       self.steps_in_flight)
+
+    def _drain_to_depth(self):
+        """Deliver in-flight results down to the pipeline's depth
+        (``src/repro/serving/engine.py:894-923``): at depth 1 everything;
+        at depth 2 every entry of an older step, then this step's seeds
+        at the head — a first token never lags — so the decode launched
+        in this step stays on the device across the next step's prefill
+        chunks, and the next launch still sees every delivered finish."""
+        if self.pipeline_depth <= 1:
+            self._flush_pipeline()
+            return
+        while self._inflight and self._inflight[0]["step"] < self.step_idx:
+            self._retire_one()
+        while self._inflight and self._inflight[0]["kind"] == "seed":
+            self._retire_one()
 
     def _flush_pipeline(self):
-        """Deliver every launched step, in launch order."""
-        while self._inflight:
-            entry = self._inflight.popleft()
-            if entry["kind"] == "seed":
-                self._deliver_seed(entry)
-            else:
-                self._deliver_decode(entry)
+        """Deliver every launched step, in launch order: the barrier at
+        the horizon, before an eviction and at the end of :meth:`run`."""
+        if self._flushing:
+            return
+        self._flushing = True
+        try:
+            while self._inflight:
+                self._retire_one()
+        finally:
+            self._flushing = False
+
+    def _retire_one(self):
+        """Deliver the oldest in-flight entry; its wait on the copy of
+        the sampled tokens is the step's one host sync."""
+        entry = self._inflight.popleft()
+        if entry["kind"] == "seed":
+            self._deliver_seed(entry)
+        else:
+            self._deliver_decode(entry)
 
     def _deliver_decode(self, entry):
-        tok = entry["tok"].cpu().numpy()
-        finite = entry["finite"].cpu().numpy()
+        tok, finite = self._stage.wait(entry["fetch"])
         n_live = 0
         for slot in entry["slots"]:
             req = entry["reqs"][slot]
@@ -483,8 +723,8 @@ class ServingEngine:
     def _deliver_seed(self, entry):
         slot = entry["slots"][0]
         req = entry["reqs"][slot]
-        tok = int(entry["tok"].reshape(-1)[0])
-        finite = bool(entry["finite"].reshape(-1)[0])
+        tok, finite = (int(a.reshape(-1)[0]) for a in
+                       self._stage.wait(entry["fetch"]))
         if req.done or self.slot_req[slot] is not req:
             return
         if self.quarantine and not finite:
@@ -495,7 +735,7 @@ class ServingEngine:
         req.output.append(tok)
         self._finished(slot)
 
-    # -- chunked prefill ----------------------------------------------------------
+    # -- chunked prefill ------------------------------------------------------
     def _run_prefill_chunks(self):
         if not self._prefilling:
             return
@@ -517,8 +757,7 @@ class ServingEngine:
         c = st["chunk"]
         size = self.prefill_chunk
         toks = st["tokens"][c * size:(c + 1) * size]
-        batch = {"tokens": torch.as_tensor(toks[None].astype(np.int64),
-                                           device=self.device),
+        batch = {"tokens": self._stage.to_device(toks[None].astype(np.int64)),
                  "page_table": self._table(self.sched.table_row(slot)[None]),
                  "slot": slot}
         logits, self.cache = model_lib.prefill_chunk(
@@ -536,14 +775,17 @@ class ServingEngine:
         temp = max(0.0, float(req.temperature))
         tok, finite = model_lib.sample_token(
             logits, self._gen,
-            torch.full((1,), temp, dtype=torch.float32, device=self.device))
+            torch.full((1,), temp, dtype=torch.float32, device=self.device),
+            sampled=temp > 0.0)
         self._last_tok[slot, 0] = tok[0]
         self._inflight.append({
             "kind": "seed", "step": self.step_idx, "slots": [slot],
-            "reqs": {slot: req}, "tok": tok, "finite": finite,
+            "reqs": {slot: req}, "fetch": self._stage.fetch(tok, finite),
         })
+        self.steps_in_flight_max = max(self.steps_in_flight_max,
+                                       self.steps_in_flight)
 
-    # -- request-level containment ------------------------------------------------
+    # -- request-level containment --------------------------------------------
     def _record_done(self, req: Request, status: str = "ok",
                      error: Optional[RequestError] = None):
         req.done = True
@@ -571,7 +813,7 @@ class ServingEngine:
             req.output, rid=req.rid, status=err.code, error=err,
             metrics={"tokens": len(req.output)})
 
-    # -- helpers -------------------------------------------------------------------
+    # -- helpers --------------------------------------------------------------
     def _clear_slot(self, slot: int):
         self.slot_req[slot] = None
         self.slot_pos[slot] = 0

@@ -860,3 +860,208 @@ def test_epilogue_pass_every_option_matches_plain(card, n):
                 lim = _bf16_ulp(want) + 1e-5 * (1 + want.abs())
                 assert bool((diff <= lim).all()), epi
     assert build.launch_counts()["epilogue_pass"] == before + 2 * len(epis)
+
+
+# -- the decode step as a CUDA graph (the async engine's step) ----------------
+
+tconfigs = LazyModule("repro_torch.configs")
+tengine = LazyModule("repro_torch.serving.engine")
+tmodel = LazyModule("repro_torch.models.model")
+
+
+def _live_engine(card, arch, policy, prompts=(20, 9, 30), max_tokens=12,
+                 steps=4):
+    """A reduced engine on the card (graph + async, its defaults) that has
+    served ``steps`` steps of ``prompts`` (lengths; 2 slots, 2-chunk
+    prefill), its pipeline flushed: slots decoding at live positions."""
+    cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
+                              format_policy=policy)
+    params = tmodel.init_params(cfg, seed=0, device=card)
+    eng = tengine.ServingEngine(params, cfg, slots=2, cache_len=64,
+                                prefill_len=32, page_size=8,
+                                prefill_chunk=16, device=card)
+    assert eng.decode_step.graph and eng.async_steps
+    rng = np.random.default_rng(1)
+    for rid, n_tok in enumerate(prompts):
+        eng.submit(tengine.Request(
+            rid=rid, prompt=rng.integers(0, cfg.vocab, n_tok,
+                                         dtype=np.int32),
+            max_tokens=max_tokens))
+    eng._admit()
+    for _ in range(steps):
+        eng.step()
+    eng._flush_pipeline()
+    assert eng._decoding()
+    return eng
+
+
+def _state(eng):
+    """Every cache leaf and the carried token buffer (the tensors a
+    replay writes), in a fixed order."""
+    return [leaf for layer in eng.cache["layers"]
+            for leaf in layer.values()] + [eng.decode_step.tokens]
+
+
+def _run_steps(eng, n, fn, temp):
+    """``n`` decode steps of the slots now decoding through ``fn`` (the
+    eager step or a replay), positions advancing by one a step; → each
+    step's (tok, finite, logits, carried tokens), cloned."""
+    step = eng.decode_step
+    decoding = eng._decoding()
+    maxp = eng.sched.max_pages_per_seq
+    table = np.full((eng.slots, maxp), -1, np.int32)
+    active = np.zeros(eng.slots, bool)
+    for slot in decoding:
+        eng.sched.ensure_decode(slot, int(eng.slot_pos[slot]) + n)
+        table[slot] = eng.sched.table_row(slot)
+        active[slot] = True
+    temps = np.where(active, temp, 0.0).astype(np.float32)
+    out = []
+    for i in range(n):
+        pos = eng.slot_pos.astype(np.int64) + np.where(active, i, 0)
+        step.stage(pos, table, temps, active)
+        tok, finite, logits = fn(temp > 0)
+        out.append([x.clone() for x in (tok, finite, logits, step.tokens)])
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("temp", [0.0, 0.8], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("policy", ["fp32", "bf16"])
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b"])
+def test_decode_graph_replays_equal_the_eager_step(card, arch, policy,
+                                                   temp):
+    """From one live state, 4 eager decode steps and 4 replays of the
+    captured step: tok, finite, logits, the carried tokens and every
+    cache leaf equal bit for bit (sampled rows too: the generator is put
+    back to the same state before each run)."""
+    eng = _live_engine(card, arch, policy)
+    step = eng.decode_step
+    step.capture(temp > 0)            # before the snapshot: the capture's
+    start = [x.clone() for x in _state(eng)]  # warm-up writes page 0
+    gen_state = eng._gen.get_state()
+    eager = _run_steps(eng, 4, step.eager, temp)
+    eager_state = [x.clone() for x in _state(eng)]
+    for dst, src in zip(_state(eng), start):
+        dst.copy_(src)
+    eng._gen.set_state(gen_state)
+    graph = _run_steps(eng, 4, step, temp)
+    for i, (e, g) in enumerate(zip(eager, graph)):
+        for name, a, b in zip(("tok", "finite", "logits", "tokens"), e, g):
+            assert torch.equal(a, b), (i, name)
+    for i, (a, b) in enumerate(zip(eager_state, _state(eng))):
+        assert torch.equal(a, b), i
+    rows = torch.as_tensor(eng._decoding(), device=card)
+    for tok, _, _, tokens in graph:           # each replay chains its token
+        assert torch.equal(tokens[rows, 0], tok[rows])
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b"])
+def test_decode_graph_capture_leaves_the_cache_unchanged(card, arch):
+    """The capture's all-inactive warm-up (and the capture) change no KV
+    page but the null page 0, no ring or RG-LRU row, no carried token
+    and no staged input."""
+    eng = _live_engine(card, arch, "bf16")
+    step = eng.decode_step
+    step.graphs.clear()
+    step.stage(eng.slot_pos, np.full((2, eng.sched.max_pages_per_seq), 3,
+                                     np.int32), np.ones(2, np.float32),
+               np.ones(2, bool))
+    before = [x.clone() for x in _state(eng)]
+    staged = [x.clone() for x in (step.pos, step.page_table, step.temps,
+                                  step.active)]
+    for sampled in (False, True):
+        step.capture(sampled)
+    torch.cuda.synchronize()
+    names = [name for layer in eng.cache["layers"] for name in layer]
+    for name, old, new in zip(names + ["tokens"], before, _state(eng)):
+        if name.endswith(("_pages", "_scale")):
+            old, new = old[1:], new[1:]
+        assert torch.equal(old, new), name
+    for old, new in zip(staged, (step.pos, step.page_table, step.temps,
+                                 step.active)):
+        assert torch.equal(old, new)
+
+
+def test_decode_graph_replay_counts_the_captured_launches(card):
+    """A replay adds what its capture recorded: the eager step's launches
+    per kernel, once per replay; the capture itself counts nothing."""
+    eng = _live_engine(card, "recurrentgemma_9b", "bf16")
+    step = eng.decode_step
+    step.graphs.clear()
+    build.reset_launch_counts()
+    step.eager(False)
+    eager = {k: v for k, v in build.launch_counts().items() if v}
+    assert eager.get("flash_decode_mma") or eager.get("flash_decode")
+    build.reset_launch_counts()
+    step.capture(False)
+    warm = {k: v for k, v in build.launch_counts().items() if v}
+    assert warm == eager                      # the warm-up ran; no more
+    assert step.graphs[False][2] == eager
+    build.reset_launch_counts()
+    for _ in range(3):
+        step(False)
+    assert {k: v for k, v in build.launch_counts().items() if v} == {
+        k: 3 * v for k, v in eager.items()}
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b"])
+def test_decode_steps_do_not_grow_device_memory(card, arch):
+    """One long request in steady async decode: the graph's outputs live
+    in its pool and the inputs are static, so live device memory stays
+    flat step after step."""
+    eng = _live_engine(card, arch, "bf16", prompts=(20,), max_tokens=40,
+                       steps=5)
+    seen = []
+    for _ in range(5):
+        eng.step()
+        seen.append(torch.cuda.memory_allocated(card))
+    assert max(seen) == min(seen), seen
+    assert eng.steps_in_flight == 1
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b"])
+def test_steady_async_step_syncs_only_in_the_retire(card, arch):
+    """Under ``torch.cuda.set_sync_debug_mode("error")`` a steady-state
+    step — staging, replay, token copies, the retire of the step before —
+    raises on any synchronising call; the retire's event wait is not one
+    of them (it is the step's one host sync)."""
+    eng = _live_engine(card, arch, "bf16", prompts=(20, 25), max_tokens=30,
+                       steps=5)
+    eng.step()                                # a decode is in flight now
+    assert eng.steps_in_flight == 1
+    outputs = [len(r.output) for r in eng.slot_req if r is not None]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = [len(r.output) for r in eng.slot_req if r is not None]
+    assert [b - a for a, b in zip(outputs, after)] == [2] * len(after)
+
+
+def test_decode_graph_capture_failure_raises(card, monkeypatch):
+    """A decode step that syncs inside the capture cannot be captured: the
+    engine's step raises and never falls back to the eager step."""
+    eng = _live_engine(card, "gemma_2b", "fp32")
+    step = eng.decode_step
+    step.graphs.clear()
+    real = tmodel.decode_and_sample
+
+    def syncing(*args, **kw):
+        out = real(*args, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            out[2].sum().item()
+        return out
+
+    # The module itself, not its LazyModule stand-in: the engine reads
+    # ``decode_and_sample`` from the module at each call.
+    monkeypatch.setattr("repro_torch.models.model.decode_and_sample",
+                        syncing)
+    outputs = {r.rid: len(r.output) for r in eng.slot_req if r is not None}
+    with pytest.raises(RuntimeError):
+        eng.step()
+    assert step.graphs == {}
+    assert {r.rid: len(r.output) for r in eng.slot_req
+            if r is not None} == outputs

@@ -52,7 +52,8 @@ def test_default_engine_matches_jax_graph_engine(policy):
     prompts = _prompts(jcfg.vocab)
     jeng = _jax_engine(jp, jcfg, async_steps=False, **_KW)
     tcfg = torch_cfg(use_graph=True, gemm_policy=policy)
-    teng = tengine.ServingEngine(tp, tcfg, device="cpu", **_KW)
+    teng = tengine.ServingEngine(tp, tcfg, device="cpu", async_steps=False,
+                                 **_KW)
     assert jeng.cfg.decode_qkv_grouped and teng.cfg.decode_qkv_grouped
     assert ("qkv" in teng.params["layers"][0]["mixer"]) == (policy == "mte")
     jout, jtables = _serve(jeng, JRequest, prompts)
