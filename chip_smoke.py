@@ -50,7 +50,8 @@ Phases (any failure raises and the script exits non-zero):
    126, which B7 runs on its direct engine): first-token logits within
    1e-3, identical greedy token streams from the card's engine in its
    defaults (async, depth 2, the decode step replayed as a CUDA graph)
-   and the CPU's synchronous eager engine.
+   and the CPU's synchronous eager engine, and the same with
+   ``spec_k=4`` (speculative decoding; equal to the vanilla streams too).
 4. Full-width serving (``CONFIGS``, ``WORKLOADS``) in bf16 with seeded
    random weights, 4 slots, 16-token pages, 512-token prefill chunks, 6
    requests × 24 greedy tokens: gemma_2b (18 layers, d_model 2048, vocab
@@ -84,6 +85,26 @@ Phases (any failure raises and the script exits non-zero):
    peak memory, each compiled program's grouping decision and plans, and
    a profile of a decode step (eager and replayed) and a prefill chunk
    (idle share, launches per call).
+
+5. Full-width speculative serving (``SPEC_RUNS``): phase 4's workload in
+   the engine's defaults with ``spec_k=4`` — gemma_2b (default
+   configuration) with a one-layer draft and with an 18-layer one (the
+   whole target), recurrentgemma_9b with a one-period draft (rglru,
+   rglru, local), all sharing the target's weights; then gemma_2b and
+   recurrentgemma_9b each with a one-period draft of weights of its own
+   (``draft_config`` + ``draft_params``), which is rejected part of the
+   time.  Each run's greedy tokens must equal phase 4's (b) run request
+   for request, the full-depth draft's acceptance rate must be exactly
+   1.0 (every verify row equals the draft's decode row bit for bit), the
+   own drafts' must lie strictly between 0 and 1 (with replay windows
+   for recurrentgemma's ring and RG-LRU rows), the tile loops' and SIMT
+   kernels' counters stay 0, and every verify window, replays included,
+   launches B4 (gemma) or B6 (recurrentgemma) once per position and
+   attention layer.
+   It prints each speculative step (host wall ms, the CUDA-event spans
+   of its draft and verify windows, its launches), the acceptance rate,
+   the mean window, decode tokens/s over the run and the peak memory, and
+   profiles one verify window and one draft decode step.
 
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -1336,6 +1357,10 @@ def reduced_phase(dev):
                     f"[{name}] greedy stream of request {rid} differs")
         log(f"  reduced engine [{name}]: greedy streams identical on cuda "
             f"(async + graph) and cpu (synchronous, eager)")
+        if name == "default":
+            path_counts["reduced-spec"] = reduced_spec_check(
+                dev, f"[{name}]", cfg, params_cpu, params_gpu, prompts, kw,
+                outs["cpu"])
 
     # B1's tile loop runs where an fp32 GEMM's tile grid fills the card:
     # one 4096-token chunk through the reduced model on the eager path
@@ -1458,11 +1483,72 @@ def reduced_recurrent_phase(dev):
                 f"recurrentgemma greedy stream of request {rid} differs")
     log("  reduced recurrentgemma engine: greedy streams identical on cuda "
         "(async + graph) and cpu (synchronous, eager)")
+    spec = reduced_spec_check(
+        dev, "recurrentgemma", cfg, params_cpu, params_gpu, prompts[1:],
+        dict(slots=2, cache_len=64, prefill_len=32, page_size=8,
+             prefill_chunk=8), outs["cpu"])
     return {"reduced-recurrent": path_counts,
-            "reduced-recurrent-w126": w126}
+            "reduced-recurrent-w126": w126,
+            "reduced-recurrent-spec": spec}
+
+
+def reduced_spec_check(dev, label, cfg, params_cpu, params_gpu, prompts, kw,
+                       vanilla):
+    """A reduced engine with ``spec_k=4`` on the card (async, the decode
+    step as a CUDA graph) and on the CPU (synchronous, eager): greedy
+    streams equal on both and equal to the vanilla ones; → the card's
+    launch counts."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import Request, ServingEngine
+    outs = {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        eng = ServingEngine(params, cfg, device=device, spec_k=SPEC_K,
+                            async_steps=device == dev, **kw)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
+        build.reset_launch_counts()
+        outs[str(device)] = eng.run()
+        counts = build.launch_counts()
+        m = eng.metrics()
+        log(f"  reduced {label} spec_k={SPEC_K} on {device}: "
+            f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
+            f"acceptance rate {m['acceptance_rate']:.3f}, spec steps "
+            f"{m['spec_steps']}; launches {counts}")
+        require(m["spec_steps"] > 0, f"reduced {label}: no speculative step")
+        if device == dev:
+            card_counts = counts
+    for rid in vanilla:
+        require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
+        require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid])
+                == list(vanilla[rid]),
+                f"reduced {label} spec_k={SPEC_K}: greedy stream of request "
+                f"{rid} differs between the card, the CPU and vanilla")
+    log(f"  reduced {label} spec_k={SPEC_K}: greedy streams identical on "
+        f"cuda and cpu, and equal to vanilla")
+    return card_counts
 
 
 # -- phase 4: full-width serving ---------------------------------------------
+
+MAX_TOKENS = 24
+
+
+def serving_workload(cfg, work, dev):
+    """Phase 4's six prompts of ``work`` (seed 0) and the engine's
+    arguments: 4 slots, 16-token pages, 512-token prefill chunks."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, work["prefill_len"],
+                            dtype=np.int32) for _ in range(6)]
+    if work["shared"]:
+        # Request 4 is admitted when 0 finishes and aliases its first
+        # chunk.
+        prompts[4][:work["shared"]] = prompts[0][:work["shared"]]
+    return prompts, dict(slots=4, page_size=16,
+                         prefill_len=work["prefill_len"],
+                         cache_len=work["cache_len"], prefill_chunk=512,
+                         device=dev)
+
 
 def serving_phase(dev, name):
     """Serve configuration ``name`` at full width (bf16, seed 0) on its
@@ -1487,17 +1573,7 @@ def serving_phase(dev, name):
     arch, overrides = CONFIGS[name]
     work = WORKLOADS[arch]
     cfg = dataclasses.replace(get_config(arch), **overrides)
-    max_tokens = 24
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, work["prefill_len"],
-                            dtype=np.int32) for _ in range(6)]
-    if work["shared"]:
-        # Request 4 is admitted when 0 finishes and aliases its first
-        # chunk.
-        prompts[4][:work["shared"]] = prompts[0][:work["shared"]]
-    engine_kw = dict(slots=4, page_size=16, prefill_len=work["prefill_len"],
-                     cache_len=work["cache_len"], prefill_chunk=512,
-                     device=dev)
+    prompts, engine_kw = serving_workload(cfg, work, dev)
 
     def build_engine(engine_cls, **kw):
         """A fresh plan cache, the seed-0 weights, the engine; the raw
@@ -1576,7 +1652,7 @@ def serving_phase(dev, name):
         build.reset_launch_counts()
         t = time.perf_counter()
         for rid, p in enumerate(prompts):
-            eng.submit(Request(rid=rid, prompt=p, max_tokens=max_tokens))
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=MAX_TOKENS))
         out = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
@@ -1587,7 +1663,7 @@ def serving_phase(dev, name):
         log(f"  [{name}{eng.label}] launch counts: {counts}")
         for rid, resp in out.items():
             require(resp.status == "ok", resp)
-            require(len(resp) == max_tokens, (rid, len(resp)))
+            require(len(resp) == MAX_TOKENS, (rid, len(resp)))
             require(all(0 <= tok < cfg.vocab for tok in resp), rid)
         for kernel in PATH_KERNELS[name]:
             require(counts[kernel] > 0, f"[{name}{eng.label}] {kernel} was "
@@ -1740,7 +1816,8 @@ def serving_phase(dev, name):
                 f"{scans}")
     summary = {
         "config": name, "arch": arch, "requests": len(out_b),
-        "max_tokens": max_tokens,
+        "max_tokens": MAX_TOKENS,
+        "streams": {rid: list(resp) for rid, resp in out_b.items()},
         "prefill_tokens_per_s": timing["prefill_tokens"]
         / timing["prefill_s"],
         "decode_tokens_per_s": timing["decode_tokens"] / timing["decode_s"],
@@ -1757,9 +1834,11 @@ def serving_phase(dev, name):
     return counts, summary
 
 
-def step_bounds(eng, positions, chunk: int, pos0: int):
+def step_bounds(eng, positions, chunk: int, pos0: int, *,
+                draft: bool = False):
     """Least device time of one decode step (a token at each of
-    ``positions``) and of one ``chunk``-token prefill chunk at ``pos0``:
+    ``positions``) and of one ``chunk``-token prefill chunk at ``pos0``
+    of the engine's target model, or of its draft (``draft``):
     max(operations / bf16 peak, bytes / HBM rate).  Bytes: every weight
     read once at the width the engine holds it in (not the stacked decode
     q/k/v), the f32 LM-head copy, the KV the step attends to (a global
@@ -1767,7 +1846,8 @@ def step_bounds(eng, positions, chunk: int, pos0: int):
     and each RG-LRU state row read and written.  Operations: the GEMMs
     and the (query, key) pairs the masks let through."""
     from repro_torch.core.formats import to_torch_dtype
-    cfg, params = eng.cfg, eng.params
+    cfg, params = ((eng.draft_cfg, eng.draft_params) if draft
+                   else (eng.cfg, eng.params))
     weights = [leaf["w"] for lp in params["layers"]
                for grp in ("mixer", "ffn") for leaf in lp[grp].values()
                if isinstance(leaf, dict) and "w" in leaf]
@@ -1824,8 +1904,6 @@ def profile_steps(eng, dev, work, steps: int = 10):
     call come from the counters (captured delta x replays)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import build
     from repro_torch.models import model as model_lib
 
     maxp = eng.sched.max_pages_per_seq
@@ -1849,65 +1927,327 @@ def profile_steps(eng, dev, work, steps: int = 10):
     for name, fn, n in (("decode_step", lambda: step.eager(False), steps),
                         ("decode_replay", lambda: step(False), steps),
                         ("prefill_chunk", prefill, 1)):
+        out[name] = {**profile_call(fn, n), **bounds[name]}
+        if name == "decode_replay":
+            eager_busy = out["decode_step"]["device_busy_ms"]
+            wall_ms = out[name]["wall_ms"]
+            out[name]["idle_share_vs_eager_kernels"] = (
+                1 - eager_busy / wall_ms if eager_busy else None)
+        log_profile(name, out[name],
+                    (f" (against the eager step's kernel sum: "
+                     f"{out[name]['idle_share_vs_eager_kernels']})"
+                     if name == "decode_replay" else ""))
+    return out
+
+
+def profile_call(fn, n):
+    """One call of ``fn`` to warm up, then ``n`` calls timed by the host
+    clock around a synchronise (no profiler: its overhead would inflate
+    the idle share), then ``n`` under ``torch.profiler``: wall ms, the
+    wrappers' launches, device kernels and busy ms per call, the idle
+    share, the kernels by device time and the ``torch.cumsum`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
+    fn()
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    for _ in range(n):
         fn()
-        torch.cuda.synchronize()
-        # Wall time without the profiler, whose own overhead would inflate
-        # the idle share; then the device time under it.
-        build.reset_launch_counts()
-        t = time.perf_counter()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t) / n
+    per_call = {k: v / n for k, v in build.launch_counts().items() if v}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t) / n
-        per_call = {k: v / n for k, v in build.launch_counts().items() if v}
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        rows = []
-        for e in prof.key_averages():
-            dev_us = (getattr(e, "self_device_time_total", None)
-                      or getattr(e, "self_cuda_time_total", 0) or 0)
-            # An aten op reports the kernels it launched as its own device
-            # time, and a runtime call (cudaLaunchKernel, cudaGraphLaunch)
-            # can carry the time of what it launched; count the kernels
-            # only.
-            if dev_us > 0 and not e.key.startswith(("aten::", "cuda")):
-                rows.append((dev_us / n / 1e3, e.key, e.count // n))
-        cumsum_calls = sum(e.count for e in prof.key_averages()
-                           if e.key == "aten::cumsum") // n
-        busy_ms = sum(r[0] for r in rows)
-        device_kernels = sum(r[2] for r in rows)
-        rows.sort(reverse=True)
-        top = [{"kernel": k[:60], "ms": ms, "calls": c}
-               for ms, k, c in rows[:8]]
-        every = [{"kernel": k[:120], "ms": ms, "calls": c}
-                 for ms, k, c in rows]
-        out[name] = {"wall_ms": wall_ms,
-                     "wrapper_launches": per_call,
-                     "cumsum_calls": cumsum_calls,
-                     "device_kernels": device_kernels if rows else None,
-                     "device_busy_ms": busy_ms if rows else None,
-                     "idle_share": (1 - busy_ms / wall_ms) if rows
-                     else None, "top": top, "kernels": every,
-                     **bounds[name]}
-        if name == "decode_replay":
-            eager_busy = out["decode_step"]["device_busy_ms"]
-            out[name]["idle_share_vs_eager_kernels"] = (
-                1 - eager_busy / wall_ms if eager_busy else None)
-        busy = (f"device busy {busy_ms:.3f} ms" if rows else
-                "device time not measured (no device events)")
-        log(f"  profile {name}: wall {wall_ms:.3f} ms, {busy}, bound "
-            f"{bounds[name]['bound_ms']:.3f} ms, idle share "
-            f"{out[name]['idle_share']}"
-            + (f" (against the eager step's kernel sum: "
-               f"{out[name]['idle_share_vs_eager_kernels']})"
-               if name == "decode_replay" else "")
-            + f"; device kernels per call {out[name]['device_kernels']}, "
-            f"wrapper launches per call {per_call}")
-        for r in top:
-            log(f"    {r['ms']:.4f} ms x{r['calls']} {r['kernel']}")
+    rows = []
+    for e in prof.key_averages():
+        dev_us = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0) or 0)
+        # An aten op reports the kernels it launched as its own device
+        # time, and a runtime call (cudaLaunchKernel, cudaGraphLaunch)
+        # can carry the time of what it launched; count the kernels only.
+        if dev_us > 0 and not e.key.startswith(("aten::", "cuda")):
+            rows.append((dev_us / n / 1e3, e.key, e.count // n))
+    cumsum_calls = sum(e.count for e in prof.key_averages()
+                       if e.key == "aten::cumsum") // n
+    busy_ms = sum(r[0] for r in rows)
+    rows.sort(reverse=True)
+    return {"wall_ms": wall_ms, "wrapper_launches": per_call,
+            "cumsum_calls": cumsum_calls,
+            "device_kernels": sum(r[2] for r in rows) if rows else None,
+            "device_busy_ms": busy_ms if rows else None,
+            "idle_share": (1 - busy_ms / wall_ms) if rows else None,
+            "top": [{"kernel": k[:60], "ms": ms, "calls": c}
+                    for ms, k, c in rows[:8]],
+            "kernels": [{"kernel": k[:120], "ms": ms, "calls": c}
+                        for ms, k, c in rows]}
+
+
+def log_profile(name, prof, note=""):
+    busy = (f"device busy {prof['device_busy_ms']:.3f} ms"
+            if prof["device_busy_ms"] is not None else
+            "device time not measured (no device events)")
+    log(f"  profile {name}: wall {prof['wall_ms']:.3f} ms, {busy}, bound "
+        f"{prof['bound_ms']:.3f} ms, idle share {prof['idle_share']}{note}; "
+        f"device kernels per call {prof['device_kernels']}, wrapper "
+        f"launches per call {prof['wrapper_launches']}")
+    for r in prof["top"]:
+        log(f"    {r['ms']:.4f} ms x{r['calls']} {r['kernel']}")
+
+
+# -- phase 5: speculative serving at full width -------------------------------
+
+# Phase 5's runs: (phase 4 configuration, draft depth in layer periods).
+# (configuration, draft depth in layer periods, draft weights).  With
+# random weights every model here greedily repeats its last prompt token
+# (the tied embedding's product with itself decides the LM head), and so
+# does any draft with weights of the same scale: the weight-shared drafts
+# are accepted every time.  gemma_2b's 18-period draft is the target
+# itself, so its acceptance must be exactly 1.0.  The "-own" runs pass a
+# draft of their own (``draft_config`` + ``draft_params``: seed 1, its
+# projection weights scaled by REJECTING_DRAFT_SCALE so they, not the
+# embedding, decide part of its proposals; ``tools/draft_probe.py``
+# sweeps the scale: at 2 every draft is still accepted, at 3 almost none):
+# drafts are rejected at some positions and not at others, which runs the
+# rollback at full width (gemma's paged rewind; recurrentgemma's ring and
+# RG-LRU restore and the replay of the accepted prefix).
+SPEC_RUNS = {
+    "default-draft1": ("default", 1, "shared"),
+    "default-draft18": ("default", 18, "shared"),
+    "recurrentgemma-draft1": ("recurrentgemma", 1, "shared"),
+    "default-own1": ("default", 1, "own"),
+    "recurrentgemma-own1": ("recurrentgemma", 1, "own"),
+}
+REJECTING_DRAFT_SCALE = 2.5
+SPEC_K = 4
+
+
+def speculative_phase(dev, run, vanilla, smi):
+    """Serve ``run`` (``SPEC_RUNS``) at full width with ``spec_k=4`` in the
+    engine's defaults on phase 4's workload.  Launch counters are zeroed
+    just before the run and read just after.  Requires: every request's
+    greedy tokens equal to phase 4's (b) run of the same configuration
+    (``vanilla``); the tile loops' and SIMT kernels' counters at 0; every
+    verify window (the step's, and a replay's) launching B4 (or B6) once
+    per position and attention layer; an acceptance rate of exactly 1.0
+    for the full-depth draft.  Prints each speculative step (host wall ms,
+    the device spans of its draft and verify between CUDA events, its
+    wrappers' launches) and the run's acceptance rate, mean window,
+    decode tokens/s and peak memory, and profiles one verify window and
+    one draft decode step at the workload's positions."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    name, groups, weights = SPEC_RUNS[run]
+    arch, overrides = CONFIGS[name]
+    work = WORKLOADS[arch]
+    cfg = dataclasses.replace(get_config(arch), **overrides)
+    prompts, engine_kw = serving_workload(cfg, work, dev)
+    kinds = [mixer for mixer, _ in cfg.layer_kinds]
+    attn_kernel, attn_layers = (
+        ("flash_decode_paged_mma", kinds.count("attn")) if kinds.count("attn")
+        else ("flash_decode_mma", kinds.count("local")))
+    steps = []
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    class SpecTimedEngine(ServingEngine):
+        """Records each speculative step: host wall time, the CUDA-event
+        spans of its draft and of each verify window, and the counters'
+        deltas (the step's, and each window's)."""
+        _rec = None
+
+        def _spec_step(self, decoding, k):
+            self._rec = rec = {"k": k, "slots": len(decoding), "verify": []}
+            before = build.launch_counts()
+            accepted = self.sched.spec_accepted
+            t = time.perf_counter()
+            super()._spec_step(decoding, k)
+            rec["wall_ms"] = 1e3 * (time.perf_counter() - t)
+            rec["accepted"] = self.sched.spec_accepted - accepted
+            rec["launches"] = {n: c - before[n] for n, c
+                               in build.launch_counts().items()
+                               if c != before[n]}
+            steps.append(rec)
+            self._rec = None
+
+        def _draft_propose(self, decoding, k):
+            start = event()
+            out = super()._draft_propose(decoding, k)
+            self._rec["draft_events"] = (start, event())
+            return out
+
+        def _verify(self, batch, *, last_only=False):
+            if self._rec is None:         # profile_spec's calls
+                return super()._verify(batch, last_only=last_only)
+            before = build.launch_counts()[attn_kernel]
+            start = event()
+            out = super()._verify(batch, last_only=last_only)
+            self._rec["verify"].append({
+                "tokens": int(batch["tokens"].shape[1]),
+                "events": (start, event()),
+                attn_kernel: build.launch_counts()[attn_kernel] - before})
+            return out
+
+    reset_planning()
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    if weights == "shared":
+        draft_kw = dict(draft_groups=groups)
+        about = "weights shared with the target"
+    else:
+        dcfg = cfg.draft(groups)
+        draft = rejecting_draft(dcfg, dev)
+        draft_kw = dict(draft_config=dcfg, draft_params=draft)
+        about = (f"weights of its own (seed 1, projections x "
+                 f"{REJECTING_DRAFT_SCALE})")
+    eng = SpecTimedEngine(params, cfg, spec_k=SPEC_K, **draft_kw,
+                          **engine_kw)
+    del params
+    draft_kw = draft = None
+    log(f"  [{run}] draft {eng.draft_cfg.name}: {eng.draft_cfg.n_layers} "
+        f"layers, {about}; spec_k={SPEC_K}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_tokens=MAX_TOKENS))
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    m = eng.metrics()
+    for rec in steps:
+        rec["draft_span_ms"] = rec["draft_events"][0].elapsed_time(
+            rec["draft_events"][1])
+        for v in rec["verify"]:
+            v["span_ms"] = v["events"][0].elapsed_time(v["events"][1])
+            del v["events"]
+        del rec["draft_events"]
+    for i, rec in enumerate(steps):
+        log(f"  [{run}] spec step {i}: k={rec['k']} slots={rec['slots']} "
+            f"accepted={rec['accepted']} wall {rec['wall_ms']:.3f} ms, "
+            f"draft span {rec['draft_span_ms']:.3f} ms, verify spans "
+            f"{[round(v['span_ms'], 3) for v in rec['verify']]} ms "
+            f"(windows {[v['tokens'] for v in rec['verify']]}); launches "
+            f"{rec['launches']}")
+    log(f"  [{run}] launch counts: {counts}")
+    for rid, resp in out.items():
+        require(resp.status == "ok", resp)
+        require(list(resp) == vanilla[rid],
+                f"[{run}] request {rid}: speculative greedy tokens differ "
+                f"from phase 4's vanilla run")
+    for kernel in PATH_KERNELS[name]:
+        require(counts[kernel] > 0, f"[{run}] {kernel} never launched")
+    for kernel in NOT_ON_PATH[name]:
+        require(counts[kernel] == 0,
+                f"[{run}] {counts[kernel]} launches of {kernel}")
+    windows = [v for rec in steps for v in rec["verify"]]
+    for v in windows:
+        require(v[attn_kernel] == attn_layers * v["tokens"],
+                f"[{run}] a {v['tokens']}-token window launched "
+                f"{v[attn_kernel]} {attn_kernel}, want "
+                f"{attn_layers * v['tokens']}")
+    require(m["spec_steps"] == len(steps) > 0, f"[{run}] no speculative step")
+    if groups == cfg.n_layers // cfg.period:
+        require(m["acceptance_rate"] == 1.0,
+                f"[{run}] acceptance rate {m['acceptance_rate']} with the "
+                f"full-depth draft: a verify row differs from the draft's "
+                f"decode row")
+    if weights == "own":
+        require(0.0 < m["acceptance_rate"] < 1.0,
+                f"[{run}] acceptance rate {m['acceptance_rate']}: the "
+                f"draft of its own must be rejected at some positions and "
+                f"accepted at others")
+        replays = [v for rec in steps for v in rec["verify"][1:]]
+        require(not eng._stateful_rows or replays,
+                f"[{run}] no replay window: the ring and RG-LRU rows were "
+                f"never restored")
+        log(f"  [{run}] {len(replays)} replay windows of "
+            f"{sorted(set(v['tokens'] for v in replays))} tokens")
+    log(f"  [{run}] greedy tokens equal to phase 4's for all {len(out)} "
+        f"requests; every window launched {attn_kernel} once per position "
+        f"and layer ({attn_layers} layers)")
+    log(f"  [{run}] on {smi}: acceptance rate {m['acceptance_rate']:.4f}, "
+        f"spec_k_mean {m['spec_k_mean']:.3f}, {m['spec_steps']} speculative "
+        f"of {m['decode_steps']} decode steps, run wall {wall:.3f} s, "
+        f"{m['decode_tokens'] / wall:.1f} decode tokens/s over the run, "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    profile = profile_spec(eng, dev, work)
+    summary = {
+        "run": run, "config": name, "arch": arch,
+        "draft": eng.draft_cfg.name, "draft_layers": eng.draft_cfg.n_layers,
+        "spec_k": SPEC_K, "acceptance_rate": m["acceptance_rate"],
+        "spec_k_mean": m["spec_k_mean"], "spec_steps": m["spec_steps"],
+        "decode_steps": m["decode_steps"],
+        "decode_tokens": m["decode_tokens"], "wall_s": wall,
+        "decode_tokens_per_s": m["decode_tokens"] / wall,
+        "peak_memory_gib": peak / 2**30, "launch_counts": counts,
+        "steps": steps, "profile": profile}
+    del eng
+    torch.cuda.empty_cache()
+    return summary
+
+
+def rejecting_draft(dcfg, dev, scale: float = REJECTING_DRAFT_SCALE):
+    """A draft's parameters of its own: seed 1, every projection weight
+    times ``scale`` (norms, embedding and the RG-LRU's bare tensors as
+    drawn)."""
+    import torch
+    from repro_torch.models import model as model_lib
+    draft = model_lib.init_params(dcfg, seed=1, device=dev)
+    with torch.no_grad():
+        for lp in draft["layers"]:
+            for group in ("mixer", "ffn"):
+                for leaf in lp[group].values():
+                    if isinstance(leaf, dict) and "w" in leaf:
+                        leaf["w"].mul_(scale)
+    return draft
+
+
+def profile_spec(eng, dev, work):
+    """The profiler over one verify window (4 slots × ``SPEC_K`` tokens at
+    the workload's ``decode`` positions, over the cache the run left)
+    and one draft decode step at the same positions: wall and device ms,
+    idle share, and each call's bound (:func:`step_bounds` over its
+    tokens)."""
+    import numpy as np
+    from repro_torch.models import model as model_lib
+
+    positions = work["decode"]
+    tokens = np.zeros((4, SPEC_K), np.int64)
+    valid = np.ones(4, bool)
+    maxp = eng.sched.max_pages_per_seq
+    table = (1 + np.arange(4 * maxp, dtype=np.int32)).reshape(4, maxp)
+    batch = eng._batch(tokens, positions, table,
+                       valid if eng._stateful_rows else None)
+    draft = eng._batch(tokens[:, :1], positions, eng._draft_table,
+                       valid if eng._draft_stateful else None)
+    window = [p + i for p in positions for i in range(SPEC_K)]
+    out = {}
+    for name, fn, bound in (
+            ("verify_window",
+             lambda: eng._verify(batch),
+             step_bounds(eng, window, chunk=512, pos0=work["pos0"])),
+            ("draft_decode_step",
+             lambda: model_lib.decode(eng.draft_params, draft,
+                                      eng.draft_cache, eng.draft_cfg),
+             step_bounds(eng, positions, chunk=512, pos0=work["pos0"],
+                         draft=True))):
+        out[name] = {**profile_call(fn, 3), **bound["decode_step"]}
+        log_profile(name, out[name])
     return out
 
 
@@ -2017,6 +2357,14 @@ def main() -> int:
             f"[{name}] {overrides or '(defaults)'}")
         counts[name], serving[name] = serving_phase(dev, name)
         log(f"  [{name}] serving summary: {json.dumps(serving[name])}")
+    speculative = {}
+    for run, (name, groups, weights) in SPEC_RUNS.items():
+        log(f"== 5. full-width speculative serving [{run}]: configuration "
+            f"[{name}], spec_k={SPEC_K}, draft of {groups} layer period(s), "
+            f"{weights} weights")
+        speculative[run] = speculative_phase(
+            dev, run, serving[name]["streams"], smi)
+        counts[run] = speculative[run]["launch_counts"]
 
     kernels = []
     for name, source, replaces, shape, path in KERNELS:
@@ -2033,7 +2381,7 @@ def main() -> int:
             "library_ms": rep["library_ms"]})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"nvidia_smi": smi, "rows": rows, "serving": serving,
-                   "kernels": kernels,
+                   "speculative": speculative, "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

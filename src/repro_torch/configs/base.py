@@ -181,6 +181,23 @@ class ArchConfig:
             kw["rglru"] = dataclasses.replace(self.rglru, width=128)
         return dataclasses.replace(self, **kw)
 
+    def draft(self, groups: int = 1, *,
+              format_policy: Optional[str] = None) -> "ArchConfig":
+        """The config of a truncated-depth speculative-decoding draft
+        (``configs/base.py:238`` of the JAX package): the same widths and
+        layer pattern, ``groups`` periods deep, named
+        ``{name}_draft{groups}``.  Pairs with
+        :func:`repro_torch.models.model.draft_from`, which shares the
+        target's first ``groups * period`` layers.  ``format_policy``
+        may run the draft under another GEMM format than the target."""
+        n_groups = self.n_layers // self.period if self.scan_layers else 0
+        if not 0 < groups <= n_groups:
+            raise ValueError(
+                f"draft needs 1..{n_groups} scanned groups, got {groups}")
+        return dataclasses.replace(
+            self, name=f"{self.name}_draft{groups}",
+            n_layers=groups * self.period, format_policy=format_policy)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:

@@ -314,7 +314,9 @@ def execute_plan(plan: ExecutionPlan, a, b, c=None, bias=None, *,
     quantized to the format by the caller).  The grouped route takes
     x (G, C, K) and w (G, K, N) as ``a`` and ``b`` and, in ``widths``,
     each member's true output width.  The rigid route ignores the
-    narrow accumulator: a rigid ISA cannot adapt its width."""
+    narrow accumulator: a rigid ISA cannot adapt its width.  The split-K
+    engines take their slices for the signature's rows, which may be
+    fewer than the operands' (``ops.mte_gemm(plan_rows=)``)."""
     from repro_torch.core.formats import to_torch_dtype
     from repro_torch.kernels.grouped_gemm import grouped_gemm_kernel
     from repro_torch.kernels.mte_gemm import mte_gemm_kernel
@@ -333,11 +335,12 @@ def execute_plan(plan: ExecutionPlan, a, b, c=None, bias=None, *,
         return grouped_gemm_kernel(a, b, geom=plan.geometry,
                                    epilogue=sig.epilogue,
                                    out_dtype=out_dtype, acc_dtype=acc_dtype,
-                                   widths=widths)
+                                   widths=widths, split_rows=sig.m)
     if plan.route == "splitk":
         return mte_gemm_splitk_kernel(
             a, b, c, bias, geom=plan.geometry, n_split=plan.n_split,
-            epilogue=sig.epilogue, out_dtype=out_dtype, acc_dtype=acc_dtype)
+            epilogue=sig.epilogue, out_dtype=out_dtype, acc_dtype=acc_dtype,
+            split_rows=sig.m)
     return mte_gemm_kernel(a, b, c, bias, geom=plan.geometry,
                            epilogue=sig.epilogue, out_dtype=out_dtype,
                            acc_dtype=acc_dtype)

@@ -16,11 +16,12 @@ whole layer pipelines (the port of ``repro.graph``).
 Consumers: ``models/layers.py`` (the MLP block) and ``models/attention.py``
 (the q/k/v projections and the grouped decode q/k/v).
 ``ArchConfig.use_graph`` (default True) gates the compiled path.  Forward
-only; ``merge_graphs`` (the speculative program) waits for ROADMAP A8.
+only.  ``merge_graphs`` joins independent programs into one (the serving
+engine's speculative step).
 """
 from repro_torch.graph.ir import (CastNode, EpilogueNode, GemmNode, Graph,
                                   GroupNode, stack_group_weights)
-from repro_torch.graph.trace import GraphBuilder, trace_gemms
+from repro_torch.graph.trace import GraphBuilder, merge_graphs, trace_gemms
 from repro_torch.graph.schedule import (CompiledProgram, compile_cached,
                                         compile_graph)
 from repro_torch.graph.fuse import fuse as fuse_graph
@@ -28,5 +29,5 @@ from repro_torch.graph.fuse import fuse as fuse_graph
 __all__ = [
     "CastNode", "EpilogueNode", "GemmNode", "GroupNode", "Graph",
     "GraphBuilder", "CompiledProgram", "compile_graph", "compile_cached",
-    "fuse_graph", "trace_gemms", "stack_group_weights",
+    "fuse_graph", "merge_graphs", "trace_gemms", "stack_group_weights",
 ]

@@ -321,6 +321,10 @@ class CompiledProgram:
         return head + "\n" + self.graph.describe()
 
     def __call__(self, *args):
+        """Run the program on ``args``.  Every launch runs on its granted
+        plan, planned for the rows the program was compiled for
+        (``ops.mte_gemm(plan_rows=)``): a program compiled at M rows and
+        called on more computes each row as the M-row program would."""
         g = self.graph
         if len(args) != len(g.inputs):
             raise ValueError(f"program takes {len(g.inputs)} inputs, "
@@ -352,12 +356,14 @@ class CompiledProgram:
             epilogue=node.epilogue, policy=node.policy,
             out_dtype=to_torch_dtype(node.out_dtype),
             format_policy=formats_lib.FORMATS[node.fmt],
-            geometry=plan.geometry if plan is not None else None)
+            geometry=plan.geometry if plan is not None else None,
+            plan_rows=plan.signature.m if plan is not None else None)
 
     def _run_group(self, node: GroupNode, env, plan):
         fmt = formats_lib.FORMATS[node.fmt]
         x = env[node.a]
         geom = plan.geometry if plan is not None else None
+        rows = plan.signature.m if plan is not None else None
         kernel_dt = to_torch_dtype(_group_kernel_out_dtype(node, fmt))
         out_dtype = to_torch_dtype(node.out_dtype)
         biases = tuple(env[b] if b is not None else None
@@ -365,10 +371,11 @@ class CompiledProgram:
         if node.stacked is None:
             ws = tuple(env[w] for w in node.weights)
             members = _group_member_gemm(x, ws, biases, node.widths,
-                                         node.fmt, node.epilogues, geom)
+                                         node.fmt, node.epilogues, geom,
+                                         rows)
             return [y.to(out_dtype) for y in members]
         members = _grouped_launch(x, env[node.stacked], node.widths, fmt,
-                                  kernel_dt, geom)
+                                  kernel_dt, geom, rows)
         outs = []
         for i, y in enumerate(members):
             epi = node.epilogues[i]
@@ -380,7 +387,7 @@ class CompiledProgram:
         return outs
 
 
-def _grouped_launch(x, wstack, widths, fmt, kernel_dt, geom):
+def _grouped_launch(x, wstack, widths, fmt, kernel_dt, geom, plan_rows):
     """One grouped kernel launch over the stacked operand; returns the
     per-member slices (padded columns dropped) at the kernel dtype.  x
     is cast to the operand width first and then broadcast over the group
@@ -394,12 +401,13 @@ def _grouped_launch(x, wstack, widths, fmt, kernel_dt, geom):
         x = x[None].expand(g, *x.shape)
     out = ops.grouped_gemm(x, wstack, epilogue=Epilogue(),
                            out_dtype=kernel_dt, format_policy=fmt,
-                           geometry=geom, widths=widths)
+                           geometry=geom, widths=widths,
+                           plan_rows=plan_rows)
     return [out[i, :, :w] for i, w in enumerate(widths)]
 
 
 def _group_member_gemm(x, ws, biases, widths, fmt_name: str, epilogues,
-                       geom):
+                       geom, plan_rows):
     """Member-wise grouped GEMM → tuple of members with their epilogues
     applied at accumulator precision (the forward of JAX's
     ``_group_member_gemm``).
@@ -423,7 +431,8 @@ def _group_member_gemm(x, ws, biases, widths, fmt_name: str, epilogues,
         xg = xq[None].expand(len(ws), *xq.shape)
         acc = ops.grouped_gemm(xg, wstack, epilogue=Epilogue(),
                                out_dtype=torch.float32, format_policy=fmt,
-                               geometry=geom, widths=widths)
+                               geometry=geom, widths=widths,
+                               plan_rows=plan_rows)
         outs = []
         for i, (_, sb) in enumerate(qs):
             o = acc[i, :, : widths[i]]
@@ -439,7 +448,8 @@ def _group_member_gemm(x, ws, biases, widths, fmt_name: str, epilogues,
     xg = xc[None].expand(len(ws), *xc.shape)
     acc = ops.grouped_gemm(xg, wstack, epilogue=Epilogue(),
                            out_dtype=fmt.accum_torch, format_policy=fmt,
-                           geometry=geom, widths=widths)
+                           geometry=geom, widths=widths,
+                           plan_rows=plan_rows)
     return tuple(
         epilogues[i].apply(acc[i, :, : widths[i]], bias=biases[i])
         for i in range(len(ws)))

@@ -21,8 +21,10 @@ Two ways to obtain a :class:`~repro_torch.graph.ir.Graph`:
   input or another node's output (``capture.is_complete()``); the
   builder API covers the general case.
 
-``merge_graphs`` (one program of a draft step and a verify chunk) serves
-only speculative decoding and waits for it (ROADMAP A8).
+:func:`merge_graphs` concatenates independent programs into one: the
+serving engine's speculative step presents the draft's decode projection,
+the target's verify projection and the verify unembedding to the
+scheduler as one program.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ from repro_torch.core.tile_state import dtype_name as _dtype_name
 from repro_torch.graph.ir import (CastNode, EpilogueNode, GemmNode, Graph,
                                   GroupNode, ValueInfo)
 
-__all__ = ["GraphBuilder", "GemmCapture", "trace_gemms", "active"]
+__all__ = ["GraphBuilder", "GemmCapture", "trace_gemms", "active",
+           "merge_graphs"]
 
 
 class GraphBuilder:
@@ -284,3 +287,48 @@ def trace_gemms():
         yield cap
     finally:
         _ACTIVE = prev
+
+
+def merge_graphs(*graphs: Graph) -> Graph:
+    """Concatenate independent programs into ONE :class:`Graph`
+    (``trace.py:291-338`` of the JAX package).
+
+    Value ids of graph ``i`` are shifted by the total value count of the
+    graphs before it; inputs and outputs concatenate in graph order, so
+    execution binds each constituent's arguments contiguously.  The
+    merged program has one signature and compiles (fuses, schedules,
+    plans) as a unit.  The constituents must be independent: no value
+    flows from one graph into another."""
+    values: List[ValueInfo] = []
+    nodes: list = []
+    inputs: List[int] = []
+    outputs: List[int] = []
+    for g in graphs:
+        off = len(values)
+
+        def s(v, off=off):
+            return None if v is None else v + off
+
+        values.extend(g.values)
+        inputs.extend(v + off for v in g.inputs)
+        outputs.extend(v + off for v in g.outputs)
+        for n in g.nodes:
+            if isinstance(n, GemmNode):
+                nodes.append(dataclasses.replace(
+                    n, a=s(n.a), b=s(n.b), out=s(n.out), c=s(n.c),
+                    bias=s(n.bias)))
+            elif isinstance(n, EpilogueNode):
+                nodes.append(dataclasses.replace(
+                    n, args=tuple(s(a) for a in n.args), out=s(n.out)))
+            elif isinstance(n, CastNode):
+                nodes.append(dataclasses.replace(n, x=s(n.x), out=s(n.out)))
+            elif isinstance(n, GroupNode):
+                nodes.append(dataclasses.replace(
+                    n, a=s(n.a), outputs=tuple(s(o) for o in n.outputs),
+                    weights=tuple(s(w) for w in n.weights),
+                    stacked=s(n.stacked),
+                    biases=tuple(s(b) for b in n.biases)))
+            else:
+                raise TypeError(type(n).__name__)
+    return Graph(values=values, nodes=nodes, inputs=tuple(inputs),
+                 outputs=tuple(outputs))

@@ -96,12 +96,14 @@ def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
                         epilogue: Epilogue = Epilogue(),
                         out_dtype=torch.float32, acc_dtype=None,
                         widths: Optional[Sequence[int]] = None,
-                        n_split: Optional[int] = None) -> torch.Tensor:
+                        n_split: Optional[int] = None,
+                        split_rows: Optional[int] = None) -> torch.Tensor:
     """x (G, C, K) @ w (G, K, N) → (G, C, N), epilogue per group: the B3
     CUDA kernel on CUDA tensors, :func:`grouped_gemm_torch` on CPU
     tensors.  ``n_split`` (split-K engine only) pins the number of K
     slices, at most 8; None takes
-    :func:`repro_torch.core.geometry.grouped_split`'s choice."""
+    :func:`repro_torch.core.geometry.grouped_split`'s choice for
+    ``split_rows`` rows (default C)."""
     dev = build.require_cuda(x, w, what="grouped_gemm")
     if dev is None:
         return grouped_gemm_torch(x, w, geom=geom, epilogue=epilogue,
@@ -140,15 +142,15 @@ def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
         tiles = sum(grouped_live_tiles(n, widths, g))
         if n_split is None:
             n_split, depth = grouped_split(
-                tiles, k, m,
+                tiles, k, m if split_rows is None else split_rows,
                 torch.cuda.get_device_properties(dev).multi_processor_count)
         else:
             depth = round_up(cdiv(k, n_split), GROUPED_BK)
-            if not 1 <= n_split <= MAX_CLUSTER or cdiv(k, depth) != n_split \
-                    or depth > grouped_max_depth(m):
-                raise ValueError(f"grouped_gemm: {n_split} slices of K={k} "
-                                 f"for {m} rows is not a split the split-K "
-                                 f"engine takes")
+        if not 1 <= n_split <= MAX_CLUSTER or cdiv(k, depth) != n_split \
+                or depth > grouped_max_depth(m):
+            raise ValueError(f"grouped_gemm: {n_split} slices of K={k} "
+                             f"for {m} rows is not a split the split-K "
+                             f"engine takes")
         lib, fn = build.entry("grouped_gemm_splitk",
                               "grouped_gemm_splitk_launch",
                               _SPLITK_ARGTYPES)

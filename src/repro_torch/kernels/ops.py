@@ -14,6 +14,17 @@ kernel's plain version.
 While a :func:`repro_torch.graph.trace.trace_gemms` capture is active,
 every GEMM issued here is recorded in it (``record_gemm`` /
 ``record_grouped``).
+
+``plan_rows`` plans a GEMM as if it had that many rows, and the split-K
+engines take their K slices for that many.  The engine itself is chosen
+for the real rows: up to 16 (``geometry.GROUPED_MAX_M``) B2's cluster and
+B3's split-K engines run, and compute each row as the planned GEMM's rows
+are (the same route, tile and K partition), so a row's bits do not depend
+on how many rows ride with it.  Past 16 rows the tile loops run, and that
+no longer holds.  A speculative verify window of slots·k ≤ 16 rows runs
+on the decode step's plans this way
+(:func:`repro_torch.models.model.verify_chunk`,
+``serving.engine.SPEC_MAX_ROWS``).
 """
 from __future__ import annotations
 
@@ -53,16 +64,19 @@ def _plan(m, n, k, dt_in, dt_out, policy, epilogue, fmt, geometry,
 
 def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
              policy: str = "mte", out_dtype=torch.float32,
-             format_policy=None, geometry=None):
+             format_policy=None, geometry=None,
+             plan_rows: Optional[int] = None):
     """``epilogue(a @ b [, c, bias])`` through the plan cache under a
     format policy.  ``geometry`` pins the plan to a block geometry, which
     must be a tile the kernels are compiled for (else ValueError).
     ``policy="amx"`` routes to the rigid baseline (B8): it cannot adapt
     its geometry or its accumulator to the format, but it still executes
     the format's arithmetic (int8: quantize, rigid product into int32,
-    dequantize and epilogue outside, as ``ops.py:72-84`` in JAX)."""
+    dequantize and epilogue outside, as ``ops.py:72-84`` in JAX).
+    ``plan_rows``: see the module docstring."""
     fmt = formats_lib.resolve_format(format_policy, a.dtype)
     m, k = a.shape
+    m = m if plan_rows is None else plan_rows
     n = b.shape[1]
     if fmt.quantized:
         aq, bq, sa, sb = formats_lib.quantize_operands(a, b, fmt)
@@ -87,16 +101,18 @@ def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
 
 def grouped_gemm(x, w, *, epilogue: Epilogue = Epilogue(),
                  out_dtype=torch.float32, format_policy=None,
-                 geometry=None, widths=None):
+                 geometry=None, widths=None,
+                 plan_rows: Optional[int] = None):
     """Grouped GEMM x (G, C, K) @ w (G, K, N) → (G, C, N) through the
     plan cache (route ``grouped``, B3) under a format policy (per-group
     per-channel scales for int8).  ``geometry`` pins a program-scheduled
     block shape; ``widths`` marks each member's true output width (the
     columns past it come back as zeros and cost the kernel no reads).
     The quantize, cast and dequantize follow ``autodiff.py:165-191`` of
-    the JAX package."""
+    the JAX package.  ``plan_rows``: see the module docstring."""
     fmt = formats_lib.resolve_format(format_policy, x.dtype)
     g, cap, k = x.shape
+    cap = cap if plan_rows is None else plan_rows
     n = w.shape[2]
     if fmt.quantized:
         xq, wq, sx, sw = formats_lib.quantize_operands(x, w, fmt)

@@ -137,15 +137,18 @@ def launch_partials(a, b, *, geom: BlockGeometry, n_split: int,
 
 
 def cluster_layout(m: int, n: int, k: int, dev,
-                   cluster_split: Optional[int] = None):
+                   cluster_split: Optional[int] = None,
+                   split_rows: Optional[int] = None):
     """(slices, slice depth) of the cluster engine: the planner's
-    :func:`splitk_cluster_split` for the card's SM count, or the pinned
-    ``cluster_split`` (ValueError when the engine cannot take it)."""
+    :func:`splitk_cluster_split` for ``split_rows`` rows (default ``m``)
+    and the card's SM count, or the pinned ``cluster_split``; ValueError
+    when the engine cannot take the split for ``m`` rows."""
     if cluster_split is None:
-        return splitk_cluster_split(
-            cdiv(n, GROUPED_BN), k, m,
+        cluster_split, depth = splitk_cluster_split(
+            cdiv(n, GROUPED_BN), k, m if split_rows is None else split_rows,
             torch.cuda.get_device_properties(dev).multi_processor_count)
-    depth = round_up(cdiv(k, cluster_split), GROUPED_BK)
+    else:
+        depth = round_up(cdiv(k, cluster_split), GROUPED_BK)
     if not 1 <= cluster_split <= MAX_CLUSTER \
             or cdiv(k, depth) != cluster_split \
             or depth > grouped_max_depth(m):
@@ -197,14 +200,15 @@ def mte_gemm_splitk_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
                            epilogue: Epilogue = Epilogue(),
                            out_dtype=torch.float32,
                            acc_dtype=None,
-                           cluster_split: Optional[int] = None
+                           cluster_split: Optional[int] = None,
+                           split_rows: Optional[int] = None
                            ) -> torch.Tensor:
     """``epilogue(a @ b [, c, bias])`` with K split into slices: on CUDA
     tensors the engine :func:`repro_torch.core.geometry.splitk_engine`
-    names — the cluster engine in one launch (its own slices, pinned with
-    ``cluster_split``), or the tile loop at ``n_split`` slices with the
-    sum and epilogue in PyTorch; CPU tensors run
-    :func:`mte_gemm_splitk_torch`."""
+    names — the cluster engine in one launch (its own slices for
+    ``split_rows`` rows, default M, pinned with ``cluster_split``), or
+    the tile loop at ``n_split`` slices with the sum and epilogue in
+    PyTorch; CPU tensors run :func:`mte_gemm_splitk_torch`."""
     dev = build.require_cuda(a, b, c, bias, what="splitk_gemm")
     if dev is None:
         return mte_gemm_splitk_torch(a, b, c, bias, geom=geom,
@@ -219,7 +223,8 @@ def mte_gemm_splitk_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
         if b.dtype != a.dtype:
             raise TypeError(f"splitk_gemm: operands {a.dtype} x {b.dtype} "
                             f"unsupported")
-        slices, depth = cluster_layout(m, n, k, dev, cluster_split)
+        slices, depth = cluster_layout(m, n, k, dev, cluster_split,
+                                       split_rows)
         return _launch_cluster(a, b, c, bias, epilogue, out_dtype, slices,
                                depth)
     if cluster_split is not None:

@@ -6,11 +6,13 @@ default) the q/k/v projections are ONE compiled :mod:`repro_torch.graph`
 program (:func:`_qkv_compiled`), and the decode step's q/k/v, under
 ``cfg.decode_qkv_grouped``, ONE grouped GEMM (B3) over the prestacked
 (3, D, Nmax) weight (:func:`_project_qkv_grouped`).  Prefill-chunk
-attention runs through B5 (``flash_attention``) and decode attention
-through B4 (``flash_decode_paged``).  Sliding-window (``local``) layers
-keep a per-slot ring of L = min(window, cache_len) slots: a decode step
-reads it through B6 (``flash_decode``), a prefill chunk attends to it
-with :func:`_xla_attention`, the plain mirror of JAX's non-Pallas path
+attention runs through B5 (``flash_attention``), decode attention
+through B4 (``flash_decode_paged``), and a speculative verify window
+through B4 once per window position (:func:`verify_paged_attention`).
+Sliding-window (``local``) layers keep a per-slot ring of L =
+min(window, cache_len) slots: a decode step reads it through B6
+(``flash_decode``), a prefill chunk attends to it with
+:func:`_xla_attention`, the plain mirror of JAX's non-Pallas path
 (JAX's ring chunk does not reach a Pallas kernel either).  The KV scatter
 into pages and rings, the prefix-page gather and the dequantize outside
 the kernels stay plain PyTorch, as they are plain jnp in JAX.
@@ -37,7 +39,7 @@ from repro_torch.models.layers import (compute_dtype, dense, init_dense,
 __all__ = ["init_attention", "init_attn_cache", "decode_attention",
            "ring_chunk_attention", "init_paged_attn_cache",
            "paged_decode_attention", "paged_prefill_attention",
-           "grouped_decode"]
+           "verify_paged_attention", "grouped_decode"]
 
 
 def init_attention(gen: torch.Generator, cfg, device=None):
@@ -65,22 +67,25 @@ def _finish_qkv(q, k, v, p, cfg, positions):
                                                     cfg.rope_theta), v
 
 
-def _project_qkv(x, p, cfg, positions):
+def _project_qkv(x, p, cfg, positions, plan_rows=None):
     b, s, _ = x.shape
     hd = cfg.hd
     if use_graph(cfg):
-        q2, k2, v2 = _qkv_compiled(x.reshape(b * s, -1), p, cfg)
+        q2, k2, v2 = _qkv_compiled(x.reshape(b * s, -1), p, cfg, plan_rows)
         q = q2.reshape(b, s, cfg.n_heads, hd)
         k = k2.reshape(b, s, cfg.n_kv_heads, hd)
         v = v2.reshape(b, s, cfg.n_kv_heads, hd)
     else:
-        q = dense(x, p["q"], cfg).reshape(b, s, cfg.n_heads, hd)
-        k = dense(x, p["k"], cfg).reshape(b, s, cfg.n_kv_heads, hd)
-        v = dense(x, p["v"], cfg).reshape(b, s, cfg.n_kv_heads, hd)
+        q = dense(x, p["q"], cfg, plan_rows=plan_rows).reshape(
+            b, s, cfg.n_heads, hd)
+        k = dense(x, p["k"], cfg, plan_rows=plan_rows).reshape(
+            b, s, cfg.n_kv_heads, hd)
+        v = dense(x, p["v"], cfg, plan_rows=plan_rows).reshape(
+            b, s, cfg.n_kv_heads, hd)
     return _finish_qkv(q, k, v, p, cfg, positions)
 
 
-def _qkv_compiled(x2, p, cfg):
+def _qkv_compiled(x2, p, cfg, plan_rows=None):
     """The q/k/v projections as ONE compiled :mod:`repro_torch.graph`
     program (``attention.py:69-115`` of the JAX package).
 
@@ -88,13 +93,15 @@ def _qkv_compiled(x2, p, cfg):
     them into one GroupNode (one B3 launch) when the scheduler's program
     score favours it — it prices the k/v zero-padding and the per-call
     weight restacking, so grouping is a modelled choice.  Each node
-    carries the epilogue ``dense`` would fuse (the QKV bias)."""
+    carries the epilogue ``dense`` would fuse (the QKV bias).
+    ``plan_rows``: the program of that many rows (``layers.dense``)."""
     from repro_torch.graph import schedule as graph_schedule
     from repro_torch.graph.trace import GraphBuilder
 
     cdt = compute_dtype(cfg)
     fmt = model_format(cfg)
     m, d = x2.shape
+    m = m if plan_rows is None else plan_rows
 
     def build():
         b = GraphBuilder()
@@ -125,7 +132,7 @@ def _qkv_compiled(x2, p, cfg):
     return prog(*args)
 
 
-def _project_qkv_grouped(x, p, cfg, positions):
+def _project_qkv_grouped(x, p, cfg, positions, plan_rows=None):
     """Decode q/k/v as ONE GroupNode program (G=3) through the plan cache
     (``attention.py:118-177`` of the JAX package).
 
@@ -137,7 +144,8 @@ def _project_qkv_grouped(x, p, cfg, positions):
     (3, D, Nmax) weight is pure layout (:func:`repro_torch.graph.
     stack_group_weights`): the serving engine precomputes it once per
     layer (``p["qkv"]``); the inline stack here serves direct
-    ``model.decode`` calls."""
+    ``model.decode`` calls.  ``plan_rows``: the program of that many rows
+    (``layers.dense``)."""
     from repro_torch.graph import schedule as graph_schedule
     from repro_torch.graph import stack_group_weights
     from repro_torch.graph.trace import GraphBuilder
@@ -151,12 +159,13 @@ def _project_qkv_grouped(x, p, cfg, positions):
         wstack = stack_group_weights([p["q"]["w"], p["k"]["w"],
                                       p["v"]["w"]])       # (3, D, Nmax)
     x2 = x.reshape(b * s, dm)
+    m = b * s if plan_rows is None else plan_rows
     cdt = compute_dtype(cfg)
     fmt = model_format(cfg)
 
     def build():
         bld = GraphBuilder()
-        xv = bld.input((b * s, dm), x2.dtype, "x")
+        xv = bld.input((m, dm), x2.dtype, "x")
         wv = bld.input(wstack.shape, wstack.dtype, "qkv")
         outs = bld.group(xv, stacked=wv, widths=(nq, nkv, nkv),
                          fmt=fmt.name, out_dtype=cdt,
@@ -164,7 +173,7 @@ def _project_qkv_grouped(x, p, cfg, positions):
         bld.output(*outs)
         return bld.build()
 
-    key = ("qkv_decode", b * s, dm, nq, nkv, fmt.name, str(cdt),
+    key = ("qkv_decode", m, dm, nq, nkv, fmt.name, str(cdt),
            cfg.gemm_policy, str(x2.dtype), str(wstack.dtype))
     prog = graph_schedule.compile_cached(key, build)
     q, k, v = prog(x2, wstack)
@@ -190,10 +199,10 @@ def grouped_decode(cfg) -> bool:
             and use_graph(cfg) and cfg.gemm_policy == "mte")
 
 
-def _project_qkv_decode(x, p, cfg, positions):
+def _project_qkv_decode(x, p, cfg, positions, plan_rows=None):
     if grouped_decode(cfg):
-        return _project_qkv_grouped(x, p, cfg, positions)
-    return _project_qkv(x, p, cfg, positions)
+        return _project_qkv_grouped(x, p, cfg, positions, plan_rows)
+    return _project_qkv(x, p, cfg, positions, plan_rows)
 
 
 def _quantize_kv(x: torch.Tensor, per_channel: bool = True):
@@ -396,6 +405,40 @@ def paged_decode_attention(x, p, cfg, cache, pos, page_table, *,
         k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
         window=window, softcap=cfg.attn_softcap, scale=_scale(cfg))
     return dense(out.reshape(b, 1, -1), p["o"], cfg), cache
+
+
+def verify_paged_attention(x, p, cfg, cache, pos, page_table):
+    """Score a K-token speculative window over the paged pool
+    (``attention.py:542-640`` of the JAX package).  x: (B, K, D), per row
+    the last emitted token and K − 1 draft proposals; pos: (B,) the
+    window's first positions; page_table: (B, max_pages).
+
+    The decode step run K times, with the projections run once: q/k/v
+    and o over the B·K rows on the plans of the decode step's B rows
+    (``plan_rows``), so every row gets the bits a decode step at its
+    position gets.  The window's K/V are scattered into their (page,
+    slot) targets first; then B4 runs once per window position i with
+    ``seq_lens = pos + i + 1``, as JAX's kernel branch does: the launch a
+    decode step at that position makes, over the same visible keys.  A
+    rejected suffix is never unwritten: the slots past the accepted point
+    hold garbage the next window overwrites.  Returns (out, cache)."""
+    from repro_torch.kernels import ops
+    b, klen, _ = x.shape
+    pos_b = torch.as_tensor(pos, dtype=torch.int64,
+                            device=x.device).reshape(-1).expand(b)
+    positions = pos_b[:, None] + torch.arange(klen, device=x.device)[None]
+    q, k, v = _project_qkv_decode(x, p, cfg, positions, plan_rows=b)
+    page = cache["k_pages"].shape[1]
+    rows = torch.arange(b, device=x.device)[:, None]
+    phys = page_table[rows, positions // page].long().clamp(min=0)
+    _write_kv(cache, cfg, phys, positions % page, k, v)
+    out = torch.stack([ops.flash_decode_paged(
+        q[:, i], cache["k_pages"], cache["v_pages"], page_table,
+        pos_b + i + 1, k_scale=cache.get("k_scale"),
+        v_scale=cache.get("v_scale"), window=None,
+        softcap=cfg.attn_softcap, scale=_scale(cfg))
+        for i in range(klen)], dim=1)
+    return dense(out.reshape(b, klen, -1), p["o"], cfg, plan_rows=b), cache
 
 
 def paged_prefill_attention(x, p, cfg, cache, positions, page_table, *,

@@ -65,8 +65,11 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
-def dense(x: torch.Tensor, p, cfg, *, activation: str = "none"):
-    """``act(x @ w + b)`` through the kernel GEMM; x: (..., d_in)."""
+def dense(x: torch.Tensor, p, cfg, *, activation: str = "none",
+          plan_rows: Optional[int] = None):
+    """``act(x @ w + b)`` through the kernel GEMM; x: (..., d_in).
+    ``plan_rows`` runs the GEMM on the plan of that many rows
+    (``ops.mte_gemm``): a verify window on the decode step's plan."""
     check_backend(cfg)
     from repro_torch.kernels import ops
     b = p.get("b")
@@ -76,7 +79,7 @@ def dense(x: torch.Tensor, p, cfg, *, activation: str = "none"):
     y = ops.mte_gemm(x2, p["w"], bias=b.float() if b is not None else None,
                      epilogue=epi, policy=cfg.gemm_policy,
                      out_dtype=compute_dtype(cfg),
-                     format_policy=model_format(cfg))
+                     format_policy=model_format(cfg), plan_rows=plan_rows)
     return y.reshape(*lead, -1)
 
 
@@ -130,18 +133,21 @@ def _mlp_act(cfg) -> str:
     return act
 
 
-def mlp(x: torch.Tensor, p, cfg) -> torch.Tensor:
+def mlp(x: torch.Tensor, p, cfg, *,
+        plan_rows: Optional[int] = None) -> torch.Tensor:
     """Gated MLP: gate (fused activation) · up → down, eager or as one
-    compiled program."""
+    compiled program.  ``plan_rows`` runs it on the plans, and the
+    program, of an input of that many rows (see :func:`dense`)."""
     act = _mlp_act(cfg)
     if use_graph(cfg):
-        return _mlp_compiled(x, p, cfg)
-    g = dense(x, p["gate"], cfg, activation=act)
-    u = dense(x, p["up"], cfg)
-    return dense(g * u, p["down"], cfg)
+        return _mlp_compiled(x, p, cfg, plan_rows)
+    g = dense(x, p["gate"], cfg, activation=act, plan_rows=plan_rows)
+    u = dense(x, p["up"], cfg, plan_rows=plan_rows)
+    return dense(g * u, p["down"], cfg, plan_rows=plan_rows)
 
 
-def _mlp_compiled(x: torch.Tensor, p, cfg) -> torch.Tensor:
+def _mlp_compiled(x: torch.Tensor, p, cfg,
+                  plan_rows: Optional[int] = None) -> torch.Tensor:
     """The gated MLP block as ONE compiled :mod:`repro_torch.graph`
     program (``layers.py:173-226`` of the JAX package).
 
@@ -149,7 +155,8 @@ def _mlp_compiled(x: torch.Tensor, p, cfg) -> torch.Tensor:
     dense epilogue), scheduled at program level: gate and up share the
     input and become one grouped launch (B3) when the Hopper model says
     grouping pays.  Memoized per (shape, format, type): repeat calls skip
-    graph construction."""
+    graph construction.  With ``plan_rows`` the program is the one
+    compiled for that many rows, grouping decision and plans included."""
     from repro_torch.graph import schedule as graph_schedule
     from repro_torch.graph.trace import GraphBuilder
 
@@ -159,6 +166,7 @@ def _mlp_compiled(x: torch.Tensor, p, cfg) -> torch.Tensor:
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     m, d = x2.shape
+    m = m if plan_rows is None else plan_rows
     act = _mlp_act(cfg)
     names = ("gate", "up", "down")
     biased = tuple(n for n in names if "b" in p[n])

@@ -13,8 +13,9 @@ ROADMAP item (A10).
 
 Entry points: :func:`init_params`, :func:`init_paged_cache`,
 :func:`prefill_chunk`, :func:`decode`, :func:`sample_token`,
-:func:`decode_and_sample`.  The cache is updated in place: the page
-slabs, the rings and the RG-LRU state rows.
+:func:`decode_and_sample`, and for speculative decoding
+:func:`verify_chunk` and :func:`draft_from`.  The cache is updated in
+place: the page slabs, the rings and the RG-LRU state rows.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from repro_torch.models.layers import (check_backend, compute_dtype, embed,
                                        mlp, rmsnorm, unembed)
 
 __all__ = ["init_params", "init_paged_cache", "prefill_chunk", "decode",
-           "sample_token", "decode_and_sample", "param_count"]
+           "sample_token", "decode_and_sample", "verify_chunk",
+           "draft_from", "param_count"]
 
 _PORTED_KINDS = (("attn", "mlp"), ("local", "mlp"), ("rglru", "mlp"))
 
@@ -108,12 +110,29 @@ def _slot_view(cache, slot: int):
     return {name: leaf[slot:slot + 1] for name, leaf in cache.items()}
 
 
+def _decode_mixer(h, p, cfg, mixer, cache, pos, row_valid):
+    """One decode step of a ring or RG-LRU mixer: h (B, 1, D)."""
+    if mixer == "local":
+        return attn_mod.decode_attention(h, p, cfg, cache, pos,
+                                         window=cfg.window,
+                                         row_valid=row_valid)
+    return rglru_mod.rglru_decode(h, p, cfg, cache, row_valid=row_valid)
+
+
 def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
                  page_table=None, chunk_pos0=None, slot=0, row_valid=None):
+    """One layer in ``mode`` ``"prefill_chunk"``, ``"decode"`` or
+    ``"verify"`` (a (B, K, D) speculative window from per-row positions
+    ``pos``, ``model.py:163-197`` of the JAX package): paged global
+    layers score the whole window in one pass
+    (:func:`~repro_torch.models.attention.verify_paged_attention`), ring
+    and RG-LRU layers replay the decode step once per window position,
+    and the FFN runs once over the B·K rows on the decode step's plans
+    (``plan_rows`` = B), so each row keeps the decode step's bits."""
     if cfg.post_norms:
         raise NotImplementedError("post_norms is ROADMAP A10")
     h = rmsnorm(x, lp["norm1"])
-    window = cfg.window if mixer == "local" else None
+    plan_rows = x.shape[0] if mode == "verify" else None
     if mode == "prefill_chunk":
         if mixer == "attn":
             out, cache = attn_mod.paged_prefill_attention(
@@ -122,7 +141,7 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
         elif mixer == "local":
             out, _ = attn_mod.ring_chunk_attention(
                 h, lp["mixer"], cfg, _slot_view(cache, slot), positions,
-                pos0=chunk_pos0, window=window)
+                pos0=chunk_pos0, window=cfg.window)
         else:
             # Chunk 0 starts fresh (the slot row holds its previous
             # occupant's state); later chunks resume the carried state.
@@ -131,21 +150,27 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
                                                cache=one)
             for name, leaf in one.items():
                 cache[name][slot] = leaf[0].to(cache[name].dtype)
+    elif mixer == "attn" and mode == "verify":
+        out, cache = attn_mod.verify_paged_attention(
+            h, lp["mixer"], cfg, cache, pos, page_table)
     elif mixer == "attn":
         # Inactive rows write into the null page through their all-(−1)
         # page-table row, so ``row_valid`` has nothing to guard here.
         out, cache = attn_mod.paged_decode_attention(
             h, lp["mixer"], cfg, cache, pos, page_table)
-    elif mixer == "local":
-        out, cache = attn_mod.decode_attention(
-            h, lp["mixer"], cfg, cache, pos, window=window,
-            row_valid=row_valid)
+    elif mode == "verify":
+        outs = []
+        for i in range(h.shape[1]):
+            o, cache = _decode_mixer(h[:, i:i + 1].contiguous(), lp["mixer"],
+                                     cfg, mixer, cache, pos + i, row_valid)
+            outs.append(o)
+        out = torch.cat(outs, dim=1)
     else:
-        out, cache = rglru_mod.rglru_decode(h, lp["mixer"], cfg, cache,
-                                            row_valid=row_valid)
+        out, cache = _decode_mixer(h, lp["mixer"], cfg, mixer, cache, pos,
+                                   row_valid)
     x = x + out
     h = rmsnorm(x, lp["norm2"])
-    return x + mlp(h, lp["ffn"], cfg), cache
+    return x + mlp(h, lp["ffn"], cfg, plan_rows=plan_rows), cache
 
 
 def _run_stack(x, params, cfg, positions, mode, cache, **kw):
@@ -242,3 +267,61 @@ def decode_and_sample(params, batch, cache, cfg, *, generator,
     carried = batch["tokens"]
     carried.copy_(torch.where(active[:, None], tokens[:, None], carried))
     return tokens, finite, logits, carried, cache
+
+
+def verify_chunk(params, batch, cache, cfg, *, last_only: bool = False):
+    """Speculative verification (``model.py:523-556`` of the JAX
+    package): → (logits f32 (B, K, V), cache).
+
+    ``batch["tokens"]`` (B, K): per row the last emitted token and K − 1
+    draft proposals; ``batch["pos"]`` (B,): each row's window start, the
+    position of that emitted token; ``batch["page_table"]`` and
+    ``batch["row_valid"]`` as in :func:`decode`.  Logits row i is the
+    target's distribution for position pos + i + 1 and judges proposal
+    i + 1.
+
+    Row i equals, bit for bit, the logits of a decode step at pos + i
+    (see :func:`_apply_layer`) while B·K ≤ 16, the rows up to which B2's
+    and B3's engines compute a row alike (``ops`` module docstring; the
+    engine keeps its windows there).  The LM head runs one product per window
+    position over the B rows a decode step unembeds: the library's f32
+    product picks other kernels, and so gives other bits, for B·K rows
+    than for B (measured on the H100).  ``last_only`` unembeds the last
+    position alone, → (B, 1, V): what the draft's catch-up reads.  The
+    cache is updated in place; the engine restores the ring and RG-LRU
+    rows of a rejected suffix, and paged KV past the accepted point is
+    garbage the next window overwrites."""
+    tokens = batch["tokens"]
+    b, k = tokens.shape
+    x = embed(tokens, params["embedding"], cfg)
+    pos = torch.as_tensor(batch["pos"], device=x.device).reshape(-1)
+    pos = pos.to(torch.int64).expand(b)
+    positions = pos[:, None] + torch.arange(k, device=x.device)[None]
+    row_valid = batch.get("row_valid")
+    if row_valid is not None:
+        row_valid = torch.as_tensor(row_valid, dtype=torch.bool,
+                                    device=x.device).reshape(-1)
+    x, cache = _run_stack(x, params, cfg, positions, "verify", cache,
+                          pos=pos, page_table=batch["page_table"],
+                          row_valid=row_valid)
+    x = rmsnorm(x, params["final_norm"])
+    logits = [unembed(x[:, i:i + 1].contiguous(), params["embedding"], cfg)
+              for i in range(k - 1 if last_only else 0, k)]
+    return torch.cat(logits, dim=1), cache
+
+
+def draft_from(params, cfg, *, groups: int = 1):
+    """Weight-shared draft parameters (``model.py:559-579`` of the JAX
+    package): the target's first ``groups * cfg.period`` layers with its
+    embedding and final norm.  The port's layers are a flat list, so the
+    draft holds the same layer dictionaries and tensors, not copies: it
+    costs no weight memory.  Pairs with ``cfg.draft(groups)``."""
+    n_groups = cfg.n_layers // cfg.period if cfg.scan_layers else 0
+    if not n_groups:
+        raise ValueError("draft_from needs a scanned group stack "
+                         "(cfg.scan_layers with n_layers >= period)")
+    if not 0 < groups <= n_groups:
+        raise ValueError(f"groups must be in [1, {n_groups}], got {groups}")
+    return {"embedding": params["embedding"],
+            "layers": params["layers"][:groups * cfg.period],
+            "final_norm": params["final_norm"]}

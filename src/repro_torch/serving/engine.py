@@ -33,10 +33,29 @@ buffers without blocking, and the tokens come back through pinned
 buffers and an event: a step's one host sync is the retire's wait on
 that event.
 
+Speculative decoding (``spec_k ≥ 2``, ``engine.py:1127-1555`` of the JAX
+package): a draft (by default weight-shared: the target's first
+``draft_groups`` layer periods; or ``draft_config`` with its own
+``draft_params``) proposes k − 1 tokens per decoding slot, the target
+scores the window [last emitted token, proposals] in ONE
+:func:`~repro_torch.models.model.verify_chunk` whose GEMMs carry M =
+slots·k rows on the decode step's plans, and greedy requests keep the
+proposals while the target's argmax agrees (sampled ones run rejection
+sampling), so greedy streams are those of ``spec_k=0`` bit for bit.  That
+holds for windows of at most ``SPEC_MAX_ROWS`` (16) rows: k is clamped to
+16 // slots, and ``spec_k ≥ 2`` with more than 8 slots is refused.  The
+speculative step is eager and synchronous: the pipeline is flushed
+before it.  The ring and RG-LRU rows of a rejected suffix are restored
+from clones into the same storage and the accepted prefix replayed;
+paged KV past the accepted point is garbage the next window overwrites.
+Proposals and acceptance draw from a host ``torch.Generator`` seeded
+from ``seed`` (JAX draws from its key stream, so sampled rows differ in
+bits, not in distribution).
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: ``spec_k ≥ 2`` (ROADMAP A8 part 2), ``fault``, deadlines, load
-shedding, ``watchdog_s``, ``prefix_index_path``, ``plan_cache_path``
-(A6/A4) and ``slo_monitor`` (A9).
+ignored: ``fault``, deadlines, load shedding, ``watchdog_s``,
+``prefix_index_path``, ``plan_cache_path`` (A6/A4) and ``slo_monitor``
+(A9).
 
 The grouped decode q/k/v (``grouped_qkv``) defaults as in JAX: on with the
 kernel backend.  Then every attention layer gains a prestacked
@@ -64,7 +83,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.geometry import cdiv
+from repro_torch.core.geometry import GROUPED_MAX_M, cdiv
 from repro_torch.kernels import build
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import model as model_lib
@@ -78,6 +97,20 @@ from repro_torch.serving.scheduler import ContinuousBatchingScheduler
 
 __all__ = ["Request", "ServingEngine", "DecodeStep", "HostStaging",
            "serving_params"]
+
+
+# The most rows a speculative verify window's GEMMs take (slots·k): up to
+# this many, B2's cluster and B3's split-K engines compute a row alike
+# whatever rows ride with it, on the K partition of the decode step's plan,
+# so verify rows equal decode rows bit for bit.  Past it they would run
+# the tile loops, whose K partition and sum are other.
+SPEC_MAX_ROWS = GROUPED_MAX_M
+
+
+def _draft_widths(cfg: ArchConfig):
+    """What a weight-shared draft must have of its target's config."""
+    return (cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_heads, cfg.n_kv_heads,
+            cfg.hd, cfg.window, cfg.rglru, cfg.period)
 
 
 def _stack_decode_qkv(params):
@@ -352,6 +385,10 @@ class ServingEngine:
                  watchdog_s: Optional[float] = None,
                  quarantine: bool = True,
                  spec_k: int = 0,
+                 draft_params=None,
+                 draft_config: Optional[ArchConfig] = None,
+                 draft_groups: int = 1,
+                 draft_format_policy: Optional[str] = None,
                  prefix_index_path: Optional[str] = None,
                  slo_monitor=None,
                  async_steps: bool = True,
@@ -359,7 +396,6 @@ class ServingEngine:
                  cuda_graph: Optional[bool] = None,
                  device=None):
         queued = {
-            "spec_k >= 2 (ROADMAP A8 part 2)": spec_k >= 2,
             "fault injection (ROADMAP A6)": fault is not None,
             "deadline_ms (ROADMAP A6)": deadline_ms is not None,
             "load shedding (ROADMAP A6)": (shed_queue_depth is not None
@@ -414,6 +450,13 @@ class ServingEngine:
             and all(kind[0] == "attn" for kind in cfg.layer_kinds))
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        # Speculation's proposals and acceptance coins are drawn on the
+        # host (the JAX engine's key stream, ``engine.py:1258-1345``).
+        if self.device.type == "cpu":
+            self._host_gen = self._gen
+        else:
+            self._host_gen = torch.Generator()
+            self._host_gen.manual_seed(seed)
 
         scheduler_cls = scheduler_cls or ContinuousBatchingScheduler
         self.sched = scheduler_cls(
@@ -447,6 +490,9 @@ class ServingEngine:
         if cuda_graph is None:
             cuda_graph = self.device.type == "cuda"
         self.decode_step = DecodeStep(self, graph=bool(cuda_graph))
+        self._init_speculation(spec_k, draft_params, draft_config,
+                               draft_groups, draft_format_policy, kv_format,
+                               grouped_qkv)
         self.debug_audit = bool(debug_audit)
         self.quarantine = bool(quarantine)
         self.step_idx = 0
@@ -521,7 +567,12 @@ class ServingEngine:
                  prefix_hit_pages=pool.prefix_hit_pages,
                  shared_pages=pool.shared_pages,
                  cached_pages=pool.cached_pages,
-                 cow_copies=pool.cow_copies)
+                 cow_copies=pool.cow_copies,
+                 spec_on=int(self._spec_on), spec_k=self.spec_k)
+        if self.spec_k_hist:
+            steps = sum(self.spec_k_hist.values())
+            m["spec_k_mean"] = (sum(k * n for k, n
+                                    in self.spec_k_hist.items()) / steps)
         cs = autotune.cache_stats()
         m.update(plan_cache_hits=cs.hits, plan_cache_misses=cs.misses,
                  plan_solver_calls=cs.solver_calls)
@@ -570,6 +621,12 @@ class ServingEngine:
                 "chunk": cached_tok // self.prefill_chunk,
                 "hashes": entry.hashes,
             }
+            if self._spec_on:
+                # The draft re-derives the slot's context from this window
+                # and the tokens emitted from now on.
+                self._slot_window[slot] = window
+                self._slot_out0[slot] = len(req.output)
+                self._draft_pos[slot] = 0
 
     def step(self):
         """One engine step, in the JAX engine's order
@@ -577,10 +634,11 @@ class ServingEngine:
         ``prefill_chunk_quota`` prefill chunks, the retire of the previous
         step's decode (after the chunks, which its device time overlaps),
         a second admission pass into slots the retire freed, the flush
-        boundaries (horizon, predicted eviction), page growth (evicting
-        the youngest request when the pool runs dry), copy-on-write, then
-        one batched decode + sample launch, which stays in flight at
-        depth 2."""
+        boundaries (horizon, speculation, predicted eviction), page growth
+        (evicting the youngest request when the pool runs dry),
+        copy-on-write, then one batched decode + sample launch, which
+        stays in flight at depth 2, or one speculative step of window k
+        (:meth:`_spec_depth`), which runs synchronously."""
         self.step_idx += 1
         self._run_prefill_chunks()
         self._drain_to_depth()
@@ -594,23 +652,35 @@ class ServingEngine:
                                   for s in decoding):
             self._flush_pipeline()
             decoding = self._decoding()
-        # Eviction boundary: preemption requeues the victim with its
-        # host-visible output, so in-flight tokens land first.
-        if self._inflight and decoding and self._needs_eviction(decoding):
+        k_step = self._spec_depth(decoding)
+        # Speculation boundary: the draft's windows and the acceptance
+        # read every request's output on the host.
+        if k_step >= 2 and self._inflight:
             self._flush_pipeline()
             decoding = self._decoding()
+            k_step = self._spec_depth(decoding)
+        # Eviction boundary: preemption requeues the victim with its
+        # host-visible output, so in-flight tokens land first.
+        if self._inflight and decoding and self._needs_eviction(decoding,
+                                                                k_step):
+            self._flush_pipeline()
+            decoding = self._decoding()
+            k_step = self._spec_depth(decoding)
         for slot in decoding:
             if self.slot_req[slot] is None or slot in self._prefilling:
                 continue
-            evicted = self.sched.ensure_decode(slot,
-                                               int(self.slot_pos[slot]) + 1)
+            evicted = self.sched.ensure_decode(
+                slot, int(self.slot_pos[slot]) + k_step)
             for vslot, _ventry in evicted:
                 self._clear_slot(vslot)
         decoding = self._decoding()
         if decoding:
             for slot in decoding:
-                self._cow_guard(slot)
-            self._launch_decode(decoding)
+                self._cow_guard(slot, k_step)
+            if k_step >= 2:
+                self._spec_step(decoding, k_step)
+            else:
+                self._launch_decode(decoding)
         self._drain_to_depth()
         if self.debug_audit:
             self.sched.pool.audit()
@@ -619,9 +689,10 @@ class ServingEngine:
         return [s for s, r in enumerate(self.slot_req)
                 if r is not None and s not in self._prefilling]
 
-    def _needs_eviction(self, decoding) -> bool:
-        """True when growing every decoding slot by one token would need
-        more pages than the pool can hand out without evicting."""
+    def _needs_eviction(self, decoding, k_step: int) -> bool:
+        """True when growing every decoding slot by ``k_step`` tokens
+        would need more pages than the pool can hand out without
+        evicting."""
         pool = self.sched.pool
         need = 0
         for slot in decoding:
@@ -629,7 +700,7 @@ class ServingEngine:
             if entry is None:
                 continue
             owned = len(pool.pages_of(entry.arrival))
-            want = -(-(int(self.slot_pos[slot]) + 1) // self.page_size)
+            want = -(-(int(self.slot_pos[slot]) + k_step) // self.page_size)
             need += max(0, want - owned)
         return need > pool.free_pages
 
@@ -785,6 +856,400 @@ class ServingEngine:
         self.steps_in_flight_max = max(self.steps_in_flight_max,
                                        self.steps_in_flight)
 
+    # -- speculative decoding -------------------------------------------------
+    #
+    # A step of window k (``engine.py:1127-1151`` of the JAX package):
+    #   1. draft catch-up: the draft is fed every known token it has not
+    #      seen (the admission window through its prefill chunks, then
+    #      windows of at most k tokens through its verify_chunk); the
+    #      last logits propose d_1;
+    #   2. rollback point of the draft's ring and RG-LRU rows, then k − 2
+    #      draft decode steps propose d_2..d_{k-1};
+    #   3. ONE target verify_chunk scores [e, d_1..d_{k-1}] (e the last
+    #      emitted token, at slot_pos) with M = slots·k rows;
+    #   4. acceptance: greedy keeps drafts while the target's argmax
+    #      agrees and emits the argmax at the first mismatch; sampled
+    #      rows run rejection sampling;
+    #   5. rollback: rejected positions are rewound, never freed; ring and
+    #      RG-LRU rows are restored and the accepted prefix replayed.
+    def _init_speculation(self, spec_k, draft_params, draft_config,
+                          draft_groups, draft_format_policy, kv_format,
+                          grouped_qkv):
+        """The draft config, its parameters, its slot-private page
+        stripes and cache (``engine.py:343-401`` of the JAX package).
+        Without ``draft_params`` the draft is the target's own first
+        layers, so a ``draft_config`` must then be a truncation of the
+        target (its widths, and its pattern over its depth)."""
+        slots = self.slots
+        self.spec_k = int(spec_k or 0)
+        self._spec_on = self.spec_k >= 2
+        self.draft_cfg: Optional[ArchConfig] = None
+        self.draft_params = None
+        self.spec_k_hist: Dict[int, int] = {}   # window k -> steps
+        self._slot_window: Dict[int, np.ndarray] = {}
+        self._slot_out0: Dict[int, int] = {}
+        self._draft_pos = np.zeros(slots, np.int32)
+        if not self._spec_on:
+            return
+        if SPEC_MAX_ROWS // slots < 2:
+            raise ValueError(
+                f"spec_k needs slots <= {SPEC_MAX_ROWS // 2}: the verify "
+                f"window's slots*k rows run on the decode step's plans, "
+                f"which hold for at most {SPEC_MAX_ROWS} rows; got "
+                f"slots={slots}")
+        cfg = self.cfg
+        if draft_config is not None:
+            dcfg = draft_config
+        else:
+            dfmt = (draft_format_policy if draft_format_policy is not None
+                    else cfg.format_policy)
+            dcfg = cfg.draft(draft_groups, format_policy=dfmt)
+        dcfg = dataclasses.replace(dcfg, cache_quant=False,
+                                   kv_cache_format=kv_format,
+                                   decode_qkv_grouped=bool(grouped_qkv))
+        if draft_params is None:
+            if _draft_widths(dcfg) != _draft_widths(cfg) or (
+                    dcfg.layer_kinds
+                    != cfg.layer_kinds[:len(dcfg.layer_kinds)]):
+                raise ValueError(
+                    f"draft_config {dcfg.name!r} without draft_params: "
+                    f"the draft shares the target's layers, so its widths "
+                    f"and layer pattern must be the target's "
+                    f"({cfg.name!r})")
+            # The target's own layers, already cast and qkv-stacked.
+            draft_params = model_lib.draft_from(
+                self.params, cfg, groups=dcfg.n_layers // dcfg.period)
+        else:
+            draft_params = serving_params(draft_params, dcfg)
+            if attn_mod.grouped_decode(dcfg):
+                draft_params = _stack_decode_qkv(draft_params)
+        self.draft_cfg = dcfg
+        self.draft_params = draft_params
+        self._draft_stateful = any(kind[0] != "attn"
+                                   for kind in dcfg.layer_kinds)
+        # Slot-private page stripes, no pool and no sharing: slot i owns
+        # pages [1 + i*maxp, 1 + (i+1)*maxp).
+        maxp = self.sched.max_pages_per_seq
+        self._draft_table = (1 + np.arange(slots * maxp, dtype=np.int32)
+                             ).reshape(slots, maxp)
+        self.draft_cache = model_lib.init_paged_cache(
+            dcfg, slots, self.cache_len, num_pages=slots * maxp + 1,
+            page_size=self.page_size, device=self.device)
+
+    def _spec_depth(self, decoding) -> int:
+        """This step's window k: ``spec_k`` clamped to the window whose
+        slots·k rows the decode step's plans hold (``SPEC_MAX_ROWS``), by
+        the scheduler's ``spec_k`` policy, each slot's room to the
+        horizon, and the largest window whose extra pages every decoding
+        slot can take from the free list: speculation never evicts, a
+        full pool degrades the step to k = 1."""
+        if not self._spec_on or not decoding:
+            return 1
+        k = min(self.spec_k, SPEC_MAX_ROWS // self.slots)
+        cap = self.sched.spec_k(len(decoding))
+        if cap is not None:
+            k = min(k, int(cap))
+        for slot in decoding:
+            k = min(k, self.cache_len - int(self.slot_pos[slot]))
+        while k >= 2 and self._needs_eviction(decoding, k):
+            k -= 1
+        return max(1, k)
+
+    def _known_tokens(self, slot: int) -> np.ndarray:
+        """Every token whose position is settled for ``slot``: the
+        admission window (positions [0, prefill_len)) and the tokens
+        emitted since the admission; the last sits at ``slot_pos``.  (The
+        JAX engine appends the whole output, which double-counts the
+        output a resumed request's window already holds.)"""
+        out = self.slot_req[slot].output[self._slot_out0[slot]:]
+        return np.concatenate([self._slot_window[slot],
+                               np.asarray(out, np.int32)])
+
+    def _batch(self, tokens, pos, table, row_valid=None):
+        """A model batch of host arrays, staged to the device."""
+        stage = self._stage.to_device
+        batch = {"tokens": stage(np.asarray(tokens, np.int64)),
+                 "pos": stage(np.asarray(pos, np.int64)),
+                 "page_table": stage(np.asarray(table, np.int32))}
+        if row_valid is not None:
+            batch["row_valid"] = stage(np.asarray(row_valid, bool))
+        return batch
+
+    def _fetch(self, tensor) -> np.ndarray:
+        """``tensor`` on the host: one copy through a pinned buffer, one
+        sync."""
+        return self._stage.wait(self._stage.fetch(tensor))[0]
+
+    def _draft_catchup(self, decoding, k) -> Dict[int, np.ndarray]:
+        """Advance the draft to every known token; → per-slot last logits
+        (the distribution d_1 is drawn from).  A fresh slot prefills its
+        window through the draft's chunks; the rest is fed in batched
+        windows of at most k known tokens (grouped by the shortest
+        remainder) through the draft's verify_chunk."""
+        for slot in decoding:
+            if int(self._draft_pos[slot]) == 0:
+                window = self._slot_window[slot]
+                table = self._table(self._draft_table[slot][None])
+                size = self.prefill_chunk
+                for c in range(self.n_chunks):
+                    toks = window[c * size:(c + 1) * size]
+                    model_lib.prefill_chunk(
+                        self.draft_params,
+                        {"tokens": self._stage.to_device(
+                            toks[None].astype(np.int64)),
+                         "page_table": table, "slot": slot},
+                        self.draft_cache, self.draft_cfg, pos0=c * size)
+                self._draft_pos[slot] = self.prefill_len
+        last: Dict[int, np.ndarray] = {}
+        known = {s: self._known_tokens(s) for s in decoding}
+        while True:
+            rem = {s: len(known[s]) - int(self._draft_pos[s])
+                   for s in decoding if len(known[s]) > self._draft_pos[s]}
+            if not rem:
+                return last
+            length = min(min(rem.values()), k)
+            rows = sorted(rem)
+            logits = self._draft_window(rows, length, known)
+            for s in rows:
+                self._draft_pos[s] += length
+                if int(self._draft_pos[s]) == len(known[s]):
+                    last[s] = logits[s]
+
+    def _draft_window(self, rows, length, known) -> np.ndarray:
+        """One batched draft verify_chunk feeding ``length`` known tokens
+        of ``rows`` (the other rows masked); → the last position's
+        logits (slots, V)."""
+        tokens = np.zeros((self.slots, length), np.int64)
+        pos = np.zeros(self.slots, np.int64)
+        table = np.full_like(self._draft_table, -1)
+        rv = np.zeros(self.slots, bool)
+        for s in rows:
+            dp = int(self._draft_pos[s])
+            tokens[s] = known[s][dp:dp + length]
+            pos[s] = dp
+            table[s] = self._draft_table[s]
+            rv[s] = True
+        batch = self._batch(tokens, pos, table,
+                            rv if self._draft_stateful else None)
+        logits, _ = model_lib.verify_chunk(self.draft_params, batch,
+                                           self.draft_cache, self.draft_cfg,
+                                           last_only=True)
+        return self._fetch(logits[:, 0])
+
+    def _categorical(self, probs: np.ndarray) -> int:
+        return int(torch.multinomial(torch.as_tensor(probs), 1,
+                                     generator=self._host_gen))
+
+    def _propose(self, logits: np.ndarray, req: Request) -> int:
+        """One draft proposal: the argmax for a greedy request, else a
+        draw from the draft's tempered distribution (rejection sampling
+        divides by the distribution it was drawn from)."""
+        if req.temperature <= 0.0:
+            return int(np.argmax(logits))
+        return self._categorical(self._softmax(logits / req.temperature))
+
+    def _draft_propose(self, decoding, k):
+        """k − 1 proposals per decoding slot.  → (proposals, the draft
+        logits each was drawn from, the draft's rollback point: clones of
+        its ring and RG-LRU rows after the catch-up, or None);
+        ``_draft_pos`` stays at the catch-up position until the
+        acceptance is known."""
+        last = self._draft_catchup(decoding, k)
+        snapshot = (self._snapshot_rows(self.draft_cache, decoding)
+                    if self._draft_stateful else None)
+        proposals = {s: [] for s in decoding}
+        dlogits = {s: [] for s in decoding}
+        cur = last
+        for i in range(k - 1):
+            for s in decoding:
+                proposals[s].append(self._propose(cur[s], self.slot_req[s]))
+                dlogits[s].append(cur[s])
+            if i == k - 2:
+                break
+            tokens = np.zeros((self.slots, 1), np.int64)
+            pos = np.zeros(self.slots, np.int64)
+            table = np.full_like(self._draft_table, -1)
+            rv = np.zeros(self.slots, bool)
+            for s in decoding:
+                tokens[s, 0] = proposals[s][-1]
+                pos[s] = int(self._draft_pos[s]) + i
+                table[s] = self._draft_table[s]
+                rv[s] = True
+            batch = self._batch(tokens, pos, table,
+                                rv if self._draft_stateful else None)
+            logits, _ = model_lib.decode(self.draft_params, batch,
+                                         self.draft_cache, self.draft_cfg)
+            logits = self._fetch(logits)
+            cur = {s: logits[s] for s in decoding}
+        return proposals, dlogits, snapshot
+
+    @staticmethod
+    def _softmax(x: np.ndarray) -> np.ndarray:
+        x = x - x.max()
+        e = np.exp(x)
+        return e / e.sum()
+
+    def _accept(self, logits: np.ndarray, proposals, dlogits, req: Request):
+        """The tokens one slot emits from its (k, V) target logits:
+        → (emit, j), j accepted drafts and one target token (j + 1 ≥ 1).
+        Greedy: accept while the target's argmax agrees; the first
+        disagreement emits the argmax, the token vanilla decode gives
+        (verify row i equals the decode step's bits).  Sampled: accept d
+        with probability min(1, p_t(d)/p_d(d)), else draw from the
+        normalised residual max(0, p_t − p_d): the emitted token's
+        marginal is p_t whatever the draft."""
+        k = len(proposals) + 1
+        emit: List[int] = []
+        if req.temperature <= 0.0:
+            for i in range(k - 1):
+                t = int(np.argmax(logits[i]))
+                emit.append(t)
+                if t != proposals[i]:
+                    return emit, i
+            emit.append(int(np.argmax(logits[k - 1])))
+            return emit, k - 1
+        temp = req.temperature
+        for i in range(k - 1):
+            pt = self._softmax(logits[i] / temp)
+            pd = self._softmax(dlogits[i] / temp)
+            d = proposals[i]
+            coin = float(torch.rand((), generator=self._host_gen))
+            if coin < min(1.0, float(pt[d]) / max(float(pd[d]), 1e-30)):
+                emit.append(d)
+                continue
+            res = np.maximum(pt - pd, 0.0)
+            if res.sum() <= 0.0:
+                res = pt
+            emit.append(self._categorical(res / res.sum()))
+            return emit, i
+        emit.append(self._categorical(self._softmax(logits[k - 1] / temp)))
+        return emit, k - 1
+
+    def _verify(self, batch, *, last_only: bool = False):
+        """The target's verify_chunk over the engine's cache."""
+        logits, _ = model_lib.verify_chunk(self.params, batch, self.cache,
+                                           self.cfg, last_only=last_only)
+        return logits
+
+    def _spec_step(self, decoding, k):
+        """One draft-and-verify step of window k over the decoding slots
+        (``engine.py:1348-1455`` of the JAX package)."""
+        proposals, dlogits, draft_snap = self._draft_propose(decoding, k)
+        target_snap = (self._snapshot_rows(self.cache, decoding)
+                       if self._stateful_rows else None)
+        tokens = np.zeros((self.slots, k), np.int64)
+        pos = np.zeros(self.slots, np.int64)
+        table = np.full((self.slots, self.sched.max_pages_per_seq), -1,
+                        np.int32)
+        rv = np.zeros(self.slots, bool)
+        for s in decoding:
+            tokens[s, 0] = self.slot_req[s].output[-1]  # at slot_pos
+            tokens[s, 1:] = proposals[s]
+            pos[s] = self.slot_pos[s]
+            table[s] = self.sched.table_row(s)
+            rv[s] = True
+        batch = self._batch(tokens, pos, table,
+                            rv if self._stateful_rows else None)
+        logits = self._fetch(self._verify(batch))          # (slots, k, V)
+        self.spec_k_hist[k] = self.spec_k_hist.get(k, 0) + 1
+        if self.quarantine:
+            healthy = []
+            for s in decoding:
+                if np.isfinite(logits[s]).all():
+                    healthy.append(s)
+                else:
+                    req = self.slot_req[s]
+                    self._cancel_active(s, PoisonedOutput(
+                        f"non-finite logits for rid={req.rid} at step "
+                        f"{self.step_idx}", rid=req.rid))
+            decoding = healthy
+        drafted = accepted = emitted = 0
+        partial: Dict[int, int] = {}       # slot -> accepted prefix + 1
+        carried: Dict[int, int] = {}       # slot -> last emitted token
+        for s in decoding:
+            req = self.slot_req[s]
+            emit, j = self._accept(logits[s], proposals[s], dlogits[s], req)
+            drafted += k - 1
+            accepted += j
+            for t in emit:
+                req.output.append(int(t))
+                self.slot_pos[s] += 1
+                emitted += 1
+                if (len(req.output) >= req.max_tokens
+                        or (req.eos_id is not None
+                            and int(t) == req.eos_id)):
+                    break
+            done = self._finished(s)
+            if not done and int(self.slot_pos[s]) >= self.cache_len:
+                self._record_done(req)
+                self.slot_req[s] = None
+                self.slot_pos[s] = 0
+                self.sched.release(s, finished=True)
+                done = True
+            if done:
+                self._draft_pos[s] = 0
+                self._slot_window.pop(s, None)
+                continue
+            carried[s] = req.output[-1]
+            if j == k - 1:
+                # Everything verified was real: the draft saw d_1..d_{k-2}.
+                self._draft_pos[s] += k - 2
+            else:
+                partial[s] = j + 1
+        if carried:
+            # A later k = 1 step (a graph replay) chains from the carried
+            # token buffer: it must hold what speculation emitted.
+            rows = self._stage.to_device(np.asarray(list(carried), np.int64))
+            self._last_tok[rows, 0] = self._stage.to_device(
+                np.asarray(list(carried.values()), np.int32))
+        if partial and draft_snap is not None:
+            self._restore_rows(draft_snap, list(partial))
+        if partial and target_snap is not None:
+            self._restore_rows(target_snap, list(partial))
+            self._replay(partial)
+        self.sched.note_spec_step(len(decoding), drafted, accepted, emitted)
+
+    def _snapshot_rows(self, cache, rows):
+        """The rollback point of ``rows`` (JAX keeps the old cache,
+        ``engine.py:1270``, ``:1352``): a clone of those rows of every
+        ring and RG-LRU leaf; paged slabs need none (their rollback is
+        positional)."""
+        index = {r: i for i, r in enumerate(rows)}
+        idx = self._stage.to_device(np.asarray(rows, np.int64))
+        return index, [(leaf, leaf.index_select(0, idx))
+                       for layer in cache["layers"] if "k_pages" not in layer
+                       for leaf in layer.values()]
+
+    def _restore_rows(self, snapshot, rows) -> None:
+        """Put ``rows`` back from a snapshot, in place: the decode step's
+        CUDA graph holds these tensors' addresses (``engine.py:1457-1482``
+        of the JAX package rebinds the cache instead)."""
+        index, saved = snapshot
+        dst = self._stage.to_device(np.asarray(rows, np.int64))
+        src = self._stage.to_device(np.asarray([index[r] for r in rows],
+                                               np.int64))
+        for leaf, clone in saved:
+            leaf[dst] = clone[src]
+
+    def _replay(self, partial: Dict[int, int]):
+        """Re-run the accepted prefix [e, d_1..d_j] of partially accepted
+        rows through the verify (grouped by length, the other rows
+        masked), so their ring and RG-LRU rows land where sequential
+        decode leaves them; the paged rewrites are idempotent."""
+        for length in sorted(set(partial.values())):
+            rows = [s for s, n_real in partial.items() if n_real == length]
+            tokens = np.zeros((self.slots, length), np.int64)
+            pos = np.zeros(self.slots, np.int64)
+            table = np.full((self.slots, self.sched.max_pages_per_seq), -1,
+                            np.int32)
+            rv = np.zeros(self.slots, bool)
+            for s in rows:
+                tokens[s] = self.slot_req[s].output[-(length + 1):-1]
+                pos[s] = int(self.slot_pos[s]) - length
+                table[s] = self.sched.table_row(s)
+                rv[s] = True
+            self._verify(self._batch(tokens, pos, table, rv), last_only=True)
+
     # -- request-level containment --------------------------------------------
     def _record_done(self, req: Request, status: str = "ok",
                      error: Optional[RequestError] = None):
@@ -818,6 +1283,8 @@ class ServingEngine:
         self.slot_req[slot] = None
         self.slot_pos[slot] = 0
         self._prefilling.pop(slot, None)
+        self._draft_pos[slot] = 0
+        self._slot_window.pop(slot, None)
 
     def _cow_guard(self, slot: int, n_tokens: int = 1):
         """Copy-on-write: any shared physical page among the logical pages

@@ -1065,3 +1065,139 @@ def test_decode_graph_capture_failure_raises(card, monkeypatch):
     assert step.graphs == {}
     assert {r.rid: len(r.output) for r in eng.slot_req
             if r is not None} == outputs
+
+
+# -- speculative decoding: the verify window and the engine -------------------
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b"])
+def test_verify_rows_equal_decode_steps_on_the_card(card, arch):
+    """bf16 at head_dim 64, so attention runs the full-width engines
+    (B4's and B6's mma): 4 slots, the second masked, a 4-token window
+    (M = 16).  Logits row i equals a decode step's at pos + i and the
+    cache after the window the cache after the 4 steps, bit for bit; the
+    window launches the kernels the 4 steps launch and no other, B4 (or
+    B6) once per position and attention layer."""
+    slots, k, page, maxp = 4, 4, 8, 8
+    cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
+                              head_dim=64, format_policy="bf16",
+                              compute_dtype="bfloat16",
+                              decode_qkv_grouped=True)
+    params = tmodel.init_params(cfg, seed=0, device=card)
+    cache = tmodel.init_paged_cache(cfg, slots, page * maxp,
+                                    num_pages=slots * maxp + 1,
+                                    page_size=page, device=card)
+    table = (1 + torch.arange(slots * maxp, dtype=torch.int32,
+                              device=card)).reshape(slots, maxp)
+    rng = np.random.default_rng(0)
+    for s in range(slots):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 24)),
+                               device=card)
+        tmodel.prefill_chunk(params, {"tokens": toks,
+                                      "page_table": table[s:s + 1],
+                                      "slot": s}, cache, cfg, pos0=0)
+    window = torch.as_tensor(rng.integers(0, cfg.vocab, (slots, k)),
+                             device=card)
+    pos = torch.tensor([24, 20, 18, 24], device=card)
+    valid = torch.tensor([True, False, True, True], device=card)
+    start = {"layers": [{n: v.clone() for n, v in layer.items()}
+                        for layer in cache["layers"]]}
+    build.reset_launch_counts()
+    steps = []
+    for i in range(k):
+        logits, cache = tmodel.decode(
+            params, {"tokens": window[:, i:i + 1], "pos": pos + i,
+                     "page_table": table, "row_valid": valid}, cache, cfg)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    stepped = {n: c for n, c in build.launch_counts().items() if c}
+    build.reset_launch_counts()
+    logits, after = tmodel.verify_chunk(
+        params, {"tokens": window, "pos": pos, "page_table": table,
+                 "row_valid": valid}, start, cfg)
+    torch.cuda.synchronize()
+    verified = {n: c for n, c in build.launch_counts().items() if c}
+    for i in range(k):
+        assert torch.equal(logits[:, i], steps[i]), i
+    for a, b in zip(after["layers"], cache["layers"]):
+        for name in a:
+            assert torch.equal(a[name], b[name]), name
+    assert set(verified) == set(stepped), (verified, stepped)
+    kinds = [mixer for mixer, _ in cfg.layer_kinds]
+    attn = ("flash_decode_paged_mma" if arch == "gemma_2b"
+            else "flash_decode_mma")
+    want = k * (kinds.count("attn") + kinds.count("local"))
+    assert verified[attn] == stepped[attn] == want
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b"])
+def test_speculative_engine_on_the_card_equals_the_cpu(card, arch):
+    """The reduced fp32 engine with ``spec_k=4`` on the card (its
+    defaults: async, the decode step as a CUDA graph) and on the CPU
+    (synchronous, eager): equal greedy streams, with rejections, and
+    equal to ``spec_k=0`` on the card."""
+    cfg = tconfigs.get_config(arch).reduced()
+    params = tmodel.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n_tok, dtype=np.int32)
+               for n_tok in (20, 9, 30, 17)]
+
+    def serve(device, spec_k):
+        eng = tengine.ServingEngine(
+            params if device == "cpu" else _to_device(params, device), cfg,
+            device=device, spec_k=spec_k, async_steps=device != "cpu",
+            slots=2, cache_len=64, prefill_len=32, page_size=8,
+            prefill_chunk=16)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(tengine.Request(rid=rid, prompt=prompt,
+                                       max_tokens=10))
+        out = eng.run()
+        assert all(r.status == "ok" for r in out.values())
+        return {rid: list(r) for rid, r in out.items()}, eng.metrics()
+
+    card_spec, m = serve(card, 4)
+    assert m["spec_steps"] > 0 and 0.0 < m["acceptance_rate"] < 1.0
+    assert card_spec == serve("cpu", 4)[0]
+    assert card_spec == serve(card, 0)[0]
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b"])
+def test_speculative_engine_on_the_full_width_engines(card, arch):
+    """bf16 at head_dim 64 (B2's cluster, B3's split-K, B4's and B6's mma
+    engines): greedy streams with ``spec_k=4`` equal those without it on
+    the card, with rejections (rollback, and on recurrentgemma the ring
+    and RG-LRU restore and replay), and no tile-loop or SIMT launch."""
+    cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
+                              head_dim=64, format_policy="bf16",
+                              compute_dtype="bfloat16")
+    params = tmodel.init_params(cfg, seed=0, device=card)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n_tok, dtype=np.int32)
+               for n_tok in (20, 9, 30, 17)]
+
+    def serve(spec_k):
+        eng = tengine.ServingEngine(params, cfg, device=card, spec_k=spec_k,
+                                    slots=2, cache_len=64, prefill_len=32,
+                                    page_size=8, prefill_chunk=16)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(tengine.Request(rid=rid, prompt=prompt,
+                                       max_tokens=10))
+        build.reset_launch_counts()
+        out = eng.run()
+        counts = build.launch_counts()
+        assert all(r.status == "ok" for r in out.values())
+        return {rid: list(r) for rid, r in out.items()}, eng.metrics(), counts
+
+    spec, m, counts = serve(4)
+    assert m["spec_steps"] > 0 and 0.0 < m["acceptance_rate"] < 1.0
+    assert spec == serve(0)[0]
+    for kernel in ("splitk_gemm", "grouped_gemm", "flash_decode_paged",
+                   "flash_decode"):
+        assert counts[kernel] == 0, kernel
