@@ -87,24 +87,38 @@ Phases (any failure raises and the script exits non-zero):
    (idle share, launches per call).
 
 5. Full-width speculative serving (``SPEC_RUNS``): phase 4's workload in
-   the engine's defaults with ``spec_k=4`` — gemma_2b (default
-   configuration) with a one-layer draft and with an 18-layer one (the
-   whole target), recurrentgemma_9b with a one-period draft (rglru,
-   rglru, local), all sharing the target's weights; then gemma_2b and
-   recurrentgemma_9b each with a one-period draft of weights of its own
-   (``draft_config`` + ``draft_params``), which is rejected part of the
-   time.  Each run's greedy tokens must equal phase 4's (b) run request
-   for request, the full-depth draft's acceptance rate must be exactly
-   1.0 (every verify row equals the draft's decode row bit for bit), the
-   own drafts' must lie strictly between 0 and 1 (with replay windows
-   for recurrentgemma's ring and RG-LRU rows), the tile loops' and SIMT
-   kernels' counters stay 0, and every verify window, replays included,
-   launches B4 (gemma) or B6 (recurrentgemma) once per position and
-   attention layer.
+   the engine's defaults with ``spec_k=4``, the speculative step's shapes
+   (verify, catch-up and replay windows, the draft decode step) replayed
+   as CUDA graphs (``SpecStep``) — gemma_2b (default configuration) with
+   a one-layer draft and with an 18-layer one (the whole target),
+   recurrentgemma_9b with a one-period draft (rglru, rglru, local), all
+   sharing the target's weights; then gemma_2b and recurrentgemma_9b each
+   with a one-period draft of weights of its own (``draft_config`` +
+   ``draft_params``), which is rejected part of the time.  Each run's
+   greedy tokens must equal phase 4's (b) run request for request, the
+   full-depth draft's acceptance rate must be exactly 1.0 (every verify
+   row equals the draft's decode row bit for bit), the own drafts' must
+   lie strictly between 0 and 1 (with replay windows for recurrentgemma's
+   ring and RG-LRU rows), the tile loops' and SIMT kernels' counters stay
+   0, every step's verify window is a replay and each shape is captured
+   once, and every target window, replays included, launches B4 (gemma)
+   or B6 (recurrentgemma) once per position and attention layer, and B2
+   and B3 as often as a decode step (recurrentgemma: 256 and 12; its
+   projections run once over the window's rows).
    It prints each speculative step (host wall ms, the CUDA-event spans
-   of its draft and verify windows, its launches), the acceptance rate,
-   the mean window, decode tokens/s over the run and the peak memory, and
-   profiles one verify window and one draft decode step.
+   of its draft and target windows, its launches), the captures and
+   replays per shape family, the acceptance rate, the mean window, decode
+   tokens/s over the run and its ratio to phase 4's (b), and the peak
+   memory, and profiles the verify window (eager and replayed; the
+   replayed gemma window's idle share must be at most 0.15) and the
+   replayed draft decode step.  Last, ``exact-draft``: the reference's
+   exact-draft workload (``benchmarks/run.py:345-430``) at gemma_2b's
+   full width — layers 1-17 with zero ``o`` and ``down`` weights, so the
+   one-layer draft is bit-exact; 2 slots, ``spec_k=6``, 8 requests x 32
+   greedy tokens after a warm-up request — served without and with
+   speculation in alternating turns, three each, held to the reference's
+   gate: equal greedy streams, ``speedup_vs_vanilla`` (medians) >= 1.00,
+   ``accepted_per_step`` > 1 and ``acceptance_rate`` >= 0.95.
 
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -1611,7 +1625,9 @@ def serving_phase(dev, name):
             timing["decode_steps"] += 1
             timing["decode_tokens"] += len(decoding)
 
-    steps = []     # (b): (wall ms, ran a prefill chunk, captured a graph)
+    # (b): (wall ms, ran a prefill chunk, captured a graph, tokens the
+    # step's decode launch will deliver)
+    steps = []
 
     class StepTimedEngine(ServingEngine):
         """(b): the host clock around each engine step, unsynchronised,
@@ -1644,7 +1660,10 @@ def serving_phase(dev, name):
                 super().step()
             steps.append((1e3 * (time.perf_counter() - t),
                           self._ran_prefill,
-                          len(self.decode_step.graphs) != graphs))
+                          len(self.decode_step.graphs) != graphs,
+                          sum(len(e["slots"]) for e in self._inflight
+                              if e["kind"] == "decode"
+                              and e["step"] == self.step_idx)))
 
     def serve(eng):
         torch.cuda.synchronize()
@@ -1711,8 +1730,10 @@ def serving_phase(dev, name):
             f"[{name}] no steady step ran under the sync check")
     if work["shared"]:
         require(m["prefix_hit_pages"] > 0, m)
-    steady = [ms for ms, prefill, captured in steps
+    steady = [(ms, tokens) for ms, prefill, captured, tokens in steps
               if not prefill and not captured]
+    steady_tps = 1e3 * sum(t for _, t in steady) / sum(ms for ms, _ in steady)
+    steady = [ms for ms, _ in steady]
     async_run = {
         "wall_s": wall_b, "steps": len(steps),
         "decode_tokens": m["decode_tokens"],
@@ -1720,8 +1741,9 @@ def serving_phase(dev, name):
         "steady_steps": len(steady),
         "steady_ms_per_step_mean": statistics.mean(steady),
         "steady_ms_per_step_median": statistics.median(steady),
+        "steady_tokens_per_s": steady_tps,
         "prefill_step_ms_mean": statistics.mean(
-            [ms for ms, prefill, _ in steps if prefill]),
+            [ms for ms, prefill, _, _ in steps if prefill]),
         "steps_in_flight_max": eng.steps_in_flight_max,
         "delivery_lag_mean": m["delivery_lag_mean"],
         "sync_checked_at_step": eng.sync_checked_at,
@@ -1737,7 +1759,8 @@ def serving_phase(dev, name):
         f"{async_run['decode_tokens_per_s']:.1f} decode tokens/s over the "
         f"run; {len(steady)} steady steps (no prefill chunk): "
         f"{async_run['steady_ms_per_step_mean']:.3f} ms/step mean, "
-        f"{async_run['steady_ms_per_step_median']:.3f} median; peak memory "
+        f"{async_run['steady_ms_per_step_median']:.3f} median, "
+        f"{steady_tps:.1f} tokens/s launched; peak memory "
         f"{peak_b / 2**30:.2f} GiB; captured deltas "
         f"{async_run['captured_deltas']}")
     # Finite logits at full width (the engine quarantines non-finite rows;
@@ -2026,25 +2049,33 @@ REJECTING_DRAFT_SCALE = 2.5
 SPEC_K = 4
 
 
-def speculative_phase(dev, run, vanilla, smi):
+def speculative_phase(dev, run, vanilla, vanilla_async, smi):
     """Serve ``run`` (``SPEC_RUNS``) at full width with ``spec_k=4`` in the
-    engine's defaults on phase 4's workload.  Launch counters are zeroed
-    just before the run and read just after.  Requires: every request's
-    greedy tokens equal to phase 4's (b) run of the same configuration
-    (``vanilla``); the tile loops' and SIMT kernels' counters at 0; every
-    verify window (the step's, and a replay's) launching B4 (or B6) once
-    per position and attention layer; an acceptance rate of exactly 1.0
-    for the full-depth draft.  Prints each speculative step (host wall ms,
-    the device spans of its draft and verify between CUDA events, its
-    wrappers' launches) and the run's acceptance rate, mean window,
-    decode tokens/s and peak memory, and profiles one verify window and
-    one draft decode step at the workload's positions."""
-    import numpy as np
+    engine's defaults on phase 4's workload: the speculative step's
+    shapes replayed as CUDA graphs (``SpecStep``).  Launch counters are
+    zeroed just before the run and read just after.  Requires: every
+    request's greedy tokens equal to phase 4's (b) run of the same
+    configuration (``vanilla``); the tile loops' and SIMT kernels'
+    counters at 0; every speculative step's verify window replayed, each
+    shape captured once; every target window (the step's, and a
+    replay's) launching B4 (or B6) once per position and attention layer,
+    and B2 and B3 as often as a decode step (its projections run once
+    over the window's rows); an acceptance rate of exactly 1.0 for the
+    full-depth draft.  Prints each speculative step (host wall ms, the
+    device spans of its draft and target windows between CUDA events,
+    its wrappers' launches), the captures and replays per shape family,
+    the run's acceptance rate, mean window, decode tokens/s over the run
+    and over its steady steps (no capture, no prefill chunk), each
+    with its ratio to phase 4's (b) (``vanilla_async``: over the run,
+    and over (b)'s steady steps), and peak memory, and profiles the
+    verify window (eager and replayed) and the replayed draft decode step
+    at the workload's positions."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.models import attention as attn_lib
     from repro_torch.models import model as model_lib
-    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.engine import Request, ServingEngine, SpecStep
 
     name, groups, weights = SPEC_RUNS[run]
     arch, overrides = CONFIGS[name]
@@ -2055,6 +2086,13 @@ def speculative_phase(dev, run, vanilla, smi):
     attn_kernel, attn_layers = (
         ("flash_decode_paged_mma", kinds.count("attn")) if kinds.count("attn")
         else ("flash_decode_mma", kinds.count("local")))
+    # Per target window, what a decode step launches of B2 and B3.
+    window_gemms = {"splitk_gemm_cluster":
+                    DECODE_STEP_LAUNCHES[name]["splitk_gemm_cluster"]}
+    if attn_lib.grouped_decode(dataclasses.replace(
+            cfg, decode_qkv_grouped=True)):
+        window_gemms["grouped_gemm_splitk"] = (kinds.count("attn")
+                                               + kinds.count("local"))
     steps = []
 
     def event():
@@ -2062,42 +2100,69 @@ def speculative_phase(dev, run, vanilla, smi):
         e.record()
         return e
 
+    class TimedSpecStep(SpecStep):
+        """Records each target window of a speculative step: its tokens,
+        the CUDA-event span and the counters' deltas of its replay (a
+        shape's first call captures it first, outside the record: the
+        capture's warm-up counts too)."""
+
+        def __call__(self, family, n):
+            rec = self.engine._rec
+            if rec is None or family not in ("verify", "replay"):
+                return super().__call__(family, n)
+            if (family, n) not in self.graphs:
+                self.capture(family, n)
+            before = build.launch_counts()
+            start = event()
+            out = super().__call__(family, n)
+            after = build.launch_counts()
+            rec["windows"].append({
+                "family": family, "tokens": n, "events": (start, event()),
+                **{kernel: after[kernel] - before[kernel]
+                   for kernel in (attn_kernel, *window_gemms)}})
+            return out
+
     class SpecTimedEngine(ServingEngine):
         """Records each speculative step: host wall time, the CUDA-event
-        spans of its draft and of each verify window, and the counters'
-        deltas (the step's, and each window's)."""
+        span of its draft, its target windows (``TimedSpecStep``), the
+        counters' deltas, and whether its engine step ran a prefill
+        chunk first."""
         _rec = None
+        _ran_prefill = False
+        spec_step_cls = TimedSpecStep
+
+        def step(self):
+            self._ran_prefill = False
+            super().step()
+
+        def _advance_prefill(self, slot):
+            self._ran_prefill = True
+            super()._advance_prefill(slot)
 
         def _spec_step(self, decoding, k):
-            self._rec = rec = {"k": k, "slots": len(decoding), "verify": []}
+            self._rec = rec = {"k": k, "slots": len(decoding),
+                               "windows": [], "prefill": self._ran_prefill}
             before = build.launch_counts()
             accepted = self.sched.spec_accepted
+            emitted = self.sched.spec_emitted
+            captures = sum(self.spec_step.captures.values())
             t = time.perf_counter()
             super()._spec_step(decoding, k)
             rec["wall_ms"] = 1e3 * (time.perf_counter() - t)
             rec["accepted"] = self.sched.spec_accepted - accepted
+            rec["emitted"] = self.sched.spec_emitted - emitted
+            rec["captured"] = sum(self.spec_step.captures.values()) \
+                != captures
             rec["launches"] = {n: c - before[n] for n, c
                                in build.launch_counts().items()
                                if c != before[n]}
             steps.append(rec)
             self._rec = None
 
-        def _draft_propose(self, decoding, k):
+        def _draft_propose(self, decoding, k, sampled):
             start = event()
-            out = super()._draft_propose(decoding, k)
+            out = super()._draft_propose(decoding, k, sampled)
             self._rec["draft_events"] = (start, event())
-            return out
-
-        def _verify(self, batch, *, last_only=False):
-            if self._rec is None:         # profile_spec's calls
-                return super()._verify(batch, last_only=last_only)
-            before = build.launch_counts()[attn_kernel]
-            start = event()
-            out = super()._verify(batch, last_only=last_only)
-            self._rec["verify"].append({
-                "tokens": int(batch["tokens"].shape[1]),
-                "events": (start, event()),
-                attn_kernel: build.launch_counts()[attn_kernel] - before})
             return out
 
     reset_planning()
@@ -2115,6 +2180,8 @@ def speculative_phase(dev, run, vanilla, smi):
                           **engine_kw)
     del params
     draft_kw = draft = None
+    require(eng.spec_step.graph, f"[{run}] the speculative step must "
+            f"replay CUDA graphs on the card")
     log(f"  [{run}] draft {eng.draft_cfg.name}: {eng.draft_cfg.n_layers} "
         f"layers, {about}; spec_k={SPEC_K}")
     torch.cuda.synchronize()
@@ -2132,18 +2199,25 @@ def speculative_phase(dev, run, vanilla, smi):
     for rec in steps:
         rec["draft_span_ms"] = rec["draft_events"][0].elapsed_time(
             rec["draft_events"][1])
-        for v in rec["verify"]:
+        for v in rec["windows"]:
             v["span_ms"] = v["events"][0].elapsed_time(v["events"][1])
             del v["events"]
         del rec["draft_events"]
     for i, rec in enumerate(steps):
         log(f"  [{run}] spec step {i}: k={rec['k']} slots={rec['slots']} "
             f"accepted={rec['accepted']} wall {rec['wall_ms']:.3f} ms, "
-            f"draft span {rec['draft_span_ms']:.3f} ms, verify spans "
-            f"{[round(v['span_ms'], 3) for v in rec['verify']]} ms "
-            f"(windows {[v['tokens'] for v in rec['verify']]}); launches "
+            f"draft span {rec['draft_span_ms']:.3f} ms, target window "
+            f"spans {[round(v['span_ms'], 3) for v in rec['windows']]} ms "
+            f"(windows {[v['tokens'] for v in rec['windows']]}); launches "
             f"{rec['launches']}")
     log(f"  [{run}] launch counts: {counts}")
+    spec = eng.spec_step
+    graphs = {}
+    for family, n in spec.graphs:
+        graphs.setdefault(family, []).append(n)
+    log(f"  [{run}] graphs: captures {dict(spec.captures)}, replays "
+        f"{dict(spec.replays)}, shapes "
+        f"{ {f: sorted(v) for f, v in graphs.items()} }")
     for rid, resp in out.items():
         require(resp.status == "ok", resp)
         require(list(resp) == vanilla[rid],
@@ -2154,13 +2228,26 @@ def speculative_phase(dev, run, vanilla, smi):
     for kernel in NOT_ON_PATH[name]:
         require(counts[kernel] == 0,
                 f"[{run}] {counts[kernel]} launches of {kernel}")
-    windows = [v for rec in steps for v in rec["verify"]]
+    require(sum(spec.captures.values()) == len(spec.graphs),
+            f"[{run}] {dict(spec.captures)} captures for "
+            f"{len(spec.graphs)} shapes: a shape was captured twice")
+    require(m["spec_steps"] == len(steps) == spec.replays["verify"] > 0,
+            f"[{run}] {m['spec_steps']} speculative steps, "
+            f"{spec.replays['verify']} verify replays")
+    windows = [v for rec in steps for v in rec["windows"]]
+    require(spec.replays["verify"] + spec.replays["replay"] == len(windows),
+            f"[{run}] {len(windows)} target windows, "
+            f"{dict(spec.replays)} replays")
     for v in windows:
         require(v[attn_kernel] == attn_layers * v["tokens"],
                 f"[{run}] a {v['tokens']}-token window launched "
                 f"{v[attn_kernel]} {attn_kernel}, want "
                 f"{attn_layers * v['tokens']}")
-    require(m["spec_steps"] == len(steps) > 0, f"[{run}] no speculative step")
+        for kernel, want in window_gemms.items():
+            require(v[kernel] == want,
+                    f"[{run}] a {v['family']} window of {v['tokens']} "
+                    f"tokens launched {v[kernel]} {kernel}, a decode step "
+                    f"{want}")
     if groups == cfg.n_layers // cfg.period:
         require(m["acceptance_rate"] == 1.0,
                 f"[{run}] acceptance rate {m['acceptance_rate']} with the "
@@ -2171,21 +2258,50 @@ def speculative_phase(dev, run, vanilla, smi):
                 f"[{run}] acceptance rate {m['acceptance_rate']}: the "
                 f"draft of its own must be rejected at some positions and "
                 f"accepted at others")
-        replays = [v for rec in steps for v in rec["verify"][1:]]
+        replays = [v for v in windows if v["family"] == "replay"]
         require(not eng._stateful_rows or replays,
                 f"[{run}] no replay window: the ring and RG-LRU rows were "
                 f"never restored")
         log(f"  [{run}] {len(replays)} replay windows of "
             f"{sorted(set(v['tokens'] for v in replays))} tokens")
+    tps = m["decode_tokens"] / wall
+    vanilla_tps = vanilla_async["decode_tokens_per_s"]
+    # Steady steps, as phase 4's: no capture, no prefill chunk in the
+    # engine step, and none in the draft's catch-up (B1 runs only in
+    # prefill chunks at full width).
+    steady = [rec for rec in steps if not rec["captured"]
+              and not rec["prefill"]
+              and "mte_gemm_wgmma" not in rec["launches"]]
+    steady_tps = (1e3 * sum(r["emitted"] for r in steady)
+                  / sum(r["wall_ms"] for r in steady))
+    vanilla_steady = vanilla_async["steady_tokens_per_s"]
+    # A decode step gives each decoding slot one token: the steady spec
+    # step's wall per token a slot compares with (b)'s steady ms/step
+    # whatever the slots' occupancy of either run.
+    slot_ms = (sum(r["wall_ms"] for r in steady)
+               / sum(r["emitted"] / r["slots"] for r in steady))
+    vanilla_ms = vanilla_async["steady_ms_per_step_mean"]
     log(f"  [{run}] greedy tokens equal to phase 4's for all {len(out)} "
-        f"requests; every window launched {attn_kernel} once per position "
-        f"and layer ({attn_layers} layers)")
+        f"requests; every target window launched {attn_kernel} once per "
+        f"position and layer ({attn_layers} layers) and "
+        f"{window_gemms} as a decode step does")
     log(f"  [{run}] on {smi}: acceptance rate {m['acceptance_rate']:.4f}, "
         f"spec_k_mean {m['spec_k_mean']:.3f}, {m['spec_steps']} speculative "
         f"of {m['decode_steps']} decode steps, run wall {wall:.3f} s, "
-        f"{m['decode_tokens'] / wall:.1f} decode tokens/s over the run, "
-        f"peak memory {peak / 2**30:.2f} GiB")
-    profile = profile_spec(eng, dev, work)
+        f"{tps:.1f} decode tokens/s over the run = {tps / vanilla_tps:.3f}x "
+        f"phase 4's (b) {vanilla_tps:.1f}; {len(steady)} steady steps "
+        f"(no capture, no prefill chunk): "
+        f"{statistics.mean(r['wall_ms'] for r in steady):.3f} ms mean, "
+        f"{steady_tps:.1f} tokens/s = {steady_tps / vanilla_steady:.3f}x "
+        f"(b)'s steady {vanilla_steady:.1f}, {slot_ms:.3f} ms per token a "
+        f"slot = {vanilla_ms / slot_ms:.3f}x (b)'s steady {vanilla_ms:.3f} "
+        f"ms/step; peak memory {peak / 2**30:.2f} GiB")
+    profile = profile_spec(eng, work["decode"], SPEC_K, work["pos0"])
+    if kinds.count("attn"):
+        idle = profile["verify_replay"]["idle_share"]
+        require(idle is not None and idle <= 0.15,
+                f"[{run}] the replayed verify window's idle share {idle} "
+                f"> 0.15")
     summary = {
         "run": run, "config": name, "arch": arch,
         "draft": eng.draft_cfg.name, "draft_layers": eng.draft_cfg.n_layers,
@@ -2193,8 +2309,13 @@ def speculative_phase(dev, run, vanilla, smi):
         "spec_k_mean": m["spec_k_mean"], "spec_steps": m["spec_steps"],
         "decode_steps": m["decode_steps"],
         "decode_tokens": m["decode_tokens"], "wall_s": wall,
-        "decode_tokens_per_s": m["decode_tokens"] / wall,
+        "decode_tokens_per_s": tps, "vs_vanilla": tps / vanilla_tps,
+        "steady_steps": len(steady), "steady_tokens_per_s": steady_tps,
+        "steady_vs_vanilla": steady_tps / vanilla_steady,
+        "steady_ms_per_slot_token": slot_ms,
+        "steady_slot_speedup": vanilla_ms / slot_ms,
         "peak_memory_gib": peak / 2**30, "launch_counts": counts,
+        "captures": dict(spec.captures), "replays": dict(spec.replays),
         "steps": steps, "profile": profile}
     del eng
     torch.cuda.empty_cache()
@@ -2217,38 +2338,161 @@ def rejecting_draft(dcfg, dev, scale: float = REJECTING_DRAFT_SCALE):
     return draft
 
 
-def profile_spec(eng, dev, work):
-    """The profiler over one verify window (4 slots × ``SPEC_K`` tokens at
-    the workload's ``decode`` positions, over the cache the run left)
-    and one draft decode step at the same positions: wall and device ms,
-    idle share, and each call's bound (:func:`step_bounds` over its
-    tokens)."""
+def profile_spec(eng, positions, k, pos0):
+    """The profiler over the verify window of ``k`` tokens per slot at
+    ``positions`` (one per slot, over the cache the run left), called
+    eagerly and replayed, and over the replayed draft decode step at the
+    same positions: wall and device ms, idle share (the replay's also
+    against the eager window's kernel sum), and each call's bound
+    (:func:`step_bounds` over its tokens)."""
     import numpy as np
-    from repro_torch.models import model as model_lib
-
-    positions = work["decode"]
-    tokens = np.zeros((4, SPEC_K), np.int64)
-    valid = np.ones(4, bool)
+    spec = eng.spec_step
+    slots = len(positions)
     maxp = eng.sched.max_pages_per_seq
-    table = (1 + np.arange(4 * maxp, dtype=np.int32)).reshape(4, maxp)
-    batch = eng._batch(tokens, positions, table,
-                       valid if eng._stateful_rows else None)
-    draft = eng._batch(tokens[:, :1], positions, eng._draft_table,
-                       valid if eng._draft_stateful else None)
-    window = [p + i for p in positions for i in range(SPEC_K)]
+    table = (1 + np.arange(slots * maxp, dtype=np.int32)).reshape(slots,
+                                                                  maxp)
+    active = np.ones(slots, bool)
+    spec.stage("target", positions, table, active)
+    spec.stage_tokens("verify", np.zeros((slots, k), np.int64))
+    spec.stage("draft", positions, eng._draft_table, active)
+    spec.stage_tokens("draft", np.zeros((slots, 1), np.int64))
+    window = [p + i for p in positions for i in range(k)]
+    verify_bound = step_bounds(eng, window, chunk=512, pos0=pos0)
+    draft_bound = step_bounds(eng, positions, chunk=512, pos0=pos0,
+                              draft=True)
     out = {}
     for name, fn, bound in (
-            ("verify_window",
-             lambda: eng._verify(batch),
-             step_bounds(eng, window, chunk=512, pos0=work["pos0"])),
-            ("draft_decode_step",
-             lambda: model_lib.decode(eng.draft_params, draft,
-                                      eng.draft_cache, eng.draft_cfg),
-             step_bounds(eng, positions, chunk=512, pos0=work["pos0"],
-                         draft=True))):
+            ("verify_window", lambda: spec.eager("verify", k), verify_bound),
+            ("verify_replay", lambda: spec("verify", k), verify_bound),
+            ("draft_replay", lambda: spec("draft", 1), draft_bound)):
         out[name] = {**profile_call(fn, 3), **bound["decode_step"]}
-        log_profile(name, out[name])
+        note = ""
+        if name == "verify_replay":
+            eager_busy = out["verify_window"]["device_busy_ms"]
+            out[name]["idle_share_vs_eager_kernels"] = (
+                1 - eager_busy / out[name]["wall_ms"] if eager_busy
+                else None)
+            note = (f" (against the eager window's kernel sum: "
+                    f"{out[name]['idle_share_vs_eager_kernels']})")
+        log_profile(name, out[name], note)
     return out
+
+
+# The reference's exact-draft workload (``benchmarks/run.py:345-430``, the
+# non-smoke size) at gemma_2b's full width: layers 1-17 get zero ``o`` and
+# ``down`` weights, so they add exactly 0.0 to the residual stream and the
+# one-layer weight-shared draft computes the target's logits bit for bit,
+# while each verify window still pays all 18 layers.  Its gate
+# (``:858-860``): speculative tokens/s at least vanilla's, more than one
+# accepted draft per step, acceptance at least 0.95.
+EXACT_DRAFT = dict(slots=2, spec_k=6, cache_len=128, prefill_len=32,
+                   page_size=16)
+EXACT_REQUESTS, EXACT_TOKENS, EXACT_TURNS = 8, 32, 3
+
+
+def exact_draft_phase(dev, smi):
+    """Serve the exact-draft workload (``EXACT_DRAFT``) with a vanilla
+    engine and a speculative one, both in the engine's defaults (async,
+    depth 2, the decode step and the speculative step replayed as CUDA
+    graphs), each warmed up by one untimed request (which captures its
+    graphs), then timed in alternating turns (vanilla, speculative,
+    three times each: 8 greedy requests of 32 tokens, prompts of 24
+    shared tokens plus 8 of their own from ``default_rng(0)``).  Decode
+    tokens/s is the requests' tokens over the turn's host wall, prefill
+    included, as the reference counts.  Requires, unloosened: equal
+    greedy streams in every turn, ``speedup_vs_vanilla`` (the ratio of
+    the medians) ≥ 1.00, ``accepted_per_step`` > 1 and
+    ``acceptance_rate`` ≥ 0.95."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = get_config("gemma_2b")
+    reset_planning()
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        for lp in params["layers"][1:]:
+            lp["mixer"]["o"]["w"].zero_()
+            lp["ffn"]["down"]["w"].zero_()
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, 24, dtype=np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, 8,
+                                                    dtype=np.int32)])
+               for _ in range(2 * EXACT_REQUESTS)]
+    kw = dict(EXACT_DRAFT, device=dev)
+    engines = {"vanilla": ServingEngine(params, cfg, **dict(kw, spec_k=0)),
+               "spec": ServingEngine(params, cfg, draft_groups=1, **kw)}
+    del params
+    for label, eng in engines.items():
+        eng.submit(Request(rid=0, prompt=prompts[0],
+                           max_tokens=EXACT_TOKENS))
+        eng.run()
+        log(f"  [exact-draft] {label} warm-up: "
+            f"{eng.metrics()['decode_steps']} decode steps")
+    spec = engines["spec"].spec_step
+    captured = dict(spec.captures)
+    tps = {"vanilla": [], "spec": []}
+    streams = {}
+    counts = None
+    for turn in range(EXACT_TURNS):
+        rids = [100 * (turn + 1) + i for i in range(1, EXACT_REQUESTS + 1)]
+        for label in ("vanilla", "spec"):
+            eng = engines[label]
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t = time.perf_counter()
+            for rid, prompt in zip(rids, prompts[1:]):
+                eng.submit(Request(rid=rid, prompt=prompt,
+                                   max_tokens=EXACT_TOKENS))
+            out = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if label == "spec":
+                counts = build.launch_counts()
+            for rid in rids:
+                require(out[rid].status == "ok", out[rid])
+            tokens = sum(len(out[rid]) for rid in rids)
+            tps[label].append(tokens / wall)
+            streams[label] = [list(out[rid]) for rid in rids]
+            log(f"  [exact-draft] turn {turn} {label}: {tokens} tokens in "
+                f"{wall:.4f} s = {tokens / wall:.1f} tokens/s")
+        require(streams["spec"] == streams["vanilla"],
+                f"[exact-draft] turn {turn}: speculative greedy streams "
+                f"differ from vanilla's")
+    m = engines["spec"].metrics()
+    speedup = statistics.median(tps["spec"]) / statistics.median(
+        tps["vanilla"])
+    log(f"  [exact-draft] on {smi}: speculative {tps['spec']} against "
+        f"vanilla {tps['vanilla']} tokens/s; speedup_vs_vanilla "
+        f"{speedup:.4f} (medians), accepted_per_step "
+        f"{m['accepted_per_step']:.4f}, acceptance_rate "
+        f"{m['acceptance_rate']:.4f}, windows {engines['spec'].spec_k_hist}"
+        f"; graphs: captures {captured} in the warm-up, "
+        f"{dict(spec.captures)} in all, replays "
+        f"{dict(spec.replays)}; launches of the last speculative turn "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require(speedup >= 1.00,
+            f"[exact-draft] speedup_vs_vanilla {speedup:.4f} < 1.00")
+    require(m["accepted_per_step"] > 1.0,
+            f"[exact-draft] accepted_per_step {m['accepted_per_step']} <= 1")
+    require(m["acceptance_rate"] >= 0.95,
+            f"[exact-draft] acceptance_rate {m['acceptance_rate']} < 0.95")
+    eng = engines["spec"]
+    positions = [40, 45]
+    profile = profile_spec(eng, positions, EXACT_DRAFT["spec_k"], 0)
+    summary = {"tokens_per_s": tps, "speedup_vs_vanilla": speedup,
+               "accepted_per_step": m["accepted_per_step"],
+               "acceptance_rate": m["acceptance_rate"],
+               "spec_k_hist": dict(eng.spec_k_hist),
+               "captures": dict(spec.captures),
+               "replays": dict(spec.replays), "launch_counts": counts,
+               "profile": profile}
+    del engines, eng, spec
+    torch.cuda.empty_cache()
+    return summary
 
 
 # (counter, source, the TPU kernel it replaces, the row of phase 2 that
@@ -2363,8 +2607,11 @@ def main() -> int:
             f"[{name}], spec_k={SPEC_K}, draft of {groups} layer period(s), "
             f"{weights} weights")
         speculative[run] = speculative_phase(
-            dev, run, serving[name]["streams"], smi)
+            dev, run, serving[name]["streams"], serving[name]["async"], smi)
         counts[run] = speculative[run]["launch_counts"]
+    log("== 5. the reference's exact-draft gate at gemma_2b's full width "
+        "[exact-draft]")
+    speculative["exact-draft"] = exact_draft_phase(dev, smi)
 
     kernels = []
     for name, source, replaces, shape, path in KERNELS:

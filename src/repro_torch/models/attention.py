@@ -279,33 +279,44 @@ def init_attn_cache(cfg, batch: int, seq_len: int, window: int, dtype,
 
 
 def decode_attention(x, p, cfg, cache, pos, *, window: int, row_valid=None):
-    """One-token decode over a local layer's ring (``attention.py:372-429``
-    of the JAX package).  x: (B, 1, D); pos: (B,) positions.  The new
-    token's K/V are written at slot pos mod L of every row whose
-    ``row_valid`` is True (all rows without it), in place; then B6 reads
-    the ring in its stored layout, slot i holding absolute position
-    pos − ((pos − i) mod L).  Returns (out, cache)."""
+    """Decode over a local layer's ring (``attention.py:372-429`` of the
+    JAX package): one token, or a K-token speculative window scored as K
+    decode steps.  x: (B, K, D); pos: (B,) the first positions.  The
+    q/k/v and o projections run once over the B·K rows on the plans of
+    the decode step's B rows (``plan_rows``), so every row gets a decode
+    step's bits.  Then per position i, in order: its K/V are written at
+    slot (pos + i) mod L of every row whose ``row_valid`` is True (all
+    rows without it), in place, and B6 reads the ring in its stored
+    layout, slot j holding absolute position p − ((p − j) mod L) for
+    p = pos + i.  (Writing the whole window first would overwrite keys an
+    earlier position still sees.)  Returns (out, cache)."""
     from repro_torch.kernels import ops
-    b = x.shape[0]
+    b, klen, _ = x.shape
     pos_b = torch.as_tensor(pos, dtype=torch.int64,
                             device=x.device).reshape(-1).expand(b)
-    q, k, v = _project_qkv_decode(x, p, cfg, pos_b[:, None])
+    positions = (pos_b[:, None] if klen == 1 else
+                 pos_b[:, None] + torch.arange(klen, device=x.device)[None])
+    q, k, v = _project_qkv_decode(x, p, cfg, positions, plan_rows=b)
     length = cache["k"].shape[1]
     rows = torch.arange(b, device=x.device)
-    slot_b = pos_b % length
-    for name, new in (("k", k[:, 0]), ("v", v[:, 0])):
-        new = new.to(cache[name].dtype)
-        if row_valid is not None:
-            keep = row_valid.reshape(b, 1, 1)
-            new = torch.where(keep, new, cache[name][rows, slot_b])
-        cache[name][rows, slot_b] = new
     idx = torch.arange(length, device=x.device)[None, :]
-    kv_positions = pos_b[:, None] - (pos_b[:, None] - idx) % length
-    out = ops.flash_decode(
-        q[:, 0], cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
-        kv_positions, pos_b, window=window, softcap=cfg.attn_softcap,
-        scale=_scale(cfg))
-    return dense(out.reshape(b, 1, -1), p["o"], cfg), cache
+    outs = []
+    for i in range(klen):
+        pos_i = positions[:, i]
+        slot_b = pos_i % length
+        for name, new in (("k", k[:, i]), ("v", v[:, i])):
+            new = new.to(cache[name].dtype)
+            if row_valid is not None:
+                keep = row_valid.reshape(b, 1, 1)
+                new = torch.where(keep, new, cache[name][rows, slot_b])
+            cache[name][rows, slot_b] = new
+        kv_positions = pos_i[:, None] - (pos_i[:, None] - idx) % length
+        outs.append(ops.flash_decode(
+            q[:, i], cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
+            kv_positions, pos_i, window=window, softcap=cfg.attn_softcap,
+            scale=_scale(cfg)))
+    out = torch.stack(outs, dim=1) if klen > 1 else outs[0][:, None]
+    return dense(out.reshape(b, klen, -1), p["o"], cfg, plan_rows=b), cache
 
 
 def ring_chunk_attention(x, p, cfg, cache, positions, *, pos0: int,

@@ -111,7 +111,8 @@ def _slot_view(cache, slot: int):
 
 
 def _decode_mixer(h, p, cfg, mixer, cache, pos, row_valid):
-    """One decode step of a ring or RG-LRU mixer: h (B, 1, D)."""
+    """A ring or RG-LRU mixer over h (B, K, D): one decode step (K = 1)
+    or a speculative window scored as K of them."""
     if mixer == "local":
         return attn_mod.decode_attention(h, p, cfg, cache, pos,
                                          window=cfg.window,
@@ -126,9 +127,11 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
     ``pos``, ``model.py:163-197`` of the JAX package): paged global
     layers score the whole window in one pass
     (:func:`~repro_torch.models.attention.verify_paged_attention`), ring
-    and RG-LRU layers replay the decode step once per window position,
-    and the FFN runs once over the B·K rows on the decode step's plans
-    (``plan_rows`` = B), so each row keeps the decode step's bits."""
+    and RG-LRU mixers take the window as they take a decode step (only
+    the ring attention, the conv and the recurrence step per position),
+    and every projection and the FFN run once over the B·K rows on the
+    decode step's plans (``plan_rows`` = B), so each row keeps the decode
+    step's bits."""
     if cfg.post_norms:
         raise NotImplementedError("post_norms is ROADMAP A10")
     h = rmsnorm(x, lp["norm1"])
@@ -158,13 +161,6 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
         # page-table row, so ``row_valid`` has nothing to guard here.
         out, cache = attn_mod.paged_decode_attention(
             h, lp["mixer"], cfg, cache, pos, page_table)
-    elif mode == "verify":
-        outs = []
-        for i in range(h.shape[1]):
-            o, cache = _decode_mixer(h[:, i:i + 1].contiguous(), lp["mixer"],
-                                     cfg, mixer, cache, pos + i, row_valid)
-            outs.append(o)
-        out = torch.cat(outs, dim=1)
     else:
         out, cache = _decode_mixer(h, lp["mixer"], cfg, mixer, cache, pos,
                                    row_valid)

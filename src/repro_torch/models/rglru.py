@@ -12,8 +12,9 @@ Recurrent Unit; their product goes through an output projection::
 
 Every projection runs through the kernel GEMMs (:func:`dense`).  A
 prefill chunk evaluates the recurrence through B7 (``ops.rglru_scan``,
-from the carried state), a decode step as one element-wise update (plain
-PyTorch: it runs no kernel in JAX either).  The serving cache of a layer
+from the carried state), a decode step or a speculative window as one
+element-wise update per position (plain PyTorch: it runs no kernel in
+JAX either).  The serving cache of a layer
 is ``{"h": (B, W) f32, "conv": (B, conv_width, W)}``: the state and the
 raw-projection tail the conv of the next chunk or step needs.
 """
@@ -66,10 +67,10 @@ def _causal_conv(x, w, b):
     return out + b
 
 
-def _gates(x, p, cfg):
+def _gates(x, p, cfg, plan_rows=None):
     """log_a (B, S, W) and the gated input (B, S, W), both f32."""
-    r = torch.sigmoid(dense(x, p["wa"], cfg).float())
-    i = torch.sigmoid(dense(x, p["wx"], cfg).float())
+    r = torch.sigmoid(dense(x, p["wa"], cfg, plan_rows=plan_rows).float())
+    i = torch.sigmoid(dense(x, p["wx"], cfg, plan_rows=plan_rows).float())
     log_a = -cfg.rglru.c * F.softplus(p["lam"].float()) * r
     return log_a, i * x.float()
 
@@ -118,24 +119,48 @@ def init_rglru_cache(cfg, batch: int, dtype, device=None):
                                 device=device)}
 
 
+def _stack(rows):
+    """Per-position (B, ...) results as (B, K, ...)."""
+    return torch.stack(rows, dim=1) if len(rows) > 1 else rows[0][:, None]
+
+
 def rglru_decode(x, p, cfg, cache, *, row_valid=None):
-    """One-token step x (B, 1, D) → (out, cache).  The state of every row
-    whose ``row_valid`` is True (all rows without it) is updated in
-    place; the others keep theirs."""
-    gate = dense(x, p["gate_proj"], cfg, activation="gelu")
-    u = dense(x, p["rec_proj"], cfg)                       # (B, 1, W)
-    conv = torch.cat([cache["conv"][:, 1:], u.to(cache["conv"].dtype)],
-                     dim=1)
-    u = (torch.einsum("bwc,wc->bc", conv.float(), p["conv_w"].float())
-         + p["conv_b"].float())[:, None].to(x.dtype)
-    log_a, gated = _gates(u, p, cfg)
-    a, b = _scan_inputs(log_a[:, 0], gated[:, 0])
-    h = a * cache["h"] + b
-    out = dense(gate * h[:, None].to(x.dtype), p["out_proj"], cfg)
-    if row_valid is not None:
-        keep = row_valid.reshape(-1, 1)
-        h = torch.where(keep, h, cache["h"])
-        conv = torch.where(keep[:, :, None], conv, cache["conv"])
+    """Decode x (B, K, D) → (out, cache): one token, or a K-token
+    speculative window computed as K decode steps.  The projections
+    (``gate_proj``, ``rec_proj``, the gates' ``wa`` and ``wx``,
+    ``out_proj``) run once over the B·K rows on the plans of the decode
+    step's B rows (``plan_rows``), and the element-wise gates once; the
+    conv and the recurrence a·h + b step per position.  So each row gets
+    the bits of a decode step at its position.  The state of every row
+    whose ``row_valid`` is True (all rows without it) ends where K steps
+    leave it, in place; the others keep theirs, and each of their
+    positions reads that kept state, as a masked decode step does."""
+    b, klen, _ = x.shape
+    gate = dense(x, p["gate_proj"], cfg, activation="gelu", plan_rows=b)
+    u_raw = dense(x, p["rec_proj"], cfg, plan_rows=b)      # (B, K, W)
+
+    def advance(state, new):
+        if row_valid is None:
+            return new
+        keep = row_valid.reshape(-1, *[1] * (new.ndim - 1))
+        return torch.where(keep, new, state)
+
+    conv_w, conv_b = p["conv_w"].float(), p["conv_b"].float()
+    conv, us = cache["conv"], []
+    for i in range(klen):
+        step = torch.cat([conv[:, 1:], u_raw[:, i:i + 1].to(conv.dtype)],
+                         dim=1)
+        us.append(torch.einsum("bwc,wc->bc", step.float(), conv_w) + conv_b)
+        conv = advance(conv, step)
+    log_a, gated = _gates(_stack(us).to(x.dtype), p, cfg, plan_rows=b)
+    a, bias = _scan_inputs(log_a, gated)
+    h, hs = cache["h"], []
+    for i in range(klen):
+        step = a[:, i] * h + bias[:, i]
+        hs.append(step)
+        h = advance(h, step)
+    out = dense(gate * _stack(hs).to(x.dtype), p["out_proj"], cfg,
+                plan_rows=b)
     cache["h"].copy_(h)
     cache["conv"].copy_(conv)
     return out, cache

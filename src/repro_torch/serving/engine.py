@@ -44,13 +44,20 @@ proposals while the target's argmax agrees (sampled ones run rejection
 sampling), so greedy streams are those of ``spec_k=0`` bit for bit.  That
 holds for windows of at most ``SPEC_MAX_ROWS`` (16) rows: k is clamped to
 16 // slots, and ``spec_k ≥ 2`` with more than 8 slots is refused.  The
-speculative step is eager and synchronous: the pipeline is flushed
-before it.  The ring and RG-LRU rows of a rejected suffix are restored
-from clones into the same storage and the accepted prefix replayed;
-paged KV past the accepted point is garbage the next window overwrites.
-Proposals and acceptance draw from a host ``torch.Generator`` seeded
-from ``seed`` (JAX draws from its key stream, so sampled rows differ in
-bits, not in distribution).
+speculative step's model calls (:class:`SpecStep`: the target's verify
+and replay windows, the draft's catch-up windows and decode step) read
+static device buffers and, on a CUDA device, are replayed as one CUDA
+graph per shape, captured at first use — the counterpart of the JAX
+engine's jitted ``_verify``, ``_draft_verify`` and ``_draft_decode``.
+All-greedy steps chain the draft's proposals on the device and fetch
+once (the target's argmax, finite flags and accepted drafts); sampled
+steps fetch the logits of each call.  The step is synchronous: the
+pipeline is flushed before it.  The ring and RG-LRU rows of a rejected
+suffix are restored from clones into the same storage and the accepted
+prefix replayed; paged KV past the accepted point is garbage the next
+window overwrites.  Proposals and acceptance draw from a host
+``torch.Generator`` seeded from ``seed`` (JAX draws from its key stream,
+so sampled rows differ in bits, not in distribution).
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: ``fault``, deadlines, load shedding, ``watchdog_s``,
@@ -95,8 +102,8 @@ from repro_torch.serving.resilience import (CapacityExceeded,
                                             Response)
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler
 
-__all__ = ["Request", "ServingEngine", "DecodeStep", "HostStaging",
-           "serving_params"]
+__all__ = ["Request", "ServingEngine", "DecodeStep", "SpecStep",
+           "HostStaging", "greedy_accepted", "serving_params"]
 
 
 # The most rows a speculative verify window's GEMMs take (slots·k): up to
@@ -340,32 +347,240 @@ class DecodeStep:
         return self.eager(sampled)
 
     def capture(self, sampled: bool) -> None:
-        """Warm up, then capture the variant under ``torch.cuda.graph``
-        on one side stream; the staged inputs are kept across both.
-        Raises if the capture fails."""
-        dev = self.engine.device
-        gen = self.engine._gen
-        state = gen.get_state()
-        inputs = (self.pos, self.page_table, self.temps, self.active)
-        staged = [buf.clone() for buf in inputs]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.warm_up(sampled)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        gen.set_state(state)
-        graph = torch.cuda.CUDAGraph()
-        if sampled:
-            graph.register_generator_state(gen)
-        with build.capturing() as delta:
-            with torch.cuda.graph(graph, stream=side):
-                outputs = self.eager(sampled)
-        self.graphs[sampled] = (graph, outputs, delta)
-        for buf, value in zip(inputs, staged):
-            buf.copy_(value)
+        """Warm up, then capture the variant (:func:`_capture`).  Raises
+        if the capture fails."""
+        self.graphs[sampled] = _capture(
+            self.engine.device,
+            (self.pos, self.page_table, self.temps, self.active),
+            lambda: self.warm_up(sampled), lambda: self.eager(sampled),
+            self.engine._gen if sampled else None)
+
+
+# One side stream per device for every capture: PyTorch keeps a cuBLAS
+# workspace for each stream a product has run on, for the life of the
+# process, so a fresh stream per capture would hold one more each time.
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture(device, staged, warm_up, run, generator=None):
+    """Capture ``run()`` as a CUDA graph on the device's capture stream,
+    after an eager ``warm_up()`` on the same stream (plans, compiled
+    programs, kernel attributes, cuBLAS's workspace).  The ``staged``
+    input buffers, which the warm-up overwrites, are put back after
+    both, and so is the state of ``generator``, which the graph
+    registers: a sampled replay draws what the eager call would.
+    → (graph, the outputs of ``run``, the launches the capture
+    recorded).  Raises if the capture fails."""
+    saved = [buf.clone() for buf in staged]
+    state = None if generator is None else generator.get_state()
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    side = _CAPTURE_STREAMS[device]
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        warm_up()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        generator.set_state(state)
+        graph.register_generator_state(generator)
+    with build.capturing() as delta:
+        with torch.cuda.graph(graph, stream=side):
+            outputs = run()
+    for buf, value in zip(staged, saved):
+        buf.copy_(value)
+    return graph, outputs, delta
+
+
+def greedy_accepted(argmax: torch.Tensor,
+                    proposals: torch.Tensor) -> torch.Tensor:
+    """Per row, how many leading proposals (B, k − 1) the target's argmax
+    tokens (B, k) agree with: the j of :meth:`ServingEngine._accept`'s
+    greedy branch, which then emits ``argmax[:j + 1]``."""
+    agree = (argmax[:, :-1] == proposals).to(torch.int64)
+    return agree.cumprod(dim=1).sum(dim=1)
+
+
+# Which model a family of the speculative step runs: the target's verify
+# and replay windows, the draft's catch-up windows and decode step.
+_SPEC_SIDE = {"verify": "target", "replay": "target", "catchup": "draft",
+              "draft": "draft"}
+
+
+class SpecStep:
+    """The speculative step's model calls (the JAX engine's jitted
+    ``_draft_decode``, ``_draft_verify`` and ``_verify``,
+    ``src/repro/serving/engine.py:391-398``), in four families of static
+    shapes:
+
+    - ``("verify", k)``: the target's window [e, d_1..d_{k−1}] for k = 2
+      up to the engine's largest window; → its logits (slots, k, V), the
+      tokens it verified, their f32 argmax (slots, k) int32, finite flags
+      (slots, k) and the accepted drafts j of greedy rows
+      (:func:`greedy_accepted`);
+    - ``("replay", n)``: the target's accepted prefix of n = 1..k − 1
+      tokens (stateful archs), last position only;
+    - ``("catchup", n)``: the draft fed n = 1..k known tokens, last
+      position only; → its last logits (slots, V) and their argmax, which
+      it also writes, for the window's rows, into proposal column 0 and
+      the draft's token — d_1;
+    - ``("draft", 1)``: one draft decode step from the draft's token;
+      → logits and argmax, written back into that token for the active
+      rows, so greedy steps chain on the device.
+
+    Each family reads static buffers that :meth:`stage` and
+    :meth:`stage_tokens` write: per model ``pos``, ``page_table`` and
+    ``active`` (also the stateful archs' ``row_valid``; masked rows have
+    all-(−1) page-table rows), the last emitted token ``last`` (slots,),
+    the proposals ``props`` (slots, kmax − 1), the draft's token
+    ``draft_tok`` (slots, 1), and a token buffer per (catch-up or replay,
+    n).  With ``graph=True`` each shape is captured once as a CUDA graph
+    at its first call and replayed after, as :class:`DecodeStep` is: an
+    eager warm-up with every row inactive on a side stream, the capture
+    on the same stream, the staged inputs put back, and each replay
+    adding its capture's launches to the counters.  No graph draws random
+    numbers (proposals and coins come from the host generator), so
+    greedy and sampled steps replay the same graphs: greedy steps chain
+    the proposals on the device and fetch once, sampled ones fetch the
+    logits each call."""
+
+    def __init__(self, engine: "ServingEngine", *, graph: bool):
+        dev = engine.device
+        if graph and dev.type != "cuda":
+            raise ValueError(f"SpecStep: a CUDA graph needs a CUDA device, "
+                             f"not {dev}")
+        slots, maxp = engine.slots, engine.sched.max_pages_per_seq
+        self.engine = weakref.proxy(engine)
+        self.graph = graph
+        kmax = min(engine.spec_k, SPEC_MAX_ROWS // slots)
+
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.inputs = {side: {"pos": zeros(slots),
+                              "page_table": torch.full(
+                                  (slots, maxp), -1, dtype=torch.int32,
+                                  device=dev),
+                              "active": zeros(slots, dtype=torch.bool)}
+                       for side in ("target", "draft")}
+        self.last = zeros(slots)
+        self.props = zeros(slots, kmax - 1)
+        self.draft_tok = zeros(slots, 1)
+        self.tokens: Dict[tuple, torch.Tensor] = {}
+        self.graphs: Dict[tuple, tuple] = {}
+        self.captures: Dict[str, int] = collections.Counter()
+        self.replays: Dict[str, int] = collections.Counter()
+
+    def stage(self, side: str, pos, page_table, active) -> None:
+        """Write one call's rows into the ``"target"`` or ``"draft"``
+        buffers."""
+        inputs, to_device = self.inputs[side], self.engine._stage.to_device
+        to_device(np.asarray(pos, np.int64), out=inputs["pos"])
+        to_device(np.asarray(page_table, np.int32), out=inputs["page_table"])
+        to_device(np.asarray(active, bool), out=inputs["active"])
+
+    def stage_tokens(self, family: str, tokens) -> None:
+        """Write a call's (slots, n) tokens: a catch-up or replay window's
+        own buffer, the draft's token (n = 1), or for a verify window
+        ``last`` (column 0) and, when given, the proposals."""
+        to_device = self.engine._stage.to_device
+        tokens = np.asarray(tokens, np.int64)
+        if family == "draft":
+            to_device(tokens, out=self.draft_tok)
+        elif family == "verify":
+            to_device(tokens[:, 0], out=self.last)
+            if tokens.shape[1] > 1:
+                props = np.zeros(tuple(self.props.shape), np.int64)
+                props[:, :tokens.shape[1] - 1] = tokens[:, 1:]
+                to_device(props, out=self.props)
+        else:
+            key = (family, tokens.shape[1])
+            if key not in self.tokens:
+                self.tokens[key] = torch.zeros(
+                    tokens.shape, dtype=torch.int64, device=self.last.device)
+            to_device(tokens, out=self.tokens[key])
+
+    def eager(self, family: str, n: int) -> Dict[str, torch.Tensor]:
+        """One eager call of shape (family, n) over the staged buffers."""
+        eng = self.engine
+        side = _SPEC_SIDE[family]
+        inputs = self.inputs[side]
+        if side == "target":
+            params, cache, cfg = eng.params, eng.cache, eng.cfg
+            stateful = eng._stateful_rows
+        else:
+            params, cache, cfg = eng.draft_params, eng.draft_cache, \
+                eng.draft_cfg
+            stateful = eng._draft_stateful
+        if family == "verify":
+            tokens = torch.cat([self.last[:, None], self.props[:, :n - 1]],
+                               dim=1)
+        elif family == "draft":
+            tokens = self.draft_tok
+        else:
+            tokens = self.tokens[(family, n)]
+        batch = {"tokens": tokens, "pos": inputs["pos"],
+                 "page_table": inputs["page_table"]}
+        if stateful:
+            batch["row_valid"] = inputs["active"]
+        if family == "draft":
+            logits, _ = model_lib.decode(params, batch, cache, cfg)
+        else:
+            logits, _ = model_lib.verify_chunk(params, batch, cache, cfg,
+                                               last_only=family != "verify")
+        if family == "replay":
+            return {"logits": logits}
+        argmax = logits.argmax(dim=-1)
+        if family == "verify":
+            return {"logits": logits, "tokens": tokens,
+                    "argmax": argmax.to(torch.int32),
+                    "finite": torch.isfinite(logits).all(dim=-1),
+                    "accepted": greedy_accepted(argmax, tokens[:, 1:])}
+        active = inputs["active"]
+        if family == "catchup":
+            logits, argmax = logits[:, 0], argmax[:, 0]
+            for buf in (self.props[:, 0], self.draft_tok[:, 0]):
+                buf.copy_(torch.where(active, argmax, buf))
+        else:
+            self.draft_tok.copy_(torch.where(active[:, None],
+                                             argmax[:, None],
+                                             self.draft_tok))
+        return {"logits": logits, "argmax": argmax}
+
+    def __call__(self, family: str, n: int) -> Dict[str, torch.Tensor]:
+        """One call over the staged buffers: a replay of the shape's graph
+        (captured first if needed), or an eager call."""
+        if not self.graph:
+            return self.eager(family, n)
+        if (family, n) not in self.graphs:
+            self.capture(family, n)
+        graph, outputs, delta = self.graphs[(family, n)]
+        graph.replay()
+        build.add_launches(delta)
+        self.replays[family] += 1
+        return outputs
+
+    def capture(self, family: str, n: int) -> None:
+        """Warm up with every row inactive, then capture the shape
+        (:func:`_capture`).  Raises if the capture fails."""
+        inputs = self.inputs[_SPEC_SIDE[family]]
+
+        def warm_up():
+            inputs["page_table"].fill_(-1)
+            inputs["pos"].zero_()
+            inputs["active"].fill_(False)
+            self.eager(family, n)
+
+        self.graphs[(family, n)] = _capture(
+            self.engine.device, list(inputs.values()), warm_up,
+            lambda: self.eager(family, n))
+        self.captures[family] += 1
 
 
 class ServingEngine:
+    # The speculative step's calls (a subclass may wrap them).
+    spec_step_cls = SpecStep
+
     def __init__(self, params, cfg: ArchConfig, *, slots: int = 4,
                  cache_len: int = 512, prefill_len: int = 128,
                  seed: int = 0, plan_cache_path: Optional[str] = None,
@@ -492,7 +707,7 @@ class ServingEngine:
         self.decode_step = DecodeStep(self, graph=bool(cuda_graph))
         self._init_speculation(spec_k, draft_params, draft_config,
                                draft_groups, draft_format_policy, kv_format,
-                               grouped_qkv)
+                               grouped_qkv, bool(cuda_graph))
         self.debug_audit = bool(debug_audit)
         self.quarantine = bool(quarantine)
         self.step_idx = 0
@@ -874,7 +1089,7 @@ class ServingEngine:
     #      RG-LRU rows are restored and the accepted prefix replayed.
     def _init_speculation(self, spec_k, draft_params, draft_config,
                           draft_groups, draft_format_policy, kv_format,
-                          grouped_qkv):
+                          grouped_qkv, graph):
         """The draft config, its parameters, its slot-private page
         stripes and cache (``engine.py:343-401`` of the JAX package).
         Without ``draft_params`` the draft is the target's own first
@@ -935,6 +1150,7 @@ class ServingEngine:
         self.draft_cache = model_lib.init_paged_cache(
             dcfg, slots, self.cache_len, num_pages=slots * maxp + 1,
             page_size=self.page_size, device=self.device)
+        self.spec_step = self.spec_step_cls(self, graph=graph)
 
     def _spec_depth(self, decoding) -> int:
         """This step's window k: ``spec_k`` clamped to the window whose
@@ -965,27 +1181,37 @@ class ServingEngine:
         return np.concatenate([self._slot_window[slot],
                                np.asarray(out, np.int32)])
 
-    def _batch(self, tokens, pos, table, row_valid=None):
-        """A model batch of host arrays, staged to the device."""
-        stage = self._stage.to_device
-        batch = {"tokens": stage(np.asarray(tokens, np.int64)),
-                 "pos": stage(np.asarray(pos, np.int64)),
-                 "page_table": stage(np.asarray(table, np.int32))}
-        if row_valid is not None:
-            batch["row_valid"] = stage(np.asarray(row_valid, bool))
-        return batch
+    def _rows(self, rows, *, draft: bool) -> tuple:
+        """The (slots, max_pages) page table of ``rows``, in the draft's
+        page stripes or the target's pool (the other rows −1), and their
+        (slots,) mask."""
+        table = np.full((self.slots, self.sched.max_pages_per_seq), -1,
+                        np.int32)
+        active = np.zeros(self.slots, bool)
+        for s in rows:
+            table[s] = (self._draft_table[s] if draft
+                        else self.sched.table_row(s))
+            active[s] = True
+        return table, active
 
-    def _fetch(self, tensor) -> np.ndarray:
-        """``tensor`` on the host: one copy through a pinned buffer, one
+    def _fetch(self, *tensors) -> List[np.ndarray]:
+        """``tensors`` on the host: one copy through pinned buffers, one
         sync."""
-        return self._stage.wait(self._stage.fetch(tensor))[0]
+        return self._stage.wait(self._stage.fetch(*tensors))
 
-    def _draft_catchup(self, decoding, k) -> Dict[int, np.ndarray]:
-        """Advance the draft to every known token; → per-slot last logits
-        (the distribution d_1 is drawn from).  A fresh slot prefills its
-        window through the draft's chunks; the rest is fed in batched
-        windows of at most k known tokens (grouped by the shortest
-        remainder) through the draft's verify_chunk."""
+    def _spec_sampled(self, decoding) -> bool:
+        """The step's variant: sampled when any decoding request samples
+        (the host draws its proposals and coins), else all-greedy."""
+        return any(self.slot_req[s].temperature > 0.0 for s in decoding)
+
+    def _draft_catchup(self, decoding, k,
+                       sampled: bool) -> Dict[int, np.ndarray]:
+        """Advance the draft to every known token; the last logits propose
+        d_1.  A fresh slot prefills its window through the draft's chunks;
+        the rest is fed in batched windows of at most k known tokens
+        (grouped by the shortest remainder, the other rows masked) through
+        the ``("catchup", n)`` shapes, which leave each row's d_1 on the
+        device.  → per-slot last logits when ``sampled``, else {}."""
         for slot in decoding:
             if int(self._draft_pos[slot]) == 0:
                 window = self._slot_window[slot]
@@ -1000,6 +1226,7 @@ class ServingEngine:
                          "page_table": table, "slot": slot},
                         self.draft_cache, self.draft_cfg, pos0=c * size)
                 self._draft_pos[slot] = self.prefill_len
+        spec = self.spec_step
         last: Dict[int, np.ndarray] = {}
         known = {s: self._known_tokens(s) for s in decoding}
         while True:
@@ -1009,32 +1236,20 @@ class ServingEngine:
                 return last
             length = min(min(rem.values()), k)
             rows = sorted(rem)
-            logits = self._draft_window(rows, length, known)
+            tokens = np.zeros((self.slots, length), np.int64)
+            pos = np.zeros(self.slots, np.int64)
+            for s in rows:
+                dp = int(self._draft_pos[s])
+                tokens[s] = known[s][dp:dp + length]
+                pos[s] = dp
+            spec.stage("draft", pos, *self._rows(rows, draft=True))
+            spec.stage_tokens("catchup", tokens)
+            out = spec("catchup", length)
+            logits = self._fetch(out["logits"])[0] if sampled else None
             for s in rows:
                 self._draft_pos[s] += length
-                if int(self._draft_pos[s]) == len(known[s]):
+                if sampled and int(self._draft_pos[s]) == len(known[s]):
                     last[s] = logits[s]
-
-    def _draft_window(self, rows, length, known) -> np.ndarray:
-        """One batched draft verify_chunk feeding ``length`` known tokens
-        of ``rows`` (the other rows masked); → the last position's
-        logits (slots, V)."""
-        tokens = np.zeros((self.slots, length), np.int64)
-        pos = np.zeros(self.slots, np.int64)
-        table = np.full_like(self._draft_table, -1)
-        rv = np.zeros(self.slots, bool)
-        for s in rows:
-            dp = int(self._draft_pos[s])
-            tokens[s] = known[s][dp:dp + length]
-            pos[s] = dp
-            table[s] = self._draft_table[s]
-            rv[s] = True
-        batch = self._batch(tokens, pos, table,
-                            rv if self._draft_stateful else None)
-        logits, _ = model_lib.verify_chunk(self.draft_params, batch,
-                                           self.draft_cache, self.draft_cfg,
-                                           last_only=True)
-        return self._fetch(logits[:, 0])
 
     def _categorical(self, probs: np.ndarray) -> int:
         return int(torch.multinomial(torch.as_tensor(probs), 1,
@@ -1048,15 +1263,26 @@ class ServingEngine:
             return int(np.argmax(logits))
         return self._categorical(self._softmax(logits / req.temperature))
 
-    def _draft_propose(self, decoding, k):
+    def _draft_propose(self, decoding, k, sampled: bool):
         """k − 1 proposals per decoding slot.  → (proposals, the draft
         logits each was drawn from, the draft's rollback point: clones of
-        its ring and RG-LRU rows after the catch-up, or None);
-        ``_draft_pos`` stays at the catch-up position until the
-        acceptance is known."""
-        last = self._draft_catchup(decoding, k)
+        its ring and RG-LRU rows after the catch-up, or None).  All-greedy
+        steps leave the proposals on the device (``spec_step.props``: each
+        draft step's argmax chained into the next) and return None for
+        the first two; ``_draft_pos`` stays at the catch-up position until
+        the acceptance is known."""
+        spec = self.spec_step
+        last = self._draft_catchup(decoding, k, sampled)
         snapshot = (self._snapshot_rows(self.draft_cache, decoding)
                     if self._draft_stateful else None)
+        table, active = self._rows(decoding, draft=True)
+        base = np.where(active, self._draft_pos, 0).astype(np.int64)
+        if not sampled:
+            for i in range(k - 2):
+                spec.stage("draft", base + active * i, table, active)
+                spec("draft", 1)
+                spec.props[:, i + 1].copy_(spec.draft_tok[:, 0])
+            return None, None, snapshot
         proposals = {s: [] for s in decoding}
         dlogits = {s: [] for s in decoding}
         cur = last
@@ -1067,19 +1293,11 @@ class ServingEngine:
             if i == k - 2:
                 break
             tokens = np.zeros((self.slots, 1), np.int64)
-            pos = np.zeros(self.slots, np.int64)
-            table = np.full_like(self._draft_table, -1)
-            rv = np.zeros(self.slots, bool)
             for s in decoding:
                 tokens[s, 0] = proposals[s][-1]
-                pos[s] = int(self._draft_pos[s]) + i
-                table[s] = self._draft_table[s]
-                rv[s] = True
-            batch = self._batch(tokens, pos, table,
-                                rv if self._draft_stateful else None)
-            logits, _ = model_lib.decode(self.draft_params, batch,
-                                         self.draft_cache, self.draft_cfg)
-            logits = self._fetch(logits)
+            spec.stage("draft", base + active * i, table, active)
+            spec.stage_tokens("draft", tokens)
+            logits = self._fetch(spec("draft", 1)["logits"])[0]
             cur = {s: logits[s] for s in decoding}
         return proposals, dlogits, snapshot
 
@@ -1097,7 +1315,8 @@ class ServingEngine:
         (verify row i equals the decode step's bits).  Sampled: accept d
         with probability min(1, p_t(d)/p_d(d)), else draw from the
         normalised residual max(0, p_t − p_d): the emitted token's
-        marginal is p_t whatever the draft."""
+        marginal is p_t whatever the draft.  (All-greedy steps take the
+        greedy branch on the device: :func:`greedy_accepted`.)"""
         k = len(proposals) + 1
         emit: List[int] = []
         if req.temperature <= 0.0:
@@ -1125,37 +1344,37 @@ class ServingEngine:
         emit.append(self._categorical(self._softmax(logits[k - 1] / temp)))
         return emit, k - 1
 
-    def _verify(self, batch, *, last_only: bool = False):
-        """The target's verify_chunk over the engine's cache."""
-        logits, _ = model_lib.verify_chunk(self.params, batch, self.cache,
-                                           self.cfg, last_only=last_only)
-        return logits
-
     def _spec_step(self, decoding, k):
         """One draft-and-verify step of window k over the decoding slots
-        (``engine.py:1348-1455`` of the JAX package)."""
-        proposals, dlogits, draft_snap = self._draft_propose(decoding, k)
+        (``engine.py:1348-1455`` of the JAX package).  All-greedy steps
+        fetch once: the target's argmax tokens, its finite flags and each
+        row's accepted drafts."""
+        sampled = self._spec_sampled(decoding)
+        proposals, dlogits, draft_snap = self._draft_propose(decoding, k,
+                                                             sampled)
         target_snap = (self._snapshot_rows(self.cache, decoding)
                        if self._stateful_rows else None)
-        tokens = np.zeros((self.slots, k), np.int64)
+        tokens = np.zeros((self.slots, k if sampled else 1), np.int64)
         pos = np.zeros(self.slots, np.int64)
-        table = np.full((self.slots, self.sched.max_pages_per_seq), -1,
-                        np.int32)
-        rv = np.zeros(self.slots, bool)
         for s in decoding:
             tokens[s, 0] = self.slot_req[s].output[-1]  # at slot_pos
-            tokens[s, 1:] = proposals[s]
+            if sampled:
+                tokens[s, 1:] = proposals[s]
             pos[s] = self.slot_pos[s]
-            table[s] = self.sched.table_row(s)
-            rv[s] = True
-        batch = self._batch(tokens, pos, table,
-                            rv if self._stateful_rows else None)
-        logits = self._fetch(self._verify(batch))          # (slots, k, V)
+        spec = self.spec_step
+        spec.stage("target", pos, *self._rows(decoding, draft=False))
+        spec.stage_tokens("verify", tokens)
+        out = spec("verify", k)
+        if sampled:
+            logits, finite = self._fetch(out["logits"], out["finite"])
+        else:
+            argmax, finite, accepted = self._fetch(
+                out["argmax"], out["finite"], out["accepted"])
         self.spec_k_hist[k] = self.spec_k_hist.get(k, 0) + 1
         if self.quarantine:
             healthy = []
             for s in decoding:
-                if np.isfinite(logits[s]).all():
+                if finite[s].all():
                     healthy.append(s)
                 else:
                     req = self.slot_req[s]
@@ -1163,14 +1382,19 @@ class ServingEngine:
                         f"non-finite logits for rid={req.rid} at step "
                         f"{self.step_idx}", rid=req.rid))
             decoding = healthy
-        drafted = accepted = emitted = 0
+        drafted = accepted_total = emitted = 0
         partial: Dict[int, int] = {}       # slot -> accepted prefix + 1
         carried: Dict[int, int] = {}       # slot -> last emitted token
         for s in decoding:
             req = self.slot_req[s]
-            emit, j = self._accept(logits[s], proposals[s], dlogits[s], req)
+            if sampled:
+                emit, j = self._accept(logits[s], proposals[s], dlogits[s],
+                                       req)
+            else:
+                j = int(accepted[s])
+                emit = argmax[s, :j + 1].tolist()
             drafted += k - 1
-            accepted += j
+            accepted_total += j
             for t in emit:
                 req.output.append(int(t))
                 self.slot_pos[s] += 1
@@ -1207,7 +1431,8 @@ class ServingEngine:
         if partial and target_snap is not None:
             self._restore_rows(target_snap, list(partial))
             self._replay(partial)
-        self.sched.note_spec_step(len(decoding), drafted, accepted, emitted)
+        self.sched.note_spec_step(len(decoding), drafted, accepted_total,
+                                  emitted)
 
     def _snapshot_rows(self, cache, rows):
         """The rollback point of ``rows`` (JAX keeps the old cache,
@@ -1222,8 +1447,9 @@ class ServingEngine:
 
     def _restore_rows(self, snapshot, rows) -> None:
         """Put ``rows`` back from a snapshot, in place: the decode step's
-        CUDA graph holds these tensors' addresses (``engine.py:1457-1482``
-        of the JAX package rebinds the cache instead)."""
+        and the speculative step's CUDA graphs hold these tensors'
+        addresses (``engine.py:1457-1482`` of the JAX package rebinds the
+        cache instead)."""
         index, saved = snapshot
         dst = self._stage.to_device(np.asarray(rows, np.int64))
         src = self._stage.to_device(np.asarray([index[r] for r in rows],
@@ -1233,22 +1459,21 @@ class ServingEngine:
 
     def _replay(self, partial: Dict[int, int]):
         """Re-run the accepted prefix [e, d_1..d_j] of partially accepted
-        rows through the verify (grouped by length, the other rows
-        masked), so their ring and RG-LRU rows land where sequential
-        decode leaves them; the paged rewrites are idempotent."""
+        rows through the ``("replay", n)`` shapes (grouped by length, the
+        other rows masked), so their ring and RG-LRU rows land where
+        sequential decode leaves them; the paged rewrites are
+        idempotent."""
+        spec = self.spec_step
         for length in sorted(set(partial.values())):
             rows = [s for s, n_real in partial.items() if n_real == length]
             tokens = np.zeros((self.slots, length), np.int64)
             pos = np.zeros(self.slots, np.int64)
-            table = np.full((self.slots, self.sched.max_pages_per_seq), -1,
-                            np.int32)
-            rv = np.zeros(self.slots, bool)
             for s in rows:
                 tokens[s] = self.slot_req[s].output[-(length + 1):-1]
                 pos[s] = int(self.slot_pos[s]) - length
-                table[s] = self.sched.table_row(s)
-                rv[s] = True
-            self._verify(self._batch(tokens, pos, table, rv), last_only=True)
+            spec.stage("target", pos, *self._rows(rows, draft=False))
+            spec.stage_tokens("replay", tokens)
+            spec("replay", length)
 
     # -- request-level containment --------------------------------------------
     def _record_done(self, req: Request, status: str = "ok",

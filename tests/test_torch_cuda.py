@@ -1201,3 +1201,161 @@ def test_speculative_engine_on_the_full_width_engines(card, arch):
     for kernel in ("splitk_gemm", "grouped_gemm", "flash_decode_paged",
                    "flash_decode"):
         assert counts[kernel] == 0, kernel
+
+
+# -- the speculative step's graphs --------------------------------------------
+
+# (family, n) of every graph family of ``SpecStep`` at k = 3 and below.
+SPEC_SHAPES = [("verify", 3), ("catchup", 2), ("replay", 2), ("draft", 1)]
+
+
+def _live_spec_engine(card, arch):
+    """A reduced bf16 engine with ``spec_k=4`` on the card (its defaults:
+    the speculative step's shapes as CUDA graphs) that has served a few
+    steps: slots decoding at live positions, the draft caught up to some
+    of them."""
+    cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
+                              format_policy="bf16")
+    params = tmodel.init_params(cfg, seed=0, device=card)
+    eng = tengine.ServingEngine(params, cfg, slots=2, cache_len=64,
+                                prefill_len=32, page_size=8,
+                                prefill_chunk=16, spec_k=4, device=card)
+    assert eng.spec_step.graph
+    rng = np.random.default_rng(4)
+    for rid, n_tok in enumerate((20, 30)):
+        eng.submit(tengine.Request(
+            rid=rid, prompt=rng.integers(0, cfg.vocab, n_tok,
+                                         dtype=np.int32), max_tokens=40))
+    eng._admit()
+    for _ in range(5):
+        eng.step()
+    eng._flush_pipeline()
+    assert len(eng._decoding()) == 2 and eng.metrics()["spec_steps"] > 0
+    return eng
+
+
+def _stage_spec(eng, family, n, seed=0):
+    """Stage one call of (family, n) over both decoding slots at their
+    live positions, with random tokens."""
+    spec = eng.spec_step
+    rows = eng._decoding()
+    tokens = np.random.default_rng(seed).integers(
+        0, eng.cfg.vocab, (eng.slots, n)).astype(np.int64)
+    if family in ("verify", "replay"):
+        pos = eng.slot_pos.astype(np.int64)
+        spec.stage("target", pos, *eng._rows(rows, draft=False))
+    else:
+        pos = eng._draft_pos.astype(np.int64)
+        spec.stage("draft", pos, *eng._rows(rows, draft=True))
+    spec.stage_tokens(family, tokens)
+
+
+def _spec_state(eng):
+    """Every target and draft cache leaf and the speculative step's
+    proposal and token buffers (what a call writes), in a fixed order."""
+    spec = eng.spec_step
+    return ([leaf for cache in (eng.cache, eng.draft_cache)
+             for layer in cache["layers"] for leaf in layer.values()]
+            + [spec.last, spec.props, spec.draft_tok])
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b"])
+def test_spec_graph_replays_equal_the_eager_calls(card, arch):
+    """From one live state, each shape of the speculative step called
+    eagerly and replayed: every output (logits, argmax, finite flags,
+    accepted drafts) and every cache leaf and proposal buffer equal bit
+    for bit."""
+    eng = _live_spec_engine(card, arch)
+    spec = eng.spec_step
+    for family, n in SPEC_SHAPES:
+        _stage_spec(eng, family, n)
+        if (family, n) not in spec.graphs:
+            spec.capture(family, n)
+        start = [x.clone() for x in _spec_state(eng)]
+        eager = {k: v.clone() for k, v in spec.eager(family, n).items()}
+        after = [x.clone() for x in _spec_state(eng)]
+        for dst, src in zip(_spec_state(eng), start):
+            dst.copy_(src)
+        replayed = spec(family, n)
+        torch.cuda.synchronize()
+        assert sorted(replayed) == sorted(eager), family
+        for name in eager:
+            assert torch.equal(replayed[name], eager[name]), (family, name)
+        for i, (a, b) in enumerate(zip(after, _spec_state(eng))):
+            assert torch.equal(a, b), (family, i)
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b"])
+def test_spec_graph_capture_leaves_the_caches_unchanged(card, arch):
+    """The all-inactive warm-up and the capture of every shape change no
+    target or draft KV page but the null page 0, no ring or RG-LRU row,
+    no proposal buffer and no staged input."""
+    eng = _live_spec_engine(card, arch)
+    spec = eng.spec_step
+    spec.graphs.clear()
+    for seed, (family, n) in enumerate(SPEC_SHAPES):
+        _stage_spec(eng, family, n, seed)
+    before = [x.clone() for x in _spec_state(eng)]
+    staged = [x.clone() for side in spec.inputs.values()
+              for x in side.values()]
+    for family, n in SPEC_SHAPES:
+        spec.capture(family, n)
+    torch.cuda.synchronize()
+    names = [name for cache in (eng.cache, eng.draft_cache)
+             for layer in cache["layers"] for name in layer]
+    names += ["last", "props", "draft_tok"]
+    for name, old, new in zip(names, before, _spec_state(eng)):
+        if name.endswith(("_pages", "_scale")):
+            old, new = old[1:], new[1:]
+        assert torch.equal(old, new), name
+    for old, new in zip(staged, [x for side in spec.inputs.values()
+                                 for x in side.values()]):
+        assert torch.equal(old, new)
+
+
+def test_spec_graph_replay_counts_the_captured_launches(card):
+    """A replay adds what its capture recorded: the eager call's launches
+    per kernel, once per replay; the capture itself counts only its
+    warm-up."""
+    eng = _live_spec_engine(card, "recurrentgemma_9b")
+    spec = eng.spec_step
+    spec.graphs.clear()
+    _stage_spec(eng, "verify", 3)
+    build.reset_launch_counts()
+    spec.eager("verify", 3)
+    eager = {k: v for k, v in build.launch_counts().items() if v}
+    assert eager.get("flash_decode_mma") or eager.get("flash_decode")
+    build.reset_launch_counts()
+    spec.capture("verify", 3)
+    assert {k: v for k, v in build.launch_counts().items() if v} == eager
+    assert spec.graphs[("verify", 3)][2] == eager
+    build.reset_launch_counts()
+    replays = spec.replays["verify"]
+    for _ in range(3):
+        spec("verify", 3)
+    assert {k: v for k, v in build.launch_counts().items() if v} == {
+        k: 3 * v for k, v in eager.items()}
+    assert spec.replays["verify"] == replays + 3
+    assert spec.captures["verify"] >= 1
+
+
+def test_spec_graph_capture_failure_raises(card, monkeypatch):
+    """A verify window that syncs inside the capture cannot be captured:
+    the engine's step raises, never falls back to the eager call, and
+    registers no graph for the shape."""
+    eng = _live_spec_engine(card, "gemma_2b")
+    spec = eng.spec_step
+    spec.graphs.clear()
+    real = tmodel.verify_chunk
+
+    def syncing(*args, **kw):
+        out = real(*args, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            out[0].sum().item()
+        return out
+
+    monkeypatch.setattr("repro_torch.models.model.verify_chunk", syncing)
+    with pytest.raises(RuntimeError):
+        eng.step()
+    assert not any(family in ("verify", "catchup", "replay")
+                   for family, _ in spec.graphs)

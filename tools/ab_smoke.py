@@ -46,15 +46,25 @@ def main(paths) -> int:
     for path, run in zip(paths, runs):
         for key, s in run.get("speculative", {}).items():
             prof = s["profile"]
+            if "speedup_vs_vanilla" in s:
+                print(f"{path} [{key}] speedup_vs_vanilla "
+                      f"{s['speedup_vs_vanilla']:.4f}, tokens/s "
+                      f"{s['tokens_per_s']}, accepted_per_step "
+                      f"{s['accepted_per_step']:.3f}")
+                continue
+            # Runs before the speculative graphs profiled the eager draft
+            # step only.
+            window = prof.get("verify_replay", prof["verify_window"])
+            draft = prof.get("draft_replay", prof.get("draft_decode_step"))
             print(f"{path} [{key}] acceptance {s['acceptance_rate']:.4f}, "
                   f"spec_k_mean {s['spec_k_mean']:.3f}, "
                   f"{s['decode_tokens_per_s']:.1f} decode tokens/s, peak "
                   f"{s['peak_memory_gib']:.2f} GiB; verify window "
-                  f"{prof['verify_window']['wall_ms']:.3f} ms wall / "
-                  f"{prof['verify_window']['device_busy_ms']:.3f} ms device;"
+                  f"{window['wall_ms']:.3f} ms wall / "
+                  f"{window['device_busy_ms']:.3f} ms device;"
                   f" draft decode step "
-                  f"{prof['draft_decode_step']['wall_ms']:.3f} / "
-                  f"{prof['draft_decode_step']['device_busy_ms']:.3f} ms")
+                  f"{draft['wall_ms']:.3f} / "
+                  f"{draft['device_busy_ms']:.3f} ms")
     return 0 if same else 1
 
 
