@@ -26,7 +26,10 @@ Phases (any failure raises and the script exits non-zero):
    at the exact shapes the serving phase launches (bf16; f32 for B7;
    gemma_2b's and recurrentgemma_9b's prefill and decode projections for
    B1, B2 and B8 stage 1 and decode q/k/v groups for B3, each printed with
-   its plan's engine and tile; the old engines' own rows at the fp32
+   its plan's engine and tile; gemma2_27b's prefill gate on B1, decode o,
+   gate, up and down on B2, decode q/k/v group on B3, and its attention
+   with softcap 50 and the query scale 144^-0.5 on B4, B5 and B6 at
+   G = 2, D = 128; the old engines' own rows at the fp32
    shapes phase 3 gives them, or at the prefill gate+up group) and at
    small ragged shapes in every mode each kernel takes.  Each prints its
    max error beside the tolerance; the main-path shapes also print the
@@ -34,7 +37,9 @@ Phases (any failure raises and the script exits non-zero):
    peak, bytes / 3.35 TB/s)), the plain version's time and the time of one
    library call for the same function (``torch.matmul``, ``torch.bmm`` on
    the stacked operands, ``F.gelu`` or ``F.scaled_dot_product_attention``;
-   none for B7), timed only as a yardstick; the decode rows of B2, B3, B4
+   none for B7, and none for a softcapped attention row, whose SDPA time
+   without the softcap is kept apart), timed only as a yardstick; the
+   decode rows of B2, B3, B4
    and B6 also with the L2 cache cold and at every cluster size, B7's
    staged engine cold too, and B8's
    pass at three shapes (the prefill gate's gelu, the same with beta*C +
@@ -47,11 +52,15 @@ Phases (any failure raises and the script exits non-zero):
    (B1's tile loop: fp32 GEMMs whose grid fills the card), and
    recurrentgemma_9b.reduced() in the default configuration (prompts
    longer than its 16-slot ring, chunks of 8; and with an RG-LRU width of
-   126, which B7 runs on its direct engine): first-token logits within
+   126, which B7 runs on its direct engine), and gemma2_27b.reduced()
+   (local and global layers, softcaps, post-norms; prompts longer than
+   its 16-slot window): first-token logits within
    1e-3, identical greedy token streams from the card's engine in its
    defaults (async, depth 2, the decode step replayed as a CUDA graph)
    and the CPU's synchronous eager engine, and the same with
-   ``spec_k=4`` (speculative decoding; equal to the vanilla streams too).
+   ``spec_k=4`` (speculative decoding; equal to the vanilla streams too),
+   plus reduced gemma_2b at 5 slots x ``spec_k=4``: verify windows of 20
+   rows, run in row chunks on the decode step's plans.
 4. Full-width serving (``CONFIGS``, ``WORKLOADS``) in bf16 with seeded
    random weights, 4 slots, 16-token pages, 512-token prefill chunks, 6
    requests × 24 greedy tokens: gemma_2b (18 layers, d_model 2048, vocab
@@ -59,7 +68,10 @@ Phases (any failure raises and the script exits non-zero):
    three configurations — the defaults, the rigid ``amx`` policy and
    slice 1's eager path — then recurrentgemma_9b (38 layers, d_model 4096;
    2560-token prompts, so its 2048-slot rings wrap in prefill and decode)
-   in the defaults.  Each configuration is served twice: (a) with
+   and gemma2_27b (46 layers alternating local and global, d_model 4608,
+   GQA 32/16, softcaps 50 and 30, post-norms; weights built in bf16;
+   4608-token prompts, so its 4096-slot rings wrap in prefill and decode)
+   in the defaults, each engine freed before the next is built.  Each configuration is served twice: (a) with
    ``async_steps=False`` and the eager decode step, synchronised around
    each prefill chunk and decode launch (the earlier slices' numbers),
    and (b) in the engine's defaults (async, depth 2, the decode step
@@ -82,7 +94,9 @@ Phases (any failure raises and the script exits non-zero):
    planned off B1 or B8), and it prints (a)'s decode ms per step and
    prefill tokens/s, (b)'s run wall time, decode tokens/s over the run
    and unsynchronised wall ms of the steps that ran no prefill chunk,
-   peak memory, each compiled program's grouping decision and plans, and
+   peak memory beside the reckoning of what the engine holds (weights,
+   stacked decode q/k/v, f32 LM head, paged KV, rings, RG-LRU rows), each
+   compiled program's grouping decision and plans, and
    a profile of a decode step (eager and replayed) and a prefill chunk
    (idle share, launches per call).
 
@@ -92,7 +106,8 @@ Phases (any failure raises and the script exits non-zero):
    as CUDA graphs (``SpecStep``) — gemma_2b (default configuration) with
    a one-layer draft and with an 18-layer one (the whole target),
    recurrentgemma_9b with a one-period draft (rglru, rglru, local), all
-   sharing the target's weights; then gemma_2b and recurrentgemma_9b each
+   sharing the target's weights, and gemma2_27b with a one-period draft
+   (a local and a global layer); then gemma_2b and recurrentgemma_9b each
    with a one-period draft of weights of its own (``draft_config`` +
    ``draft_params``), which is rejected part of the time.  Each run's
    greedy tokens must equal phase 4's (b) run request for request, the
@@ -101,10 +116,12 @@ Phases (any failure raises and the script exits non-zero):
    lie strictly between 0 and 1 (with replay windows for recurrentgemma's
    ring and RG-LRU rows), the tile loops' and SIMT kernels' counters stay
    0, every step's verify window is a replay and each shape is captured
-   once, and every target window, replays included, launches B4 (gemma)
-   or B6 (recurrentgemma) once per position and attention layer, and B2
-   and B3 as often as a decode step (recurrentgemma: 256 and 12; its
-   projections run once over the window's rows).
+   once, and every target window, replays included, launches B4 once per
+   position and global layer and B6 once per position and local layer,
+   and B2 and B3 once per GEMM and row chunk (``window_launches``: as
+   often as a decode step where a window's rows fit one launch, as at
+   gemma_2b and recurrentgemma_9b; gemma2_27b's 16-row windows run its
+   gate and up in chunks of 14 rows and its down in chunks of 7).
    It prints each speculative step (host wall ms, the CUDA-event spans
    of its draft and target windows, its launches), the captures and
    replays per shape family, the acceptance rate, the mean window, decode
@@ -128,6 +145,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -231,6 +249,43 @@ def check(name, got, want, tol, rel=True):
         raise AssertionError(f"{name}: max_abs_err {err:.3e} over tolerance "
                              f"{tol:g}")
     return err
+
+
+# gemma2_27b's attention: softcap 50 on the logits, query scale
+# (d_model / n_heads)^-0.5 = 144^-0.5 (not head_dim^-0.5).
+GEMMA2_ATTN = dict(softcap=50.0, scale=(4608 / 32) ** -0.5)
+
+
+def library_times(lib, kw, cold=True):
+    """The library yardstick of an attention row: ``library_ms`` (and the
+    L2-cold time) of ``F.scaled_dot_product_attention``, which computes
+    the same function unless the row has a softcap, which it cannot
+    apply: then ``library_ms`` is None and its time without the softcap
+    is kept apart (``sdpa_without_softcap_ms``)."""
+    times = {"library_ms": time_ms(lib)}
+    if cold:
+        times["library_cold_ms"] = time_ms_cold(lib)
+    if kw.get("softcap") is not None:
+        times = {**{k: None for k in times},
+                 **{k.replace("library", "sdpa_without_softcap"): v
+                    for k, v in times.items()}}
+    return times
+
+
+def log_attention_row(row):
+    def ms(key):
+        return (f"{row[key]:.4f} ms" if row.get(key) is not None
+                else "none")
+    lib = ("sdpa" if "sdpa_without_softcap_ms" not in row
+           else "sdpa (no softcap)")
+    key = "library" if lib == "sdpa" else "sdpa_without_softcap"
+    log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, {lib} "
+        f"{ms(key + '_ms')}"
+        + (f"; L2 cold {row['cold_ms']:.4f} ms, {lib} "
+           f"{ms(key + '_cold_ms')}" if "cold_ms" in row else "")
+        + (f"; by kv split {row.get('ms_by_split') or row['ms_by_kv_split']}"
+           f" (planned {row['kv_split']})" if "kv_split" in row else ""))
 
 
 # -- phase 2: kernels against their plain versions -----------------------------
@@ -354,7 +409,7 @@ def gemm_phase(dev, rows):
                 "splitk_gemm_cluster: two calls differ")
 
     def main_path(label, m, n, k, act, dt=torch.bfloat16, tol=2e-2,
-                  fmt="bf16"):
+                  fmt="bf16", cold=False):
         epi = Epilogue(activation=act)
         sig = GemmSignature.make(m, n, k, dt, dt, epi, fmt=fmt)
         plan = cache.plan(sig)
@@ -404,10 +459,11 @@ def gemm_phase(dev, rows):
                "bound_ms": bound_ms(flops, nbytes, peak),
                "bound_by": bound_by(flops, nbytes, peak),
                "library_ms": time_ms(lib), **extra}
-        if m <= 16 and kern != "mte_gemm":
-            # A decode GEMM: with the weight cold in L2, as a decode step
-            # finds it, and (cluster engine) at every power-of-two split,
-            # each held to the plain version at its own split.
+        if (m <= 16 and kern != "mte_gemm") or cold:
+            # A decode GEMM (or a row asked cold): with the weight cold in
+            # L2, as a decode step finds it, and (cluster engine) at every
+            # power-of-two split, each held to the plain version at its
+            # own split.
             row["cold_ms"] = time_ms_cold(run)
             row["library_cold_ms"] = time_ms_cold(lib)
         if engine == "cluster":
@@ -455,6 +511,15 @@ def gemm_phase(dev, rows):
         main_path(label, 512, n, k, act)
     # recurrentgemma_9b's decode GEMMs on B2 (its k/v run in B3's group).
     for label, n, k, act in rg[:1] + rg[2:]:
+        main_path(label, 4, n, k, act)
+    # gemma2_27b (d 4608, 32 heads x 128 = 4096, d_ff 36864): the prefill
+    # chunk's gate on B1 and the decode step's o, gate, up and down on B2
+    # (its q/k/v run in B3's group).
+    main_path("g2 gate", 512, 36864, 4608, "gelu", cold=True)
+    for label, n, k, act in [("g2 o", 4608, 4096, "none"),
+                             ("g2 gate", 36864, 4608, "gelu"),
+                             ("g2 up", 36864, 4608, "none"),
+                             ("g2 down", 4608, 36864, "none")]:
         main_path(label, 4, n, k, act)
     # The tile loops' rows, at the shapes phase 3's reduced fp32 gemma_2b
     # (d_model 128, d_ff 256) gives them: B1's gate in the 4096-token
@@ -598,6 +663,8 @@ def grouped_phase(dev, rows):
     main_path("qkv decode 3x4x2048x2048", 3, 4, 2048, (2048, 256, 256),
               torch.bfloat16)
     main_path("qkv decode 3x4x4096x4096", 3, 4, 4096, (4096, 256, 256),
+              torch.bfloat16)
+    main_path("qkv decode 3x4x4608x4096", 3, 4, 4608, (4096, 2048, 2048),
               torch.bfloat16)
     main_path("gate+up prefill 2x512x2048x16384", 2, 512, 2048,
               (16384, 16384), torch.float32)
@@ -828,15 +895,15 @@ def decode_phase(dev, rows):
                              "shape": shape, "max_abs_err": err,
                              "tol": 1e-2})
 
-    def main_path(label, b, h, hkv, d, page, lens, dtype, tol):
+    def main_path(label, b, h, hkv, d, page, lens, dtype, tol, **kw):
         q, kp, vp, table, lens_t = paged_inputs(
             dev, b=b, h=h, hkv=hkv, d=d, page=page, lens=lens, dtype=dtype,
             gen=gen)
         name = kernel_of(q, kp)
         run = lambda: flash_decode_paged_kernel(  # noqa: E731
-            q, kp, vp, table, lens_t)
+            q, kp, vp, table, lens_t, **kw)
         plain = lambda: flash_decode_paged_torch(  # noqa: E731
-            q, kp, vp, table, lens_t)
+            q, kp, vp, table, lens_t, **kw)
         want = plain()
         got = run()
         err = check(f"{name} main-path {label}", got, want, tol)
@@ -850,7 +917,7 @@ def decode_phase(dev, rows):
         kx, vx = ((x.expand(b, h, -1, d) if hkv == 1
                    else x.repeat_interleave(h // hkv, 1)) for x in (kg, vg))
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qs, kx, vx, attn_mask=mask)
+            qs, kx, vx, attn_mask=mask, scale=kw.get("scale"))
         live = sum(lens)
         elt = q.element_size()
         flops = 4.0 * live * h * d
@@ -861,9 +928,8 @@ def decode_phase(dev, rows):
                "tol": tol, "ms": time_ms(run), "plain_ms": time_ms(plain),
                "bound_ms": bound_ms(flops, nbytes, peak),
                "bound_by": bound_by(flops, nbytes, peak),
-               "library_ms": time_ms(lib),
                "cold_ms": time_ms_cold(run),
-               "library_cold_ms": time_ms_cold(lib)}
+               **library_times(lib, kw)}
         if name == "flash_decode_paged_mma":
             require(torch.equal(got, run()), f"{name}: two calls differ")
             row["kv_split"] = decode_kv_split(
@@ -872,25 +938,25 @@ def decode_phase(dev, rows):
             row["ms_by_split"] = {}
             for s in (1, 2, 4, 8):
                 pinned = lambda: flash_decode_paged_kernel(  # noqa: E731
-                    q, kp, vp, table, lens_t, kv_split=s)
+                    q, kp, vp, table, lens_t, kv_split=s, **kw)
                 err = max(err, check(f"{name} main-path {label} kv_split="
                                      f"{s}", pinned(), want, tol))
                 row["ms_by_split"][s] = time_ms(pinned)
             row["max_abs_err"] = err
         rows.append(row)
-        log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-            f"sdpa {row['library_ms']:.4f} ms; L2 cold {row['cold_ms']:.4f}"
-            f" ms, sdpa {row['library_cold_ms']:.4f} ms"
-            + (f"; by kv split {row['ms_by_split']} (planned "
-               f"{row['kv_split']})" if "ms_by_split" in row else ""))
+        log_attention_row(row)
 
     # The serving run's decode: 4 slots, 8 query heads on 1 kv head,
     # D = 256, 16-token pages, ~1024-1048 cached tokens per slot (the mma
-    # engine); the reduced fp32 engine's: 2 slots, 4 heads on 1 kv head,
+    # engine); gemma2_27b's global layers: 32 query heads on 16 kv heads
+    # (G = 2), D = 128, ~4620 tokens, softcap 50 and the query scale
+    # 144^-0.5; the reduced fp32 engine's: 2 slots, 4 heads on 1 kv head,
     # D = 32, 8-token pages (the SIMT kernel).
     main_path("4 slots x 8 heads x 256, ~1035 tokens", 4, 8, 1, 256, 16,
               [1030, 1041, 1024, 1047], torch.bfloat16, 1e-2)
+    main_path("g2 4 slots x 32/16 heads x 128, ~4620 tokens, softcap 50",
+              4, 32, 16, 128, 16, [4615, 4626, 4609, 4632], torch.bfloat16,
+              1e-2, **GEMMA2_ATTN)
     main_path("fp32 2 slots x 4 heads x 32, 40 tokens", 2, 4, 1, 32, 8,
               [37, 43], torch.float32, 1e-5)
 
@@ -943,19 +1009,13 @@ def attention_phase(dev, rows):
             rows.append({"kernel": kernel, "shape": f"{label} {name}",
                          "max_abs_err": err, "tol": tol})
 
-    # The serving run's prefill chunks: 512 queries x 8 heads against the
-    # 512-token chunk itself and against 512 prefix + 512 chunk tokens, on
-    # the wgmma engine (bf16); the SIMT kernel at the second shape in fp32.
-    for skv, dtype in ((512, torch.bfloat16), (1024, torch.bfloat16),
-                       (1024, torch.float32)):
-        b, h, hkv, sq, d = 1, 8, 1, 512, 256
+    def main_path(shape, b, h, hkv, sq, skv, d, dtype, cold=False, **kw):
         q, k, v = qkv(b, h, hkv, sq, skv, d, dtype)
         simt = attention_engine(dtype, d) == "simt"
         kernel = "flash_attention" if simt else "flash_attention_wgmma"
-        shape = f"{'fp32 ' if simt else ''}{sq}x{skv} H=8 D=256"
         tol = 1e-5 if simt else 1e-2
-        run = lambda: flash_attention_kernel(q, k, v)  # noqa: E731
-        plain = lambda: flash_attention_torch(q, k, v)  # noqa: E731
+        run = lambda: flash_attention_kernel(q, k, v, **kw)  # noqa: E731
+        plain = lambda: flash_attention_torch(q, k, v, **kw)  # noqa: E731
         want = plain()
         err = check(f"{kernel} main-path {shape}", run(), want, tol)
         by_split = {}
@@ -964,16 +1024,18 @@ def attention_phase(dev, rows):
             # plain version, each timed.
             chosen = attention_kv_split(b * h * (sq // 64), skv // 64)
             for split in (chosen, 3 - chosen):
-                got = flash_attention_kernel(q, k, v, kv_split=split)
+                got = flash_attention_kernel(q, k, v, kv_split=split, **kw)
                 err = max(err, check(f"{kernel} main-path {shape} kv_split="
                                      f"{split}", got, want, tol))
                 by_split[split] = time_ms(
-                    lambda: flash_attention_kernel(q, k, v, kv_split=split))
+                    lambda: flash_attention_kernel(q, k, v, kv_split=split,
+                                                   **kw))
         qp = torch.arange(sq, device=dev)[:, None] + (skv - sq)
         mask = torch.arange(skv, device=dev)[None] <= qp
-        kx, vx = k.expand(b, h, skv, d), v.expand(b, h, skv, d)
+        kx, vx = ((x.expand(b, h, skv, d) if hkv == 1
+                   else x.repeat_interleave(h // hkv, 1)) for x in (k, v))
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q, kx, vx, attn_mask=mask)
+            q, kx, vx, attn_mask=mask, scale=kw.get("scale"))
         visible = sq * (skv - sq) + sq * (sq + 1) // 2
         flops = 4.0 * b * h * d * visible
         elt = q.element_size()
@@ -983,16 +1045,28 @@ def attention_phase(dev, rows):
                "tol": tol, "ms": time_ms(run), "plain_ms": time_ms(plain),
                "bound_ms": bound_ms(flops, nbytes, peak),
                "bound_by": bound_by(flops, nbytes, peak),
-               "library_ms": time_ms(lib)}
+               **library_times(lib, kw, cold=cold)}
+        if cold:
+            row["cold_ms"] = time_ms_cold(run)
         if by_split:
             row["kv_split"] = chosen
             row["ms_by_kv_split"] = by_split
         rows.append(row)
-        log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-            f"sdpa {row['library_ms']:.4f} ms"
-            + (f"; by kv split {by_split} (planned {chosen})"
-               if by_split else ""))
+        log_attention_row(row)
+
+    # The serving run's prefill chunks: 512 queries x 8 heads against the
+    # 512-token chunk itself and against 512 prefix + 512 chunk tokens, on
+    # the wgmma engine (bf16); the SIMT kernel at the second shape in fp32;
+    # gemma2_27b's global layers at the chunk past its 4096-token window:
+    # 512 queries x 32 heads on 16 kv heads, D = 128, against 4608 tokens,
+    # softcap 50 and the query scale 144^-0.5.
+    for skv, dtype in ((512, torch.bfloat16), (1024, torch.bfloat16),
+                       (1024, torch.float32)):
+        fp32 = "fp32 " if dtype == torch.float32 else ""
+        main_path(f"{fp32}512x{skv} H=8 D=256", 1, 8, 1, 512, skv, 256,
+                  dtype)
+    main_path("g2 512x4608 H=32/16 D=128 softcap 50", 1, 32, 16, 512, 4608,
+              128, torch.bfloat16, cold=True, **GEMMA2_ATTN)
 
 
 def ring_decode_phase(dev, rows):
@@ -1060,11 +1134,12 @@ def ring_decode_phase(dev, rows):
             small(f"contiguous S=37 G={g} D={d}", torch.bfloat16, g, d,
                   1e-2, strided=False)
 
-    def main_path(label, b, h, hkv, d, length, q_pos, dtype, tol, window):
+    def main_path(label, b, h, hkv, d, length, q_pos, dtype, tol, window,
+                  **extra):
         k, v, kvp, qp = ring(b, length, hkv, d, q_pos, dtype)
         q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
         name = kernel_of(q, k, v)
-        kw = dict(window=window)
+        kw = dict(window=window, **extra)
         run = lambda: flash_decode_kernel(  # noqa: E731
             q, k, v, kvp, qp, **kw)
         plain = lambda: flash_decode_torch(  # noqa: E731
@@ -1079,7 +1154,7 @@ def ring_decode_phase(dev, rows):
         kx, vx = ((x.expand(b, h, length, d) if hkv == 1
                    else x.repeat_interleave(h // hkv, 1)) for x in (k, v))
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qs, kx, vx, attn_mask=mask)
+            qs, kx, vx, attn_mask=mask, scale=kw.get("scale"))
         visible = int(mask.sum())
         elt = q.element_size()
         flops = 4.0 * visible * h * d
@@ -1090,9 +1165,8 @@ def ring_decode_phase(dev, rows):
                "tol": tol, "ms": time_ms(run), "plain_ms": time_ms(plain),
                "bound_ms": bound_ms(flops, nbytes, peak),
                "bound_by": bound_by(flops, nbytes, peak),
-               "library_ms": time_ms(lib),
                "cold_ms": time_ms_cold(run),
-               "library_cold_ms": time_ms_cold(lib)}
+               **library_times(lib, kw)}
         if name == "flash_decode_mma":
             require(torch.equal(got, run()), f"{name}: two calls differ")
             row["kv_split"] = decode_kv_split(
@@ -1107,12 +1181,7 @@ def ring_decode_phase(dev, rows):
                 row["ms_by_split"][s] = time_ms(pinned)
             row["max_abs_err"] = err
         rows.append(row)
-        log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-            f"sdpa {row['library_ms']:.4f} ms; L2 cold {row['cold_ms']:.4f}"
-            f" ms, sdpa {row['library_cold_ms']:.4f} ms"
-            + (f"; by kv split {row['ms_by_split']} (planned "
-               f"{row['kv_split']})" if "ms_by_split" in row else ""))
+        log_attention_row(row)
         return name
 
     # The serving run's decode of a local layer, positions past the wrap
@@ -1122,6 +1191,10 @@ def ring_decode_phase(dev, rows):
                       [2570, 2581, 2564, 2587], torch.bfloat16, 1e-2, 2048)
             == "flash_decode_mma",
             "the serving ring's decode must run on B6's mma engine")
+    require(main_path("g2 ring 4x32/16x128 L=4096 softcap 50", 4, 32, 16,
+                      128, 4096, [4614, 4625, 4608, 4631], torch.bfloat16,
+                      1e-2, 4096, **GEMMA2_ATTN) == "flash_decode_mma",
+            "gemma2_27b's ring decode must run on B6's mma engine")
     require(main_path("fp32 ring 2x4x32 L=16", 2, 4, 1, 32, 16, [37, 20],
                       torch.float32, 1e-5, 16) == "flash_decode",
             "fp32 ring decode must run on B6's SIMT kernel")
@@ -1221,6 +1294,7 @@ CONFIGS = {
     "amx": ("gemma_2b", {"gemm_policy": "amx"}),
     "eager": ("gemma_2b", {"use_graph": False}),
     "recurrentgemma": ("recurrentgemma_9b", {"param_dtype": "bfloat16"}),
+    "gemma2": ("gemma2_27b", {"param_dtype": "bfloat16"}),
 }
 # Kernels each configuration's main path must launch.
 PATH_KERNELS = {
@@ -1233,6 +1307,9 @@ PATH_KERNELS = {
     "recurrentgemma": ("mte_gemm_wgmma", "splitk_gemm_cluster",
                        "grouped_gemm_splitk", "flash_decode_mma",
                        "rglru_scan_staged"),
+    "gemma2": ("mte_gemm_wgmma", "splitk_gemm_cluster", "grouped_gemm_splitk",
+               "flash_decode_paged_mma", "flash_decode_mma",
+               "flash_attention_wgmma"),
 }
 # Counters that must stay 0 at full width: every bf16 B1 launch (all of
 # them prefill projections) and every bf16 B8 stage-1 launch runs on the
@@ -1249,29 +1326,91 @@ NOT_ON_PATH = {
               "flash_attention"),
     "recurrentgemma": ("mte_gemm", "splitk_gemm", "grouped_gemm",
                        "flash_decode", "rglru_scan"),
+    "gemma2": ("mte_gemm", "splitk_gemm", "grouped_gemm",
+               "flash_decode_paged", "flash_decode", "flash_attention"),
 }
 # Launches of the new engines per profiled decode step: gemma_2b's 18
 # layers run B2 on o, gate, up and down (and on q, k, v on the eager path)
 # and B4 once; recurrentgemma_9b's decode GEMMs make 256 B2 launches and
-# its 12 local layers 12 B6 launches.
+# its 12 local layers 12 B6 launches; gemma2_27b's 46 layers run B2 on o,
+# gate, up and down, and its 23 global layers B4 once each and its 23
+# local layers B6 once each.
 DECODE_STEP_LAUNCHES = {
     "default": {"splitk_gemm_cluster": 72, "flash_decode_paged_mma": 18},
     "amx": {"flash_decode_paged_mma": 18},
     "eager": {"splitk_gemm_cluster": 126, "flash_decode_paged_mma": 18},
     "recurrentgemma": {"splitk_gemm_cluster": 256, "flash_decode_mma": 12},
+    "gemma2": {"splitk_gemm_cluster": 184, "flash_decode_paged_mma": 23,
+               "flash_decode_mma": 23},
 }
 # Phase 4's workload per arch: 4 slots, 16-token pages, 512-token prefill
 # chunks, 6 requests x 24 greedy tokens.  gemma_2b: 1024-token prompts, two
 # sharing their first chunk (the prefix cache).  recurrentgemma_9b:
 # 2560-token prompts, so the 2048-slot ring wraps in prefill (the chunk
-# at 2048) and in decode; no prefix cache (stateful layers).  ``decode``
-# and ``pos0`` place the profiled decode step and prefill chunk.
+# at 2048) and in decode; no prefix cache (stateful layers).
+# gemma2_27b: 4608-token prompts, so its 4096-slot rings wrap in prefill
+# (the chunk at 4096) and in decode while its global layers see every
+# token; no prefix cache (the rings).  ``decode`` and ``pos0`` place the
+# profiled decode step and prefill chunk.
 WORKLOADS = {
     "gemma_2b": dict(prefill_len=1024, cache_len=1088, shared=512,
                      decode=[1030, 1041, 1024, 1047], pos0=512),
     "recurrentgemma_9b": dict(prefill_len=2560, cache_len=2592, shared=0,
                               decode=[2570, 2581, 2564, 2587], pos0=2048),
+    "gemma2_27b": dict(prefill_len=4608, cache_len=4672, shared=0,
+                       decode=[4614, 4625, 4608, 4631], pos0=4096),
 }
+
+
+def free_card():
+    """Give back what a dropped engine held (its weights, caches and
+    graph pools) before the next one is built: no two full-width trees
+    are ever alive at once."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def memory_reckoning(eng):
+    """The bytes the engine keeps on the card, by item (each tensor once):
+    its weights at the width it serves them, the stacked decode q/k/v
+    (``engine._stack_decode_qkv``), the LM head's f32 copy
+    (``serving_params``), the global layers' paged KV, the local layers'
+    rings, the RG-LRU rows and the draft's cache; in GB (1e9 bytes)."""
+    import torch
+    seen = set()
+
+    def size(tree):
+        if isinstance(tree, torch.Tensor):
+            key = (tree.data_ptr(), tree.numel())
+            if key in seen:
+                return 0
+            seen.add(key)
+            return tree.numel() * tree.element_size()
+        if isinstance(tree, dict):
+            return sum(size(v) for v in tree.values())
+        if isinstance(tree, (list, tuple)):
+            return sum(size(v) for v in tree)
+        return 0
+
+    params = eng.params
+    items = {
+        "lm_head_f32": size(params["embedding"]["unembed"]),
+        "decode_qkv_stack": size([lp["mixer"].get("qkv")
+                                  for lp in params["layers"]]),
+        "weights": size(params),
+    }
+    kinds = [mixer for mixer, _ in eng.cfg.layer_kinds]
+    layers = eng.cache["layers"]
+    for item, kind in (("paged_kv", "attn"), ("rings", "local"),
+                       ("rglru_state", "rglru")):
+        items[item] = size([c for c, m in zip(layers, kinds) if m == kind])
+    if getattr(eng, "draft_cache", None) is not None:
+        items["draft_cache"] = size(eng.draft_cache)
+    gb = {k: v / 1e9 for k, v in items.items() if v}
+    gb["total"] = sum(gb.values())
+    gb["total_gib"] = sum(items.values()) / 2**30
+    return gb
 
 
 def reset_planning():
@@ -1375,6 +1514,16 @@ def reduced_phase(dev):
             path_counts["reduced-spec"] = reduced_spec_check(
                 dev, f"[{name}]", cfg, params_cpu, params_gpu, prompts, kw,
                 outs["cpu"])
+            # 5 slots x spec_k=4: verify windows of 20 rows, past the 16
+            # one launch of B2's and B3's split-K engines takes, run in
+            # row chunks on the decode step's plans.
+            kw5 = dict(kw, slots=5)
+            eng = ServingEngine(params_cpu, cfg, device="cpu", **kw5)
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
+            path_counts["reduced-spec-5slots"] = reduced_spec_check(
+                dev, f"[{name}] 5 slots", cfg, params_cpu, params_gpu,
+                prompts, kw5, eng.run(), want_k=SPEC_K)
 
     # B1's tile loop runs where an fp32 GEMM's tile grid fills the card:
     # one 4096-token chunk through the reduced model on the eager path
@@ -1507,11 +1656,12 @@ def reduced_recurrent_phase(dev):
 
 
 def reduced_spec_check(dev, label, cfg, params_cpu, params_gpu, prompts, kw,
-                       vanilla):
+                       vanilla, want_k=None):
     """A reduced engine with ``spec_k=4`` on the card (async, the decode
-    step as a CUDA graph) and on the CPU (synchronous, eager): greedy
-    streams equal on both and equal to the vanilla ones; → the card's
-    launch counts."""
+    step as a CUDA graph, the speculative step's shapes replayed as CUDA
+    graphs) and on the CPU (synchronous, eager): greedy streams equal on
+    both and equal to the vanilla ones, and with ``want_k`` windows of
+    that many tokens on both; → the card's launch counts."""
     from repro_torch.kernels import build
     from repro_torch.serving.engine import Request, ServingEngine
     outs = {}
@@ -1529,7 +1679,13 @@ def reduced_spec_check(dev, label, cfg, params_cpu, params_gpu, prompts, kw,
             f"acceptance rate {m['acceptance_rate']:.3f}, spec steps "
             f"{m['spec_steps']}; launches {counts}")
         require(m["spec_steps"] > 0, f"reduced {label}: no speculative step")
+        require(want_k is None or max(eng.spec_k_hist) == want_k,
+                f"reduced {label}: windows {eng.spec_k_hist}, want "
+                f"{want_k} tokens")
         if device == dev:
+            require(eng.spec_step.graph and eng.spec_step.replays["verify"],
+                    f"reduced {label}: the card's verify windows were not "
+                    f"replayed as CUDA graphs")
             card_counts = counts
     for rid in vanilla:
         require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
@@ -1540,6 +1696,84 @@ def reduced_spec_check(dev, label, cfg, params_cpu, params_gpu, prompts, kw,
     log(f"  reduced {label} spec_k={SPEC_K}: greedy streams identical on "
         f"cuda and cpu, and equal to vanilla")
     return card_counts
+
+
+def reduced_gemma2_phase(dev):
+    """gemma2_27b.reduced() in fp32, default configuration, card against
+    CPU: local (16-slot ring) and global layers in one model, GQA 2:1,
+    softcaps 50 and 30, the query scale, post-norms.  32-token prompts in
+    chunks of 16 (the second chunk wraps the rings): first-token logits
+    within 1e-3, identical greedy streams from the engine (3 requests on
+    2 slots) on the card in its defaults and on the CPU synchronous and
+    eager, and the same with ``spec_k=4`` (a one-period draft: a local and
+    a global layer).  Returns the card's launch counts (keys
+    ``reduced-gemma2``, ``reduced-gemma2-spec``): fp32 runs B2's and B3's
+    tile loops and the SIMT kernels of B4, B5 and B6."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = get_config("gemma2_27b").reduced()             # fp32
+    reset_planning()
+    params_cpu = model_lib.init_params(cfg, seed=0, device="cpu")
+    params_gpu = to_device(params_cpu, dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n_tok, dtype=np.int32)
+               for n_tok in (32, 21, 30, 17)]
+    logits = {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        cache = model_lib.init_paged_cache(cfg, 2, 64, num_pages=17,
+                                           page_size=8, device=device)
+        table = torch.arange(1, 9, dtype=torch.int32, device=device)[None]
+        toks = torch.as_tensor(prompts[0].astype(np.int64), device=device)
+        for p0 in (0, 16):
+            out, cache = model_lib.prefill_chunk(
+                params, {"tokens": toks[None, p0:p0 + 16],
+                         "page_table": table, "slot": 1}, cache, cfg,
+                pos0=p0)
+        logits[str(device)] = out.cpu()
+    err = max_err(logits[str(dev)], logits["cpu"])
+    log(f"  reduced gemma2 fp32 first-token logits cuda vs cpu: "
+        f"max_abs_err={err:.3e} tol=1e-3")
+    require(err <= 1e-3, f"gemma2 first-token logits differ by {err}")
+    kw = dict(slots=2, cache_len=64, prefill_len=32, page_size=8,
+              prefill_chunk=16)
+    outs = {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        eng = ServingEngine(params, cfg, device=device,
+                            async_steps=device == dev, **kw)
+        for rid, p in enumerate(prompts[1:]):
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
+        build.reset_launch_counts()
+        outs[str(device)] = eng.run()
+        counts = build.launch_counts()
+        log(f"  reduced gemma2 engine on {device}: "
+            f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
+            f"launches {counts}; steps_in_flight_max "
+            f"{eng.steps_in_flight_max}, graphs "
+            f"{sorted(eng.decode_step.graphs)}")
+        if device == dev:
+            require(eng.decode_step.graph and eng.decode_step.graphs,
+                    "reduced gemma2: the card's decode step was not "
+                    "replayed as a CUDA graph")
+            path_counts = counts
+            for kernel in ("splitk_gemm", "grouped_gemm",
+                           "flash_decode_paged", "flash_decode",
+                           "flash_attention"):
+                require(counts[kernel] > 0,
+                        f"reduced gemma2: {kernel} not launched")
+    for rid in outs["cpu"]:
+        require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
+        require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
+                f"gemma2 greedy stream of request {rid} differs")
+    log("  reduced gemma2 engine: greedy streams identical on cuda "
+        "(async + graph) and cpu (synchronous, eager)")
+    spec = reduced_spec_check(dev, "gemma2", cfg, params_cpu, params_gpu,
+                              prompts[1:], kw, outs["cpu"])
+    return {"reduced-gemma2": path_counts, "reduced-gemma2-spec": spec}
 
 
 # -- phase 4: full-width serving ---------------------------------------------
@@ -1712,13 +1946,17 @@ def serving_phase(dev, name):
     if work["shared"]:
         require(m["prefix_hit_pages"] > 0, m)
     del eng
-    torch.cuda.empty_cache()
+    free_card()
 
     eng = build_engine(StepTimedEngine)
     eng.label = " (b) async graph"
     require(eng.async_steps and eng.pipeline_depth == 2
             and eng.decode_step.graph, "(b) must run the engine's defaults")
     out_b, counts, wall_b, peak_b = serve(eng)
+    reckoning = memory_reckoning(eng)
+    log(f"  [{name} (b)] memory reckoning (GB): "
+        f"{ {k: round(v, 3) for k, v in reckoning.items()} }; peak "
+        f"allocated {peak_b / 1e9:.3f} GB = {peak_b / 2**30:.2f} GiB")
     m = eng.metrics()
     for rid in out_a:
         require(list(out_b[rid]) == list(out_a[rid]),
@@ -1749,7 +1987,7 @@ def serving_phase(dev, name):
         "sync_checked_at_step": eng.sync_checked_at,
         "captured_deltas": {str(k): v[2]
                             for k, v in eng.decode_step.graphs.items()},
-        "peak_memory_gib": peak_b / 2**30}
+        "peak_memory_gib": peak_b / 2**30, "memory_reckoning": reckoning}
     log(f"  [{name} (b)] greedy tokens equal to (a) for all {len(out_a)} "
         f"requests; steps_in_flight_max {eng.steps_in_flight_max}, "
         f"delivery_lag_mean {m['delivery_lag_mean']:.3f}; step "
@@ -1853,7 +2091,7 @@ def serving_phase(dev, name):
         "launch_counts_sync": counts_a, "launch_counts": counts,
         "async": async_run, "programs": programs, "profile": profile}
     del eng
-    torch.cuda.empty_cache()
+    free_card()
     return counts, summary
 
 
@@ -2044,6 +2282,7 @@ SPEC_RUNS = {
     "recurrentgemma-draft1": ("recurrentgemma", 1, "shared"),
     "default-own1": ("default", 1, "own"),
     "recurrentgemma-own1": ("recurrentgemma", 1, "own"),
+    "gemma2-draft1": ("gemma2", 1, "shared"),
 }
 REJECTING_DRAFT_SCALE = 2.5
 SPEC_K = 4
@@ -2083,16 +2322,16 @@ def speculative_phase(dev, run, vanilla, vanilla_async, smi):
     cfg = dataclasses.replace(get_config(arch), **overrides)
     prompts, engine_kw = serving_workload(cfg, work, dev)
     kinds = [mixer for mixer, _ in cfg.layer_kinds]
-    attn_kernel, attn_layers = (
-        ("flash_decode_paged_mma", kinds.count("attn")) if kinds.count("attn")
-        else ("flash_decode_mma", kinds.count("local")))
-    # Per target window, what a decode step launches of B2 and B3.
-    window_gemms = {"splitk_gemm_cluster":
-                    DECODE_STEP_LAUNCHES[name]["splitk_gemm_cluster"]}
-    if attn_lib.grouped_decode(dataclasses.replace(
-            cfg, decode_qkv_grouped=True)):
-        window_gemms["grouped_gemm_splitk"] = (kinds.count("attn")
-                                               + kinds.count("local"))
+    # Per window position: B4 once per global layer, B6 once per local one.
+    attn_layers = {kernel: kinds.count(kind) for kernel, kind in
+                   (("flash_decode_paged_mma", "attn"),
+                    ("flash_decode_mma", "local")) if kinds.count(kind)}
+    grouped = attn_lib.grouped_decode(dataclasses.replace(
+        cfg, decode_qkv_grouped=True))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    require(len(decode_gemms(cfg, grouped)[0])
+            == DECODE_STEP_LAUNCHES[name]["splitk_gemm_cluster"],
+            f"[{run}] decode_gemms disagrees with DECODE_STEP_LAUNCHES")
     steps = []
 
     def event():
@@ -2119,7 +2358,8 @@ def speculative_phase(dev, run, vanilla, vanilla_async, smi):
             rec["windows"].append({
                 "family": family, "tokens": n, "events": (start, event()),
                 **{kernel: after[kernel] - before[kernel]
-                   for kernel in (attn_kernel, *window_gemms)}})
+                   for kernel in (*attn_layers, "splitk_gemm_cluster",
+                                  "grouped_gemm_splitk")}})
             return out
 
     class SpecTimedEngine(ServingEngine):
@@ -2238,16 +2478,17 @@ def speculative_phase(dev, run, vanilla, vanilla_async, smi):
     require(spec.replays["verify"] + spec.replays["replay"] == len(windows),
             f"[{run}] {len(windows)} target windows, "
             f"{dict(spec.replays)} replays")
+    slots = engine_kw["slots"]
     for v in windows:
-        require(v[attn_kernel] == attn_layers * v["tokens"],
-                f"[{run}] a {v['tokens']}-token window launched "
-                f"{v[attn_kernel]} {attn_kernel}, want "
-                f"{attn_layers * v['tokens']}")
-        for kernel, want in window_gemms.items():
+        for kernel, layers in attn_layers.items():
+            require(v[kernel] == layers * v["tokens"],
+                    f"[{run}] a {v['tokens']}-token window launched "
+                    f"{v[kernel]} {kernel}, want {layers * v['tokens']}")
+        for kernel, want in window_launches(cfg, grouped, slots,
+                                            v["tokens"], sms).items():
             require(v[kernel] == want,
                     f"[{run}] a {v['family']} window of {v['tokens']} "
-                    f"tokens launched {v[kernel]} {kernel}, a decode step "
-                    f"{want}")
+                    f"tokens launched {v[kernel]} {kernel}, want {want}")
     if groups == cfg.n_layers // cfg.period:
         require(m["acceptance_rate"] == 1.0,
                 f"[{run}] acceptance rate {m['acceptance_rate']} with the "
@@ -2282,9 +2523,15 @@ def speculative_phase(dev, run, vanilla, vanilla_async, smi):
                / sum(r["emitted"] / r["slots"] for r in steady))
     vanilla_ms = vanilla_async["steady_ms_per_step_mean"]
     log(f"  [{run}] greedy tokens equal to phase 4's for all {len(out)} "
-        f"requests; every target window launched {attn_kernel} once per "
-        f"position and layer ({attn_layers} layers) and "
-        f"{window_gemms} as a decode step does")
+        f"requests; every target window launched {attn_layers} once per "
+        f"position and layer, and B2 and B3 once per GEMM and row chunk "
+        f"(at {SPEC_K} tokens: "
+        f"{window_launches(cfg, grouped, slots, SPEC_K, sms)}; a decode "
+        f"step: {window_launches(cfg, grouped, slots, 1, sms)})")
+    reckoning = memory_reckoning(eng)
+    log(f"  [{run}] memory reckoning (GB): "
+        f"{ {k: round(v, 3) for k, v in reckoning.items()} }; peak "
+        f"allocated {peak / 1e9:.3f} GB = {peak / 2**30:.2f} GiB")
     log(f"  [{run}] on {smi}: acceptance rate {m['acceptance_rate']:.4f}, "
         f"spec_k_mean {m['spec_k_mean']:.3f}, {m['spec_steps']} speculative "
         f"of {m['decode_steps']} decode steps, run wall {wall:.3f} s, "
@@ -2314,12 +2561,58 @@ def speculative_phase(dev, run, vanilla, vanilla_async, smi):
         "steady_vs_vanilla": steady_tps / vanilla_steady,
         "steady_ms_per_slot_token": slot_ms,
         "steady_slot_speedup": vanilla_ms / slot_ms,
-        "peak_memory_gib": peak / 2**30, "launch_counts": counts,
+        "peak_memory_gib": peak / 2**30, "memory_reckoning": reckoning,
+        "launch_counts": counts,
         "captures": dict(spec.captures), "replays": dict(spec.replays),
         "steps": steps, "profile": profile}
     del eng
-    torch.cuda.empty_cache()
+    free_card()
     return summary
+
+
+def decode_gemms(cfg, grouped: bool):
+    """The (N, K) of every B2 launch of a decode step (o, and q/k/v when
+    they are not grouped, per attention layer; the RG-LRU block's five
+    projections; gate, up and down), and the member widths and K of every
+    B3 launch (the grouped q/k/v)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    q_w, kv_w = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    b2, b3 = [], []
+    for mixer, _ in cfg.layer_kinds:
+        if mixer == "rglru":
+            w = cfg.rglru.width
+            b2 += [(w, d), (w, d), (w, w), (w, w), (d, w)]
+        else:
+            if grouped:
+                b3.append(((q_w, kv_w, kv_w), d))
+            else:
+                b2 += [(q_w, d), (kv_w, d), (kv_w, d)]
+            b2.append((d, q_w))
+        b2 += [(ff, d), (ff, d), (d, ff)]
+    return b2, b3
+
+
+def window_launches(cfg, grouped: bool, slots: int, tokens: int, sms: int):
+    """B2 and B3 launches of a target window of ``tokens`` per slot: each
+    GEMM of a decode step once per row chunk of
+    ``geometry.window_rows`` (the split planned at the decode step's
+    ``slots`` rows on the card's ``sms``); at one token, the decode
+    step's."""
+    from repro_torch.core.geometry import (cdiv, grouped_live_tiles,
+                                           grouped_split,
+                                           splitk_cluster_split,
+                                           window_rows)
+    rows = slots * tokens
+    b2, b3 = decode_gemms(cfg, grouped)
+    out = {"splitk_gemm_cluster": sum(
+        cdiv(rows, window_rows("cluster", slots, splitk_cluster_split(
+            cdiv(n, 128), k, slots, sms)[1])) for n, k in b2)}
+    if b3:
+        out["grouped_gemm_splitk"] = sum(
+            cdiv(rows, window_rows("splitk", slots, grouped_split(
+                sum(grouped_live_tiles(max(ws), ws, len(ws))), k, slots,
+                sms)[1])) for ws, k in b3)
+    return out
 
 
 def rejecting_draft(dcfg, dev, scale: float = REJECTING_DRAFT_SCALE):
@@ -2491,7 +2784,7 @@ def exact_draft_phase(dev, smi):
                "replays": dict(spec.replays), "launch_counts": counts,
                "profile": profile}
     del engines, eng, spec
-    torch.cuda.empty_cache()
+    free_card()
     return summary
 
 
@@ -2548,6 +2841,21 @@ KERNELS = [
 ]
 
 
+# The phase-2 row of each kernel at gemma2_27b's shapes (its launches
+# come from phase 4's gemma2 run): the prefill gate on B1, the decode gate
+# on B2, the decode q/k/v group on B3, a global layer's decode on B4 and
+# prefill chunk past the window on B5, a local layer's decode on B6.
+GEMMA2_ROWS = {
+    "mte_gemm_wgmma": "g2 gate 512x36864x4608",
+    "splitk_gemm_cluster": "g2 gate 4x36864x4608",
+    "grouped_gemm_splitk": "qkv decode 3x4x4608x4096",
+    "flash_decode_paged_mma":
+        "g2 4 slots x 32/16 heads x 128, ~4620 tokens, softcap 50",
+    "flash_attention_wgmma": "g2 512x4608 H=32/16 D=128 softcap 50",
+    "flash_decode_mma": "g2 ring 4x32/16x128 L=4096 softcap 50",
+}
+
+
 def parse_args():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2596,6 +2904,8 @@ def main() -> int:
     counts, serving = reduced_phase(dev), {}
     log("== 3. reduced recurrentgemma_9b (fp32): card against CPU, default")
     counts.update(reduced_recurrent_phase(dev))
+    log("== 3. reduced gemma2_27b (fp32): card against CPU, default")
+    counts.update(reduced_gemma2_phase(dev))
     for name, (arch, overrides) in CONFIGS.items():
         log(f"== 4. full-width {arch} serving (bf16), configuration "
             f"[{name}] {overrides or '(defaults)'}")
@@ -2626,6 +2936,14 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"]})
+        if name in GEMMA2_ROWS:
+            g2 = next(r for r in mine if r["shape"] == GEMMA2_ROWS[name])
+            kernels[-1]["at_gemma2"] = {
+                "launches": counts["gemma2"][name],
+                **{k: g2.get(k) for k in (
+                    "shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms",
+                    "sdpa_without_softcap_ms")}}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"nvidia_smi": smi, "rows": rows, "serving": serving,
                    "speculative": speculative, "kernels": kernels,

@@ -219,7 +219,7 @@ ARCH_NAMES = [
     "musicgen_medium", "chameleon_34b", "gemma2_27b", "starcoder2_7b",
     "gemma_2b", "qwen15_4b", "mamba2_130m",
 ]
-PORTED_ARCHS = ("gemma_2b", "recurrentgemma_9b")
+PORTED_ARCHS = ("gemma_2b", "recurrentgemma_9b", "gemma2_27b")
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
@@ -234,7 +234,7 @@ def get_config(name: str) -> ArchConfig:
     if name in ARCH_NAMES and name not in PORTED_ARCHS:
         raise NotImplementedError(
             f"config {name!r} is not ported yet (ROADMAP queue A: the "
-            f"other nine configs); ported: {list(PORTED_ARCHS)}")
+            f"other configs); ported: {list(PORTED_ARCHS)}")
     if name not in _REGISTRY:
         if name not in PORTED_ARCHS:
             raise KeyError(f"unknown config {name!r}")

@@ -161,7 +161,11 @@ def enumerate_candidates(sig: GemmSignature,
     wgmma tiles the engine takes for this signature (bf16 or bf16acc —
     whose two register sets stop at ``bn`` 128 —, K and N multiples of
     8; same ``bk``), then split-K slices of the base when its (M, N) tile
-    grid is below the SM count (B2 never gets a wgmma tile).  The rigid
+    grid is below the SM count, or whatever the grid when B2's cluster
+    engine would run them (bf16 decode GEMMs of at most 16 rows,
+    :func:`splitk_engine`): that engine takes its own slices, one where
+    the grid fills the card, while B1's only engine at such M is the tile
+    loop (B2 never gets a wgmma tile).  The rigid
     policy gets exactly its fixed block (a rigid ISA cannot adapt), and
     grouped signatures no split (B3 has no split-K path; its group axis
     already multiplies the grid)."""
@@ -176,7 +180,11 @@ def enumerate_candidates(sig: GemmSignature,
             if g not in cands and _on_wgmma(sig, g):
                 cands.append(g)
     grid_mn = cdiv(sig.m, base.bm) * cdiv(sig.n, base.bn)
-    if sig.group == 1 and grid_mn < profile.sm_count and sig.k > INNER_BK:
+    cluster = splitk_engine(
+        sig.dtype_in, sig.m, sig.n, sig.k,
+        bf16acc=sig.format_policy.accum_dtype == "bfloat16") == "cluster"
+    if sig.group == 1 and (grid_mn < profile.sm_count or cluster) \
+            and sig.k > INNER_BK:
         for s in _SPLIT_CANDIDATES:
             bk = _split_bk(base.bk, sig.k, s)
             if cdiv(sig.k, bk) < s:

@@ -59,6 +59,7 @@ __all__ = ["HopperProfile", "BlockGeometry", "H100_SPEC", "hopper_profile",
            "GROUPED_X_BYTES", "GROUPED_FILL_SPLIT", "grouped_max_depth",
            "grouped_engine", "grouped_live_tiles", "grouped_split",
            "SPLITK_DEEP_DEPTH", "splitk_engine", "splitk_cluster_split",
+           "window_rows",
            "DECODE_MMA_MAX_G", "DECODE_MMA_DIMS", "decode_engine",
            "flat_decode_engine", "decode_kv_split", "attention_engine",
            "attention_kv_split", "scan_engine"]
@@ -251,6 +252,36 @@ def splitk_cluster_split(tiles: int, k: int, m: int = 1,
         s *= 2
         depth = round_up(cdiv(k, s), GROUPED_BK)
     return cdiv(k, depth), depth
+
+
+def window_rows(engine: str, plan_rows: int, depth: int = 0) -> int:
+    """The most rows one launch takes of a GEMM planned at ``plan_rows``
+    rows and called on more (a speculative verify window: slots·k rows on
+    the decode step's plan, ``ops.mte_gemm(plan_rows=)``), such that each
+    row comes out as a ``plan_rows``-row launch computes it; the caller
+    runs the rows in chunks of this many.
+
+    - Past GROUPED_MAX_M planned rows, ``plan_rows``: the decode step runs
+      the tile loop at M = slots, and a chunk of that many rows is its
+      launch.
+    - On the split-K engines (``engine`` ``"cluster"`` for B2,
+      ``"splitk"`` for B3, ``depth`` the K slice of the split planned for
+      ``plan_rows``): the most rows up to GROUPED_MAX_M whose x slice of
+      ``depth`` fits the engine's shared memory
+      (:func:`grouped_max_depth`); a row computes alike whatever rows ride
+      with it on the same split, and past that count the launch would
+      leave the engine or refuse the split.  At gemma2_27b's decode gate
+      and up (K 4608, one slice) that is 14 rows, at its down (K 36864,
+      4 slices of 9216) 7.
+    - Otherwise (the tile loops, whose rows are each computed alike on a
+      given tile) GROUPED_MAX_M."""
+    if plan_rows > GROUPED_MAX_M:
+        return plan_rows
+    rows = GROUPED_MAX_M
+    if engine in ("cluster", "splitk"):
+        while rows > plan_rows and grouped_max_depth(rows) < depth:
+            rows -= 1
+    return rows
 
 
 # B4's mma engine (flash_decode_paged_mma.cu): the G query heads of a kv

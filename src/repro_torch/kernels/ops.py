@@ -16,15 +16,15 @@ every GEMM issued here is recorded in it (``record_gemm`` /
 ``record_grouped``).
 
 ``plan_rows`` plans a GEMM as if it had that many rows, and the split-K
-engines take their K slices for that many.  The engine itself is chosen
-for the real rows: up to 16 (``geometry.GROUPED_MAX_M``) B2's cluster and
-B3's split-K engines run, and compute each row as the planned GEMM's rows
-are (the same route, tile and K partition), so a row's bits do not depend
-on how many rows ride with it.  Past 16 rows the tile loops run, and that
-no longer holds.  A speculative verify window of slots·k ≤ 16 rows runs
-on the decode step's plans this way
-(:func:`repro_torch.models.model.verify_chunk`,
-``serving.engine.SPEC_MAX_ROWS``).
+engines take their K slices for that many.  The rows then run in chunks
+of :func:`repro_torch.core.geometry.window_rows`: at most 16
+(``geometry.GROUPED_MAX_M``) while the planned rows are that few, fewer
+where the planned K slice would not fit a chunk's rows in B2's or B3's
+shared memory, and exactly ``plan_rows`` past 16.  Each chunk runs the
+planned rows' engine and K partition, on which a row's bits do not
+depend on the rows that ride with it.  A speculative verify window of
+slots·k rows runs on the decode step's plans this way, every row with a
+decode step's bits (:func:`repro_torch.models.model.verify_chunk`).
 """
 from __future__ import annotations
 
@@ -35,7 +35,11 @@ import torch
 from repro_torch.core import autotune
 from repro_torch.core import formats as formats_lib
 from repro_torch.core.epilogue import Epilogue
-from repro_torch.core.geometry import check_kernel_tile
+from repro_torch.core.geometry import (GROUPED_BN, H100_SPEC,
+                                       check_kernel_tile, cdiv,
+                                       grouped_engine, grouped_live_tiles,
+                                       grouped_split, splitk_cluster_split,
+                                       splitk_engine, window_rows)
 
 __all__ = ["mte_gemm", "grouped_gemm", "flash_attention",
            "flash_decode", "flash_decode_paged", "rglru_scan"]
@@ -62,6 +66,43 @@ def _plan(m, n, k, dt_in, dt_out, policy, epilogue, fmt, geometry,
         source="program")
 
 
+def _chunk_rows(plan, x, rows: int, n: int, k: int, widths=None) -> int:
+    """Rows per launch of ``plan`` over ``rows`` rows: all of them when
+    they are no more than it was planned for, else
+    :func:`~repro_torch.core.geometry.window_rows` of the planned rows'
+    engine, and of the K slice of its split on the split-K engines, for
+    the card's SM count (an H100's on the CPU)."""
+    sig = plan.signature
+    if rows <= sig.m:
+        return rows
+    sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
+           if x.is_cuda else H100_SPEC.sm_count)
+    bf16acc = sig.format_policy.accum_torch == torch.bfloat16
+    depth = 0
+    if plan.route == "grouped":
+        engine = grouped_engine(x.dtype, sig.m, n, k, bf16acc=bf16acc)
+        if engine == "splitk":
+            tiles = sum(grouped_live_tiles(n, widths, sig.group))
+            depth = grouped_split(tiles, k, sig.m, sms)[1]
+    elif plan.route == "splitk":
+        engine = splitk_engine(x.dtype, sig.m, n, k, bf16acc=bf16acc)
+        if engine == "cluster":
+            depth = splitk_cluster_split(cdiv(n, GROUPED_BN), k, sig.m,
+                                         sms)[1]
+    else:
+        engine = plan.route
+    return window_rows(engine, sig.m, depth)
+
+
+def _by_rows(run, m: int, rows: int, axis: int):
+    """``run(lo, hi)`` over the rows [0, m) in chunks of at most ``rows``,
+    joined along ``axis``."""
+    if m <= rows:
+        return run(0, m)
+    return torch.cat([run(lo, min(lo + rows, m))
+                      for lo in range(0, m, rows)], dim=axis)
+
+
 def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
              policy: str = "mte", out_dtype=torch.float32,
              format_policy=None, geometry=None,
@@ -75,14 +116,16 @@ def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
     dequantize and epilogue outside, as ``ops.py:72-84`` in JAX).
     ``plan_rows``: see the module docstring."""
     fmt = formats_lib.resolve_format(format_policy, a.dtype)
-    m, k = a.shape
-    m = m if plan_rows is None else plan_rows
+    rows, k = a.shape
+    m = rows if plan_rows is None else plan_rows
     n = b.shape[1]
     if fmt.quantized:
         aq, bq, sa, sb = formats_lib.quantize_operands(a, b, fmt)
         plan = _plan(m, n, k, aq.dtype, torch.int32, policy, Epilogue(),
                      fmt.name, geometry)
-        acc = autotune.execute_plan(plan, aq, bq)
+        acc = _by_rows(
+            lambda lo, hi: autotune.execute_plan(plan, aq[lo:hi], bq),
+            rows, _chunk_rows(plan, aq, rows, n, k), 0)
         acc = formats_lib.dequantize(acc, sa, sb)
         out = epilogue.apply(acc.float(), c_in=c, bias=bias).to(out_dtype)
     else:
@@ -90,7 +133,14 @@ def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
         bc = b.to(fmt.operand_torch)
         plan = _plan(m, n, k, ac.dtype, out_dtype, policy, epilogue,
                      fmt.name, geometry)
-        out = autotune.execute_plan(plan, ac, bc, c, bias)
+
+        def run(lo, hi):
+            cr = c[lo:hi] if c is not None else None
+            br = bias[lo:hi] if bias is not None \
+                and epilogue.bias_axis == "col" else bias
+            return autotune.execute_plan(plan, ac[lo:hi], bc, cr, br)
+
+        out = _by_rows(run, rows, _chunk_rows(plan, ac, rows, n, k), 0)
     sink = _trace_sink()
     if sink is not None:
         sink.record_gemm(a, b, out, c=c, bias=bias, epilogue=epilogue,
@@ -111,21 +161,24 @@ def grouped_gemm(x, w, *, epilogue: Epilogue = Epilogue(),
     The quantize, cast and dequantize follow ``autodiff.py:165-191`` of
     the JAX package.  ``plan_rows``: see the module docstring."""
     fmt = formats_lib.resolve_format(format_policy, x.dtype)
-    g, cap, k = x.shape
-    cap = cap if plan_rows is None else plan_rows
+    g, rows, k = x.shape
+    cap = rows if plan_rows is None else plan_rows
     n = w.shape[2]
     if fmt.quantized:
-        xq, wq, sx, sw = formats_lib.quantize_operands(x, w, fmt)
-        plan = _plan(cap, n, k, xq.dtype, torch.int32, "mte", Epilogue(),
+        xc, wc, sx, sw = formats_lib.quantize_operands(x, w, fmt)
+        plan = _plan(cap, n, k, xc.dtype, torch.int32, "mte", Epilogue(),
                      fmt.name, geometry, group=g)
-        acc = autotune.execute_plan(plan, xq, wq, widths=widths)
-        acc = formats_lib.dequantize(acc, sx, sw)
-        out = epilogue.apply(acc.float()).to(out_dtype)
     else:
+        xc, wc = x.to(fmt.operand_torch), w.to(fmt.operand_torch)
         plan = _plan(cap, n, k, fmt.operand_torch, out_dtype, "mte",
                      epilogue, fmt.name, geometry, group=g)
-        out = autotune.execute_plan(plan, x.to(fmt.operand_torch),
-                                    w.to(fmt.operand_torch), widths=widths)
+    out = _by_rows(
+        lambda lo, hi: autotune.execute_plan(plan, xc[:, lo:hi], wc,
+                                             widths=widths),
+        rows, _chunk_rows(plan, xc, rows, n, k, widths), 1)
+    if fmt.quantized:
+        out = formats_lib.dequantize(out, sx, sw)
+        out = epilogue.apply(out.float()).to(out_dtype)
     sink = _trace_sink()
     if sink is not None:
         sink.record_grouped(x, w, out, epilogue=epilogue, fmt=fmt.name,

@@ -8,8 +8,11 @@ stack (``params["groups"]``) becomes a Python list of layers
 kinds ported are ``("attn", "mlp")`` (global attention over the paged
 pool), ``("local", "mlp")`` (sliding-window attention over a per-slot
 ring) and ``("rglru", "mlp")`` (the RG-LRU block with its per-slot
-state), each followed by a gated MLP; other kinds raise, naming the
-ROADMAP item (A10).
+state), each followed by a gated MLP, in any mix of them in one model;
+other kinds raise, naming the ROADMAP item (A10).  Features: attention
+and final logit softcaps, a query scale of the config's own
+(``attn_scale``), GQA, and ``post_norms`` (gemma2: the mixer's and the
+MLP's outputs normed again before each residual add).
 
 Entry points: :func:`init_params`, :func:`init_paged_cache`,
 :func:`prefill_chunk`, :func:`decode`, :func:`sample_token`,
@@ -57,13 +60,17 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Dict[str, Any]:
     dt = to_torch_dtype(cfg.param_dtype)
     layers = []
     for mixer, _ in cfg.layer_kinds:
-        layers.append({
+        lp = {
             "norm1": init_norm(cfg.d_model, cfg.norm_type, dt, dev),
             "mixer": (rglru_mod.init_rglru(gen, cfg, dev) if mixer == "rglru"
                       else attn_mod.init_attention(gen, cfg, dev)),
             "norm2": init_norm(cfg.d_model, cfg.norm_type, dt, dev),
             "ffn": init_mlp(gen, cfg, dev),
-        })
+        }
+        if cfg.post_norms:
+            lp["post_norm1"] = init_norm(cfg.d_model, cfg.norm_type, dt, dev)
+            lp["post_norm2"] = init_norm(cfg.d_model, cfg.norm_type, dt, dev)
+        layers.append(lp)
     return {"embedding": init_embedding(gen, cfg, dev), "layers": layers,
             "final_norm": init_norm(cfg.d_model, cfg.norm_type, dt, dev)}
 
@@ -131,9 +138,9 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
     the ring attention, the conv and the recurrence step per position),
     and every projection and the FFN run once over the B·K rows on the
     decode step's plans (``plan_rows`` = B), so each row keeps the decode
-    step's bits."""
-    if cfg.post_norms:
-        raise NotImplementedError("post_norms is ROADMAP A10")
+    step's bits.  With ``cfg.post_norms`` the mixer's and the MLP's
+    outputs are normed (``post_norm1``, ``post_norm2``) before their
+    residual adds (``model.py:264-275`` of the JAX package)."""
     h = rmsnorm(x, lp["norm1"])
     plan_rows = x.shape[0] if mode == "verify" else None
     if mode == "prefill_chunk":
@@ -164,9 +171,13 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
     else:
         out, cache = _decode_mixer(h, lp["mixer"], cfg, mixer, cache, pos,
                                    row_valid)
+    if cfg.post_norms:
+        out = rmsnorm(out, lp["post_norm1"])
     x = x + out
-    h = rmsnorm(x, lp["norm2"])
-    return x + mlp(h, lp["ffn"], cfg, plan_rows=plan_rows), cache
+    out = mlp(rmsnorm(x, lp["norm2"]), lp["ffn"], cfg, plan_rows=plan_rows)
+    if cfg.post_norms:
+        out = rmsnorm(out, lp["post_norm2"])
+    return x + out, cache
 
 
 def _run_stack(x, params, cfg, positions, mode, cache, **kw):
@@ -277,9 +288,9 @@ def verify_chunk(params, batch, cache, cfg, *, last_only: bool = False):
     i + 1.
 
     Row i equals, bit for bit, the logits of a decode step at pos + i
-    (see :func:`_apply_layer`) while B·K ≤ 16, the rows up to which B2's
-    and B3's engines compute a row alike (``ops`` module docstring; the
-    engine keeps its windows there).  The LM head runs one product per window
+    (see :func:`_apply_layer`), for any B·K: the GEMMs run their rows in
+    chunks on the decode step's plans (``ops`` module docstring).  The LM
+    head runs one product per window
     position over the B rows a decode step unembeds: the library's f32
     product picks other kernels, and so gives other bits, for B·K rows
     than for B (measured on the H100).  ``last_only`` unembeds the last

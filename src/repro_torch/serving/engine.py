@@ -41,11 +41,12 @@ scores the window [last emitted token, proposals] in ONE
 :func:`~repro_torch.models.model.verify_chunk` whose GEMMs carry M =
 slots·k rows on the decode step's plans, and greedy requests keep the
 proposals while the target's argmax agrees (sampled ones run rejection
-sampling), so greedy streams are those of ``spec_k=0`` bit for bit.  That
-holds for windows of at most ``SPEC_MAX_ROWS`` (16) rows: k is clamped to
-16 // slots, and ``spec_k ≥ 2`` with more than 8 slots is refused.  The
-speculative step's model calls (:class:`SpecStep`: the target's verify
-and replay windows, the draft's catch-up windows and decode step) read
+sampling), so greedy streams are those of ``spec_k=0`` bit for bit, for
+any slots and k: the window's GEMMs run in chunks of rows on the decode
+step's plans (``kernels.ops``, ``geometry.window_rows``), and k is
+clamped as the JAX engine clamps it.  The speculative step's model
+calls (:class:`SpecStep`: the target's verify and replay windows, the
+draft's catch-up windows and decode step) read
 static device buffers and, on a CUDA device, are replayed as one CUDA
 graph per shape, captured at first use — the counterpart of the JAX
 engine's jitted ``_verify``, ``_draft_verify`` and ``_draft_decode``.
@@ -90,7 +91,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.geometry import GROUPED_MAX_M, cdiv
+from repro_torch.core.geometry import cdiv
 from repro_torch.kernels import build
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import model as model_lib
@@ -104,14 +105,6 @@ from repro_torch.serving.scheduler import ContinuousBatchingScheduler
 
 __all__ = ["Request", "ServingEngine", "DecodeStep", "SpecStep",
            "HostStaging", "greedy_accepted", "serving_params"]
-
-
-# The most rows a speculative verify window's GEMMs take (slots·k): up to
-# this many, B2's cluster and B3's split-K engines compute a row alike
-# whatever rows ride with it, on the K partition of the decode step's plan,
-# so verify rows equal decode rows bit for bit.  Past it they would run
-# the tile loops, whose K partition and sum are other.
-SPEC_MAX_ROWS = GROUPED_MAX_M
 
 
 def _draft_widths(cfg: ArchConfig):
@@ -432,7 +425,7 @@ class SpecStep:
     :meth:`stage_tokens` write: per model ``pos``, ``page_table`` and
     ``active`` (also the stateful archs' ``row_valid``; masked rows have
     all-(−1) page-table rows), the last emitted token ``last`` (slots,),
-    the proposals ``props`` (slots, kmax − 1), the draft's token
+    the proposals ``props`` (slots, spec_k − 1), the draft's token
     ``draft_tok`` (slots, 1), and a token buffer per (catch-up or replay,
     n).  With ``graph=True`` each shape is captured once as a CUDA graph
     at its first call and replayed after, as :class:`DecodeStep` is: an
@@ -452,7 +445,6 @@ class SpecStep:
         slots, maxp = engine.slots, engine.sched.max_pages_per_seq
         self.engine = weakref.proxy(engine)
         self.graph = graph
-        kmax = min(engine.spec_k, SPEC_MAX_ROWS // slots)
 
         def zeros(*shape, dtype=torch.int64):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -464,7 +456,7 @@ class SpecStep:
                               "active": zeros(slots, dtype=torch.bool)}
                        for side in ("target", "draft")}
         self.last = zeros(slots)
-        self.props = zeros(slots, kmax - 1)
+        self.props = zeros(slots, engine.spec_k - 1)
         self.draft_tok = zeros(slots, 1)
         self.tokens: Dict[tuple, torch.Tensor] = {}
         self.graphs: Dict[tuple, tuple] = {}
@@ -1106,12 +1098,6 @@ class ServingEngine:
         self._draft_pos = np.zeros(slots, np.int32)
         if not self._spec_on:
             return
-        if SPEC_MAX_ROWS // slots < 2:
-            raise ValueError(
-                f"spec_k needs slots <= {SPEC_MAX_ROWS // 2}: the verify "
-                f"window's slots*k rows run on the decode step's plans, "
-                f"which hold for at most {SPEC_MAX_ROWS} rows; got "
-                f"slots={slots}")
         cfg = self.cfg
         if draft_config is not None:
             dcfg = draft_config
@@ -1153,15 +1139,15 @@ class ServingEngine:
         self.spec_step = self.spec_step_cls(self, graph=graph)
 
     def _spec_depth(self, decoding) -> int:
-        """This step's window k: ``spec_k`` clamped to the window whose
-        slots·k rows the decode step's plans hold (``SPEC_MAX_ROWS``), by
-        the scheduler's ``spec_k`` policy, each slot's room to the
-        horizon, and the largest window whose extra pages every decoding
-        slot can take from the free list: speculation never evicts, a
-        full pool degrades the step to k = 1."""
+        """This step's window k, clamped as the JAX engine's
+        (``engine.py:1152-1172``): ``spec_k``, the scheduler's ``spec_k``
+        policy, each slot's room to the horizon, and the largest window
+        whose extra pages every decoding slot can take from the free
+        list: speculation never evicts, a full pool degrades the step to
+        k = 1."""
         if not self._spec_on or not decoding:
             return 1
-        k = min(self.spec_k, SPEC_MAX_ROWS // self.slots)
+        k = self.spec_k
         cap = self.sched.spec_k(len(decoding))
         if cap is not None:
             k = min(k, int(cap))

@@ -1077,14 +1077,16 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b"])
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b",
+                                  "gemma2_27b"])
 def test_verify_rows_equal_decode_steps_on_the_card(card, arch):
     """bf16 at head_dim 64, so attention runs the full-width engines
     (B4's and B6's mma): 4 slots, the second masked, a 4-token window
     (M = 16).  Logits row i equals a decode step's at pos + i and the
     cache after the window the cache after the 4 steps, bit for bit; the
-    window launches the kernels the 4 steps launch and no other, B4 (or
-    B6) once per position and attention layer."""
+    window launches the kernels the 4 steps launch and no other, B4 once
+    per position and global layer, B6 once per position and local
+    layer."""
     slots, k, page, maxp = 4, 4, 8, 8
     cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
                               head_dim=64, format_policy="bf16",
@@ -1131,13 +1133,41 @@ def test_verify_rows_equal_decode_steps_on_the_card(card, arch):
             assert torch.equal(a[name], b[name]), name
     assert set(verified) == set(stepped), (verified, stepped)
     kinds = [mixer for mixer, _ in cfg.layer_kinds]
-    attn = ("flash_decode_paged_mma" if arch == "gemma_2b"
-            else "flash_decode_mma")
-    want = k * (kinds.count("attn") + kinds.count("local"))
-    assert verified[attn] == stepped[attn] == want
+    for attn, kind in (("flash_decode_paged_mma", "attn"),
+                       ("flash_decode_mma", "local")):
+        want = k * kinds.count(kind)
+        assert verified.get(attn, 0) == stepped.get(attn, 0) == want
 
 
-@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b"])
+@pytest.mark.parametrize("n_out,k_dim,rows_per_launch",
+                         [(36864, 4608, 14), (4608, 36864, 7),
+                          (4608, 4096, 16)])
+def test_window_rows_keep_the_decode_bits_at_gemma2_shapes(
+        card, n_out, k_dim, rows_per_launch):
+    """gemma2_27b's decode gate/up, down and o on the plan of a 4-slot
+    decode step, called on 16 and 20 window rows: the rows run in chunks
+    of ``geometry.window_rows`` on B2's cluster engine (the split planned
+    at 4 rows does not fit more of x's rows in shared memory) and equal,
+    bit for bit, the 4-row GEMMs a decode step launches."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    w = torch.randn(k_dim, n_out, generator=gen,
+                    device=card).to(torch.bfloat16)
+    for rows in (16, 20):
+        a = (torch.randn(rows, k_dim, generator=gen, device=card)
+             / k_dim ** 0.5).to(torch.bfloat16)
+        build.reset_launch_counts()
+        whole = tops.mte_gemm(a, w, plan_rows=4)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        parts = torch.cat([tops.mte_gemm(a[i:i + 4], w)
+                           for i in range(0, rows, 4)])
+        assert torch.equal(whole, parts), rows
+        assert counts["splitk_gemm_cluster"] == -(-rows // rows_per_launch)
+        assert counts["splitk_gemm"] == counts["mte_gemm"] == 0
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b",
+                                  "gemma2_27b"])
 def test_speculative_engine_on_the_card_equals_the_cpu(card, arch):
     """The reduced fp32 engine with ``spec_k=4`` on the card (its
     defaults: async, the decode step as a CUDA graph) and on the CPU
@@ -1168,7 +1198,8 @@ def test_speculative_engine_on_the_card_equals_the_cpu(card, arch):
     assert card_spec == serve(card, 0)[0]
 
 
-@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b"])
+@pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b",
+                                  "gemma2_27b"])
 def test_speculative_engine_on_the_full_width_engines(card, arch):
     """bf16 at head_dim 64 (B2's cluster, B3's split-K, B4's and B6's mma
     engines): greedy streams with ``spec_k=4`` equal those without it on

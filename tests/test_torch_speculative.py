@@ -217,14 +217,16 @@ def test_verify_rows_equal_decode_steps(arch, k):
     assert torch.equal(last[:, 0], steps[-1])
 
 
+@pytest.mark.parametrize("rows", [12, 20])
 @pytest.mark.parametrize("grouped", [False, True])
-def test_plan_rows_gives_the_rows_of_the_planned_gemm(grouped):
-    """``plan_rows``: 12 rows planned as 4 (a split plan at 4 rows) come
-    out as three 4-row GEMMs would, bit for bit, and only the 4-row
-    signature is planned."""
+def test_plan_rows_gives_the_rows_of_the_planned_gemm(grouped, rows):
+    """``plan_rows``: 12 or 20 rows (past 16: run in chunks) planned as 4
+    (a split plan at 4 rows) come out as 4-row GEMMs would, bit for bit,
+    and only the 4-row signature is planned."""
     rng = np.random.default_rng(0)
     k_dim, n_dim = 512, 256
-    a = torch.as_tensor(rng.standard_normal((12, k_dim)).astype(np.float32))
+    a = torch.as_tensor(rng.standard_normal((rows, k_dim))
+                        .astype(np.float32))
     w = torch.as_tensor(rng.standard_normal((k_dim, n_dim))
                         .astype(np.float32))
     tautotune.reset_cache()
@@ -237,12 +239,42 @@ def test_plan_rows_gives_the_rows_of_the_planned_gemm(grouped):
         def run(x, **kw):
             return tops.mte_gemm(x, w, **kw)
     whole = run(a, plan_rows=4)
-    parts = torch.cat([run(a[i:i + 4]) for i in (0, 4, 8)], dim=-2)
+    parts = torch.cat([run(a[i:i + 4]) for i in range(0, rows, 4)],
+                      dim=-2)
     assert torch.equal(whole, parts)
     plans = list(tautotune.plan_cache()._plans.values())
     assert {p.signature.m for p in plans} == {4}
     if not grouped:
         assert plans[0].route == "splitk"
+
+
+def test_window_rows_at_the_served_decode_gemms():
+    """``geometry.window_rows``, the rows per launch of a verify window's
+    GEMM on the decode step's plan (4 slots): every decode GEMM of
+    gemma_2b and recurrentgemma_9b takes 16 rows in one launch (their
+    4 x 4 windows stay one launch per GEMM); gemma2_27b's gate and up
+    (K 4608 in one 4608-deep slice) take 14 and its down (4 slices of
+    9216) 7, whose x slices fill the split-K engine's shared memory, and
+    its o and q/k/v group 16; the tile loops take 16; past 16 slots a
+    chunk is the slots' rows."""
+    from repro_torch.core import geometry as geo
+    bf16 = torch.bfloat16
+
+    def b2(n_out, k):
+        assert geo.splitk_engine(bf16, 4, n_out, k) == "cluster"
+        depth = geo.splitk_cluster_split(geo.cdiv(n_out, 128), k, 4)[1]
+        assert depth <= geo.grouped_max_depth(4)
+        return geo.window_rows("cluster", 4, depth)
+
+    for d, ff, q in ((2048, 16384, 2048), (4096, 12288, 4096)):
+        assert {b2(d, q), b2(ff, d), b2(d, ff)} == {16}
+    assert (b2(4608, 4096), b2(36864, 4608), b2(4608, 36864)) == (16, 14, 7)
+    qkv_depth = geo.grouped_split(32 + 16 + 16, 4608, 4)[1]
+    assert geo.window_rows("splitk", 4, qkv_depth) == 16
+    assert geo.window_rows("tile", 4) == 16
+    assert geo.window_rows("cluster", 20, 9216) == 20
+    assert geo.grouped_max_depth(14) >= 4608 > geo.grouped_max_depth(15)
+    assert geo.grouped_max_depth(7) >= 9216 > geo.grouped_max_depth(8)
 
 
 # -- the draft ----------------------------------------------------------------
@@ -456,21 +488,44 @@ def test_draft_config_without_params_must_truncate_the_target():
         assert got is want
 
 
-@pytest.mark.parametrize("slots", [5, 8])
-def test_window_stays_within_sixteen_rows(slots, tiny_params):
-    """A verify window of slots·k rows runs on the decode step's plans,
-    which hold for at most 16 rows: with 5 or 8 slots ``spec_k=4`` is
-    clamped to k = 16 // slots, greedy streams stay vanilla's, and more
-    than 8 slots are refused."""
-    cfg, params = _tiny("gemma_2b"), tiny_params["gemma_2b"]
-    vanilla, _ = _run(params, cfg, 0, slots=slots)
-    spec, eng = _run(params, cfg, 4, slots=slots)
-    assert spec == vanilla
-    assert eng.spec_k_hist and max(eng.spec_k_hist) == 16 // slots
-    assert max(eng.spec_k_hist) * slots <= tengine.SPEC_MAX_ROWS == 16
-    with pytest.raises(ValueError, match="slots <= 8"):
-        tengine.ServingEngine(params, cfg, slots=9, spec_k=2,
-                              device="cpu")
+@pytest.mark.parametrize("slots,spec_k", [(5, 4), (12, 2)])
+def test_windows_past_sixteen_rows(slots, spec_k):
+    """Verify windows of slots·k = 20 and 24 rows: k is not clamped below
+    the JAX engine's (no 16-row limit, and more than 8 slots speculate),
+    the window's GEMMs run in row chunks on the decode step's plans (no
+    plan at the window's rows), and greedy streams equal those of
+    ``spec_k=0`` and of the JAX speculative engine, with the JAX engine's
+    ``spec_k_hist`` and counts."""
+    jcfg = dataclasses.replace(
+        jget_config("gemma_2b").reduced(), gemm_backend="pallas",
+        use_graph=False, n_layers=2, d_model=64, d_ff=128, vocab=128,
+        n_heads=2, n_kv_heads=1, head_dim=32)
+    tcfg = _tiny("gemma_2b", use_graph=False)
+    jp, tp = jax_params(jcfg)
+    kw = dict(slots=slots, cache_len=96, prefill_len=32, page_size=16,
+              spec_k=spec_k, grouped_qkv=False)
+    tautotune.reset_cache()
+    jeng = _jax_engine(jp, jcfg, **kw)
+    teng = tengine.ServingEngine(tp, tcfg, device="cpu", **kw)
+    vanilla = tengine.ServingEngine(tp, tcfg, device="cpu",
+                                    **dict(kw, spec_k=0))
+    for eng, req in ((jeng, JRequest), (teng, tengine.Request),
+                     (vanilla, tengine.Request)):
+        _submit_shared(eng, jcfg.vocab, req, n=slots)
+    jout, tout = jeng.run(max_steps=300), teng.run(max_steps=300)
+    vout = vanilla.run(max_steps=300)
+    assert sorted(tout) == sorted(jout) == sorted(vout)
+    for rid in jout:
+        assert list(tout[rid]) == list(jout[rid]) == list(vout[rid]), rid
+    assert teng.spec_k_hist == jeng.spec_k_hist
+    assert max(teng.spec_k_hist) == spec_k
+    assert max(teng.spec_k_hist) * slots > 16
+    jm, tm = jeng.metrics(), teng.metrics()
+    keys = ("spec_steps", "spec_drafted", "spec_accepted", "spec_emitted",
+            "decode_tokens", "spec_k_mean")
+    assert {k: tm[k] for k in keys} == {k: jm[k] for k in keys}
+    rows = {sig.m for sig in tautotune.plan_cache()._plans}
+    assert slots * spec_k not in rows, rows
 
 
 def test_rejection_sampling_matches_target_marginal():
