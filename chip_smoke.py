@@ -29,7 +29,11 @@ Phases (any failure raises and the script exits non-zero):
    its plan's engine and tile; gemma2_27b's prefill gate on B1, decode o,
    gate, up and down on B2, decode q/k/v group on B3, and its attention
    with softcap 50 and the query scale 144^-0.5 on B4, B5 and B6 at
-   G = 2, D = 128; the old engines' own rows at the fp32
+   G = 2, D = 128; qwen15_4b's prefill gate on B1 and decode o, gate and
+   down on B2 and q/k/v group on B3 under its bf16acc format (bf16
+   accumulator, every epilogue step rounded) beside the f32 accumulator
+   at the same shapes, and its MHA attention (G = 1, D = 128) on B4 and
+   B5; the old engines' own rows at the fp32
    shapes phase 3 gives them, or at the prefill gate+up group) and at
    small ragged shapes in every mode each kernel takes.  Each prints its
    max error beside the tolerance; the main-path shapes also print the
@@ -54,7 +58,10 @@ Phases (any failure raises and the script exits non-zero):
    longer than its 16-slot ring, chunks of 8; and with an RG-LRU width of
    126, which B7 runs on its direct engine), and gemma2_27b.reduced()
    (local and global layers, softcaps, post-norms; prompts longer than
-   its 16-slot window): first-token logits within
+   its 16-slot window), and qwen15_4b.reduced() under its bf16acc format
+   with a bf16 compute dtype (QKV biases, an untied head; first-token
+   logits within 5e-2; its decode GEMMs on B2's and B3's cluster
+   engines): first-token logits within
    1e-3, identical greedy token streams from the card's engine in its
    defaults (async, depth 2, the decode step replayed as a CUDA graph)
    and the CPU's synchronous eager engine, and the same with
@@ -71,7 +78,10 @@ Phases (any failure raises and the script exits non-zero):
    and gemma2_27b (46 layers alternating local and global, d_model 4608,
    GQA 32/16, softcaps 50 and 30, post-norms; weights built in bf16;
    4608-token prompts, so its 4096-slot rings wrap in prefill and decode)
-   in the defaults, each engine freed before the next is built.  Each configuration is served twice: (a) with
+   and qwen15_4b (40 layers, d_model 2560, MHA 20 x 128, QKV biases drawn
+   non-zero, an untied LM head, bf16acc; 2048-token prompts, two sharing
+   their first chunk) in the defaults, each engine freed before the next
+   is built.  Each configuration is served twice: (a) with
    ``async_steps=False`` and the eager decode step, synchronised around
    each prefill chunk and decode launch (the earlier slices' numbers),
    and (b) in the engine's defaults (async, depth 2, the decode step
@@ -106,8 +116,9 @@ Phases (any failure raises and the script exits non-zero):
    as CUDA graphs (``SpecStep``) — gemma_2b (default configuration) with
    a one-layer draft and with an 18-layer one (the whole target),
    recurrentgemma_9b with a one-period draft (rglru, rglru, local), all
-   sharing the target's weights, and gemma2_27b with a one-period draft
-   (a local and a global layer); then gemma_2b and recurrentgemma_9b each
+   sharing the target's weights, gemma2_27b with a one-period draft
+   (a local and a global layer) and qwen15_4b with a one-layer one (its
+   head shared too); then gemma_2b and recurrentgemma_9b each
    with a one-period draft of weights of its own (``draft_config`` +
    ``draft_params``), which is rejected part of the time.  Each run's
    greedy tokens must equal phase 4's (b) run request for request, the
@@ -306,12 +317,15 @@ def gemm_phase(dev, rows):
     from repro_torch.core.autotune import PlanCache, GemmSignature, \
         plan_engine
     from repro_torch.core.epilogue import Epilogue
-    from repro_torch.core.geometry import (GROUPED_BK, BlockGeometry, SEW,
-                                           gemm_engine, splitk_engine)
-    from repro_torch.kernels.mte_gemm import mte_gemm_kernel, mte_gemm_torch
+    from repro_torch.core.geometry import (BlockGeometry, SEW, gemm_engine,
+                                           splitk_engine)
+    from repro_torch.kernels.mte_gemm import (bf16acc_block,
+                                              mte_gemm_kernel,
+                                              mte_gemm_torch)
     from repro_torch.kernels.splitk_gemm import (cluster_layout,
                                                  mte_gemm_splitk_kernel,
-                                                 mte_gemm_splitk_torch)
+                                                 mte_gemm_splitk_torch,
+                                                 splitk_cluster_torch)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     cache = PlanCache()
@@ -395,17 +409,23 @@ def gemm_phase(dev, rows):
         epi = Epilogue(alpha=0.7, beta=0.5, has_bias=True, bias_axis=axis,
                        softcap=20.0, activation="gelu")
         geom = BlockGeometry(16, 128, 64, 4, 1, False, sew16, sew16, "mte")
-        require(splitk_engine(a.dtype, m, n, k) == "cluster",
-                f"{m}x{n}x{k} is not on the cluster engine")
-        slices, _ = cluster_layout(m, n, k, dev)
-        kw = dict(geom=geom, epilogue=epi, out_dtype=out_dt)
-        got = mte_gemm_splitk_kernel(a, b, c, bias, **kw)
-        check(f"splitk_gemm_cluster {m}x{n}x{k} ({slices} slices, C "
-              f"{str(c_dt)[6:]}, {axis} bias)", got,
-              mte_gemm_splitk_torch(a, b, c, bias, n_split=slices, **kw),
-              2e-2)
-        require(torch.equal(got, mte_gemm_splitk_kernel(a, b, c, bias,
-                                                         **kw)),
+        slices, depth = cluster_layout(m, n, k, dev)
+        # f32 and bf16 (bf16acc: 64-row blocks of each slice) accumulators.
+        for acc, tol in ((None, 2e-2), (torch.bfloat16, 3e-2)):
+            require(splitk_engine(a.dtype, m, n, k, bf16acc=acc is not None)
+                    == "cluster", f"{m}x{n}x{k} is not on the cluster "
+                    f"engine")
+            kw = dict(epilogue=epi, out_dtype=out_dt, acc_dtype=acc)
+            got = mte_gemm_splitk_kernel(a, b, c, bias, geom=geom, **kw)
+            check(f"splitk_gemm_cluster {m}x{n}x{k} ({slices} slices, C "
+                  f"{str(c_dt)[6:]}, {axis} bias"
+                  f"{', bf16acc' if acc else ''})", got,
+                  splitk_cluster_torch(a, b, c, bias, n_split=slices,
+                                       depth=depth,
+                                       rbk=bf16acc_block(geom.bk, k), **kw),
+                  tol)
+            require(torch.equal(got, mte_gemm_splitk_kernel(
+                a, b, c, bias, geom=geom, **kw)),
                 "splitk_gemm_cluster: two calls differ")
 
     def main_path(label, m, n, k, act, dt=torch.bfloat16, tol=2e-2,
@@ -416,33 +436,32 @@ def gemm_phase(dev, rows):
         engine = plan_engine(sig, plan.geometry)
         a, b = operands(m, n, k, dt)
         geom, extra = plan.geometry, {}
+        acc = torch.bfloat16 if fmt == "bf16acc" else None
+        kw = dict(epilogue=epi, out_dtype=dt, acc_dtype=acc)
         if engine == "cluster":
             kern = "splitk_gemm_cluster"
-            slices, _ = cluster_layout(m, n, k, dev)
+            slices, depth = cluster_layout(m, n, k, dev)
             extra["slices"] = slices
             run = lambda: mte_gemm_splitk_kernel(  # noqa: E731
-                a, b, geom=geom, n_split=plan.n_split, epilogue=epi,
-                out_dtype=dt)
-            # The plain version in the engine's slices (64-row stages).
-            pgeom = dataclasses.replace(geom, bk=GROUPED_BK)
-            plain = lambda: mte_gemm_splitk_torch(  # noqa: E731
-                a, b, geom=pgeom, n_split=slices, epilogue=epi,
-                out_dtype=dt)
+                a, b, geom=geom, n_split=plan.n_split, **kw)
+            # The plain version in the engine's slices and, under bf16acc,
+            # its K blocks.
+            rbk = bf16acc_block(geom.bk, k)
+            plain = lambda: splitk_cluster_torch(  # noqa: E731
+                a, b, n_split=slices, depth=depth, rbk=rbk, **kw)
         elif plan.route == "splitk":
             kern = "splitk_gemm"
             run = lambda: mte_gemm_splitk_kernel(  # noqa: E731
-                a, b, geom=geom, n_split=plan.n_split, epilogue=epi,
-                out_dtype=dt)
+                a, b, geom=geom, n_split=plan.n_split, **kw)
             plain = lambda: mte_gemm_splitk_torch(  # noqa: E731
-                a, b, geom=geom, n_split=plan.n_split, epilogue=epi,
-                out_dtype=dt)
+                a, b, geom=geom, n_split=plan.n_split, **kw)
         else:
             kern = "mte_gemm_wgmma" if engine == "wgmma" else "mte_gemm"
             run = lambda: mte_gemm_kernel(  # noqa: E731
-                a, b, geom=geom, epilogue=epi, out_dtype=dt)
+                a, b, geom=geom, **kw)
             plain = lambda: mte_gemm_torch(  # noqa: E731
-                a, b, geom=geom, epilogue=epi, out_dtype=dt)
-        shape = f"{label} {m}x{n}x{k}"
+                a, b, geom=geom, **kw)
+        shape = f"{label} {m}x{n}x{k}{' bf16acc' if acc else ''}"
         want = plain()
         got = run()
         err = check(f"{kern} main-path {shape} [{plan.describe()}, engine "
@@ -474,10 +493,11 @@ def gemm_phase(dev, rows):
                 except ValueError:
                     continue     # x's slice would not fit, or empty slices
                 pinned = lambda: mte_gemm_splitk_kernel(  # noqa: E731
-                    a, b, geom=geom, epilogue=epi, out_dtype=dt,
-                    cluster_split=s)
-                want_s = mte_gemm_splitk_torch(a, b, geom=pgeom, n_split=s,
-                                               epilogue=epi, out_dtype=dt)
+                    a, b, geom=geom, cluster_split=s, **kw)
+                want_s = splitk_cluster_torch(
+                    a, b, n_split=s, depth=cluster_layout(m, n, k, dev,
+                                                          s)[1],
+                    rbk=rbk, **kw)
                 err = max(err, check(f"{kern} main-path {shape} {s} "
                                      f"slices", pinned(), want_s, tol))
                 row["ms_by_split"][s] = time_ms(pinned)
@@ -521,6 +541,19 @@ def gemm_phase(dev, rows):
                              ("g2 up", 36864, 4608, "none"),
                              ("g2 down", 4608, 36864, "none")]:
         main_path(label, 4, n, k, act)
+    # qwen15_4b (d 2560, 20 heads x 128 = 2560, d_ff 6912, SwiGLU) under
+    # its bf16acc format: the prefill chunk's gate on B1's wgmma mainloop
+    # (bf16 accumulator, 128-wide tiles at most), and the decode step's o,
+    # gate and down on B2's cluster engine with the bf16 accumulator
+    # (up is gate's shape without the activation), each beside the f32
+    # accumulator's run at the same shape.
+    for fmt, tol in (("bf16acc", 3e-2), ("bf16", 2e-2)):
+        main_path("q gate", 512, 6912, 2560, "silu", fmt=fmt, cold=True,
+                  tol=tol)
+        for label, n, k, act in [("q o", 2560, 2560, "none"),
+                                 ("q gate", 6912, 2560, "silu"),
+                                 ("q down", 2560, 6912, "none")]:
+            main_path(label, 4, n, k, act, fmt=fmt, tol=tol)
     # The tile loops' rows, at the shapes phase 3's reduced fp32 gemma_2b
     # (d_model 128, d_ff 256) gives them: B1's gate in the 4096-token
     # chunk, B2's gate in the 2-slot decode.
@@ -546,7 +579,29 @@ def grouped_phase(dev, rows):
                                            grouped_engine)
     from repro_torch.graph import stack_group_weights
     from repro_torch.kernels.grouped_gemm import (grouped_gemm_kernel,
-                                                  grouped_gemm_torch)
+                                                  grouped_gemm_torch,
+                                                  grouped_splitk_torch,
+                                                  split_layout)
+    from repro_torch.kernels.mte_gemm import bf16acc_block
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plain_of(x, w, kw, n_split=None):
+        """The plain version of the engine that runs ``kw``: under bf16acc
+        on the split-K engine, its slices (pinned, or the card's) and K
+        blocks; else the whole-K version (an f32 accumulator's slices
+        differ from it in f32 summation order only)."""
+        acc = kw.get("acc_dtype")
+        g, c, k = x.shape
+        if acc is None or grouped_engine(x.dtype, c, w.shape[2], k,
+                                         bf16acc=True) != "splitk":
+            return lambda: grouped_gemm_torch(x, w, **kw)  # noqa: E731
+        slices, depth = split_layout(x, w, widths=kw.get("widths"),
+                                     n_split=n_split, sm_count=sms)
+        pkw = {key: v for key, v in kw.items() if key != "geom"}
+        return lambda: grouped_splitk_torch(  # noqa: E731
+            x, w, n_split=slices, depth=depth,
+            rbk=bf16acc_block(kw["geom"].bk, k), **pkw)
 
     gen = torch.Generator(device=dev).manual_seed(4)
     modes = [("fp32", torch.float32, None, torch.float32, 1e-4),
@@ -561,7 +616,7 @@ def grouped_phase(dev, rows):
                                          500)),
               (2, 1, 130, 136, True, None)]
     for label, dt, acc, out_dt, tol in modes:
-        cases = ragged + (splitk if label == "bf16" else [])
+        cases = ragged + (splitk if label in ("bf16", "bf16acc") else [])
         for g, c, k, n, shared, widths in cases:
             if dt == torch.int8:
                 x = torch.randint(-127, 128, (g, c, k), generator=gen,
@@ -590,8 +645,8 @@ def grouped_phase(dev, rows):
             shape = (f"{label} G={g} {c}x{n}x{k}"
                      f"{' shared-x' if shared else ''}"
                      f"{' widths' if widths else ''}")
-            err = check(f"{kernel} {shape}", got,
-                        grouped_gemm_torch(x, w, **kw), tol)
+            err = check(f"{kernel} {shape}", got, plain_of(x, w, kw)(),
+                        tol)
             rows.append({"kernel": kernel, "shape": shape,
                          "max_abs_err": err, "tol": tol})
             if engine == "splitk":
@@ -600,7 +655,7 @@ def grouped_phase(dev, rows):
 
     cache = PlanCache()
 
-    def main_path(label, g, c, k, widths, out_dt):
+    def main_path(label, g, c, k, widths, out_dt, fmt="bf16"):
         n = max(widths)
         x = (torch.randn(c, k, generator=gen, device=dev)
              / math.sqrt(k)).to(torch.bfloat16)
@@ -609,18 +664,21 @@ def grouped_phase(dev, rows):
         wstack = stack_group_weights(ws)
         xg = x[None].expand(g, c, k)
         sig = GemmSignature.make(c, n, k, "bfloat16", out_dt, Epilogue(),
-                                 group=g, fmt="bf16")
+                                 group=g, fmt=fmt)
         plan = cache.plan(sig)
         engine = plan_engine(sig, plan.geometry)
         name = "grouped_gemm_splitk" if engine == "splitk" \
             else "grouped_gemm"
         kw = dict(geom=plan.geometry, out_dtype=out_dt,
-                  widths=list(widths))
+                  widths=list(widths),
+                  acc_dtype=torch.bfloat16 if fmt == "bf16acc" else None)
+        tol = 3e-2 if fmt == "bf16acc" else 2e-2
+        label += " bf16acc" if fmt == "bf16acc" else ""
         run = lambda: grouped_gemm_kernel(xg, wstack, **kw)  # noqa: E731
-        plain = lambda: grouped_gemm_torch(xg, wstack, **kw)  # noqa: E731
+        plain = plain_of(xg, wstack, kw)
         got = run()
         err = check(f"{name} main-path {label} [{plan.describe()}, "
-                    f"engine {engine}]", got, plain(), 2e-2)
+                    f"engine {engine}]", got, plain(), tol)
         if engine == "splitk":
             require(torch.equal(got, run()), f"{name}: two calls differ")
         live = sum(widths)
@@ -630,7 +688,7 @@ def grouped_phase(dev, rows):
         lib = lambda: torch.bmm(xg, wstack)  # noqa: E731
         row = {"kernel": name, "shape": label,
                "plan": plan.describe(), "engine": engine,
-               "max_abs_err": err, "tol": 2e-2,
+               "max_abs_err": err, "tol": tol,
                "ms": time_ms(run), "plain_ms": time_ms(plain),
                "bound_ms": bound_ms(flops, nbytes, PEAK["bf16"]),
                "bound_by": bound_by(flops, nbytes, PEAK["bf16"]),
@@ -641,12 +699,12 @@ def grouped_phase(dev, rows):
             row["cold_ms"] = time_ms_cold(run)
             row["library_cold_ms"] = time_ms_cold(lib)
             row["ms_by_split"] = {}
-            want = plain()
             for s in (1, 2, 4, 8):
                 pinned = lambda: grouped_gemm_kernel(  # noqa: E731
                     xg, wstack, n_split=s, **kw)
                 err = max(err, check(f"{name} main-path {label} {s} "
-                                     f"slices", pinned(), want, 2e-2))
+                                     f"slices", pinned(),
+                                     plain_of(xg, wstack, kw, s)(), tol))
                 row["ms_by_split"][s] = time_ms(pinned)
             row["max_abs_err"] = err
         rows.append(row)
@@ -666,6 +724,11 @@ def grouped_phase(dev, rows):
               torch.bfloat16)
     main_path("qkv decode 3x4x4608x4096", 3, 4, 4608, (4096, 2048, 2048),
               torch.bfloat16)
+    # qwen15_4b's MHA group (no padding) under its bf16acc format, and with
+    # the f32 accumulator at the same shape.
+    for fmt in ("bf16acc", "bf16"):
+        main_path("qkv decode 3x4x2560x2560", 3, 4, 2560, (2560,) * 3,
+                  torch.bfloat16, fmt=fmt)
     main_path("gate+up prefill 2x512x2048x16384", 2, 512, 2048,
               (16384, 16384), torch.float32)
 
@@ -957,6 +1020,10 @@ def decode_phase(dev, rows):
     main_path("g2 4 slots x 32/16 heads x 128, ~4620 tokens, softcap 50",
               4, 32, 16, 128, 16, [4615, 4626, 4609, 4632], torch.bfloat16,
               1e-2, **GEMMA2_ATTN)
+    # qwen15_4b: MHA (G = 1: one live row of the mma's 16), 20 heads of
+    # 128, ~2060 cached tokens per slot.
+    main_path("q 4 slots x 20/20 heads x 128, ~2060 tokens", 4, 20, 20,
+              128, 16, [2054, 2065, 2048, 2071], torch.bfloat16, 1e-2)
     main_path("fp32 2 slots x 4 heads x 32, 40 tokens", 2, 4, 1, 32, 8,
               [37, 43], torch.float32, 1e-5)
 
@@ -1067,6 +1134,10 @@ def attention_phase(dev, rows):
                   dtype)
     main_path("g2 512x4608 H=32/16 D=128 softcap 50", 1, 32, 16, 512, 4608,
               128, torch.bfloat16, cold=True, **GEMMA2_ATTN)
+    # qwen15_4b's last prefill chunk of a 2048-token prompt: 512 queries x
+    # 20 heads on 20 kv heads (MHA), D = 128, against 2048 tokens.
+    main_path("q 512x2048 H=20/20 D=128", 1, 20, 20, 512, 2048, 128,
+              torch.bfloat16, cold=True)
 
 
 def ring_decode_phase(dev, rows):
@@ -1295,6 +1366,7 @@ CONFIGS = {
     "eager": ("gemma_2b", {"use_graph": False}),
     "recurrentgemma": ("recurrentgemma_9b", {"param_dtype": "bfloat16"}),
     "gemma2": ("gemma2_27b", {"param_dtype": "bfloat16"}),
+    "qwen": ("qwen15_4b", {"param_dtype": "bfloat16"}),
 }
 # Kernels each configuration's main path must launch.
 PATH_KERNELS = {
@@ -1310,6 +1382,8 @@ PATH_KERNELS = {
     "gemma2": ("mte_gemm_wgmma", "splitk_gemm_cluster", "grouped_gemm_splitk",
                "flash_decode_paged_mma", "flash_decode_mma",
                "flash_attention_wgmma"),
+    "qwen": ("mte_gemm_wgmma", "splitk_gemm_cluster", "grouped_gemm_splitk",
+             "flash_decode_paged_mma", "flash_attention_wgmma"),
 }
 # Counters that must stay 0 at full width: every bf16 B1 launch (all of
 # them prefill projections) and every bf16 B8 stage-1 launch runs on the
@@ -1328,13 +1402,16 @@ NOT_ON_PATH = {
                        "flash_decode", "rglru_scan"),
     "gemma2": ("mte_gemm", "splitk_gemm", "grouped_gemm",
                "flash_decode_paged", "flash_decode", "flash_attention"),
+    "qwen": ("mte_gemm", "splitk_gemm", "grouped_gemm", "flash_decode_paged",
+             "flash_attention"),
 }
 # Launches of the new engines per profiled decode step: gemma_2b's 18
 # layers run B2 on o, gate, up and down (and on q, k, v on the eager path)
 # and B4 once; recurrentgemma_9b's decode GEMMs make 256 B2 launches and
 # its 12 local layers 12 B6 launches; gemma2_27b's 46 layers run B2 on o,
 # gate, up and down, and its 23 global layers B4 once each and its 23
-# local layers B6 once each.
+# local layers B6 once each; qwen15_4b's 40 layers run B2 (bf16acc) on o,
+# gate, up and down and B4 once each.
 DECODE_STEP_LAUNCHES = {
     "default": {"splitk_gemm_cluster": 72, "flash_decode_paged_mma": 18},
     "amx": {"flash_decode_paged_mma": 18},
@@ -1342,6 +1419,7 @@ DECODE_STEP_LAUNCHES = {
     "recurrentgemma": {"splitk_gemm_cluster": 256, "flash_decode_mma": 12},
     "gemma2": {"splitk_gemm_cluster": 184, "flash_decode_paged_mma": 23,
                "flash_decode_mma": 23},
+    "qwen": {"splitk_gemm_cluster": 160, "flash_decode_paged_mma": 40},
 }
 # Phase 4's workload per arch: 4 slots, 16-token pages, 512-token prefill
 # chunks, 6 requests x 24 greedy tokens.  gemma_2b: 1024-token prompts, two
@@ -1350,8 +1428,9 @@ DECODE_STEP_LAUNCHES = {
 # at 2048) and in decode; no prefix cache (stateful layers).
 # gemma2_27b: 4608-token prompts, so its 4096-slot rings wrap in prefill
 # (the chunk at 4096) and in decode while its global layers see every
-# token; no prefix cache (the rings).  ``decode`` and ``pos0`` place the
-# profiled decode step and prefill chunk.
+# token; no prefix cache (the rings).  qwen15_4b: 2048-token prompts, two
+# sharing their first chunk (the prefix cache).  ``decode`` and ``pos0``
+# place the profiled decode step and prefill chunk.
 WORKLOADS = {
     "gemma_2b": dict(prefill_len=1024, cache_len=1088, shared=512,
                      decode=[1030, 1041, 1024, 1047], pos0=512),
@@ -1359,6 +1438,8 @@ WORKLOADS = {
                               decode=[2570, 2581, 2564, 2587], pos0=2048),
     "gemma2_27b": dict(prefill_len=4608, cache_len=4672, shared=0,
                        decode=[4614, 4625, 4608, 4631], pos0=4096),
+    "qwen15_4b": dict(prefill_len=2048, cache_len=2112, shared=512,
+                      decode=[2054, 2065, 2048, 2071], pos0=1536),
 }
 
 
@@ -1776,6 +1857,108 @@ def reduced_gemma2_phase(dev):
     return {"reduced-gemma2": path_counts, "reduced-gemma2-spec": spec}
 
 
+def random_qkv_biases(params, cfg, seed: int = 1):
+    """Draw every q/k/v bias from 0.5 x N(0, 1) (seeded; ``init_params``
+    makes them zero, as JAX does), so a served run adds biases that
+    move its activations."""
+    import torch
+    if not cfg.qkv_bias:
+        return params
+    dev = params["layers"][0]["mixer"]["q"]["b"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for lp in params["layers"]:
+            for name in ("q", "k", "v"):
+                b = lp["mixer"][name]["b"]
+                b.copy_(0.5 * torch.randn(b.shape, generator=gen,
+                                          device=dev))
+    return params
+
+
+def reduced_qwen_phase(dev):
+    """qwen15_4b.reduced() under its published bf16acc format with a bf16
+    compute dtype, default configuration, card against CPU: MHA, QKV
+    biases (drawn non-zero), an untied LM head.  A 32-token prompt in
+    chunks of 16: first-token logits within 5e-2 (bf16 activations; the
+    two sides round the same contracts, the kernels' f32 block partials
+    summed in another order); identical greedy streams from the engine
+    (3 requests on 2 slots) on the card in its defaults and on the CPU
+    synchronous and eager, and the same with ``spec_k=4`` (the
+    weight-shared one-layer draft).  The card's decode GEMMs and q/k/v
+    groups must run on B2's and B3's cluster engines with the bf16
+    accumulator.  Returns the card's launch counts (keys
+    ``reduced-qwen``, ``reduced-qwen-spec``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config("qwen15_4b").reduced(),
+                              format_policy="bf16acc",
+                              compute_dtype="bfloat16")
+    reset_planning()
+    params_cpu = random_qkv_biases(
+        model_lib.init_params(cfg, seed=0, device="cpu"), cfg)
+    params_gpu = to_device(params_cpu, dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n_tok, dtype=np.int32)
+               for n_tok in (32, 21, 30, 17)]
+    logits = {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        cache = model_lib.init_paged_cache(cfg, 2, 64, num_pages=17,
+                                           page_size=8, device=device)
+        table = torch.arange(1, 9, dtype=torch.int32, device=device)[None]
+        toks = torch.as_tensor(prompts[0].astype(np.int64), device=device)
+        for p0 in (0, 16):
+            out, cache = model_lib.prefill_chunk(
+                params, {"tokens": toks[None, p0:p0 + 16],
+                         "page_table": table}, cache, cfg, pos0=p0)
+        logits[str(device)] = out.cpu()
+    err = max_err(logits[str(dev)], logits["cpu"])
+    log(f"  reduced qwen bf16acc first-token logits cuda vs cpu: "
+        f"max_abs_err={err:.3e} tol=5e-2")
+    require(err <= 5e-2, f"qwen first-token logits differ by {err}")
+    kw = dict(slots=2, cache_len=64, prefill_len=32, page_size=8,
+              prefill_chunk=16)
+    outs = {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        eng = ServingEngine(params, cfg, device=device,
+                            async_steps=device == dev, **kw)
+        for rid, p in enumerate(prompts[1:]):
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
+        build.reset_launch_counts()
+        outs[str(device)] = eng.run()
+        counts = build.launch_counts()
+        log(f"  reduced qwen engine on {device}: "
+            f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
+            f"launches {counts}; steps_in_flight_max "
+            f"{eng.steps_in_flight_max}, graphs "
+            f"{sorted(eng.decode_step.graphs)}")
+        if device == dev:
+            require(eng.decode_step.graph and eng.decode_step.graphs,
+                    "reduced qwen: the card's decode step was not "
+                    "replayed as a CUDA graph")
+            path_counts = counts
+            for kernel in ("splitk_gemm_cluster", "grouped_gemm_splitk"):
+                require(counts[kernel] > 0,
+                        f"reduced qwen: {kernel} not launched")
+            for kernel in ("splitk_gemm", "grouped_gemm"):
+                require(counts[kernel] == 0,
+                        f"reduced qwen: {counts[kernel]} bf16acc launches "
+                        f"of {kernel}: the cluster engines take them")
+    for rid in outs["cpu"]:
+        require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
+        require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
+                f"qwen greedy stream of request {rid} differs")
+    log("  reduced qwen engine: greedy streams identical on cuda "
+        "(async + graph) and cpu (synchronous, eager)")
+    spec = reduced_spec_check(dev, "qwen", cfg, params_cpu, params_gpu,
+                              prompts[1:], kw, outs["cpu"])
+    return {"reduced-qwen": path_counts, "reduced-qwen-spec": spec}
+
+
 # -- phase 4: full-width serving ---------------------------------------------
 
 MAX_TOKENS = 24
@@ -1829,7 +2012,8 @@ def serving_phase(dev, name):
         builds them anew, so neither run's peak holds the other's)."""
         reset_planning()
         t0 = time.perf_counter()
-        params = model_lib.init_params(cfg, seed=0, device=dev)
+        params = random_qkv_biases(
+            model_lib.init_params(cfg, seed=0, device=dev), cfg)
         torch.cuda.synchronize()
         log(f"  {arch} params: {model_lib.param_count(params) / 1e9:.3f} B "
             f"({cfg.param_dtype}), init {time.perf_counter() - t0:.1f} s")
@@ -2283,6 +2467,7 @@ SPEC_RUNS = {
     "default-own1": ("default", 1, "own"),
     "recurrentgemma-own1": ("recurrentgemma", 1, "own"),
     "gemma2-draft1": ("gemma2", 1, "shared"),
+    "qwen-draft1": ("qwen", 1, "shared"),
 }
 REJECTING_DRAFT_SCALE = 2.5
 SPEC_K = 4
@@ -2406,7 +2591,8 @@ def speculative_phase(dev, run, vanilla, vanilla_async, smi):
             return out
 
     reset_planning()
-    params = model_lib.init_params(cfg, seed=0, device=dev)
+    params = random_qkv_biases(
+        model_lib.init_params(cfg, seed=0, device=dev), cfg)
     if weights == "shared":
         draft_kw = dict(draft_groups=groups)
         about = "weights shared with the target"
@@ -2854,6 +3040,17 @@ GEMMA2_ROWS = {
     "flash_attention_wgmma": "g2 512x4608 H=32/16 D=128 softcap 50",
     "flash_decode_mma": "g2 ring 4x32/16x128 L=4096 softcap 50",
 }
+# The same at qwen15_4b's shapes under its bf16acc format (launches from
+# phase 4's qwen run): the prefill gate on B1 and the decode gate on B2 with
+# the bf16 accumulator, the MHA decode q/k/v group on B3 likewise, and
+# attention at G = 1 on B4 (decode) and B5 (the last prefill chunk).
+QWEN_ROWS = {
+    "mte_gemm_wgmma": "q gate 512x6912x2560 bf16acc",
+    "splitk_gemm_cluster": "q gate 4x6912x2560 bf16acc",
+    "grouped_gemm_splitk": "qkv decode 3x4x2560x2560 bf16acc",
+    "flash_decode_paged_mma": "q 4 slots x 20/20 heads x 128, ~2060 tokens",
+    "flash_attention_wgmma": "q 512x2048 H=20/20 D=128",
+}
 
 
 def parse_args():
@@ -2906,6 +3103,8 @@ def main() -> int:
     counts.update(reduced_recurrent_phase(dev))
     log("== 3. reduced gemma2_27b (fp32): card against CPU, default")
     counts.update(reduced_gemma2_phase(dev))
+    log("== 3. reduced qwen15_4b (bf16acc): card against CPU, default")
+    counts.update(reduced_qwen_phase(dev))
     for name, (arch, overrides) in CONFIGS.items():
         log(f"== 4. full-width {arch} serving (bf16), configuration "
             f"[{name}] {overrides or '(defaults)'}")
@@ -2936,14 +3135,16 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"]})
-        if name in GEMMA2_ROWS:
-            g2 = next(r for r in mine if r["shape"] == GEMMA2_ROWS[name])
-            kernels[-1]["at_gemma2"] = {
-                "launches": counts["gemma2"][name],
-                **{k: g2.get(k) for k in (
-                    "shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
-                    "bound_ms", "bound_by", "library_ms",
-                    "sdpa_without_softcap_ms")}}
+        for key, config, at in (("at_gemma2", "gemma2", GEMMA2_ROWS),
+                                ("at_qwen", "qwen", QWEN_ROWS)):
+            if name in at:
+                row = next(r for r in mine if r["shape"] == at[name])
+                kernels[-1][key] = {
+                    "launches": counts[config][name],
+                    **{k: row.get(k) for k in (
+                        "shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms",
+                        "sdpa_without_softcap_ms")}}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"nvidia_smi": smi, "rows": rows, "serving": serving,
                    "speculative": speculative, "kernels": kernels,

@@ -219,7 +219,8 @@ ARCH_NAMES = [
     "musicgen_medium", "chameleon_34b", "gemma2_27b", "starcoder2_7b",
     "gemma_2b", "qwen15_4b", "mamba2_130m",
 ]
-PORTED_ARCHS = ("gemma_2b", "recurrentgemma_9b", "gemma2_27b")
+PORTED_ARCHS = ("gemma_2b", "recurrentgemma_9b", "gemma2_27b",
+                "qwen15_4b")
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 

@@ -5,7 +5,8 @@ of ``period`` layer dicts whose leaves are stacked over the scanned groups
 (``repro/models/model.py:81-107``), plus an unrolled ``params["tail"]``.
 :func:`params_from_jax` unstacks them into the port's per-layer list —
 layer ``g * period + j`` is ``groups[j]`` at index ``g`` — and keeps the
-tied embedding table.  The caller converts the JAX arrays to numpy first
+embedding table and, for an untied model, the LM head (``head``,
+(d_model, vocab)).  The caller converts the JAX arrays to numpy first
 (``jax.device_get``); this module imports neither JAX nor the JAX package.
 """
 from __future__ import annotations

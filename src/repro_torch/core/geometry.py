@@ -22,7 +22,8 @@ operand type, the accumulator, the tile and the alignment of K and N.
 B2–B7 have a second engine each, chosen the same way:
 :func:`splitk_engine` and :func:`grouped_engine` (the cluster split-K
 mainloop of ``splitk_cluster.cuh`` for bf16 GEMMs of at most 16 rows,
-else the tile loop), :func:`decode_engine` and :func:`flat_decode_engine`
+with an f32 or a bf16 accumulator, else the tile loop),
+:func:`decode_engine` and :func:`flat_decode_engine`
 (mma.sync over 16-position tiles of the pages or of the flat or ring
 cache for bf16, else the SIMT kernel), :func:`attention_engine` (TMA +
 wgmma for bf16 at head dims 64/128/256, else the SIMT kernel) and
@@ -40,7 +41,10 @@ names.
 
 ``bk`` is the K slice a plan works in: the split-K slice granularity and,
 under ``bf16acc``, the block after which the running sum is rounded to
-bf16.  It is a multiple of the tile loop's 32-deep inner tile.  Split-K
+bf16 (on the cluster split-K engines: blocks of ``bk`` rows counted from
+each K slice's first row, whose bf16 partials are summed in f32 and
+rounded once, as the reference's split-K kernel sums its bf16 partials).
+It is a multiple of the tile loop's 32-deep inner tile.  Split-K
 is offered when the (M, N) tile grid, ``cdiv(M,bm)·cdiv(N,bn)``, is below
 the card's SM count — the rule that replaces the TPU's 8-core horizon.
 """
@@ -155,17 +159,21 @@ def grouped_engine(dtype_in, m: int, n: int, k: int, *,
                    bf16acc: bool = False) -> str:
     """The engine that runs one B3 launch: ``"splitk"`` or ``"tile"``.
 
-    A pure function of the operand type, the accumulator and the shape;
-    the wrapper launches what it names and nothing else:
+    A pure function of the operand type and the shape (both accumulators,
+    f32 and ``bf16acc``'s bf16, take the same engine); the wrapper
+    launches what it names and nothing else:
 
     - ``"splitk"`` (the cluster split-K kernel) for bf16 operands with an
-      f32 accumulator, at most 16 rows (the decode group), N a multiple of
-      8 (TMA's 16-byte row alignment of the weight) and a K that 8 slices
-      of x cover in shared memory (m = 16: K ≤ 32256);
-    - ``"tile"`` (the tile loop) otherwise: fp32, int8, C > 16, and
-      bf16acc, whose running sum is rounded once per K block in K order,
-      a contract a split-K sum cannot keep."""
-    if (dtype_name(dtype_in) == "bfloat16" and not bf16acc
+      f32 or a bf16 (``bf16acc``) accumulator, at most 16 rows (the decode
+      group), N a multiple of 8 (TMA's 16-byte row alignment of the
+      weight) and a K that 8 slices of x cover in shared memory (m = 16:
+      K ≤ 32256).  Under bf16acc each slice rounds its running sum once
+      per K block of the slice and the slices' bf16 partials are summed
+      in f32 and rounded once: B2's split-K contract, where the
+      reference's grouped kernel rounds in K order over all of K (the
+      two agree to bf16 tolerance);
+    - ``"tile"`` (the tile loop) otherwise: fp32, int8 and C > 16."""
+    if (dtype_name(dtype_in) == "bfloat16"
             and m <= GROUPED_MAX_M and n % WGMMA_ALIGN == 0
             and k <= MAX_CLUSTER * grouped_max_depth(m)):
         return "splitk"
@@ -218,18 +226,23 @@ def splitk_engine(dtype_in, m: int, n: int, k: int, *,
                   bf16acc: bool = False) -> str:
     """The engine that runs one B2 launch: ``"cluster"`` or ``"tile"``.
 
-    A pure function of the operand type, the accumulator and the shape;
-    the wrapper launches what it names and nothing else:
+    A pure function of the operand type and the shape (both accumulators,
+    f32 and ``bf16acc``'s bf16, take the same engine); the wrapper
+    launches what it names and nothing else:
 
     - ``"cluster"`` (B3's cluster split-K mainloop at G = 1, the reduction
       and the whole epilogue in the launch) for bf16 operands with an f32
-      accumulator, at most 16 rows (decode, and the verify GEMMs of
-      speculation), N a multiple of 8 (TMA's 16-byte row alignment of the
-      weight) and a K that 8 slices of x cover in shared memory;
+      or a bf16 (``bf16acc``) accumulator, at most 16 rows (decode, and
+      the verify GEMMs of speculation), N a multiple of 8 (TMA's 16-byte
+      row alignment of the weight) and a K that 8 slices of x cover in
+      shared memory.  Under bf16acc the engine keeps the reference's
+      split-K contract (``splitk_gemm.py:76-105`` there): a bf16 running
+      sum per slice, rounded once per K block of the slice, the slices'
+      bf16 partials summed and rounded once, every epilogue step rounded
+      to bf16;
     - ``"tile"`` (the tile loop, partials summed in PyTorch) otherwise:
-      fp32, int8, M > 16 and bf16acc, whose running sum is rounded once
-      per K block in K order."""
-    if (dtype_name(dtype_in) == "bfloat16" and not bf16acc
+      fp32, int8 and M > 16."""
+    if (dtype_name(dtype_in) == "bfloat16"
             and m <= GROUPED_MAX_M and n % WGMMA_ALIGN == 0
             and k <= MAX_CLUSTER * grouped_max_depth(m)):
         return "cluster"
@@ -269,10 +282,11 @@ def window_rows(engine: str, plan_rows: int, depth: int = 0) -> int:
       ``plan_rows``): the most rows up to GROUPED_MAX_M whose x slice of
       ``depth`` fits the engine's shared memory
       (:func:`grouped_max_depth`); a row computes alike whatever rows ride
-      with it on the same split, and past that count the launch would
-      leave the engine or refuse the split.  At gemma2_27b's decode gate
-      and up (K 4608, one slice) that is 14 rows, at its down (K 36864,
-      4 slices of 9216) 7.
+      with it on the same split -- under bf16acc too: each row's running
+      sum is rounded at the same K rows whatever rides with it --, and
+      past that count the launch would leave the engine or refuse the
+      split.  At gemma2_27b's decode gate and up (K 4608, one slice) that
+      is 14 rows, at its down (K 36864, 4 slices of 9216) 7.
     - Otherwise (the tile loops, whose rows are each computed alike on a
       given tile) GROUPED_MAX_M."""
     if plan_rows > GROUPED_MAX_M:

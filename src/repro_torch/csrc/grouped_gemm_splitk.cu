@@ -1,10 +1,17 @@
 // B3's split-K engine: the decode group's grouped GEMM for Hopper (sm_90a).
 //
-// Replaces, for bf16 operands with an f32 accumulator and at most 16 rows:
-// src/repro/kernels/grouped_gemm.py, grouped_gemm_pallas / _kernel
-// (x (G, C, K) @ w (G, K, N) -> (G, C, N), the epilogue -- no C, no bias --
-// on each member's accumulator).  Everything else stays on the tile loop
-// (grouped_gemm.cu); core/geometry.py:grouped_engine chooses.
+// Replaces, for bf16 operands with an f32 or a bf16 (bf16acc) accumulator
+// and at most 16 rows: src/repro/kernels/grouped_gemm.py,
+// grouped_gemm_pallas / _kernel (x (G, C, K) @ w (G, K, N) -> (G, C, N),
+// the epilogue -- no C, no bias -- on each member's accumulator).
+// Everything else stays on the tile loop (grouped_gemm.cu);
+// core/geometry.py:grouped_engine chooses.  Under bf16acc the reference
+// rounds its running sum once per K block in K order over the whole of K;
+// here each slice does so over its own K rows and the slices' bf16
+// partials are summed in f32 and rounded once (splitk_cluster.cuh), as
+// the reference's split-K kernel does -- a deliberate difference, held to
+// the reference within bf16 tolerance -- and the epilogue rounds every
+// step to bf16 (epilogue.cuh's R = true).
 //
 // What bounds it on the H100: bytes.  The decode q/k/v group (C = 4 slots,
 // K = d_model, members 2048/256/256 wide for gemma_2b, 4096/256/256 for
@@ -49,10 +56,11 @@ __device__ __forceinline__ int live_width(const Widths& wd, int g, int N) {
   return g < wd.count ? min(wd.w[g], N) : N;
 }
 
+template <bool BF16ACC>
 __global__ void __launch_bounds__(skc::THREADS, 1)
     grouped_splitk_kernel(const __grid_constant__ CUtensorMap tmw,
                           const unsigned short* X, long sx, long ldx, int G,
-                          int M, int N, int K, int depth, Epi epi,
+                          int M, int N, int K, int depth, int rbk, Epi epi,
                           Widths wd) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const skc::Smem sm = skc::carve(smem);
@@ -104,26 +112,31 @@ __global__ void __launch_bounds__(skc::THREADS, 1)
   const auto load = [&](void* dst, uint64_t* bar, int col, int krow) {
     wg::tma_load_3d(dst, &tmw, bar, col, krow, g);
   };
-  skc::mainloop(sm, &tmw, X + static_cast<long>(max(g, 0)) * sx, ldx, M, K,
-                k0, depth, nst, n0, n_live, load, zero_padding);
+  skc::mainloop<BF16ACC>(sm, &tmw, X + static_cast<long>(max(g, 0)) * sx,
+                         ldx, M, K, k0, depth, nst, n0, n_live, rbk, load,
+                         zero_padding);
   const long o_base = static_cast<long>(max(g, 0)) * M * N;
-  skc::reduce(sm, M, N - n0, g >= 0, [&](int r, int c, float v) {
+  skc::reduce<BF16ACC>(sm, M, N - n0, g >= 0, [&](int r, int c, float v) {
     const int gc = n0 + c;
     store_from_f32(epi.out, o_base + static_cast<long>(r) * N + gc,
                    epi.out_type,
-                   gc < n_live ? apply_epi<false>(v, r, gc, epi) : 0.0f);
+                   gc < n_live ? apply_epi<BF16ACC>(v, r, gc, epi) : 0.0f);
   });
 }
 
 }  // namespace
 
+// bf16acc: a bf16 accumulator, rounded once per rbk-deep block (a multiple
+// of 16) of each slice, alpha and softcap already bf16 values; rbk is not
+// read otherwise.
 extern "C" int grouped_gemm_splitk_launch(
     const void* x, const void* w, void* out, int G, int M, int N, int K,
     long sx, long ldx, int out_type, int n_split, int depth, int n_tiles,
-    float alpha, int has_softcap, float softcap, int act, int n_widths,
-    const int* widths, void* stream) {
+    int bf16acc, int rbk, float alpha, int has_softcap, float softcap,
+    int act, int n_widths, const int* widths, void* stream) {
   if (G <= 0 || M <= 0 || M > skc::MAX_M || N <= 0 || N % 8 != 0 ||
       K <= 0 || n_split < 1 || n_split > skc::MAX_SPLIT || depth <= 0 ||
+      (bf16acc && (rbk <= 0 || rbk % 16 != 0)) ||
       depth % skc::BK != 0 || static_cast<long>(n_split - 1) * depth >= K ||
       static_cast<long>(n_split) * depth < K || n_tiles < 1 ||
       n_widths < 0 || n_widths > MAX_WIDTHS ||
@@ -138,9 +151,14 @@ extern "C" int grouped_gemm_splitk_launch(
   for (int i = 0; i < n_widths; ++i) wd.w[i] = widths[i];
   const int smem = skc::smem_bytes(M, depth);
   if (smem > wg::SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  return wg::launch_cluster<grouped_splitk_kernel>(
-      dim3(n_split, n_tiles), skc::THREADS, n_split, smem,
-      static_cast<cudaStream_t>(stream), tmw,
-      static_cast<const unsigned short*>(x), sx, ldx, G, M, N, K, depth, epi,
-      wd);
+  const dim3 grid(n_split, n_tiles);
+  const auto* x16 = static_cast<const unsigned short*>(x);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (bf16acc)
+    return wg::launch_cluster<grouped_splitk_kernel<true>>(
+        grid, skc::THREADS, n_split, smem, st, tmw, x16, sx, ldx, G, M, N, K,
+        depth, rbk, epi, wd);
+  return wg::launch_cluster<grouped_splitk_kernel<false>>(
+      grid, skc::THREADS, n_split, smem, st, tmw, x16, sx, ldx, G, M, N, K,
+      depth, rbk, epi, wd);
 }

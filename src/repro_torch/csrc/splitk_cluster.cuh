@@ -28,6 +28,16 @@
 // - W: four consumer warps, 32 columns each, read their B fragments with
 //   ldmatrix.trans from the swizzled (K, N) row-major panels: the swizzle
 //   makes the 8 rows of each 8 x 8 matrix hit 8 different bank groups.
+// - bf16acc (BF16ACC): a bf16 accumulator emulated per slice, as B1's wgmma
+//   mainloop emulates one: a second register set holds the f32 partial of
+//   the current `rbk`-deep K block, counted from the slice's first row
+//   (rbk a multiple of 16, so a boundary can fall inside a 64-deep stage);
+//   where a block ends -- or the slice's live rows do -- the running sum
+//   becomes bf16_round(acc + bf16_round(part)).  The slices' bf16 partials
+//   are then summed in f32 in rank order and the sum rounded to bf16 once
+//   (reduce<true>): the reference's split-K contract under bf16acc
+//   (bf16 partials per slice, their sum, src/repro/kernels/splitk_gemm.py).
+//   The f32 path (BF16ACC false) compiles to the loop without it.
 // - Reduction (reduce()): each CTA leaves its f32 partial (16 x 128) in its
 //   idle ring; after a cluster barrier, rank r takes every S-th run of
 //   THREADS elements from the r-th on, sums each over the ranks in rank
@@ -108,12 +118,14 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
 // load(dst, bar, column, k row) issues one 64 x 64 panel's TMA load
 // through `map` (prefetched once by the producer); the consumers call
 // side() (work that overlaps the first stages' loads) before they copy x.
-// On return the CTA's f32 partial is in sm.part.
-template <class Load, class Side>
+// BF16ACC rounds the running sum once per rbk-deep block of the slice.
+// On return the CTA's partial is in sm.part (f32; bf16 values under
+// BF16ACC).
+template <bool BF16ACC, class Load, class Side>
 __device__ __forceinline__ void mainloop(
     const Smem& sm, const CUtensorMap* map, const unsigned short* xg,
     long ldx, int M, int K, int k0, int depth, int nst, int n0, int n_live,
-    const Load& load, const Side& side) {
+    int rbk, const Load& load, const Side& side) {
   const int ldxs = depth + X_PAD;
   const int tid = threadIdx.x, lane = tid & 31;
   const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
@@ -202,11 +214,18 @@ __device__ __forceinline__ void mainloop(
     off[p] = (n >> 6) * PANEL + krow * 128 +
              ((((n & 63) >> 3) ^ (lane & 7)) << 4);
   }
-  float acc[4][4];
+  // acc: the running sum; part: the f32 partial of the current rbk-deep
+  // block (BF16ACC only; unused, and dropped by the compiler, otherwise).
+  float acc[4][4], part[4][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+    for (int i = 0; i < 4; ++i) acc[j][i] = part[j][i] = 0.0f;
+  // The slice's live K rows (BF16ACC: the last block ends there), and the
+  // rows left in the current block (a countdown, not a modulo: the fold
+  // test is on every k16 step).
+  const int klen = min(depth, K - k0);
+  int left = rbk;
   for (int kb = 0; kb < nst; ++kb) {
     const int s = kb % STAGES;
     wg::mbar_wait(&sm.full[s], (kb / STAGES) & 1);
@@ -216,6 +235,9 @@ __device__ __forceinline__ void mainloop(
       for (int kk = 0; kk < 4; ++kk) {
         // A: rows gid and gid + 8, K pairs 2tq and 2tq + 8.
         const int kx = kb * BK + kk * 16 + 2 * tq;
+        if constexpr (BF16ACC) {
+          if (kb * BK + kk * 16 >= klen) break;  // the last block is folded
+        }
         uint32_t a[4];
         a[0] = v0 ? *reinterpret_cast<const uint32_t*>(x0 + kx) : 0u;
         a[1] = v1 ? *reinterpret_cast<const uint32_t*>(x1 + kx) : 0u;
@@ -224,10 +246,28 @@ __device__ __forceinline__ void mainloop(
         uint32_t b0[4], b1[4];
         ldsm_x4_trans(b0, base + off[0] + kk * 16 * 128);
         ldsm_x4_trans(b1, base + off[1] + kk * 16 * 128);
-        mma_16816(acc[0], a, b0[0], b0[1]);
-        mma_16816(acc[1], a, b0[2], b0[3]);
-        mma_16816(acc[2], a, b1[0], b1[1]);
-        mma_16816(acc[3], a, b1[2], b1[3]);
+        if constexpr (BF16ACC) {
+          mma_16816(part[0], a, b0[0], b0[1]);
+          mma_16816(part[1], a, b0[2], b0[3]);
+          mma_16816(part[2], a, b1[0], b1[1]);
+          mma_16816(part[3], a, b1[2], b1[3]);
+          left -= 16;
+          if (left == 0 || kb * BK + kk * 16 + 16 >= klen) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                acc[j][i] = bf16_round(acc[j][i] + bf16_round(part[j][i]));
+                part[j][i] = 0.0f;
+              }
+            left = rbk;
+          }
+        } else {
+          mma_16816(acc[0], a, b0[0], b0[1]);
+          mma_16816(acc[1], a, b0[2], b0[3]);
+          mma_16816(acc[2], a, b1[0], b1[1]);
+          mma_16816(acc[3], a, b1[2], b1[3]);
+        }
       }
     }
     wg::mbar_arrive(&sm.empty[s]);
@@ -248,9 +288,9 @@ __device__ __forceinline__ void mainloop(
 // The cluster's reduction: after every CTA's partial is in place, rank r
 // sums its share of the tile's M x BN elements (columns below n_cols only)
 // over the ranks in rank order and calls store(row, column in the tile,
-// sum).  Every thread of every CTA of the cluster calls it; `active` false
-// takes part in the barriers only.
-template <class Store>
+// sum); BF16ACC rounds the sum to bf16 once.  Every thread of every CTA of
+// the cluster calls it; `active` false takes part in the barriers only.
+template <bool BF16ACC, class Store>
 __device__ __forceinline__ void reduce(const Smem& sm, int M, int n_cols,
                                        bool active, const Store& store) {
   const int S = gridDim.x, rank = blockIdx.x, tid = threadIdx.x;
@@ -268,7 +308,7 @@ __device__ __forceinline__ void reduce(const Smem& sm, int M, int n_cols,
       float v = 0.0f;
 #pragma unroll
       for (int q = 0; q < MAX_SPLIT; ++q) v += p[q];
-      store(r, c, v);
+      store(r, c, BF16ACC ? bf16_round(v) : v);
     }
   }
   // This CTA has read the others' partials; no CTA leaves while another

@@ -1,12 +1,13 @@
 // B2's cluster engine: the split-K decode GEMM for Hopper (sm_90a), in one
 // launch.
 //
-// Replaces, for bf16 operands with an f32 accumulator and at most 16 rows:
-// src/repro/kernels/splitk_gemm.py, mte_gemm_splitk_pallas / _kernel (K cut
-// into n_split slices on the TPU grid, each slice's partial written to an
+// Replaces, for bf16 operands with an f32 or a bf16 (bf16acc) accumulator
+// and at most 16 rows: src/repro/kernels/splitk_gemm.py,
+// mte_gemm_splitk_pallas / _kernel (K cut into n_split slices on the TPU
+// grid, each slice's partial in the accumulator dtype written to an
 // (n_split, M, N) buffer, then the sum over slices and the epilogue
-// outside the kernel, so beta * C and the bias join once).  fp32, int8,
-// bf16acc and M > 16 stay on the tile loop (splitk_gemm.cu);
+// outside the kernel, so beta * C and the bias join once).  fp32, int8 and
+// M > 16 stay on the tile loop (splitk_gemm.cu);
 // core/geometry.py:splitk_engine chooses.
 //
 // What bounds it on the H100: bytes.  The decode projections (M = the 4
@@ -30,6 +31,11 @@
 //   softcap and activation, and writes out_dtype once.  No partials in
 //   device memory, no atomics; the same sum order on every call, so the
 //   output is bit-equal from call to call.
+// - bf16acc: each slice keeps a bf16 running sum, rounded once per
+//   rbk-deep block of the slice, the slices' sum is rounded to bf16 once
+//   (splitk_cluster.cuh), and every epilogue step is rounded to bf16,
+//   C and the bias read as bf16 values (epilogue.cuh's R = true), as
+//   Epilogue.apply computes on a bf16 accumulator.
 #include "epilogue.cuh"
 #include "splitk_cluster.cuh"
 
@@ -51,22 +57,30 @@ struct SplitkEpi {
   int out_type;
 };
 
+// The epilogue of one reduced sum v; R (bf16acc) rounds every step and the
+// C and bias operands to bf16.
+template <bool R>
 __device__ __forceinline__ float splitk_epi(float v, long r, long c,
                                             const SplitkEpi& e) {
-  float x = e.alpha * v;
+  float x = rnd<R>(e.alpha * v);
   if (e.beta != 0.0f)
-    x = x + e.beta * load_as_f32(e.c, r * e.ldc + c, e.c_type);
+    x = rnd<R>(x + rnd<R>(e.beta *
+                          rnd<R>(load_as_f32(e.c, r * e.ldc + c,
+                                             e.c_type))));
   if (e.bias != nullptr)
-    x = x + load_as_f32(e.bias, e.bias_col ? r : c, e.bias_type);
-  if (e.has_softcap) x = e.softcap * tanhf(x / e.softcap);
-  if (e.act) x = act_fn(x, e.act);
+    x = rnd<R>(x + rnd<R>(load_as_f32(e.bias, e.bias_col ? r : c,
+                                      e.bias_type)));
+  if (e.has_softcap)
+    x = rnd<R>(e.softcap * rnd<R>(tanhf(rnd<R>(x / e.softcap))));
+  if (e.act) x = rnd<R>(act_fn(x, e.act));
   return x;
 }
 
+template <bool BF16ACC>
 __global__ void __launch_bounds__(skc::THREADS, 1)
     splitk_cluster_kernel(const __grid_constant__ CUtensorMap tmw,
                           const unsigned short* A, long lda, int M, int N,
-                          int K, int depth, SplitkEpi epi) {
+                          int K, int depth, int rbk, SplitkEpi epi) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const skc::Smem sm = skc::carve(smem);
   const int n0 = blockIdx.y * skc::BN;
@@ -75,12 +89,12 @@ __global__ void __launch_bounds__(skc::THREADS, 1)
   const auto load = [&](void* dst, uint64_t* bar, int col, int krow) {
     wg::tma_load(dst, &tmw, bar, col, krow);
   };
-  skc::mainloop(sm, &tmw, A, lda, M, K, k0, depth, nst, n0, N, load,
-                [] {});
-  skc::reduce(sm, M, N - n0, true, [&](int r, int c, float v) {
+  skc::mainloop<BF16ACC>(sm, &tmw, A, lda, M, K, k0, depth, nst, n0, N,
+                         rbk, load, [] {});
+  skc::reduce<BF16ACC>(sm, M, N - n0, true, [&](int r, int c, float v) {
     const long gc = n0 + c;
     store_from_f32(epi.out, r * epi.ldo + gc, epi.out_type,
-                   splitk_epi(v, r, gc, epi));
+                   splitk_epi<BF16ACC>(v, r, gc, epi));
   });
 }
 
@@ -89,14 +103,18 @@ __global__ void __launch_bounds__(skc::THREADS, 1)
 // a (M, K) bf16, row stride lda; w (K, N) bf16 row-major, N % 8 == 0 and a
 // 16-byte aligned base (TMA); c (M, ldc) and bias in their type codes (or
 // null); out (M, N) f32 or bf16.  K is cut into n_split slices of `depth`
-// rows (a multiple of 64; the last may be short).
+// rows (a multiple of 64; the last may be short).  bf16acc: a bf16
+// accumulator, rounded once per rbk-deep block (a multiple of 16) of each
+// slice; rbk is not read otherwise.
 extern "C" int splitk_gemm_cluster_launch(
     const void* a, const void* w, const void* c, const void* bias, void* out,
     int M, int N, int K, long lda, long ldc, int c_type, int bias_type,
-    int bias_col, int out_type, int n_split, int depth, float alpha,
-    float beta, int has_softcap, float softcap, int act, void* stream) {
+    int bias_col, int out_type, int n_split, int depth, int bf16acc, int rbk,
+    float alpha, float beta, int has_softcap, float softcap, int act,
+    void* stream) {
   if (M <= 0 || M > skc::MAX_M || N <= 0 || N % 8 != 0 || K <= 0 ||
       n_split < 1 || n_split > skc::MAX_SPLIT || depth <= 0 ||
+      (bf16acc && (rbk <= 0 || rbk % 16 != 0)) ||
       depth % skc::BK != 0 || static_cast<long>(n_split - 1) * depth >= K ||
       static_cast<long>(n_split) * depth < K ||
       (beta != 0.0f && c == nullptr) ||
@@ -112,8 +130,14 @@ extern "C" int splitk_gemm_cluster_launch(
                       has_softcap, act, out, N,   out_type};
   const int smem = skc::smem_bytes(M, depth);
   if (smem > wg::SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  return wg::launch_cluster<splitk_cluster_kernel>(
-      dim3(n_split, (N + skc::BN - 1) / skc::BN), skc::THREADS, n_split,
-      smem, static_cast<cudaStream_t>(stream), tmw,
-      static_cast<const unsigned short*>(a), lda, M, N, K, depth, epi);
+  const dim3 grid(n_split, (N + skc::BN - 1) / skc::BN);
+  const auto* a16 = static_cast<const unsigned short*>(a);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (bf16acc)
+    return wg::launch_cluster<splitk_cluster_kernel<true>>(
+        grid, skc::THREADS, n_split, smem, st, tmw, a16, lda, M, N, K, depth,
+        rbk, epi);
+  return wg::launch_cluster<splitk_cluster_kernel<false>>(
+      grid, skc::THREADS, n_split, smem, st, tmw, a16, lda, M, N, K, depth,
+      rbk, epi);
 }

@@ -19,11 +19,24 @@ tensors it runs :func:`grouped_gemm_torch`, the plain PyTorch version.
 
 Two engines, chosen by :func:`repro_torch.core.geometry.grouped_engine`
 (never a fallback): the cluster split-K kernel
-(``csrc/grouped_gemm_splitk.cu``, counter ``grouped_gemm_splitk``) for
-bf16 operands with an f32 accumulator, C ≤ 16, N a multiple of 8 and K
-within 8 slices of x in shared memory — the decode group —, and the
-tile loop (``csrc/grouped_gemm.cu``, counter ``grouped_gemm``, at
-``geom``'s tile) for everything else.
+(``csrc/grouped_gemm_splitk.cu``, counter ``grouped_gemm_splitk``; plain
+version :func:`grouped_splitk_torch`) for bf16 operands with an f32 or a
+bf16 (``bf16acc``) accumulator, C ≤ 16, N a multiple of 8 and K within 8
+slices of x in shared memory — the decode group —, and the tile loop
+(``csrc/grouped_gemm.cu``, counter ``grouped_gemm``, at ``geom``'s tile;
+plain version :func:`grouped_gemm_torch`) for everything else.
+
+Under ``bf16acc`` the split-K engine keeps B2's cluster contract
+(:mod:`repro_torch.kernels.splitk_gemm`): a bf16 running sum per K slice,
+rounded once per :func:`~repro_torch.kernels.mte_gemm.bf16acc_block` of
+``geom.bk`` rows of the slice, the slices summed in f32 and rounded to
+bf16 once, the epilogue rounded at every step.  The reference's grouped
+kernel rounds its running sum in K order over the whole of K: the two
+agree to bf16 tolerance, not bit for bit.  On CPU tensors a bf16acc
+group the split-K engine takes runs :func:`grouped_splitk_torch` at the
+split the engine would take on an H100 (132 SMs); with an f32
+accumulator the engines differ only in f32 summation order, and CPU
+tensors run :func:`grouped_gemm_torch`.
 """
 from __future__ import annotations
 
@@ -33,15 +46,18 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
-from repro_torch.core.geometry import (GROUPED_BK, MAX_CLUSTER,
+from repro_torch.core.geometry import (GROUPED_BK, H100_SPEC, MAX_CLUSTER,
                                        BlockGeometry, cdiv, grouped_engine,
                                        grouped_live_tiles, grouped_max_depth,
                                        grouped_split, round_up)
 from repro_torch.kernels import build
 from repro_torch.kernels.mte_gemm import (DTYPE_CODES, _acc_dtype,
-                                          bf16_scalar, raw_accumulate)
+                                          bf16_scalar, bf16acc_block,
+                                          raw_accumulate)
+from repro_torch.kernels.splitk_gemm import _reduce, slice_partials
 
-__all__ = ["grouped_gemm_kernel", "grouped_gemm_torch"]
+__all__ = ["grouped_gemm_kernel", "grouped_gemm_torch",
+           "grouped_splitk_torch", "split_layout"]
 
 MAX_WIDTHS = 8           # members that carry a width in one launch
 
@@ -51,7 +67,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                 ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                 ctypes.c_void_p])
 _SPLITK_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                    + [ctypes.c_long] * 2 + [ctypes.c_int] * 4
+                    + [ctypes.c_long] * 2 + [ctypes.c_int] * 6
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                        ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
@@ -92,6 +108,57 @@ def grouped_gemm_torch(x, w, *, geom: BlockGeometry,
     return out
 
 
+def grouped_splitk_torch(x, w, *, n_split: int, depth: int,
+                         rbk: int = GROUPED_BK,
+                         epilogue: Epilogue = Epilogue(),
+                         out_dtype=torch.float32, acc_dtype=None,
+                         widths: Optional[Sequence[int]] = None
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of the split-K engine: each member's K cut
+    into ``n_split`` slices of ``depth`` rows (:func:`split_layout`),
+    each slice's partial in the accumulator dtype (bf16acc: rounded once
+    per ``rbk`` rows of the slice), the partials summed in f32 in slice
+    order (bf16acc: rounded to bf16 once), the epilogue, and the columns
+    past each member's width zeroed."""
+    g, m, n, k = _check(x, w, epilogue, widths)
+    acc_dtype = _acc_dtype(x, acc_dtype)
+    if cdiv(k, depth) != n_split:
+        raise ValueError(f"grouped_gemm: {n_split} slices of {depth} rows "
+                         f"do not cover K={k}")
+    out = torch.stack([
+        epilogue.apply(_reduce(slice_partials(x[i], w[i], depth, acc_dtype,
+                                              rbk), acc_dtype)
+                       ).to(out_dtype) for i in range(g)])
+    if widths is not None:
+        for i, wd in enumerate(widths):
+            out[i, :, wd:] = 0
+    return out
+
+
+def split_layout(x, w, *, widths=None, n_split: Optional[int] = None,
+                 split_rows: Optional[int] = None, sm_count: int = 0):
+    """(slices, slice depth) of the split-K engine for x (G, C, K) and
+    w (G, K, N): :func:`repro_torch.core.geometry.grouped_split` over the
+    members' live tiles for ``split_rows`` rows (default C) and
+    ``sm_count`` SMs (0: an H100's), or the pinned ``n_split``;
+    ValueError when the engine cannot take the split for C rows."""
+    g, m, k = x.shape
+    n = w.shape[2]
+    if n_split is None:
+        tiles = sum(grouped_live_tiles(n, widths, g))
+        n_split, depth = grouped_split(
+            tiles, k, m if split_rows is None else split_rows,
+            sm_count or H100_SPEC.sm_count)
+    else:
+        depth = round_up(cdiv(k, n_split), GROUPED_BK)
+    if not 1 <= n_split <= MAX_CLUSTER or cdiv(k, depth) != n_split \
+            or depth > grouped_max_depth(m):
+        raise ValueError(f"grouped_gemm: {n_split} slices of K={k} "
+                         f"for {m} rows is not a split the split-K "
+                         f"engine takes")
+    return n_split, depth
+
+
 def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
                         epilogue: Epilogue = Epilogue(),
                         out_dtype=torch.float32, acc_dtype=None,
@@ -105,13 +172,22 @@ def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
     :func:`repro_torch.core.geometry.grouped_split`'s choice for
     ``split_rows`` rows (default C)."""
     dev = build.require_cuda(x, w, what="grouped_gemm")
-    if dev is None:
-        return grouped_gemm_torch(x, w, geom=geom, epilogue=epilogue,
-                                  out_dtype=out_dtype, acc_dtype=acc_dtype,
-                                  widths=widths)
     g, m, n, k = _check(x, w, epilogue, widths)
     acc_dtype = _acc_dtype(x, acc_dtype)
     bf16acc = acc_dtype == torch.bfloat16
+    if dev is None:
+        if bf16acc and grouped_engine(x.dtype, m, n, k,
+                                      bf16acc=True) == "splitk":
+            slices, depth = split_layout(x, w, widths=widths,
+                                         n_split=n_split,
+                                         split_rows=split_rows)
+            return grouped_splitk_torch(
+                x, w, n_split=slices, depth=depth,
+                rbk=bf16acc_block(geom.bk, k), epilogue=epilogue,
+                out_dtype=out_dtype, acc_dtype=acc_dtype, widths=widths)
+        return grouped_gemm_torch(x, w, geom=geom, epilogue=epilogue,
+                                  out_dtype=out_dtype, acc_dtype=acc_dtype,
+                                  widths=widths)
     if x.dtype != w.dtype or x.dtype not in (torch.float32, torch.bfloat16,
                                              torch.int8):
         raise TypeError(f"grouped_gemm: operands {x.dtype} x {w.dtype} "
@@ -135,37 +211,30 @@ def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
     out = torch.empty(g, m, n, dtype=out_dtype, device=dev)
     alpha = float(epilogue.alpha)
     softcap = float(epilogue.softcap or 0.0)
+    if bf16acc:
+        alpha, softcap = bf16_scalar(alpha), bf16_scalar(softcap)
+    rbk = bf16acc_block(geom.bk, k)
     if engine == "splitk":
         if out_dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"grouped_gemm: the split-K engine writes f32 "
                             f"or bf16, not {out_dtype}")
         tiles = sum(grouped_live_tiles(n, widths, g))
-        if n_split is None:
-            n_split, depth = grouped_split(
-                tiles, k, m if split_rows is None else split_rows,
-                torch.cuda.get_device_properties(dev).multi_processor_count)
-        else:
-            depth = round_up(cdiv(k, n_split), GROUPED_BK)
-        if not 1 <= n_split <= MAX_CLUSTER or cdiv(k, depth) != n_split \
-                or depth > grouped_max_depth(m):
-            raise ValueError(f"grouped_gemm: {n_split} slices of K={k} "
-                             f"for {m} rows is not a split the split-K "
-                             f"engine takes")
+        n_split, depth = split_layout(
+            x, w, widths=widths, n_split=n_split, split_rows=split_rows,
+            sm_count=torch.cuda.get_device_properties(
+                dev).multi_processor_count)
         lib, fn = build.entry("grouped_gemm_splitk",
                               "grouped_gemm_splitk_launch",
                               _SPLITK_ARGTYPES)
         build.count_launch("grouped_gemm_splitk")
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), g, m, n, k,
                  x.stride(0), x.stride(1), DTYPE_CODES[out_dtype], n_split,
-                 depth, max(tiles, 1), alpha,
+                 depth, max(tiles, 1), int(bf16acc), rbk, alpha,
                  int(epilogue.softcap is not None), softcap,
                  ACTIVATION_CODES[epilogue.activation], n_widths, wd,
                  build.stream_ptr(dev))
         build.check(lib, err, "grouped_gemm_splitk")
         return out
-    if bf16acc:
-        alpha, softcap = bf16_scalar(alpha), bf16_scalar(softcap)
-    rbk = max(32, min(geom.bk, cdiv(k, 32) * 32))
     lib, fn = build.entry("grouped_gemm", "grouped_gemm_launch", _ARGTYPES)
     build.count_launch("grouped_gemm")
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), g, m, n, k,

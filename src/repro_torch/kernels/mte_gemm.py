@@ -30,7 +30,7 @@ from repro_torch.core.geometry import BlockGeometry, cdiv, gemm_engine
 from repro_torch.kernels import build
 
 __all__ = ["mte_gemm_kernel", "mte_gemm_torch", "DTYPE_CODES",
-           "bf16_scalar", "tma_ready"]
+           "bf16_scalar", "tma_ready", "bf16acc_block"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.int32: 3}
@@ -55,6 +55,13 @@ def _acc_dtype(a: torch.Tensor, acc_dtype) -> torch.dtype:
     if acc_dtype is not None:
         return acc_dtype
     return torch.float32 if a.dtype.is_floating_point else torch.int32
+
+
+def bf16acc_block(bk: int, k: int) -> int:
+    """The K rows of one bf16acc block the kernels round their running sum
+    after: the plan's ``bk`` clipped to K, a multiple of the 32-deep inner
+    tile (the ``rbk`` of every GEMM kernel)."""
+    return max(32, min(bk, cdiv(k, 32) * 32))
 
 
 def bf16_scalar(x: float) -> float:
@@ -156,7 +163,7 @@ def mte_gemm_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
     softcap = float(epilogue.softcap or 0.0)
     if bf16acc:
         alpha, beta, softcap = map(bf16_scalar, (alpha, beta, softcap))
-    rbk = max(32, min(geom.bk, cdiv(k, 32) * 32))
+    rbk = bf16acc_block(geom.bk, k)
     if engine == "wgmma":
         a, b = tma_ready(a), tma_ready(b)
         lib, fn = build.entry("mte_gemm", "mte_gemm_wgmma_launch",

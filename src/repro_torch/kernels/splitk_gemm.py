@@ -8,19 +8,35 @@ once.  B is row-major (K, N) only.  Two engines, chosen by
 :func:`repro_torch.core.geometry.splitk_engine` (never a fallback):
 
 - the cluster engine (``csrc/splitk_gemm_cluster.cu``, counter
-  ``splitk_gemm_cluster``) for bf16 operands with an f32 accumulator,
-  M ≤ 16, N a multiple of 8 and K within 8 slices of x in shared memory —
-  the decode GEMMs.  One launch: the slices of a 128-column tile are one
-  thread-block cluster, their partials are summed in rank order through
-  distributed shared memory, and the reduction applies the whole epilogue
-  in f32 and writes ``out_dtype``.  Its slices come from
+  ``splitk_gemm_cluster``) for bf16 operands with an f32 or a bf16
+  (``bf16acc``) accumulator, M ≤ 16, N a multiple of 8 and K within 8
+  slices of x in shared memory — the decode GEMMs.  One launch: the
+  slices of a 128-column tile are one thread-block cluster, their
+  partials are summed in rank order through distributed shared memory,
+  and the reduction applies the whole epilogue and writes ``out_dtype``.
+  Its slices come from
   :func:`repro_torch.core.geometry.splitk_cluster_split` (``cluster_split``
-  pins them), not from the plan's ``n_split``;
+  pins them), not from the plan's ``n_split``.  Plain version:
+  :func:`splitk_cluster_torch`;
 - the tile loop (``csrc/splitk_gemm.cu``, counter ``splitk_gemm``) for
-  fp32, int8, bf16acc and M > 16: ``n_split`` slices of ``k_per_split``
-  (a multiple of the plan's ``bk``), each slice's partial in the
-  accumulator dtype into an (n_split, M, N) buffer; the sum over slices
-  and the epilogue run in plain PyTorch, as in JAX.
+  fp32, int8 and M > 16: ``n_split`` slices of ``k_per_split`` (a
+  multiple of the plan's ``bk``), each slice's partial in the accumulator
+  dtype into an (n_split, M, N) buffer; the sum over slices and the
+  epilogue run in plain PyTorch, as in JAX.  Plain version:
+  :func:`mte_gemm_splitk_torch`.
+
+Under ``bf16acc`` both keep the reference's split-K contract
+(``splitk_gemm.py:76-105`` there): each slice's running sum is bf16,
+rounded once per K block of the slice (the cluster engine's block is
+:func:`~repro_torch.kernels.mte_gemm.bf16acc_block` of the plan's ``bk``,
+counted from the slice's first row), the slices' bf16 partials are summed
+in f32 in slice order and rounded to bf16 once, and the epilogue runs on
+that bf16 sum with every step rounded to bf16.  So the split sets the
+bits: on CPU tensors a bf16acc GEMM the cluster engine takes runs
+:func:`splitk_cluster_torch` at the slices the engine would take on an
+H100 (132 SMs).  With an f32 accumulator the two engines' results differ
+only in the f32 summation order, and CPU tensors run
+:func:`mte_gemm_splitk_torch`.
 
 Neither uses atomics: every call gives the same bits.
 """
@@ -32,21 +48,23 @@ from typing import Optional
 import torch
 
 from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
-from repro_torch.core.geometry import (GROUPED_BK, GROUPED_BN, MAX_CLUSTER,
-                                       BlockGeometry, cdiv,
+from repro_torch.core.geometry import (GROUPED_BK, GROUPED_BN, H100_SPEC,
+                                       MAX_CLUSTER, BlockGeometry, cdiv,
                                        grouped_max_depth, round_up,
                                        splitk_cluster_split, splitk_engine)
 from repro_torch.kernels import build
 from repro_torch.kernels.mte_gemm import (DTYPE_CODES, _acc_dtype,
+                                          bf16_scalar, bf16acc_block,
                                           raw_accumulate, tma_ready)
 
 __all__ = ["mte_gemm_splitk_kernel", "mte_gemm_splitk_torch",
-           "splitk_partials_torch", "splitk_layout", "cluster_layout"]
+           "splitk_cluster_torch", "splitk_partials_torch", "splitk_layout",
+           "cluster_layout"]
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
              + [ctypes.c_long] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 _CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                     + [ctypes.c_long] * 2 + [ctypes.c_int] * 6
+                     + [ctypes.c_long] * 2 + [ctypes.c_int] * 8
                      + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_float,
                                                ctypes.c_int, ctypes.c_void_p])
 
@@ -79,20 +97,25 @@ def _reduce(partials: torch.Tensor, acc_dtype: torch.dtype) -> torch.Tensor:
 
 def splitk_partials_torch(a, b, *, geom: BlockGeometry, n_split: int,
                           acc_dtype=None) -> torch.Tensor:
-    """Plain version of the kernel's output: the (n_split, M, N) partials."""
+    """Plain version of the kernel's output: the (n_split, M, N) partials
+    (slices past K are zeros)."""
     acc_dtype = _acc_dtype(a, acc_dtype)
-    k = a.shape[1]
-    bk, kps = splitk_layout(k, geom, n_split)
-    parts = []
-    for s in range(n_split):
-        k0, k1 = min(s * kps, k), min((s + 1) * kps, k)
-        if k0 >= k1:
-            parts.append(torch.zeros(a.shape[0], b.shape[1],
-                                     dtype=acc_dtype, device=a.device))
-        else:
-            parts.append(raw_accumulate(a, b, acc_dtype, bk, k0, k1)
-                         .to(acc_dtype))
-    return torch.stack(parts)
+    bk, kps = splitk_layout(a.shape[1], geom, n_split)
+    parts = slice_partials(a, b, kps, acc_dtype, bk)
+    empty = parts.new_zeros(n_split - parts.shape[0], *parts.shape[1:])
+    return torch.cat([parts, empty])
+
+
+def slice_partials(a, b, depth: int, acc_dtype: torch.dtype,
+                   rbk: int) -> torch.Tensor:
+    """The partials of K cut into slices of ``depth`` rows, one per slice
+    that holds a row: slice s takes the K rows [s·depth, (s+1)·depth), in
+    ``acc_dtype`` (bf16: the running sum rounded once per ``rbk`` rows
+    counted from the slice's first row)."""
+    return torch.stack([
+        raw_accumulate(a[:, k0:k0 + depth], b[k0:k0 + depth], acc_dtype,
+                       rbk).to(acc_dtype)
+        for k0 in range(0, a.shape[1], depth)])
 
 
 def mte_gemm_splitk_torch(a, b, c=None, bias=None, *, geom: BlockGeometry,
@@ -105,6 +128,26 @@ def mte_gemm_splitk_torch(a, b, c=None, bias=None, *, geom: BlockGeometry,
     acc_dtype = _acc_dtype(a, acc_dtype)
     parts = splitk_partials_torch(a, b, geom=geom, n_split=n_split,
                                   acc_dtype=acc_dtype)
+    return epilogue.apply(_reduce(parts, acc_dtype), c_in=c,
+                          bias=bias).to(out_dtype)
+
+
+def splitk_cluster_torch(a, b, c=None, bias=None, *, n_split: int,
+                         depth: int, rbk: int = GROUPED_BK,
+                         epilogue: Epilogue = Epilogue(),
+                         out_dtype=torch.float32,
+                         acc_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of the cluster engine: ``n_split`` slices of
+    ``depth`` K rows (``cluster_layout``), each slice's partial in the
+    accumulator dtype (bf16acc: rounded once per ``rbk`` rows of the
+    slice), the partials summed in f32 in slice order (bf16acc: rounded
+    to bf16 once), then the epilogue in the accumulator dtype."""
+    _check(a, b, c, bias, epilogue)
+    acc_dtype = _acc_dtype(a, acc_dtype)
+    if cdiv(a.shape[1], depth) != n_split:
+        raise ValueError(f"splitk_gemm: {n_split} slices of {depth} rows "
+                         f"do not cover K={a.shape[1]}")
+    parts = slice_partials(a, b, depth, acc_dtype, rbk)
     return epilogue.apply(_reduce(parts, acc_dtype), c_in=c,
                           bias=bias).to(out_dtype)
 
@@ -141,12 +184,15 @@ def cluster_layout(m: int, n: int, k: int, dev,
                    split_rows: Optional[int] = None):
     """(slices, slice depth) of the cluster engine: the planner's
     :func:`splitk_cluster_split` for ``split_rows`` rows (default ``m``)
-    and the card's SM count, or the pinned ``cluster_split``; ValueError
-    when the engine cannot take the split for ``m`` rows."""
+    and the card's SM count (``dev`` None: an H100's), or the pinned
+    ``cluster_split``; ValueError when the engine cannot take the split
+    for ``m`` rows."""
     if cluster_split is None:
+        sms = (H100_SPEC.sm_count if dev is None else
+               torch.cuda.get_device_properties(dev).multi_processor_count)
         cluster_split, depth = splitk_cluster_split(
             cdiv(n, GROUPED_BN), k, m if split_rows is None else split_rows,
-            torch.cuda.get_device_properties(dev).multi_processor_count)
+            sms)
     else:
         depth = round_up(cdiv(k, cluster_split), GROUPED_BK)
     if not 1 <= cluster_split <= MAX_CLUSTER \
@@ -157,7 +203,8 @@ def cluster_layout(m: int, n: int, k: int, dev,
     return cluster_split, depth
 
 
-def _launch_cluster(a, b, c, bias, epilogue, out_dtype, n_split, depth):
+def _launch_cluster(a, b, c, bias, epilogue, out_dtype, n_split, depth,
+                    rbk, bf16acc):
     dev = a.device
     m, k = a.shape
     n = b.shape[1]
@@ -178,6 +225,11 @@ def _launch_cluster(a, b, c, bias, epilogue, out_dtype, n_split, depth):
     c_, c_type = operand(c if epilogue.needs_c_input else None)
     bias_, bias_type = operand(bias if epilogue.has_bias else None)
     out = torch.empty(m, n, dtype=out_dtype, device=dev)
+    scalars = (float(epilogue.alpha), float(epilogue.beta),
+               float(epilogue.softcap or 0.0))
+    if bf16acc:
+        scalars = tuple(map(bf16_scalar, scalars))
+    alpha, beta, softcap = scalars
     lib, fn = build.entry("splitk_gemm_cluster", "splitk_gemm_cluster_launch",
                           _CLUSTER_ARGTYPES)
     build.count_launch("splitk_gemm_cluster")
@@ -187,9 +239,8 @@ def _launch_cluster(a, b, c, bias, epilogue, out_dtype, n_split, depth):
              out.data_ptr(), m, n, k, a.stride(0),
              c_.stride(0) if c_ is not None else n, c_type, bias_type,
              int(epilogue.bias_axis == "col"), DTYPE_CODES[out_dtype],
-             n_split, depth, float(epilogue.alpha), float(epilogue.beta),
-             int(epilogue.softcap is not None),
-             float(epilogue.softcap or 0.0),
+             n_split, depth, int(bf16acc), rbk, alpha, beta,
+             int(epilogue.softcap is not None), softcap,
              ACTIVATION_CODES[epilogue.activation], build.stream_ptr(dev))
     build.check(lib, err, "splitk_gemm_cluster")
     return out
@@ -206,19 +257,28 @@ def mte_gemm_splitk_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
     """``epilogue(a @ b [, c, bias])`` with K split into slices: on CUDA
     tensors the engine :func:`repro_torch.core.geometry.splitk_engine`
     names — the cluster engine in one launch (its own slices for
-    ``split_rows`` rows, default M, pinned with ``cluster_split``), or
-    the tile loop at ``n_split`` slices with the sum and epilogue in
-    PyTorch; CPU tensors run :func:`mte_gemm_splitk_torch`."""
+    ``split_rows`` rows, default M, pinned with ``cluster_split``;
+    bf16acc blocks of :func:`~repro_torch.kernels.mte_gemm.bf16acc_block`
+    of ``geom.bk``), or the tile loop at ``n_split`` slices with the sum
+    and epilogue in PyTorch; CPU tensors run the plain version of the
+    same contract (see the module docstring)."""
     dev = build.require_cuda(a, b, c, bias, what="splitk_gemm")
+    m, n, k = _check(a, b, c, bias, epilogue)
+    acc_dtype = _acc_dtype(a, acc_dtype)
+    bf16acc = acc_dtype == torch.bfloat16
+    engine = splitk_engine(a.dtype, m, n, k, bf16acc=bf16acc)
     if dev is None:
+        if engine == "cluster" and bf16acc:
+            slices, depth = cluster_layout(m, n, k, None, cluster_split,
+                                           split_rows)
+            return splitk_cluster_torch(
+                a, b, c, bias, n_split=slices, depth=depth,
+                rbk=bf16acc_block(geom.bk, k), epilogue=epilogue,
+                out_dtype=out_dtype, acc_dtype=acc_dtype)
         return mte_gemm_splitk_torch(a, b, c, bias, geom=geom,
                                      n_split=n_split, epilogue=epilogue,
                                      out_dtype=out_dtype,
                                      acc_dtype=acc_dtype)
-    m, n, k = _check(a, b, c, bias, epilogue)
-    acc_dtype = _acc_dtype(a, acc_dtype)
-    engine = splitk_engine(a.dtype, m, n, k,
-                           bf16acc=acc_dtype == torch.bfloat16)
     if engine == "cluster":
         if b.dtype != a.dtype:
             raise TypeError(f"splitk_gemm: operands {a.dtype} x {b.dtype} "
@@ -226,7 +286,7 @@ def mte_gemm_splitk_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
         slices, depth = cluster_layout(m, n, k, dev, cluster_split,
                                        split_rows)
         return _launch_cluster(a, b, c, bias, epilogue, out_dtype, slices,
-                               depth)
+                               depth, bf16acc_block(geom.bk, k), bf16acc)
     if cluster_split is not None:
         raise ValueError("splitk_gemm: cluster_split pins the cluster "
                          "engine's slices; the tile loop takes n_split")

@@ -200,11 +200,17 @@ def _mlp_compiled(x: torch.Tensor, p, cfg,
 
 
 def init_embedding(gen: torch.Generator, cfg, device=None):
+    """The embedding ``table`` (vocab, d_model), N(0, 0.02²), and for an
+    untied model the LM ``head`` at JAX's layout (d_model, vocab),
+    N(0, 1/d_model) (``layers.py:238-245`` of the JAX package)."""
     dt = to_torch_dtype(cfg.param_dtype)
+    p = {"table": torch.randn(cfg.vocab, cfg.d_model, generator=gen,
+                              dtype=dt, device=device) * 0.02}
     if not cfg.tied_embeddings:
-        raise NotImplementedError("untied LM heads are ROADMAP A10")
-    return {"table": torch.randn(cfg.vocab, cfg.d_model, generator=gen,
-                                 dtype=dt, device=device) * 0.02}
+        p["head"] = torch.randn(cfg.d_model, cfg.vocab, generator=gen,
+                                dtype=dt, device=device) \
+            * cfg.d_model ** -0.5
+    return p
 
 
 def embed(tokens: torch.Tensor, p, cfg) -> torch.Tensor:
@@ -223,16 +229,18 @@ def unembed_operand_dtype(cfg) -> torch.dtype:
 
 def unembed(x: torch.Tensor, p, cfg) -> torch.Tensor:
     """LM head → f32 logits from operands rounded to the head's operand
-    dtype (JAX: einsum with ``preferred_element_type=f32``).  A plain
-    library matmul in f32 on the rounded values: products of bf16 values
-    are exact in f32.  ``p["unembed"]``, when the engine prepared it, is
-    the table already rounded and widened (kept on the card so the
-    widening is not redone per call)."""
+    dtype (JAX: einsum with ``preferred_element_type=f32``): the tied
+    table (vocab, d_model), or the untied ``head`` (d_model, vocab).  A
+    plain library matmul in f32 on the rounded values: products of bf16
+    values are exact in f32.  ``p["unembed"]``, when the engine prepared
+    it, is that matrix already rounded and widened, in its own layout
+    (kept on the card so the widening is not redone per call)."""
     odt = unembed_operand_dtype(cfg)
     w = p.get("unembed")
     if w is None:
-        w = p["table"].to(odt).float()
-    logits = torch.matmul(x.to(odt).float(), w.t())
+        w = (p["table"] if cfg.tied_embeddings else p["head"]).to(odt).float()
+    logits = torch.matmul(x.to(odt).float(),
+                          w.t() if cfg.tied_embeddings else w)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits

@@ -1,8 +1,9 @@
 """Decoder-stack entry points of the port (the serving subset of
 ``repro/models/model.py``).
 
-Parameters are plain dictionaries: ``{"embedding": {"table"}, "layers":
-[per-layer dict], "final_norm": {"scale"}}`` — JAX's ``lax.scan`` group
+Parameters are plain dictionaries: ``{"embedding": {"table"[, "head"]},
+"layers": [per-layer dict], "final_norm": {"scale"}}`` (``head``: an
+untied LM head, (d_model, vocab)) — JAX's ``lax.scan`` group
 stack (``params["groups"]``) becomes a Python list of layers
 (:func:`repro_torch.convert.params_from_jax` unstacks it).  The layer
 kinds ported are ``("attn", "mlp")`` (global attention over the paged
@@ -11,8 +12,9 @@ ring) and ``("rglru", "mlp")`` (the RG-LRU block with its per-slot
 state), each followed by a gated MLP, in any mix of them in one model;
 other kinds raise, naming the ROADMAP item (A10).  Features: attention
 and final logit softcaps, a query scale of the config's own
-(``attn_scale``), GQA, and ``post_norms`` (gemma2: the mixer's and the
-MLP's outputs normed again before each residual add).
+(``attn_scale``), MHA and GQA, QKV biases, untied LM heads, and
+``post_norms`` (gemma2: the mixer's and the MLP's outputs normed again
+before each residual add).
 
 Entry points: :func:`init_params`, :func:`init_paged_cache`,
 :func:`prefill_chunk`, :func:`decode`, :func:`sample_token`,

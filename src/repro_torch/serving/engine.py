@@ -75,9 +75,9 @@ it (the graph path under the MTE policy).
 Weights: the engine keeps the projection weights, and the embedding table
 when the compute dtype equals the operand dtype, already cast to the
 format's operand dtype (every GEMM casts them to it anyway, so the values
-are identical), and a widened copy of the operand-rounded table for the
-LM head — the bf16 weights a decode step reads are then the only weight
-bytes it moves.
+are identical), and a widened copy of the operand-rounded LM head (the
+tied table, or an untied model's own head) — the bf16 weights a decode
+step reads are then the only weight bytes it moves.
 """
 from __future__ import annotations
 
@@ -154,9 +154,10 @@ def serving_params(params, cfg: ArchConfig):
     ``{"w", ...}`` leaf) cast to the model format's operand dtype (float
     formats only: int8 quantizes the full-precision weights), the
     embedding table likewise when the compute dtype is that operand
-    dtype, and ``embedding["unembed"]`` = the table rounded to the LM
-    head's operand dtype and widened to f32.  Shallow copies; the
-    caller's tensors are untouched."""
+    dtype, and ``embedding["unembed"]`` = the LM head -- the tied table,
+    or the untied ``head`` in its (d_model, vocab) layout, which the
+    copy then drops -- rounded to the head's operand dtype and widened to
+    f32.  Shallow copies; the caller's tensors are untouched."""
     fmt = model_format(cfg)
     op = fmt.operand_torch
     cast_w = not fmt.quantized
@@ -177,8 +178,8 @@ def serving_params(params, cfg: ArchConfig):
 
     emb = dict(params["embedding"])
     table = emb["table"]
-    odt = unembed_operand_dtype(cfg)
-    emb["unembed"] = table.to(odt).float()
+    head = table if cfg.tied_embeddings else emb.pop("head")
+    emb["unembed"] = head.to(unembed_operand_dtype(cfg)).float()
     if cast_w and compute_dtype(cfg) == op:
         emb["table"] = table.to(op)
     return {"embedding": emb,

@@ -445,14 +445,16 @@ def test_grouped_splitk_every_split_matches_plain(card, n_split):
 
 
 def test_grouped_engines_split_by_rows_and_format(card):
-    """C = 17 and bf16acc stay on the tile loop, C = 16 goes to split-K:
-    each launch counts on its own engine's counter only."""
+    """C = 17 stays on the tile loop (bf16acc too), C = 16 and C = 4 under
+    bf16acc go to split-K: each launch counts on its own engine's counter
+    only, each held to its engine's plain version."""
     gen = torch.Generator().manual_seed(17)
     sew = tgeometry.SEW.E16
     k, n = 256, 384
     w = torch.randn(2, k, n, generator=gen).to(torch.bfloat16)
     for c, acc, counter in [(17, None, "grouped_gemm"),
-                            (4, torch.bfloat16, "grouped_gemm"),
+                            (17, torch.bfloat16, "grouped_gemm"),
+                            (4, torch.bfloat16, "grouped_gemm_splitk"),
                             (16, None, "grouped_gemm_splitk")]:
         x = (torch.randn(2, c, k, generator=gen) / k ** 0.5).to(
             torch.bfloat16)
@@ -463,7 +465,16 @@ def test_grouped_engines_split_by_rows_and_format(card):
         before = build.launch_counts()
         got = tgrouped.grouped_gemm_kernel(x.to(card), w.to(card), **kw)
         after = build.launch_counts()
-        _close(got, tgrouped.grouped_gemm_torch(x, w, **kw), 3e-2)
+        if counter == "grouped_gemm_splitk" and acc is not None:
+            slices, depth = tgrouped.split_layout(
+                x, w, sm_count=torch.cuda.get_device_properties(
+                    card).multi_processor_count)
+            want = tgrouped.grouped_splitk_torch(
+                x, w, n_split=slices, depth=depth, rbk=64,
+                out_dtype=torch.float32, acc_dtype=acc)
+        else:
+            want = tgrouped.grouped_gemm_torch(x, w, **kw)
+        _close(got, want, 3e-2)
         assert {name for name in after if after[name] != before[name]} \
             == {counter}
 
@@ -603,17 +614,99 @@ def test_splitk_cluster_every_split_matches_plain(card, n_split):
     assert build.launch_counts()["splitk_gemm_cluster"] == before + 2
 
 
+# qwen15_4b's decode GEMMs under bf16acc: (N, K, activation).
+QWEN_DECODE = [(2560, 2560, "none"), (6912, 2560, "silu"),
+               (2560, 6912, "none")]
+
+
+@pytest.mark.parametrize("n,k,act", QWEN_DECODE)
+@pytest.mark.parametrize("n_split", [None, 1, 2, 3, 8])
+def test_splitk_cluster_bf16acc_matches_plain(card, n, k, act, n_split):
+    """B2's cluster engine with the bf16 accumulator at qwen15_4b's decode
+    shapes (4 rows; the planned split, then pinned ones), the running
+    sum rounded once per 160 rows of each slice, with a row bias (the
+    QKV-bias path) and the activation: within 2e-2 x (1 + |ref|) of
+    ``splitk_cluster_torch`` at the same slices and blocks (a block
+    partial on a rounding tie can land one bf16 ulp apart), bit-equal
+    from call to call, on the cluster counter only."""
+    gen = torch.Generator().manual_seed(n + k)
+    m = 4
+    a = (torch.randn(m, k, generator=gen) / k ** 0.5).to(torch.bfloat16)
+    b = torch.randn(k, n, generator=gen).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen)
+    sew = tgeometry.SEW.E16
+    geo = tgeometry.BlockGeometry(16, 128, 160, 16, 1, False, sew, sew,
+                                  "mte")
+    epi = tepilogue.Epilogue(has_bias=True, activation=act)
+    kw = dict(epilogue=epi, out_dtype=torch.bfloat16,
+              acc_dtype=torch.bfloat16)
+    slices, depth = tsplitk.cluster_layout(m, n, k, card, n_split)
+    want = tsplitk.splitk_cluster_torch(a, b, None, bias, n_split=slices,
+                                        depth=depth, rbk=160, **kw)
+    ad, bd, biasd = a.to(card), b.to(card), bias.to(card)
+    before = build.launch_counts()
+    got = tsplitk.mte_gemm_splitk_kernel(ad, bd, None, biasd, geom=geo,
+                                         cluster_split=n_split, **kw)
+    again = tsplitk.mte_gemm_splitk_kernel(ad, bd, None, biasd, geom=geo,
+                                           cluster_split=n_split, **kw)
+    after = build.launch_counts()
+    diff = (got.float().cpu() - want.float()).abs()
+    assert bool((diff <= 2e-2 * (1 + want.float().abs())).all()), \
+        float(diff.max())
+    assert torch.equal(got, again)
+    assert {name for name in after if after[name] != before[name]} == {
+        "splitk_gemm_cluster"}
+
+
+@pytest.mark.parametrize("n_split", [None, 1, 2, 4, 8])
+def test_grouped_splitk_bf16acc_matches_plain(card, n_split):
+    """B3's split-K engine with the bf16 accumulator at qwen15_4b's decode
+    group (3 x 4 x 2560, members 2560 wide, no padding; the planned split
+    and pinned ones), rounded once per 256 rows of each slice: within
+    2e-2 x (1 + |ref|) of ``grouped_splitk_torch`` at the same slices
+    and blocks, bit-equal from call to call, on the split-K counter only."""
+    gen = torch.Generator().manual_seed(2560 + (n_split or 0))
+    g, c, k, n = 3, 4, 2560, 2560
+    x = (torch.randn(1, c, k, generator=gen) / k ** 0.5).to(
+        torch.bfloat16).expand(g, c, k)
+    w = torch.randn(g, k, n, generator=gen).to(torch.bfloat16)
+    sew = tgeometry.SEW.E16
+    geo = tgeometry.BlockGeometry(16, 128, 256, 1, 1, False, sew, sew, "mte")
+    kw = dict(out_dtype=torch.bfloat16, acc_dtype=torch.bfloat16,
+              widths=[n] * g)
+    slices, depth = tgrouped.split_layout(
+        x, w, widths=kw["widths"], n_split=n_split,
+        sm_count=torch.cuda.get_device_properties(card).multi_processor_count)
+    want = tgrouped.grouped_splitk_torch(x, w, n_split=slices, depth=depth,
+                                         rbk=256, **kw)
+    xd, wd = x.to(card), w.to(card)
+    before = build.launch_counts()
+    got = tgrouped.grouped_gemm_kernel(xd, wd, geom=geo, n_split=n_split,
+                                       **kw)
+    again = tgrouped.grouped_gemm_kernel(xd, wd, geom=geo, n_split=n_split,
+                                         **kw)
+    after = build.launch_counts()
+    diff = (got.float().cpu() - want.float()).abs()
+    assert bool((diff <= 2e-2 * (1 + want.float().abs())).all()), \
+        float(diff.max())
+    assert torch.equal(got, again)
+    assert {name for name in after if after[name] != before[name]} == {
+        "grouped_gemm_splitk"}
+
+
 def test_splitk_engines_split_by_rows_and_format(card):
-    """M = 17, bf16acc and fp32 stay on the tile loop, M = 16 bf16 goes to
-    the cluster engine: each launch counts on its own engine's counter
-    only; a pinned cluster split on the tile loop raises."""
+    """M = 17 (bf16acc too) and fp32 stay on the tile loop, M = 16 bf16
+    and M = 4 under bf16acc go to the cluster engine: each launch counts
+    on its own engine's counter only, each held to its engine's plain
+    version; a pinned cluster split on the tile loop raises."""
     gen = torch.Generator().manual_seed(17)
     k, n = 512, 384
     sew = tgeometry.SEW.E16
     geo = tgeometry.BlockGeometry(16, 128, 64, 4, 1, False, sew, sew, "mte")
     for m, dt, acc, counter in [
             (17, torch.bfloat16, None, "splitk_gemm"),
-            (4, torch.bfloat16, torch.bfloat16, "splitk_gemm"),
+            (17, torch.bfloat16, torch.bfloat16, "splitk_gemm"),
+            (4, torch.bfloat16, torch.bfloat16, "splitk_gemm_cluster"),
             (4, torch.float32, None, "splitk_gemm"),
             (16, torch.bfloat16, None, "splitk_gemm_cluster")]:
         a = (torch.randn(m, k, generator=gen) / k ** 0.5).to(dt)
@@ -623,7 +716,14 @@ def test_splitk_engines_split_by_rows_and_format(card):
         before = build.launch_counts()
         got = tsplitk.mte_gemm_splitk_kernel(a.to(card), b.to(card), **kw)
         after = build.launch_counts()
-        _close(got, tsplitk.mte_gemm_splitk_torch(a, b, **kw), 3e-2)
+        if counter == "splitk_gemm_cluster" and acc is not None:
+            slices, depth = tsplitk.cluster_layout(m, n, k, card)
+            want = tsplitk.splitk_cluster_torch(
+                a, b, n_split=slices, depth=depth, rbk=64,
+                out_dtype=torch.float32, acc_dtype=acc)
+        else:
+            want = tsplitk.mte_gemm_splitk_torch(a, b, **kw)
+        _close(got, want, 3e-2)
         assert {name for name in after if after[name] != before[name]} \
             == {counter}
     a = torch.randn(17, k).to(torch.bfloat16).to(card)
@@ -1077,19 +1177,25 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def _card_format(arch):
+    """The format of the card's model-level tests: the arch's own bf16acc
+    for qwen15_4b, bf16 for the others."""
+    return "bf16acc" if arch == "qwen15_4b" else "bf16"
+
+
 @pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b",
-                                  "gemma2_27b"])
+                                  "gemma2_27b", "qwen15_4b"])
 def test_verify_rows_equal_decode_steps_on_the_card(card, arch):
-    """bf16 at head_dim 64, so attention runs the full-width engines
-    (B4's and B6's mma): 4 slots, the second masked, a 4-token window
-    (M = 16).  Logits row i equals a decode step's at pos + i and the
-    cache after the window the cache after the 4 steps, bit for bit; the
-    window launches the kernels the 4 steps launch and no other, B4 once
-    per position and global layer, B6 once per position and local
-    layer."""
+    """bf16 at head_dim 64 (qwen15_4b: its bf16acc format), so attention
+    runs the full-width engines (B4's and B6's mma): 4 slots, the second
+    masked, a 4-token window (M = 16).  Logits row i equals a decode
+    step's at pos + i and the cache after the window the cache after the
+    4 steps, bit for bit; the window launches the kernels the 4 steps
+    launch and no other, B4 once per position and global layer, B6 once
+    per position and local layer."""
     slots, k, page, maxp = 4, 4, 8, 8
     cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
-                              head_dim=64, format_policy="bf16",
+                              head_dim=64, format_policy=_card_format(arch),
                               compute_dtype="bfloat16",
                               decode_qkv_grouped=True)
     params = tmodel.init_params(cfg, seed=0, device=card)
@@ -1199,14 +1305,15 @@ def test_speculative_engine_on_the_card_equals_the_cpu(card, arch):
 
 
 @pytest.mark.parametrize("arch", ["gemma_2b", "recurrentgemma_9b",
-                                  "gemma2_27b"])
+                                  "gemma2_27b", "qwen15_4b"])
 def test_speculative_engine_on_the_full_width_engines(card, arch):
-    """bf16 at head_dim 64 (B2's cluster, B3's split-K, B4's and B6's mma
-    engines): greedy streams with ``spec_k=4`` equal those without it on
-    the card, with rejections (rollback, and on recurrentgemma the ring
-    and RG-LRU restore and replay), and no tile-loop or SIMT launch."""
+    """bf16 at head_dim 64 (qwen15_4b: its bf16acc format; B2's cluster,
+    B3's split-K, B4's and B6's mma engines): greedy streams with
+    ``spec_k=4`` equal those without it on the card, with rejections
+    (rollback, and on recurrentgemma the ring and RG-LRU restore and
+    replay), and no tile-loop or SIMT launch."""
     cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
-                              head_dim=64, format_policy="bf16",
+                              head_dim=64, format_policy=_card_format(arch),
                               compute_dtype="bfloat16")
     params = tmodel.init_params(cfg, seed=0, device=card)
     rng = np.random.default_rng(3)

@@ -50,7 +50,9 @@ def fresh_caches():
     ("bfloat16", 16, 2048, 32257, False, "tile"),   # they do not
     ("bfloat16", 17, 2048, 2048, False, "tile"),    # C > 16
     ("bfloat16", 512, 16384, 2048, False, "tile"),  # prefill gate+up
-    ("bfloat16", 4, 2048, 2048, True, "tile"),      # bf16acc: K-ordered
+    ("bfloat16", 4, 2048, 2048, True, "splitk"),    # bf16acc: by slice
+    ("bfloat16", 4, 2560, 2560, True, "splitk"),    # qwen15_4b's MHA group
+    ("bfloat16", 17, 2560, 2560, True, "tile"),     # C > 16
     ("bfloat16", 4, 2050, 2048, False, "tile"),     # N not a multiple of 8
     ("float32", 4, 2048, 2048, False, "tile"),
     ("int8", 4, 2048, 2048, False, "tile"),
@@ -146,7 +148,7 @@ def _gsig(m, n_, k, fmt, group=3):
 @pytest.mark.parametrize("m,n_,k,fmt,want", [
     (4, 2048, 2048, "bf16", "splitk"),
     (4, 4096, 4096, "bf16", "splitk"),
-    (4, 2048, 2048, "bf16acc", "tile"),
+    (4, 2048, 2048, "bf16acc", "splitk"),
     (4, 2048, 2048, "fp32", "tile"),
     (4, 2048, 2048, "int8", "tile"),
     (512, 16384, 2048, "bf16", "tile"),
@@ -231,6 +233,53 @@ def test_decode_group_plain_matches_pallas_in_bf16():
     assert tbuild.launch_counts() == before        # CPU: the plain version
     assert tgeometry.grouped_engine(xt.dtype, c, n_, k) == "splitk"
     np.testing.assert_allclose(n(got), n(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,bk", [(640, 128), (2560, 256)])
+def test_decode_group_bf16acc_plain_matches_pallas(k, bk):
+    """B3's plain version of the split-K engine under bf16acc
+    (``grouped_splitk_torch`` at the engine's split: each slice's running
+    sum in bf16, rounded once per ``bk`` rows of the slice, the slices'
+    partials summed in f32 and rounded once) against JAX's grouped kernel
+    with a bf16 accumulator at the same ``bk`` (its running sum rounded
+    once per ``bk`` rows in K order over the whole of K): the deliberate
+    difference of ROADMAP §C, held within rtol 1e-2 (its bf16acc kernel
+    tolerance) and atol 2e-2: the two round running sums of magnitude ~1
+    (bf16 steps of 2^-8 to 2^-7) at different K rows, so an output whose
+    slices cancel to a small value keeps the intermediates' absolute
+    error (one or two of those steps).  The identity epilogue of the
+    decode group (the bias joins after it) and widths zeroing the
+    padding; the second case is qwen15_4b's decode split, 4 slices of
+    640.  On CPU tensors the wrapper runs exactly this plain version."""
+    g, c, n_ = 3, 4, 256
+    x = (RNG.standard_normal((1, c, k)) / np.sqrt(k)).astype(np.float32)
+    w = RNG.standard_normal((g, k, n_)).astype(np.float32)
+    w[1:, :, 128:] = 0.0
+    xb = jnp.broadcast_to(jnp.asarray(x).astype(jnp.bfloat16), (g, c, k))
+    wb = jnp.asarray(w).astype(jnp.bfloat16)
+    jg = JGeom(bm=16, bn=128, bk=bk, split_k=1, n_acc=1, transposed_b=False,
+               sew_i=JSEW.E16, sew_o=JSEW.E16, policy="mte")
+    want = np.asarray(grouped_gemm_pallas(xb, wb, geom=jg,
+                                          acc_dtype=jnp.bfloat16,
+                                          interpret=True))
+    xt = t(np.asarray(xb[:1])).expand(g, c, k)
+    wt = t(np.asarray(wb))
+    widths = [256, 128, 128]
+    slices, depth = tgrouped.split_layout(xt, wt, widths=widths)
+    assert tgeometry.grouped_engine(xt.dtype, c, n_, k,
+                                    bf16acc=True) == "splitk"
+    kw = dict(acc_dtype=torch.bfloat16, widths=widths)
+    got = tgrouped.grouped_splitk_torch(xt, wt, n_split=slices, depth=depth,
+                                        rbk=bk, **kw)
+    np.testing.assert_allclose(n(got), want.astype(np.float64), rtol=1e-2,
+                               atol=2e-2)
+    sew = tgeometry.SEW
+    tg = tgeometry.BlockGeometry(16, 128, bk, 1, 1, False, sew.E16, sew.E16,
+                                 "mte")
+    before = tbuild.launch_counts()
+    via = tgrouped.grouped_gemm_kernel(xt, wt, geom=tg, **kw)
+    assert tbuild.launch_counts() == before        # CPU: the plain version
+    assert torch.equal(via, got)
 
 
 @pytest.mark.parametrize("d", [64, 128])

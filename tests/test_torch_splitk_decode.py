@@ -59,7 +59,10 @@ def fresh_caches():
     ("bfloat16", 16, 2048, 32256, False, "cluster"),  # 8 slices of x fit
     ("bfloat16", 16, 2048, 32257, False, "tile"),     # they do not
     ("bfloat16", 17, 2048, 2048, False, "tile"),      # M > 16
-    ("bfloat16", 4, 2048, 2048, True, "tile"),        # bf16acc: K-ordered
+    ("bfloat16", 4, 2048, 2048, True, "cluster"),     # bf16acc: by slice
+    ("bfloat16", 4, 6912, 2560, True, "cluster"),     # qwen15_4b's gate/up
+    ("bfloat16", 4, 2560, 6912, True, "cluster"),     # its down
+    ("bfloat16", 17, 2560, 2560, True, "tile"),       # M > 16
     ("bfloat16", 4, 300, 1000, False, "tile"),        # N not a multiple of 8
     ("float32", 4, 2048, 2048, False, "tile"),
     ("int8", 4, 2048, 2048, False, "tile"),
@@ -155,13 +158,12 @@ def test_plan_engine_reports_cluster_for_decode_plans(label):
 
 
 @pytest.mark.parametrize("fmt,m,n_,k", [("fp32", 4, 2048, 2048),
-                                        ("bf16acc", 4, 2048, 2048),
+                                        ("bf16", 17, 256, 4096),
                                         ("int8", 4, 2048, 2048),
                                         ("bf16", 4, 300, 2048)])
 def test_plan_engine_keeps_the_tile_loop_off_the_cluster_engine(fmt, m, n_,
                                                                 k):
-    dt = {"fp32": "float32", "bf16acc": "bfloat16", "int8": "int8",
-          "bf16": "bfloat16"}[fmt]
+    dt = {"fp32": "float32", "int8": "int8", "bf16": "bfloat16"}[fmt]
     out = "int32" if fmt == "int8" else dt
     plan = tautotune.get_plan(m, n_, k, dt, out, fmt=fmt)
     assert plan.route == "splitk"
@@ -210,6 +212,59 @@ def test_splitk_plain_at_engine_split_matches_pallas_in_bf16(m, n_, k):
     assert got.dtype == torch.bfloat16
     ref = n(want)
     assert np.all(np.abs(n(got) - ref) <= 2e-2 * (1 + np.abs(ref)))
+
+
+@pytest.mark.parametrize("m,n_,k,s,bk", [(4, 256, 2048, 4, 128),
+                                         (3, 136, 1000, 2, 64),
+                                         (4, 384, 2560, 4, 160)])
+def test_splitk_cluster_bf16acc_plain_matches_pallas(m, n_, k, s, bk):
+    """B2's plain version of the cluster engine under bf16acc
+    (``splitk_cluster_torch``: each slice's running sum in bf16, rounded
+    once per ``bk`` rows of the slice, the slices' bf16 partials summed
+    in f32 and rounded once, the epilogue rounded at every step) against
+    JAX's split-K kernel with a bf16 accumulator at the same ``n_split``
+    and ``bk`` -- the slices coincide: the engine's depth,
+    round_up(cdiv(K, s), 64), is JAX's ``k_per_split`` here (the last
+    case is qwen15_4b's 4-slice, 160-row split of K = 2560) --, with
+    alpha, beta·C, a row bias, softcap and gelu: within 1e-2 (ROADMAP
+    §C's bf16acc kernel tolerance; a block partial on a rounding tie can
+    land one bf16 ulp apart when the two f32 dot products sum in another
+    order).  On CPU tensors the wrapper runs exactly this plain version
+    at the split the engine takes."""
+    a = (RNG.standard_normal((m, k)) / np.sqrt(k)).astype(np.float32)
+    b = RNG.standard_normal((k, n_)).astype(np.float32)
+    c = RNG.standard_normal((m, n_)).astype(np.float32)
+    bias = RNG.standard_normal(n_).astype(np.float32)
+    ab, bb = (jnp.asarray(x).astype(jnp.bfloat16) for x in (a, b))
+    epi = dict(alpha=0.7, beta=0.5, has_bias=True, softcap=20.0,
+               activation="gelu")
+    jg = JGeom(bm=16, bn=128, bk=bk, split_k=s, n_acc=1, transposed_b=False,
+               sew_i=JSEW.E16, sew_o=JSEW.E16, policy="mte")
+    want = mte_gemm_splitk_pallas(ab, bb, jnp.asarray(c), jnp.asarray(bias),
+                                  geom=jg, n_split=s,
+                                  epilogue=JEpilogue(**epi),
+                                  out_dtype=jnp.float32,
+                                  acc_dtype=jnp.bfloat16, interpret=True)
+    depth = tgeometry.round_up(tgeometry.cdiv(k, s), tgeometry.GROUPED_BK)
+    assert depth == tgeometry.cdiv(tgeometry.cdiv(k, s), bk) * bk
+    ta, tb = t(np.asarray(ab)), t(np.asarray(bb))
+    kw = dict(epilogue=tepilogue.Epilogue(**epi), out_dtype=torch.float32,
+              acc_dtype=torch.bfloat16)
+    got = tsplitk.splitk_cluster_torch(ta, tb, t(c), t(bias), n_split=s,
+                                       depth=depth, rbk=bk, **kw)
+    np.testing.assert_allclose(n(got), n(want), rtol=1e-2, atol=1e-2)
+    assert tgeometry.splitk_engine(ta.dtype, m, n_, k,
+                                   bf16acc=True) == "cluster"
+    slices, depth = tsplitk.cluster_layout(m, n_, k, None)
+    sew = tgeometry.SEW.E16
+    geom = tgeometry.BlockGeometry(16, 128, bk, 4, 1, False, sew, sew, "mte")
+    before = tbuild.launch_counts()
+    via = tsplitk.mte_gemm_splitk_kernel(ta, tb, t(c), t(bias), geom=geom,
+                                         n_split=4, **kw)
+    assert tbuild.launch_counts() == before        # CPU: the plain version
+    assert torch.equal(via, tsplitk.splitk_cluster_torch(
+        ta, tb, t(c), t(bias), n_split=slices, depth=depth,
+        rbk=tsplitk.bf16acc_block(bk, k), **kw))
 
 
 @pytest.mark.parametrize("kw", [{}, {"window": 21, "softcap": 20.0}],

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Decode kernels and B7 of one checkout of the repo, timed on the card: B2
-at the decode GEMMs of gemma_2b and recurrentgemma_9b (through the plan
-the plan cache grants, with the weight warm and cold in L2), B3 at the two
-decode q/k/v groups, B4 at gemma_2b's decode attention, B6 at
+at the decode GEMMs of gemma_2b, recurrentgemma_9b and gemma2_27b (through
+the plan the plan cache grants, with the weight warm and cold in L2), B3
+at their three decode q/k/v groups, B4 at gemma_2b's decode attention, B6 at
 recurrentgemma_9b's ring decode attention (warm and cold), B8's epilogue
 pass at the amx path's shapes and at a ragged one, and B7 at the serving
 prefill's (1, 512, 4096) on every engine the checkout has,
 from zero and, where the checkout takes one, from h0, each with a SHA-256
-of its output (B2: none).  Inputs are made on the card from fixed seeds,
-so two checkouts see the same operands.
+of its output.  Inputs are made on the card from fixed seeds, so two
+checkouts see the same operands.
 
 Run it on two checkouts in turns (A, B, B, A), each in its own process, to
 compare them on one card:
@@ -17,8 +17,8 @@ compare them on one card:
 
 ROOT is the checkout whose ``src/repro_torch`` and ``chip_smoke.py`` (for
 its timers) are used; the kernels build into ``ROOT/build``.  ``--same``
-FILE fails the run unless every B3, B4 and epilogue-pass output hash
-equals the one in FILE, and every B7 row FILE has too (the direct
+FILE fails the run unless every B2, B3, B4 and epilogue-pass output hash
+FILE has equals this run's, and every B7 row FILE has too (the direct
 engine from zero, in a checkout before the staged engine) equals FILE's
 (B6's engine may differ between checkouts; its hash shows that repeated
 calls agree).  Every run fails unless its B7 rows from zero share one
@@ -40,8 +40,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root")
     ap.add_argument("--out", required=True)
-    ap.add_argument("--same", help="a JSON file of an earlier run whose B3, "
-                    "B4 and pass output hashes this run must reproduce")
+    ap.add_argument("--same", help="a JSON file of an earlier run whose B2, "
+                    "B3, B4 and pass output hashes this run must reproduce")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path[:0] = [os.path.join(root, "src"), root]
@@ -94,7 +94,11 @@ def main() -> int:
             ("gemma down", 4, 2048, 16384, "none"),
             ("rg q/o/rglru", 4, 4096, 4096, "none"),
             ("rg gate", 4, 12288, 4096, "gelu"),
-            ("rg down", 4, 4096, 12288, "none")]:
+            ("rg down", 4, 4096, 12288, "none"),
+            ("g2 o", 4, 4608, 4096, "none"),
+            ("g2 gate", 4, 36864, 4608, "gelu"),
+            ("g2 up", 4, 36864, 4608, "none"),
+            ("g2 down", 4, 4608, 36864, "none")]:
         gen = torch.Generator(device=dev).manual_seed(m * n + k)
         a = (torch.randn(m, k, generator=gen, device=dev)
              / math.sqrt(k)).to(bf16)
@@ -105,13 +109,13 @@ def main() -> int:
         run = lambda: mte_gemm_splitk_kernel(  # noqa: E731
             a, b, geom=plan.geometry, n_split=plan.n_split, epilogue=epi,
             out_dtype=bf16)
-        res["b2"][f"{label} {m}x{n}x{k}"] = {
-            "ms": chip_smoke.time_ms(run),
-            "cold_ms": chip_smoke.time_ms_cold(run)}
+        res["b2"][f"{label} {m}x{n}x{k}"] = timed(run)
     for label, c, k, widths in [("qkv 3x4x2048x2048", 4, 2048,
                                  (2048, 256, 256)),
                                 ("qkv 3x4x4096x4096", 4, 4096,
-                                 (4096, 256, 256))]:
+                                 (4096, 256, 256)),
+                                ("qkv 3x4x4608x4096", 4, 4608,
+                                 (4096, 2048, 2048))]:
         gen = torch.Generator(device=dev).manual_seed(k)
         x = (torch.randn(c, k, generator=gen, device=dev)
              / math.sqrt(k)).to(bf16)
@@ -200,7 +204,7 @@ def main() -> int:
     if args.same:
         with open(args.same) as fh:
             ref = json.load(fh)
-        for part in ("b3", "b4", "pass", "b7"):
+        for part in ("b2", "b3", "b4", "pass", "b7"):
             for label, row in res[part].items():
                 if part == "b7" and label not in ref.get(part, {}):
                     continue
@@ -208,8 +212,8 @@ def main() -> int:
                     print(f"ab_decode: {part} output at {label} differs "
                           f"from {args.same}", file=sys.stderr)
                     return 1
-        print("ab_decode: every B3, B4, pass and B7 output equals the "
-              "reference's bit for bit")
+        print("ab_decode: every B2, B3, B4, pass and B7 output equals "
+              "the reference's bit for bit")
     return 0
 
 
