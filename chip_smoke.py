@@ -33,7 +33,12 @@ Phases (any failure raises and the script exits non-zero):
    down on B2 and q/k/v group on B3 under its bf16acc format (bf16
    accumulator, every epilogue step rounded) beside the f32 accumulator
    at the same shapes, and its MHA attention (G = 1, D = 128) on B4 and
-   B5; the old engines' own rows at the fp32
+   B5; starcoder2_7b's prefill up (bias + gelu in one epilogue) and down
+   (bias) on B1, decode o, up (bias + gelu) and down (bias) on B2 (the
+   library row ``torch.addmm`` where a bias joins), decode q/k/v group
+   (widths 4608/512/512) on B3, and its ring decode at G = 9 (36 query
+   heads on 4 kv heads, D = 128, ragged ring tails at S = 37 too) on B6;
+   the old engines' own rows at the fp32
    shapes phase 3 gives them, or at the prefill gate+up group) and at
    small ragged shapes in every mode each kernel takes.  Each prints its
    max error beside the tolerance; the main-path shapes also print the
@@ -61,7 +66,10 @@ Phases (any failure raises and the script exits non-zero):
    its 16-slot window), and qwen15_4b.reduced() under its bf16acc format
    with a bf16 compute dtype (QKV biases, an untied head; first-token
    logits within 5e-2; its decode GEMMs on B2's and B3's cluster
-   engines): first-token logits within
+   engines), and starcoder2_7b.reduced() (LayerNorm with a bias, the plain
+   GELU MLP with biases, every layer local, biases and norm parameters
+   drawn away from zero and one; prompts longer than its 16-slot window):
+   first-token logits within
    1e-3, identical greedy token streams from the card's engine in its
    defaults (async, depth 2, the decode step replayed as a CUDA graph)
    and the CPU's synchronous eager engine, and the same with
@@ -80,8 +88,11 @@ Phases (any failure raises and the script exits non-zero):
    4608-token prompts, so its 4096-slot rings wrap in prefill and decode)
    and qwen15_4b (40 layers, d_model 2560, MHA 20 x 128, QKV biases drawn
    non-zero, an untied LM head, bf16acc; 2048-token prompts, two sharing
-   their first chunk) in the defaults, each engine freed before the next
-   is built.  Each configuration is served twice: (a) with
+   their first chunk) and starcoder2_7b (32 local layers, d_model 4608,
+   GQA 36/4, LayerNorm, the plain GELU MLP; biases and norm parameters
+   drawn by ``random_biases``; 4608-token prompts, so its 4096-slot rings
+   wrap in prefill and decode) in the defaults, each engine freed before
+   the next is built.  Each configuration is served twice: (a) with
    ``async_steps=False`` and the eager decode step, synchronised around
    each prefill chunk and decode launch (the earlier slices' numbers),
    and (b) in the engine's defaults (async, depth 2, the decode step
@@ -117,8 +128,9 @@ Phases (any failure raises and the script exits non-zero):
    a one-layer draft and with an 18-layer one (the whole target),
    recurrentgemma_9b with a one-period draft (rglru, rglru, local), all
    sharing the target's weights, gemma2_27b with a one-period draft
-   (a local and a global layer) and qwen15_4b with a one-layer one (its
-   head shared too); then gemma_2b and recurrentgemma_9b each
+   (a local and a global layer), qwen15_4b with a one-layer one (its
+   head shared too) and starcoder2_7b with a one-layer one; then
+   gemma_2b and recurrentgemma_9b each
    with a one-period draft of weights of its own (``draft_config`` +
    ``draft_params``), which is rejected part of the time.  Each run's
    greedy tokens must equal phase 4's (b) run request for request, the
@@ -429,12 +441,16 @@ def gemm_phase(dev, rows):
                 "splitk_gemm_cluster: two calls differ")
 
     def main_path(label, m, n, k, act, dt=torch.bfloat16, tol=2e-2,
-                  fmt="bf16", cold=False):
-        epi = Epilogue(activation=act)
+                  fmt="bf16", cold=False, bias=False):
+        epi = Epilogue(has_bias=bias, activation=act)
         sig = GemmSignature.make(m, n, k, dt, dt, epi, fmt=fmt)
         plan = cache.plan(sig)
         engine = plan_engine(sig, plan.geometry)
         a, b = operands(m, n, k, dt)
+        # A bias joins the epilogue before the activation, in f32, as the
+        # model's dense layers pass it.
+        args = (a, b, None, 0.5 * torch.randn(n, generator=gen, device=dev)
+                if bias else None)
         geom, extra = plan.geometry, {}
         acc = torch.bfloat16 if fmt == "bf16acc" else None
         kw = dict(epilogue=epi, out_dtype=dt, acc_dtype=acc)
@@ -443,25 +459,26 @@ def gemm_phase(dev, rows):
             slices, depth = cluster_layout(m, n, k, dev)
             extra["slices"] = slices
             run = lambda: mte_gemm_splitk_kernel(  # noqa: E731
-                a, b, geom=geom, n_split=plan.n_split, **kw)
+                *args, geom=geom, n_split=plan.n_split, **kw)
             # The plain version in the engine's slices and, under bf16acc,
             # its K blocks.
             rbk = bf16acc_block(geom.bk, k)
             plain = lambda: splitk_cluster_torch(  # noqa: E731
-                a, b, n_split=slices, depth=depth, rbk=rbk, **kw)
+                *args, n_split=slices, depth=depth, rbk=rbk, **kw)
         elif plan.route == "splitk":
             kern = "splitk_gemm"
             run = lambda: mte_gemm_splitk_kernel(  # noqa: E731
-                a, b, geom=geom, n_split=plan.n_split, **kw)
+                *args, geom=geom, n_split=plan.n_split, **kw)
             plain = lambda: mte_gemm_splitk_torch(  # noqa: E731
-                a, b, geom=geom, n_split=plan.n_split, **kw)
+                *args, geom=geom, n_split=plan.n_split, **kw)
         else:
             kern = "mte_gemm_wgmma" if engine == "wgmma" else "mte_gemm"
             run = lambda: mte_gemm_kernel(  # noqa: E731
-                a, b, geom=geom, **kw)
+                *args, geom=geom, **kw)
             plain = lambda: mte_gemm_torch(  # noqa: E731
-                a, b, geom=geom, **kw)
-        shape = f"{label} {m}x{n}x{k}{' bf16acc' if acc else ''}"
+                *args, geom=geom, **kw)
+        shape = (f"{label} {m}x{n}x{k}{' bf16acc' if acc else ''}"
+                 f"{' +bias' if bias else ''}")
         want = plain()
         got = run()
         err = check(f"{kern} main-path {shape} [{plan.describe()}, engine "
@@ -469,15 +486,21 @@ def gemm_phase(dev, rows):
         if engine == "cluster":
             require(torch.equal(got, run()), f"{kern}: two calls differ")
         flops = 2.0 * m * n * k
-        nbytes = a.element_size() * (m * k + k * n + m * n)
+        nbytes = (a.element_size() * (m * k + k * n + m * n)
+                  + (4 * n if bias else 0))
         peak = PEAK["bf16" if dt == torch.bfloat16 else "fp32"]
-        lib = lambda: torch.matmul(a, b)  # noqa: E731
+        if bias:       # the library's product with the bias in one call
+            lib_bias = args[3].to(dt)
+            lib = lambda: torch.addmm(lib_bias, a, b)  # noqa: E731
+        else:
+            lib = lambda: torch.matmul(a, b)  # noqa: E731
         row = {"kernel": kern, "shape": shape, "engine": engine,
                "plan": plan.describe(), "max_abs_err": err,
                "tol": tol, "ms": time_ms(run), "plain_ms": time_ms(plain),
                "bound_ms": bound_ms(flops, nbytes, peak),
                "bound_by": bound_by(flops, nbytes, peak),
-               "library_ms": time_ms(lib), **extra}
+               "library_ms": time_ms(lib),
+               "library": "torch.addmm" if bias else "torch.matmul", **extra}
         if (m <= 16 and kern != "mte_gemm") or cold:
             # A decode GEMM (or a row asked cold): with the weight cold in
             # L2, as a decode step finds it, and (cluster engine) at every
@@ -493,10 +516,10 @@ def gemm_phase(dev, rows):
                 except ValueError:
                     continue     # x's slice would not fit, or empty slices
                 pinned = lambda: mte_gemm_splitk_kernel(  # noqa: E731
-                    a, b, geom=geom, cluster_split=s, **kw)
+                    *args, geom=geom, cluster_split=s, **kw)
                 want_s = splitk_cluster_torch(
-                    a, b, n_split=s, depth=cluster_layout(m, n, k, dev,
-                                                          s)[1],
+                    *args, n_split=s, depth=cluster_layout(m, n, k, dev,
+                                                           s)[1],
                     rbk=rbk, **kw)
                 err = max(err, check(f"{kern} main-path {shape} {s} "
                                      f"slices", pinned(), want_s, tol))
@@ -505,9 +528,9 @@ def gemm_phase(dev, rows):
         rows.append(row)
         log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
             f"ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-            f"torch.matmul {row['library_ms']:.4f} ms "
+            f"{row['library']} {row['library_ms']:.4f} ms "
             f"({row['ms'] / row['library_ms']:.2f}x)"
-            + (f"; L2 cold {row['cold_ms']:.4f} ms, torch.matmul "
+            + (f"; L2 cold {row['cold_ms']:.4f} ms, {row['library']} "
                f"{row['library_cold_ms']:.4f} ms" if "cold_ms" in row
                else "")
             + (f"; by split {row['ms_by_split']} (planned {slices})"
@@ -554,6 +577,17 @@ def gemm_phase(dev, rows):
                                  ("q gate", 6912, 2560, "silu"),
                                  ("q down", 2560, 6912, "none")]:
             main_path(label, 4, n, k, act, fmt=fmt, tol=tol)
+    # starcoder2_7b (d 4608, 36 heads x 128 = 4608, d_ff 18432, the plain
+    # GELU MLP with biases): the prefill chunk's up (bias + gelu in one
+    # epilogue) and down (bias) on B1's wgmma mainloop, and the decode
+    # step's o (no bias, as in the reference), up and down on B2's
+    # cluster engine, warm and cold.
+    main_path("s2 up", 512, 18432, 4608, "gelu", cold=True, bias=True)
+    main_path("s2 down", 512, 4608, 18432, "none", bias=True)
+    for label, n, k, act, bias in [("s2 o", 4608, 4608, "none", False),
+                                   ("s2 up", 18432, 4608, "gelu", True),
+                                   ("s2 down", 4608, 18432, "none", True)]:
+        main_path(label, 4, n, k, act, bias=bias)
     # The tile loops' rows, at the shapes phase 3's reduced fp32 gemma_2b
     # (d_model 128, d_ff 256) gives them: B1's gate in the 4096-token
     # chunk, B2's gate in the 2-slot decode.
@@ -729,6 +763,10 @@ def grouped_phase(dev, rows):
     for fmt in ("bf16acc", "bf16"):
         main_path("qkv decode 3x4x2560x2560", 3, 4, 2560, (2560,) * 3,
                   torch.bfloat16, fmt=fmt)
+    # starcoder2_7b's GQA 36/4 group: k and v 512 wide, padded to q's 4608
+    # (their padding tiles skipped; the biases are added after the group).
+    main_path("s2 qkv decode 3x4x4608x4608", 3, 4, 4608, (4608, 512, 512),
+              torch.bfloat16)
     main_path("gate+up prefill 2x512x2048x16384", 2, 512, 2048,
               (16384, 16384), torch.float32)
 
@@ -1144,11 +1182,13 @@ def ring_decode_phase(dev, rows):
     """B6 on both of its engines against its plain version: small ragged
     cases (S = 37, not a multiple of the 16-slot tile; a wrapped ring, -1
     slots, window and softcap, an empty row) in fp32 on the SIMT kernel
-    and in bf16 on the mma engine at G 1/4/16 x D 64/128/256, over the
+    and in bf16 on the mma engine at G 1/4/9/16 x D 64/128/256, over the
     ring's strided view and over a contiguous cache; then the full-width
     decode of recurrentgemma_9b's local layers on the mma engine -- 4
     slots x 16 query heads on 1 kv head x D 256 over a wrapped 2048-slot
-    bf16 ring, read through its (B, L, Hkv, D) storage -- also with the
+    bf16 ring, read through its (B, L, Hkv, D) storage --, gemma2_27b's
+    (G = 2) and starcoder2_7b's (36 query heads on 4 kv heads, G = 9,
+    D 128, a wrapped 4096-slot ring), each also with the
     cache cold in L2 and at every cluster size, and the SIMT kernel's row
     at the reduced fp32 decode phase 3 gives it."""
     import torch
@@ -1199,7 +1239,9 @@ def ring_decode_phase(dev, rows):
                          "tol": tol})
 
     small("fp32 ring S=37 G=4 D=64", torch.float32, 4, 64, 1e-5)
-    for g in (1, 4, 16):
+    # G = 9 (starcoder2_7b's 36/4): rows 9-15 of the mma's A fragment are
+    # padding, and G is no power of two.
+    for g in (1, 4, 9, 16):
         for d in (64, 128, 256):
             small(f"ring S=37 G={g} D={d}", torch.bfloat16, g, d, 1e-2)
             small(f"contiguous S=37 G={g} D={d}", torch.bfloat16, g, d,
@@ -1266,6 +1308,11 @@ def ring_decode_phase(dev, rows):
                       128, 4096, [4614, 4625, 4608, 4631], torch.bfloat16,
                       1e-2, 4096, **GEMMA2_ATTN) == "flash_decode_mma",
             "gemma2_27b's ring decode must run on B6's mma engine")
+    require(main_path("s2 ring 4x36/4x128 L=4096", 4, 36, 4, 128, 4096,
+                      [4614, 4625, 4608, 4631], torch.bfloat16, 1e-2, 4096)
+            == "flash_decode_mma",
+            "starcoder2_7b's ring decode (G = 9) must run on B6's mma "
+            "engine")
     require(main_path("fp32 ring 2x4x32 L=16", 2, 4, 1, 32, 16, [37, 20],
                       torch.float32, 1e-5, 16) == "flash_decode",
             "fp32 ring decode must run on B6's SIMT kernel")
@@ -1367,6 +1414,7 @@ CONFIGS = {
     "recurrentgemma": ("recurrentgemma_9b", {"param_dtype": "bfloat16"}),
     "gemma2": ("gemma2_27b", {"param_dtype": "bfloat16"}),
     "qwen": ("qwen15_4b", {"param_dtype": "bfloat16"}),
+    "starcoder2": ("starcoder2_7b", {"param_dtype": "bfloat16"}),
 }
 # Kernels each configuration's main path must launch.
 PATH_KERNELS = {
@@ -1384,6 +1432,8 @@ PATH_KERNELS = {
                "flash_attention_wgmma"),
     "qwen": ("mte_gemm_wgmma", "splitk_gemm_cluster", "grouped_gemm_splitk",
              "flash_decode_paged_mma", "flash_attention_wgmma"),
+    "starcoder2": ("mte_gemm_wgmma", "splitk_gemm_cluster",
+                   "grouped_gemm_splitk", "flash_decode_mma"),
 }
 # Counters that must stay 0 at full width: every bf16 B1 launch (all of
 # them prefill projections) and every bf16 B8 stage-1 launch runs on the
@@ -1404,6 +1454,8 @@ NOT_ON_PATH = {
                "flash_decode_paged", "flash_decode", "flash_attention"),
     "qwen": ("mte_gemm", "splitk_gemm", "grouped_gemm", "flash_decode_paged",
              "flash_attention"),
+    "starcoder2": ("mte_gemm", "splitk_gemm", "grouped_gemm",
+                   "flash_decode"),
 }
 # Launches of the new engines per profiled decode step: gemma_2b's 18
 # layers run B2 on o, gate, up and down (and on q, k, v on the eager path)
@@ -1411,7 +1463,9 @@ NOT_ON_PATH = {
 # its 12 local layers 12 B6 launches; gemma2_27b's 46 layers run B2 on o,
 # gate, up and down, and its 23 global layers B4 once each and its 23
 # local layers B6 once each; qwen15_4b's 40 layers run B2 (bf16acc) on o,
-# gate, up and down and B4 once each.
+# gate, up and down and B4 once each; starcoder2_7b's 32 local layers run
+# B2 on o, up and down (the plain MLP has no gate), B3 on the q/k/v group
+# and B6 once each.
 DECODE_STEP_LAUNCHES = {
     "default": {"splitk_gemm_cluster": 72, "flash_decode_paged_mma": 18},
     "amx": {"flash_decode_paged_mma": 18},
@@ -1420,6 +1474,8 @@ DECODE_STEP_LAUNCHES = {
     "gemma2": {"splitk_gemm_cluster": 184, "flash_decode_paged_mma": 23,
                "flash_decode_mma": 23},
     "qwen": {"splitk_gemm_cluster": 160, "flash_decode_paged_mma": 40},
+    "starcoder2": {"splitk_gemm_cluster": 96, "grouped_gemm_splitk": 32,
+                   "flash_decode_mma": 32},
 }
 # Phase 4's workload per arch: 4 slots, 16-token pages, 512-token prefill
 # chunks, 6 requests x 24 greedy tokens.  gemma_2b: 1024-token prompts, two
@@ -1429,8 +1485,10 @@ DECODE_STEP_LAUNCHES = {
 # gemma2_27b: 4608-token prompts, so its 4096-slot rings wrap in prefill
 # (the chunk at 4096) and in decode while its global layers see every
 # token; no prefix cache (the rings).  qwen15_4b: 2048-token prompts, two
-# sharing their first chunk (the prefix cache).  ``decode`` and ``pos0``
-# place the profiled decode step and prefill chunk.
+# sharing their first chunk (the prefix cache).  starcoder2_7b: 4608-token
+# prompts, so its 4096-slot rings (every layer local) wrap in prefill (the
+# chunk at 4096) and in decode; no prefix cache (the rings).  ``decode``
+# and ``pos0`` place the profiled decode step and prefill chunk.
 WORKLOADS = {
     "gemma_2b": dict(prefill_len=1024, cache_len=1088, shared=512,
                      decode=[1030, 1041, 1024, 1047], pos0=512),
@@ -1440,6 +1498,8 @@ WORKLOADS = {
                        decode=[4614, 4625, 4608, 4631], pos0=4096),
     "qwen15_4b": dict(prefill_len=2048, cache_len=2112, shared=512,
                       decode=[2054, 2065, 2048, 2071], pos0=1536),
+    "starcoder2_7b": dict(prefill_len=4608, cache_len=4672, shared=0,
+                          decode=[4614, 4625, 4608, 4631], pos0=4096),
 }
 
 
@@ -1857,21 +1917,38 @@ def reduced_gemma2_phase(dev):
     return {"reduced-gemma2": path_counts, "reduced-gemma2-spec": spec}
 
 
-def random_qkv_biases(params, cfg, seed: int = 1):
-    """Draw every q/k/v bias from 0.5 x N(0, 1) (seeded; ``init_params``
-    makes them zero, as JAX does), so a served run adds biases that
-    move its activations."""
+def random_biases(params, cfg, seed: int = 1):
+    """Draw every q/k/v bias from 0.5 x N(0, 1), and (from seed + 1) every
+    MLP bias from 0.1 x N(0, 1) and each LayerNorm's scale from
+    1 + 0.2 x N(0, 1) and bias from 0.2 x N(0, 1) (``init_params`` makes
+    biases zero and scales one, as JAX does), so a served run adds biases
+    and norm parameters that move its activations."""
     import torch
-    if not cfg.qkv_bias:
-        return params
-    dev = params["layers"][0]["mixer"]["q"]["b"].device
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    dev = params["embedding"]["table"].device
     with torch.no_grad():
+        if cfg.qkv_bias:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            for lp in params["layers"]:
+                for name in ("q", "k", "v"):
+                    b = lp["mixer"][name]["b"]
+                    b.copy_(0.5 * torch.randn(b.shape, generator=gen,
+                                              device=dev))
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+        def draw(t, mean, std):
+            t.copy_(mean + std * torch.randn(t.shape, generator=gen,
+                                             device=dev))
+
         for lp in params["layers"]:
-            for name in ("q", "k", "v"):
-                b = lp["mixer"][name]["b"]
-                b.copy_(0.5 * torch.randn(b.shape, generator=gen,
-                                          device=dev))
+            for leaf in lp["ffn"].values() if cfg.mlp_bias else ():
+                draw(leaf["b"], 0.0, 0.1)
+        if cfg.norm_type == "layernorm":
+            norms = [params["final_norm"]] + [
+                lp[name] for lp in params["layers"] for name in lp
+                if "norm" in name]
+            for p in norms:
+                draw(p["scale"], 1.0, 0.2)
+                draw(p["bias"], 0.0, 0.2)
     return params
 
 
@@ -1899,7 +1976,7 @@ def reduced_qwen_phase(dev):
                               format_policy="bf16acc",
                               compute_dtype="bfloat16")
     reset_planning()
-    params_cpu = random_qkv_biases(
+    params_cpu = random_biases(
         model_lib.init_params(cfg, seed=0, device="cpu"), cfg)
     params_gpu = to_device(params_cpu, dev)
     rng = np.random.default_rng(0)
@@ -1959,6 +2036,86 @@ def reduced_qwen_phase(dev):
     return {"reduced-qwen": path_counts, "reduced-qwen-spec": spec}
 
 
+def reduced_starcoder2_phase(dev):
+    """starcoder2_7b.reduced() in fp32, default configuration, card against
+    CPU: LayerNorm with a bias, the plain GELU MLP with biases, every layer
+    local (16-slot rings), GQA 4:1, QKV biases and an untied head, the
+    biases and norm parameters drawn away from their initial values
+    (``random_biases``).  32-token prompts in chunks of 16 (the second
+    chunk wraps the rings): first-token logits within 1e-3, identical
+    greedy streams from the engine (3 requests on 2 slots) on the card in
+    its defaults and on the CPU synchronous and eager, and the same with
+    ``spec_k=4`` (the weight-shared one-layer draft).  Returns the card's
+    launch counts (keys ``reduced-starcoder2``,
+    ``reduced-starcoder2-spec``): fp32 runs B2's and B3's tile loops and
+    B6's SIMT kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = get_config("starcoder2_7b").reduced()          # fp32
+    reset_planning()
+    params_cpu = random_biases(
+        model_lib.init_params(cfg, seed=0, device="cpu"), cfg)
+    params_gpu = to_device(params_cpu, dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n_tok, dtype=np.int32)
+               for n_tok in (32, 21, 30, 17)]
+    logits = {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        cache = model_lib.init_paged_cache(cfg, 2, 64, num_pages=17,
+                                           page_size=8, device=device)
+        table = torch.arange(1, 9, dtype=torch.int32, device=device)[None]
+        toks = torch.as_tensor(prompts[0].astype(np.int64), device=device)
+        for p0 in (0, 16):
+            out, cache = model_lib.prefill_chunk(
+                params, {"tokens": toks[None, p0:p0 + 16],
+                         "page_table": table, "slot": 1}, cache, cfg,
+                pos0=p0)
+        logits[str(device)] = out.cpu()
+    err = max_err(logits[str(dev)], logits["cpu"])
+    log(f"  reduced starcoder2 fp32 first-token logits cuda vs cpu: "
+        f"max_abs_err={err:.3e} tol=1e-3")
+    require(err <= 1e-3, f"starcoder2 first-token logits differ by {err}")
+    kw = dict(slots=2, cache_len=64, prefill_len=32, page_size=8,
+              prefill_chunk=16)
+    outs = {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        eng = ServingEngine(params, cfg, device=device,
+                            async_steps=device == dev, **kw)
+        for rid, p in enumerate(prompts[1:]):
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
+        build.reset_launch_counts()
+        outs[str(device)] = eng.run()
+        counts = build.launch_counts()
+        log(f"  reduced starcoder2 engine on {device}: "
+            f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
+            f"launches {counts}; steps_in_flight_max "
+            f"{eng.steps_in_flight_max}, graphs "
+            f"{sorted(eng.decode_step.graphs)}")
+        if device == dev:
+            require(eng.decode_step.graph and eng.decode_step.graphs,
+                    "reduced starcoder2: the card's decode step was not "
+                    "replayed as a CUDA graph")
+            path_counts = counts
+            for kernel in ("splitk_gemm", "grouped_gemm", "flash_decode"):
+                require(counts[kernel] > 0,
+                        f"reduced starcoder2: {kernel} not launched")
+    for rid in outs["cpu"]:
+        require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
+        require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
+                f"starcoder2 greedy stream of request {rid} differs")
+    log("  reduced starcoder2 engine: greedy streams identical on cuda "
+        "(async + graph) and cpu (synchronous, eager)")
+    spec = reduced_spec_check(dev, "starcoder2", cfg, params_cpu,
+                              params_gpu, prompts[1:], kw, outs["cpu"])
+    return {"reduced-starcoder2": path_counts,
+            "reduced-starcoder2-spec": spec}
+
+
 # -- phase 4: full-width serving ---------------------------------------------
 
 MAX_TOKENS = 24
@@ -2012,7 +2169,7 @@ def serving_phase(dev, name):
         builds them anew, so neither run's peak holds the other's)."""
         reset_planning()
         t0 = time.perf_counter()
-        params = random_qkv_biases(
+        params = random_biases(
             model_lib.init_params(cfg, seed=0, device=dev), cfg)
         torch.cuda.synchronize()
         log(f"  {arch} params: {model_lib.param_count(params) / 1e9:.3f} B "
@@ -2390,18 +2547,25 @@ def profile_call(fn, n):
     clock around a synchronise (no profiler: its overhead would inflate
     the idle share), then ``n`` under ``torch.profiler``: wall ms, the
     wrappers' launches, device kernels and busy ms per call, the idle
-    share, the kernels by device time and the ``torch.cumsum`` calls."""
+    share, the kernels by device time and the ``torch.cumsum`` calls.
+    CUDA events between the timed calls give each call's span on the
+    device's clock (``call_ms``), which shows whether a high idle share
+    is one call held back or every call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build
     fn()
     torch.cuda.synchronize()
     build.reset_launch_counts()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
     t = time.perf_counter()
-    for _ in range(n):
+    for i in range(n):
+        marks[i].record()
         fn()
+    marks[n].record()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t) / n
+    call_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     per_call = {k: v / n for k, v in build.launch_counts().items() if v}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2421,7 +2585,8 @@ def profile_call(fn, n):
                        if e.key == "aten::cumsum") // n
     busy_ms = sum(r[0] for r in rows)
     rows.sort(reverse=True)
-    return {"wall_ms": wall_ms, "wrapper_launches": per_call,
+    return {"wall_ms": wall_ms, "call_ms": call_ms,
+            "wrapper_launches": per_call,
             "cumsum_calls": cumsum_calls,
             "device_kernels": sum(r[2] for r in rows) if rows else None,
             "device_busy_ms": busy_ms if rows else None,
@@ -2439,7 +2604,8 @@ def log_profile(name, prof, note=""):
     log(f"  profile {name}: wall {prof['wall_ms']:.3f} ms, {busy}, bound "
         f"{prof['bound_ms']:.3f} ms, idle share {prof['idle_share']}{note}; "
         f"device kernels per call {prof['device_kernels']}, wrapper "
-        f"launches per call {prof['wrapper_launches']}")
+        f"launches per call {prof['wrapper_launches']}; device span per "
+        f"call {min(prof['call_ms']):.3f}-{max(prof['call_ms']):.3f} ms")
     for r in prof["top"]:
         log(f"    {r['ms']:.4f} ms x{r['calls']} {r['kernel']}")
 
@@ -2468,6 +2634,7 @@ SPEC_RUNS = {
     "recurrentgemma-own1": ("recurrentgemma", 1, "own"),
     "gemma2-draft1": ("gemma2", 1, "shared"),
     "qwen-draft1": ("qwen", 1, "shared"),
+    "starcoder2-draft1": ("starcoder2", 1, "shared"),
 }
 REJECTING_DRAFT_SCALE = 2.5
 SPEC_K = 4
@@ -2591,7 +2758,7 @@ def speculative_phase(dev, run, vanilla, vanilla_async, smi):
             return out
 
     reset_planning()
-    params = random_qkv_biases(
+    params = random_biases(
         model_lib.init_params(cfg, seed=0, device=dev), cfg)
     if weights == "shared":
         draft_kw = dict(draft_groups=groups)
@@ -2734,7 +2901,8 @@ def speculative_phase(dev, run, vanilla, vanilla_async, smi):
         idle = profile["verify_replay"]["idle_share"]
         require(idle is not None and idle <= 0.15,
                 f"[{run}] the replayed verify window's idle share {idle} "
-                f"> 0.15")
+                f"> 0.15 (device span per call: "
+                f"{profile['verify_replay']['call_ms']} ms)")
     summary = {
         "run": run, "config": name, "arch": arch,
         "draft": eng.draft_cfg.name, "draft_layers": eng.draft_cfg.n_layers,
@@ -2759,8 +2927,8 @@ def speculative_phase(dev, run, vanilla, vanilla_async, smi):
 def decode_gemms(cfg, grouped: bool):
     """The (N, K) of every B2 launch of a decode step (o, and q/k/v when
     they are not grouped, per attention layer; the RG-LRU block's five
-    projections; gate, up and down), and the member widths and K of every
-    B3 launch (the grouped q/k/v)."""
+    projections; gate, up and down, or the plain MLP's up and down), and
+    the member widths and K of every B3 launch (the grouped q/k/v)."""
     d, ff = cfg.d_model, cfg.d_ff
     q_w, kv_w = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
     b2, b3 = [], []
@@ -2774,7 +2942,8 @@ def decode_gemms(cfg, grouped: bool):
             else:
                 b2 += [(q_w, d), (kv_w, d), (kv_w, d)]
             b2.append((d, q_w))
-        b2 += [(ff, d), (ff, d), (d, ff)]
+        gated = cfg.mlp_type in ("swiglu", "geglu")
+        b2 += [(ff, d)] * (2 if gated else 1) + [(d, ff)]
     return b2, b3
 
 
@@ -2817,6 +2986,16 @@ def rejecting_draft(dcfg, dev, scale: float = REJECTING_DRAFT_SCALE):
     return draft
 
 
+# Calls per profiled replay, as many as ``profile_steps`` times of a
+# decode step.  Over 3 calls the host clock's fixed costs (the first
+# launch, the last synchronise) weigh three times as much, and the
+# replayed qwen window's idle share read 0.024 in one run and 0.159 in
+# another.  The eager window, whose idle share no check reads, keeps 3
+# calls: the profiler's cost grows with its thousands of host ops.
+SPEC_PROFILE_CALLS = {"verify_window": 3, "verify_replay": 10,
+                      "draft_replay": 10}
+
+
 def profile_spec(eng, positions, k, pos0):
     """The profiler over the verify window of ``k`` tokens per slot at
     ``positions`` (one per slot, over the cache the run left), called
@@ -2844,15 +3023,18 @@ def profile_spec(eng, positions, k, pos0):
             ("verify_window", lambda: spec.eager("verify", k), verify_bound),
             ("verify_replay", lambda: spec("verify", k), verify_bound),
             ("draft_replay", lambda: spec("draft", 1), draft_bound)):
-        out[name] = {**profile_call(fn, 3), **bound["decode_step"]}
-        note = ""
+        t = time.perf_counter()
+        out[name] = {**profile_call(fn, SPEC_PROFILE_CALLS[name]),
+                     **bound["decode_step"]}
+        note = (f" [{SPEC_PROFILE_CALLS[name]} calls, profiled in "
+                f"{time.perf_counter() - t:.1f} s]")
         if name == "verify_replay":
             eager_busy = out["verify_window"]["device_busy_ms"]
             out[name]["idle_share_vs_eager_kernels"] = (
                 1 - eager_busy / out[name]["wall_ms"] if eager_busy
                 else None)
-            note = (f" (against the eager window's kernel sum: "
-                    f"{out[name]['idle_share_vs_eager_kernels']})")
+            note += (f" (against the eager window's kernel sum: "
+                     f"{out[name]['idle_share_vs_eager_kernels']})")
         log_profile(name, out[name], note)
     return out
 
@@ -3051,6 +3233,16 @@ QWEN_ROWS = {
     "flash_decode_paged_mma": "q 4 slots x 20/20 heads x 128, ~2060 tokens",
     "flash_attention_wgmma": "q 512x2048 H=20/20 D=128",
 }
+# The same at starcoder2_7b's shapes (launches from phase 4's starcoder2
+# run): the prefill up with bias + gelu on B1, the decode up with bias +
+# gelu on B2, the GQA 36/4 decode q/k/v group on B3 and the ring decode at
+# G = 9 on B6.
+STARCODER2_ROWS = {
+    "mte_gemm_wgmma": "s2 up 512x18432x4608 +bias",
+    "splitk_gemm_cluster": "s2 up 4x18432x4608 +bias",
+    "grouped_gemm_splitk": "s2 qkv decode 3x4x4608x4608",
+    "flash_decode_mma": "s2 ring 4x36/4x128 L=4096",
+}
 
 
 def parse_args():
@@ -3105,6 +3297,8 @@ def main() -> int:
     counts.update(reduced_gemma2_phase(dev))
     log("== 3. reduced qwen15_4b (bf16acc): card against CPU, default")
     counts.update(reduced_qwen_phase(dev))
+    log("== 3. reduced starcoder2_7b (fp32): card against CPU, default")
+    counts.update(reduced_starcoder2_phase(dev))
     for name, (arch, overrides) in CONFIGS.items():
         log(f"== 4. full-width {arch} serving (bf16), configuration "
             f"[{name}] {overrides or '(defaults)'}")
@@ -3136,7 +3330,9 @@ def main() -> int:
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"]})
         for key, config, at in (("at_gemma2", "gemma2", GEMMA2_ROWS),
-                                ("at_qwen", "qwen", QWEN_ROWS)):
+                                ("at_qwen", "qwen", QWEN_ROWS),
+                                ("at_starcoder2", "starcoder2",
+                                 STARCODER2_ROWS)):
             if name in at:
                 row = next(r for r in mine if r["shape"] == at[name])
                 kernels[-1][key] = {

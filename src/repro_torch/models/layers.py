@@ -20,9 +20,10 @@ from repro_torch.core import formats as formats_lib
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.formats import to_torch_dtype
 
-__all__ = ["dense", "rmsnorm", "rope", "init_dense", "init_norm", "mlp",
-           "init_mlp", "init_embedding", "embed", "unembed", "model_format",
-           "check_backend", "compute_dtype", "use_graph"]
+__all__ = ["dense", "rmsnorm", "layernorm", "norm", "rope", "init_dense",
+           "init_norm", "mlp", "init_mlp", "init_embedding", "embed",
+           "unembed", "model_format", "check_backend", "compute_dtype",
+           "use_graph"]
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -83,10 +84,17 @@ def dense(x: torch.Tensor, p, cfg, *, activation: str = "none",
     return y.reshape(*lead, -1)
 
 
+_NORM_KINDS = ("rmsnorm", "layernorm")
+
+
 def init_norm(d: int, kind: str, dtype=torch.float32, device=None):
-    if kind != "rmsnorm":
+    """``{"scale"}`` of ones, and for ``"layernorm"`` a zero ``"bias"``."""
+    if kind not in _NORM_KINDS:
         raise NotImplementedError(f"norm {kind!r} is ROADMAP A10")
-    return {"scale": torch.ones(d, dtype=dtype, device=device)}
+    p = {"scale": torch.ones(d, dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(d, dtype=dtype, device=device)
+    return p
 
 
 def rmsnorm(x: torch.Tensor, p, eps: float = 1e-6) -> torch.Tensor:
@@ -94,6 +102,25 @@ def rmsnorm(x: torch.Tensor, p, eps: float = 1e-6) -> torch.Tensor:
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * p["scale"].float()
     return y.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
+    """JAX's arithmetic (``layers.py:100-107`` of the JAX package): f32
+    mean and population variance over the last axis, ``rsqrt(var +
+    eps)``, scale and bias in f32, cast back.  Each row on its own, so a
+    row's bits do not depend on the rows beside it."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def norm(x: torch.Tensor, p, kind: str) -> torch.Tensor:
+    """The config's norm (``cfg.norm_type``) at its default eps."""
+    return layernorm(x, p) if kind == "layernorm" else rmsnorm(x, p)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
@@ -114,33 +141,44 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 def init_mlp(gen: torch.Generator, cfg, device=None):
     d, f = cfg.d_model, cfg.d_ff
     dt = to_torch_dtype(cfg.param_dtype)
-    if cfg.mlp_type not in ("swiglu", "geglu"):
-        raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is ROADMAP A10")
-    return {
-        "gate": init_dense(gen, d, f, bias=cfg.mlp_bias, dtype=dt,
-                           device=device),
-        "up": init_dense(gen, d, f, bias=cfg.mlp_bias, dtype=dt,
-                         device=device),
-        "down": init_dense(gen, f, d, bias=cfg.mlp_bias, dtype=dt,
-                           scale=f ** -0.5, device=device),
-    }
+    _mlp_act(cfg)                     # refuses an unported mlp_type
+    p = {}
+    if _gated(cfg):
+        p["gate"] = init_dense(gen, d, f, bias=cfg.mlp_bias, dtype=dt,
+                               device=device)
+    p["up"] = init_dense(gen, d, f, bias=cfg.mlp_bias, dtype=dt,
+                         device=device)
+    p["down"] = init_dense(gen, f, d, bias=cfg.mlp_bias, dtype=dt,
+                           scale=f ** -0.5, device=device)
+    return p
 
 
 def _mlp_act(cfg) -> str:
-    act = {"swiglu": "silu", "geglu": "gelu"}.get(cfg.mlp_type)
+    """The activation fused into the gate (gated MLPs) or into ``up``
+    (the plain ``"gelu"`` MLP)."""
+    act = {"swiglu": "silu", "geglu": "gelu", "gelu": "gelu"}.get(
+        cfg.mlp_type)
     if act is None:
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is ROADMAP A10")
     return act
 
 
+def _gated(cfg) -> bool:
+    return cfg.mlp_type in ("swiglu", "geglu")
+
+
 def mlp(x: torch.Tensor, p, cfg, *,
         plan_rows: Optional[int] = None) -> torch.Tensor:
-    """Gated MLP: gate (fused activation) · up → down, eager or as one
-    compiled program.  ``plan_rows`` runs it on the plans, and the
+    """The MLP, eager or as one compiled program: gated (gate with the
+    fused activation, · up, → down) or plain (``up`` with the fused
+    GELU → ``down``).  ``plan_rows`` runs it on the plans, and the
     program, of an input of that many rows (see :func:`dense`)."""
     act = _mlp_act(cfg)
     if use_graph(cfg):
         return _mlp_compiled(x, p, cfg, plan_rows)
+    if not _gated(cfg):
+        h = dense(x, p["up"], cfg, activation=act, plan_rows=plan_rows)
+        return dense(h, p["down"], cfg, plan_rows=plan_rows)
     g = dense(x, p["gate"], cfg, activation=act, plan_rows=plan_rows)
     u = dense(x, p["up"], cfg, plan_rows=plan_rows)
     return dense(g * u, p["down"], cfg, plan_rows=plan_rows)
@@ -148,14 +186,16 @@ def mlp(x: torch.Tensor, p, cfg, *,
 
 def _mlp_compiled(x: torch.Tensor, p, cfg,
                   plan_rows: Optional[int] = None) -> torch.Tensor:
-    """The gated MLP block as ONE compiled :mod:`repro_torch.graph`
-    program (``layers.py:173-226`` of the JAX package).
+    """The MLP block as ONE compiled :mod:`repro_torch.graph` program
+    (``layers.py:173-226`` of the JAX package).
 
     Same math as the eager path (each projection a GemmNode carrying the
-    dense epilogue), scheduled at program level: gate and up share the
-    input and become one grouped launch (B3) when the Hopper model says
-    grouping pays.  Memoized per (shape, format, type): repeat calls skip
-    graph construction.  With ``plan_rows`` the program is the one
+    dense epilogue), scheduled at program level: a gated MLP's gate and
+    up share the input and become one grouped launch (B3) when the Hopper
+    model says grouping pays; the plain MLP is two GemmNodes, ``up`` with
+    bias and GELU, then ``down``.  Memoized per (shape, format, type):
+    repeat calls skip graph construction, and gated and plain programs
+    never share a key.  With ``plan_rows`` the program is the one
     compiled for that many rows, grouping decision and plans included."""
     from repro_torch.graph import schedule as graph_schedule
     from repro_torch.graph.trace import GraphBuilder
@@ -168,7 +208,8 @@ def _mlp_compiled(x: torch.Tensor, p, cfg,
     m, d = x2.shape
     m = m if plan_rows is None else plan_rows
     act = _mlp_act(cfg)
-    names = ("gate", "up", "down")
+    gated = _gated(cfg)
+    names = ("gate", "up", "down") if gated else ("up", "down")
     biased = tuple(n for n in names if "b" in p[n])
 
     def build():
@@ -186,7 +227,10 @@ def _mlp_compiled(x: torch.Tensor, p, cfg,
                           fmt=fmt.name, out_dtype=cdt,
                           policy=cfg.gemm_policy, name=n)
 
-        h = b.mul(proj(xv, "gate", act), proj(xv, "up"))
+        if gated:
+            h = b.mul(proj(xv, "gate", act), proj(xv, "up"))
+        else:
+            h = proj(xv, "up", act)
         b.output(proj(h, "down"))
         return b.build()
 

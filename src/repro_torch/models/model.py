@@ -2,16 +2,18 @@
 ``repro/models/model.py``).
 
 Parameters are plain dictionaries: ``{"embedding": {"table"[, "head"]},
-"layers": [per-layer dict], "final_norm": {"scale"}}`` (``head``: an
-untied LM head, (d_model, vocab)) — JAX's ``lax.scan`` group
-stack (``params["groups"]``) becomes a Python list of layers
+"layers": [per-layer dict], "final_norm": {"scale"[, "bias"]}}``
+(``head``: an untied LM head, (d_model, vocab); ``bias``: on every norm
+of a ``norm_type="layernorm"`` model) — JAX's ``lax.scan`` group stack
+(``params["groups"]``) becomes a Python list of layers
 (:func:`repro_torch.convert.params_from_jax` unstacks it).  The layer
 kinds ported are ``("attn", "mlp")`` (global attention over the paged
 pool), ``("local", "mlp")`` (sliding-window attention over a per-slot
 ring) and ``("rglru", "mlp")`` (the RG-LRU block with its per-slot
-state), each followed by a gated MLP, in any mix of them in one model;
-other kinds raise, naming the ROADMAP item (A10).  Features: attention
-and final logit softcaps, a query scale of the config's own
+state), each followed by an MLP (gated, or the plain GELU MLP with
+biases), in any mix of them in one model; other kinds raise, naming the
+ROADMAP item (A10).  Features: RMSNorm or LayerNorm (``cfg.norm_type``),
+attention and final logit softcaps, a query scale of the config's own
 (``attn_scale``), MHA and GQA, QKV biases, untied LM heads, and
 ``post_norms`` (gemma2: the mixer's and the MLP's outputs normed again
 before each residual add).
@@ -34,7 +36,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import (check_backend, compute_dtype, embed,
                                        init_embedding, init_mlp, init_norm,
-                                       mlp, rmsnorm, unembed)
+                                       mlp, norm, unembed)
 
 __all__ = ["init_params", "init_paged_cache", "prefill_chunk", "decode",
            "sample_token", "decode_and_sample", "verify_chunk",
@@ -143,7 +145,8 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
     step's bits.  With ``cfg.post_norms`` the mixer's and the MLP's
     outputs are normed (``post_norm1``, ``post_norm2``) before their
     residual adds (``model.py:264-275`` of the JAX package)."""
-    h = rmsnorm(x, lp["norm1"])
+    kind = cfg.norm_type
+    h = norm(x, lp["norm1"], kind)
     plan_rows = x.shape[0] if mode == "verify" else None
     if mode == "prefill_chunk":
         if mixer == "attn":
@@ -174,11 +177,12 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
         out, cache = _decode_mixer(h, lp["mixer"], cfg, mixer, cache, pos,
                                    row_valid)
     if cfg.post_norms:
-        out = rmsnorm(out, lp["post_norm1"])
+        out = norm(out, lp["post_norm1"], kind)
     x = x + out
-    out = mlp(rmsnorm(x, lp["norm2"]), lp["ffn"], cfg, plan_rows=plan_rows)
+    out = mlp(norm(x, lp["norm2"], kind), lp["ffn"], cfg,
+              plan_rows=plan_rows)
     if cfg.post_norms:
-        out = rmsnorm(out, lp["post_norm2"])
+        out = norm(out, lp["post_norm2"], kind)
     return x + out, cache
 
 
@@ -204,7 +208,7 @@ def prefill_chunk(params, batch, cache, cfg, *, pos0: int):
     x, cache = _run_stack(x, params, cfg, positions, "prefill_chunk", cache,
                           page_table=batch["page_table"], chunk_pos0=pos0,
                           slot=int(batch.get("slot", 0)))
-    x = rmsnorm(x, params["final_norm"])
+    x = norm(x, params["final_norm"], cfg.norm_type)
     return unembed(x[:, -1:], params["embedding"], cfg)[:, 0], cache
 
 
@@ -228,7 +232,7 @@ def decode(params, batch, cache, cfg):
                           pos=positions[:, 0],
                           page_table=batch["page_table"],
                           row_valid=row_valid)
-    x = rmsnorm(x, params["final_norm"])
+    x = norm(x, params["final_norm"], cfg.norm_type)
     return unembed(x, params["embedding"], cfg)[:, 0], cache
 
 
@@ -313,7 +317,7 @@ def verify_chunk(params, batch, cache, cfg, *, last_only: bool = False):
     x, cache = _run_stack(x, params, cfg, positions, "verify", cache,
                           pos=pos, page_table=batch["page_table"],
                           row_valid=row_valid)
-    x = rmsnorm(x, params["final_norm"])
+    x = norm(x, params["final_norm"], cfg.norm_type)
     logits = [unembed(x[:, i:i + 1].contiguous(), params["embedding"], cfg)
               for i in range(k - 1 if last_only else 0, k)]
     return torch.cat(logits, dim=1), cache

@@ -614,6 +614,55 @@ def test_splitk_cluster_every_split_matches_plain(card, n_split):
     assert build.launch_counts()["splitk_gemm_cluster"] == before + 2
 
 
+# starcoder2_7b's MLP GEMMs, each with its f32 bias: (M, N, K, activation)
+# -- the prefill chunk's up and down (M = 512, B1's wgmma engine) and the
+# decode step's (M = 4 slots, B2's cluster engine).
+STARCODER2_MLP = [(512, 18432, 4608, "gelu"), (512, 4608, 18432, "none"),
+                  (4, 18432, 4608, "gelu"), (4, 4608, 18432, "none")]
+
+
+@pytest.mark.parametrize("m,n,k,act", STARCODER2_MLP)
+def test_bias_gelu_epilogue_at_starcoder2_shapes(card, m, n, k, act):
+    """B1 and B2 with the bias joining the epilogue before the tanh-GELU,
+    through the plans the serving run gets: within 2e-2 x (1 + |ref|) of
+    the plain version of the engine that ran (B2's at its slices), on
+    that engine's counter only; B2's two calls bit-equal."""
+    from repro_torch.core import autotune
+    gen = torch.Generator().manual_seed(m + n)
+    a, b = _wg_operands(m, n, k, gen)
+    bias = 0.5 * torch.randn(n, generator=gen)
+    epi = tepilogue.Epilogue(has_bias=True, activation=act)
+    sig = autotune.GemmSignature.make(m, n, k, "bfloat16", "bfloat16", epi,
+                                      fmt="bf16")
+    plan = autotune.PlanCache().plan(sig)
+    engine = autotune.plan_engine(sig, plan.geometry)
+    kw = dict(epilogue=epi, out_dtype=torch.bfloat16)
+    args = [x.to(card) for x in (a, b)] + [None, bias.to(card)]
+    before = build.launch_counts()
+    if m <= 16:
+        assert engine == "cluster"
+        slices, depth = tsplitk.cluster_layout(m, n, k, card)
+        want = tsplitk.splitk_cluster_torch(a, b, None, bias, n_split=slices,
+                                            depth=depth, **kw)
+        got = tsplitk.mte_gemm_splitk_kernel(*args, geom=plan.geometry,
+                                             n_split=plan.n_split, **kw)
+        assert torch.equal(got, tsplitk.mte_gemm_splitk_kernel(
+            *args, geom=plan.geometry, n_split=plan.n_split, **kw))
+        counter = "splitk_gemm_cluster"
+    else:
+        assert engine == "wgmma"
+        want = tgemm.mte_gemm_torch(a, b, None, bias, geom=plan.geometry,
+                                    **kw)
+        got = tgemm.mte_gemm_kernel(*args, geom=plan.geometry, **kw)
+        counter = "mte_gemm_wgmma"
+    diff = (got.float().cpu() - want.float()).abs()
+    assert bool((diff <= 2e-2 * (1 + want.float().abs())).all()), \
+        float(diff.max())
+    after = build.launch_counts()
+    assert {name for name in after if after[name] != before[name]} == {
+        counter}
+
+
 # qwen15_4b's decode GEMMs under bf16acc: (N, K, activation).
 QWEN_DECODE = [(2560, 2560, "none"), (6912, 2560, "silu"),
                (2560, 6912, "none")]
@@ -853,7 +902,7 @@ def _ring(b, length, g, hkv, d, q_pos, gen, strided=True):
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("g", [1, 4, 16])
+@pytest.mark.parametrize("g", [1, 4, 9, 16])
 def test_ring_decode_mma_every_split_matches_plain(card, g, d):
     """B6's mma engine against its plain version (bf16; 1e-2 x (1 +
     |ref|): P is rounded to bf16 before P V) at every cluster size 1-8,
@@ -888,6 +937,32 @@ def test_ring_decode_mma_every_split_matches_plain(card, g, d):
     after = build.launch_counts()
     assert after["flash_decode_mma"] == before["flash_decode_mma"] + launches
     assert after["flash_decode"] == before["flash_decode"]
+
+
+def test_ring_decode_mma_at_starcoder2_shape(card):
+    """B6's mma engine at starcoder2_7b's decode: 4 slots x 36 query heads
+    on 4 kv heads (G = 9: rows 9-15 of the A fragment are padding) x D 128
+    over a wrapped 4096-slot ring in its serving (B, L, Hkv, D) storage,
+    the window 4096, at the planned cluster size and every other: within
+    1e-2 x (1 + |ref|) of ``flash_decode_torch``, bit-equal from call to
+    call, on the mma counter only."""
+    gen = torch.Generator().manual_seed(9)
+    q, k, v, kvp, qp = _ring(4, 4096, 9, 4, 128, [4614, 4625, 4608, 4631],
+                             gen, True)
+    assert tgeometry.flat_decode_engine(k.dtype, q.dtype, 9, 128,
+                                        tdecode.tma_strided(k, v)) == "mma"
+    want = tdecode.flash_decode_torch(q, k, v, kvp, qp, window=4096)
+    args = [x.to(card) for x in (q, k, v, kvp, qp)]
+    before = build.launch_counts()
+    for split in (None, 1, 2, 4, 8):
+        got = tdecode.flash_decode_kernel(*args, window=4096,
+                                          kv_split=split)
+        _close(got, want, 1e-2)
+        assert torch.equal(got, tdecode.flash_decode_kernel(
+            *args, window=4096, kv_split=split))
+    after = build.launch_counts()
+    assert {name for name in after if after[name] != before[name]} == {
+        "flash_decode_mma"}
 
 
 def test_ring_decode_engines_split_by_type_and_stride(card):
