@@ -38,6 +38,14 @@ Phases (any failure raises and the script exits non-zero):
    library row ``torch.addmm`` where a bias joins), decode q/k/v group
    (widths 4608/512/512) on B3, and its ring decode at G = 9 (36 query
    heads on 4 kv heads, D = 128, ragged ring tails at S = 37 too) on B6;
+   musicgen_medium's model-level prefill (M = 4096) q (bias), up (bias +
+   gelu) and down (bias) on B1 and its decode step's (M = 4) on B2, its
+   causal prefill attention (4 x 24 heads on 24 kv heads, G = 1, D = 64,
+   1024 frames) on B5, and its decode over a flat 2048-slot cache on B6
+   at G = 1, D = 64 with the slots past each row's position masked, at
+   positions 1024 and 1087 and at a ragged tail (each row also printing
+   the K/V bytes of the visible slots, of the 16-slot tiles the kernel
+   loads and of all the slots);
    the old engines' own rows at the fp32
    shapes phase 3 gives them, or at the prefill gate+up group) and at
    small ragged shapes in every mode each kernel takes.  Each prints its
@@ -75,7 +83,12 @@ Phases (any failure raises and the script exits non-zero):
    and the CPU's synchronous eager engine, and the same with
    ``spec_k=4`` (speculative decoding; equal to the vanilla streams too),
    plus reduced gemma_2b at 5 slots x ``spec_k=4``: verify windows of 20
-   rows, run in row chunks on the decode step's plans.
+   rows, run in row chunks on the decode step's plans.  Then the
+   model-level path (``forward``, ``prefill``, ``decode`` over flat
+   caches, over frame embeddings): musicgen_medium.reduced() in fp32 (2
+   sequences of 24 frames, 3 decode steps) within 1e-4 and musicgen_medium
+   at full width and depth 2 in bf16 (2 x 256 frames, 4 decode steps)
+   within 2e-2 (x (1 + |ref|)), card against CPU.
 4. Full-width serving (``CONFIGS``, ``WORKLOADS``) in bf16 with seeded
    random weights, 4 slots, 16-token pages, 512-token prefill chunks, 6
    requests × 24 greedy tokens: gemma_2b (18 layers, d_model 2048, vocab
@@ -159,6 +172,21 @@ Phases (any failure raises and the script exits non-zero):
    speculation in alternating turns, three each, held to the reference's
    gate: equal greedy streams, ``speedup_vs_vanilla`` (medians) >= 1.00,
    ``accepted_per_step`` > 1 and ``acceptance_rate`` >= 0.95.
+
+6. The model-level path at full width (``MODEL_LEVEL``): musicgen_medium
+   (48 layers, d_model 1536, 24 heads of 64, MHA, LayerNorm, the plain
+   GELU MLP with biases, QKV biases, an untied head; bf16 weights; biases
+   and norm parameters drawn by ``random_biases``) over 4 sequences of
+   seeded frame embeddings: ``forward`` over 1088 frames, ``prefill``
+   over the first 1024 into flat caches of 2048 slots, then 64 ``decode``
+   steps.  Prefill's and every decode step's logits must agree with
+   forward's at the same position (``MODEL_LEVEL_TOL``,
+   ``MODEL_LEVEL_RMS``); each decode step must launch B2 288 times on its
+   cluster engine and B6 48 times on its mma engine, forward and prefill
+   B1 and B5 on their wgmma engines only.  It prints the device ms and
+   idle share of a decode step, the prefill and the forward against their
+   bounds (``model_level_bounds``) and the peak memory beside what is
+   held.
 
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -588,6 +616,16 @@ def gemm_phase(dev, rows):
                                    ("s2 up", 18432, 4608, "gelu", True),
                                    ("s2 down", 4608, 18432, "none", True)]:
         main_path(label, 4, n, k, act, bias=bias)
+    # musicgen_medium (d 1536, 24 heads x 64 = 1536, d_ff 6144, the plain
+    # GELU MLP with biases, QKV biases): the model-level prefill's (M =
+    # 4 x 1024 frames) q (bias), up (bias + gelu) and down (bias) on B1's
+    # wgmma mainloop at K = 1536 and 6144, and the decode step's (M = 4)
+    # on B2's cluster engine, warm and cold.
+    for m in (4096, 4):
+        for label, n, k, act in [("mg q", 1536, 1536, "none"),
+                                 ("mg up", 6144, 1536, "gelu"),
+                                 ("mg down", 1536, 6144, "none")]:
+            main_path(label, m, n, k, act, bias=True)
     # The tile loops' rows, at the shapes phase 3's reduced fp32 gemma_2b
     # (d_model 128, d_ff 256) gives them: B1's gate in the 4096-token
     # chunk, B2's gate in the 2-slot decode.
@@ -1176,6 +1214,11 @@ def attention_phase(dev, rows):
     # 20 heads on 20 kv heads (MHA), D = 128, against 2048 tokens.
     main_path("q 512x2048 H=20/20 D=128", 1, 20, 20, 512, 2048, 128,
               torch.bfloat16, cold=True)
+    # musicgen_medium's model-level prefill: 4 sequences of 1024 frames,
+    # 24 heads on 24 kv heads (G = 1), D = 64, causal over the whole
+    # sequence.
+    main_path("mg 4x1024 H=24/24 D=64", 4, 24, 24, 1024, 1024, 64,
+              torch.bfloat16, cold=True)
 
 
 def ring_decode_phase(dev, rows):
@@ -1248,8 +1291,13 @@ def ring_decode_phase(dev, rows):
                   1e-2, strided=False)
 
     def main_path(label, b, h, hkv, d, length, q_pos, dtype, tol, window,
-                  **extra):
+                  flat=False, **extra):
         k, v, kvp, qp = ring(b, length, hkv, d, q_pos, dtype)
+        if flat:
+            # A flat cache: slot j holds position j up to q_pos, -1 past it.
+            idx = torch.arange(length, device=dev)
+            kvp = torch.where(idx[None] <= qp[:, None], idx,
+                              -1).to(torch.int32)
         q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
         name = kernel_of(q, k, v)
         kw = dict(window=window, **extra)
@@ -1262,7 +1310,9 @@ def ring_decode_phase(dev, rows):
         err = check(f"{name} main-path {label}", got, want, tol)
         kvl = kvp.long()[:, None, None, :]
         qpl = qp.long()[:, None, None, None]
-        mask = (kvl >= 0) & (kvl <= qpl) & (kvl > qpl - window)
+        mask = (kvl >= 0) & (kvl <= qpl)
+        if window is not None:
+            mask = mask & (kvl > qpl - window)
         qs = q[:, :, None, :]
         kx, vx = ((x.expand(b, h, length, d) if hkv == 1
                    else x.repeat_interleave(h // hkv, 1)) for x in (k, v))
@@ -1274,10 +1324,17 @@ def ring_decode_phase(dev, rows):
         nbytes = (elt * (2 * visible * hkv * d + 2 * b * h * d)
                   + 4 * (kvp.numel() + b))
         peak = PEAK["bf16" if dtype == torch.bfloat16 else "fp32"]
+        # The K/V bytes the mma engine loads: whole 16-slot tiles holding
+        # a visible slot (it skips the others), beside the visible rows'.
+        tiles = mask.reshape(b, -1)[:, :length // 16 * 16].reshape(
+            b, -1, 16).any(-1)
         row = {"kernel": name, "shape": label, "max_abs_err": err,
                "tol": tol, "ms": time_ms(run), "plain_ms": time_ms(plain),
                "bound_ms": bound_ms(flops, nbytes, peak),
                "bound_by": bound_by(flops, nbytes, peak),
+               "kv_bytes_visible": elt * 2 * visible * hkv * d,
+               "kv_bytes_loaded": elt * 2 * 16 * int(tiles.sum()) * hkv * d,
+               "kv_bytes_all_slots": elt * 2 * b * length * hkv * d,
                "cold_ms": time_ms_cold(run),
                **library_times(lib, kw)}
         if name == "flash_decode_mma":
@@ -1313,6 +1370,18 @@ def ring_decode_phase(dev, rows):
             == "flash_decode_mma",
             "starcoder2_7b's ring decode (G = 9) must run on B6's mma "
             "engine")
+    # musicgen_medium's model-level decode over its flat 2048-slot caches:
+    # 4 sequences x 24 heads on 24 kv heads (G = 1), D = 64, the slots past
+    # each row's position masked (-1), whole KV slices of them at cluster
+    # sizes past 2; at positions 1024 and 1087 (the first and the last of
+    # phase 6's decode steps) and at a ragged tail.
+    for label, q_pos in (("pos 1024", [1024] * 4), ("pos 1087", [1087] * 4),
+                         ("ragged", [1024, 1045, 1066, 1087])):
+        require(main_path(f"mg flat 4x24/24x64 L=2048 {label}", 4, 24, 24,
+                          64, 2048, q_pos, torch.bfloat16, 1e-2, None,
+                          flat=True) == "flash_decode_mma",
+                "musicgen_medium's flat-cache decode must run on B6's mma "
+                "engine")
     require(main_path("fp32 ring 2x4x32 L=16", 2, 4, 1, 32, 16, [37, 20],
                       torch.float32, 1e-5, 16) == "flash_decode",
             "fp32 ring decode must run on B6's SIMT kernel")
@@ -2116,6 +2185,100 @@ def reduced_starcoder2_phase(dev):
             "reduced-starcoder2-spec": spec}
 
 
+# The port's logits against the same model's on another device, per
+# format (``MODEL_TOL`` of ``tests/torch_parity.py``), each x (1 + |ref|).
+MODEL_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+
+
+def model_level_logits(params, cfg, emb, prefix, steps):
+    """The model-level path over frame embeddings ``emb`` (B, prefix +
+    steps, d_model): ``forward`` over all of them, ``prefill`` over the
+    first ``prefix`` into caches of prefix + 4 slots, then ``steps``
+    decode steps at a scalar position: → {call: f32 logits}."""
+    from repro_torch.models import model as model_lib
+    full, _ = model_lib.forward(params, {"embeddings": emb}, cfg)
+    out = {"forward": full}
+    out["prefill"], cache = model_lib.prefill(
+        params, {"embeddings": emb[:, :prefix]}, cfg, cache_len=prefix + 4)
+    for i in range(steps):
+        pos = prefix + i
+        out[f"decode {i}"], cache = model_lib.decode(
+            params, {"embeddings": emb[:, pos:pos + 1], "pos": pos}, cache,
+            cfg)
+    return out
+
+
+def musicgen_card_phase(dev, label, cfg, batch, prefix, steps, tol,
+                        on_path, off_path):
+    """``model_level_logits`` of musicgen_medium under ``cfg`` with seeded
+    random weights (biases and LayerNorm parameters drawn by
+    ``random_biases``) and frame embeddings, on the card (the kernels) and
+    on the CPU (their plain versions): every call's logits within ``tol``
+    x (1 + |ref|).  The counters, zeroed just before the card's run and
+    read just after, must show every kernel of ``on_path`` launched and
+    none of ``off_path``.  Returns those counts."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+
+    reset_planning()
+    params_cpu = random_biases(
+        model_lib.init_params(cfg, seed=0, device="cpu"), cfg)
+    params_gpu = to_device(params_cpu, dev)
+    emb = torch.randn(batch, prefix + steps, cfg.d_model,
+                      generator=torch.Generator().manual_seed(5))
+    build.reset_launch_counts()
+    with torch.no_grad():
+        card = model_level_logits(params_gpu, cfg, emb.to(dev), prefix,
+                                  steps)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        cpu = model_level_logits(params_cpu, cfg, emb, prefix, steps)
+    for name, want in cpu.items():
+        got = card[name].cpu()
+        check(f"{label} {name} logits cuda vs cpu", got, want, tol)
+        log(f"    max |diff|/(1+|ref|) "
+            f"{float(((got - want).abs() / (1 + want.abs())).max()):.4e}")
+    log(f"  {label}: launches {counts}")
+    for kernel in on_path:
+        require(counts[kernel] > 0, f"{label}: {kernel} not launched")
+    for kernel in off_path:
+        require(counts[kernel] == 0,
+                f"{label}: {counts[kernel]} launches of {kernel}")
+    return counts
+
+
+def reduced_musicgen_phase(dev):
+    """musicgen_medium.reduced() in fp32 (2 layers, d_model 128, 4 heads
+    of 32) through the model-level path, card against CPU: 2 sequences
+    of 24 frames, then 3 decode steps, within ``MODEL_TOL["fp32"]``; fp32
+    runs B2's and B3's tile loops (the 48-row q/k/v program is grouped)
+    and B5's and B6's SIMT kernels.  Then
+    musicgen_medium at full width and depth 2 in bf16 (weights built in
+    bf16): 2 sequences of 256 frames, then 4 decode steps, within
+    ``MODEL_TOL["bf16"]`` -- the bf16 engines at D = 64 and G = 1 (B1's
+    wgmma mainloop, B2's cluster engine, B5's wgmma engine, B6's mma
+    engine over the flat cache) held to the CPU.  Returns the card's
+    launch counts (keys ``reduced-musicgen``, ``musicgen-depth2``)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("musicgen_medium")
+    old = ("mte_gemm", "splitk_gemm", "grouped_gemm", "flash_attention",
+           "flash_decode")
+    new = ("mte_gemm_wgmma", "splitk_gemm_cluster", "flash_attention_wgmma",
+           "flash_decode_mma")
+    reduced = musicgen_card_phase(
+        dev, "reduced musicgen fp32", cfg.reduced(), 2, 24, 3,
+        MODEL_TOL["fp32"], ("splitk_gemm", "grouped_gemm",
+                            "flash_attention", "flash_decode"), new)
+    log("== 3. musicgen_medium at full width, depth 2 (bf16): card "
+        "against CPU")
+    depth2 = musicgen_card_phase(
+        dev, "musicgen depth 2 bf16",
+        dataclasses.replace(cfg, n_layers=2, param_dtype="bfloat16"), 2,
+        256, 4, MODEL_TOL["bf16"], new, old)
+    return {"reduced-musicgen": reduced, "musicgen-depth2": depth2}
+
+
 # -- phase 4: full-width serving ---------------------------------------------
 
 MAX_TOKENS = 24
@@ -2152,7 +2315,6 @@ def serving_phase(dev, name):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import autotune
-    from repro_torch.graph import schedule
     from repro_torch.kernels import build
     from repro_torch.models import attention as attn_lib
     from repro_torch.models import model as model_lib
@@ -2355,16 +2517,7 @@ def serving_phase(dev, name):
             and bool(torch.isfinite(logits).all()),
             "full-width prefill logits not finite")
     del cache, logits
-    programs = []
-    for prog in schedule.compiled_programs():
-        kinds = [type(n).__name__ for n in prog.graph.nodes]
-        head = prog.describe().splitlines()[0]
-        plans = [prog.plans[i].describe() for i in sorted(prog.plans)]
-        log(f"  [{name}] {head}: grouped={prog.grouped} nodes={kinds}")
-        for line in plans:
-            log(f"      plan {line}")
-        programs.append({"program": head, "grouped": prog.grouped,
-                         "nodes": kinds, "plans": plans})
+    programs = log_programs(name)
     plans = sorted({(p.signature.m, p.signature.n, p.signature.k,
                      p.signature.group, p.describe(), p.route)
                     for p in autotune.plan_cache()._plans.values()})
@@ -2491,6 +2644,23 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
             "prefill_chunk": {"bound_ms": bound_ms(pre_flops, pre_bytes,
                                                    PEAK["bf16"]),
                               "tflop": pre_flops / 1e12}}
+
+
+def log_programs(name):
+    """Each compiled program's grouping decision, nodes and plans, logged
+    and returned."""
+    from repro_torch.graph import schedule
+    programs = []
+    for prog in schedule.compiled_programs():
+        kinds = [type(n).__name__ for n in prog.graph.nodes]
+        head = prog.describe().splitlines()[0]
+        plans = [prog.plans[i].describe() for i in sorted(prog.plans)]
+        log(f"  [{name}] {head}: grouped={prog.grouped} nodes={kinds}")
+        for line in plans:
+            log(f"      plan {line}")
+        programs.append({"program": head, "grouped": prog.grouped,
+                         "nodes": kinds, "plans": plans})
+    return programs
 
 
 def profile_steps(eng, dev, work, steps: int = 10):
@@ -3156,6 +3326,205 @@ def exact_draft_phase(dev, smi):
     return summary
 
 
+# -- phase 6: the model-level path at full width -----------------------------
+
+# musicgen_medium's model-level run: 4 sequences of frame embeddings,
+# ``forward`` over 1088 frames, ``prefill`` over the first 1024 into flat
+# caches of 2048 slots, then 64 decode steps over frames 1024-1087.
+MODEL_LEVEL = dict(batch=4, frames=1088, prefix=1024, cache_len=2048)
+# How far prefill's and each decode step's logits may lie from forward's
+# at the same position: both sides are bf16 through 48 layers, on other
+# engines (B2 and B6 against B1 and B5) and so other roundings.  Fixed
+# before the first card run from the plain versions on the CPU at
+# d_model 1536 (``tools/model_level_noise.py``, depths 2-24: max |diff|
+# / (1 + |ref|) 0.007-0.035, RMS ratio 0.0015-0.0093, growing about as
+# the square root of the depth):
+# each logit within MODEL_LEVEL_TOL x (1 + |ref|), and the RMS of the
+# differences at most MODEL_LEVEL_RMS of the reference's.
+MODEL_LEVEL_TOL = 0.2
+MODEL_LEVEL_RMS = 0.05
+
+
+def model_level_bounds(cfg, batch, frames, prefix, decode_pos):
+    """The least time of each call on the card, at the bf16 peak and 3.35
+    TB/s, from what it must compute and move (``bound_ms``): ``forward``
+    and ``prefill`` -- every layer's GEMMs over B x S rows, causal
+    attention over the visible pairs, the LM head over the rows it
+    unembeds; bytes: the weights read once (the bf16 layers and head; the
+    embedding table is not read under the stub), the embeddings read,
+    the logits written and, for prefill, the flat caches written; one
+    decode step at ``decode_pos`` -- the weights and the live KV (the
+    positions up to decode_pos of every layer) read, 2 x weights x B
+    FLOP.  Also the caches' bytes all 2048 slots would take."""
+    d, f, h, hd, v = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.hd, cfg.vocab
+    hkv, nl = cfg.n_kv_heads, cfg.n_layers
+    layer_w = d * (h + 2 * hkv) * hd + h * hd * d + 2 * d * f
+    layer_b = (h + 2 * hkv) * hd + f + d + 4 * d
+    weights = 2 * (nl * (layer_w + layer_b) + d * v + 2 * d)
+    kv_token = 2 * hkv * hd * 2                # K and V of a token, bf16
+
+    def attn_flops(s):
+        return 4.0 * batch * h * hd * s * (s + 1) / 2
+
+    def call(rows, s, logits_rows, cache_bytes):
+        flops = nl * (2.0 * rows * layer_w + attn_flops(s)) \
+            + 2.0 * logits_rows * d * v
+        nbytes = (weights + 2 * rows * d + 4 * logits_rows * v
+                  + cache_bytes)
+        return {"bound_ms": bound_ms(flops, nbytes, PEAK["bf16"]),
+                "bound_by": bound_by(flops, nbytes, PEAK["bf16"]),
+                "flops": flops, "bytes": nbytes}
+
+    caches = nl * batch * MODEL_LEVEL["cache_len"] * kv_token
+    live = nl * batch * (decode_pos + 1) * kv_token
+    dec_flops = 2.0 * batch * (nl * layer_w + d * v) \
+        + nl * 4.0 * batch * h * hd * (decode_pos + 1)
+    dec_bytes = weights + live + 2 * batch * d + 4 * batch * v
+    return {
+        "forward": call(batch * frames, frames, batch * frames, 0),
+        "prefill": call(batch * prefix, prefix, batch, caches),
+        "decode_step": {
+            "bound_ms": bound_ms(dec_flops, dec_bytes, PEAK["bf16"]),
+            "bound_by": bound_by(dec_flops, dec_bytes, PEAK["bf16"]),
+            "flops": dec_flops, "bytes": dec_bytes,
+            "bound_ms_all_slots": 1e3 * (weights + caches + 2 * batch * d
+                                         + 4 * batch * v)
+            / HBM_BYTES_PER_S},
+        "weights_gb": weights / 1e9, "caches_gb": caches / 1e9}
+
+
+def model_level_phase(dev):
+    """musicgen_medium at full width (48 layers, d_model 1536, bf16
+    weights via ``param_dtype``, biases and LayerNorm parameters drawn by
+    ``random_biases``) through the model-level path on the kernels
+    (``MODEL_LEVEL``): frame embeddings E drawn from a seed, ``forward``
+    over E, ``prefill`` over its first 1024 frames into 2048-slot flat
+    caches, then 64 ``decode`` steps over frames 1024-1087.  Checks:
+    prefill's logits against forward's at 1023 and each decode step's
+    against forward's at 1024 + i (``MODEL_LEVEL_TOL``,
+    ``MODEL_LEVEL_RMS``); per decode step 288 B2 launches on the cluster
+    engine (q, k, v, o, up, down of 48 layers) and 48 of B6 on the mma
+    engine, per forward and prefill 288 of B1 on the wgmma engine and 48
+    of B5 on its wgmma engine, and 0 tile-loop, SIMT and grouped
+    launches.  Prints the device ms and idle share of a decode step, the
+    prefill and the forward (``profile_call``) against their bounds
+    (``model_level_bounds``) and the peak memory beside what is held.
+    Returns (launch counts of the run, summary)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+
+    b, frames, prefix = (MODEL_LEVEL[k] for k in ("batch", "frames",
+                                                   "prefix"))
+    cache_len, steps = MODEL_LEVEL["cache_len"], frames - prefix
+    cfg = dataclasses.replace(get_config("musicgen_medium"),
+                              param_dtype="bfloat16")
+    reset_planning()
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    params = random_biases(model_lib.init_params(cfg, seed=0, device=dev),
+                           cfg)
+    emb = torch.randn(b, frames, cfg.d_model, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(11)
+                      ).to(torch.bfloat16)
+    build.reset_launch_counts()
+    with torch.no_grad():
+        full, _ = model_lib.forward(params, {"embeddings": emb}, cfg)
+        first, cache = model_lib.prefill(
+            params, {"embeddings": emb[:, :prefix]}, cfg,
+            cache_len=cache_len)
+        before = build.launch_counts()
+        decoded = []
+        for i in range(steps):
+            logits, cache = model_lib.decode(
+                params, {"embeddings": emb[:, prefix + i:prefix + i + 1],
+                         "pos": prefix + i}, cache, cfg)
+            decoded.append(logits)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_counts = {k: (counts[k] - before.get(k, 0)) / steps
+                   for k in counts if counts[k] != before.get(k, 0)}
+    before = {k: v for k, v in before.items() if v}
+    log(f"  [musicgen] launches: forward + prefill {before}; per decode "
+        f"step {step_counts}")
+    nl = cfg.n_layers
+    require(step_counts == {"splitk_gemm_cluster": 6 * nl,
+                            "flash_decode_mma": nl},
+            f"musicgen decode step: launches {step_counts}, want "
+            f"{6 * nl} splitk_gemm_cluster and {nl} flash_decode_mma")
+    require(before == {"mte_gemm_wgmma": 2 * 6 * nl,
+                       "flash_attention_wgmma": 2 * nl},
+            f"musicgen forward + prefill: launches {before}")
+    # The q/k/v programs at M = 4352 (forward), 4096 (prefill) and 4
+    # (decode): three equal widths, which the scheduler may group (B3).
+    programs = log_programs("musicgen")
+
+    got = torch.stack([first] + decoded, dim=1)           # (B, 65, V)
+    want = full[:, prefix - 1:]
+    diff = (got - want).abs()
+    rel = float((diff / (1 + want.abs())).max())
+    rms = float((got - want).norm() / want.norm())
+    argmax = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"  [musicgen] prefill and {steps} decode steps against forward: max "
+        f"|diff| {float(diff.max()):.4e}, max |diff|/(1+|ref|) {rel:.4e} "
+        f"(tol {MODEL_LEVEL_TOL}), RMS ratio {rms:.4e} (tol "
+        f"{MODEL_LEVEL_RMS}), argmax agreement {argmax:.4f}")
+    require(bool(torch.isfinite(full).all()) and full.shape == (
+        b, frames, cfg.vocab), "musicgen forward: logits not finite or "
+        "of the wrong shape")
+    require(rel <= MODEL_LEVEL_TOL and rms <= MODEL_LEVEL_RMS,
+            f"musicgen: prefill/decode logits differ from forward's "
+            f"({rel}, {rms})")
+    del full, first, decoded, got, want, diff
+
+    bounds = model_level_bounds(cfg, b, frames, prefix, frames - 1)
+    pos = torch.tensor(frames - 1, device=dev)
+    step_batch = {"embeddings": emb[:, -1:], "pos": pos}
+
+    def decode_step():
+        return model_lib.decode(params, step_batch, cache, cfg)
+
+    def prefill():
+        return model_lib.prefill(params, {"embeddings": emb[:, :prefix]},
+                                 cfg, cache_len=cache_len)
+
+    def forward():
+        return model_lib.forward(params, {"embeddings": emb}, cfg)
+
+    profiles = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for name, fn, n in (("decode_step", decode_step, 10),
+                            ("prefill", prefill, 1),
+                            ("forward", forward, 1)):
+            profiles[name] = {**profile_call(fn, n), **bounds[name]}
+            log_profile(name, profiles[name])
+    peak_profiles = torch.cuda.max_memory_allocated()
+    held = {"weights_gb": bounds["weights_gb"],
+            "caches_gb": bounds["caches_gb"],
+            "forward_logits_gb": 4 * b * frames * cfg.vocab / 1e9}
+    log(f"  [musicgen] peak memory of the checked run {peak / 2**30:.2f} "
+        f"GiB ({peak / 1e9:.3f} GB) beside {held} "
+        f"({sum(held.values()):.3f} GB held at once, activations apart); "
+        f"of the profiles (a second prefill's caches alive) "
+        f"{peak_profiles / 1e9:.3f} GB; "
+        f"decode step bound {bounds['decode_step']['bound_ms']:.3f} ms "
+        f"({bounds['decode_step']['bound_ms_all_slots']:.3f} ms were all "
+        f"2048 slots read)")
+    del params, cache, emb
+    free_card()
+    return counts, {"launches_per_decode_step": step_counts,
+                    "launches_forward_prefill": before,
+                    "programs": programs,
+                    "max_rel_err": rel, "rms_ratio": rms,
+                    "argmax_agreement": argmax,
+                    "peak_bytes": peak, "peak_bytes_profiles": peak_profiles,
+                    "held_gb": held,
+                    "profile": profiles, "bounds": bounds}
+
+
 # (counter, source, the TPU kernel it replaces, the row of phase 2 that
 # stands for it, the configuration whose main path counts its launches)
 KERNELS = [
@@ -3245,6 +3614,19 @@ STARCODER2_ROWS = {
 }
 
 
+# The same at musicgen_medium's shapes (launches from phase 6's
+# model-level run: forward, prefill and 64 decode steps): the prefill's up
+# with bias + gelu on B1, the decode step's on B2, the prefill's causal
+# attention at D = 64, G = 1 on B5 and the flat-cache decode at its last
+# position on B6.
+MUSICGEN_ROWS = {
+    "mte_gemm_wgmma": "mg up 4096x6144x1536 +bias",
+    "splitk_gemm_cluster": "mg up 4x6144x1536 +bias",
+    "flash_attention_wgmma": "mg 4x1024 H=24/24 D=64",
+    "flash_decode_mma": "mg flat 4x24/24x64 L=2048 pos 1087",
+}
+
+
 def parse_args():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3299,6 +3681,9 @@ def main() -> int:
     counts.update(reduced_qwen_phase(dev))
     log("== 3. reduced starcoder2_7b (fp32): card against CPU, default")
     counts.update(reduced_starcoder2_phase(dev))
+    log("== 3. reduced musicgen_medium (fp32): the model-level path, card "
+        "against CPU")
+    counts.update(reduced_musicgen_phase(dev))
     for name, (arch, overrides) in CONFIGS.items():
         log(f"== 4. full-width {arch} serving (bf16), configuration "
             f"[{name}] {overrides or '(defaults)'}")
@@ -3315,6 +3700,9 @@ def main() -> int:
     log("== 5. the reference's exact-draft gate at gemma_2b's full width "
         "[exact-draft]")
     speculative["exact-draft"] = exact_draft_phase(dev, smi)
+    log("== 6. the model-level path at full width: musicgen_medium (bf16) "
+        "forward, prefill and decode over flat caches")
+    counts["musicgen"], model_level = model_level_phase(dev)
 
     kernels = []
     for name, source, replaces, shape, path in KERNELS:
@@ -3332,7 +3720,9 @@ def main() -> int:
         for key, config, at in (("at_gemma2", "gemma2", GEMMA2_ROWS),
                                 ("at_qwen", "qwen", QWEN_ROWS),
                                 ("at_starcoder2", "starcoder2",
-                                 STARCODER2_ROWS)):
+                                 STARCODER2_ROWS),
+                                ("at_musicgen", "musicgen",
+                                 MUSICGEN_ROWS)):
             if name in at:
                 row = next(r for r in mine if r["shape"] == at[name])
                 kernels[-1][key] = {
@@ -3343,7 +3733,8 @@ def main() -> int:
                         "sdpa_without_softcap_ms")}}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"nvidia_smi": smi, "rows": rows, "serving": serving,
-                   "speculative": speculative, "kernels": kernels,
+                   "speculative": speculative, "model_level": model_level,
+                   "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

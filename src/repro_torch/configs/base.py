@@ -220,7 +220,7 @@ ARCH_NAMES = [
     "gemma_2b", "qwen15_4b", "mamba2_130m",
 ]
 PORTED_ARCHS = ("gemma_2b", "recurrentgemma_9b", "gemma2_27b",
-                "qwen15_4b", "starcoder2_7b")
+                "qwen15_4b", "starcoder2_7b", "musicgen_medium")
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 

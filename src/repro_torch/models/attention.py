@@ -1,5 +1,6 @@
-"""MQA/GQA attention over the paged KV pool and over sliding-window ring
-caches (the port of the serving half of ``repro/models/attention.py``).
+"""MQA/GQA attention over the paged KV pool, over sliding-window ring
+caches and over flat decode caches (the port of
+``repro/models/attention.py``).
 
 Projections run through the kernel GEMMs: with ``cfg.use_graph`` (the
 default) the q/k/v projections are ONE compiled :mod:`repro_torch.graph`
@@ -13,7 +14,13 @@ Sliding-window (``local``) layers keep a per-slot ring of L =
 min(window, cache_len) slots: a decode step reads it through B6
 (``flash_decode``), a prefill chunk attends to it with
 :func:`_xla_attention`, the plain mirror of JAX's non-Pallas path
-(JAX's ring chunk does not reach a Pallas kernel either).  The KV scatter
+(JAX's ring chunk does not reach a Pallas kernel either).  The
+model-level path (``model.forward``/``prefill``/``decode``) runs the
+whole sequence through B5 (:func:`attention`, with the window mask on
+local layers), builds its decode cache from the K/V it computed
+(:func:`prefill_cache`: a flat (B, cache_len, Hkv, D) cache for global
+layers, a ring for local ones) and decodes over it through B6
+(:func:`decode_attention`).  The KV scatter
 into pages and rings, the prefix-page gather and the dequantize outside
 the kernels stay plain PyTorch, as they are plain jnp in JAX.
 
@@ -36,7 +43,8 @@ from repro_torch.models.layers import (compute_dtype, dense, init_dense,
                                        model_format, rmsnorm, rope,
                                        use_graph)
 
-__all__ = ["init_attention", "init_attn_cache", "decode_attention",
+__all__ = ["init_attention", "attention", "prefill_cache",
+           "init_attn_cache", "decode_attention",
            "ring_chunk_attention", "init_paged_attn_cache",
            "paged_decode_attention", "paged_prefill_attention",
            "verify_paged_attention", "grouped_decode"]
@@ -266,30 +274,83 @@ def _xla_attention(q, k, v, *, causal, window, softcap, scale,
     return out.reshape(b, h, sq, hd)
 
 
-def init_attn_cache(cfg, batch: int, seq_len: int, window: int, dtype,
-                    device=None):
-    """A local layer's KV ring (B, L, Hkv, D) of L = min(window, seq_len)
-    slots.  (Global layers keep their KV in the paged pool.)"""
+def attention(x, p, cfg, positions, *, window: Optional[int] = None,
+              return_kv: bool = False):
+    """Full-sequence causal attention, the training forward's and the
+    prefill's (``attention.py:304-327`` of the JAX package): x (B, S, D)
+    at positions 0..S−1, q/k/v projected over the B·S rows, B5
+    (``flash_attention``) over the whole sequence with the window mask
+    on local layers, then ``o``.  With ``return_kv`` → (out, (k, v)), the
+    roped k and v (B, S, Hkv, D) that :func:`prefill_cache` stores."""
+    from repro_torch.kernels import ops
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    out = ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=True, window=window, softcap=cfg.attn_softcap,
+        scale=_scale(cfg))
+    y = dense(out.transpose(1, 2).reshape(b, s, -1), p["o"], cfg)
+    return (y, (k, v)) if return_kv else y
+
+
+def prefill_cache(k, v, cfg, seq_len: int, window: Optional[int], dtype):
+    """The decode cache of one layer from its prefill K/V (B, S, Hkv, D)
+    (``attention.py:766-786`` of the JAX package), in ``dtype``: for a
+    global layer (``window`` None) a flat cache of ``seq_len`` slots,
+    position i at slot i and the slots past S zero; for a local layer a
+    ring of L = min(window, seq_len) slots, which holds the last L
+    positions each at its slot (position mod L) when S ≥ L, as
+    :func:`ring_chunk_attention` leaves it, else the S positions at
+    slots 0..S−1."""
     if getattr(cfg, "cache_quant", False):
-        raise NotImplementedError("int8 ring caches (cache_quant) are "
+        raise NotImplementedError("int8 decode caches (cache_quant) are "
                                   "ROADMAP A10")
-    shape = (batch, min(window, seq_len), cfg.n_kv_heads, cfg.hd)
+    b, s = k.shape[:2]
+    length = min(window, seq_len) if window else seq_len
+    if window and s >= length:
+        start = s - length
+        order = (torch.arange(length, device=k.device) - start) % length
+        return {"k": k[:, start:][:, order].to(dtype),
+                "v": v[:, start:][:, order].to(dtype)}
+    if s > length:
+        raise ValueError(f"prefill_cache: {s} positions do not fit a "
+                         f"{length}-slot cache")
+    cache = init_attn_cache(cfg, b, length, None, dtype, k.device)
+    cache["k"][:, :s] = k
+    cache["v"][:, :s] = v
+    return cache
+
+
+def init_attn_cache(cfg, batch: int, seq_len: int, window: Optional[int],
+                    dtype, device=None):
+    """A decode cache (B, L, Hkv, D) of zeros: a local layer's ring of
+    L = min(window, seq_len) slots, or with ``window`` None a global
+    layer's flat cache of L = seq_len slots (the serving engine keeps
+    global layers' KV in the paged pool instead)."""
+    if getattr(cfg, "cache_quant", False):
+        raise NotImplementedError("int8 decode caches (cache_quant) are "
+                                  "ROADMAP A10")
+    length = min(window, seq_len) if window else seq_len
+    shape = (batch, length, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_attention(x, p, cfg, cache, pos, *, window: int, row_valid=None):
-    """Decode over a local layer's ring (``attention.py:372-429`` of the
-    JAX package): one token, or a K-token speculative window scored as K
-    decode steps.  x: (B, K, D); pos: (B,) the first positions.  The
-    q/k/v and o projections run once over the B·K rows on the plans of
-    the decode step's B rows (``plan_rows``), so every row gets a decode
-    step's bits.  Then per position i, in order: its K/V are written at
-    slot (pos + i) mod L of every row whose ``row_valid`` is True (all
-    rows without it), in place, and B6 reads the ring in its stored
-    layout, slot j holding absolute position p − ((p − j) mod L) for
-    p = pos + i.  (Writing the whole window first would overwrite keys an
-    earlier position still sees.)  Returns (out, cache)."""
+def decode_attention(x, p, cfg, cache, pos, *,
+                     window: Optional[int] = None, row_valid=None):
+    """Decode over a local layer's ring or, with ``window`` None, a global
+    layer's flat cache (``attention.py:372-429`` of the JAX package): one
+    token, or a K-token speculative window scored as K decode steps.
+    x: (B, K, D); pos: (B,) the first positions.  The q/k/v and o
+    projections run once over the B·K rows on the plans of the decode
+    step's B rows (``plan_rows``), so every row gets a decode step's
+    bits.  Then per position i, in order: its K/V are written at slot
+    (pos + i) mod L of every row whose ``row_valid`` is True (all rows
+    without it), in place, and B6 reads the cache in its stored layout:
+    in a ring, slot j holds absolute position p − ((p − j) mod L) for
+    p = pos + i; in a flat cache, slot j holds position j if j ≤ p and is
+    masked (−1) past it.  (Writing the whole window first would overwrite
+    keys an earlier position still sees.)  Returns (out, cache)."""
     from repro_torch.kernels import ops
     b, klen, _ = x.shape
     pos_b = torch.as_tensor(pos, dtype=torch.int64,
@@ -310,7 +371,10 @@ def decode_attention(x, p, cfg, cache, pos, *, window: int, row_valid=None):
                 keep = row_valid.reshape(b, 1, 1)
                 new = torch.where(keep, new, cache[name][rows, slot_b])
             cache[name][rows, slot_b] = new
-        kv_positions = pos_i[:, None] - (pos_i[:, None] - idx) % length
+        if window is None:
+            kv_positions = torch.where(idx <= pos_i[:, None], idx, -1)
+        else:
+            kv_positions = pos_i[:, None] - (pos_i[:, None] - idx) % length
         outs.append(ops.flash_decode(
             q[:, i], cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
             kv_positions, pos_i, window=window, softcap=cfg.attn_softcap,

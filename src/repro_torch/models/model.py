@@ -1,5 +1,4 @@
-"""Decoder-stack entry points of the port (the serving subset of
-``repro/models/model.py``).
+"""Decoder-stack entry points of the port (``repro/models/model.py``).
 
 Parameters are plain dictionaries: ``{"embedding": {"table"[, "head"]},
 "layers": [per-layer dict], "final_norm": {"scale"[, "bias"]}}``
@@ -16,16 +15,23 @@ ROADMAP item (A10).  Features: RMSNorm or LayerNorm (``cfg.norm_type``),
 attention and final logit softcaps, a query scale of the config's own
 (``attn_scale``), MHA and GQA, QKV biases, untied LM heads, and
 ``post_norms`` (gemma2: the mixer's and the MLP's outputs normed again
-before each residual add).
+before each residual add), and a stubbed frontend (``frontend_stub``:
+precomputed frame embeddings in ``batch["embeddings"]`` in place of
+tokens, :func:`_inputs_to_x`).
 
-Entry points: :func:`init_params`, :func:`init_paged_cache`,
-:func:`prefill_chunk`, :func:`decode`, :func:`sample_token`,
+Entry points: :func:`init_params`; the model level — :func:`forward`
+(the training forward), :func:`prefill` (which returns a contiguous
+decode cache, :func:`init_cache`'s layout) and :func:`decode` over it;
+serving — :func:`init_paged_cache`, :func:`prefill_chunk`,
+:func:`decode` through a page table, :func:`sample_token`,
 :func:`decode_and_sample`, and for speculative decoding
-:func:`verify_chunk` and :func:`draft_from`.  The cache is updated in
-place: the page slabs, the rings and the RG-LRU state rows.
+:func:`verify_chunk` and :func:`draft_from`.  A decode updates its cache
+in place: the page slabs, the flat caches, the rings and the RG-LRU
+state rows.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -38,9 +44,10 @@ from repro_torch.models.layers import (check_backend, compute_dtype, embed,
                                        init_embedding, init_mlp, init_norm,
                                        mlp, norm, unembed)
 
-__all__ = ["init_params", "init_paged_cache", "prefill_chunk", "decode",
-           "sample_token", "decode_and_sample", "verify_chunk",
-           "draft_from", "param_count"]
+__all__ = ["init_params", "forward", "prefill", "init_cache",
+           "init_paged_cache", "prefill_chunk", "decode", "sample_token",
+           "decode_and_sample", "verify_chunk", "draft_from",
+           "param_count"]
 
 _PORTED_KINDS = (("attn", "mlp"), ("local", "mlp"), ("rglru", "mlp"))
 
@@ -91,6 +98,26 @@ def param_count(params) -> int:
     return walk(params)
 
 
+def init_cache(cfg, batch: int, seq_len: int, *, device=None):
+    """The zero decode cache of the model-level path (``model.py:582-606``
+    of the JAX package), what :func:`prefill` returns: global attention
+    layers a flat (batch, seq_len, Hkv, D) cache, local layers a ring of
+    min(window, seq_len) slots, RG-LRU layers their ``{"h", "conv"}``
+    rows."""
+    _check_kinds(cfg)
+    dev = resolve_device(device)
+    cdt = compute_dtype(cfg)
+
+    def layer_cache(mixer):
+        if mixer == "rglru":
+            return rglru_mod.init_rglru_cache(cfg, batch, cdt, dev)
+        return attn_mod.init_attn_cache(
+            cfg, batch, seq_len, cfg.window if mixer == "local" else None,
+            cdt, dev)
+
+    return {"layers": [layer_cache(mixer) for mixer, _ in cfg.layer_kinds]}
+
+
 def init_paged_cache(cfg, batch: int, seq_len: int, *, num_pages: int,
                      page_size: int, device=None):
     """The serving cache of every layer, by kind (``model.py:609-647`` of
@@ -122,24 +149,43 @@ def _slot_view(cache, slot: int):
 
 
 def _decode_mixer(h, p, cfg, mixer, cache, pos, row_valid):
-    """A ring or RG-LRU mixer over h (B, K, D): one decode step (K = 1)
-    or a speculative window scored as K of them."""
-    if mixer == "local":
-        return attn_mod.decode_attention(h, p, cfg, cache, pos,
-                                         window=cfg.window,
-                                         row_valid=row_valid)
-    return rglru_mod.rglru_decode(h, p, cfg, cache, row_valid=row_valid)
+    """A flat-cache, ring or RG-LRU mixer over h (B, K, D): one decode
+    step (K = 1) or a speculative window scored as K of them."""
+    if mixer == "rglru":
+        return rglru_mod.rglru_decode(h, p, cfg, cache, row_valid=row_valid)
+    return attn_mod.decode_attention(
+        h, p, cfg, cache, pos, window=cfg.window if mixer == "local" else None,
+        row_valid=row_valid)
+
+
+def _sequence_mixer(h, p, cfg, mixer, positions, mode, cache_len):
+    """A mixer over a whole sequence from position 0, in ``mode``
+    ``"train"`` (→ (out, None)) or ``"prefill"`` (→ (out, the layer's
+    decode cache of ``cache_len`` slots)): attention through B5 with the
+    window mask on local layers, the RG-LRU block from a zero state."""
+    if mixer == "rglru":
+        out, state = rglru_mod.rglru_forward(h, p, cfg)
+        return out, state if mode == "prefill" else None
+    window = cfg.window if mixer == "local" else None
+    if mode == "train":
+        return attn_mod.attention(h, p, cfg, positions, window=window), None
+    out, (k, v) = attn_mod.attention(h, p, cfg, positions, window=window,
+                                     return_kv=True)
+    return out, attn_mod.prefill_cache(k, v, cfg, cache_len or h.shape[1],
+                                       window, compute_dtype(cfg))
 
 
 def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
-                 page_table=None, chunk_pos0=None, slot=0, row_valid=None):
-    """One layer in ``mode`` ``"prefill_chunk"``, ``"decode"`` or
-    ``"verify"`` (a (B, K, D) speculative window from per-row positions
-    ``pos``, ``model.py:163-197`` of the JAX package): paged global
-    layers score the whole window in one pass
-    (:func:`~repro_torch.models.attention.verify_paged_attention`), ring
-    and RG-LRU mixers take the window as they take a decode step (only
-    the ring attention, the conv and the recurrence step per position),
+                 page_table=None, chunk_pos0=None, slot=0, row_valid=None,
+                 cache_len=None):
+    """One layer in ``mode`` ``"train"`` or ``"prefill"`` (the whole
+    sequence, :func:`_sequence_mixer`), ``"prefill_chunk"``, ``"decode"``
+    or ``"verify"`` (a (B, K, D) speculative window from per-row
+    positions ``pos``, ``model.py:163-197`` of the JAX package): paged
+    global layers score the whole window in one pass
+    (:func:`~repro_torch.models.attention.verify_paged_attention`), flat,
+    ring and RG-LRU mixers take the window as they take a decode step
+    (only the attention, the conv and the recurrence step per position),
     and every projection and the FFN run once over the B·K rows on the
     decode step's plans (``plan_rows`` = B), so each row keeps the decode
     step's bits.  With ``cfg.post_norms`` the mixer's and the MLP's
@@ -148,7 +194,11 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
     kind = cfg.norm_type
     h = norm(x, lp["norm1"], kind)
     plan_rows = x.shape[0] if mode == "verify" else None
-    if mode == "prefill_chunk":
+    paged = cache is not None and "k_pages" in cache
+    if mode in ("train", "prefill"):
+        out, cache = _sequence_mixer(h, lp["mixer"], cfg, mixer, positions,
+                                     mode, cache_len)
+    elif mode == "prefill_chunk":
         if mixer == "attn":
             out, cache = attn_mod.paged_prefill_attention(
                 h, lp["mixer"], cfg, cache, positions, page_table,
@@ -165,10 +215,10 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
                                                cache=one)
             for name, leaf in one.items():
                 cache[name][slot] = leaf[0].to(cache[name].dtype)
-    elif mixer == "attn" and mode == "verify":
+    elif paged and mode == "verify":
         out, cache = attn_mod.verify_paged_attention(
             h, lp["mixer"], cfg, cache, pos, page_table)
-    elif mixer == "attn":
+    elif paged:
         # Inactive rows write into the null page through their all-(−1)
         # page-table row, so ``row_valid`` has nothing to guard here.
         out, cache = attn_mod.paged_decode_attention(
@@ -187,13 +237,62 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
 
 
 def _run_stack(x, params, cfg, positions, mode, cache, **kw):
+    """Every layer in turn; a given cache's layer entries are replaced in
+    place, and with ``cache`` None (``"train"``, ``"prefill"``) a new one
+    collects what the layers return."""
     check_backend(cfg)
     _check_kinds(cfg)
+    out = cache if cache is not None else {
+        "layers": [None] * len(params["layers"])}
     for i, (lp, (mixer, _)) in enumerate(zip(params["layers"],
                                              cfg.layer_kinds)):
-        x, cache["layers"][i] = _apply_layer(x, lp, cfg, mixer, positions,
-                                             mode, cache["layers"][i], **kw)
-    return x, cache
+        x, out["layers"][i] = _apply_layer(
+            x, lp, cfg, mixer, positions, mode,
+            None if cache is None else cache["layers"][i], **kw)
+    return x, out
+
+
+def _inputs_to_x(batch, params, cfg):
+    """The stack's input (B, S, d_model) in the compute dtype
+    (``model.py:376-387`` of the JAX package): under ``cfg.frontend_stub``
+    the precomputed frame embeddings ``batch["embeddings"]``, cast and,
+    with ``embed_scale``, multiplied by √d_model rounded to the compute
+    dtype; else the embedded ``batch["tokens"]``."""
+    if not cfg.frontend_stub:
+        return embed(batch["tokens"], params["embedding"], cfg)
+    x = batch["embeddings"].to(compute_dtype(cfg))
+    if cfg.embed_scale:
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    return x
+
+
+def _sequence_positions(x):
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device)[None].expand(b, s)
+
+
+def forward(params, batch, cfg):
+    """The training forward (``model.py:390-401`` of the JAX package) over
+    ``batch["tokens"]`` (B, S), or ``batch["embeddings"]`` (B, S, d_model)
+    under ``cfg.frontend_stub``: → (logits f32 (B, S, V), aux loss 0.0 —
+    the port has no MoE layer)."""
+    x = _inputs_to_x(batch, params, cfg)
+    x, _ = _run_stack(x, params, cfg, _sequence_positions(x), "train", None)
+    x = norm(x, params["final_norm"], cfg.norm_type)
+    return (unembed(x, params["embedding"], cfg),
+            torch.zeros((), device=x.device))
+
+
+def prefill(params, batch, cfg, cache_len: Optional[int] = None):
+    """The forward that also builds the decode cache (``model.py:404-416``
+    of the JAX package): → (last-position logits f32 (B, V), cache in
+    :func:`init_cache`'s layout with ``cache_len`` slots, the prompt's
+    length by default — pass the capacity decode steps need)."""
+    x = _inputs_to_x(batch, params, cfg)
+    x, cache = _run_stack(x, params, cfg, _sequence_positions(x), "prefill",
+                          None, cache_len=cache_len)
+    x = norm(x[:, -1:], params["final_norm"], cfg.norm_type)
+    return unembed(x, params["embedding"], cfg)[:, 0], cache
 
 
 def prefill_chunk(params, batch, cache, cfg, *, pos0: int):
@@ -213,15 +312,17 @@ def prefill_chunk(params, batch, cache, cfg, *, pos0: int):
 
 
 def decode(params, batch, cache, cfg):
-    """One-token decode: ``batch["tokens"]`` (B, 1), ``batch["pos"]`` (B,)
-    per-slot positions, ``batch["page_table"]`` (B, max_pages) and
-    optionally ``batch["row_valid"]`` (B,) bool: the rows whose ring and
+    """One-token decode over the serving cache or the model-level one:
+    ``batch["tokens"]`` (B, 1) (or ``batch["embeddings"]`` (B, 1,
+    d_model) under ``cfg.frontend_stub``), ``batch["pos"]`` a scalar or
+    (B,) per-slot positions, ``batch["page_table"]`` (B, max_pages) for
+    a paged cache (none for :func:`init_cache`'s) and optionally
+    ``batch["row_valid"]`` (B,) bool: the rows whose flat-cache, ring and
     RG-LRU state the step may change (JAX's ``_mask_rows`` contract; the
     others — slots still prefilling — keep theirs).  Returns (logits
     (B, V) f32, cache)."""
-    tokens = batch["tokens"]
-    b = tokens.shape[0]
-    x = embed(tokens, params["embedding"], cfg)
+    x = _inputs_to_x(batch, params, cfg)
+    b = x.shape[0]
     pos = torch.as_tensor(batch["pos"], device=x.device).reshape(-1)
     positions = pos.to(torch.int64).expand(b).reshape(b, 1)
     row_valid = batch.get("row_valid")
@@ -230,7 +331,7 @@ def decode(params, batch, cache, cfg):
                                     device=x.device).reshape(-1)
     x, cache = _run_stack(x, params, cfg, positions, "decode", cache,
                           pos=positions[:, 0],
-                          page_table=batch["page_table"],
+                          page_table=batch.get("page_table"),
                           row_valid=row_valid)
     x = norm(x, params["final_norm"], cfg.norm_type)
     return unembed(x, params["embedding"], cfg)[:, 0], cache

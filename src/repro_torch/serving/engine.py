@@ -618,6 +618,12 @@ class ServingEngine:
         if asked:
             raise NotImplementedError(
                 "ServingEngine: not ported yet: " + ", ".join(asked))
+        if cfg.frontend_stub:
+            raise NotImplementedError(
+                f"ServingEngine: {cfg.name!r} takes frame embeddings "
+                f"(frontend_stub), and the engine serves token batches "
+                f"only, as the JAX package's does; run it through "
+                f"models.model.forward / prefill / decode")
         self.device = resolve_device(device)
         if format_policy is not None:
             cfg = dataclasses.replace(cfg, format_policy=format_policy)

@@ -965,6 +965,64 @@ def test_ring_decode_mma_at_starcoder2_shape(card):
         "flash_decode_mma"}
 
 
+@pytest.mark.parametrize("q_pos", [[1023, 1087, 1500, 40],
+                                   [0, 1024, 2047, 1100]])
+def test_flat_decode_mma_masked_tail_at_musicgen_shape(card, q_pos):
+    """B6's mma engine over musicgen_medium's flat decode cache: 4
+    sequences x 24 query heads on 24 kv heads (G = 1: one live row of the
+    m16 A fragment) x D 64 over 2048 slots in the (B, L, Hkv, D) storage,
+    slot j holding position j up to each row's q_pos and -1 past it, the
+    slots past it filled with large values.  At the planned cluster size
+    and every other (at 2-8 slices whole slices of some rows are masked):
+    within 1e-2 x (1 + |ref|) of ``flash_decode_torch``, finite, bit-equal
+    from call to call, on the mma counter only."""
+    gen = torch.Generator().manual_seed(64)
+    b, length, h, d = 4, 2048, 24, 64
+    q = torch.randn(b, h, d, generator=gen).to(torch.bfloat16)
+    qp = torch.tensor(q_pos, dtype=torch.int32)
+    idx = torch.arange(length)
+    live = (idx[None] <= qp[:, None])[:, :, None, None]
+    k, v = (torch.where(live, torch.randn(b, length, h, d, generator=gen),
+                        torch.full((), 1e4)).to(torch.bfloat16)
+            .transpose(1, 2) for _ in range(2))
+    kvp = torch.where(idx[None] <= qp[:, None], idx, -1).to(torch.int32)
+    assert tgeometry.flat_decode_engine(k.dtype, q.dtype, 1, d,
+                                        tdecode.tma_strided(k, v)) == "mma"
+    want = tdecode.flash_decode_torch(q, k, v, kvp, qp)
+    args = [x.to(card) for x in (q, k, v, kvp, qp)]
+    before = build.launch_counts()
+    for split in (None, 1, 2, 3, 4, 8):
+        got = tdecode.flash_decode_kernel(*args, kv_split=split)
+        assert torch.isfinite(got.float()).all()
+        _close(got, want, 1e-2)
+        assert torch.equal(got, tdecode.flash_decode_kernel(
+            *args, kv_split=split))
+    after = build.launch_counts()
+    assert {name for name in after if after[name] != before[name]} == {
+        "flash_decode_mma"}
+
+
+@pytest.mark.parametrize("kv_split", [None, 1, 2])
+def test_flash_attention_wgmma_at_musicgen_shape(card, kv_split):
+    """B5's wgmma engine at musicgen_medium's prefill and forward: 24
+    heads on 24 kv heads (G = 1) x D 64, causal, Sq = Skv = 1024 and
+    1088 (a sequence of 17 64-row tiles), at the planned kv split and
+    both others: within 1e-2 of ``flash_attention_torch``, on the wgmma
+    counter only."""
+    gen = torch.Generator().manual_seed(1088)
+    before = build.launch_counts()
+    for s in (1024, 1088):
+        q, k, v = (torch.randn(1, 24, s, 64, generator=gen).to(
+            torch.bfloat16) for _ in range(3))
+        want = tattn.flash_attention_torch(q, k, v)
+        got = tattn.flash_attention_kernel(q.to(card), k.to(card),
+                                           v.to(card), kv_split=kv_split)
+        _close(got, want, 1e-2)
+    after = build.launch_counts()
+    assert {name for name in after if after[name] != before[name]} == {
+        "flash_attention_wgmma"}
+
+
 def test_ring_decode_engines_split_by_type_and_stride(card):
     """f32 caches, D = 32, G > 16 and views TMA cannot read stay on the
     SIMT kernel; the serving ring goes to the mma engine: each launch

@@ -58,7 +58,7 @@ def test_port_refuses_unported_layer_kinds_and_configs():
     with pytest.raises(NotImplementedError, match="A10"):
         torch_model.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="queue A"):
-        get_config("musicgen_medium")
+        get_config("chameleon_34b")
     with pytest.raises(NotImplementedError, match="queue A"):
         torch_model.prefill_chunk(
             torch_model.init_params(torch_cfg(), device="cpu"),
