@@ -45,7 +45,12 @@ Phases (any failure raises and the script exits non-zero):
    at G = 1, D = 64 with the slots past each row's position masked, at
    positions 1024 and 1087 and at a ragged tail (each row also printing
    the K/V bytes of the visible slots, of the 16-slot tiles the kernel
-   loads and of all the slots);
+   loads and of all the slots); the training step's GEMMs at gemma_2b's
+   full width over 4096 tokens (``train_gemm_phase``): the forward's bf16
+   gate on B1's wgmma mainloop, and the backward's f32 gate products on
+   B1's tile loop -- the accumulator's recompute, dA (B read transposed
+   in place) and dB (A^T copied first, the copy timed apart) -- warm and
+   cold against an f32 ``torch.matmul``;
    the old engines' own rows at the fp32
    shapes phase 3 gives them, or at the prefill gate+up group) and at
    small ragged shapes in every mode each kernel takes.  Each prints its
@@ -187,6 +192,25 @@ Phases (any failure raises and the script exits non-zero):
    idle share of a decode step, the prefill and the forward against their
    bounds (``model_level_bounds``) and the peak memory beside what is
    held.
+
+7. Training (``TRAIN``).  (a) Card against CPU: reduced gemma_2b in
+   fp32, 3 steps of ``loss_and_grads`` + AdamW on both (losses, every
+   gradient leaf and the parameters after the steps), ``microbatches=2``
+   against 1, and ``train_loop`` through a checkpoint and a restart
+   against the same steps straight; gemma_2b at full width and depth 2 in
+   bf16 over 2 x 64 tokens (loss, every gradient leaf, the AdamW update).
+   (b) gemma_2b at its published widths with f32 parameters from seed 0,
+   ``SyntheticDataset`` batches of 1 x 4096 tokens, remat "full", the bf16
+   format, lr 3e-4: one warm step, 3 timed steps and one profiled step.
+   Every loss and grad norm must be finite and the parameters must move;
+   per step, the forward runs B1's wgmma mainloop (twice under remat)
+   and B5's wgmma engine, and every backward GEMM a tile-loop launch of
+   B1 (or B2 where a plan splits K): ``backward_gemms`` of them, none on a
+   library call.  It prints each step's wall ms, the profiled step's
+   device ms and idle share beside its bound (``train_bounds``: bf16
+   operations at 989 TFLOP/s, f32 at 67, bytes at 3.35 TB/s), the
+   launches per step per counter, each compiled program's grouping
+   decision, and the peak memory beside the reckoning.
 
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -626,6 +650,8 @@ def gemm_phase(dev, rows):
                                  ("mg up", 6144, 1536, "gelu"),
                                  ("mg down", 1536, 6144, "none")]:
             main_path(label, m, n, k, act, bias=True)
+    # The training forward's gate over 4096 tokens (phase 7, bf16 format).
+    main_path("train gate", 4096, 16384, 2048, "gelu")
     # The tile loops' rows, at the shapes phase 3's reduced fp32 gemma_2b
     # (d_model 128, d_ff 256) gives them: B1's gate in the 4096-token
     # chunk, B2's gate in the 2-slot decode.
@@ -633,6 +659,100 @@ def gemm_phase(dev, rows):
               tol=1e-4, fmt="fp32")
     main_path("gate fp32", 2, 256, 128, "gelu", dt=torch.float32,
               tol=1e-4, fmt="fp32")
+
+
+def train_gemm_phase(dev, rows):
+    """The training backward's f32 GEMMs at gemma_2b's full width (d 2048,
+    8 heads x 256, one 256-wide kv head, d_ff 16384) over 4096 tokens,
+    each through the plan and route the backward gives it
+    (``autodiff.raw_gemm``): the gate's accumulator recompute (4096 x
+    16384 x 2048), and for every projection shape of a layer ``dA = dacc
+    @ B^T`` (B read in place through B1's transposed-B geometry) and ``dB
+    = A^T @ dacc`` (A^T copied row-major first; the gate's copy timed
+    apart): q/o, k/v (its dB 2048 x 256 x 4096 splits K onto B2), gate/up
+    and down.  Each against its plain version (elementwise within 1e-4 x
+    (1 + |ref|) and in relative Frobenius error within 1e-5: the f32
+    summation order is all that may differ), warm and with the L2 cold,
+    beside its bound (f32 operations at 67 TFLOP/s) and one f32
+    ``torch.matmul`` of the same product as the yardstick; and the
+    training forward's bf16 gate (4096 x 16384 x 2048 + gelu) on the
+    wgmma mainloop."""
+    import torch
+    from repro_torch.core.autotune import get_plan, plan_engine
+    from repro_torch.kernels.autodiff import _transposed, raw_gemm
+    from repro_torch.kernels.mte_gemm import mte_gemm_torch
+    from repro_torch.kernels.splitk_gemm import mte_gemm_splitk_torch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = 4096
+
+    def row(label, x, y, transposed, lib, copy_ms=None):
+        m, k = x.shape
+        n = y.shape[0] if transposed else y.shape[1]
+        plan = get_plan(m, n, k, torch.float32, torch.float32)
+        geom = plan.geometry
+        if plan.route == "mte":
+            geom = dataclasses.replace(geom, transposed_b=transposed)
+            plain = lambda: mte_gemm_torch(x, y, geom=geom)  # noqa: E731
+        else:
+            yp = y.t().contiguous() if transposed else y
+            plain = lambda: mte_gemm_splitk_torch(  # noqa: E731
+                x, yp, geom=geom, n_split=plan.n_split)
+        engine = plan_engine(plan.signature, geom)
+        run = lambda: raw_gemm(x, y, transposed_b=transposed)  # noqa: E731
+        shape = f"train {label} fp32 {m}x{n}x{k}"
+        kern = {"mte": "mte_gemm", "splitk": "splitk_gemm"}[plan.route]
+        got, want = run(), plain()
+        err = check(f"{kern} main-path {shape} [{plan.describe()}, engine "
+                    f"{engine}]", got, want, 1e-4)
+        rel = _frobenius(got, want)
+        log(f"    relative Frobenius error {rel:.3e} (tol 1e-5)")
+        require(rel <= 1e-5, f"{kern} {shape}: relative error {rel}")
+        del got, want
+        flops = 2.0 * m * n * k
+        nbytes = 4.0 * (m * k + k * n + m * n)
+        r = {"kernel": kern, "shape": shape, "engine": engine,
+             "plan": plan.describe(), "max_abs_err": err, "tol": 1e-4,
+             "rel_err": rel, "rel_tol": 1e-5,
+             "ms": time_ms(run, iters=5), "cold_ms": time_ms_cold(run, 5),
+             "plain_ms": time_ms(plain, iters=5),
+             "bound_ms": bound_ms(flops, nbytes, PEAK["fp32"]),
+             "bound_by": bound_by(flops, nbytes, PEAK["fp32"]),
+             "library_ms": time_ms(lib, iters=5),
+             "library_cold_ms": time_ms_cold(lib, 5),
+             "library": "torch.matmul (f32)"}
+        r["tflops"] = flops / r["ms"] / 1e9
+        if copy_ms is not None:
+            r["transpose_copy_ms"] = copy_ms
+        rows.append(r)
+        log(f"    time {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), "
+            f"L2 cold {r['cold_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+            f"torch.matmul f32 {r['library_ms']:.4f} ms "
+            f"({r['ms'] / r['library_ms']:.2f}x), cold "
+            f"{r['library_cold_ms']:.4f} ms"
+            + (f"; the A^T copy {copy_ms:.4f} ms" if copy_ms is not None
+               else "; B^T read in place (no copy)" if transposed
+               and plan.route == "mte" else ""))
+
+    for name, d_in, d_out in (("gate", 2048, 16384), ("q/o", 2048, 2048),
+                              ("k/v", 2048, 256), ("down", 16384, 2048)):
+        a = (torch.randn(tokens, d_in, generator=gen, device=dev)
+             / math.sqrt(d_in))
+        w = (torch.randn(d_in, d_out, generator=gen, device=dev)
+             / math.sqrt(d_in))
+        dacc = (torch.randn(tokens, d_out, generator=gen, device=dev)
+                / math.sqrt(d_out))
+        at = _transposed(a, torch.float32)
+        copy_ms = (time_ms(lambda: _transposed(a, torch.float32))
+                   if name == "gate" else None)
+        if name == "gate":
+            row(f"{name} recompute", a, w, False,
+                lambda: torch.matmul(a, w))
+        row(f"{name} dA", dacc, w, True, lambda: torch.matmul(dacc, w.t()))
+        row(f"{name} dB", at, dacc, False, lambda: torch.matmul(a.t(), dacc),
+            copy_ms)
+        del a, w, dacc, at
 
 
 def grouped_phase(dev, rows):
@@ -1152,7 +1272,8 @@ def attention_phase(dev, rows):
             rows.append({"kernel": kernel, "shape": f"{label} {name}",
                          "max_abs_err": err, "tol": tol})
 
-    def main_path(shape, b, h, hkv, sq, skv, d, dtype, cold=False, **kw):
+    def main_path(shape, b, h, hkv, sq, skv, d, dtype, cold=False,
+                  rel_tol=None, **kw):
         q, k, v = qkv(b, h, hkv, sq, skv, d, dtype)
         simt = attention_engine(dtype, d) == "simt"
         kernel = "flash_attention" if simt else "flash_attention_wgmma"
@@ -1160,7 +1281,20 @@ def attention_phase(dev, rows):
         run = lambda: flash_attention_kernel(q, k, v, **kw)  # noqa: E731
         plain = lambda: flash_attention_torch(q, k, v, **kw)  # noqa: E731
         want = plain()
-        err = check(f"{kernel} main-path {shape}", run(), want, tol)
+
+        def hold(label, got):
+            err = check(label, got, want, tol)
+            if rel_tol is not None:
+                # The whole output in relative Frobenius error: the rows
+                # far down a long sequence average many values, so an
+                # elementwise bound alone would pass a wrong tile there.
+                rel = _frobenius(got, want)
+                log(f"    relative Frobenius error {rel:.3e} (tol "
+                    f"{rel_tol:g})")
+                require(rel <= rel_tol, f"{label}: relative error {rel}")
+            return err
+
+        err = hold(f"{kernel} main-path {shape}", run())
         by_split = {}
         if not simt:
             # Both kv splits, the planner's choice first: each held to the
@@ -1168,8 +1302,8 @@ def attention_phase(dev, rows):
             chosen = attention_kv_split(b * h * (sq // 64), skv // 64)
             for split in (chosen, 3 - chosen):
                 got = flash_attention_kernel(q, k, v, kv_split=split, **kw)
-                err = max(err, check(f"{kernel} main-path {shape} kv_split="
-                                     f"{split}", got, want, tol))
+                err = max(err, hold(f"{kernel} main-path {shape} kv_split="
+                                    f"{split}", got))
                 by_split[split] = time_ms(
                     lambda: flash_attention_kernel(q, k, v, kv_split=split,
                                                    **kw))
@@ -1219,6 +1353,10 @@ def attention_phase(dev, rows):
     # sequence.
     main_path("mg 4x1024 H=24/24 D=64", 4, 24, 24, 1024, 1024, 64,
               torch.bfloat16, cold=True)
+    # gemma_2b's training forward (phase 7): one sequence of 4096 tokens,
+    # 8 heads on one kv head, D = 256, causal over the whole sequence.
+    main_path("train 1x4096 H=8/1 D=256", 1, 8, 1, 4096, 4096, 256,
+              torch.bfloat16, cold=True, rel_tol=1e-2)
 
 
 def ring_decode_phase(dev, rows):
@@ -2722,6 +2860,7 @@ def profile_call(fn, n):
     device's clock (``call_ms``), which shows whether a high idle share
     is one call held back or every call."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build
     fn()
@@ -2746,10 +2885,15 @@ def profile_call(fn, n):
     for e in prof.key_averages():
         dev_us = (getattr(e, "self_device_time_total", None)
                   or getattr(e, "self_cuda_time_total", 0) or 0)
-        # An aten op reports the kernels it launched as its own device
-        # time, and a runtime call (cudaLaunchKernel, cudaGraphLaunch)
-        # can carry the time of what it launched; count the kernels only.
-        if dev_us > 0 and not e.key.startswith(("aten::", "cuda")):
+        # An aten op or an autograd Function (``MteGemmBackward``) reports
+        # the kernels it launched as its own device time, and a runtime
+        # call (cudaLaunchKernel, cudaGraphLaunch) can carry the time of
+        # what it launched; count the device's own activities (kernels,
+        # copies) only.  "Command Buffer Full" marks the host waiting on a
+        # full launch queue, not device work.
+        if (dev_us > 0 and e.device_type == DeviceType.CUDA
+                and not e.key.startswith(("aten::", "cuda"))
+                and e.key != "Command Buffer Full"):
             rows.append((dev_us / n / 1e3, e.key, e.count // n))
     cumsum_calls = sum(e.count for e in prof.key_averages()
                        if e.key == "aten::cumsum") // n
@@ -3525,14 +3669,342 @@ def model_level_phase(dev):
                     "profile": profiles, "bounds": bounds}
 
 
+# -- phase 7: training -------------------------------------------------------
+
+# Phase 7's full-width run: gemma_2b at its published widths, f32
+# parameters from seed 0, ``SyntheticDataset`` batches of 1 x 4096 tokens
+# (``train_4k``'s sequence; its global batch of 256 cut to 1 for one
+# card), remat "full", the bf16 format, lr 3e-4: one warm step, then
+# ``timed`` steps, then one profiled step.
+TRAIN = dict(arch="gemma_2b", batch=1, seq=4096, lr=3e-4, timed=3)
+# Card against CPU (phase 7a): reduced gemma_2b in fp32 over 4 x 32
+# tokens; gemma_2b at full width and depth 2 in bf16 over 2 x 64 tokens.
+# Gradient leaves within TRAIN_GRAD_TOL relative Frobenius error: fp32
+# the CPU tests' bound against JAX, bf16 the port's bf16 tolerance
+# (ROADMAP §C): the forward's bf16 roundings move on other engines.
+TRAIN_GRAD_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+# The depth-2 bf16 check runs once for each seed (parameters and data):
+# the worst leaf's spread across seeds beside its gate.
+TRAIN_DEPTH2_SEEDS = (0, 1)
+
+
+def _frobenius(got, want) -> float:
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    return float(torch.linalg.vector_norm(got - want)
+                 / (torch.linalg.vector_norm(want) + 1e-30))
+
+
+def compare_grads(label, got, want, tol):
+    """Every gradient leaf of ``got`` (the card's) within ``tol`` relative
+    Frobenius error of ``want`` (the CPU's); returns the worst."""
+    from repro_torch.tree import paths
+    gp, wp = paths(got), paths(want)
+    require(gp.keys() == wp.keys(), f"{label}: gradient trees differ")
+    errs = {k: _frobenius(gp[k], wp[k]) for k in gp}
+    worst = max(errs, key=errs.get)
+    log(f"  {label} grads cuda vs cpu: worst leaf {worst} "
+        f"{errs[worst]:.3e} (tol {tol:g}, {len(errs)} leaves)")
+    require(errs[worst] <= tol, f"{label}: grad {worst} differs by "
+            f"{errs[worst]}")
+    return errs[worst]
+
+
+def training_card_phase(dev):
+    """Phase 7a, card against CPU.  reduced gemma_2b in fp32: 3 steps of
+    ``loss_and_grads`` + ``adamw_update`` from one seed on both (each
+    step's loss within 1e-5 relative, every gradient leaf within
+    ``TRAIN_GRAD_TOL["fp32"]``, the parameters after the steps within
+    1e-5), then ``microbatches=2`` against 1 on the card (loss 1e-4,
+    parameters 2e-3, the reference's test), then ``train_loop`` with a
+    checkpoint: 2 steps, a restart, 2 more, against 4 straight (rtol 1e-5,
+    atol 1e-6, the reference's test; the card's embedding gradient sums
+    repeated tokens with atomics, so not bit for bit).  Then gemma_2b at
+    full width and depth 2 in bf16 over 2 x 64 tokens, once for each of
+    ``TRAIN_DEPTH2_SEEDS`` (parameters and data): the loss within
+    2e-2 x (1 + |ref|), every gradient leaf within
+    ``TRAIN_GRAD_TOL["bf16"]``, and the card's AdamW update of the card's
+    gradients equal to the CPU's update of the same gradients within
+    1e-6.  Returns the card's launch counts (``train-reduced``,
+    ``train-depth2``)."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import optimizer as opt_lib
+    from repro_torch.training import trainer
+    from repro_torch.tree import leaves
+
+    counts = {}
+    cfg = get_config("gemma_2b").reduced()
+    reset_planning()
+    sides = {}
+    for device in (dev, "cpu"):
+        params = model_lib.init_params(cfg, seed=0, device="cpu")
+        params = to_device(params, device)
+        sides[str(device)] = (params, opt_lib.init_opt_state(params))
+    data = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                       global_batch=4, seed=0))
+    opt_cfg = opt_lib.AdamWConfig(lr=1e-3)
+    build.reset_launch_counts()
+    for step in range(3):
+        batch = data.batch(step)
+        out = {}
+        for device, (params, state) in sides.items():
+            metrics, grads = trainer.loss_and_grads(
+                params, to_device(batch, device), cfg)
+            out[device] = (float(metrics["loss"]), grads)
+            opt_lib.adamw_update(params, grads, state, opt_cfg)
+        (lg, gg), (lc, gc_) = out[str(dev)], out["cpu"]
+        log(f"  reduced fp32 step {step}: loss cuda {lg:.6f} cpu {lc:.6f}")
+        require(abs(lg - lc) <= 1e-5 * abs(lc), f"step {step}: loss {lg} "
+                f"against {lc}")
+        compare_grads(f"reduced fp32 step {step}", gg, gc_,
+                      TRAIN_GRAD_TOL["fp32"])
+    torch.cuda.synchronize()
+    counts["train-reduced"] = build.launch_counts()
+    perr = max(max_err(a.cpu(), b) for a, b in zip(
+        leaves(sides[str(dev)][0]), leaves(sides["cpu"][0])))
+    log(f"  reduced fp32 params after 3 steps cuda vs cpu: max_abs_err="
+        f"{perr:.3e} tol=1e-5")
+    require(perr <= 1e-5, f"reduced params differ by {perr}")
+
+    params = sides[str(dev)][0]
+    batch = to_device(data.batch(3), dev)
+    runs = []
+    for mb in (1, 2):
+        p = opt_lib.clone_tree(params)
+        p, _, m = trainer.make_train_step(cfg, opt_cfg, mb)(
+            p, opt_lib.init_opt_state(p), batch)
+        runs.append((float(m["loss"]), p))
+    perr = max(max_err(a, b) for a, b in zip(leaves(runs[0][1]),
+                                              leaves(runs[1][1])))
+    log(f"  microbatches 2 vs 1 on the card: loss {runs[1][0]:.6f} vs "
+        f"{runs[0][0]:.6f}, params max_abs_err={perr:.3e} tol=2e-3")
+    require(abs(runs[0][0] - runs[1][0]) <= 1e-4 * abs(runs[0][0])
+            and perr <= 2e-3, "microbatching differs from one batch")
+    del sides, runs
+
+    kw = dict(batch=4, seq=32, lr=1e-3, log=lambda *a: None, seed=3,
+              device=dev)
+    straight, _ = train_loop(cfg, steps=4, **kw)
+    with tempfile.TemporaryDirectory() as ckpt:
+        train_loop(cfg, steps=2, ckpt_dir=ckpt, ckpt_every=100, **kw)
+        resumed, _ = train_loop(cfg, steps=4, ckpt_dir=ckpt,
+                                ckpt_every=100, **kw)
+    pairs = list(zip(leaves(resumed), leaves(straight)))
+    log(f"  train_loop 2 steps + restart + 2 against 4 straight: "
+        f"max_abs_err={max(max_err(a, b) for a, b in pairs):.3e} (rtol "
+        f"1e-5, atol 1e-6)")
+    require(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                for a, b in pairs), "checkpoint resume differs")
+    del straight, resumed, pairs
+
+    log("== 7. gemma_2b at full width, depth 2 (bf16): training card "
+        "against CPU")
+    cfg = dataclasses.replace(get_config("gemma_2b"), n_layers=2)
+    reset_planning()
+    # The last seed's parameters and gradients go on to the AdamW check.
+    for seed in TRAIN_DEPTH2_SEEDS:
+        params_gpu = gg = None
+        params_cpu = model_lib.init_params(cfg, seed=seed, device="cpu")
+        params_gpu = to_device(params_cpu, dev)
+        batch = SyntheticDataset(DataConfig(
+            vocab=cfg.vocab, seq_len=64, global_batch=2, seed=seed)).batch(0)
+        build.reset_launch_counts()
+        mg, gg = trainer.loss_and_grads(params_gpu, to_device(batch, dev),
+                                        cfg)
+        torch.cuda.synchronize()
+        counts["train-depth2"] = build.launch_counts()
+        mc, gc_ = trainer.loss_and_grads(params_cpu, batch, cfg)
+        lg, lc = float(mg["loss"]), float(mc["loss"])
+        log(f"  depth 2 bf16 seed {seed} loss cuda {lg:.6f} cpu {lc:.6f}")
+        require(abs(lg - lc) <= 2e-2 * (1 + abs(lc)),
+                f"depth 2 seed {seed}: loss differs")
+        compare_grads(f"depth 2 bf16 seed {seed}", gg, gc_,
+                      TRAIN_GRAD_TOL["bf16"])
+        del gc_
+    gg_cpu = to_device(gg, "cpu")
+    opt_cfg = opt_lib.AdamWConfig(lr=TRAIN["lr"])
+    opt_lib.adamw_update(params_gpu, gg, opt_lib.init_opt_state(params_gpu),
+                         opt_cfg)
+    opt_lib.adamw_update(params_cpu, gg_cpu,
+                         opt_lib.init_opt_state(params_cpu), opt_cfg)
+    perr = max(max_err(a.cpu(), b) for a, b in zip(leaves(params_gpu),
+                                                    leaves(params_cpu)))
+    log(f"  depth 2 AdamW of the card's grads, cuda vs cpu: max_abs_err="
+        f"{perr:.3e} tol=1e-6")
+    require(perr <= 1e-6, f"depth 2: AdamW differs by {perr}")
+    for label, on in (("train-reduced", ("mte_gemm",)),
+                      ("train-depth2", ("mte_gemm_wgmma", "mte_gemm",
+                                        "flash_attention_wgmma"))):
+        got = {k: v for k, v in counts[label].items() if v}
+        log(f"  [{label}] launches {got}")
+        for kernel in on:
+            require(got.get(kernel, 0) > 0, f"{label}: {kernel} not "
+                    f"launched")
+    del params_gpu, gg
+    free_card()
+    return counts
+
+
+def train_bounds(cfg, batch, seq):
+    """The least time of one full-width train step on the card: bf16
+    operations (the projections' forward once, the attention's forward
+    over the causal pairs, the LM head's forward on bf16-rounded operands)
+    at 989 TFLOP/s plus f32 operations (the projections' dA and dB, the
+    attention's backward, the LM head's dx and dW) at 67 TFLOP/s, against
+    the bytes the update must move (parameters, m and v read and written,
+    f32: 24 bytes a parameter) at 3.35 TB/s."""
+    d, f, h, hkv, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.hd
+    nl, vocab, tokens = cfg.n_layers, cfg.vocab, batch * seq
+    proj = nl * (d * (h + 2 * hkv) * hd + h * hd * d + 3 * d * f)
+    n_params = proj + vocab * d + nl * 2 * d + d
+    attn = nl * 4.0 * batch * h * hd * seq * (seq + 1) / 2
+    head = 2.0 * tokens * d * vocab
+    bf16 = 2.0 * tokens * proj + attn + head
+    f32 = 4.0 * tokens * proj + 2 * attn + 2 * head
+    nbytes = 24.0 * n_params
+    ops_ms = 1e3 * (bf16 / PEAK["bf16"] + f32 / PEAK["fp32"])
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bf16_tflop": bf16 / 1e12, "f32_tflop": f32 / 1e12,
+            "bytes_gb": nbytes / 1e9, "params": n_params,
+            "reckoning_gb": {
+                "params_f32": 4 * n_params / 1e9,
+                "grads_f32": 4 * n_params / 1e9,
+                "adam_m_v": 8 * n_params / 1e9,
+                "logits_f32": 4 * tokens * vocab / 1e9,
+                "logits_grad_f32": 4 * tokens * vocab / 1e9,
+                "lm_head_f32_table": 4 * vocab * d / 1e9}}
+
+
+def backward_gemms(cfg) -> int:
+    """The backward GEMMs of one step of an attention + MLP stack: two per
+    projection (dA, dB; q, k, v, o and the MLP's) and the accumulator's
+    recompute of the one projection whose epilogue's derivative reads it
+    (the MLP's activation)."""
+    gated = cfg.mlp_type in ("swiglu", "geglu")
+    return cfg.n_layers * (2 * (4 + (3 if gated else 2)) + 1)
+
+
+def training_phase(dev):
+    """Phase 7b: gemma_2b trained at full width on the card (``TRAIN``):
+    one warm step, ``timed`` steps timed by the host clock around a
+    synchronise, then one step profiled (``profile_call``: device busy
+    ms and idle share).  Each step's loss and grad norm must be finite,
+    the parameters must change, and every backward GEMM must run on B1's
+    or B2's kernels: per step, the tile loops' launches (``mte_gemm``,
+    ``splitk_gemm``) equal ``backward_gemms``.  Prints each step's wall
+    ms, the step's bound (``train_bounds``), the launches per step per
+    counter, each compiled program's grouping decision, and the peak
+    memory beside the reckoning.  Returns (launch counts of the timed
+    steps, summary)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import optimizer as opt_lib
+    from repro_torch.training import trainer
+
+    cfg = get_config(TRAIN["arch"])
+    batch, seq, timed = TRAIN["batch"], TRAIN["seq"], TRAIN["timed"]
+    reset_planning()
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    opt_state = opt_lib.init_opt_state(params)
+    data = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                       global_batch=batch, seed=0),
+                            device=dev)
+    step_fn = trainer.make_train_step(cfg, opt_lib.AdamWConfig(
+        lr=TRAIN["lr"]))
+    def watched():
+        return {"gate": params["layers"][0]["ffn"]["gate"]["w"][:4],
+                "final_norm": params["final_norm"]["scale"]}
+
+    before = {k: v.clone() for k, v in watched().items()}
+    metrics_log = []
+
+    def step():
+        nonlocal params, opt_state
+        params, opt_state, m = step_fn(params, opt_state, data.batch())
+        return m
+
+    def record(m, wall_ms=None):
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        metrics_log.append({"loss": loss, "grad_norm": gnorm,
+                            "wall_ms": wall_ms})
+        log(f"  [train] step {len(metrics_log) - 1}: loss {loss:.4f}, grad "
+            f"norm {gnorm:.4f}"
+            + (f", wall {wall_ms:.1f} ms" if wall_ms is not None else ""))
+        require(math.isfinite(loss) and math.isfinite(gnorm),
+                f"step {len(metrics_log) - 1}: loss {loss}, grad norm "
+                f"{gnorm}")
+
+    t = time.perf_counter()
+    record(step(), 1e3 * (time.perf_counter() - t))       # warm
+    programs = log_programs("train")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step()
+        torch.cuda.synchronize()
+        record(m, 1e3 * (time.perf_counter() - t))
+    counts = build.launch_counts()
+    per_step = {k: v / timed for k, v in counts.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    bounds = train_bounds(cfg, batch, seq)
+    prof = {**profile_call(lambda: record(step()), 1), **bounds}
+    log_profile("train_step", prof)
+    changed = {k: max_err(v, before[k]) for k, v in watched().items()}
+    held = bounds["reckoning_gb"]
+    log(f"  [train] launches per step {per_step}; backward GEMMs per step "
+        f"{backward_gemms(cfg)}")
+    log(f"  [train] peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.3f} "
+        f"GB) beside the reckoning {held} ({sum(held.values()):.3f} GB, "
+        f"activations and layer transients apart); bound "
+        f"{bounds['bound_ms']:.1f} ms ({bounds['bound_by']}: "
+        f"{bounds['bf16_tflop']:.2f} bf16 TFLOP, {bounds['f32_tflop']:.2f} "
+        f"f32 TFLOP, {bounds['bytes_gb']:.1f} GB); parameters moved by "
+        f"{changed}")
+    require(all(v > 0 for v in changed.values()),
+            f"the parameters did not change: {changed}")
+    tile = per_step.get("mte_gemm", 0) + per_step.get("splitk_gemm", 0)
+    require(tile == backward_gemms(cfg),
+            f"backward GEMMs per step on B1/B2: {tile}, want "
+            f"{backward_gemms(cfg)}")
+    for kernel in ("mte_gemm_wgmma", "flash_attention_wgmma"):
+        require(per_step.get(kernel, 0) > 0, f"train: {kernel} not "
+                f"launched")
+    walls = [r["wall_ms"] for r in metrics_log[1:1 + timed]]
+    summary = {"steps": metrics_log, "step_wall_ms": walls,
+               "launches_per_step": per_step,
+               "backward_gemms_per_step": backward_gemms(cfg),
+               "programs": programs, "peak_bytes": peak,
+               "profile": prof, "bounds": bounds,
+               "param_change": changed}
+    del params, opt_state, before
+    free_card()
+    return counts, summary
+
+
 # (counter, source, the TPU kernel it replaces, the row of phase 2 that
 # stands for it, the configuration whose main path counts its launches)
 KERNELS = [
     ("mte_gemm_wgmma", "src/repro_torch/csrc/mte_gemm.cu",
      "src/repro/kernels/mte_gemm.py:114", "gate 512x16384x2048", "default"),
     ("mte_gemm", "src/repro_torch/csrc/mte_gemm.cu",
-     "src/repro/kernels/mte_gemm.py:114", "gate fp32 4096x256x128",
-     "reduced-long-prefill"),
+     "src/repro/kernels/mte_gemm.py:114",
+     "train gate recompute fp32 4096x16384x2048", "train"),
     ("splitk_gemm_cluster", "src/repro_torch/csrc/splitk_gemm_cluster.cu",
      "src/repro/kernels/splitk_gemm.py:60", "gate 4x16384x2048", "default"),
     ("splitk_gemm", "src/repro_torch/csrc/splitk_gemm.cu",
@@ -3614,6 +4086,26 @@ STARCODER2_ROWS = {
 }
 
 
+# The rows of the kernels phase 7's training step launches (its launches
+# over the timed steps): the backward's f32 GEMMs at every shape of a
+# layer on B1's tile loop, and the k/v dB on B2's (a split plan), the
+# forward's bf16 gate on B1's wgmma mainloop and its causal attention on
+# B5's.
+TRAIN_ROWS = {
+    "mte_gemm": ("train gate recompute fp32 4096x16384x2048",
+                 "train gate dA fp32 4096x2048x16384",
+                 "train gate dB fp32 2048x16384x4096",
+                 "train q/o dA fp32 4096x2048x2048",
+                 "train q/o dB fp32 2048x2048x4096",
+                 "train k/v dA fp32 4096x2048x256",
+                 "train down dA fp32 4096x16384x2048",
+                 "train down dB fp32 16384x2048x4096"),
+    "mte_gemm_wgmma": ("train gate 4096x16384x2048",),
+    "flash_attention_wgmma": ("train 1x4096 H=8/1 D=256",),
+    "splitk_gemm": ("train k/v dB fp32 2048x256x4096",),
+}
+
+
 # The same at musicgen_medium's shapes (launches from phase 6's
 # model-level run: forward, prefill and 64 decode steps): the prefill's up
 # with bias + gelu on B1, the decode step's on B2, the prefill's causal
@@ -3671,6 +4163,7 @@ def main() -> int:
     attention_phase(dev, rows)
     ring_decode_phase(dev, rows)
     rglru_phase(dev, rows)
+    train_gemm_phase(dev, rows)
     log("== 3. reduced gemma_2b (fp32): card against CPU, default and amx")
     counts, serving = reduced_phase(dev), {}
     log("== 3. reduced recurrentgemma_9b (fp32): card against CPU, default")
@@ -3703,6 +4196,11 @@ def main() -> int:
     log("== 6. the model-level path at full width: musicgen_medium (bf16) "
         "forward, prefill and decode over flat caches")
     counts["musicgen"], model_level = model_level_phase(dev)
+    log("== 7. training: reduced gemma_2b (fp32) card against CPU")
+    counts.update(training_card_phase(dev))
+    log(f"== 7. training gemma_2b at full width on the card: "
+        f"{TRAIN['batch']} x {TRAIN['seq']} tokens, remat full, bf16")
+    counts["train"], training = training_phase(dev)
 
     kernels = []
     for name, source, replaces, shape, path in KERNELS:
@@ -3731,9 +4229,22 @@ def main() -> int:
                         "shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
                         "bound_ms", "bound_by", "library_ms",
                         "sdpa_without_softcap_ms")}}
+        if name in TRAIN_ROWS:
+            kernels[-1]["at_train"] = {
+                "launches": counts["train"][name],
+                "launches_per_step": counts["train"][name] / TRAIN["timed"],
+                "rows": [{k: r.get(k) for k in (
+                    "shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms",
+                    "library_cold_ms", "transpose_copy_ms")}
+                    for r in mine if r["shape"] in TRAIN_ROWS[name]]}
+            require(len(kernels[-1]["at_train"]["rows"])
+                    == len(TRAIN_ROWS[name]), f"{name}: the training rows "
+                    f"{TRAIN_ROWS[name]} are not all among its rows")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"nvidia_smi": smi, "rows": rows, "serving": serving,
                    "speculative": speculative, "model_level": model_level,
+                   "training": training,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -17,16 +17,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.tree import leaves, tree_map
 
 __all__ = ["params_from_jax"]
-
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
 
 
 def params_from_jax(tree_of_numpy: Any, cfg, device=None):
@@ -41,25 +34,15 @@ def params_from_jax(tree_of_numpy: Any, cfg, device=None):
     groups = tree_of_numpy.get("groups")
     if groups is not None:
         period = len(groups)
-        n_groups = len(next(iter(_leaves(groups[0]))))
+        n_groups = len(leaves(groups[0])[0])
         for g in range(n_groups):
             for j in range(period):
-                layers.append(_map(groups[j], lambda a, g=g: to_t(a[g])))
-    layers += [_map(lp, to_t) for lp in tree_of_numpy.get("tail", [])]
+                layers.append(tree_map(lambda a, g=g: to_t(a[g]),
+                                       groups[j]))
+    layers += [tree_map(to_t, lp) for lp in tree_of_numpy.get("tail", [])]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.name!r} has {cfg.n_layers}")
-    return {"embedding": _map(tree_of_numpy["embedding"], to_t),
+    return {"embedding": tree_map(to_t, tree_of_numpy["embedding"]),
             "layers": layers,
-            "final_norm": _map(tree_of_numpy["final_norm"], to_t)}
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+            "final_norm": tree_map(to_t, tree_of_numpy["final_norm"])}

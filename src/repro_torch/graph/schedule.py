@@ -1,5 +1,5 @@
 """Program-level scheduling: compile a fused Graph against the plan cache
-(the port of ``repro/graph/schedule.py``, forward only).
+(the port of ``repro/graph/schedule.py``).
 
 Eager dispatch plans every GEMM in a vacuum; this module plans a *whole
 program*:
@@ -45,9 +45,10 @@ Compiled programs are memoized per ``(graph signature, backend)``
 (:func:`compile_graph`) and per caller key (:func:`compile_cached`, which
 skips graph construction on a hit); a :func:`~repro_torch.core.autotune.
 reset_cache` invalidates both.  Execution interprets the node list; every
-kernel node launches through :mod:`repro_torch.kernels.ops`.  Forward
-only: the backward of the member-wise grouped GEMM (JAX's custom VJP of
-``_group_member_gemm``) waits for ROADMAP A3/A11.
+kernel node launches through :mod:`repro_torch.kernels.ops`.  Programs
+are differentiable: GEMM nodes through ``ops``'s autograd, and the
+member-wise grouped GEMM through :class:`_GroupMemberGemm`, the port of
+JAX's custom VJP of ``_group_member_gemm``.
 """
 from __future__ import annotations
 
@@ -409,8 +410,67 @@ def _grouped_launch(x, wstack, widths, fmt, kernel_dt, geom, plan_rows):
 def _group_member_gemm(x, ws, biases, widths, fmt_name: str, epilogues,
                        geom, plan_rows):
     """Member-wise grouped GEMM → tuple of members with their epilogues
-    applied at accumulator precision (the forward of JAX's
-    ``_group_member_gemm``).
+    applied at accumulator precision (JAX's ``_group_member_gemm``):
+    :func:`_group_member_fwd`, through :class:`_GroupMemberGemm` when
+    autograd records and an operand requires grad."""
+    from repro_torch.kernels.autodiff import wants_grad
+    live = [bias for bias in biases if bias is not None]
+    if not wants_grad(x, *ws, *live):
+        return _group_member_fwd(x, ws, biases, widths, fmt_name, epilogues,
+                                 geom, plan_rows)
+    spec = (widths, fmt_name, epilogues, geom, plan_rows,
+            tuple(bias is not None for bias in biases))
+    return _GroupMemberGemm.apply(spec, x, *ws, *live)
+
+
+class _GroupMemberGemm(torch.autograd.Function):
+    """The member-wise grouped GEMM with the straight-through backward of
+    ``kernels/autodiff.py``, as JAX's ``_group_member_bwd``: each
+    member's accumulator recomputed at f32 (where its epilogue's
+    derivative reads it), the epilogue differentiated there, and the
+    operand grads formed by the unfused per-member GEMMs, f32 on the
+    kernels (B1, or B2 where a plan splits K); operand casts and
+    quantization pass as identity, as in the eager per-projection
+    backward.  Arguments: ``spec`` (widths, format, epilogues, geometry,
+    plan rows, which members carry a bias), x, the member weights, then
+    the biases present."""
+
+    @staticmethod
+    def forward(ctx, spec, x, *tensors):
+        widths, fmt_name, epilogues, geom, plan_rows, has_bias = spec
+        ws = tensors[:len(epilogues)]
+        live = iter(tensors[len(epilogues):])
+        biases = tuple(next(live) if h else None for h in has_bias)
+        ctx.save_for_backward(x, *tensors)
+        ctx.spec = spec
+        return _group_member_fwd(x, ws, biases, widths, fmt_name, epilogues,
+                                 geom, plan_rows)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        from repro_torch.kernels.autodiff import gemm_vjp
+        _, _, epilogues, _, _, has_bias = ctx.spec
+        x, *tensors = ctx.saved_tensors
+        ws = tensors[:len(epilogues)]
+        live = iter(tensors[len(epilogues):])
+        xf = x.float()
+        xt = xf.t().contiguous()
+        dx = torch.zeros_like(xf)
+        dws, dbs = [], []
+        for gi, w, h, epi in zip(gs, ws, has_bias, epilogues):
+            bias = next(live) if h else None
+            da, dw, _, db = gemm_vjp(xf, w.float(), epi, gi.float(),
+                                     torch.float32, bias=bias, a_t=xt)
+            dx = dx + da
+            dws.append(dw.to(w.dtype))
+            if h:
+                dbs.append(db.to(bias.dtype))
+        return (None, dx.to(x.dtype), *dws, *dbs)
+
+
+def _group_member_fwd(x, ws, biases, widths, fmt_name: str, epilogues,
+                      geom, plan_rows):
+    """The forward of :func:`_group_member_gemm`.
 
     Quantized formats: quantize x once and each member weight with its
     own scales (bit-identical to G eager quantized GEMMs: int

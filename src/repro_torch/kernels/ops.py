@@ -6,10 +6,15 @@ execution plan and launches the granted route: B1 (``mte``), B2
 (``splitk``), B3 (``grouped``) or, for ``policy="amx"``, the rigid
 baseline B8 (``rigid``: one fixed tile whatever the shape).
 ``format_policy`` sets the operand and accumulator widths; the operand
-cast or int8 quantize happens once, here, as in ``autodiff.mte_gemm_ad``
-and ``grouped_gemm_ad`` (forward only — the backward is ROADMAP A3).
-A CUDA tensor goes to its kernel or raises; a CPU tensor goes to the
-kernel's plain version.
+cast or int8 quantize happens once, here, as in JAX's
+``autodiff.mte_gemm_ad`` and ``grouped_gemm_ad``.  A CUDA tensor goes to
+its kernel or raises; a CPU tensor goes to the kernel's plain version.
+
+Differentiable: when autograd records and an input requires grad,
+:func:`mte_gemm`, :func:`grouped_gemm` and :func:`flash_attention` run
+their forward inside the :mod:`repro_torch.kernels.autodiff` Functions,
+whose backward GEMMs run on the kernels too; otherwise (every serving
+path) the same forward runs with no graph recorded.
 
 While a :func:`repro_torch.graph.trace.trace_gemms` capture is active,
 every GEMM issued here is recorded in it (``record_gemm`` /
@@ -40,6 +45,7 @@ from repro_torch.core.geometry import (GROUPED_BN, H100_SPEC,
                                        grouped_engine, grouped_live_tiles,
                                        grouped_split, splitk_cluster_split,
                                        splitk_engine, window_rows)
+from repro_torch.kernels import autodiff
 
 __all__ = ["mte_gemm", "grouped_gemm", "flash_attention",
            "flash_decode", "flash_decode_paged", "rglru_scan"]
@@ -116,6 +122,27 @@ def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
     dequantize and epilogue outside, as ``ops.py:72-84`` in JAX).
     ``plan_rows``: see the module docstring."""
     fmt = formats_lib.resolve_format(format_policy, a.dtype)
+
+    def forward():
+        return _mte_gemm(a, b, c, bias, epilogue, policy, out_dtype, fmt,
+                         geometry, plan_rows)
+
+    if autodiff.wants_grad(a, b, c, bias):
+        out = autodiff.MteGemm.apply(a, b, c, bias, forward, epilogue,
+                                     policy, out_dtype)
+    else:
+        out = forward()
+    sink = _trace_sink()
+    if sink is not None:
+        sink.record_gemm(a, b, out, c=c, bias=bias, epilogue=epilogue,
+                         fmt=fmt.name, policy=policy, out_dtype=out_dtype,
+                         backend="kernels")
+    return out
+
+
+def _mte_gemm(a, b, c, bias, epilogue, policy, out_dtype, fmt, geometry,
+              plan_rows):
+    """The forward of :func:`mte_gemm`."""
     rows, k = a.shape
     m = rows if plan_rows is None else plan_rows
     n = b.shape[1]
@@ -141,11 +168,6 @@ def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
             return autotune.execute_plan(plan, ac[lo:hi], bc, cr, br)
 
         out = _by_rows(run, rows, _chunk_rows(plan, ac, rows, n, k), 0)
-    sink = _trace_sink()
-    if sink is not None:
-        sink.record_gemm(a, b, out, c=c, bias=bias, epilogue=epilogue,
-                         fmt=fmt.name, policy=policy, out_dtype=out_dtype,
-                         backend="kernels")
     return out
 
 
@@ -161,6 +183,26 @@ def grouped_gemm(x, w, *, epilogue: Epilogue = Epilogue(),
     The quantize, cast and dequantize follow ``autodiff.py:165-191`` of
     the JAX package.  ``plan_rows``: see the module docstring."""
     fmt = formats_lib.resolve_format(format_policy, x.dtype)
+
+    def forward():
+        return _grouped_gemm(x, w, epilogue, out_dtype, fmt, geometry,
+                             widths, plan_rows)
+
+    if autodiff.wants_grad(x, w):
+        out = autodiff.GroupedGemm.apply(x, w, forward, epilogue, out_dtype,
+                                         widths)
+    else:
+        out = forward()
+    sink = _trace_sink()
+    if sink is not None:
+        sink.record_grouped(x, w, out, epilogue=epilogue, fmt=fmt.name,
+                            out_dtype=out_dtype, backend="kernels")
+    return out
+
+
+def _grouped_gemm(x, w, epilogue, out_dtype, fmt, geometry, widths,
+                  plan_rows):
+    """The forward of :func:`grouped_gemm`."""
     g, rows, k = x.shape
     cap = rows if plan_rows is None else plan_rows
     n = w.shape[2]
@@ -179,10 +221,6 @@ def grouped_gemm(x, w, *, epilogue: Epilogue = Epilogue(),
     if fmt.quantized:
         out = formats_lib.dequantize(out, sx, sw)
         out = epilogue.apply(out.float()).to(out_dtype)
-    sink = _trace_sink()
-    if sink is not None:
-        sink.record_grouped(x, w, out, epilogue=epilogue, fmt=fmt.name,
-                            out_dtype=out_dtype, backend="kernels")
     return out
 
 
@@ -190,7 +228,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None):
-    """Blocked attention (B5)."""
+    """Blocked attention (B5); differentiable (its backward recomputes
+    through the plain attention, :class:`~repro_torch.kernels.autodiff.
+    FlashAttention`)."""
+    if autodiff.wants_grad(q, k, v):
+        return autodiff.FlashAttention.apply(q, k, v, causal, window,
+                                             softcap, scale)
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     return flash_attention_kernel(q, k, v, causal=causal, window=window,
                                   softcap=softcap, scale=scale)

@@ -20,7 +20,9 @@ precomputed frame embeddings in ``batch["embeddings"]`` in place of
 tokens, :func:`_inputs_to_x`).
 
 Entry points: :func:`init_params`; the model level — :func:`forward`
-(the training forward), :func:`prefill` (which returns a contiguous
+(the training forward; differentiable, with each layer rematerialised
+under ``cfg.remat="full"``), :func:`loss_fn` (next-token cross
+entropy), :func:`prefill` (which returns a contiguous
 decode cache, :func:`init_cache`'s layout) and :func:`decode` over it;
 serving — :func:`init_paged_cache`, :func:`prefill_chunk`,
 :func:`decode` through a page table, :func:`sample_token`,
@@ -35,6 +37,7 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.formats import to_torch_dtype
@@ -43,8 +46,9 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import (check_backend, compute_dtype, embed,
                                        init_embedding, init_mlp, init_norm,
                                        mlp, norm, unembed)
+from repro_torch.tree import leaves
 
-__all__ = ["init_params", "forward", "prefill", "init_cache",
+__all__ = ["init_params", "forward", "loss_fn", "prefill", "init_cache",
            "init_paged_cache", "prefill_chunk", "decode", "sample_token",
            "decode_and_sample", "verify_chunk", "draft_from",
            "param_count"]
@@ -87,15 +91,7 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Dict[str, Any]:
 
 
 def param_count(params) -> int:
-    def walk(t):
-        if isinstance(t, torch.Tensor):
-            return t.numel()
-        if isinstance(t, dict):
-            return sum(walk(v) for v in t.values())
-        if isinstance(t, (list, tuple)):
-            return sum(walk(v) for v in t)
-        return 0
-    return walk(params)
+    return sum(p.numel() for p in leaves(params))
 
 
 def init_cache(cfg, batch: int, seq_len: int, *, device=None):
@@ -164,7 +160,8 @@ def _sequence_mixer(h, p, cfg, mixer, positions, mode, cache_len):
     decode cache of ``cache_len`` slots)): attention through B5 with the
     window mask on local layers, the RG-LRU block from a zero state."""
     if mixer == "rglru":
-        out, state = rglru_mod.rglru_forward(h, p, cfg)
+        out, state = rglru_mod.rglru_forward(h, p, cfg,
+                                             train=mode == "train")
         return out, state if mode == "prefill" else None
     window = cfg.window if mixer == "local" else None
     if mode == "train":
@@ -236,19 +233,46 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
     return x + out, cache
 
 
+def _remat(cfg):
+    """Whether a differentiated ``"train"`` layer is rematerialised
+    (``model.py:299-305`` of the JAX package): ``cfg.remat="full"`` keeps
+    only each layer's input and recomputes the layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant); ``"none"`` keeps every
+    activation.  ``"dots"`` (keep the GEMM outputs) needs a policy that
+    sees the kernels' launches, which run outside PyTorch's operators:
+    ROADMAP A11."""
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (keep the GEMM outputs, recompute the rest) is "
+            "queued: ROADMAP A11")
+    if cfg.remat not in ("full", "none"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return cfg.remat == "full"
+
+
 def _run_stack(x, params, cfg, positions, mode, cache, **kw):
     """Every layer in turn; a given cache's layer entries are replaced in
     place, and with ``cache`` None (``"train"``, ``"prefill"``) a new one
-    collects what the layers return."""
+    collects what the layers return.  A ``"train"`` stack under autograd
+    rematerialises each layer as ``cfg.remat`` says (:func:`_remat`): the
+    recompute runs the same plans and draws no random numbers, so it gives
+    the forward's bits."""
     check_backend(cfg)
     _check_kinds(cfg)
     out = cache if cache is not None else {
         "layers": [None] * len(params["layers"])}
+    remat = (mode == "train" and torch.is_grad_enabled()
+             and _remat(cfg))
     for i, (lp, (mixer, _)) in enumerate(zip(params["layers"],
                                              cfg.layer_kinds)):
-        x, out["layers"][i] = _apply_layer(
-            x, lp, cfg, mixer, positions, mode,
-            None if cache is None else cache["layers"][i], **kw)
+        layer_cache = None if cache is None else cache["layers"][i]
+        if remat:
+            x, out["layers"][i] = torch.utils.checkpoint.checkpoint(
+                _apply_layer, x, lp, cfg, mixer, positions, mode,
+                layer_cache, use_reentrant=False, **kw)
+        else:
+            x, out["layers"][i] = _apply_layer(
+                x, lp, cfg, mixer, positions, mode, layer_cache, **kw)
     return x, out
 
 
@@ -281,6 +305,54 @@ def forward(params, batch, cfg):
     x = norm(x, params["final_norm"], cfg.norm_type)
     return (unembed(x, params["embedding"], cfg),
             torch.zeros((), device=x.device))
+
+
+class _TokenNll(torch.autograd.Function):
+    """Per-position ``logsumexp(logits) − logits[target]`` over f32 logits
+    (B, S, V).  JAX picks the target logit by a mask-and-sum over a
+    (B, S, V) one-hot (``model.py:667-674`` there); this gathers it, and
+    the backward forms softmax − one-hot in one (B, S, V) buffer, so the
+    loss holds no tensor of the logits' size beyond the logits and their
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        lse = torch.logsumexp(logits, dim=-1)
+        ctx.save_for_backward(logits, lse, targets)
+        return lse - logits.gather(-1, targets[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, targets = ctx.saved_tensors
+        grad = logits.sub(lse[..., None]).exp_()
+        grad.scatter_add_(-1, targets[..., None],
+                          torch.full_like(lse[..., None], -1.0))
+        return grad.mul_(g[..., None]), None
+
+
+def loss_fn(params, batch, cfg):
+    """Next-token cross entropy (``model.py:650-678`` of the JAX
+    package): → (loss, metrics ``{"loss", "ce", "aux", "tokens"}``, each
+    a 0-d f32 tensor).  Position i predicts token i + 1, the last
+    position of each row is masked out; under ``cfg.frontend_stub`` the
+    targets are ``batch["targets"]`` (B, S), every position counted.  The
+    port has no MoE layer, so ``aux`` is 0."""
+    logits, aux = forward(params, batch, cfg)
+    if cfg.frontend_stub:
+        targets = torch.as_tensor(batch["targets"],
+                                  device=logits.device).long()
+        valid = torch.ones(targets.shape, device=logits.device)
+    else:
+        tokens = batch["tokens"].long()
+        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                            dim=1)
+        valid = torch.ones(tokens.shape, device=logits.device)
+        valid[:, -1] = 0.0
+    nll = _TokenNll.apply(logits.float(), targets)
+    denom = torch.clamp(valid.sum(), min=1.0)
+    ce = (nll * valid).sum() / denom
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": denom}
 
 
 def prefill(params, batch, cfg, cache_len: Optional[int] = None):

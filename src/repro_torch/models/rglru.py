@@ -12,7 +12,8 @@ Recurrent Unit; their product goes through an output projection::
 
 Every projection runs through the kernel GEMMs (:func:`dense`).  A
 prefill chunk evaluates the recurrence through B7 (``ops.rglru_scan``,
-from the carried state), a decode step or a speculative window as one
+from the carried state), the training forward as a differentiable plain
+scan (:func:`_plain_scan`), a decode step or a speculative window as one
 element-wise update per position (plain PyTorch: it runs no kernel in
 JAX either).  The serving cache of a layer
 is ``{"h": (B, W) f32, "conv": (B, conv_width, W)}``: the state and the
@@ -81,8 +82,28 @@ def _scan_inputs(log_a, gated):
             * gated)
 
 
-def rglru_forward(x, p, cfg, *, cache: Optional[dict] = None):
+def _plain_scan(a, b):
+    """h_t = a_t·h_{t−1} + b_t along axis 1 from h_{−1} = 0, as log₂ S
+    doubling steps of plain tensor operations that autograd
+    differentiates: the counterpart of the training path's
+    ``jax.lax.associative_scan`` (``rglru.py:98-108`` of the JAX
+    package), which reaches no Pallas kernel either."""
+    s = a.shape[1]
+    shift = 1
+    while shift < s:
+        b = torch.cat([b[:, :shift], a[:, shift:] * b[:, :-shift]
+                       + b[:, shift:]], dim=1)
+        a = torch.cat([a[:, :shift], a[:, shift:] * a[:, :-shift]], dim=1)
+        shift *= 2
+    return b
+
+
+def rglru_forward(x, p, cfg, *, cache: Optional[dict] = None,
+                  train: bool = False):
     """One prefill chunk x (B, S, D) → (out (B, S, D), new cache).
+    ``train`` (the training forward, from a zero state) runs the
+    recurrence as :func:`_plain_scan`, differentiable, where serving runs
+    B7, as JAX runs its Pallas scan only when a cache is returned.
 
     ``cache`` (the previous chunk's ``{"h", "conv"}``) resumes the
     recurrence mid-sequence: the conv sees the previous chunk's raw tail
@@ -102,8 +123,14 @@ def rglru_forward(x, p, cfg, *, cache: Optional[dict] = None):
     u = _causal_conv(conv_in.float(), p["conv_w"].float(),
                      p["conv_b"].float())[:, hist:].to(u_raw.dtype)
     log_a, gated = _gates(u, p, cfg)
-    h = ops.rglru_scan(*_scan_inputs(log_a, gated),
-                       None if cache is None else cache["h"])
+    if train:
+        if cache is not None:
+            raise ValueError("the training forward starts from a zero "
+                             "state")
+        h = _plain_scan(*_scan_inputs(log_a, gated))
+    else:
+        h = ops.rglru_scan(*_scan_inputs(log_a, gated),
+                           None if cache is None else cache["h"])
     out = dense(gate * h.to(x.dtype), p["out_proj"], cfg)
     width = cfg.rglru.conv_width
     tail = conv_in[:, -width:]

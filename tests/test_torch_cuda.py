@@ -1630,3 +1630,86 @@ def test_spec_graph_capture_failure_raises(card, monkeypatch):
         eng.step()
     assert not any(family in ("verify", "catchup", "replay")
                    for family, _ in spec.graphs)
+
+
+# -- training: autograd through the kernels ----------------------------------
+
+ttrainer = LazyModule("repro_torch.training.trainer")
+topt = LazyModule("repro_torch.optim.optimizer")
+ttree = LazyModule("repro_torch.tree")
+
+
+def test_mte_gemm_backward_runs_on_the_kernels(card):
+    """A bf16-format projection of f32 parameters with bias + gelu: the
+    forward on B1's wgmma mainloop, the backward's recompute, dA and dB
+    as three f32 tile-loop launches; the gradients equal the CPU's
+    (the plain versions): the f32 ones (w, bias) within 1e-4 of the
+    largest entry, a's within 1e-2, as it is rounded to a's bf16 (one
+    bf16 step where the two f32 sums straddle a rounding boundary)."""
+    gen = torch.Generator().manual_seed(0)
+    m, k, n = 2048, 1024, 1024       # every grid fills the card: no split
+    a = (torch.randn(m, k, generator=gen) / 32).to(torch.bfloat16)
+    w = torch.randn(k, n, generator=gen) / 32
+    bias = torch.randn(n, generator=gen)
+    ct = torch.randn(m, n, generator=gen)
+    epi = tepilogue.Epilogue(has_bias=True, activation="gelu")
+    grads = {}
+    for dev in ("cpu", card):
+        leaves = [x.to(dev).requires_grad_() for x in (a, w, bias)]
+        before = build.launch_counts()
+        out = tops.mte_gemm(*leaves[:2], bias=leaves[2], epilogue=epi,
+                            format_policy="bf16")
+        g = torch.autograd.grad((out.float() * ct.to(dev)).sum(), leaves)
+        grads[str(dev)] = [x.float().cpu() for x in g]
+        after = build.launch_counts()
+    assert after["mte_gemm_wgmma"] - before["mte_gemm_wgmma"] == 1
+    assert after["mte_gemm"] - before["mte_gemm"] == 3
+    for got, want, tol in zip(grads["cuda"], grads["cpu"],
+                              (1e-2, 1e-4, 1e-4)):
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err < tol
+
+
+def test_flash_attention_backward_on_the_card(card):
+    """B5's forward on the card, its backward through the plain
+    attention: the gradients equal the CPU's within bf16 tolerance."""
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(1, 8, 128, 256, generator=gen).to(torch.bfloat16),
+               torch.randn(1, 1, 128, 256, generator=gen).to(torch.bfloat16),
+               torch.randn(1, 1, 128, 256, generator=gen).to(torch.bfloat16))
+    grads = {}
+    for dev in ("cpu", card):
+        leaves = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        out = tops.flash_attention(*leaves, causal=True)
+        g = torch.autograd.grad(out.float().square().sum(), leaves)
+        grads[str(dev)] = [x.float().cpu() for x in g]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err < 2e-2
+
+
+def test_train_steps_on_the_card_equal_the_cpu(card):
+    """Two train steps of a small fp32 gemma_2b on the card and on the
+    CPU: losses within 1e-5 relative, parameters within 1e-5."""
+    cfg = dataclasses.replace(tconfigs.get_config("gemma_2b").reduced(),
+                              n_layers=2, d_model=64, d_ff=128, vocab=128,
+                              n_heads=2, n_kv_heads=1, head_dim=32)
+    opt = topt.AdamWConfig(lr=1e-3)
+    step = ttrainer.make_train_step(cfg, opt)
+    tokens = torch.randint(0, cfg.vocab, (2, 4, 32),
+                           generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev in ("cpu", card):
+        params = tmodel.init_params(cfg, seed=0, device="cpu")
+        params = ttree.tree_map(lambda p: p.to(dev), params)
+        state = topt.init_opt_state(params)
+        losses = []
+        for i in range(2):
+            params, state, m = step(params, state,
+                                    {"tokens": tokens[i].to(dev)})
+            losses.append(float(m["loss"]))
+        out[str(dev)] = (losses, [p.cpu() for p in ttree.leaves(params)])
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) <= 1e-5

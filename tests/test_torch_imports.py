@@ -38,7 +38,11 @@ def test_port_imports_without_a_card():
     code = ("import sys, repro_torch, repro_torch.kernels.ops, "
             "repro_torch.serving.engine, repro_torch.convert, "
             "repro_torch.models.rglru, repro_torch.kernels.rglru_scan, "
-            "repro_torch.configs.recurrentgemma_9b; "
+            "repro_torch.configs.recurrentgemma_9b, "
+            "repro_torch.kernels.autodiff, repro_torch.training.trainer, "
+            "repro_torch.optim.optimizer, repro_torch.data.pipeline, "
+            "repro_torch.checkpoint.manager, "
+            "repro_torch.distributed.fault, repro_torch.launch.train; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules")
     env = {"PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
            "PATH": "/usr/bin:/bin"}

@@ -254,12 +254,12 @@ def _cfgs(**kw):
 
 
 def _block_params(jcfg, seed=0):
-    from repro_torch.convert import _map
+    from repro_torch.tree import tree_map
     jp = jrglru.init_rglru(jax.random.PRNGKey(seed), jcfg)
     # lam away from its constant init, so the gates see distinct values
     jp["lam"] = jnp.linspace(-1.0, 2.0, jp["lam"].shape[0])
-    tp = _map(jax.tree.map(np.asarray, jax.device_get(jp)),
-              lambda a: t(np.asarray(a, np.float32)))
+    tp = tree_map(lambda a: t(np.asarray(a, np.float32)),
+                  jax.tree.map(np.asarray, jax.device_get(jp)))
     return jp, tp
 
 

@@ -38,9 +38,9 @@ def _cfgs(**kw):
 
 
 def _attn_params(jcfg):
-    from repro_torch.convert import _map
+    from repro_torch.tree import tree_map
     jp = jattn.init_attention(jax.random.PRNGKey(4), jcfg)
-    return jp, _map(jax.tree.map(np.asarray, jax.device_get(jp)), t)
+    return jp, tree_map(t, jax.tree.map(np.asarray, jax.device_get(jp)))
 
 
 def test_decode_attention_matches_jax_across_a_ring_wrap():
