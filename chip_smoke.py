@@ -9,10 +9,11 @@ Phases (any failure raises and the script exits non-zero):
    ``src/repro_torch/csrc`` with nvcc (into ``build/``; the compiler log
    goes to ``build_log.txt`` in the output directory).
 2. Kernels against their plain PyTorch versions on the card: B1
-   ``mte_gemm`` on both of its engines (the TMA + wgmma mainloop, counter
-   ``mte_gemm_wgmma``, and the tile loop, counter ``mte_gemm``), B2 on
-   both of its engines (the cluster split-K kernel,
-   ``splitk_gemm_cluster``, and the tile loop, ``splitk_gemm``), B3 on
+   ``mte_gemm`` on its three engines (the TMA + wgmma mainloop, counter
+   ``mte_gemm_wgmma``, the SIMT f32 mainloop, ``mte_gemm_simt``, and the
+   tile loop, counter ``mte_gemm``), B2 on its three engines (the cluster
+   split-K kernel, ``splitk_gemm_cluster``, the SIMT f32 mainloop,
+   ``splitk_gemm_simt``, and the tile loop, ``splitk_gemm``), B3 on
    both of its engines (the cluster split-K kernel, ``grouped_gemm_splitk``,
    and the tile loop, ``grouped_gemm``), both halves of B8 (stage 1 on its
    two engines, ``rigid_gemm_wgmma`` and ``rigid_gemm``, and
@@ -47,10 +48,14 @@ Phases (any failure raises and the script exits non-zero):
    the K/V bytes of the visible slots, of the 16-slot tiles the kernel
    loads and of all the slots); the training step's GEMMs at gemma_2b's
    full width over 4096 tokens (``train_gemm_phase``): the forward's bf16
-   gate on B1's wgmma mainloop, and the backward's f32 gate products on
-   B1's tile loop -- the accumulator's recompute, dA (B read transposed
-   in place) and dB (A^T copied first, the copy timed apart) -- warm and
-   cold against an f32 ``torch.matmul``;
+   gate on B1's wgmma mainloop, and every backward f32 GEMM shape of a
+   layer on the SIMT f32 engine (``mte_gemm_simt``, and
+   ``splitk_gemm_simt`` for the k/v dB's split) -- the accumulator's
+   recompute, dA (B read transposed in place) and dB (A^T copied first,
+   the copy timed apart) -- bit-equal to the tile loop at the same
+   operands, warm and cold against an f32 ``torch.matmul`` and the tile
+   loop's time; the SIMT engine at both its tiles, bit-equal to the tile
+   loop, in the small ragged fp32 shapes;
    the old engines' own rows at the fp32
    shapes phase 3 gives them, or at the prefill gate+up group) and at
    small ragged shapes in every mode each kernel takes.  Each prints its
@@ -71,7 +76,8 @@ Phases (any failure raises and the script exits non-zero):
    CPU (plain versions), in the default configuration (graph programs +
    the grouped decode q/k/v) and under ``gemm_policy="amx"`` (B8 stage 1
    on its tile loop), one 4096-token chunk through it on the eager path
-   (B1's tile loop: fp32 GEMMs whose grid fills the card), and
+   (B1's SIMT f32 engine: fp32 GEMMs past 16 rows; no tile-loop launch),
+   and
    recurrentgemma_9b.reduced() in the default configuration (prompts
    longer than its 16-slot ring, chunks of 8; and with an RG-LRU width of
    126, which B7 runs on its direct engine), and gemma2_27b.reduced()
@@ -204,9 +210,9 @@ Phases (any failure raises and the script exits non-zero):
    format, lr 3e-4: one warm step, 3 timed steps and one profiled step.
    Every loss and grad norm must be finite and the parameters must move;
    per step, the forward runs B1's wgmma mainloop (twice under remat)
-   and B5's wgmma engine, and every backward GEMM a tile-loop launch of
-   B1 (or B2 where a plan splits K): ``backward_gemms`` of them, none on a
-   library call.  It prints each step's wall ms, the profiled step's
+   and B5's wgmma engine, and every backward GEMM a launch of the SIMT f32
+   engine of B1 (or B2 where a plan splits K): ``backward_gemms`` of
+   them, none on the tile loops or a library call.  It prints each step's wall ms, the profiled step's
    device ms and idle share beside its bound (``train_bounds``: bf16
    operations at 989 TFLOP/s, f32 at 67, bytes at 3.35 TB/s), the
    launches per step per counter, each compiled program's grouping
@@ -381,8 +387,8 @@ def gemm_phase(dev, rows):
     from repro_torch.core.autotune import PlanCache, GemmSignature, \
         plan_engine
     from repro_torch.core.epilogue import Epilogue
-    from repro_torch.core.geometry import (BlockGeometry, SEW, gemm_engine,
-                                           splitk_engine)
+    from repro_torch.core.geometry import (SIMT_TILES, BlockGeometry, SEW,
+                                           gemm_engine, splitk_engine)
     from repro_torch.kernels.mte_gemm import (bf16acc_block,
                                               mte_gemm_kernel,
                                               mte_gemm_torch)
@@ -412,6 +418,12 @@ def gemm_phase(dev, rows):
              ("int8", torch.int8, None, torch.int32, 0.0)]
     epi_full = Epilogue(alpha=0.7, beta=0.5, has_bias=True, softcap=20.0,
                         activation="gelu")
+    def engine_of(dt, tile, m, n, k, acc):
+        try:
+            return gemm_engine(dt, *tile, n, k, m=m, bf16acc=acc is not None)
+        except ValueError:
+            return None
+
     for label, dt, acc, out_dt, tol in modes:
         for m, n, k in [(100, 70, 130), (7, 300, 1000), (33, 257, 65),
                         (520, 2056, 1032), (64, 64, 64)]:
@@ -420,10 +432,13 @@ def gemm_phase(dev, rows):
             geom = BlockGeometry(bm, bn, 64, 1, 1, False, SEW.E32, SEW.E32,
                                  "mte")
             tiles = [(bm, bn)]
-            if gemm_engine(dt, bm, bn, n, k, bf16acc=acc is not None) \
-                    == "wgmma":
+            if engine_of(dt, (bm, bn), m, n, k, acc) == "wgmma":
                 tiles += [(128, 128), (64, 128)] if acc is not None \
                     else [(128, 128), (128, 256)]
+            # f32 past 16 rows with K and N multiples of 4: the SIMT
+            # engine at both its tiles, bit-equal to the tile loop.
+            tiles += [t for t in SIMT_TILES
+                      if engine_of(dt, t, m, n, k, acc) == "simt"]
             epi = Epilogue() if dt == torch.int8 else epi_full
             c = torch.randn(m, n, device=dev)
             bias = torch.randn(n, device=dev)
@@ -431,19 +446,25 @@ def gemm_phase(dev, rows):
             want = mte_gemm_torch(a, b, c_, bias_, geom=geom, epilogue=epi,
                                   out_dtype=out_dt, acc_dtype=acc)
             bt = b.t().contiguous()
+            loop_out = {}
             for tile in tiles:
                 g = dataclasses.replace(geom, bm=tile[0], bn=tile[1])
-                eng = gemm_engine(dt, *tile, n, k, bf16acc=acc is not None)
-                got = mte_gemm_kernel(a, b, c_, bias_, geom=g, epilogue=epi,
-                                      out_dtype=out_dt, acc_dtype=acc)
-                check(f"mte_gemm[{eng} {tile[0]}x{tile[1]}] {label} "
-                      f"{m}x{n}x{k}", got, want, tol)
-                tgeom = dataclasses.replace(g, transposed_b=True)
-                got = mte_gemm_kernel(a, bt, c_, bias_, geom=tgeom,
-                                      epilogue=epi, out_dtype=out_dt,
-                                      acc_dtype=acc)
-                check(f"mte_gemm[{eng} {tile[0]}x{tile[1]}] {label} "
-                      f"transposed-B {m}x{n}x{k}", got, want, tol)
+                eng = engine_of(dt, tile, m, n, k, acc)
+                for tb, bb in ((False, b), (True, bt)):
+                    got = mte_gemm_kernel(
+                        a, bb, c_, bias_,
+                        geom=dataclasses.replace(g, transposed_b=tb),
+                        epilogue=epi, out_dtype=out_dt, acc_dtype=acc)
+                    check(f"mte_gemm[{eng} {tile[0]}x{tile[1]}] {label} "
+                          f"{'transposed-B ' if tb else ''}{m}x{n}x{k}",
+                          got, want, tol)
+                    if eng == "tile":
+                        loop_out[tb] = got
+                    elif eng == "simt":
+                        require(torch.equal(got, loop_out[tb]),
+                                f"mte_gemm[simt] {m}x{n}x{k}: not "
+                                f"bit-equal to the tile loop")
+                        log("    bit-equal to the tile loop")
             if (m, n, k) in ((520, 2056, 1032), (64, 64, 64)):
                 continue         # split-K: the first three shapes
             for s in (3, 4):
@@ -518,13 +539,14 @@ def gemm_phase(dev, rows):
             plain = lambda: splitk_cluster_torch(  # noqa: E731
                 *args, n_split=slices, depth=depth, rbk=rbk, **kw)
         elif plan.route == "splitk":
-            kern = "splitk_gemm"
+            kern = "splitk_gemm_simt" if engine == "simt" else "splitk_gemm"
             run = lambda: mte_gemm_splitk_kernel(  # noqa: E731
                 *args, geom=geom, n_split=plan.n_split, **kw)
             plain = lambda: mte_gemm_splitk_torch(  # noqa: E731
                 *args, geom=geom, n_split=plan.n_split, **kw)
         else:
-            kern = "mte_gemm_wgmma" if engine == "wgmma" else "mte_gemm"
+            kern = {"wgmma": "mte_gemm_wgmma",
+                    "simt": "mte_gemm_simt"}.get(engine, "mte_gemm")
             run = lambda: mte_gemm_kernel(  # noqa: E731
                 *args, geom=geom, **kw)
             plain = lambda: mte_gemm_torch(  # noqa: E731
@@ -652,11 +674,14 @@ def gemm_phase(dev, rows):
             main_path(label, m, n, k, act, bias=True)
     # The training forward's gate over 4096 tokens (phase 7, bf16 format).
     main_path("train gate", 4096, 16384, 2048, "gelu")
-    # The tile loops' rows, at the shapes phase 3's reduced fp32 gemma_2b
-    # (d_model 128, d_ff 256) gives them: B1's gate in the 4096-token
-    # chunk, B2's gate in the 2-slot decode.
+    # The rows of the f32 engines at the shapes phase 3 gives them: the
+    # reduced fp32 gemma_2b's (d_model 128, d_ff 256) gate in its
+    # 4096-token chunk (B1's SIMT engine) and in its 2-slot decode (B2's
+    # tile loop), and B1's tile loop at reduced qwen15_4b's o projection
+    # (d_model 128) over a 16-token chunk under bf16acc.
     main_path("gate fp32", 4096, 256, 128, "gelu", dt=torch.float32,
               tol=1e-4, fmt="fp32")
+    main_path("qr o", 16, 128, 128, "none", fmt="bf16acc", tol=3e-2)
     main_path("gate fp32", 2, 256, 128, "gelu", dt=torch.float32,
               tol=1e-4, fmt="fp32")
 
@@ -670,18 +695,21 @@ def train_gemm_phase(dev, rows):
     @ B^T`` (B read in place through B1's transposed-B geometry) and ``dB
     = A^T @ dacc`` (A^T copied row-major first; the gate's copy timed
     apart): q/o, k/v (its dB 2048 x 256 x 4096 splits K onto B2), gate/up
-    and down.  Each against its plain version (elementwise within 1e-4 x
-    (1 + |ref|) and in relative Frobenius error within 1e-5: the f32
-    summation order is all that may differ), warm and with the L2 cold,
-    beside its bound (f32 operations at 67 TFLOP/s) and one f32
-    ``torch.matmul`` of the same product as the yardstick; and the
-    training forward's bf16 gate (4096 x 16384 x 2048 + gelu) on the
-    wgmma mainloop."""
+    and down.  Every one must plan onto the SIMT f32 engine.  Each against
+    its plain version (elementwise within 1e-4 x (1 + |ref|) and in
+    relative Frobenius error within 1e-5: the f32 summation order is all
+    that may differ) and against the tile loop at the same operands and
+    split, pinned at 64 x 64 (bit for bit: each output is the same FMA
+    chain), warm and with the L2 cold, beside its bound (f32 operations
+    at 67 TFLOP/s), the tile loop's time and one f32 ``torch.matmul`` of
+    the same product as the yardstick; and the training forward's bf16
+    gate (4096 x 16384 x 2048 + gelu) on the wgmma mainloop."""
     import torch
     from repro_torch.core.autotune import get_plan, plan_engine
     from repro_torch.kernels.autodiff import _transposed, raw_gemm
-    from repro_torch.kernels.mte_gemm import mte_gemm_torch
-    from repro_torch.kernels.splitk_gemm import mte_gemm_splitk_torch
+    from repro_torch.kernels.mte_gemm import mte_gemm_kernel, mte_gemm_torch
+    from repro_torch.kernels.splitk_gemm import (mte_gemm_splitk_kernel,
+                                                 mte_gemm_splitk_torch)
 
     gen = torch.Generator(device=dev).manual_seed(3)
     tokens = 4096
@@ -691,23 +719,36 @@ def train_gemm_phase(dev, rows):
         n = y.shape[0] if transposed else y.shape[1]
         plan = get_plan(m, n, k, torch.float32, torch.float32)
         geom = plan.geometry
+        loop = dataclasses.replace(geom, bm=64, bn=64)
         if plan.route == "mte":
             geom = dataclasses.replace(geom, transposed_b=transposed)
+            loop = dataclasses.replace(loop, transposed_b=transposed)
             plain = lambda: mte_gemm_torch(x, y, geom=geom)  # noqa: E731
+            tile_loop = lambda: mte_gemm_kernel(  # noqa: E731
+                x, y, geom=loop)
         else:
             yp = y.t().contiguous() if transposed else y
             plain = lambda: mte_gemm_splitk_torch(  # noqa: E731
                 x, yp, geom=geom, n_split=plan.n_split)
+            tile_loop = lambda: mte_gemm_splitk_kernel(  # noqa: E731
+                x, yp, geom=loop, n_split=plan.n_split)
         engine = plan_engine(plan.signature, geom)
         run = lambda: raw_gemm(x, y, transposed_b=transposed)  # noqa: E731
         shape = f"train {label} fp32 {m}x{n}x{k}"
         kern = {"mte": "mte_gemm", "splitk": "splitk_gemm"}[plan.route]
+        kern += "_simt" if engine == "simt" else ""
         got, want = run(), plain()
         err = check(f"{kern} main-path {shape} [{plan.describe()}, engine "
                     f"{engine}]", got, want, 1e-4)
+        require(engine == "simt", f"{shape} plans onto {engine}, not the "
+                f"SIMT f32 engine")
         rel = _frobenius(got, want)
         log(f"    relative Frobenius error {rel:.3e} (tol 1e-5)")
         require(rel <= 1e-5, f"{kern} {shape}: relative error {rel}")
+        require(torch.equal(got, tile_loop()),
+                f"{kern} {shape}: not bit-equal to the tile loop")
+        log(f"    bit-equal to the tile loop (64x64"
+            f"{f', {plan.n_split} slices' if plan.n_split > 1 else ''})")
         del got, want
         flops = 2.0 * m * n * k
         nbytes = 4.0 * (m * k + k * n + m * n)
@@ -720,7 +761,9 @@ def train_gemm_phase(dev, rows):
              "bound_by": bound_by(flops, nbytes, PEAK["fp32"]),
              "library_ms": time_ms(lib, iters=5),
              "library_cold_ms": time_ms_cold(lib, 5),
-             "library": "torch.matmul (f32)"}
+             "library": "torch.matmul (f32)",
+             "tile_loop_ms": time_ms(tile_loop, iters=3, warmup=1),
+             "bit_equal_to_tile_loop": True}
         r["tflops"] = flops / r["ms"] / 1e9
         if copy_ms is not None:
             r["transpose_copy_ms"] = copy_ms
@@ -730,7 +773,8 @@ def train_gemm_phase(dev, rows):
             f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
             f"torch.matmul f32 {r['library_ms']:.4f} ms "
             f"({r['ms'] / r['library_ms']:.2f}x), cold "
-            f"{r['library_cold_ms']:.4f} ms"
+            f"{r['library_cold_ms']:.4f} ms; the tile loop "
+            f"{r['tile_loop_ms']:.4f} ms"
             + (f"; the A^T copy {copy_ms:.4f} ms" if copy_ms is not None
                else "; B^T read in place (no copy)" if transposed
                and plan.route == "mte" else ""))
@@ -955,7 +999,7 @@ def rigid_phase(dev, rows):
                            ("int8", torch.int8, 0.0)]:
         for m, n, k in [(4, 300, 1000), (130, 257, 65), (100, 70, 130),
                         (520, 2056, 1032), (64, 64, 64), (4, 16384, 2048)]:
-            eng = gemm_engine(dt, *RIGID_TILE[:2], n, k, rigid=True)
+            eng = gemm_engine(dt, *RIGID_TILE[:2], n, k, m=m, rigid=True)
             if dt == torch.int8:
                 a = torch.randint(-127, 128, (m, k), generator=gen,
                                   device=dev, dtype=dt)
@@ -983,7 +1027,7 @@ def rigid_phase(dev, rows):
         a = (torch.randn(m, k, generator=gen, device=dev)
              / math.sqrt(k)).to(dt)
         b = torch.randn(k, n, generator=gen, device=dev).to(dt)
-        eng = gemm_engine(dt, *RIGID_TILE[:2], n, k, rigid=True)
+        eng = gemm_engine(dt, *RIGID_TILE[:2], n, k, m=m, rigid=True)
         kern = "rigid_gemm_wgmma" if eng == "wgmma" else "rigid_gemm"
         run = lambda: rigid_accumulate_kernel(a, b)  # noqa: E731
         plain = lambda: rigid_accumulate_torch(a, b)  # noqa: E731
@@ -1781,7 +1825,7 @@ def to_device(tree, device):
 def reduced_phase(dev):
     """gemma_2b.reduced() in fp32, card against CPU, in the default and
     ``amx`` configurations; returns the card's launch counts of each
-    engine run (keys ``reduced-default``, ``reduced-amx``): fp32 runs B1
+    engine run (keys ``reduced-default``, ``reduced-amx``): fp32 runs B2
     and B8 stage 1 on their tile loops, whose launches count here."""
     import numpy as np
     import torch
@@ -1873,10 +1917,10 @@ def reduced_phase(dev):
                 dev, f"[{name}] 5 slots", cfg, params_cpu, params_gpu,
                 prompts, kw5, eng.run(), want_k=SPEC_K)
 
-    # B1's tile loop runs where an fp32 GEMM's tile grid fills the card:
-    # one 4096-token chunk through the reduced model on the eager path
-    # (its gate and up projections, 4096x256x128, make 256 blocks of
-    # 64x64, so they are planned without split-K).
+    # B1's SIMT f32 engine runs the fp32 GEMMs past 16 rows: one
+    # 4096-token chunk through the reduced model on the eager path (every
+    # projection, 4096 x {32, 128, 256} x {128, 256}, is planned onto it
+    # unsplit, at 128 x 64).
     cfg = dataclasses.replace(base, **CONFIGS["eager"][1])
     reset_planning()
     toks_np = rng.integers(0, base.vocab, 4096).astype(np.int64)
@@ -1896,8 +1940,10 @@ def reduced_phase(dev):
                 build.launch_counts()
             log(f"  reduced fp32 [eager] one 4096-token chunk on {device}: "
                 f"launches {counts}")
-            require(counts["mte_gemm"] > 0, "the 4096-token chunk did not "
-                    "launch B1's tile loop")
+            require(counts["mte_gemm_simt"] > 0, "the 4096-token chunk did "
+                    "not launch B1's SIMT f32 engine")
+            require(counts["mte_gemm"] == 0, "the 4096-token chunk ran "
+                    "B1's tile loop")
     err = max_err(logits[str(dev)], logits["cpu"])
     log(f"  reduced fp32 [eager] 4096-token chunk logits cuda vs cpu: "
         f"max_abs_err={err:.3e} tol=1e-3")
@@ -2225,7 +2271,10 @@ def reduced_qwen_phase(dev):
                     "reduced qwen: the card's decode step was not "
                     "replayed as a CUDA graph")
             path_counts = counts
-            for kernel in ("splitk_gemm_cluster", "grouped_gemm_splitk"):
+            # B1's tile loop: the o projection at M <= 16 (2 slots, chunks
+            # of 16 tokens) under bf16acc.
+            for kernel in ("splitk_gemm_cluster", "grouped_gemm_splitk",
+                           "mte_gemm"):
                 require(counts[kernel] > 0,
                         f"reduced qwen: {kernel} not launched")
             for kernel in ("splitk_gemm", "grouped_gemm"):
@@ -2390,8 +2439,8 @@ def reduced_musicgen_phase(dev):
     """musicgen_medium.reduced() in fp32 (2 layers, d_model 128, 4 heads
     of 32) through the model-level path, card against CPU: 2 sequences
     of 24 frames, then 3 decode steps, within ``MODEL_TOL["fp32"]``; fp32
-    runs B2's and B3's tile loops (the 48-row q/k/v program is grouped)
-    and B5's and B6's SIMT kernels.  Then
+    runs B1's SIMT f32 engine at 48 rows, B2's and B3's tile loops (the
+    48-row q/k/v program is grouped) and B5's and B6's SIMT kernels.  Then
     musicgen_medium at full width and depth 2 in bf16 (weights built in
     bf16): 2 sequences of 256 frames, then 4 decode steps, within
     ``MODEL_TOL["bf16"]`` -- the bf16 engines at D = 64 and G = 1 (B1's
@@ -2406,7 +2455,7 @@ def reduced_musicgen_phase(dev):
            "flash_decode_mma")
     reduced = musicgen_card_phase(
         dev, "reduced musicgen fp32", cfg.reduced(), 2, 24, 3,
-        MODEL_TOL["fp32"], ("splitk_gemm", "grouped_gemm",
+        MODEL_TOL["fp32"], ("mte_gemm_simt", "splitk_gemm", "grouped_gemm",
                             "flash_attention", "flash_decode"), new)
     log("== 3. musicgen_medium at full width, depth 2 (bf16): card "
         "against CPU")
@@ -3838,14 +3887,20 @@ def training_card_phase(dev):
     log(f"  depth 2 AdamW of the card's grads, cuda vs cpu: max_abs_err="
         f"{perr:.3e} tol=1e-6")
     require(perr <= 1e-6, f"depth 2: AdamW differs by {perr}")
-    for label, on in (("train-reduced", ("mte_gemm",)),
-                      ("train-depth2", ("mte_gemm_wgmma", "mte_gemm",
+    # Every GEMM of 32 rows or more with widths multiples of 4 runs f32 on
+    # the SIMT engine (the reduced model's forward and backward, the depth-2
+    # model's backward), none on the tile loops.
+    for label, on in (("train-reduced", ("mte_gemm_simt",)),
+                      ("train-depth2", ("mte_gemm_wgmma", "mte_gemm_simt",
                                         "flash_attention_wgmma"))):
         got = {k: v for k, v in counts[label].items() if v}
         log(f"  [{label}] launches {got}")
         for kernel in on:
             require(got.get(kernel, 0) > 0, f"{label}: {kernel} not "
                     f"launched")
+        for kernel in ("mte_gemm", "splitk_gemm"):
+            require(kernel not in got, f"{label}: {got.get(kernel)} "
+                    f"launches of the tile loop {kernel}")
     del params_gpu, gg
     free_card()
     return counts
@@ -3898,12 +3953,13 @@ def training_phase(dev):
     one warm step, ``timed`` steps timed by the host clock around a
     synchronise, then one step profiled (``profile_call``: device busy
     ms and idle share).  Each step's loss and grad norm must be finite,
-    the parameters must change, and every backward GEMM must run on B1's
-    or B2's kernels: per step, the tile loops' launches (``mte_gemm``,
-    ``splitk_gemm``) equal ``backward_gemms``.  Prints each step's wall
-    ms, the step's bound (``train_bounds``), the launches per step per
-    counter, each compiled program's grouping decision, and the peak
-    memory beside the reckoning.  Returns (launch counts of the timed
+    the parameters must change, and every backward GEMM must run on the
+    SIMT f32 engine of B1 or B2: per step, its launches
+    (``mte_gemm_simt``, ``splitk_gemm_simt``) equal ``backward_gemms``
+    and the tile loops' (``mte_gemm``, ``splitk_gemm``) are 0.  Prints
+    each step's wall ms, the step's bound (``train_bounds``), the launches
+    per step per counter, each compiled program's grouping decision, and
+    the peak memory beside the reckoning.  Returns (launch counts of the timed
     steps, summary)."""
     import torch
     from repro_torch.configs import get_config
@@ -3978,10 +4034,13 @@ def training_phase(dev):
         f"{changed}")
     require(all(v > 0 for v in changed.values()),
             f"the parameters did not change: {changed}")
-    tile = per_step.get("mte_gemm", 0) + per_step.get("splitk_gemm", 0)
-    require(tile == backward_gemms(cfg),
-            f"backward GEMMs per step on B1/B2: {tile}, want "
+    simt = (per_step.get("mte_gemm_simt", 0)
+            + per_step.get("splitk_gemm_simt", 0))
+    require(simt == backward_gemms(cfg),
+            f"backward GEMMs per step on the SIMT f32 engine: {simt}, want "
             f"{backward_gemms(cfg)}")
+    tile = per_step.get("mte_gemm", 0) + per_step.get("splitk_gemm", 0)
+    require(tile == 0, f"{tile} tile-loop launches per train step")
     for kernel in ("mte_gemm_wgmma", "flash_attention_wgmma"):
         require(per_step.get(kernel, 0) > 0, f"train: {kernel} not "
                 f"launched")
@@ -4002,11 +4061,17 @@ def training_phase(dev):
 KERNELS = [
     ("mte_gemm_wgmma", "src/repro_torch/csrc/mte_gemm.cu",
      "src/repro/kernels/mte_gemm.py:114", "gate 512x16384x2048", "default"),
-    ("mte_gemm", "src/repro_torch/csrc/mte_gemm.cu",
+    ("mte_gemm_simt", "src/repro_torch/csrc/mte_gemm.cu",
      "src/repro/kernels/mte_gemm.py:114",
      "train gate recompute fp32 4096x16384x2048", "train"),
+    ("mte_gemm", "src/repro_torch/csrc/mte_gemm.cu",
+     "src/repro/kernels/mte_gemm.py:114", "qr o 16x128x128 bf16acc",
+     "reduced-qwen"),
     ("splitk_gemm_cluster", "src/repro_torch/csrc/splitk_gemm_cluster.cu",
      "src/repro/kernels/splitk_gemm.py:60", "gate 4x16384x2048", "default"),
+    ("splitk_gemm_simt", "src/repro_torch/csrc/splitk_gemm.cu",
+     "src/repro/kernels/splitk_gemm.py:60",
+     "train k/v dB fp32 2048x256x4096", "train"),
     ("splitk_gemm", "src/repro_torch/csrc/splitk_gemm.cu",
      "src/repro/kernels/splitk_gemm.py:60", "gate fp32 2x256x128",
      "reduced-default"),
@@ -4088,11 +4153,11 @@ STARCODER2_ROWS = {
 
 # The rows of the kernels phase 7's training step launches (its launches
 # over the timed steps): the backward's f32 GEMMs at every shape of a
-# layer on B1's tile loop, and the k/v dB on B2's (a split plan), the
-# forward's bf16 gate on B1's wgmma mainloop and its causal attention on
-# B5's.
+# layer on B1's SIMT f32 engine, and the k/v dB on B2's (a split plan),
+# the forward's bf16 gate on B1's wgmma mainloop and its causal attention
+# on B5's.
 TRAIN_ROWS = {
-    "mte_gemm": ("train gate recompute fp32 4096x16384x2048",
+    "mte_gemm_simt": ("train gate recompute fp32 4096x16384x2048",
                  "train gate dA fp32 4096x2048x16384",
                  "train gate dB fp32 2048x16384x4096",
                  "train q/o dA fp32 4096x2048x2048",
@@ -4102,7 +4167,7 @@ TRAIN_ROWS = {
                  "train down dB fp32 16384x2048x4096"),
     "mte_gemm_wgmma": ("train gate 4096x16384x2048",),
     "flash_attention_wgmma": ("train 1x4096 H=8/1 D=256",),
-    "splitk_gemm": ("train k/v dB fp32 2048x256x4096",),
+    "splitk_gemm_simt": ("train k/v dB fp32 2048x256x4096",),
 }
 
 
@@ -4236,7 +4301,8 @@ def main() -> int:
                 "rows": [{k: r.get(k) for k in (
                     "shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms",
-                    "library_cold_ms", "transpose_copy_ms")}
+                    "library_cold_ms", "transpose_copy_ms",
+                    "tile_loop_ms")}
                     for r in mine if r["shape"] in TRAIN_ROWS[name]]}
             require(len(kernels[-1]["at_train"]["rows"])
                     == len(TRAIN_ROWS[name]), f"{name}: the training rows "

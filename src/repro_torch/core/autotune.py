@@ -7,7 +7,8 @@ For every distinct GEMM signature
 
 the cache enumerates candidate geometries from the Hopper solver
 (:func:`repro_torch.core.geometry.solve_block_geometry`) and, for bf16
-shapes the wgmma engine takes, its tiles; scores them with an analytic
+shapes the wgmma engine takes, its tiles, and for f32 shapes the SIMT f32
+engine takes, its tiles with and without split-K; scores them with an analytic
 Hopper time (:func:`score_geometry`), and memoizes the winner in an LRU.
 Routes: ``"mte"`` (the B1 kernel, ``csrc/mte_gemm.cu``), ``"splitk"``
 (B2: ``csrc/splitk_gemm_cluster.cu`` or ``csrc/splitk_gemm.cu``), offered
@@ -25,9 +26,10 @@ from typing import Dict, List, Optional
 
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.geometry import (
-    INNER_BK, WGMMA_BK, WGMMA_TILES, BlockGeometry, H100_SPEC,
-    HopperProfile, Policy, cdiv, gemm_engine, grouped_engine,
-    hopper_profile, round_up, solve_block_geometry, splitk_engine,
+    INNER_BK, SIMT_BK, SIMT_TILES, WGMMA_BK, WGMMA_TILES,
+    BlockGeometry, H100_SPEC, HopperProfile, Policy, cdiv, gemm_engine,
+    grouped_engine, hopper_profile, round_up, solve_block_geometry,
+    splitk_engine,
 )
 from repro_torch.core.tile_state import SEW, dtype_name
 
@@ -121,29 +123,31 @@ def _route_for(sig: GemmSignature, geom: BlockGeometry) -> str:
 
 
 def plan_engine(sig: GemmSignature, geom: BlockGeometry) -> str:
-    """The mainloop a plan launches: ``"wgmma"``, ``"splitk"``,
-    ``"cluster"`` or ``"tile"``.  B3 (grouped plans) follows
+    """The mainloop a plan launches: ``"wgmma"``, ``"simt"``,
+    ``"splitk"``, ``"cluster"`` or ``"tile"``.  B3 (grouped plans) follows
     :func:`repro_torch.core.geometry.grouped_engine` (``"splitk"``, its
     cluster split-K kernel for the bf16 decode group) and B2 (split plans)
     :func:`repro_torch.core.geometry.splitk_engine` (``"cluster"``, the
-    same mainloop at G = 1 for the bf16 decode GEMMs); both keep the tile
-    loop's price, so no route or grouping decision moves.  B1 and B8
-    stage 1 follow :func:`repro_torch.core.geometry.gemm_engine`
-    (ValueError when no engine takes the geometry)."""
+    same mainloop at G = 1 for the bf16 decode GEMMs, which keeps the tile
+    loop's price, so no route or grouping decision moves; ``"simt"``, the
+    SIMT f32 engine over K slices at its tiles).  B1 and B8 stage 1 follow
+    :func:`repro_torch.core.geometry.gemm_engine` (ValueError when no
+    engine takes the geometry)."""
     bf16acc = sig.format_policy.accum_dtype == "bfloat16"
     if sig.group > 1:
         return grouped_engine(sig.dtype_in, sig.m, sig.n, sig.k,
                               bf16acc=bf16acc)
     if geom.split_k > 1:
         return splitk_engine(sig.dtype_in, sig.m, sig.n, sig.k,
-                             bf16acc=bf16acc)
+                             bf16acc=bf16acc, tile=(geom.bm, geom.bn))
     return gemm_engine(sig.dtype_in, geom.bm, geom.bn, sig.n, sig.k,
-                       bf16acc=bf16acc, rigid=sig.policy == "amx")
+                       m=sig.m, bf16acc=bf16acc, rigid=sig.policy == "amx")
 
 
-def _on_wgmma(sig: GemmSignature, geom: BlockGeometry) -> bool:
+def _on_engine(sig: GemmSignature, geom: BlockGeometry,
+               engine: str) -> bool:
     try:
-        return plan_engine(sig, geom) == "wgmma"
+        return plan_engine(sig, geom) == engine
     except ValueError:
         return False
 
@@ -168,7 +172,10 @@ def enumerate_candidates(sig: GemmSignature,
     loop (B2 never gets a wgmma tile).  The rigid
     policy gets exactly its fixed block (a rigid ISA cannot adapt), and
     grouped signatures no split (B3 has no split-K path; its group axis
-    already multiplies the grid)."""
+    already multiplies the grid).  f32 signatures past 16 rows get the
+    SIMT f32 engine's tiles where it takes them (128 x 64 only where the
+    128 x 128 grid is below the SM count), each unsplit and, where its
+    own grid is below the SM count, split as the base is."""
     base = solve_block_geometry(sig.m, sig.n, sig.k, sig.sew_i, sig.sew_o,
                                 profile=profile, policy=sig.policy)
     cands: List[BlockGeometry] = [base]
@@ -177,39 +184,57 @@ def enumerate_candidates(sig: GemmSignature,
     if sig.group == 1 and sig.m >= 64:     # at least one 64-row wgmma
         for bm, bn in WGMMA_TILES:
             g = dataclasses.replace(base, bm=bm, bn=bn)
-            if g not in cands and _on_wgmma(sig, g):
+            if g not in cands and _on_engine(sig, g, "wgmma"):
                 cands.append(g)
     grid_mn = cdiv(sig.m, base.bm) * cdiv(sig.n, base.bn)
     cluster = splitk_engine(
         sig.dtype_in, sig.m, sig.n, sig.k,
         bf16acc=sig.format_policy.accum_dtype == "bfloat16") == "cluster"
-    if sig.group == 1 and (grid_mn < profile.sm_count or cluster) \
-            and sig.k > INNER_BK:
-        for s in _SPLIT_CANDIDATES:
-            bk = _split_bk(base.bk, sig.k, s)
-            if cdiv(sig.k, bk) < s:
+    if sig.group == 1 and (grid_mn < profile.sm_count or cluster):
+        _add_splits(sig, base, cands)
+    if sig.group == 1:
+        wide = cdiv(sig.m, SIMT_TILES[0][0]) * cdiv(sig.n, SIMT_TILES[0][1])
+        for bm, bn in SIMT_TILES[:1 if wide >= profile.sm_count else None]:
+            g = dataclasses.replace(base, bm=bm, bn=bn)
+            if g in cands or not _on_engine(sig, g, "simt"):
                 continue
-            g = dataclasses.replace(base, bk=bk, split_k=s)
-            if g not in cands:
-                cands.append(g)
+            cands.append(g)
+            if cdiv(sig.m, bm) * cdiv(sig.n, bn) < profile.sm_count:
+                _add_splits(sig, g, cands)
     return cands
 
 
-def _wgmma_seconds(sig: GemmSignature, geom: BlockGeometry,
-                   profile: HopperProfile, extra_bytes: float) -> float:
-    """The wgmma engine's time: whole waves of tiles over the SMs, each
-    tile taking the longer of its MMAs at one SM's share of the peak and
-    its operand loads at one SM's share of the L2 rate (the stage ring
-    overlaps the two), and never less than every operand, the output and
-    ``extra_bytes`` moved once through device memory."""
+def _add_splits(sig: GemmSignature, geom: BlockGeometry,
+                cands: List[BlockGeometry]) -> None:
+    """Append ``geom`` split into each of :data:`_SPLIT_CANDIDATES` K
+    slices of whole ``INNER_BK`` blocks, where K holds that many."""
+    if sig.k <= INNER_BK:
+        return
+    for s in _SPLIT_CANDIDATES:
+        bk = _split_bk(geom.bk, sig.k, s)
+        if cdiv(sig.k, bk) < s:
+            continue
+        g = dataclasses.replace(geom, bk=bk, split_k=s)
+        if g not in cands:
+            cands.append(g)
+
+
+def _wave_seconds(sig: GemmSignature, geom: BlockGeometry,
+                  profile: HopperProfile, depth: int,
+                  extra_bytes: float) -> float:
+    """The time of a pipelined engine (wgmma, SIMT f32): whole waves of
+    blocks (tiles x K slices) over the SMs, each block taking the longer
+    of its ``depth`` K rows of multiply-adds at one SM's share of the
+    format's peak and its operand loads at one SM's share of the L2 rate
+    (the stage ring overlaps the two), and never less than every operand,
+    the output and ``extra_bytes`` moved once through device memory."""
     m, n, k = sig.m, sig.n, sig.k
     bm, bn = geom.bm, geom.bn
     sms = profile.sm_count
-    kp = round_up(k, WGMMA_BK)
-    tile_mma = 2.0 * bm * bn * kp / (profile.peak_flops(sig.sew_i) / sms)
-    tile_load = ((bm + bn) * kp * sig.sew_i.bytes
+    tile_mma = 2.0 * bm * bn * depth / (profile.peak_flops(sig.sew_i) / sms)
+    tile_load = ((bm + bn) * depth * sig.sew_i.bytes
                  / (profile.l2_bw_bytes_per_s / sms))
-    waves = cdiv(cdiv(m, bm) * cdiv(n, bn), sms)
+    waves = cdiv(cdiv(m, bm) * cdiv(n, bn) * geom.split_k, sms)
     hbm = ((m * k + k * n) * sig.sew_i.bytes + m * n * sig.sew_o.bytes
            + extra_bytes) / profile.hbm_bw_bytes_per_s
     return max(waves * max(tile_mma, tile_load), hbm)
@@ -219,7 +244,11 @@ def score_geometry(sig: GemmSignature, geom: BlockGeometry,
                    profile: HopperProfile = H100_SPEC) -> float:
     """Predicted seconds, plus launch overhead.  On the wgmma engine
     (:func:`plan_engine`): tile waves on the SMs against operand traffic
-    (:func:`_wgmma_seconds`).  On the tile loop: the larger of padded MMA
+    (:func:`_wave_seconds`, the K depth padded to a 64-deep stage).  On
+    the SIMT f32 engine the same at 67 TFLOP/s over each block's K slice
+    (padded to a 16-deep stage), with no load stretch; a split pays its
+    partials' write and read back and the reduction's launch.  On the
+    tile loop: the larger of padded MMA
     work over the format's peak and operand/partial traffic over HBM
     bandwidth, stretched by the share of the card the block grid leaves
     idle (a grid below ``sm_count * blocks_per_sm`` resident blocks cannot
@@ -235,9 +264,17 @@ def score_geometry(sig: GemmSignature, geom: BlockGeometry,
     if sig.policy == "amx":
         rigid_bytes = 2.0 * m * n * 4
         launches = 1 if sig.epilogue.is_identity else 2
-    if plan_engine(sig, geom) == "wgmma":
-        return (_wgmma_seconds(sig, geom, profile, rigid_bytes)
+    engine = plan_engine(sig, geom)
+    if engine == "wgmma":
+        return (_wave_seconds(sig, geom, profile, round_up(k, WGMMA_BK),
+                              rigid_bytes)
                 + profile.launch_s * launches)
+    if engine == "simt":
+        s = geom.split_k
+        depth = round_up(cdiv(k, s), SIMT_BK)
+        partials = 2.0 * s * m * n * 4 if s > 1 else 0.0
+        return (_wave_seconds(sig, geom, profile, depth, partials)
+                + profile.launch_s * (2 if s > 1 else 1))
     g = max(sig.group, 1)
     gm, gn = cdiv(m, geom.bm), cdiv(n, geom.bn)
     s = geom.split_k

@@ -5,7 +5,7 @@ The paper's principle carries over unchanged: a GEMM's tile shape is
 What changes is the hardware.  The TPU solver (``geometry.py:398`` in the
 JAX package) budgets VMEM and snaps to the (8·32/SEW, 128) native tile;
 this one budgets a block's shared memory and grants the tile shapes the
-hand-written kernels implement.  Two mainloops exist (``csrc/``):
+hand-written kernels implement.  Three mainloops exist (``csrc/``):
 
 - the **tile loop** (``gemm_tile.cuh``; B1's fp32/int8 path, B2 and B3
   off their cluster engines, and B8's fp32/int8 path):
@@ -15,10 +15,15 @@ hand-written kernels implement.  Two mainloops exist (``csrc/``):
 - the **wgmma engine** (``wgmma_mainloop.cuh``; B1 and B8 stage 1 on bf16
   operands): TMA loads 64 deep in K into a ring of shared-memory stages,
   wgmma with the accumulator in registers, at ``bm`` ∈ {64, 128} × ``bn``
-  ∈ {64, 128, 256} (:data:`WGMMA_TILES`; bf16acc ``bn`` ≤ 128).
+  ∈ {64, 128, 256} (:data:`WGMMA_TILES`; bf16acc ``bn`` ≤ 128);
+- the **SIMT f32 engine** (``simt_f32_mainloop.cuh``; B1 and B2 on f32
+  operands past 16 rows, the training backward): 8 × 8 accumulators a
+  thread over a 16-deep cp.async ring, at 128 × 128 or 128 × 64
+  (:data:`SIMT_TILES`), K and N multiples of 4.
 
 :func:`gemm_engine` says which one runs a launch: a pure function of the
-operand type, the accumulator, the tile and the alignment of K and N.
+operand type, the accumulator, the tile, the rows and the alignment of K
+and N.
 B2–B7 have a second engine each, chosen the same way:
 :func:`splitk_engine` and :func:`grouped_engine` (the cluster split-K
 mainloop of ``splitk_cluster.cuh`` for bf16 GEMMs of at most 16 rows,
@@ -30,8 +35,8 @@ wgmma for bf16 at head dims 64/128/256, else the SIMT kernel) and
 :func:`scan_engine` (B7: spans staged in shared memory by TMA for f32
 with W a multiple of 4, else one thread per channel).
 The solver's base tile is the tile loop's tile for M; the plan cache
-(``core/autotune.py``) adds the wgmma tiles the shape and format allow and
-prices every candidate.
+(``core/autotune.py``) adds the wgmma and SIMT tiles the shape and format
+allow and prices every candidate.
 
 The rigid ``"amx"`` policy (the AMX-style baseline, ``csrc/rigid_gemm.cu``)
 adapts nothing: it is always granted the one rigid tile, 128 x 128 with a
@@ -59,6 +64,7 @@ __all__ = ["HopperProfile", "BlockGeometry", "H100_SPEC", "hopper_profile",
            "solve_block_geometry", "round_up", "cdiv", "TILE_LOOP_TILES",
            "WGMMA_TILES", "INNER_BK", "WGMMA_BK", "RIGID_TILE",
            "check_kernel_tile", "gemm_engine", "wgmma_stages",
+           "SIMT_TILES", "SIMT_BK", "SIMT_STAGES", "SIMT_ALIGN",
            "GROUPED_BN", "GROUPED_MAX_M", "GROUPED_BK", "MAX_CLUSTER",
            "GROUPED_X_BYTES", "GROUPED_FILL_SPLIT", "grouped_max_depth",
            "grouped_engine", "grouped_live_tiles", "grouped_split",
@@ -84,6 +90,15 @@ WGMMA_ALIGN = 8
 WGMMA_BF16ACC_MAX_BN = 128
 # B8's one tile, (bm, bn, bk): the tile loop or the wgmma engine.
 RIGID_TILE = (128, 128, 128)
+# (bm, bn) tiles of the SIMT f32 engine (simt_f32_mainloop.cuh) in B1 and
+# B2 (128 x 64 is offered only where 128 x 128 tiles underfill the SMs),
+# its K rows per stage, its ring's depth, the floats past each K-outer
+# row, and the alignment its 16-byte vectors need of K and N (f32).
+SIMT_TILES: Tuple[Tuple[int, int], ...] = ((128, 128), (128, 64))
+SIMT_BK = 16
+SIMT_STAGES = 4
+SIMT_PAD = 4
+SIMT_ALIGN = 4
 _SMEM_LIMIT = 227 * 1024
 
 
@@ -94,20 +109,34 @@ def wgmma_stages(bm: int, bn: int) -> int:
     return min(5, (_SMEM_LIMIT - 2048) // ((bm + bn) * WGMMA_BK * 2))
 
 
-def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *,
+def _simt(dtype_in, tile: Tuple[int, int], m: int, n: int, k: int) -> bool:
+    """The SIMT f32 engine's rule: f32 operands, more than 16 rows (decode
+    and the verify rows of speculation stay on the tile loop), one of its
+    tiles, K and N multiples of 4 (16-byte rows; the wrappers hand it
+    contiguous operands at 16-byte aligned addresses)."""
+    return (dtype_name(dtype_in) == "float32" and tile in SIMT_TILES
+            and m > GROUPED_MAX_M
+            and k % SIMT_ALIGN == 0 and n % SIMT_ALIGN == 0)
+
+
+def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
                 bf16acc: bool = False, rigid: bool = False) -> str:
     """The mainloop that runs one B1 launch (``rigid``: one B8 stage-1
-    launch): ``"wgmma"`` or ``"tile"``.
+    launch): ``"wgmma"``, ``"simt"`` or ``"tile"``.
 
-    A pure function of the operand type, the accumulator, the tile and
-    the alignment; the wrappers launch what it names and nothing else:
+    A pure function of the operand type, the accumulator, the tile, the
+    rows ``m`` and the alignment; the wrappers launch what it names and
+    nothing else:
 
     - ``"wgmma"`` when the operands are bf16, the tile is a wgmma tile
       (bf16acc: ``bn`` ≤ 128; rigid: the 128 x 128 tile) and K and N are
       multiples of 8 (TMA's 16-byte row alignment);
+    - ``"simt"`` (not rigid) when the operands are f32, M > 16, the tile
+      is one of :data:`SIMT_TILES` and K and N are multiples of 4;
     - ``"tile"`` otherwise, when the tile loop is compiled for the tile
-      (fp32, int8, M ≤ 16's 16 x 128 tile, strides TMA cannot take);
-    - ValueError when neither engine is compiled for the launch (a pinned
+      (fp32 off the SIMT engine's tiles or alignment, int8, M ≤ 16's
+      16 x 128 tile, strides TMA cannot take);
+    - ValueError when no engine is compiled for the launch (a pinned
       tile is launched as it is or refused, never replanned)."""
     tile = (bm, bn)
     if rigid:
@@ -119,15 +148,20 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *,
     aligned = k % WGMMA_ALIGN == 0 and n % WGMMA_ALIGN == 0
     if wgmma_ok and aligned and dtype_name(dtype_in) == "bfloat16":
         return "wgmma"
+    if not rigid and _simt(dtype_in, tile, m, n, k):
+        return "simt"
     if loop_ok:
         return "tile"
     raise ValueError(
         f"no {'rigid' if rigid else 'mte'} GEMM engine takes the tile "
         f"{bm}x{bn} for {dtype_name(dtype_in)} operands"
-        f"{' with a bf16 accumulator' if bf16acc else ''} at K={k}, "
-        f"N={n}: the wgmma engine takes bf16 operands, K and N multiples "
-        f"of {WGMMA_ALIGN} and the tiles {WGMMA_TILES} (bf16acc: bn <= "
-        f"{WGMMA_BF16ACC_MAX_BN}); the tile loop {TILE_LOOP_TILES}")
+        f"{' with a bf16 accumulator' if bf16acc else ''} at M={m}, "
+        f"K={k}, N={n}: the wgmma engine "
+        f"takes bf16 operands, K and N multiples of {WGMMA_ALIGN} and the "
+        f"tiles {WGMMA_TILES} (bf16acc: bn <= {WGMMA_BF16ACC_MAX_BN}); the "
+        f"SIMT engine f32 operands past {GROUPED_MAX_M} rows, K and N "
+        f"multiples of {SIMT_ALIGN} and the tiles {SIMT_TILES}; the tile "
+        f"loop {TILE_LOOP_TILES}")
 
 
 # B3's split-K engine (grouped_gemm_splitk.cu): output tiles GROUPED_BN
@@ -223,12 +257,14 @@ SPLITK_DEEP_DEPTH = 2048
 
 
 def splitk_engine(dtype_in, m: int, n: int, k: int, *,
-                  bf16acc: bool = False) -> str:
-    """The engine that runs one B2 launch: ``"cluster"`` or ``"tile"``.
+                  bf16acc: bool = False,
+                  tile: Optional[Tuple[int, int]] = None) -> str:
+    """The engine that runs one B2 launch: ``"cluster"``, ``"simt"`` or
+    ``"tile"``.
 
-    A pure function of the operand type and the shape (both accumulators,
-    f32 and ``bf16acc``'s bf16, take the same engine); the wrapper
-    launches what it names and nothing else:
+    A pure function of the operand type, the shape and the plan's
+    ``tile`` (both accumulators, f32 and ``bf16acc``'s bf16, take the
+    same engine); the wrapper launches what it names and nothing else:
 
     - ``"cluster"`` (B3's cluster split-K mainloop at G = 1, the reduction
       and the whole epilogue in the launch) for bf16 operands with an f32
@@ -240,12 +276,18 @@ def splitk_engine(dtype_in, m: int, n: int, k: int, *,
       sum per slice, rounded once per K block of the slice, the slices'
       bf16 partials summed and rounded once, every epilogue step rounded
       to bf16;
+    - ``"simt"`` (the SIMT f32 engine over each K slice, partials summed
+      in PyTorch) for f32 operands, M > 16, a ``tile`` of
+      :data:`SIMT_TILES` and K and N multiples of 4 (the training
+      backward's dB of a narrow weight);
     - ``"tile"`` (the tile loop, partials summed in PyTorch) otherwise:
-      fp32, int8 and M > 16."""
+      fp32 off the SIMT engine's rule, int8 and bf16 past 16 rows."""
     if (dtype_name(dtype_in) == "bfloat16"
             and m <= GROUPED_MAX_M and n % WGMMA_ALIGN == 0
             and k <= MAX_CLUSTER * grouped_max_depth(m)):
         return "cluster"
+    if tile is not None and _simt(dtype_in, tile, m, n, k):
+        return "simt"
     return "tile"
 
 
@@ -458,16 +500,25 @@ class BlockGeometry:
         """Shared memory one block takes.  The tile loop: one A and one B
         stage of ``INNER_BK`` depth plus the staged accumulator tile.  The
         wgmma engine: its ring of 64-deep bf16 A and B stages, 1 KB to
-        align it to the swizzle atom and two barriers per stage.
-        ``engine`` None takes the wgmma engine for a bf16 wgmma tile (the
-        larger need when the alignment is not known), else the loop."""
+        align it to the swizzle atom and two barriers per stage.  The SIMT
+        f32 engine: its ring of ``SIMT_STAGES`` 16-deep f32 A and B
+        stages, each row ``SIMT_PAD`` floats longer than the tile.
+        ``engine`` None takes the wgmma engine for a bf16 wgmma tile and
+        the SIMT engine for an f32 SIMT tile (the larger needs when the
+        alignment is not known), else the loop."""
+        tile = (self.bm, self.bn)
         if engine is None:
-            engine = ("wgmma" if (self.bm, self.bn) in WGMMA_TILES
-                      and self.sew_i.bits == 16 else "tile")
+            engine = ("wgmma" if tile in WGMMA_TILES
+                      and self.sew_i.bits == 16 else
+                      "simt" if tile in SIMT_TILES and self.sew_i.bits == 32
+                      else "tile")
         if engine == "wgmma":
             stages = wgmma_stages(self.bm, self.bn)
             return (1024 + stages * (self.bm + self.bn) * WGMMA_BK * 2
                     + 16 * stages)
+        if engine == "simt":
+            return (SIMT_STAGES * SIMT_BK
+                    * (self.bm + self.bn + 2 * SIMT_PAD) * 4)
         a = self.bm * INNER_BK * self.sew_i.bytes
         b = INNER_BK * self.bn * self.sew_i.bytes
         return a + b + self.bm * self.bn * 4
@@ -482,24 +533,27 @@ def check_kernel_tile(geom: "BlockGeometry", group: int = 1) -> None:
     """Raise unless a kernel of ``geom``'s policy is compiled for its
     tile: a pinned geometry is launched as it is or refused, never
     replanned.  The rigid policy has its one tile; the MTE kernels take
-    the tile loop's tiles with any split and group, and the wgmma tiles
-    on B1 only (no split, no group).  Whether the operands suit the
-    wgmma engine is :func:`gemm_engine`'s call, at launch."""
+    the tile loop's tiles with any split and group, the wgmma tiles on B1
+    only (no split, no group) and the SIMT f32 tiles on B1 and B2 (any
+    split, no group).  Whether the operands suit the wgmma or the SIMT
+    engine is :func:`gemm_engine`'s and :func:`splitk_engine`'s call, at
+    launch."""
     tile = (geom.bm, geom.bn)
     if geom.policy == "amx":
         ok = (geom.bm, geom.bn, geom.bk) == RIGID_TILE and geom.split_k == 1
     else:
         ok = geom.bk % INNER_BK == 0 and geom.split_k >= 1 and (
             tile in TILE_LOOP_TILES
-            or (tile in WGMMA_TILES and geom.split_k == 1 and group == 1))
+            or (tile in WGMMA_TILES and geom.split_k == 1 and group == 1)
+            or (tile in SIMT_TILES and group == 1))
     if not ok:
         raise ValueError(
             f"no {geom.policy!r} kernel is compiled for the tile "
             f"{geom.bm}x{geom.bn}x{geom.bk} split_k={geom.split_k} "
             f"group={group}; compiled: MTE tile loop {TILE_LOOP_TILES} "
             f"(bk a multiple of {INNER_BK}, any split or group), MTE "
-            f"wgmma {WGMMA_TILES} (split_k 1, group 1), rigid "
-            f"{RIGID_TILE}")
+            f"wgmma {WGMMA_TILES} (split_k 1, group 1), MTE SIMT f32 "
+            f"{SIMT_TILES} (any split, group 1), rigid {RIGID_TILE}")
 
 
 def solve_block_geometry(m: int, n: int, k: int, sew_i: SEW, sew_o: SEW,

@@ -32,8 +32,20 @@
 //    one 128-thread block per 64x64 (or 16x128 for M <= 16) tile walking K
 //    32 deep with synchronous loads -- wmma for bf16, SIMT f32 for fp32
 //    (no TF32), SIMT int8 -> int32.  It serves what wgmma cannot take:
-//    fp32, int8 (wgmma s8 needs a K-major B), M <= 16 and strides TMA
-//    cannot take.  Not pipelined: the tensor cores wait on every stage.
+//    int8 (wgmma s8 needs a K-major B), M <= 16, fp32 off the SIMT
+//    engine's tiles and alignment, and strides TMA cannot take.  Not
+//    pipelined: the tensor cores wait on every stage.
+//
+// 3. mte_gemm_simt_launch (counter "mte_gemm_simt"): f32 operands with
+//    more than 16 rows, K and N multiples of 4, a tile of 128 x 128 or
+//    128 x 64, 16-byte aligned operands.  The mainloop of
+//    simt_f32_mainloop.cuh: f32 FMAs (no TF32) bounded by the FP32 lanes
+//    (67 TFLOP/s), not by shared memory as the tile loop is: 8 x 8
+//    accumulators a thread read as 16-byte vectors from a K-outer ring,
+//    B (K, N) by cp.async, A and a transposed B (N, K) through registers
+//    one stage ahead, the epilogue from registers.  Each output is the
+//    tile loop's FMA chain, so an unsplit GEMM is bit-equal to it.  It
+//    runs the training backward (every GEMM of which is f32).
 //
 // Accumulators: f32 (fp32 and bf16 operands), int32 (int8 operands, whose
 // dequantize and epilogue run outside the kernel, so the epilogue must be
@@ -45,6 +57,7 @@
 
 #include "epilogue.cuh"
 #include "gemm_tile.cuh"
+#include "simt_f32_mainloop.cuh"
 #include "wgmma_mainloop.cuh"
 
 namespace {
@@ -182,5 +195,31 @@ extern "C" int mte_gemm_wgmma_launch(const void* a, const void* b,
   WG_TILE(128, 256, false)
 #undef WG_TILE
 #undef WG_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int mte_gemm_simt_launch(const void* a, const void* b,
+                                    const void* c, const void* bias,
+                                    void* out, int M, int N, int K, long lda,
+                                    long ldb, long ldc, long ldo,
+                                    int out_type, int bm, int bn,
+                                    int trans_b, float alpha, float beta,
+                                    int has_softcap, float softcap, int act,
+                                    void* stream) {
+  Epi epi{alpha, beta, static_cast<const float*>(c), ldc,
+          static_cast<const float*>(bias), softcap, has_softcap, act, out,
+          ldo, out_type};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* A = static_cast<const float*>(a);
+  const float* B = static_cast<const float*>(b);
+#define SIMT_LAUNCH(BM_, BN_)                                             \
+  if (bm == BM_ && bn == BN_)                                             \
+    return trans_b ? simt::launch<BM_, BN_, true>(A, lda, B, ldb, M, N,   \
+                                                  K, 1, K, epi, 0, st)    \
+                   : simt::launch<BM_, BN_, false>(A, lda, B, ldb, M, N,  \
+                                                   K, 1, K, epi, 0, st);
+  SIMT_LAUNCH(128, 128)
+  SIMT_LAUNCH(128, 64)
+#undef SIMT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

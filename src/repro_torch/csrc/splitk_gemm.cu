@@ -18,7 +18,18 @@
 // the reduction over slices is a separate deterministic pass in the
 // wrapper, so a run always gives the same bits.  K slices past the true K
 // load nothing and write zeros.
+//
+// f32 operands with more than 16 rows, K and N multiples of 4 and a tile
+// of 128 x 128 or 128 x 64 (core/geometry.py:splitk_engine's "simt") run
+// the slices on simt_f32_mainloop.cuh instead (splitk_gemm_simt_launch,
+// counter "splitk_gemm_simt"): the training backward's dB of a narrow
+// weight (gemma_2b's k/v, 2048 x 256 x 4096), whose output tiles alone
+// would leave most of the 132 SMs idle.  Bounded by f32 FMAs at 67
+// TFLOP/s; each slice is the same FMA chain over its K rows as the tile
+// loop's, written as an f32 partial, and the sum over slices stays the
+// wrapper's deterministic pass.
 #include "gemm_tile.cuh"
+#include "simt_f32_mainloop.cuh"
 
 namespace {
 
@@ -78,4 +89,24 @@ extern "C" int splitk_gemm_launch(const void* a, const void* b,
   }
   GEMM_DISPATCH(in_type, bm, bn, trans_b, bf16acc, LAUNCH);
 #undef LAUNCH
+}
+
+extern "C" int splitk_gemm_simt_launch(const void* a, const void* b,
+                                       void* partials, int M, int N, int K,
+                                       long lda, long ldb, int bm, int bn,
+                                       int n_split, int k_per_split,
+                                       void* stream) {
+  // The identity epilogue into f32: slice z's partial at partials + z*M*N.
+  Epi epi{1.0f, 0.0f, nullptr, 0, nullptr, 0.0f, 0, 0, partials, N, DT_F32};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* A = static_cast<const float*>(a);
+  const float* B = static_cast<const float*>(b);
+  const long stride = static_cast<long>(M) * N;
+  if (bm == 128 && bn == 128)
+    return simt::launch<128, 128, false>(A, lda, B, ldb, M, N, K, n_split,
+                                         k_per_split, epi, stride, st);
+  if (bm == 128 && bn == 64)
+    return simt::launch<128, 64, false>(A, lda, B, ldb, M, N, K, n_split,
+                                        k_per_split, epi, stride, st);
+  return (int)cudaErrorInvalidValue;
 }

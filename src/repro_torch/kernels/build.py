@@ -57,15 +57,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # The launch counters, one per kernel: B1–B7 and B8 stage 1
 # count each engine apart (``mte_gemm`` / ``splitk_gemm`` /
 # ``grouped_gemm`` / ``rigid_gemm`` the tile loop, ``mte_gemm_wgmma`` /
-# ``rigid_gemm_wgmma`` the wgmma mainloop, ``splitk_gemm_cluster`` and
+# ``rigid_gemm_wgmma`` the wgmma mainloop, ``mte_gemm_simt`` /
+# ``splitk_gemm_simt`` the SIMT f32 mainloop, ``splitk_gemm_cluster`` and
 # ``grouped_gemm_splitk`` B2's and B3's cluster split-K kernels,
 # ``flash_decode_paged`` / ``flash_decode_paged_mma`` B4's SIMT and mma
 # kernels, ``flash_attention`` / ``flash_attention_wgmma`` B5's SIMT and
 # wgmma kernels, ``flash_decode`` / ``flash_decode_mma`` B6's SIMT and mma
 # kernels, ``rglru_scan`` / ``rglru_scan_staged`` B7's direct and staged
 # engines), and ``rigid_gemm.cu`` holds the separate epilogue pass too.
-KERNEL_NAMES = ("mte_gemm", "mte_gemm_wgmma", "splitk_gemm",
-                "splitk_gemm_cluster", "grouped_gemm", "grouped_gemm_splitk",
+KERNEL_NAMES = ("mte_gemm", "mte_gemm_wgmma", "mte_gemm_simt",
+                "splitk_gemm", "splitk_gemm_cluster", "splitk_gemm_simt",
+                "grouped_gemm", "grouped_gemm_splitk",
                 "flash_decode_paged", "flash_decode_paged_mma",
                 "flash_attention", "flash_attention_wgmma", "rigid_gemm",
                 "rigid_gemm_wgmma", "epilogue_pass", "flash_decode",

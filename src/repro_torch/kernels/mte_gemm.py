@@ -5,8 +5,9 @@
 block schedule granted by the plan cache.  On CUDA tensors it launches
 ``csrc/mte_gemm.cu`` (or raises) on the engine
 :func:`repro_torch.core.geometry.gemm_engine` names — the TMA + wgmma
-mainloop (counter ``mte_gemm_wgmma``) or the tile loop (counter
-``mte_gemm``); on CPU tensors it runs :func:`mte_gemm_torch`, the plain
+mainloop (counter ``mte_gemm_wgmma``), the SIMT f32 mainloop (counter
+``mte_gemm_simt``) or the tile loop (counter ``mte_gemm``); on CPU
+tensors it runs :func:`mte_gemm_torch`, the plain
 PyTorch version of the same function, after the same engine check, so a
 tile no engine takes raises on either device.
 
@@ -42,6 +43,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
 # mte_gemm_wgmma_launch: as mte_gemm_launch without the operand type
 # (always bf16).
 _WG_ARGTYPES = _ARGTYPES[:12] + _ARGTYPES[13:]
+# mte_gemm_simt_launch: as mte_gemm_wgmma_launch without the accumulator
+# flag and its block (f32 operands, f32 accumulator).
+_SIMT_ARGTYPES = _WG_ARGTYPES[:13] + _WG_ARGTYPES[14:16] + _WG_ARGTYPES[17:]
 
 
 def tma_ready(x: torch.Tensor) -> torch.Tensor:
@@ -138,7 +142,8 @@ def mte_gemm_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
     m, n, k = _check(a, b, c, bias, geom, epilogue)
     acc_dtype = _acc_dtype(a, acc_dtype)
     bf16acc = acc_dtype == torch.bfloat16
-    engine = gemm_engine(a.dtype, geom.bm, geom.bn, n, k, bf16acc=bf16acc)
+    engine = gemm_engine(a.dtype, geom.bm, geom.bn, n, k, m=m,
+                         bf16acc=bf16acc)
     if dev is None:
         return mte_gemm_torch(a, b, c, bias, geom=geom, epilogue=epilogue,
                               out_dtype=out_dtype, acc_dtype=acc_dtype)
@@ -163,25 +168,32 @@ def mte_gemm_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
     softcap = float(epilogue.softcap or 0.0)
     if bf16acc:
         alpha, beta, softcap = map(bf16_scalar, (alpha, beta, softcap))
+    # Each entry's arguments between the strides and the B layout.
     rbk = bf16acc_block(geom.bk, k)
-    if engine == "wgmma":
-        a, b = tma_ready(a), tma_ready(b)
-        lib, fn = build.entry("mte_gemm", "mte_gemm_wgmma_launch",
-                              _WG_ARGTYPES)
-        build.count_launch("mte_gemm_wgmma")
-        head = ()
-    else:
+    out_code = DTYPE_CODES[out_dtype]
+    if engine == "tile":
         a, b = a.contiguous(), b.contiguous()
-        lib, fn = build.entry("mte_gemm", "mte_gemm_launch", _ARGTYPES)
-        build.count_launch("mte_gemm")
-        head = (DTYPE_CODES[a.dtype],)
+        symbol, argtypes, counter = "mte_gemm_launch", _ARGTYPES, "mte_gemm"
+        mid = (DTYPE_CODES[a.dtype], out_code, int(bf16acc), geom.bm,
+               geom.bn, rbk)
+    else:
+        # Both pipelined engines read 16-byte vectors of contiguous rows.
+        a, b = tma_ready(a), tma_ready(b)
+        symbol, counter = f"mte_gemm_{engine}_launch", f"mte_gemm_{engine}"
+        if engine == "wgmma":
+            argtypes = _WG_ARGTYPES
+            mid = (out_code, int(bf16acc), geom.bm, geom.bn, rbk)
+        else:
+            argtypes = _SIMT_ARGTYPES
+            mid = (out_code, geom.bm, geom.bn)
+    lib, fn = build.entry("mte_gemm", symbol, argtypes)
+    build.count_launch(counter)
     err = fn(a.data_ptr(), b.data_ptr(),
              c_.data_ptr() if c_ is not None else None,
              bias_.data_ptr() if bias_ is not None else None,
-             out.data_ptr(), m, n, k, a.stride(0), b.stride(0),
-             n, n, *head, DTYPE_CODES[out_dtype],
-             int(bf16acc), geom.bm, geom.bn, rbk, int(geom.transposed_b),
-             alpha, beta, int(epilogue.softcap is not None), softcap,
+             out.data_ptr(), m, n, k, a.stride(0), b.stride(0), n, n, *mid,
+             int(geom.transposed_b), alpha, beta,
+             int(epilogue.softcap is not None), softcap,
              ACTIVATION_CODES[epilogue.activation], build.stream_ptr(dev))
     build.check(lib, err, f"mte_gemm[{engine}]")
     return out

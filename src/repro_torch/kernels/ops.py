@@ -91,7 +91,8 @@ def _chunk_rows(plan, x, rows: int, n: int, k: int, widths=None) -> int:
             tiles = sum(grouped_live_tiles(n, widths, sig.group))
             depth = grouped_split(tiles, k, sig.m, sms)[1]
     elif plan.route == "splitk":
-        engine = splitk_engine(x.dtype, sig.m, n, k, bf16acc=bf16acc)
+        engine = splitk_engine(x.dtype, sig.m, n, k, bf16acc=bf16acc,
+                               tile=(plan.geometry.bm, plan.geometry.bn))
         if engine == "cluster":
             depth = splitk_cluster_split(cdiv(n, GROUPED_BN), k, sig.m,
                                          sms)[1]

@@ -78,7 +78,8 @@ def rigid_accumulate_kernel(a, b) -> torch.Tensor:
                                              torch.int8):
         raise TypeError(f"rigid_gemm: operands {a.dtype} x {b.dtype} "
                         f"unsupported")
-    engine = gemm_engine(a.dtype, *RIGID_TILE[:2], n, k, rigid=True)
+    engine = gemm_engine(a.dtype, *RIGID_TILE[:2], n, k, m=a.shape[0],
+                         rigid=True)
     acc = torch.empty(m, n, dtype=_acc_dtype(a), device=dev)
     if engine == "wgmma":
         a, b = tma_ready(a), tma_ready(b)

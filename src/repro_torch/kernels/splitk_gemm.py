@@ -4,7 +4,7 @@
 ``mte_gemm_splitk_pallas`` (``repro/kernels/splitk_gemm.py``): K is cut
 into slices, each slice's partial accumulator is summed over the slices,
 and the epilogue joins once, after the sum, so β·C and the bias are added
-once.  B is row-major (K, N) only.  Two engines, chosen by
+once.  B is row-major (K, N) only.  Three engines, chosen by
 :func:`repro_torch.core.geometry.splitk_engine` (never a fallback):
 
 - the cluster engine (``csrc/splitk_gemm_cluster.cu``, counter
@@ -18,11 +18,18 @@ once.  B is row-major (K, N) only.  Two engines, chosen by
   :func:`repro_torch.core.geometry.splitk_cluster_split` (``cluster_split``
   pins them), not from the plan's ``n_split``.  Plain version:
   :func:`splitk_cluster_torch`;
+- the SIMT f32 engine (``csrc/splitk_gemm.cu`` on
+  ``simt_f32_mainloop.cuh``, counter ``splitk_gemm_simt``) for f32
+  operands, M > 16, a plan tile of
+  :data:`~repro_torch.core.geometry.SIMT_TILES` and K and N multiples of
+  4 (the training backward's dB of a narrow weight), and
 - the tile loop (``csrc/splitk_gemm.cu``, counter ``splitk_gemm``) for
-  fp32, int8 and M > 16: ``n_split`` slices of ``k_per_split`` (a
-  multiple of the plan's ``bk``), each slice's partial in the accumulator
-  dtype into an (n_split, M, N) buffer; the sum over slices and the
-  epilogue run in plain PyTorch, as in JAX.  Plain version:
+  the rest (fp32 off that rule, int8, bf16 past 16 rows): both run
+  ``n_split`` slices of ``k_per_split`` (a multiple of the plan's
+  ``bk``), each slice's partial in the accumulator dtype into an
+  (n_split, M, N) buffer; the sum over slices and the epilogue run in
+  plain PyTorch, as in JAX.  Each slice is one FMA chain per output on
+  either, so their partials agree bit for bit.  Plain version:
   :func:`mte_gemm_splitk_torch`.
 
 Under ``bf16acc`` both keep the reference's split-K contract
@@ -49,7 +56,8 @@ import torch
 
 from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
 from repro_torch.core.geometry import (GROUPED_BK, GROUPED_BN, H100_SPEC,
-                                       MAX_CLUSTER, BlockGeometry, cdiv,
+                                       MAX_CLUSTER, TILE_LOOP_TILES,
+                                       BlockGeometry, cdiv,
                                        grouped_max_depth, round_up,
                                        splitk_cluster_split, splitk_engine)
 from repro_torch.kernels import build
@@ -63,6 +71,11 @@ __all__ = ["mte_gemm_splitk_kernel", "mte_gemm_splitk_torch",
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
              + [ctypes.c_long] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+# splitk_gemm_simt_launch: as splitk_gemm_launch without the operand and
+# partial types and the accumulator flag (f32 in, f32 partials).
+_SIMT_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                  + [ctypes.c_long] * 2 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p])
 _CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                      + [ctypes.c_long] * 2 + [ctypes.c_int] * 8
                      + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_float,
@@ -153,8 +166,9 @@ def splitk_cluster_torch(a, b, c=None, bias=None, *, n_split: int,
 
 
 def launch_partials(a, b, *, geom: BlockGeometry, n_split: int,
-                    acc_dtype) -> torch.Tensor:
-    """Launch the B2 kernel: the (n_split, M, N) partials on the card."""
+                    acc_dtype, engine: str) -> torch.Tensor:
+    """Launch the B2 kernel on ``engine`` (``"tile"`` or ``"simt"``): the
+    (n_split, M, N) partials on the card."""
     dev = a.device
     m, k = a.shape
     n = b.shape[1]
@@ -165,17 +179,25 @@ def launch_partials(a, b, *, geom: BlockGeometry, n_split: int,
                         f"unsupported")
     if bf16acc and a.dtype != torch.bfloat16:
         raise TypeError("splitk_gemm: bf16acc needs bf16 operands")
-    a = a.contiguous()
-    b = b.contiguous()
     bk, kps = splitk_layout(k, geom, n_split)
     partials = torch.empty(n_split, m, n, dtype=acc_dtype, device=dev)
-    lib, fn = build.entry("splitk_gemm", "splitk_gemm_launch", _ARGTYPES)
-    build.count_launch("splitk_gemm")
-    err = fn(a.data_ptr(), b.data_ptr(), partials.data_ptr(), m, n, k,
-             a.stride(0), b.stride(0), DTYPE_CODES[a.dtype],
-             DTYPE_CODES[acc_dtype], int(bf16acc), geom.bm, geom.bn, bk,
-             n_split, kps, build.stream_ptr(dev))
-    build.check(lib, err, "splitk_gemm")
+    if engine == "simt":
+        a, b = tma_ready(a), tma_ready(b)
+        lib, fn = build.entry("splitk_gemm", "splitk_gemm_simt_launch",
+                              _SIMT_ARGTYPES)
+        build.count_launch("splitk_gemm_simt")
+        err = fn(a.data_ptr(), b.data_ptr(), partials.data_ptr(), m, n, k,
+                 a.stride(0), b.stride(0), geom.bm, geom.bn, n_split, kps,
+                 build.stream_ptr(dev))
+    else:
+        a, b = a.contiguous(), b.contiguous()
+        lib, fn = build.entry("splitk_gemm", "splitk_gemm_launch", _ARGTYPES)
+        build.count_launch("splitk_gemm")
+        err = fn(a.data_ptr(), b.data_ptr(), partials.data_ptr(), m, n, k,
+                 a.stride(0), b.stride(0), DTYPE_CODES[a.dtype],
+                 DTYPE_CODES[acc_dtype], int(bf16acc), geom.bm, geom.bn, bk,
+                 n_split, kps, build.stream_ptr(dev))
+    build.check(lib, err, f"splitk_gemm[{engine}]")
     return partials
 
 
@@ -259,14 +281,20 @@ def mte_gemm_splitk_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
     names — the cluster engine in one launch (its own slices for
     ``split_rows`` rows, default M, pinned with ``cluster_split``;
     bf16acc blocks of :func:`~repro_torch.kernels.mte_gemm.bf16acc_block`
-    of ``geom.bk``), or the tile loop at ``n_split`` slices with the sum
-    and epilogue in PyTorch; CPU tensors run the plain version of the
-    same contract (see the module docstring)."""
+    of ``geom.bk``), or the SIMT f32 engine or the tile loop at
+    ``n_split`` slices with the sum and epilogue in PyTorch; CPU tensors
+    run the plain version of the same contract (see the module
+    docstring).  A tile no engine takes raises on either device."""
     dev = build.require_cuda(a, b, c, bias, what="splitk_gemm")
     m, n, k = _check(a, b, c, bias, epilogue)
     acc_dtype = _acc_dtype(a, acc_dtype)
     bf16acc = acc_dtype == torch.bfloat16
-    engine = splitk_engine(a.dtype, m, n, k, bf16acc=bf16acc)
+    engine = splitk_engine(a.dtype, m, n, k, bf16acc=bf16acc,
+                           tile=(geom.bm, geom.bn))
+    if engine == "tile" and (geom.bm, geom.bn) not in TILE_LOOP_TILES:
+        raise ValueError(f"splitk_gemm: no engine takes the tile "
+                         f"{geom.bm}x{geom.bn} for {a.dtype} operands at "
+                         f"M={m}, K={k}, N={n}")
     if dev is None:
         if engine == "cluster" and bf16acc:
             slices, depth = cluster_layout(m, n, k, None, cluster_split,
@@ -291,6 +319,6 @@ def mte_gemm_splitk_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
         raise ValueError("splitk_gemm: cluster_split pins the cluster "
                          "engine's slices; the tile loop takes n_split")
     parts = launch_partials(a, b, geom=geom, n_split=n_split,
-                            acc_dtype=acc_dtype)
+                            acc_dtype=acc_dtype, engine=engine)
     return epilogue.apply(_reduce(parts, acc_dtype), c_in=c,
                           bias=bias).to(out_dtype)

@@ -1642,12 +1642,14 @@ ttree = LazyModule("repro_torch.tree")
 def test_mte_gemm_backward_runs_on_the_kernels(card):
     """A bf16-format projection of f32 parameters with bias + gelu: the
     forward on B1's wgmma mainloop, the backward's recompute, dA and dB
-    as three f32 tile-loop launches; the gradients equal the CPU's
+    as three f32 launches of B1's SIMT engine, none on the tile loop (the
+    dB, 1024 x 1024 x 2048, on its 128 x 64 tile); the gradients equal
+    the CPU's
     (the plain versions): the f32 ones (w, bias) within 1e-4 of the
     largest entry, a's within 1e-2, as it is rounded to a's bf16 (one
     bf16 step where the two f32 sums straddle a rounding boundary)."""
     gen = torch.Generator().manual_seed(0)
-    m, k, n = 2048, 1024, 1024       # every grid fills the card: no split
+    m, k, n = 2048, 1024, 1024       # no plan splits K
     a = (torch.randn(m, k, generator=gen) / 32).to(torch.bfloat16)
     w = torch.randn(k, n, generator=gen) / 32
     bias = torch.randn(n, generator=gen)
@@ -1663,7 +1665,8 @@ def test_mte_gemm_backward_runs_on_the_kernels(card):
         grads[str(dev)] = [x.float().cpu() for x in g]
         after = build.launch_counts()
     assert after["mte_gemm_wgmma"] - before["mte_gemm_wgmma"] == 1
-    assert after["mte_gemm"] - before["mte_gemm"] == 3
+    assert after["mte_gemm_simt"] - before["mte_gemm_simt"] == 3
+    assert after["mte_gemm"] == before["mte_gemm"]
     for got, want, tol in zip(grads["cuda"], grads["cpu"],
                               (1e-2, 1e-4, 1e-4)):
         err = float((got - want).abs().max() / want.abs().max())
@@ -1712,4 +1715,131 @@ def test_train_steps_on_the_card_equal_the_cpu(card):
     for a, b in zip(out["cuda"][0], out["cpu"][0]):
         assert abs(a - b) <= 1e-5 * abs(b)
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) <= 1e-5
+
+
+SIMT_TILES = [(128, 128), (128, 64)]
+SIMT_SHAPES = [(100, 72, 132), (520, 2056, 1032), (17, 260, 36),
+               (257, 64, 1000), (4096, 256, 128)]
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["kn", "nk"])
+@pytest.mark.parametrize("tile", SIMT_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+def test_simt_engine_is_bit_equal_to_the_tile_loop(card, tile, transposed):
+    """B1's SIMT f32 engine against the tile loop pinned at 64 x 64, both
+    B layouts, ragged M (17, 100, 257, 520), K not a multiple of the
+    16-deep stage (36, 132, 1000, 1032), with the identity and a full
+    epilogue: bit for bit (each output is the same FMA chain over k), and
+    within 1e-4 x (1 + |ref|) of the plain version; the counters show
+    each engine ran."""
+    gen = torch.Generator().manual_seed(11)
+    sew = tgeometry.SEW.E32
+    geom = tgeometry.BlockGeometry(*tile, 256, 1, 1, transposed, sew, sew,
+                                   "mte")
+    loop = dataclasses.replace(geom, bm=64, bn=64)
+    full = tepilogue.Epilogue(alpha=0.7, beta=0.5, has_bias=True,
+                              softcap=20.0, activation="gelu")
+    before = build.launch_counts()
+    for m, n, k in SIMT_SHAPES:
+        assert tgeometry.gemm_engine(torch.float32, *tile, n, k,
+                                     m=m) == "simt"
+        a = torch.randn(m, k, generator=gen) / k ** 0.5
+        b = torch.randn(k, n, generator=gen)
+        c = torch.randn(m, n, generator=gen)
+        bias = torch.randn(n, generator=gen)
+        bk = (b.t().contiguous() if transposed else b).to(card)
+        for epi, c_, bias_ in ((tepilogue.Epilogue(), None, None),
+                               (full, c, bias)):
+            dev = [x.to(card) if x is not None else None
+                   for x in (a, c_, bias_)]
+            got = tgemm.mte_gemm_kernel(dev[0], bk, dev[1], dev[2],
+                                        geom=geom, epilogue=epi)
+            ref = tgemm.mte_gemm_kernel(dev[0], bk, dev[1], dev[2],
+                                        geom=loop, epilogue=epi)
+            assert torch.equal(got, ref), (m, n, k, epi)
+            want = tgemm.mte_gemm_torch(a, b, c_, bias_, geom=dataclasses.
+                                        replace(geom, transposed_b=False),
+                                        epilogue=epi)
+            got, want = got.cpu(), want
+            assert bool(((got - want).abs()
+                         <= 1e-4 * (1 + want.abs())).all()), (m, n, k)
+    after = build.launch_counts()
+    runs = 2 * len(SIMT_SHAPES)
+    assert after["mte_gemm_simt"] - before["mte_gemm_simt"] == runs
+    assert after["mte_gemm"] - before["mte_gemm"] == runs
+
+
+@pytest.mark.parametrize("tile", SIMT_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("m,n,k,n_split", [(2048, 256, 4096, 4),
+                                           (300, 200, 1000, 3),
+                                           (40, 128, 68, 2),
+                                           (33, 64, 36, 8)])
+def test_simt_splitk_matches_plain(card, tile, m, n, k, n_split):
+    """B2's split on the SIMT engine: within 1e-4 of its plain version
+    (the f32 tolerance of ``test_gemm_kernels_match_plain``), and equal
+    to the tile loop's split at the same slices (each slice the same FMA
+    chain, summed by the same pass); slices past K write zeros."""
+    gen = torch.Generator().manual_seed(n_split)
+    sew = tgeometry.SEW.E32
+    geom = tgeometry.BlockGeometry(*tile, 256, n_split, 1, False, sew, sew,
+                                   "mte")
+    a = torch.randn(m, k, generator=gen) / k ** 0.5
+    b = torch.randn(k, n, generator=gen)
+    assert tgeometry.splitk_engine(torch.float32, m, n, k,
+                                   tile=tile) == "simt"
+    before = build.launch_counts()
+    got = tsplitk.mte_gemm_splitk_kernel(a.to(card), b.to(card), geom=geom,
+                                         n_split=n_split)
+    mid = build.launch_counts()
+    ref = tsplitk.mte_gemm_splitk_kernel(
+        a.to(card), b.to(card), geom=dataclasses.replace(geom, bm=64, bn=64),
+        n_split=n_split)
+    _close(got, tsplitk.mte_gemm_splitk_torch(a, b, geom=geom,
+                                              n_split=n_split), 1e-4)
+    assert torch.equal(got, ref)
+    parts = tsplitk.launch_partials(a.to(card), b.to(card), geom=geom,
+                                    n_split=n_split,
+                                    acc_dtype=torch.float32, engine="simt")
+    _close(parts, tsplitk.splitk_partials_torch(a, b, geom=geom,
+                                                n_split=n_split), 1e-4)
+    live = -(-k // tsplitk.splitk_layout(k, geom, n_split)[1])
+    assert not parts[live:].any()
+    assert {k_ for k_ in mid if mid[k_] != before[k_]} == {"splitk_gemm_simt"}
+
+
+def test_f32_train_step_on_the_simt_engine_equals_the_cpu(card):
+    """A 4-layer f32 gemma_2b (reduced widths) over 4 x 32 tokens: every
+    GEMM of the step has 128 rows or more and widths that are multiples
+    of 4, so forward and backward run on the SIMT engine (B1, and B2
+    where a plan splits K) and none on the tile loops.  Loss within 1e-5
+    relative and every gradient leaf within 1e-4 relative Frobenius error
+    of the CPU's (chip_smoke.py's fp32 gate), after one AdamW step the
+    parameters within 1e-5."""
+    cfg = dataclasses.replace(tconfigs.get_config("gemma_2b").reduced(),
+                              n_layers=4)
+    tokens = torch.randint(0, cfg.vocab, (4, 32),
+                           generator=torch.Generator().manual_seed(4))
+    opt = topt.AdamWConfig(lr=1e-3)
+    out = {}
+    for dev in ("cpu", card):
+        params = tmodel.init_params(cfg, seed=0, device="cpu")
+        params = ttree.tree_map(lambda p: p.to(dev), params)
+        before = build.launch_counts()
+        metrics, grads = ttrainer.loss_and_grads(
+            params, {"tokens": tokens.to(dev)}, cfg)
+        after = build.launch_counts()
+        topt.adamw_update(params, grads, topt.init_opt_state(params), opt)
+        out[str(dev)] = (float(metrics["loss"]),
+                         [g.cpu() for g in ttree.leaves(grads)],
+                         [p.cpu() for p in ttree.leaves(params)])
+    ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert ran.get("mte_gemm_simt", 0) > 0, ran
+    assert not {"mte_gemm", "splitk_gemm"} & set(ran), ran
+    (lg, gg, pg), (lc, gc, pc) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc):
+        rel = float(torch.linalg.vector_norm(a - b)
+                    / (torch.linalg.vector_norm(b) + 1e-30))
+        assert rel <= 1e-4
+    for a, b in zip(pg, pc):
         assert float((a - b).abs().max()) <= 1e-5

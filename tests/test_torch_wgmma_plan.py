@@ -25,6 +25,7 @@ ttrace = LazyModule("repro_torch.graph.trace")
 
 WGMMA = [(64, 64), (64, 128), (64, 256), (128, 64), (128, 128), (128, 256)]
 LOOP = [(16, 128), (64, 64)]
+SIMT = [(128, 128), (128, 64)]
 
 
 def _sig(m, n_, k, fmt="bf16", policy="mte", group=1):
@@ -51,7 +52,7 @@ def _tiles(sig):
     (4, 16384, 2048, "bf16", False),      # decode: split-K's shapes
     (512, 2050, 2048, "bf16", False),     # N not a multiple of 8
     (512, 2048, 2044, "bf16", False),     # K not a multiple of 8
-    (512, 2048, 2048, "fp32", False),     # SIMT f32 stays on the loop
+    (512, 2048, 2048, "fp32", False),     # f32 gets the SIMT engine's
     (512, 2048, 2048, "int8", False),     # wgmma s8 needs K-major B
 ])
 def test_wgmma_tiles_offered_only_where_the_engine_runs(m, n_, k, fmt,
@@ -63,7 +64,10 @@ def test_wgmma_tiles_offered_only_where_the_engine_runs(m, n_, k, fmt,
                              else set())
         assert tiles == want
     else:
-        assert not wg and tiles <= set(LOOP)
+        # No wgmma tile; f32 past 16 rows gets the SIMT engine's tiles
+        # (128 x 64 too: 128 x 128 makes 64 tiles here).
+        simt = set(SIMT) if fmt == "fp32" else set()
+        assert wg == simt and tiles <= set(LOOP) | simt
 
 
 @pytest.mark.parametrize("m,n_,k", [(512, 256, 2048), (128, 64, 4096)])
@@ -103,7 +107,8 @@ def test_check_kernel_tile_accepts_exactly_the_compiled_set():
                     g = tgeometry.BlockGeometry(bm, bn, 64, split, 1, False,
                                                 sew, sew, "mte")
                     ok = (bm, bn) in LOOP or (
-                        (bm, bn) in WGMMA and split == 1 and group == 1)
+                        (bm, bn) in WGMMA and split == 1 and group == 1) or (
+                        (bm, bn) in SIMT and group == 1)
                     if ok:
                         tgeometry.check_kernel_tile(g, group)
                     else:
@@ -139,7 +144,8 @@ def test_check_kernel_tile_accepts_exactly_the_compiled_set():
 ])
 def test_gemm_engine_table(dtype, bm, bn, n_, k, bf16acc, rigid, want):
     call = lambda: tgeometry.gemm_engine(  # noqa: E731
-        getattr(torch, dtype), bm, bn, n_, k, bf16acc=bf16acc, rigid=rigid)
+        getattr(torch, dtype), bm, bn, n_, k, m=16 if bm == 16 else 512,
+        bf16acc=bf16acc, rigid=rigid)
     if want is None:
         with pytest.raises(ValueError, match="GEMM engine"):
             call()
