@@ -14,10 +14,12 @@ Phases (any failure raises and the script exits non-zero):
    tile loop, counter ``mte_gemm``), B2 on its three engines (the cluster
    split-K kernel, ``splitk_gemm_cluster``, the SIMT f32 mainloop,
    ``splitk_gemm_simt``, and the tile loop, ``splitk_gemm``), B3 on
-   both of its engines (the cluster split-K kernel, ``grouped_gemm_splitk``,
-   and the tile loop, ``grouped_gemm``), both halves of B8 (stage 1 on its
-   two engines, ``rigid_gemm_wgmma`` and ``rigid_gemm``, and
-   ``epilogue_pass``), B4 on both of its engines (the mma kernel,
+   its four engines (the cluster split-K kernel, ``grouped_gemm_splitk``,
+   the wgmma mainloop, ``grouped_gemm_wgmma``, the SIMT f32 mainloop,
+   ``grouped_gemm_simt``, and the tile loop, ``grouped_gemm``), both
+   halves of B8 (stage 1 on its three engines, ``rigid_gemm_wgmma``,
+   ``rigid_gemm_simt`` and ``rigid_gemm``, and ``epilogue_pass``), B4 on
+   both of its engines (the mma kernel,
    ``flash_decode_paged_mma``, and SIMT, ``flash_decode_paged``), B5 on
    both of its engines (TMA + wgmma, ``flash_attention_wgmma``, and SIMT,
    ``flash_attention``), B6 on both of its engines (the mma kernel over
@@ -55,9 +57,15 @@ Phases (any failure raises and the script exits non-zero):
    the copy timed apart) -- bit-equal to the tile loop at the same
    operands, warm and cold against an f32 ``torch.matmul`` and the tile
    loop's time; the SIMT engine at both its tiles, bit-equal to the tile
-   loop, in the small ragged fp32 shapes;
+   loop, in the small ragged fp32 shapes; B3 past 16 rows: the prefill
+   gate+up group and qwen15_4b's prefill q/k/v group (bf16acc) on the
+   wgmma engine (the gate+up also on the tile loop, pinned),
+   granite_moe_1b's experts in bf16 (a per-group x) and GroupedGemm's f32
+   dw on the SIMT engine; B8 stage 1 on the SIMT engine at the reduced
+   model's gate (bit-equal to the tile loop, also timed pinned) and the
+   amx training backward's GEMMs (``rigid_train_rows``);
    the old engines' own rows at the fp32
-   shapes phase 3 gives them, or at the prefill gate+up group) and at
+   shapes phase 3 gives them, or pinned at the main-path shape) and at
    small ragged shapes in every mode each kernel takes.  Each prints its
    max error beside the tolerance; the main-path shapes also print the
    kernel time (CUDA events, median of 10), its bound (max(operations /
@@ -75,7 +83,7 @@ Phases (any failure raises and the script exits non-zero):
    one seed, served by the port's engine on the card (kernels) and on the
    CPU (plain versions), in the default configuration (graph programs +
    the grouped decode q/k/v) and under ``gemm_policy="amx"`` (B8 stage 1
-   on its tile loop), one 4096-token chunk through it on the eager path
+   on the SIMT f32 engine), one 4096-token chunk through it on the eager path
    (B1's SIMT f32 engine: fp32 GEMMs past 16 rows; no tile-loop launch),
    and
    recurrentgemma_9b.reduced() in the default configuration (prompts
@@ -200,7 +208,9 @@ Phases (any failure raises and the script exits non-zero):
    held.
 
 7. Training (``TRAIN``).  (a) Card against CPU: reduced gemma_2b in
-   fp32, 3 steps of ``loss_and_grads`` + AdamW on both (losses, every
+   fp32, under ``gemm_policy="amx"`` (every GEMM on B8, stage 1 on the
+   SIMT f32 engine) and in the default, 3 steps of ``loss_and_grads`` +
+   AdamW on both (losses, every
    gradient leaf and the parameters after the steps), ``microbatches=2``
    against 1, and ``train_loop`` through a checkpoint and a restart
    against the same steps straight; gemma_2b at full width and depth 2 in
@@ -216,7 +226,14 @@ Phases (any failure raises and the script exits non-zero):
    device ms and idle share beside its bound (``train_bounds``: bf16
    operations at 989 TFLOP/s, f32 at 67, bytes at 3.35 TB/s), the
    launches per step per counter, each compiled program's grouping
-   decision, and the peak memory beside the reckoning.
+   decision, and the peak memory beside the reckoning.  (c) The same
+   workload under the rigid ``amx`` baseline: per step ``backward_gemms``
+   launches of B8 stage 1 on the SIMT f32 engine (``rigid_gemm_simt``),
+   none of B1, B2 or a tile loop, the forward on ``rigid_gemm_wgmma`` and
+   ``epilogue_pass``, the first loss within 2e-2 x (1 + |ref|) of (b)'s;
+   it prints the same figures and the profiled step's device time by
+   kernel (the unsplit k/v dB, the B^T copies, the accumulators' round
+   trips and the epilogue passes stand apart).
 
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -799,14 +816,27 @@ def train_gemm_phase(dev, rows):
         del a, w, dacc, at
 
 
+GROUPED_KERNEL = {"splitk": "grouped_gemm_splitk", "wgmma":
+                  "grouped_gemm_wgmma", "simt": "grouped_gemm_simt",
+                  "tile": "grouped_gemm"}
+
+
 def grouped_phase(dev, rows):
-    """B3 on both of its engines against its plain version: ragged shapes
-    in every mode on the tile loop (shared x with member widths, and a
-    per-group x) and, for bf16 into f32 with C <= 16, on the cluster
-    split-K engine (widths that straddle a tile, one of 0, a K the slice
-    depth does not divide; two calls bit-equal), then the main-path
-    shapes: the decode q/k/v groups of gemma_2b and recurrentgemma_9b
-    (split-K) and the prefill gate+up group (the tile loop)."""
+    """B3 on its four engines against its plain version: ragged shapes in
+    every mode on the tile loop (shared x with member widths, and a
+    per-group x), for bf16 into f32 with C <= 16 on the cluster split-K
+    engine (widths that straddle a tile, one of 0, a K the slice depth
+    does not divide; two calls bit-equal), for bf16 past 16 rows on the
+    wgmma engine at three tiles (C not a multiple of 64, an N tail, a K
+    not a multiple of 64, widths that straddle a tile and one of 0,
+    broadcast and per-group x, bf16acc; widths' columns exactly 0) and
+    for f32 past 16 rows on the SIMT engine at both its tiles (bit-equal
+    to the tile loop pinned at 64 x 64), then the main-path shapes: the
+    decode q/k/v groups of gemma_2b and recurrentgemma_9b (split-K), the
+    prefill gate+up group and qwen15_4b's prefill q/k/v group under
+    bf16acc (wgmma; the gate+up group also on the tile loop, pinned, in
+    the same run), granite_moe_1b's expert GEMMs in bf16 with a per-group
+    x (wgmma), and GroupedGemm's f32 dw (SIMT)."""
     import torch
     from repro_torch.core.autotune import (GemmSignature, PlanCache,
                                            plan_engine)
@@ -814,7 +844,8 @@ def grouped_phase(dev, rows):
     from repro_torch.core.geometry import (BlockGeometry, SEW,
                                            grouped_engine)
     from repro_torch.graph import stack_group_weights
-    from repro_torch.kernels.grouped_gemm import (grouped_gemm_kernel,
+    from repro_torch.kernels.grouped_gemm import (MAX_WIDTHS,
+                                                  grouped_gemm_kernel,
                                                   grouped_gemm_torch,
                                                   grouped_splitk_torch,
                                                   split_layout)
@@ -839,7 +870,23 @@ def grouped_phase(dev, rows):
             x, w, n_split=slices, depth=depth,
             rbk=bf16acc_block(kw["geom"].bk, k), **pkw)
 
+    def zero_past_widths(name, got, widths):
+        for i, wd in enumerate(widths or ()):
+            require(bool((got[i, :, wd:] == 0).all()),
+                    f"{name}: member {i}'s columns past {wd} not 0")
+
     gen = torch.Generator(device=dev).manual_seed(4)
+
+    def operands(g, c, k, n, dt):
+        if dt == torch.int8:
+            return (torch.randint(-127, 128, (g, c, k), generator=gen,
+                                  device=dev, dtype=dt),
+                    torch.randint(-127, 128, (g, k, n), generator=gen,
+                                  device=dev, dtype=dt))
+        return ((torch.randn(g, c, k, generator=gen, device=dev)
+                 / math.sqrt(k)).to(dt),
+                torch.randn(g, k, n, generator=gen, device=dev).to(dt))
+
     modes = [("fp32", torch.float32, None, torch.float32, 1e-4),
              ("bf16", torch.bfloat16, None, torch.bfloat16, 2e-2),
              ("bf16acc", torch.bfloat16, torch.bfloat16, torch.float32,
@@ -851,76 +898,98 @@ def grouped_phase(dev, rows):
               (8, 16, 1000, 392, False, (392, 40, 129, 0, 8, 300, 256,
                                          500)),
               (2, 1, 130, 136, True, None)]
+    # Past 16 rows on the pipelined engines: C not a multiple of 64, N a
+    # tail past the last 128- and 256-column tile, K not a multiple of 64
+    # (f32: nor of 16), widths that straddle a tile and one of 0.
+    piped = [(3, 100, 1000, 392, True, (392, 129, 0)),
+             (2, 200, 520, 264, False, None),
+             (4, 64, 1032, 392, False, (392, 40, 300, 0))]
     for label, dt, acc, out_dt, tol in modes:
-        cases = ragged + (splitk if label in ("bf16", "bf16acc") else [])
-        for g, c, k, n, shared, widths in cases:
-            if dt == torch.int8:
-                x = torch.randint(-127, 128, (g, c, k), generator=gen,
-                                  device=dev, dtype=dt)
-                w = torch.randint(-127, 128, (g, k, n), generator=gen,
-                                  device=dev, dtype=dt)
-                epi = Epilogue()
-            else:
-                x = (torch.randn(g, c, k, generator=gen, device=dev)
-                     / math.sqrt(k)).to(dt)
-                w = torch.randn(g, k, n, generator=gen, device=dev).to(dt)
-                epi = Epilogue(alpha=0.7, softcap=20.0, activation="gelu")
+        cases = [(c, (16, 128) if c[1] <= 16 else (64, 64)) for c in ragged]
+        if label in ("bf16", "bf16acc"):
+            cases += [(c, (16, 128)) for c in splitk]
+            tiles = ((64, 64), (128, 128)) + (
+                ((128, 256),) if label == "bf16" else ())
+            cases += [(c, t) for c in piped for t in tiles]
+        if label == "fp32":
+            cases += [(c, t) for c in piped for t in ((128, 128),
+                                                       (128, 64))]
+        for (g, c, k, n, shared, widths), (bm, bn) in cases:
+            x, w = operands(g, c, k, n, dt)
+            epi = (Epilogue() if dt == torch.int8 else
+                   Epilogue(alpha=0.7, softcap=20.0, activation="gelu"))
             if shared:
                 x = x[:1].expand(g, c, k)
                 widths = widths or [n, n // 3, n // 2 + 1][:g]
-            bm, bn = (16, 128) if c <= 16 else (64, 64)
             geom = BlockGeometry(bm, bn, 64, 1, 1, False, SEW.E32, SEW.E32,
                                  "mte")
             kw = dict(geom=geom, epilogue=epi, out_dtype=out_dt,
                       acc_dtype=acc, widths=widths)
-            engine = grouped_engine(dt, c, n, k,
-                                    bf16acc=acc is not None)
+            engine = grouped_engine(dt, c, n, k, bf16acc=acc is not None,
+                                    tile=(bm, bn))
+            kernel = GROUPED_KERNEL[engine]
             got = grouped_gemm_kernel(x, w, **kw)
-            kernel = "grouped_gemm_splitk" if engine == "splitk" \
-                else "grouped_gemm"
-            shape = (f"{label} G={g} {c}x{n}x{k}"
+            shape = (f"{label} G={g} {c}x{n}x{k} {bm}x{bn}"
                      f"{' shared-x' if shared else ''}"
                      f"{' widths' if widths else ''}")
             err = check(f"{kernel} {shape}", got, plain_of(x, w, kw)(),
-                        tol)
+                        1e-2 if engine == "wgmma" and acc is None else tol)
             rows.append({"kernel": kernel, "shape": shape,
                          "max_abs_err": err, "tol": tol})
-            if engine == "splitk":
+            zero_past_widths(f"{kernel} {shape}", got, widths)
+            if engine in ("splitk", "wgmma"):
                 require(torch.equal(got, grouped_gemm_kernel(x, w, **kw)),
                         f"{kernel}: two calls differ")
+            if engine == "simt":
+                loop = dict(kw, geom=dataclasses.replace(geom, bm=64,
+                                                         bn=64))
+                require(torch.equal(got, grouped_gemm_kernel(x, w, **loop)),
+                        f"{kernel} {shape}: not bit-equal to the tile loop")
+                log("    bit-equal to the tile loop (64x64)")
 
     cache = PlanCache()
 
-    def main_path(label, g, c, k, widths, out_dt, fmt="bf16"):
+    def main_path(label, g, c, k, widths, out_dt, fmt="bf16", shared=True,
+                  tile_loop=False):
+        """One main-path group through its plan: checked (f32 accumulator
+        1e-2 x (1 + |ref|) in bf16; bf16acc 3e-2) and timed beside its
+        bound, its plain version and ``torch.bmm``; ``tile_loop``: the
+        tile loop too, pinned at 64 x 64, as a row of its own."""
         n = max(widths)
-        x = (torch.randn(c, k, generator=gen, device=dev)
-             / math.sqrt(k)).to(torch.bfloat16)
         ws = [torch.randn(k, wd, generator=gen, device=dev)
               .to(torch.bfloat16) for wd in widths]
         wstack = stack_group_weights(ws)
-        xg = x[None].expand(g, c, k)
+        if shared:
+            x = (torch.randn(c, k, generator=gen, device=dev)
+                 / math.sqrt(k)).to(torch.bfloat16)
+            xg = x[None].expand(g, c, k)
+        else:
+            xg = (torch.randn(g, c, k, generator=gen, device=dev)
+                  / math.sqrt(k)).to(torch.bfloat16)
         sig = GemmSignature.make(c, n, k, "bfloat16", out_dt, Epilogue(),
                                  group=g, fmt=fmt)
         plan = cache.plan(sig)
         engine = plan_engine(sig, plan.geometry)
-        name = "grouped_gemm_splitk" if engine == "splitk" \
-            else "grouped_gemm"
-        kw = dict(geom=plan.geometry, out_dtype=out_dt,
-                  widths=list(widths),
+        name = GROUPED_KERNEL[engine]
+        live_w = list(widths) if g <= MAX_WIDTHS else None
+        kw = dict(geom=plan.geometry, out_dtype=out_dt, widths=live_w,
                   acc_dtype=torch.bfloat16 if fmt == "bf16acc" else None)
-        tol = 3e-2 if fmt == "bf16acc" else 2e-2
+        tol = 3e-2 if fmt == "bf16acc" else (
+            1e-2 if engine == "wgmma" else 2e-2)
         label += " bf16acc" if fmt == "bf16acc" else ""
         run = lambda: grouped_gemm_kernel(xg, wstack, **kw)  # noqa: E731
         plain = plain_of(xg, wstack, kw)
         got = run()
         err = check(f"{name} main-path {label} [{plan.describe()}, "
                     f"engine {engine}]", got, plain(), tol)
-        if engine == "splitk":
+        zero_past_widths(f"{name} {label}", got, live_w)
+        if engine in ("splitk", "wgmma"):
             require(torch.equal(got, run()), f"{name}: two calls differ")
         live = sum(widths)
         flops = 2.0 * c * k * live
         out_b = torch.empty((), dtype=out_dt).element_size()
-        nbytes = 2.0 * (c * k + k * live) + out_b * g * c * n
+        nbytes = (2.0 * (c * k * (1 if shared else g) + k * live)
+                  + out_b * g * c * n)
         lib = lambda: torch.bmm(xg, wstack)  # noqa: E731
         row = {"kernel": name, "shape": label,
                "plan": plan.describe(), "engine": engine,
@@ -943,13 +1012,34 @@ def grouped_phase(dev, rows):
                                      plain_of(xg, wstack, kw, s)(), tol))
                 row["ms_by_split"][s] = time_ms(pinned)
             row["max_abs_err"] = err
+        else:
+            row["cold_ms"] = time_ms_cold(run)
         rows.append(row)
-        log(f"    time {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}; live columns only), plain "
-            f"{row['plain_ms']:.4f} ms, torch.bmm {row['library_ms']:.4f} ms"
-            + (f"; L2 cold {row['cold_ms']:.4f} ms, torch.bmm "
-               f"{row['library_cold_ms']:.4f} ms; by split "
-               f"{row['ms_by_split']}" if engine == "splitk" else ""))
+        lib_ms = row["library_ms"]
+        log(f"    time {row['ms']:.4f} ms (L2 cold {row['cold_ms']:.4f}), "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; live "
+            f"columns only), plain {row['plain_ms']:.4f} ms, torch.bmm "
+            f"{lib_ms:.4f} ms ({row['ms'] / lib_ms:.2f}x"
+            + (", another function under bf16acc)" if fmt == "bf16acc"
+               else ")")
+            + (f"; L2 cold torch.bmm {row['library_cold_ms']:.4f} ms; by "
+               f"split {row['ms_by_split']}" if engine == "splitk" else ""))
+        if tile_loop:
+            lkw = dict(kw, geom=dataclasses.replace(plan.geometry, bm=64,
+                                                    bn=64))
+            loop = lambda: grouped_gemm_kernel(  # noqa: E731
+                xg, wstack, engine="tile", **lkw)
+            lrow = dict(row, kernel="grouped_gemm", engine="tile",
+                        shape=f"{label} (tile loop)", plan="pinned 64x64",
+                        max_abs_err=check(f"grouped_gemm main-path {label} "
+                                          f"(tile loop, 64x64)", loop(),
+                                          plain(), 2e-2),
+                        ms=time_ms(loop), cold_ms=time_ms_cold(loop))
+            lrow.pop("ms_by_split", None)
+            rows.append(lrow)
+            log(f"    the tile loop at 64x64: {lrow['ms']:.4f} ms (L2 cold "
+                f"{lrow['cold_ms']:.4f}); the {engine} engine "
+                f"{lrow['ms'] / row['ms']:.2f}x faster")
 
     # The decode steps' q/k/v groups over the prestacked weights (k and v
     # padded from 256 to q's width; their padding tiles are skipped), and
@@ -970,19 +1060,81 @@ def grouped_phase(dev, rows):
     main_path("s2 qkv decode 3x4x4608x4608", 3, 4, 4608, (4608, 512, 512),
               torch.bfloat16)
     main_path("gate+up prefill 2x512x2048x16384", 2, 512, 2048,
-              (16384, 16384), torch.float32)
+              (16384, 16384), torch.float32, tile_loop=True)
+    # qwen15_4b's prefill q/k/v (one 512-token chunk) as one group under
+    # its bf16acc format: the programs keep it ungrouped (grouped plans
+    # keep the tile loop's price), the row shows what a group would take.
+    main_path("qkv prefill 3x512x2560x2560", 3, 512, 2560, (2560,) * 3,
+              torch.bfloat16, fmt="bf16acc")
+    # granite_moe_1b's experts in bf16 (its config is int8; this is the
+    # bf16 path the int8 wgmma engine will extend): 32 experts of capacity
+    # 1024 (4096 tokens x top-8 / 32), each its own x.
+    main_path("moe gate 32x1024x1024x512", 32, 1024, 1024, (512,) * 32,
+              torch.bfloat16, shared=False)
+    main_path("moe down 32x1024x512x1024", 32, 1024, 512, (1024,) * 32,
+              torch.bfloat16, shared=False)
+
+    # GroupedGemm's backward in f32 at gemma_2b's gate+up group over 4096
+    # tokens: dw = x^T (2, 2048, 4096) @ dacc (2, 4096, 16384), on the
+    # SIMT engine through the plan the backward gets (raw_grouped).
+    from repro_torch.kernels.autodiff import raw_grouped
+    from repro_torch.core.autotune import get_plan
+    g, c, k, n = 2, 2048, 4096, 16384
+    xt = torch.randn(g, c, k, generator=gen, device=dev) / math.sqrt(k)
+    dacc = torch.randn(g, k, n, generator=gen, device=dev) / math.sqrt(n)
+    plan = get_plan(c, n, k, torch.float32, torch.float32, group=g)
+    engine = plan_engine(plan.signature, plan.geometry)
+    name = GROUPED_KERNEL[engine]
+    label = f"dw fp32 {g}x{c}x{k}x{n}"
+    run = lambda: raw_grouped(xt, dacc)  # noqa: E731
+    plain = lambda: grouped_gemm_torch(  # noqa: E731
+        xt, dacc, geom=plan.geometry)
+    got, want = run(), plain()
+    err = check(f"{name} main-path {label} [{plan.describe()}, engine "
+                f"{engine}]", got, want, 1e-4)
+    require(engine == "simt", f"{label} plans onto {engine}, not the SIMT "
+            f"f32 engine")
+    rel = _frobenius(got, want)
+    log(f"    relative Frobenius error {rel:.3e} (tol 1e-5)")
+    require(rel <= 1e-5, f"{name} {label}: relative error {rel}")
+    del got, want
+    flops = 2.0 * g * c * k * n
+    nbytes = 4.0 * g * (c * k + k * n + c * n)
+    lib = lambda: torch.bmm(xt, dacc)  # noqa: E731
+    row = {"kernel": name, "shape": label, "engine": engine,
+           "plan": plan.describe(), "max_abs_err": err, "tol": 1e-4,
+           "rel_err": rel, "rel_tol": 1e-5,
+           "ms": time_ms(run, iters=5), "cold_ms": time_ms_cold(run, 5),
+           "plain_ms": time_ms(plain, iters=5),
+           "bound_ms": bound_ms(flops, nbytes, PEAK["fp32"]),
+           "bound_by": bound_by(flops, nbytes, PEAK["fp32"]),
+           "library_ms": time_ms(lib, iters=5), "library": "torch.bmm (f32)"}
+    row["tflops"] = flops / row["ms"] / 1e9
+    rows.append(row)
+    log(f"    time {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s), L2 cold "
+        f"{row['cold_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, torch.bmm "
+        f"f32 {row['library_ms']:.4f} ms "
+        f"({row['ms'] / row['library_ms']:.2f}x)")
+    del xt, dacc
 
 
 def rigid_phase(dev, rows):
     """Both halves of B8 against their plain versions: ragged shapes in
     every mode (a rigid route has no narrow accumulator: bf16acc runs as
-    bf16; TMA-aligned bf16 shapes run stage 1 on the wgmma engine, the
-    others on the tile loop), then the main path's gate projection with
-    its GeGLU epilogue (the pass also with beta*C + bias + softcap, and at
-    the decode gate's 4 rows), stage 1 also at recurrentgemma_9b's prefill
-    gate and at a 4-slot decode GEMV (the 128-row tile's padding), and the
-    tile loop's row at the reduced fp32 model's prefill gate, where phase
-    3 runs it."""
+    bf16; TMA-aligned bf16 shapes run stage 1 on the wgmma engine, f32
+    with K and N multiples of 4 on the SIMT f32 engine at every M, bit for
+    bit equal to the tile loop pinned, the others on the tile loop), then
+    the main path's gate projection with its GeGLU epilogue (the pass also
+    with beta*C + bias + softcap, and at the decode gate's 4 rows), stage
+    1 also at recurrentgemma_9b's prefill gate and at a 4-slot decode GEMV
+    (the 128-row tile's padding), the reduced fp32 model's prefill gate
+    (phase 3's amx run) on the SIMT engine and on the tile loop pinned,
+    and the training backward's f32 GEMMs under amx at gemma_2b's full
+    width over 4096 tokens through ``autodiff.raw_gemm`` (the gate's
+    recompute; its dA with the B^T copy the rigid route needs, timed
+    apart; the q/o dB; the k/v dB, unsplit on the rigid tile) against
+    their plain versions and an f32 ``torch.matmul``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.epilogue import Epilogue
@@ -998,7 +1150,8 @@ def rigid_phase(dev, rows):
                            ("bf16", torch.bfloat16, 1e-4),
                            ("int8", torch.int8, 0.0)]:
         for m, n, k in [(4, 300, 1000), (130, 257, 65), (100, 70, 130),
-                        (520, 2056, 1032), (64, 64, 64), (4, 16384, 2048)]:
+                        (520, 2056, 1032), (64, 64, 64), (4, 16384, 2048),
+                        (16, 392, 1000), (130, 264, 520)]:
             eng = gemm_engine(dt, *RIGID_TILE[:2], n, k, m=m, rigid=True)
             if dt == torch.int8:
                 a = torch.randint(-127, 128, (m, k), generator=gen,
@@ -1014,27 +1167,43 @@ def rigid_phase(dev, rows):
             b = torch.randn(k, n, generator=gen, device=dev).to(dt)
             c = torch.randn(m, n, generator=gen, device=dev)
             bias = torch.randn(n, generator=gen, device=dev)
+            acc1 = rigid_accumulate_kernel(a, b)
             check(f"rigid_gemm[{eng}] {label} {m}x{n}x{k} (stage 1, f32 "
-                  f"accumulator)", rigid_accumulate_kernel(a, b),
-                  rigid_accumulate_torch(a, b), tol)
+                  f"accumulator)", acc1, rigid_accumulate_torch(a, b), tol)
+            if eng == "simt":
+                require(torch.equal(acc1, rigid_accumulate_kernel(
+                    a, b, engine="tile")), f"rigid_gemm_simt {m}x{n}x{k}: "
+                    f"not bit-equal to the tile loop")
+                log("    bit-equal to the tile loop")
             check(f"rigid_gemm[{eng}] {label} {m}x{n}x{k} (both stages)",
                   rigid_gemm_kernel(a, b, c, bias, epilogue=epi_full),
                   rigid_gemm_torch(a, b, c, bias, epilogue=epi_full), tol)
 
-    def stage1(label, m, n, k, dt=torch.bfloat16):
+    kernel_of = {"wgmma": "rigid_gemm_wgmma", "simt": "rigid_gemm_simt",
+                 "tile": "rigid_gemm"}
+
+    def stage1(label, m, n, k, dt=torch.bfloat16, engine=None):
         """Stage 1 at one main-path shape: check (the f32 accumulator
-        within 1e-4) and time it; returns its operands and accumulator."""
+        within 1e-4; on the SIMT engine bit-equal to the tile loop too)
+        and time it; ``engine`` pins it.  Returns its operands and
+        accumulator."""
         a = (torch.randn(m, k, generator=gen, device=dev)
              / math.sqrt(k)).to(dt)
         b = torch.randn(k, n, generator=gen, device=dev).to(dt)
-        eng = gemm_engine(dt, *RIGID_TILE[:2], n, k, m=m, rigid=True)
-        kern = "rigid_gemm_wgmma" if eng == "wgmma" else "rigid_gemm"
-        run = lambda: rigid_accumulate_kernel(a, b)  # noqa: E731
+        eng = engine or gemm_engine(dt, *RIGID_TILE[:2], n, k, m=m,
+                                    rigid=True)
+        kern = kernel_of[eng]
+        run = lambda: rigid_accumulate_kernel(a, b, engine=eng)  # noqa
         plain = lambda: rigid_accumulate_torch(a, b)  # noqa: E731
         acc = run()
-        shape = f"{label} {m}x{n}x{k}"
+        shape = f"{label} {m}x{n}x{k}" + (" (tile loop)" if engine else "")
         err = check(f"{kern} main-path {shape} (stage 1, f32 accumulator)",
                     acc, plain(), 1e-4)
+        if eng == "simt":
+            require(torch.equal(acc, rigid_accumulate_kernel(
+                a, b, engine="tile")), f"{kern} {shape}: not bit-equal to "
+                f"the tile loop")
+            log("    bit-equal to the tile loop")
         flops = 2.0 * m * n * k
         nbytes = a.element_size() * (m * k + k * n) + 4.0 * m * n
         peak = PEAK["bf16" if dt == torch.bfloat16 else "fp32"]
@@ -1100,6 +1269,92 @@ def rigid_phase(dev, rows):
     stage1("rg gate", 512, 12288, 4096)
     stage1("decode gate", 4, 16384, 2048)
     stage1("gate fp32", 16, 256, 128, dt=torch.float32)  # phase 3's amx
+    stage1("gate fp32", 16, 256, 128, dt=torch.float32, engine="tile")
+    rigid_train_rows(dev, rows, gen)
+
+
+def rigid_train_rows(dev, rows, gen):
+    """The training backward's f32 GEMMs on the rigid route at gemma_2b's
+    full width over 4096 tokens, each through ``autodiff.raw_gemm`` with
+    ``policy="amx"`` (phase 7c's route): the gate's accumulator recompute
+    (4096 x 16384 x 2048), the gate's dA (its B^T copied row-major first,
+    the rigid tile reading a row-major B only; the copy timed apart), the
+    q/o dB (2048 x 2048 x 4096) and the k/v dB (2048 x 256 x 4096: 32
+    tiles of the unsplit rigid tile for 132 SMs).  Each must run the SIMT
+    f32 engine; against its plain version (1e-4 x (1 + |ref|), relative
+    Frobenius error 1e-5), warm and with the L2 cold, beside its bound and
+    an f32 ``torch.matmul`` (the tile loop is too slow to time here)."""
+    import torch
+    from repro_torch.core.autotune import get_plan, plan_engine
+    from repro_torch.kernels.autodiff import _transposed, raw_gemm
+    from repro_torch.kernels.rigid_gemm import rigid_accumulate_torch
+
+    tokens = 4096
+
+    def row(label, x, y, transposed, lib, copy_ms=None):
+        m, k = x.shape
+        n = y.shape[0] if transposed else y.shape[1]
+        plan = get_plan(m, n, k, torch.float32, torch.float32,
+                        policy="amx")
+        engine = plan_engine(plan.signature, plan.geometry)
+        require(engine == "simt", f"amx {label} plans onto {engine}")
+        run = lambda: raw_gemm(x, y, "amx",  # noqa: E731
+                               transposed_b=transposed)
+        yp = y.t().contiguous() if transposed else y
+        plain = lambda: rigid_accumulate_torch(x, yp)  # noqa: E731
+        shape = f"train amx {label} fp32 {m}x{n}x{k}"
+        got, want = run(), plain()
+        err = check(f"rigid_gemm_simt main-path {shape} [{plan.describe()}"
+                    f", engine {engine}]", got, want, 1e-4)
+        rel = _frobenius(got, want)
+        log(f"    relative Frobenius error {rel:.3e} (tol 1e-5)")
+        require(rel <= 1e-5, f"rigid_gemm_simt {shape}: relative error "
+                f"{rel}")
+        del got, want
+        flops = 2.0 * m * n * k
+        nbytes = 4.0 * (m * k + k * n + m * n)
+        r = {"kernel": "rigid_gemm_simt", "shape": shape, "engine": engine,
+             "plan": plan.describe(), "max_abs_err": err, "tol": 1e-4,
+             "rel_err": rel, "rel_tol": 1e-5,
+             "ms": time_ms(run, iters=5), "cold_ms": time_ms_cold(run, 5),
+             "plain_ms": time_ms(plain, iters=5),
+             "bound_ms": bound_ms(flops, nbytes, PEAK["fp32"]),
+             "bound_by": bound_by(flops, nbytes, PEAK["fp32"]),
+             "library_ms": time_ms(lib, iters=5),
+             "library_cold_ms": time_ms_cold(lib, 5),
+             "library": "torch.matmul (f32)"}
+        r["tflops"] = flops / r["ms"] / 1e9
+        if copy_ms is not None:
+            r["transpose_copy_ms"] = copy_ms
+        rows.append(r)
+        log(f"    time {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s; the "
+            f"B^T copy included where there is one), L2 cold "
+            f"{r['cold_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, torch.matmul "
+            f"f32 {r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x)"
+            + (f"; the copy {copy_ms:.4f} ms" if copy_ms is not None
+               else ""))
+
+    for name, d_in, d_out in (("gate", 2048, 16384), ("q/o", 2048, 2048),
+                              ("k/v", 2048, 256)):
+        a = (torch.randn(tokens, d_in, generator=gen, device=dev)
+             / math.sqrt(d_in))
+        w = (torch.randn(d_in, d_out, generator=gen, device=dev)
+             / math.sqrt(d_in))
+        dacc = (torch.randn(tokens, d_out, generator=gen, device=dev)
+                / math.sqrt(d_out))
+        if name == "gate":
+            row(f"{name} recompute", a, w, False,
+                lambda: torch.matmul(a, w))
+            row(f"{name} dA", dacc, w, True,
+                lambda: torch.matmul(dacc, w.t()),
+                time_ms(lambda: w.t().contiguous()))
+        else:
+            at = _transposed(a, torch.float32)
+            row(f"{name} dB", at, dacc, False,
+                lambda: torch.matmul(a.t(), dacc))
+            del at
+        del a, w, dacc
 
 
 def paged_inputs(dev, *, b, h, hkv, d, page, lens, dtype, gen, stale=False):
@@ -1695,18 +1950,21 @@ PATH_KERNELS = {
 # engine -- not on the tile loops, the SIMT kernels or B7's direct engine.
 NOT_ON_PATH = {
     "default": ("mte_gemm", "splitk_gemm", "grouped_gemm",
-                "flash_decode_paged", "flash_attention"),
-    "amx": ("rigid_gemm", "flash_decode_paged", "flash_attention"),
+                "grouped_gemm_simt", "flash_decode_paged",
+                "flash_attention"),
+    "amx": ("rigid_gemm", "rigid_gemm_simt", "flash_decode_paged",
+            "flash_attention"),
     "eager": ("mte_gemm", "splitk_gemm", "flash_decode_paged",
               "flash_attention"),
     "recurrentgemma": ("mte_gemm", "splitk_gemm", "grouped_gemm",
-                       "flash_decode", "rglru_scan"),
+                       "grouped_gemm_simt", "flash_decode", "rglru_scan"),
     "gemma2": ("mte_gemm", "splitk_gemm", "grouped_gemm",
-               "flash_decode_paged", "flash_decode", "flash_attention"),
-    "qwen": ("mte_gemm", "splitk_gemm", "grouped_gemm", "flash_decode_paged",
-             "flash_attention"),
+               "grouped_gemm_simt", "flash_decode_paged", "flash_decode",
+               "flash_attention"),
+    "qwen": ("mte_gemm", "splitk_gemm", "grouped_gemm", "grouped_gemm_simt",
+             "flash_decode_paged", "flash_attention"),
     "starcoder2": ("mte_gemm", "splitk_gemm", "grouped_gemm",
-                   "flash_decode"),
+                   "grouped_gemm_simt", "flash_decode"),
 }
 # Launches of the new engines per profiled decode step: gemma_2b's 18
 # layers run B2 on o, gate, up and down (and on q, k, v on the eager path)
@@ -1826,7 +2084,8 @@ def reduced_phase(dev):
     """gemma_2b.reduced() in fp32, card against CPU, in the default and
     ``amx`` configurations; returns the card's launch counts of each
     engine run (keys ``reduced-default``, ``reduced-amx``): fp32 runs B2
-    and B8 stage 1 on their tile loops, whose launches count here."""
+    and B3 on their tile loops at C <= 16 and B8 stage 1 on the SIMT f32
+    engine, whose launches count here."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1892,7 +2151,7 @@ def reduced_phase(dev):
                 path_counts[f"reduced-{name}"] = counts
                 marks = (("splitk_gemm", "grouped_gemm",
                           "flash_decode_paged", "flash_attention")
-                         if name == "default" else ("rigid_gemm",))
+                         if name == "default" else ("rigid_gemm_simt",))
                 for mark in marks:
                     require(counts[mark] > 0,
                             f"[{name}] {mark} not launched on the card")
@@ -3760,7 +4019,8 @@ def compare_grads(label, got, want, tol):
 
 
 def training_card_phase(dev):
-    """Phase 7a, card against CPU.  reduced gemma_2b in fp32: 3 steps of
+    """Phase 7a, card against CPU.  reduced gemma_2b in fp32, under the
+    rigid ``amx`` policy and in the port's default: 3 steps of
     ``loss_and_grads`` + ``adamw_update`` from one seed on both (each
     step's loss within 1e-5 relative, every gradient leaf within
     ``TRAIN_GRAD_TOL["fp32"]``, the parameters after the steps within
@@ -3775,7 +4035,7 @@ def training_card_phase(dev):
     ``TRAIN_GRAD_TOL["bf16"]``, and the card's AdamW update of the card's
     gradients equal to the CPU's update of the same gradients within
     1e-6.  Returns the card's launch counts (``train-reduced``,
-    ``train-depth2``)."""
+    ``train-reduced-amx``, ``train-depth2``)."""
     import tempfile
     import torch
     from repro_torch.configs import get_config
@@ -3788,38 +4048,44 @@ def training_card_phase(dev):
     from repro_torch.tree import leaves
 
     counts = {}
-    cfg = get_config("gemma_2b").reduced()
-    reset_planning()
-    sides = {}
-    for device in (dev, "cpu"):
-        params = model_lib.init_params(cfg, seed=0, device="cpu")
-        params = to_device(params, device)
-        sides[str(device)] = (params, opt_lib.init_opt_state(params))
-    data = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=32,
+    base = get_config("gemma_2b").reduced()
+    data = SyntheticDataset(DataConfig(vocab=base.vocab, seq_len=32,
                                        global_batch=4, seed=0))
     opt_cfg = opt_lib.AdamWConfig(lr=1e-3)
-    build.reset_launch_counts()
-    for step in range(3):
-        batch = data.batch(step)
-        out = {}
-        for device, (params, state) in sides.items():
-            metrics, grads = trainer.loss_and_grads(
-                params, to_device(batch, device), cfg)
-            out[device] = (float(metrics["loss"]), grads)
-            opt_lib.adamw_update(params, grads, state, opt_cfg)
-        (lg, gg), (lc, gc_) = out[str(dev)], out["cpu"]
-        log(f"  reduced fp32 step {step}: loss cuda {lg:.6f} cpu {lc:.6f}")
-        require(abs(lg - lc) <= 1e-5 * abs(lc), f"step {step}: loss {lg} "
-                f"against {lc}")
-        compare_grads(f"reduced fp32 step {step}", gg, gc_,
-                      TRAIN_GRAD_TOL["fp32"])
-    torch.cuda.synchronize()
-    counts["train-reduced"] = build.launch_counts()
-    perr = max(max_err(a.cpu(), b) for a, b in zip(
-        leaves(sides[str(dev)][0]), leaves(sides["cpu"][0])))
-    log(f"  reduced fp32 params after 3 steps cuda vs cpu: max_abs_err="
-        f"{perr:.3e} tol=1e-5")
-    require(perr <= 1e-5, f"reduced params differ by {perr}")
+    # The port's default policy, then the rigid amx baseline (every GEMM,
+    # forward and backward, on B8: stage 1 on the SIMT f32 engine).
+    for policy, key in (("amx", "train-reduced-amx"),
+                        ("mte", "train-reduced")):
+        cfg = dataclasses.replace(base, gemm_policy=policy)
+        reset_planning()
+        sides = {}
+        for device in (dev, "cpu"):
+            params = model_lib.init_params(cfg, seed=0, device="cpu")
+            params = to_device(params, device)
+            sides[str(device)] = (params, opt_lib.init_opt_state(params))
+        build.reset_launch_counts()
+        for step in range(3):
+            batch = data.batch(step)
+            out = {}
+            for device, (params, state) in sides.items():
+                metrics, grads = trainer.loss_and_grads(
+                    params, to_device(batch, device), cfg)
+                out[device] = (float(metrics["loss"]), grads)
+                opt_lib.adamw_update(params, grads, state, opt_cfg)
+            (lg, gg), (lc, gc_) = out[str(dev)], out["cpu"]
+            log(f"  reduced fp32 [{policy}] step {step}: loss cuda {lg:.6f} "
+                f"cpu {lc:.6f}")
+            require(abs(lg - lc) <= 1e-5 * abs(lc), f"[{policy}] step "
+                    f"{step}: loss {lg} against {lc}")
+            compare_grads(f"reduced fp32 [{policy}] step {step}", gg, gc_,
+                          TRAIN_GRAD_TOL["fp32"])
+        torch.cuda.synchronize()
+        counts[key] = build.launch_counts()
+        perr = max(max_err(a.cpu(), b) for a, b in zip(
+            leaves(sides[str(dev)][0]), leaves(sides["cpu"][0])))
+        log(f"  reduced fp32 [{policy}] params after 3 steps cuda vs cpu: "
+            f"max_abs_err={perr:.3e} tol=1e-5")
+        require(perr <= 1e-5, f"[{policy}] reduced params differ by {perr}")
 
     params = sides[str(dev)][0]
     batch = to_device(data.batch(3), dev)
@@ -3889,18 +4155,25 @@ def training_card_phase(dev):
     require(perr <= 1e-6, f"depth 2: AdamW differs by {perr}")
     # Every GEMM of 32 rows or more with widths multiples of 4 runs f32 on
     # the SIMT engine (the reduced model's forward and backward, the depth-2
-    # model's backward), none on the tile loops.
-    for label, on in (("train-reduced", ("mte_gemm_simt",)),
-                      ("train-depth2", ("mte_gemm_wgmma", "mte_gemm_simt",
-                                        "flash_attention_wgmma"))):
+    # model's backward), none on the tile loops; under amx every GEMM runs
+    # B8 stage 1 on it, at every M, and none runs B1 or B2.
+    for label, on, off in (
+            ("train-reduced", ("mte_gemm_simt",), ("mte_gemm",
+                                                   "splitk_gemm")),
+            ("train-reduced-amx", ("rigid_gemm_simt",),
+             ("rigid_gemm", "mte_gemm", "mte_gemm_simt", "splitk_gemm",
+              "splitk_gemm_simt")),
+            ("train-depth2", ("mte_gemm_wgmma", "mte_gemm_simt",
+                              "flash_attention_wgmma"),
+             ("mte_gemm", "splitk_gemm"))):
         got = {k: v for k, v in counts[label].items() if v}
         log(f"  [{label}] launches {got}")
         for kernel in on:
             require(got.get(kernel, 0) > 0, f"{label}: {kernel} not "
                     f"launched")
-        for kernel in ("mte_gemm", "splitk_gemm"):
+        for kernel in off:
             require(kernel not in got, f"{label}: {got.get(kernel)} "
-                    f"launches of the tile loop {kernel}")
+                    f"launches of {kernel}")
     del params_gpu, gg
     free_card()
     return counts
@@ -3948,19 +4221,24 @@ def backward_gemms(cfg) -> int:
     return cfg.n_layers * (2 * (4 + (3 if gated else 2)) + 1)
 
 
-def training_phase(dev):
-    """Phase 7b: gemma_2b trained at full width on the card (``TRAIN``):
-    one warm step, ``timed`` steps timed by the host clock around a
-    synchronise, then one step profiled (``profile_call``: device busy
-    ms and idle share).  Each step's loss and grad norm must be finite,
-    the parameters must change, and every backward GEMM must run on the
-    SIMT f32 engine of B1 or B2: per step, its launches
-    (``mte_gemm_simt``, ``splitk_gemm_simt``) equal ``backward_gemms``
-    and the tile loops' (``mte_gemm``, ``splitk_gemm``) are 0.  Prints
-    each step's wall ms, the step's bound (``train_bounds``), the launches
-    per step per counter, each compiled program's grouping decision, and
-    the peak memory beside the reckoning.  Returns (launch counts of the timed
-    steps, summary)."""
+def training_phase(dev, policy="mte", ref_loss=None):
+    """Phase 7b (``policy="mte"``) and 7c (``"amx"``, the rigid baseline):
+    gemma_2b trained at full width on the card (``TRAIN``): one warm
+    step, ``timed`` steps timed by the host clock around a synchronise,
+    then one step profiled (``profile_call``: device busy ms, idle share
+    and the device time by kernel).  Each step's loss and grad norm must
+    be finite, the parameters must change, and every backward GEMM must
+    run on the SIMT f32 engine: per step, under mte B1's or B2's launches
+    (``mte_gemm_simt``, ``splitk_gemm_simt``) equal ``backward_gemms`` and
+    the tile loops' (``mte_gemm``, ``splitk_gemm``) are 0; under amx B8
+    stage 1's (``rigid_gemm_simt``) equal ``backward_gemms``, none runs
+    B1, B2 or a tile loop, the forward runs ``rigid_gemm_wgmma`` and
+    ``epilogue_pass``, and the first step's loss is within 2e-2 x (1 +
+    |ref|) of ``ref_loss`` (7b's first loss, the same seed).  Prints each
+    step's wall ms, the step's bound (``train_bounds``), the launches per
+    step per counter, each compiled program's grouping decision, and the
+    peak memory beside the reckoning.  Returns (launch counts of the
+    timed steps, summary)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticDataset
@@ -3969,7 +4247,7 @@ def training_phase(dev):
     from repro_torch.optim import optimizer as opt_lib
     from repro_torch.training import trainer
 
-    cfg = get_config(TRAIN["arch"])
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), gemm_policy=policy)
     batch, seq, timed = TRAIN["batch"], TRAIN["seq"], TRAIN["timed"]
     reset_planning()
     free_card()
@@ -3997,7 +4275,8 @@ def training_phase(dev):
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         metrics_log.append({"loss": loss, "grad_norm": gnorm,
                             "wall_ms": wall_ms})
-        log(f"  [train] step {len(metrics_log) - 1}: loss {loss:.4f}, grad "
+        log(f"  [train {policy}] step {len(metrics_log) - 1}: loss "
+            f"{loss:.4f}, grad "
             f"norm {gnorm:.4f}"
             + (f", wall {wall_ms:.1f} ms" if wall_ms is not None else ""))
         require(math.isfinite(loss) and math.isfinite(gnorm),
@@ -4006,7 +4285,13 @@ def training_phase(dev):
 
     t = time.perf_counter()
     record(step(), 1e3 * (time.perf_counter() - t))       # warm
-    programs = log_programs("train")
+    programs = log_programs(f"train {policy}")
+    if ref_loss is not None:
+        first = metrics_log[0]["loss"]
+        log(f"  [train {policy}] first loss {first:.6f} against the mte "
+            f"run's {ref_loss:.6f} (tol 2e-2 x (1 + |ref|))")
+        require(abs(first - ref_loss) <= 2e-2 * (1 + abs(ref_loss)),
+                f"[train {policy}] first loss {first} against {ref_loss}")
     torch.cuda.synchronize()
     build.reset_launch_counts()
     for _ in range(timed):
@@ -4020,12 +4305,18 @@ def training_phase(dev):
     peak = torch.cuda.max_memory_allocated()
     bounds = train_bounds(cfg, batch, seq)
     prof = {**profile_call(lambda: record(step()), 1), **bounds}
-    log_profile("train_step", prof)
+    log_profile(f"train_step {policy}", prof)
+    for r in prof["kernels"]:
+        if r["ms"] >= 0.5:
+            log(f"    [train {policy}] {r['ms']:.3f} ms x{r['calls']} "
+                f"{r['kernel']}")
     changed = {k: max_err(v, before[k]) for k, v in watched().items()}
     held = bounds["reckoning_gb"]
-    log(f"  [train] launches per step {per_step}; backward GEMMs per step "
+    log(f"  [train {policy}] launches per step {per_step}; backward GEMMs "
+        f"per step "
         f"{backward_gemms(cfg)}")
-    log(f"  [train] peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.3f} "
+    log(f"  [train {policy}] peak memory {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.3f} "
         f"GB) beside the reckoning {held} ({sum(held.values()):.3f} GB, "
         f"activations and layer transients apart); bound "
         f"{bounds['bound_ms']:.1f} ms ({bounds['bound_by']}: "
@@ -4034,16 +4325,25 @@ def training_phase(dev):
         f"{changed}")
     require(all(v > 0 for v in changed.values()),
             f"the parameters did not change: {changed}")
-    simt = (per_step.get("mte_gemm_simt", 0)
-            + per_step.get("splitk_gemm_simt", 0))
+    if policy == "amx":
+        simt = per_step.get("rigid_gemm_simt", 0)
+        off = ("rigid_gemm", "mte_gemm", "splitk_gemm", "mte_gemm_simt",
+               "splitk_gemm_simt", "mte_gemm_wgmma")
+        on = ("rigid_gemm_wgmma", "epilogue_pass", "flash_attention_wgmma")
+    else:
+        simt = (per_step.get("mte_gemm_simt", 0)
+                + per_step.get("splitk_gemm_simt", 0))
+        off = ("mte_gemm", "splitk_gemm")
+        on = ("mte_gemm_wgmma", "flash_attention_wgmma")
     require(simt == backward_gemms(cfg),
-            f"backward GEMMs per step on the SIMT f32 engine: {simt}, want "
-            f"{backward_gemms(cfg)}")
-    tile = per_step.get("mte_gemm", 0) + per_step.get("splitk_gemm", 0)
-    require(tile == 0, f"{tile} tile-loop launches per train step")
-    for kernel in ("mte_gemm_wgmma", "flash_attention_wgmma"):
-        require(per_step.get(kernel, 0) > 0, f"train: {kernel} not "
-                f"launched")
+            f"[{policy}] backward GEMMs per step on the SIMT f32 engine: "
+            f"{simt}, want {backward_gemms(cfg)}")
+    for kernel in off:
+        require(per_step.get(kernel, 0) == 0, f"[{policy}] "
+                f"{per_step.get(kernel)} launches of {kernel} per step")
+    for kernel in on:
+        require(per_step.get(kernel, 0) > 0, f"train {policy}: {kernel} "
+                f"not launched")
     walls = [r["wall_ms"] for r in metrics_log[1:1 + timed]]
     summary = {"steps": metrics_log, "step_wall_ms": walls,
                "launches_per_step": per_step,
@@ -4078,9 +4378,15 @@ KERNELS = [
     ("grouped_gemm_splitk", "src/repro_torch/csrc/grouped_gemm_splitk.cu",
      "src/repro/kernels/grouped_gemm.py:60", "qkv decode 3x4x2048x2048",
      "default"),
+    ("grouped_gemm_wgmma", "src/repro_torch/csrc/grouped_gemm_wgmma.cu",
+     "src/repro/kernels/grouped_gemm.py:60",
+     "gate+up prefill 2x512x2048x16384", "default"),
+    ("grouped_gemm_simt", "src/repro_torch/csrc/grouped_gemm.cu",
+     "src/repro/kernels/grouped_gemm.py:60", "dw fp32 2x2048x4096x16384",
+     "train"),
     ("grouped_gemm", "src/repro_torch/csrc/grouped_gemm.cu",
      "src/repro/kernels/grouped_gemm.py:60",
-     "gate+up prefill 2x512x2048x16384", "reduced-default"),
+     "gate+up prefill 2x512x2048x16384 (tile loop)", "reduced-default"),
     ("flash_decode_paged_mma",
      "src/repro_torch/csrc/flash_decode_paged_mma.cu",
      "src/repro/kernels/flash_decode.py:208",
@@ -4096,9 +4402,12 @@ KERNELS = [
      "reduced-default"),
     ("rigid_gemm_wgmma", "src/repro_torch/csrc/rigid_gemm.cu",
      "src/repro/kernels/rigid_gemm.py:80", "gate 512x16384x2048", "amx"),
-    ("rigid_gemm", "src/repro_torch/csrc/rigid_gemm.cu",
+    ("rigid_gemm_simt", "src/repro_torch/csrc/rigid_gemm.cu",
      "src/repro/kernels/rigid_gemm.py:80", "gate fp32 16x256x128",
-     "reduced-amx"),
+     "train-amx"),
+    ("rigid_gemm", "src/repro_torch/csrc/rigid_gemm.cu",
+     "src/repro/kernels/rigid_gemm.py:80",
+     "gate fp32 16x256x128 (tile loop)", "reduced-amx"),
     ("epilogue_pass", "src/repro_torch/csrc/rigid_gemm.cu",
      "src/repro/kernels/rigid_gemm.py:43", "gelu 512x16384", "amx"),
     ("flash_decode_mma", "src/repro_torch/csrc/flash_decode_mma.cu",
@@ -4152,11 +4461,18 @@ STARCODER2_ROWS = {
 
 
 # The rows of the kernels phase 7's training step launches (its launches
-# over the timed steps): the backward's f32 GEMMs at every shape of a
-# layer on B1's SIMT f32 engine, and the k/v dB on B2's (a split plan),
-# the forward's bf16 gate on B1's wgmma mainloop and its causal attention
-# on B5's.
+# over the timed steps; B8's from phase 7c's amx step, the rest from 7b):
+# the backward's f32 GEMMs at every shape of a layer on B1's SIMT f32
+# engine, and the k/v dB on B2's (a split plan), under amx the gate's
+# recompute and dA, the q/o dB and the unsplit k/v dB on B8's, the
+# forward's bf16 gate on B1's wgmma mainloop and its causal attention on
+# B5's.
+TRAIN_PATH = {"rigid_gemm_simt": "train-amx"}
 TRAIN_ROWS = {
+    "rigid_gemm_simt": ("train amx gate recompute fp32 4096x16384x2048",
+                        "train amx gate dA fp32 4096x2048x16384",
+                        "train amx q/o dB fp32 2048x2048x4096",
+                        "train amx k/v dB fp32 2048x256x4096"),
     "mte_gemm_simt": ("train gate recompute fp32 4096x16384x2048",
                  "train gate dA fp32 4096x2048x16384",
                  "train gate dB fp32 2048x16384x4096",
@@ -4266,6 +4582,10 @@ def main() -> int:
     log(f"== 7. training gemma_2b at full width on the card: "
         f"{TRAIN['batch']} x {TRAIN['seq']} tokens, remat full, bf16")
     counts["train"], training = training_phase(dev)
+    log(f"== 7c. training gemma_2b at full width on the card under the "
+        f"rigid amx baseline: {TRAIN['batch']} x {TRAIN['seq']} tokens")
+    counts["train-amx"], training_amx = training_phase(
+        dev, "amx", training["steps"][0]["loss"])
 
     kernels = []
     for name, source, replaces, shape, path in KERNELS:
@@ -4295,9 +4615,11 @@ def main() -> int:
                         "bound_ms", "bound_by", "library_ms",
                         "sdpa_without_softcap_ms")}}
         if name in TRAIN_ROWS:
+            train = counts[TRAIN_PATH.get(name, "train")]
             kernels[-1]["at_train"] = {
-                "launches": counts["train"][name],
-                "launches_per_step": counts["train"][name] / TRAIN["timed"],
+                "path": TRAIN_PATH.get(name, "train"),
+                "launches": train[name],
+                "launches_per_step": train[name] / TRAIN["timed"],
                 "rows": [{k: r.get(k) for k in (
                     "shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms",
@@ -4310,7 +4632,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"nvidia_smi": smi, "rows": rows, "serving": serving,
                    "speculative": speculative, "model_level": model_level,
-                   "training": training,
+                   "training": training, "training_amx": training_amx,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -8,7 +8,8 @@ For every distinct GEMM signature
 the cache enumerates candidate geometries from the Hopper solver
 (:func:`repro_torch.core.geometry.solve_block_geometry`) and, for bf16
 shapes the wgmma engine takes, its tiles, and for f32 shapes the SIMT f32
-engine takes, its tiles with and without split-K; scores them with an analytic
+engine takes, its tiles with and without split-K (grouped signatures
+too, unsplit, past 16 rows); scores them with an analytic
 Hopper time (:func:`score_geometry`), and memoizes the winner in an LRU.
 Routes: ``"mte"`` (the B1 kernel, ``csrc/mte_gemm.cu``), ``"splitk"``
 (B2: ``csrc/splitk_gemm_cluster.cu`` or ``csrc/splitk_gemm.cu``), offered
@@ -125,8 +126,10 @@ def _route_for(sig: GemmSignature, geom: BlockGeometry) -> str:
 def plan_engine(sig: GemmSignature, geom: BlockGeometry) -> str:
     """The mainloop a plan launches: ``"wgmma"``, ``"simt"``,
     ``"splitk"``, ``"cluster"`` or ``"tile"``.  B3 (grouped plans) follows
-    :func:`repro_torch.core.geometry.grouped_engine` (``"splitk"``, its
-    cluster split-K kernel for the bf16 decode group) and B2 (split plans)
+    :func:`repro_torch.core.geometry.grouped_engine` at the plan's tile
+    (``"splitk"``, its cluster split-K kernel for the bf16 decode group;
+    ``"wgmma"`` and ``"simt"`` past 16 rows at their tiles) and B2 (split
+    plans)
     :func:`repro_torch.core.geometry.splitk_engine` (``"cluster"``, the
     same mainloop at G = 1 for the bf16 decode GEMMs, which keeps the tile
     loop's price, so no route or grouping decision moves; ``"simt"``, the
@@ -136,7 +139,7 @@ def plan_engine(sig: GemmSignature, geom: BlockGeometry) -> str:
     bf16acc = sig.format_policy.accum_dtype == "bfloat16"
     if sig.group > 1:
         return grouped_engine(sig.dtype_in, sig.m, sig.n, sig.k,
-                              bf16acc=bf16acc)
+                              bf16acc=bf16acc, tile=(geom.bm, geom.bn))
     if geom.split_k > 1:
         return splitk_engine(sig.dtype_in, sig.m, sig.n, sig.k,
                              bf16acc=bf16acc, tile=(geom.bm, geom.bn))
@@ -171,17 +174,19 @@ def enumerate_candidates(sig: GemmSignature,
     the grid fills the card, while B1's only engine at such M is the tile
     loop (B2 never gets a wgmma tile).  The rigid
     policy gets exactly its fixed block (a rigid ISA cannot adapt), and
-    grouped signatures no split (B3 has no split-K path; its group axis
-    already multiplies the grid).  f32 signatures past 16 rows get the
+    grouped signatures no split (B3's split-K engine takes its own slices;
+    the group axis already multiplies the grid) but the wgmma tiles at
+    C ≥ 64 as B1 gets them.  f32 signatures past 16 rows get the
     SIMT f32 engine's tiles where it takes them (128 x 64 only where the
-    128 x 128 grid is below the SM count), each unsplit and, where its
-    own grid is below the SM count, split as the base is."""
+    128 x 128 grid, all members' tiles together, is below the SM count),
+    each unsplit and, ungrouped, where its own grid is below the SM count,
+    split as the base is."""
     base = solve_block_geometry(sig.m, sig.n, sig.k, sig.sew_i, sig.sew_o,
                                 profile=profile, policy=sig.policy)
     cands: List[BlockGeometry] = [base]
     if sig.policy != "mte":
         return cands
-    if sig.group == 1 and sig.m >= 64:     # at least one 64-row wgmma
+    if sig.m >= 64:     # at least one 64-row wgmma
         for bm, bn in WGMMA_TILES:
             g = dataclasses.replace(base, bm=bm, bn=bn)
             if g not in cands and _on_engine(sig, g, "wgmma"):
@@ -192,15 +197,17 @@ def enumerate_candidates(sig: GemmSignature,
         bf16acc=sig.format_policy.accum_dtype == "bfloat16") == "cluster"
     if sig.group == 1 and (grid_mn < profile.sm_count or cluster):
         _add_splits(sig, base, cands)
-    if sig.group == 1:
-        wide = cdiv(sig.m, SIMT_TILES[0][0]) * cdiv(sig.n, SIMT_TILES[0][1])
-        for bm, bn in SIMT_TILES[:1 if wide >= profile.sm_count else None]:
-            g = dataclasses.replace(base, bm=bm, bn=bn)
-            if g in cands or not _on_engine(sig, g, "simt"):
-                continue
-            cands.append(g)
-            if cdiv(sig.m, bm) * cdiv(sig.n, bn) < profile.sm_count:
-                _add_splits(sig, g, cands)
+    group = max(sig.group, 1)
+    wide = group * cdiv(sig.m, SIMT_TILES[0][0]) * cdiv(sig.n,
+                                                        SIMT_TILES[0][1])
+    for bm, bn in SIMT_TILES[:1 if wide >= profile.sm_count else None]:
+        g = dataclasses.replace(base, bm=bm, bn=bn)
+        if g in cands or not _on_engine(sig, g, "simt"):
+            continue
+        cands.append(g)
+        if group == 1 and cdiv(sig.m, bm) * cdiv(sig.n, bn) < \
+                profile.sm_count:
+            _add_splits(sig, g, cands)
     return cands
 
 
@@ -248,23 +255,32 @@ def score_geometry(sig: GemmSignature, geom: BlockGeometry,
     the SIMT f32 engine the same at 67 TFLOP/s over each block's K slice
     (padded to a 16-deep stage), with no load stretch; a split pays its
     partials' write and read back and the reduction's launch.  On the
-    tile loop: the larger of padded MMA
+    tile loop, and for every grouped plan whatever engine runs it: the
+    larger of padded MMA
     work over the format's peak and operand/partial traffic over HBM
     bandwidth, stretched by the share of the card the block grid leaves
     idle (a grid below ``sm_count * blocks_per_sm`` resident blocks cannot
     cover memory latency: its loads are not pipelined).  Split-K pays a
-    second launch for the reduction; the rigid route pays the
-    accumulator's write and read back and, with a non-identity epilogue,
-    the epilogue pass's launch.  A grouped signature is priced as G
-    GEMMs' worth of tiles on one grid: G times the work and the traffic,
-    G times the blocks."""
+    second launch for the reduction; the rigid route pays, on every
+    engine, the accumulator's write and read back and, with a
+    non-identity epilogue, the epilogue pass's launch.  A grouped
+    signature is priced as G GEMMs' worth of tiles on one grid: G times
+    the work and the traffic, G times the blocks.  Grouped plans keep the
+    tile loop's price on the split-K, wgmma and SIMT engines too: the
+    scheduler weighs a grouped program against its members with these
+    prices (``graph/schedule.py``), and on an H100 the engines' own price
+    moved qwen15_4b's 512-row and musicgen_medium's 4096-row q/k/v into
+    grouped launches that made those chunks slower (the grouped program
+    restacks the weights on every call and adds the biases outside the
+    kernel, which this model does not count); the plan's tile still
+    follows the shape."""
     m, n, k = sig.m, sig.n, sig.k
     launches = 1
     rigid_bytes = 0.0
     if sig.policy == "amx":
         rigid_bytes = 2.0 * m * n * 4
         launches = 1 if sig.epilogue.is_identity else 2
-    engine = plan_engine(sig, geom)
+    engine = "tile" if sig.group > 1 else plan_engine(sig, geom)
     if engine == "wgmma":
         return (_wave_seconds(sig, geom, profile, round_up(k, WGMMA_BK),
                               rigid_bytes)
@@ -273,8 +289,9 @@ def score_geometry(sig: GemmSignature, geom: BlockGeometry,
         s = geom.split_k
         depth = round_up(cdiv(k, s), SIMT_BK)
         partials = 2.0 * s * m * n * 4 if s > 1 else 0.0
-        return (_wave_seconds(sig, geom, profile, depth, partials)
-                + profile.launch_s * (2 if s > 1 else 1))
+        return (_wave_seconds(sig, geom, profile, depth,
+                              partials + rigid_bytes)
+                + profile.launch_s * (launches + (1 if s > 1 else 0)))
     g = max(sig.group, 1)
     gm, gn = cdiv(m, geom.bm), cdiv(n, geom.bn)
     s = geom.split_k

@@ -7,19 +7,21 @@ JAX package) budgets VMEM and snaps to the (8·32/SEW, 128) native tile;
 this one budgets a block's shared memory and grants the tile shapes the
 hand-written kernels implement.  Three mainloops exist (``csrc/``):
 
-- the **tile loop** (``gemm_tile.cuh``; B1's fp32/int8 path, B2 and B3
-  off their cluster engines, and B8's fp32/int8 path):
+- the **tile loop** (``gemm_tile.cuh``; B1, B2, B3 and B8 on what their
+  other engines leave: int8, unaligned shapes, B1's and B2's M ≤ 16):
   ``(bm, bn) = (16, 128)`` for skinny M ≤ 16 (decode GEMVs: one 16-row
   MMA fragment, wide in N), ``(64, 64)`` otherwise
   (:data:`TILE_LOOP_TILES`), 32 deep in K, loads not pipelined;
-- the **wgmma engine** (``wgmma_mainloop.cuh``; B1 and B8 stage 1 on bf16
-  operands): TMA loads 64 deep in K into a ring of shared-memory stages,
+- the **wgmma engine** (``wgmma_mainloop.cuh``; B1, B8 stage 1 and B3
+  past 16 rows on bf16 operands): TMA loads 64 deep in K into a ring of
+  shared-memory stages,
   wgmma with the accumulator in registers, at ``bm`` ∈ {64, 128} × ``bn``
   ∈ {64, 128, 256} (:data:`WGMMA_TILES`; bf16acc ``bn`` ≤ 128);
-- the **SIMT f32 engine** (``simt_f32_mainloop.cuh``; B1 and B2 on f32
-  operands past 16 rows, the training backward): 8 × 8 accumulators a
-  thread over a 16-deep cp.async ring, at 128 × 128 or 128 × 64
-  (:data:`SIMT_TILES`), K and N multiples of 4.
+- the **SIMT f32 engine** (``simt_f32_mainloop.cuh``; B1, B2 and B3 on
+  f32 operands past 16 rows, the training backward, and B8 stage 1 on
+  f32 operands at every M): 8 × 8 accumulators a thread over a 16-deep
+  cp.async ring, at 128 × 128 or 128 × 64 (:data:`SIMT_TILES`), K and N
+  multiples of 4.
 
 :func:`gemm_engine` says which one runs a launch: a pure function of the
 operand type, the accumulator, the tile, the rows and the alignment of K
@@ -27,7 +29,9 @@ and N.
 B2–B7 have a second engine each, chosen the same way:
 :func:`splitk_engine` and :func:`grouped_engine` (the cluster split-K
 mainloop of ``splitk_cluster.cuh`` for bf16 GEMMs of at most 16 rows,
-with an f32 or a bf16 accumulator, else the tile loop),
+with an f32 or a bf16 accumulator; past 16 rows, at the plan's tile, B3
+on the wgmma mainloop for bf16 and both on the SIMT f32 one for f32;
+else the tile loop),
 :func:`decode_engine` and :func:`flat_decode_engine`
 (mma.sync over 16-position tiles of the pages or of the flat or ring
 cache for bf16, else the SIMT kernel), :func:`attention_engine` (TMA +
@@ -42,7 +46,9 @@ The rigid ``"amx"`` policy (the AMX-style baseline, ``csrc/rigid_gemm.cu``)
 adapts nothing: it is always granted the one rigid tile, 128 x 128 with a
 128-deep K block and no split, as the JAX solver grants it
 (``geometry.py:422-426`` there), on whichever mainloop :func:`gemm_engine`
-names.
+names (the rigid tile is a wgmma tile and a SIMT tile, so bf16 and f32
+operands run it on the engines built for Hopper, at every M: the
+128-row padding of a small M is the baseline's handicap by design).
 
 ``bk`` is the K slice a plan works in: the split-K slice granularity and,
 under ``bf16acc``, the block after which the running sum is rounded to
@@ -109,13 +115,15 @@ def wgmma_stages(bm: int, bn: int) -> int:
     return min(5, (_SMEM_LIMIT - 2048) // ((bm + bn) * WGMMA_BK * 2))
 
 
-def _simt(dtype_in, tile: Tuple[int, int], m: int, n: int, k: int) -> bool:
+def _simt(dtype_in, tile: Tuple[int, int], m: int, n: int, k: int, *,
+          rigid: bool = False) -> bool:
     """The SIMT f32 engine's rule: f32 operands, more than 16 rows (decode
-    and the verify rows of speculation stay on the tile loop), one of its
-    tiles, K and N multiples of 4 (16-byte rows; the wrappers hand it
-    contiguous operands at 16-byte aligned addresses)."""
+    and the verify rows of speculation stay on the tile loop; the rigid
+    route takes it at every M), one of its tiles, K and N multiples of 4
+    (16-byte rows; the wrappers hand it contiguous operands at 16-byte
+    aligned addresses)."""
     return (dtype_name(dtype_in) == "float32" and tile in SIMT_TILES
-            and m > GROUPED_MAX_M
+            and (rigid or m > GROUPED_MAX_M)
             and k % SIMT_ALIGN == 0 and n % SIMT_ALIGN == 0)
 
 
@@ -131,8 +139,11 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
     - ``"wgmma"`` when the operands are bf16, the tile is a wgmma tile
       (bf16acc: ``bn`` ≤ 128; rigid: the 128 x 128 tile) and K and N are
       multiples of 8 (TMA's 16-byte row alignment);
-    - ``"simt"`` (not rigid) when the operands are f32, M > 16, the tile
-      is one of :data:`SIMT_TILES` and K and N are multiples of 4;
+    - ``"simt"`` when the operands are f32, the tile is one of
+      :data:`SIMT_TILES` and K and N are multiples of 4, past 16 rows
+      (B1: its M ≤ 16 decode tile stays on the tile loop) or at every M
+      (rigid: the 128 x 128 tile whatever M, each output the tile loop's
+      FMA chain, so bit-equal to it);
     - ``"tile"`` otherwise, when the tile loop is compiled for the tile
       (fp32 off the SIMT engine's tiles or alignment, int8, M ≤ 16's
       16 x 128 tile, strides TMA cannot take);
@@ -148,7 +159,7 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
     aligned = k % WGMMA_ALIGN == 0 and n % WGMMA_ALIGN == 0
     if wgmma_ok and aligned and dtype_name(dtype_in) == "bfloat16":
         return "wgmma"
-    if not rigid and _simt(dtype_in, tile, m, n, k):
+    if _simt(dtype_in, tile, m, n, k, rigid=rigid):
         return "simt"
     if loop_ok:
         return "tile"
@@ -159,9 +170,9 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
         f"K={k}, N={n}: the wgmma engine "
         f"takes bf16 operands, K and N multiples of {WGMMA_ALIGN} and the "
         f"tiles {WGMMA_TILES} (bf16acc: bn <= {WGMMA_BF16ACC_MAX_BN}); the "
-        f"SIMT engine f32 operands past {GROUPED_MAX_M} rows, K and N "
-        f"multiples of {SIMT_ALIGN} and the tiles {SIMT_TILES}; the tile "
-        f"loop {TILE_LOOP_TILES}")
+        f"SIMT engine f32 operands past {GROUPED_MAX_M} rows (rigid: at "
+        f"every M), K and N multiples of {SIMT_ALIGN} and the tiles "
+        f"{SIMT_TILES}; the tile loop {TILE_LOOP_TILES}")
 
 
 # B3's split-K engine (grouped_gemm_splitk.cu): output tiles GROUPED_BN
@@ -190,12 +201,14 @@ def grouped_max_depth(m: int) -> int:
 
 
 def grouped_engine(dtype_in, m: int, n: int, k: int, *,
-                   bf16acc: bool = False) -> str:
-    """The engine that runs one B3 launch: ``"splitk"`` or ``"tile"``.
+                   bf16acc: bool = False,
+                   tile: Optional[Tuple[int, int]] = None) -> str:
+    """The engine that runs one B3 launch: ``"splitk"``, ``"wgmma"``,
+    ``"simt"`` or ``"tile"``.
 
-    A pure function of the operand type and the shape (both accumulators,
-    f32 and ``bf16acc``'s bf16, take the same engine); the wrapper
-    launches what it names and nothing else:
+    A pure function of the operand type, the shape, the accumulator and
+    the plan's ``tile`` (None: no tile of the pipelined engines); the
+    wrapper launches what it names and nothing else:
 
     - ``"splitk"`` (the cluster split-K kernel) for bf16 operands with an
       f32 or a bf16 (``bf16acc``) accumulator, at most 16 rows (the decode
@@ -206,11 +219,30 @@ def grouped_engine(dtype_in, m: int, n: int, k: int, *,
       in f32 and rounded once: B2's split-K contract, where the
       reference's grouped kernel rounds in K order over all of K (the
       two agree to bf16 tolerance);
-    - ``"tile"`` (the tile loop) otherwise: fp32, int8 and C > 16."""
-    if (dtype_name(dtype_in) == "bfloat16"
+    - ``"wgmma"`` (B1's TMA + wgmma mainloop with the group on the grid,
+      ``grouped_gemm_wgmma.cu``) for bf16 operands with an f32 or a
+      bf16acc accumulator past 16 rows, K and N multiples of 8 and a
+      ``tile`` of :data:`WGMMA_TILES` (bf16acc: ``bn`` ≤ 128); bf16acc
+      rounds the running sum in K order, as B1's wgmma engine;
+    - ``"simt"`` (the SIMT f32 mainloop with the group on the grid) for
+      f32 operands past 16 rows, K and N multiples of 4 and a ``tile``
+      of :data:`SIMT_TILES`: each output the tile loop's FMA chain, so
+      bit-equal to it;
+    - ``"tile"`` (the tile loop) otherwise: int8, fp32 at C ≤ 16,
+      unaligned shapes and tiles of the tile loop only."""
+    dt = dtype_name(dtype_in)
+    if (dt == "bfloat16"
             and m <= GROUPED_MAX_M and n % WGMMA_ALIGN == 0
             and k <= MAX_CLUSTER * grouped_max_depth(m)):
         return "splitk"
+    if tile is None or m <= GROUPED_MAX_M:
+        return "tile"
+    if (dt == "bfloat16" and tile in WGMMA_TILES
+            and not (bf16acc and tile[1] > WGMMA_BF16ACC_MAX_BN)
+            and k % WGMMA_ALIGN == 0 and n % WGMMA_ALIGN == 0):
+        return "wgmma"
+    if _simt(dtype_in, tile, m, n, k):
+        return "simt"
     return "tile"
 
 
@@ -534,26 +566,27 @@ def check_kernel_tile(geom: "BlockGeometry", group: int = 1) -> None:
     tile: a pinned geometry is launched as it is or refused, never
     replanned.  The rigid policy has its one tile; the MTE kernels take
     the tile loop's tiles with any split and group, the wgmma tiles on B1
-    only (no split, no group) and the SIMT f32 tiles on B1 and B2 (any
-    split, no group).  Whether the operands suit the wgmma or the SIMT
-    engine is :func:`gemm_engine`'s and :func:`splitk_engine`'s call, at
-    launch."""
+    and B3 (no split) and the SIMT f32 tiles on B1 and B2 (any split)
+    and B3 (no split).  Whether the operands suit the wgmma or the SIMT
+    engine is :func:`gemm_engine`'s, :func:`splitk_engine`'s and
+    :func:`grouped_engine`'s call, at launch."""
     tile = (geom.bm, geom.bn)
     if geom.policy == "amx":
         ok = (geom.bm, geom.bn, geom.bk) == RIGID_TILE and geom.split_k == 1
     else:
         ok = geom.bk % INNER_BK == 0 and geom.split_k >= 1 and (
             tile in TILE_LOOP_TILES
-            or (tile in WGMMA_TILES and geom.split_k == 1 and group == 1)
-            or (tile in SIMT_TILES and group == 1))
+            or (tile in WGMMA_TILES and geom.split_k == 1)
+            or (tile in SIMT_TILES and (group == 1 or geom.split_k == 1)))
     if not ok:
         raise ValueError(
             f"no {geom.policy!r} kernel is compiled for the tile "
             f"{geom.bm}x{geom.bn}x{geom.bk} split_k={geom.split_k} "
             f"group={group}; compiled: MTE tile loop {TILE_LOOP_TILES} "
             f"(bk a multiple of {INNER_BK}, any split or group), MTE "
-            f"wgmma {WGMMA_TILES} (split_k 1, group 1), MTE SIMT f32 "
-            f"{SIMT_TILES} (any split, group 1), rigid {RIGID_TILE}")
+            f"wgmma {WGMMA_TILES} (split_k 1, any group), MTE SIMT f32 "
+            f"{SIMT_TILES} (any split at group 1, split_k 1 in a group), "
+            f"rigid {RIGID_TILE}")
 
 
 def solve_block_geometry(m: int, n: int, k: int, sew_i: SEW, sew_o: SEW,

@@ -15,7 +15,7 @@
 // fp32/bf16 operands (a rigid ISA has no narrow accumulator, so bf16acc
 // runs f32 here, as in JAX), int32 for int8 -- to device memory.  The JAX
 // kernel writes the int8 route's accumulator through f32 (exact only
-// below 2^24); this one keeps int32.  Two engines, as for B1
+// below 2^24); this one keeps int32.  Three engines, as for B1
 // (core/geometry.py:gemm_engine), so that MTE against rigid compares the
 // ISAs' flexibility at equal mainloop quality:
 //
@@ -25,9 +25,19 @@
 //   walked as two 64-deep TMA stages (that changes the loads, not the
 //   arithmetic); AccStore writes the f32 accumulator the mainloop staged
 //   in shared memory.
+// - rigid_gemm_simt_launch (counter "rigid_gemm_simt"): f32 operands with
+//   K and N multiples of 4, at every M -- B1's SIMT f32 mainloop
+//   (simt_f32_mainloop.cuh) at the 128 x 128 tile, the 128-deep K block
+//   walked as eight 16-deep stages of its cp.async ring (that changes the
+//   loads, not the arithmetic); the identity epilogue stores the raw f32
+//   accumulator from registers.  Each output is the tile loop's FMA chain
+//   from k = 0, so the engine is bit-equal to rigid_gemm_launch at every
+//   shape, M <= 16 included.  It carries the f32 backward GEMMs of
+//   training under the rigid policy.
 // - rigid_gemm_launch (counter "rigid_gemm"): B1's tile loop
 //   (gemm_tile.cuh) at the 128 x 128 tile, the K block walked as four
-//   32-deep shared-memory stages, for f32, int8 and what TMA cannot take.
+//   32-deep shared-memory stages, for int8 and what neither pipelined
+//   engine takes (f32 with K or N not a multiple of 4).
 //   A block takes 86 KB (bf16), 103 KB (f32) or 78 KB (int8) of shared
 //   memory, most of it the accumulator staging tile: above the 48 KB
 //   default, so the launch raises the limit with cudaFuncSetAttribute.
@@ -59,6 +69,7 @@
 
 #include "epilogue.cuh"
 #include "gemm_tile.cuh"
+#include "simt_f32_mainloop.cuh"
 #include "wgmma_mainloop.cuh"
 
 namespace {
@@ -284,6 +295,19 @@ extern "C" int rigid_gemm_wgmma_launch(const void* a, const void* b,
   return wg::launch<RM, RN, false, false>(
       a, b, M, N, K, lda, ldb, RK, AccStore{static_cast<float*>(acc), M, N},
       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rigid_gemm_simt_launch(const void* a, const void* b,
+                                      void* acc, int M, int N, int K,
+                                      long lda, long ldb, void* stream) {
+  if (reinterpret_cast<uintptr_t>(acc) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  // The identity epilogue into f32: simt::launch stores the accumulators
+  // as they are (N % 4 == 0, a 16-byte aligned output).
+  const Epi epi{1.0f, 0.0f, nullptr, 0, nullptr, 0.0f, 0, 0, acc, N, DT_F32};
+  return simt::launch<RM, RN, false>(
+      static_cast<const float*>(a), lda, static_cast<const float*>(b), ldb,
+      M, N, K, 1, K, epi, 0, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int epilogue_pass_launch(const void* acc, const void* c,

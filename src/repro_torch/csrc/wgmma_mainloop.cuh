@@ -1,5 +1,7 @@
-// The Hopper GEMM mainloop shared by mte_gemm.cu (B1) and rigid_gemm.cu
-// (B8 stage 1): TMA loads into a ring of shared-memory stages, mbarrier
+// The Hopper GEMM mainloop shared by mte_gemm.cu (B1), rigid_gemm.cu
+// (B8 stage 1) and grouped_gemm_wgmma.cu (B3 past 16 rows, through
+// gemm_tile with the member's index on its 3-D tensor maps): TMA loads
+// into a ring of shared-memory stages, mbarrier
 // hand-off between one producer warp and the consumer warpgroups, and
 // wgmma with the f32 accumulator in registers.  sm_90a only.  Its PTX
 // wrappers (TMA, mbarriers, wgmma, cluster barriers and distributed
@@ -320,11 +322,16 @@ struct Mma<256, TB> {
 
 // ---- the kernel ------------------------------------------------------------
 
+// One BM x BN output tile at (m0, n0) over all of K, run by the whole
+// block (Cfg::THREADS threads, Cfg::SMEM bytes of dynamic shared memory).
+// `za` and `zb` are the batch index of A's and B's tensor maps where they
+// are 3-D (a grouped GEMM's members: a box never crosses into the next
+// matrix, so each member's K tail loads zeros), or -1 for a 2-D map.
 template <int BM, int BN, bool TRANS_B, bool BF16ACC, class Store>
-__global__ void __launch_bounds__(Cfg<BM, BN>::THREADS, 1)
-    gemm_kernel(const __grid_constant__ CUtensorMap tma,
-                const __grid_constant__ CUtensorMap tmb, int K, int rbk,
-                Store store) {
+__device__ __forceinline__ void gemm_tile(const CUtensorMap* tma,
+                                          const CUtensorMap* tmb, int K,
+                                          int rbk, const Store& store,
+                                          int m0, int n0, int za, int zb) {
   using C = Cfg<BM, BN>;
   constexpr int S = C::STAGES;
   constexpr int R = BN / 2;  // accumulator registers per thread
@@ -333,7 +340,6 @@ __global__ void __launch_bounds__(Cfg<BM, BN>::THREADS, 1)
       wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * C::STAGE_BYTES);
   uint64_t* empty = full + S;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int nk = (K + WK - 1) / WK;
 
   if (threadIdx.x == 0) {
@@ -361,13 +367,24 @@ __global__ void __launch_bounds__(Cfg<BM, BN>::THREADS, 1)
         unsigned char* sa = ring + s * C::STAGE_BYTES;
         unsigned char* sb = sa + C::A_BYTES;
         mbar_expect_tx(&full[s], C::STAGE_BYTES);
-        tma_load(sa, &tma, &full[s], kb * WK, m0);
+        if (za < 0)
+          tma_load(sa, tma, &full[s], kb * WK, m0);
+        else
+          tma_load_3d(sa, tma, &full[s], kb * WK, m0, za);
         if constexpr (TRANS_B) {
-          tma_load(sb, &tmb, &full[s], kb * WK, n0);
+          if (zb < 0)
+            tma_load(sb, tmb, &full[s], kb * WK, n0);
+          else
+            tma_load_3d(sb, tmb, &full[s], kb * WK, n0, zb);
         } else {
 #pragma unroll
-          for (int p = 0; p < BN / 64; ++p)
-            tma_load(sb + p * PANEL, &tmb, &full[s], n0 + 64 * p, kb * WK);
+          for (int p = 0; p < BN / 64; ++p) {
+            if (zb < 0)
+              tma_load(sb + p * PANEL, tmb, &full[s], n0 + 64 * p, kb * WK);
+            else
+              tma_load_3d(sb + p * PANEL, tmb, &full[s], n0 + 64 * p,
+                          kb * WK, zb);
+          }
         }
       }
     }
@@ -463,6 +480,16 @@ __global__ void __launch_bounds__(Cfg<BM, BN>::THREADS, 1)
   }
 }
 
+template <int BM, int BN, bool TRANS_B, bool BF16ACC, class Store>
+__global__ void __launch_bounds__(Cfg<BM, BN>::THREADS, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap tma,
+                const __grid_constant__ CUtensorMap tmb, int K, int rbk,
+                Store store) {
+  gemm_tile<BM, BN, TRANS_B, BF16ACC>(&tma, &tmb, K, rbk, store,
+                                      blockIdx.x * BM, blockIdx.y * BN, -1,
+                                      -1);
+}
+
 // ---- host side -------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -517,18 +544,21 @@ inline int make_map(CUtensorMap* map, const void* ptr, long inner,
 }
 
 // A 3-D bf16 tensor map over `batch` row-major (outer, inner) matrices,
-// row stride `inner` elements, matrix stride `outer * inner`, box
-// (1, box_outer, box_inner), 128-byte swizzle, zero fill outside.
+// row stride `ld` elements and matrix stride `batch_ld` (0: `inner` and
+// `outer * inner`, the matrices packed), box (1, box_outer, box_inner),
+// 128-byte swizzle, zero fill outside.
 inline int make_map_3d(CUtensorMap* map, const void* ptr, long inner,
                        long outer, long batch, int box_inner,
-                       int box_outer) {
+                       int box_outer, long ld = 0, long batch_ld = 0) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ENTRY_ERROR;
+  if (ld == 0) ld = inner;
+  if (batch_ld == 0) batch_ld = ld * outer;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(outer),
                               static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 2,
-                                 static_cast<cuuint64_t>(inner * outer) * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
+                                 static_cast<cuuint64_t>(batch_ld) * 2};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
                              static_cast<cuuint32_t>(box_outer), 1};
   const cuuint32_t elem[3] = {1, 1, 1};

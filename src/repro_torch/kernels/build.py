@@ -57,8 +57,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # The launch counters, one per kernel: B1–B7 and B8 stage 1
 # count each engine apart (``mte_gemm`` / ``splitk_gemm`` /
 # ``grouped_gemm`` / ``rigid_gemm`` the tile loop, ``mte_gemm_wgmma`` /
-# ``rigid_gemm_wgmma`` the wgmma mainloop, ``mte_gemm_simt`` /
-# ``splitk_gemm_simt`` the SIMT f32 mainloop, ``splitk_gemm_cluster`` and
+# ``grouped_gemm_wgmma`` / ``rigid_gemm_wgmma`` the wgmma mainloop,
+# ``mte_gemm_simt`` / ``splitk_gemm_simt`` / ``grouped_gemm_simt`` /
+# ``rigid_gemm_simt`` the SIMT f32 mainloop, ``splitk_gemm_cluster`` and
 # ``grouped_gemm_splitk`` B2's and B3's cluster split-K kernels,
 # ``flash_decode_paged`` / ``flash_decode_paged_mma`` B4's SIMT and mma
 # kernels, ``flash_attention`` / ``flash_attention_wgmma`` B5's SIMT and
@@ -67,10 +68,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # engines), and ``rigid_gemm.cu`` holds the separate epilogue pass too.
 KERNEL_NAMES = ("mte_gemm", "mte_gemm_wgmma", "mte_gemm_simt",
                 "splitk_gemm", "splitk_gemm_cluster", "splitk_gemm_simt",
-                "grouped_gemm", "grouped_gemm_splitk",
+                "grouped_gemm", "grouped_gemm_splitk", "grouped_gemm_wgmma",
+                "grouped_gemm_simt",
                 "flash_decode_paged", "flash_decode_paged_mma",
                 "flash_attention", "flash_attention_wgmma", "rigid_gemm",
-                "rigid_gemm_wgmma", "epilogue_pass", "flash_decode",
+                "rigid_gemm_wgmma", "rigid_gemm_simt", "epilogue_pass",
+                "flash_decode",
                 "flash_decode_mma", "rglru_scan", "rglru_scan_staged")
 
 _LOCK = threading.Lock()

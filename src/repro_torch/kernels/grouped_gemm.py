@@ -17,14 +17,28 @@ tensors it runs :func:`grouped_gemm_torch`, the plain PyTorch version.
   or bf16 (``bf16acc``: the running sum rounded to bf16 once per
   ``geom.bk``-deep K block).
 
-Two engines, chosen by :func:`repro_torch.core.geometry.grouped_engine`
-(never a fallback): the cluster split-K kernel
-(``csrc/grouped_gemm_splitk.cu``, counter ``grouped_gemm_splitk``; plain
-version :func:`grouped_splitk_torch`) for bf16 operands with an f32 or a
-bf16 (``bf16acc``) accumulator, C ≤ 16, N a multiple of 8 and K within 8
-slices of x in shared memory — the decode group —, and the tile loop
-(``csrc/grouped_gemm.cu``, counter ``grouped_gemm``, at ``geom``'s tile;
-plain version :func:`grouped_gemm_torch`) for everything else.
+Four engines, chosen by :func:`repro_torch.core.geometry.grouped_engine`
+at ``geom``'s tile (never a fallback; ``engine="tile"`` pins the tile
+loop):
+
+- the cluster split-K kernel (``csrc/grouped_gemm_splitk.cu``, counter
+  ``grouped_gemm_splitk``; plain version :func:`grouped_splitk_torch`)
+  for bf16 operands with an f32 or a bf16 (``bf16acc``) accumulator,
+  C ≤ 16, N a multiple of 8 and K within 8 slices of x in shared memory
+  — the decode group;
+- B1's TMA + wgmma mainloop with the group on the grid
+  (``csrc/grouped_gemm_wgmma.cu``, counter ``grouped_gemm_wgmma``; plain
+  version :func:`grouped_gemm_torch`) for bf16 operands past 16 rows at
+  a wgmma tile, K and N multiples of 8: the prefill groups, the MoE
+  experts.  w is read through a 3-D tensor map, so each member's K tail
+  loads zeros; a broadcast x through a 2-D one;
+- the SIMT f32 mainloop with the group on the grid
+  (``csrc/grouped_gemm.cu``, counter ``grouped_gemm_simt``; bit-equal to
+  the tile loop) for f32 operands past 16 rows at a SIMT tile, K and N
+  multiples of 4: ``GroupedGemm``'s backward;
+- the tile loop (``csrc/grouped_gemm.cu``, counter ``grouped_gemm``, at
+  ``geom``'s tile; plain version :func:`grouped_gemm_torch`) for the
+  rest: int8, fp32 at C ≤ 16, unaligned shapes.
 
 Under ``bf16acc`` the split-K engine keeps B2's cluster contract
 (:mod:`repro_torch.kernels.splitk_gemm`): a bf16 running sum per K slice,
@@ -53,7 +67,7 @@ from repro_torch.core.geometry import (GROUPED_BK, H100_SPEC, MAX_CLUSTER,
 from repro_torch.kernels import build
 from repro_torch.kernels.mte_gemm import (DTYPE_CODES, _acc_dtype,
                                           bf16_scalar, bf16acc_block,
-                                          raw_accumulate)
+                                          raw_accumulate, tma_ready)
 from repro_torch.kernels.splitk_gemm import _reduce, slice_partials
 
 __all__ = ["grouped_gemm_kernel", "grouped_gemm_torch",
@@ -66,6 +80,12 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                 ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                 ctypes.c_void_p])
+# grouped_gemm_wgmma_launch: as grouped_gemm_launch without the operand
+# type (always bf16); grouped_gemm_simt_launch: without the operand type,
+# the accumulator flag and its block (f32 operands and accumulator).
+_WG_ARGTYPES = _ARGTYPES[:9] + _ARGTYPES[10:]
+_SIMT_ARGTYPES = (_ARGTYPES[:9] + _ARGTYPES[10:11] + _ARGTYPES[12:14]
+                  + _ARGTYPES[15:])
 _SPLITK_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                     + [ctypes.c_long] * 2 + [ctypes.c_int] * 6
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
@@ -164,13 +184,17 @@ def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
                         out_dtype=torch.float32, acc_dtype=None,
                         widths: Optional[Sequence[int]] = None,
                         n_split: Optional[int] = None,
-                        split_rows: Optional[int] = None) -> torch.Tensor:
+                        split_rows: Optional[int] = None,
+                        engine: Optional[str] = None) -> torch.Tensor:
     """x (G, C, K) @ w (G, K, N) → (G, C, N), epilogue per group: the B3
     CUDA kernel on CUDA tensors, :func:`grouped_gemm_torch` on CPU
     tensors.  ``n_split`` (split-K engine only) pins the number of K
     slices, at most 8; None takes
     :func:`repro_torch.core.geometry.grouped_split`'s choice for
-    ``split_rows`` rows (default C)."""
+    ``split_rows`` rows (default C).  ``engine`` pins the engine: None
+    (or the name :func:`~repro_torch.core.geometry.grouped_engine` gives)
+    launches that engine's kernel, ``"tile"`` the tile loop at ``geom``'s
+    tile whatever the rule names."""
     dev = build.require_cuda(x, w, what="grouped_gemm")
     g, m, n, k = _check(x, w, epilogue, widths)
     acc_dtype = _acc_dtype(x, acc_dtype)
@@ -199,10 +223,21 @@ def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
                          "identity epilogue (dequantize first)")
     if out_dtype not in (torch.float32, torch.bfloat16, torch.int32):
         raise TypeError(f"grouped_gemm: out_dtype {out_dtype} unsupported")
-    engine = grouped_engine(x.dtype, m, n, k, bf16acc=bf16acc)
+    chosen = grouped_engine(x.dtype, m, n, k, bf16acc=bf16acc,
+                            tile=(geom.bm, geom.bn))
+    if engine is None:
+        engine = chosen
+    elif engine not in (chosen, "tile"):
+        raise ValueError(f"grouped_gemm: engine={engine!r} cannot run "
+                         f"{tuple(x.shape)} x {tuple(w.shape)} at the tile "
+                         f"{geom.bm}x{geom.bn} (grouped_engine chose "
+                         f"{chosen!r})")
     if n_split is not None and engine != "splitk":
         raise ValueError("grouped_gemm: n_split pins the split-K engine's "
                          "slices; the tile loop takes its split from geom")
+    if engine in ("wgmma", "simt"):
+        return _pipelined(engine, x, w, geom, epilogue, out_dtype, bf16acc,
+                          widths, dev)
     if x.stride(2) != 1 or (m > 1 and x.stride(1) < k):
         x = x.contiguous()
     w = w.contiguous()
@@ -244,4 +279,46 @@ def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
              ACTIVATION_CODES[epilogue.activation], n_widths, wd,
              build.stream_ptr(dev))
     build.check(lib, err, "grouped_gemm")
+    return out
+
+
+def _pipelined(engine, x, w, geom, epilogue, out_dtype, bf16acc, widths,
+               dev) -> torch.Tensor:
+    """One launch of the wgmma or the SIMT f32 engine: both read 16-byte
+    vectors of contiguous rows at 16-byte aligned addresses, a broadcast x
+    (group stride 0) through its one matrix, no copy."""
+    g, m, k = x.shape
+    n = w.shape[2]
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"grouped_gemm: the {engine} engine writes f32 or "
+                        f"bf16, not {out_dtype}")
+    if x.stride(0) == 0 and g > 1:
+        x = tma_ready(x[0])
+        sx, ldx = 0, x.stride(0)
+    else:
+        x = tma_ready(x)
+        sx, ldx = m * k, k
+    w = tma_ready(w)
+    n_widths = 0 if widths is None else g
+    wd = (ctypes.c_int * MAX_WIDTHS)(*[int(v) for v in (widths or ())])
+    out = torch.empty(g, m, n, dtype=out_dtype, device=dev)
+    alpha = float(epilogue.alpha)
+    softcap = float(epilogue.softcap or 0.0)
+    if bf16acc:
+        alpha, softcap = bf16_scalar(alpha), bf16_scalar(softcap)
+    if engine == "wgmma":
+        lib, fn = build.entry("grouped_gemm_wgmma",
+                              "grouped_gemm_wgmma_launch", _WG_ARGTYPES)
+        mid = (DTYPE_CODES[out_dtype], int(bf16acc), geom.bm, geom.bn,
+               bf16acc_block(geom.bk, k))
+    else:
+        lib, fn = build.entry("grouped_gemm", "grouped_gemm_simt_launch",
+                              _SIMT_ARGTYPES)
+        mid = (DTYPE_CODES[out_dtype], geom.bm, geom.bn)
+    build.count_launch(f"grouped_gemm_{engine}")
+    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), g, m, n, k, sx,
+             ldx, *mid, alpha, int(epilogue.softcap is not None), softcap,
+             ACTIVATION_CODES[epilogue.activation], n_widths, wd,
+             build.stream_ptr(dev))
+    build.check(lib, err, f"grouped_gemm[{engine}]")
     return out

@@ -86,7 +86,8 @@ def _chunk_rows(plan, x, rows: int, n: int, k: int, widths=None) -> int:
     bf16acc = sig.format_policy.accum_torch == torch.bfloat16
     depth = 0
     if plan.route == "grouped":
-        engine = grouped_engine(x.dtype, sig.m, n, k, bf16acc=bf16acc)
+        engine = grouped_engine(x.dtype, sig.m, n, k, bf16acc=bf16acc,
+                                tile=(plan.geometry.bm, plan.geometry.bn))
         if engine == "splitk":
             tiles = sum(grouped_live_tiles(n, widths, sig.group))
             depth = grouped_split(tiles, k, sig.m, sms)[1]

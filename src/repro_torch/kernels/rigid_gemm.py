@@ -11,8 +11,10 @@ matrix ISA (§II-D).  It keeps both handicaps on purpose:
    int32 for int8) to device memory.  Its mainloop is B1's, on the engine
    :func:`repro_torch.core.geometry.gemm_engine` names: the TMA + wgmma
    mainloop for bf16 with K and N multiples of 8 (counter
-   ``rigid_gemm_wgmma``), else the tile loop (counter ``rigid_gemm``) —
-   so that MTE against rigid compares flexibility, not mainloops.
+   ``rigid_gemm_wgmma``), the SIMT f32 mainloop for f32 with K and N
+   multiples of 4 at every M (counter ``rigid_gemm_simt``; bit-equal to
+   the tile loop), else the tile loop (counter ``rigid_gemm``) — so that
+   MTE against rigid compares flexibility, not mainloops.
 2. **No matrix↔vector interplay.** :func:`epilogue_pass_kernel` is a
    separate element-wise kernel that reads the accumulator back and
    applies α, β·C, bias, softcap and the activation.
@@ -25,6 +27,7 @@ PyTorch version.  B is row-major (K, N).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -40,7 +43,8 @@ __all__ = ["rigid_gemm_kernel", "rigid_gemm_torch",
 
 _RIGID_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_long] * 2 + [ctypes.c_int, ctypes.c_void_p])
-# rigid_gemm_wgmma_launch: as rigid_gemm_launch without the operand type.
+# rigid_gemm_wgmma_launch and rigid_gemm_simt_launch: as rigid_gemm_launch
+# without the operand type.
 _RIGID_WG_ARGTYPES = _RIGID_ARGTYPES[:8] + _RIGID_ARGTYPES[9:]
 _PASS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_long] * 3
                   + [ctypes.c_float] * 2
@@ -67,9 +71,13 @@ def rigid_accumulate_torch(a, b) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def rigid_accumulate_kernel(a, b) -> torch.Tensor:
+def rigid_accumulate_kernel(a, b, *, engine: Optional[str] = None
+                            ) -> torch.Tensor:
     """Stage 1: ``a @ b`` at the fixed 128 x 128 tile into an f32 (int32
-    for int8) accumulator in device memory."""
+    for int8) accumulator in device memory.  ``engine`` pins the engine:
+    None (or the name :func:`~repro_torch.core.geometry.gemm_engine`
+    gives) launches that engine's kernel, ``"tile"`` the tile loop
+    whatever the rule names."""
     dev = build.require_cuda(a, b, what="rigid_gemm")
     if dev is None:
         return rigid_accumulate_torch(a, b)
@@ -78,14 +86,19 @@ def rigid_accumulate_kernel(a, b) -> torch.Tensor:
                                              torch.int8):
         raise TypeError(f"rigid_gemm: operands {a.dtype} x {b.dtype} "
                         f"unsupported")
-    engine = gemm_engine(a.dtype, *RIGID_TILE[:2], n, k, m=a.shape[0],
-                         rigid=True)
+    chosen = gemm_engine(a.dtype, *RIGID_TILE[:2], n, k, m=m, rigid=True)
+    if engine is None:
+        engine = chosen
+    elif engine not in (chosen, "tile"):
+        raise ValueError(f"rigid_gemm: engine={engine!r} cannot run "
+                         f"{tuple(a.shape)} x {tuple(b.shape)} "
+                         f"(gemm_engine chose {chosen!r})")
     acc = torch.empty(m, n, dtype=_acc_dtype(a), device=dev)
-    if engine == "wgmma":
+    if engine in ("wgmma", "simt"):
         a, b = tma_ready(a), tma_ready(b)
-        lib, fn = build.entry("rigid_gemm", "rigid_gemm_wgmma_launch",
+        lib, fn = build.entry("rigid_gemm", f"rigid_gemm_{engine}_launch",
                               _RIGID_WG_ARGTYPES)
-        build.count_launch("rigid_gemm_wgmma")
+        build.count_launch(f"rigid_gemm_{engine}")
         head = ()
     else:
         a, b = a.contiguous(), b.contiguous()

@@ -174,7 +174,11 @@ def test_rigid_gemm_kernels_match_plain(card, dtype):
                                        bias.to(card), epilogue=epi)
         _close(got, want, 1e-4 if dt == torch.float32 else 1e-3)
     after = build.launch_counts()
-    assert after["rigid_gemm"] == counts["rigid_gemm"] + 2
+    stage1 = ("rigid_gemm", "rigid_gemm_simt", "rigid_gemm_wgmma")
+    assert sum(after[k] - counts[k] for k in stage1) == 2
+    # f32 at (4, 300, 1000) runs the SIMT engine; the rest the tile loop.
+    assert after["rigid_gemm_simt"] - counts["rigid_gemm_simt"] == (
+        1 if dt == torch.float32 else 0)
     assert after["epilogue_pass"] == counts["epilogue_pass"] + (
         0 if dt == torch.int8 else 2)
 
@@ -445,15 +449,16 @@ def test_grouped_splitk_every_split_matches_plain(card, n_split):
 
 
 def test_grouped_engines_split_by_rows_and_format(card):
-    """C = 17 stays on the tile loop (bf16acc too), C = 16 and C = 4 under
-    bf16acc go to split-K: each launch counts on its own engine's counter
-    only, each held to its engine's plain version."""
+    """C = 17 at the 64 x 64 tile goes to the wgmma engine (bf16acc too),
+    C = 16 and C = 4 under bf16acc go to split-K: each launch counts on
+    its own engine's counter only, each held to its engine's plain
+    version."""
     gen = torch.Generator().manual_seed(17)
     sew = tgeometry.SEW.E16
     k, n = 256, 384
     w = torch.randn(2, k, n, generator=gen).to(torch.bfloat16)
-    for c, acc, counter in [(17, None, "grouped_gemm"),
-                            (17, torch.bfloat16, "grouped_gemm"),
+    for c, acc, counter in [(17, None, "grouped_gemm_wgmma"),
+                            (17, torch.bfloat16, "grouped_gemm_wgmma"),
                             (4, torch.bfloat16, "grouped_gemm_splitk"),
                             (16, None, "grouped_gemm_splitk")]:
         x = (torch.randn(2, c, k, generator=gen) / k ** 0.5).to(
@@ -1842,4 +1847,167 @@ def test_f32_train_step_on_the_simt_engine_equals_the_cpu(card):
                     / (torch.linalg.vector_norm(b) + 1e-30))
         assert rel <= 1e-4
     for a, b in zip(pg, pc):
+        assert float((a - b).abs().max()) <= 1e-5
+
+
+RIGID_SIMT_SHAPES = [(4, 300, 1000), (16, 392, 1000), (1, 4, 4),
+                     (130, 264, 520), (129, 128, 132), (520, 2056, 1032)]
+
+
+@pytest.mark.parametrize("m,n,k", RIGID_SIMT_SHAPES)
+def test_rigid_simt_is_bit_equal_to_the_rigid_tile_loop(card, m, n, k):
+    """B8 stage 1 on the SIMT f32 engine (every M, M <= 16 included, K
+    and N multiples of 4) against the rigid tile loop pinned: bit for bit
+    (each output is the same FMA chain over k from 0), and within 1e-4 x
+    (1 + |ref|) of the plain version; each counter shows its engine."""
+    assert tgeometry.gemm_engine(torch.float32, 128, 128, n, k, m=m,
+                                 rigid=True) == "simt"
+    gen = torch.Generator().manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=gen) / k ** 0.5
+    b = torch.randn(k, n, generator=gen)
+    before = build.launch_counts()
+    got = trigid.rigid_accumulate_kernel(a.to(card), b.to(card))
+    mid = build.launch_counts()
+    ref = trigid.rigid_accumulate_kernel(a.to(card), b.to(card),
+                                         engine="tile")
+    after = build.launch_counts()
+    assert torch.equal(got, ref)
+    want = trigid.rigid_accumulate_torch(a, b)
+    assert bool(((got.cpu() - want).abs() <= 1e-4 * (1 + want.abs())).all())
+    assert {k_ for k_ in mid if mid[k_] != before[k_]} == {"rigid_gemm_simt"}
+    assert {k_ for k_ in after if after[k_] != mid[k_]} == {"rigid_gemm"}
+    with pytest.raises(ValueError, match="engine='wgmma'"):
+        trigid.rigid_accumulate_kernel(a.to(card), b.to(card),
+                                       engine="wgmma")
+
+
+GROUPED_PIPED = [(3, 100, 392, 1000, True, (392, 129, 0)),
+                 (2, 200, 264, 520, False, None),
+                 (4, 64, 392, 1032, False, (392, 40, 300, 0)),
+                 (2, 17, 136, 72, True, None)]
+
+
+# bf16acc takes no 256-wide tile (its two register sets).
+@pytest.mark.parametrize("tile,acc", [((64, 64), None), ((128, 128), None),
+                                      ((128, 256), None),
+                                      ((64, 64), "bfloat16"),
+                                      ((128, 128), "bfloat16")],
+                         ids=lambda v: (f"{v[0]}x{v[1]}"
+                                        if isinstance(v, tuple)
+                                        else f"{v or 'f32'}acc"))
+@pytest.mark.parametrize("case", GROUPED_PIPED,
+                         ids=lambda c: f"G{c[0]}-C{c[1]}")
+def test_grouped_wgmma_matches_plain(card, case, tile, acc):
+    """B3 past 16 rows on the wgmma engine against its plain version: C
+    not a multiple of 64, an N tail, a K not a multiple of 64, a
+    broadcast x (group stride 0) and a per-group x, widths that straddle
+    a tile and one of 0 (their columns exactly 0), bf16 out with an f32
+    accumulator (1e-2 x (1 + |ref|)) and bf16acc (3e-2, B1's); two calls
+    are bit-equal."""
+    g, c, n, k, shared, widths = case
+    acc = getattr(torch, acc) if acc else None
+    gen = torch.Generator().manual_seed(c + n)
+    x = (torch.randn(g, c, k, generator=gen) / k ** 0.5).to(torch.bfloat16)
+    w = torch.randn(g, k, n, generator=gen).to(torch.bfloat16)
+    if shared:
+        x = x[:1].expand(g, c, k)
+    sew = tgeometry.SEW.E32
+    geom = tgeometry.BlockGeometry(*tile, 64, 1, 1, False, sew, sew, "mte")
+    epi = tepilogue.Epilogue(alpha=0.7, softcap=20.0, activation="gelu")
+    out_dt = torch.float32 if acc is not None else torch.bfloat16
+    kw = dict(geom=geom, epilogue=epi, out_dtype=out_dt, acc_dtype=acc,
+              widths=widths)
+    assert tgeometry.grouped_engine(torch.bfloat16, c, n, k,
+                                    bf16acc=acc is not None,
+                                    tile=tile) == "wgmma"
+    before = build.launch_counts()["grouped_gemm_wgmma"]
+    got = tgrouped.grouped_gemm_kernel(x.to(card), w.to(card), **kw)
+    again = tgrouped.grouped_gemm_kernel(x.to(card), w.to(card), **kw)
+    assert build.launch_counts()["grouped_gemm_wgmma"] == before + 2
+    assert torch.equal(got, again)
+    want = tgrouped.grouped_gemm_torch(x, w, **kw)
+    tol = 3e-2 if acc is not None else 1e-2
+    got = got.float().cpu()
+    assert bool(((got - want.float()).abs()
+                 <= tol * (1 + want.float().abs())).all())
+    for i, wd in enumerate(widths or ()):
+        assert not got[i, :, wd:].any()
+
+
+@pytest.mark.parametrize("tile", SIMT_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("case", GROUPED_PIPED,
+                         ids=lambda c: f"G{c[0]}-C{c[1]}")
+def test_grouped_simt_is_bit_equal_to_the_tile_loop(card, case, tile):
+    """B3 past 16 rows on the SIMT f32 engine against B3's tile loop
+    pinned at 64 x 64: bit for bit with a full epilogue, broadcast and
+    per-group x, widths (their columns exactly 0); within 1e-4 x (1 +
+    |ref|) of the plain version."""
+    g, c, n, k, shared, widths = case
+    gen = torch.Generator().manual_seed(c + k)
+    x = torch.randn(g, c, k, generator=gen) / k ** 0.5
+    w = torch.randn(g, k, n, generator=gen)
+    if shared:
+        x = x[:1].expand(g, c, k)
+    sew = tgeometry.SEW.E32
+    geom = tgeometry.BlockGeometry(*tile, 64, 1, 1, False, sew, sew, "mte")
+    kw = dict(epilogue=tepilogue.Epilogue(alpha=0.7, softcap=20.0,
+                                          activation="gelu"),
+              widths=widths)
+    assert tgeometry.grouped_engine(torch.float32, c, n, k,
+                                    tile=tile) == "simt"
+    before = build.launch_counts()
+    got = tgrouped.grouped_gemm_kernel(x.to(card), w.to(card), geom=geom,
+                                       **kw)
+    ref = tgrouped.grouped_gemm_kernel(
+        x.to(card), w.to(card), geom=dataclasses.replace(geom, bm=64, bn=64),
+        **kw)
+    after = build.launch_counts()
+    assert after["grouped_gemm_simt"] == before["grouped_gemm_simt"] + 1
+    assert after["grouped_gemm"] == before["grouped_gemm"] + 1
+    assert torch.equal(got, ref)
+    want = tgrouped.grouped_gemm_torch(x, w, geom=geom, **kw)
+    got = got.cpu()
+    assert bool(((got - want).abs() <= 1e-4 * (1 + want.abs())).all())
+    for i, wd in enumerate(widths or ()):
+        assert not got[i, :, wd:].any()
+
+
+def test_amx_train_steps_on_the_card_equal_the_cpu(card):
+    """Three steps of reduced fp32 gemma_2b under the rigid ``amx``
+    policy on the card and on the CPU (``loss_and_grads`` + AdamW): every
+    GEMM, forward and backward, runs B8 stage 1 on the SIMT f32 engine
+    and none runs B1, B2 or a tile loop; each loss within 1e-5 relative,
+    every gradient leaf within 1e-4 relative Frobenius error, the
+    parameters after the steps within 1e-5."""
+    cfg = dataclasses.replace(tconfigs.get_config("gemma_2b").reduced(),
+                              gemm_policy="amx")
+    tokens = torch.randint(0, cfg.vocab, (3, 4, 32),
+                           generator=torch.Generator().manual_seed(6))
+    opt = topt.AdamWConfig(lr=1e-3)
+    out = {}
+    for dev in ("cpu", card):
+        params = tmodel.init_params(cfg, seed=0, device="cpu")
+        params = ttree.tree_map(lambda p: p.to(dev), params)
+        state = topt.init_opt_state(params)
+        before = build.launch_counts()
+        steps = []
+        for i in range(3):
+            metrics, grads = ttrainer.loss_and_grads(
+                params, {"tokens": tokens[i].to(dev)}, cfg)
+            topt.adamw_update(params, grads, state, opt)
+            steps.append((float(metrics["loss"]),
+                          [g.cpu() for g in ttree.leaves(grads)]))
+        after = build.launch_counts()
+        out[str(dev)] = (steps, [p.cpu() for p in ttree.leaves(params)])
+    ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert ran.get("rigid_gemm_simt", 0) > 0, ran
+    assert not {"rigid_gemm", "mte_gemm", "mte_gemm_simt", "splitk_gemm",
+                "splitk_gemm_simt"} & set(ran), ran
+    for (lg, gg), (lc, gc) in zip(out["cuda"][0], out["cpu"][0]):
+        assert abs(lg - lc) <= 1e-5 * abs(lc)
+        for a, b in zip(gg, gc):
+            rel = float(torch.linalg.vector_norm(a - b)
+                        / (torch.linalg.vector_norm(b) + 1e-30))
+            assert rel <= 1e-4
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert float((a - b).abs().max()) <= 1e-5

@@ -151,17 +151,20 @@ def _gsig(m, n_, k, fmt, group=3):
     (4, 2048, 2048, "bf16acc", "splitk"),
     (4, 2048, 2048, "fp32", "tile"),
     (4, 2048, 2048, "int8", "tile"),
-    (512, 16384, 2048, "bf16", "tile"),
+    (512, 16384, 2048, "bf16", "wgmma"),
     (4, 2050, 2048, "bf16", "tile"),
 ])
 def test_plan_engine_reports_the_grouped_engine(m, n_, k, fmt, want):
-    """Grouped plans keep their route and the tile loop's tile and price;
-    plan_engine names the engine the wrapper will launch."""
+    """Grouped plans keep their route and the tile loop's price (at a
+    wgmma tile past 16 bf16 rows); plan_engine names the engine the
+    wrapper will launch."""
     sig = _gsig(m, n_, k, fmt)
     plan = tautotune.get_plan(m, n_, k, sig.dtype_in, sig.dtype_out,
                               group=3, fmt=fmt)
     assert plan.route == "grouped"
-    assert (plan.geometry.bm, plan.geometry.bn) in tgeometry.TILE_LOOP_TILES
+    tiles = (tgeometry.WGMMA_TILES if want == "wgmma"
+             else tgeometry.TILE_LOOP_TILES)
+    assert (plan.geometry.bm, plan.geometry.bn) in tiles
     assert tautotune.plan_engine(plan.signature, plan.geometry) == want
     assert plan.predicted_s == tautotune.score_geometry(
         plan.signature, plan.geometry, tgeometry.H100_SPEC)

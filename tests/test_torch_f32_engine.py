@@ -73,7 +73,7 @@ def fresh_cache():
     ("int8", 64, 64, 4096, 2048, 2048, False, "tile"),
     ("bfloat16", 128, 128, 4096, 2048, 2048, False, "wgmma"),
     ("bfloat16", 128, 128, 4096, 2044, 2048, False, None),  # N % 8
-    ("float32", 128, 128, 4096, 2048, 2048, True, "tile"),  # rigid tile
+    ("float32", 128, 128, 4096, 2048, 2048, True, "simt"),  # rigid tile
 ])
 def test_gemm_engine_table(dtype, bm, bn, m, n_, k, rigid, want):
     call = lambda: tgeometry.gemm_engine(  # noqa: E731

@@ -73,14 +73,17 @@ def test_wgmma_tiles_offered_only_where_the_engine_runs(m, n_, k, fmt,
 @pytest.mark.parametrize("m,n_,k", [(512, 256, 2048), (128, 64, 4096)])
 def test_split_k_candidates_stay_on_the_tile_loop(m, n_, k):
     """Split-K derives from the solver's base tile: B2 never gets a
-    wgmma tile, and a grouped signature gets neither."""
+    wgmma tile, and a grouped signature no split (past 64 rows it gets
+    the wgmma tiles, unsplit, as B1 does)."""
     sig = _sig(m, n_, k)
     cands = tautotune.enumerate_candidates(sig, tgeometry.H100_SPEC)
     splits = [g for g in cands if g.split_k > 1]
     assert splits and all((g.bm, g.bn) in LOOP for g in splits)
     grouped = tautotune.enumerate_candidates(_sig(m, n_, k, group=3),
                                              tgeometry.H100_SPEC)
-    assert [(g.bm, g.bn, g.split_k) for g in grouped] == [(64, 64, 1)]
+    assert all(g.split_k == 1 for g in grouped)
+    assert (grouped[0].bm, grouped[0].bn) == (64, 64)
+    assert {(g.bm, g.bn) for g in grouped} == set(WGMMA)
 
 
 @pytest.mark.parametrize("bm,bn", WGMMA + LOOP)
@@ -107,8 +110,8 @@ def test_check_kernel_tile_accepts_exactly_the_compiled_set():
                     g = tgeometry.BlockGeometry(bm, bn, 64, split, 1, False,
                                                 sew, sew, "mte")
                     ok = (bm, bn) in LOOP or (
-                        (bm, bn) in WGMMA and split == 1 and group == 1) or (
-                        (bm, bn) in SIMT and group == 1)
+                        (bm, bn) in WGMMA and split == 1) or (
+                        (bm, bn) in SIMT and (group == 1 or split == 1))
                     if ok:
                         tgeometry.check_kernel_tile(g, group)
                     else:
@@ -138,7 +141,7 @@ def test_check_kernel_tile_accepts_exactly_the_compiled_set():
     ("bfloat16", 32, 64, 2048, 2048, False, False, None),
     ("bfloat16", 128, 128, 16384, 2048, False, True, "wgmma"),
     ("bfloat16", 128, 128, 300, 1000, False, True, "tile"),
-    ("float32", 128, 128, 2048, 2048, False, True, "tile"),
+    ("float32", 128, 128, 2048, 2048, False, True, "simt"),
     ("int8", 128, 128, 2048, 2048, False, True, "tile"),
     ("bfloat16", 64, 64, 2048, 2048, False, True, None),
 ])
