@@ -61,7 +61,15 @@ Phases (any failure raises and the script exits non-zero):
    gate+up group and qwen15_4b's prefill q/k/v group (bf16acc) on the
    wgmma engine (the gate+up also on the tile loop, pinned),
    granite_moe_1b's experts in bf16 (a per-group x) and GroupedGemm's f32
-   dw on the SIMT engine; B8 stage 1 on the SIMT engine at the reduced
+   dw on the SIMT engine; int8 past 16 rows on the s8 entries of the
+   wgmma mainloop (``int8_phase``: ``mte_gemm_wgmma_s8`` and
+   ``grouped_gemm_wgmma_s8`` bit-equal to the tile loop and the plain
+   version at ragged shapes, B as (K, N) and (N, K), x broadcast and per
+   member, widths, and ±127 operands at K = 4096; timed at gemma_2b's
+   and granite_moe_1b's prefill shapes and granite's experts beside
+   ``torch._int_mm``, the K-major copy of B and the tile loop, and the
+   tile loops of B1, B3 and B8 at gemma_2b's gate in int8); B8 stage 1
+   on the SIMT engine at the reduced
    model's gate (bit-equal to the tile loop, also timed pinned) and the
    amx training backward's GEMMs (``rigid_train_rows``);
    the old engines' own rows at the fp32
@@ -85,6 +93,8 @@ Phases (any failure raises and the script exits non-zero):
    the grouped decode q/k/v) and under ``gemm_policy="amx"`` (B8 stage 1
    on the SIMT f32 engine), one 4096-token chunk through it on the eager path
    (B1's SIMT f32 engine: fp32 GEMMs past 16 rows; no tile-loop launch),
+   gemma_2b.reduced() under ``format_policy="int8"`` with 64-row
+   prefill chunks (B1's and B3's s8 entries; ``reduced_int8_phase``),
    and
    recurrentgemma_9b.reduced() in the default configuration (prompts
    longer than its 16-slot ring, chunks of 8; and with an RG-LRU width of
@@ -113,7 +123,11 @@ Phases (any failure raises and the script exits non-zero):
    requests × 24 greedy tokens: gemma_2b (18 layers, d_model 2048, vocab
    256000; 1024-token prompts, two sharing their first 512 tokens) in
    three configurations — the defaults, the rigid ``amx`` policy and
-   slice 1's eager path — then recurrentgemma_9b (38 layers, d_model 4096;
+   slice 1's eager path — and under the engine's ``format_policy="int8"``
+   (``int8``: f32 weights quantized at every call, every prefill
+   projection on B1's s8 entry and no int8 tile-loop launch in a prefill
+   chunk, ``INT8_CHUNK``; the decode step's 4-row GEMMs on B2's and B3's
+   int8 tile loops), then recurrentgemma_9b (38 layers, d_model 4096;
    2560-token prompts, so its 2048-slot rings wrap in prefill and decode)
    and gemma2_27b (46 layers alternating local and global, d_model 4608,
    GQA 32/16, softcaps 50 and 30, post-norms; weights built in bf16;
@@ -257,7 +271,14 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args):
+    """Print at once; a phase's header ("== ...") also gets the seconds
+    since the script started, so each phase's share of the limit shows."""
+    if args and str(args[0]).startswith("== "):
+        args = (*args, f"[{time.perf_counter() - _T0:.1f} s]")
     print(*args, flush=True)
 
 
@@ -1119,6 +1140,323 @@ def grouped_phase(dev, rows):
     del xt, dacc
 
 
+# -- phase 2: int8 on the s8 wgmma engine ---------------------------------------
+
+# Ragged int8 shapes of B1's s8 engine: M 65 and 520, N 72 and 2056, K 144
+# and 1040 (a K tail past the 128-deep stages).
+S8_SHAPES = [(65, 72, 144), (520, 2056, 1040), (65, 2056, 144),
+             (520, 72, 1040)]
+# The int8 GEMMs timed at their main-path shapes: gemma_2b's prefill
+# projections (one 512-token chunk) and granite_moe_1b's attention
+# projections (d_model 1024, 16 heads x 64, 8 kv heads) over a 512-token
+# chunk, on B1.
+S8_GEMMS = [("gate", 512, 16384, 2048), ("up", 512, 16384, 2048),
+            ("down", 512, 2048, 16384), ("q/o", 512, 2048, 2048),
+            ("k/v", 512, 256, 2048), ("granite q/o", 512, 1024, 1024),
+            ("granite k/v", 512, 512, 1024)]
+# granite_moe_1b's 32 experts (d_model 1024, d_ff 512), each its own x: a
+# capacity of 1024 rows (4096 tokens x top-8 / 32, as the bf16 rows) and
+# of 160 (a 512-token chunk at capacity_factor 1.25), gate and down.
+S8_EXPERTS = [("moe gate", 32, 1024, 1024, 512),
+              ("moe gate", 32, 160, 1024, 512),
+              ("moe down", 32, 1024, 512, 1024),
+              ("moe down", 32, 160, 512, 1024)]
+
+
+def int_mm_call(a, b, bt):
+    """One ``torch._int_mm`` call computing a @ b (int8 -> int32), B
+    given column-major (``bt`` (N, K) seen transposed, cuBLAS's fast
+    layout) or, where that is refused, row-major; None where neither
+    runs here (the error is printed)."""
+    import torch
+    for call in (lambda: torch._int_mm(a, bt.t()),
+                 lambda: torch._int_mm(a, b)):
+        try:
+            call()
+            return call
+        except RuntimeError as e:
+            log(f"    torch._int_mm refused a layout: {e}")
+    return None
+
+
+def int8_phase(dev, rows):
+    """B1 and B3 on the int8 (s8) entries of the wgmma mainloop against
+    the tile loop and their plain versions, bit for bit: ragged shapes at
+    every B1 tile with B as (K, N) and as (N, K), B3 with x broadcast and
+    per member and with widths, and ±127 operands at K = 4096 (sums past
+    2^24); then the main-path rows with their plans: B1 at gemma_2b's
+    prefill gate, up, down, q/o and k/v and at granite_moe_1b's q/o and
+    k/v, B3 at granite's experts (own x) and at gemma_2b's gate+up group,
+    each timed warm and L2-cold beside its bound (int8 operations at 1979
+    TOPS, bytes at 3.35 TB/s: the operands once and the int32 output),
+    the plain version, ``torch._int_mm`` (B1; B3 has no one call: the
+    summed time of its members' calls is kept apart), the K-major copy of
+    B the wrapper makes and the tile loop in the same run; and the int8
+    times of the tile loops themselves (B1 and B3 pinned, B8 stage 1) at
+    gemma_2b's gate."""
+    import torch
+    from repro_torch.core.autotune import (GemmSignature, PlanCache,
+                                           plan_engine)
+    from repro_torch.core.geometry import (WGMMA_TILES, BlockGeometry, SEW,
+                                           gemm_engine, grouped_engine)
+    from repro_torch.kernels.grouped_gemm import (grouped_gemm_kernel,
+                                                  grouped_gemm_torch)
+    from repro_torch.kernels.mte_gemm import (k_major, mte_gemm_kernel,
+                                              mte_gemm_torch)
+    from repro_torch.kernels.rigid_gemm import (rigid_accumulate_kernel,
+                                                rigid_accumulate_torch)
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    i32 = torch.int32
+
+    def ints(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def geom(tile, transposed=False):
+        return BlockGeometry(*tile, 256, 1, 1, transposed, SEW.E8, SEW.E32,
+                             "mte")
+
+    def exact(name, got, want, loop=None):
+        ok = got.dtype == i32 and torch.equal(got, want) and (
+            loop is None or torch.equal(got, loop))
+        log(f"  {name}: int32 bit-equal to the plain version"
+            f"{' and the tile loop' if loop is not None else ''} "
+            f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"{name}: not bit-equal")
+
+    # B1: every compiled tile, both B layouts, ragged M, N and K.
+    for tile in WGMMA_TILES:
+        for m, n, k in S8_SHAPES[:2] if tile != (128, 256) else S8_SHAPES:
+            require(gemm_engine(torch.int8, *tile, n, k, m=m) == "wgmma",
+                    f"{m}x{n}x{k} at {tile} is not on the s8 engine")
+            a, b = ints(m, k), ints(k, n)
+            want = mte_gemm_torch(a, b, geom=geom(tile), out_dtype=i32)
+            for tb, bb in ((False, b), (True, b.t().contiguous())):
+                got = mte_gemm_kernel(a, bb, geom=geom(tile, tb),
+                                      out_dtype=i32)
+                loop = mte_gemm_kernel(a, bb, geom=geom((64, 64), tb),
+                                       out_dtype=i32, engine="tile")
+                exact(f"mte_gemm_wgmma_s8 [{tile[0]}x{tile[1]}] "
+                      f"{'(N, K) ' if tb else ''}{m}x{n}x{k}", got, want,
+                      loop)
+                rows.append({"kernel": "mte_gemm_wgmma_s8",
+                             "shape": f"int8 {m}x{n}x{k} {tile[0]}x"
+                                      f"{tile[1]}{' nk' if tb else ''}",
+                             "max_abs_err": 0.0, "tol": 0.0})
+    # B3: x broadcast and per member, with and without widths.
+    for tile in ((64, 128), (128, 256)):
+        for g, c, n, k in [(3, 65, 2056, 144), (3, 520, 72, 1040)]:
+            for shared in (True, False):
+                x, w = ints(1 if shared else g, c, k), ints(g, k, n)
+                if shared:
+                    x = x.expand(g, c, k)
+                require(grouped_engine(torch.int8, c, n, k, tile=tile)
+                        == "wgmma", f"G={g} {c}x{n}x{k} is not on the s8 "
+                        f"engine")
+                for widths in (None, [n, 0, 40]):
+                    kw = dict(geom=geom(tile), out_dtype=i32, widths=widths)
+                    got = grouped_gemm_kernel(x, w, **kw)
+                    shape = (f"int8 G={g} {c}x{n}x{k} {tile[0]}x{tile[1]}"
+                             f"{' shared-x' if shared else ''}"
+                             f"{' widths' if widths else ''}")
+                    exact(f"grouped_gemm_wgmma_s8 {shape}", got,
+                          grouped_gemm_torch(x, w, **kw),
+                          grouped_gemm_kernel(x, w, engine="tile", **dict(
+                              kw, geom=geom((64, 64)))))
+                    for i, wd in enumerate(widths or ()):
+                        require(bool((got[i, :, wd:] == 0).all()),
+                                f"{shape}: columns past {wd} not 0")
+                    rows.append({"kernel": "grouped_gemm_wgmma_s8",
+                                 "shape": shape, "max_abs_err": 0.0,
+                                 "tol": 0.0})
+    # ±127 operands at K = 4096: sums past 2^24 that f32 cannot hold.
+    m, n, k = 192, 320, 4096
+    a = torch.full((m, k), 127, dtype=torch.int8, device=dev)
+    b = torch.full((k, n), -127, dtype=torch.int8, device=dev)
+    b[::2, 1::2] = 127
+    b[:3, ::3] = 1
+    b[3, ::3] = 2
+    want = mte_gemm_torch(a, b, geom=geom((64, 64)), out_dtype=i32)
+    require(int(want.abs().max()) > 2 ** 24
+            and not torch.equal(want.float().long(), want.long()),
+            "the ±127 case does not pass 2^24")
+    for tile in ((64, 64), (128, 256)):
+        exact(f"mte_gemm_wgmma_s8 ±127 K=4096 [{tile[0]}x{tile[1]}] "
+              f"(max |sum| {int(want.abs().max())})",
+              mte_gemm_kernel(a, b, geom=geom(tile), out_dtype=i32), want)
+        exact(f"grouped_gemm_wgmma_s8 ±127 K=4096 [{tile[0]}x{tile[1]}]",
+              grouped_gemm_kernel(a[None].expand(2, m, k),
+                                  torch.stack([b, -b]), geom=geom(tile),
+                                  out_dtype=i32),
+              torch.stack([want, -want]))
+
+    cache = PlanCache()
+    peak = PEAK["int8"]
+
+    def s8_gemm_row(label, m, n, k):
+        sig = GemmSignature.make(m, n, k, "int8", "int32", fmt="int8")
+        plan = cache.plan(sig)
+        engine = plan_engine(sig, plan.geometry)
+        log(f"  int8 {label} {m}x{n}x{k}: plan {plan.describe()}, engine "
+            f"{engine}")
+        require(plan.route == "mte" and engine == "wgmma",
+                f"int8 {label}: planned {plan.describe()} on {engine}")
+        a, b = ints(m, k), ints(k, n)
+        bt = b.t().contiguous()
+        g = plan.geometry
+        run = lambda: mte_gemm_kernel(  # noqa: E731
+            a, bt, geom=dataclasses.replace(g, transposed_b=True),
+            out_dtype=i32)
+        wrapped = lambda: mte_gemm_kernel(  # noqa: E731
+            a, b, geom=g, out_dtype=i32)
+        loop = lambda: mte_gemm_kernel(  # noqa: E731
+            a, b, geom=dataclasses.replace(g, bm=64, bn=64), out_dtype=i32,
+            engine="tile")
+        plain = lambda: mte_gemm_torch(  # noqa: E731
+            a, b, geom=g, out_dtype=i32)
+        want = plain()
+        exact(f"mte_gemm_wgmma_s8 main-path int8 {label} {m}x{n}x{k}",
+              run(), want, loop())
+        require(torch.equal(wrapped(), want), f"int8 {label}: the (K, N) "
+                f"route differs")
+        lib = int_mm_call(a, b, bt)
+        if lib is not None:
+            require(torch.equal(lib(), want), f"torch._int_mm differs at "
+                    f"{label}")
+        flops = 2.0 * m * n * k
+        nbytes = m * k + k * n + 4.0 * m * n
+        row = {"kernel": "mte_gemm_wgmma_s8",
+               "shape": f"int8 {label} {m}x{n}x{k}", "engine": engine,
+               "plan": plan.describe(), "max_abs_err": 0.0, "tol": 0.0,
+               "ms": time_ms(run), "cold_ms": time_ms_cold(run),
+               "wrapper_ms": time_ms(wrapped),
+               "k_major_copy_ms": time_ms(lambda: k_major(b, False)),
+               "plain_ms": time_ms(plain, iters=5),
+               "bound_ms": bound_ms(flops, nbytes, peak),
+               "bound_by": bound_by(flops, nbytes, peak),
+               "library": "torch._int_mm",
+               "library_ms": time_ms(lib) if lib else None,
+               "library_cold_ms": time_ms_cold(lib) if lib else None,
+               "tile_loop_ms": time_ms(loop, iters=5)}
+        rows.append(row)
+        lib_txt = (f"torch._int_mm {row['library_ms']:.4f} ms (L2 cold "
+                   f"{row['library_cold_ms']:.4f}; "
+                   f"{row['ms'] / row['library_ms']:.2f}x)" if lib
+                   else "torch._int_mm not run")
+        log(f"    time {row['ms']:.4f} ms (L2 cold {row['cold_ms']:.4f}), "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {lib_txt}"
+            f", K-major copy of B {row['k_major_copy_ms']:.4f} ms (copy + "
+            f"kernel {row['wrapper_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, the tile loop (64x64) "
+            f"{row['tile_loop_ms']:.4f} ms "
+            f"({row['tile_loop_ms'] / row['ms']:.1f}x the s8 engine)")
+        return row
+
+    for label, m, n, k in S8_GEMMS:
+        s8_gemm_row(label, m, n, k)
+
+    def s8_group_row(label, g, c, k, n, shared=False, tile_loop_row=False):
+        sig = GemmSignature.make(c, n, k, "int8", "int32", fmt="int8",
+                                 group=g)
+        plan = cache.plan(sig)
+        engine = plan_engine(sig, plan.geometry)
+        log(f"  int8 {label} G={g} {c}x{k}->{n}: plan {plan.describe()}, "
+            f"engine {engine}")
+        require(engine == "wgmma", f"int8 {label}: on {engine}")
+        x = ints(1 if shared else g, c, k)
+        x = x.expand(g, c, k) if shared else x
+        w = ints(g, k, n)
+        wt = w.transpose(1, 2).contiguous()
+        kw = dict(geom=plan.geometry, out_dtype=i32)
+        run = lambda: grouped_gemm_kernel(x, w, **kw)  # noqa: E731
+        lkw = dict(kw, geom=dataclasses.replace(plan.geometry, bm=64, bn=64))
+        loop = lambda: grouped_gemm_kernel(  # noqa: E731
+            x, w, engine="tile", **lkw)
+        plain = lambda: grouped_gemm_torch(x, w, **kw)  # noqa: E731
+        want = plain()
+        shape = (f"int8 {label} {g}x{c}x{k}x{n}"
+                 f"{' shared-x' if shared else ''}")
+        exact(f"grouped_gemm_wgmma_s8 main-path {shape}", run(), want,
+              loop())
+        # No one library call: each member's torch._int_mm, summed.
+        calls = [int_mm_call(x[i], w[i], wt[i]) for i in range(g)]
+        members = None
+        if all(calls):
+            members = lambda: [f() for f in calls]  # noqa: E731
+        flops = 2.0 * g * c * k * n
+        nbytes = (1 if shared else g) * c * k + g * k * n + 4.0 * g * c * n
+        # The wrapper's K-major copy of w is inside ``ms``; timed apart.
+        row = {"kernel": "grouped_gemm_wgmma_s8", "shape": shape,
+               "engine": engine, "plan": plan.describe(),
+               "max_abs_err": 0.0, "tol": 0.0,
+               "ms": time_ms(run), "cold_ms": time_ms_cold(run),
+               "k_major_copy_ms": time_ms(
+                   lambda: w.transpose(1, 2).contiguous()),
+               "plain_ms": time_ms(plain, iters=3),
+               "bound_ms": bound_ms(flops, nbytes, peak),
+               "bound_by": bound_by(flops, nbytes, peak),
+               "library": None, "library_ms": None,
+               "int_mm_members_ms": time_ms(members) if members else None,
+               "tile_loop_ms": time_ms(loop, iters=5)}
+        rows.append(row)
+        log(f"    time {row['ms']:.4f} ms (L2 cold {row['cold_ms']:.4f}; "
+            f"with the K-major copy of w, {row['k_major_copy_ms']:.4f} ms "
+            f"of it), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"library none ({g} torch._int_mm calls, one a member: "
+            + (f"{row['int_mm_members_ms']:.4f} ms" if members else "not run")
+            + f"), plain {row['plain_ms']:.4f} ms, the tile loop (64x64) "
+            f"{row['tile_loop_ms']:.4f} ms "
+            f"({row['tile_loop_ms'] / row['ms']:.1f}x)")
+        if tile_loop_row:
+            rows.append(dict(row, kernel="grouped_gemm", engine="tile",
+                             shape=f"{shape} (tile loop)",
+                             plan="pinned 64x64", ms=row["tile_loop_ms"],
+                             cold_ms=time_ms_cold(loop, iters=3)))
+
+    for label, g, c, k, n in S8_EXPERTS:
+        s8_group_row(label, g, c, k, n)
+    # gemma_2b's gate+up as one int8 group (the programs keep it
+    # ungrouped): the s8 engine beside B3's tile loop.
+    s8_group_row("gate+up", 2, 512, 2048, 16384, shared=True,
+                 tile_loop_row=True)
+
+    # The tile loops' own int8 rows at gemma_2b's gate: B1's pinned at
+    # 64 x 64 and B8's stage 1 (rigid: always the tile loop for int8).
+    m, n, k = 512, 16384, 2048
+    a, b = ints(m, k), ints(k, n)
+    bt = b.t().contiguous()
+    lib = int_mm_call(a, b, bt)
+    flops, nbytes = 2.0 * m * n * k, m * k + k * n + 4.0 * m * n
+    for kern, run, plain in (
+            ("mte_gemm", lambda: mte_gemm_kernel(
+                a, b, geom=geom((64, 64)), out_dtype=i32, engine="tile"),
+             lambda: mte_gemm_torch(a, b, geom=geom((64, 64)),
+                                    out_dtype=i32)),
+            ("rigid_gemm", lambda: rigid_accumulate_kernel(a, b),
+             lambda: rigid_accumulate_torch(a, b))):
+        want = plain()
+        exact(f"{kern} int8 gate {m}x{n}x{k} (tile loop)", run(), want)
+        row = {"kernel": kern, "engine": "tile",
+               "shape": f"int8 gate {m}x{n}x{k} (tile loop)",
+               "plan": "pinned 64x64" if kern == "mte_gemm"
+               else "rigid 128x128x128",
+               "max_abs_err": 0.0, "tol": 0.0, "ms": time_ms(run, iters=5),
+               "cold_ms": time_ms_cold(run, iters=3),
+               "plain_ms": time_ms(plain, iters=3),
+               "bound_ms": bound_ms(flops, nbytes, peak),
+               "bound_by": bound_by(flops, nbytes, peak),
+               "library": "torch._int_mm",
+               "library_ms": time_ms(lib) if lib else None}
+        rows.append(row)
+        log(f"    time {row['ms']:.4f} ms (L2 cold {row['cold_ms']:.4f}), "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, torch._int_mm "
+            + (f"{row['library_ms']:.4f} ms "
+               f"({row['ms'] / row['library_ms']:.1f}x)" if lib
+               else "not run"))
+
+
 def rigid_phase(dev, rows):
     """Both halves of B8 against their plain versions: ragged shapes in
     every mode (a rigid route has no narrow accumulator: bf16acc runs as
@@ -1921,7 +2259,12 @@ CONFIGS = {
     "gemma2": ("gemma2_27b", {"param_dtype": "bfloat16"}),
     "qwen": ("qwen15_4b", {"param_dtype": "bfloat16"}),
     "starcoder2": ("starcoder2_7b", {"param_dtype": "bfloat16"}),
+    "int8": ("gemma_2b", {}),
 }
+# Engine arguments of a configuration: ``int8`` serves gemma_2b under the
+# engine's ``format_policy="int8"`` (its f32 weights quantized at every
+# call, as the JAX engine serves them).
+ENGINE_KW = {"int8": {"format_policy": "int8"}}
 # Kernels each configuration's main path must launch.
 PATH_KERNELS = {
     "default": ("mte_gemm_wgmma", "splitk_gemm_cluster", "grouped_gemm_splitk",
@@ -1940,6 +2283,8 @@ PATH_KERNELS = {
              "flash_decode_paged_mma", "flash_attention_wgmma"),
     "starcoder2": ("mte_gemm_wgmma", "splitk_gemm_cluster",
                    "grouped_gemm_splitk", "flash_decode_mma"),
+    "int8": ("mte_gemm_wgmma_s8", "flash_decode_paged_mma",
+             "flash_attention_wgmma"),
 }
 # Counters that must stay 0 at full width: every bf16 B1 launch (all of
 # them prefill projections) and every bf16 B8 stage-1 launch runs on the
@@ -1965,7 +2310,19 @@ NOT_ON_PATH = {
              "flash_decode_paged", "flash_attention"),
     "starcoder2": ("mte_gemm", "splitk_gemm", "grouped_gemm",
                    "grouped_gemm_simt", "flash_decode"),
+    # int8: no bf16 or f32 engine runs; the decode step's int8 GEMMs (4
+    # rows) run B1's, B2's and B3's tile loops, whose launches are logged
+    # and held to 0 in the prefill chunk (INT8_CHUNK).
+    "int8": ("mte_gemm_wgmma", "mte_gemm_simt", "splitk_gemm_cluster",
+             "splitk_gemm_simt", "grouped_gemm_splitk",
+             "grouped_gemm_wgmma", "grouped_gemm_simt", "flash_decode_paged",
+             "flash_attention"),
 }
+# Launches per profiled prefill chunk of the int8 configuration: every
+# projection of gemma_2b's 18 layers (q, k, v, o, gate, up, down) on the
+# s8 engine, none on an int8 tile loop.
+INT8_CHUNK = {"mte_gemm_wgmma_s8": 18 * 7, "mte_gemm": 0, "splitk_gemm": 0,
+              "grouped_gemm": 0, "grouped_gemm_wgmma_s8": 0}
 # Launches of the new engines per profiled decode step: gemma_2b's 18
 # layers run B2 on o, gate, up and down (and on q, k, v on the eager path)
 # and B4 once; recurrentgemma_9b's decode GEMMs make 256 B2 launches and
@@ -1985,7 +2342,11 @@ DECODE_STEP_LAUNCHES = {
     "qwen": {"splitk_gemm_cluster": 160, "flash_decode_paged_mma": 40},
     "starcoder2": {"splitk_gemm_cluster": 96, "grouped_gemm_splitk": 32,
                    "flash_decode_mma": 32},
+    "int8": {"splitk_gemm": 72, "flash_decode_paged_mma": 18},
 }
+# The kernel of the decode step's grouped q/k/v where it is not B3's
+# split-K engine: int8 groups of 4 rows run B3's tile loop.
+DECODE_QKV_KERNEL = {"int8": "grouped_gemm"}
 # Phase 4's workload per arch: 4 slots, 16-token pages, 512-token prefill
 # chunks, 6 requests x 24 greedy tokens.  gemma_2b: 1024-token prompts, two
 # sharing their first chunk (the prefix cache).  recurrentgemma_9b:
@@ -2208,6 +2569,76 @@ def reduced_phase(dev):
         f"max_abs_err={err:.3e} tol=1e-3")
     require(err <= 1e-3, f"4096-token chunk logits differ by {err}")
     return path_counts
+
+
+def reduced_int8_phase(dev):
+    """gemma_2b.reduced() under ``format_policy="int8"`` (fp32 compute),
+    card against CPU, with 64-row prefill chunks, so that the s8 engine's
+    tiles are offered: the prefill q/k/v run as one group on B3's s8
+    entry and the MLP on B1's, the 2-row decode steps on the int8 tile
+    loops.  Quantize, the int32 sums and the dequantize are exact on both
+    devices: first-token logits within 2e-2 (the f32 arithmetic around
+    the GEMMs differs in summation order, which can move a quantized
+    value by one step) and identical greedy streams from the card's
+    engine in its defaults and the CPU's synchronous eager one.  Returns
+    the card's launch counts (``reduced-int8``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    base = get_config("gemma_2b").reduced()       # fp32 compute
+    cfg = dataclasses.replace(base, format_policy="int8")
+    params_cpu = model_lib.init_params(base, seed=0, device="cpu")
+    params_gpu = to_device(params_cpu, dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, base.vocab, 128, dtype=np.int32)
+               for _ in range(3)] + [rng.integers(0, base.vocab, 96,
+                                                  dtype=np.int32)]
+    kw = dict(slots=2, cache_len=192, prefill_len=128, page_size=16,
+              prefill_chunk=64, format_policy="int8")
+    reset_planning()
+    logits = {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        cache = model_lib.init_paged_cache(cfg, 1, 128, num_pages=9,
+                                           page_size=16, device=device)
+        table = torch.arange(1, 9, dtype=torch.int32, device=device)[None]
+        toks = torch.as_tensor(prompts[0].astype(np.int64), device=device)
+        for p0 in (0, 64):
+            out, cache = model_lib.prefill_chunk(
+                params, {"tokens": toks[None, p0:p0 + 64],
+                         "page_table": table}, cache, cfg, pos0=p0)
+        logits[str(device)] = out.cpu()
+    check("reduced int8 first-token logits cuda vs cpu", logits[str(dev)],
+          logits["cpu"], 2e-2)
+    outs, counts = {}, {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        reset_planning()
+        eng = ServingEngine(params, base, device=device,
+                            async_steps=device == dev, **kw)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
+        build.reset_launch_counts()
+        outs[str(device)] = eng.run()
+        if device == dev:
+            counts = build.launch_counts()
+            require(eng.decode_step.graph and eng.decode_step.graphs,
+                    "[int8] the card's decode step was not replayed as a "
+                    "CUDA graph")
+        log(f"  reduced engine [int8] on {device}: "
+            f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
+            f"launches {build.launch_counts()}")
+    for mark in ("mte_gemm_wgmma_s8", "grouped_gemm_wgmma_s8"):
+        require(counts[mark] > 0, f"[int8] {mark} not launched on the card")
+    for rid in outs["cpu"]:
+        require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
+        require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
+                f"[int8] greedy stream of request {rid} differs")
+    log("  reduced engine [int8]: greedy streams identical on cuda (async "
+        "+ graph) and cpu (synchronous, eager)")
+    return {"reduced-int8": counts}
 
 
 def reduced_recurrent_phase(dev):
@@ -2782,7 +3213,8 @@ def serving_phase(dev, name):
         torch.cuda.synchronize()
         log(f"  {arch} params: {model_lib.param_count(params) / 1e9:.3f} B "
             f"({cfg.param_dtype}), init {time.perf_counter() - t0:.1f} s")
-        return engine_cls(params, cfg, **kw, **engine_kw)
+        return engine_cls(params, cfg, **kw, **engine_kw,
+                          **ENGINE_KW.get(name, {}))
 
     timing = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
               "decode_steps": 0, "decode_tokens": 0}
@@ -2986,9 +3418,10 @@ def serving_phase(dev, name):
         per_step = profile[call]["wrapper_launches"]
         if attn_lib.grouped_decode(eng.cfg):
             want = kinds.count("attn") + kinds.count("local")
-            require(per_step.get("grouped_gemm_splitk") == want,
-                    f"[{name}] {call}: {per_step.get('grouped_gemm_splitk')}"
-                    f" split-K B3 launches per decode step, want {want}")
+            qkv = DECODE_QKV_KERNEL.get(name, "grouped_gemm_splitk")
+            require(per_step.get(qkv) == want,
+                    f"[{name}] {call}: {per_step.get(qkv)} {qkv} launches "
+                    f"per decode step, want {want}")
         for kernel, want in DECODE_STEP_LAUNCHES[name].items():
             require(per_step.get(kernel) == want,
                     f"[{name}] {call}: {per_step.get(kernel)} launches of "
@@ -3015,6 +3448,15 @@ def serving_phase(dev, name):
                 f"[{name}] the resumed prefill chunk ran "
                 f"{chunk['cumsum_calls']} torch.cumsum calls, kernels "
                 f"{scans}")
+    if name in ("int8",):
+        for kernel, want in INT8_CHUNK.items():
+            require(per_chunk.get(kernel, 0) == want,
+                    f"[{name}] {per_chunk.get(kernel, 0)} launches of "
+                    f"{kernel} per prefill chunk, want {want}")
+        log(f"  [{name}] the prefill chunk ran every projection on the s8 "
+            f"engine ({per_chunk.get('mte_gemm_wgmma_s8')} launches) and "
+            f"no int8 tile loop; the decode step's launches by counter: "
+            f"{profile['decode_step']['wrapper_launches']}")
     summary = {
         "config": name, "arch": arch, "requests": len(out_b),
         "max_tokens": MAX_TOKENS,
@@ -3045,10 +3487,16 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
     q/k/v), the f32 LM-head copy, the KV the step attends to (a global
     layer's whole prefix, a local layer's ring slots inside the window),
     and each RG-LRU state row read and written.  Operations: the GEMMs
-    and the (query, key) pairs the masks let through."""
+    and the (query, key) pairs the masks let through.  Under an int8
+    format the peak is int8's (1979 TOPS), and ``int8_weights_bound_ms``
+    counts each weight at one byte (what int8 weights held on the card
+    would move) beside the bound at the width the engine holds them."""
     from repro_torch.core.formats import to_torch_dtype
+    from repro_torch.models.layers import model_format
     cfg, params = ((eng.draft_cfg, eng.draft_params) if draft
                    else (eng.cfg, eng.params))
+    quantized = model_format(cfg).quantized
+    peak = PEAK["int8"] if quantized else PEAK["bf16"]
     weights = [leaf["w"] for lp in params["layers"]
                for grp in ("mixer", "ffn") for leaf in lp[grp].values()
                if isinstance(leaf, dict) and "w" in leaf]
@@ -3082,14 +3530,18 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
                        + n_local * (min(pos0, window) + chunk))
     pre_flops = 2 * chunk * w_params + pair * pre_pairs + 2 * head.numel()
     pre_bytes = w_bytes + head_bytes + pre_kv + rg_state
-    return {"decode_step": {"bound_ms": bound_ms(dec_flops, dec_bytes,
-                                                 PEAK["bf16"]),
-                            "weight_gb": w_bytes / 1e9,
-                            "lm_head_gb": head_bytes / 1e9,
-                            "kv_gb": dec_kv / 1e9},
-            "prefill_chunk": {"bound_ms": bound_ms(pre_flops, pre_bytes,
-                                                   PEAK["bf16"]),
-                              "tflop": pre_flops / 1e12}}
+    out = {"decode_step": {"bound_ms": bound_ms(dec_flops, dec_bytes, peak),
+                           "weight_gb": w_bytes / 1e9,
+                           "lm_head_gb": head_bytes / 1e9,
+                           "kv_gb": dec_kv / 1e9},
+           "prefill_chunk": {"bound_ms": bound_ms(pre_flops, pre_bytes, peak),
+                             "tflop": pre_flops / 1e12}}
+    if quantized:
+        for key, flops, nbytes in (("decode_step", dec_flops, dec_bytes),
+                                   ("prefill_chunk", pre_flops, pre_bytes)):
+            out[key]["int8_weights_bound_ms"] = bound_ms(
+                flops, nbytes - w_bytes + w_params, peak)
+    return out
 
 
 def log_programs(name):
@@ -3223,6 +3675,9 @@ def log_profile(name, prof, note=""):
     busy = (f"device busy {prof['device_busy_ms']:.3f} ms"
             if prof["device_busy_ms"] is not None else
             "device time not measured (no device events)")
+    if "int8_weights_bound_ms" in prof:
+        note += (f" (bound with int8 weights held: "
+                 f"{prof['int8_weights_bound_ms']:.3f} ms)")
     log(f"  profile {name}: wall {prof['wall_ms']:.3f} ms, {busy}, bound "
         f"{prof['bound_ms']:.3f} ms, idle share {prof['idle_share']}{note}; "
         f"device kernels per call {prof['device_kernels']}, wrapper "
@@ -4361,6 +4816,9 @@ def training_phase(dev, policy="mte", ref_loss=None):
 KERNELS = [
     ("mte_gemm_wgmma", "src/repro_torch/csrc/mte_gemm.cu",
      "src/repro/kernels/mte_gemm.py:114", "gate 512x16384x2048", "default"),
+    ("mte_gemm_wgmma_s8", "src/repro_torch/csrc/mte_gemm.cu",
+     "src/repro/kernels/mte_gemm.py:114", "int8 gate 512x16384x2048",
+     "int8"),
     ("mte_gemm_simt", "src/repro_torch/csrc/mte_gemm.cu",
      "src/repro/kernels/mte_gemm.py:114",
      "train gate recompute fp32 4096x16384x2048", "train"),
@@ -4381,6 +4839,9 @@ KERNELS = [
     ("grouped_gemm_wgmma", "src/repro_torch/csrc/grouped_gemm_wgmma.cu",
      "src/repro/kernels/grouped_gemm.py:60",
      "gate+up prefill 2x512x2048x16384", "default"),
+    ("grouped_gemm_wgmma_s8", "src/repro_torch/csrc/grouped_gemm_wgmma.cu",
+     "src/repro/kernels/grouped_gemm.py:60",
+     "int8 moe gate 32x1024x1024x512", "reduced-int8"),
     ("grouped_gemm_simt", "src/repro_torch/csrc/grouped_gemm.cu",
      "src/repro/kernels/grouped_gemm.py:60", "dw fp32 2x2048x4096x16384",
      "train"),
@@ -4457,6 +4918,15 @@ STARCODER2_ROWS = {
     "splitk_gemm_cluster": "s2 up 4x18432x4608 +bias",
     "grouped_gemm_splitk": "s2 qkv decode 3x4x4608x4608",
     "flash_decode_mma": "s2 ring 4x36/4x128 L=4096",
+}
+
+
+# The int8 rows of the tile loops at gemma_2b's gate (launches from phase
+# 4's int8 run, whose decode steps run them), beside the s8 engine's.
+INT8_ROWS = {
+    "mte_gemm": "int8 gate 512x16384x2048 (tile loop)",
+    "rigid_gemm": "int8 gate 512x16384x2048 (tile loop)",
+    "grouped_gemm": "int8 gate+up 2x512x2048x16384 shared-x (tile loop)",
 }
 
 
@@ -4540,6 +5010,7 @@ def main() -> int:
     gemm_phase(dev, rows)
     grouped_phase(dev, rows)
     rigid_phase(dev, rows)
+    int8_phase(dev, rows)
     decode_phase(dev, rows)
     attention_phase(dev, rows)
     ring_decode_phase(dev, rows)
@@ -4547,6 +5018,8 @@ def main() -> int:
     train_gemm_phase(dev, rows)
     log("== 3. reduced gemma_2b (fp32): card against CPU, default and amx")
     counts, serving = reduced_phase(dev), {}
+    log("== 3. reduced gemma_2b (int8, 64-row chunks): card against CPU")
+    counts.update(reduced_int8_phase(dev))
     log("== 3. reduced recurrentgemma_9b (fp32): card against CPU, default")
     counts.update(reduced_recurrent_phase(dev))
     log("== 3. reduced gemma2_27b (fp32): card against CPU, default")
@@ -4559,8 +5032,9 @@ def main() -> int:
         "against CPU")
     counts.update(reduced_musicgen_phase(dev))
     for name, (arch, overrides) in CONFIGS.items():
-        log(f"== 4. full-width {arch} serving (bf16), configuration "
-            f"[{name}] {overrides or '(defaults)'}")
+        fmt = ENGINE_KW.get(name, {}).get("format_policy", "bf16")
+        log(f"== 4. full-width {arch} serving ({fmt}), configuration "
+            f"[{name}] {overrides or ENGINE_KW.get(name) or '(defaults)'}")
         counts[name], serving[name] = serving_phase(dev, name)
         log(f"  [{name}] serving summary: {json.dumps(serving[name])}")
     speculative = {}
@@ -4605,7 +5079,8 @@ def main() -> int:
                                 ("at_starcoder2", "starcoder2",
                                  STARCODER2_ROWS),
                                 ("at_musicgen", "musicgen",
-                                 MUSICGEN_ROWS)):
+                                 MUSICGEN_ROWS),
+                                ("at_int8", "int8", INT8_ROWS)):
             if name in at:
                 row = next(r for r in mine if r["shape"] == at[name])
                 kernels[-1][key] = {

@@ -7,7 +7,7 @@ For every distinct GEMM signature
 
 the cache enumerates candidate geometries from the Hopper solver
 (:func:`repro_torch.core.geometry.solve_block_geometry`) and, for bf16
-shapes the wgmma engine takes, its tiles, and for f32 shapes the SIMT f32
+and int8 shapes the wgmma engine takes, its tiles, and for f32 shapes the SIMT f32
 engine takes, its tiles with and without split-K (grouped signatures
 too, unsplit, past 16 rows); scores them with an analytic
 Hopper time (:func:`score_geometry`), and memoizes the winner in an LRU.
@@ -27,7 +27,7 @@ from typing import Dict, List, Optional
 
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.geometry import (
-    INNER_BK, SIMT_BK, SIMT_TILES, WGMMA_BK, WGMMA_TILES,
+    INNER_BK, SIMT_BK, SIMT_TILES, WGMMA_BK, WGMMA_S8_BK, WGMMA_TILES,
     BlockGeometry, H100_SPEC, HopperProfile, Policy, cdiv, gemm_engine,
     grouped_engine, hopper_profile, round_up, solve_block_geometry,
     splitk_engine,
@@ -167,7 +167,7 @@ def enumerate_candidates(sig: GemmSignature,
     (its tile is the tile loop's tile for this M), then, for M ≥ 64, the
     wgmma tiles the engine takes for this signature (bf16 or bf16acc —
     whose two register sets stop at ``bn`` 128 —, K and N multiples of
-    8; same ``bk``), then split-K slices of the base when its (M, N) tile
+    8; int8 past 16 rows with K a multiple of 16; same ``bk``), then split-K slices of the base when its (M, N) tile
     grid is below the SM count, or whatever the grid when B2's cluster
     engine would run them (bf16 decode GEMMs of at most 16 rows,
     :func:`splitk_engine`): that engine takes its own slices, one where
@@ -251,7 +251,8 @@ def score_geometry(sig: GemmSignature, geom: BlockGeometry,
                    profile: HopperProfile = H100_SPEC) -> float:
     """Predicted seconds, plus launch overhead.  On the wgmma engine
     (:func:`plan_engine`): tile waves on the SMs against operand traffic
-    (:func:`_wave_seconds`, the K depth padded to a 64-deep stage).  On
+    (:func:`_wave_seconds`, the K depth padded to a 64-deep stage; int8,
+    priced at the int8 peak, to its 128-deep stage).  On
     the SIMT f32 engine the same at 67 TFLOP/s over each block's K slice
     (padded to a 16-deep stage), with no load stretch; a split pays its
     partials' write and read back and the reduction's launch.  On the
@@ -282,7 +283,8 @@ def score_geometry(sig: GemmSignature, geom: BlockGeometry,
         launches = 1 if sig.epilogue.is_identity else 2
     engine = "tile" if sig.group > 1 else plan_engine(sig, geom)
     if engine == "wgmma":
-        return (_wave_seconds(sig, geom, profile, round_up(k, WGMMA_BK),
+        stage = WGMMA_S8_BK if sig.sew_i.bits == 8 else WGMMA_BK
+        return (_wave_seconds(sig, geom, profile, round_up(k, stage),
                               rigid_bytes)
                 + profile.launch_s * launches)
     if engine == "simt":

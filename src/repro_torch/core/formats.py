@@ -118,9 +118,12 @@ def quantize(x: torch.Tensor, *, contract_axis: int,
         return x, None
     xf = x.float()
     if per_channel:
-        scale = xf.abs().amax(dim=contract_axis, keepdim=True) / 127.0
+        amax = xf.abs().amax(dim=contract_axis, keepdim=True)
     else:
-        scale = xf.abs().amax().reshape((1,) * x.ndim) / 127.0
+        amax = xf.abs().amax().reshape((1,) * x.ndim)
+    # A true division on every device: CUDA divides by a host scalar as a
+    # multiply by its reciprocal, which rounds some scales differently.
+    scale = amax / torch.full_like(amax, 127.0)
     scale = torch.where(scale == 0.0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -149,9 +152,12 @@ def quantize_operands(a, b, fmt: FormatPolicy = INT8):
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact integer ``a @ b`` → int32 on any device.  Products of int8
-    operands summed over K stay far below 2^53, so float64 is exact; CUDA
-    has no integer matmul."""
+    """Exact integer ``a @ b`` → int32 on any device: the plain version
+    the int8 kernels are held to.  Products of int8 operands summed over
+    K stay far below 2^53, so float64 is exact at every shape (CUDA's one
+    integer product, ``torch._int_mm``, takes only M > 16 and K and N
+    multiples of 8; ``chip_smoke.py`` times it as the int8 kernels'
+    yardstick)."""
     return torch.matmul(a.double(), b.double()).round().to(torch.int32)
 
 

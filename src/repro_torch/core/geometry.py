@@ -8,13 +8,15 @@ this one budgets a block's shared memory and grants the tile shapes the
 hand-written kernels implement.  Three mainloops exist (``csrc/``):
 
 - the **tile loop** (``gemm_tile.cuh``; B1, B2, B3 and B8 on what their
-  other engines leave: int8, unaligned shapes, B1's and B2's M ≤ 16):
+  other engines leave: int8 at M ≤ 16, on B2 and on B8, unaligned shapes,
+  B1's and B2's M ≤ 16):
   ``(bm, bn) = (16, 128)`` for skinny M ≤ 16 (decode GEMVs: one 16-row
   MMA fragment, wide in N), ``(64, 64)`` otherwise
   (:data:`TILE_LOOP_TILES`), 32 deep in K, loads not pipelined;
 - the **wgmma engine** (``wgmma_mainloop.cuh``; B1, B8 stage 1 and B3
-  past 16 rows on bf16 operands): TMA loads 64 deep in K into a ring of
-  shared-memory stages,
+  past 16 rows on bf16 operands, and B1 and B3 past 16 rows on int8
+  operands): TMA loads 64 deep in K (bf16; 128 deep for int8, the same
+  128-byte rows) into a ring of shared-memory stages,
   wgmma with the accumulator in registers, at ``bm`` ∈ {64, 128} × ``bn``
   ∈ {64, 128, 256} (:data:`WGMMA_TILES`; bf16acc ``bn`` ≤ 128);
 - the **SIMT f32 engine** (``simt_f32_mainloop.cuh``; B1, B2 and B3 on
@@ -30,7 +32,8 @@ B2–B7 have a second engine each, chosen the same way:
 :func:`splitk_engine` and :func:`grouped_engine` (the cluster split-K
 mainloop of ``splitk_cluster.cuh`` for bf16 GEMMs of at most 16 rows,
 with an f32 or a bf16 accumulator; past 16 rows, at the plan's tile, B3
-on the wgmma mainloop for bf16 and both on the SIMT f32 one for f32;
+on the wgmma mainloop for bf16 and int8 and both on the SIMT f32 one for
+f32;
 else the tile loop),
 :func:`decode_engine` and :func:`flat_decode_engine`
 (mma.sync over 16-position tiles of the pages or of the flat or ring
@@ -68,7 +71,8 @@ from repro_torch.core.tile_state import SEW, dtype_name
 
 __all__ = ["HopperProfile", "BlockGeometry", "H100_SPEC", "hopper_profile",
            "solve_block_geometry", "round_up", "cdiv", "TILE_LOOP_TILES",
-           "WGMMA_TILES", "INNER_BK", "WGMMA_BK", "RIGID_TILE",
+           "WGMMA_TILES", "INNER_BK", "WGMMA_BK", "WGMMA_S8_BK",
+           "WGMMA_S8_ALIGN_K", "S8_MAX_K", "RIGID_TILE",
            "check_kernel_tile", "gemm_engine", "wgmma_stages",
            "SIMT_TILES", "SIMT_BK", "SIMT_STAGES", "SIMT_ALIGN",
            "GROUPED_BN", "GROUPED_MAX_M", "GROUPED_BK", "MAX_CLUSTER",
@@ -94,6 +98,13 @@ WGMMA_TILES: Tuple[Tuple[int, int], ...] = tuple(
 WGMMA_BK = 64
 WGMMA_ALIGN = 8
 WGMMA_BF16ACC_MAX_BN = 128
+# The int8 (s8) wgmma engine: a stage's 128-byte rows hold 128 int8 of K,
+# TMA's 16-byte row stride needs K a multiple of 16 (N stays a multiple of
+# 8), and the launcher refuses K past S8_MAX_K, where 127^2 * K would pass
+# the int32 accumulator's range.
+WGMMA_S8_BK = 128
+WGMMA_S8_ALIGN_K = 16
+S8_MAX_K = 131072
 # B8's one tile, (bm, bn, bk): the tile loop or the wgmma engine.
 RIGID_TILE = (128, 128, 128)
 # (bm, bn) tiles of the SIMT f32 engine (simt_f32_mainloop.cuh) in B1 and
@@ -127,6 +138,17 @@ def _simt(dtype_in, tile: Tuple[int, int], m: int, n: int, k: int, *,
             and k % SIMT_ALIGN == 0 and n % SIMT_ALIGN == 0)
 
 
+def _s8(dtype_in, tile: Tuple[int, int], m: int, n: int, k: int) -> bool:
+    """The int8 wgmma engine's rule (B1 and B3): int8 operands with their
+    int32 accumulator, more than 16 rows (decode rows stay on the tile
+    loops; the plan offers wgmma tiles only from 64 rows), a wgmma tile,
+    K a multiple of 16 and N of 8 (TMA's 16-byte rows of the K-major
+    operands)."""
+    return (dtype_name(dtype_in) == "int8" and tile in WGMMA_TILES
+            and m > GROUPED_MAX_M and k % WGMMA_S8_ALIGN_K == 0
+            and n % WGMMA_ALIGN == 0)
+
+
 def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
                 bf16acc: bool = False, rigid: bool = False) -> str:
     """The mainloop that runs one B1 launch (``rigid``: one B8 stage-1
@@ -138,15 +160,18 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
 
     - ``"wgmma"`` when the operands are bf16, the tile is a wgmma tile
       (bf16acc: ``bn`` ≤ 128; rigid: the 128 x 128 tile) and K and N are
-      multiples of 8 (TMA's 16-byte row alignment);
+      multiples of 8 (TMA's 16-byte row alignment); and, not rigid, when
+      the operands are int8 (int32 accumulator) past 16 rows at a wgmma
+      tile with K a multiple of 16 and N of 8 (:func:`_s8`);
     - ``"simt"`` when the operands are f32, the tile is one of
       :data:`SIMT_TILES` and K and N are multiples of 4, past 16 rows
       (B1: its M ≤ 16 decode tile stays on the tile loop) or at every M
       (rigid: the 128 x 128 tile whatever M, each output the tile loop's
       FMA chain, so bit-equal to it);
     - ``"tile"`` otherwise, when the tile loop is compiled for the tile
-      (fp32 off the SIMT engine's tiles or alignment, int8, M ≤ 16's
-      16 x 128 tile, strides TMA cannot take);
+      (fp32 off the SIMT engine's tiles or alignment, int8 off the s8
+      rule and B8's int8, M ≤ 16's 16 x 128 tile, strides TMA cannot
+      take);
     - ValueError when no engine is compiled for the launch (a pinned
       tile is launched as it is or refused, never replanned)."""
     tile = (bm, bn)
@@ -159,6 +184,8 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
     aligned = k % WGMMA_ALIGN == 0 and n % WGMMA_ALIGN == 0
     if wgmma_ok and aligned and dtype_name(dtype_in) == "bfloat16":
         return "wgmma"
+    if not rigid and _s8(dtype_in, tile, m, n, k):
+        return "wgmma"
     if _simt(dtype_in, tile, m, n, k, rigid=rigid):
         return "simt"
     if loop_ok:
@@ -169,7 +196,9 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
         f"{' with a bf16 accumulator' if bf16acc else ''} at M={m}, "
         f"K={k}, N={n}: the wgmma engine "
         f"takes bf16 operands, K and N multiples of {WGMMA_ALIGN} and the "
-        f"tiles {WGMMA_TILES} (bf16acc: bn <= {WGMMA_BF16ACC_MAX_BN}); the "
+        f"tiles {WGMMA_TILES} (bf16acc: bn <= {WGMMA_BF16ACC_MAX_BN}), and "
+        f"int8 past {GROUPED_MAX_M} rows with K a multiple of "
+        f"{WGMMA_S8_ALIGN_K}; the "
         f"SIMT engine f32 operands past {GROUPED_MAX_M} rows (rigid: at "
         f"every M), K and N multiples of {SIMT_ALIGN} and the tiles "
         f"{SIMT_TILES}; the tile loop {TILE_LOOP_TILES}")
@@ -228,8 +257,12 @@ def grouped_engine(dtype_in, m: int, n: int, k: int, *,
       f32 operands past 16 rows, K and N multiples of 4 and a ``tile``
       of :data:`SIMT_TILES`: each output the tile loop's FMA chain, so
       bit-equal to it;
-    - ``"tile"`` (the tile loop) otherwise: int8, fp32 at C ≤ 16,
-      unaligned shapes and tiles of the tile loop only."""
+    - ``"wgmma"`` also for int8 operands (int32 accumulator) past 16 rows
+      at a wgmma tile, K a multiple of 16 and N of 8 (:func:`_s8`; the s8
+      mainloop reads w K-major);
+    - ``"tile"`` (the tile loop) otherwise: int8 at C ≤ 16 or off the s8
+      rule, fp32 at C ≤ 16, unaligned shapes and tiles of the tile loop
+      only."""
     dt = dtype_name(dtype_in)
     if (dt == "bfloat16"
             and m <= GROUPED_MAX_M and n % WGMMA_ALIGN == 0
@@ -240,6 +273,8 @@ def grouped_engine(dtype_in, m: int, n: int, k: int, *,
     if (dt == "bfloat16" and tile in WGMMA_TILES
             and not (bf16acc and tile[1] > WGMMA_BF16ACC_MAX_BN)
             and k % WGMMA_ALIGN == 0 and n % WGMMA_ALIGN == 0):
+        return "wgmma"
+    if _s8(dtype_in, tile, m, n, k):
         return "wgmma"
     if _simt(dtype_in, tile, m, n, k):
         return "simt"
@@ -535,13 +570,14 @@ class BlockGeometry:
         align it to the swizzle atom and two barriers per stage.  The SIMT
         f32 engine: its ring of ``SIMT_STAGES`` 16-deep f32 A and B
         stages, each row ``SIMT_PAD`` floats longer than the tile.
-        ``engine`` None takes the wgmma engine for a bf16 wgmma tile and
-        the SIMT engine for an f32 SIMT tile (the larger needs when the
-        alignment is not known), else the loop."""
+        ``engine`` None takes the wgmma engine for a bf16 or int8 wgmma
+        tile (an int8 stage is 128 deep: the same bytes) and the SIMT
+        engine for an f32 SIMT tile (the larger needs when the alignment
+        is not known), else the loop."""
         tile = (self.bm, self.bn)
         if engine is None:
             engine = ("wgmma" if tile in WGMMA_TILES
-                      and self.sew_i.bits == 16 else
+                      and self.sew_i.bits <= 16 else
                       "simt" if tile in SIMT_TILES and self.sew_i.bits == 32
                       else "tile")
         if engine == "wgmma":

@@ -28,11 +28,22 @@
 //    accumulator never goes to device memory, as in the TPU kernel.  The
 //    tile follows the shape (the plan cache prices each by tile waves on
 //    the SMs and by operand traffic): that is the MTE thesis.
+//    mte_gemm_wgmma_s8_launch (counter "mte_gemm_wgmma_s8"): int8
+//    operands with the int32 accumulator past 16 rows, K a multiple of 16
+//    and N of 8, at the same tiles.  The same mainloop with 128-deep
+//    int8 stages (the same 128-byte rows) and m64nBNk32 s8 wgmmas; both
+//    operands K-major, so B comes as (N, K) (the wrapper makes that copy
+//    of a (K, N) B).  The int32 sums are stored exactly, as raw words,
+//    and the epilogue is the identity: the dequantize and the caller's
+//    epilogue run outside, in kernels/ops.py, as in the TPU kernel's
+//    int8 route (src/repro/kernels/autodiff.py).  Bound at the prefill
+//    projections by the int8 tensor-core rate (1979 TOPS) and by the
+//    int32 output's bytes, which are 4x the bf16 output's.
 // 2. mte_gemm_launch (counter "mte_gemm"): the tile loop of gemm_tile.cuh,
 //    one 128-thread block per 64x64 (or 16x128 for M <= 16) tile walking K
 //    32 deep with synchronous loads -- wmma for bf16, SIMT f32 for fp32
-//    (no TF32), SIMT int8 -> int32.  It serves what wgmma cannot take:
-//    int8 (wgmma s8 needs a K-major B), M <= 16, fp32 off the SIMT
+//    (no TF32), SIMT int8 -> int32.  It serves what the others cannot
+//    take: M <= 16, int8 with K not a multiple of 16, fp32 off the SIMT
 //    engine's tiles and alignment, and strides TMA cannot take.  Not
 //    pipelined: the tensor cores wait on every stage.
 //
@@ -195,6 +206,47 @@ extern "C" int mte_gemm_wgmma_launch(const void* a, const void* b,
   WG_TILE(128, 256, false)
 #undef WG_TILE
 #undef WG_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+namespace {
+
+// The int32 accumulator of four columns c .. c + 3 of row r, stored as it
+// is (one aligned 16-byte write; N % 8 == 0, ldo % 4 == 0).
+struct S8Store {
+  int32_t* out;
+  int M, N;
+  long ldo;
+  __device__ __forceinline__ void operator()(int r, int c, int4 v) const {
+    if (r >= M || c >= N) return;
+    *reinterpret_cast<int4*>(out + static_cast<long>(r) * ldo + c) = v;
+  }
+};
+
+}  // namespace
+
+extern "C" int mte_gemm_wgmma_s8_launch(const void* a, const void* b,
+                                        void* out, int M, int N, int K,
+                                        long lda, long ldb, long ldo,
+                                        int bm, int bn, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || N % 8 != 0 ||
+      lda % 16 != 0 || ldb % 16 != 0 || ldo % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(b) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const S8Store store{static_cast<int32_t*>(out), M, N, ldo};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define S8_TILE(BM_, BN_)                                                 \
+  if (bm == BM_ && bn == BN_)                                             \
+    return wg::launch_s8<BM_, BN_>(a, b, M, N, K, lda, ldb, store, st);
+  S8_TILE(64, 64)
+  S8_TILE(64, 128)
+  S8_TILE(64, 256)
+  S8_TILE(128, 64)
+  S8_TILE(128, 128)
+  S8_TILE(128, 256)
+#undef S8_TILE
   return (int)cudaErrorInvalidValue;
 }
 

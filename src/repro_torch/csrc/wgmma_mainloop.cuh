@@ -3,7 +3,8 @@
 // gemm_tile with the member's index on its 3-D tensor maps): TMA loads
 // into a ring of shared-memory stages, mbarrier
 // hand-off between one producer warp and the consumer warpgroups, and
-// wgmma with the f32 accumulator in registers.  sm_90a only.  Its PTX
+// wgmma with the f32 (int8: int32) accumulator in registers.  sm_90a
+// only.  Its PTX
 // wrappers (TMA, mbarriers, wgmma, cluster barriers and distributed
 // shared memory) and its cluster launch also serve the cluster kernels
 // of B2, B3 and B4 and flash_attention_wgmma.cu (B5).
@@ -30,6 +31,15 @@
 //   rows and columns past M and N.  TMA needs 16-byte aligned base
 //   addresses and row strides: K and N multiples of 8 (the wrappers'
 //   engine choice, core/geometry.py:gemm_engine).
+// - int8 (S8): both operands K-major (PTX has no transpose bits for
+//   .s8, so B is always (N, K) row-major, the TRANS_B path), a stage 128
+//   int8 deep in K -- the same 128-byte rows, stage bytes, descriptors and
+//   STAGES as a 64-deep bf16 stage -- and four m64nBNk32 s8 x s8 -> s32
+//   wgmmas per stage, each advancing the descriptors by 32 bytes as a
+//   bf16 k16 step does.  The int32 accumulator (BN/2 registers a thread,
+//   no .satfinite: the launcher refuses K past S8_MAX_K) is staged through
+//   shared memory as raw 32-bit words and handed to the Store functor as
+//   an int4, so no sum goes through f32 (which is exact only to 2^24).
 // - bf16acc (BF16ACC): a second register set holds the partial of the
 //   current `rbk`-deep K block (started with wgmma's scale-d = 0); at the
 //   k16 step where a block ends (rbk is a multiple of 32, so a boundary
@@ -51,11 +61,15 @@
 
 #include <cuda.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace wg {
 
-constexpr int WK = 64;                   // K depth of one stage
+constexpr int WK = 64;                   // K depth of one bf16 stage
+constexpr int WK_S8 = 128;               // K depth of one int8 stage
+constexpr int S8_MAX_K = 131072;         // 127^2 * K stays below 2^31
 constexpr int SMEM_LIMIT = 227 * 1024;   // dynamic shared memory per block
 constexpr int PANEL = WK * 64 * 2;       // one 64 x 64 bf16 B panel, bytes
 
@@ -211,6 +225,11 @@ __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, A and B from shared
 // memory; TB = 1 reads B MN-major (the transpose bit), 0 K-major.
@@ -320,6 +339,113 @@ struct Mma<256, TB> {
 };
 
 
+// wgmma.mma_async m64nNk32, s8 x s8 -> s32, A and B from shared memory,
+// both K-major (integer wgmma has no transpose bits).
+template <int N>
+struct MmaS8;
+
+template <>
+struct MmaS8<64> {
+  __device__ __forceinline__ static void run(int* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaS8<128> {
+  __device__ __forceinline__ static void run(int* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaS8<256> {
+  __device__ __forceinline__ static void run(int* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+          "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+          "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+          "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+          "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+          "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+          "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+          "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
+          "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+          "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
+          "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
+          "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 // ---- the kernel ------------------------------------------------------------
 
 // One BM x BN output tile at (m0, n0) over all of K, run by the whole
@@ -327,20 +453,26 @@ struct Mma<256, TB> {
 // `za` and `zb` are the batch index of A's and B's tensor maps where they
 // are 3-D (a grouped GEMM's members: a box never crosses into the next
 // matrix, so each member's K tail loads zeros), or -1 for a 2-D map.
-template <int BM, int BN, bool TRANS_B, bool BF16ACC, class Store>
+// S8: int8 operands (TRANS_B only), an int32 accumulator, and a Store
+// that takes (row, column, int4).
+template <int BM, int BN, bool TRANS_B, bool BF16ACC, bool S8 = false,
+          class Store>
 __device__ __forceinline__ void gemm_tile(const CUtensorMap* tma,
                                           const CUtensorMap* tmb, int K,
                                           int rbk, const Store& store,
                                           int m0, int n0, int za, int zb) {
+  static_assert(!S8 || (TRANS_B && !BF16ACC), "s8 reads B K-major");
   using C = Cfg<BM, BN>;
+  using Acc = typename std::conditional<S8, int, float>::type;
   constexpr int S = C::STAGES;
   constexpr int R = BN / 2;  // accumulator registers per thread
+  constexpr int KD = S8 ? WK_S8 : WK;  // K depth of one stage
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   unsigned char* ring =
       wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * C::STAGE_BYTES);
   uint64_t* empty = full + S;
-  const int nk = (K + WK - 1) / WK;
+  const int nk = (K + KD - 1) / KD;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -368,14 +500,14 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap* tma,
         unsigned char* sb = sa + C::A_BYTES;
         mbar_expect_tx(&full[s], C::STAGE_BYTES);
         if (za < 0)
-          tma_load(sa, tma, &full[s], kb * WK, m0);
+          tma_load(sa, tma, &full[s], kb * KD, m0);
         else
-          tma_load_3d(sa, tma, &full[s], kb * WK, m0, za);
+          tma_load_3d(sa, tma, &full[s], kb * KD, m0, za);
         if constexpr (TRANS_B) {
           if (zb < 0)
-            tma_load(sb, tmb, &full[s], kb * WK, n0);
+            tma_load(sb, tmb, &full[s], kb * KD, n0);
           else
-            tma_load_3d(sb, tmb, &full[s], kb * WK, n0, zb);
+            tma_load_3d(sb, tmb, &full[s], kb * KD, n0, zb);
         } else {
 #pragma unroll
           for (int p = 0; p < BN / 64; ++p) {
@@ -392,10 +524,10 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap* tma,
   }
 
   // A consumer warpgroup: rows [64 * g, 64 * g + 64) of the tile.
-  float acc[R];
+  Acc acc[R];
   float part[BF16ACC ? R : 1];
 #pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < R; ++i) acc[i] = Acc(0);
   for (int kb = 0; kb < nk; ++kb) {
     const int s = kb % S;
     mbar_wait(&full[s], (kb / S) & 1);
@@ -407,13 +539,15 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap* tma,
 #pragma unroll
     for (int kk = 0; kk < WK / 16; ++kk) {
       const int k = kb * WK + kk * 16;  // first K index of this step
-      // A: K-major, 8-row atoms 1024 B apart, +32 B per k16 step.  B:
-      // K-major likewise, or MN-major (64-column panels PANEL bytes
-      // apart, 8-row atoms 1024 B apart, +2048 B per k16 step).
+      // A: K-major, 8-row atoms 1024 B apart, +32 B per k16 (s8: k32)
+      // step.  B: K-major likewise, or MN-major (64-column panels PANEL
+      // bytes apart, 8-row atoms 1024 B apart, +2048 B per k16 step).
       const uint64_t da = desc(a0 + kk * 32, 16, 1024);
       const uint64_t db = TRANS_B ? desc(b0 + kk * 32, 16, 1024)
                                   : desc(b0 + kk * 2048, PANEL, 1024);
-      if constexpr (BF16ACC) {
+      if constexpr (S8) {
+        MmaS8<BN>::run(acc, da, db, 1);
+      } else if constexpr (BF16ACC) {
         if (k >= K) break;  // the last K block is folded: stop
         Mma<BN, TRANS_B ? 0 : 1>::run(part, da, db, k % rbk != 0);
         if ((k + 16) % rbk == 0 || k + 16 >= K) {
@@ -455,28 +589,34 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap* tma,
   consumer_sync<C::CONSUMERS * 128>();
   constexpr int LDT = BN + 8;
   static_assert(BM * LDT * 4 <= S * C::STAGE_BYTES, "no room to stage");
-  float* tile = reinterpret_cast<float*>(ring);
+  Acc* tile = reinterpret_cast<Acc*>(ring);
   {
-    // Accumulator layout of m64nNk16: warp w of the warpgroup holds rows
-    // 16w + lane/4 (+8); register 4j + 2h + c is column 8j + 2(lane%4) + c
-    // of row half h.
+    // Accumulator layout of m64nNk16 (and of m64nNk32's s32): warp w of
+    // the warpgroup holds rows 16w + lane/4 (+8); register 4j + 2h + c is
+    // column 8j + 2(lane%4) + c of row half h.
     const int lane = threadIdx.x & 31, warp = (threadIdx.x & 127) >> 5;
-    float* row = tile + (g * 64 + warp * 16 + (lane >> 2)) * LDT +
-                 2 * (lane & 3);
+    Acc* row = tile + (g * 64 + warp * 16 + (lane >> 2)) * LDT +
+               2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(row + 8 * h * LDT + 8 * j) =
-            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (S8)
+          *reinterpret_cast<int2*>(row + 8 * h * LDT + 8 * j) =
+              make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        else
+          *reinterpret_cast<float2*>(row + 8 * h * LDT + 8 * j) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
   }
   consumer_sync<C::CONSUMERS * 128>();
   constexpr int V = BN / 4;
+  using Vec4 = typename std::conditional<S8, int4, float4>::type;
 #pragma unroll 1
   for (int i = threadIdx.x; i < BM * V; i += C::CONSUMERS * 128) {
     const int r = i / V, c = (i % V) * 4;
     store(m0 + r, n0 + c,
-          *reinterpret_cast<const float4*>(tile + r * LDT + c));
+          *reinterpret_cast<const Vec4*>(tile + r * LDT + c));
   }
 }
 
@@ -488,6 +628,17 @@ __global__ void __launch_bounds__(Cfg<BM, BN>::THREADS, 1)
   gemm_tile<BM, BN, TRANS_B, BF16ACC>(&tma, &tmb, K, rbk, store,
                                       blockIdx.x * BM, blockIdx.y * BN, -1,
                                       -1);
+}
+
+// The int8 twin of gemm_kernel: A (M, K) and B (N, K), both K-major.
+template <int BM, int BN, class Store>
+__global__ void __launch_bounds__(Cfg<BM, BN>::THREADS, 1)
+    gemm_kernel_s8(const __grid_constant__ CUtensorMap tma,
+                   const __grid_constant__ CUtensorMap tmb, int K,
+                   Store store) {
+  gemm_tile<BM, BN, true, false, true>(&tma, &tmb, K, 32, store,
+                                       blockIdx.x * BM, blockIdx.y * BN, -1,
+                                       -1);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -521,20 +672,28 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 2-D bf16 tensor map over a row-major (outer, inner) matrix with row
-// stride `ld` elements, box (box_outer, box_inner), 128-byte swizzle,
-// zero fill outside the matrix.
+// The tensor-map element type of 2-byte (bf16) or 1-byte (int8: bytes
+// are bytes, so UINT8) elements.
+inline CUtensorMapDataType map_type(int elem_bytes) {
+  return elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// A 2-D bf16 (elem_bytes 1: int8) tensor map over a row-major (outer,
+// inner) matrix with row stride `ld` elements, box (box_outer,
+// box_inner), 128-byte swizzle, zero fill outside the matrix.
 inline int make_map(CUtensorMap* map, const void* ptr, long inner,
-                    long outer, long ld, int box_inner, int box_outer) {
+                    long outer, long ld, int box_inner, int box_outer,
+                    int elem_bytes = 2) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ENTRY_ERROR;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem_bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
                              static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUresult r = fn(map, map_type(elem_bytes), 2,
                         const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -543,13 +702,14 @@ inline int make_map(CUtensorMap* map, const void* ptr, long inner,
   return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + static_cast<int>(r);
 }
 
-// A 3-D bf16 tensor map over `batch` row-major (outer, inner) matrices,
-// row stride `ld` elements and matrix stride `batch_ld` (0: `inner` and
-// `outer * inner`, the matrices packed), box (1, box_outer, box_inner),
-// 128-byte swizzle, zero fill outside.
+// A 3-D bf16 (elem_bytes 1: int8) tensor map over `batch` row-major
+// (outer, inner) matrices, row stride `ld` elements and matrix stride
+// `batch_ld` (0: `inner` and `outer * inner`, the matrices packed), box
+// (1, box_outer, box_inner), 128-byte swizzle, zero fill outside.
 inline int make_map_3d(CUtensorMap* map, const void* ptr, long inner,
                        long outer, long batch, int box_inner,
-                       int box_outer, long ld = 0, long batch_ld = 0) {
+                       int box_outer, long ld = 0, long batch_ld = 0,
+                       int elem_bytes = 2) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ENTRY_ERROR;
   if (ld == 0) ld = inner;
@@ -557,12 +717,13 @@ inline int make_map_3d(CUtensorMap* map, const void* ptr, long inner,
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(outer),
                               static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
-                                 static_cast<cuuint64_t>(batch_ld) * 2};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(ld) * elem_bytes,
+      static_cast<cuuint64_t>(batch_ld) * elem_bytes};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
                              static_cast<cuuint32_t>(box_outer), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const CUresult r = fn(map, map_type(elem_bytes), 3,
                         const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -596,6 +757,32 @@ int launch(const void* a, const void* b, int M, int N, int K, long lda,
   }
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
   kernel<<<grid, C::THREADS, C::SMEM, st>>>(ta, tb, K, rbk, store);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the int8 mainloop over A (M, K) and B (N, K), both int8 with row
+// strides lda and ldb (the caller checks the 16-byte alignment); returns
+// the launch's cudaError_t, or cudaErrorInvalidValue for K past S8_MAX_K
+// (the int32 sum could overflow: refused, not clamped).
+template <int BM, int BN, class Store>
+int launch_s8(const void* a, const void* b, int M, int N, int K, long lda,
+              long ldb, const Store& store, cudaStream_t st) {
+  using C = Cfg<BM, BN>;
+  if (K > S8_MAX_K) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;
+  int e = make_map(&ta, a, K, M, lda, WK_S8, BM, 1);
+  if (e == 0) e = make_map(&tb, b, K, N, ldb, WK_S8, BN, 1);
+  if (e != 0) return e;
+  auto kernel = gemm_kernel_s8<BM, BN, Store>;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t ce = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (ce != cudaSuccess) return static_cast<int>(ce);
+    sized = true;
+  }
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  kernel<<<grid, C::THREADS, C::SMEM, st>>>(ta, tb, K, store);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -58,6 +58,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # count each engine apart (``mte_gemm`` / ``splitk_gemm`` /
 # ``grouped_gemm`` / ``rigid_gemm`` the tile loop, ``mte_gemm_wgmma`` /
 # ``grouped_gemm_wgmma`` / ``rigid_gemm_wgmma`` the wgmma mainloop,
+# ``mte_gemm_wgmma_s8`` / ``grouped_gemm_wgmma_s8`` its int8 entries,
 # ``mte_gemm_simt`` / ``splitk_gemm_simt`` / ``grouped_gemm_simt`` /
 # ``rigid_gemm_simt`` the SIMT f32 mainloop, ``splitk_gemm_cluster`` and
 # ``grouped_gemm_splitk`` B2's and B3's cluster split-K kernels,
@@ -66,10 +67,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # wgmma kernels, ``flash_decode`` / ``flash_decode_mma`` B6's SIMT and mma
 # kernels, ``rglru_scan`` / ``rglru_scan_staged`` B7's direct and staged
 # engines), and ``rigid_gemm.cu`` holds the separate epilogue pass too.
-KERNEL_NAMES = ("mte_gemm", "mte_gemm_wgmma", "mte_gemm_simt",
+KERNEL_NAMES = ("mte_gemm", "mte_gemm_wgmma", "mte_gemm_wgmma_s8",
+                "mte_gemm_simt",
                 "splitk_gemm", "splitk_gemm_cluster", "splitk_gemm_simt",
                 "grouped_gemm", "grouped_gemm_splitk", "grouped_gemm_wgmma",
-                "grouped_gemm_simt",
+                "grouped_gemm_wgmma_s8", "grouped_gemm_simt",
                 "flash_decode_paged", "flash_decode_paged_mma",
                 "flash_attention", "flash_attention_wgmma", "rigid_gemm",
                 "rigid_gemm_wgmma", "rigid_gemm_simt", "epilogue_pass",

@@ -31,14 +31,17 @@ loop):
   version :func:`grouped_gemm_torch`) for bf16 operands past 16 rows at
   a wgmma tile, K and N multiples of 8: the prefill groups, the MoE
   experts.  w is read through a 3-D tensor map, so each member's K tail
-  loads zeros; a broadcast x through a 2-D one;
+  loads zeros; a broadcast x through a 2-D one.  int8 operands past 16
+  rows with K a multiple of 16 take its s8 entry (counter
+  ``grouped_gemm_wgmma_s8``; the int32 accumulator written exactly),
+  which reads w K-major: the wrapper copies w (G, K, N) to (G, N, K);
 - the SIMT f32 mainloop with the group on the grid
   (``csrc/grouped_gemm.cu``, counter ``grouped_gemm_simt``; bit-equal to
   the tile loop) for f32 operands past 16 rows at a SIMT tile, K and N
   multiples of 4: ``GroupedGemm``'s backward;
 - the tile loop (``csrc/grouped_gemm.cu``, counter ``grouped_gemm``, at
   ``geom``'s tile; plain version :func:`grouped_gemm_torch`) for the
-  rest: int8, fp32 at C ≤ 16, unaligned shapes.
+  rest: int8 and fp32 at C ≤ 16, unaligned shapes.
 
 Under ``bf16acc`` the split-K engine keeps B2's cluster contract
 (:mod:`repro_torch.kernels.splitk_gemm`): a bf16 running sum per K slice,
@@ -86,6 +89,11 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
 _WG_ARGTYPES = _ARGTYPES[:9] + _ARGTYPES[10:]
 _SIMT_ARGTYPES = (_ARGTYPES[:9] + _ARGTYPES[10:11] + _ARGTYPES[12:14]
                   + _ARGTYPES[15:])
+# grouped_gemm_wgmma_s8_launch: x, w (G, N, K), out; G, M, N, K; the
+# group and row strides of x; the tile; the widths; the stream.
+_S8_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                + [ctypes.c_long] * 2 + [ctypes.c_int] * 3
+                + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 _SPLITK_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                     + [ctypes.c_long] * 2 + [ctypes.c_int] * 6
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
@@ -289,7 +297,11 @@ def _pipelined(engine, x, w, geom, epilogue, out_dtype, bf16acc, widths,
     (group stride 0) through its one matrix, no copy."""
     g, m, k = x.shape
     n = w.shape[2]
-    if out_dtype not in (torch.float32, torch.bfloat16):
+    s8 = x.dtype == torch.int8
+    if s8 and out_dtype != torch.int32:
+        raise TypeError(f"grouped_gemm: the s8 wgmma engine writes the "
+                        f"int32 accumulator, not {out_dtype}")
+    if not s8 and out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"grouped_gemm: the {engine} engine writes f32 or "
                         f"bf16, not {out_dtype}")
     if x.stride(0) == 0 and g > 1:
@@ -298,10 +310,20 @@ def _pipelined(engine, x, w, geom, epilogue, out_dtype, bf16acc, widths,
     else:
         x = tma_ready(x)
         sx, ldx = m * k, k
-    w = tma_ready(w)
+    # The s8 mainloop reads w K-major: (G, N, K).
+    w = tma_ready(w.transpose(1, 2) if s8 else w)
     n_widths = 0 if widths is None else g
     wd = (ctypes.c_int * MAX_WIDTHS)(*[int(v) for v in (widths or ())])
     out = torch.empty(g, m, n, dtype=out_dtype, device=dev)
+    if s8:
+        lib, fn = build.entry("grouped_gemm_wgmma",
+                              "grouped_gemm_wgmma_s8_launch", _S8_ARGTYPES)
+        build.count_launch("grouped_gemm_wgmma_s8")
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), g, m, n, k,
+                 sx, ldx, geom.bm, geom.bn, n_widths, wd,
+                 build.stream_ptr(dev))
+        build.check(lib, err, "grouped_gemm[wgmma s8]")
+        return out
     alpha = float(epilogue.alpha)
     softcap = float(epilogue.softcap or 0.0)
     if bf16acc:

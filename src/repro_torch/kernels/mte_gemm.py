@@ -5,7 +5,9 @@
 block schedule granted by the plan cache.  On CUDA tensors it launches
 ``csrc/mte_gemm.cu`` (or raises) on the engine
 :func:`repro_torch.core.geometry.gemm_engine` names — the TMA + wgmma
-mainloop (counter ``mte_gemm_wgmma``), the SIMT f32 mainloop (counter
+mainloop (counter ``mte_gemm_wgmma``; int8 operands: its s8 entry,
+counter ``mte_gemm_wgmma_s8``, which reads B K-major, so a (K, N) B is
+copied to (N, K) first), the SIMT f32 mainloop (counter
 ``mte_gemm_simt``) or the tile loop (counter ``mte_gemm``); on CPU
 tensors it runs :func:`mte_gemm_torch`, the plain
 PyTorch version of the same function, after the same engine check, so a
@@ -27,11 +29,12 @@ import torch
 
 from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
 from repro_torch.core.formats import int_matmul
-from repro_torch.core.geometry import BlockGeometry, cdiv, gemm_engine
+from repro_torch.core.geometry import (TILE_LOOP_TILES, BlockGeometry,
+                                       cdiv, gemm_engine)
 from repro_torch.kernels import build
 
 __all__ = ["mte_gemm_kernel", "mte_gemm_torch", "DTYPE_CODES",
-           "bf16_scalar", "tma_ready", "bf16acc_block"]
+           "bf16_scalar", "tma_ready", "bf16acc_block", "k_major"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.int32: 3}
@@ -46,6 +49,11 @@ _WG_ARGTYPES = _ARGTYPES[:12] + _ARGTYPES[13:]
 # mte_gemm_simt_launch: as mte_gemm_wgmma_launch without the accumulator
 # flag and its block (f32 operands, f32 accumulator).
 _SIMT_ARGTYPES = _WG_ARGTYPES[:13] + _WG_ARGTYPES[14:16] + _WG_ARGTYPES[17:]
+# mte_gemm_wgmma_s8_launch: a, b (N, K), out; M, N, K; lda, ldb, ldo; the
+# tile; the stream.
+_S8_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                + [ctypes.c_long] * 3 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p])
 
 
 def tma_ready(x: torch.Tensor) -> torch.Tensor:
@@ -135,15 +143,26 @@ def mte_gemm_torch(a, b, c=None, bias=None, *, geom: BlockGeometry,
 
 def mte_gemm_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
                     epilogue: Epilogue = Epilogue(),
-                    out_dtype=torch.float32, acc_dtype=None) -> torch.Tensor:
+                    out_dtype=torch.float32, acc_dtype=None,
+                    engine: Optional[str] = None) -> torch.Tensor:
     """``epilogue(a @ b [, c, bias])``: the B1 CUDA kernel on CUDA
-    tensors, :func:`mte_gemm_torch` on CPU tensors."""
+    tensors, :func:`mte_gemm_torch` on CPU tensors.  ``engine`` pins the
+    engine: None (or the name :func:`~repro_torch.core.geometry.
+    gemm_engine` gives) launches that engine's kernel, ``"tile"`` the tile
+    loop at ``geom``'s tile whatever the rule names (its tiles only)."""
     dev = build.require_cuda(a, b, c, bias, what="mte_gemm")
     m, n, k = _check(a, b, c, bias, geom, epilogue)
     acc_dtype = _acc_dtype(a, acc_dtype)
     bf16acc = acc_dtype == torch.bfloat16
-    engine = gemm_engine(a.dtype, geom.bm, geom.bn, n, k, m=m,
+    chosen = gemm_engine(a.dtype, geom.bm, geom.bn, n, k, m=m,
                          bf16acc=bf16acc)
+    if engine is None:
+        engine = chosen
+    elif engine not in (chosen, "tile") or (
+            engine == "tile" and (geom.bm, geom.bn) not in TILE_LOOP_TILES):
+        raise ValueError(f"mte_gemm: engine={engine!r} cannot run "
+                         f"{m}x{n}x{k} at the tile {geom.bm}x{geom.bn} "
+                         f"(gemm_engine chose {chosen!r})")
     if dev is None:
         return mte_gemm_torch(a, b, c, bias, geom=geom, epilogue=epilogue,
                               out_dtype=out_dtype, acc_dtype=acc_dtype)
@@ -158,6 +177,8 @@ def mte_gemm_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
                          "identity epilogue (dequantize first)")
     if out_dtype not in (torch.float32, torch.bfloat16, torch.int32):
         raise TypeError(f"mte_gemm: out_dtype {out_dtype} unsupported")
+    if engine == "wgmma" and a.dtype == torch.int8:
+        return _s8_launch(a, b, geom, out_dtype, dev)
     acc_f = torch.bfloat16 if bf16acc else torch.float32
     c_ = (c.to(acc_f).float().contiguous()
           if epilogue.needs_c_input else None)
@@ -196,4 +217,30 @@ def mte_gemm_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
              int(epilogue.softcap is not None), softcap,
              ACTIVATION_CODES[epilogue.activation], build.stream_ptr(dev))
     build.check(lib, err, f"mte_gemm[{engine}]")
+    return out
+
+
+def k_major(b: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """B as the s8 wgmma engine reads it: (N, K) row-major at a 16-byte
+    aligned address -- a (K, N) B copied, an (N, K) one as it is."""
+    return tma_ready(b if transposed else b.t())
+
+
+def _s8_launch(a, b, geom: BlockGeometry, out_dtype, dev) -> torch.Tensor:
+    """One launch of the s8 wgmma entry: int8 operands, the int32
+    accumulator written as it is (the epilogue is the identity)."""
+    if out_dtype != torch.int32:
+        raise TypeError(f"mte_gemm[wgmma s8]: writes the int32 "
+                        f"accumulator, not {out_dtype}")
+    m, k = a.shape
+    a, bk = tma_ready(a), k_major(b, geom.transposed_b)
+    n = bk.shape[0]
+    out = torch.empty(m, n, dtype=torch.int32, device=dev)
+    lib, fn = build.entry("mte_gemm", "mte_gemm_wgmma_s8_launch",
+                          _S8_ARGTYPES)
+    build.count_launch("mte_gemm_wgmma_s8")
+    err = fn(a.data_ptr(), bk.data_ptr(), out.data_ptr(), m, n, k,
+             a.stride(0), bk.stride(0), n, geom.bm, geom.bn,
+             build.stream_ptr(dev))
+    build.check(lib, err, "mte_gemm[wgmma s8]")
     return out

@@ -96,8 +96,14 @@ def test_rigid_route_takes_the_simt_engine_at_every_m(dtype, m, n_, k,
     ("float32", 512, 2048, 2046, False, (128, 128), "tile"),   # K % 4
     ("float32", 512, 2048, 2048, False, (64, 64), "tile"),     # loop tile
     ("float32", 512, 2048, 2048, False, (128, 256), "tile"),
-    # int8: always the tile loop
-    ("int8", 512, 2048, 2048, False, (128, 128), "tile"),
+    # int8: the s8 wgmma engine past 16 rows at a wgmma tile, K a
+    # multiple of 16 and N of 8; else the tile loop
+    ("int8", 512, 2048, 2048, False, (128, 128), "wgmma"),
+    ("int8", 17, 512, 1024, False, (64, 64), "wgmma"),
+    ("int8", 512, 2048, 2040, False, (128, 128), "tile"),      # K % 16
+    ("int8", 512, 2052, 2048, False, (128, 128), "tile"),      # N % 8
+    ("int8", 512, 2048, 2048, False, (16, 128), "tile"),       # loop tile
+    ("int8", 16, 2048, 2048, False, (128, 128), "tile"),       # C <= 16
     ("int8", 4, 2048, 2048, False, (16, 128), "tile"),
 ])
 def test_grouped_engine_names_each_engine(dtype, m, n_, k, bf16acc, tile,
@@ -146,7 +152,9 @@ def _sig(m, n_, k, fmt, group):
     (2048, 16384, 4096, "fp32", {(128, 128)}),
     (16, 2048, 2048, "fp32", set()),           # C <= 16
     (512, 2048, 2046, "fp32", set()),          # K not a multiple of 4
-    (512, 2048, 2048, "int8", set()),
+    (512, 2048, 2048, "int8", set(WGMMA)),    # the s8 engine
+    (512, 2048, 2040, "int8", set()),         # K not a multiple of 16
+    (16, 2048, 2048, "int8", set()),          # C <= 16
 ])
 def test_grouped_candidates_only_where_the_engines_take_them(m, n_, k, fmt,
                                                              want):

@@ -2011,3 +2011,167 @@ def test_amx_train_steps_on_the_card_equal_the_cpu(card):
             assert rel <= 1e-4
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert float((a - b).abs().max()) <= 1e-5
+
+
+# -- int8 on the s8 wgmma engine (B1 and B3) ----------------------------------
+
+# Ragged int8 shapes the s8 engine takes: M 65 and 520, N 72 and 2056
+# (past the last 64-, 128- and 256-column tile), K 144 and 1040 (a K-tail
+# stage past the 128-deep ones).
+S8_SHAPES = [(65, 72, 144), (520, 2056, 1040), (65, 2056, 144),
+             (520, 72, 1040)]
+
+
+def _s8_geom(tile, transposed=False):
+    return tgeometry.BlockGeometry(*tile, 256, 1, 1, transposed,
+                                   tgeometry.SEW.E8, tgeometry.SEW.E32,
+                                   "mte")
+
+
+def _ints(gen, *shape):
+    return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["kn", "nk"])
+@pytest.mark.parametrize("tile", WGMMA_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+def test_s8_gemm_bit_equal_to_the_tile_loop_and_plain(card, tile,
+                                                      transposed):
+    """B1's int8 entry at every compiled tile, B given as (K, N) (the
+    wrapper's K-major copy) and as (N, K): int32 bit-equal to the tile
+    loop (pinned at its 64 x 64 tile) and to the exact plain product."""
+    gen = torch.Generator().manual_seed(tile[0] + tile[1])
+    before = build.launch_counts()
+    for m, n, k in S8_SHAPES:
+        a, b = _ints(gen, m, k), _ints(gen, k, n)
+        bb = b.t().contiguous() if transposed else b
+        want = tgemm.mte_gemm_torch(a, b, geom=_s8_geom((64, 64)),
+                                    out_dtype=torch.int32)
+        got = tgemm.mte_gemm_kernel(a.to(card), bb.to(card),
+                                    geom=_s8_geom(tile, transposed),
+                                    out_dtype=torch.int32)
+        loop = tgemm.mte_gemm_kernel(a.to(card), bb.to(card),
+                                     geom=_s8_geom((64, 64), transposed),
+                                     out_dtype=torch.int32, engine="tile")
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(got, loop)
+    after = build.launch_counts()
+    assert after["mte_gemm_wgmma_s8"] == before["mte_gemm_wgmma_s8"] + 4
+    assert after["mte_gemm"] == before["mte_gemm"] + 4
+    assert after["mte_gemm_wgmma"] == before["mte_gemm_wgmma"]
+
+
+@pytest.mark.parametrize("tile", [(64, 64), (128, 256)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+def test_s8_sums_past_two_to_the_24_are_exact(card, tile):
+    """±127 operands at K = 4096: sums up to 127² · 4096 > 2^24 that f32
+    cannot hold come out exactly (the accumulator is staged as raw int32
+    words), on B1 and on B3."""
+    m, n, k = 192, 320, 4096
+    a = torch.full((m, k), 127, dtype=torch.int8)
+    b = torch.full((k, n), -127, dtype=torch.int8)
+    b[::2, 1::2] = 127
+    b[:3, ::3] = 1
+    b[3, ::3] = 2
+    want = tgemm.mte_gemm_torch(a, b, geom=_s8_geom(tile),
+                                out_dtype=torch.int32)
+    assert int(want.abs().max()) > 2 ** 24
+    assert not torch.equal(want.float().long(), want.long())
+    got = tgemm.mte_gemm_kernel(a.to(card), b.to(card), geom=_s8_geom(tile),
+                                out_dtype=torch.int32)
+    assert torch.equal(got.cpu(), want)
+    x, w = a[None].expand(2, m, k), torch.stack([b, -b])
+    got = tgrouped.grouped_gemm_kernel(x.to(card), w.to(card),
+                                       geom=_s8_geom(tile),
+                                       out_dtype=torch.int32)
+    assert torch.equal(got.cpu(), torch.stack([want, -want]))
+
+
+@pytest.mark.parametrize("tile", [(64, 128), (128, 64), (128, 256)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("shared", [True, False], ids=["broadcast-x",
+                                                        "own-x"])
+def test_s8_grouped_bit_equal_to_the_tile_loop_and_plain(card, tile, shared):
+    """B3's int8 entry: x broadcast (group stride 0, a 2-D map) or each
+    member's own (a 3-D map), w through a 3-D map over (G, N, K), ragged
+    C, N and K, with and without widths (one 0, one inside a tile, one
+    past N): bit-equal to the tile loop (pinned) and to the plain
+    version, the columns past each width exactly 0."""
+    gen = torch.Generator().manual_seed(31 + tile[1])
+    before = build.launch_counts()
+    for g, c, n, k in [(3, 65, 2056, 144), (3, 520, 72, 1040)]:
+        x, w = _ints(gen, 1 if shared else g, c, k), _ints(gen, g, k, n)
+        if shared:
+            x = x.expand(g, c, k)
+        for widths in (None, [n, 0, 40]):
+            kw = dict(geom=_s8_geom(tile), out_dtype=torch.int32,
+                      widths=widths)
+            want = tgrouped.grouped_gemm_torch(x, w, **kw)
+            xc, wc = x.to(card), w.to(card)
+            got = tgrouped.grouped_gemm_kernel(xc, wc, **kw)
+            loop = tgrouped.grouped_gemm_kernel(
+                xc, wc, engine="tile", **dict(kw, geom=_s8_geom((64, 64))))
+            assert got.dtype == torch.int32
+            assert torch.equal(got.cpu(), want)
+            assert torch.equal(got, loop)
+            for i, wd in enumerate(widths or ()):
+                assert bool((got[i, :, wd:] == 0).all())
+    after = build.launch_counts()
+    assert after["grouped_gemm_wgmma_s8"] == \
+        before["grouped_gemm_wgmma_s8"] + 4
+    assert after["grouped_gemm"] == before["grouped_gemm"] + 4
+    assert after["grouped_gemm_wgmma"] == before["grouped_gemm_wgmma"]
+
+
+def test_s8_refuses_what_it_cannot_take(card):
+    """K not a multiple of 16 with the s8 engine pinned (a wgmma-only
+    tile, or ``engine="wgmma"`` on B3) raises before a launch; the C
+    entries themselves refuse such a K and a K past S8_MAX_K (the int32
+    sum could overflow) with an error, not a clamp or another engine."""
+    gen = torch.Generator().manual_seed(41)
+    before = build.launch_counts()
+    a, b = _ints(gen, 128, 1032), _ints(gen, 1032, 256)
+    with pytest.raises(ValueError, match="no mte GEMM engine"):
+        tgemm.mte_gemm_kernel(a.to(card), b.to(card),
+                              geom=_s8_geom((128, 256)),
+                              out_dtype=torch.int32)
+    with pytest.raises(ValueError, match="engine='wgmma'"):
+        tgrouped.grouped_gemm_kernel(
+            a[None].to(card), b[None].to(card), geom=_s8_geom((128, 256)),
+            out_dtype=torch.int32, engine="wgmma")
+    assert build.launch_counts() == before
+    with pytest.raises(RuntimeError, match="wgmma s8"):
+        tgemm._s8_launch(a.to(card), b.to(card), _s8_geom((128, 256)),
+                         torch.int32, card)
+    k = tgeometry.S8_MAX_K + 16
+    a, b = _ints(gen, 64, k), _ints(gen, k, 64)
+    with pytest.raises(RuntimeError, match="wgmma s8"):
+        tgemm._s8_launch(a.to(card), b.to(card), _s8_geom((64, 64)),
+                         torch.int32, card)
+    with pytest.raises(TypeError, match="int32"):
+        tgemm._s8_launch(a.to(card), b.to(card), _s8_geom((64, 64)),
+                         torch.float32, card)
+
+
+def test_ops_int8_runs_the_s8_engine_past_16_rows(card):
+    """``ops.mte_gemm`` and ``ops.grouped_gemm`` under int8 at 128 rows
+    plan onto the s8 engine and equal the CPU's plain route bit for bit
+    (quantize, int32 sum and dequantize are exact on both devices); at 4
+    rows the tile loops run."""
+    gen = torch.Generator().manual_seed(43)
+    a = torch.randn(128, 512, generator=gen)
+    b = torch.randn(512, 256, generator=gen)
+    x = torch.randn(4, 96, 256, generator=gen)
+    w = torch.randn(4, 256, 128, generator=gen)
+    before = build.launch_counts()
+    got = tops.mte_gemm(a.to(card), b.to(card), format_policy="int8")
+    assert torch.equal(got.cpu(), tops.mte_gemm(a, b, format_policy="int8"))
+    got = tops.grouped_gemm(x.to(card), w.to(card), format_policy="int8")
+    assert torch.equal(got.cpu(),
+                       tops.grouped_gemm(x, w, format_policy="int8"))
+    tops.mte_gemm(a[:4].to(card), b.to(card), format_policy="int8")
+    after = build.launch_counts()
+    ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert ran.pop("mte_gemm_wgmma_s8") == 1
+    assert ran.pop("grouped_gemm_wgmma_s8") == 1
+    assert set(ran) <= {"mte_gemm", "splitk_gemm"} and ran, ran

@@ -69,8 +69,10 @@ def fresh_cache():
     ("float32", 128, 128, 16, 2048, 2048, False, None),     # M <= 16
     ("float32", 16, 128, 16, 2048, 2048, False, "tile"),    # decode
     ("float32", 128, 256, 4096, 2048, 2048, False, None),
-    ("int8", 128, 128, 4096, 2048, 2048, False, None),
-    ("int8", 64, 64, 4096, 2048, 2048, False, "tile"),
+    ("int8", 128, 128, 4096, 2048, 2048, False, "wgmma"),   # s8
+    ("int8", 64, 64, 4096, 2048, 2048, False, "wgmma"),
+    ("int8", 64, 64, 4096, 2048, 2040, False, "tile"),      # K % 16
+    ("int8", 128, 128, 16, 2048, 2048, False, None),        # M <= 16
     ("bfloat16", 128, 128, 4096, 2048, 2048, False, "wgmma"),
     ("bfloat16", 128, 128, 4096, 2044, 2048, False, None),  # N % 8
     ("float32", 128, 128, 4096, 2048, 2048, True, "simt"),  # rigid tile

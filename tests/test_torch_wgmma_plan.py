@@ -53,7 +53,9 @@ def _tiles(sig):
     (512, 2050, 2048, "bf16", False),     # N not a multiple of 8
     (512, 2048, 2044, "bf16", False),     # K not a multiple of 8
     (512, 2048, 2048, "fp32", False),     # f32 gets the SIMT engine's
-    (512, 2048, 2048, "int8", False),     # wgmma s8 needs K-major B
+    (512, 2048, 2048, "int8", True),      # s8: B copied K-major
+    (512, 2048, 2040, "int8", False),     # int8: K not a multiple of 16
+    (63, 2048, 2048, "int8", False),      # below one 64-row MMA
 ])
 def test_wgmma_tiles_offered_only_where_the_engine_runs(m, n_, k, fmt,
                                                         offered):
@@ -63,6 +65,12 @@ def test_wgmma_tiles_offered_only_where_the_engine_runs(m, n_, k, fmt,
         want = set(WGMMA) - ({(64, 256), (128, 256)} if fmt == "bf16acc"
                              else set())
         assert tiles == want
+        if fmt == "int8":
+            sig = _sig(m, n_, k, fmt)
+            assert all(tautotune.plan_engine(sig, g) == "wgmma" for g in
+                       tautotune.enumerate_candidates(sig,
+                                                      tgeometry.H100_SPEC)
+                       if g.split_k == 1)
     else:
         # No wgmma tile; f32 past 16 rows gets the SIMT engine's tiles
         # (128 x 64 too: 128 x 128 makes 64 tiles here).
@@ -134,7 +142,12 @@ def test_check_kernel_tile_accepts_exactly_the_compiled_set():
     ("bfloat16", 16, 128, 2048, 2048, False, False, "tile"),  # M <= 16
     ("bfloat16", 64, 64, 2048, 2048, True, False, "wgmma"),
     ("float32", 64, 64, 2048, 2048, False, False, "tile"),
-    ("int8", 64, 64, 2048, 2048, False, False, "tile"),
+    ("int8", 64, 64, 2048, 2048, False, False, "wgmma"),     # s8
+    ("int8", 128, 256, 2048, 2048, False, False, "wgmma"),
+    ("int8", 64, 64, 2048, 2040, False, False, "tile"),      # K % 16
+    ("int8", 64, 64, 2044, 2048, False, False, "tile"),      # N % 8
+    ("int8", 16, 128, 2048, 2048, False, False, "tile"),     # M <= 16
+    ("int8", 128, 128, 2048, 2040, False, False, None),      # K % 16
     ("bfloat16", 128, 256, 2048, 2048, True, False, None),    # bf16acc
     ("bfloat16", 128, 128, 2048, 2044, False, False, None),   # K % 8
     ("float32", 128, 256, 2048, 2048, False, False, None),
