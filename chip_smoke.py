@@ -68,7 +68,15 @@ Phases (any failure raises and the script exits non-zero):
    member, widths, and ±127 operands at K = 4096; timed at gemma_2b's
    and granite_moe_1b's prefill shapes and granite's experts beside
    ``torch._int_mm``, the K-major copy of B and the tile loop, and the
-   tile loops of B1, B3 and B8 at gemma_2b's gate in int8); B8 stage 1
+   tile loops of B1, B3 and B8 at gemma_2b's gate in int8); int8 at most
+   16 rows on the s8 entries of the cluster split-K mainloop
+   (``int8_decode_phase``: ``splitk_gemm_cluster_s8`` and
+   ``grouped_gemm_splitk_s8`` bit-equal to the tile loops, the plain
+   versions and ``int_matmul`` at M 1, 5 and 16, ragged K and N, every
+   slice count, x broadcast and per member, widths, and ±127 operands at
+   K = 16384; timed at gemma_2b's int8 decode GEMMs and q/k/v group, warm,
+   L2-cold and by split, beside ``torch._int_mm`` on the rows padded to
+   32 and the tile loops, which get rows of their own); B8 stage 1
    on the SIMT engine at the reduced
    model's gate (bit-equal to the tile loop, also timed pinned) and the
    amx training backward's GEMMs (``rigid_train_rows``);
@@ -94,7 +102,8 @@ Phases (any failure raises and the script exits non-zero):
    on the SIMT f32 engine), one 4096-token chunk through it on the eager path
    (B1's SIMT f32 engine: fp32 GEMMs past 16 rows; no tile-loop launch),
    gemma_2b.reduced() under ``format_policy="int8"`` with 64-row
-   prefill chunks (B1's and B3's s8 entries; ``reduced_int8_phase``),
+   prefill chunks (B1's and B3's s8 entries; the 2-row decode steps on B2's
+   and B3's cluster s8 entries; ``reduced_int8_phase``),
    and
    recurrentgemma_9b.reduced() in the default configuration (prompts
    longer than its 16-slot ring, chunks of 8; and with an RG-LRU width of
@@ -127,7 +136,8 @@ Phases (any failure raises and the script exits non-zero):
    (``int8``: f32 weights quantized at every call, every prefill
    projection on B1's s8 entry and no int8 tile-loop launch in a prefill
    chunk, ``INT8_CHUNK``; the decode step's 4-row GEMMs on B2's and B3's
-   int8 tile loops), then recurrentgemma_9b (38 layers, d_model 4096;
+   cluster s8 entries, 72 and 18 launches a step, no tile loop), then
+   recurrentgemma_9b (38 layers, d_model 4096;
    2560-token prompts, so its 2048-slot rings wrap in prefill and decode)
    and gemma2_27b (46 layers alternating local and global, d_model 4608,
    GQA 32/16, softcaps 50 and 30, post-norms; weights built in bf16;
@@ -1457,6 +1467,274 @@ def int8_phase(dev, rows):
                else "not run"))
 
 
+# -- phase 2: int8 decode GEMMs on the cluster split-K engines ----------------
+
+# Ragged int8 decode shapes (K, N) of B2's and B3's s8 entries: K 144 (one
+# short 128-row stage), 2048 and 16384; N past the last 128-column tile.
+S8_DECODE_SHAPES = [(144, 2064), (2048, 2064), (16384, 400)]
+# gemma_2b's int8 decode GEMMs at 4 slots on B2 (gate and up share one
+# shape) and its decode q/k/v group on B3 (widths 2048/256/256).
+S8_DECODE_GEMMS = [("o", 4, 2048, 2048), ("gate", 4, 16384, 2048),
+                   ("down", 4, 2048, 16384)]
+S8_DECODE_QKV = (3, 4, 2048, 2048, (2048, 256, 256))
+
+
+def int8_decode_phase(dev, rows):
+    """B2 and B3 on the s8 entries of the cluster split-K mainloop against
+    the tile loops and their plain versions, bit for bit: B2 at M 1, 5
+    and 16 and ragged K and N (``splitk_cluster_torch`` at the engine's
+    split, ``int_matmul`` and the tile loop's summed partials, pinned
+    with ``launch_partials``), every slice count pinned, B3 with a
+    broadcast and a per-member x, with and without widths
+    (``grouped_splitk_torch``, ``grouped_gemm_torch``, the tile loop
+    pinned with ``engine="tile"``), and ±127 operands at K = 16384 (sums
+    past 2^24); then gemma_2b's int8 decode GEMMs (o, gate/up, down) and
+    its decode q/k/v group through their plans, each timed warm, L2-cold
+    and at every split beside its bound (bytes at 3.35 TB/s: the int8
+    operands once and the int32 output; int8 operations at 1979 TOPS),
+    the plain version, ``torch._int_mm`` on the 4 rows zero-padded to 32
+    (it takes only M > 16; B3 has no one call: its three members' calls
+    summed, kept apart) and the tile loop in the same run, which also
+    gets rows of its own (``splitk_gemm`` / ``grouped_gemm``)."""
+    import torch
+    from repro_torch.core.autotune import (GemmSignature, PlanCache,
+                                           plan_engine)
+    from repro_torch.core.formats import int_matmul
+    from repro_torch.core.geometry import (SEW, BlockGeometry, cdiv,
+                                           grouped_engine, splitk_engine)
+    from repro_torch.kernels.grouped_gemm import (grouped_gemm_kernel,
+                                                  grouped_gemm_torch,
+                                                  grouped_splitk_torch,
+                                                  split_layout)
+    from repro_torch.kernels.splitk_gemm import (cluster_layout,
+                                                 launch_partials,
+                                                 mte_gemm_splitk_kernel,
+                                                 mte_gemm_splitk_torch,
+                                                 splitk_cluster_torch)
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    i32, i8 = torch.int32, torch.int8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = BlockGeometry(16, 128, 256, 4, 1, False, SEW.E8, SEW.E32, "mte")
+
+    def ints(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=i8)
+
+    def exact(name, got, *wants):
+        ok = got.dtype == i32 and all(torch.equal(got, w) for w in wants)
+        log(f"  {name}: int32 bit-equal to the plain version, int_matmul "
+            f"and the tile loop {'ok' if ok else 'FAIL'}")
+        require(ok, f"{name}: not bit-equal")
+
+    def b2(a, b, label, **pin):
+        m, k = a.shape
+        n = b.shape[1]
+        require(splitk_engine(i8, m, n, k) == "cluster",
+                f"int8 {m}x{n}x{k} is not on the cluster engine")
+        slices, depth = cluster_layout(m, n, k, dev,
+                                       pin.get("cluster_split"),
+                                       dtype_in=i8)
+        got = mte_gemm_splitk_kernel(a, b, geom=geo, out_dtype=i32, **pin)
+        loop = launch_partials(a, b, geom=geo, n_split=4, acc_dtype=i32,
+                               engine="tile").sum(0, dtype=i32)
+        exact(f"splitk_gemm_cluster_s8 {label} {slices} slices of {depth}",
+              got, splitk_cluster_torch(a, b, n_split=slices, depth=depth,
+                                        out_dtype=i32),
+              int_matmul(a, b), loop)
+
+    def b3(x, w, widths, label):
+        g, c, k = x.shape
+        n = w.shape[2]
+        require(grouped_engine(i8, c, n, k) == "splitk",
+                f"int8 G={g} {c}x{n}x{k} is not on the split-K engine")
+        kw = dict(geom=geo, out_dtype=i32, widths=widths)
+        slices, depth = split_layout(x, w, widths=widths, sm_count=sms)
+        exact_ = torch.stack([int_matmul(x[i], w[i]) for i in range(g)])
+        for i, wd in enumerate(widths or ()):
+            exact_[i, :, wd:] = 0
+        got = grouped_gemm_kernel(x, w, **kw)
+        exact(f"grouped_gemm_splitk_s8 {label} {slices} slices of {depth}",
+              got, grouped_splitk_torch(x, w, n_split=slices, depth=depth,
+                                        out_dtype=i32, widths=widths),
+              grouped_gemm_torch(x, w, **kw), exact_,
+              grouped_gemm_kernel(x, w, engine="tile", **kw))
+
+    # Ragged rows and shapes; B3 with a broadcast x and widths, and with a
+    # per-member x and none.
+    for m in (1, 5, 16):
+        for k, n in S8_DECODE_SHAPES:
+            b2(ints(m, k), ints(k, n), f"{m}x{n}x{k}")
+            rows.append({"kernel": "splitk_gemm_cluster_s8",
+                         "shape": f"int8 {m}x{n}x{k}", "max_abs_err": 0.0,
+                         "tol": 0.0})
+        for k, n in S8_DECODE_SHAPES:
+            for shared, widths in ((True, [n, 16, 0]), (False, None)):
+                x = ints(1 if shared else 3, m, k)
+                x = x.expand(3, m, k) if shared else x
+                label = (f"G=3 {m}x{n}x{k}{' shared-x' if shared else ''}"
+                         f"{' widths' if widths else ''}")
+                b3(x, ints(3, k, n), widths, label)
+                rows.append({"kernel": "grouped_gemm_splitk_s8",
+                             "shape": f"int8 {label}", "max_abs_err": 0.0,
+                             "tol": 0.0})
+    # Every slice count the s8 entry takes at gemma_2b's o (128-row
+    # stages: 5 and 7 slices of K = 2048 leave one empty).
+    a, b = ints(4, 2048), ints(2048, 2048)
+    for s in (1, 2, 3, 4, 6, 8):
+        b2(a, b, "o 4x2048x2048 pinned", cluster_split=s)
+    # ±127 operands at K = 16384: sums past 2^24 that f32 cannot hold.
+    m, n, k = 5, 272, 16384
+    a = torch.full((m, k), 127, dtype=i8, device=dev)
+    b = torch.full((k, n), -127, dtype=i8, device=dev)
+    b[::2, 1::2] = 127
+    b[:3, ::3] = 1
+    b[3, ::3] = 2
+    want = int_matmul(a, b)
+    require(int(want.abs().max()) > 2 ** 24
+            and not torch.equal(want.float().long(), want.long()),
+            "the ±127 case does not pass 2^24")
+    b2(a, b, f"±127 {m}x{n}x{k} (max |sum| {int(want.abs().max())})")
+    b3(a[None].expand(2, m, k), torch.stack([b, -b]), [n, 16],
+       f"±127 G=2 {m}x{n}x{k}")
+
+    cache = PlanCache()
+    peak = PEAK["int8"]
+
+    def padded_int_mm(a, b):
+        """``torch._int_mm`` of a's rows zero-padded to 32 (it takes only
+        M > 16), held to the exact product on a's rows."""
+        ap = torch.zeros(32, a.shape[1], dtype=i8, device=dev)
+        ap[:a.shape[0]] = a
+        call = int_mm_call(ap, b, b.t().contiguous())
+        if call is not None:
+            require(torch.equal(call()[:a.shape[0]], int_matmul(a, b)),
+                    "torch._int_mm differs")
+        return call
+
+    def timed(row, run, plain, loop, lib, slices, pinned):
+        row.update({"ms": time_ms(run), "cold_ms": time_ms_cold(run),
+                    "plain_ms": time_ms(plain, iters=3),
+                    "library_ms": time_ms(lib) if lib else None,
+                    "library_cold_ms": time_ms_cold(lib) if lib else None,
+                    "tile_loop_ms": time_ms(loop, iters=5),
+                    "tile_loop_cold_ms": time_ms_cold(loop, iters=5),
+                    "slices": slices,
+                    "ms_by_split": {s: time_ms(f) for s, f in pinned}})
+        rows.append(row)
+        rows.append(dict(row, kernel=row["tile_loop"], engine="tile",
+                         shape=f"{row['shape']} (tile loop)",
+                         ms=row["tile_loop_ms"],
+                         cold_ms=row["tile_loop_cold_ms"],
+                         plain_ms=row["tile_loop_plain_ms"],
+                         ms_by_split=None))
+        members = row.get("int_mm_members_ms")
+        lib_txt = (f"{row['library']} {row['library_ms']:.4f} ms (L2 cold "
+                   f"{row['library_cold_ms']:.4f})" if lib else
+                   f"library none ({row['library']}: "
+                   + (f"{members:.4f} ms)" if members else "not run)"))
+        log(f"    time {row['ms']:.4f} ms (L2 cold {row['cold_ms']:.4f}), "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, {lib_txt}, the tile loop "
+            f"{row['tile_loop_ms']:.4f} ms (L2 cold "
+            f"{row['tile_loop_cold_ms']:.4f}; "
+            f"{row['tile_loop_ms'] / row['ms']:.1f}x); by split "
+            f"{row['ms_by_split']} (planned {slices})")
+
+    for label, m, n, k in S8_DECODE_GEMMS:
+        sig = GemmSignature.make(m, n, k, "int8", "int32", fmt="int8")
+        plan = cache.plan(sig)
+        engine = plan_engine(sig, plan.geometry)
+        log(f"  int8 decode {label} {m}x{n}x{k}: plan {plan.describe()}, "
+            f"engine {engine}")
+        require(plan.route == "splitk" and engine == "cluster",
+                f"int8 decode {label}: planned {plan.describe()} on {engine}")
+        a, b = ints(m, k), ints(k, n)
+        g = plan.geometry
+        slices, depth = cluster_layout(m, n, k, dev, dtype_in=i8)
+        run = lambda: mte_gemm_splitk_kernel(  # noqa: E731
+            a, b, geom=g, n_split=plan.n_split, out_dtype=i32)
+        plain = lambda: splitk_cluster_torch(  # noqa: E731
+            a, b, n_split=slices, depth=depth, out_dtype=i32)
+        loop = lambda: launch_partials(  # noqa: E731
+            a, b, geom=g, n_split=plan.n_split, acc_dtype=i32,
+            engine="tile")
+        exact(f"splitk_gemm_cluster_s8 main-path int8 decode {label} "
+              f"{m}x{n}x{k}", run(), plain(), int_matmul(a, b),
+              loop().sum(0, dtype=i32))
+        pinned = []
+        for s in (1, 2, 4, 8):
+            try:
+                cluster_layout(m, n, k, dev, s, dtype_in=i8)
+            except ValueError:
+                continue     # x's slice would not fit, or empty slices
+            f = (lambda s=s: mte_gemm_splitk_kernel(
+                a, b, geom=g, out_dtype=i32, cluster_split=s))
+            require(torch.equal(f(), run()), f"{label}: {s} slices differ")
+            pinned.append((s, f))
+        flops, nbytes = 2.0 * m * n * k, m * k + k * n + 4.0 * m * n
+        timed({"kernel": "splitk_gemm_cluster_s8",
+               "shape": f"int8 {label} {m}x{n}x{k}", "engine": engine,
+               "plan": plan.describe(), "max_abs_err": 0.0, "tol": 0.0,
+               "bound_ms": bound_ms(flops, nbytes, peak),
+               "bound_by": bound_by(flops, nbytes, peak),
+               "library": "torch._int_mm (4 rows padded to 32)",
+               "tile_loop": "splitk_gemm",
+               "tile_loop_plain_ms": time_ms(
+                   lambda: mte_gemm_splitk_torch(
+                       a, b, geom=g, n_split=plan.n_split, out_dtype=i32),
+                   iters=3)},
+              run, plain, loop, padded_int_mm(a, b), slices, pinned)
+
+    g, c, k, n, widths = S8_DECODE_QKV
+    sig = GemmSignature.make(c, n, k, "int8", "int32", fmt="int8", group=g)
+    plan = cache.plan(sig)
+    engine = plan_engine(sig, plan.geometry)
+    log(f"  int8 decode q/k/v G={g} {c}x{k}->{n} widths {widths}: plan "
+        f"{plan.describe()}, engine {engine}")
+    require(engine == "splitk", f"int8 decode q/k/v: on {engine}")
+    # What the decode step hands it: x quantized per member (contiguous),
+    # the prestacked weight with k/v zero past 256 columns.
+    x, w = ints(g, c, k), ints(g, k, n)
+    for i, wd in enumerate(widths):
+        w[i, :, wd:] = 0
+    kw = dict(geom=plan.geometry, out_dtype=i32, widths=list(widths))
+    slices, depth = split_layout(x, w, widths=widths, sm_count=sms)
+    run = lambda: grouped_gemm_kernel(x, w, **kw)  # noqa: E731
+    plain = lambda: grouped_splitk_torch(  # noqa: E731
+        x, w, n_split=slices, depth=depth, out_dtype=i32,
+        widths=list(widths))
+    loop = lambda: grouped_gemm_kernel(  # noqa: E731
+        x, w, engine="tile", **kw)
+    exact("grouped_gemm_splitk_s8 main-path int8 decode q/k/v", run(),
+          plain(), grouped_gemm_torch(x, w, **kw), loop())
+    pinned = []
+    for s in (1, 2, 4, 8):
+        f = lambda s=s: grouped_gemm_kernel(x, w, n_split=s, **kw)  # noqa
+        require(torch.equal(f(), run()), f"q/k/v: {s} slices differ")
+        pinned.append((s, f))
+    # No one library call: each member's torch._int_mm over its live
+    # columns, 4 rows padded to 32, summed.
+    calls = [padded_int_mm(x[i], w[i, :, :wd].contiguous())
+             for i, wd in enumerate(widths)]
+    live = sum(widths)
+    flops = 2.0 * c * k * live
+    nbytes = g * c * k + k * live + 4.0 * g * c * n
+    timed({"kernel": "grouped_gemm_splitk_s8",
+           "shape": f"int8 qkv decode {g}x{c}x{k}x{n}", "engine": engine,
+           "plan": plan.describe(), "max_abs_err": 0.0, "tol": 0.0,
+           "bound_ms": bound_ms(flops, nbytes, peak),
+           "bound_by": bound_by(flops, nbytes, peak),
+           "library": f"{g} torch._int_mm calls summed (4 rows padded to "
+                      f"32)",
+           "int_mm_members_ms": time_ms(lambda: [f() for f in calls])
+           if all(calls) else None,
+           "tile_loop": "grouped_gemm",
+           "tile_loop_plain_ms": time_ms(
+               lambda: grouped_gemm_torch(x, w, **kw), iters=3)},
+          run, plain, loop, None, slices, pinned)
+
+
 def rigid_phase(dev, rows):
     """Both halves of B8 against their plain versions: ragged shapes in
     every mode (a rigid route has no narrow accumulator: bf16acc runs as
@@ -2283,7 +2561,8 @@ PATH_KERNELS = {
              "flash_decode_paged_mma", "flash_attention_wgmma"),
     "starcoder2": ("mte_gemm_wgmma", "splitk_gemm_cluster",
                    "grouped_gemm_splitk", "flash_decode_mma"),
-    "int8": ("mte_gemm_wgmma_s8", "flash_decode_paged_mma",
+    "int8": ("mte_gemm_wgmma_s8", "splitk_gemm_cluster_s8",
+             "grouped_gemm_splitk_s8", "flash_decode_paged_mma",
              "flash_attention_wgmma"),
 }
 # Counters that must stay 0 at full width: every bf16 B1 launch (all of
@@ -2310,13 +2589,13 @@ NOT_ON_PATH = {
              "flash_decode_paged", "flash_attention"),
     "starcoder2": ("mte_gemm", "splitk_gemm", "grouped_gemm",
                    "grouped_gemm_simt", "flash_decode"),
-    # int8: no bf16 or f32 engine runs; the decode step's int8 GEMMs (4
-    # rows) run B1's, B2's and B3's tile loops, whose launches are logged
-    # and held to 0 in the prefill chunk (INT8_CHUNK).
-    "int8": ("mte_gemm_wgmma", "mte_gemm_simt", "splitk_gemm_cluster",
-             "splitk_gemm_simt", "grouped_gemm_splitk",
-             "grouped_gemm_wgmma", "grouped_gemm_simt", "flash_decode_paged",
-             "flash_attention"),
+    # int8: no bf16 or f32 engine runs, and no int8 tile loop: the
+    # prefill projections run B1's s8 entry (INT8_CHUNK), the decode step's
+    # 4-row GEMMs B2's and B3's cluster s8 entries (DECODE_STEP_LAUNCHES).
+    "int8": ("mte_gemm", "mte_gemm_wgmma", "mte_gemm_simt", "splitk_gemm",
+             "splitk_gemm_cluster", "splitk_gemm_simt", "grouped_gemm",
+             "grouped_gemm_splitk", "grouped_gemm_wgmma",
+             "grouped_gemm_simt", "flash_decode_paged", "flash_attention"),
 }
 # Launches per profiled prefill chunk of the int8 configuration: every
 # projection of gemma_2b's 18 layers (q, k, v, o, gate, up, down) on the
@@ -2331,7 +2610,8 @@ INT8_CHUNK = {"mte_gemm_wgmma_s8": 18 * 7, "mte_gemm": 0, "splitk_gemm": 0,
 # local layers B6 once each; qwen15_4b's 40 layers run B2 (bf16acc) on o,
 # gate, up and down and B4 once each; starcoder2_7b's 32 local layers run
 # B2 on o, up and down (the plain MLP has no gate), B3 on the q/k/v group
-# and B6 once each.
+# and B6 once each; under int8 gemma_2b's 18 layers run B2's s8 entry on
+# o, gate, up and down and B4 once each.
 DECODE_STEP_LAUNCHES = {
     "default": {"splitk_gemm_cluster": 72, "flash_decode_paged_mma": 18},
     "amx": {"flash_decode_paged_mma": 18},
@@ -2342,11 +2622,11 @@ DECODE_STEP_LAUNCHES = {
     "qwen": {"splitk_gemm_cluster": 160, "flash_decode_paged_mma": 40},
     "starcoder2": {"splitk_gemm_cluster": 96, "grouped_gemm_splitk": 32,
                    "flash_decode_mma": 32},
-    "int8": {"splitk_gemm": 72, "flash_decode_paged_mma": 18},
+    "int8": {"splitk_gemm_cluster_s8": 72, "flash_decode_paged_mma": 18},
 }
-# The kernel of the decode step's grouped q/k/v where it is not B3's
-# split-K engine: int8 groups of 4 rows run B3's tile loop.
-DECODE_QKV_KERNEL = {"int8": "grouped_gemm"}
+# The counter of the decode step's grouped q/k/v where it is not B3's
+# bf16 split-K entry: int8 groups of 4 rows run its s8 entry.
+DECODE_QKV_KERNEL = {"int8": "grouped_gemm_splitk_s8"}
 # Phase 4's workload per arch: 4 slots, 16-token pages, 512-token prefill
 # chunks, 6 requests x 24 greedy tokens.  gemma_2b: 1024-token prompts, two
 # sharing their first chunk (the prefix cache).  recurrentgemma_9b:
@@ -2575,13 +2855,15 @@ def reduced_int8_phase(dev):
     """gemma_2b.reduced() under ``format_policy="int8"`` (fp32 compute),
     card against CPU, with 64-row prefill chunks, so that the s8 engine's
     tiles are offered: the prefill q/k/v run as one group on B3's s8
-    entry and the MLP on B1's, the 2-row decode steps on the int8 tile
-    loops.  Quantize, the int32 sums and the dequantize are exact on both
-    devices: first-token logits within 2e-2 (the f32 arithmetic around
-    the GEMMs differs in summation order, which can move a quantized
-    value by one step) and identical greedy streams from the card's
-    engine in its defaults and the CPU's synchronous eager one.  Returns
-    the card's launch counts (``reduced-int8``)."""
+    entry and the MLP on B1's; in the 2-row decode steps the q/k/v and
+    gate+up groups run B3's split-K s8 entry, the down B2's cluster s8
+    entry and the o (unsplit) B1's int8 tile loop.  Quantize, the int32
+    sums and the dequantize are exact on both devices: first-token logits
+    within 2e-2 (the f32 arithmetic around the GEMMs differs in summation
+    order, which can move a quantized value by one step) and identical
+    greedy streams from the card's engine in its defaults and the CPU's
+    synchronous eager one.  Returns the card's launch counts
+    (``reduced-int8``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2630,7 +2912,8 @@ def reduced_int8_phase(dev):
         log(f"  reduced engine [int8] on {device}: "
             f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
             f"launches {build.launch_counts()}")
-    for mark in ("mte_gemm_wgmma_s8", "grouped_gemm_wgmma_s8"):
+    for mark in ("mte_gemm_wgmma_s8", "grouped_gemm_wgmma_s8",
+                 "splitk_gemm_cluster_s8", "grouped_gemm_splitk_s8"):
         require(counts[mark] > 0, f"[int8] {mark} not launched on the card")
     for rid in outs["cpu"]:
         require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
@@ -4827,6 +5110,9 @@ KERNELS = [
      "reduced-qwen"),
     ("splitk_gemm_cluster", "src/repro_torch/csrc/splitk_gemm_cluster.cu",
      "src/repro/kernels/splitk_gemm.py:60", "gate 4x16384x2048", "default"),
+    ("splitk_gemm_cluster_s8", "src/repro_torch/csrc/splitk_gemm_cluster.cu",
+     "src/repro/kernels/splitk_gemm.py:60", "int8 gate 4x16384x2048",
+     "int8"),
     ("splitk_gemm_simt", "src/repro_torch/csrc/splitk_gemm.cu",
      "src/repro/kernels/splitk_gemm.py:60",
      "train k/v dB fp32 2048x256x4096", "train"),
@@ -4836,6 +5122,9 @@ KERNELS = [
     ("grouped_gemm_splitk", "src/repro_torch/csrc/grouped_gemm_splitk.cu",
      "src/repro/kernels/grouped_gemm.py:60", "qkv decode 3x4x2048x2048",
      "default"),
+    ("grouped_gemm_splitk_s8", "src/repro_torch/csrc/grouped_gemm_splitk.cu",
+     "src/repro/kernels/grouped_gemm.py:60", "int8 qkv decode 3x4x2048x2048",
+     "int8"),
     ("grouped_gemm_wgmma", "src/repro_torch/csrc/grouped_gemm_wgmma.cu",
      "src/repro/kernels/grouped_gemm.py:60",
      "gate+up prefill 2x512x2048x16384", "default"),
@@ -4921,12 +5210,15 @@ STARCODER2_ROWS = {
 }
 
 
-# The int8 rows of the tile loops at gemma_2b's gate (launches from phase
-# 4's int8 run, whose decode steps run them), beside the s8 engine's.
+# The int8 rows of the tile loops (launches from phase 4's int8 run, where
+# none runs any more): B1's and B8's at gemma_2b's prefill gate, beside the
+# s8 wgmma engine's, B2's and B3's at its decode gate and q/k/v group,
+# beside the cluster engines' s8 entries.
 INT8_ROWS = {
     "mte_gemm": "int8 gate 512x16384x2048 (tile loop)",
     "rigid_gemm": "int8 gate 512x16384x2048 (tile loop)",
-    "grouped_gemm": "int8 gate+up 2x512x2048x16384 shared-x (tile loop)",
+    "splitk_gemm": "int8 gate 4x16384x2048 (tile loop)",
+    "grouped_gemm": "int8 qkv decode 3x4x2048x2048 (tile loop)",
 }
 
 
@@ -5011,6 +5303,7 @@ def main() -> int:
     grouped_phase(dev, rows)
     rigid_phase(dev, rows)
     int8_phase(dev, rows)
+    int8_decode_phase(dev, rows)
     decode_phase(dev, rows)
     attention_phase(dev, rows)
     ring_decode_phase(dev, rows)

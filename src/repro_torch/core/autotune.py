@@ -127,12 +127,12 @@ def plan_engine(sig: GemmSignature, geom: BlockGeometry) -> str:
     """The mainloop a plan launches: ``"wgmma"``, ``"simt"``,
     ``"splitk"``, ``"cluster"`` or ``"tile"``.  B3 (grouped plans) follows
     :func:`repro_torch.core.geometry.grouped_engine` at the plan's tile
-    (``"splitk"``, its cluster split-K kernel for the bf16 decode group;
-    ``"wgmma"`` and ``"simt"`` past 16 rows at their tiles) and B2 (split
-    plans)
+    (``"splitk"``, its cluster split-K kernel for the bf16 and int8 decode
+    groups; ``"wgmma"`` and ``"simt"`` past 16 rows at their tiles) and B2
+    (split plans)
     :func:`repro_torch.core.geometry.splitk_engine` (``"cluster"``, the
-    same mainloop at G = 1 for the bf16 decode GEMMs, which keeps the tile
-    loop's price, so no route or grouping decision moves; ``"simt"``, the
+    same mainloop at G = 1 for the bf16 and int8 decode GEMMs, which keeps
+    the tile loop's price, so no route or grouping decision moves; ``"simt"``, the
     SIMT f32 engine over K slices at its tiles).  B1 and B8 stage 1 follow
     :func:`repro_torch.core.geometry.gemm_engine` (ValueError when no
     engine takes the geometry)."""
@@ -169,7 +169,7 @@ def enumerate_candidates(sig: GemmSignature,
     whose two register sets stop at ``bn`` 128 —, K and N multiples of
     8; int8 past 16 rows with K a multiple of 16; same ``bk``), then split-K slices of the base when its (M, N) tile
     grid is below the SM count, or whatever the grid when B2's cluster
-    engine would run them (bf16 decode GEMMs of at most 16 rows,
+    engine would run them (bf16 and int8 decode GEMMs of at most 16 rows,
     :func:`splitk_engine`): that engine takes its own slices, one where
     the grid fills the card, while B1's only engine at such M is the tile
     loop (B2 never gets a wgmma tile).  The rigid

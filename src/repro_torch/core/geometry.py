@@ -8,8 +8,8 @@ this one budgets a block's shared memory and grants the tile shapes the
 hand-written kernels implement.  Three mainloops exist (``csrc/``):
 
 - the **tile loop** (``gemm_tile.cuh``; B1, B2, B3 and B8 on what their
-  other engines leave: int8 at M ≤ 16, on B2 and on B8, unaligned shapes,
-  B1's and B2's M ≤ 16):
+  other engines leave: B1's int8 at M ≤ 16, B2's and B3's int8 off the
+  cluster rule, B8's int8, unaligned shapes, B1's M ≤ 16):
   ``(bm, bn) = (16, 128)`` for skinny M ≤ 16 (decode GEMVs: one 16-row
   MMA fragment, wide in N), ``(64, 64)`` otherwise
   (:data:`TILE_LOOP_TILES`), 32 deep in K, loads not pipelined;
@@ -31,10 +31,10 @@ and N.
 B2–B7 have a second engine each, chosen the same way:
 :func:`splitk_engine` and :func:`grouped_engine` (the cluster split-K
 mainloop of ``splitk_cluster.cuh`` for bf16 GEMMs of at most 16 rows,
-with an f32 or a bf16 accumulator; past 16 rows, at the plan's tile, B3
-on the wgmma mainloop for bf16 and int8 and both on the SIMT f32 one for
-f32;
-else the tile loop),
+with an f32 or a bf16 accumulator, and for int8 ones with their int32
+accumulator where N is a multiple of 16; past 16 rows, at the plan's
+tile, B3 on the wgmma mainloop for bf16 and int8 and both on the SIMT
+f32 one for f32; else the tile loop),
 :func:`decode_engine` and :func:`flat_decode_engine`
 (mma.sync over 16-position tiles of the pages or of the flat or ring
 cache for bf16, else the SIMT kernel), :func:`attention_engine` (TMA +
@@ -75,8 +75,9 @@ __all__ = ["HopperProfile", "BlockGeometry", "H100_SPEC", "hopper_profile",
            "WGMMA_S8_ALIGN_K", "S8_MAX_K", "RIGID_TILE",
            "check_kernel_tile", "gemm_engine", "wgmma_stages",
            "SIMT_TILES", "SIMT_BK", "SIMT_STAGES", "SIMT_ALIGN",
-           "GROUPED_BN", "GROUPED_MAX_M", "GROUPED_BK", "MAX_CLUSTER",
-           "GROUPED_X_BYTES", "GROUPED_FILL_SPLIT", "grouped_max_depth",
+           "GROUPED_BN", "GROUPED_MAX_M", "GROUPED_BK", "GROUPED_BK_S8",
+           "GROUPED_S8_ALIGN_N", "MAX_CLUSTER", "GROUPED_X_BYTES",
+           "GROUPED_FILL_SPLIT", "cluster_stage", "grouped_max_depth",
            "grouped_engine", "grouped_live_tiles", "grouped_split",
            "SPLITK_DEEP_DEPTH", "splitk_engine", "splitk_cluster_split",
            "window_rows",
@@ -205,13 +206,18 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
 
 
 # B3's split-K engine (grouped_gemm_splitk.cu): output tiles GROUPED_BN
-# columns wide, at most GROUPED_MAX_M rows (one m16n8k16 fragment), K
-# sliced in multiples of one GROUPED_BK-deep TMA stage across a thread-block
-# cluster of at most MAX_CLUSTER CTAs (the portable cluster size); a CTA
-# holds its slice of x in at most GROUPED_X_BYTES of shared memory.
+# columns wide, at most GROUPED_MAX_M rows (one m16n8k16 fragment, bf16;
+# m16n8k32, int8), K sliced in multiples of one TMA stage of 128-byte rows
+# -- GROUPED_BK rows of bf16, GROUPED_BK_S8 of int8 -- across a
+# thread-block cluster of at most MAX_CLUSTER CTAs (the portable cluster
+# size); a CTA holds its slice of x, each row padded by 16 bytes, in at
+# most GROUPED_X_BYTES of shared memory.  An int8 weight's rows are 16-byte
+# aligned for TMA where N is a multiple of GROUPED_S8_ALIGN_N.
 GROUPED_BN = 128
 GROUPED_MAX_M = 16
 GROUPED_BK = 64
+GROUPED_BK_S8 = 128
+GROUPED_S8_ALIGN_N = 16
 MAX_CLUSTER = 8
 GROUPED_X_BYTES = 128 * 1024
 # The most slices the split takes to fill the card: on an H100 (the
@@ -222,11 +228,42 @@ GROUPED_X_BYTES = 128 * 1024
 GROUPED_FILL_SPLIT = 4
 
 
-def grouped_max_depth(m: int) -> int:
-    """The deepest K slice whose m rows of x (bf16, rows padded by 8)
-    fit the split-K engine's x budget, a multiple of GROUPED_BK."""
-    return (GROUPED_X_BYTES // (2 * max(m, 1)) - 8) // GROUPED_BK \
-        * GROUPED_BK
+def _int8(dtype_in) -> bool:
+    return dtype_name(dtype_in) == "int8"
+
+
+def cluster_stage(dtype_in="bfloat16") -> int:
+    """K rows of one stage of the cluster split-K engines for an operand
+    type: 128 bytes of K, GROUPED_BK bf16 rows or GROUPED_BK_S8 int8
+    ones."""
+    return GROUPED_BK_S8 if _int8(dtype_in) else GROUPED_BK
+
+
+def grouped_max_depth(m: int, dtype_in="bfloat16") -> int:
+    """The deepest K slice whose m rows of x (rows padded by 16 bytes)
+    fit the split-K engines' x budget, worked out in bytes: a whole
+    number of stages, 128 bytes of K each (GROUPED_BK bf16 rows,
+    GROUPED_BK_S8 int8 ones)."""
+    itemsize = 1 if _int8(dtype_in) else 2
+    return (GROUPED_X_BYTES // max(m, 1) - 16) // 128 * 128 // itemsize
+
+
+def _cluster_takes(dtype_in, m: int, n: int, k: int) -> bool:
+    """The cluster split-K engines' rule (B2's and B3's alike): at most 16
+    rows, and bf16 operands with N a multiple of 8, or int8 operands with
+    N a multiple of 16 (TMA's 16-byte rows of the weight) and K within the
+    int32 accumulator's range (S8_MAX_K); K such that 8 slices of x fit
+    the x budget."""
+    if m > GROUPED_MAX_M:
+        return False
+    dt = dtype_name(dtype_in)
+    if dt == "bfloat16":
+        aligned = n % WGMMA_ALIGN == 0
+    elif dt == "int8":
+        aligned = n % GROUPED_S8_ALIGN_N == 0 and k <= S8_MAX_K
+    else:
+        return False
+    return aligned and k <= MAX_CLUSTER * grouped_max_depth(m, dt)
 
 
 def grouped_engine(dtype_in, m: int, n: int, k: int, *,
@@ -247,7 +284,11 @@ def grouped_engine(dtype_in, m: int, n: int, k: int, *,
       per K block of the slice and the slices' bf16 partials are summed
       in f32 and rounded once: B2's split-K contract, where the
       reference's grouped kernel rounds in K order over all of K (the
-      two agree to bf16 tolerance);
+      two agree to bf16 tolerance).  Also for int8 operands (int32
+      accumulator) at most 16 rows with N a multiple of 16 (an int8
+      weight's 16-byte rows) and a K that 8 slices of x cover (m = 16:
+      K ≤ 64512) within S8_MAX_K: its s8 path, the int32 sums exact
+      (:func:`_cluster_takes`);
     - ``"wgmma"`` (B1's TMA + wgmma mainloop with the group on the grid,
       ``grouped_gemm_wgmma.cu``) for bf16 operands with an f32 or a
       bf16acc accumulator past 16 rows, K and N multiples of 8 and a
@@ -260,13 +301,12 @@ def grouped_engine(dtype_in, m: int, n: int, k: int, *,
     - ``"wgmma"`` also for int8 operands (int32 accumulator) past 16 rows
       at a wgmma tile, K a multiple of 16 and N of 8 (:func:`_s8`; the s8
       mainloop reads w K-major);
-    - ``"tile"`` (the tile loop) otherwise: int8 at C ≤ 16 or off the s8
+    - ``"tile"`` (the tile loop) otherwise: int8 at C ≤ 16 off the
+      cluster rule (N not a multiple of 16) or past 16 rows off the s8
       rule, fp32 at C ≤ 16, unaligned shapes and tiles of the tile loop
       only."""
     dt = dtype_name(dtype_in)
-    if (dt == "bfloat16"
-            and m <= GROUPED_MAX_M and n % WGMMA_ALIGN == 0
-            and k <= MAX_CLUSTER * grouped_max_depth(m)):
+    if _cluster_takes(dt, m, n, k):
         return "splitk"
     if tile is None or m <= GROUPED_MAX_M:
         return "tile"
@@ -291,26 +331,31 @@ def grouped_live_tiles(n: int, widths: Optional[Sequence[int]],
 
 
 def _cluster_split(tiles: int, k: int, m: int, sm_count: int,
-                   fill: int) -> Tuple[int, int]:
-    stages = cdiv(max(k, 1), GROUPED_BK)
-    deepest = grouped_max_depth(m)
+                   fill: int, dtype_in) -> Tuple[int, int]:
+    stage = cluster_stage(dtype_in)
+    stages = cdiv(max(k, 1), stage)
+    deepest = grouped_max_depth(m, dtype_in)
     s = 1
     while s * 2 <= MAX_CLUSTER and s * 2 <= stages and (
             (tiles * s < sm_count and s < fill) or s * deepest < k):
         s *= 2
-    depth = round_up(cdiv(max(k, 1), s), GROUPED_BK)
+    depth = round_up(cdiv(max(k, 1), s), stage)
     return cdiv(max(k, 1), depth), depth
 
 
 def grouped_split(live_tiles: int, k: int, m: int = 1,
-                  sm_count: int = 132) -> Tuple[int, int]:
+                  sm_count: int = 132,
+                  dtype_in="bfloat16") -> Tuple[int, int]:
     """(slices, slice depth) of the split-K engine: the fewest slices,
     doubling, that give live tiles x slices >= the SM count (up to
     GROUPED_FILL_SPLIT) and slices no deeper than
     :func:`grouped_max_depth` (up to MAX_CLUSTER), each at least one
-    GROUPED_BK stage deep; the depth is a multiple of GROUPED_BK and
-    every slice holds at least one K row."""
-    return _cluster_split(live_tiles, k, m, sm_count, GROUPED_FILL_SPLIT)
+    stage deep; the depth is a whole number of stages
+    (:func:`cluster_stage`: 64 bf16 rows, 128 int8 ones) and every slice
+    holds at least one K row.  The same rule in rows for both operand
+    types, so an int8 slice moves half a bf16 slice's bytes."""
+    return _cluster_split(live_tiles, k, m, sm_count, GROUPED_FILL_SPLIT,
+                          dtype_in)
 
 
 # B2's cluster engine (splitk_gemm_cluster.cu) runs B3's mainloop at G = 1:
@@ -342,16 +387,18 @@ def splitk_engine(dtype_in, m: int, n: int, k: int, *,
       split-K contract (``splitk_gemm.py:76-105`` there): a bf16 running
       sum per slice, rounded once per K block of the slice, the slices'
       bf16 partials summed and rounded once, every epilogue step rounded
-      to bf16;
+      to bf16.  Also for int8 operands (int32 accumulator, the identity
+      epilogue) at most 16 rows with N a multiple of 16 and K within 8
+      slices of x and S8_MAX_K (:func:`_cluster_takes`): the mainloop's s8
+      path, int32 partials summed exactly;
     - ``"simt"`` (the SIMT f32 engine over each K slice, partials summed
       in PyTorch) for f32 operands, M > 16, a ``tile`` of
       :data:`SIMT_TILES` and K and N multiples of 4 (the training
       backward's dB of a narrow weight);
     - ``"tile"`` (the tile loop, partials summed in PyTorch) otherwise:
-      fp32 off the SIMT engine's rule, int8 and bf16 past 16 rows."""
-    if (dtype_name(dtype_in) == "bfloat16"
-            and m <= GROUPED_MAX_M and n % WGMMA_ALIGN == 0
-            and k <= MAX_CLUSTER * grouped_max_depth(m)):
+      fp32 off the SIMT engine's rule, int8 off the cluster rule (past 16
+      rows, N not a multiple of 16) and bf16 past 16 rows."""
+    if _cluster_takes(dtype_in, m, n, k):
         return "cluster"
     if tile is not None and _simt(dtype_in, tile, m, n, k):
         return "simt"
@@ -359,24 +406,29 @@ def splitk_engine(dtype_in, m: int, n: int, k: int, *,
 
 
 def splitk_cluster_split(tiles: int, k: int, m: int = 1,
-                         sm_count: int = 132) -> Tuple[int, int]:
+                         sm_count: int = 132,
+                         dtype_in="bfloat16") -> Tuple[int, int]:
     """(slices, slice depth) of B2's cluster engine for ``tiles``
     128-column output tiles: :func:`grouped_split`'s rule -- the fewest
-    slices (up to GROUPED_FILL_SPLIT) that fill the SMs, each a
-    multiple of a 64-deep stage, none deeper than x's shared-memory budget
-    allows --, then doubling on, up to 8 (the portable cluster), while the
-    grid stays within one CTA per SM and every slice stays at least
-    SPLITK_DEEP_DEPTH rows deep.  The plan's ``split_k`` (the tile
-    loop's) plays no part."""
-    s, depth = _cluster_split(tiles, k, m, sm_count, GROUPED_FILL_SPLIT)
+    slices (up to GROUPED_FILL_SPLIT) that fill the SMs, each a whole
+    number of stages (:func:`cluster_stage`), none deeper than x's
+    shared-memory budget allows --, then doubling on, up to 8 (the
+    portable cluster), while the grid stays within one CTA per SM and
+    every slice stays at least SPLITK_DEEP_DEPTH rows deep (rows, for
+    bf16 and int8 alike).  The plan's ``split_k`` (the tile loop's) plays
+    no part."""
+    stage = cluster_stage(dtype_in)
+    s, depth = _cluster_split(tiles, k, m, sm_count, GROUPED_FILL_SPLIT,
+                              dtype_in)
     while (s * 2 <= MAX_CLUSTER and tiles * s * 2 <= sm_count
-           and round_up(cdiv(k, s * 2), GROUPED_BK) >= SPLITK_DEEP_DEPTH):
+           and round_up(cdiv(k, s * 2), stage) >= SPLITK_DEEP_DEPTH):
         s *= 2
-        depth = round_up(cdiv(k, s), GROUPED_BK)
+        depth = round_up(cdiv(k, s), stage)
     return cdiv(k, depth), depth
 
 
-def window_rows(engine: str, plan_rows: int, depth: int = 0) -> int:
+def window_rows(engine: str, plan_rows: int, depth: int = 0,
+                dtype_in="bfloat16") -> int:
     """The most rows one launch takes of a GEMM planned at ``plan_rows``
     rows and called on more (a speculative verify window: slots·k rows on
     the decode step's plan, ``ops.mte_gemm(plan_rows=)``), such that each
@@ -389,7 +441,7 @@ def window_rows(engine: str, plan_rows: int, depth: int = 0) -> int:
     - On the split-K engines (``engine`` ``"cluster"`` for B2,
       ``"splitk"`` for B3, ``depth`` the K slice of the split planned for
       ``plan_rows``): the most rows up to GROUPED_MAX_M whose x slice of
-      ``depth`` fits the engine's shared memory
+      ``depth`` ``dtype_in`` elements fits the engine's shared memory
       (:func:`grouped_max_depth`); a row computes alike whatever rows ride
       with it on the same split -- under bf16acc too: each row's running
       sum is rounded at the same K rows whatever rides with it --, and
@@ -402,7 +454,8 @@ def window_rows(engine: str, plan_rows: int, depth: int = 0) -> int:
         return plan_rows
     rows = GROUPED_MAX_M
     if engine in ("cluster", "splitk"):
-        while rows > plan_rows and grouped_max_depth(rows) < depth:
+        while rows > plan_rows and grouped_max_depth(rows,
+                                                     dtype_in) < depth:
             rows -= 1
     return rows
 

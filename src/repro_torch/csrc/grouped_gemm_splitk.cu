@@ -1,9 +1,10 @@
 // B3's split-K engine: the decode group's grouped GEMM for Hopper (sm_90a).
 //
-// Replaces, for bf16 operands with an f32 or a bf16 (bf16acc) accumulator
-// and at most 16 rows: src/repro/kernels/grouped_gemm.py,
-// grouped_gemm_pallas / _kernel (x (G, C, K) @ w (G, K, N) -> (G, C, N),
-// the epilogue -- no C, no bias -- on each member's accumulator).
+// Replaces, for bf16 operands with an f32 or a bf16 (bf16acc) accumulator,
+// and for int8 operands with their int32 accumulator (identity epilogue),
+// at most 16 rows: src/repro/kernels/grouped_gemm.py, grouped_gemm_pallas
+// / _kernel (x (G, C, K) @ w (G, K, N) -> (G, C, N), the epilogue -- no C,
+// no bias -- on each member's accumulator).
 // Everything else stays on the tile loop (grouped_gemm.cu);
 // core/geometry.py:grouped_engine chooses.  Under bf16acc the reference
 // rounds its running sum once per K block in K order over the whole of K;
@@ -33,6 +34,10 @@
 //   the next member and rows past K come back as zeros; x through its
 //   group stride (0 for the broadcast x).
 // - The epilogue (alpha, softcap, activation) on each reduced sum.
+// - int8 (grouped_gemm_splitk_s8_launch): the mainloop's S8 path (128-row
+//   int8 stages of w (G, K, N) as it lies, no K-major copy), the slices'
+//   int32 partials summed exactly, the int32 accumulator written; the
+//   caller dequantizes, as JAX's int8 route does outside its kernel.
 // - Widths: columns at or past a member's width come back as zeros: the
 //   straddling tile writes them in the reduction, and the tiles wholly in
 //   the padding are zeroed by the clusters in turn (cluster y takes the
@@ -56,12 +61,15 @@ __device__ __forceinline__ int live_width(const Widths& wd, int g, int N) {
   return g < wd.count ? min(wd.w[g], N) : N;
 }
 
-template <bool BF16ACC>
+// X: bf16, or int8 under S8 (group stride sx and row stride ldx in
+// elements); S8 writes the int32 sums to epi.out.
+template <bool BF16ACC, bool S8>
 __global__ void __launch_bounds__(skc::THREADS, 1)
     grouped_splitk_kernel(const __grid_constant__ CUtensorMap tmw,
-                          const unsigned short* X, long sx, long ldx, int G,
-                          int M, int N, int K, int depth, int rbk, Epi epi,
+                          const void* X, long sx, long ldx, int G, int M,
+                          int N, int K, int depth, int rbk, Epi epi,
                           Widths wd) {
+  constexpr int KD = S8 ? skc::BK_S8 : skc::BK;
   extern __shared__ __align__(1024) unsigned char smem[];
   const skc::Smem sm = skc::carve(smem);
   const int S = gridDim.x, rank = blockIdx.x, T = gridDim.y;
@@ -83,7 +91,7 @@ __global__ void __launch_bounds__(skc::THREADS, 1)
     }
   }
   const int k0 = rank * depth;
-  const int nst = g < 0 ? 0 : (min(depth, K - k0) + skc::BK - 1) / skc::BK;
+  const int nst = g < 0 ? 0 : (min(depth, K - k0) + KD - 1) / KD;
 
   // The tiles wholly past a member's width: zeros, written while the first
   // stages are in flight, shared out over the clusters (the p-th padding
@@ -112,16 +120,31 @@ __global__ void __launch_bounds__(skc::THREADS, 1)
   const auto load = [&](void* dst, uint64_t* bar, int col, int krow) {
     wg::tma_load_3d(dst, &tmw, bar, col, krow, g);
   };
-  skc::mainloop<BF16ACC>(sm, &tmw, X + static_cast<long>(max(g, 0)) * sx,
-                         ldx, M, K, k0, depth, nst, n0, n_live, rbk, load,
-                         zero_padding);
   const long o_base = static_cast<long>(max(g, 0)) * M * N;
-  skc::reduce<BF16ACC>(sm, M, N - n0, g >= 0, [&](int r, int c, float v) {
-    const int gc = n0 + c;
-    store_from_f32(epi.out, o_base + static_cast<long>(r) * N + gc,
-                   epi.out_type,
-                   gc < n_live ? apply_epi<BF16ACC>(v, r, gc, epi) : 0.0f);
-  });
+  if constexpr (S8) {
+    skc::mainloop<false, true>(
+        sm, &tmw, static_cast<const signed char*>(X) + max(g, 0) * sx, ldx,
+        M, K, k0, depth, nst, n0, n_live, 0, load, zero_padding);
+    skc::reduce<false, true>(sm, M, N - n0, g >= 0, [&](int r, int c,
+                                                        int v) {
+      const int gc = n0 + c;
+      static_cast<int*>(epi.out)[o_base + static_cast<long>(r) * N + gc] =
+          gc < n_live ? v : 0;
+    });
+  } else {
+    skc::mainloop<BF16ACC, false>(
+        sm, &tmw,
+        static_cast<const unsigned short*>(X) +
+            static_cast<long>(max(g, 0)) * sx,
+        ldx, M, K, k0, depth, nst, n0, n_live, rbk, load, zero_padding);
+    skc::reduce<BF16ACC, false>(sm, M, N - n0, g >= 0, [&](int r, int c,
+                                                           float v) {
+      const int gc = n0 + c;
+      store_from_f32(epi.out, o_base + static_cast<long>(r) * N + gc,
+                     epi.out_type,
+                     gc < n_live ? apply_epi<BF16ACC>(v, r, gc, epi) : 0.0f);
+    });
+  }
 }
 
 }  // namespace
@@ -152,13 +175,42 @@ extern "C" int grouped_gemm_splitk_launch(
   const int smem = skc::smem_bytes(M, depth);
   if (smem > wg::SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_split, n_tiles);
-  const auto* x16 = static_cast<const unsigned short*>(x);
   const auto st = static_cast<cudaStream_t>(stream);
   if (bf16acc)
-    return wg::launch_cluster<grouped_splitk_kernel<true>>(
-        grid, skc::THREADS, n_split, smem, st, tmw, x16, sx, ldx, G, M, N, K,
+    return wg::launch_cluster<grouped_splitk_kernel<true, false>>(
+        grid, skc::THREADS, n_split, smem, st, tmw, x, sx, ldx, G, M, N, K,
         depth, rbk, epi, wd);
-  return wg::launch_cluster<grouped_splitk_kernel<false>>(
-      grid, skc::THREADS, n_split, smem, st, tmw, x16, sx, ldx, G, M, N, K,
+  return wg::launch_cluster<grouped_splitk_kernel<false, false>>(
+      grid, skc::THREADS, n_split, smem, st, tmw, x, sx, ldx, G, M, N, K,
       depth, rbk, epi, wd);
+}
+
+// int8: x (G, C, K) int8 through its group and row strides, w (G, K, N)
+// int8 packed, N % 16 == 0 (TMA's 16-byte rows); out (G, C, N) int32, the
+// exact x @ w with the columns past each member's width zero.  depth is a
+// multiple of 128; K past wg::S8_MAX_K is refused (an int32 sum could
+// overflow).
+extern "C" int grouped_gemm_splitk_s8_launch(
+    const void* x, const void* w, void* out, int G, int M, int N, int K,
+    long sx, long ldx, int n_split, int depth, int n_tiles, int n_widths,
+    const int* widths, void* stream) {
+  if (G <= 0 || M <= 0 || M > skc::MAX_M || N <= 0 || N % 16 != 0 ||
+      K <= 0 || K > wg::S8_MAX_K || n_split < 1 ||
+      n_split > skc::MAX_SPLIT || depth <= 0 || depth % skc::BK_S8 != 0 ||
+      static_cast<long>(n_split - 1) * depth >= K ||
+      static_cast<long>(n_split) * depth < K || n_tiles < 1 ||
+      n_widths < 0 || n_widths > MAX_WIDTHS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tmw;
+  const int e = wg::make_map_3d(&tmw, w, N, K, G, BN, skc::BK_S8, 0, 0, 1);
+  if (e != 0) return e;
+  Epi epi{1.0f, 0.0f, nullptr, 0, nullptr, 0.0f, 0, 0, out, N, DT_I32};
+  Widths wd{n_widths, {}};
+  for (int i = 0; i < n_widths; ++i) wd.w[i] = widths[i];
+  const int smem = skc::smem_bytes(M, depth, 1);
+  if (smem > wg::SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  return wg::launch_cluster<grouped_splitk_kernel<false, true>>(
+      dim3(n_split, n_tiles), skc::THREADS, n_split, smem,
+      static_cast<cudaStream_t>(stream), tmw, x, sx, ldx, G, M, N, K, depth,
+      0, epi, wd);
 }

@@ -1,14 +1,15 @@
 // B2's cluster engine: the split-K decode GEMM for Hopper (sm_90a), in one
 // launch.
 //
-// Replaces, for bf16 operands with an f32 or a bf16 (bf16acc) accumulator
-// and at most 16 rows: src/repro/kernels/splitk_gemm.py,
-// mte_gemm_splitk_pallas / _kernel (K cut into n_split slices on the TPU
-// grid, each slice's partial in the accumulator dtype written to an
-// (n_split, M, N) buffer, then the sum over slices and the epilogue
-// outside the kernel, so beta * C and the bias join once).  fp32, int8 and
-// M > 16 stay on the tile loop (splitk_gemm.cu);
-// core/geometry.py:splitk_engine chooses.
+// Replaces, for bf16 operands with an f32 or a bf16 (bf16acc) accumulator,
+// and for int8 operands with their int32 accumulator, at most 16 rows:
+// src/repro/kernels/splitk_gemm.py, mte_gemm_splitk_pallas / _kernel (K
+// cut into n_split slices on the TPU grid, each slice's partial in the
+// accumulator dtype written to an (n_split, M, N) buffer, then the sum
+// over slices and the epilogue outside the kernel, so beta * C and the
+// bias join once; under int8 int32 partials, summed, the identity
+// epilogue).  fp32 and M > 16 stay on the tile loop or the SIMT engine
+// (splitk_gemm.cu); core/geometry.py:splitk_engine chooses.
 //
 // What bounds it on the H100: bytes.  The decode projections (M = the 4
 // serving slots; gemma_2b's o 2048 x 2048, gate and up 2048 x 16384, down
@@ -36,6 +37,12 @@
 //   (splitk_cluster.cuh), and every epilogue step is rounded to bf16,
 //   C and the bias read as bf16 values (epilogue.cuh's R = true), as
 //   Epilogue.apply computes on a bf16 accumulator.
+// - int8 (splitk_gemm_cluster_s8_launch): the mainloop's S8 path (int8
+//   stages of 128 K rows, the (K, N) weight read as it lies, no K-major
+//   copy), the slices' int32 partials summed exactly and written as the
+//   int32 accumulator; the caller dequantizes and applies the epilogue, as
+//   JAX's int8 route does outside its kernel.  Half the bf16 bytes, so the
+//   weight's stream takes half the time at the same bytes per second.
 #include "epilogue.cuh"
 #include "splitk_cluster.cuh"
 
@@ -89,12 +96,33 @@ __global__ void __launch_bounds__(skc::THREADS, 1)
   const auto load = [&](void* dst, uint64_t* bar, int col, int krow) {
     wg::tma_load(dst, &tmw, bar, col, krow);
   };
-  skc::mainloop<BF16ACC>(sm, &tmw, A, lda, M, K, k0, depth, nst, n0, N,
-                         rbk, load, [] {});
-  skc::reduce<BF16ACC>(sm, M, N - n0, true, [&](int r, int c, float v) {
+  skc::mainloop<BF16ACC, false>(sm, &tmw, A, lda, M, K, k0, depth, nst, n0,
+                                N, rbk, load, [] {});
+  skc::reduce<BF16ACC, false>(sm, M, N - n0, true, [&](int r, int c,
+                                                        float v) {
     const long gc = n0 + c;
     store_from_f32(epi.out, r * epi.ldo + gc, epi.out_type,
                    splitk_epi<BF16ACC>(v, r, gc, epi));
+  });
+}
+
+// The int8 kernel: a (M, K) int8, the weight's int8 map, out (M, N) int32.
+__global__ void __launch_bounds__(skc::THREADS, 1)
+    splitk_cluster_s8_kernel(const __grid_constant__ CUtensorMap tmw,
+                             const signed char* A, long lda, int M, int N,
+                             int K, int depth, int* out) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const skc::Smem sm = skc::carve(smem);
+  const int n0 = blockIdx.y * skc::BN;
+  const int k0 = blockIdx.x * depth;
+  const int nst = (min(depth, K - k0) + skc::BK_S8 - 1) / skc::BK_S8;
+  const auto load = [&](void* dst, uint64_t* bar, int col, int krow) {
+    wg::tma_load(dst, &tmw, bar, col, krow);
+  };
+  skc::mainloop<false, true>(sm, &tmw, A, lda, M, K, k0, depth, nst, n0, N,
+                             0, load, [] {});
+  skc::reduce<false, true>(sm, M, N - n0, true, [&](int r, int c, int v) {
+    out[static_cast<long>(r) * N + n0 + c] = v;
   });
 }
 
@@ -140,4 +168,31 @@ extern "C" int splitk_gemm_cluster_launch(
   return wg::launch_cluster<splitk_cluster_kernel<false>>(
       grid, skc::THREADS, n_split, smem, st, tmw, a16, lda, M, N, K, depth,
       rbk, epi);
+}
+
+// a (M, K) int8, row stride lda; w (K, N) int8 row-major, N % 16 == 0 and
+// a 16-byte aligned base (TMA's 16-byte rows); out (M, N) int32, the exact
+// a @ w.  K is cut into n_split slices of `depth` rows (a multiple of 128;
+// the last may be short); K past wg::S8_MAX_K is refused (an int32 sum
+// could overflow).
+extern "C" int splitk_gemm_cluster_s8_launch(const void* a, const void* w,
+                                             void* out, int M, int N, int K,
+                                             long lda, int n_split,
+                                             int depth, void* stream) {
+  if (M <= 0 || M > skc::MAX_M || N <= 0 || N % 16 != 0 || K <= 0 ||
+      K > wg::S8_MAX_K || n_split < 1 || n_split > skc::MAX_SPLIT ||
+      depth <= 0 || depth % skc::BK_S8 != 0 ||
+      static_cast<long>(n_split - 1) * depth >= K ||
+      static_cast<long>(n_split) * depth < K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tmw;
+  const int e = wg::make_map(&tmw, w, N, K, N, skc::BN, skc::BK_S8, 1);
+  if (e != 0) return e;
+  const int smem = skc::smem_bytes(M, depth, 1);
+  if (smem > wg::SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(n_split, (N + skc::BN - 1) / skc::BN);
+  return wg::launch_cluster<splitk_cluster_s8_kernel>(
+      grid, skc::THREADS, n_split, smem, static_cast<cudaStream_t>(stream),
+      tmw, static_cast<const signed char*>(a), lda, M, N, K, depth,
+      static_cast<int*>(out));
 }

@@ -61,7 +61,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ``mte_gemm_wgmma_s8`` / ``grouped_gemm_wgmma_s8`` its int8 entries,
 # ``mte_gemm_simt`` / ``splitk_gemm_simt`` / ``grouped_gemm_simt`` /
 # ``rigid_gemm_simt`` the SIMT f32 mainloop, ``splitk_gemm_cluster`` and
-# ``grouped_gemm_splitk`` B2's and B3's cluster split-K kernels,
+# ``grouped_gemm_splitk`` B2's and B3's cluster split-K kernels
+# (``splitk_gemm_cluster_s8`` / ``grouped_gemm_splitk_s8`` their int8
+# entries),
 # ``flash_decode_paged`` / ``flash_decode_paged_mma`` B4's SIMT and mma
 # kernels, ``flash_attention`` / ``flash_attention_wgmma`` B5's SIMT and
 # wgmma kernels, ``flash_decode`` / ``flash_decode_mma`` B6's SIMT and mma
@@ -69,8 +71,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # engines), and ``rigid_gemm.cu`` holds the separate epilogue pass too.
 KERNEL_NAMES = ("mte_gemm", "mte_gemm_wgmma", "mte_gemm_wgmma_s8",
                 "mte_gemm_simt",
-                "splitk_gemm", "splitk_gemm_cluster", "splitk_gemm_simt",
-                "grouped_gemm", "grouped_gemm_splitk", "grouped_gemm_wgmma",
+                "splitk_gemm", "splitk_gemm_cluster",
+                "splitk_gemm_cluster_s8", "splitk_gemm_simt",
+                "grouped_gemm", "grouped_gemm_splitk",
+                "grouped_gemm_splitk_s8", "grouped_gemm_wgmma",
                 "grouped_gemm_wgmma_s8", "grouped_gemm_simt",
                 "flash_decode_paged", "flash_decode_paged_mma",
                 "flash_attention", "flash_attention_wgmma", "rigid_gemm",

@@ -25,7 +25,10 @@ loop):
   ``grouped_gemm_splitk``; plain version :func:`grouped_splitk_torch`)
   for bf16 operands with an f32 or a bf16 (``bf16acc``) accumulator,
   C ≤ 16, N a multiple of 8 and K within 8 slices of x in shared memory
-  — the decode group;
+  — the decode group; int8 operands (int32 accumulator) at C ≤ 16 with N
+  a multiple of 16 take its s8 entry (counter ``grouped_gemm_splitk_s8``:
+  128-row int8 stages of w (G, K, N) as it lies, the int32 sums exact,
+  widths honoured as for bf16);
 - B1's TMA + wgmma mainloop with the group on the grid
   (``csrc/grouped_gemm_wgmma.cu``, counter ``grouped_gemm_wgmma``; plain
   version :func:`grouped_gemm_torch`) for bf16 operands past 16 rows at
@@ -41,7 +44,8 @@ loop):
   multiples of 4: ``GroupedGemm``'s backward;
 - the tile loop (``csrc/grouped_gemm.cu``, counter ``grouped_gemm``, at
   ``geom``'s tile; plain version :func:`grouped_gemm_torch`) for the
-  rest: int8 and fp32 at C ≤ 16, unaligned shapes.
+  rest: fp32 at C ≤ 16, int8 off the split-K and s8 rules, unaligned
+  shapes.
 
 Under ``bf16acc`` the split-K engine keeps B2's cluster contract
 (:mod:`repro_torch.kernels.splitk_gemm`): a bf16 running sum per K slice,
@@ -64,7 +68,8 @@ import torch
 
 from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
 from repro_torch.core.geometry import (GROUPED_BK, H100_SPEC, MAX_CLUSTER,
-                                       BlockGeometry, cdiv, grouped_engine,
+                                       BlockGeometry, cdiv, cluster_stage,
+                                       grouped_engine,
                                        grouped_live_tiles, grouped_max_depth,
                                        grouped_split, round_up)
 from repro_torch.kernels import build
@@ -99,6 +104,11 @@ _SPLITK_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                        ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+# grouped_gemm_splitk_s8_launch: x, w, out; G, M, N, K; the group and row
+# strides of x; slices, depth, live tiles; the widths; the stream.
+_SPLITK_S8_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_long] * 2 + [ctypes.c_int] * 4
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 
 
 def _check(x, w, epilogue, widths):
@@ -167,8 +177,9 @@ def split_layout(x, w, *, widths=None, n_split: Optional[int] = None,
                  split_rows: Optional[int] = None, sm_count: int = 0):
     """(slices, slice depth) of the split-K engine for x (G, C, K) and
     w (G, K, N): :func:`repro_torch.core.geometry.grouped_split` over the
-    members' live tiles for ``split_rows`` rows (default C) and
-    ``sm_count`` SMs (0: an H100's), or the pinned ``n_split``;
+    members' live tiles for ``split_rows`` rows (default C), ``sm_count``
+    SMs (0: an H100's) and x's operand type, or the pinned ``n_split``
+    (slices a whole number of :func:`cluster_stage` rows deep);
     ValueError when the engine cannot take the split for C rows."""
     g, m, k = x.shape
     n = w.shape[2]
@@ -176,11 +187,11 @@ def split_layout(x, w, *, widths=None, n_split: Optional[int] = None,
         tiles = sum(grouped_live_tiles(n, widths, g))
         n_split, depth = grouped_split(
             tiles, k, m if split_rows is None else split_rows,
-            sm_count or H100_SPEC.sm_count)
+            sm_count or H100_SPEC.sm_count, x.dtype)
     else:
-        depth = round_up(cdiv(k, n_split), GROUPED_BK)
+        depth = round_up(cdiv(k, n_split), cluster_stage(x.dtype))
     if not 1 <= n_split <= MAX_CLUSTER or cdiv(k, depth) != n_split \
-            or depth > grouped_max_depth(m):
+            or depth > grouped_max_depth(m, x.dtype):
         raise ValueError(f"grouped_gemm: {n_split} slices of K={k} "
                          f"for {m} rows is not a split the split-K "
                          f"engine takes")
@@ -258,14 +269,28 @@ def grouped_gemm_kernel(x, w, *, geom: BlockGeometry,
         alpha, softcap = bf16_scalar(alpha), bf16_scalar(softcap)
     rbk = bf16acc_block(geom.bk, k)
     if engine == "splitk":
-        if out_dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"grouped_gemm: the split-K engine writes f32 "
-                            f"or bf16, not {out_dtype}")
+        s8 = x.dtype == torch.int8
+        if out_dtype not in ((torch.int32,) if s8 else (torch.float32,
+                                                        torch.bfloat16)):
+            raise TypeError(f"grouped_gemm: the split-K engine writes "
+                            f"{'int32' if s8 else 'f32 or bf16'} for "
+                            f"{x.dtype} operands, not {out_dtype}")
         tiles = sum(grouped_live_tiles(n, widths, g))
         n_split, depth = split_layout(
             x, w, widths=widths, n_split=n_split, split_rows=split_rows,
             sm_count=torch.cuda.get_device_properties(
                 dev).multi_processor_count)
+        if s8:
+            w = tma_ready(w)
+            lib, fn = build.entry("grouped_gemm_splitk",
+                                  "grouped_gemm_splitk_s8_launch",
+                                  _SPLITK_S8_ARGTYPES)
+            build.count_launch("grouped_gemm_splitk_s8")
+            err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), g, m, n, k,
+                     x.stride(0), x.stride(1), n_split, depth,
+                     max(tiles, 1), n_widths, wd, build.stream_ptr(dev))
+            build.check(lib, err, "grouped_gemm_splitk[s8]")
+            return out
         lib, fn = build.entry("grouped_gemm_splitk",
                               "grouped_gemm_splitk_launch",
                               _SPLITK_ARGTYPES)

@@ -90,16 +90,16 @@ def _chunk_rows(plan, x, rows: int, n: int, k: int, widths=None) -> int:
                                 tile=(plan.geometry.bm, plan.geometry.bn))
         if engine == "splitk":
             tiles = sum(grouped_live_tiles(n, widths, sig.group))
-            depth = grouped_split(tiles, k, sig.m, sms)[1]
+            depth = grouped_split(tiles, k, sig.m, sms, x.dtype)[1]
     elif plan.route == "splitk":
         engine = splitk_engine(x.dtype, sig.m, n, k, bf16acc=bf16acc,
                                tile=(plan.geometry.bm, plan.geometry.bn))
         if engine == "cluster":
             depth = splitk_cluster_split(cdiv(n, GROUPED_BN), k, sig.m,
-                                         sms)[1]
+                                         sms, x.dtype)[1]
     else:
         engine = plan.route
-    return window_rows(engine, sig.m, depth)
+    return window_rows(engine, sig.m, depth, x.dtype)
 
 
 def _by_rows(run, m: int, rows: int, axis: int):

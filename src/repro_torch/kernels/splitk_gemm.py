@@ -16,7 +16,11 @@ once.  B is row-major (K, N) only.  Three engines, chosen by
   and the reduction applies the whole epilogue and writes ``out_dtype``.
   Its slices come from
   :func:`repro_torch.core.geometry.splitk_cluster_split` (``cluster_split``
-  pins them), not from the plan's ``n_split``.  Plain version:
+  pins them), not from the plan's ``n_split``.  int8 operands (the int32
+  accumulator, the identity epilogue) with M ≤ 16 and N a multiple of 16
+  take its s8 entry (counter ``splitk_gemm_cluster_s8``: 128-row int8
+  stages of the (K, N) weight as it lies, the slices' int32 partials
+  summed exactly, int32 out).  Plain version:
   :func:`splitk_cluster_torch`;
 - the SIMT f32 engine (``csrc/splitk_gemm.cu`` on
   ``simt_f32_mainloop.cuh``, counter ``splitk_gemm_simt``) for f32
@@ -24,7 +28,8 @@ once.  B is row-major (K, N) only.  Three engines, chosen by
   :data:`~repro_torch.core.geometry.SIMT_TILES` and K and N multiples of
   4 (the training backward's dB of a narrow weight), and
 - the tile loop (``csrc/splitk_gemm.cu``, counter ``splitk_gemm``) for
-  the rest (fp32 off that rule, int8, bf16 past 16 rows): both run
+  the rest (fp32 off that rule, int8 off the cluster rule, bf16 past
+  16 rows): both run
   ``n_split`` slices of ``k_per_split`` (a multiple of the plan's
   ``bk``), each slice's partial in the accumulator dtype into an
   (n_split, M, N) buffer; the sum over slices and the epilogue run in
@@ -43,7 +48,8 @@ bits: on CPU tensors a bf16acc GEMM the cluster engine takes runs
 :func:`splitk_cluster_torch` at the slices the engine would take on an
 H100 (132 SMs).  With an f32 accumulator the two engines' results differ
 only in the f32 summation order, and CPU tensors run
-:func:`mte_gemm_splitk_torch`.
+:func:`mte_gemm_splitk_torch`; with an int32 one every engine and split
+gives the exact product.
 
 Neither uses atomics: every call gives the same bits.
 """
@@ -57,7 +63,7 @@ import torch
 from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
 from repro_torch.core.geometry import (GROUPED_BK, GROUPED_BN, H100_SPEC,
                                        MAX_CLUSTER, TILE_LOOP_TILES,
-                                       BlockGeometry, cdiv,
+                                       BlockGeometry, cdiv, cluster_stage,
                                        grouped_max_depth, round_up,
                                        splitk_cluster_split, splitk_engine)
 from repro_torch.kernels import build
@@ -80,6 +86,11 @@ _CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                      + [ctypes.c_long] * 2 + [ctypes.c_int] * 8
                      + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_float,
                                                ctypes.c_int, ctypes.c_void_p])
+# splitk_gemm_cluster_s8_launch: a, w, out; M, N, K; lda; slices, depth;
+# the stream.
+_CLUSTER_S8_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                        + [ctypes.c_long] + [ctypes.c_int] * 2
+                        + [ctypes.c_void_p])
 
 
 def splitk_layout(k: int, geom: BlockGeometry, n_split: int):
@@ -203,26 +214,51 @@ def launch_partials(a, b, *, geom: BlockGeometry, n_split: int,
 
 def cluster_layout(m: int, n: int, k: int, dev,
                    cluster_split: Optional[int] = None,
-                   split_rows: Optional[int] = None):
-    """(slices, slice depth) of the cluster engine: the planner's
-    :func:`splitk_cluster_split` for ``split_rows`` rows (default ``m``)
-    and the card's SM count (``dev`` None: an H100's), or the pinned
-    ``cluster_split``; ValueError when the engine cannot take the split
-    for ``m`` rows."""
+                   split_rows: Optional[int] = None,
+                   dtype_in=torch.bfloat16):
+    """(slices, slice depth) of the cluster engine for ``dtype_in``
+    operands: the planner's :func:`splitk_cluster_split` for
+    ``split_rows`` rows (default ``m``) and the card's SM count (``dev``
+    None: an H100's), or the pinned ``cluster_split`` (slices a whole
+    number of :func:`cluster_stage` rows deep); ValueError when the
+    engine cannot take the split for ``m`` rows."""
     if cluster_split is None:
         sms = (H100_SPEC.sm_count if dev is None else
                torch.cuda.get_device_properties(dev).multi_processor_count)
         cluster_split, depth = splitk_cluster_split(
             cdiv(n, GROUPED_BN), k, m if split_rows is None else split_rows,
-            sms)
+            sms, dtype_in)
     else:
-        depth = round_up(cdiv(k, cluster_split), GROUPED_BK)
+        depth = round_up(cdiv(k, cluster_split), cluster_stage(dtype_in))
     if not 1 <= cluster_split <= MAX_CLUSTER \
             or cdiv(k, depth) != cluster_split \
-            or depth > grouped_max_depth(m):
+            or depth > grouped_max_depth(m, dtype_in):
         raise ValueError(f"splitk_gemm: {cluster_split} slices of K={k} for "
                          f"{m} rows is not a split the cluster engine takes")
     return cluster_split, depth
+
+
+def _launch_cluster_s8(a, b, out_dtype, n_split, depth):
+    """One launch of the cluster engine's s8 entry: the exact int32
+    a @ b of int8 operands, the (K, N) weight read as it lies."""
+    dev = a.device
+    m, k = a.shape
+    n = b.shape[1]
+    if out_dtype != torch.int32:
+        raise TypeError(f"splitk_gemm: the cluster engine's s8 entry writes "
+                        f"the int32 accumulator, not {out_dtype}")
+    if a.stride(1) != 1 or (m > 1 and a.stride(0) < k):
+        a = a.contiguous()
+    b = tma_ready(b)
+    out = torch.empty(m, n, dtype=torch.int32, device=dev)
+    lib, fn = build.entry("splitk_gemm_cluster",
+                          "splitk_gemm_cluster_s8_launch",
+                          _CLUSTER_S8_ARGTYPES)
+    build.count_launch("splitk_gemm_cluster_s8")
+    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+             a.stride(0), n_split, depth, build.stream_ptr(dev))
+    build.check(lib, err, "splitk_gemm_cluster[s8]")
+    return out
 
 
 def _launch_cluster(a, b, c, bias, epilogue, out_dtype, n_split, depth,
@@ -281,8 +317,9 @@ def mte_gemm_splitk_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
     names — the cluster engine in one launch (its own slices for
     ``split_rows`` rows, default M, pinned with ``cluster_split``;
     bf16acc blocks of :func:`~repro_torch.kernels.mte_gemm.bf16acc_block`
-    of ``geom.bk``), or the SIMT f32 engine or the tile loop at
-    ``n_split`` slices with the sum and epilogue in PyTorch; CPU tensors
+    of ``geom.bk``; int8 on its s8 entry, int32 out), or the SIMT f32
+    engine or the tile loop at ``n_split`` slices with the sum and
+    epilogue in PyTorch; CPU tensors
     run the plain version of the same contract (see the module
     docstring).  A tile no engine takes raises on either device."""
     dev = build.require_cuda(a, b, c, bias, what="splitk_gemm")
@@ -312,7 +349,13 @@ def mte_gemm_splitk_kernel(a, b, c=None, bias=None, *, geom: BlockGeometry,
             raise TypeError(f"splitk_gemm: operands {a.dtype} x {b.dtype} "
                             f"unsupported")
         slices, depth = cluster_layout(m, n, k, dev, cluster_split,
-                                       split_rows)
+                                       split_rows, a.dtype)
+        if a.dtype == torch.int8:
+            if acc_dtype != torch.int32 or not epilogue.is_identity:
+                raise ValueError("splitk_gemm: int8 takes the int32 "
+                                 "accumulator and the identity epilogue "
+                                 "(dequantize first)")
+            return _launch_cluster_s8(a, b, out_dtype, slices, depth)
         return _launch_cluster(a, b, c, bias, epilogue, out_dtype, slices,
                                depth, bf16acc_block(geom.bk, k), bf16acc)
     if cluster_split is not None:

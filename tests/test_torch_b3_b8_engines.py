@@ -97,14 +97,16 @@ def test_rigid_route_takes_the_simt_engine_at_every_m(dtype, m, n_, k,
     ("float32", 512, 2048, 2048, False, (64, 64), "tile"),     # loop tile
     ("float32", 512, 2048, 2048, False, (128, 256), "tile"),
     # int8: the s8 wgmma engine past 16 rows at a wgmma tile, K a
-    # multiple of 16 and N of 8; else the tile loop
+    # multiple of 16 and N of 8; the split-K engine's s8 entry at C <= 16
+    # with N a multiple of 16; else the tile loop
     ("int8", 512, 2048, 2048, False, (128, 128), "wgmma"),
     ("int8", 17, 512, 1024, False, (64, 64), "wgmma"),
     ("int8", 512, 2048, 2040, False, (128, 128), "tile"),      # K % 16
     ("int8", 512, 2052, 2048, False, (128, 128), "tile"),      # N % 8
     ("int8", 512, 2048, 2048, False, (16, 128), "tile"),       # loop tile
-    ("int8", 16, 2048, 2048, False, (128, 128), "tile"),       # C <= 16
-    ("int8", 4, 2048, 2048, False, (16, 128), "tile"),
+    ("int8", 16, 2048, 2048, False, (128, 128), "splitk"),     # C <= 16
+    ("int8", 4, 2048, 2048, False, (16, 128), "splitk"),
+    ("int8", 4, 2056, 2048, False, (16, 128), "tile"),         # N % 16
 ])
 def test_grouped_engine_names_each_engine(dtype, m, n_, k, bf16acc, tile,
                                           want):

@@ -19,6 +19,7 @@ tgeometry = LazyModule("repro_torch.core.geometry")
 tattn = LazyModule("repro_torch.kernels.flash_attention")
 tdecode = LazyModule("repro_torch.kernels.flash_decode")
 tgemm = LazyModule("repro_torch.kernels.mte_gemm")
+tformats = LazyModule("repro_torch.core.formats")
 tsplitk = LazyModule("repro_torch.kernels.splitk_gemm")
 
 pytestmark = pytest.mark.cuda
@@ -2157,7 +2158,7 @@ def test_ops_int8_runs_the_s8_engine_past_16_rows(card):
     """``ops.mte_gemm`` and ``ops.grouped_gemm`` under int8 at 128 rows
     plan onto the s8 engine and equal the CPU's plain route bit for bit
     (quantize, int32 sum and dequantize are exact on both devices); at 4
-    rows the tile loops run."""
+    rows the cluster split-K engine's s8 entry runs, no tile loop."""
     gen = torch.Generator().manual_seed(43)
     a = torch.randn(128, 512, generator=gen)
     b = torch.randn(512, 256, generator=gen)
@@ -2174,4 +2175,140 @@ def test_ops_int8_runs_the_s8_engine_past_16_rows(card):
     ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert ran.pop("mte_gemm_wgmma_s8") == 1
     assert ran.pop("grouped_gemm_wgmma_s8") == 1
-    assert set(ran) <= {"mte_gemm", "splitk_gemm"} and ran, ran
+    assert ran == {"splitk_gemm_cluster_s8": 1}, ran
+
+
+# -- int8 decode GEMMs on the cluster split-K engines (B2 and B3) -------------
+
+# Ragged int8 decode shapes (K, N) the cluster engines take: K 144 (one
+# short 128-row stage), 2048 and 16384; N 2064 and 400 (past the last
+# 128-column tile, multiples of 16).
+S8_DECODE = [(144, 2064), (2048, 2064), (16384, 400)]
+
+
+@pytest.mark.parametrize("m", [1, 5, 16])
+def test_splitk_cluster_s8_bit_equal_to_the_tile_loop_and_plain(card, m):
+    """B2's int8 entry on the cluster engine at the engine's split: int32
+    bit-equal to the plain version at that split
+    (``splitk_cluster_torch``), to ``formats.int_matmul`` and to the tile
+    loop's summed partials (pinned with ``launch_partials``); the weight
+    is read as (K, N), and only the new counter and the pinned tile loop
+    count."""
+    gen = torch.Generator().manual_seed(300 + m)
+    geo = _s8_geom((16, 128))
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    before = build.launch_counts()
+    for k, n in S8_DECODE:
+        assert tgeometry.splitk_engine(torch.int8, m, n, k) == "cluster"
+        a, b = _ints(gen, m, k), _ints(gen, k, n)
+        want = tformats.int_matmul(a, b)
+        s, depth = tgeometry.splitk_cluster_split(
+            tgeometry.cdiv(n, 128), k, m, sms, torch.int8)
+        assert torch.equal(tsplitk.splitk_cluster_torch(
+            a, b, n_split=s, depth=depth, out_dtype=torch.int32), want)
+        ad, bd = a.to(card), b.to(card)
+        got = tsplitk.mte_gemm_splitk_kernel(ad, bd, geom=geo, n_split=4,
+                                             out_dtype=torch.int32)
+        loop = tsplitk.launch_partials(ad, bd, geom=geo, n_split=4,
+                                       acc_dtype=torch.int32,
+                                       engine="tile").sum(0,
+                                                          dtype=torch.int32)
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want) and torch.equal(got, loop)
+    after = build.launch_counts()
+    assert after["splitk_gemm_cluster_s8"] == \
+        before["splitk_gemm_cluster_s8"] + len(S8_DECODE)
+    assert after["splitk_gemm"] == before["splitk_gemm"] + len(S8_DECODE)
+    assert after["splitk_gemm_cluster"] == before["splitk_gemm_cluster"]
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 4, 6, 8])
+def test_splitk_cluster_s8_every_split_and_past_two_to_the_24(card,
+                                                              n_split):
+    """Every slice count the s8 entry takes at 128-row stages, pinned:
+    gemma_2b's int8 o projection (4 x 2048 x 2048) and ±127 operands at
+    K = 16384, whose sums pass 2^24 (a trip through f32 would change their
+    bits), exactly equal to ``int_matmul``."""
+    gen = torch.Generator().manual_seed(310 + n_split)
+    geo = _s8_geom((16, 128))
+    a, b = _ints(gen, 4, 2048), _ints(gen, 2048, 2048)
+    got = tsplitk.mte_gemm_splitk_kernel(a.to(card), b.to(card), geom=geo,
+                                         out_dtype=torch.int32,
+                                         cluster_split=n_split)
+    assert torch.equal(got.cpu(), tformats.int_matmul(a, b))
+    m, n, k = 5, 272, 16384
+    a = torch.full((m, k), 127, dtype=torch.int8)
+    b = torch.full((k, n), -127, dtype=torch.int8)
+    b[::2, 1::2] = 127
+    b[:3, ::3] = 1
+    b[3, ::3] = 2
+    want = tformats.int_matmul(a, b)
+    assert int(want.abs().max()) > 2 ** 24
+    assert not torch.equal(want.float().long(), want.long())
+    got = tsplitk.mte_gemm_splitk_kernel(a.to(card), b.to(card), geom=geo,
+                                         out_dtype=torch.int32,
+                                         cluster_split=n_split)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("c", [1, 5, 16])
+def test_grouped_splitk_s8_bit_equal_to_the_tile_loop_and_plain(card, c):
+    """B3's int8 entry on the split-K engine: gemma_2b's decode group (a
+    broadcast x, K 2048, widths 2048/256/256) and members with their own x
+    at ragged K and N, with and without widths: bit-equal to the tile loop
+    (pinned), to the plain versions (``grouped_gemm_torch`` and
+    ``grouped_splitk_torch`` at the engine's split) and to ``int_matmul``
+    per member, the columns past each width exactly 0."""
+    gen = torch.Generator().manual_seed(320 + c)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    before = build.launch_counts()
+    cases = [(3, 2048, 2048, True, [2048, 256, 256]),
+             (3, 144, 400, False, None), (2, 16384, 272, False, [272, 16])]
+    for g, k, n, shared, widths in cases:
+        assert tgeometry.grouped_engine(torch.int8, c, n, k) == "splitk"
+        x, w = _ints(gen, 1 if shared else g, c, k), _ints(gen, g, k, n)
+        if shared:
+            x = x.expand(g, c, k)
+        kw = dict(geom=_s8_geom((16, 128)), out_dtype=torch.int32,
+                  widths=widths)
+        want = tgrouped.grouped_gemm_torch(x, w, **kw)
+        for i in range(g):
+            exact = tformats.int_matmul(x[i], w[i])
+            if widths is not None:
+                exact[:, widths[i]:] = 0
+            assert torch.equal(want[i], exact)
+        s, depth = tgrouped.split_layout(x, w, widths=widths, sm_count=sms)
+        assert torch.equal(tgrouped.grouped_splitk_torch(
+            x, w, n_split=s, depth=depth, out_dtype=torch.int32,
+            widths=widths), want)
+        xd, wd = x.to(card), w.to(card)
+        got = tgrouped.grouped_gemm_kernel(xd, wd, **kw)
+        loop = tgrouped.grouped_gemm_kernel(xd, wd, engine="tile", **kw)
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want) and torch.equal(got, loop)
+    after = build.launch_counts()
+    assert after["grouped_gemm_splitk_s8"] == \
+        before["grouped_gemm_splitk_s8"] + len(cases)
+    assert after["grouped_gemm"] == before["grouped_gemm"] + len(cases)
+    assert after["grouped_gemm_splitk"] == before["grouped_gemm_splitk"]
+
+
+def test_cluster_s8_refuses_what_it_cannot_take(card):
+    """N not a multiple of 16 keeps int8 on the tile loops (the rule), a
+    pinned split the s8 entry cannot take raises before a launch, and the
+    C entries refuse a depth off the 128-row stage and a K past S8_MAX_K
+    with an error, not another engine."""
+    gen = torch.Generator().manual_seed(330)
+    assert tgeometry.splitk_engine(torch.int8, 4, 2056, 2048) == "tile"
+    assert tgeometry.grouped_engine(torch.int8, 4, 2056, 2048) == "tile"
+    a, b = _ints(gen, 4, 2048), _ints(gen, 2048, 256)
+    before = build.launch_counts()
+    with pytest.raises(ValueError, match="cluster engine takes"):
+        tsplitk.mte_gemm_splitk_kernel(a.to(card), b.to(card),
+                                       geom=_s8_geom((16, 128)),
+                                       out_dtype=torch.int32,
+                                       cluster_split=5)
+    assert build.launch_counts() == before
+    with pytest.raises(RuntimeError, match=r"cluster\[s8\]"):
+        tsplitk._launch_cluster_s8(a.to(card), b.to(card), torch.int32, 4,
+                                   448)

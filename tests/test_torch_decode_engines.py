@@ -1,6 +1,6 @@
 """The engine choice of the port's B3 (grouped GEMM) and B5 (flash
 attention): ``repro_torch.core.geometry.grouped_engine`` (the cluster
-split-K kernel for the bf16 decode group, else the tile loop) and
+split-K kernel for the bf16 and int8 decode groups, else the tile loop) and
 ``attention_engine`` (TMA + wgmma for bf16 at D 64/128/256, else SIMT),
 B3's split plan, the plan cache's engine for grouped signatures, the
 grouping decisions at full width (which the new engine must not move),
@@ -55,7 +55,8 @@ def fresh_caches():
     ("bfloat16", 17, 2560, 2560, True, "tile"),     # C > 16
     ("bfloat16", 4, 2050, 2048, False, "tile"),     # N not a multiple of 8
     ("float32", 4, 2048, 2048, False, "tile"),
-    ("int8", 4, 2048, 2048, False, "tile"),
+    ("int8", 4, 2048, 2048, False, "splitk"),       # its s8 entry
+    ("int8", 4, 2056, 2048, False, "tile"),         # N not a multiple of 16
 ])
 def test_grouped_engine_table(dtype, m, n_, k, bf16acc, want):
     assert tgeometry.grouped_engine(getattr(torch, dtype), m, n_, k,
@@ -150,7 +151,8 @@ def _gsig(m, n_, k, fmt, group=3):
     (4, 4096, 4096, "bf16", "splitk"),
     (4, 2048, 2048, "bf16acc", "splitk"),
     (4, 2048, 2048, "fp32", "tile"),
-    (4, 2048, 2048, "int8", "tile"),
+    (4, 2048, 2048, "int8", "splitk"),
+    (4, 2056, 2048, "int8", "tile"),
     (512, 16384, 2048, "bf16", "wgmma"),
     (4, 2050, 2048, "bf16", "tile"),
 ])

@@ -99,8 +99,9 @@ def test_b8_int8_stage_one_stays_on_the_tile_loop(m):
     (2, 512, 16384, 2048, (64, 64), "wgmma"),
     (4, 96, 128, 264, (64, 128), "tile"),         # K % 16
     (4, 96, 132, 256, (64, 128), "tile"),         # N % 8
-    (4, 16, 128, 256, (64, 128), "tile"),         # C <= 16: no split-K
-    (3, 4, 2048, 2048, (16, 128), "tile"),        # the decode group
+    (4, 16, 128, 256, (64, 128), "splitk"),       # C <= 16: split-K's s8
+    (3, 4, 2048, 2048, (16, 128), "splitk"),      # the decode group
+    (3, 4, 2056, 2048, (16, 128), "tile"),        # N % 16
     (4, 96, 128, 256, None, "tile"),              # no tile
 ])
 def test_b3_int8_takes_the_s8_engine_past_16_rows(g, m, n_, k, tile, want):

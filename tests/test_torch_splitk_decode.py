@@ -1,6 +1,7 @@
 """The engine choice of the port's B2 (split-K decode GEMM) and B4 (paged
 flash decode): ``repro_torch.core.geometry.splitk_engine`` (B3's cluster
-split-K mainloop at G = 1 for the bf16 decode GEMMs, else the tile loop)
+split-K mainloop at G = 1 for the bf16 and int8 decode GEMMs, else the
+tile loop)
 and ``decode_engine`` (mma.sync over whole pages for bf16 pages, else
 SIMT), B2's cluster split plan and B4's kv split at the decode shapes of
 both served models, the plan cache's engine for split plans, and the plain
@@ -65,7 +66,8 @@ def fresh_caches():
     ("bfloat16", 17, 2560, 2560, True, "tile"),       # M > 16
     ("bfloat16", 4, 300, 1000, False, "tile"),        # N not a multiple of 8
     ("float32", 4, 2048, 2048, False, "tile"),
-    ("int8", 4, 2048, 2048, False, "tile"),
+    ("int8", 4, 2048, 2048, False, "cluster"),       # its s8 entry
+    ("int8", 4, 2056, 2048, False, "tile"),           # N not a multiple of 16
 ])
 def test_splitk_engine_table(dtype, m, n_, k, bf16acc, want):
     assert tgeometry.splitk_engine(getattr(torch, dtype), m, n_, k,
@@ -159,7 +161,7 @@ def test_plan_engine_reports_cluster_for_decode_plans(label):
 
 @pytest.mark.parametrize("fmt,m,n_,k", [("fp32", 4, 2048, 2048),
                                         ("bf16", 17, 256, 4096),
-                                        ("int8", 4, 2048, 2048),
+                                        ("int8", 4, 2056, 2048),
                                         ("bf16", 4, 300, 2048)])
 def test_plan_engine_keeps_the_tile_loop_off_the_cluster_engine(fmt, m, n_,
                                                                 k):
