@@ -76,8 +76,16 @@ Phases (any failure raises and the script exits non-zero):
    slice count, x broadcast and per member, widths, and ±127 operands at
    K = 16384; timed at gemma_2b's int8 decode GEMMs and q/k/v group, warm,
    L2-cold and by split, beside ``torch._int_mm`` on the rows padded to
-   32 and the tile loops, which get rows of their own); B8 stage 1
-   on the SIMT engine at the reduced
+   32 and the tile loops, which get rows of their own); B8's int8 stage 1
+   on the s8 entry of the wgmma mainloop at its one 128 x 128 tile at
+   every M (``rigid_int8_phase``: ``rigid_gemm_wgmma_s8`` bit-equal to
+   the rigid tile loop pinned and ``int_matmul`` at M 1, 4, 16, 130 and
+   520 by N 72, 2056 and 16384 by K 144, 1040, 2048 and 16384, ±127
+   operands at K = 16384, the shapes off its rule on ``rigid_gemm``;
+   timed at gemma_2b's prefill and decode projections, warm and L2-cold,
+   beside ``torch._int_mm`` (decode: the rows padded to 32), the K-major
+   copy of B, the wrapper with that copy and the rigid tile loop); B8
+   stage 1 on the SIMT engine at the reduced
    model's gate (bit-equal to the tile loop, also timed pinned) and the
    amx training backward's GEMMs (``rigid_train_rows``);
    the old engines' own rows at the fp32
@@ -135,8 +143,12 @@ Phases (any failure raises and the script exits non-zero):
    slice 1's eager path — and under the engine's ``format_policy="int8"``
    (``int8``: f32 weights quantized at every call, every prefill
    projection on B1's s8 entry and no int8 tile-loop launch in a prefill
-   chunk, ``INT8_CHUNK``; the decode step's 4-row GEMMs on B2's and B3's
-   cluster s8 entries, 72 and 18 launches a step, no tile loop), then
+   chunk, ``CHUNK_LAUNCHES``; the decode step's 4-row GEMMs on B2's and
+   B3's cluster s8 entries, 72 and 18 launches a step, no tile loop) and
+   under it with the rigid baseline (``amx-int8``: every projection of a
+   prefill chunk and of a decode step, 126 each, on B8's s8 entry at the
+   128 x 128 tile; no other GEMM kernel, no epilogue pass; the ratio of
+   its step and chunk device times to ``int8``'s is printed), then
    recurrentgemma_9b (38 layers, d_model 4096;
    2560-token prompts, so its 2048-slot rings wrap in prefill and decode)
    and gemma2_27b (46 layers alternating local and global, d_model 4608,
@@ -1202,7 +1214,7 @@ def int8_phase(dev, rows):
     the plain version, ``torch._int_mm`` (B1; B3 has no one call: the
     summed time of its members' calls is kept apart), the K-major copy of
     B the wrapper makes and the tile loop in the same run; and the int8
-    times of the tile loops themselves (B1 and B3 pinned, B8 stage 1) at
+    times of the tile loops themselves (B1, B3 and B8 stage 1 pinned) at
     gemma_2b's gate."""
     import torch
     from repro_torch.core.autotune import (GemmSignature, PlanCache,
@@ -1432,7 +1444,8 @@ def int8_phase(dev, rows):
                  tile_loop_row=True)
 
     # The tile loops' own int8 rows at gemma_2b's gate: B1's pinned at
-    # 64 x 64 and B8's stage 1 (rigid: always the tile loop for int8).
+    # 64 x 64 and B8's stage 1 pinned (its rule names the s8 engine,
+    # ``rigid_int8_phase``).
     m, n, k = 512, 16384, 2048
     a, b = ints(m, k), ints(k, n)
     bt = b.t().contiguous()
@@ -1443,7 +1456,8 @@ def int8_phase(dev, rows):
                 a, b, geom=geom((64, 64)), out_dtype=i32, engine="tile"),
              lambda: mte_gemm_torch(a, b, geom=geom((64, 64)),
                                     out_dtype=i32)),
-            ("rigid_gemm", lambda: rigid_accumulate_kernel(a, b),
+            ("rigid_gemm", lambda: rigid_accumulate_kernel(
+                a, b, engine="tile"),
              lambda: rigid_accumulate_torch(a, b))):
         want = plain()
         exact(f"{kern} int8 gate {m}x{n}x{k} (tile loop)", run(), want)
@@ -1733,6 +1747,176 @@ def int8_decode_phase(dev, rows):
            "tile_loop_plain_ms": time_ms(
                lambda: grouped_gemm_torch(x, w, **kw), iters=3)},
           run, plain, loop, None, slices, pinned)
+
+
+# -- phase 2: B8's int8 stage 1 on the s8 path of the wgmma mainloop ----------
+
+# gemma_2b's projections at a 512-token prefill chunk and a 4-slot decode
+# step under amx x int8: (label, M, N, K).
+RIGID_S8_GEMMS = [("gate", 512, 16384, 2048), ("down", 512, 2048, 16384),
+                  ("q/o", 512, 2048, 2048), ("k/v", 512, 256, 2048),
+                  ("decode gate", 4, 16384, 2048),
+                  ("decode down", 4, 2048, 16384),
+                  ("decode q/o", 4, 2048, 2048),
+                  ("decode k/v", 4, 256, 2048)]
+# The bit-equality grid of the rigid s8 entry: every M by every N by
+# every K.
+RIGID_S8_GRID = dict(m=(1, 4, 16, 130, 520), n=(72, 2056, 16384),
+                     k=(144, 1040, 2048, 16384))
+
+
+def rigid_int8_phase(dev, rows):
+    """B8's int8 stage 1 on the s8 entry of the wgmma mainloop
+    (``rigid_gemm_wgmma_s8``) against the rigid tile loop pinned
+    (``engine="tile"``) and the plain version (``int_matmul``), bit for
+    bit: every M by N by K of ``RIGID_S8_GRID`` -- rows below the
+    128-row tile (TMA's zeros), N past the last tile, K tails past a
+    128-deep stage --, ±127
+    operands at K = 16384 (sums past 2^24), and the shapes off the rule (K
+    % 16, N % 8), which must launch the tile loop; then gemma_2b's
+    projections under amx x int8 (``RIGID_S8_GEMMS``), each timed warm and
+    L2-cold on the kernel alone (B given K-major, ``s8_accumulate``)
+    beside its bound (int8 operations at 1979 TOPS, bytes at 3.35 TB/s:
+    the operands once and the int32 output), the wrapper with its K-major
+    copy of B, that copy alone, the plain version, ``torch._int_mm``
+    (decode: on the rows zero-padded to 32, which it needs) and the tile
+    loop in the same run."""
+    import torch
+    from repro_torch.core.formats import int_matmul
+    from repro_torch.core.geometry import RIGID_TILE, gemm_engine
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mte_gemm import k_major
+    from repro_torch.kernels.rigid_gemm import (rigid_accumulate_kernel,
+                                                rigid_accumulate_torch,
+                                                rigid_gemm_kernel,
+                                                s8_accumulate)
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    i8 = torch.int8
+
+    def ints(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=i8)
+
+    def engine(m, n, k):
+        return gemm_engine(i8, *RIGID_TILE[:2], n, k, m=m, rigid=True)
+
+    def exact(name, a, b):
+        """Stage 1 on its rule's engine, bit-equal to the tile loop
+        pinned and to ``int_matmul``; returns the accumulator."""
+        got = rigid_accumulate_kernel(a, b)
+        ok = (got.dtype == torch.int32
+              and torch.equal(got, rigid_accumulate_kernel(a, b,
+                                                           engine="tile"))
+              and torch.equal(got, int_matmul(a, b)))
+        log(f"  {name}: int32 bit-equal to the rigid tile loop and "
+            f"int_matmul {'ok' if ok else 'FAIL'}")
+        require(ok, f"{name}: not bit-equal")
+        return got
+
+    before = build.launch_counts()
+    cases = 0
+    for k in RIGID_S8_GRID["k"]:
+        for n in RIGID_S8_GRID["n"]:
+            b = ints(k, n)
+            for m in RIGID_S8_GRID["m"]:
+                require(engine(m, n, k) == "wgmma",
+                        f"rigid int8 {m}x{n}x{k} is not on the s8 engine")
+                exact(f"rigid_gemm_wgmma_s8 {m}x{n}x{k}", ints(m, k), b)
+                cases += 1
+            del b
+    after = build.launch_counts()
+    require(after["rigid_gemm_wgmma_s8"] - before["rigid_gemm_wgmma_s8"]
+            == cases, "the s8 entry did not run every case")
+    rows.append({"kernel": "rigid_gemm_wgmma_s8",
+                 "shape": f"int8 M 1-520 x N 72-16384 x K 144-16384 "
+                          f"({cases} shapes)", "max_abs_err": 0.0,
+                 "tol": 0.0})
+    # ±127 operands at K = 16384: sums past 2^24 that f32 cannot hold.
+    n, k = 272, 16384
+    b = torch.full((k, n), -127, dtype=i8, device=dev)
+    b[::2, 1::2] = 127
+    b[:3, ::3] = 1
+    b[3, ::3] = 2
+    for m in (4, 130):
+        a = torch.full((m, k), 127, dtype=i8, device=dev)
+        want = int_matmul(a, b)
+        require(int(want.abs().max()) > 2 ** 24
+                and not torch.equal(want.float().long(), want.long()),
+                "the ±127 case does not pass 2^24")
+        exact(f"rigid_gemm_wgmma_s8 ±127 {m}x{n}x{k} (max |sum| "
+              f"{int(want.abs().max())})", a, b)
+    # Off the rule: the tile loop, and nothing on the s8 entry.
+    for m, n, k in ((4, 2048, 2040), (130, 2052, 2048), (520, 257, 65)):
+        require(engine(m, n, k) == "tile", f"{m}x{n}x{k} off the rule")
+        before = build.launch_counts()
+        a, b = ints(m, k), ints(k, n)
+        got = rigid_gemm_kernel(a, b, out_dtype=torch.int32)
+        require(torch.equal(got, int_matmul(a, b)), f"{m}x{n}x{k} differs")
+        after = build.launch_counts()
+        ran = {c: after[c] - before[c] for c in after
+               if after[c] != before[c]}
+        log(f"  rigid_gemm int8 {m}x{n}x{k} off the s8 rule: exact, "
+            f"launches {ran}")
+        require(ran == {"rigid_gemm": 1}, f"{m}x{n}x{k}: launched {ran}")
+
+    peak = PEAK["int8"]
+    for label, m, n, k in RIGID_S8_GEMMS:
+        require(engine(m, n, k) == "wgmma", f"{label}: off the s8 engine")
+        a, b = ints(m, k), ints(k, n)
+        bt = b.t().contiguous()
+        run = lambda: s8_accumulate(a, bt)  # noqa: E731
+        wrapped = lambda: rigid_accumulate_kernel(a, b)  # noqa: E731
+        loop = lambda: rigid_accumulate_kernel(  # noqa: E731
+            a, b, engine="tile")
+        plain = lambda: rigid_accumulate_torch(a, b)  # noqa: E731
+        want = plain()
+        got = run()
+        ok = (torch.equal(got, want) and torch.equal(wrapped(), want)
+              and torch.equal(loop(), want))
+        log(f"  rigid_gemm_wgmma_s8 main-path int8 {label} {m}x{n}x{k}: "
+            f"bit-equal to the tile loop and the plain version "
+            f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"rigid int8 {label}: not bit-equal")
+        if m > 16:
+            lib, lib_name = int_mm_call(a, b, bt), "torch._int_mm"
+        else:
+            ap = torch.zeros(32, k, dtype=i8, device=dev)
+            ap[:m] = a
+            lib = int_mm_call(ap, b, bt)
+            lib_name = f"torch._int_mm ({m} rows padded to 32)"
+        if lib is not None:
+            require(torch.equal(lib()[:m], want), f"torch._int_mm differs "
+                    f"at {label}")
+        flops = 2.0 * m * n * k
+        nbytes = m * k + k * n + 4.0 * m * n
+        row = {"kernel": "rigid_gemm_wgmma_s8",
+               "shape": f"int8 {label} {m}x{n}x{k}", "engine": "wgmma",
+               "plan": "rigid 128x128x128",
+               "ctas": math.ceil(m / 128) * math.ceil(n / 128),
+               "max_abs_err": 0.0, "tol": 0.0,
+               "ms": time_ms(run), "cold_ms": time_ms_cold(run),
+               "wrapper_ms": time_ms(wrapped),
+               "k_major_copy_ms": time_ms(lambda: k_major(b, False)),
+               "plain_ms": time_ms(plain, iters=3),
+               "bound_ms": bound_ms(flops, nbytes, peak),
+               "bound_by": bound_by(flops, nbytes, peak),
+               "library": lib_name,
+               "library_ms": time_ms(lib) if lib else None,
+               "library_cold_ms": time_ms_cold(lib) if lib else None,
+               "tile_loop_ms": time_ms(loop, iters=3, warmup=1)}
+        rows.append(row)
+        lib_txt = (f"{lib_name} {row['library_ms']:.4f} ms (L2 cold "
+                   f"{row['library_cold_ms']:.4f}; "
+                   f"{row['ms'] / row['library_ms']:.2f}x)" if lib
+                   else f"{lib_name} not run")
+        log(f"    time {row['ms']:.4f} ms (L2 cold {row['cold_ms']:.4f}; "
+            f"{row['ctas']} CTAs), bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), {lib_txt}, K-major copy of B "
+            f"{row['k_major_copy_ms']:.4f} ms (copy + kernel "
+            f"{row['wrapper_ms']:.4f}), plain {row['plain_ms']:.4f} ms, the "
+            f"rigid tile loop {row['tile_loop_ms']:.4f} ms "
+            f"({row['tile_loop_ms'] / row['ms']:.1f}x the s8 engine)")
 
 
 def rigid_phase(dev, rows):
@@ -2538,11 +2722,14 @@ CONFIGS = {
     "qwen": ("qwen15_4b", {"param_dtype": "bfloat16"}),
     "starcoder2": ("starcoder2_7b", {"param_dtype": "bfloat16"}),
     "int8": ("gemma_2b", {}),
+    "amx-int8": ("gemma_2b", {"gemm_policy": "amx"}),
 }
 # Engine arguments of a configuration: ``int8`` serves gemma_2b under the
 # engine's ``format_policy="int8"`` (its f32 weights quantized at every
-# call, as the JAX engine serves them).
-ENGINE_KW = {"int8": {"format_policy": "int8"}}
+# call, as the JAX engine serves them), ``amx-int8`` the same under the
+# rigid baseline.
+ENGINE_KW = {"int8": {"format_policy": "int8"},
+             "amx-int8": {"format_policy": "int8"}}
 # Kernels each configuration's main path must launch.
 PATH_KERNELS = {
     "default": ("mte_gemm_wgmma", "splitk_gemm_cluster", "grouped_gemm_splitk",
@@ -2564,6 +2751,8 @@ PATH_KERNELS = {
     "int8": ("mte_gemm_wgmma_s8", "splitk_gemm_cluster_s8",
              "grouped_gemm_splitk_s8", "flash_decode_paged_mma",
              "flash_attention_wgmma"),
+    "amx-int8": ("rigid_gemm_wgmma_s8", "flash_decode_paged_mma",
+                 "flash_attention_wgmma"),
 }
 # Counters that must stay 0 at full width: every bf16 B1 launch (all of
 # them prefill projections) and every bf16 B8 stage-1 launch runs on the
@@ -2590,18 +2779,34 @@ NOT_ON_PATH = {
     "starcoder2": ("mte_gemm", "splitk_gemm", "grouped_gemm",
                    "grouped_gemm_simt", "flash_decode"),
     # int8: no bf16 or f32 engine runs, and no int8 tile loop: the
-    # prefill projections run B1's s8 entry (INT8_CHUNK), the decode step's
-    # 4-row GEMMs B2's and B3's cluster s8 entries (DECODE_STEP_LAUNCHES).
+    # prefill projections run B1's s8 entry (CHUNK_LAUNCHES), the decode
+    # step's 4-row GEMMs B2's and B3's cluster s8 entries
+    # (DECODE_STEP_LAUNCHES).
     "int8": ("mte_gemm", "mte_gemm_wgmma", "mte_gemm_simt", "splitk_gemm",
              "splitk_gemm_cluster", "splitk_gemm_simt", "grouped_gemm",
              "grouped_gemm_splitk", "grouped_gemm_wgmma",
              "grouped_gemm_simt", "flash_decode_paged", "flash_attention"),
+    # amx-int8: every projection, prefill and decode, on B8's s8 entry;
+    # no other stage-1 engine, no epilogue pass (int8's epilogue runs
+    # after the dequantize), no B1, B2 or B3 launch.
+    "amx-int8": ("rigid_gemm", "rigid_gemm_wgmma", "rigid_gemm_simt",
+                 "epilogue_pass", "mte_gemm", "mte_gemm_wgmma",
+                 "mte_gemm_wgmma_s8", "mte_gemm_simt", "splitk_gemm",
+                 "splitk_gemm_cluster", "splitk_gemm_cluster_s8",
+                 "splitk_gemm_simt", "grouped_gemm", "grouped_gemm_splitk",
+                 "grouped_gemm_splitk_s8", "grouped_gemm_wgmma",
+                 "grouped_gemm_wgmma_s8", "grouped_gemm_simt",
+                 "flash_decode_paged", "flash_attention"),
 }
-# Launches per profiled prefill chunk of the int8 configuration: every
+# Launches per profiled prefill chunk of the int8 configurations: every
 # projection of gemma_2b's 18 layers (q, k, v, o, gate, up, down) on the
-# s8 engine, none on an int8 tile loop.
-INT8_CHUNK = {"mte_gemm_wgmma_s8": 18 * 7, "mte_gemm": 0, "splitk_gemm": 0,
-              "grouped_gemm": 0, "grouped_gemm_wgmma_s8": 0}
+# s8 engine (B1's, or B8's under amx), none on an int8 tile loop.
+CHUNK_LAUNCHES = {
+    "int8": {"mte_gemm_wgmma_s8": 18 * 7, "mte_gemm": 0, "splitk_gemm": 0,
+             "grouped_gemm": 0, "grouped_gemm_wgmma_s8": 0},
+    "amx-int8": {"rigid_gemm_wgmma_s8": 18 * 7, "rigid_gemm": 0,
+                 "mte_gemm_wgmma_s8": 0, "epilogue_pass": 0},
+}
 # Launches of the new engines per profiled decode step: gemma_2b's 18
 # layers run B2 on o, gate, up and down (and on q, k, v on the eager path)
 # and B4 once; recurrentgemma_9b's decode GEMMs make 256 B2 launches and
@@ -2611,7 +2816,9 @@ INT8_CHUNK = {"mte_gemm_wgmma_s8": 18 * 7, "mte_gemm": 0, "splitk_gemm": 0,
 # gate, up and down and B4 once each; starcoder2_7b's 32 local layers run
 # B2 on o, up and down (the plain MLP has no gate), B3 on the q/k/v group
 # and B6 once each; under int8 gemma_2b's 18 layers run B2's s8 entry on
-# o, gate, up and down and B4 once each.
+# o, gate, up and down and B4 once each, and under amx x int8 B8's s8
+# entry on all seven projections (amx does not group the q/k/v) and B4
+# once each.
 DECODE_STEP_LAUNCHES = {
     "default": {"splitk_gemm_cluster": 72, "flash_decode_paged_mma": 18},
     "amx": {"flash_decode_paged_mma": 18},
@@ -2623,6 +2830,7 @@ DECODE_STEP_LAUNCHES = {
     "starcoder2": {"splitk_gemm_cluster": 96, "grouped_gemm_splitk": 32,
                    "flash_decode_mma": 32},
     "int8": {"splitk_gemm_cluster_s8": 72, "flash_decode_paged_mma": 18},
+    "amx-int8": {"rigid_gemm_wgmma_s8": 126, "flash_decode_paged_mma": 18},
 }
 # The counter of the decode step's grouped q/k/v where it is not B3's
 # bf16 split-K entry: int8 groups of 4 rows run its s8 entry.
@@ -2851,19 +3059,37 @@ def reduced_phase(dev):
     return path_counts
 
 
+# Phase 3's reduced int8 engines: (name, gemm_policy, counters the card's
+# run must launch, counters it must not).  Under amx every GEMM is B8's
+# stage 1 on the s8 engine (every reduced width is a multiple of 16): no
+# tile loop, no B1, B2 or B3 launch.
+REDUCED_INT8 = [
+    ("int8", "mte", ("mte_gemm_wgmma_s8", "grouped_gemm_wgmma_s8",
+                     "splitk_gemm_cluster_s8", "grouped_gemm_splitk_s8"),
+     ()),
+    ("amx-int8", "amx", ("rigid_gemm_wgmma_s8",),
+     ("rigid_gemm", "rigid_gemm_wgmma", "epilogue_pass", "mte_gemm",
+      "mte_gemm_wgmma_s8", "splitk_gemm", "splitk_gemm_cluster_s8",
+      "grouped_gemm", "grouped_gemm_wgmma_s8", "grouped_gemm_splitk_s8")),
+]
+
+
 def reduced_int8_phase(dev):
     """gemma_2b.reduced() under ``format_policy="int8"`` (fp32 compute),
     card against CPU, with 64-row prefill chunks, so that the s8 engine's
-    tiles are offered: the prefill q/k/v run as one group on B3's s8
-    entry and the MLP on B1's; in the 2-row decode steps the q/k/v and
-    gate+up groups run B3's split-K s8 entry, the down B2's cluster s8
-    entry and the o (unsplit) B1's int8 tile loop.  Quantize, the int32
-    sums and the dequantize are exact on both devices: first-token logits
-    within 2e-2 (the f32 arithmetic around the GEMMs differs in summation
-    order, which can move a quantized value by one step) and identical
-    greedy streams from the card's engine in its defaults and the CPU's
+    tiles are offered, in two configurations.  ``int8`` (MTE): the
+    prefill q/k/v run as one group on B3's s8 entry and the MLP on B1's;
+    in the 2-row decode steps the q/k/v and gate+up groups run B3's
+    split-K s8 entry, the down B2's cluster s8 entry and the o (unsplit)
+    B1's int8 tile loop.  ``amx-int8`` (``gemm_policy="amx"``): every
+    projection, prefill and decode, is one launch of B8's stage 1 on the
+    s8 engine at the rigid tile.  Quantize, the int32 sums and the
+    dequantize are exact on both devices: first-token logits within 2e-2
+    (the f32 arithmetic around the GEMMs differs in summation order,
+    which can move a quantized value by one step) and identical greedy
+    streams from the card's engine in its defaults and the CPU's
     synchronous eager one.  Returns the card's launch counts
-    (``reduced-int8``)."""
+    (``reduced-int8``, ``reduced-amx-int8``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2871,57 +3097,66 @@ def reduced_int8_phase(dev):
     from repro_torch.models import model as model_lib
     from repro_torch.serving.engine import Request, ServingEngine
 
-    base = get_config("gemma_2b").reduced()       # fp32 compute
-    cfg = dataclasses.replace(base, format_policy="int8")
-    params_cpu = model_lib.init_params(base, seed=0, device="cpu")
+    fp32 = get_config("gemma_2b").reduced()       # fp32 compute
+    params_cpu = model_lib.init_params(fp32, seed=0, device="cpu")
     params_gpu = to_device(params_cpu, dev)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, base.vocab, 128, dtype=np.int32)
-               for _ in range(3)] + [rng.integers(0, base.vocab, 96,
+    prompts = [rng.integers(0, fp32.vocab, 128, dtype=np.int32)
+               for _ in range(3)] + [rng.integers(0, fp32.vocab, 96,
                                                   dtype=np.int32)]
     kw = dict(slots=2, cache_len=192, prefill_len=128, page_size=16,
               prefill_chunk=64, format_policy="int8")
-    reset_planning()
-    logits = {}
-    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
-        cache = model_lib.init_paged_cache(cfg, 1, 128, num_pages=9,
-                                           page_size=16, device=device)
-        table = torch.arange(1, 9, dtype=torch.int32, device=device)[None]
-        toks = torch.as_tensor(prompts[0].astype(np.int64), device=device)
-        for p0 in (0, 64):
-            out, cache = model_lib.prefill_chunk(
-                params, {"tokens": toks[None, p0:p0 + 64],
-                         "page_table": table}, cache, cfg, pos0=p0)
-        logits[str(device)] = out.cpu()
-    check("reduced int8 first-token logits cuda vs cpu", logits[str(dev)],
-          logits["cpu"], 2e-2)
-    outs, counts = {}, {}
-    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+    path_counts = {}
+    for name, policy, marks, off in REDUCED_INT8:
+        base = dataclasses.replace(fp32, gemm_policy=policy)
+        cfg = dataclasses.replace(base, format_policy="int8")
         reset_planning()
-        eng = ServingEngine(params, base, device=device,
-                            async_steps=device == dev, **kw)
-        for rid, p in enumerate(prompts):
-            eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
-        build.reset_launch_counts()
-        outs[str(device)] = eng.run()
-        if device == dev:
-            counts = build.launch_counts()
-            require(eng.decode_step.graph and eng.decode_step.graphs,
-                    "[int8] the card's decode step was not replayed as a "
-                    "CUDA graph")
-        log(f"  reduced engine [int8] on {device}: "
-            f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
-            f"launches {build.launch_counts()}")
-    for mark in ("mte_gemm_wgmma_s8", "grouped_gemm_wgmma_s8",
-                 "splitk_gemm_cluster_s8", "grouped_gemm_splitk_s8"):
-        require(counts[mark] > 0, f"[int8] {mark} not launched on the card")
-    for rid in outs["cpu"]:
-        require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
-        require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
-                f"[int8] greedy stream of request {rid} differs")
-    log("  reduced engine [int8]: greedy streams identical on cuda (async "
-        "+ graph) and cpu (synchronous, eager)")
-    return {"reduced-int8": counts}
+        logits = {}
+        for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+            cache = model_lib.init_paged_cache(cfg, 1, 128, num_pages=9,
+                                               page_size=16, device=device)
+            table = torch.arange(1, 9, dtype=torch.int32,
+                                 device=device)[None]
+            toks = torch.as_tensor(prompts[0].astype(np.int64),
+                                   device=device)
+            for p0 in (0, 64):
+                out, cache = model_lib.prefill_chunk(
+                    params, {"tokens": toks[None, p0:p0 + 64],
+                             "page_table": table}, cache, cfg, pos0=p0)
+            logits[str(device)] = out.cpu()
+        check(f"reduced [{name}] first-token logits cuda vs cpu",
+              logits[str(dev)], logits["cpu"], 2e-2)
+        outs, counts = {}, {}
+        for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+            reset_planning()
+            eng = ServingEngine(params, base, device=device,
+                                async_steps=device == dev, **kw)
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
+            build.reset_launch_counts()
+            outs[str(device)] = eng.run()
+            if device == dev:
+                counts = build.launch_counts()
+                require(eng.decode_step.graph and eng.decode_step.graphs,
+                        f"[{name}] the card's decode step was not replayed "
+                        f"as a CUDA graph")
+            log(f"  reduced engine [{name}] on {device}: "
+                f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
+                f"launches {build.launch_counts()}")
+        for mark in marks:
+            require(counts[mark] > 0,
+                    f"[{name}] {mark} not launched on the card")
+        for mark in off:
+            require(counts[mark] == 0, f"[{name}] {counts[mark]} launches "
+                    f"of {mark} on the card")
+        for rid in outs["cpu"]:
+            require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
+            require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
+                    f"[{name}] greedy stream of request {rid} differs")
+        log(f"  reduced engine [{name}]: greedy streams identical on cuda "
+            f"(async + graph) and cpu (synchronous, eager)")
+        path_counts[f"reduced-{name}"] = counts
+    return path_counts
 
 
 def reduced_recurrent_phase(dev):
@@ -3731,14 +3966,14 @@ def serving_phase(dev, name):
                 f"[{name}] the resumed prefill chunk ran "
                 f"{chunk['cumsum_calls']} torch.cumsum calls, kernels "
                 f"{scans}")
-    if name in ("int8",):
-        for kernel, want in INT8_CHUNK.items():
+    if name in CHUNK_LAUNCHES:
+        for kernel, want in CHUNK_LAUNCHES[name].items():
             require(per_chunk.get(kernel, 0) == want,
                     f"[{name}] {per_chunk.get(kernel, 0)} launches of "
                     f"{kernel} per prefill chunk, want {want}")
         log(f"  [{name}] the prefill chunk ran every projection on the s8 "
-            f"engine ({per_chunk.get('mte_gemm_wgmma_s8')} launches) and "
-            f"no int8 tile loop; the decode step's launches by counter: "
+            f"engine ({per_chunk}) and no int8 tile loop; the decode "
+            f"step's launches by counter: "
             f"{profile['decode_step']['wrapper_launches']}")
     summary = {
         "config": name, "arch": arch, "requests": len(out_b),
@@ -3758,6 +3993,30 @@ def serving_phase(dev, name):
     del eng
     free_card()
     return counts, summary
+
+
+def int8_isa_ratio(serving):
+    """The rigid ISA against MTE under int8 at gemma_2b's full width:
+    ``amx-int8``'s device ms over ``int8``'s for the eager and the
+    replayed decode step and the prefill chunk (phase 4's profiles), each
+    printed with the kernels that take the most device time on either
+    side."""
+    ratio = {}
+    for call in ("decode_step", "decode_replay", "prefill_chunk"):
+        amx, mte = (serving[name]["profile"][call]
+                    for name in ("amx-int8", "int8"))
+        if amx["device_busy_ms"] is None or mte["device_busy_ms"] is None:
+            ratio[call] = None
+            log(f"  [amx-int8 / int8] {call}: device time not measured")
+            continue
+        ratio[call] = amx["device_busy_ms"] / mte["device_busy_ms"]
+        log(f"  [amx-int8 / int8] {call}: device {amx['device_busy_ms']:.3f}"
+            f" / {mte['device_busy_ms']:.3f} ms = {ratio[call]:.3f}")
+        for name, prof in (("amx-int8", amx), ("int8", mte)):
+            log(f"    {name}: " + "; ".join(
+                f"{r['ms']:.3f} ms x{r['calls']} {r['kernel']}"
+                for r in prof["top"][:4]))
+    return ratio
 
 
 def step_bounds(eng, positions, chunk: int, pos0: int, *,
@@ -5152,6 +5411,9 @@ KERNELS = [
      "reduced-default"),
     ("rigid_gemm_wgmma", "src/repro_torch/csrc/rigid_gemm.cu",
      "src/repro/kernels/rigid_gemm.py:80", "gate 512x16384x2048", "amx"),
+    ("rigid_gemm_wgmma_s8", "src/repro_torch/csrc/rigid_gemm.cu",
+     "src/repro/kernels/rigid_gemm.py:80", "int8 gate 512x16384x2048",
+     "amx-int8"),
     ("rigid_gemm_simt", "src/repro_torch/csrc/rigid_gemm.cu",
      "src/repro/kernels/rigid_gemm.py:80", "gate fp32 16x256x128",
      "train-amx"),
@@ -5219,6 +5481,13 @@ INT8_ROWS = {
     "rigid_gemm": "int8 gate 512x16384x2048 (tile loop)",
     "splitk_gemm": "int8 gate 4x16384x2048 (tile loop)",
     "grouped_gemm": "int8 qkv decode 3x4x2048x2048 (tile loop)",
+}
+
+
+# The rigid s8 entry's decode row (launches from phase 4's amx-int8 run,
+# whose decode step runs it 126 times): gemma_2b's 4-slot gate.
+AMX_INT8_DECODE_ROWS = {
+    "rigid_gemm_wgmma_s8": "int8 decode gate 4x16384x2048",
 }
 
 
@@ -5304,6 +5573,7 @@ def main() -> int:
     rigid_phase(dev, rows)
     int8_phase(dev, rows)
     int8_decode_phase(dev, rows)
+    rigid_int8_phase(dev, rows)
     decode_phase(dev, rows)
     attention_phase(dev, rows)
     ring_decode_phase(dev, rows)
@@ -5311,7 +5581,8 @@ def main() -> int:
     train_gemm_phase(dev, rows)
     log("== 3. reduced gemma_2b (fp32): card against CPU, default and amx")
     counts, serving = reduced_phase(dev), {}
-    log("== 3. reduced gemma_2b (int8, 64-row chunks): card against CPU")
+    log("== 3. reduced gemma_2b (int8, 64-row chunks): card against CPU, "
+        "default and amx")
     counts.update(reduced_int8_phase(dev))
     log("== 3. reduced recurrentgemma_9b (fp32): card against CPU, default")
     counts.update(reduced_recurrent_phase(dev))
@@ -5330,6 +5601,7 @@ def main() -> int:
             f"[{name}] {overrides or ENGINE_KW.get(name) or '(defaults)'}")
         counts[name], serving[name] = serving_phase(dev, name)
         log(f"  [{name}] serving summary: {json.dumps(serving[name])}")
+    isa_ratio = int8_isa_ratio(serving)
     speculative = {}
     for run, (name, groups, weights) in SPEC_RUNS.items():
         log(f"== 5. full-width speculative serving [{run}]: configuration "
@@ -5373,7 +5645,9 @@ def main() -> int:
                                  STARCODER2_ROWS),
                                 ("at_musicgen", "musicgen",
                                  MUSICGEN_ROWS),
-                                ("at_int8", "int8", INT8_ROWS)):
+                                ("at_int8", "int8", INT8_ROWS),
+                                ("at_decode", "amx-int8",
+                                 AMX_INT8_DECODE_ROWS)):
             if name in at:
                 row = next(r for r in mine if r["shape"] == at[name])
                 kernels[-1][key] = {
@@ -5399,6 +5673,7 @@ def main() -> int:
                     f"{TRAIN_ROWS[name]} are not all among its rows")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"nvidia_smi": smi, "rows": rows, "serving": serving,
+                   "int8_isa_ratio": isa_ratio,
                    "speculative": speculative, "model_level": model_level,
                    "training": training, "training_amx": training_amx,
                    "kernels": kernels,

@@ -9,14 +9,14 @@ hand-written kernels implement.  Three mainloops exist (``csrc/``):
 
 - the **tile loop** (``gemm_tile.cuh``; B1, B2, B3 and B8 on what their
   other engines leave: B1's int8 at M ≤ 16, B2's and B3's int8 off the
-  cluster rule, B8's int8, unaligned shapes, B1's M ≤ 16):
+  cluster rule, int8 off the s8 rule, unaligned shapes, B1's M ≤ 16):
   ``(bm, bn) = (16, 128)`` for skinny M ≤ 16 (decode GEMVs: one 16-row
   MMA fragment, wide in N), ``(64, 64)`` otherwise
   (:data:`TILE_LOOP_TILES`), 32 deep in K, loads not pipelined;
 - the **wgmma engine** (``wgmma_mainloop.cuh``; B1, B8 stage 1 and B3
-  past 16 rows on bf16 operands, and B1 and B3 past 16 rows on int8
-  operands): TMA loads 64 deep in K (bf16; 128 deep for int8, the same
-  128-byte rows) into a ring of shared-memory stages,
+  past 16 rows on bf16 operands, B1 and B3 past 16 rows and B8 stage 1
+  at every M on int8 operands): TMA loads 64 deep in K (bf16; 128 deep
+  for int8, the same 128-byte rows) into a ring of shared-memory stages,
   wgmma with the accumulator in registers, at ``bm`` ∈ {64, 128} × ``bn``
   ∈ {64, 128, 256} (:data:`WGMMA_TILES`; bf16acc ``bn`` ≤ 128);
 - the **SIMT f32 engine** (``simt_f32_mainloop.cuh``; B1, B2 and B3 on
@@ -49,8 +49,8 @@ The rigid ``"amx"`` policy (the AMX-style baseline, ``csrc/rigid_gemm.cu``)
 adapts nothing: it is always granted the one rigid tile, 128 x 128 with a
 128-deep K block and no split, as the JAX solver grants it
 (``geometry.py:422-426`` there), on whichever mainloop :func:`gemm_engine`
-names (the rigid tile is a wgmma tile and a SIMT tile, so bf16 and f32
-operands run it on the engines built for Hopper, at every M: the
+names (the rigid tile is a wgmma tile and a SIMT tile, so bf16, int8
+and f32 operands run it on the engines built for Hopper, at every M: the
 128-row padding of a small M is the baseline's handicap by design).
 
 ``bk`` is the K slice a plan works in: the split-K slice granularity and,
@@ -139,15 +139,21 @@ def _simt(dtype_in, tile: Tuple[int, int], m: int, n: int, k: int, *,
             and k % SIMT_ALIGN == 0 and n % SIMT_ALIGN == 0)
 
 
-def _s8(dtype_in, tile: Tuple[int, int], m: int, n: int, k: int) -> bool:
-    """The int8 wgmma engine's rule (B1 and B3): int8 operands with their
-    int32 accumulator, more than 16 rows (decode rows stay on the tile
-    loops; the plan offers wgmma tiles only from 64 rows), a wgmma tile,
-    K a multiple of 16 and N of 8 (TMA's 16-byte rows of the K-major
-    operands)."""
-    return (dtype_name(dtype_in) == "int8" and tile in WGMMA_TILES
-            and m > GROUPED_MAX_M and k % WGMMA_S8_ALIGN_K == 0
-            and n % WGMMA_ALIGN == 0)
+def _s8(dtype_in, tile: Tuple[int, int], m: int, n: int, k: int, *,
+        rigid: bool = False) -> bool:
+    """The int8 wgmma engine's rule: int8 operands with their int32
+    accumulator, K a multiple of 16 and N of 8 (TMA's 16-byte rows of the
+    K-major operands); on B1 and B3 more than 16 rows (decode rows run the
+    cluster split-K engines; the plan offers wgmma tiles only from 64
+    rows) at a wgmma tile; on B8 (``rigid``) its one tile at every M (the
+    rows past M are TMA's zeros, the padding the rigid tile pays by
+    design) and K up to S8_MAX_K (the launcher refuses more)."""
+    if dtype_name(dtype_in) != "int8" or k % WGMMA_S8_ALIGN_K \
+            or n % WGMMA_ALIGN:
+        return False
+    if rigid:
+        return tile == RIGID_TILE[:2] and k <= S8_MAX_K
+    return tile in WGMMA_TILES and m > GROUPED_MAX_M
 
 
 def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
@@ -161,9 +167,10 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
 
     - ``"wgmma"`` when the operands are bf16, the tile is a wgmma tile
       (bf16acc: ``bn`` ≤ 128; rigid: the 128 x 128 tile) and K and N are
-      multiples of 8 (TMA's 16-byte row alignment); and, not rigid, when
-      the operands are int8 (int32 accumulator) past 16 rows at a wgmma
-      tile with K a multiple of 16 and N of 8 (:func:`_s8`);
+      multiples of 8 (TMA's 16-byte row alignment); and when the operands
+      are int8 (int32 accumulator) with K a multiple of 16 and N of 8,
+      past 16 rows at a wgmma tile, or, rigid, at every M with K up to
+      ``S8_MAX_K`` (:func:`_s8`);
     - ``"simt"`` when the operands are f32, the tile is one of
       :data:`SIMT_TILES` and K and N are multiples of 4, past 16 rows
       (B1: its M ≤ 16 decode tile stays on the tile loop) or at every M
@@ -171,8 +178,7 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
       FMA chain, so bit-equal to it);
     - ``"tile"`` otherwise, when the tile loop is compiled for the tile
       (fp32 off the SIMT engine's tiles or alignment, int8 off the s8
-      rule and B8's int8, M ≤ 16's 16 x 128 tile, strides TMA cannot
-      take);
+      rule, M ≤ 16's 16 x 128 tile, strides TMA cannot take);
     - ValueError when no engine is compiled for the launch (a pinned
       tile is launched as it is or refused, never replanned)."""
     tile = (bm, bn)
@@ -185,7 +191,7 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
     aligned = k % WGMMA_ALIGN == 0 and n % WGMMA_ALIGN == 0
     if wgmma_ok and aligned and dtype_name(dtype_in) == "bfloat16":
         return "wgmma"
-    if not rigid and _s8(dtype_in, tile, m, n, k):
+    if _s8(dtype_in, tile, m, n, k, rigid=rigid):
         return "wgmma"
     if _simt(dtype_in, tile, m, n, k, rigid=rigid):
         return "simt"
@@ -198,8 +204,8 @@ def gemm_engine(dtype_in, bm: int, bn: int, n: int, k: int, *, m: int,
         f"K={k}, N={n}: the wgmma engine "
         f"takes bf16 operands, K and N multiples of {WGMMA_ALIGN} and the "
         f"tiles {WGMMA_TILES} (bf16acc: bn <= {WGMMA_BF16ACC_MAX_BN}), and "
-        f"int8 past {GROUPED_MAX_M} rows with K a multiple of "
-        f"{WGMMA_S8_ALIGN_K}; the "
+        f"int8 past {GROUPED_MAX_M} rows (rigid: at every M) with K a "
+        f"multiple of {WGMMA_S8_ALIGN_K}; the "
         f"SIMT engine f32 operands past {GROUPED_MAX_M} rows (rigid: at "
         f"every M), K and N multiples of {SIMT_ALIGN} and the tiles "
         f"{SIMT_TILES}; the tile loop {TILE_LOOP_TILES}")

@@ -25,6 +25,18 @@
 //   walked as two 64-deep TMA stages (that changes the loads, not the
 //   arithmetic); AccStore writes the f32 accumulator the mainloop staged
 //   in shared memory.
+// - rigid_gemm_wgmma_s8_launch (counter "rigid_gemm_wgmma_s8"): int8
+//   operands with K a multiple of 16 and N of 8 (TMA's 16-byte rows of the
+//   K-major operands), K up to S8_MAX_K, at every M -- the s8 path of the
+//   same mainloop (wg::launch_s8, B1's int8 entry) at the 128 x 128 tile;
+//   one 128-deep int8 stage is the rigid K block.  B comes K-major, (N, K)
+//   row-major (PTX has no transpose bit for .s8; the wrapper copies a
+//   (K, N) B first, as B1's does).  Rows past M and the K tail are TMA's
+//   zeros (a 4-row decode GEMV pays the 128-row tile, as the rigid tile
+//   does by design); S8Store writes the raw int32 accumulator, exact past
+//   2^24.
+//   No split-K: a 4 x 2048 x 16384 GEMV runs 16 CTAs, each 16384 deep --
+//   the rigid handicap.
 // - rigid_gemm_simt_launch (counter "rigid_gemm_simt"): f32 operands with
 //   K and N multiples of 4, at every M -- B1's SIMT f32 mainloop
 //   (simt_f32_mainloop.cuh) at the 128 x 128 tile, the 128-deep K block
@@ -36,8 +48,9 @@
 //   training under the rigid policy.
 // - rigid_gemm_launch (counter "rigid_gemm"): B1's tile loop
 //   (gemm_tile.cuh) at the 128 x 128 tile, the K block walked as four
-//   32-deep shared-memory stages, for int8 and what neither pipelined
-//   engine takes (f32 with K or N not a multiple of 4).
+//   32-deep shared-memory stages, for what no pipelined engine takes
+//   (int8 with K % 16 != 0 or N % 8 != 0, f32 with K or N not a multiple
+//   of 4).
 //   A block takes 86 KB (bf16), 103 KB (f32) or 78 KB (int8) of shared
 //   memory, most of it the accumulator staging tile: above the 48 KB
 //   default, so the launch raises the limit with cudaFuncSetAttribute.
@@ -121,6 +134,21 @@ struct AccStore {
   __device__ __forceinline__ void operator()(int r, int c, float4 v) const {
     if (r >= M || c >= N) return;  // N % 8 == 0: c < N covers c + 3
     *reinterpret_cast<float4*>(acc + static_cast<long>(r) * N + c) = v;
+  }
+};
+
+// Stage 1 on the wgmma engine's s8 path: the raw int32 accumulator, four
+// columns at a time, to device memory as it is.  Not shared with
+// mte_gemm.cu's: a Store in this file's anonymous namespace keeps
+// wg::launch_s8's instantiation, and its function-local `static bool
+// sized`, private to this library (one shared across two libraries would
+// leave the second kernel without its shared-memory limit).
+struct S8Store {
+  int32_t* acc;
+  int M, N;
+  __device__ __forceinline__ void operator()(int r, int c, int4 v) const {
+    if (r >= M || c >= N) return;  // N % 8 == 0: c < N covers c + 3
+    *reinterpret_cast<int4*>(acc + static_cast<long>(r) * N + c) = v;
   }
 };
 
@@ -295,6 +323,22 @@ extern "C" int rigid_gemm_wgmma_launch(const void* a, const void* b,
   return wg::launch<RM, RN, false, false>(
       a, b, M, N, K, lda, ldb, RK, AccStore{static_cast<float*>(acc), M, N},
       static_cast<cudaStream_t>(stream));
+}
+
+// b is (N, K) row-major (K-major); acc is (M, N) int32.  Refuses K past
+// S8_MAX_K (launch_s8) and anything TMA or the 16-byte store cannot take.
+extern "C" int rigid_gemm_wgmma_s8_launch(const void* a, const void* b,
+                                          void* acc, int M, int N, int K,
+                                          long lda, long ldb, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || N % 8 != 0 ||
+      lda % 16 != 0 || ldb % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(b) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(acc) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return wg::launch_s8<RM, RN>(a, b, M, N, K, lda, ldb,
+                               S8Store{static_cast<int32_t*>(acc), M, N},
+                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rigid_gemm_simt_launch(const void* a, const void* b,

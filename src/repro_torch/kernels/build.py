@@ -58,7 +58,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # count each engine apart (``mte_gemm`` / ``splitk_gemm`` /
 # ``grouped_gemm`` / ``rigid_gemm`` the tile loop, ``mte_gemm_wgmma`` /
 # ``grouped_gemm_wgmma`` / ``rigid_gemm_wgmma`` the wgmma mainloop,
-# ``mte_gemm_wgmma_s8`` / ``grouped_gemm_wgmma_s8`` its int8 entries,
+# ``mte_gemm_wgmma_s8`` / ``grouped_gemm_wgmma_s8`` /
+# ``rigid_gemm_wgmma_s8`` its int8 entries,
 # ``mte_gemm_simt`` / ``splitk_gemm_simt`` / ``grouped_gemm_simt`` /
 # ``rigid_gemm_simt`` the SIMT f32 mainloop, ``splitk_gemm_cluster`` and
 # ``grouped_gemm_splitk`` B2's and B3's cluster split-K kernels
@@ -78,7 +79,8 @@ KERNEL_NAMES = ("mte_gemm", "mte_gemm_wgmma", "mte_gemm_wgmma_s8",
                 "grouped_gemm_wgmma_s8", "grouped_gemm_simt",
                 "flash_decode_paged", "flash_decode_paged_mma",
                 "flash_attention", "flash_attention_wgmma", "rigid_gemm",
-                "rigid_gemm_wgmma", "rigid_gemm_simt", "epilogue_pass",
+                "rigid_gemm_wgmma", "rigid_gemm_wgmma_s8",
+                "rigid_gemm_simt", "epilogue_pass",
                 "flash_decode",
                 "flash_decode_mma", "rglru_scan", "rglru_scan_staged")
 

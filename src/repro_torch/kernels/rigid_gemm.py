@@ -11,10 +11,15 @@ matrix ISA (§II-D).  It keeps both handicaps on purpose:
    int32 for int8) to device memory.  Its mainloop is B1's, on the engine
    :func:`repro_torch.core.geometry.gemm_engine` names: the TMA + wgmma
    mainloop for bf16 with K and N multiples of 8 (counter
-   ``rigid_gemm_wgmma``), the SIMT f32 mainloop for f32 with K and N
-   multiples of 4 at every M (counter ``rigid_gemm_simt``; bit-equal to
-   the tile loop), else the tile loop (counter ``rigid_gemm``) — so that
-   MTE against rigid compares flexibility, not mainloops.
+   ``rigid_gemm_wgmma``) and, on its s8 path, for int8 with K a multiple
+   of 16 (up to ``S8_MAX_K``) and N of 8 at every M (counter
+   ``rigid_gemm_wgmma_s8``; B read K-major, so a (K, N) B is copied to
+   (N, K) first by :func:`~repro_torch.kernels.mte_gemm.k_major`, as B1's
+   s8 entry reads it; int32 exact, bit-equal to the tile loop), the SIMT
+   f32 mainloop for f32 with K and N multiples of 4 at every M (counter
+   ``rigid_gemm_simt``; bit-equal to the tile loop), else the tile loop
+   (counter ``rigid_gemm``) — so that MTE against rigid compares
+   flexibility, not mainloops.
 2. **No matrix↔vector interplay.** :func:`epilogue_pass_kernel` is a
    separate element-wise kernel that reads the accumulator back and
    applies α, β·C, bias, softcap and the activation.
@@ -35,16 +40,17 @@ from repro_torch.core.epilogue import ACTIVATION_CODES, Epilogue
 from repro_torch.core.formats import int_matmul
 from repro_torch.core.geometry import RIGID_TILE, gemm_engine
 from repro_torch.kernels import build
-from repro_torch.kernels.mte_gemm import DTYPE_CODES, tma_ready
+from repro_torch.kernels.mte_gemm import DTYPE_CODES, k_major, tma_ready
 
 __all__ = ["rigid_gemm_kernel", "rigid_gemm_torch",
            "rigid_accumulate_kernel", "rigid_accumulate_torch",
+           "s8_accumulate",
            "epilogue_pass_kernel", "epilogue_pass_torch"]
 
 _RIGID_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_long] * 2 + [ctypes.c_int, ctypes.c_void_p])
-# rigid_gemm_wgmma_launch and rigid_gemm_simt_launch: as rigid_gemm_launch
-# without the operand type.
+# rigid_gemm_wgmma_launch, rigid_gemm_wgmma_s8_launch (b (N, K)) and
+# rigid_gemm_simt_launch: as rigid_gemm_launch without the operand type.
 _RIGID_WG_ARGTYPES = _RIGID_ARGTYPES[:8] + _RIGID_ARGTYPES[9:]
 _PASS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_long] * 3
                   + [ctypes.c_float] * 2
@@ -93,22 +99,47 @@ def rigid_accumulate_kernel(a, b, *, engine: Optional[str] = None
         raise ValueError(f"rigid_gemm: engine={engine!r} cannot run "
                          f"{tuple(a.shape)} x {tuple(b.shape)} "
                          f"(gemm_engine chose {chosen!r})")
+    if engine == "wgmma" and a.dtype == torch.int8:
+        # The s8 path reads B K-major: (N, K), copied as B1's is.
+        return s8_accumulate(tma_ready(a), k_major(b, False))
     acc = torch.empty(m, n, dtype=_acc_dtype(a), device=dev)
-    if engine in ("wgmma", "simt"):
-        a, b = tma_ready(a), tma_ready(b)
-        lib, fn = build.entry("rigid_gemm", f"rigid_gemm_{engine}_launch",
-                              _RIGID_WG_ARGTYPES)
-        build.count_launch(f"rigid_gemm_{engine}")
-        head = ()
-    else:
-        a, b = a.contiguous(), b.contiguous()
-        lib, fn = build.entry("rigid_gemm", "rigid_gemm_launch",
-                              _RIGID_ARGTYPES)
-        build.count_launch("rigid_gemm")
+    if engine == "tile":
+        name, argtypes = "rigid_gemm", _RIGID_ARGTYPES
         head = (DTYPE_CODES[a.dtype],)
+        a, b = a.contiguous(), b.contiguous()
+    else:
+        name, argtypes, head = f"rigid_gemm_{engine}", _RIGID_WG_ARGTYPES, ()
+        a, b = tma_ready(a), tma_ready(b)
+    lib, fn = build.entry("rigid_gemm", f"{name}_launch", argtypes)
+    build.count_launch(name)
     err = fn(a.data_ptr(), b.data_ptr(), acc.data_ptr(), m, n, k,
              a.stride(0), b.stride(0), *head, build.stream_ptr(dev))
-    build.check(lib, err, f"rigid_gemm[{engine}]")
+    build.check(lib, err, name)
+    return acc
+
+
+def s8_accumulate(a, bk) -> torch.Tensor:
+    """One launch of stage 1's s8 entry (counter ``rigid_gemm_wgmma_s8``):
+    int8 ``a`` (M, K) times a K-major ``bk`` (N, K), both CUDA tensors with
+    16-byte aligned rows, into the raw int32 accumulator (M, N).  Raises
+    what the entry refuses (K % 16, N % 8, K past ``S8_MAX_K``, unaligned
+    pointers or strides); :func:`rigid_accumulate_kernel` reaches it with
+    the (K, N) B copied, and ``chip_smoke.py`` times it without the copy."""
+    if build.require_cuda(a, bk, what="rigid_gemm_wgmma_s8") is None:
+        raise ValueError("rigid_gemm_wgmma_s8: takes CUDA tensors")
+    m, k = a.shape
+    n = bk.shape[0]
+    if a.dtype != torch.int8 or bk.dtype != torch.int8 or bk.shape[1] != k:
+        raise TypeError(f"rigid_gemm_wgmma_s8: takes int8 (M, K) x (N, K), "
+                        f"got {a.dtype} {tuple(a.shape)} x {bk.dtype} "
+                        f"{tuple(bk.shape)}")
+    acc = torch.empty(m, n, dtype=torch.int32, device=a.device)
+    lib, fn = build.entry("rigid_gemm", "rigid_gemm_wgmma_s8_launch",
+                          _RIGID_WG_ARGTYPES)
+    build.count_launch("rigid_gemm_wgmma_s8")
+    err = fn(a.data_ptr(), bk.data_ptr(), acc.data_ptr(), m, n, k,
+             a.stride(0), bk.stride(0), build.stream_ptr(a.device))
+    build.check(lib, err, "rigid_gemm_wgmma_s8")
     return acc
 
 

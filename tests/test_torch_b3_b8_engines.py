@@ -55,7 +55,9 @@ def fresh_cache():
     ("float32", 1, 4, 4, "simt"),
     ("float32", 16, 258, 128, "tile"),       # N not a multiple of 4
     ("float32", 16, 256, 130, "tile"),       # K not a multiple of 4
-    ("int8", 4096, 2048, 2048, "tile"),
+    ("int8", 4096, 2048, 2048, "wgmma"),     # the s8 path, every M
+    ("int8", 4096, 2048, 2040, "tile"),      # K not a multiple of 16
+    ("int8", 4, 2052, 2048, "tile"),         # N not a multiple of 8
     ("bfloat16", 4, 2048, 2048, "wgmma"),
     ("bfloat16", 4, 2052, 2048, "tile"),     # N not a multiple of 8
 ])

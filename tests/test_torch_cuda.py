@@ -2178,6 +2178,100 @@ def test_ops_int8_runs_the_s8_engine_past_16_rows(card):
     assert ran == {"splitk_gemm_cluster_s8": 1}, ran
 
 
+# -- B8's int8 stage 1 on the s8 path of the wgmma mainloop --------------------
+
+# (M, N, K): rows below, at and past the 128-row tile (the rigid tile pads
+# M = 1, 4 and 16 with TMA's zeros), N past the last 128-column tile, K
+# tails past a 128-deep stage (144, 1040) and 16384-deep GEMVs.
+RIGID_S8 = [(1, 72, 144), (4, 2056, 1040), (16, 16384, 2048),
+            (4, 2048, 16384), (130, 72, 1040), (520, 2056, 144)]
+
+
+@pytest.mark.parametrize("m,n,k", RIGID_S8)
+def test_rigid_s8_bit_equal_to_the_tile_loop_and_plain(card, m, n, k):
+    """B8's int8 stage 1 on the s8 entry at every M: int32 bit-equal to
+    the rigid tile loop (pinned) and to the exact plain product, through
+    ``rigid_accumulate_kernel`` and ``rigid_gemm_kernel``."""
+    gen = torch.Generator().manual_seed(m + n + k)
+    a, b = _ints(gen, m, k), _ints(gen, k, n)
+    assert tgeometry.gemm_engine(torch.int8, 128, 128, n, k, m=m,
+                                 rigid=True) == "wgmma"
+    before = build.launch_counts()
+    got = trigid.rigid_accumulate_kernel(a.to(card), b.to(card))
+    loop = trigid.rigid_accumulate_kernel(a.to(card), b.to(card),
+                                          engine="tile")
+    both = trigid.rigid_gemm_kernel(a.to(card), b.to(card),
+                                    out_dtype=torch.int32)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), trigid.rigid_accumulate_torch(a, b))
+    assert torch.equal(got, loop) and torch.equal(got, both)
+    after = build.launch_counts()
+    ran = {k_: after[k_] - before[k_] for k_ in after
+           if after[k_] != before[k_]}
+    assert ran == {"rigid_gemm_wgmma_s8": 2, "rigid_gemm": 1}, ran
+
+
+@pytest.mark.parametrize("m", [4, 130])
+def test_rigid_s8_sums_past_two_to_the_24_are_exact(card, m):
+    """±127 operands at K = 16384: sums up to 127² · 16384 > 2^24 that f32
+    cannot hold come out of the rigid s8 entry exactly."""
+    n, k = 272, 16384
+    a = torch.full((m, k), 127, dtype=torch.int8)
+    b = torch.full((k, n), -127, dtype=torch.int8)
+    b[::2, 1::2] = 127
+    b[:3, ::3] = 1
+    b[3, ::3] = 2
+    want = trigid.rigid_accumulate_torch(a, b)
+    assert int(want.abs().max()) > 2 ** 24
+    assert not torch.equal(want.float().long(), want.long())
+    got = trigid.rigid_accumulate_kernel(a.to(card), b.to(card))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_rigid_s8_refuses_what_it_cannot_take(card):
+    """Off the rule the rigid route names the tile loop and pinning the s8
+    engine raises before a launch; the C entry refuses K past S8_MAX_K
+    (the int32 sum could overflow), a K not a multiple of 16 and an
+    unaligned pointer with an error, not a clamp or another engine."""
+    gen = torch.Generator().manual_seed(47)
+    a, b = _ints(gen, 4, 1032), _ints(gen, 1032, 256)
+    before = build.launch_counts()
+    with pytest.raises(ValueError, match="engine='wgmma'"):
+        trigid.rigid_accumulate_kernel(a.to(card), b.to(card),
+                                       engine="wgmma")
+    assert build.launch_counts() == before
+    with pytest.raises(RuntimeError, match="rigid_gemm_wgmma_s8"):
+        trigid.s8_accumulate(a.to(card), b.t().contiguous().to(card))
+    k = tgeometry.S8_MAX_K + 16
+    assert tgeometry.gemm_engine(torch.int8, 128, 128, 64, k, m=4,
+                                 rigid=True) == "tile"
+    a, bk = _ints(gen, 4, k), _ints(gen, 64, k)
+    with pytest.raises(RuntimeError, match="rigid_gemm_wgmma_s8"):
+        trigid.s8_accumulate(a.to(card), bk.to(card))
+    a, bk = _ints(gen, 4, 2064).to(card), _ints(gen, 64, 2048).to(card)
+    with pytest.raises(RuntimeError, match="rigid_gemm_wgmma_s8"):
+        trigid.s8_accumulate(a[:, 1:2049], bk)
+
+
+@pytest.mark.parametrize("m", [4, 512])
+def test_ops_amx_int8_runs_the_rigid_s8_engine(card, m):
+    """``ops.mte_gemm(policy="amx", format_policy="int8")`` at 4 and 512
+    rows launches the rigid s8 entry once and nothing else, and equals
+    the CPU's plain route bit for bit (quantize, int32 sum and dequantize
+    are exact on both devices)."""
+    gen = torch.Generator().manual_seed(53)
+    a = torch.randn(m, 512, generator=gen)
+    b = torch.randn(512, 256, generator=gen)
+    before = build.launch_counts()
+    got = tops.mte_gemm(a.to(card), b.to(card), policy="amx",
+                        format_policy="int8")
+    after = build.launch_counts()
+    assert torch.equal(got.cpu(), tops.mte_gemm(a, b, policy="amx",
+                                                format_policy="int8"))
+    ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert ran == {"rigid_gemm_wgmma_s8": 1}, ran
+
+
 # -- int8 decode GEMMs on the cluster split-K engines (B2 and B3) -------------
 
 # Ragged int8 decode shapes (K, N) the cluster engines take: K 144 (one

@@ -1,6 +1,7 @@
 """int8 past 16 rows on the wgmma engine of B1 and B3 (the mainloop's s8
 entries, ``mte_gemm_wgmma_s8`` and ``grouped_gemm_wgmma_s8``): the engine
-rules (``geometry.gemm_engine``, ``geometry.grouped_engine``), the plans
+rules (``geometry.gemm_engine``, ``geometry.grouped_engine``; B8's rigid
+int8 stage 1 on the same entry, test_torch_rigid_int8.py), the plans
 (``autotune.enumerate_candidates`` offers the wgmma tiles to int8
 signatures from 64 rows; gemma_2b's and granite_moe_1b's prefill
 projections are granted one; the price pads K to the 128-deep int8
@@ -84,12 +85,18 @@ def test_b1_int8_stays_on_the_tile_loop_up_to_16_rows(m, tile, want):
                                  m=m) == want
 
 
-@pytest.mark.parametrize("m", [4, 512, 4096])
-def test_b8_int8_stage_one_stays_on_the_tile_loop(m):
-    """B8's int8 stage 1 is not moved in this slice: rigid, the one tile
-    is the tile loop's whatever the alignment."""
-    assert tgeometry.gemm_engine(torch.int8, 128, 128, 2048, 2048, m=m,
-                                 rigid=True) == "tile"
+@pytest.mark.parametrize("m,n_,k,want", [
+    (4, 2048, 2048, "wgmma"), (512, 2048, 2048, "wgmma"),
+    (4096, 2048, 2048, "wgmma"),
+    (512, 2048, 2040, "tile"),       # K not a multiple of 16
+    (4, 2052, 2048, "tile"),         # N not a multiple of 8
+])
+def test_b8_int8_stage_one_takes_the_s8_engine_at_every_m(m, n_, k, want):
+    """B8's int8 stage 1 runs the s8 path of the wgmma mainloop at its one
+    128 x 128 tile whatever M (rows past M are TMA's zeros), where K is a
+    multiple of 16 and N of 8; off that rule, the tile loop."""
+    assert tgeometry.gemm_engine(torch.int8, 128, 128, n_, k, m=m,
+                                 rigid=True) == want
 
 
 @pytest.mark.parametrize("g,m,n_,k,tile,want", [

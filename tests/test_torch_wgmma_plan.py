@@ -155,7 +155,9 @@ def test_check_kernel_tile_accepts_exactly_the_compiled_set():
     ("bfloat16", 128, 128, 16384, 2048, False, True, "wgmma"),
     ("bfloat16", 128, 128, 300, 1000, False, True, "tile"),
     ("float32", 128, 128, 2048, 2048, False, True, "simt"),
-    ("int8", 128, 128, 2048, 2048, False, True, "tile"),
+    ("int8", 128, 128, 2048, 2048, False, True, "wgmma"),    # s8, rigid
+    ("int8", 128, 128, 2048, 2040, False, True, "tile"),     # K % 16
+    ("int8", 128, 128, 2044, 2048, False, True, "tile"),     # N % 8
     ("bfloat16", 64, 64, 2048, 2048, False, True, None),
 ])
 def test_gemm_engine_table(dtype, bm, bn, n_, k, bf16acc, rigid, want):

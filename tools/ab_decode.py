@@ -3,7 +3,9 @@
 at the decode GEMMs of gemma_2b, recurrentgemma_9b and gemma2_27b (through
 the plan the plan cache grants, with the weight warm and cold in L2), B3
 at their three decode q/k/v groups, B4 at gemma_2b's decode attention, B6 at
-recurrentgemma_9b's ring decode attention (warm and cold), B8's epilogue
+recurrentgemma_9b's ring decode attention (warm and cold), B8's stage 1
+at gemma_2b's gate under amx (bf16, prefill chunk and decode, and int8 on
+whatever engine the checkout's rule names) and its epilogue
 pass at the amx path's shapes and at a ragged one, and B7 at the serving
 prefill's (1, 512, 4096) on every engine the checkout has,
 from zero and, where the checkout takes one, from h0, each with a SHA-256
@@ -18,7 +20,8 @@ compare them on one card:
 ROOT is the checkout whose ``src/repro_torch`` and ``chip_smoke.py`` (for
 its timers) are used; the kernels build into ``ROOT/build``.  ``--same``
 FILE fails the run unless every B2, B3, B4 and epilogue-pass output hash
-FILE has equals this run's, and every B7 row FILE has too (the direct
+FILE has equals this run's, as does every B8 stage-1 row (bf16 on the same
+engine; int8 exact on any), and every B7 row FILE has too (the direct
 engine from zero, in a checkout before the staged engine) equals FILE's
 (B6's engine may differ between checkouts; its hash shows that repeated
 calls agree).  Every run fails unless its B7 rows from zero share one
@@ -58,7 +61,8 @@ def main() -> int:
                                                   flash_decode_paged_kernel)
     from repro_torch.kernels import rglru_scan as scan_mod
     from repro_torch.kernels.grouped_gemm import grouped_gemm_kernel
-    from repro_torch.kernels.rigid_gemm import epilogue_pass_kernel
+    from repro_torch.kernels.rigid_gemm import (epilogue_pass_kernel,
+                                                rigid_accumulate_kernel)
     from repro_torch.kernels.splitk_gemm import mte_gemm_splitk_kernel
 
     def sha(x):
@@ -84,7 +88,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     res = {"root": root, "nvidia_smi": smi, "b2": {}, "b3": {}, "b4": {},
-           "b6": {}, "pass": {}, "b7": {}}
+           "b6": {}, "b8": {}, "pass": {}, "b7": {}}
     cache = PlanCache()
     bf16 = torch.bfloat16
     for label, m, n, k, act in [
@@ -152,6 +156,23 @@ def main() -> int:
         q, ring_k.transpose(1, 2), ring_v.transpose(1, 2), kvp, qp,
         window=2048)
     res["b6"]["ring 4x16x256 L=2048"] = timed(run)
+    # B8's stage 1 at the amx path's gate, prefill chunk and decode: bf16
+    # (the wgmma engine) and int8 (the engine the checkout's rule names).
+    for label, m, dt in [("bf16 gate 512x16384x2048", 512, bf16),
+                         ("bf16 gate 4x16384x2048", 4, bf16),
+                         ("int8 gate 512x16384x2048", 512, torch.int8),
+                         ("int8 gate 4x16384x2048", 4, torch.int8)]:
+        gen = torch.Generator(device=dev).manual_seed(m + 11)
+        if dt == bf16:
+            a = (torch.randn(m, 2048, generator=gen, device=dev)
+                 / math.sqrt(2048)).to(bf16)
+            b = torch.randn(2048, 16384, generator=gen, device=dev).to(bf16)
+        else:
+            a, b = (torch.randint(-127, 128, shape, generator=gen,
+                                  device=dev, dtype=dt)
+                    for shape in ((m, 2048), (2048, 16384)))
+        run = lambda: rigid_accumulate_kernel(a, b)  # noqa: E731
+        res["b8"][label] = timed(run)
     # B8's pass: the amx path's gate (prefill chunk and decode) with gelu,
     # the prefill shape with beta*C + bias + softcap, and a ragged N
     # (not a multiple of 8) with every option.
@@ -204,15 +225,15 @@ def main() -> int:
     if args.same:
         with open(args.same) as fh:
             ref = json.load(fh)
-        for part in ("b2", "b3", "b4", "pass", "b7"):
+        for part in ("b2", "b3", "b4", "b8", "pass", "b7"):
             for label, row in res[part].items():
-                if part == "b7" and label not in ref.get(part, {}):
+                if part in ("b7", "b8") and label not in ref.get(part, {}):
                     continue
                 if row["sha256"] != ref[part][label]["sha256"]:
                     print(f"ab_decode: {part} output at {label} differs "
                           f"from {args.same}", file=sys.stderr)
                     return 1
-        print("ab_decode: every B2, B3, B4, pass and B7 output equals "
+        print("ab_decode: every B2, B3, B4, B8, pass and B7 output equals "
               "the reference's bit for bit")
     return 0
 
