@@ -74,7 +74,8 @@ Phases (any failure raises and the script exits non-zero):
    ``grouped_gemm_splitk_s8`` bit-equal to the tile loops, the plain
    versions and ``int_matmul`` at M 1, 5 and 16, ragged K and N, every
    slice count, x broadcast and per member, widths, and ±127 operands at
-   K = 16384; timed at gemma_2b's int8 decode GEMMs and q/k/v group, warm,
+   K = 16384; timed at gemma_2b's int8 decode GEMMs and q/k/v group and
+   granite_moe_1b's decode o and experts' gate and down (C = 8), warm,
    L2-cold and by split, beside ``torch._int_mm`` on the rows padded to
    32 and the tile loops, which get rows of their own); B8's int8 stage 1
    on the s8 entry of the wgmma mainloop at its one 128 x 128 tile at
@@ -122,9 +123,17 @@ Phases (any failure raises and the script exits non-zero):
    logits within 5e-2; its decode GEMMs on B2's and B3's cluster
    engines), and starcoder2_7b.reduced() (LayerNorm with a bias, the plain
    GELU MLP with biases, every layer local, biases and norm parameters
-   drawn away from zero and one; prompts longer than its 16-slot window):
+   drawn away from zero and one; prompts longer than its 16-slot window),
+   and the MoE layer (``reduced_moe_phase``): granite_moe_1b.reduced()
+   under int8 and qwen3_moe_235b.reduced() in bf16 with QK-norm, both at
+   the published capacity factor 1.25 with 128-token chunks (the experts'
+   GEMMs on B3's wgmma entries at C = 80, and on its split-K entries in
+   the decode steps at C = 8), the CPU run's dropped assignments printed
+   (granite's above 0), page-table rows per request and prefix
+   registrations equal too:
    first-token logits within
-   1e-3, identical greedy token streams from the card's engine in its
+   1e-3 (2e-2 under int8 and bf16), identical greedy token streams from
+   the card's engine in its
    defaults (async, depth 2, the decode step replayed as a CUDA graph)
    and the CPU's synchronous eager engine, and the same with
    ``spec_k=4`` (speculative decoding; equal to the vanilla streams too),
@@ -148,7 +157,16 @@ Phases (any failure raises and the script exits non-zero):
    under it with the rigid baseline (``amx-int8``: every projection of a
    prefill chunk and of a decode step, 126 each, on B8's s8 entry at the
    128 x 128 tile; no other GEMM kernel, no epilogue pass; the ratio of
-   its step and chunk device times to ``int8``'s is printed), then
+   its step and chunk device times to ``int8``'s is printed), and
+   granite_moe_1b (``granite``: 24 layers, d_model 1024, GQA 16/8 x 64,
+   32 experts top-8 of d_ff 512 at capacity factor 1.25, under its
+   published int8 with f32 weights from seed 0; gemma_2b's workload; a
+   chunk runs 96 ``mte_gemm_wgmma_s8``, 72 ``grouped_gemm_wgmma_s8`` at
+   C = 160 and 24 B5 launches, a step 96 ``grouped_gemm_splitk_s8`` (the
+   q/k/v group and the experts at C = 8), 24 ``splitk_gemm_cluster_s8``
+   and 24 B4; no tile loop; the step's bound counts the router and every
+   expert, and the experts the profiled step routed to are printed
+   beside it), then
    recurrentgemma_9b (38 layers, d_model 4096;
    2560-token prompts, so its 2048-slot rings wrap in prefill and decode)
    and gemma2_27b (46 layers alternating local and global, d_model 4608,
@@ -271,6 +289,7 @@ Phases (any failure raises and the script exits non-zero):
    kernel (the unsplit k/v dB, the B^T copies, the accumulators' round
    trips and the epilogue passes stand apart).
 
+Each phase's seconds are printed on a line of their own ("-- N s:").
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the rest of the checkout, it exits non-zero and prints no
@@ -294,13 +313,21 @@ PEAK = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 
 
 _T0 = time.perf_counter()
+# (header, start) of each phase logged so far.
+_PHASES = []
 
 
 def log(*args):
     """Print at once; a phase's header ("== ...") also gets the seconds
-    since the script started, so each phase's share of the limit shows."""
+    since the script started, and the phase before it a line of its own
+    with its seconds, so each phase's share of the limit shows."""
     if args and str(args[0]).startswith("== "):
-        args = (*args, f"[{time.perf_counter() - _T0:.1f} s]")
+        now = time.perf_counter()
+        if _PHASES:
+            print(f"-- {now - _PHASES[-1][1]:.1f} s: {_PHASES[-1][0]}",
+                  flush=True)
+        _PHASES.append((str(args[0])[3:60], now))
+        args = (*args, f"[{now - _T0:.1f} s]")
     print(*args, flush=True)
 
 
@@ -1176,12 +1203,10 @@ S8_GEMMS = [("gate", 512, 16384, 2048), ("up", 512, 16384, 2048),
             ("down", 512, 2048, 16384), ("q/o", 512, 2048, 2048),
             ("k/v", 512, 256, 2048), ("granite q/o", 512, 1024, 1024),
             ("granite k/v", 512, 512, 1024)]
-# granite_moe_1b's 32 experts (d_model 1024, d_ff 512), each its own x: a
-# capacity of 1024 rows (4096 tokens x top-8 / 32, as the bf16 rows) and
-# of 160 (a 512-token chunk at capacity_factor 1.25), gate and down.
-S8_EXPERTS = [("moe gate", 32, 1024, 1024, 512),
-              ("moe gate", 32, 160, 1024, 512),
-              ("moe down", 32, 1024, 512, 1024),
+# granite_moe_1b's 32 experts (d_model 1024, d_ff 512), each its own x,
+# at the capacity of its served 512-token chunk (C = 160 at capacity
+# factor 1.25), gate and down.
+S8_EXPERTS = [("moe gate", 32, 160, 1024, 512),
               ("moe down", 32, 160, 512, 1024)]
 
 
@@ -1489,8 +1514,13 @@ S8_DECODE_SHAPES = [(144, 2064), (2048, 2064), (16384, 400)]
 # gemma_2b's int8 decode GEMMs at 4 slots on B2 (gate and up share one
 # shape) and its decode q/k/v group on B3 (widths 2048/256/256).
 S8_DECODE_GEMMS = [("o", 4, 2048, 2048), ("gate", 4, 16384, 2048),
-                   ("down", 4, 2048, 16384)]
-S8_DECODE_QKV = (3, 4, 2048, 2048, (2048, 256, 256))
+                   ("down", 4, 2048, 16384), ("granite o", 4, 1024, 1024)]
+# B3's s8 split-K groups of a decode step: (label, G, C, K, N, widths):
+# gemma_2b's q/k/v (widths 2048/256/256), and granite_moe_1b's experts'
+# gate and down at 4 slots (C = 8 rows, each expert its own x).
+S8_DECODE_GROUPS = [("qkv decode", 3, 4, 2048, 2048, (2048, 256, 256)),
+                    ("granite moe gate decode", 32, 8, 1024, 512, None),
+                    ("granite moe down decode", 32, 8, 512, 1024, None)]
 
 
 def int8_decode_phase(dev, rows):
@@ -1655,6 +1685,61 @@ def int8_decode_phase(dev, rows):
             f"{row['tile_loop_ms'] / row['ms']:.1f}x); by split "
             f"{row['ms_by_split']} (planned {slices})")
 
+    def s8_decode_group(label, g, c, k, n, widths):
+        sig = GemmSignature.make(c, n, k, "int8", "int32", fmt="int8",
+                                 group=g)
+        plan = cache.plan(sig)
+        engine = plan_engine(sig, plan.geometry)
+        log(f"  int8 {label} G={g} {c}x{k}->{n} widths {widths}: plan "
+            f"{plan.describe()}, engine {engine}")
+        require(engine == "splitk", f"int8 {label}: on {engine}")
+        # What the decode step hands it: x quantized per member
+        # (contiguous); the prestacked q/k/v weight zero past its widths.
+        x, w = ints(g, c, k), ints(g, k, n)
+        widths = list(widths) if widths else None
+        for i, wd in enumerate(widths or ()):
+            w[i, :, wd:] = 0
+        kw = dict(geom=plan.geometry, out_dtype=i32, widths=widths)
+        slices, depth = split_layout(x, w, widths=widths, sm_count=sms)
+        run = lambda: grouped_gemm_kernel(x, w, **kw)  # noqa: E731
+        plain = lambda: grouped_splitk_torch(  # noqa: E731
+            x, w, n_split=slices, depth=depth, out_dtype=i32,
+            widths=widths)
+        loop = lambda: grouped_gemm_kernel(  # noqa: E731
+            x, w, engine="tile", **kw)
+        exact(f"grouped_gemm_splitk_s8 main-path int8 {label}", run(),
+              plain(), grouped_gemm_torch(x, w, **kw), loop())
+        pinned = []
+        for s in (1, 2, 4, 8):
+            f = lambda s=s: grouped_gemm_kernel(x, w, n_split=s,  # noqa
+                                                **kw)
+            try:
+                got = f()
+            except ValueError:
+                continue     # more slices than 128-row stages
+            require(torch.equal(got, run()), f"{label}: {s} slices differ")
+            pinned.append((s, f))
+        # No one library call: each member's torch._int_mm over its live
+        # columns, the rows padded to 32, summed.
+        live = widths or [n] * g
+        calls = [padded_int_mm(x[i], w[i, :, :wd].contiguous())
+                 for i, wd in enumerate(live)]
+        flops = 2.0 * c * k * sum(live)
+        nbytes = g * c * k + k * sum(live) + 4.0 * g * c * n
+        timed({"kernel": "grouped_gemm_splitk_s8",
+               "shape": f"int8 {label} {g}x{c}x{k}x{n}", "engine": engine,
+               "plan": plan.describe(), "max_abs_err": 0.0, "tol": 0.0,
+               "bound_ms": bound_ms(flops, nbytes, peak),
+               "bound_by": bound_by(flops, nbytes, peak),
+               "library": f"{g} torch._int_mm calls summed ({c} rows "
+                          f"padded to 32)",
+               "int_mm_members_ms": time_ms(lambda: [f() for f in calls])
+               if all(calls) else None,
+               "tile_loop": "grouped_gemm",
+               "tile_loop_plain_ms": time_ms(
+                   lambda: grouped_gemm_torch(x, w, **kw), iters=3)},
+              run, plain, loop, None, slices, pinned)
+
     for label, m, n, k in S8_DECODE_GEMMS:
         sig = GemmSignature.make(m, n, k, "int8", "int32", fmt="int8")
         plan = cache.plan(sig)
@@ -1700,53 +1785,8 @@ def int8_decode_phase(dev, rows):
                    iters=3)},
               run, plain, loop, padded_int_mm(a, b), slices, pinned)
 
-    g, c, k, n, widths = S8_DECODE_QKV
-    sig = GemmSignature.make(c, n, k, "int8", "int32", fmt="int8", group=g)
-    plan = cache.plan(sig)
-    engine = plan_engine(sig, plan.geometry)
-    log(f"  int8 decode q/k/v G={g} {c}x{k}->{n} widths {widths}: plan "
-        f"{plan.describe()}, engine {engine}")
-    require(engine == "splitk", f"int8 decode q/k/v: on {engine}")
-    # What the decode step hands it: x quantized per member (contiguous),
-    # the prestacked weight with k/v zero past 256 columns.
-    x, w = ints(g, c, k), ints(g, k, n)
-    for i, wd in enumerate(widths):
-        w[i, :, wd:] = 0
-    kw = dict(geom=plan.geometry, out_dtype=i32, widths=list(widths))
-    slices, depth = split_layout(x, w, widths=widths, sm_count=sms)
-    run = lambda: grouped_gemm_kernel(x, w, **kw)  # noqa: E731
-    plain = lambda: grouped_splitk_torch(  # noqa: E731
-        x, w, n_split=slices, depth=depth, out_dtype=i32,
-        widths=list(widths))
-    loop = lambda: grouped_gemm_kernel(  # noqa: E731
-        x, w, engine="tile", **kw)
-    exact("grouped_gemm_splitk_s8 main-path int8 decode q/k/v", run(),
-          plain(), grouped_gemm_torch(x, w, **kw), loop())
-    pinned = []
-    for s in (1, 2, 4, 8):
-        f = lambda s=s: grouped_gemm_kernel(x, w, n_split=s, **kw)  # noqa
-        require(torch.equal(f(), run()), f"q/k/v: {s} slices differ")
-        pinned.append((s, f))
-    # No one library call: each member's torch._int_mm over its live
-    # columns, 4 rows padded to 32, summed.
-    calls = [padded_int_mm(x[i], w[i, :, :wd].contiguous())
-             for i, wd in enumerate(widths)]
-    live = sum(widths)
-    flops = 2.0 * c * k * live
-    nbytes = g * c * k + k * live + 4.0 * g * c * n
-    timed({"kernel": "grouped_gemm_splitk_s8",
-           "shape": f"int8 qkv decode {g}x{c}x{k}x{n}", "engine": engine,
-           "plan": plan.describe(), "max_abs_err": 0.0, "tol": 0.0,
-           "bound_ms": bound_ms(flops, nbytes, peak),
-           "bound_by": bound_by(flops, nbytes, peak),
-           "library": f"{g} torch._int_mm calls summed (4 rows padded to "
-                      f"32)",
-           "int_mm_members_ms": time_ms(lambda: [f() for f in calls])
-           if all(calls) else None,
-           "tile_loop": "grouped_gemm",
-           "tile_loop_plain_ms": time_ms(
-               lambda: grouped_gemm_torch(x, w, **kw), iters=3)},
-          run, plain, loop, None, slices, pinned)
+    for label, g, c, k, n, widths in S8_DECODE_GROUPS:
+        s8_decode_group(label, g, c, k, n, widths)
 
 
 # -- phase 2: B8's int8 stage 1 on the s8 path of the wgmma mainloop ----------
@@ -2723,6 +2763,7 @@ CONFIGS = {
     "starcoder2": ("starcoder2_7b", {"param_dtype": "bfloat16"}),
     "int8": ("gemma_2b", {}),
     "amx-int8": ("gemma_2b", {"gemm_policy": "amx"}),
+    "granite": ("granite_moe_1b", {}),
 }
 # Engine arguments of a configuration: ``int8`` serves gemma_2b under the
 # engine's ``format_policy="int8"`` (its f32 weights quantized at every
@@ -2753,6 +2794,9 @@ PATH_KERNELS = {
              "flash_attention_wgmma"),
     "amx-int8": ("rigid_gemm_wgmma_s8", "flash_decode_paged_mma",
                  "flash_attention_wgmma"),
+    "granite": ("mte_gemm_wgmma_s8", "splitk_gemm_cluster_s8",
+                "grouped_gemm_splitk_s8", "grouped_gemm_wgmma_s8",
+                "flash_decode_paged_mma", "flash_attention_wgmma"),
 }
 # Counters that must stay 0 at full width: every bf16 B1 launch (all of
 # them prefill projections) and every bf16 B8 stage-1 launch runs on the
@@ -2797,6 +2841,15 @@ NOT_ON_PATH = {
                  "grouped_gemm_splitk_s8", "grouped_gemm_wgmma",
                  "grouped_gemm_wgmma_s8", "grouped_gemm_simt",
                  "flash_decode_paged", "flash_attention"),
+    # granite (its published int8): no tile loop, no SIMT kernel and no
+    # bf16 or f32 GEMM engine; the experts run B3's s8 entries, the
+    # prefill projections B1's, the decode o B2's.
+    "granite": ("mte_gemm", "mte_gemm_wgmma", "mte_gemm_simt",
+                "splitk_gemm", "splitk_gemm_cluster", "splitk_gemm_simt",
+                "grouped_gemm", "grouped_gemm_splitk", "grouped_gemm_wgmma",
+                "grouped_gemm_simt", "rigid_gemm", "rigid_gemm_wgmma",
+                "rigid_gemm_simt", "rigid_gemm_wgmma_s8", "epilogue_pass",
+                "flash_decode_paged", "flash_attention"),
 }
 # Launches per profiled prefill chunk of the int8 configurations: every
 # projection of gemma_2b's 18 layers (q, k, v, o, gate, up, down) on the
@@ -2806,6 +2859,10 @@ CHUNK_LAUNCHES = {
              "grouped_gemm": 0, "grouped_gemm_wgmma_s8": 0},
     "amx-int8": {"rigid_gemm_wgmma_s8": 18 * 7, "rigid_gemm": 0,
                  "mte_gemm_wgmma_s8": 0, "epilogue_pass": 0},
+    # granite: q, k, v and o of its 24 layers on B1's s8 entry, the
+    # experts' gate, up and down (C = 160 for 512 tokens) on B3's.
+    "granite": {"mte_gemm_wgmma_s8": 24 * 4, "grouped_gemm_wgmma_s8": 24 * 3,
+                "mte_gemm": 0, "splitk_gemm": 0, "grouped_gemm": 0},
 }
 # Launches of the new engines per profiled decode step: gemma_2b's 18
 # layers run B2 on o, gate, up and down (and on q, k, v on the eager path)
@@ -2831,10 +2888,16 @@ DECODE_STEP_LAUNCHES = {
                    "flash_decode_mma": 32},
     "int8": {"splitk_gemm_cluster_s8": 72, "flash_decode_paged_mma": 18},
     "amx-int8": {"rigid_gemm_wgmma_s8": 126, "flash_decode_paged_mma": 18},
+    # granite: B3's s8 entry on the q/k/v group and the experts' gate, up
+    # and down (C = 8 for 4 slots) of its 24 layers, B2's on o, B4 once.
+    "granite": {"grouped_gemm_splitk_s8": 24 * 4,
+                "splitk_gemm_cluster_s8": 24, "flash_decode_paged_mma": 24},
 }
 # The counter of the decode step's grouped q/k/v where it is not B3's
-# bf16 split-K entry: int8 groups of 4 rows run its s8 entry.
-DECODE_QKV_KERNEL = {"int8": "grouped_gemm_splitk_s8"}
+# bf16 split-K entry: int8 groups of 4 rows run its s8 entry.  A MoE
+# layer's three expert GEMMs at C = 8 run on the same entry.
+DECODE_QKV_KERNEL = {"int8": "grouped_gemm_splitk_s8",
+                     "granite": "grouped_gemm_splitk_s8"}
 # Phase 4's workload per arch: 4 slots, 16-token pages, 512-token prefill
 # chunks, 6 requests x 24 greedy tokens.  gemma_2b: 1024-token prompts, two
 # sharing their first chunk (the prefix cache).  recurrentgemma_9b:
@@ -2858,6 +2921,8 @@ WORKLOADS = {
                       decode=[2054, 2065, 2048, 2071], pos0=1536),
     "starcoder2_7b": dict(prefill_len=4608, cache_len=4672, shared=0,
                           decode=[4614, 4625, 4608, 4631], pos0=4096),
+    "granite_moe_1b": dict(prefill_len=1024, cache_len=1088, shared=512,
+                           decode=[1030, 1041, 1024, 1047], pos0=512),
 }
 
 
@@ -2872,7 +2937,8 @@ def free_card():
 
 def memory_reckoning(eng):
     """The bytes the engine keeps on the card, by item (each tensor once):
-    its weights at the width it serves them, the stacked decode q/k/v
+    its weights at the width it serves them (a MoE layer's router and
+    experts apart), the stacked decode q/k/v
     (``engine._stack_decode_qkv``), the LM head's f32 copy
     (``serving_params``), the global layers' paged KV, the local layers'
     rings, the RG-LRU rows and the draft's cache; in GB (1e9 bytes)."""
@@ -2897,6 +2963,10 @@ def memory_reckoning(eng):
         "lm_head_f32": size(params["embedding"]["unembed"]),
         "decode_qkv_stack": size([lp["mixer"].get("qkv")
                                   for lp in params["layers"]]),
+        # A MoE layer's router and all its experts (held whole: the
+        # capacity buffer runs every expert).
+        "moe_router_experts": size([lp["ffn"] for lp in params["layers"]
+                                    if "router" in lp["ffn"]]),
         "weights": size(params),
     }
     kinds = [mixer for mixer, _ in eng.cfg.layer_kinds]
@@ -3155,6 +3225,155 @@ def reduced_int8_phase(dev):
                     f"[{name}] greedy stream of request {rid} differs")
         log(f"  reduced engine [{name}]: greedy streams identical on cuda "
             f"(async + graph) and cpu (synchronous, eager)")
+        path_counts[f"reduced-{name}"] = counts
+    return path_counts
+
+
+# Phase 3's reduced MoE engines: (name, arch, config overrides, counters
+# the card's run must launch).  granite_moe_1b runs its published int8
+# format at its published capacity factor 1.25 (the reduced config's 4.0
+# never drops); qwen3_moe_235b bf16 with its QK-norm.  128-token chunks
+# give the experts C = 80 rows (B3's wgmma entries), the 2-slot decode
+# steps C = 8 (B3's split-K entries).
+REDUCED_MOE = [
+    ("granite-int8", "granite_moe_1b", dict(format_policy="int8"),
+     ("grouped_gemm_wgmma_s8", "grouped_gemm_splitk_s8",
+      "mte_gemm_wgmma_s8")),
+    ("qwen3-moe-bf16", "qwen3_moe_235b",
+     dict(format_policy="bf16", compute_dtype="bfloat16"),
+     ("grouped_gemm_wgmma", "grouped_gemm_splitk", "mte_gemm_wgmma")),
+]
+
+
+def count_drops(moe_lib):
+    """Wrap ``moe_lib.apply_moe`` so that each call adds its routed and
+    dropped assignments to the returned [assignments, dropped] (it reads
+    the device: for the CPU's eager runs only); → (counts, undo)."""
+    seen, apply = [0, 0], moe_lib.apply_moe
+
+    def counting(x, p, cfg):
+        _, keep, _ = moe_lib.route_stats(x, p, cfg)
+        seen[0] += keep.numel()
+        seen[1] += int((~keep).sum())
+        return apply(x, p, cfg)
+
+    moe_lib.apply_moe = counting
+    return seen, lambda: setattr(moe_lib, "apply_moe", apply)
+
+
+def recorded_tables(eng):
+    """Wrap ``eng.step`` to keep each request's page-table row as it last
+    stood while the request held its slot (the per-step logs of a
+    synchronous and an async engine differ in step count, not in the
+    pages each request was given)."""
+    rows, step = {}, eng.step
+
+    def logged():
+        step()
+        for slot in eng.sched.active:
+            req = eng.slot_req[slot]
+            if req is not None:
+                rows[req.rid] = eng.sched.table_row(slot).tolist()
+
+    eng.step = logged
+    return rows
+
+
+def reduced_moe_phase(dev):
+    """granite_moe_1b.reduced() under int8 at capacity factor 1.25 and
+    qwen3_moe_235b.reduced() in bf16 with QK-norm (``REDUCED_MOE``), card
+    against CPU: four prompts (3 x 256 tokens, two sharing their first
+    chunk, and 200) in 128-token chunks on 2 slots, 8 greedy tokens each;
+    first-token logits within 2e-2, then the card's engine in its
+    defaults (async, the decode step a CUDA graph) against the CPU's
+    synchronous eager one: equal greedy streams, equal page-table rows
+    per request and prefix registrations, the assignments the CPU run's
+    MoE layers dropped printed (granite's must be above 0).  Returns the
+    card's launch counts (``reduced-granite-int8``,
+    ``reduced-qwen3-moe-bf16``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    rng = np.random.default_rng(0)
+    path_counts = {}
+    for name, arch, overrides, marks in REDUCED_MOE:
+        base = get_config(arch).reduced()
+        cfg = dataclasses.replace(
+            base, moe=dataclasses.replace(base.moe, capacity_factor=1.25),
+            **overrides)
+        prompts = [rng.integers(0, cfg.vocab, 256, dtype=np.int32)
+                   for _ in range(3)] + [rng.integers(0, cfg.vocab, 200,
+                                                      dtype=np.int32)]
+        prompts[2][:128] = prompts[0][:128]
+        kw = dict(slots=2, cache_len=288, prefill_len=256, page_size=16,
+                  prefill_chunk=128)
+        params_cpu = model_lib.init_params(cfg, seed=0, device="cpu")
+        params_gpu = to_device(params_cpu, dev)
+        reset_planning()
+        logits = {}
+        for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+            cache = model_lib.init_paged_cache(cfg, 1, 256, num_pages=17,
+                                               page_size=16, device=device)
+            table = torch.arange(1, 17, dtype=torch.int32,
+                                 device=device)[None]
+            toks = torch.as_tensor(prompts[0].astype(np.int64),
+                                   device=device)
+            for p0 in (0, 128):
+                out, cache = model_lib.prefill_chunk(
+                    params, {"tokens": toks[None, p0:p0 + 128],
+                             "page_table": table}, cache, cfg, pos0=p0)
+            logits[str(device)] = out.cpu()
+        check(f"reduced [{name}] first-token logits cuda vs cpu",
+              logits[str(dev)], logits["cpu"], 2e-2)
+        outs, tables, regs = {}, {}, {}
+        for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+            reset_planning()
+            eng = ServingEngine(params, cfg, device=device,
+                                async_steps=device == dev, **kw)
+            tables[str(device)] = recorded_tables(eng)
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
+            if device == dev:
+                build.reset_launch_counts()
+                outs[str(device)] = eng.run()
+                counts = build.launch_counts()
+                require(eng.decode_step.graph and eng.decode_step.graphs,
+                        f"[{name}] the card's decode step was not replayed "
+                        f"as a CUDA graph")
+            else:
+                drops, undo = count_drops(moe_lib)
+                try:
+                    outs[str(device)] = eng.run()
+                finally:
+                    undo()
+            regs[str(device)] = eng.sched.pool.registrations()
+            log(f"  reduced engine [{name}] on {device}: "
+                f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
+                f"prefix_hit_pages {eng.metrics()['prefix_hit_pages']}")
+        log(f"  reduced engine [{name}]: the CPU run's MoE layers dropped "
+            f"{drops[1]} of {drops[0]} assignments at capacity factor "
+            f"1.25; the card's launches {counts}")
+        if arch == "granite_moe_1b":
+            require(drops[1] > 0, f"[{name}] no assignment was dropped")
+        for mark in marks:
+            require(counts[mark] > 0,
+                    f"[{name}] {mark} not launched on the card")
+        for rid in outs["cpu"]:
+            require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
+            require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
+                    f"[{name}] greedy stream of request {rid} differs")
+        require(tables[str(dev)] == tables["cpu"],
+                f"[{name}] page tables differ: {tables}")
+        require(regs[str(dev)] == regs["cpu"],
+                f"[{name}] prefix registrations differ")
+        log(f"  reduced engine [{name}]: greedy streams, page-table rows "
+            f"and prefix registrations identical on cuda (async + graph) "
+            f"and cpu (synchronous, eager)")
         path_counts[f"reduced-{name}"] = counts
     return path_counts
 
@@ -3931,11 +4150,13 @@ def serving_phase(dev, name):
     # attention layer) ran on the new engines; the replayed step counts
     # (captured delta x replays) what the eager step launches.
     kinds = [mixer for mixer, _ in eng.cfg.layer_kinds]
+    ffns = [ffn for _, ffn in eng.cfg.layer_kinds]
     per_chunk = profile["prefill_chunk"]["wrapper_launches"]
     for call in ("decode_step", "decode_replay"):
         per_step = profile[call]["wrapper_launches"]
         if attn_lib.grouped_decode(eng.cfg):
-            want = kinds.count("attn") + kinds.count("local")
+            want = (kinds.count("attn") + kinds.count("local")
+                    + 3 * ffns.count("moe"))
             qkv = DECODE_QKV_KERNEL.get(name, "grouped_gemm_splitk")
             require(per_step.get(qkv) == want,
                     f"[{name}] {call}: {per_step.get(qkv)} {qkv} launches "
@@ -4032,9 +4253,14 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
     and the (query, key) pairs the masks let through.  Under an int8
     format the peak is int8's (1979 TOPS), and ``int8_weights_bound_ms``
     counts each weight at one byte (what int8 weights held on the card
-    would move) beside the bound at the width the engine holds them."""
+    would move) beside the bound at the width the engine holds them.  A
+    MoE layer's router and every expert count as weights: the capacity
+    buffer runs every expert's GEMMs over its C rows, filled or not
+    (operations: the router's product over the call's tokens and each
+    expert's three GEMMs over C rows); the router stays f32 under int8."""
     from repro_torch.core.formats import to_torch_dtype
     from repro_torch.models.layers import model_format
+    from repro_torch.models.moe import moe_capacity
     cfg, params = ((eng.draft_cfg, eng.draft_params) if draft
                    else (eng.cfg, eng.params))
     quantized = model_format(cfg).quantized
@@ -4042,8 +4268,23 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
     weights = [leaf["w"] for lp in params["layers"]
                for grp in ("mixer", "ffn") for leaf in lp[grp].values()
                if isinstance(leaf, dict) and "w" in leaf]
+    moe = [lp["ffn"] for lp in params["layers"] if "router" in lp["ffn"]]
+    experts = [ffn[k] for ffn in moe for k in ("gate", "up", "down")]
+    routers = [ffn["router"] for ffn in moe]
+    # Dense and expert weights: the bytes int8 would hold as one each.
+    weights += experts
     w_params = sum(w.numel() for w in weights)
     w_bytes = sum(w.numel() * w.element_size() for w in weights)
+    router_bytes = sum(w.numel() * w.element_size() for w in routers)
+
+    def moe_flops(tokens):
+        if not moe:
+            return 0
+        m = cfg.moe
+        expert = 3 * cfg.d_model * m.d_ff_expert
+        return 2 * len(moe) * m.n_experts * (
+            tokens * cfg.d_model + moe_capacity(tokens, cfg) * expert)
+
     head = params["embedding"]["unembed"]
     head_bytes = head.numel() * head.element_size()
     elt = to_torch_dtype(cfg.compute_dtype).itemsize
@@ -4062,18 +4303,21 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
     rg = cfg.rglru                  # h in f32, the conv tail, both ways
     rg_state = (2 * n_rglru * rg.width * (4 + rg.conv_width * elt)
                 if n_rglru else 0)
-    dec_flops = 2 * len(positions) * (w_params + head.numel()) \
-        + pair * dec_pairs
+    e_params = sum(w.numel() for w in experts)
+    dec_flops = 2 * len(positions) * (w_params - e_params + head.numel()) \
+        + pair * dec_pairs + moe_flops(len(positions))
     dec_kv = kv_row * dec_pairs
-    dec_bytes = w_bytes + head_bytes + dec_kv + rg_state * len(positions)
+    dec_bytes = w_bytes + router_bytes + head_bytes + dec_kv \
+        + rg_state * len(positions)
     pre_pairs = sum(n_attn * seen(p, "attn") + n_local * seen(p, "local")
                     for p in range(pos0, pos0 + chunk))
     pre_kv = kv_row * (n_attn * (pos0 + chunk)
                        + n_local * (min(pos0, window) + chunk))
-    pre_flops = 2 * chunk * w_params + pair * pre_pairs + 2 * head.numel()
-    pre_bytes = w_bytes + head_bytes + pre_kv + rg_state
+    pre_flops = 2 * chunk * (w_params - e_params) + pair * pre_pairs \
+        + 2 * head.numel() + moe_flops(chunk)
+    pre_bytes = w_bytes + router_bytes + head_bytes + pre_kv + rg_state
     out = {"decode_step": {"bound_ms": bound_ms(dec_flops, dec_bytes, peak),
-                           "weight_gb": w_bytes / 1e9,
+                           "weight_gb": (w_bytes + router_bytes) / 1e9,
                            "lm_head_gb": head_bytes / 1e9,
                            "kv_gb": dec_kv / 1e9},
            "prefill_chunk": {"bound_ms": bound_ms(pre_flops, pre_bytes, peak),
@@ -4083,7 +4327,36 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
                                    ("prefill_chunk", pre_flops, pre_bytes)):
             out[key]["int8_weights_bound_ms"] = bound_ms(
                 flops, nbytes - w_bytes + w_params, peak)
+    if moe:
+        out["decode_step"]["expert_gb"] = sum(
+            w.numel() * w.element_size() for w in experts) / 1e9
+        out["decode_step"]["router_gb"] = router_bytes / 1e9
     return out
+
+
+def routed_expert_gb(eng, call):
+    """GB of the expert weights (at the width the engine holds them) that
+    one ``call`` of the engine's model routes to: per MoE layer the
+    experts at least one of its tokens chose, kept or dropped.  Reads
+    the device (eager calls only)."""
+    from repro_torch.models import moe as moe_lib
+    m, seen = eng.cfg.moe, []
+    apply = moe_lib.apply_moe
+
+    def recording(x, p, cfg):
+        idx, _, _ = moe_lib.route_stats(x, p, cfg)
+        seen.append((int(idx.unique().numel()), p["gate"].element_size()))
+        return apply(x, p, cfg)
+
+    moe_lib.apply_moe = recording
+    try:
+        call()
+    finally:
+        moe_lib.apply_moe = apply
+    per_expert = 3 * eng.cfg.d_model * m.d_ff_expert
+    return {"routed_expert_gb": sum(n * per_expert * elt
+                                    for n, elt in seen) / 1e9,
+            "experts_routed_per_layer": [n for n, _ in seen]}
 
 
 def log_programs(name):
@@ -4128,6 +4401,12 @@ def profile_steps(eng, dev, work, steps: int = 10):
                np.zeros(4, np.float32), np.ones(4, bool))
     prefill_table = torch.as_tensor(table[:1], device=dev)
     prefill_tokens = torch.zeros(1, 512, dtype=torch.int64, device=dev)
+    if eng.cfg.moe is not None:
+        routed = routed_expert_gb(eng, lambda: step.eager(False))
+        bounds["decode_step"].update(routed)
+        log(f"  decode step: {routed['routed_expert_gb']:.4f} GB of the "
+            f"experts' {bounds['decode_step']['expert_gb']:.4f} routed to "
+            f"(experts per layer {routed['experts_routed_per_layer']})")
 
     def prefill():
         return model_lib.prefill_chunk(
@@ -4152,10 +4431,17 @@ def profile_steps(eng, dev, work, steps: int = 10):
     return out
 
 
+# Calls run under ``torch.profiler`` (at most): its processing of the
+# events, not the calls, takes the seconds -- an eager full-width decode
+# step launches thousands of kernels.
+PROFILED_CALLS = 3
+
+
 def profile_call(fn, n):
     """One call of ``fn`` to warm up, then ``n`` calls timed by the host
     clock around a synchronise (no profiler: its overhead would inflate
-    the idle share), then ``n`` under ``torch.profiler``: wall ms, the
+    the idle share), then min(n, ``PROFILED_CALLS``) under
+    ``torch.profiler`` (``profile_s``: the seconds that took): wall ms, the
     wrappers' launches, device kernels and busy ms per call, the idle
     share, the kernels by device time and the ``torch.cumsum`` calls.
     CUDA events between the timed calls give each call's span on the
@@ -4178,13 +4464,16 @@ def profile_call(fn, n):
     wall_ms = 1e3 * (time.perf_counter() - t) / n
     call_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     per_call = {k: v / n for k, v in build.launch_counts().items() if v}
+    t = time.perf_counter()
+    n_prof = min(n, PROFILED_CALLS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+        for _ in range(n_prof):
             fn()
         torch.cuda.synchronize()
+    averages = prof.key_averages()
     rows = []
-    for e in prof.key_averages():
+    for e in averages:
         dev_us = (getattr(e, "self_device_time_total", None)
                   or getattr(e, "self_cuda_time_total", 0) or 0)
         # An aten op or an autograd Function (``MteGemmBackward``) reports
@@ -4196,12 +4485,14 @@ def profile_call(fn, n):
         if (dev_us > 0 and e.device_type == DeviceType.CUDA
                 and not e.key.startswith(("aten::", "cuda"))
                 and e.key != "Command Buffer Full"):
-            rows.append((dev_us / n / 1e3, e.key, e.count // n))
-    cumsum_calls = sum(e.count for e in prof.key_averages()
-                       if e.key == "aten::cumsum") // n
+            rows.append((dev_us / n_prof / 1e3, e.key, e.count // n_prof))
+    cumsum_calls = sum(e.count for e in averages
+                       if e.key == "aten::cumsum") // n_prof
     busy_ms = sum(r[0] for r in rows)
     rows.sort(reverse=True)
     return {"wall_ms": wall_ms, "call_ms": call_ms,
+            "profiled_calls": n_prof,
+            "profile_s": time.perf_counter() - t,
             "wrapper_launches": per_call,
             "cumsum_calls": cumsum_calls,
             "device_kernels": sum(r[2] for r in rows) if rows else None,
@@ -4224,7 +4515,9 @@ def log_profile(name, prof, note=""):
         f"{prof['bound_ms']:.3f} ms, idle share {prof['idle_share']}{note}; "
         f"device kernels per call {prof['device_kernels']}, wrapper "
         f"launches per call {prof['wrapper_launches']}; device span per "
-        f"call {min(prof['call_ms']):.3f}-{max(prof['call_ms']):.3f} ms")
+        f"call {min(prof['call_ms']):.3f}-{max(prof['call_ms']):.3f} ms; "
+        f"{prof['profiled_calls']} calls profiled in "
+        f"{prof['profile_s']:.1f} s")
     for r in prof["top"]:
         log(f"    {r['ms']:.4f} ms x{r['calls']} {r['kernel']}")
 
@@ -5389,7 +5682,7 @@ KERNELS = [
      "gate+up prefill 2x512x2048x16384", "default"),
     ("grouped_gemm_wgmma_s8", "src/repro_torch/csrc/grouped_gemm_wgmma.cu",
      "src/repro/kernels/grouped_gemm.py:60",
-     "int8 moe gate 32x1024x1024x512", "reduced-int8"),
+     "int8 moe gate 32x160x1024x512", "granite"),
     ("grouped_gemm_simt", "src/repro_torch/csrc/grouped_gemm.cu",
      "src/repro/kernels/grouped_gemm.py:60", "dw fp32 2x2048x4096x16384",
      "train"),
@@ -5436,6 +5729,16 @@ KERNELS = [
 ]
 
 
+# The phase-2 row of each s8 kernel at granite_moe_1b's shapes (launches
+# from phase 4's granite run): the prefill q/o on B1, the experts' down
+# at C = 160 on B3's wgmma entry, the decode o on B2, the decode experts'
+# gate at C = 8 on B3's split-K entry.
+GRANITE_ROWS = {
+    "mte_gemm_wgmma_s8": "int8 granite q/o 512x1024x1024",
+    "grouped_gemm_wgmma_s8": "int8 moe down 32x160x512x1024",
+    "splitk_gemm_cluster_s8": "int8 granite o 4x1024x1024",
+    "grouped_gemm_splitk_s8": "int8 granite moe gate decode 32x8x1024x512",
+}
 # The phase-2 row of each kernel at gemma2_27b's shapes (its launches
 # come from phase 4's gemma2 run): the prefill gate on B1, the decode gate
 # on B2, the decode q/k/v group on B3, a global layer's decode on B4 and
@@ -5548,6 +5851,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         import repro_torch  # noqa: F401
+        from repro_torch.configs import get_config
         from repro_torch.kernels import build
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -5592,11 +5896,15 @@ def main() -> int:
     counts.update(reduced_qwen_phase(dev))
     log("== 3. reduced starcoder2_7b (fp32): card against CPU, default")
     counts.update(reduced_starcoder2_phase(dev))
+    log("== 3. reduced granite_moe_1b (int8) and qwen3_moe_235b (bf16, "
+        "QK-norm) at capacity factor 1.25: card against CPU")
+    counts.update(reduced_moe_phase(dev))
     log("== 3. reduced musicgen_medium (fp32): the model-level path, card "
         "against CPU")
     counts.update(reduced_musicgen_phase(dev))
     for name, (arch, overrides) in CONFIGS.items():
-        fmt = ENGINE_KW.get(name, {}).get("format_policy", "bf16")
+        fmt = ENGINE_KW.get(name, {}).get(
+            "format_policy", get_config(arch).format_policy or "bf16")
         log(f"== 4. full-width {arch} serving ({fmt}), configuration "
             f"[{name}] {overrides or ENGINE_KW.get(name) or '(defaults)'}")
         counts[name], serving[name] = serving_phase(dev, name)
@@ -5646,6 +5954,7 @@ def main() -> int:
                                 ("at_musicgen", "musicgen",
                                  MUSICGEN_ROWS),
                                 ("at_int8", "int8", INT8_ROWS),
+                                ("at_granite", "granite", GRANITE_ROWS),
                                 ("at_decode", "amx-int8",
                                  AMX_INT8_DECODE_ROWS)):
             if name in at:

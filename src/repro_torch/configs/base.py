@@ -141,7 +141,7 @@ class ArchConfig:
         return seq_len
 
     def n_params(self) -> int:
-        """Approximate parameter count (dense attention + MLP layers)."""
+        """Approximate parameter count (attention, MLP and MoE layers)."""
         d, hd = self.d_model, self.hd
         total = self.vocab * d * (1 if self.tied_embeddings else 2)
         for mixer, ffn in self.layer_kinds:
@@ -151,6 +151,9 @@ class ArchConfig:
             if ffn == "mlp":
                 k = 3 if self.mlp_type in ("swiglu", "geglu") else 2
                 total += k * d * self.d_ff
+            elif ffn == "moe":
+                total += d * self.moe.n_experts
+                total += self.moe.n_experts * 3 * d * self.moe.d_ff_expert
         total += d
         return total
 
@@ -220,7 +223,8 @@ ARCH_NAMES = [
     "gemma_2b", "qwen15_4b", "mamba2_130m",
 ]
 PORTED_ARCHS = ("gemma_2b", "recurrentgemma_9b", "gemma2_27b",
-                "qwen15_4b", "starcoder2_7b", "musicgen_medium")
+                "qwen15_4b", "starcoder2_7b", "musicgen_medium",
+                "granite_moe_1b", "qwen3_moe_235b")
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 

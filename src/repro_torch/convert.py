@@ -6,8 +6,11 @@ of ``period`` layer dicts whose leaves are stacked over the scanned groups
 :func:`params_from_jax` unstacks them into the port's per-layer list —
 layer ``g * period + j`` is ``groups[j]`` at index ``g`` — and keeps the
 embedding table and, for an untied model, the LM head (``head``,
-(d_model, vocab)).  The caller converts the JAX arrays to numpy first
-(``jax.device_get``); this module imports neither JAX nor the JAX package.
+(d_model, vocab)).  Every leaf of a layer comes across as it is: a MoE
+layer's bare ``router`` (d_model, E), ``gate``/``up`` (E, d_model, F) and
+``down`` (E, F, d_model), and QK-norm's ``q_norm``/``k_norm`` scales.
+The caller converts the JAX arrays to numpy first (``jax.device_get``);
+this module imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 

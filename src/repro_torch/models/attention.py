@@ -40,8 +40,8 @@ import torch
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.formats import resolve_format, to_torch_dtype
 from repro_torch.models.layers import (compute_dtype, dense, init_dense,
-                                       model_format, rmsnorm, rope,
-                                       use_graph)
+                                       init_norm, model_format, rmsnorm,
+                                       rope, use_graph)
 
 __all__ = ["init_attention", "attention", "prefill_cache",
            "init_attn_cache", "decode_attention",
@@ -53,9 +53,7 @@ __all__ = ["init_attention", "attention", "prefill_cache",
 def init_attention(gen: torch.Generator, cfg, device=None):
     d, hd = cfg.d_model, cfg.hd
     dt = to_torch_dtype(cfg.param_dtype)
-    if cfg.qk_norm:
-        raise NotImplementedError("qk_norm is ROADMAP A10")
-    return {
+    p = {
         "q": init_dense(gen, d, cfg.n_heads * hd, bias=cfg.qkv_bias,
                         dtype=dt, device=device),
         "k": init_dense(gen, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias,
@@ -65,6 +63,12 @@ def init_attention(gen: torch.Generator, cfg, device=None):
         "o": init_dense(gen, cfg.n_heads * hd, d, dtype=dt,
                         scale=(cfg.n_heads * hd) ** -0.5, device=device),
     }
+    if cfg.qk_norm:
+        # Per-head RMSNorm scales over head_dim, applied to q and k
+        # before rope (``_finish_qkv``).
+        p["q_norm"] = init_norm(hd, "rmsnorm", dt, device)
+        p["k_norm"] = init_norm(hd, "rmsnorm", dt, device)
+    return p
 
 
 def _finish_qkv(q, k, v, p, cfg, positions):

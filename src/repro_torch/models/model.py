@@ -10,10 +10,12 @@ kinds ported are ``("attn", "mlp")`` (global attention over the paged
 pool), ``("local", "mlp")`` (sliding-window attention over a per-slot
 ring) and ``("rglru", "mlp")`` (the RG-LRU block with its per-slot
 state), each followed by an MLP (gated, or the plain GELU MLP with
-biases), in any mix of them in one model; other kinds raise, naming the
-ROADMAP item (A10).  Features: RMSNorm or LayerNorm (``cfg.norm_type``),
-attention and final logit softcaps, a query scale of the config's own
-(``attn_scale``), MHA and GQA, QKV biases, untied LM heads, and
+biases), and ``("attn", "moe")`` (global attention followed by the
+capacity-dispatch MoE layer, :mod:`repro_torch.models.moe`), in any mix
+of them in one model; other kinds raise, naming the ROADMAP item (A10).
+Features: RMSNorm or LayerNorm (``cfg.norm_type``), attention and final
+logit softcaps, a query scale of the config's own (``attn_scale``), MHA
+and GQA, QKV biases, QK-norm, untied LM heads, and
 ``post_norms`` (gemma2: the mixer's and the MLP's outputs normed again
 before each residual add), and a stubbed frontend (``frontend_stub``:
 precomputed frame embeddings in ``batch["embeddings"]`` in place of
@@ -42,6 +44,7 @@ import torch.utils.checkpoint
 from repro_torch import resolve_device
 from repro_torch.core.formats import to_torch_dtype
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import (check_backend, compute_dtype, embed,
                                        init_embedding, init_mlp, init_norm,
@@ -53,7 +56,8 @@ __all__ = ["init_params", "forward", "loss_fn", "prefill", "init_cache",
            "decode_and_sample", "verify_chunk", "draft_from",
            "param_count"]
 
-_PORTED_KINDS = (("attn", "mlp"), ("local", "mlp"), ("rglru", "mlp"))
+_PORTED_KINDS = (("attn", "mlp"), ("local", "mlp"), ("rglru", "mlp"),
+                 ("attn", "moe"))
 
 
 def _check_kinds(cfg) -> None:
@@ -74,13 +78,14 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Dict[str, Any]:
     gen.manual_seed(seed)
     dt = to_torch_dtype(cfg.param_dtype)
     layers = []
-    for mixer, _ in cfg.layer_kinds:
+    for mixer, ffn in cfg.layer_kinds:
         lp = {
             "norm1": init_norm(cfg.d_model, cfg.norm_type, dt, dev),
             "mixer": (rglru_mod.init_rglru(gen, cfg, dev) if mixer == "rglru"
                       else attn_mod.init_attention(gen, cfg, dev)),
             "norm2": init_norm(cfg.d_model, cfg.norm_type, dt, dev),
-            "ffn": init_mlp(gen, cfg, dev),
+            "ffn": (moe_mod.init_moe(gen, cfg, dev) if ffn == "moe"
+                    else init_mlp(gen, cfg, dev)),
         }
         if cfg.post_norms:
             lp["post_norm1"] = init_norm(cfg.d_model, cfg.norm_type, dt, dev)
@@ -172,7 +177,7 @@ def _sequence_mixer(h, p, cfg, mixer, positions, mode, cache_len):
                                        window, compute_dtype(cfg))
 
 
-def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
+def _apply_layer(x, lp, cfg, kinds, positions, mode, cache, *, pos=None,
                  page_table=None, chunk_pos0=None, slot=0, row_valid=None,
                  cache_len=None):
     """One layer in ``mode`` ``"train"`` or ``"prefill"`` (the whole
@@ -187,7 +192,12 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
     decode step's plans (``plan_rows`` = B), so each row keeps the decode
     step's bits.  With ``cfg.post_norms`` the mixer's and the MLP's
     outputs are normed (``post_norm1``, ``post_norm2``) before their
-    residual adds (``model.py:264-275`` of the JAX package)."""
+    residual adds (``model.py:264-275`` of the JAX package).  A moe FFN
+    runs :func:`repro_torch.models.moe.dispatch` over the call's B·S
+    tokens in every mode (a verify window's B·K too, on the capacity of
+    that many tokens, as in JAX).  → (x, cache, the MoE aux loss, or
+    None for an MLP layer)."""
+    mixer, ffn = kinds
     kind = cfg.norm_type
     h = norm(x, lp["norm1"], kind)
     plan_rows = x.shape[0] if mode == "verify" else None
@@ -226,11 +236,15 @@ def _apply_layer(x, lp, cfg, mixer, positions, mode, cache, *, pos=None,
     if cfg.post_norms:
         out = norm(out, lp["post_norm1"], kind)
     x = x + out
-    out = mlp(norm(x, lp["norm2"], kind), lp["ffn"], cfg,
-              plan_rows=plan_rows)
+    h = norm(x, lp["norm2"], kind)
+    aux = None
+    if ffn == "moe":
+        out, aux = moe_mod.dispatch(h, lp["ffn"], cfg)
+    else:
+        out = mlp(h, lp["ffn"], cfg, plan_rows=plan_rows)
     if cfg.post_norms:
         out = norm(out, lp["post_norm2"], kind)
-    return x + out, cache
+    return x + out, cache, aux
 
 
 def _remat(cfg):
@@ -251,29 +265,32 @@ def _remat(cfg):
 
 
 def _run_stack(x, params, cfg, positions, mode, cache, **kw):
-    """Every layer in turn; a given cache's layer entries are replaced in
-    place, and with ``cache`` None (``"train"``, ``"prefill"``) a new one
-    collects what the layers return.  A ``"train"`` stack under autograd
-    rematerialises each layer as ``cfg.remat`` says (:func:`_remat`): the
-    recompute runs the same plans and draws no random numbers, so it gives
-    the forward's bits."""
+    """Every layer in turn → (x, cache, the layers' MoE aux losses
+    summed, a 0-d f32 tensor); a given cache's layer entries are
+    replaced in place, and with ``cache`` None (``"train"``,
+    ``"prefill"``) a new one collects what the layers return.  A
+    ``"train"`` stack under autograd rematerialises each layer as
+    ``cfg.remat`` says (:func:`_remat`): the recompute runs the same
+    plans and draws no random numbers, so it gives the forward's bits."""
     check_backend(cfg)
     _check_kinds(cfg)
     out = cache if cache is not None else {
         "layers": [None] * len(params["layers"])}
     remat = (mode == "train" and torch.is_grad_enabled()
              and _remat(cfg))
-    for i, (lp, (mixer, _)) in enumerate(zip(params["layers"],
-                                             cfg.layer_kinds)):
+    aux_total = torch.zeros((), device=x.device)
+    for i, (lp, kinds) in enumerate(zip(params["layers"], cfg.layer_kinds)):
         layer_cache = None if cache is None else cache["layers"][i]
         if remat:
-            x, out["layers"][i] = torch.utils.checkpoint.checkpoint(
-                _apply_layer, x, lp, cfg, mixer, positions, mode,
+            x, out["layers"][i], aux = torch.utils.checkpoint.checkpoint(
+                _apply_layer, x, lp, cfg, kinds, positions, mode,
                 layer_cache, use_reentrant=False, **kw)
         else:
-            x, out["layers"][i] = _apply_layer(
-                x, lp, cfg, mixer, positions, mode, layer_cache, **kw)
-    return x, out
+            x, out["layers"][i], aux = _apply_layer(
+                x, lp, cfg, kinds, positions, mode, layer_cache, **kw)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, out, aux_total
 
 
 def _inputs_to_x(batch, params, cfg):
@@ -298,13 +315,13 @@ def _sequence_positions(x):
 def forward(params, batch, cfg):
     """The training forward (``model.py:390-401`` of the JAX package) over
     ``batch["tokens"]`` (B, S), or ``batch["embeddings"]`` (B, S, d_model)
-    under ``cfg.frontend_stub``: → (logits f32 (B, S, V), aux loss 0.0 —
-    the port has no MoE layer)."""
+    under ``cfg.frontend_stub``: → (logits f32 (B, S, V), the MoE layers'
+    aux losses summed, 0 for a model without one)."""
     x = _inputs_to_x(batch, params, cfg)
-    x, _ = _run_stack(x, params, cfg, _sequence_positions(x), "train", None)
+    x, _, aux = _run_stack(x, params, cfg, _sequence_positions(x), "train",
+                           None)
     x = norm(x, params["final_norm"], cfg.norm_type)
-    return (unembed(x, params["embedding"], cfg),
-            torch.zeros((), device=x.device))
+    return unembed(x, params["embedding"], cfg), aux
 
 
 class _TokenNll(torch.autograd.Function):
@@ -335,8 +352,9 @@ def loss_fn(params, batch, cfg):
     package): → (loss, metrics ``{"loss", "ce", "aux", "tokens"}``, each
     a 0-d f32 tensor).  Position i predicts token i + 1, the last
     position of each row is masked out; under ``cfg.frontend_stub`` the
-    targets are ``batch["targets"]`` (B, S), every position counted.  The
-    port has no MoE layer, so ``aux`` is 0."""
+    targets are ``batch["targets"]`` (B, S), every position counted.
+    ``loss`` = ``ce`` + ``aux``, the MoE layers' summed aux loss
+    (:func:`forward`)."""
     logits, aux = forward(params, batch, cfg)
     if cfg.frontend_stub:
         targets = torch.as_tensor(batch["targets"],
@@ -361,8 +379,8 @@ def prefill(params, batch, cfg, cache_len: Optional[int] = None):
     :func:`init_cache`'s layout with ``cache_len`` slots, the prompt's
     length by default — pass the capacity decode steps need)."""
     x = _inputs_to_x(batch, params, cfg)
-    x, cache = _run_stack(x, params, cfg, _sequence_positions(x), "prefill",
-                          None, cache_len=cache_len)
+    x, cache, _ = _run_stack(x, params, cfg, _sequence_positions(x),
+                             "prefill", None, cache_len=cache_len)
     x = norm(x[:, -1:], params["final_norm"], cfg.norm_type)
     return unembed(x, params["embedding"], cfg)[:, 0], cache
 
@@ -376,9 +394,10 @@ def prefill_chunk(params, batch, cache, cfg, *, pos0: int):
     tokens = batch["tokens"]
     x = embed(tokens, params["embedding"], cfg)
     positions = pos0 + torch.arange(tokens.shape[1], device=x.device)[None]
-    x, cache = _run_stack(x, params, cfg, positions, "prefill_chunk", cache,
-                          page_table=batch["page_table"], chunk_pos0=pos0,
-                          slot=int(batch.get("slot", 0)))
+    x, cache, _ = _run_stack(x, params, cfg, positions, "prefill_chunk",
+                             cache, page_table=batch["page_table"],
+                             chunk_pos0=pos0,
+                             slot=int(batch.get("slot", 0)))
     x = norm(x, params["final_norm"], cfg.norm_type)
     return unembed(x[:, -1:], params["embedding"], cfg)[:, 0], cache
 
@@ -401,10 +420,10 @@ def decode(params, batch, cache, cfg):
     if row_valid is not None:
         row_valid = torch.as_tensor(row_valid, dtype=torch.bool,
                                     device=x.device).reshape(-1)
-    x, cache = _run_stack(x, params, cfg, positions, "decode", cache,
-                          pos=positions[:, 0],
-                          page_table=batch.get("page_table"),
-                          row_valid=row_valid)
+    x, cache, _ = _run_stack(x, params, cfg, positions, "decode", cache,
+                             pos=positions[:, 0],
+                             page_table=batch.get("page_table"),
+                             row_valid=row_valid)
     x = norm(x, params["final_norm"], cfg.norm_type)
     return unembed(x, params["embedding"], cfg)[:, 0], cache
 
@@ -487,9 +506,9 @@ def verify_chunk(params, batch, cache, cfg, *, last_only: bool = False):
     if row_valid is not None:
         row_valid = torch.as_tensor(row_valid, dtype=torch.bool,
                                     device=x.device).reshape(-1)
-    x, cache = _run_stack(x, params, cfg, positions, "verify", cache,
-                          pos=pos, page_table=batch["page_table"],
-                          row_valid=row_valid)
+    x, cache, _ = _run_stack(x, params, cfg, positions, "verify", cache,
+                             pos=pos, page_table=batch["page_table"],
+                             row_valid=row_valid)
     x = norm(x, params["final_norm"], cfg.norm_type)
     logits = [unembed(x[:, i:i + 1].contiguous(), params["embedding"], cfg)
               for i in range(k - 1 if last_only else 0, k)]

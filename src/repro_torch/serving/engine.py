@@ -62,8 +62,8 @@ so sampled rows differ in bits, not in distribution).
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: ``fault``, deadlines, load shedding, ``watchdog_s``,
-``prefix_index_path``, ``plan_cache_path`` (A6/A4) and ``slo_monitor``
-(A9).
+``prefix_index_path``, ``plan_cache_path`` (A6/A4), ``slo_monitor``
+(A9), and speculation on a config with a MoE layer (A13).
 
 The grouped decode q/k/v (``grouped_qkv``) defaults as in JAX: on with the
 kernel backend.  Then every attention layer gains a prestacked
@@ -135,6 +135,11 @@ def _stack_decode_qkv(params):
     return {**params, "layers": [aug_layer(lp) for lp in params["layers"]]}
 
 
+# A MoE layer's bare expert tensors (``models/moe.py``): (E, D, F) and
+# (E, F, D).
+_EXPERT_LEAVES = ("gate", "up", "down")
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -151,29 +156,38 @@ class Request:
 
 def serving_params(params, cfg: ArchConfig):
     """The parameter tree the engine serves from: dense weights (every
-    ``{"w", ...}`` leaf) cast to the model format's operand dtype (float
-    formats only: int8 quantizes the full-precision weights), the
-    embedding table likewise when the compute dtype is that operand
-    dtype, and ``embedding["unembed"]`` = the LM head -- the tied table,
-    or the untied ``head`` in its (d_model, vocab) layout, which the
-    copy then drops -- rounded to the head's operand dtype and widened to
-    f32.  Shallow copies; the caller's tensors are untouched."""
+    ``{"w", ...}`` leaf) and a MoE layer's expert tensors (``gate``,
+    ``up``, ``down``) cast to the model format's operand dtype (float
+    formats only: int8 quantizes the full-precision weights at every
+    call, as JAX serves them), the embedding table likewise when the
+    compute dtype is that operand dtype, and ``embedding["unembed"]`` =
+    the LM head -- the tied table, or the untied ``head`` in its
+    (d_model, vocab) layout, which the copy then drops -- rounded to the
+    head's operand dtype and widened to f32.  A MoE ``router`` stays at
+    its own width: JAX routes through its f32 value, and a rounded
+    router would route other experts.  Shallow copies; the caller's
+    tensors are untouched."""
     fmt = model_format(cfg)
     op = fmt.operand_torch
     cast_w = not fmt.quantized
 
-    def cast(leaf):
-        # Dense projections only: the RG-LRU mixer's bare tensors
-        # (conv_w, conv_b, lam) pass through and are widened to f32 at
-        # use, as in JAX.
-        if cast_w and isinstance(leaf, dict) and "w" in leaf:
+    def cast(group, name, leaf):
+        # Dense projections and the experts only: the RG-LRU mixer's bare
+        # tensors (conv_w, conv_b, lam) pass through and are widened to
+        # f32 at use, as in JAX, and so does the router.
+        if not cast_w:
+            return leaf
+        if isinstance(leaf, dict) and "w" in leaf:
             return {**leaf, "w": leaf["w"].to(op)}
+        if group == "ffn" and name in _EXPERT_LEAVES:
+            return leaf.to(op)
         return leaf
 
     def layer(lp):
         out = dict(lp)
         for group in ("mixer", "ffn"):
-            out[group] = {name: cast(leaf) for name, leaf in lp[group].items()}
+            out[group] = {name: cast(group, name, leaf)
+                          for name, leaf in lp[group].items()}
         return out
 
     emb = dict(params["embedding"])
@@ -1096,6 +1110,13 @@ class ServingEngine:
         target (its widths, and its pattern over its depth)."""
         slots = self.slots
         self.spec_k = int(spec_k or 0)
+        if self.spec_k > 0 and any(ffn == "moe"
+                                   for _, ffn in self.cfg.layer_kinds):
+            raise NotImplementedError(
+                f"ServingEngine: speculative decoding on {self.cfg.name!r}, "
+                f"a config with MoE layers, is queued (ROADMAP A13: a "
+                f"verify window routes its slots x k tokens at their own "
+                f"capacity, which no test holds to JAX's yet)")
         self._spec_on = self.spec_k >= 2
         self.draft_cfg: Optional[ArchConfig] = None
         self.draft_params = None

@@ -2406,3 +2406,79 @@ def test_cluster_s8_refuses_what_it_cannot_take(card):
     with pytest.raises(RuntimeError, match=r"cluster\[s8\]"):
         tsplitk._launch_cluster_s8(a.to(card), b.to(card), torch.int32, 4,
                                    448)
+
+
+# -- the MoE layer (granite_moe_1b, qwen3_moe_235b) ---------------------------
+
+tmoe = LazyModule("repro_torch.models.moe")
+
+# The format's tolerance of the layer's output, card against CPU.
+MOE_TOL = {"fp32": 1e-4, "bf16": 2e-2, "int8": 2e-2}
+
+
+def _moe_case(fmt, tokens, seed=0):
+    """Reduced granite_moe_1b at its published capacity factor 1.25
+    under ``fmt`` (bf16: the compute dtype too), its MoE parameters from
+    a seed on the CPU, and (tokens, d_model) activations with one shared
+    direction (the router then favours some experts: drops)."""
+    cfg = tconfigs.get_config("granite_moe_1b").reduced()
+    kw = {"bf16": dict(compute_dtype="bfloat16")}.get(fmt, {})
+    cfg = dataclasses.replace(
+        cfg, format_policy=fmt, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=1.25), **kw)
+    gen = torch.Generator().manual_seed(seed)
+    p = tmoe.init_moe(gen, cfg)
+    x = torch.randn(tokens, cfg.d_model, generator=gen) * 0.3 \
+        + torch.randn(cfg.d_model, generator=gen)
+    return cfg, p, x[None].to(getattr(torch, cfg.compute_dtype))
+
+
+@pytest.mark.parametrize("tokens", [4, 64, 128])
+@pytest.mark.parametrize("fmt", ["fp32", "bf16", "int8"])
+def test_moe_layer_on_the_card_equals_the_cpu(card, fmt, tokens):
+    """``apply_moe`` over a decode step's 4 tokens (C = 8) and prefill
+    chunks' 64 and 128 (C = 40, 80; assignments dropped): route ids and
+    the dropped assignments exactly the CPU's, the output within the
+    format's tolerance, the experts' GEMMs on the grouped kernels."""
+    cfg, p, x = _moe_case(fmt, tokens)
+    pd = {k: v.to(card) for k, v in p.items()}
+    idx, keep, cap = tmoe.route_stats(x, p, cfg)
+    didx, dkeep, dcap = tmoe.route_stats(x.to(card), pd, cfg)
+    assert dcap == cap and torch.equal(didx.cpu(), idx)
+    assert torch.equal(dkeep.cpu(), keep)
+    assert tokens < 64 or int((~keep).sum()) > 0
+    before = build.launch_counts()
+    got, aux = tmoe.apply_moe(x.to(card), pd, cfg)
+    want, want_aux = tmoe.apply_moe(x, p, cfg)
+    after = build.launch_counts()
+    _close(got, want, MOE_TOL[fmt])
+    assert abs(float(aux) - float(want_aux)) <= 1e-6 * abs(float(want_aux))
+    grouped = [k for k in after if k.startswith("grouped_gemm")]
+    assert sum(after[k] - before[k] for k in grouped) == 3
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+def test_moe_decode_layer_graph_replay_is_bit_equal(card, fmt):
+    """A decode-shaped MoE layer (4 slots, C = 8) captured in a
+    ``torch.cuda.graph`` and replayed on three new inputs equals its
+    eager call bit for bit: the dispatch has static shapes and never
+    syncs with the host (a sync inside the capture raises)."""
+    cfg, p, x = _moe_case(fmt, 4)
+    pd = {k: v.to(card) for k, v in p.items()}
+    static = x.to(card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            tmoe.apply_moe(static, pd, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, aux = tmoe.apply_moe(static, pd, cfg)
+    for seed in (1, 2, 3):
+        _, _, xi = _moe_case(fmt, 4, seed=seed)
+        static.copy_(xi.to(card))
+        graph.replay()
+        want, want_aux = tmoe.apply_moe(xi.to(card), pd, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(aux, want_aux), seed
