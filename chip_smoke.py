@@ -48,7 +48,12 @@ Phases (any failure raises and the script exits non-zero):
    at G = 1, D = 64 with the slots past each row's position masked, at
    positions 1024 and 1087 and at a ragged tail (each row also printing
    the K/V bytes of the visible slots, of the 16-slot tiles the kernel
-   loads and of all the slots); the training step's GEMMs at gemma_2b's
+   loads and of all the slots); chameleon_34b's model-level prefill gate
+   (M = 4096, 22016 x 8192, silu) on B1, warm and cold, its decode
+   step's down (M = 4, 8192 x 22016) on B2 at the plan's split, its
+   causal prefill attention (4 x 1024, 64 heads on 8 kv heads, D = 128)
+   on B5 and its decode over a flat 1088-slot cache at position 1087 (G
+   = 8, D = 128) on B6; the training step's GEMMs at gemma_2b's
    full width over 4096 tokens (``train_gemm_phase``): the forward's bf16
    gate on B1's wgmma mainloop, and every backward f32 GEMM shape of a
    layer on the SIMT f32 engine (``mte_gemm_simt``, and
@@ -143,7 +148,16 @@ Phases (any failure raises and the script exits non-zero):
    caches, over frame embeddings): musicgen_medium.reduced() in fp32 (2
    sequences of 24 frames, 3 decode steps) within 1e-4 and musicgen_medium
    at full width and depth 2 in bf16 (2 x 256 frames, 4 decode steps)
-   within 2e-2 (x (1 + |ref|)), card against CPU.
+   within 2e-2 (x (1 + |ref|)), and chameleon_34b.reduced() in fp32
+   (QK-norm, SwiGLU, an untied head) within 1e-4, card against CPU.
+   Then the SSD mixer: mamba2_130m.reduced() in fp32, a 32-token prompt
+   in four 8-token chunks into one slot (first-token logits within
+   1e-3), the engine with 3 requests on 2 slots in 8-token chunks (a
+   30-token prompt spans 4; the third request prefills while two
+   decode), greedy streams equal on the card (async + graph) and the CPU
+   (sync, eager), with and without ``spec_k=4``, and no kernel counter
+   moved: the SSD block is plain PyTorch, as the JAX package computes it
+   in plain jnp.
 4. Full-width serving (``CONFIGS``, ``WORKLOADS``) in bf16 with seeded
    random weights, 4 slots, 16-token pages, 512-token prefill chunks, 6
    requests × 24 greedy tokens: gemma_2b (18 layers, d_model 2048, vocab
@@ -177,9 +191,15 @@ Phases (any failure raises and the script exits non-zero):
    their first chunk) and starcoder2_7b (32 local layers, d_model 4608,
    GQA 36/4, LayerNorm, the plain GELU MLP; biases and norm parameters
    drawn by ``random_biases``; 4608-token prompts, so its 4096-slot rings
-   wrap in prefill and decode) in the defaults, each engine freed before
-   the next is built.  Each configuration is served twice: (a) with
-   ``async_steps=False`` and the eager decode step, synchronised around
+   wrap in prefill and decode) in the defaults, and mamba2_130m
+   (``mamba2``: 24 SSD layers, d_model 768, no FFN, tied embeddings; f32
+   weights from seed 0; 4096-token prompts, so each slot's SSD state and
+   conv ring resume over 8 chunks; no prefix cache; every kernel counter
+   0, the decode step replayed as a CUDA graph of plain PyTorch, the
+   SSD state's bytes and the scan's operations in ``step_bounds``), each
+   engine freed before the next is built.  Each configuration is served
+   twice: (a) with ``async_steps=False`` and the eager decode step,
+   synchronised around
    each prefill chunk and decode launch (the earlier slices' numbers),
    and (b) in the engine's defaults (async, depth 2, the decode step
    replayed as one CUDA graph) with nothing synchronised inside; the
@@ -248,18 +268,24 @@ Phases (any failure raises and the script exits non-zero):
 
 6. The model-level path at full width (``MODEL_LEVEL``): musicgen_medium
    (48 layers, d_model 1536, 24 heads of 64, MHA, LayerNorm, the plain
-   GELU MLP with biases, QKV biases, an untied head; bf16 weights; biases
-   and norm parameters drawn by ``random_biases``) over 4 sequences of
+   GELU MLP with biases, QKV biases, an untied head; biases and norm
+   parameters drawn by ``random_biases``; flat caches of 2048 slots) and
+   chameleon_34b (48 layers, d_model 8192, GQA 64/8 x 128, d_ff 22016,
+   SwiGLU, RMSNorm, QK-norm, an untied head; 34.29 B parameters, 68.6 GB;
+   flat caches of 1088 slots), bf16 weights, each over 4 sequences of
    seeded frame embeddings: ``forward`` over 1088 frames, ``prefill``
-   over the first 1024 into flat caches of 2048 slots, then 64 ``decode``
-   steps.  Prefill's and every decode step's logits must agree with
-   forward's at the same position (``MODEL_LEVEL_TOL``,
-   ``MODEL_LEVEL_RMS``); each decode step must launch B2 288 times on its
-   cluster engine and B6 48 times on its mma engine, forward and prefill
-   B1 and B5 on their wgmma engines only.  It prints the device ms and
-   idle share of a decode step, the prefill and the forward against their
-   bounds (``model_level_bounds``) and the peak memory beside what is
-   held.
+   over the first 1024, then 64 ``decode`` steps.  What the card will
+   hold is printed first (``model_level_reckoning``: weights, caches,
+   forward's logits, the head widened to f32) and must stay under
+   ``FITS_GIB``.  Prefill's and every decode step's logits must agree
+   with forward's at the same position (``MODEL_LEVEL_TOL``,
+   ``MODEL_LEVEL_RMS``); each decode step must launch B2 on its cluster
+   engine once per projection and layer (musicgen 288, chameleon 336)
+   and B6 on its mma engine once per layer (48), forward and prefill B1
+   (as many) and B5 (48) on their wgmma engines only.  It prints the
+   device ms and idle share of a decode step, the prefill and the forward
+   against their bounds (``model_level_bounds``) and the peak memory
+   beside what is held.
 
 7. Training (``TRAIN``).  (a) Card against CPU: reduced gemma_2b in
    fp32, under ``gemm_policy="amx"`` (every GEMM on B8, stage 1 on the
@@ -759,6 +785,12 @@ def gemm_phase(dev, rows):
                                  ("mg up", 6144, 1536, "gelu"),
                                  ("mg down", 1536, 6144, "none")]:
             main_path(label, m, n, k, act, bias=True)
+    # chameleon_34b (d 8192, 64 heads x 128 = 8192, GQA 64/8, d_ff 22016,
+    # SwiGLU): the model-level prefill's (M = 4 x 1024) gate with its silu
+    # on B1's wgmma mainloop, warm and cold, and the decode step's (M = 4)
+    # down on B2's cluster engine at the plan's split, warm and cold.
+    main_path("ch gate", 4096, 22016, 8192, "silu", cold=True)
+    main_path("ch down", 4, 8192, 22016, "none")
     # The training forward's gate over 4096 tokens (phase 7, bf16 format).
     main_path("train gate", 4096, 16384, 2048, "gelu")
     # The rows of the f32 engines at the shapes phase 3 gives them: the
@@ -2492,6 +2524,10 @@ def attention_phase(dev, rows):
     # sequence.
     main_path("mg 4x1024 H=24/24 D=64", 4, 24, 24, 1024, 1024, 64,
               torch.bfloat16, cold=True)
+    # chameleon_34b's model-level prefill: 4 sequences of 1024 positions,
+    # 64 heads on 8 kv heads (G = 8), D = 128, causal.
+    main_path("ch 4x1024 H=64/8 D=128", 4, 64, 8, 1024, 1024, 128,
+              torch.bfloat16, cold=True)
     # gemma_2b's training forward (phase 7): one sequence of 4096 tokens,
     # 8 heads on one kv head, D = 256, causal over the whole sequence.
     main_path("train 1x4096 H=8/1 D=256", 1, 8, 1, 4096, 4096, 256,
@@ -2659,6 +2695,13 @@ def ring_decode_phase(dev, rows):
                           flat=True) == "flash_decode_mma",
                 "musicgen_medium's flat-cache decode must run on B6's mma "
                 "engine")
+    # chameleon_34b's model-level decode over its flat 1088-slot caches:
+    # 4 sequences x 64 heads on 8 kv heads (G = 8), D = 128, at the last of
+    # phase 6's decode steps (position 1087: every slot visible).
+    require(main_path("ch flat 4x64/8x128 L=1088 pos 1087", 4, 64, 8, 128,
+                      1088, [1087] * 4, torch.bfloat16, 1e-2, None,
+                      flat=True) == "flash_decode_mma",
+            "chameleon_34b's flat-cache decode must run on B6's mma engine")
     require(main_path("fp32 ring 2x4x32 L=16", 2, 4, 1, 32, 16, [37, 20],
                       torch.float32, 1e-5, 16) == "flash_decode",
             "fp32 ring decode must run on B6's SIMT kernel")
@@ -2764,6 +2807,7 @@ CONFIGS = {
     "int8": ("gemma_2b", {}),
     "amx-int8": ("gemma_2b", {"gemm_policy": "amx"}),
     "granite": ("granite_moe_1b", {}),
+    "mamba2": ("mamba2_130m", {}),
 }
 # Engine arguments of a configuration: ``int8`` serves gemma_2b under the
 # engine's ``format_policy="int8"`` (its f32 weights quantized at every
@@ -2797,6 +2841,11 @@ PATH_KERNELS = {
     "granite": ("mte_gemm_wgmma_s8", "splitk_gemm_cluster_s8",
                 "grouped_gemm_splitk_s8", "grouped_gemm_wgmma_s8",
                 "flash_decode_paged_mma", "flash_attention_wgmma"),
+    # mamba2: none.  Its SSD block is plain PyTorch (the JAX package
+    # computes it in plain jnp, in no Pallas kernel), so no counter may
+    # move: a configuration absent from NOT_ON_PATH holds every counter
+    # at 0.
+    "mamba2": (),
 }
 # Counters that must stay 0 at full width: every bf16 B1 launch (all of
 # them prefill projections) and every bf16 B8 stage-1 launch runs on the
@@ -2892,6 +2941,7 @@ DECODE_STEP_LAUNCHES = {
     # and down (C = 8 for 4 slots) of its 24 layers, B2's on o, B4 once.
     "granite": {"grouped_gemm_splitk_s8": 24 * 4,
                 "splitk_gemm_cluster_s8": 24, "flash_decode_paged_mma": 24},
+    "mamba2": {},
 }
 # The counter of the decode step's grouped q/k/v where it is not B3's
 # bf16 split-K entry: int8 groups of 4 rows run its s8 entry.  A MoE
@@ -2923,6 +2973,10 @@ WORKLOADS = {
                           decode=[4614, 4625, 4608, 4631], pos0=4096),
     "granite_moe_1b": dict(prefill_len=1024, cache_len=1088, shared=512,
                            decode=[1030, 1041, 1024, 1047], pos0=512),
+    # mamba2_130m: 4096-token prompts, so each prompt's SSD state and conv
+    # ring resume over 8 chunks; no prefix cache (stateful layers).
+    "mamba2_130m": dict(prefill_len=4096, cache_len=4160, shared=0,
+                        decode=[4102, 4113, 4096, 4119], pos0=3584),
 }
 
 
@@ -2941,7 +2995,8 @@ def memory_reckoning(eng):
     experts apart), the stacked decode q/k/v
     (``engine._stack_decode_qkv``), the LM head's f32 copy
     (``serving_params``), the global layers' paged KV, the local layers'
-    rings, the RG-LRU rows and the draft's cache; in GB (1e9 bytes)."""
+    rings, the RG-LRU and SSD rows and the draft's cache; in GB (1e9
+    bytes)."""
     import torch
     seen = set()
 
@@ -2966,13 +3021,13 @@ def memory_reckoning(eng):
         # A MoE layer's router and all its experts (held whole: the
         # capacity buffer runs every expert).
         "moe_router_experts": size([lp["ffn"] for lp in params["layers"]
-                                    if "router" in lp["ffn"]]),
+                                    if "router" in lp.get("ffn", {})]),
         "weights": size(params),
     }
     kinds = [mixer for mixer, _ in eng.cfg.layer_kinds]
     layers = eng.cache["layers"]
     for item, kind in (("paged_kv", "attn"), ("rings", "local"),
-                       ("rglru_state", "rglru")):
+                       ("rglru_state", "rglru"), ("ssd_state", "ssd")):
         items[item] = size([c for c, m in zip(layers, kinds) if m == kind])
     if getattr(eng, "draft_cache", None) is not None:
         items["draft_cache"] = size(eng.draft_cache)
@@ -3822,10 +3877,10 @@ def model_level_logits(params, cfg, emb, prefix, steps):
     return out
 
 
-def musicgen_card_phase(dev, label, cfg, batch, prefix, steps, tol,
-                        on_path, off_path):
-    """``model_level_logits`` of musicgen_medium under ``cfg`` with seeded
-    random weights (biases and LayerNorm parameters drawn by
+def model_level_card_phase(dev, label, cfg, batch, prefix, steps, tol,
+                           on_path, off_path):
+    """``model_level_logits`` of a frontend-stub config under ``cfg`` with
+    seeded random weights (biases and LayerNorm parameters drawn by
     ``random_biases``) and frame embeddings, on the card (the kernels) and
     on the CPU (their plain versions): every call's logits within ``tol``
     x (1 + |ref|).  The counters, zeroed just before the card's run and
@@ -3880,17 +3935,115 @@ def reduced_musicgen_phase(dev):
            "flash_decode")
     new = ("mte_gemm_wgmma", "splitk_gemm_cluster", "flash_attention_wgmma",
            "flash_decode_mma")
-    reduced = musicgen_card_phase(
+    reduced = model_level_card_phase(
         dev, "reduced musicgen fp32", cfg.reduced(), 2, 24, 3,
         MODEL_TOL["fp32"], ("mte_gemm_simt", "splitk_gemm", "grouped_gemm",
                             "flash_attention", "flash_decode"), new)
     log("== 3. musicgen_medium at full width, depth 2 (bf16): card "
         "against CPU")
-    depth2 = musicgen_card_phase(
+    depth2 = model_level_card_phase(
         dev, "musicgen depth 2 bf16",
         dataclasses.replace(cfg, n_layers=2, param_dtype="bfloat16"), 2,
         256, 4, MODEL_TOL["bf16"], new, old)
     return {"reduced-musicgen": reduced, "musicgen-depth2": depth2}
+
+
+def reduced_chameleon_phase(dev):
+    """chameleon_34b.reduced() in fp32 (2 layers, d_model 128, 4 heads of
+    32 on 1 kv head, QK-norm, SwiGLU, an untied head) through the
+    model-level path, card against CPU: 2 sequences of 24 embeddings,
+    then 3 decode steps, within ``MODEL_TOL["fp32"]``; fp32 runs B1's
+    SIMT f32 engine at 48 rows and B5's and B6's SIMT kernels, and none of
+    the bf16 engines.  Returns the card's launch counts (key
+    ``reduced-chameleon``)."""
+    from repro_torch.configs import get_config
+    counts = model_level_card_phase(
+        dev, "reduced chameleon fp32", get_config("chameleon_34b").reduced(),
+        2, 24, 3, MODEL_TOL["fp32"],
+        ("mte_gemm_simt", "flash_attention", "flash_decode"),
+        ("mte_gemm_wgmma", "splitk_gemm_cluster", "flash_attention_wgmma",
+         "flash_decode_mma"))
+    return {"reduced-chameleon": counts}
+
+
+def reduced_mamba2_phase(dev):
+    """mamba2_130m.reduced() in fp32 (2 SSD layers, d_model 128, 16 SSD
+    heads of 16, d_state 16, SSD chunk 8), card against CPU: the first
+    prompt (32 tokens) through four 8-token prefill chunks into slot 1
+    (each chunk after the first resumes the slot's state and conv ring),
+    first-token logits within 1e-3; then the engine, 3 requests on 2
+    slots in 8-token chunks (prompts of 9, 30 and 17 tokens: the 30-token
+    one spans 4 chunks, and the third request prefills while two decode),
+    on the card in its defaults (async, the decode step replayed as a CUDA
+    graph) and on the CPU synchronous and eager: identical greedy
+    streams; then the same with ``spec_k=4`` (``reduced_spec_check``).
+    The SSD is plain PyTorch, as the JAX package computes it in plain jnp:
+    no kernel counter may move.  Returns the card's launch counts (keys
+    ``reduced-mamba2``, ``reduced-mamba2-spec``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = get_config("mamba2_130m").reduced()            # fp32
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n_tok, dtype=np.int32)
+               for n_tok in (32, 9, 30, 17)]
+    reset_planning()
+    params_cpu = model_lib.init_params(cfg, seed=0, device="cpu")
+    params_gpu = to_device(params_cpu, dev)
+    logits = {}
+    build.reset_launch_counts()
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        cache = model_lib.init_paged_cache(cfg, 2, 64, num_pages=17,
+                                           page_size=8, device=device)
+        table = torch.arange(1, 9, dtype=torch.int32, device=device)[None]
+        toks = torch.as_tensor(prompts[0].astype(np.int64), device=device)
+        for p0 in range(0, 32, 8):
+            out, cache = model_lib.prefill_chunk(
+                params, {"tokens": toks[None, p0:p0 + 8],
+                         "page_table": table, "slot": 1}, cache, cfg,
+                pos0=p0)
+        logits[str(device)] = out.cpu()
+    err = max_err(logits[str(dev)], logits["cpu"])
+    log(f"  reduced mamba2 fp32 first-token logits after 4 chunks cuda vs "
+        f"cpu: max_abs_err={err:.3e} tol=1e-3")
+    require(err <= 1e-3, f"mamba2 first-token logits differ by {err}")
+    outs = {}
+    for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+        eng = ServingEngine(params, cfg, device=device, slots=2,
+                            cache_len=64, prefill_len=32, page_size=8,
+                            prefill_chunk=8, async_steps=device == dev)
+        for rid, p in enumerate(prompts[1:]):
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
+        outs[str(device)] = eng.run()
+        log(f"  reduced mamba2 engine on {device}: "
+            f"{ {r: list(v) for r, v in outs[str(device)].items()} }; "
+            f"steps_in_flight_max {eng.steps_in_flight_max}, graphs "
+            f"{sorted(eng.decode_step.graphs)}")
+        if device == dev:
+            require(eng.decode_step.graph and eng.decode_step.graphs,
+                    "reduced mamba2: the card's decode step was not "
+                    "replayed as a CUDA graph")
+    counts = build.launch_counts()
+    for rid in outs["cpu"]:
+        require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
+        require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
+                f"mamba2 greedy stream of request {rid} differs")
+    log("  reduced mamba2 engine: greedy streams identical on cuda (async + "
+        "graph) and cpu (synchronous, eager)")
+    spec = reduced_spec_check(
+        dev, "mamba2", cfg, params_cpu, params_gpu, prompts[1:],
+        dict(slots=2, cache_len=64, prefill_len=32, page_size=8,
+             prefill_chunk=8), outs["cpu"])
+    for label, got in (("chunks and engine", counts), ("spec_k=4", spec)):
+        moved = {k: v for k, v in got.items() if v}
+        log(f"  reduced mamba2 {label}: kernel launches {moved}")
+        require(not moved, f"reduced mamba2 {label}: kernels launched "
+                f"{moved}; the SSD path runs none")
+    return {"reduced-mamba2": counts, "reduced-mamba2-spec": spec}
 
 
 # -- phase 4: full-width serving ---------------------------------------------
@@ -4039,7 +4192,7 @@ def serving_phase(dev, name):
         for kernel in PATH_KERNELS[name]:
             require(counts[kernel] > 0, f"[{name}{eng.label}] {kernel} was "
                     f"never launched on the main path")
-        for kernel in NOT_ON_PATH[name]:
+        for kernel in NOT_ON_PATH.get(name, counts):
             require(counts[kernel] == 0,
                     f"[{name}{eng.label}] {counts[kernel]} launches of "
                     f"{kernel} at full width: every bf16 launch must run on "
@@ -4154,9 +4307,9 @@ def serving_phase(dev, name):
     per_chunk = profile["prefill_chunk"]["wrapper_launches"]
     for call in ("decode_step", "decode_replay"):
         per_step = profile[call]["wrapper_launches"]
-        if attn_lib.grouped_decode(eng.cfg):
-            want = (kinds.count("attn") + kinds.count("local")
-                    + 3 * ffns.count("moe"))
+        want = (kinds.count("attn") + kinds.count("local")
+                + 3 * ffns.count("moe"))
+        if attn_lib.grouped_decode(eng.cfg) and want:
             qkv = DECODE_QKV_KERNEL.get(name, "grouped_gemm_splitk")
             require(per_step.get(qkv) == want,
                     f"[{name}] {call}: {per_step.get(qkv)} {qkv} launches "
@@ -4165,6 +4318,9 @@ def serving_phase(dev, name):
             require(per_step.get(kernel) == want,
                     f"[{name}] {call}: {per_step.get(kernel)} launches of "
                     f"{kernel} per decode step, want {want}")
+        if not PATH_KERNELS[name]:
+            require(not per_step, f"[{name}] {call}: kernel launches "
+                    f"{per_step}; the path runs none")
     require(profile["decode_replay"]["wrapper_launches"]
             == profile["decode_step"]["wrapper_launches"],
             f"[{name}] a replay counts other launches than the eager step")
@@ -4187,6 +4343,12 @@ def serving_phase(dev, name):
                 f"[{name}] the resumed prefill chunk ran "
                 f"{chunk['cumsum_calls']} torch.cumsum calls, kernels "
                 f"{scans}")
+    if not PATH_KERNELS[name]:
+        require(not per_chunk, f"[{name}] prefill chunk: kernel launches "
+                f"{per_chunk}; the path runs none")
+        log(f"  [{name}] no kernel counter moved in (a), (b) or the "
+            f"profiled calls: the SSD path is plain PyTorch, as JAX's is "
+            f"plain jnp")
     if name in CHUNK_LAUNCHES:
         for kernel, want in CHUNK_LAUNCHES[name].items():
             require(per_chunk.get(kernel, 0) == want,
@@ -4249,10 +4411,11 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
     read once at the width the engine holds it in (not the stacked decode
     q/k/v), the f32 LM-head copy, the KV the step attends to (a global
     layer's whole prefix, a local layer's ring slots inside the window),
-    and each RG-LRU state row read and written.  Operations: the GEMMs
-    and the (query, key) pairs the masks let through.  Under an int8
-    format the peak is int8's (1979 TOPS), and ``int8_weights_bound_ms``
-    counts each weight at one byte (what int8 weights held on the card
+    and each RG-LRU and SSD state row (an SSD layer's f32 state and its
+    conv ring) read and written.  Operations: the GEMMs, the (query, key)
+    pairs the masks let through and the SSD's scan (``ssd_bounds``).
+    Under an int8 format the peak is int8's (1979 TOPS), and
+    ``int8_weights_bound_ms`` counts each weight at one byte (what int8 weights held on the card
     would move) beside the bound at the width the engine holds them.  A
     MoE layer's router and every expert count as weights: the capacity
     buffer runs every expert's GEMMs over its C rows, filled or not
@@ -4266,9 +4429,10 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
     quantized = model_format(cfg).quantized
     peak = PEAK["int8"] if quantized else PEAK["bf16"]
     weights = [leaf["w"] for lp in params["layers"]
-               for grp in ("mixer", "ffn") for leaf in lp[grp].values()
+               for grp in ("mixer", "ffn") for leaf in lp.get(grp, {}).values()
                if isinstance(leaf, dict) and "w" in leaf]
-    moe = [lp["ffn"] for lp in params["layers"] if "router" in lp["ffn"]]
+    moe = [lp["ffn"] for lp in params["layers"]
+           if "router" in lp.get("ffn", {})]
     experts = [ffn[k] for ffn in moe for k in ("gate", "up", "down")]
     routers = [ffn["router"] for ffn in moe]
     # Dense and expert weights: the bytes int8 would hold as one each.
@@ -4303,9 +4467,13 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
     rg = cfg.rglru                  # h in f32, the conv tail, both ways
     rg_state = (2 * n_rglru * rg.width * (4 + rg.conv_width * elt)
                 if n_rglru else 0)
+    n_ssd = kinds.count("ssd")
+    ssd_state, ssd_step, ssd_chunk = ssd_bounds(cfg, elt, chunk)
+    rg_state += 2 * n_ssd * ssd_state
     e_params = sum(w.numel() for w in experts)
     dec_flops = 2 * len(positions) * (w_params - e_params + head.numel()) \
-        + pair * dec_pairs + moe_flops(len(positions))
+        + pair * dec_pairs + moe_flops(len(positions)) \
+        + n_ssd * ssd_step * len(positions)
     dec_kv = kv_row * dec_pairs
     dec_bytes = w_bytes + router_bytes + head_bytes + dec_kv \
         + rg_state * len(positions)
@@ -4314,7 +4482,7 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
     pre_kv = kv_row * (n_attn * (pos0 + chunk)
                        + n_local * (min(pos0, window) + chunk))
     pre_flops = 2 * chunk * (w_params - e_params) + pair * pre_pairs \
-        + 2 * head.numel() + moe_flops(chunk)
+        + 2 * head.numel() + moe_flops(chunk) + n_ssd * ssd_chunk
     pre_bytes = w_bytes + router_bytes + head_bytes + pre_kv + rg_state
     out = {"decode_step": {"bound_ms": bound_ms(dec_flops, dec_bytes, peak),
                            "weight_gb": (w_bytes + router_bytes) / 1e9,
@@ -4327,11 +4495,38 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
                                    ("prefill_chunk", pre_flops, pre_bytes)):
             out[key]["int8_weights_bound_ms"] = bound_ms(
                 flops, nbytes - w_bytes + w_params, peak)
+    if n_ssd:
+        out["decode_step"]["ssd_state_gb"] = 2 * n_ssd * ssd_state / 1e9
     if moe:
         out["decode_step"]["expert_gb"] = sum(
             w.numel() * w.element_size() for w in experts) / 1e9
         out["decode_step"]["router_gb"] = router_bytes / 1e9
     return out
+
+
+def ssd_bounds(cfg, elt: int, chunk: int):
+    """An SSD layer's share of a call's bound (``models/ssm.py``): the
+    bytes of its per-slot state (the f32 (H, P, N) state and the
+    (conv_width, conv_dim) ring in ``elt``-byte elements), and the
+    operations beside its projections -- of one decode step (the conv,
+    the state's decay and update and its read-out, 2 W C + 6 H P N) and
+    of one ``chunk``-token prefill chunk in SSD chunks of q = min(chunk,
+    cfg.ssm.chunk) (per SSD chunk the conv 2 W C q, C·B^T 2 q^2 N, the
+    masked decay product 2 H q^2, the diagonal term 2 H q^2 P, the chunk
+    state and the off-diagonal term 2 q H P N each).  → (state bytes,
+    step FLOP, chunk FLOP); zeros without an SSD config."""
+    s = cfg.ssm
+    if s is None:
+        return 0, 0, 0
+    d_inner = s.expand * cfg.d_model
+    h, p, n, w = d_inner // s.head_dim, s.head_dim, s.d_state, s.conv_width
+    conv_dim = d_inner + 2 * n
+    q = min(chunk, s.chunk)
+    per_chunk = (2 * w * conv_dim * q + 2 * q * q * n + 2 * h * q * q
+                 + 2 * h * q * q * p + 4 * q * h * p * n)
+    return (4 * h * p * n + w * conv_dim * elt,
+            2 * w * conv_dim + 6 * h * p * n,
+            -(-chunk // q) * per_chunk)
 
 
 def routed_expert_gb(eng, call):
@@ -5070,10 +5265,18 @@ def exact_draft_phase(dev, smi):
 
 # -- phase 6: the model-level path at full width -----------------------------
 
-# musicgen_medium's model-level run: 4 sequences of frame embeddings,
+# Phase 6's model-level runs, by arch: 4 sequences of frame embeddings,
 # ``forward`` over 1088 frames, ``prefill`` over the first 1024 into flat
-# caches of 2048 slots, then 64 decode steps over frames 1024-1087.
-MODEL_LEVEL = dict(batch=4, frames=1088, prefix=1024, cache_len=2048)
+# caches of ``cache_len`` slots, then 64 decode steps over frames
+# 1024-1087.  ``short``: the run's label and its key among the launch
+# counts.  chameleon_34b's caches hold the 1088 positions and no more; its
+# reckoning (``model_level_reckoning``) must stay under ``fits_gib``.
+MODEL_LEVEL = {
+    "musicgen_medium": dict(short="musicgen", batch=4, frames=1088,
+                            prefix=1024, cache_len=2048),
+    "chameleon_34b": dict(short="chameleon", batch=4, frames=1088,
+                          prefix=1024, cache_len=1088),
+}
 # How far prefill's and each decode step's logits may lie from forward's
 # at the same position: both sides are bf16 through 48 layers, on other
 # engines (B2 and B6 against B1 and B5) and so other roundings.  Fixed
@@ -5087,21 +5290,29 @@ MODEL_LEVEL_TOL = 0.2
 MODEL_LEVEL_RMS = 0.05
 
 
-def model_level_bounds(cfg, batch, frames, prefix, decode_pos):
+FITS_GIB = 76
+
+
+def model_level_bounds(cfg, batch, frames, prefix, decode_pos, cache_len):
     """The least time of each call on the card, at the bf16 peak and 3.35
     TB/s, from what it must compute and move (``bound_ms``): ``forward``
     and ``prefill`` -- every layer's GEMMs over B x S rows, causal
     attention over the visible pairs, the LM head over the rows it
-    unembeds; bytes: the weights read once (the bf16 layers and head; the
-    embedding table is not read under the stub), the embeddings read,
-    the logits written and, for prefill, the flat caches written; one
-    decode step at ``decode_pos`` -- the weights and the live KV (the
-    positions up to decode_pos of every layer) read, 2 x weights x B
-    FLOP.  Also the caches' bytes all 2048 slots would take."""
+    unembeds; bytes: the weights read once (the bf16 layers and head,
+    biases and norm scales, QK-norm's; the embedding table is not read
+    under the stub), the embeddings read, the logits written and, for
+    prefill, the flat caches written; one decode step at ``decode_pos``
+    -- the weights and the live KV (the positions up to decode_pos of
+    every layer) read, 2 x weights x B FLOP.  Also the caches' bytes all
+    ``cache_len`` slots would take."""
     d, f, h, hd, v = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.hd, cfg.vocab
     hkv, nl = cfg.n_kv_heads, cfg.n_layers
-    layer_w = d * (h + 2 * hkv) * hd + h * hd * d + 2 * d * f
-    layer_b = (h + 2 * hkv) * hd + f + d + 4 * d
+    mlp_mats = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
+    layer_w = d * (h + 2 * hkv) * hd + h * hd * d + mlp_mats * d * f
+    layer_b = (((h + 2 * hkv) * hd if cfg.qkv_bias else 0)
+               + ((mlp_mats - 1) * f + d if cfg.mlp_bias else 0)
+               + (2 * hd if cfg.qk_norm else 0)
+               + (4 if cfg.norm_type == "layernorm" else 2) * d)
     weights = 2 * (nl * (layer_w + layer_b) + d * v + 2 * d)
     kv_token = 2 * hkv * hd * 2                # K and V of a token, bf16
 
@@ -5117,7 +5328,7 @@ def model_level_bounds(cfg, batch, frames, prefix, decode_pos):
                 "bound_by": bound_by(flops, nbytes, PEAK["bf16"]),
                 "flops": flops, "bytes": nbytes}
 
-    caches = nl * batch * MODEL_LEVEL["cache_len"] * kv_token
+    caches = nl * batch * cache_len * kv_token
     live = nl * batch * (decode_pos + 1) * kv_token
     dec_flops = 2.0 * batch * (nl * layer_w + d * v) \
         + nl * 4.0 * batch * h * hd * (decode_pos + 1)
@@ -5135,38 +5346,69 @@ def model_level_bounds(cfg, batch, frames, prefix, decode_pos):
         "weights_gb": weights / 1e9, "caches_gb": caches / 1e9}
 
 
-def model_level_phase(dev):
-    """musicgen_medium at full width (48 layers, d_model 1536, bf16
-    weights via ``param_dtype``, biases and LayerNorm parameters drawn by
-    ``random_biases``) through the model-level path on the kernels
-    (``MODEL_LEVEL``): frame embeddings E drawn from a seed, ``forward``
-    over E, ``prefill`` over its first 1024 frames into 2048-slot flat
-    caches, then 64 ``decode`` steps over frames 1024-1087.  Checks:
+def model_level_reckoning(cfg, bounds, batch, frames):
+    """What phase 6 holds on the card at once, in GB: the bf16 weights
+    (the embedding table too, which the stub never reads), the flat
+    caches, forward's f32 logits (B, frames, vocab) and the LM head
+    widened to f32 by ``unembed`` on each call."""
+    return {"weights_gb": bounds["weights_gb"]
+            + 2 * cfg.d_model * cfg.vocab / 1e9,
+            "caches_gb": bounds["caches_gb"],
+            "forward_logits_gb": 4 * batch * frames * cfg.vocab / 1e9,
+            "head_f32_gb": 4 * cfg.d_model * cfg.vocab / 1e9}
+
+
+def model_level_phase(dev, arch):
+    """``arch`` (musicgen_medium or chameleon_34b) at full width (bf16
+    weights via ``param_dtype``; biases and LayerNorm parameters drawn by
+    ``random_biases`` where the config has them) through the model-level
+    path on the kernels (``MODEL_LEVEL[arch]``): frame embeddings E drawn
+    from a seed, ``forward`` over E, ``prefill`` over its first 1024
+    frames into flat caches, then 64 ``decode`` steps over frames
+    1024-1087.  Before the run it prints what the card will hold
+    (``model_level_reckoning``) and fails past ``FITS_GIB``.  Checks:
     prefill's logits against forward's at 1023 and each decode step's
     against forward's at 1024 + i (``MODEL_LEVEL_TOL``,
-    ``MODEL_LEVEL_RMS``); per decode step 288 B2 launches on the cluster
-    engine (q, k, v, o, up, down of 48 layers) and 48 of B6 on the mma
-    engine, per forward and prefill 288 of B1 on the wgmma engine and 48
-    of B5 on its wgmma engine, and 0 tile-loop, SIMT and grouped
-    launches.  Prints the device ms and idle share of a decode step, the
-    prefill and the forward (``profile_call``) against their bounds
-    (``model_level_bounds``) and the peak memory beside what is held.
-    Returns (launch counts of the run, summary)."""
+    ``MODEL_LEVEL_RMS``); per decode step one B2 launch on the cluster
+    engine per projection (q, k, v, o and the MLP's two or three) of
+    every layer and one B6 launch on the mma engine per layer, per
+    forward and prefill as many B1 launches on the wgmma engine and one
+    B5 launch on its wgmma engine per layer, and 0 tile-loop, SIMT and
+    grouped launches.  Prints the device ms and idle share of a decode
+    step, the prefill and the forward (``profile_call``) against their
+    bounds (``model_level_bounds``) and the peak memory beside what is
+    held.  Returns (launch counts of the run, summary)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models import model as model_lib
 
-    b, frames, prefix = (MODEL_LEVEL[k] for k in ("batch", "frames",
-                                                   "prefix"))
-    cache_len, steps = MODEL_LEVEL["cache_len"], frames - prefix
-    cfg = dataclasses.replace(get_config("musicgen_medium"),
-                              param_dtype="bfloat16")
+    run = MODEL_LEVEL[arch]
+    short, b, frames, prefix, cache_len = (
+        run[k] for k in ("short", "batch", "frames", "prefix", "cache_len"))
+    steps = frames - prefix
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
+    nl = cfg.n_layers
+    n_proj = 4 + (3 if cfg.mlp_type in ("swiglu", "geglu") else 2)
+    bounds = model_level_bounds(cfg, b, frames, prefix, frames - 1,
+                                cache_len)
+    held = model_level_reckoning(cfg, bounds, b, frames)
+    log(f"  [{short}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_params() / 1e9:.3f} B parameters; the card will hold "
+        f"{ {k: round(v, 3) for k, v in held.items()} } = "
+        f"{sum(held.values()):.3f} GB ({sum(held.values()) * 1e9 / 2**30:.2f}"
+        f" GiB, limit {FITS_GIB} GiB), activations apart")
+    require(sum(held.values()) * 1e9 / 2**30 <= FITS_GIB,
+            f"{short}: the reckoning passes {FITS_GIB} GiB")
     reset_planning()
     free_card()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     params = random_biases(model_lib.init_params(cfg, seed=0, device=dev),
                            cfg)
+    torch.cuda.synchronize()
+    log(f"  [{short}] params: {model_lib.param_count(params) / 1e9:.3f} B "
+        f"(bf16), init {time.perf_counter() - t0:.1f} s")
     emb = torch.randn(b, frames, cfg.d_model, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(11)
                       ).to(torch.bfloat16)
@@ -5189,19 +5431,21 @@ def model_level_phase(dev):
     step_counts = {k: (counts[k] - before.get(k, 0)) / steps
                    for k in counts if counts[k] != before.get(k, 0)}
     before = {k: v for k, v in before.items() if v}
-    log(f"  [musicgen] launches: forward + prefill {before}; per decode "
+    log(f"  [{short}] launches: forward + prefill {before}; per decode "
         f"step {step_counts}")
-    nl = cfg.n_layers
-    require(step_counts == {"splitk_gemm_cluster": 6 * nl,
+    require(step_counts == {"splitk_gemm_cluster": n_proj * nl,
                             "flash_decode_mma": nl},
-            f"musicgen decode step: launches {step_counts}, want "
-            f"{6 * nl} splitk_gemm_cluster and {nl} flash_decode_mma")
-    require(before == {"mte_gemm_wgmma": 2 * 6 * nl,
+            f"{short} decode step: launches {step_counts}, want "
+            f"{n_proj * nl} splitk_gemm_cluster and {nl} flash_decode_mma")
+    require(before == {"mte_gemm_wgmma": 2 * n_proj * nl,
                        "flash_attention_wgmma": 2 * nl},
-            f"musicgen forward + prefill: launches {before}")
+            f"{short} forward + prefill: launches {before}, want "
+            f"{2 * n_proj * nl} mte_gemm_wgmma and {2 * nl} "
+            f"flash_attention_wgmma")
     # The q/k/v programs at M = 4352 (forward), 4096 (prefill) and 4
-    # (decode): three equal widths, which the scheduler may group (B3).
-    programs = log_programs("musicgen")
+    # (decode), which the scheduler may group (B3); the checks above say
+    # it did not.
+    programs = log_programs(short)
 
     got = torch.stack([first] + decoded, dim=1)           # (B, 65, V)
     want = full[:, prefix - 1:]
@@ -5209,19 +5453,18 @@ def model_level_phase(dev):
     rel = float((diff / (1 + want.abs())).max())
     rms = float((got - want).norm() / want.norm())
     argmax = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    log(f"  [musicgen] prefill and {steps} decode steps against forward: max "
-        f"|diff| {float(diff.max()):.4e}, max |diff|/(1+|ref|) {rel:.4e} "
-        f"(tol {MODEL_LEVEL_TOL}), RMS ratio {rms:.4e} (tol "
+    log(f"  [{short}] prefill and {steps} decode steps against forward: "
+        f"max |diff| {float(diff.max()):.4e}, max |diff|/(1+|ref|) "
+        f"{rel:.4e} (tol {MODEL_LEVEL_TOL}), RMS ratio {rms:.4e} (tol "
         f"{MODEL_LEVEL_RMS}), argmax agreement {argmax:.4f}")
     require(bool(torch.isfinite(full).all()) and full.shape == (
-        b, frames, cfg.vocab), "musicgen forward: logits not finite or "
-        "of the wrong shape")
+        b, frames, cfg.vocab), f"{short} forward: logits not finite or "
+        f"of the wrong shape")
     require(rel <= MODEL_LEVEL_TOL and rms <= MODEL_LEVEL_RMS,
-            f"musicgen: prefill/decode logits differ from forward's "
+            f"{short}: prefill/decode logits differ from forward's "
             f"({rel}, {rms})")
     del full, first, decoded, got, want, diff
 
-    bounds = model_level_bounds(cfg, b, frames, prefix, frames - 1)
     pos = torch.tensor(frames - 1, device=dev)
     step_batch = {"embeddings": emb[:, -1:], "pos": pos}
 
@@ -5244,20 +5487,17 @@ def model_level_phase(dev):
             profiles[name] = {**profile_call(fn, n), **bounds[name]}
             log_profile(name, profiles[name])
     peak_profiles = torch.cuda.max_memory_allocated()
-    held = {"weights_gb": bounds["weights_gb"],
-            "caches_gb": bounds["caches_gb"],
-            "forward_logits_gb": 4 * b * frames * cfg.vocab / 1e9}
-    log(f"  [musicgen] peak memory of the checked run {peak / 2**30:.2f} "
+    log(f"  [{short}] peak memory of the checked run {peak / 2**30:.2f} "
         f"GiB ({peak / 1e9:.3f} GB) beside {held} "
         f"({sum(held.values()):.3f} GB held at once, activations apart); "
         f"of the profiles (a second prefill's caches alive) "
         f"{peak_profiles / 1e9:.3f} GB; "
         f"decode step bound {bounds['decode_step']['bound_ms']:.3f} ms "
         f"({bounds['decode_step']['bound_ms_all_slots']:.3f} ms were all "
-        f"2048 slots read)")
+        f"{cache_len} slots read)")
     del params, cache, emb
     free_card()
-    return counts, {"launches_per_decode_step": step_counts,
+    return counts, {"arch": arch, "launches_per_decode_step": step_counts,
                     "launches_forward_prefill": before,
                     "programs": programs,
                     "max_rel_err": rel, "rms_ratio": rms,
@@ -5832,6 +6072,16 @@ MUSICGEN_ROWS = {
     "flash_attention_wgmma": "mg 4x1024 H=24/24 D=64",
     "flash_decode_mma": "mg flat 4x24/24x64 L=2048 pos 1087",
 }
+# The same at chameleon_34b's shapes (launches from phase 6's chameleon
+# run): the prefill's gate with its silu on B1, the decode step's down on
+# B2, the prefill's causal attention at G = 8, D = 128 on B5 and the
+# flat-cache decode at its last position on B6.
+CHAMELEON_ROWS = {
+    "mte_gemm_wgmma": "ch gate 4096x22016x8192",
+    "splitk_gemm_cluster": "ch down 4x8192x22016",
+    "flash_attention_wgmma": "ch 4x1024 H=64/8 D=128",
+    "flash_decode_mma": "ch flat 4x64/8x128 L=1088 pos 1087",
+}
 
 
 def parse_args():
@@ -5902,6 +6152,11 @@ def main() -> int:
     log("== 3. reduced musicgen_medium (fp32): the model-level path, card "
         "against CPU")
     counts.update(reduced_musicgen_phase(dev))
+    log("== 3. reduced chameleon_34b (fp32, QK-norm): the model-level path, "
+        "card against CPU")
+    counts.update(reduced_chameleon_phase(dev))
+    log("== 3. reduced mamba2_130m (fp32): the SSD mixer, card against CPU")
+    counts.update(reduced_mamba2_phase(dev))
     for name, (arch, overrides) in CONFIGS.items():
         fmt = ENGINE_KW.get(name, {}).get(
             "format_policy", get_config(arch).format_policy or "bf16")
@@ -5921,9 +6176,12 @@ def main() -> int:
     log("== 5. the reference's exact-draft gate at gemma_2b's full width "
         "[exact-draft]")
     speculative["exact-draft"] = exact_draft_phase(dev, smi)
-    log("== 6. the model-level path at full width: musicgen_medium (bf16) "
-        "forward, prefill and decode over flat caches")
-    counts["musicgen"], model_level = model_level_phase(dev)
+    model_level = {}
+    for arch, run in MODEL_LEVEL.items():
+        log(f"== 6. the model-level path at full width: {arch} (bf16) "
+            f"forward, prefill and decode over flat caches")
+        counts[run["short"]], model_level[run["short"]] = \
+            model_level_phase(dev, arch)
     log("== 7. training: reduced gemma_2b (fp32) card against CPU")
     counts.update(training_card_phase(dev))
     log(f"== 7. training gemma_2b at full width on the card: "
@@ -5953,6 +6211,8 @@ def main() -> int:
                                  STARCODER2_ROWS),
                                 ("at_musicgen", "musicgen",
                                  MUSICGEN_ROWS),
+                                ("at_chameleon", "chameleon",
+                                 CHAMELEON_ROWS),
                                 ("at_int8", "int8", INT8_ROWS),
                                 ("at_granite", "granite", GRANITE_ROWS),
                                 ("at_decode", "amx-int8",

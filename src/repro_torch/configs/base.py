@@ -9,9 +9,8 @@ compiled :mod:`repro_torch.graph` programs.
 ``input_specs`` returns ``(shape, dtype-name)`` tuples instead of
 ``jax.ShapeDtypeStruct``s.
 
-Registry: ``get_config(name)`` knows the configurations this port serves
-so far; the other assigned names raise, naming the ROADMAP item that
-ports them.
+Registry: ``get_config(name)`` resolves every assigned configuration
+(``ARCH_NAMES``), one module each under ``repro_torch/configs/``.
 """
 from __future__ import annotations
 
@@ -141,13 +140,19 @@ class ArchConfig:
         return seq_len
 
     def n_params(self) -> int:
-        """Approximate parameter count (attention, MLP and MoE layers)."""
+        """Approximate parameter count (attention, SSD, MLP and MoE
+        layers)."""
         d, hd = self.d_model, self.hd
         total = self.vocab * d * (1 if self.tied_embeddings else 2)
         for mixer, ffn in self.layer_kinds:
             if mixer in ("attn", "local"):
                 total += d * hd * (self.n_heads + 2 * self.n_kv_heads)
                 total += self.n_heads * hd * d
+            elif mixer == "ssd":
+                di = self.ssm.expand * d
+                nh = di // self.ssm.head_dim
+                proj = 2 * di + 2 * self.ssm.d_state + nh
+                total += d * proj + di * d
             if ffn == "mlp":
                 k = 3 if self.mlp_type in ("swiglu", "geglu") else 2
                 total += k * d * self.d_ff
@@ -222,9 +227,7 @@ ARCH_NAMES = [
     "musicgen_medium", "chameleon_34b", "gemma2_27b", "starcoder2_7b",
     "gemma_2b", "qwen15_4b", "mamba2_130m",
 ]
-PORTED_ARCHS = ("gemma_2b", "recurrentgemma_9b", "gemma2_27b",
-                "qwen15_4b", "starcoder2_7b", "musicgen_medium",
-                "granite_moe_1b", "qwen3_moe_235b")
+PORTED_ARCHS = tuple(ARCH_NAMES)
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
@@ -236,10 +239,6 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 def get_config(name: str) -> ArchConfig:
     name = name.replace("-", "_")
-    if name in ARCH_NAMES and name not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"config {name!r} is not ported yet (ROADMAP queue A: the "
-            f"other configs); ported: {list(PORTED_ARCHS)}")
     if name not in _REGISTRY:
         if name not in PORTED_ARCHS:
             raise KeyError(f"unknown config {name!r}")

@@ -138,6 +138,29 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along S by shifted adds: x (B, S, C), w
+    (width, C), b (C) — the RG-LRU's and the SSD's short conv."""
+    width = w.shape[0]
+    out = x * w[-1]
+    for i in range(1, width):
+        shifted = torch.nn.functional.pad(x, (0, 0, i, 0))[:, :x.shape[1]]
+        out = out + shifted * w[-1 - i]
+    return out + b
+
+
+def keep_rows(old: torch.Tensor, new: torch.Tensor,
+              row_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """``new`` where ``row_valid`` (B,) is True, ``old`` elsewhere (all of
+    ``new`` without it): a recurrent decode step's state update under
+    JAX's ``_mask_rows`` contract."""
+    if row_valid is None:
+        return new
+    return torch.where(row_valid.reshape(-1, *[1] * (new.ndim - 1)), new,
+                       old)
+
+
 def init_mlp(gen: torch.Generator, cfg, device=None):
     d, f = cfg.d_model, cfg.d_ff
     dt = to_torch_dtype(cfg.param_dtype)

@@ -10,9 +10,11 @@ kinds ported are ``("attn", "mlp")`` (global attention over the paged
 pool), ``("local", "mlp")`` (sliding-window attention over a per-slot
 ring) and ``("rglru", "mlp")`` (the RG-LRU block with its per-slot
 state), each followed by an MLP (gated, or the plain GELU MLP with
-biases), and ``("attn", "moe")`` (global attention followed by the
-capacity-dispatch MoE layer, :mod:`repro_torch.models.moe`), in any mix
-of them in one model; other kinds raise, naming the ROADMAP item (A10).
+biases), ``("attn", "moe")`` (global attention followed by the
+capacity-dispatch MoE layer, :mod:`repro_torch.models.moe`) and
+``("ssd", "none")`` (the Mamba2 SSD block with its per-slot state,
+:mod:`repro_torch.models.ssm`, and no FFN: such a layer has no ``norm2``
+and no ``ffn``), in any mix of them in one model; other kinds raise.
 Features: RMSNorm or LayerNorm (``cfg.norm_type``), attention and final
 logit softcaps, a query scale of the config's own (``attn_scale``), MHA
 and GQA, QKV biases, QK-norm, untied LM heads, and
@@ -31,7 +33,7 @@ serving — :func:`init_paged_cache`, :func:`prefill_chunk`,
 :func:`decode_and_sample`, and for speculative decoding
 :func:`verify_chunk` and :func:`draft_from`.  A decode updates its cache
 in place: the page slabs, the flat caches, the rings and the RG-LRU
-state rows.
+and SSD state rows.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from repro_torch.core.formats import to_torch_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (check_backend, compute_dtype, embed,
                                        init_embedding, init_mlp, init_norm,
                                        mlp, norm, unembed)
@@ -57,15 +60,18 @@ __all__ = ["init_params", "forward", "loss_fn", "prefill", "init_cache",
            "param_count"]
 
 _PORTED_KINDS = (("attn", "mlp"), ("local", "mlp"), ("rglru", "mlp"),
-                 ("attn", "moe"))
+                 ("attn", "moe"), ("ssd", "none"))
+# The per-slot state rows of the recurrent mixers.
+_STATE_CACHES = {"rglru": rglru_mod.init_rglru_cache,
+                 "ssd": ssm_mod.init_ssd_cache}
 
 
 def _check_kinds(cfg) -> None:
     for kind in cfg.layer_kinds:
         if tuple(kind) not in _PORTED_KINDS:
             raise NotImplementedError(
-                f"layer kind {kind} is not ported yet (ROADMAP A10: "
-                f"off-main-path models); ported: {_PORTED_KINDS}")
+                f"layer kind {kind} is not ported; ported: "
+                f"{_PORTED_KINDS}")
 
 
 def init_params(cfg, *, seed: int = 0, device=None) -> Dict[str, Any]:
@@ -78,18 +84,20 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Dict[str, Any]:
     gen.manual_seed(seed)
     dt = to_torch_dtype(cfg.param_dtype)
     layers = []
+    init_mixer = {"rglru": rglru_mod.init_rglru, "ssd": ssm_mod.init_ssd}
     for mixer, ffn in cfg.layer_kinds:
-        lp = {
-            "norm1": init_norm(cfg.d_model, cfg.norm_type, dt, dev),
-            "mixer": (rglru_mod.init_rglru(gen, cfg, dev) if mixer == "rglru"
-                      else attn_mod.init_attention(gen, cfg, dev)),
-            "norm2": init_norm(cfg.d_model, cfg.norm_type, dt, dev),
-            "ffn": (moe_mod.init_moe(gen, cfg, dev) if ffn == "moe"
-                    else init_mlp(gen, cfg, dev)),
-        }
+        lp = {"norm1": init_norm(cfg.d_model, cfg.norm_type, dt, dev),
+              "mixer": init_mixer.get(mixer, attn_mod.init_attention)(
+                  gen, cfg, dev)}
+        if ffn != "none":
+            lp["norm2"] = init_norm(cfg.d_model, cfg.norm_type, dt, dev)
+            lp["ffn"] = (moe_mod.init_moe(gen, cfg, dev) if ffn == "moe"
+                         else init_mlp(gen, cfg, dev))
         if cfg.post_norms:
             lp["post_norm1"] = init_norm(cfg.d_model, cfg.norm_type, dt, dev)
-            lp["post_norm2"] = init_norm(cfg.d_model, cfg.norm_type, dt, dev)
+            if ffn != "none":
+                lp["post_norm2"] = init_norm(cfg.d_model, cfg.norm_type, dt,
+                                             dev)
         layers.append(lp)
     return {"embedding": init_embedding(gen, cfg, dev), "layers": layers,
             "final_norm": init_norm(cfg.d_model, cfg.norm_type, dt, dev)}
@@ -104,14 +112,14 @@ def init_cache(cfg, batch: int, seq_len: int, *, device=None):
     of the JAX package), what :func:`prefill` returns: global attention
     layers a flat (batch, seq_len, Hkv, D) cache, local layers a ring of
     min(window, seq_len) slots, RG-LRU layers their ``{"h", "conv"}``
-    rows."""
+    rows, SSD layers their ``{"state", "conv"}`` rows."""
     _check_kinds(cfg)
     dev = resolve_device(device)
     cdt = compute_dtype(cfg)
 
     def layer_cache(mixer):
-        if mixer == "rglru":
-            return rglru_mod.init_rglru_cache(cfg, batch, cdt, dev)
+        if mixer in _STATE_CACHES:
+            return _STATE_CACHES[mixer](cfg, batch, cdt, dev)
         return attn_mod.init_attn_cache(
             cfg, batch, seq_len, cfg.window if mixer == "local" else None,
             cdt, dev)
@@ -126,7 +134,8 @@ def init_paged_cache(cfg, batch: int, seq_len: int, *, num_pages: int,
     shared pool (page 0 reserved as the null page; ``cfg.kv_cache_format``
     selects the stored element type), local layers a (batch, L, Hkv, D)
     ring of L = min(window, seq_len) slots, RG-LRU layers their
-    ``{"h", "conv"}`` rows."""
+    ``{"h", "conv"}`` rows, SSD layers their ``{"state", "conv"}`` rows
+    (never paged)."""
     _check_kinds(cfg)
     dev = resolve_device(device)
     cdt = compute_dtype(cfg)
@@ -138,7 +147,7 @@ def init_paged_cache(cfg, batch: int, seq_len: int, *, num_pages: int,
         if mixer == "local":
             return attn_mod.init_attn_cache(cfg, batch, seq_len, cfg.window,
                                             cdt, dev)
-        return rglru_mod.init_rglru_cache(cfg, batch, cdt, dev)
+        return _STATE_CACHES[mixer](cfg, batch, cdt, dev)
 
     return {"layers": [layer_cache(mixer) for mixer, _ in cfg.layer_kinds]}
 
@@ -150,10 +159,12 @@ def _slot_view(cache, slot: int):
 
 
 def _decode_mixer(h, p, cfg, mixer, cache, pos, row_valid):
-    """A flat-cache, ring or RG-LRU mixer over h (B, K, D): one decode
-    step (K = 1) or a speculative window scored as K of them."""
+    """A flat-cache, ring, RG-LRU or SSD mixer over h (B, K, D): one
+    decode step (K = 1) or a speculative window scored as K of them."""
     if mixer == "rglru":
         return rglru_mod.rglru_decode(h, p, cfg, cache, row_valid=row_valid)
+    if mixer == "ssd":
+        return ssm_mod.ssd_decode(h, p, cfg, cache, row_valid=row_valid)
     return attn_mod.decode_attention(
         h, p, cfg, cache, pos, window=cfg.window if mixer == "local" else None,
         row_valid=row_valid)
@@ -163,11 +174,16 @@ def _sequence_mixer(h, p, cfg, mixer, positions, mode, cache_len):
     """A mixer over a whole sequence from position 0, in ``mode``
     ``"train"`` (→ (out, None)) or ``"prefill"`` (→ (out, the layer's
     decode cache of ``cache_len`` slots)): attention through B5 with the
-    window mask on local layers, the RG-LRU block from a zero state."""
+    window mask on local layers, the RG-LRU and SSD blocks from a zero
+    state."""
     if mixer == "rglru":
         out, state = rglru_mod.rglru_forward(h, p, cfg,
                                              train=mode == "train")
         return out, state if mode == "prefill" else None
+    if mixer == "ssd":
+        if mode == "train":
+            return ssm_mod.ssd_forward(h, p, cfg), None
+        return ssm_mod.ssd_forward(h, p, cfg, return_cache=True)
     window = cfg.window if mixer == "local" else None
     if mode == "train":
         return attn_mod.attention(h, p, cfg, positions, window=window), None
@@ -190,8 +206,9 @@ def _apply_layer(x, lp, cfg, kinds, positions, mode, cache, *, pos=None,
     (only the attention, the conv and the recurrence step per position),
     and every projection and the FFN run once over the B·K rows on the
     decode step's plans (``plan_rows`` = B), so each row keeps the decode
-    step's bits.  With ``cfg.post_norms`` the mixer's and the MLP's
-    outputs are normed (``post_norm1``, ``post_norm2``) before their
+    step's bits.  An ffn ``"none"`` layer (SSD) ends after the mixer's
+    residual add (``model.py:267-276`` of the JAX package).  With
+    ``cfg.post_norms`` the mixer's and the MLP's outputs are normed (``post_norm1``, ``post_norm2``) before their
     residual adds (``model.py:264-275`` of the JAX package).  A moe FFN
     runs :func:`repro_torch.models.moe.dispatch` over the call's B·S
     tokens in every mode (a verify window's B·K too, on the capacity of
@@ -218,8 +235,12 @@ def _apply_layer(x, lp, cfg, kinds, positions, mode, cache, *, pos=None,
             # Chunk 0 starts fresh (the slot row holds its previous
             # occupant's state); later chunks resume the carried state.
             one = _slot_view(cache, slot) if chunk_pos0 else None
-            out, one = rglru_mod.rglru_forward(h, lp["mixer"], cfg,
-                                               cache=one)
+            if mixer == "ssd":
+                out, one = ssm_mod.ssd_forward(h, lp["mixer"], cfg,
+                                               return_cache=True, cache=one)
+            else:
+                out, one = rglru_mod.rglru_forward(h, lp["mixer"], cfg,
+                                                   cache=one)
             for name, leaf in one.items():
                 cache[name][slot] = leaf[0].to(cache[name].dtype)
     elif paged and mode == "verify":
@@ -236,8 +257,10 @@ def _apply_layer(x, lp, cfg, kinds, positions, mode, cache, *, pos=None,
     if cfg.post_norms:
         out = norm(out, lp["post_norm1"], kind)
     x = x + out
-    h = norm(x, lp["norm2"], kind)
     aux = None
+    if ffn == "none":
+        return x, cache, aux
+    h = norm(x, lp["norm2"], kind)
     if ffn == "moe":
         out, aux = moe_mod.dispatch(h, lp["ffn"], cfg)
     else:
@@ -388,8 +411,8 @@ def prefill(params, batch, cfg, cache_len: Optional[int] = None):
 def prefill_chunk(params, batch, cache, cfg, *, pos0: int):
     """One prompt chunk into the serving cache: ``batch["tokens"]`` (1, C)
     at positions [pos0, pos0+C), ``batch["page_table"]`` (1, max_pages),
-    ``batch["slot"]`` (int, default 0) the batch row whose ring and
-    RG-LRU state the chunk advances.  Returns (last-position logits
+    ``batch["slot"]`` (int, default 0) the batch row whose ring, RG-LRU
+    or SSD state the chunk advances.  Returns (last-position logits
     (1, V) f32, cache)."""
     tokens = batch["tokens"]
     x = embed(tokens, params["embedding"], cfg)
@@ -408,9 +431,9 @@ def decode(params, batch, cache, cfg):
     d_model) under ``cfg.frontend_stub``), ``batch["pos"]`` a scalar or
     (B,) per-slot positions, ``batch["page_table"]`` (B, max_pages) for
     a paged cache (none for :func:`init_cache`'s) and optionally
-    ``batch["row_valid"]`` (B,) bool: the rows whose flat-cache, ring and
-    RG-LRU state the step may change (JAX's ``_mask_rows`` contract; the
-    others — slots still prefilling — keep theirs).  Returns (logits
+    ``batch["row_valid"]`` (B,) bool: the rows whose flat-cache, ring,
+    RG-LRU and SSD state the step may change (JAX's ``_mask_rows``
+    contract; the others — slots still prefilling — keep theirs).  Returns (logits
     (B, V) f32, cache)."""
     x = _inputs_to_x(batch, params, cfg)
     b = x.shape[0]

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.formats import to_torch_dtype
-from repro_torch.models.layers import compute_dtype, dense, init_dense
+from repro_torch.models.layers import (causal_conv, compute_dtype, dense,
+                                       init_dense, keep_rows)
 
 __all__ = ["init_rglru", "rglru_forward", "init_rglru_cache",
            "rglru_decode"]
@@ -56,16 +57,6 @@ def init_rglru(gen: torch.Generator, cfg, device=None):
         "lam": torch.full((w,), 0.65, dtype=dt, device=device),
         "out_proj": lin(w, d, scale=w ** -0.5),
     }
-
-
-def _causal_conv(x, w, b):
-    """Depthwise causal conv along S: x (B, S, W), w (width, W), b (W)."""
-    width = w.shape[0]
-    out = x * w[-1]
-    for i in range(1, width):
-        shifted = F.pad(x, (0, 0, i, 0))[:, :x.shape[1]]
-        out = out + shifted * w[-1 - i]
-    return out + b
 
 
 def _gates(x, p, cfg, plan_rows=None):
@@ -120,8 +111,8 @@ def rglru_forward(x, p, cfg, *, cache: Optional[dict] = None,
     if cache is not None:
         hist = cache["conv"].shape[1]
         conv_in = torch.cat([cache["conv"].to(u_raw.dtype), u_raw], dim=1)
-    u = _causal_conv(conv_in.float(), p["conv_w"].float(),
-                     p["conv_b"].float())[:, hist:].to(u_raw.dtype)
+    u = causal_conv(conv_in.float(), p["conv_w"].float(),
+                    p["conv_b"].float())[:, hist:].to(u_raw.dtype)
     log_a, gated = _gates(u, p, cfg)
     if train:
         if cache is not None:
@@ -166,26 +157,20 @@ def rglru_decode(x, p, cfg, cache, *, row_valid=None):
     gate = dense(x, p["gate_proj"], cfg, activation="gelu", plan_rows=b)
     u_raw = dense(x, p["rec_proj"], cfg, plan_rows=b)      # (B, K, W)
 
-    def advance(state, new):
-        if row_valid is None:
-            return new
-        keep = row_valid.reshape(-1, *[1] * (new.ndim - 1))
-        return torch.where(keep, new, state)
-
     conv_w, conv_b = p["conv_w"].float(), p["conv_b"].float()
     conv, us = cache["conv"], []
     for i in range(klen):
         step = torch.cat([conv[:, 1:], u_raw[:, i:i + 1].to(conv.dtype)],
                          dim=1)
         us.append(torch.einsum("bwc,wc->bc", step.float(), conv_w) + conv_b)
-        conv = advance(conv, step)
+        conv = keep_rows(conv, step, row_valid)
     log_a, gated = _gates(_stack(us).to(x.dtype), p, cfg, plan_rows=b)
     a, bias = _scan_inputs(log_a, gated)
     h, hs = cache["h"], []
     for i in range(klen):
         step = a[:, i] * h + bias[:, i]
         hs.append(step)
-        h = advance(h, step)
+        h = keep_rows(h, step, row_valid)
     out = dense(gate * _stack(hs).to(x.dtype), p["out_proj"], cfg,
                 plan_rows=b)
     cache["h"].copy_(h)

@@ -110,7 +110,7 @@ __all__ = ["Request", "ServingEngine", "DecodeStep", "SpecStep",
 def _draft_widths(cfg: ArchConfig):
     """What a weight-shared draft must have of its target's config."""
     return (cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_heads, cfg.n_kv_heads,
-            cfg.hd, cfg.window, cfg.rglru, cfg.period)
+            cfg.hd, cfg.window, cfg.rglru, cfg.ssm, cfg.period)
 
 
 def _stack_decode_qkv(params):
@@ -172,9 +172,10 @@ def serving_params(params, cfg: ArchConfig):
     cast_w = not fmt.quantized
 
     def cast(group, name, leaf):
-        # Dense projections and the experts only: the RG-LRU mixer's bare
-        # tensors (conv_w, conv_b, lam) pass through and are widened to
-        # f32 at use, as in JAX, and so does the router.
+        # Dense projections and the experts only: the RG-LRU and SSD
+        # mixers' bare tensors (conv_w, conv_b, lam, A_log, ...) pass
+        # through and are widened to f32 at use, as in JAX, and so does
+        # the router.
         if not cast_w:
             return leaf
         if isinstance(leaf, dict) and "w" in leaf:
@@ -186,8 +187,9 @@ def serving_params(params, cfg: ArchConfig):
     def layer(lp):
         out = dict(lp)
         for group in ("mixer", "ffn"):
-            out[group] = {name: cast(group, name, leaf)
-                          for name, leaf in lp[group].items()}
+            if group in lp:      # an SSD layer has no ffn
+                out[group] = {name: cast(group, name, leaf)
+                              for name, leaf in lp[group].items()}
         return out
 
     emb = dict(params["embedding"])
