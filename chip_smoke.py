@@ -315,6 +315,34 @@ Phases (any failure raises and the script exits non-zero):
    kernel (the unsplit k/v dB, the B^T copies, the accumulators' round
    trips and the epilogue passes stand apart).
 
+8. The paper's convolutions (``CONV_SUITE``, §V-B2): the 75 unique
+   layers of ResNet-50, VGG-16, SqueezeNet 1.1, Inception-v3 and
+   Darknet-19 at minibatch 16 (the script's own list, the shapes of
+   ``benchmarks/workloads.py``), each through
+   ``core.conv.conv2d_direct(backend="kernels")`` with a bias and relu,
+   inputs from a seeded ``torch.Generator`` on the card: in fp32 and bf16
+   all 75, in int8 ResNet-50's 18.  Each call is one B3 launch, counters
+   zeroed just before and read just after: every aligned layer on B3's
+   SIMT (fp32), wgmma (bf16) or s8 (int8) engine, only the six
+   unaligned layers (``CONV_UNALIGNED``: IC = 3, and yl.head's OC = 425)
+   on the tile loop; each held against ``backend="reference"`` on the
+   card (``CONV_TOL``: max error over the output's RMS, int8 exactly
+   equal) and, as an oracle only, ``F.conv2d`` on the format's rounded
+   inputs in f32 (``CONV_ORACLE_TOL``).  Per layer it prints the engine,
+   the plan's tile and CSR word (``TileState``), the B3 launch's ms
+   (median of 10, and L2-cold), the whole ``conv2d_direct``'s, the bound
+   (the format's peak; bytes: stacked windows, weights and the f32
+   partials), the kernel's plain version, ``torch.bmm`` at the grouped
+   shape, ``F.conv2d`` and the peak memory.
+9. The paper's 18 transformer GEMMs (``TRANSFORMER_GEMMS``, §V-B3)
+   through ``core.dispatch.mte_gemm(backend="kernels")`` under
+   ``policy="mte"`` (B1, B2) and ``"amx"`` (B8), in fp32 and bf16, each
+   one launch held against ``backend="reference"`` (``DISPATCH_TOL``):
+   route, engine, tile and CSR word, the launch's ms under both policies
+   and their ratio, beside the paper's CPU model (``perfmodel.model_all``:
+   the Table VII design points, not the H100) and its retired
+   instructions (``isa.count_all``).
+
 Each phase's seconds are printed on a line of their own ("-- N s:").
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -364,17 +392,19 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+def time_ms(fn, iters: int = 10, warmup: int = 2,
+            sleep_cycles: int = 200_000_000) -> float:
     """Median device milliseconds of one call, from CUDA events between
-    back-to-back calls.  A sleep kernel holds the device while the host
-    enqueues every call, so the host's own time per call (Python, the
-    wrapper's allocations) is not counted as the kernel's."""
+    back-to-back calls.  A sleep kernel (``sleep_cycles``, by default
+    ~0.1 s at the H100's clocks) holds the device while the host enqueues
+    every call, so the host's own time per call (Python, the wrapper's
+    allocations) is not counted as the kernel's."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
-    torch.cuda._sleep(200_000_000)        # ~0.1 s at the H100's clocks
+    torch.cuda._sleep(sleep_cycles)
     events[0].record()
     for ev in events[1:]:
         fn()
@@ -5888,6 +5918,453 @@ def training_phase(dev, policy="mte", ref_loss=None):
 
 # (counter, source, the TPU kernel it replaces, the row of phase 2 that
 # stands for it, the configuration whose main path counts its launches)
+# -- phase 8: the paper's convolutions on B3 ----------------------------------
+
+CONV_MB = 16
+# The 75 unique convolutions of the paper's suite (§V-B2) at minibatch 16,
+# from the published network definitions: ResNet-50, VGG-16, SqueezeNet
+# 1.1, Inception-v3 and Darknet-19 (YOLO).  (name, H, IC, OC, K, stride,
+# pad, W): a K x K kernel, pad K // 2 and W = H where None.
+CONV_SUITE = [
+    # ResNet-50
+    ("rn.conv1", 224, 3, 64, 7, 2, 3, None),
+    ("rn.c2.a", 56, 64, 64, 1, 1, None, None),
+    ("rn.c2.b", 56, 64, 64, 3, 1, None, None),
+    ("rn.c2.c", 56, 64, 256, 1, 1, None, None),
+    ("rn.c2.d", 56, 256, 64, 1, 1, None, None),
+    ("rn.c3.a", 56, 256, 128, 1, 2, None, None),
+    ("rn.c3.b", 28, 128, 128, 3, 1, None, None),
+    ("rn.c3.c", 28, 128, 512, 1, 1, None, None),
+    ("rn.c3.d", 28, 512, 128, 1, 1, None, None),
+    ("rn.c4.a", 28, 512, 256, 1, 2, None, None),
+    ("rn.c4.b", 14, 256, 256, 3, 1, None, None),
+    ("rn.c4.c", 14, 256, 1024, 1, 1, None, None),
+    ("rn.c4.d", 14, 1024, 256, 1, 1, None, None),
+    ("rn.c5.down", 14, 1024, 2048, 1, 2, None, None),
+    ("rn.c5.a", 14, 1024, 512, 1, 2, None, None),
+    ("rn.c5.b", 7, 512, 512, 3, 1, None, None),
+    ("rn.c5.c", 7, 512, 2048, 1, 1, None, None),
+    ("rn.c5.d", 7, 2048, 512, 1, 1, None, None),
+    # VGG-16
+    ("vgg.1_1", 224, 3, 64, 3, 1, None, None),
+    ("vgg.1_2", 224, 64, 64, 3, 1, None, None),
+    ("vgg.2_1", 112, 64, 128, 3, 1, None, None),
+    ("vgg.2_2", 112, 128, 128, 3, 1, None, None),
+    ("vgg.3_1", 56, 128, 256, 3, 1, None, None),
+    ("vgg.3_2", 56, 256, 256, 3, 1, None, None),
+    ("vgg.4_1", 28, 256, 512, 3, 1, None, None),
+    ("vgg.4_2", 28, 512, 512, 3, 1, None, None),
+    # SqueezeNet 1.1
+    ("sq.conv1", 224, 3, 64, 3, 2, 0, None),
+    ("sq.f2.s", 56, 64, 16, 1, 1, None, None),
+    ("sq.f2.e1", 56, 16, 64, 1, 1, None, None),
+    ("sq.f2.e3", 56, 16, 64, 3, 1, None, None),
+    ("sq.f4.s", 28, 128, 32, 1, 1, None, None),
+    ("sq.f4.e1", 28, 32, 128, 1, 1, None, None),
+    ("sq.f4.e3", 28, 32, 128, 3, 1, None, None),
+    ("sq.f6.s", 14, 256, 48, 1, 1, None, None),
+    ("sq.f6.e1", 14, 48, 192, 1, 1, None, None),
+    ("sq.f6.e3", 14, 48, 192, 3, 1, None, None),
+    ("sq.f8.s", 14, 384, 64, 1, 1, None, None),
+    ("sq.f8.e1", 14, 64, 256, 1, 1, None, None),
+    ("sq.f8.e3", 14, 64, 256, 3, 1, None, None),
+    ("sq.f9.s", 14, 512, 64, 1, 1, None, None),
+    # Inception-v3 (the factorized 1x7 as a 1 x 1 over 17 x 17)
+    ("in.c1", 299, 3, 32, 3, 2, 0, None),
+    ("in.c2", 149, 32, 32, 3, 1, 0, None),
+    ("in.c3", 147, 32, 64, 3, 1, None, None),
+    ("in.c4", 73, 64, 80, 1, 1, 0, None),
+    ("in.c5", 73, 80, 192, 3, 1, 0, None),
+    ("in.m5.1x1", 35, 192, 64, 1, 1, None, None),
+    ("in.m5.5x5r", 35, 192, 48, 1, 1, None, None),
+    ("in.m5.5x5", 35, 48, 64, 5, 1, None, None),
+    ("in.m5.3x3r", 35, 192, 96, 1, 1, None, None),
+    ("in.m5.3x3", 35, 96, 96, 3, 1, None, None),
+    ("in.m5.pool", 35, 192, 32, 1, 1, None, None),
+    ("in.m6.3x3", 35, 288, 384, 3, 2, 0, None),
+    ("in.m6.7x7r", 17, 768, 128, 1, 1, None, None),
+    ("in.m6.1x7", 17, 128, 128, 1, 1, 0, 17),
+    ("in.m6.7x1", 17, 128, 192, 7, 1, 3, None),
+    ("in.m6e.r", 17, 768, 192, 1, 1, None, None),
+    ("in.m6e.7x1", 17, 192, 192, 7, 1, 3, None),
+    ("in.m7.3x3r", 17, 768, 320, 1, 1, None, None),
+    ("in.m7.3x3", 17, 320, 320, 3, 2, 0, None),
+    ("in.m8.1x1", 8, 1280, 320, 1, 1, None, None),
+    ("in.m8.3x3r", 8, 1280, 448, 1, 1, None, None),
+    ("in.m8.3x3", 8, 448, 384, 3, 1, None, None),
+    ("in.m8.b", 8, 1280, 384, 1, 1, None, None),
+    ("in.m8c.1x1", 8, 2048, 320, 1, 1, None, None),
+    ("in.m8c.b", 8, 2048, 448, 1, 1, None, None),
+    # Darknet-19 (YOLO)
+    ("yl.c1", 416, 3, 32, 3, 1, None, None),
+    ("yl.c2", 208, 32, 64, 3, 1, None, None),
+    ("yl.c3", 104, 64, 128, 3, 1, None, None),
+    ("yl.c5", 52, 128, 256, 3, 1, None, None),
+    ("yl.c6", 52, 256, 128, 1, 1, None, None),
+    ("yl.c7", 26, 256, 512, 3, 1, None, None),
+    ("yl.c8", 26, 512, 256, 1, 1, None, None),
+    ("yl.c9", 13, 512, 1024, 3, 1, None, None),
+    ("yl.c10", 13, 1024, 512, 1, 1, None, None),
+    ("yl.head", 13, 1024, 425, 1, 1, None, None),
+]
+# The layers whose channels no B3 engine takes (IC = 3: K is not a
+# multiple of 4, 8 or 16; yl.head's OC = 425: N is not a multiple of 4 or
+# 8): the only ones that may run the tile loop.
+CONV_UNALIGNED = {"rn.conv1", "vgg.1_1", "sq.conv1", "in.c1", "yl.c1",
+                  "yl.head"}
+# B3's counters past 16 rows: the engine a convolution's one launch ran.
+CONV_ENGINES = ("grouped_gemm_simt", "grouped_gemm_wgmma",
+                "grouped_gemm_wgmma_s8", "grouped_gemm")
+# Each counter's name in ``geometry.grouped_engine``.
+CONV_ENGINE_OF = {"grouped_gemm_simt": "simt", "grouped_gemm_wgmma": "wgmma",
+                  "grouped_gemm_wgmma_s8": "wgmma", "grouped_gemm": "tile"}
+# The formats the phase runs and on which layers (int8: ResNet-50's 18).
+CONV_FORMATS = {"fp32": "", "bf16": "", "int8": "rn."}
+# Tolerances, of max |got - want| over the RMS of want: against the plain
+# version (``backend="reference"`` on the card; int8 exactly equal) and
+# against ``F.conv2d`` on the format's rounded inputs in f32 (TF32 off),
+# an oracle only.  int8 quantizes each window row and weight column to
+# 127 levels, which F.conv2d does not: its error is held in max and in
+# RMS (``CONV_INT8_ORACLE_RMS``).
+CONV_TOL = {"fp32": 1e-4, "bf16": 2e-2, "int8": 0.0}
+CONV_ORACLE_TOL = {"fp32": 1e-4, "bf16": 2e-2, "int8": 0.15}
+CONV_INT8_ORACLE_RMS = 2e-2
+# The sleep before each timed batch of a conv or dispatch row (~10 ms):
+# these calls enqueue in well under a millisecond each.
+SHORT_SLEEP = 20_000_000
+
+
+def conv_specs():
+    """:data:`CONV_SUITE` as the port's ``ConvSpec`` rows."""
+    from repro_torch.core.conv import ConvSpec
+    return [ConvSpec(name, CONV_MB, h, w or h, ic, oc, k, k, stride,
+                     k // 2 if pad is None else pad)
+            for name, h, ic, oc, k, stride, pad, w in CONV_SUITE]
+
+
+def rms_err(got, want):
+    """(max |got - want|, the same over the RMS of want, the RMS of
+    got - want over the RMS of want)."""
+    d = (got.float() - want.float())
+    scale = float(want.float().pow(2).mean().sqrt())
+    worst = float(d.abs().max())
+    return worst, worst / scale, float(d.pow(2).mean().sqrt()) / scale
+
+
+def conv_oracle(x, wt, bias, spec, fmt):
+    """``F.conv2d`` (channels-last) of the format's rounded operands in
+    f32, then the phase's epilogue (bias, relu)."""
+    import torch
+    import torch.nn.functional as F
+    if fmt == "bf16":
+        x, wt = x.bfloat16().float(), wt.bfloat16().float()
+    out = F.conv2d(x.permute(0, 3, 1, 2),
+                   wt.permute(3, 2, 0, 1).contiguous(
+                       memory_format=torch.channels_last),
+                   bias, stride=spec.stride, padding=spec.pad)
+    return torch.relu(out.permute(0, 2, 3, 1))
+
+
+def conv_row(dev, spec, fmt, gen, path):
+    """One convolution through ``conv2d_direct(backend="kernels")`` (the
+    path: launch counters zeroed just before and read just after, summed
+    into ``path``), held against the plain version and ``F.conv2d``,
+    then timed: the B3 launch alone (warm and L2-cold), the whole
+    ``conv2d_direct``, the kernel's plain version, ``torch.bmm`` at the
+    grouped shape and ``F.conv2d``.  Returns the row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import dispatch, formats
+    from repro_torch.core.conv import conv2d_direct, conv_gemm_dims, \
+        stack_windows
+    from repro_torch.core.epilogue import Epilogue
+    from repro_torch.kernels import build
+    from repro_torch.core.geometry import grouped_engine
+    from repro_torch.kernels.grouped_gemm import grouped_gemm_kernel, \
+        grouped_gemm_torch
+    g = spec.kh * spec.kw
+    m, n, k = conv_gemm_dims(spec)
+    x = torch.randn((spec.n, spec.h, spec.w, spec.ic), generator=gen,
+                    device=dev)
+    wt = torch.randn((spec.kh, spec.kw, spec.ic, spec.oc), generator=gen,
+                     device=dev) / math.sqrt(g * spec.ic)
+    bias = torch.randn((spec.oc,), generator=gen, device=dev)
+    kw = dict(stride=spec.stride, pad=spec.pad, format_policy=fmt,
+              epilogue=Epilogue(has_bias=True, activation="relu"))
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    build.reset_launch_counts()
+    got = conv2d_direct(x, wt, bias, backend="kernels", **kw)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - before
+    for name, v in counts.items():
+        path[name] = path.get(name, 0) + v
+    ran = {name: v for name, v in counts.items() if v}
+    require(len(ran) == 1 and sum(ran.values()) == 1
+            and next(iter(ran)) in CONV_ENGINES,
+            f"conv {fmt} {spec.name}: {ran} is not one B3 launch")
+    engine = next(iter(ran))
+    require((engine == "grouped_gemm") == (spec.name in CONV_UNALIGNED),
+            f"conv {fmt} {spec.name}: ran {engine}; only the unaligned "
+            f"layers {sorted(CONV_UNALIGNED)} may run the tile loop")
+    require(tuple(got.shape) == (spec.n, spec.oh, spec.ow, spec.oc)
+            and bool(torch.isfinite(got).all()),
+            f"conv {fmt} {spec.name}: shape {tuple(got.shape)} or "
+            f"non-finite values")
+    want = conv2d_direct(x, wt, bias, backend="reference", **kw)
+    if fmt == "int8":
+        require(torch.equal(got, want),
+                f"conv int8 {spec.name}: differs from the plain version")
+        abs_err = err = 0.0
+    else:
+        abs_err, err, _ = rms_err(got, want)
+        require(err <= CONV_TOL[fmt], f"conv {fmt} {spec.name}: "
+                f"{err:.3e} x RMS from the plain version, over "
+                f"{CONV_TOL[fmt]:g}")
+    del want
+    _, oracle, oracle_rms = rms_err(got, conv_oracle(x, wt, bias, spec,
+                                                     fmt))
+    require(oracle <= CONV_ORACLE_TOL[fmt]
+            and (fmt != "int8" or oracle_rms <= CONV_INT8_ORACLE_RMS),
+            f"conv {fmt} {spec.name}: {oracle:.3e} (RMS {oracle_rms:.3e}) "
+            f"x RMS from F.conv2d, over {CONV_ORACLE_TOL[fmt]:g}")
+    del got
+
+    grant = dispatch.plan_gemm(m, n, k, format_policy=fmt, group=g)
+    geom = grant.geometry
+    sig = grant.plan.signature
+    # B3's engine at the plan's tile (a one-member group plans as its
+    # member's plain GEMM, route "mte" or "splitk", but B3 runs it).
+    b3 = grouped_engine(sig.dtype_in, m, n, k,
+                        bf16acc=sig.format_policy.accum_dtype == "bfloat16",
+                        tile=(geom.bm, geom.bn))
+    require(CONV_ENGINE_OF[engine] == b3, f"conv {fmt} {spec.name}: ran "
+            f"{engine}, the plan's tile names B3's {b3} engine")
+    f = formats.resolve_format(fmt)
+    xs = x if f.quantized else x.to(f.operand_torch)
+    xg = stack_windows(xs, spec.kh, spec.kw, spec.stride, spec.pad)
+    wg = (wt if f.quantized else wt.to(f.operand_torch)).reshape(g, k, n)
+    if f.quantized:
+        xg, wg, _, _ = formats.quantize_operands(xg, wg, f)
+    out_dt = torch.int32 if f.quantized else torch.float32
+
+    def kernel():
+        return grouped_gemm_kernel(xg, wg, geom=geom, out_dtype=out_dt,
+                                   acc_dtype=f.accum_torch, split_rows=m)
+
+    def conv():
+        return conv2d_direct(x, wt, bias, backend="kernels", **kw)
+
+    row = {"kernel": engine, "shape": f"conv {fmt} {spec.name}",
+           "fmt": fmt, "layer": spec.name, "g": g, "m": m, "n": n, "k": k,
+           "route": "grouped", "engine": b3,
+           "tile": [geom.bm, geom.bn, geom.bk, geom.split_k],
+           "tile_state": hex(grant.tile_state.encode()),
+           "max_abs_err": abs_err, "err_over_rms": err,
+           "oracle_err": oracle,
+           "oracle_rms_err": oracle_rms, "peak_gb": peak / 1e9,
+           "ms": time_ms(kernel, sleep_cycles=SHORT_SLEEP),
+           "cold_ms": time_ms_cold(kernel),
+           "conv_ms": time_ms(conv, sleep_cycles=SHORT_SLEEP),
+           "plain_ms": time_ms(lambda: grouped_gemm_torch(
+               xg, wg, geom=geom, out_dtype=out_dt), iters=3, warmup=1)}
+    if f.quantized:
+        # One torch._int_mm computes a one-member group (a 1 x 1 layer);
+        # a G > 1 launch has no one library call.
+        lib = (int_mm_call(xg[0], wg[0], wg[0].t().contiguous())
+               if g == 1 else None)
+        if lib is not None:
+            require(torch.equal(lib(), kernel()[0]), f"conv int8 "
+                    f"{spec.name}: torch._int_mm differs from the kernel")
+        row["library"] = "torch._int_mm" if lib is not None else None
+        row["library_ms"] = (time_ms(lib, sleep_cycles=SHORT_SLEEP)
+                             if lib is not None else None)
+        row["conv2d_ms"] = None
+    else:
+        xn = xs.permute(0, 3, 1, 2)
+        wn = wt.to(xs.dtype).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        row["library"] = "torch.bmm"
+        row["library_ms"] = time_ms(lambda: torch.bmm(xg, wg),
+                                    sleep_cycles=SHORT_SLEEP)
+        row["conv2d_ms"] = time_ms(lambda: F.conv2d(
+            xn, wn, stride=spec.stride, padding=spec.pad),
+            sleep_cycles=SHORT_SLEEP)
+    nbytes = (xg.numel() * xg.element_size() + wg.numel()
+              * wg.element_size() + g * m * n * 4)
+    row["bound_ms"] = bound_ms(spec.flops, nbytes, PEAK[fmt])
+    row["bound_by"] = bound_by(spec.flops, nbytes, PEAK[fmt])
+    log(f"  conv {fmt} {spec.name} G={g} M={m} N={n} K={k}: {engine} "
+        f"{geom.bm}x{geom.bn}x{geom.bk}"
+        f"{f' (plan split {geom.split_k})' if geom.split_k > 1 else ''} "
+        f"csr {row['tile_state']}; kernel {row['ms']:.4f} ms (cold "
+        f"{row['cold_ms']:.4f}), conv2d_direct {row['conv_ms']:.4f}, bound "
+        f"{row['bound_ms']:.4f} ({row['bound_by']}), plain "
+        f"{row['plain_ms']:.4f}, {row['library']} "
+        + (f"{row['library_ms']:.4f}" if row["library_ms"] is not None
+           else "none (G > 1: no one call)")
+        + (f", F.conv2d {row['conv2d_ms']:.4f}"
+           if row["conv2d_ms"] is not None else ", F.conv2d none")
+        + f"; peak {row['peak_gb']:.3f} GB; err {err:.2e} x RMS "
+        f"(tol {CONV_TOL[fmt]:g}), F.conv2d {oracle:.2e} (tol "
+        f"{CONV_ORACLE_TOL[fmt]:g}, RMS {oracle_rms:.2e})")
+    return row
+
+
+def conv_phase(dev, rows):
+    """The paper's 75 convolutions (:data:`CONV_SUITE`) in fp32 and bf16
+    and ResNet-50's 18 in int8, each one B3 launch through
+    ``conv2d_direct``: every aligned layer on B3's SIMT, wgmma or s8
+    engine, only :data:`CONV_UNALIGNED` on the tile loop.  Returns the
+    path's launch counts (the conv calls only)."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    reset_planning()
+    path = {}
+    for fmt, prefix in CONV_FORMATS.items():
+        t = time.perf_counter()
+        fmt_rows = [conv_row(dev, spec, fmt, gen, path)
+                    for spec in conv_specs() if spec.name.startswith(prefix)]
+        rows.extend(fmt_rows)
+        by = {}
+        for r in fmt_rows:
+            by.setdefault(r["kernel"], []).append(r["ms"])
+        log(f"  conv {fmt}: {len(fmt_rows)} layers in "
+            f"{time.perf_counter() - t:.1f} s; kernel ms by engine "
+            f"{ {e: round(sum(v), 4) for e, v in by.items()} }; all "
+            f"{sum(r['ms'] for r in fmt_rows):.4f} ms, conv2d_direct "
+            f"{sum(r['conv_ms'] for r in fmt_rows):.4f} ms"
+            + (f", F.conv2d {sum(r['conv2d_ms'] for r in fmt_rows):.4f} ms"
+               if fmt != "int8" else
+               f"; the {sum(r['g'] == 1 for r in fmt_rows)} 1 x 1 layers "
+               f"{sum(r['ms'] for r in fmt_rows if r['g'] == 1):.4f} ms, "
+               f"torch._int_mm "
+               f"{sum(r['library_ms'] for r in fmt_rows if r['g'] == 1):.4f}"
+               f" ms"))
+        free_card()
+    log(f"  conv launches: {path}")
+    for name in CONV_ENGINES:
+        require(path.get(name, 0) > 0, f"conv: {name} never launched")
+    return path
+
+
+# -- phase 9: the paper's transformer GEMMs through dispatch.mte_gemm ---------
+
+# The paper's 18 transformer GEMMs (§V-B3): BERT/GPT-2 projections at
+# queries 16 and 32, d_model 512 and 768 (q/k/v, attention out, the two
+# feed-forward GEMMs with 2048 hidden units), and the two BERT4Rec GEMMs
+# at sequence 200.  (name, M, N, K).
+TRANSFORMER_GEMMS = [
+    (f"t.q{q}.d{d}.{what}", q, n, k)
+    for q in (16, 32) for d in (512, 768)
+    for what, n, k in (("qkv", 3 * d, d), ("attn_out", d, d),
+                       ("ff1", 2048, d), ("ff2", d, 2048))
+] + [("rec.seq200.proj", 200, 768, 768), ("rec.seq200.ff1", 200, 2048, 768)]
+DISPATCH_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+# The paper's CPU design points the model compares: MTE with 32
+# registers against the 8-register AMX-like design.
+MODEL_PAIR = ("mte32s", "mte8s")
+
+
+def dispatch_row(dev, name, m, n, k, fmt, policy, gen, path):
+    """One GEMM through ``dispatch.mte_gemm(backend="kernels")`` (the
+    path: counters zeroed before, read after, summed into ``path``), held
+    against ``backend="reference"`` on the card, and its launch timed
+    alone (the plan's route on pre-cast operands), beside the plain
+    version and ``torch.matmul``."""
+    import torch
+    from repro_torch.core import autotune, dispatch, formats
+    from repro_torch.kernels import build
+    a = torch.randn((m, k), generator=gen, device=dev) / math.sqrt(k)
+    b = torch.randn((k, n), generator=gen, device=dev)
+    kw = dict(policy=policy, format_policy=fmt)
+    build.reset_launch_counts()
+    got = dispatch.mte_gemm(a, b, backend="kernels", **kw)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    for c, v in counts.items():
+        path[c] = path.get(c, 0) + v
+    ran = {c: v for c, v in counts.items() if v}
+    require(len(ran) == 1 and sum(ran.values()) == 1,
+            f"dispatch {fmt} {policy} {name}: {ran} is not one launch")
+    kernel = next(iter(ran))
+    want = dispatch.mte_gemm(a, b, backend="reference", **kw)
+    err = check(f"{name} {fmt} {policy}", got, want, DISPATCH_TOL[fmt])
+    grant = dispatch.plan_gemm(m, n, k, format_policy=fmt, policy=policy)
+    geom = grant.geometry
+    f = formats.resolve_format(fmt)
+    ac, bc = a.to(f.operand_torch), b.to(f.operand_torch)
+    flops = 2.0 * m * n * k
+    nbytes = (m * k + k * n) * ac.element_size() + m * n * 4
+    return {
+        "kernel": kernel, "shape": f"dispatch {fmt} {policy} {name}",
+        "fmt": fmt, "policy": policy, "gemm": name, "m": m, "n": n, "k": k,
+        "route": grant.route, "engine": grant.engine,
+        "tile": [geom.bm, geom.bn, geom.bk, geom.split_k],
+        "tile_state": hex(grant.tile_state.encode()), "max_abs_err": err,
+        "ms": time_ms(lambda: autotune.execute_plan(grant.plan, ac, bc),
+                      sleep_cycles=SHORT_SLEEP),
+        "plain_ms": time_ms(lambda: dispatch.mte_gemm(
+            a, b, backend="reference", **kw), sleep_cycles=SHORT_SLEEP),
+        "library_ms": time_ms(lambda: torch.matmul(ac, bc),
+                              sleep_cycles=SHORT_SLEEP),
+        "bound_ms": bound_ms(flops, nbytes, PEAK[fmt]),
+        "bound_by": bound_by(flops, nbytes, PEAK[fmt])}
+
+
+def dispatch_phase(dev, rows):
+    """The paper's 18 transformer GEMMs through ``dispatch.mte_gemm`` on
+    the kernels under ``policy="mte"`` (B1, B2) and ``"amx"`` (B8), in
+    fp32 and bf16, each held against ``backend="reference"``; prints the
+    route, engine, tile and CSR word of each, kernel ms under both
+    policies and their ratio, beside the paper's CPU model
+    (``perfmodel.model_all``) and instruction counts (``isa.count_all``)
+    for the same shapes.  Returns the path's launch counts."""
+    import torch
+    from repro_torch.core import isa, perfmodel
+    from repro_torch.core.tile_state import SEW
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    reset_planning()
+    path = {}
+    for fmt in DISPATCH_TOL:
+        sew_i = SEW.E32 if fmt == "fp32" else SEW.E16
+        for name, m, n, k in TRANSFORMER_GEMMS:
+            pair = {p: dispatch_row(dev, name, m, n, k, fmt, p, gen, path)
+                    for p in ("mte", "amx")}
+            ratio = pair["mte"]["ms"] / pair["amx"]["ms"]
+            model = perfmodel.model_all(m, n, k, sew_i, SEW.E32)
+            counts = isa.count_all(m, n, k, sew_i, SEW.E32)
+            lo, hi = MODEL_PAIR
+            for r in pair.values():
+                r["mte_over_amx"] = ratio
+                r["model_s"] = {a: t.seconds for a, t in model.items()}
+                r["model_efficiency"] = {a: t.efficiency
+                                         for a, t in model.items()}
+                r["isa_total"] = {a: c.total for a, c in counts.items()}
+            rows.extend(pair.values())
+            mte, amx = pair["mte"], pair["amx"]
+            log(f"  {fmt} {name} {m}x{n}x{k}: mte {mte['kernel']} "
+                f"{mte['route']}/{mte['engine']} "
+                f"{'x'.join(map(str, mte['tile'][:3]))} split "
+                f"{mte['tile'][3]} csr {mte['tile_state']} {mte['ms']:.4f} "
+                f"ms; amx {amx['kernel']} {amx['engine']} csr "
+                f"{amx['tile_state']} {amx['ms']:.4f} ms; mte/amx "
+                f"{ratio:.3f} (bound {mte['bound_ms']:.4f} ms, "
+                f"{mte['bound_by']}; torch.matmul {mte['library_ms']:.4f}); "
+                f"the paper's CPU model, not the H100: {lo} "
+                f"{model[lo].seconds * 1e6:.2f} us (eff "
+                f"{model[lo].efficiency:.3f}), {hi} "
+                f"{model[hi].seconds * 1e6:.2f} us, speedup "
+                f"{model[hi].seconds / model[lo].seconds:.3f}; retired "
+                f"{ {a: c.total for a, c in counts.items()} }")
+    log(f"  dispatch launches: {path}")
+    return path
+
+
 KERNELS = [
     ("mte_gemm_wgmma", "src/repro_torch/csrc/mte_gemm.cu",
      "src/repro/kernels/mte_gemm.py:114", "gate 512x16384x2048", "default"),
@@ -5918,14 +6395,12 @@ KERNELS = [
      "src/repro/kernels/grouped_gemm.py:60", "int8 qkv decode 3x4x2048x2048",
      "int8"),
     ("grouped_gemm_wgmma", "src/repro_torch/csrc/grouped_gemm_wgmma.cu",
-     "src/repro/kernels/grouped_gemm.py:60",
-     "gate+up prefill 2x512x2048x16384", "default"),
+     "src/repro/kernels/grouped_gemm.py:60", "conv bf16 vgg.1_2", "conv"),
     ("grouped_gemm_wgmma_s8", "src/repro_torch/csrc/grouped_gemm_wgmma.cu",
      "src/repro/kernels/grouped_gemm.py:60",
      "int8 moe gate 32x160x1024x512", "granite"),
     ("grouped_gemm_simt", "src/repro_torch/csrc/grouped_gemm.cu",
-     "src/repro/kernels/grouped_gemm.py:60", "dw fp32 2x2048x4096x16384",
-     "train"),
+     "src/repro/kernels/grouped_gemm.py:60", "conv fp32 vgg.1_2", "conv"),
     ("grouped_gemm", "src/repro_torch/csrc/grouped_gemm.cu",
      "src/repro/kernels/grouped_gemm.py:60",
      "gate+up prefill 2x512x2048x16384 (tile loop)", "reduced-default"),
@@ -6191,6 +6666,14 @@ def main() -> int:
         f"rigid amx baseline: {TRAIN['batch']} x {TRAIN['seq']} tokens")
     counts["train-amx"], training_amx = training_phase(
         dev, "amx", training["steps"][0]["loss"])
+    free_card()
+    log(f"== 8. the paper's {len(CONV_SUITE)} convolutions at minibatch "
+        f"{CONV_MB} through core.conv.conv2d_direct: one B3 launch each "
+        f"(fp32, bf16; ResNet-50's in int8)")
+    counts["conv"] = conv_phase(dev, rows)
+    log(f"== 9. the paper's {len(TRANSFORMER_GEMMS)} transformer GEMMs "
+        f"through core.dispatch.mte_gemm: mte (B1/B2) against amx (B8)")
+    counts["dispatch"] = dispatch_phase(dev, rows)
 
     kernels = []
     for name, source, replaces, shape, path in KERNELS:
@@ -6225,6 +6708,22 @@ def main() -> int:
                         "shape", "max_abs_err", "ms", "cold_ms", "plain_ms",
                         "bound_ms", "bound_by", "library_ms",
                         "sdpa_without_softcap_ms")}}
+        for key, config, prefix in (("at_conv", "conv", "conv "),
+                                    ("at_dispatch", "dispatch",
+                                     "dispatch ")):
+            on = sorted((r for r in mine if r["shape"].startswith(prefix)),
+                        key=lambda r: r["bound_ms"])
+            if on:
+                kernels[-1][key] = {
+                    "launches": counts[config].get(name, 0),
+                    "rows": len(on),
+                    **{which: {k: row.get(k) for k in (
+                        "shape", "tile", "tile_state", "max_abs_err", "ms",
+                        "cold_ms", "conv_ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "conv2d_ms",
+                        "mte_over_amx")}
+                       for which, row in (("largest", on[-1]),
+                                          ("median", on[len(on) // 2]))}}
         if name in TRAIN_ROWS:
             train = counts[TRAIN_PATH.get(name, "train")]
             kernels[-1]["at_train"] = {

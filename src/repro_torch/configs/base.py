@@ -81,7 +81,7 @@ class ArchConfig:
     param_dtype: str = "float32"
     format_policy: Optional[str] = None
     gemm_policy: str = "mte"
-    gemm_backend: str = "kernels"           # kernels | torch (queued, A4)
+    gemm_backend: str = "kernels"           # kernels | torch (queued, A5)
     remat: str = "full"
     scan_layers: bool = True
     moe_impl: str = "scatter"

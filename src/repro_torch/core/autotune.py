@@ -73,6 +73,22 @@ class GemmSignature:
                    epilogue=epilogue or Epilogue(), policy=policy,
                    backend=backend, group=int(group), fmt=str(fmt))
 
+    @classmethod
+    def for_format(cls, m: int, n: int, k: int, fmt, out_dtype,
+                   epilogue: Optional[Epilogue] = None,
+                   policy: Policy = "mte",
+                   group: int = 1) -> "GemmSignature":
+        """The signature a kernels-backed GEMM (``group`` 1) or grouped
+        GEMM plans under the format policy ``fmt``: an int8 format its
+        int8 product into int32 with the identity epilogue (the
+        dequantize and the epilogue run after it), the others the operand
+        type into ``out_dtype`` with ``epilogue``."""
+        if fmt.quantized:
+            return cls.make(m, n, k, "int8", "int32", None, policy,
+                            group=group, fmt=fmt.name)
+        return cls.make(m, n, k, fmt.operand_dtype, out_dtype, epilogue,
+                        policy, group=group, fmt=fmt.name)
+
     @property
     def format_policy(self):
         from repro_torch.core.formats import FORMATS, infer_format
@@ -178,9 +194,10 @@ def enumerate_candidates(sig: GemmSignature,
     the group axis already multiplies the grid) but the wgmma tiles at
     C ≥ 64 as B1 gets them.  f32 signatures past 16 rows get the
     SIMT f32 engine's tiles where it takes them (128 x 64 only where the
-    128 x 128 grid, all members' tiles together, is below the SM count),
-    each unsplit and, ungrouped, where its own grid is below the SM count,
-    split as the base is."""
+    128 x 128 grid, all members' tiles together, is below the SM count,
+    or pads N less than it: N = 16, 48, 192, 320, ...), each unsplit
+    and, ungrouped, where its own grid is below the SM count, split as
+    the base is."""
     base = solve_block_geometry(sig.m, sig.n, sig.k, sig.sew_i, sig.sew_o,
                                 profile=profile, policy=sig.policy)
     cands: List[BlockGeometry] = [base]
@@ -198,9 +215,11 @@ def enumerate_candidates(sig: GemmSignature,
     if sig.group == 1 and (grid_mn < profile.sm_count or cluster):
         _add_splits(sig, base, cands)
     group = max(sig.group, 1)
-    wide = group * cdiv(sig.m, SIMT_TILES[0][0]) * cdiv(sig.n,
-                                                        SIMT_TILES[0][1])
-    for bm, bn in SIMT_TILES[:1 if wide >= profile.sm_count else None]:
+    bm0, bn0 = SIMT_TILES[0]
+    wide = group * cdiv(sig.m, bm0) * cdiv(sig.n, bn0) >= profile.sm_count
+    for bm, bn in SIMT_TILES:
+        if wide and bn != bn0 and round_up(sig.n, bn) >= round_up(sig.n, bn0):
+            continue
         g = dataclasses.replace(base, bm=bm, bn=bn)
         if g in cands or not _on_engine(sig, g, "simt"):
             continue
@@ -261,10 +280,15 @@ def score_geometry(sig: GemmSignature, geom: BlockGeometry,
     work over the format's peak and operand/partial traffic over HBM
     bandwidth, stretched by the share of the card the block grid leaves
     idle (a grid below ``sm_count * blocks_per_sm`` resident blocks cannot
-    cover memory latency: its loads are not pipelined).  Split-K pays a
-    second launch for the reduction; the rigid route pays, on every
-    engine, the accumulator's write and read back and, with a
-    non-identity epilogue, the epilogue pass's launch.  A grouped
+    cover memory latency: its loads are not pipelined); f32 work that the
+    tile loop itself runs (unsplit or over K slices) takes no less than
+    its padded operations at the rate measured on a full card,
+    ``profile.tile_fp32_flops``, which binds from a grid of about a
+    tenth of the card up: the smaller grids, the reduced models' f32
+    chunks and groups, keep their stretched price and their plans.
+    Split-K pays a second launch for the reduction; the rigid route
+    pays, on every engine, the accumulator's write and read back and,
+    with a non-identity epilogue, the epilogue pass's launch.  A grouped
     signature is priced as G GEMMs' worth of tiles on one grid: G times
     the work and the traffic, G times the blocks.  Grouped plans keep the
     tile loop's price on the split-K, wgmma and SIMT engines too: the
@@ -281,7 +305,8 @@ def score_geometry(sig: GemmSignature, geom: BlockGeometry,
     if sig.policy == "amx":
         rigid_bytes = 2.0 * m * n * 4
         launches = 1 if sig.epilogue.is_identity else 2
-    engine = "tile" if sig.group > 1 else plan_engine(sig, geom)
+    runs = plan_engine(sig, geom)
+    engine = "tile" if sig.group > 1 else runs
     if engine == "wgmma":
         stage = WGMMA_S8_BK if sig.sew_i.bits == 8 else WGMMA_BK
         return (_wave_seconds(sig, geom, profile, round_up(k, stage),
@@ -309,7 +334,10 @@ def score_geometry(sig: GemmSignature, geom: BlockGeometry,
             bytes_ / profile.hbm_bw_bytes_per_s)
     slots = profile.sm_count * profile.blocks_per_sm
     occupancy = min(blocks, slots) / slots
-    return t / occupancy + profile.launch_s * launches
+    t /= occupancy
+    if sig.sew_i.bits == 32 and runs in ("tile", "splitk"):
+        t = max(t, flops / profile.tile_fp32_flops)
+    return t + profile.launch_s * launches
 
 
 @dataclasses.dataclass

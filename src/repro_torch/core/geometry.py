@@ -45,6 +45,14 @@ The solver's base tile is the tile loop's tile for M; the plan cache
 (``core/autotune.py``) adds the wgmma and SIMT tiles the shape and format
 allow and prices every candidate.
 
+Below the Hopper solver sit the paper's own CPU architectures
+(:data:`PROFILES`, Table VII), Formulas 2 and 3 (:func:`max_tile_dims`,
+:func:`sifive_tile_dims`) and the register-level unroll solver
+(:func:`solve_unroll`), which :mod:`repro_torch.core.isa` and
+:mod:`repro_torch.core.perfmodel` read, and :func:`tile_state_for`, the
+CSR word (:class:`~repro_torch.core.tile_state.TileState`) a Hopper plan
+grants.
+
 The rigid ``"amx"`` policy (the AMX-style baseline, ``csrc/rigid_gemm.cu``)
 adapts nothing: it is always granted the one rigid tile, 128 x 128 with a
 128-deep K block and no split, as the JAX solver grants it
@@ -67,7 +75,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal, Optional, Sequence, Tuple
 
-from repro_torch.core.tile_state import SEW, dtype_name
+from repro_torch.core.tile_state import SEW, TileState, dtype_name
 
 __all__ = ["HopperProfile", "BlockGeometry", "H100_SPEC", "hopper_profile",
            "solve_block_geometry", "round_up", "cdiv", "TILE_LOOP_TILES",
@@ -83,7 +91,9 @@ __all__ = ["HopperProfile", "BlockGeometry", "H100_SPEC", "hopper_profile",
            "window_rows",
            "DECODE_MMA_MAX_G", "DECODE_MMA_DIMS", "decode_engine",
            "flat_decode_engine", "decode_kv_split", "attention_engine",
-           "attention_kv_split", "scan_engine"]
+           "attention_kv_split", "scan_engine", "tile_state_for",
+           "HardwareProfile", "PROFILES", "RegisterTile", "UnrollPlan",
+           "max_tile_dims", "sifive_tile_dims", "solve_unroll"]
 
 Policy = Literal["mte", "amx", "sifive", "vector"]
 
@@ -568,6 +578,10 @@ class HopperProfile:
     peak_bf16_flops: float = 989e12
     peak_int8_ops: float = 1979e12
     peak_fp32_flops: float = 67e12
+    # The tile loop's f32 rate: its unpipelined FMA blocks ran
+    # 4096 x 16384 x 2048 in 39.3 ms on an H100 80GB HBM3 (~7.0 TFLOP/s,
+    # PERF.md section 6, B1's f32 rows), the SIMT f32 engine in 6.6 ms.
+    tile_fp32_flops: float = 7e12
     hbm_bw_bytes_per_s: float = 3.35e12
     # L2 to SM operand traffic for all SMs together: an assumed figure,
     # not a data-sheet or measured one (uncalibrated, as launch_s is).
@@ -716,3 +730,244 @@ def solve_block_geometry(m: int, n: int, k: int, sew_i: SEW, sew_o: SEW,
                          f"shared memory, the card offers "
                          f"{profile.smem_per_block}")
     return geom
+
+
+def tile_state_for(geom: BlockGeometry, m: int, n: int, k: int,
+                   rlenb: int = 64) -> TileState:
+    """The MTE CSR contents describing one block step of ``geom`` (the
+    JAX package's ``tile_state_for``): the granted (tm, tn, tk) are the
+    active extents within the block, clamped by the CSR's 12-bit
+    fields."""
+    return TileState(
+        tm=min(geom.bm, m, 4096), tn=min(geom.bn, n, 4096),
+        tk=min(geom.bk, k, 4096), sew_i=geom.sew_i, sew_o=geom.sew_o,
+        rlenb=rlenb)
+
+
+# ---------------------------------------------------------------------------
+# The paper's CPU architectures (Tables IV, V, VI, VII), Formulas 2 and 3
+# and the register-level unroll solver (§III-D): host arithmetic, the port
+# of ``repro/core/geometry.py:73-310``, which core/isa.py and
+# core/perfmodel.py read.  Nothing here describes the H100.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareProfile:
+    """One evaluated architecture row of Table VII (+ system params, Table IV)."""
+
+    name: str
+    vlen_bits: int                 # vector register length
+    rlen_bits: int                 # tile row length (0 => pure vector ISA)
+    arch_regs: int                 # architecturally visible registers
+    phys_regs: int                 # physical registers
+    static_latency: int            # front-end latency, overlappable (cycles)
+    dynamic_latency: int           # blocks the compute resource (cycles)
+    n_units: int                   # VPUs (or 1 systolic array)
+    systolic: bool
+    freq_hz: float = 2.0e9
+    flops_per_cycle: int = 512     # peak fp32 FLOP/cycle (all rows equal)
+    # memory system (Table IV)
+    l1_bytes: int = 48 * 1024
+    l2_bytes: int = 2 * 1024 * 1024
+    dram_bw_bytes_per_s: float = 191.25e9
+    l1_bw_bytes_per_cycle: float = 128.0
+    # Sustained tile-load bandwidth from L2: bounded by the L1's 10 MSHRs of
+    # 128-byte lines over the 26-cycle L2 latency (Table IV) ≈ 48 B/cycle.
+    l2_bw_bytes_per_cycle: float = 48.0
+    issue_width: int = 6
+
+    @property
+    def dram_bw_bytes_per_cycle(self) -> float:
+        return self.dram_bw_bytes_per_s / self.freq_hz
+
+    @property
+    def peak_flops(self) -> float:
+        return self.flops_per_cycle * self.freq_hz
+
+    def max_vl_elems(self, sew: SEW) -> int:
+        return self.vlen_bits // sew.bits
+
+
+# Table VII rows.
+PROFILES = {
+    "vector1k": HardwareProfile(
+        name="vector1k", vlen_bits=8192, rlen_bits=0, arch_regs=32,
+        phys_regs=40, static_latency=20, dynamic_latency=4, n_units=4,
+        systolic=False),
+    "vector2k": HardwareProfile(
+        name="vector2k", vlen_bits=16384, rlen_bits=0, arch_regs=32,
+        phys_regs=40, static_latency=20, dynamic_latency=8, n_units=4,
+        systolic=False),
+    "sifiveint": HardwareProfile(
+        name="sifiveint", vlen_bits=8192, rlen_bits=2048, arch_regs=32,
+        phys_regs=40, static_latency=28, dynamic_latency=16, n_units=4,
+        systolic=False),
+    "mte8s": HardwareProfile(
+        name="mte8s", vlen_bits=8192, rlen_bits=512, arch_regs=8,
+        phys_regs=24, static_latency=36, dynamic_latency=16, n_units=1,
+        systolic=True),
+    "mte32s": HardwareProfile(
+        name="mte32s", vlen_bits=8192, rlen_bits=512, arch_regs=32,
+        phys_regs=40, static_latency=36, dynamic_latency=16, n_units=1,
+        systolic=True),
+    "mte32v": HardwareProfile(
+        name="mte32v", vlen_bits=8192, rlen_bits=512, arch_regs=32,
+        phys_regs=40, static_latency=36, dynamic_latency=64, n_units=4,
+        systolic=False),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RegisterTile:
+    """Maximum hardware tile geometry granted by the microarchitecture."""
+
+    m: int
+    n: int
+    k: int
+    transposed_b: bool  # mixed precision stores B col-major (paper §III-A2)
+
+    @property
+    def mnk(self) -> Tuple[int, int, int]:
+        return (self.m, self.n, self.k)
+
+    @property
+    def macs(self) -> int:
+        return self.m * self.n * self.k
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.macs
+
+
+def max_tile_dims(profile: HardwareProfile, sew_i: SEW,
+                  sew_o: Optional[SEW] = None) -> RegisterTile:
+    """Formulas 2 (uniform) and 3 (mixed precision) from the paper.
+
+    Uniform precision (SEW_i == SEW_o), row-major B::
+
+        M = VLEN/RLEN,  N = RLEN/SEW,  K = min(M, N)
+
+    Mixed precision (SEW_i < SEW_o), col-major ("transposed") B::
+
+        M = VLEN/RLEN,  N = min(M, RLEN/SEW_o),  K = RLEN/SEW_i
+    """
+    sew_o = sew_o or sew_i
+    if profile.rlen_bits == 0:
+        # Pure vector ISA: degenerate 1 × VL × 1 geometry (Table VII).
+        vl = profile.max_vl_elems(sew_i)
+        return RegisterTile(m=1, n=vl, k=1, transposed_b=False)
+    rows = profile.vlen_bits // profile.rlen_bits
+    if sew_i == sew_o:
+        m = rows
+        n = profile.rlen_bits // sew_i.bits
+        k = min(m, n)
+        return RegisterTile(m=m, n=n, k=k, transposed_b=False)
+    if sew_i.bits > sew_o.bits:
+        raise ValueError("mixed precision requires SEW_i < SEW_o")
+    m = rows
+    n = min(m, profile.rlen_bits // sew_o.bits)
+    k = profile.rlen_bits // sew_i.bits
+    return RegisterTile(m=m, n=n, k=k, transposed_b=True)
+
+
+def sifive_tile_dims(profile: HardwareProfile, sew_i: SEW) -> RegisterTile:
+    """SiFiveInt per-instruction geometry: 4×4 A tile times all B tiles.
+
+    With VLEN bits of B organized as independent 4×4 tiles the instruction
+    geometry is M=4, K=4, N = 4 · (VLEN / (16·SEW)) — §V-C gives 4×64×4 for
+    VLEN 8192, fp32.
+    """
+    tiles_in_reg = profile.vlen_bits // (16 * sew_i.bits)
+    return RegisterTile(m=4, n=4 * tiles_in_reg, k=4, transposed_b=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class UnrollPlan:
+    """Software loop-unroll plan for Algorithm 1.
+
+    ``um``/``un`` count how many M-/N-direction tiles are processed per
+    micro-kernel invocation; ``um*un`` C accumulator tiles, ``um`` A tiles
+    and one (streamed) B tile are live simultaneously.  Register budget:
+    ``um*un + um + 1 <= arch_regs`` (the paper's register-pressure model —
+    AMX's 8 registers cap this at 2×2, MTE₃₂'s 32 allow 4×5/5×4).
+    """
+
+    tile: RegisterTile
+    um: int
+    un: int
+    policy: Policy
+
+    @property
+    def live_regs(self) -> int:
+        return self.um * self.un + self.um + 1
+
+    @property
+    def indep_chains(self) -> int:
+        return self.um * self.un
+
+    @property
+    def macro_m(self) -> int:
+        return self.tile.m * self.um
+
+    @property
+    def macro_n(self) -> int:
+        return self.tile.n * self.un
+
+
+def solve_unroll(profile: HardwareProfile, tile: RegisterTile,
+                 m: int, n: int, k: int, policy: Policy = "mte") -> UnrollPlan:
+    """Choose (um, un) for Algorithm 1's M/N loop unrolling.
+
+    Mirrors the paper's JIT code generator (§III-D, §V-B1): unrolling serves
+    two purposes — (i) expose enough *independent* tfmul chains to hide the
+    static+dynamic instruction latency, and (ii) reuse the A/B tiles held in
+    registers to cut tile-load traffic.  Objective: among plans whose
+    independent-chain count covers the latency-hiding threshold, minimize
+    load bytes per MMA ``(um·|A-tile| + un·|B-tile|) / (um·un)``; fall back
+    to maximum chains when the budget cannot reach the threshold (the
+    8-register / AMX case).  Useful tiles only: unrolling beyond
+    ceil(dim/tile) adds no work.
+    """
+    budget = profile.arch_regs
+    max_um = max(1, cdiv(m, max(tile.m, 1)))
+    max_un = max(1, cdiv(n, max(tile.n, 1)))
+    # Latency-hiding threshold: chains needed so a dependent accumulation
+    # chain never starves the compute resource.
+    threshold = cdiv((profile.static_latency + profile.dynamic_latency)
+                     * profile.n_units, max(profile.dynamic_latency, 1))
+    a_bytes = max(tile.m * tile.k, 1)
+    b_bytes = max(tile.k * tile.n, 1)
+
+    candidates = []
+    for um in range(1, min(max_um, budget) + 1):
+        for un in range(1, min(max_un, budget) + 1):
+            # Register pressure: um·un accumulators + A tiles + streamed B.
+            # Budgets ≥ 16 double-buffer the A tiles and the B slot to hide
+            # tile-load latency (the paper's JIT prefetch); the 8-register
+            # AMX case has no headroom and single-buffers.
+            if budget >= 16:
+                live = um * un + 2 * um + 2
+            else:
+                live = um * un + um + 1
+            if live > budget:
+                continue
+            candidates.append(UnrollPlan(tile=tile, um=um, un=un,
+                                         policy=policy))
+    if not candidates:
+        raise ValueError("register budget cannot hold a single tile set")
+
+    def pad_factor(p: UnrollPlan) -> float:
+        pm = cdiv(m, p.macro_m) * p.macro_m
+        pn = cdiv(n, p.macro_n) * p.macro_n
+        return (pm * pn) / (m * n)
+
+    def cost(p: UnrollPlan) -> float:
+        loads = (p.um * a_bytes + p.un * b_bytes) / (p.um * p.un)
+        return loads * pad_factor(p)
+
+    covered = [p for p in candidates if p.indep_chains >= threshold]
+    if covered:
+        return min(covered, key=lambda p: (cost(p), -p.indep_chains))
+    return max(candidates, key=lambda p: (p.indep_chains / pad_factor(p),
+                                          -cost(p)))

@@ -107,27 +107,17 @@ def _node_signature(g: Graph, node) -> GemmSignature:
     if isinstance(node, GemmNode):
         m, k = g.shape(node.a)
         n = g.shape(node.b)[1]
-        if fmt.quantized:
-            return GemmSignature.make(m, n, k, torch.int8, torch.int32,
-                                      Epilogue(), node.policy, BACKEND,
-                                      1, node.fmt)
-        return GemmSignature.make(m, n, k, fmt.operand_torch,
-                                  node.out_dtype, node.epilogue,
-                                  node.policy, BACKEND, 1, node.fmt)
+        return GemmSignature.for_format(m, n, k, fmt, node.out_dtype,
+                                        node.epilogue, node.policy)
     if not isinstance(node, GroupNode):
         raise TypeError(f"not a kernel node: {type(node).__name__}")
     a_shape = g.shape(node.a)
     m, k = a_shape[-2], a_shape[-1]
     nmax = (g.shape(node.stacked)[-1] if node.stacked is not None
             else max(g.shape(w)[1] for w in node.weights))
-    if fmt.quantized:
-        return GemmSignature.make(m, nmax, k, torch.int8, torch.int32,
-                                  Epilogue(), "mte", BACKEND,
-                                  node.group, node.fmt)
-    return GemmSignature.make(m, nmax, k, fmt.operand_torch,
-                              _group_kernel_out_dtype(node, fmt),
-                              Epilogue(), "mte", BACKEND,
-                              node.group, node.fmt)
+    return GemmSignature.for_format(m, nmax, k, fmt,
+                                    _group_kernel_out_dtype(node, fmt),
+                                    group=node.group)
 
 
 # ---------------------------------------------------------------------------

@@ -57,14 +57,13 @@ def _trace_sink():
     return trace.active()
 
 
-def _plan(m, n, k, dt_in, dt_out, policy, epilogue, fmt, geometry,
+def _plan(m, n, k, fmt, out_dtype, policy, epilogue, geometry,
           group: int = 1):
+    sig = autotune.GemmSignature.for_format(m, n, k, fmt, out_dtype,
+                                            epilogue, policy, group)
     if geometry is None:
-        return autotune.get_plan(m, n, k, dt_in, dt_out, epilogue=epilogue,
-                                 policy=policy, fmt=fmt, group=group)
+        return autotune.plan_cache().plan(sig)
     check_kernel_tile(geometry, group)
-    sig = autotune.GemmSignature.make(m, n, k, dt_in, dt_out, epilogue,
-                                      policy, group=group, fmt=fmt)
     return autotune.ExecutionPlan(
         signature=sig, geometry=geometry,
         route=autotune._route_for(sig, geometry),
@@ -85,7 +84,7 @@ def _chunk_rows(plan, x, rows: int, n: int, k: int, widths=None) -> int:
            if x.is_cuda else H100_SPEC.sm_count)
     bf16acc = sig.format_policy.accum_torch == torch.bfloat16
     depth = 0
-    if plan.route == "grouped":
+    if x.dim() == 3:            # B3, a one-member group's plan too
         engine = grouped_engine(x.dtype, sig.m, n, k, bf16acc=bf16acc,
                                 tile=(plan.geometry.bm, plan.geometry.bn))
         if engine == "splitk":
@@ -148,10 +147,9 @@ def _mte_gemm(a, b, c, bias, epilogue, policy, out_dtype, fmt, geometry,
     rows, k = a.shape
     m = rows if plan_rows is None else plan_rows
     n = b.shape[1]
+    plan = _plan(m, n, k, fmt, out_dtype, policy, epilogue, geometry)
     if fmt.quantized:
         aq, bq, sa, sb = formats_lib.quantize_operands(a, b, fmt)
-        plan = _plan(m, n, k, aq.dtype, torch.int32, policy, Epilogue(),
-                     fmt.name, geometry)
         acc = _by_rows(
             lambda lo, hi: autotune.execute_plan(plan, aq[lo:hi], bq),
             rows, _chunk_rows(plan, aq, rows, n, k), 0)
@@ -160,8 +158,6 @@ def _mte_gemm(a, b, c, bias, epilogue, policy, out_dtype, fmt, geometry,
     else:
         ac = a.to(fmt.operand_torch)
         bc = b.to(fmt.operand_torch)
-        plan = _plan(m, n, k, ac.dtype, out_dtype, policy, epilogue,
-                     fmt.name, geometry)
 
         def run(lo, hi):
             cr = c[lo:hi] if c is not None else None
@@ -205,20 +201,26 @@ def grouped_gemm(x, w, *, epilogue: Epilogue = Epilogue(),
 def _grouped_gemm(x, w, epilogue, out_dtype, fmt, geometry, widths,
                   plan_rows):
     """The forward of :func:`grouped_gemm`."""
+    from repro_torch.kernels.grouped_gemm import grouped_gemm_kernel
     g, rows, k = x.shape
     cap = rows if plan_rows is None else plan_rows
     n = w.shape[2]
+    plan = _plan(cap, n, k, fmt, out_dtype, "mte", epilogue, geometry,
+                 group=g)
     if fmt.quantized:
         xc, wc, sx, sw = formats_lib.quantize_operands(x, w, fmt)
-        plan = _plan(cap, n, k, xc.dtype, torch.int32, "mte", Epilogue(),
-                     fmt.name, geometry, group=g)
     else:
         xc, wc = x.to(fmt.operand_torch), w.to(fmt.operand_torch)
-        plan = _plan(cap, n, k, fmt.operand_torch, out_dtype, "mte",
-                     epilogue, fmt.name, geometry, group=g)
+    sig = plan.signature
+    # B3 at the plan's geometry: a one-member group (a 1 x 1 convolution)
+    # plans as its member's plain GEMM, as in the JAX package, and B3's
+    # engines run K whole at that plan's tile.
     out = _by_rows(
-        lambda lo, hi: autotune.execute_plan(plan, xc[:, lo:hi], wc,
-                                             widths=widths),
+        lambda lo, hi: grouped_gemm_kernel(
+            xc[:, lo:hi], wc, geom=plan.geometry, epilogue=sig.epilogue,
+            out_dtype=formats_lib.to_torch_dtype(sig.dtype_out),
+            acc_dtype=sig.format_policy.accum_torch, widths=widths,
+            split_rows=sig.m),
         rows, _chunk_rows(plan, xc, rows, n, k, widths), 1)
     if fmt.quantized:
         out = formats_lib.dequantize(out, sx, sw)

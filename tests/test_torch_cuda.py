@@ -2482,3 +2482,67 @@ def test_moe_decode_layer_graph_replay_is_bit_equal(card, fmt):
         want, want_aux = tmoe.apply_moe(xi.to(card), pd, cfg)
         torch.cuda.synchronize()
         assert torch.equal(out, want) and torch.equal(aux, want_aux), seed
+
+
+# -- core/conv.py: one B3 launch per convolution, on each engine ---------------
+
+tconv = LazyModule("repro_torch.core.conv")
+tautotune_conv = LazyModule("repro_torch.core.autotune")
+
+# (label, N, H, W, IC, OC, KH, KW, stride, pad): small aligned shapes
+# whose f32 128 x 128 SIMT tiles (all offsets together) still fill 132
+# SMs, so the plan grants the SIMT engine.
+CONV_CARD = [
+    ("1x1", 4, 68, 68, 32, 64, 1, 1, 1, 0),
+    ("3x3", 2, 32, 32, 32, 64, 3, 3, 1, 1),
+    ("3x3s2", 2, 64, 64, 32, 64, 3, 3, 2, 1),
+    ("5x5", 1, 26, 26, 32, 64, 5, 5, 1, 2),
+    ("7x1", 4, 32, 32, 32, 64, 7, 1, 1, 0),
+]
+CONV_ENGINE = {"fp32": "grouped_gemm_simt", "bf16": "grouped_gemm_wgmma",
+               "int8": "grouped_gemm_wgmma_s8"}
+CONV_CARD_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+
+
+def _conv_card(card, case, fmt, counter):
+    _, n, h, w, ic, oc, kh, kw, stride, pad = case
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    x = torch.randn((n, h, w, ic), generator=gen, device=card)
+    wt = torch.randn((kh, kw, ic, oc), generator=gen, device=card) / (
+        kh * kw * ic) ** 0.5
+    bias = torch.randn((oc,), generator=gen, device=card)
+    kw_ = dict(stride=stride, pad=pad, format_policy=fmt,
+               epilogue=tepilogue.Epilogue(has_bias=True, activation="relu"))
+    tautotune_conv.reset_cache()
+    before = build.launch_counts()
+    got = tconv.conv2d_direct(x, wt, bias, backend="kernels", **kw_)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert ran == {counter: 1}
+    want = tconv.conv2d_direct(x, wt, bias, backend="reference", **kw_)
+    if fmt == "int8":
+        assert torch.equal(got, want)
+    else:
+        rms = float(want.pow(2).mean().sqrt())
+        assert float((got - want).abs().max()) <= CONV_CARD_TOL[fmt] * rms
+
+
+@pytest.mark.parametrize("fmt", list(CONV_ENGINE))
+@pytest.mark.parametrize("case", CONV_CARD, ids=[c[0] for c in CONV_CARD])
+def test_conv2d_direct_runs_one_b3_engine_launch(card, case, fmt):
+    """``conv2d_direct(backend="kernels")`` against ``backend=
+    "reference"`` on the card: one launch of B3's SIMT (fp32), wgmma
+    (bf16) or s8 (int8) engine; int8 exactly equal, the floats within
+    1e-4 (fp32) or 2e-2 (bf16) of the output's RMS."""
+    _conv_card(card, case, fmt, CONV_ENGINE[fmt])
+
+
+@pytest.mark.parametrize("fmt", list(CONV_ENGINE))
+def test_conv2d_direct_with_three_input_channels_runs_the_tile_loop(card,
+                                                                    fmt):
+    """IC = 3 (the networks' first layers): K is a multiple of no
+    engine's alignment, so the one launch is B3's tile loop."""
+    _conv_card(card, ("ic3", 2, 32, 32, 3, 64, 3, 3, 1, 1), fmt,
+               "grouped_gemm")
