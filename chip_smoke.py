@@ -342,6 +342,16 @@ Phases (any failure raises and the script exits non-zero):
    and their ratio, beside the paper's CPU model (``perfmodel.model_all``:
    the Table VII design points, not the H100) and its retired
    instructions (``isa.count_all``).
+10. Telemetry (``telemetry_phase``): full-width gemma_2b on phase 4's
+   weights and workload, served as run (b) with the per-GEMM accountant,
+   a tracer, the registry and an SLO monitor up before the engine (tokens
+   and launch counts equal to phase 4 (b)'s, two steps in flight, a valid
+   trace, a record for every served signature and none from a replay);
+   the profiler's calibration table (modelled against CUDA-event us per
+   signature) and regret audit; measured grants at the decode and
+   prefill gates; a warm start from the saved plan file (no solver
+   call, the same tokens); and ``launch.serve.main`` at full width with
+   every exporter, its files validated.
 
 Each phase's seconds are printed on a line of their own ("-- N s:").
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
@@ -4098,6 +4108,114 @@ def serving_workload(cfg, work, dev):
                          device=dev)
 
 
+class StepTiming:
+    """Mixed into the port's ``ServingEngine`` (:func:`step_timed_engine`):
+    the host clock around each engine step, unsynchronised, noting
+    whether the step ran a prefill chunk or a capture and the tokens its
+    decode launch will deliver and, with ``time_waits``, around the
+    step's waits on the device (``HostStaging.wait``, the retire's
+    sync) → ``steps``, one (wall ms, ran a prefill chunk, captured,
+    tokens, ms waited) a step.  One steady step (a decode in flight,
+    nothing prefilling or waiting, the graph captured) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: any synchronising call
+    but the retire's event wait raises."""
+    sync_checked_at = None
+
+    def __init__(self, *args, time_waits=False, **kw):
+        super().__init__(*args, **kw)
+        self.steps, self._waited = [], 0.0
+        if time_waits:
+            wait = self._stage.wait
+
+            def timed_wait(handle):
+                t = time.perf_counter()
+                try:
+                    return wait(handle)
+                finally:
+                    self._waited += 1e3 * (time.perf_counter() - t)
+
+            self._stage.wait = timed_wait
+
+    def _advance_prefill(self, slot):
+        self._ran_prefill = True
+        super()._advance_prefill(slot)
+
+    def step(self):
+        import torch
+        self._ran_prefill, self._waited = False, 0.0
+        graphs = len(self.decode_step.graphs)
+        check = (self.sync_checked_at is None and graphs
+                 and self.steps_in_flight >= 1 and not self._prefilling
+                 and not self.sched.waiting)
+        t = time.perf_counter()
+        if check:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                super().step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            self.sync_checked_at = self.step_idx
+        else:
+            super().step()
+        self.steps.append((1e3 * (time.perf_counter() - t),
+                           self._ran_prefill,
+                           len(self.decode_step.graphs) != graphs,
+                           sum(len(e["slots"]) for e in self._inflight
+                               if e["kind"] == "decode"
+                               and e["step"] == self.step_idx),
+                           self._waited))
+
+
+def step_timed_engine():
+    """The engine class of phase 4's run (b) and phase 10: ``StepTiming``
+    over the port's ``ServingEngine``."""
+    from repro_torch.serving.engine import ServingEngine
+    return type("StepTimedEngine", (StepTiming, ServingEngine), {})
+
+
+def steady_steps(eng):
+    """``eng.steps`` of the steady steps (no prefill chunk, no capture)."""
+    return [row for row in eng.steps if not row[1] and not row[2]]
+
+
+def serve_prompts(eng, name, prompts, cfg):
+    """Serve ``prompts`` on ``eng``, ``MAX_TOKENS`` greedy tokens each,
+    the launch counters zeroed just before and read just after.  Every
+    request must finish with its tokens in the vocabulary, every kernel
+    of configuration ``name``'s path must have launched and none it must
+    not → (responses, launch counts, wall s, peak bytes allocated)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import Request
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_tokens=MAX_TOKENS))
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = build.launch_counts()
+    log(f"  [{name}{eng.label}] served {len(out)} requests in "
+        f"{wall:.3f} s: statuses "
+        f"{ {r: v.status for r, v in out.items()} }")
+    log(f"  [{name}{eng.label}] launch counts: {counts}")
+    for rid, resp in out.items():
+        require(resp.status == "ok", resp)
+        require(len(resp) == MAX_TOKENS, (rid, len(resp)))
+        require(all(0 <= tok < cfg.vocab for tok in resp), rid)
+    for kernel in PATH_KERNELS[name]:
+        require(counts[kernel] > 0, f"[{name}{eng.label}] {kernel} was "
+                f"never launched on the main path")
+    for kernel in NOT_ON_PATH.get(name, counts):
+        require(counts[kernel] == 0,
+                f"[{name}{eng.label}] {counts[kernel]} launches of "
+                f"{kernel} at full width: every bf16 launch must run on "
+                f"its new engine")
+    return out, counts, wall, torch.cuda.max_memory_allocated()
+
+
 def serving_phase(dev, name):
     """Serve configuration ``name`` at full width (bf16, seed 0) on its
     arch's workload (``WORKLOADS``), twice: (a) synchronous with the eager
@@ -4112,10 +4230,9 @@ def serving_phase(dev, name):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import autotune
-    from repro_torch.kernels import build
     from repro_torch.models import attention as attn_lib
     from repro_torch.models import model as model_lib
-    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.engine import ServingEngine
 
     arch, overrides = CONFIGS[name]
     work = WORKLOADS[arch]
@@ -4160,74 +4277,8 @@ def serving_phase(dev, name):
             timing["decode_steps"] += 1
             timing["decode_tokens"] += len(decoding)
 
-    # (b): (wall ms, ran a prefill chunk, captured a graph, tokens the
-    # step's decode launch will deliver)
-    steps = []
-
-    class StepTimedEngine(ServingEngine):
-        """(b): the host clock around each engine step, unsynchronised,
-        noting whether the step ran a prefill chunk or a capture; one
-        steady step (a decode in flight, nothing prefilling or waiting,
-        the graph captured) runs under
-        ``torch.cuda.set_sync_debug_mode("error")``: any synchronising
-        call but the retire's event wait raises."""
-        sync_checked_at = None
-
-        def _advance_prefill(self, slot):
-            self._ran_prefill = True
-            super()._advance_prefill(slot)
-
-        def step(self):
-            self._ran_prefill = False
-            graphs = len(self.decode_step.graphs)
-            check = (self.sync_checked_at is None and graphs
-                     and self.steps_in_flight >= 1 and not self._prefilling
-                     and not self.sched.waiting)
-            t = time.perf_counter()
-            if check:
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    super().step()
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-                self.sync_checked_at = self.step_idx
-            else:
-                super().step()
-            steps.append((1e3 * (time.perf_counter() - t),
-                          self._ran_prefill,
-                          len(self.decode_step.graphs) != graphs,
-                          sum(len(e["slots"]) for e in self._inflight
-                              if e["kind"] == "decode"
-                              and e["step"] == self.step_idx)))
-
     def serve(eng):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        build.reset_launch_counts()
-        t = time.perf_counter()
-        for rid, p in enumerate(prompts):
-            eng.submit(Request(rid=rid, prompt=p, max_tokens=MAX_TOKENS))
-        out = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        counts = build.launch_counts()
-        log(f"  [{name}{eng.label}] served {len(out)} requests in "
-            f"{wall:.3f} s: statuses "
-            f"{ {r: v.status for r, v in out.items()} }")
-        log(f"  [{name}{eng.label}] launch counts: {counts}")
-        for rid, resp in out.items():
-            require(resp.status == "ok", resp)
-            require(len(resp) == MAX_TOKENS, (rid, len(resp)))
-            require(all(0 <= tok < cfg.vocab for tok in resp), rid)
-        for kernel in PATH_KERNELS[name]:
-            require(counts[kernel] > 0, f"[{name}{eng.label}] {kernel} was "
-                    f"never launched on the main path")
-        for kernel in NOT_ON_PATH.get(name, counts):
-            require(counts[kernel] == 0,
-                    f"[{name}{eng.label}] {counts[kernel]} launches of "
-                    f"{kernel} at full width: every bf16 launch must run on "
-                    f"its new engine")
-        return out, counts, wall, torch.cuda.max_memory_allocated()
+        return serve_prompts(eng, name, prompts, cfg)
 
     eng = build_engine(TimedEngine, async_steps=False, cuda_graph=False)
     eng.label = " (a) sync eager"
@@ -4249,7 +4300,7 @@ def serving_phase(dev, name):
     del eng
     free_card()
 
-    eng = build_engine(StepTimedEngine)
+    eng = build_engine(step_timed_engine())
     eng.label = " (b) async graph"
     require(eng.async_steps and eng.pipeline_depth == 2
             and eng.decode_step.graph, "(b) must run the engine's defaults")
@@ -4269,12 +4320,11 @@ def serving_phase(dev, name):
             f"[{name}] no steady step ran under the sync check")
     if work["shared"]:
         require(m["prefix_hit_pages"] > 0, m)
-    steady = [(ms, tokens) for ms, prefill, captured, tokens in steps
-              if not prefill and not captured]
+    steady = [(row[0], row[3]) for row in steady_steps(eng)]
     steady_tps = 1e3 * sum(t for _, t in steady) / sum(ms for ms, _ in steady)
     steady = [ms for ms, _ in steady]
     async_run = {
-        "wall_s": wall_b, "steps": len(steps),
+        "wall_s": wall_b, "steps": len(eng.steps),
         "decode_tokens": m["decode_tokens"],
         "decode_tokens_per_s": m["decode_tokens"] / wall_b,
         "steady_steps": len(steady),
@@ -4282,7 +4332,7 @@ def serving_phase(dev, name):
         "steady_ms_per_step_median": statistics.median(steady),
         "steady_tokens_per_s": steady_tps,
         "prefill_step_ms_mean": statistics.mean(
-            [ms for ms, prefill, _, _ in steps if prefill]),
+            [row[0] for row in eng.steps if row[1]]),
         "steps_in_flight_max": eng.steps_in_flight_max,
         "delivery_lag_mean": m["delivery_lag_mean"],
         "sync_checked_at_step": eng.sync_checked_at,
@@ -6365,6 +6415,379 @@ def dispatch_phase(dev, rows):
     return path
 
 
+# -- phase 10: the telemetry stack on the main path ------------------------------
+
+# (ii): the profiler's signature budget and the regret audit's depth;
+# (iii): the rows of the decode and prefill gates recalibrated on a fresh
+# cache (4 slots; 512-token chunks).
+PROFILE_SIGNATURES = 8
+REGRET_TOP_K = 4
+RECALIBRATED_ROWS = (4, 512)
+# Spans and instants the served trace must hold.
+TRACE_NAMES = ("admit", "prefill_chunk", "graph.program", "sample",
+               "request.first_token")
+
+
+def gate_signature(cfg, m):
+    """The signature of the model's MLP gate at ``m`` rows: d_model ->
+    d_ff under the model's format, its activation fused."""
+    from repro_torch.core.autotune import GemmSignature
+    from repro_torch.core.epilogue import Epilogue
+    from repro_torch.models import layers
+    return GemmSignature.for_format(
+        m, cfg.d_ff, cfg.d_model, layers.model_format(cfg),
+        layers.compute_dtype(cfg),
+        Epilogue(activation=layers._mlp_act(cfg)))
+
+
+def telemetry_phase(dev, serving, counts, out_dir):
+    """Phase 10: gemma_2b at full width (phase 4's weights from seed 0 and
+    its workload) served under the whole observability stack.
+
+    (i) run (b) (async, depth 2, decode replayed) with the per-GEMM
+    accountant, a tracer, the registry and ``SloMonitor(default_slos())``
+    up before the engine; (ii) ``DispatchProfiler.sample(8)`` on the card
+    (CUDA events): the calibration table (modelled against measured us per
+    shape class x format) and ``regret_audit(top_k=4)``, the served cache
+    left as granted; (iii) ``PlanCache.recalibrate`` on a fresh cache at
+    the 4-row decode gate and the 512-row prefill gate, each grant's
+    route, tile and split printed, and whether route ``"torch"`` (the
+    library product) won; (iv) ``save_plans``, ``reset_cache`` and a new
+    engine warm-started from the file (``plan_cache_path``) serving the
+    same workload; (v) ``launch.serve.main`` at full width with
+    ``--status-json``, ``--prom``, ``--trace``, ``--gemm-table`` and
+    ``--watch 4``.  Checks: (i)'s tokens equal phase 4 (b)'s and (iv)'s
+    equal (i)'s; (i) reaches two steps in flight, runs a steady step
+    under ``set_sync_debug_mode("error")`` with the stack on, and launches
+    what phase 4 (b) launched, kernel for kernel; the trace validates with every
+    span of ``TRACE_NAMES`` and a first-token instant per request; every
+    signature the served plan cache granted has a record, the decode
+    q/k/v is one grouped record a layer, replays add no record; health
+    and Prometheus text validate and round-trip every metric; the
+    profiler timed >= 1 signature, each finite and > 0; (iv) solves no
+    plan; no served plan is on route ``"torch"``; the launcher's files
+    validate."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import autotune
+    from repro_torch.graph import schedule
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.telemetry import export, gemm_account, tracing
+    from repro_torch.telemetry.gemm_account import shape_class
+    from repro_torch.telemetry.profiler import DispatchProfiler
+    from repro_torch.telemetry.registry import registry, reset_registry
+    from repro_torch.telemetry.slo import SloMonitor, default_slos
+
+    t_phase = time.perf_counter()
+    arch, overrides = CONFIGS["default"]
+    work = WORKLOADS[arch]
+    cfg = dataclasses.replace(get_config(arch), **overrides)
+    prompts, engine_kw = serving_workload(cfg, work, dev)
+    reset_planning()
+    params = random_biases(model_lib.init_params(cfg, seed=0, device=dev),
+                           cfg)
+    calls = []
+
+    StepTimedEngine = step_timed_engine()
+
+    def steady(eng):
+        """Steady steps (no prefill chunk, no capture): wall ms mean and
+        median, and the host's own ms (wall less the waits) mean."""
+        rows = [(row[0], row[4]) for row in steady_steps(eng)]
+        return {"steps": len(rows),
+                "mean": statistics.mean(ms for ms, _ in rows),
+                "median": statistics.median(ms for ms, _ in rows),
+                "host_mean": statistics.mean(ms - w for ms, w in rows)}
+
+    def counting(eng, acct):
+        """Wrap the engine's decode step: (replayed?, records added) per
+        call."""
+        base = type(eng.decode_step)
+
+        class Counting(base):
+            def __call__(self, sampled):
+                replay, n0 = sampled in self.graphs, len(acct.records)
+                out = super().__call__(sampled)
+                calls.append((replay, len(acct.records) - n0))
+                return out
+
+        eng.decode_step.__class__ = Counting
+
+    def serve(eng, label):
+        """Serve the workload on ``eng`` (a ``StepTimedEngine``); one
+        steady step must have run under the sync check."""
+        eng.label = f" (telemetry {label})"
+        out, counts, wall, _ = serve_prompts(eng, "default", prompts, cfg)
+        require(eng.sync_checked_at is not None,
+                f"(telemetry {label}) no steady step ran under the sync "
+                f"check")
+        return {rid: list(v) for rid, v in out.items()}, counts, wall
+
+    def route_torch(label):
+        on_torch = [p.describe() for p in autotune.plan_cache()._plans.values()
+                    if p.route == "torch"]
+        require(not on_torch, f"[{label}] plans on route 'torch': "
+                f"{on_torch}")
+
+    # Run (b) with the stack off, on this phase's clock: the yardstick of
+    # (i)'s steady decode (and again at (iv)).
+    eng = StepTimedEngine(params, cfg, time_waits=True, **engine_kw)
+    serve(eng, "stack off")
+    stack_off = [steady(eng)]
+    del eng
+    free_card()
+    reset_planning()
+
+    # (i) run (b) with the stack up before the engine.
+    reset_registry()
+    tracer = tracing.install(tracing.Tracer())
+    acct = gemm_account.install(gemm_account.GemmAccountant())
+    mon = SloMonitor(default_slos())
+    try:
+        eng = StepTimedEngine(params, cfg, slo_monitor=mon,
+                              time_waits=True, **engine_kw)
+        require(eng.async_steps and eng.pipeline_depth == 2
+                and eng.decode_step.graph, "(i) must run the defaults")
+        counting(eng, acct)
+        streams, counts_i, wall_i = serve(eng, "i")
+    finally:
+        tracing.uninstall()
+        gemm_account.uninstall()
+    want = serving["default"]["streams"]
+    for rid in want:
+        require(streams[rid] == list(want[rid]), f"(i) request {rid}: the "
+                f"tokens differ from phase 4 (b)'s")
+    require(eng.steps_in_flight_max == 2, f"(i) steps_in_flight_max "
+            f"{eng.steps_in_flight_max}: the pipeline must keep two steps "
+            f"in flight with the stack on")
+    differ = {k: (counts_i.get(k), counts["default"].get(k))
+              for k in set(counts_i) | set(counts["default"])
+              if counts_i.get(k) != counts["default"].get(k)}
+    require(not differ, f"(i) launch counts differ from phase 4 (b)'s "
+            f"(stack on, phase 4): {differ}")
+    log(f"  [telemetry (i)] served {len(streams)} requests in {wall_i:.3f} "
+        f"s, tokens equal to phase 4 (b)'s, steps_in_flight_max "
+        f"{eng.steps_in_flight_max}; step {eng.sync_checked_at} ran under "
+        f"set_sync_debug_mode('error') with the stack on and no sync but "
+        f"the retire's event wait; launch counts equal to phase 4 (b)'s: "
+        f"{counts_i}")
+    route_torch("telemetry (i)")
+    doc = tracer.to_json()
+    errs = tracing.validate_trace(doc, require_names=TRACE_NAMES)
+    require(not errs, f"(i) trace: {errs}")
+    firsts = sorted(e["args"]["rid"] for e in doc["traceEvents"]
+                    if e["name"] == "request.first_token")
+    require(firsts == sorted(streams), f"(i) first-token instants {firsts}")
+    overlap = tracing.span_overlaps(doc, "decode", "prefill_chunk")
+    keys = {(r.m, r.n, r.k, r.fmt, r.policy, r.group) for r in acct.records}
+    served = {(s.m, s.n, s.k, s.fmt, str(s.policy), s.group)
+              for s in autotune.plan_cache()._plans}
+    require(served <= keys, f"(i) served signatures without a record: "
+            f"{sorted(served - keys)}")
+    n_layers = sum(1 for mixer, _ in cfg.layer_kinds if mixer == "attn")
+    decode = [r for r in acct.records if r.m == engine_kw["slots"]]
+    grouped_qkv = sum(r.kind == "grouped" and r.group == 3 for r in decode)
+    kv = cfg.n_kv_heads * cfg.hd
+    captures = [d for replay, d in calls if not replay]
+    replays = [d for replay, d in calls if replay]
+    require(grouped_qkv == n_layers * len(captures)
+            and not any(r.kind == "gemm" and r.n == kv for r in decode),
+            f"(i) decode q/k/v: {grouped_qkv} grouped records over "
+            f"{len(captures)} captures, want one a layer")
+    require(captures and all(captures) and replays and not any(replays),
+            f"(i) records added by captures {captures} and replays "
+            f"{sorted(set(replays))}: a replay must add none")
+    log(f"  [telemetry (i)] trace: {len(doc['traceEvents'])} events, valid, "
+        f"with {TRACE_NAMES} and a first token for each request; decode "
+        f"span over the next step's prefill chunk: {overlap}; records: "
+        f"{len(acct.records)} ({len(captures)} capture(s) added "
+        f"{captures}, {len(replays)} replays added 0); every one of the "
+        f"{len(served)} served signatures recorded; grouped decode q/k/v "
+        f"{grouped_qkv} records")
+    for line in acct.format_table().splitlines():
+        log(f"    {line}")
+    phase4 = serving["default"]["async"]
+    stack_ms = steady(eng)
+    log(f"  [telemetry (i)] (b) steady decode with the stack on: "
+        f"{stack_ms['mean']:.3f} ms/step mean, {stack_ms['median']:.3f} "
+        f"median, host (less the waits) {stack_ms['host_mean']:.3f} mean, "
+        f"over {stack_ms['steps']} steps; stack off in this phase: "
+        f"{stack_off[0]['mean']:.3f} mean, {stack_off[0]['median']:.3f} "
+        f"median, host {stack_off[0]['host_mean']:.3f}; phase 4 (b): "
+        f"{phase4['steady_ms_per_step_mean']:.3f} mean, "
+        f"{phase4['steady_ms_per_step_median']:.3f} median (a record, not "
+        f"a gate)")
+
+    # (ii) the profiler: calibration table and regret audit on the card.
+    t = time.perf_counter()
+    prof = DispatchProfiler(acct, device=dev)
+    sampled = prof.sample(max_signatures=PROFILE_SIGNATURES)
+    measured = dict(prof._measured)
+    require(sampled >= 1 and all(math.isfinite(v) and v > 0
+                                 for v in measured.values()),
+            f"(ii) profiler: {sampled} signatures, times {measured}")
+    signatures = []
+    for key, sec in sorted(measured.items(), key=lambda kv: -kv[1]):
+        m, n, k, fmt, policy, _backend, group = key
+        plan = prof._plan_for(key)
+        row = {"signature": f"{m}x{n}x{k}" + (f"/g{group}" if group > 1
+                                              else ""),
+               "fmt": fmt, "shape_class": shape_class(m, n, k),
+               "route": plan.route, "engine": autotune.plan_engine(
+                   plan.signature, plan.geometry),
+               "tile": f"{plan.geometry.bm}x{plan.geometry.bn}",
+               "split": plan.geometry.split_k,
+               "modeled_us": 1e6 * prof._modeled[key],
+               "measured_us": 1e6 * sec,
+               "ratio": sec / prof._modeled[key]}
+        signatures.append(row)
+        log(f"  [telemetry (ii)] {row['signature']} {fmt} "
+            f"({row['shape_class']}, {row['route']} on {row['engine']}, "
+            f"{row['tile']}, split {row['split']}): modelled "
+            f"{row['modeled_us']:.2f} us, measured {row['measured_us']:.2f} "
+            f"us (CUDA events), ratio {row['ratio']:.3f}")
+    for line in prof.format_calibration_table().splitlines():
+        log(f"    {line}")
+    calibration = [r.as_dict() for r in prof.calibration_table()]
+    audit = prof.regret_audit(top_k=REGRET_TOP_K)
+    for e in audit:
+        log(f"  [telemetry (ii)] regret audit {e['signature']}: granted "
+            f"{e['granted_route']} {e['granted_s'] * 1e6:.2f} us vs "
+            f"runner-up {e['runner_route']} {e['runner_s'] * 1e6:.2f} us, "
+            f"regret {e['regret']:.3f} -> "
+            f"{'REGRET' if e['flagged'] else 'ok'}")
+    prof_s = time.perf_counter() - t
+    # The launch floor: B1 at 1 x 8 x 8 does next to no work, so its
+    # device time between back-to-back launches is the per-launch cost
+    # the planner prices as HopperProfile.launch_s.
+    tiny_cache = autotune.PlanCache()
+    tiny_profile = tiny_cache.profile
+    tiny = tiny_cache.plan(autotune.GemmSignature.make(
+        1, 8, 8, "bfloat16", "bfloat16"))
+    launch_us = 1e6 * autotune.measure_plan(tiny, iters=20, device=dev)
+    log(f"  [telemetry (ii)] launch floor: {tiny.describe()} measured "
+        f"{launch_us:.2f} us a launch on the device; the planner prices "
+        f"launch_s = {1e6 * tiny_profile.launch_s:.2f} us")
+    health = export.health(engine=eng, profiler=prof,
+                           slo_report=mon.last_report)
+    errs = export.validate_health(health)
+    require(not errs, f"(ii) health: {errs}")
+    text = export.render_prometheus()
+    parsed = export.parse_prometheus(text)
+    names = registry().names()
+    require(len(parsed) == len(names) and all(
+        export.sanitize_metric_name(nm) in parsed for nm in names),
+        f"(ii) Prometheus round trip: {len(parsed)} of {len(names)}")
+    log(f"  [telemetry (ii)] {sampled} signatures timed and the audit of "
+        f"{len(audit)} in {prof_s:.1f} s; health valid (slo ok "
+        f"{health['slo']['ok']}, plan cache {health['plan_cache']}); "
+        f"Prometheus text round-trips all {len(names)} metrics")
+
+    # (iii) measured grants at gemma's decode and prefill gates.
+    served_cache = autotune.plan_cache()
+    fresh = autotune.PlanCache()
+    recal = []
+    for m in RECALIBRATED_ROWS:
+        sig = gate_signature(cfg, m)
+        analytic = autotune.PlanCache().plan(sig)
+        plan = fresh.recalibrate(sig, device=dev)
+        torch_us = 1e6 * autotune.measure_plan(
+            dataclasses.replace(analytic, route="torch"), device=dev)
+        g = plan.geometry
+        row = {"signature": f"{m}x{sig.n}x{sig.k}",
+               "epilogue": sig.epilogue.activation,
+               "analytic": analytic.describe(), "granted": plan.describe(),
+               "route": plan.route, "tile": f"{g.bm}x{g.bn}",
+               "split": g.split_k, "measured_us": 1e6 * plan.measured_s,
+               "torch_us": torch_us, "torch_won": plan.route == "torch"}
+        recal.append(row)
+        log(f"  [telemetry (iii)] {row['signature']} ({row['epilogue']}): "
+            f"measured grant {row['granted']} (route {row['route']}, tile "
+            f"{row['tile']}, split {row['split']}); analytic grant "
+            f"{row['analytic']}; the library route 'torch' "
+            f"({torch_us:.2f} us) "
+            f"{'WON: this grant runs torch.mm (cuBLAS), no kernel' if row['torch_won'] else 'lost'}")
+    log(f"  [telemetry (iii)] {fresh.stats.measured} candidates timed, "
+        f"{fresh.stats.measure_failed} could not run")
+
+    # (iv) warm start from the saved plan file.
+    path = os.path.join(out_dir, "phase10_plans.json")
+    autotune.save_plans(path, dev)
+    n_plans = len(served_cache)
+    del eng, prof
+    free_card()
+    autotune.reset_cache()
+    schedule.reset_programs()
+    eng = StepTimedEngine(params, cfg, plan_cache_path=path,
+                          time_waits=True, **engine_kw)
+    require(len(autotune.plan_cache()) == n_plans, "(iv) warm start loaded "
+            f"{len(autotune.plan_cache())} of {n_plans} plans")
+    streams_iv, _, wall_iv = serve(eng, "iv")
+    solved = autotune.cache_stats().solver_calls
+    require(streams_iv == streams, "(iv) the warm-started engine's tokens "
+            "differ from (i)'s")
+    require(solved == 0, f"(iv) {solved} solver calls after the warm start")
+    route_torch("telemetry (iv)")
+    stack_off.append(steady(eng))
+    log(f"  [telemetry (iv)] {n_plans} plans loaded from {path}; served in "
+        f"{wall_iv:.3f} s with 0 solver calls, tokens equal to (i)'s; "
+        f"steady decode (stack off): {stack_off[1]['mean']:.3f} ms/step "
+        f"mean, {stack_off[1]['median']:.3f} median, host "
+        f"{stack_off[1]['host_mean']:.3f}")
+    del eng, params
+    free_card()
+
+    # (v) the serving launcher at full width.
+    reset_planning()
+    reset_registry()
+    files = {k: os.path.join(out_dir, f"phase10_{k}")
+             for k in ("health.json", "prom.txt", "trace.json")}
+    argv = ["--arch", arch, "--device", dev.type, "--requests", "6",
+            "--max-tokens",
+            str(MAX_TOKENS), "--prefill-len", str(work["prefill_len"]),
+            "--cache-len", str(work["cache_len"]), "--prefill-chunk", "512",
+            "--shared-prefix", str(work["shared"]), "--watch", "4",
+            "--gemm-table", "--status-json", files["health.json"], "--prom",
+            files["prom.txt"], "--trace", files["trace.json"]]
+    t = time.perf_counter()
+    out = serve_lib.main(argv)
+    launcher_s = time.perf_counter() - t
+    require(len(out) == 6 and all(r.ok and len(r) == MAX_TOKENS
+                                  for r in out.values()),
+            f"(v) launcher statuses {[r.status for r in out.values()]}")
+    with open(files["health.json"]) as fh:
+        errs = export.validate_health(json.load(fh))
+    require(not errs, f"(v) health file: {errs}")
+    with open(files["prom.txt"]) as fh:
+        prom = export.parse_prometheus(fh.read())
+    require(len(prom) == len(registry().names()),
+            f"(v) Prometheus file: {len(prom)} metrics")
+    errs = tracing.validate_trace_file(files["trace.json"], TRACE_NAMES)
+    require(not errs, f"(v) trace file: {errs}")
+    route_torch("telemetry (v)")
+    del out
+    free_card()
+    seconds = time.perf_counter() - t_phase
+    log(f"  [telemetry (v)] launcher: 6 requests at full width in "
+        f"{launcher_s:.1f} s, health, Prometheus and trace files valid; "
+        f"phase 10 took {seconds:.1f} s")
+    return {"streams_equal_phase4": True, "launch_counts": counts_i,
+            "steady_ms_per_step": stack_ms,
+            "steady_ms_per_step_stack_off": stack_off,
+            "phase4_steady_ms_per_step": {
+                "mean": phase4["steady_ms_per_step_mean"],
+                "median": phase4["steady_ms_per_step_median"]},
+            "records": len(acct.records), "served_signatures": len(served),
+            "capture_records": captures, "replays": len(replays),
+            "calibration": calibration,
+            "signatures": signatures, "regret_audit": audit,
+            "recalibrated": recal, "warm_start_plans": n_plans,
+            "launch_floor_us": launch_us,
+            "trace_events": len(doc["traceEvents"]),
+            "decode_overlaps_prefill": overlap,
+            "launcher_s": launcher_s, "seconds": seconds}
+
+
 KERNELS = [
     ("mte_gemm_wgmma", "src/repro_torch/csrc/mte_gemm.cu",
      "src/repro/kernels/mte_gemm.py:114", "gate 512x16384x2048", "default"),
@@ -6674,6 +7097,9 @@ def main() -> int:
     log(f"== 9. the paper's {len(TRANSFORMER_GEMMS)} transformer GEMMs "
         f"through core.dispatch.mte_gemm: mte (B1/B2) against amx (B8)")
     counts["dispatch"] = dispatch_phase(dev, rows)
+    log("== 10. telemetry: full-width gemma_2b served under the accountant, "
+        "tracer, registry, SLO monitor, profiler and plan-file warm start")
+    telemetry = telemetry_phase(dev, serving, counts, out_dir)
 
     kernels = []
     for name, source, replaces, shape, path in KERNELS:
@@ -6744,7 +7170,7 @@ def main() -> int:
                    "int8_isa_ratio": isa_ratio,
                    "speculative": speculative, "model_level": model_level,
                    "training": training, "training_amx": training_amx,
-                   "kernels": kernels,
+                   "telemetry": telemetry, "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -16,14 +16,31 @@ Routes: ``"mte"`` (the B1 kernel, ``csrc/mte_gemm.cu``), ``"splitk"``
 when the (M, N) tile grid leaves SMs idle, ``"grouped"`` (B3) and
 ``"rigid"`` (B8).
 
-Queued (ROADMAP A4): the JSON warm start, measured refinement
-(``measure=True``), ``runner_up`` and ``recalibrate``.
+Measured refinement (``measure=True``, opt-in as in the JAX package):
+the top ``measure_top`` analytic candidates and the analytic base are
+timed on the substrate (CUDA events on the card, the host clock on the
+CPU: :func:`measure_plan`) and the fastest wins, ``source="measured"``.
+For a plain ``mte`` GEMM the route ``"torch"`` — the library's own
+product on the operands' dtype at the policy's accumulator plus the
+epilogue, the port's name for the JAX package's fused ``xla`` dot —
+races the kernels that ran; where no kernel candidate can run the
+signature the refinement raises, as the analytic grant would when run.
+A grant on ``"torch"`` says so in its route and its
+:meth:`ExecutionPlan.describe`: it is the library product, never a
+silent stand-in for a kernel.  ``runner_up`` and ``recalibrate`` serve
+the profiler's plan-regret audit (:mod:`repro_torch.telemetry.profiler`),
+and the cache persists as JSON (``save_plans`` / ``load_plans``) for a
+warm start, refused from another substrate: the JAX package's files, a
+CPU file on a card, one card's file on another.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import statistics
+import time
 from collections import OrderedDict
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.geometry import (
@@ -37,11 +54,40 @@ from repro_torch.core.tile_state import SEW, dtype_name
 __all__ = [
     "GemmSignature", "ExecutionPlan", "PlanCache", "CacheStats",
     "enumerate_candidates", "score_geometry", "execute_plan", "get_plan",
-    "plan_engine",
+    "plan_engine", "measure_plan",
     "plan_cache", "reset_cache", "cache_stats", "cache_generation",
+    "save_plans", "load_plans",
 ]
 
 _SPLIT_CANDIDATES = (2, 4, 8, 16)
+# The plan file's version: the port's own, so neither package takes the
+# other's file (the JAX package writes the integer 2).
+_CACHE_VERSION = "repro_torch/1"
+
+
+def _substrate(device=None) -> str:
+    """The substrate plans and measurements hold for: ``"cpu"``, or the
+    card's name and its ``sm_XY``.  ``device`` None is the card
+    (:func:`repro_torch.resolve_device`)."""
+    import torch
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev.type
+    major, minor = torch.cuda.get_device_capability(dev)
+    return f"{torch.cuda.get_device_name(dev)} sm_{major}{minor}"
+
+
+def _note_plan(sig: "GemmSignature", source: str, predicted_s: float) -> None:
+    """Tell the active per-GEMM accountant (repro_torch.telemetry) where
+    this signature's grant came from: ``"cache-hit"`` for a memoized
+    grant, the plan's own source otherwise — the provenance the
+    dispatch-side record joins against.  No-op when no accountant is
+    installed (the common case)."""
+    from repro_torch.telemetry import gemm_account
+    acct = gemm_account.active()
+    if acct is not None:
+        acct.note_plan(sig, source, predicted_s)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,11 +155,11 @@ class ExecutionPlan:
 
     signature: GemmSignature
     geometry: BlockGeometry
-    route: str                       # "mte" | "splitk" | "grouped" | "rigid"
+    route: str     # "mte" | "splitk" | "grouped" | "rigid" | "torch"
     predicted_s: float
     measured_s: Optional[float] = None
-    source: str = "analytic"   # "analytic" | "program" (pinned by
-    #                            repro_torch.graph.schedule)
+    source: str = "analytic"   # "analytic" | "measured" | "warmstart" |
+    #                            "program" (pinned by graph.schedule)
 
     @property
     def n_split(self) -> int:
@@ -123,8 +169,14 @@ class ExecutionPlan:
         g = self.geometry
         tail = f" split_k={g.split_k}" if g.split_k > 1 else ""
         tail += " bT" if g.transposed_b else ""
-        return (f"{self.route}[{g.bm}x{g.bn}x{g.bk}{tail}] "
-                f"~{self.predicted_s * 1e6:.2f}us ({self.source})")
+        if self.route == "torch":
+            head = "torch[library product, no kernel]"
+        else:
+            head = f"{self.route}[{g.bm}x{g.bn}x{g.bk}{tail}]"
+        meas = (f", measured {self.measured_s * 1e6:.2f}us"
+                if self.measured_s is not None else "")
+        return (f"{head} ~{self.predicted_s * 1e6:.2f}us{meas} "
+                f"({self.source})")
 
 
 def _route_for(sig: GemmSignature, geom: BlockGeometry) -> str:
@@ -345,13 +397,20 @@ class CacheStats:
     hits: int = 0
     misses: int = 0
     solver_calls: int = 0
+    measured: int = 0
+    measure_failed: int = 0   # candidates a signature could not execute
 
     def as_dict(self) -> Dict[str, int]:
         return dataclasses.asdict(self)
 
 
 class PlanCache:
-    """In-process LRU of GemmSignature → ExecutionPlan."""
+    """In-process LRU of GemmSignature → ExecutionPlan with JSON warm
+    start."""
+
+    # Analytic candidates a measured refinement times (the JAX package's
+    # default), besides the analytic base and the library route.
+    measure_top = 4
 
     def __init__(self, maxsize: int = 4096,
                  profile: Optional[HopperProfile] = None):
@@ -371,33 +430,182 @@ class PlanCache:
         self._plans.clear()
         self.stats = CacheStats()
 
-    def plan(self, sig: GemmSignature, *, measure: bool = False
-             ) -> ExecutionPlan:
-        if measure:
-            raise NotImplementedError(
-                "measured plan refinement is ROADMAP A4")
+    # -- planning -----------------------------------------------------------
+    def plan(self, sig: GemmSignature, *, measure: bool = False,
+             device=None) -> ExecutionPlan:
+        """The memoized grant for ``sig``.  ``measure=True`` refines by
+        timing on ``device`` (None: the card), and upgrades an analytic
+        hit in place."""
         hit = self._plans.get(sig)
         if hit is not None:
             self.stats.hits += 1
+            if measure and hit.measured_s is None:
+                plan = self._build(sig, measure=True, device=device)
+                self._insert(sig, plan)
+                _note_plan(sig, "cache-hit", plan.predicted_s)
+                return plan
             self._plans.move_to_end(sig)
+            _note_plan(sig, "cache-hit", hit.predicted_s)
             return hit
         self.stats.misses += 1
-        plan = self._build(sig)
-        self._plans[sig] = plan
-        while len(self._plans) > self.maxsize:
-            self._plans.popitem(last=False)
+        plan = self._build(sig, measure=measure, device=device)
+        self._insert(sig, plan)
+        _note_plan(sig, plan.source, plan.predicted_s)
         return plan
 
-    def _build(self, sig: GemmSignature) -> ExecutionPlan:
-        self.stats.solver_calls += 1
+    def _scored(self, sig: GemmSignature) -> List[Tuple[float, int,
+                                                         BlockGeometry]]:
+        """Every candidate with its price, best first (the analytic base
+        wins ties)."""
         cands = enumerate_candidates(sig, self.profile)
-        scored = sorted(((score_geometry(sig, g, self.profile), i, g)
-                         for i, g in enumerate(cands)),
-                        key=lambda t: (t[0], t[1]))
+        return sorted(((score_geometry(sig, g, self.profile), i, g)
+                       for i, g in enumerate(cands)),
+                      key=lambda t: (t[0], t[1]))
+
+    def _build(self, sig: GemmSignature, *, measure: bool = False,
+               device=None) -> ExecutionPlan:
+        self.stats.solver_calls += 1
+        scored = self._scored(sig)
         best_s, _, best_g = scored[0]
-        return ExecutionPlan(signature=sig, geometry=best_g,
+        plan = ExecutionPlan(signature=sig, geometry=best_g,
                              route=_route_for(sig, best_g),
                              predicted_s=best_s)
+        if not measure:
+            return plan
+        # The top analytic candidates and the analytic base, each timed on
+        # the substrate; then, for a plain mte GEMM, the library product
+        # races the kernels that ran.
+        measured_set = scored[:max(2, self.measure_top)]
+        if not any(i == 0 for _, i, _ in measured_set):
+            measured_set.append(next(t for t in scored if t[1] == 0))
+        timed = self._timed([ExecutionPlan(signature=sig, geometry=g,
+                                           route=_route_for(sig, g),
+                                           predicted_s=t)
+                             for t, _, g in measured_set], device)
+        if not timed:
+            raise ValueError(f"no kernel candidate can execute {sig}: the "
+                             f"measured refinement has nothing to race the "
+                             f"library route against")
+        if sig.policy == "mte" and sig.group == 1:
+            timed += self._timed([ExecutionPlan(
+                signature=sig, geometry=best_g, route="torch",
+                predicted_s=best_s)], device)
+        t_best, p_best = min(timed, key=lambda x: x[0])
+        return dataclasses.replace(p_best, measured_s=t_best,
+                                   source="measured")
+
+    def _timed(self, candidates: List[ExecutionPlan],
+               device) -> List[Tuple[float, ExecutionPlan]]:
+        """(seconds, plan) of each candidate that can execute."""
+        timed = []
+        for cand in candidates:
+            try:
+                t = measure_plan(cand, device=device)
+            except (ValueError, NotImplementedError):
+                # This candidate cannot execute for the signature, so it
+                # cannot win; any other error (a kernel fault) propagates.
+                self.stats.measure_failed += 1
+                continue
+            self.stats.measured += 1
+            timed.append((t, cand))
+        return timed
+
+    def _insert(self, sig: GemmSignature, plan: ExecutionPlan) -> None:
+        self._plans[sig] = plan
+        self._plans.move_to_end(sig)
+        while len(self._plans) > self.maxsize:
+            self._plans.popitem(last=False)
+
+    # -- plan-quality audit hooks (repro_torch.telemetry.profiler) ----------
+    def analytic_candidates(self, sig: GemmSignature) -> List[ExecutionPlan]:
+        """The signature's candidate plans in analytic-score order (best
+        first) — the ranking :meth:`_build` starts from."""
+        return [ExecutionPlan(signature=sig, geometry=g,
+                              route=_route_for(sig, g), predicted_s=t)
+                for t, _, g in self._scored(sig)]
+
+    def runner_up(self, sig: GemmSignature) -> Optional[ExecutionPlan]:
+        """The best analytic candidate that is NOT the granted plan
+        (None when the signature is uncached or has one candidate)."""
+        granted = self._plans.get(sig)
+        if granted is None:
+            return None
+        for cand in self.analytic_candidates(sig):
+            if (cand.geometry != granted.geometry
+                    or cand.route != granted.route):
+                return cand
+        return None
+
+    def recalibrate(self, sig: GemmSignature, *,
+                    device=None) -> ExecutionPlan:
+        """Re-grant ``sig`` from measurement on ``device`` (the whole
+        refinement of :meth:`_build`), replacing the cached entry and
+        re-announcing it to the accountant."""
+        plan = self._build(sig, measure=True, device=device)
+        self._insert(sig, plan)
+        _note_plan(sig, plan.source, plan.predicted_s)
+        return plan
+
+    # -- persistence ----------------------------------------------------------
+    def to_json(self, device=None) -> Dict:
+        """The cache as a JSON document for ``device``'s substrate (None:
+        the card)."""
+        return {"version": _CACHE_VERSION, "profile": self.profile.name,
+                "substrate": _substrate(device),
+                "plans": [_plan_to_json(p) for p in self._plans.values()]}
+
+    def load_json(self, doc: Dict, device=None) -> int:
+        """Warm-start from a saved document; → the number of plans.
+        Refuses (ValueError) a document of another version (the JAX
+        package's), profile or substrate: its tiles were priced, and its
+        routes measured, for another machine."""
+        if doc.get("version") != _CACHE_VERSION:
+            raise ValueError(f"plan-cache version {doc.get('version')!r} "
+                             f"!= {_CACHE_VERSION!r}")
+        if doc.get("profile") != self.profile.name:
+            raise ValueError(f"plan cache priced for profile "
+                             f"{doc.get('profile')!r}, this cache is "
+                             f"{self.profile.name!r}")
+        here = _substrate(device)
+        if doc.get("substrate") != here:
+            raise ValueError(f"plan cache made on substrate "
+                             f"{doc.get('substrate')!r}, this process "
+                             f"runs on {here!r}")
+        plans = [_plan_from_json(entry) for entry in doc.get("plans", [])]
+        for plan in plans:
+            self._insert(plan.signature, plan)
+        return len(plans)
+
+    def save(self, path: str, device=None) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_json(device), f, indent=1, sort_keys=True)
+
+    def load(self, path: str, device=None) -> int:
+        with open(path) as f:
+            return self.load_json(json.load(f), device)
+
+
+def _plan_to_json(plan: ExecutionPlan) -> Dict:
+    sig, g = plan.signature, plan.geometry
+    sd = dataclasses.asdict(sig)
+    sd["epilogue"] = dataclasses.asdict(sig.epilogue)
+    gd = dataclasses.asdict(g)
+    gd["sew_i"], gd["sew_o"] = g.sew_i.name, g.sew_o.name
+    return {"sig": sd, "geom": gd, "route": plan.route,
+            "predicted_s": plan.predicted_s, "measured_s": plan.measured_s}
+
+
+def _plan_from_json(entry: Dict) -> ExecutionPlan:
+    sd = dict(entry["sig"])
+    sd["epilogue"] = Epilogue(**sd["epilogue"])
+    sig = GemmSignature(**sd)
+    gd = dict(entry["geom"])
+    gd["sew_i"], gd["sew_o"] = SEW[gd["sew_i"]], SEW[gd["sew_o"]]
+    return ExecutionPlan(signature=sig, geometry=BlockGeometry(**gd),
+                         route=entry["route"],
+                         predicted_s=entry["predicted_s"],
+                         measured_s=entry.get("measured_s"),
+                         source="warmstart")
 
 
 def execute_plan(plan: ExecutionPlan, a, b, c=None, bias=None, *,
@@ -418,6 +626,8 @@ def execute_plan(plan: ExecutionPlan, a, b, c=None, bias=None, *,
     sig = plan.signature
     out_dtype = to_torch_dtype(sig.dtype_out)
     acc_dtype = sig.format_policy.accum_torch
+    if plan.route == "torch":
+        return _torch_route(sig, a, b, c, bias, out_dtype)
     if plan.route == "rigid":
         return rigid_gemm_kernel(a, b, c, bias, epilogue=sig.epilogue,
                                  out_dtype=out_dtype)
@@ -436,6 +646,108 @@ def execute_plan(plan: ExecutionPlan, a, b, c=None, bias=None, *,
     return mte_gemm_kernel(a, b, c, bias, geom=plan.geometry,
                            epilogue=sig.epilogue, out_dtype=out_dtype,
                            acc_dtype=acc_dtype)
+
+
+def _torch_route(sig: GemmSignature, a, b, c, bias, out_dtype):
+    """Route ``"torch"``: the library's own product on the operands'
+    dtype, accumulated at the policy's accumulator (the JAX package's
+    ``jnp.dot(preferred_element_type=)``), and the epilogue — a measured
+    grant only, never a kernel's stand-in.  On the card bf16 operands go
+    to cuBLAS as they are (``torch.mm(out_dtype=float32)`` for an f32
+    accumulator) and int8 ones to ``torch._int_mm``; the CPU, which has
+    no bf16 product into f32, widens them.  Raises ValueError where the
+    library or the kernels cannot run the signature."""
+    import torch
+
+    from repro_torch.core import formats
+    if sig.group > 1:
+        raise ValueError("route 'torch' is a 2-D product; grouped "
+                         "signatures keep B3")
+    if sig.dtype_in == "int8":
+        if not sig.epilogue.is_identity:
+            raise ValueError("int8 GEMMs fuse no epilogue (the s8 kernels "
+                             "refuse one too)")
+        if not a.is_cuda:
+            return formats.int_matmul(a, b)
+        m, k = a.shape
+        if m <= 16 or k % 8 or b.shape[1] % 8:
+            raise ValueError(f"torch._int_mm takes M > 16 and K, N "
+                             f"multiples of 8, not {m}x{b.shape[1]}x{k}")
+        return torch._int_mm(a, b)
+    acc_dtype = sig.format_policy.accum_torch
+    if not a.is_cuda:
+        acc = torch.matmul(a.float(), b.float()).to(acc_dtype)
+    elif a.dtype != acc_dtype:
+        acc = torch.mm(a, b, out_dtype=acc_dtype)
+    else:
+        acc = torch.mm(a, b)
+    return sig.epilogue.apply(acc, c_in=c, bias=bias).to(out_dtype)
+
+
+def _operands_for(sig: GemmSignature, device, seed: int = 0):
+    """Seeded operands of ``sig`` on ``device``: (a, b, c, bias), the
+    grouped route's (x, w, None, None)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.formats import to_torch_dtype
+    rng = np.random.default_rng(seed)
+    dt = to_torch_dtype(sig.dtype_in)
+
+    def draw(shape, dtype=dt):
+        if not dtype.is_floating_point:
+            host = torch.from_numpy(rng.integers(-64, 64, shape,
+                                                 dtype=np.int64))
+        else:
+            host = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32))
+        return host.to(device=device, dtype=dtype)
+
+    if sig.group > 1:
+        return (draw((sig.group, sig.m, sig.k)),
+                draw((sig.group, sig.k, sig.n)), None, None)
+    a, b = draw((sig.m, sig.k)), draw((sig.k, sig.n))
+    c = bias = None
+    if sig.epilogue.needs_c_input:
+        c = draw((sig.m, sig.n), torch.float32)
+    if sig.epilogue.has_bias:
+        shape = (sig.n,) if sig.epilogue.bias_axis == "row" else (sig.m,)
+        bias = draw(shape, torch.float32)
+    return a, b, c, bias
+
+
+def measure_plan(plan: ExecutionPlan, iters: int = 3, device=None) -> float:
+    """Median seconds of one call of ``plan`` on seeded operands on
+    ``device`` (None: the card), after one warm-up call.  On the card the
+    calls are enqueued behind a sleep kernel and timed with CUDA events
+    between them (device time, not the host's enqueue); on the CPU with
+    the host clock around each call."""
+    import torch
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    a, b, c, bias = _operands_for(plan.signature, dev)
+
+    def call():
+        return execute_plan(plan, a, b, c, bias)
+
+    call()
+    if dev.type != "cuda":
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            call()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+    torch.cuda.synchronize(dev)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(iters + 1)]
+    torch.cuda._sleep(20_000_000)
+    events[0].record()
+    for ev in events[1:]:
+        call()
+        ev.record()
+    events[-1].synchronize()
+    return 1e-3 * statistics.median(e0.elapsed_time(e1) for e0, e1
+                                    in zip(events, events[1:]))
 
 
 _GLOBAL: Optional[PlanCache] = None
@@ -471,9 +783,23 @@ def get_plan(m: int, n: int, k: int, dtype_in, dtype_out=None, *,
              epilogue: Optional[Epilogue] = None, policy: Policy = "mte",
              backend: str = "kernels", group: int = 1,
              fmt: Optional[str] = None,
-             measure: bool = False) -> ExecutionPlan:
-    """The one-call planning entry point used by ``kernels/ops.py``."""
+             measure: bool = False, device=None) -> ExecutionPlan:
+    """The one-call planning entry point used by ``kernels/ops.py``;
+    ``measure=True`` times the candidates on ``device`` (None: the
+    card)."""
     dtype_out = dtype_out if dtype_out is not None else dtype_in
     sig = GemmSignature.make(m, n, k, dtype_in, dtype_out, epilogue,
                              policy, backend, group, fmt)
-    return plan_cache().plan(sig, measure=measure)
+    return plan_cache().plan(sig, measure=measure, device=device)
+
+
+def save_plans(path: str, device=None) -> None:
+    """Save the process cache for ``device``'s substrate (None: the
+    card)."""
+    plan_cache().save(path, device)
+
+
+def load_plans(path: str, device=None) -> int:
+    """Warm-start the process cache from ``path`` (refused from another
+    substrate than ``device``'s)."""
+    return plan_cache().load(path, device)

@@ -151,22 +151,36 @@ def mte_gemm(a, b, c=None, bias=None, *,
         return ops.mte_gemm(a, b, c=c, bias=bias, epilogue=epilogue,
                             policy=policy, out_dtype=out_dtype,
                             format_policy=fmt)
-    if backend == "reference":
-        from repro_torch.kernels import ref
-        out = ref.mte_gemm(a, b, c=c, bias=bias, epilogue=epilogue,
-                           out_dtype=out_dtype, format_policy=fmt)
-    elif backend == "torch":
-        acc = formats_lib.torch_gemm(a, b, fmt)
-        out = epilogue.apply(acc.float() if fmt.quantized else acc,
-                             c_in=c, bias=bias).to(out_dtype)
-    else:
+    if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; the port's are "
                          f"{BACKENDS} (the JAX package's 'pallas' is "
                          f"'kernels', its 'xla' 'torch')")
+    from repro_torch.telemetry import gemm_account
+    # This seam records the dispatch itself: the plain products under it
+    # are not dispatches of their own.
+    with gemm_account.suppress():
+        if backend == "reference":
+            from repro_torch.kernels import ref
+            out = ref.mte_gemm(a, b, c=c, bias=bias, epilogue=epilogue,
+                               out_dtype=out_dtype, format_policy=fmt)
+        else:
+            acc = formats_lib.torch_gemm(a, b, fmt)
+            out = epilogue.apply(acc.float() if fmt.quantized else acc,
+                                 c_in=c, bias=bias).to(out_dtype)
     from repro_torch.graph import trace as graph_trace
     sink = graph_trace.active()
     if sink is not None:
         sink.record_gemm(a, b, out, c=c, bias=bias, epilogue=epilogue,
                          fmt=fmt.name, policy=policy, out_dtype=out_dtype,
                          backend=backend)
+    acct = gemm_account.active()
+    if acct is not None:
+        # The torch and reference backends run one plain product without
+        # the planner: no grant to join, the planner's analytic price as
+        # the modelled time.
+        from repro_torch.core import perfmodel
+        acct.record_gemm(m, n, k, fmt=fmt.name, policy=policy,
+                         backend=backend, plan_source="unplanned",
+                         modeled_s=perfmodel.analytic_seconds(
+                             m, n, k, fmt=fmt.name, policy=policy))
     return out

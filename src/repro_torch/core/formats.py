@@ -161,10 +161,28 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.double(), b.double()).round().to(torch.int32)
 
 
+def _record_plain(kind: str, x, w, fmt: FormatPolicy) -> None:
+    """One ``unplanned`` record of a plain product for the active per-GEMM
+    accountant (repro_torch.telemetry), unless a seam that records itself
+    suppressed it."""
+    from repro_torch.telemetry import gemm_account
+    acct = gemm_account.active_unsuppressed()
+    if acct is None:
+        return
+    if kind == "gemm":
+        acct.record_gemm(x.shape[0], w.shape[1], x.shape[1], fmt=fmt.name,
+                         policy="torch", backend="torch")
+    else:
+        acct.record_grouped(w.shape[-3], x.shape[-2], w.shape[-1],
+                            x.shape[-1], fmt=fmt.name, policy="torch",
+                            backend="torch")
+
+
 def torch_gemm(a: torch.Tensor, b: torch.Tensor, fmt: FormatPolicy):
     """2-D ``a @ b`` under the policy, in plain torch.  Returns the
     accumulator — f32 for the dequantized int8 route, the policy's
     accumulator dtype otherwise."""
+    _record_plain("gemm", a, b, fmt)
     if fmt.quantized:
         aq, bq, sa, sb = quantize_operands(a, b, fmt)
         return dequantize(int_matmul(aq, bq), sa, sb)
@@ -176,6 +194,7 @@ def torch_gemm(a: torch.Tensor, b: torch.Tensor, fmt: FormatPolicy):
 def torch_grouped(x: torch.Tensor, w: torch.Tensor, fmt: FormatPolicy):
     """Grouped ``(G,C,K) @ (G,K,N)`` under the policy, in plain torch
     (per-group per-channel scales for int8)."""
+    _record_plain("grouped", x, w, fmt)
     if fmt.quantized:
         xq, wq, sx, sw = quantize_operands(x, w, fmt)
         return dequantize(int_matmul(xq, wq), sx, sw)

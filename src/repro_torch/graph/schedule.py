@@ -45,7 +45,9 @@ Compiled programs are memoized per ``(graph signature, backend)``
 (:func:`compile_graph`) and per caller key (:func:`compile_cached`, which
 skips graph construction on a hit); a :func:`~repro_torch.core.autotune.
 reset_cache` invalidates both.  Execution interprets the node list; every
-kernel node launches through :mod:`repro_torch.kernels.ops`.  Programs
+kernel node launches through :mod:`repro_torch.kernels.ops` and is one
+record for an installed per-GEMM accountant (a grouped sibling set is
+one), under a ``graph.program`` span for an installed tracer.  Programs
 are differentiable: GEMM nodes through ``ops``'s autograd, and the
 member-wise grouped GEMM through :class:`_GroupMemberGemm`, the port of
 JAX's custom VJP of ``_group_member_gemm``.
@@ -320,35 +322,60 @@ class CompiledProgram:
         if len(args) != len(g.inputs):
             raise ValueError(f"program takes {len(g.inputs)} inputs, "
                              f"got {len(args)}")
-        env: Dict[int, object] = dict(zip(g.inputs, args))
-        for idx, node in enumerate(g.nodes):
-            if isinstance(node, GemmNode):
-                env[node.out] = self._run_gemm(node, env,
-                                               self.plans.get(idx))
-            elif isinstance(node, GroupNode):
-                for vid, val in zip(node.outputs,
-                                    self._run_group(node, env,
-                                                    self.plans.get(idx))):
-                    env[vid] = val
-            elif isinstance(node, CastNode):
-                env[node.out] = _apply_cast(env[node.x], node.fmt)
-            else:
-                env[node.out] = _run_epilogue(node, env)
-        outs = tuple(env[v] for v in g.outputs)
+        # The graph.program span: traces attribute host time to the
+        # program, not only to the engine phase around it.  It brackets
+        # the launches as the host issues them (eager calls and a CUDA
+        # graph's capture; a replay runs no Python).
+        from repro_torch.telemetry import tracing
+        tr = tracing.active()
+        span = (tr.span("graph.program", args={
+                    "signature": self.signature,
+                    "nodes": len(g.nodes),
+                    "grouped": sum(1 for n in g.nodes
+                                   if isinstance(n, GroupNode)),
+                    "dispatches": self.n_dispatches,
+                    "prefetch_pairs": len(self.prefetch)})
+                if tr is not None else tracing.NOOP.span("graph.program"))
+        with span:
+            env: Dict[int, object] = dict(zip(g.inputs, args))
+            for idx, node in enumerate(g.nodes):
+                if isinstance(node, GemmNode):
+                    env[node.out] = self._run_gemm(node, env,
+                                                   self.plans.get(idx))
+                elif isinstance(node, GroupNode):
+                    for vid, val in zip(node.outputs,
+                                        self._run_group(
+                                            node, env,
+                                            self.plans.get(idx))):
+                        env[vid] = val
+                elif isinstance(node, CastNode):
+                    env[node.out] = _apply_cast(env[node.x], node.fmt)
+                else:
+                    env[node.out] = _run_epilogue(node, env)
+            outs = tuple(env[v] for v in g.outputs)
         return outs[0] if len(outs) == 1 else outs
 
     # -- node execution -------------------------------------------------------
     def _run_gemm(self, node: GemmNode, env, plan):
         from repro_torch.kernels import ops
+        from repro_torch.telemetry import gemm_account
+        a, b = env[node.a], env[node.b]
         c = env[node.c] if node.c is not None else None
         bias = env[node.bias] if node.bias is not None else None
-        return ops.mte_gemm(
-            env[node.a], env[node.b], c=c, bias=bias,
-            epilogue=node.epilogue, policy=node.policy,
-            out_dtype=to_torch_dtype(node.out_dtype),
-            format_policy=formats_lib.FORMATS[node.fmt],
-            geometry=plan.geometry if plan is not None else None,
-            plan_rows=plan.signature.m if plan is not None else None)
+        # One record for the node, with the program's plan provenance
+        # (_account_node), instead of ops' own.
+        with gemm_account.suppress():
+            out = ops.mte_gemm(
+                a, b, c=c, bias=bias,
+                epilogue=node.epilogue, policy=node.policy,
+                out_dtype=to_torch_dtype(node.out_dtype),
+                format_policy=formats_lib.FORMATS[node.fmt],
+                geometry=plan.geometry if plan is not None else None,
+                plan_rows=plan.signature.m if plan is not None else None)
+        _account_node(plan.signature.m if plan is not None else a.shape[0],
+                      b.shape[1], a.shape[1], fmt=node.fmt,
+                      policy=node.policy, plan=plan)
+        return out
 
     def _run_group(self, node: GroupNode, env, plan):
         fmt = formats_lib.FORMATS[node.fmt]
@@ -359,14 +386,26 @@ class CompiledProgram:
         out_dtype = to_torch_dtype(node.out_dtype)
         biases = tuple(env[b] if b is not None else None
                        for b in node.biases) or (None,) * node.group
+        from repro_torch.telemetry import gemm_account
+        # The sibling set is ONE grouped dispatch: one record
+        # (_account_node), the launch under it suppressed.
         if node.stacked is None:
             ws = tuple(env[w] for w in node.weights)
-            members = _group_member_gemm(x, ws, biases, node.widths,
-                                         node.fmt, node.epilogues, geom,
-                                         rows)
+            with gemm_account.suppress():
+                members = _group_member_gemm(x, ws, biases, node.widths,
+                                             node.fmt, node.epilogues, geom,
+                                             rows)
+            _account_node(rows or x.shape[-2], max(node.widths),
+                          x.shape[-1], fmt=node.fmt, policy="mte",
+                          plan=plan, group=node.group)
             return [y.to(out_dtype) for y in members]
-        members = _grouped_launch(x, env[node.stacked], node.widths, fmt,
-                                  kernel_dt, geom, rows)
+        wstack = env[node.stacked]
+        with gemm_account.suppress():
+            members = _grouped_launch(x, wstack, node.widths, fmt,
+                                      kernel_dt, geom, rows)
+        _account_node(rows or x.shape[-2], wstack.shape[-1], x.shape[-1],
+                      fmt=node.fmt, policy="mte", plan=plan,
+                      group=node.group)
         outs = []
         for i, y in enumerate(members):
             epi = node.epilogues[i]
@@ -376,6 +415,28 @@ class CompiledProgram:
                 y = epi.apply(y, bias=biases[i])
             outs.append(y.to(out_dtype))
         return outs
+
+
+def _account_node(m, n, k, *, fmt, policy, plan, group=1):
+    """Report one compiled-program node execution to the active per-GEMM
+    accountant (repro_torch.telemetry), unless the program runs under
+    :func:`~repro_torch.telemetry.gemm_account.suppress` (the warm-up
+    before a CUDA-graph capture).  A pinned program plan carries its own
+    provenance and modelled time; without one the accountant joins
+    against the planner's ``note_plan`` stream (or ``unplanned``)."""
+    from repro_torch.telemetry import gemm_account
+    acct = gemm_account.active_unsuppressed()
+    if acct is None:
+        return
+    source = "program" if plan is not None else None
+    modeled = plan.predicted_s if plan is not None else None
+    if group > 1:
+        acct.record_grouped(group, m, n, k, fmt=fmt, policy=policy,
+                            backend="kernels", plan_source=source,
+                            modeled_s=modeled)
+    else:
+        acct.record_gemm(m, n, k, fmt=fmt, policy=policy, backend="kernels",
+                         plan_source=source, modeled_s=modeled)
 
 
 def _grouped_launch(x, wstack, widths, fmt, kernel_dt, geom, plan_rows):

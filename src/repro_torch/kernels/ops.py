@@ -18,7 +18,10 @@ path) the same forward runs with no graph recorded.
 
 While a :func:`repro_torch.graph.trace.trace_gemms` capture is active,
 every GEMM issued here is recorded in it (``record_gemm`` /
-``record_grouped``).
+``record_grouped``), and while a per-GEMM accountant is installed
+(:mod:`repro_torch.telemetry.gemm_account`) every dispatch is one record
+there, joined with its plan's provenance (unless a seam above that
+records the launch itself suppressed it).
 
 ``plan_rows`` plans a GEMM as if it had that many rows, and the split-K
 engines take their K slices for that many.  The rows then run in chunks
@@ -57,6 +60,14 @@ def _trace_sink():
     return trace.active()
 
 
+def _account():
+    """The active repro_torch.telemetry GEMM accountant (None: no
+    accounting, or a seam above that records this launch itself
+    suppressed it)."""
+    from repro_torch.telemetry import gemm_account
+    return gemm_account.active_unsuppressed()
+
+
 def _plan(m, n, k, fmt, out_dtype, policy, epilogue, geometry,
           group: int = 1):
     sig = autotune.GemmSignature.for_format(m, n, k, fmt, out_dtype,
@@ -64,11 +75,13 @@ def _plan(m, n, k, fmt, out_dtype, policy, epilogue, geometry,
     if geometry is None:
         return autotune.plan_cache().plan(sig)
     check_kernel_tile(geometry, group)
-    return autotune.ExecutionPlan(
+    plan = autotune.ExecutionPlan(
         signature=sig, geometry=geometry,
         route=autotune._route_for(sig, geometry),
         predicted_s=autotune.score_geometry(sig, geometry),
         source="program")
+    autotune._note_plan(sig, "program", plan.predicted_s)
+    return plan
 
 
 def _chunk_rows(plan, x, rows: int, n: int, k: int, widths=None) -> int:
@@ -138,6 +151,10 @@ def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
         sink.record_gemm(a, b, out, c=c, bias=bias, epilogue=epilogue,
                          fmt=fmt.name, policy=policy, out_dtype=out_dtype,
                          backend="kernels")
+    acct = _account()
+    if acct is not None:
+        acct.record_gemm(plan_rows or a.shape[0], b.shape[1], a.shape[1],
+                         fmt=fmt.name, policy=policy, backend="kernels")
     return out
 
 
@@ -195,6 +212,11 @@ def grouped_gemm(x, w, *, epilogue: Epilogue = Epilogue(),
     if sink is not None:
         sink.record_grouped(x, w, out, epilogue=epilogue, fmt=fmt.name,
                             out_dtype=out_dtype, backend="kernels")
+    acct = _account()
+    if acct is not None:
+        acct.record_grouped(w.shape[-3], plan_rows or x.shape[-2],
+                            w.shape[-1], x.shape[-1], fmt=fmt.name,
+                            policy="mte", backend="kernels")
     return out
 
 

@@ -25,8 +25,10 @@ def mte_gemm(a, b, c=None, bias=None, *, epilogue: Epilogue = Epilogue(),
         b = b.t()
     if format_policy is not None:
         from repro_torch.core import formats
+        from repro_torch.telemetry import gemm_account
         fmt = formats.resolve_format(format_policy, a.dtype)
-        acc = formats.torch_gemm(a, b, fmt)
+        with gemm_account.suppress():   # oracle math, not a dispatch
+            acc = formats.torch_gemm(a, b, fmt)
         out = epilogue.apply(acc.float() if fmt.quantized else acc,
                              c_in=c, bias=bias)
         return out.to(out_dtype)
@@ -45,8 +47,10 @@ def grouped_gemm(x, w, *, epilogue: Epilogue = Epilogue(),
     replicates the policy's contract as in :func:`mte_gemm`."""
     if format_policy is not None:
         from repro_torch.core import formats
+        from repro_torch.telemetry import gemm_account
         fmt = formats.resolve_format(format_policy, x.dtype)
-        acc = formats.torch_grouped(x, w, fmt)
+        with gemm_account.suppress():   # oracle math, not a dispatch
+            acc = formats.torch_grouped(x, w, fmt)
         out = epilogue.apply(acc.float() if fmt.quantized else acc)
         return out.to(out_dtype)
     if not x.dtype.is_floating_point:

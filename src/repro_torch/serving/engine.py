@@ -60,10 +60,28 @@ window overwrites.  Proposals and acceptance draw from a host
 ``torch.Generator`` seeded from ``seed`` (JAX draws from its key stream,
 so sampled rows differ in bits, not in distribution).
 
+Telemetry (:mod:`repro_torch.telemetry`, the JAX engine's hooks at
+their counterparts): spans ``admit``, ``evict``, ``prefill_chunk``,
+``decode`` (open from the launch to the delivery, so an async trace
+shows it across the next step's host work), ``sample``, ``draft`` and
+``verify``; the scheduler's request-lifecycle instants and
+``request.first_token``; the histograms ``serving.queue_wait_s`` (at
+admission) and ``serving.ttft_s``, ``inter_token_s`` and ``e2e_s`` (at
+delivery, never at the launch), each request's latency summary in its
+``Response.metrics``; per-step gauges (``kv.*``, queue depth, active
+slots, completions, ``serving.steps_in_flight`` and
+``results_stale_steps``) and an optional ``slo_monitor`` observed after
+every step.  All of it reads the host clock only — no sync, no device
+state, so greedy streams are the same with it on and off.
+``plan_cache_path`` warm-starts the plan cache at construction
+(:func:`repro_torch.core.autotune.load_plans`; a file of another
+substrate is skipped with a message) and :meth:`save_plan_cache` saves
+it.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: ``fault``, deadlines, load shedding, ``watchdog_s``,
-``prefix_index_path``, ``plan_cache_path`` (A6/A4), ``slo_monitor``
-(A9), and speculation on a config with a MoE layer (A13).
+ignored: ``fault``, deadlines, load shedding, ``watchdog_s`` and
+``prefix_index_path`` (A6), and speculation on a config with a MoE layer
+(A13).
 
 The grouped decode q/k/v (``grouped_qkv``) defaults as in JAX: on with the
 kernel backend.  Then every attention layer gains a prestacked
@@ -83,6 +101,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import json
+import os
+import time
 import weakref
 from typing import Deque, Dict, List, Optional
 
@@ -102,6 +123,9 @@ from repro_torch.serving.resilience import (CapacityExceeded,
                                             PoisonedOutput, RequestError,
                                             Response)
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+from repro_torch.telemetry import gemm_account, tracing
+from repro_torch.telemetry.registry import publish
+from repro_torch.telemetry.registry import registry as metrics_registry
 
 __all__ = ["Request", "ServingEngine", "DecodeStep", "SpecStep",
            "HostStaging", "greedy_accepted", "serving_params"]
@@ -293,7 +317,8 @@ class DecodeStep:
     live KV, ring or RG-LRU row changes; the generator's state is put
     back after it, so a sampled replay draws what the eager step would.
     A replay adds the launches its capture recorded to the counters
-    (:func:`repro_torch.kernels.build.capturing`)."""
+    (:func:`repro_torch.kernels.build.capturing`); a per-GEMM accountant
+    records the capture's dispatches once (:func:`_capture`)."""
 
     def __init__(self, engine: "ServingEngine", *, graph: bool):
         dev = engine.device
@@ -378,7 +403,9 @@ def _capture(device, staged, warm_up, run, generator=None):
     programs, kernel attributes, cuBLAS's workspace).  The ``staged``
     input buffers, which the warm-up overwrites, are put back after
     both, and so is the state of ``generator``, which the graph
-    registers: a sampled replay draws what the eager call would.
+    registers: a sampled replay draws what the eager call would.  The
+    warm-up runs under :func:`repro_torch.telemetry.gemm_account.suppress`,
+    so an installed accountant records the capture's dispatches once.
     → (graph, the outputs of ``run``, the launches the capture
     recorded).  Raises if the capture fails."""
     saved = [buf.clone() for buf in staged]
@@ -387,7 +414,7 @@ def _capture(device, staged, warm_up, run, generator=None):
         _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
     side = _CAPTURE_STREAMS[device]
     side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(side), gemm_account.suppress():
         warm_up()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
@@ -627,8 +654,6 @@ class ServingEngine:
                                            is not None),
             "watchdog_s (ROADMAP A6)": watchdog_s is not None,
             "prefix_index_path (ROADMAP A6)": prefix_index_path is not None,
-            "plan_cache_path (ROADMAP A4)": plan_cache_path is not None,
-            "slo_monitor (ROADMAP A9)": slo_monitor is not None,
         }
         asked = [name for name, on in queued.items() if on]
         if asked:
@@ -641,6 +666,18 @@ class ServingEngine:
                 f"only, as the JAX package's does; run it through "
                 f"models.model.forward / prefill / decode")
         self.device = resolve_device(device)
+        # Warm-start the plan cache before anything plans.  A stale or
+        # foreign file (another substrate, the JAX package's) must not
+        # stop the engine: it starts cold.
+        self.plan_cache_path = plan_cache_path
+        if plan_cache_path and os.path.exists(plan_cache_path):
+            from repro_torch.core import autotune
+            try:
+                autotune.load_plans(plan_cache_path, self.device)
+            except (ValueError, KeyError, TypeError, OSError,
+                    json.JSONDecodeError) as e:
+                print(f"plan-cache warm start skipped "
+                      f"({plan_cache_path}: {e})")
         if format_policy is not None:
             cfg = dataclasses.replace(cfg, format_policy=format_policy)
         if kv_format is None and cfg.cache_quant:
@@ -714,6 +751,7 @@ class ServingEngine:
         self._inflight: Deque[dict] = collections.deque()
         self._flushing = False
         self.steps_in_flight_max = 0   # deepest pipeline ever
+        self._inflight_peak = 0        # deepest pipeline this step
         self._stage = HostStaging(self.device)
         self._last_tok = torch.zeros((slots, 1), dtype=torch.int32,
                                      device=self.device)
@@ -725,8 +763,19 @@ class ServingEngine:
                                grouped_qkv, bool(cuda_graph))
         self.debug_audit = bool(debug_audit)
         self.quarantine = bool(quarantine)
+        # An optional repro_torch.telemetry.slo.SloMonitor, observed after
+        # every step (host-side registry reads only).
+        self.slo_monitor = slo_monitor
         self.step_idx = 0
         self._responses: Dict[int, Response] = {}
+        # Per-request latency bookkeeping: host-clock reads when a token
+        # is delivered (already on the host), feeding the serving.*_s
+        # histograms and each Response's metrics.
+        self._ts_submit: Dict[int, float] = {}
+        self._ts_first: Dict[int, float] = {}
+        self._ts_last: Dict[int, float] = {}
+        self._queue_wait: Dict[int, float] = {}
+        self._itl: Dict[int, List[float]] = {}
 
     @property
     def queue(self) -> List[Request]:
@@ -755,14 +804,24 @@ class ServingEngine:
             resolve_format(req.format_policy)
         if req.deadline_ms is not None:
             raise NotImplementedError("per-request deadlines are ROADMAP A6")
+        self._ts_submit[req.rid] = time.monotonic()
         self.sched.submit(req)
+
+    def save_plan_cache(self, path: Optional[str] = None):
+        """Save the plan cache for the next process's warm start (to
+        ``path``, else ``plan_cache_path``), for this engine's device."""
+        from repro_torch.core import autotune
+        target = path or self.plan_cache_path
+        if target:
+            autotune.save_plans(target, self.device)
 
     def run(self, max_steps: int = 1000) -> Dict[int, Response]:
         """Run until every submitted request finishes (or the step
         budget).  Returns ``rid -> Response``; requests still live at the
         budget come back ``"incomplete"``."""
         for _ in range(max_steps):
-            self._admit()
+            with tracing.current().span("admit"):
+                self._admit()
             if not any(r is not None for r in self.slot_req):
                 if not self.sched.waiting:
                     break
@@ -809,6 +868,7 @@ class ServingEngine:
         ps = graph_schedule.program_stats()
         m.update(graph_programs_compiled=ps["compiles"],
                  graph_program_hits=ps["hits"])
+        publish("serving", m)
         return m
 
     # -- scheduler ------------------------------------------------------------
@@ -842,6 +902,14 @@ class ServingEngine:
                 return
             slot, entry, cached_tok = got
             req = entry.req
+            sub = self._ts_submit.get(req.rid)
+            if sub is not None and req.rid not in self._queue_wait:
+                # First admission only: a preempted request re-admits,
+                # but its queue wait is the submit -> admit gap.
+                wait = time.monotonic() - sub
+                self._queue_wait[req.rid] = wait
+                metrics_registry().histogram(
+                    "serving.queue_wait_s").observe(wait)
             self.slot_req[slot] = req
             self.slot_pos[slot] = 0
             window = (entry.window if entry.window is not None
@@ -859,6 +927,34 @@ class ServingEngine:
                 self._draft_pos[slot] = 0
 
     def step(self):
+        """One engine step (:meth:`_step_impl`), then the per-step
+        observability hook (:meth:`_observe_step`)."""
+        self._step_impl()
+        self._observe_step()
+
+    def _observe_step(self):
+        """Publish the pool's and the scheduler's state as gauges and
+        evaluate the SLO monitor: registry writes only, never the device
+        or a generator, so outputs cannot move."""
+        publish("kv", self.sched.pool.describe())
+        reg = metrics_registry()
+        reg.gauge("serving.queue_depth").set(len(self.sched.waiting))
+        reg.gauge("serving.active_slots").set(
+            sum(1 for r in self.slot_req if r is not None))
+        reg.gauge("serving.completed_requests").set(
+            self.sched.completed_requests)
+        reg.gauge("serving.cancelled_requests").set(
+            self.sched.cancelled_requests)
+        reg.gauge("serving.finished_requests").set(
+            self.sched.completed_requests + self.sched.cancelled_requests)
+        # With async steps the counters above describe the last delivered
+        # step; up to pipeline_depth - 1 steps are still in flight.
+        reg.gauge("serving.steps_in_flight").set(self._inflight_peak)
+        reg.gauge("serving.results_stale_steps").set(self.steps_in_flight)
+        if self.slo_monitor is not None:
+            self.slo_monitor.observe(step=self.step_idx)
+
+    def _step_impl(self):
         """One engine step, in the JAX engine's order
         (``src/repro/serving/engine.py:721-827``): up to
         ``prefill_chunk_quota`` prefill chunks, the retire of the previous
@@ -870,10 +966,12 @@ class ServingEngine:
         stays in flight at depth 2, or one speculative step of window k
         (:meth:`_spec_depth`), which runs synchronously."""
         self.step_idx += 1
+        self._inflight_peak = self.steps_in_flight
         self._run_prefill_chunks()
         self._drain_to_depth()
         if self.sched.waiting and any(r is None for r in self.slot_req):
-            self._admit()
+            with tracing.current().span("admit"):
+                self._admit()
             self._run_prefill_chunks()
         decoding = self._decoding()
         # Horizon boundary: a slot whose launched position reached
@@ -896,13 +994,14 @@ class ServingEngine:
             self._flush_pipeline()
             decoding = self._decoding()
             k_step = self._spec_depth(decoding)
-        for slot in decoding:
-            if self.slot_req[slot] is None or slot in self._prefilling:
-                continue
-            evicted = self.sched.ensure_decode(
-                slot, int(self.slot_pos[slot]) + k_step)
-            for vslot, _ventry in evicted:
-                self._clear_slot(vslot)
+        with tracing.current().span("evict"):
+            for slot in decoding:
+                if self.slot_req[slot] is None or slot in self._prefilling:
+                    continue
+                evicted = self.sched.ensure_decode(
+                    slot, int(self.slot_pos[slot]) + k_step)
+                for vslot, _ventry in evicted:
+                    self._clear_slot(vslot)
         decoding = self._decoding()
         if decoding:
             for slot in decoding:
@@ -948,10 +1047,15 @@ class ServingEngine:
             temps[slot] = max(0.0, float(self.slot_req[slot].temperature))
             active[slot] = True
         step = self.decode_step
+        # The decode span stays open until the delivery: in an async
+        # trace it covers the next step's admit / prefill / sample spans.
+        span = tracing.current().span(
+            "decode", args={"step": self.step_idx, "rows": len(decoding)})
+        span.__enter__()
         step.stage(self.slot_pos, table, temps, active)
         tok, finite, _ = step(bool(temps.any()))
         self._inflight.append({
-            "kind": "decode", "step": self.step_idx,
+            "kind": "decode", "step": self.step_idx, "span": span,
             "slots": list(decoding),
             "reqs": {s: self.slot_req[s] for s in decoding},
             "pos_after": {s: int(self.slot_pos[s]) + 1 for s in decoding},
@@ -959,6 +1063,7 @@ class ServingEngine:
         })
         for slot in decoding:
             self.slot_pos[slot] += 1
+        self._inflight_peak = max(self._inflight_peak, self.steps_in_flight)
         self.steps_in_flight_max = max(self.steps_in_flight_max,
                                        self.steps_in_flight)
 
@@ -993,31 +1098,38 @@ class ServingEngine:
         """Deliver the oldest in-flight entry; its wait on the copy of
         the sampled tokens is the step's one host sync."""
         entry = self._inflight.popleft()
-        if entry["kind"] == "seed":
-            self._deliver_seed(entry)
-        else:
-            self._deliver_decode(entry)
+        try:
+            if entry["kind"] == "seed":
+                self._deliver_seed(entry)
+            else:
+                self._deliver_decode(entry)
+        finally:
+            span = entry.get("span")
+            if span is not None:
+                span.__exit__(None, None, None)
 
     def _deliver_decode(self, entry):
         tok, finite = self._stage.wait(entry["fetch"])
         n_live = 0
-        for slot in entry["slots"]:
-            req = entry["reqs"][slot]
-            if req.done or self.slot_req[slot] is not req:
-                continue
-            n_live += 1
-            if self.quarantine and not finite[slot]:
-                self._cancel_active(slot, PoisonedOutput(
-                    f"non-finite logits for rid={req.rid} at step "
-                    f"{entry['step']}", rid=req.rid))
-                continue
-            req.output.append(int(tok[slot]))
-            done = self._finished(slot)
-            if not done and entry["pos_after"][slot] >= self.cache_len:
-                self._record_done(req)
-                self.slot_req[slot] = None
-                self.slot_pos[slot] = 0
-                self.sched.release(slot, finished=True)
+        with tracing.current().span("sample"):
+            for slot in entry["slots"]:
+                req = entry["reqs"][slot]
+                if req.done or self.slot_req[slot] is not req:
+                    continue
+                n_live += 1
+                if self.quarantine and not finite[slot]:
+                    self._cancel_active(slot, PoisonedOutput(
+                        f"non-finite logits for rid={req.rid} at step "
+                        f"{entry['step']}", rid=req.rid))
+                    continue
+                req.output.append(int(tok[slot]))
+                self._note_emitted(req, 1)
+                done = self._finished(slot)
+                if not done and entry["pos_after"][slot] >= self.cache_len:
+                    self._record_done(req)
+                    self.slot_req[slot] = None
+                    self.slot_pos[slot] = 0
+                    self.sched.release(slot, finished=True)
         if n_live:
             self.sched.note_step(n_live, lag=self.step_idx - entry["step"])
 
@@ -1034,6 +1146,7 @@ class ServingEngine:
                 f"{entry['step']}", rid=req.rid))
             return
         req.output.append(tok)
+        self._note_emitted(req, 1)
         self._finished(slot)
 
     # -- chunked prefill ------------------------------------------------------
@@ -1048,7 +1161,8 @@ class ServingEngine:
                 return
             slot = min(self._prefilling,
                        key=lambda s: self.sched.active[s].arrival)
-            self._advance_prefill(slot)
+            with tracing.current().span("prefill_chunk"):
+                self._advance_prefill(slot)
 
     def _advance_prefill(self, slot: int):
         """Run ONE prompt chunk for ``slot`` into its pool pages; the final
@@ -1083,6 +1197,7 @@ class ServingEngine:
             "kind": "seed", "step": self.step_idx, "slots": [slot],
             "reqs": {slot: req}, "fetch": self._stage.fetch(tok, finite),
         })
+        self._inflight_peak = max(self._inflight_peak, self.steps_in_flight)
         self.steps_in_flight_max = max(self.steps_in_flight_max,
                                        self.steps_in_flight)
 
@@ -1366,8 +1481,9 @@ class ServingEngine:
         fetch once: the target's argmax tokens, its finite flags and each
         row's accepted drafts."""
         sampled = self._spec_sampled(decoding)
-        proposals, dlogits, draft_snap = self._draft_propose(decoding, k,
-                                                             sampled)
+        with tracing.current().span("draft"):
+            proposals, dlogits, draft_snap = self._draft_propose(
+                decoding, k, sampled)
         target_snap = (self._snapshot_rows(self.cache, decoding)
                        if self._stateful_rows else None)
         tokens = np.zeros((self.slots, k if sampled else 1), np.int64)
@@ -1378,14 +1494,15 @@ class ServingEngine:
                 tokens[s, 1:] = proposals[s]
             pos[s] = self.slot_pos[s]
         spec = self.spec_step
-        spec.stage("target", pos, *self._rows(decoding, draft=False))
-        spec.stage_tokens("verify", tokens)
-        out = spec("verify", k)
-        if sampled:
-            logits, finite = self._fetch(out["logits"], out["finite"])
-        else:
-            argmax, finite, accepted = self._fetch(
-                out["argmax"], out["finite"], out["accepted"])
+        with tracing.current().span("verify"):
+            spec.stage("target", pos, *self._rows(decoding, draft=False))
+            spec.stage_tokens("verify", tokens)
+            out = spec("verify", k)
+            if sampled:
+                logits, finite = self._fetch(out["logits"], out["finite"])
+            else:
+                argmax, finite, accepted = self._fetch(
+                    out["argmax"], out["finite"], out["accepted"])
         self.spec_k_hist[k] = self.spec_k_hist.get(k, 0) + 1
         if self.quarantine:
             healthy = []
@@ -1401,6 +1518,8 @@ class ServingEngine:
         drafted = accepted_total = emitted = 0
         partial: Dict[int, int] = {}       # slot -> accepted prefix + 1
         carried: Dict[int, int] = {}       # slot -> last emitted token
+        sample_span = tracing.current().span("sample")
+        sample_span.__enter__()
         for s in decoding:
             req = self.slot_req[s]
             if sampled:
@@ -1411,14 +1530,18 @@ class ServingEngine:
                 emit = argmax[s, :j + 1].tolist()
             drafted += k - 1
             accepted_total += j
+            n_emit = 0
             for t in emit:
                 req.output.append(int(t))
                 self.slot_pos[s] += 1
                 emitted += 1
+                n_emit += 1
                 if (len(req.output) >= req.max_tokens
                         or (req.eos_id is not None
                             and int(t) == req.eos_id)):
                     break
+            # Before _finished, which pops the request's timing state.
+            self._note_emitted(req, n_emit)
             done = self._finished(s)
             if not done and int(self.slot_pos[s]) >= self.cache_len:
                 self._record_done(req)
@@ -1436,6 +1559,7 @@ class ServingEngine:
                 self._draft_pos[s] += k - 2
             else:
                 partial[s] = j + 1
+        sample_span.__exit__(None, None, None)
         if carried:
             # A later k = 1 step (a graph replay) chains from the carried
             # token buffer: it must hold what speculation emitted.
@@ -1491,6 +1615,64 @@ class ServingEngine:
             spec.stage_tokens("replay", tokens)
             spec("replay", length)
 
+    # -- telemetry: per-request latency ----------------------------------------
+    def _note_emitted(self, req: Request, n_new: int):
+        """``n_new`` tokens of ``req`` just reached the host: the first
+        closes its time to first token (and marks ``request.first_token``
+        on the trace), later ones feed the inter-token histogram (a
+        speculative step's n tokens as n samples of the per-token share of
+        its gap)."""
+        if n_new <= 0:
+            return
+        rid = req.rid
+        now = time.monotonic()
+        reg = metrics_registry()
+        if rid not in self._ts_first:
+            self._ts_first[rid] = now
+            sub = self._ts_submit.get(rid)
+            if sub is not None:
+                reg.histogram("serving.ttft_s").observe(now - sub)
+            tr = tracing.active()
+            if tr is not None:
+                tr.instant("request.first_token", args={"rid": rid})
+            n_new -= 1
+        last = self._ts_last.get(rid)
+        if last is not None and n_new > 0:
+            gap = (now - last) / n_new
+            hist = reg.histogram("serving.inter_token_s")
+            samples = self._itl.setdefault(rid, [])
+            for _ in range(n_new):
+                hist.observe(gap)
+                samples.append(gap)
+        self._ts_last[rid] = now
+
+    def _request_metrics(self, rid: int, n_tokens: int) -> Dict[str, float]:
+        """The latency summary of a request that ended (finished or
+        cancelled), for its ``Response.metrics``; pops its timing state
+        and observes ``serving.e2e_s``."""
+        m: Dict[str, float] = {"tokens": n_tokens}
+        now = time.monotonic()
+        sub = self._ts_submit.pop(rid, None)
+        first = self._ts_first.pop(rid, None)
+        self._ts_last.pop(rid, None)
+        wait = self._queue_wait.pop(rid, None)
+        itl = self._itl.pop(rid, None)
+        if sub is not None:
+            m["e2e_s"] = now - sub
+            metrics_registry().histogram("serving.e2e_s").observe(
+                m["e2e_s"])
+        if wait is not None:
+            m["queue_wait_s"] = wait
+        if sub is not None and first is not None:
+            m["ttft_s"] = first - sub
+        if itl:
+            itl = sorted(itl)
+            m["itl_mean_s"] = sum(itl) / len(itl)
+            m["itl_p50_s"] = itl[len(itl) // 2]
+            m["itl_p99_s"] = itl[min(len(itl) - 1,
+                                     int(round(0.99 * (len(itl) - 1))))]
+        return m
+
     # -- request-level containment --------------------------------------------
     def _record_done(self, req: Request, status: str = "ok",
                      error: Optional[RequestError] = None):
@@ -1498,7 +1680,7 @@ class ServingEngine:
         self.completed.append(req)
         self._responses[req.rid] = Response(
             req.output, rid=req.rid, status=status, error=error,
-            metrics={"tokens": len(req.output)})
+            metrics=self._request_metrics(req.rid, len(req.output)))
 
     def _cancel_active(self, slot: int, err: RequestError):
         req = self.slot_req[slot]
@@ -1509,7 +1691,7 @@ class ServingEngine:
         req.done = True
         self._responses[req.rid] = Response(
             req.output, rid=req.rid, status=err.code, error=err,
-            metrics={"tokens": len(req.output)})
+            metrics=self._request_metrics(req.rid, len(req.output)))
 
     def _cancel_waiting(self, entry, err: RequestError):
         self.sched.cancel_waiting(entry)
@@ -1517,7 +1699,7 @@ class ServingEngine:
         req.done = True
         self._responses[req.rid] = Response(
             req.output, rid=req.rid, status=err.code, error=err,
-            metrics={"tokens": len(req.output)})
+            metrics=self._request_metrics(req.rid, len(req.output)))
 
     # -- helpers --------------------------------------------------------------
     def _clear_slot(self, slot: int):

@@ -129,11 +129,16 @@ class ContinuousBatchingScheduler:
         #                               (accepted + resample/bonus)
 
     def _note_event(self, kind: str, rid: int) -> None:
-        """Append to the in-order lifecycle log — the single choke point
-        every request lifecycle transition passes through (the trace
-        instants JAX emits here come with the telemetry port, ROADMAP
-        A9)."""
+        """Append to the in-order lifecycle log AND mark the installed
+        trace (repro_torch.telemetry) — the single choke point every
+        request lifecycle transition passes through, so the exported
+        timeline carries submit → admit → preempt → finish/cancel for
+        every request."""
         self.events.append((kind, rid))
+        from repro_torch.telemetry import tracing
+        tr = tracing.active()
+        if tr is not None:
+            tr.instant(f"request.{kind}", args={"rid": rid})
 
     # -- queue -----------------------------------------------------------------
     def submit(self, req) -> ScheduledRequest:

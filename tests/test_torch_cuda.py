@@ -2546,3 +2546,147 @@ def test_conv2d_direct_with_three_input_channels_runs_the_tile_loop(card,
     engine's alignment, so the one launch is B3's tile loop."""
     _conv_card(card, ("ic3", 2, 32, 32, 3, 64, 3, 3, 1, 1), fmt,
                "grouped_gemm")
+
+
+# -- telemetry and the plan cache's measurement on the card -------------------
+
+tacct = LazyModule("repro_torch.telemetry.gemm_account")
+ttracing = LazyModule("repro_torch.telemetry.tracing")
+
+
+@pytest.mark.parametrize("m,group,route,counter", [
+    (512, 1, "mte", "mte_gemm_wgmma"),
+    (4, 1, "splitk", "splitk_gemm_cluster"),
+    (4, 3, "grouped", "grouped_gemm_splitk")], ids=["B1", "B2", "B3"])
+def test_measure_plan_times_the_kernel_with_cuda_events(card, m, group,
+                                                        route, counter):
+    """``autotune.measure_plan`` on the card: the granted plan's kernel
+    launched once per call (a warm-up and ``iters``), its device time
+    from CUDA events finite and positive; the library route ``"torch"``
+    of the same signature launches no kernel."""
+    fmt = tformats.FORMATS["bf16"]
+    sig = tautotune_conv.GemmSignature.for_format(
+        m, 2048, 2048, fmt, "bfloat16", group=group)
+    plan = tautotune_conv.PlanCache().plan(sig)
+    assert plan.route == route
+    before = build.launch_counts()
+    t = tautotune_conv.measure_plan(plan, iters=3, device=card)
+    after = build.launch_counts()
+    assert after[counter] - before[counter] == 4
+    assert 0 < t < 1e-2
+    if group == 1:
+        lib = dataclasses.replace(plan, route="torch")
+        before = build.launch_counts()
+        assert 0 < tautotune_conv.measure_plan(lib, device=card) < 1e-2
+        assert build.launch_counts() == before
+
+
+def test_torch_route_on_the_card_is_the_library_product(card):
+    """Route ``"torch"`` on the card: cuBLAS on the bf16 operands into an
+    f32 accumulator (no widened copy) agrees with the plain f32 product
+    and fuses the epilogue after it; int8 runs ``torch._int_mm``, exact,
+    and refuses the shapes it cannot take."""
+    rng = np.random.default_rng(0)
+    fmt = tformats.FORMATS["bf16"]
+    epi = tepilogue.Epilogue(activation="gelu")
+    sig = tautotune_conv.GemmSignature.for_format(64, 512, 1024, fmt,
+                                                  "float32", epi)
+    plan = dataclasses.replace(tautotune_conv.PlanCache().plan(sig),
+                               route="torch")
+    a = torch.as_tensor(rng.standard_normal((64, 1024)), dtype=torch.bfloat16)
+    b = torch.as_tensor(rng.standard_normal((1024, 512)), dtype=torch.bfloat16)
+    got = tautotune_conv.execute_plan(plan, a.to(card), b.to(card)).cpu()
+    want = epi.apply(tformats.torch_gemm(a, b, fmt), c_in=None, bias=None)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    ai = torch.as_tensor(rng.integers(-64, 64, (32, 256)), dtype=torch.int8)
+    bi = torch.as_tensor(rng.integers(-64, 64, (256, 128)), dtype=torch.int8)
+    for m, ok in ((32, True), (16, False)):
+        sig = tautotune_conv.GemmSignature.make(m, 128, 256, "int8", "int32")
+        plan = dataclasses.replace(tautotune_conv.PlanCache().plan(sig),
+                                   route="torch")
+        args = (ai[:m].to(card), bi.to(card))
+        if ok:
+            got = tautotune_conv.execute_plan(plan, *args).cpu()
+            assert torch.equal(got, tformats.int_matmul(ai, bi))
+        else:
+            with pytest.raises(ValueError, match="_int_mm"):
+                tautotune_conv.execute_plan(plan, *args)
+
+
+def test_plan_file_substrate_on_the_card(card, tmp_path):
+    """The card's substrate names it and its compute capability; a plan
+    file made on the CPU is refused on the card, and a measured grant is
+    saved and reloaded with its measured time."""
+    name = torch.cuda.get_device_name(0)
+    assert tautotune_conv._substrate() == f"{name} sm_90"
+    assert tautotune_conv._substrate(card) == f"{name} sm_90"
+    cache = tautotune_conv.PlanCache()
+    sig = tautotune_conv.GemmSignature.for_format(
+        4, 16384, 2048, tformats.FORMATS["bf16"], "bfloat16")
+    plan = cache.recalibrate(sig, device=card)
+    assert plan.source == "measured" and plan.measured_s > 0
+    assert cache.stats.measured >= 2
+    with pytest.raises(ValueError, match="substrate"):
+        tautotune_conv.PlanCache().load_json(cache.to_json(device="cpu"),
+                                             device=card)
+    path = str(tmp_path / "plans.json")
+    cache.save(path, device=card)
+    fresh = tautotune_conv.PlanCache()
+    assert fresh.load(path, device=card) == 1
+    assert fresh._plans[sig].measured_s == plan.measured_s
+
+
+def test_stack_on_engine_replays_add_no_records(card):
+    """A reduced engine on the card (async, its decode replayed) with the
+    accountant and a tracer installed: the same greedy tokens as with
+    them off, every decode capture recorded once (the warm-up before it
+    suppressed), every replay adding no record, the grouped decode q/k/v
+    one record per layer."""
+    cfg = dataclasses.replace(tconfigs.get_config("gemma_2b").reduced(),
+                              format_policy="bf16")
+    params = tmodel.init_params(cfg, seed=0, device=card)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (20, 9, 30)]
+
+    def serve(acct=None):
+        tautotune_conv.reset_cache()
+        eng = tengine.ServingEngine(params, cfg, slots=2, cache_len=64,
+                                    prefill_len=32, page_size=8,
+                                    prefill_chunk=16, device=card)
+        assert eng.decode_step.graph
+        deltas = []
+        step_cls = type(eng.decode_step)
+
+        class Counting(step_cls):
+            def __call__(self, sampled):
+                replay = sampled in self.graphs
+                n0 = len(acct.records) if acct else 0
+                out = super().__call__(sampled)
+                deltas.append((replay, (len(acct.records) if acct else 0)
+                               - n0))
+                return out
+
+        eng.decode_step.__class__ = Counting
+        for rid, p in enumerate(prompts):
+            eng.submit(tengine.Request(rid=rid, prompt=p, max_tokens=12))
+        return {r: list(v) for r, v in eng.run().items()}, deltas
+
+    base, _ = serve()
+    ttracing.install(ttracing.Tracer())
+    acct = tacct.install(tacct.GemmAccountant())
+    try:
+        on, deltas = serve(acct)
+    finally:
+        ttracing.uninstall()
+        tacct.uninstall()
+    assert on == base
+    captures = [d for replay, d in deltas if not replay]
+    replays = [d for replay, d in deltas if replay]
+    assert len(captures) == 1 and replays
+    assert captures[0] > 0 and not any(replays)
+    decode = [r for r in acct.records if r.m == 2]
+    n_attn = sum(1 for mixer, _ in cfg.layer_kinds if mixer == "attn")
+    assert sum(r.kind == "grouped" and r.group == 3
+               for r in decode) == n_attn

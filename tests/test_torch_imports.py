@@ -42,7 +42,8 @@ def test_port_imports_without_a_card():
             "repro_torch.kernels.autodiff, repro_torch.training.trainer, "
             "repro_torch.optim.optimizer, repro_torch.data.pipeline, "
             "repro_torch.checkpoint.manager, "
-            "repro_torch.distributed.fault, repro_torch.launch.train; "
+            "repro_torch.distributed.fault, repro_torch.launch.train, "
+            "repro_torch.telemetry, repro_torch.launch.serve; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules")
     env = {"PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
            "PATH": "/usr/bin:/bin"}

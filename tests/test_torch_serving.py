@@ -171,7 +171,7 @@ def test_prefix_cache_fp32_bit_identical_on_and_off():
     assert eng_on.sched.prefill_tokens < eng_off.sched.prefill_tokens
 
 
-@pytest.mark.parametrize("kw", [dict(plan_cache_path="plans.json"),
+@pytest.mark.parametrize("kw", [dict(prefix_index_path="index.json"),
                                 dict(deadline_ms=5.0),
                                 dict(watchdog_s=1.0),
                                 dict(shed_queue_depth=1)])
