@@ -157,7 +157,13 @@ Phases (any failure raises and the script exits non-zero):
    decode), greedy streams equal on the card (async + graph) and the CPU
    (sync, eager), with and without ``spec_k=4``, and no kernel counter
    moved: the SSD block is plain PyTorch, as the JAX package computes it
-   in plain jnp.
+   in plain jnp.  Then a fault plan (``REDUCED_FAULT_PLAN``,
+   ``reduced_fault_phase``): reduced gemma_2b (fp32) with poisoned
+   logits, a chunk exception, a page-allocation failure and a straggle
+   past the watchdog, under ``serve_with_recovery``, the card's engine in
+   its defaults (the armed injector pins depth 1) against the CPU's:
+   exactly one restart on each, statuses and firings equal, the untouched
+   requests equal to each side's fault-free run, every audit clean.
 4. Full-width serving (``CONFIGS``, ``WORKLOADS``) in bf16 with seeded
    random weights, 4 slots, 16-token pages, 512-token prefill chunks, 6
    requests × 24 greedy tokens: gemma_2b (18 layers, d_model 2048, vocab
@@ -352,6 +358,19 @@ Phases (any failure raises and the script exits non-zero):
    prefill gates; a warm start from the saved plan file (no solver
    call, the same tokens); and ``launch.serve.main`` at full width with
    every exporter, its files validated.
+11. Serving resilience (``resilience_phase``): full-width gemma_2b on
+   phase 10's weights and phase 4's workload in the engine's defaults: a
+   fault-free run and one with an injector armed that never fires (depth
+   1; its steady decode ms/step beside the depth-2 run's and phase 4
+   (b)'s, tokens equal), then (i) poisoned logits on one request and two
+   page-allocation failures, (ii) a per-request deadline on a clock that
+   reads the step index, (iii) shedding by queue depth and (iv) a crash
+   at step 8 under ``serve_with_recovery(keep_cache=True)``: the faulted
+   request ends with its status and a prefix of its tokens, every other
+   one bit-identical to the fault-free run, the pool audited after every
+   step; (iv) restarts exactly once, drops the crashed engine before the
+   next is built, re-attaches published pages and prints the recovery's
+   seconds and the peak memory across the restart.
 
 Each phase's seconds are printed on a line of their own ("-- N s:").
 Then it prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as
@@ -4086,6 +4105,138 @@ def reduced_mamba2_phase(dev):
     return {"reduced-mamba2": counts, "reduced-mamba2-spec": spec}
 
 
+# Phase 3's reduced fault plan: poison, a chunk exception, a page
+# allocation failure and a straggle past the watchdog, which
+# ``serve_with_recovery`` restarts once; request 0 finishes before the
+# restart untouched.  The watchdog is well above a healthy step (the
+# card's first step captures the decode graph), the straggle past it by
+# more than the watchdog's 0.5 s poll.
+REDUCED_FAULT_PLAN = ("poison_logits:rid=1,step=5;chunk_exception:rid=2;"
+                      "alloc_fail:step=6;straggle:step=9,delay_s=6")
+REDUCED_WATCHDOG_S = 4.5
+
+
+def reduced_fault_phase(dev):
+    """gemma_2b.reduced() in fp32 under ``REDUCED_FAULT_PLAN``, the card's
+    engine in the defaults (async, the decode step a CUDA graph; the armed
+    injector pins depth 1) against the CPU's (synchronous, eager), each
+    beside its own fault-free run and restarted by ``serve_with_recovery``
+    after the straggle: exactly one restart on each, statuses and
+    ``inj.fired`` equal, every request the faults did not touch (not
+    poisoned or failed, not live at the restart) equal to the fault-free
+    run, the requests that ended ``ok`` equal card to CPU, the pool's
+    audit clean after every step of every engine.  → the card's launch
+    counts (key ``reduced-fault``)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.resilience import (FaultInjector,
+                                                serve_with_recovery)
+
+    cfg = get_config("gemma_2b").reduced()       # fp32
+    params = {"cpu": model_lib.init_params(cfg, seed=0, device="cpu")}
+    params[str(dev)] = to_device(params["cpu"], dev)
+    rng = np.random.default_rng(0)
+    head = rng.integers(0, cfg.vocab, 24, dtype=np.int32)
+    prompts = [np.concatenate([head, rng.integers(0, cfg.vocab, 8,
+                                                  dtype=np.int32)])
+               for _ in range(3)] + [rng.integers(0, cfg.vocab, 20,
+                                                  dtype=np.int32)]
+    kw = dict(slots=2, cache_len=64, prefill_len=32, page_size=8,
+              prefill_chunk=16, debug_audit=True)
+
+    def requests():
+        return [Request(rid=rid, prompt=p, max_tokens=8)
+                for rid, p in enumerate(prompts)]
+
+    runs, counts = {}, None
+    for device in (dev, "cpu"):
+        reset_planning()
+        sync = dict(async_steps=device == dev)
+        eng = ServingEngine(params[str(device)], cfg, device=device, **sync,
+                            **kw)
+        for req in requests():
+            eng.submit(req)
+        base = {rid: list(r) for rid, r in eng.run().items()}
+        del eng
+        inj = FaultInjector.from_spec(REDUCED_FAULT_PLAN)
+        engines = []
+
+        def make_engine():
+            eng = ServingEngine(params[str(device)], cfg, device=device,
+                                fault=inj, watchdog_s=REDUCED_WATCHDOG_S,
+                                **sync, **kw)
+            engines.append(eng)
+            return eng
+
+        build.reset_launch_counts()
+        out = serve_with_recovery(make_engine, requests(), max_restarts=1,
+                                  log=lambda msg: log(f"  {msg}"))
+        if device == dev:
+            counts = build.launch_counts()
+            require(all(e.decode_step.graph and e.decode_step.graphs
+                        for e in engines), "reduced fault plan: a card "
+                    "engine did not replay its decode step as a graph")
+        require(len(engines) == 2, f"reduced fault plan on {device}: "
+                f"{len(engines) - 1} restarts, want exactly one")
+        crashed = engines[0]
+        live = ({e.rid for e in crashed.sched.waiting}
+                | {e.rid for e in crashed.sched.active.values()})
+        preempted = {rid for e in engines for kind, rid in e.sched.events
+                     if kind == "preempt"}
+        for eng in engines:
+            eng.sched.pool.audit()
+        require(sum(e.sched.pool.injected_alloc_failures for e in engines)
+                == 1, f"reduced fault plan on {device}: the allocation "
+                f"failure was not taken")
+        runs[str(device)] = dict(
+            base=base, live=live | preempted, fired=list(inj.fired),
+            status={rid: r.status for rid, r in out.items()},
+            streams={rid: list(r) for rid, r in out.items()})
+        log(f"  reduced fault plan on {device}: fired {inj.fired}; live at "
+            f"the restart {sorted(live)}, preempted {sorted(preempted)}; "
+            f"statuses "
+            f"{runs[str(device)]['status']}; streams "
+            f"{runs[str(device)]['streams']}")
+        del engines, out
+    card, cpu = runs[str(dev)], runs["cpu"]
+    require(card["fired"] == cpu["fired"], "reduced fault plan: the "
+            "firings differ card to CPU")
+    require(card["status"] == cpu["status"], "reduced fault plan: the "
+            "statuses differ card to CPU")
+    kinds = sorted({kind for _, kind, _ in card["fired"]})
+    require(kinds == ["alloc_fail", "chunk_exception", "poison_logits",
+                      "straggle"], f"reduced fault plan fired {kinds}")
+    require(sorted(card["status"].values())
+            == ["error", "ok", "ok", "poisoned"],
+            f"reduced fault plan statuses {card['status']}")
+    hit = {t if kind == "poison_logits" else t[0]
+           for _, kind, t in card["fired"]
+           if kind in ("poison_logits", "chunk_exception")}
+    for run in (card, cpu):
+        untouched = set(run["streams"]) - hit - run["live"]
+        require(untouched, "reduced fault plan: no request was untouched")
+        for rid in untouched:
+            require(run["streams"][rid] == run["base"][rid],
+                    f"reduced fault plan: request {rid}, untouched, differs "
+                    f"from the fault-free run")
+    for rid, status in card["status"].items():
+        if status == "ok":
+            require(card["streams"][rid] == cpu["streams"][rid],
+                    f"reduced fault plan: request {rid} differs card to CPU")
+            require(len(card["streams"][rid]) == 8, (rid, card))
+    for mark in ("splitk_gemm", "grouped_gemm", "flash_decode_paged",
+                 "flash_attention"):
+        require(counts[mark] > 0, f"reduced fault plan: {mark} not "
+                f"launched on the card")
+    log(f"  reduced fault plan: one restart on each, statuses and firings "
+        f"equal card to CPU, untouched requests equal to the fault-free "
+        f"runs, every audit clean")
+    return {"reduced-fault": counts}
+
+
 # -- phase 4: full-width serving ---------------------------------------------
 
 MAX_TOKENS = 24
@@ -6734,6 +6885,7 @@ def telemetry_phase(dev, serving, counts, out_dir):
         f"steady decode (stack off): {stack_off[1]['mean']:.3f} ms/step "
         f"mean, {stack_off[1]['median']:.3f} median, host "
         f"{stack_off[1]['host_mean']:.3f}")
+    CARRIED["default_params"] = params
     del eng, params
     free_card()
 
@@ -6982,6 +7134,322 @@ CHAMELEON_ROWS = {
 }
 
 
+# What phase 10 hands phase 11: the full-width gemma_2b weights (seed 0)
+# it put on the card, so phase 11 serves on them without building them
+# again.
+CARRIED = {}
+
+
+def resilience_phase(dev, serving):
+    """Phase 11: serving resilience at gemma_2b's full width (the default
+    configuration, phase 10's weights, phase 4's workload), on the
+    engine's defaults (async, the decode step a CUDA graph).
+
+    A fault-free run, then one with an injector armed that never fires
+    (the pipeline pinned to depth 1): its tokens equal the fault-free
+    run's, and its steady decode ms/step are printed beside the depth-2
+    run's and phase 4 (b)'s.  Then, each on a fresh engine with the pool
+    audited after every step: (i) request 1's logits poisoned at step 10
+    and two page-allocation failures from step 6: request 1 ends
+    ``"poisoned"`` with a prefix of its tokens, every other request ``ok``
+    and, unless preempted, bit-identical to the fault-free run; (ii) a
+    12 s deadline on request 2 under a clock that reads the engine's step
+    index in seconds: it ends ``"deadline"`` with a non-empty prefix of
+    its tokens, the others unchanged; (iii) shedding at a queue depth of
+    4: requests 4 and 5 are shed at ``submit``, the others unchanged;
+    (iv) a crash at step 8 under ``serve_with_recovery(keep_cache=True)``
+    (a pool of 576 pages, which holds the published prefixes beside the
+    re-admitted requests): exactly one restart, the crashed engine
+    dropped before the next is built, every request ``ok`` with all its
+    tokens, the requests that had emitted none at the crash bit-identical
+    to the fault-free run, the others keeping their pre-crash tokens as a
+    prefix, and the restored pool re-attaching published pages
+    (``prefix_hit_pages`` > 0).  Every
+    run launches the default path's kernels and none it must not.  It
+    prints the recovery's seconds (snapshot, new engine, restore, first
+    token after the restore) and the peak memory across the restart
+    beside the fault-free run's."""
+    import weakref
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.resilience import (Fault, FaultInjector, Shed,
+                                                serve_with_recovery)
+
+    t_phase = time.perf_counter()
+    arch, overrides = CONFIGS["default"]
+    work = WORKLOADS[arch]
+    cfg = dataclasses.replace(get_config(arch), **overrides)
+    prompts, engine_kw = serving_workload(cfg, work, dev)
+    params = CARRIED.pop("default_params", None)
+    if params is None:
+        params = random_biases(
+            model_lib.init_params(cfg, seed=0, device=dev), cfg)
+    reset_planning()
+    StepTimedEngine = step_timed_engine()
+
+    def serve(label, eng, deadline=None):
+        """Submit phase 4's prompts (``deadline``: rid → deadline_ms) and
+        run, the counters zeroed just before and read just after; the
+        pool must audit clean and the default path's kernels must have
+        launched, and none it must not → (responses, shed rids, wall s,
+        peak bytes)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t = time.perf_counter()
+        shed = []
+        for rid, p in enumerate(prompts):
+            try:
+                eng.submit(Request(rid=rid, prompt=p, max_tokens=MAX_TOKENS,
+                                   deadline_ms=(deadline or {}).get(rid)))
+            except Shed:
+                shed.append(rid)
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = build.launch_counts()
+        eng.sched.pool.audit()
+        for kernel in PATH_KERNELS["default"]:
+            require(counts[kernel] > 0, f"(resilience {label}) {kernel} "
+                    f"was never launched")
+        for kernel in NOT_ON_PATH["default"]:
+            require(counts[kernel] == 0, f"(resilience {label}) "
+                    f"{counts[kernel]} launches of {kernel}")
+        log(f"  [resilience {label}] served {len(out)} requests in "
+            f"{wall:.3f} s: statuses "
+            f"{ {r: v.status for r, v in out.items()} }, tokens "
+            f"{ {r: len(v) for r, v in out.items()} }, shed {shed}")
+        return out, shed, wall, torch.cuda.max_memory_allocated()
+
+    def unchanged(label, out, rids):
+        for rid in rids:
+            require(out[rid].status == "ok" and list(out[rid]) == base[rid],
+                    f"(resilience {label}) request {rid}: "
+                    f"{out[rid].status}, its tokens differ from the "
+                    f"fault-free run's")
+
+    def cut(label, resp, rid, status, preempted=()):
+        n = len(resp)
+        require(resp.status == status and 0 < n < MAX_TOKENS
+                and (rid in preempted or list(resp) == base[rid][:n]),
+                f"(resilience {label}) request {rid}: {resp.status} with "
+                f"{n} tokens, want {status} with a prefix of its tokens")
+
+    def steady(eng):
+        rows = [row[0] for row in steady_steps(eng)]
+        return {"steps": len(rows), "mean": statistics.mean(rows),
+                "median": statistics.median(rows)}
+
+    # The fault-free run, then an injector armed that never fires.
+    eng = StepTimedEngine(params, cfg, **engine_kw)
+    out, _, wall_base, peak_base = serve("fault-free", eng)
+    base = {rid: list(r) for rid, r in out.items()}
+    require(all(r.ok and len(r) == MAX_TOKENS for r in out.values()),
+            "(resilience fault-free) a request did not finish")
+    want = serving["default"]["streams"]
+    require(all(base[rid] == list(want[rid]) for rid in want),
+            "(resilience fault-free) the tokens differ from phase 4 (b)'s")
+    depth2 = steady(eng)
+    del eng
+    armed = FaultInjector([Fault("poison_logits", rid=len(prompts))])
+    eng = StepTimedEngine(params, cfg, fault=armed, **engine_kw)
+    out, _, wall_armed, _ = serve("armed, not firing", eng)
+    require(not armed.fired and eng.steps_in_flight_max == 1,
+            f"(resilience armed) fired {armed.fired}, steps_in_flight_max "
+            f"{eng.steps_in_flight_max}: an armed injector runs at depth 1")
+    unchanged("armed", out, base)
+    depth1 = steady(eng)
+    phase4 = serving["default"]["async"]
+    log(f"  [resilience armed] steady decode with an injector armed, not "
+        f"firing (depth 1): {depth1['mean']:.3f} ms/step mean, "
+        f"{depth1['median']:.3f} median over {depth1['steps']} steps; "
+        f"fault-free depth 2 in this phase {depth2['mean']:.3f} mean, "
+        f"{depth2['median']:.3f} median; phase 4 (b) "
+        f"{phase4['steady_ms_per_step_mean']:.3f} mean, "
+        f"{phase4['steady_ms_per_step_median']:.3f} median; tokens equal "
+        f"to the fault-free run's")
+    del eng
+
+    # (i) poison + page-allocation failures.
+    inj = FaultInjector([Fault("poison_logits", rid=1, step=10),
+                         Fault("alloc_fail", step=6, count=2)])
+    eng = ServingEngine(params, cfg, fault=inj, debug_audit=True,
+                        **engine_kw)
+    out, _, _, _ = serve("i", eng)
+    preempted = {rid for kind, rid in eng.sched.events if kind == "preempt"}
+    require([k for _, k, _ in inj.fired]
+            == ["alloc_fail", "alloc_fail", "poison_logits"]
+            and eng.sched.pool.injected_alloc_failures >= 1,
+            f"(resilience i) fired {inj.fired}, "
+            f"{eng.sched.pool.injected_alloc_failures} failures taken")
+    cut("i", out[1], 1, "poisoned", preempted)
+    unchanged("i", out, set(base) - {1} - preempted)
+    for rid in preempted:
+        require(out[rid].ok and len(out[rid]) == MAX_TOKENS, out[rid])
+    log(f"  [resilience i] fired {inj.fired}; request 1 poisoned after "
+        f"{len(out[1])} tokens, {eng.sched.pool.injected_alloc_failures} "
+        f"allocation failures taken, preempted {sorted(preempted)}; the "
+        f"other requests bit-identical to the fault-free run")
+    del eng
+
+    # (ii) a per-request deadline on a clock that reads the step index.
+    box = {}
+    eng = ServingEngine(params, cfg, debug_audit=True,
+                        clock=lambda: float(box["eng"].step_idx)
+                        if box else 0.0, **engine_kw)
+    box["eng"] = eng
+    out, _, _, _ = serve("ii", eng, deadline={2: 12_000.0})
+    box.clear()
+    cut("ii", out[2], 2, "deadline")
+    unchanged("ii", out, set(base) - {2})
+    log(f"  [resilience ii] request 2 cancelled at its deadline with "
+        f"{len(out[2])} tokens, a prefix of its fault-free tokens; the "
+        f"others unchanged")
+    del eng
+
+    # (iii) shedding by queue depth.
+    eng = ServingEngine(params, cfg, debug_audit=True, shed_queue_depth=4,
+                        **engine_kw)
+    out, shed, _, _ = serve("iii", eng)
+    require(shed == [4, 5] and all(out[r].status == "shed" and not out[r]
+                                   for r in shed)
+            and eng.metrics()["shed_requests"] == 2,
+            f"(resilience iii) shed {shed}")
+    unchanged("iii", out, range(4))
+    del eng
+    free_card()
+
+    # (iv) a crash at step 8, restarted with the cache kept.  At the crash
+    # requests 0-3 are decoding and 4-5 waiting; the restored 0-3
+    # re-prefill windows shifted by their tokens, so the published pages
+    # they find are none, and request 4 finds request 0's first chunk,
+    # computed by the crashed engine.  The pool holds those 256 published
+    # pages beside the 4 x 66 the re-admitted requests take, so the LRU
+    # reclaim does not retire them before request 4 is admitted (the
+    # default pool, 4 x 68 + 1 pages, would).
+    kw_iv = dict(engine_kw, num_pages=576)
+    inj = FaultInjector([Fault("crash", step=8)])
+    rec = {"alive_at_make": [], "new_engine_s": []}
+    refs = []
+
+    class Recovering(ServingEngine):
+        """Times the recovery's pieces; keeps the snapshot and the
+        restored engine's metrics (the engine itself is dropped)."""
+
+        def snapshot(self):
+            t = time.perf_counter()
+            snap = super().snapshot()
+            torch.cuda.synchronize()
+            rec["snapshot_s"] = time.perf_counter() - t
+            rec["snap"] = snap
+            return snap
+
+        def restore(self, snap, *, cache=None):
+            t = time.perf_counter()
+            super().restore(snap, cache=cache)
+            torch.cuda.synchronize()
+            rec["restore_s"] = time.perf_counter() - t
+            rec["restored_at"] = time.perf_counter()
+            rec["adopted"] = cache is not None and self.cache is cache
+            return self
+
+        def _note_emitted(self, req, n_new):
+            if n_new and "restored_at" in rec and "first_token_s" not in rec:
+                rec["first_token_s"] = time.perf_counter() - rec[
+                    "restored_at"]
+            super()._note_emitted(req, n_new)
+
+        def run(self, max_steps=1000):
+            out = super().run(max_steps)
+            self.sched.pool.audit()
+            rec["metrics"] = self.metrics()
+            rec["graphs"] = sorted(self.decode_step.graphs)
+            return out
+
+    def make_engine():
+        rec["alive_at_make"].append([r() is not None for r in refs])
+        t = time.perf_counter()
+        eng = Recovering(params, cfg, fault=inj, debug_audit=True, **kw_iv)
+        torch.cuda.synchronize()
+        rec["new_engine_s"].append(time.perf_counter() - t)
+        refs.append(weakref.ref(eng))
+        return eng
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t = time.perf_counter()
+    out = serve_with_recovery(
+        make_engine, [Request(rid=rid, prompt=p, max_tokens=MAX_TOKENS)
+                      for rid, p in enumerate(prompts)],
+        max_restarts=1, keep_cache=True, log=lambda msg: log(f"  {msg}"))
+    torch.cuda.synchronize()
+    wall_iv = time.perf_counter() - t
+    peak_iv = torch.cuda.max_memory_allocated()
+    counts_iv = build.launch_counts()
+    for kernel in PATH_KERNELS["default"]:
+        require(counts_iv[kernel] > 0, f"(resilience iv) {kernel} was never "
+                f"launched")
+    require(inj.fired == [(8, "crash", None)] and len(refs) == 2,
+            f"(resilience iv) fired {inj.fired}, {len(refs)} engines: want "
+            f"exactly one restart")
+    require(rec["alive_at_make"] == [[], [False]], f"(resilience iv) the "
+            f"crashed engine was alive when the next was built: "
+            f"{rec['alive_at_make']}")
+    require(rec["adopted"] and rec["graphs"] == [False],
+            f"(resilience iv) cache adopted {rec['adopted']}, graphs "
+            f"{rec['graphs']}")
+    require(all(r.ok and len(r) == MAX_TOKENS for r in out.values())
+            and sorted(out) == sorted(base), "(resilience iv) "
+            f"{[(r.rid, r.status, len(r)) for r in out.values()]}")
+    pre = {rd["rid"]: rd["output"] for rd in rec["snap"]["requests"]}
+    fresh = {rid for rid in base if not pre.get(rid)}
+    unchanged("iv", out, fresh)
+    for rid, tokens in pre.items():
+        require(list(out[rid])[:len(tokens)] == tokens, f"(resilience iv) "
+                f"request {rid} lost its pre-crash tokens")
+    hits = rec["metrics"]["prefix_hit_pages"]
+    require(hits > 0, "(resilience iv) the restored engine aliased no "
+            "published page")
+    require(peak_iv <= peak_base + 2**30, f"(resilience iv) peak "
+            f"{peak_iv / 2**30:.2f} GiB across the restart, fault-free "
+            f"{peak_base / 2**30:.2f} GiB: the crashed engine's memory "
+            f"outlived it")
+    recovery = {k: rec[k] for k in ("snapshot_s", "restore_s",
+                                    "first_token_s")}
+    recovery["new_engine_s"] = rec["new_engine_s"][1]
+    log(f"  [resilience iv] crash at step 8, one restart: pre-crash tokens "
+        f"{ {r: len(t) for r, t in pre.items()} }, requests with none "
+        f"{sorted(fresh)} bit-identical to the fault-free run, every "
+        f"request ok with {MAX_TOKENS} tokens; the restored pool aliased "
+        f"{hits} published pages; recovery s: snapshot "
+        f"{recovery['snapshot_s']:.3f}, new engine "
+        f"{recovery['new_engine_s']:.3f}, restore {recovery['restore_s']:.3f}"
+        f", first token after the restore {recovery['first_token_s']:.3f}; "
+        f"run wall {wall_iv:.3f} s (fault-free {wall_base:.3f}); peak memory "
+        f"across the restart {peak_iv / 2**30:.2f} GiB, fault-free run "
+        f"{peak_base / 2**30:.2f} GiB")
+    del out, params
+    free_card()
+    seconds = time.perf_counter() - t_phase
+    log(f"  [resilience] phase 11 took {seconds:.1f} s")
+    return {"steady_ms_per_step_armed_depth1": depth1,
+            "steady_ms_per_step_depth2": depth2,
+            "phase4_steady_ms_per_step": {
+                "mean": phase4["steady_ms_per_step_mean"],
+                "median": phase4["steady_ms_per_step_median"]},
+            "wall_s": {"fault_free": wall_base, "armed": wall_armed,
+                       "crash_restart": wall_iv},
+            "recovery_s": recovery, "prefix_hit_pages_after_restore": hits,
+            "peak_gib": {"fault_free": peak_base / 2**30,
+                         "across_restart": peak_iv / 2**30},
+            "launch_counts_crash_restart": counts_iv, "seconds": seconds}
+
+
 def parse_args():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -7055,6 +7523,10 @@ def main() -> int:
     counts.update(reduced_chameleon_phase(dev))
     log("== 3. reduced mamba2_130m (fp32): the SSD mixer, card against CPU")
     counts.update(reduced_mamba2_phase(dev))
+    log("== 3. reduced gemma_2b (fp32) under a fault plan (poison, a chunk "
+        "exception, allocation failures, a straggle past the watchdog): "
+        "card against CPU")
+    counts.update(reduced_fault_phase(dev))
     for name, (arch, overrides) in CONFIGS.items():
         fmt = ENGINE_KW.get(name, {}).get(
             "format_policy", get_config(arch).format_policy or "bf16")
@@ -7100,6 +7572,10 @@ def main() -> int:
     log("== 10. telemetry: full-width gemma_2b served under the accountant, "
         "tracer, registry, SLO monitor, profiler and plan-file warm start")
     telemetry = telemetry_phase(dev, serving, counts, out_dir)
+    log("== 11. serving resilience: full-width gemma_2b under poison, page "
+        "allocation failures, a deadline, shedding and a crash restarted "
+        "with its cache")
+    resilience = resilience_phase(dev, serving)
 
     kernels = []
     for name, source, replaces, shape, path in KERNELS:
@@ -7170,7 +7646,8 @@ def main() -> int:
                    "int8_isa_ratio": isa_ratio,
                    "speculative": speculative, "model_level": model_level,
                    "training": training, "training_amx": training_amx,
-                   "telemetry": telemetry, "kernels": kernels,
+                   "telemetry": telemetry, "resilience": resilience,
+                   "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -17,11 +17,15 @@ Layout::
   continues the exact stream; retention keeps the newest ``keep``.
 - :meth:`CheckpointManager.restore` puts every array on the device of the
   template's leaf, or on ``device``.
+- **GEMM plans**: ``save``/``save_async`` take the plan cache's snapshot
+  (``training.trainer.plan_cache_snapshot``) into the manifest;
+  ``restore`` hands it back with the manifest and :meth:`restore_plans`
+  feeds it into the process's plan cache, so a resumed job starts with
+  the plans of its first life.
 
 bf16 tensors are stored as their 16-bit patterns (numpy has no bf16)
 and the manifest records each key's dtype.  Not ported yet: resharding
-restore onto another mesh (ROADMAP A12) and the plan cache's snapshot
-(ROADMAP A4).
+restore onto another mesh (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -62,24 +66,29 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
 
     # -- save ----------------------------------------------------------------
-    def _snapshot(self, step: int, params, opt_state, extra):
+    def _snapshot(self, step: int, params, opt_state, extra, gemm_plans):
         tree = {"params": params, "opt_state": opt_state}
         host = _to_host(tree)
         manifest = {"step": step, "extra": extra or {},
+                    "gemm_plans": gemm_plans,
                     "keys": sorted(host), "dtypes": _dtypes(tree)}
         return host, manifest
 
     def save(self, step: int, params, opt_state,
-             extra: Optional[dict] = None):
+             extra: Optional[dict] = None,
+             gemm_plans: Optional[dict] = None):
         self.wait()
-        self._write(step, *self._snapshot(step, params, opt_state, extra))
+        self._write(step, *self._snapshot(step, params, opt_state, extra,
+                                          gemm_plans))
 
     def save_async(self, step: int, params, opt_state,
-                   extra: Optional[dict] = None):
+                   extra: Optional[dict] = None,
+                   gemm_plans: Optional[dict] = None):
         """Snapshot synchronously (device → host), write in the
         background."""
         self.wait()
-        host, manifest = self._snapshot(step, params, opt_state, extra)
+        host, manifest = self._snapshot(step, params, opt_state, extra,
+                                        gemm_plans)
         self._thread = threading.Thread(
             target=self._write, args=(step, host, manifest), daemon=True)
         self._thread.start()
@@ -115,6 +124,19 @@ class CheckpointManager:
     def all_steps(self):
         return sorted(int(d.split("_")[1]) for d in os.listdir(self.dir)
                       if d.startswith("step_") and not d.endswith(".tmp"))
+
+    def restore_plans(self, step: Optional[int] = None, device=None) -> int:
+        """Feed a checkpoint's plan snapshot into the process's plan cache
+        for ``device``'s substrate; → the number of plans restored (0 for
+        a checkpoint without one, or one made on another substrate)."""
+        from repro_torch.training.trainer import restore_plan_cache
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return 0
+        path = os.path.join(self.dir, f"step_{step:08d}", "manifest.json")
+        with open(path) as f:
+            manifest = json.load(f)
+        return restore_plan_cache(manifest.get("gemm_plans"), device)
 
     def latest_step(self) -> Optional[int]:
         path = os.path.join(self.dir, "LATEST")

@@ -17,9 +17,12 @@ Examples::
         --watch 4 --status-json health.json --prom prom.txt \\
         --trace run.trace.json --gemm-table
 
-The resilience flags (``--deadline-ms``, ``--shed-queue-depth``,
-``--watchdog-s``, ``--fault-plan``, ``--prefix-index``) reach the
-engine, which refuses them until ROADMAP A6 ports them.
+    # Resilience: poison request 0's logits mid-decode; the engine
+    # quarantines that slot while every healthy request finishes:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b \\
+        --reduced --device cpu --requests 6 \\
+        --fault-plan poison_logits:rid=0,step=4 \\
+        --deadline-ms 60000 --shed-queue-depth 32 --watchdog-s 60
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import model as model_lib
 from repro_torch.serving.engine import Request, ServingEngine
-from repro_torch.serving.resilience import Shed
+from repro_torch.serving.resilience import FaultInjector, Shed
 from repro_torch.telemetry import gemm_account, tracing
 from repro_torch.telemetry.registry import registry as metrics_registry
 
@@ -79,17 +82,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--plan-cache", default=None,
                     help="GEMM plan-cache JSON to warm-start from / save to")
     ap.add_argument("--deadline-ms", type=float, default=None,
-                    help="per-request deadline (ROADMAP A6: refused)")
+                    help="per-request deadline; a request still running "
+                         "when it expires is cancelled with partial "
+                         "output and status 'deadline'")
     ap.add_argument("--shed-queue-depth", type=int, default=None,
                     help="admission control: reject submits once this "
-                         "many requests wait (ROADMAP A6: refused)")
+                         "many requests are waiting (status 'shed')")
     ap.add_argument("--watchdog-s", type=float, default=None,
-                    help="a StepWatchdog around every engine step "
-                         "(ROADMAP A6: refused)")
+                    help="arm a StepWatchdog around every engine step; a "
+                         "straggling step raises StragglerError")
     ap.add_argument("--fault-plan", default=None,
-                    help="a deterministic fault plan, e.g. "
-                         "'poison_logits:rid=0,step=4' (ROADMAP A6: "
-                         "refused)")
+                    help="inject a deterministic fault plan, e.g. "
+                         "'poison_logits:rid=0,step=4;straggle:step=2,"
+                         "delay_s=0.5' (kinds: alloc_fail, "
+                         "chunk_exception, poison_logits, straggle, "
+                         "crash)")
     ap.add_argument("--debug-audit", action="store_true",
                     help="run the KV-pool invariant checker after every "
                          "engine step (slow; chaos debugging)")
@@ -112,7 +119,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the target's)")
     ap.add_argument("--prefix-index", default=None,
                     help="JSON path for the pool's published page hashes "
-                         "(ROADMAP A6: refused)")
+                         "— saved after run(), reloaded at start so a "
+                         "restarted engine aliases surviving KV")
     ap.add_argument("--no-async", action="store_true",
                     help="synchronous engine stepping (pipeline depth 1)")
     ap.add_argument("--no-graph", action="store_true",
@@ -208,7 +216,9 @@ def main(argv=None):
                            prefix_index_path=args.prefix_index,
                            slo_monitor=slo_monitor,
                            async_steps=not args.no_async,
-                           fault=args.fault_plan, device=dev)
+                           fault=(FaultInjector.from_spec(args.fault_plan)
+                                  if args.fault_plan else None),
+                           device=dev)
     del params      # the engine holds its own serving copy
 
     rng = np.random.default_rng(0)

@@ -29,7 +29,9 @@ from repro_torch.data.pipeline import DataConfig, SyntheticDataset
 from repro_torch.distributed.fault import StepWatchdog, supervise
 from repro_torch.models import model as model_lib
 from repro_torch.optim.optimizer import AdamWConfig, init_opt_state
-from repro_torch.training.trainer import make_train_step
+from repro_torch.training.trainer import (make_train_step,
+                                          plan_cache_snapshot,
+                                          restore_plan_cache)
 
 __all__ = ["train_loop", "main"]
 
@@ -41,10 +43,12 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     """Train ``cfg`` for ``steps`` steps of ``batch`` × ``seq`` tokens
     from ``SyntheticDataset(seed)``: → (params, per-step losses).  With
     ``ckpt_dir`` it resumes from the latest checkpoint there (parameters,
-    optimizer state and the data stream's step), saves every
-    ``ckpt_every`` steps in the background and once at the end.  A NaN
-    loss raises ``FloatingPointError``; a step past ``step_timeout_s``
-    raises ``StragglerError`` at the next step's start."""
+    optimizer state, the data stream's step and the GEMM plans), saves
+    every ``ckpt_every`` steps in the background and once at the end,
+    each checkpoint with the plan cache's snapshot after the first step.
+    A NaN loss raises ``FloatingPointError``; a step past
+    ``step_timeout_s`` raises ``StragglerError`` at the next step's
+    start."""
     dev = resolve_device(device)
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
@@ -62,11 +66,14 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
         data = SyntheticDataset.restore(
             data_cfg, manifest["extra"].get("data", data.state()),
             device=dev)
-        log(f"[train] restored step {start_step}")
+        n_plans = restore_plan_cache(manifest.get("gemm_plans"), dev)
+        log(f"[train] restored step {start_step}"
+            f"{f', {n_plans} warm GEMM plans' if n_plans else ''}")
 
     step_fn = make_train_step(cfg, opt_cfg, microbatches)
     watchdog = StepWatchdog(step_timeout_s)
     losses = []
+    gemm_plans = None
     try:
         for step in range(start_step, steps):
             watchdog.check()
@@ -78,6 +85,11 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
             loss = float(metrics["loss"])
             watchdog.disarm()
             losses.append(loss)
+            if gemm_plans is None:
+                # The first step planned every GEMM of the model: the
+                # cache now holds the training plan set, saved with every
+                # checkpoint.
+                gemm_plans = plan_cache_snapshot(dev) or {}
             if step % 10 == 0 or step == steps - 1:
                 log(f"[train] step {step} loss {loss:.4f} "
                     f"gnorm {float(metrics['grad_norm']):.3f} "
@@ -86,9 +98,11 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
                 raise FloatingPointError(f"NaN loss at step {step}")
             if ckpt and (step + 1) % ckpt_every == 0:
                 ckpt.save_async(step + 1, params, opt_state,
-                                extra={"data": data.state()})
+                                extra={"data": data.state()},
+                                gemm_plans=gemm_plans or None)
         if ckpt:
-            ckpt.save(steps, params, opt_state, extra={"data": data.state()})
+            ckpt.save(steps, params, opt_state, extra={"data": data.state()},
+                      gemm_plans=gemm_plans or None)
             ckpt.wait()
     finally:
         watchdog.stop()

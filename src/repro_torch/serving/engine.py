@@ -78,10 +78,33 @@ state, so greedy streams are the same with it on and off.
 substrate is skipped with a message) and :meth:`save_plan_cache` saves
 it.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: ``fault``, deadlines, load shedding, ``watchdog_s`` and
-``prefix_index_path`` (A6), and speculation on a config with a MoE layer
-(A13).
+Failure model (:mod:`repro_torch.serving.resilience`, the JAX engine's):
+requests fail one at a time while the batch keeps decoding.  Deadlines
+(``deadline_ms``, the engine's default or a ``Request``'s own) cancel a
+late request with its partial output (status ``"deadline"``); load
+shedding (``shed_queue_depth``, ``shed_token_watermark``) rejects at
+``submit`` with :class:`~repro_torch.serving.resilience.Shed`; NaN/inf
+logits quarantine their slot alone (``"poisoned"``); a head request that
+can never fit ends ``"capacity"``.  ``fault=`` threads a deterministic
+:class:`~repro_torch.serving.resilience.FaultInjector` through the step,
+chunk and logit hooks and pins the pipeline to depth 1 while it is armed;
+a poisoned row is a constant, so the host derives its finite flag and
+token (JAX's ``_sample``) and writes the token into the carried buffer
+with a staged copy, outside the captured graph, which is never captured
+again or branched.  Only a :class:`~repro_torch.serving.resilience.
+RequestError` raised in a prefill chunk is contained to its request; any
+other exception (a kernel that fails to build or launch, a CUDA error)
+propagates and fails the run.  ``watchdog_s`` arms a
+:class:`~repro_torch.distributed.fault.StepWatchdog` around every step;
+``snapshot()``/``restore()`` carry the host state across a supervised
+restart (:func:`~repro_torch.serving.resilience.serve_with_recovery`),
+and ``restore(cache=)`` adopts the dying engine's cache before any graph
+is captured, so re-admitted requests alias its published pages;
+``prefix_index_path`` loads the pool's page index at start and saves it
+at the end of :meth:`run`.  ``clock`` replaces ``time.monotonic`` for
+every host timestamp.  Not ported yet, and refused with
+``NotImplementedError`` rather than ignored: speculation on a config with
+a MoE layer (A13).
 
 The grouped decode q/k/v (``grouped_qkv``) defaults as in JAX: on with the
 kernel backend.  Then every attention layer gains a prestacked
@@ -118,10 +141,12 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import (compute_dtype, model_format,
                                        unembed_operand_dtype)
+from repro_torch.distributed.fault import StepWatchdog
 from repro_torch.serving.kv_cache import page_prefix_hashes
 from repro_torch.serving.resilience import (CapacityExceeded,
+                                            DeadlineExceeded, FaultInjector,
                                             PoisonedOutput, RequestError,
-                                            Response)
+                                            Response, Shed)
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler
 from repro_torch.telemetry import gemm_account, tracing
 from repro_torch.telemetry.registry import publish
@@ -173,7 +198,7 @@ class Request:
     eos_id: Optional[int] = None
     format_policy: Optional[str] = None  # per-request prefill precision
     deadline: Optional[float] = None     # read by DeadlineScheduler
-    deadline_ms: Optional[float] = None  # queued (A6): refused at submit
+    deadline_ms: Optional[float] = None  # completion deadline from submit
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
 
@@ -631,10 +656,11 @@ class ServingEngine:
                  deadline_ms: Optional[float] = None,
                  shed_queue_depth: Optional[int] = None,
                  shed_token_watermark: Optional[int] = None,
-                 fault=None,
+                 fault: Optional[FaultInjector] = None,
                  debug_audit: bool = False,
                  watchdog_s: Optional[float] = None,
                  quarantine: bool = True,
+                 clock=None,
                  spec_k: int = 0,
                  draft_params=None,
                  draft_config: Optional[ArchConfig] = None,
@@ -646,19 +672,6 @@ class ServingEngine:
                  pipeline_depth: int = 2,
                  cuda_graph: Optional[bool] = None,
                  device=None):
-        queued = {
-            "fault injection (ROADMAP A6)": fault is not None,
-            "deadline_ms (ROADMAP A6)": deadline_ms is not None,
-            "load shedding (ROADMAP A6)": (shed_queue_depth is not None
-                                           or shed_token_watermark
-                                           is not None),
-            "watchdog_s (ROADMAP A6)": watchdog_s is not None,
-            "prefix_index_path (ROADMAP A6)": prefix_index_path is not None,
-        }
-        asked = [name for name, on in queued.items() if on]
-        if asked:
-            raise NotImplementedError(
-                "ServingEngine: not ported yet: " + ", ".join(asked))
         if cfg.frontend_stub:
             raise NotImplementedError(
                 f"ServingEngine: {cfg.name!r} takes frame embeddings "
@@ -736,6 +749,17 @@ class ServingEngine:
         self.slot_req: List[Optional[Request]] = [None] * slots
         self.slot_pos = np.zeros(slots, np.int32)
         self.completed: List[Request] = []
+        # The pool's published page index from an earlier engine (one that
+        # kept or handed over the device pages).  A stale, corrupt or
+        # mismatched file must not stop the engine: it starts cold.
+        self.prefix_index_path = prefix_index_path
+        if prefix_index_path and os.path.exists(prefix_index_path):
+            try:
+                self.sched.pool.load_index(prefix_index_path)
+            except (ValueError, KeyError, TypeError, OSError,
+                    json.JSONDecodeError) as e:
+                print(f"prefix-index warm start skipped "
+                      f"({prefix_index_path}: {e})")
         # Ring/recurrent layers keep per-slot rows that a batched decode
         # step must not touch for a slot that is still prefilling: such
         # archs pass the decoding rows as ``row_valid``.
@@ -761,12 +785,19 @@ class ServingEngine:
         self._init_speculation(spec_k, draft_params, draft_config,
                                draft_groups, draft_format_policy, kv_format,
                                grouped_qkv, bool(cuda_graph))
+        # Resilience (repro_torch.serving.resilience).
+        self.deadline_ms = deadline_ms
+        self.shed_queue_depth = shed_queue_depth
+        self.shed_token_watermark = shed_token_watermark
+        self.fault = fault
         self.debug_audit = bool(debug_audit)
         self.quarantine = bool(quarantine)
         # An optional repro_torch.telemetry.slo.SloMonitor, observed after
         # every step (host-side registry reads only).
         self.slo_monitor = slo_monitor
+        self._clock = clock or time.monotonic
         self.step_idx = 0
+        self._deadline_at: Dict[int, float] = {}   # rid -> absolute deadline
         self._responses: Dict[int, Response] = {}
         # Per-request latency bookkeeping: host-clock reads when a token
         # is delivered (already on the host), feeding the serving.*_s
@@ -776,6 +807,13 @@ class ServingEngine:
         self._ts_last: Dict[int, float] = {}
         self._queue_wait: Dict[int, float] = {}
         self._itl: Dict[int, List[float]] = {}
+        self.watchdog_s = watchdog_s
+        self._watchdog = None
+        if watchdog_s:
+            self._watchdog = StepWatchdog(watchdog_s)
+            # Its polling thread holds the watchdog, not the engine: stop
+            # it when the engine is dropped.
+            weakref.finalize(self, self._watchdog.stop)
 
     @property
     def queue(self) -> List[Request]:
@@ -799,13 +837,51 @@ class ServingEngine:
 
     # -- client API -----------------------------------------------------------
     def submit(self, req: Request):
+        """Queue ``req``; raises :class:`Shed` (and records its
+        ``"shed"`` response) when load shedding rejects it."""
         if req.format_policy is not None:
             from repro_torch.core.formats import resolve_format
             resolve_format(req.format_policy)
-        if req.deadline_ms is not None:
-            raise NotImplementedError("per-request deadlines are ROADMAP A6")
-        self._ts_submit[req.rid] = time.monotonic()
+        err = self._shed_reason(req)
+        if err is not None:
+            self.sched.shed_requests += 1
+            self._responses[req.rid] = Response(
+                (), rid=req.rid, status=err.code, error=err)
+            tr = tracing.active()
+            if tr is not None:
+                tr.instant("request.shed", args={"rid": req.rid})
+            # The caller gets a twin: a raised error's traceback holds this
+            # engine's frames, and the stored Response must not keep the
+            # engine (its weights, its graph pools) alive.
+            raise type(err)(str(err), rid=req.rid)
+        self._ts_submit[req.rid] = self._clock()
         self.sched.submit(req)
+        dl = (req.deadline_ms if req.deadline_ms is not None
+              else self.deadline_ms)
+        if dl is not None:
+            self._deadline_at[req.rid] = self._clock() + dl / 1000.0
+
+    def _shed_reason(self, req: Request) -> Optional[Shed]:
+        """Load shedding at the door: the queue is already
+        ``shed_queue_depth`` deep, or the committed-token demand (active +
+        waiting + this request, each booked at ``prefill_len +
+        max_tokens``) is over ``shed_token_watermark``."""
+        if (self.shed_queue_depth is not None
+                and len(self.sched.waiting) >= self.shed_queue_depth):
+            return Shed(f"queue depth {len(self.sched.waiting)} >= "
+                        f"{self.shed_queue_depth} (rid={req.rid})",
+                        rid=req.rid)
+        if self.shed_token_watermark is not None:
+            demand = (self.sched._committed_tokens(self.prefill_len)
+                      + sum(self.prefill_len
+                            + int(getattr(e.req, "max_tokens", 0))
+                            for e in self.sched.waiting)
+                      + self.prefill_len + int(req.max_tokens))
+            if demand > self.shed_token_watermark:
+                return Shed(f"committed-token demand {demand} > watermark "
+                            f"{self.shed_token_watermark} (rid={req.rid})",
+                            rid=req.rid)
+        return None
 
     def save_plan_cache(self, path: Optional[str] = None):
         """Save the plan cache for the next process's warm start (to
@@ -817,9 +893,14 @@ class ServingEngine:
 
     def run(self, max_steps: int = 1000) -> Dict[int, Response]:
         """Run until every submitted request finishes (or the step
-        budget).  Returns ``rid -> Response``; requests still live at the
-        budget come back ``"incomplete"``."""
+        budget).  Returns ``rid -> Response``: ``"ok"``, a
+        :class:`RequestError` code for a contained failure, or
+        ``"incomplete"`` for requests still live at the budget.  With
+        ``watchdog_s`` a step past its deadline raises ``StragglerError``
+        after it; with ``prefix_index_path`` the pool's index is saved at
+        the end."""
         for _ in range(max_steps):
+            self._enforce_deadlines()
             with tracing.current().span("admit"):
                 self._admit()
             if not any(r is not None for r in self.slot_req):
@@ -833,11 +914,22 @@ class ServingEngine:
                         f"token_budget={self.sched.token_budget}",
                         rid=head.rid))
                 continue
+            if self._watchdog is not None:
+                self._watchdog.arm()
             self.step()
+            if self._watchdog is not None:
+                self._watchdog.disarm()
+                self._watchdog.check()
         self._flush_pipeline()
         out = dict(self._responses)
         for r in self.queue + [r for r in self.slot_req if r is not None]:
             out[r.rid] = Response(r.output, rid=r.rid, status="incomplete")
+        if self.prefix_index_path:
+            try:
+                self.sched.pool.save_index(self.prefix_index_path)
+            except OSError as e:     # best effort, like the plan file
+                print(f"prefix-index save skipped "
+                      f"({self.prefix_index_path}: {e})")
         return out
 
     def metrics(self) -> Dict[str, float]:
@@ -906,7 +998,7 @@ class ServingEngine:
             if sub is not None and req.rid not in self._queue_wait:
                 # First admission only: a preempted request re-admits,
                 # but its queue wait is the submit -> admit gap.
-                wait = time.monotonic() - sub
+                wait = self._clock() - sub
                 self._queue_wait[req.rid] = wait
                 metrics_registry().histogram(
                     "serving.queue_wait_s").observe(wait)
@@ -956,8 +1048,9 @@ class ServingEngine:
 
     def _step_impl(self):
         """One engine step, in the JAX engine's order
-        (``src/repro/serving/engine.py:721-827``): up to
-        ``prefill_chunk_quota`` prefill chunks, the retire of the previous
+        (``src/repro/serving/engine.py:721-827``): the fault injector's
+        step hook and the deadlines, up to ``prefill_chunk_quota`` prefill
+        chunks, the retire of the previous
         step's decode (after the chunks, which its device time overlaps),
         a second admission pass into slots the retire freed, the flush
         boundaries (horizon, speculation, predicted eviction), page growth
@@ -967,6 +1060,11 @@ class ServingEngine:
         (:meth:`_spec_depth`), which runs synchronously."""
         self.step_idx += 1
         self._inflight_peak = self.steps_in_flight
+        if self.fault is not None:
+            # May raise EngineCrash (the supervised restart), sleep through
+            # a straggle or arm a page-allocation failure.
+            self.fault.step_begin(self.step_idx, pool=self.sched.pool)
+        self._enforce_deadlines()
         self._run_prefill_chunks()
         self._drain_to_depth()
         if self.sched.waiting and any(r is None for r in self.slot_req):
@@ -1073,8 +1171,10 @@ class ServingEngine:
         at depth 2 every entry of an older step, then this step's seeds
         at the head — a first token never lags — so the decode launched
         in this step stays on the device across the next step's prefill
-        chunks, and the next launch still sees every delivered finish."""
-        if self.pipeline_depth <= 1:
+        chunks, and the next launch still sees every delivered finish.
+        An armed fault injector pins the depth to 1: its poison fires on
+        the host in the step its decode ran."""
+        if self.fault is not None or self.pipeline_depth <= 1:
             self._flush_pipeline()
             return
         while self._inflight and self._inflight[0]["step"] < self.step_idx:
@@ -1110,6 +1210,22 @@ class ServingEngine:
 
     def _deliver_decode(self, entry):
         tok, finite = self._stage.wait(entry["fetch"])
+        if self.fault is not None:
+            # Poison overrides a row on the host (JAX's engine.py:964-985):
+            # its finite flag and token are derived again, and the token
+            # replaces the one the step carried on the device.
+            carry = {}
+            for slot in entry["slots"]:
+                req = entry["reqs"][slot]
+                val = self.fault.poison_value(entry["step"], req.rid)
+                if val is None:
+                    continue
+                finite[slot] = bool(np.isfinite(val))
+                tok[slot] = self._poisoned_token(val, req)
+                if self.slot_req[slot] is req:
+                    carry[slot] = int(tok[slot])
+            if carry:
+                self._carry(carry)
         n_live = 0
         with tracing.current().span("sample"):
             for slot in entry["slots"]:
@@ -1140,6 +1256,11 @@ class ServingEngine:
                        self._stage.wait(entry["fetch"]))
         if req.done or self.slot_req[slot] is not req:
             return
+        val = (None if self.fault is None
+               else self.fault.poison_value(entry["step"], req.rid))
+        if val is not None:
+            finite = bool(np.isfinite(val))
+            tok = self._poisoned_token(val, req)
         if self.quarantine and not finite:
             self._cancel_active(slot, PoisonedOutput(
                 f"non-finite prefill logits for rid={req.rid} at step "
@@ -1148,6 +1269,8 @@ class ServingEngine:
         req.output.append(tok)
         self._note_emitted(req, 1)
         self._finished(slot)
+        if val is not None and self.slot_req[slot] is req:
+            self._carry({slot: tok})
 
     # -- chunked prefill ------------------------------------------------------
     def _run_prefill_chunks(self):
@@ -1161,15 +1284,27 @@ class ServingEngine:
                 return
             slot = min(self._prefilling,
                        key=lambda s: self.sched.active[s].arrival)
-            with tracing.current().span("prefill_chunk"):
-                self._advance_prefill(slot)
+            try:
+                with tracing.current().span("prefill_chunk"):
+                    self._advance_prefill(slot)
+            except RequestError as e:
+                # Contained to this request: its slot and pages free, the
+                # others untouched.  Any other exception (a kernel that
+                # fails to build or launch, a CUDA error, which is sticky)
+                # propagates: JAX's engine wraps it as a RequestError.
+                self._cancel_active(slot, e)
 
     def _advance_prefill(self, slot: int):
         """Run ONE prompt chunk for ``slot`` into its pool pages; the final
-        chunk's logits seed the first token (sampled on the device)."""
+        chunk's logits seed the first token (sampled on the device).  With
+        a fault injector armed the seed is delivered at once, as JAX's
+        engine delivers it inside the chunk, so a poisoned seed's token is
+        carried before this step's decode launch."""
         st = self._prefilling[slot]
         req = self.slot_req[slot]
         c = st["chunk"]
+        if self.fault is not None:
+            self.fault.chunk_fault(self.step_idx, req.rid, c)
         size = self.prefill_chunk
         toks = st["tokens"][c * size:(c + 1) * size]
         batch = {"tokens": self._stage.to_device(toks[None].astype(np.int64)),
@@ -1200,6 +1335,8 @@ class ServingEngine:
         self._inflight_peak = max(self._inflight_peak, self.steps_in_flight)
         self.steps_in_flight_max = max(self.steps_in_flight_max,
                                        self.steps_in_flight)
+        if self.fault is not None:
+            self._flush_pipeline()
 
     # -- speculative decoding -------------------------------------------------
     #
@@ -1383,6 +1520,9 @@ class ServingEngine:
                     last[s] = logits[s]
 
     def _categorical(self, probs: np.ndarray) -> int:
+        if not np.isfinite(probs).all():
+            # A poisoned row (NaN/inf logits): the device sampler's token.
+            return int(np.argmax(probs))
         return int(torch.multinomial(torch.as_tensor(probs), 1,
                                      generator=self._host_gen))
 
@@ -1504,6 +1644,26 @@ class ServingEngine:
                 argmax, finite, accepted = self._fetch(
                     out["argmax"], out["finite"], out["accepted"])
         self.spec_k_hist[k] = self.spec_k_hist.get(k, 0) + 1
+        if self.fault is not None:
+            # Poison overrides a slot's k rows (JAX's engine.py:1372-1377),
+            # on the host: greedy rows take the constant row's argmax and
+            # accept the proposals that agree with it.
+            poison = {}
+            for s in decoding:
+                val = self.fault.poison_value(self.step_idx,
+                                              self.slot_req[s].rid)
+                if val is not None:
+                    poison[s] = val
+            if poison and not sampled:
+                verified = self._fetch(out["tokens"])[0]
+            for s, val in poison.items():
+                finite[s] = bool(np.isfinite(val))
+                if sampled:
+                    logits[s] = val
+                    continue
+                t = self._poisoned_token(val, self.slot_req[s])
+                argmax[s] = t
+                accepted[s] = int(np.cumprod(verified[s, 1:] == t).sum())
         if self.quarantine:
             healthy = []
             for s in decoding:
@@ -1563,9 +1723,7 @@ class ServingEngine:
         if carried:
             # A later k = 1 step (a graph replay) chains from the carried
             # token buffer: it must hold what speculation emitted.
-            rows = self._stage.to_device(np.asarray(list(carried), np.int64))
-            self._last_tok[rows, 0] = self._stage.to_device(
-                np.asarray(list(carried.values()), np.int32))
+            self._carry(carried)
         if partial and draft_snap is not None:
             self._restore_rows(draft_snap, list(partial))
         if partial and target_snap is not None:
@@ -1625,7 +1783,7 @@ class ServingEngine:
         if n_new <= 0:
             return
         rid = req.rid
-        now = time.monotonic()
+        now = self._clock()
         reg = metrics_registry()
         if rid not in self._ts_first:
             self._ts_first[rid] = now
@@ -1651,7 +1809,7 @@ class ServingEngine:
         cancelled), for its ``Response.metrics``; pops its timing state
         and observes ``serving.e2e_s``."""
         m: Dict[str, float] = {"tokens": n_tokens}
-        now = time.monotonic()
+        now = self._clock()
         sub = self._ts_submit.pop(rid, None)
         first = self._ts_first.pop(rid, None)
         self._ts_last.pop(rid, None)
@@ -1677,6 +1835,7 @@ class ServingEngine:
     def _record_done(self, req: Request, status: str = "ok",
                      error: Optional[RequestError] = None):
         req.done = True
+        self._deadline_at.pop(req.rid, None)
         self.completed.append(req)
         self._responses[req.rid] = Response(
             req.output, rid=req.rid, status=status, error=error,
@@ -1689,19 +1848,166 @@ class ServingEngine:
         self.sched.cancel(slot)
         self._clear_slot(slot)
         req.done = True
+        self._deadline_at.pop(req.rid, None)
+        # A caught error's traceback holds this engine's frames: the
+        # Response keeps the error without it.
         self._responses[req.rid] = Response(
-            req.output, rid=req.rid, status=err.code, error=err,
+            req.output, rid=req.rid, status=err.code,
+            error=err.with_traceback(None),
             metrics=self._request_metrics(req.rid, len(req.output)))
 
     def _cancel_waiting(self, entry, err: RequestError):
         self.sched.cancel_waiting(entry)
         req = entry.req
         req.done = True
+        self._deadline_at.pop(req.rid, None)
         self._responses[req.rid] = Response(
             req.output, rid=req.rid, status=err.code, error=err,
             metrics=self._request_metrics(req.rid, len(req.output)))
 
+    def _enforce_deadlines(self):
+        """Cancel every request, active or waiting, whose deadline has
+        passed: its partial output comes back with status ``"deadline"``
+        and its slot and pages go to the live batch.  The pipeline is
+        flushed first, so the partial output holds every token the
+        device already produced."""
+        if not self._deadline_at:
+            return
+        now = self._clock()
+        if self._inflight and any(dl <= now
+                                  for dl in self._deadline_at.values()):
+            self._flush_pipeline()
+        for slot, req in enumerate(self.slot_req):
+            if (req is not None
+                    and self._deadline_at.get(req.rid, now + 1) <= now):
+                self._cancel_active(slot, DeadlineExceeded(
+                    f"rid={req.rid} missed its deadline after "
+                    f"{len(req.output)} tokens", rid=req.rid))
+        for entry in list(self.sched.waiting):
+            if self._deadline_at.get(entry.rid, now + 1) <= now:
+                self._cancel_waiting(entry, DeadlineExceeded(
+                    f"rid={entry.rid} missed its deadline in queue",
+                    rid=entry.rid))
+
+    # -- crash recovery -------------------------------------------------------
+    def _geometry(self) -> Dict[str, object]:
+        return {"arch": self.cfg.name, "slots": self.slots,
+                "cache_len": self.cache_len,
+                "prefill_len": self.prefill_len,
+                "page_size": self.page_size,
+                "num_pages": self.sched.pool.num_pages,
+                "kv_format": self.cfg.kv_cache_format}
+
+    def snapshot(self) -> Dict[str, object]:
+        """The host state a restart needs: every live request in arrival
+        order with its partial output, the pool's published page
+        registrations, the finished responses and the engine's geometry
+        (no device tensor: pair it with ``self.cache`` to re-attach the
+        surviving KV).  The pipeline is flushed first, so the snapshot
+        holds every token the device produced."""
+        with tracing.current().span("snapshot"):
+            self._flush_pipeline()
+            now = self._clock()
+            entries = sorted(
+                list(self.sched.active.values()) + list(self.sched.waiting),
+                key=lambda e: e.arrival)
+            reqs = []
+            for entry in entries:
+                req = entry.req
+                dl = self._deadline_at.get(req.rid)
+                reqs.append({
+                    "rid": req.rid,
+                    "prompt": np.asarray(req.prompt, np.int32).tolist(),
+                    "output": list(req.output),
+                    "max_tokens": req.max_tokens,
+                    "temperature": req.temperature,
+                    "eos_id": req.eos_id,
+                    "format_policy": req.format_policy,
+                    "deadline": req.deadline,
+                    "deadline_remaining_ms": (
+                        None if dl is None
+                        else max(0.0, (dl - now) * 1000.0)),
+                })
+            return {
+                "version": 1,
+                "geometry": self._geometry(),
+                "requests": reqs,
+                "published": self.sched.pool.registrations(),
+                "responses": {int(rid): {"tokens": list(r),
+                                         "status": r.status}
+                              for rid, r in self._responses.items()},
+            }
+
+    def restore(self, snap: Dict[str, object], *, cache=None):
+        """Rebuild a freshly constructed engine from a :meth:`snapshot`:
+        finished responses carry over, live requests re-enter the queue
+        in arrival order (never shed: they were admitted once) and
+        re-prefill their prompt + generated window.  With ``cache`` (the
+        dying engine's) this engine adopts it and the snapshot's page
+        registrations, so re-admission aliases the published KV through
+        the prefix cache.  The adoption must come before any CUDA graph
+        is captured: a graph holds the addresses of the cache it was
+        captured over.  → self."""
+        with tracing.current().span("restore"):
+            geo = snap.get("geometry")
+            if geo != self._geometry():
+                raise ValueError(f"snapshot geometry {geo} does not match "
+                                 f"this engine {self._geometry()}")
+            if cache is not None:
+                spec = self.spec_step if self._spec_on else None
+                if self.decode_step.graphs or (spec is not None
+                                               and spec.graphs):
+                    raise RuntimeError(
+                        "restore(cache=): this engine has captured a CUDA "
+                        "graph over its own cache; restore into a fresh "
+                        "engine")
+                leaf = next(iter(cache["layers"][0].values()))
+                if leaf.device.type != self.device.type:
+                    raise ValueError(f"restore(cache=): the cache is on "
+                                     f"{leaf.device}, this engine on "
+                                     f"{self.device}")
+                self.cache = cache
+                self.sched.pool.restore_registrations(
+                    snap.get("published", ()))
+            for rid, rd in snap.get("responses", {}).items():
+                self._responses[int(rid)] = Response(
+                    rd["tokens"], rid=int(rid), status=rd["status"])
+            for rd in snap.get("requests", ()):
+                req = Request(
+                    rid=rd["rid"],
+                    prompt=np.asarray(rd["prompt"], np.int32),
+                    max_tokens=rd["max_tokens"],
+                    temperature=rd["temperature"],
+                    eos_id=rd["eos_id"],
+                    format_policy=rd["format_policy"],
+                    deadline=rd["deadline"],
+                    output=list(rd["output"]))
+                self.sched.submit(req)   # direct: re-admission is never shed
+                rem = rd.get("deadline_remaining_ms")
+                if rem is not None:
+                    self._deadline_at[req.rid] = (self._clock()
+                                                  + rem / 1000.0)
+        return self
+
     # -- helpers --------------------------------------------------------------
+    def _poisoned_token(self, val: float, req: Request) -> int:
+        """The token sampled on the host (JAX's ``_sample``) from a logits
+        row poisoned to the constant ``val``: its argmax, 0, for a greedy
+        request or a non-finite row (the token the device's sampler gives
+        such a row), else a draw from the host generator."""
+        row = np.full(self.cfg.vocab, val, np.float32)
+        if req.temperature <= 0.0 or not np.isfinite(val):
+            return int(np.argmax(row))
+        return self._categorical(self._softmax(row / req.temperature))
+
+    def _carry(self, tokens: Dict[int, int]) -> None:
+        """Write host-side tokens into the carried buffer ``_last_tok``
+        (slot -> token), which the next decode step reads: staged copies
+        on the stream, outside every captured graph."""
+        rows = self._stage.to_device(np.asarray(list(tokens), np.int64))
+        self._last_tok[rows, 0] = self._stage.to_device(
+            np.asarray(list(tokens.values()), np.int32))
+
     def _clear_slot(self, slot: int):
         self.slot_req[slot] = None
         self.slot_pos[slot] = 0

@@ -14,13 +14,18 @@ With ``microbatches`` > 1 the batch splits along its first axis, each
 microbatch's gradient is summed into f32 buffers, and the sum is divided
 once (one deferred reduction, as JAX's ``lax.scan`` accumulates it).
 
-Not ported: ``plan_cache_snapshot`` / ``restore_plan_cache``, which store
-the plan cache's JSON in a checkpoint; the port's plan cache has no JSON
-form yet (ROADMAP A4).
+Plan persistence: every GEMM of the first step requests its (shape,
+format)-keyed plan from the plan cache, so after that step the cache holds
+the training plan set.  :func:`plan_cache_snapshot` takes it as the plan
+cache's JSON document (:meth:`repro_torch.core.autotune.PlanCache.to_json`)
+for ``checkpoint.manager.CheckpointManager`` to store beside the model,
+and :func:`restore_plan_cache` warm-starts a restarted job from it; a
+snapshot of another substrate (another card, the CPU, the JAX package's
+file) restores nothing, with a message, and is never an error.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -28,7 +33,31 @@ from repro_torch.models import model as model_lib
 from repro_torch.optim.optimizer import AdamWConfig, adamw_update
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["make_train_step", "make_eval_step", "loss_and_grads"]
+__all__ = ["make_train_step", "make_eval_step", "loss_and_grads",
+           "plan_cache_snapshot", "restore_plan_cache"]
+
+
+def plan_cache_snapshot(device=None) -> Optional[dict]:
+    """The plans collected so far as a JSON document for ``device``'s
+    substrate (None: the card), or None when the cache is empty."""
+    from repro_torch.core import autotune
+    cache = autotune.plan_cache()
+    return cache.to_json(device) if len(cache) else None
+
+
+def restore_plan_cache(doc: Optional[dict], device=None) -> int:
+    """Warm-start the plan cache from a checkpoint's snapshot; → the
+    number of plans restored.  0 when there is none, or when it was made
+    on another substrate or by the JAX package: a job restarted on other
+    hardware plans afresh instead of failing its restore."""
+    if not doc:
+        return 0
+    from repro_torch.core import autotune
+    try:
+        return autotune.plan_cache().load_json(doc, device)
+    except (ValueError, KeyError, TypeError) as e:
+        print(f"[train] plan-cache restore skipped ({e})")
+        return 0
 
 
 def _requiring_grad(params):

@@ -4,9 +4,13 @@ routing, measured refinement (``measure=True`` on the CPU's host clock),
 the JSON warm start — plus what the telemetry slice adds: each package
 refuses the other's plan file, a file of another substrate is refused,
 the engine warm-starts from ``plan_cache_path`` with no solver call and
-the same streams, accepts ``slo_monitor``, still refuses every A6 option
-naming A6, and the serving launcher (``repro_torch.launch.serve``) writes
-artifacts both packages' validators accept."""
+the same streams, accepts ``slo_monitor`` and serves with every
+resilience option, and the serving launcher (``repro_torch.launch.serve``)
+writes artifacts both packages' validators accept and serves with the
+resilience flags.  Plus the training side of plan persistence: the
+snapshot in a checkpoint (``plan_cache_snapshot``,
+``CheckpointManager.save(gemm_plans=)``, ``restore_plans``) held to
+``tests/test_formats.py``'s contract."""
 import dataclasses
 import importlib
 import json
@@ -31,6 +35,7 @@ tref = LazyModule("repro_torch.kernels.ref")
 tschedule = LazyModule("repro_torch.graph.schedule")
 tserve = LazyModule("repro_torch.launch.serve")
 texport = LazyModule("repro_torch.telemetry.export")
+tres = LazyModule("repro_torch.serving.resilience")
 tacct = LazyModule("repro_torch.telemetry.gemm_account")
 treg = LazyModule("repro_torch.telemetry.registry")
 ttracing = LazyModule("repro_torch.telemetry.tracing")
@@ -406,11 +411,78 @@ def test_engine_takes_an_slo_monitor():
                                 dict(watchdog_s=1.0),
                                 dict(prefix_index_path="index.json")],
                          ids=lambda kw: next(iter(kw)))
-def test_engine_refuses_every_a6_option_naming_a6(kw):
+def test_engine_serves_with_every_a6_option(kw, tmp_path):
+    """Each resilience option of the engine on the CPU, under a tracer,
+    against a run without it: a poisoned request ends ``"poisoned"`` with
+    a ``fault.poison_logits`` instant; an engine-wide deadline of 5 ms on
+    a clock that advances 1 ms a read cancels requests with a prefix of
+    their output; shedding by queue depth or token watermark rejects the
+    later submits with ``request.shed`` instants; the watchdog changes no
+    token; the prefix index is written at the end of ``run()`` and warms
+    a second engine.  Unaffected requests equal the run without it."""
     cfg = torch_cfg()
     params = torch_model.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tengine.ServingEngine(params, cfg, **_KW, **kw)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, 20 + 5 * rid, dtype=np.int32)
+               for rid in range(3)]
+
+    def serve(**opts):
+        eng = tengine.ServingEngine(params, cfg, debug_audit=True, **_KW,
+                                    **opts)
+        shed = []
+        for rid, p in enumerate(prompts):
+            try:
+                eng.submit(tengine.Request(rid=rid, prompt=p, max_tokens=5))
+            except tres.Shed:
+                shed.append(rid)
+        out = eng.run()
+        eng.sched.pool.audit()
+        return eng, out, shed
+
+    _, base, _ = serve()
+    name, value = next(iter(kw.items()))
+    if name == "fault":
+        value = tres.FaultInjector.from_spec(value)
+    elif name == "prefix_index_path":
+        value = str(tmp_path / value)
+    clock = iter(np.arange(1, 10_000) * 1e-3)
+    opts = {name: value}
+    if name == "deadline_ms":
+        opts["clock"] = lambda: float(next(clock))
+    tracer = ttracing.install(ttracing.Tracer())
+    try:
+        eng, out, shed = serve(**opts)
+    finally:
+        ttracing.uninstall()
+    names = [e["name"] for e in tracer.events]
+    status = {rid: r.status for rid, r in out.items()}
+    hit = {"fault": {0}, "deadline_ms": {0, 1, 2}, "shed_queue_depth": {1, 2},
+           "shed_token_watermark": {1, 2}}.get(name, set())
+    want = {"fault": "poisoned", "deadline_ms": "deadline",
+            "shed_queue_depth": "shed", "shed_token_watermark": "shed"}
+    assert status == {rid: want[name] if rid in hit else "ok"
+                      for rid in range(3)}
+    for rid in range(3):
+        got = list(out[rid])
+        assert got == base[rid] if rid not in hit \
+            else got == base[rid][:len(got)] and len(got) < 5
+    if name == "fault":
+        assert value.fired == [(1, "poison_logits", 0)]
+        assert names.count("fault.poison_logits") == 1
+    if name.startswith("shed"):
+        assert shed == [1, 2] and names.count("request.shed") == 2
+        assert eng.metrics()["shed_requests"] == 2
+    if name == "deadline_ms":
+        assert eng.metrics()["cancelled_requests"] == 3
+    if name == "watchdog_s":
+        assert eng._watchdog is not None and not eng._watchdog._fired
+    if name == "prefix_index_path":
+        doc = json.load(open(value))
+        assert doc["registrations"] and doc["page_size"] == _KW["page_size"]
+        again = tengine.ServingEngine(params, cfg, prefix_index_path=value,
+                                      **_KW)
+        assert again.sched.pool.cached_pages == len(doc["registrations"])
+    assert eng.metrics()["free_pages"] == eng.metrics()["num_pages"] - 1
 
 
 # -- the serving launcher -----------------------------------------------------
@@ -420,7 +492,8 @@ def test_launcher_writes_artifacts_both_packages_accept(tmp_path, capsys):
     """``launch.serve.main`` on a reduced config on the CPU with the whole
     stack: health JSON, Prometheus text and trace pass both packages'
     validators; a second run warm-starts from the saved plan file and
-    serves the same tokens; the resilience flags reach the engine."""
+    serves the same tokens; the resilience flags reach the engine and
+    serve as they say."""
     files = {k: str(tmp_path / k) for k in ("h.json", "p.txt", "t.json",
                                             "plans.json")}
     base = ["--arch", "gemma_2b", "--reduced", "--device", "cpu",
@@ -452,8 +525,91 @@ def test_launcher_writes_artifacts_both_packages_accept(tmp_path, capsys):
     assert {r: list(v) for r, v in again.items()} == \
         {r: list(v) for r, v in out.items()}
     assert tautotune.cache_stats().solver_calls == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tserve.main(base + ["--deadline-ms", "50"])
+    # The resilience flags reach the engine: request 0 is poisoned, the
+    # 4th and 5th submits are shed, the rest finish within the deadline
+    # under the watchdog, and the prefix index is written.
+    index = str(tmp_path / "index.json")
+    res = tserve.main([*base[:6], "5", *base[7:], "--fault-plan",
+                       "poison_logits:rid=0,step=2", "--deadline-ms",
+                       "600000", "--shed-queue-depth", "3", "--watchdog-s",
+                       "60", "--prefix-index", index, "--debug-audit"])
+    text = capsys.readouterr().out
+    assert {r: v.status for r, v in res.items()} == {
+        0: "poisoned", 1: "ok", 2: "ok", 3: "shed", 4: "shed"}
+    assert "req 3 shed at submit" in text and "[poisoned]" in text
+    assert [list(res[r]) for r in (1, 2)] == [out[r] for r in (1, 2)]
+    assert json.load(open(index))["page_size"] == 16
     args = tserve.parse_args(["--arch", "gemma_2b", "--no-graph"])
     assert (args.device, args.slots, args.page_size, args.cache_len,
             args.slo, args.profile) == ("cuda", 4, 16, 128, False, False)
+
+
+# -- training-side plan persistence -------------------------------------------
+
+
+def test_plan_snapshot_roundtrip_through_checkpoint(tmp_path, capsys):
+    """``tests/test_formats.py``'s contract: an empty cache snapshots to
+    None; two plans survive a checkpoint (``save`` and ``save_async``) and
+    ``reset_cache`` and are restored as hits; ``restore`` hands the
+    manifest back with them; a corrupt snapshot, the JAX package's and
+    one of another substrate restore 0 plans with a message."""
+    ttrainer = importlib.import_module("repro_torch.training.trainer")
+    tckpt = importlib.import_module("repro_torch.checkpoint.manager")
+    jtrainer = importlib.import_module("repro.training.trainer")
+    assert ttrainer.plan_cache_snapshot("cpu") is None
+    _plan(8, 128, 256, fmt="fp32")
+    tautotune.get_plan(8, 128, 256, torch.int8, torch.int32, fmt="int8")
+    snap = ttrainer.plan_cache_snapshot("cpu")
+    assert snap and len(snap["plans"]) == 2
+
+    mgr = tckpt.CheckpointManager(str(tmp_path / "ckpt"))
+    params = {"w": torch.ones(2, 2)}
+    opt = {"m": torch.zeros(2, 2)}
+    mgr.save(3, params, opt, extra={"data": {"pos": 1}}, gemm_plans=snap)
+    mgr.save_async(4, params, opt, gemm_plans=snap)
+    mgr.wait()
+    for step in (3, None):
+        tautotune.reset_cache()
+        assert len(tautotune.plan_cache()) == 0
+        assert mgr.restore_plans(step, device="cpu") == 2
+    cache = tautotune.plan_cache()
+    tautotune.get_plan(8, 128, 256, torch.int8, torch.int32, fmt="int8")
+    assert cache.stats.hits == 1 and cache.stats.misses == 0
+    _, _, manifest = mgr.restore(None, (params, opt))
+    assert manifest["gemm_plans"]["version"] == "repro_torch/1"
+    assert manifest["step"] == 4
+
+    jautotune.get_plan(8, 128, 256, jnp.float32, fmt="fp32")
+    jsnap = jtrainer.plan_cache_snapshot()
+    card = dict(snap, substrate="NVIDIA H100 80GB HBM3 sm_90")
+    capsys.readouterr()
+    for doc in (jsnap, card, {"version": 99}):
+        tautotune.reset_cache()
+        assert ttrainer.restore_plan_cache(doc, "cpu") == 0
+        assert "plan-cache restore skipped" in capsys.readouterr().out
+        assert len(tautotune.plan_cache()) == 0
+    assert ttrainer.restore_plan_cache(None, "cpu") == 0
+    assert jtrainer.restore_plan_cache(snap) == 0   # and the other way
+    mgr.save(5, params, opt)                        # a checkpoint without
+    assert mgr.restore_plans(device="cpu") == 0
+
+
+def test_train_loop_resumes_with_the_checkpoint_plans(tmp_path):
+    """``launch.train.train_loop`` saves the plan snapshot with each
+    checkpoint and a resumed run restores it before its first step, so
+    that step solves no plan."""
+    tlaunch = importlib.import_module("repro_torch.launch.train")
+    cfg = dataclasses.replace(torch_cfg(), n_layers=2, d_model=64, d_ff=128,
+                              vocab=128, n_heads=2, n_kv_heads=1,
+                              head_dim=32)
+    kw = dict(batch=2, seq=16, ckpt_dir=str(tmp_path / "ck"), ckpt_every=1,
+              device="cpu")
+    tlaunch.train_loop(cfg, steps=2, log=lambda *a: None, **kw)
+    n_plans = len(tautotune.plan_cache())
+    assert n_plans > 0
+    tautotune.reset_cache()
+    tschedule.reset_programs()
+    logs = []
+    tlaunch.train_loop(cfg, steps=3, log=logs.append, **kw)
+    assert f"[train] restored step 2, {n_plans} warm GEMM plans" in logs
+    assert tautotune.cache_stats().solver_calls == 0

@@ -4,7 +4,7 @@ engine's greedy streams, statuses and counters on gemma_2b.reduced() in
 fp32 (JAX: eager kernel path, synchronous steps, no grouped q/k/v), with
 a shared prefix and a pool large enough that nothing is evicted.  Plus
 the port's own contract: fp32 outputs bit-identical with the prefix cache
-on and off."""
+on and off, and the resilience options served on the CPU."""
 import numpy as np
 import pytest
 
@@ -20,6 +20,7 @@ from torch_parity import jax_cfg, jax_params, torch_cfg, torch_model
 tkv = LazyModule("repro_torch.serving.kv_cache")
 tsched = LazyModule("repro_torch.serving.scheduler")
 tengine = LazyModule("repro_torch.serving.engine")
+tres = LazyModule("repro_torch.serving.resilience")
 
 
 @pytest.mark.parametrize("page,salt", [(8, "gemma_2b|None|None"),
@@ -175,11 +176,66 @@ def test_prefix_cache_fp32_bit_identical_on_and_off():
                                 dict(deadline_ms=5.0),
                                 dict(watchdog_s=1.0),
                                 dict(shed_queue_depth=1)])
-def test_engine_refuses_unported_options(kw):
+def test_engine_serves_with_resilience_options(kw, tmp_path):
+    """The engine on the CPU with one resilience option, against the same
+    requests without it (shared prefix, nothing evicted): the prefix index
+    saved at the end of ``run()`` holds every published page and lets a
+    second engine handed the cache alias the whole shared prefix; a 5 ms
+    per-request deadline on a clock that advances 2 ms a read cancels
+    request 0 with a prefix of its tokens and no other; the watchdog
+    leaves every token as it was; a queue depth of 1 sheds the submits
+    that find a request waiting."""
     cfg = torch_cfg()
-    params = torch_model.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.ServingEngine(params, cfg, device="cpu", **kw)
+    params = torch_model.init_params(cfg, seed=0, device="cpu")
+    prompts = _prompts(cfg.vocab)
+    base = _serve(tengine.ServingEngine(params, cfg, device="cpu", **_KW),
+                  tengine.Request, prompts)
+    name, value = next(iter(kw.items()))
+    opts = dict(kw)
+    if name == "prefix_index_path":
+        opts[name] = value = str(tmp_path / value)
+    if name == "deadline_ms":
+        # Request 0's own deadline, on a clock that advances 2 ms a read.
+        reads = iter(range(1, 100_000))
+        opts = {"clock": lambda: 2e-3 * next(reads)}
+    eng = tengine.ServingEngine(params, cfg, device="cpu", debug_audit=True,
+                                **_KW, **opts)
+    shed = []
+    for rid, p in enumerate(prompts):
+        req = tengine.Request(rid=rid, prompt=p, max_tokens=6,
+                              deadline_ms=value if rid == 0
+                              and name == "deadline_ms" else None)
+        try:
+            eng.submit(req)
+        except tres.Shed as e:
+            shed.append(e.rid)
+    out = eng.run()
+    eng.sched.pool.audit()
+    changed = {"deadline_ms": {0}, "shed_queue_depth": {1, 2}}.get(
+        name, set())
+    for rid in base:
+        if rid not in changed:
+            assert out[rid].status == "ok"
+            assert list(out[rid]) == list(base[rid]), (name, rid)
+        else:
+            assert len(out[rid]) < 6
+            assert list(out[rid]) == list(base[rid])[:len(out[rid])]
+    if name == "deadline_ms":
+        assert out[0].status == "deadline"
+    if name == "shed_queue_depth":
+        assert shed == [1, 2] and {out[r].status for r in shed} == {"shed"}
+    if name == "watchdog_s":
+        assert eng._watchdog.timeout_s == 1.0 and not eng._watchdog._fired
+    if name == "prefix_index_path":
+        pool = eng.sched.pool
+        assert tkv.KVPagePool(pool.num_pages, pool.page_size).load_index(
+            value) == len(pool.registrations()) > 0
+        again = tengine.ServingEngine(params, cfg, device="cpu", **_KW,
+                                      **opts)
+        again.cache = eng.cache
+        got = _serve(again, tengine.Request, prompts[:1])
+        assert list(got[0]) == list(base[0])
+        assert again.sched.pool.prefix_hit_pages == 2
 
 
 def test_engine_without_a_card_raises_instead_of_using_the_cpu():

@@ -4,11 +4,12 @@ gemm_account) against the JAX package's, case for case with
 snapshots sample for sample, traces each package's validator accepts,
 ``shape_class`` on a grid, the traffic table's text, and the multiset of
 dispatch keys (m, n, k, fmt, policy, group) of a reduced gemma_2b forward
-and the set of an engine run.  The fault-instant case waits for the
-port of serving resilience (ROADMAP A6)."""
+and the set of an engine run, and the ``fault.<kind>`` instant of a fault
+firing."""
 import collections
 import dataclasses
 import functools
+import importlib
 import json
 
 import jax.numpy as jnp
@@ -342,6 +343,28 @@ def test_format_table_empty_and_aggregation():
     assert rows[1]["dispatches"] == 2
     assert "4 distinct compiled" in acct.format_table()
     assert acct.format_table() == ref.format_table()
+
+
+def test_fault_firing_emits_trace_instant():
+    """A firing marks the installed trace with a ``fault.<kind>`` instant,
+    as the JAX injector's does; without a tracer it is still logged."""
+    tres = importlib.import_module("repro_torch.serving.resilience")
+    jres = importlib.import_module("repro.serving.resilience")
+    events = {}
+    for name, tracing_mod, res in (("torch", ttracing, tres),
+                                   ("jax", jtracing, jres)):
+        tr = tracing_mod.install(tracing_mod.Tracer())
+        inj = res.FaultInjector([res.Fault("poison_logits", rid=0, step=1)])
+        assert inj.poison_value(0, 0) is None     # before step: no firing
+        assert inj.poison_value(1, 0) is not None
+        tracing_mod.uninstall()
+        assert [e["name"] for e in tr.events] == ["fault.poison_logits"]
+        assert tr.events[0]["args"]["step"] == 1
+        events[name] = [(e["name"], e["ph"], e["args"]) for e in tr.events]
+        inj2 = res.FaultInjector([res.Fault("poison_logits", rid=0, step=1)])
+        assert inj2.poison_value(1, 0) is not None
+        assert inj2.fired == [(1, "poison_logits", 0)]
+    assert events["torch"] == events["jax"]
 
 
 def test_pool_describe_structured_and_string():
