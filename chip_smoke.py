@@ -104,7 +104,8 @@ Phases (any failure raises and the script exits non-zero):
    the stacked operands, ``F.gelu`` or ``F.scaled_dot_product_attention``;
    none for B7, and none for a softcapped attention row, whose SDPA time
    without the softcap is kept apart), timed only as a yardstick; the
-   decode rows of B2, B3, B4
+   decode rows of B2, B3, B4 (B4's SIMT kernel also over int8pt pages at
+   gemma_2b's decode, ``KVQ_ROWS``)
    and B6 also with the L2 cache cold and at every cluster size, B7's
    staged engine cold too, and B8's
    pass at three shapes (the prefill gate's gelu, the same with beta*C +
@@ -164,6 +165,14 @@ Phases (any failure raises and the script exits non-zero):
    its defaults (the armed injector pins depth 1) against the CPU's:
    exactly one restart on each, statuses and firings equal, the untouched
    requests equal to each side's fault-free run, every audit clean.
+   Then the ``"torch"`` GEMM backend (JAX's ``"xla"``: the library's
+   products and the plain attention, ``reduced_torch_phase``): reduced
+   gemma_2b, recurrentgemma_9b and granite_moe_1b in fp32, the card's
+   engine (async + graph) against the CPU's (sync, eager), equal greedy
+   streams and not one launch of a kernel of the port, gemma_2b also with
+   ``spec_k=4`` (equal to vanilla); and reduced gemma_2b with
+   ``cache_quant=True``: int8pt pages, B4's SIMT kernel on the card,
+   streams equal card to CPU.
 4. Full-width serving (``CONFIGS``, ``WORKLOADS``) in bf16 with seeded
    random weights, 4 slots, 16-token pages, 512-token prefill chunks, 6
    requests × 24 greedy tokens: gemma_2b (18 layers, d_model 2048, vocab
@@ -202,7 +211,15 @@ Phases (any failure raises and the script exits non-zero):
    weights from seed 0; 4096-token prompts, so each slot's SSD state and
    conv ring resume over 8 chunks; no prefix cache; every kernel counter
    0, the decode step replayed as a CUDA graph of plain PyTorch, the
-   SSD state's bytes and the scan's operations in ``step_bounds``), each
+   SSD state's bytes and the scan's operations in ``step_bounds``), and
+   two configurations of gemma_2b served in run (b) only (``B_ONLY``):
+   ``torch`` (``gemm_backend="torch"``: every kernel counter 0; the share
+   of its greedy tokens equal to [default]'s and the largest logit
+   difference of a first decode step on the same weights through both
+   backends are printed, not required) and ``kvq`` ([default] with
+   ``cache_quant=True``, so int8pt pages: 18 ``flash_decode_paged``
+   launches a step, none on B4's mma engine; its paged KV bytes against
+   [default]'s, below 0.7x), each
    engine freed before the next is built.  Each configuration is served
    twice: (a) with ``async_steps=False`` and the eager decode step,
    synchronised around
@@ -291,7 +308,12 @@ Phases (any failure raises and the script exits non-zero):
    (as many) and B5 (48) on their wgmma engines only.  It prints the
    device ms and idle share of a decode step, the prefill and the forward
    against their bounds (``model_level_bounds``) and the peak memory
-   beside what is held.
+   beside what is held.  musicgen_medium is then decoded again from the
+   same prefill into int8 caches (``cache_quant``, ``CACHE_QUANT_RUNS``),
+   held to the reference's contract against the bf16 caches' decode
+   logits (max |diff| / max |logit| < 0.05, argmax on >= 95% of the
+   (step, row) entries, < 0.7x the cache bytes), B6 once per layer and
+   step over the cache dequantized to bf16, a step's device ms printed.
 
 7. Training (``TRAIN``).  (a) Card against CPU: reduced gemma_2b in
    fp32, under ``gemm_policy="amx"`` (every GEMM on B8, stage 1 on the
@@ -319,7 +341,16 @@ Phases (any failure raises and the script exits non-zero):
    ``epilogue_pass``, the first loss within 2e-2 x (1 + |ref|) of (b)'s;
    it prints the same figures and the profiled step's device time by
    kernel (the unsplit k/v dB, the B^T copies, the accumulators' round
-   trips and the epilogue passes stand apart).
+   trips and the epilogue passes stand apart).  (d) (b) under
+   ``remat="dots"``: the first loss and grad norm equal (b)'s bit for bit
+   (or within 1e-6, printed as not deterministic), 126 fewer B1 wgmma
+   launches a step than (b) (the forward's GEMMs are kept, not
+   recomputed), every backward GEMM still on the SIMT engine, the peak
+   memory of step 2 within 1% of step 1's, printed beside (b)'s and the
+   kept GEMM outputs' reckoning (``kept_gemm_gb``).  (e) (b) on the
+   ``"torch"`` GEMM backend: no kernel of the port launches, the first
+   loss within 2e-2 x (1 + |ref|) of (b)'s, the step's device time by
+   kernel printed.
 
 8. The paper's convolutions (``CONV_SUITE``, §V-B2): the 75 unique
    layers of ResNet-50, VGG-16, SqueezeNet 1.1, Inception-v3 and
@@ -2384,21 +2415,33 @@ def decode_phase(dev, rows):
                              "shape": shape, "max_abs_err": err,
                              "tol": 1e-2})
 
-    def main_path(label, b, h, hkv, d, page, lens, dtype, tol, **kw):
+    def main_path(label, b, h, hkv, d, page, lens, dtype, tol, int8=False,
+                  **kw):
         q, kp, vp, table, lens_t = paged_inputs(
             dev, b=b, h=h, hkv=hkv, d=d, page=page, lens=lens, dtype=dtype,
             gen=gen)
+        scales = ()
+        if int8:
+            # int8pt pages, as the engine writes them under cache_quant:
+            # one scale per (token, head), q in the compute dtype.
+            (kp, ks), (vp, vs) = (_quantize_kv(x, per_channel=False)
+                                  for x in (kp, vp))
+            scales = (ks, vs)
         name = kernel_of(q, kp)
         run = lambda: flash_decode_paged_kernel(  # noqa: E731
-            q, kp, vp, table, lens_t, **kw)
+            q, kp, vp, table, lens_t, *scales, **kw)
         plain = lambda: flash_decode_paged_torch(  # noqa: E731
-            q, kp, vp, table, lens_t, **kw)
+            q, kp, vp, table, lens_t, *scales, **kw)
         want = plain()
         got = run()
         err = check(f"{name} main-path {label}", got, want, tol)
         idx = table.clamp(min=0).long()
-        kg = kp[idx].reshape(b, -1, hkv, d).permute(0, 2, 1, 3)
-        vg = vp[idx].reshape(b, -1, hkv, d).permute(0, 2, 1, 3)
+        kd, vd = kp, vp
+        if int8:                       # the library call reads them widened
+            kd, vd = (x.to(dtype) * s_.to(dtype) for x, s_ in zip(
+                (kp, vp), scales))
+        kg = kd[idx].reshape(b, -1, hkv, d).permute(0, 2, 1, 3)
+        vg = vd[idx].reshape(b, -1, hkv, d).permute(0, 2, 1, 3)
         pos = torch.arange(kg.shape[2], device=dev)[None]
         mask = ((pos < lens_t[:, None].long())
                 & (table >= 0).repeat_interleave(page, 1))[:, None, None, :]
@@ -2410,7 +2453,8 @@ def decode_phase(dev, rows):
         live = sum(lens)
         elt = q.element_size()
         flops = 4.0 * live * h * d
-        nbytes = (elt * (2 * live * hkv * d + 2 * b * h * d)
+        kv_elt = (d + 4) / d if int8 else elt     # int8 values, f32 scales
+        nbytes = (kv_elt * 2 * live * hkv * d + elt * 2 * b * h * d
                   + 4 * (table.numel() + b))
         peak = PEAK["bf16" if dtype == torch.bfloat16 else "fp32"]
         row = {"kernel": name, "shape": label, "max_abs_err": err,
@@ -2443,6 +2487,9 @@ def decode_phase(dev, rows):
     # D = 32, 8-token pages (the SIMT kernel).
     main_path("4 slots x 8 heads x 256, ~1035 tokens", 4, 8, 1, 256, 16,
               [1030, 1041, 1024, 1047], torch.bfloat16, 1e-2)
+    # The same decode over int8pt pages (phase 4's kvq): the SIMT kernel.
+    main_path(KVQ_ROWS["flash_decode_paged"], 4, 8, 1, 256, 16,
+              [1030, 1041, 1024, 1047], torch.bfloat16, 1e-2, int8=True)
     main_path("g2 4 slots x 32/16 heads x 128, ~4620 tokens, softcap 50",
               4, 32, 16, 128, 16, [4615, 4626, 4609, 4632], torch.bfloat16,
               1e-2, **GEMMA2_ATTN)
@@ -2867,7 +2914,12 @@ CONFIGS = {
     "amx-int8": ("gemma_2b", {"gemm_policy": "amx"}),
     "granite": ("granite_moe_1b", {}),
     "mamba2": ("mamba2_130m", {}),
+    "torch": ("gemma_2b", {"gemm_backend": "torch"}),
+    "kvq": ("gemma_2b", {"cache_quant": True}),
 }
+# Configurations served in run (b) only, to save time: both are gemma_2b
+# beside [default]'s (a) and (b) on the same weights and workload.
+B_ONLY = ("torch", "kvq")
 # Engine arguments of a configuration: ``int8`` serves gemma_2b under the
 # engine's ``format_policy="int8"`` (its f32 weights quantized at every
 # call, as the JAX engine serves them), ``amx-int8`` the same under the
@@ -2905,6 +2957,13 @@ PATH_KERNELS = {
     # move: a configuration absent from NOT_ON_PATH holds every counter
     # at 0.
     "mamba2": (),
+    # torch: gemma_2b on the library's products and the plain attention
+    # (JAX's "xla" backend): no kernel of the port, every counter at 0.
+    "torch": (),
+    # kvq: [default] with cache_quant, so int8pt pages, which B4's SIMT
+    # kernel reads (its mma engine takes bf16 pages only).
+    "kvq": ("mte_gemm_wgmma", "splitk_gemm_cluster", "grouped_gemm_splitk",
+            "flash_decode_paged", "flash_attention_wgmma"),
 }
 # Counters that must stay 0 at full width: every bf16 B1 launch (all of
 # them prefill projections) and every bf16 B8 stage-1 launch runs on the
@@ -2949,6 +3008,8 @@ NOT_ON_PATH = {
                  "grouped_gemm_splitk_s8", "grouped_gemm_wgmma",
                  "grouped_gemm_wgmma_s8", "grouped_gemm_simt",
                  "flash_decode_paged", "flash_attention"),
+    "kvq": ("mte_gemm", "splitk_gemm", "grouped_gemm", "grouped_gemm_simt",
+            "flash_decode_paged_mma", "flash_attention"),
     # granite (its published int8): no tile loop, no SIMT kernel and no
     # bf16 or f32 GEMM engine; the experts run B3's s8 entries, the
     # prefill projections B1's, the decode o B2's.
@@ -3001,6 +3062,8 @@ DECODE_STEP_LAUNCHES = {
     "granite": {"grouped_gemm_splitk_s8": 24 * 4,
                 "splitk_gemm_cluster_s8": 24, "flash_decode_paged_mma": 24},
     "mamba2": {},
+    "torch": {},
+    "kvq": {"splitk_gemm_cluster": 72, "flash_decode_paged": 18},
 }
 # The counter of the decode step's grouped q/k/v where it is not B3's
 # bf16 split-K entry: int8 groups of 4 rows run its s8 entry.  A MoE
@@ -4239,6 +4302,98 @@ def reduced_fault_phase(dev):
 
 # -- phase 4: full-width serving ---------------------------------------------
 
+# Phase 3's reduced engines on the "torch" GEMM backend (JAX's "xla"):
+# the library's products and the plain attention, no kernel of the port.
+REDUCED_TORCH = ("gemma_2b", "recurrentgemma_9b", "granite_moe_1b")
+
+
+def reduced_torch_phase(dev):
+    """Reduced gemma_2b, recurrentgemma_9b and granite_moe_1b (fp32) on
+    ``gemm_backend="torch"``, card against CPU: the card's engine in its
+    defaults (async, the decode step a CUDA graph) against the CPU's
+    synchronous eager one, equal greedy streams, and not one launch of a
+    kernel of the port on the card; gemma_2b's engine also with
+    ``spec_k=4`` (``reduced_spec_check``: card and CPU equal to vanilla,
+    still no launch).  Then reduced gemma_2b on the kernels with
+    ``cache_quant=True``: the engine serves int8pt pages (B4's SIMT
+    kernel on the card), streams equal card to CPU.  → the card's launch
+    counts (``reduced-torch-<arch>``, ``reduced-torch-spec``,
+    ``reduced-kvq``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    rng = np.random.default_rng(0)
+    head = rng.integers(0, 512, 24, dtype=np.int32)
+    prompts = [np.concatenate([head, rng.integers(0, 512, 8,
+                                                  dtype=np.int32)])
+               for _ in range(3)] + [rng.integers(0, 512, 20,
+                                                  dtype=np.int32)]
+    kw = dict(slots=2, cache_len=64, prefill_len=32, page_size=8,
+              prefill_chunk=16)
+    path_counts = {}
+
+    def serve(cfg, params_cpu, params_gpu, label):
+        outs = {}
+        for device, params in ((dev, params_gpu), ("cpu", params_cpu)):
+            reset_planning()
+            eng = ServingEngine(params, cfg, device=device,
+                                async_steps=device == dev, **kw)
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=p, max_tokens=8))
+            build.reset_launch_counts()
+            outs[str(device)] = eng.run()
+            counts = build.launch_counts()
+            if device == dev:
+                require(eng.decode_step.graph and eng.decode_step.graphs,
+                        f"[{label}] the card's decode step was not replayed "
+                        f"as a CUDA graph")
+                card_counts, card_eng = counts, eng
+        for rid in outs["cpu"]:
+            require(outs[str(dev)][rid].status == "ok", outs[str(dev)][rid])
+            require(list(outs[str(dev)][rid]) == list(outs["cpu"][rid]),
+                    f"[{label}] greedy stream of request {rid} differs")
+        log(f"  reduced engine [{label}]: "
+            f"{ {r: list(v) for r, v in outs['cpu'].items()} } identical "
+            f"on cuda (async + graph) and cpu (synchronous, eager); the "
+            f"card's launches {({k: v for k, v in card_counts.items() if v})}")
+        return outs["cpu"], card_counts, card_eng
+
+    for arch in REDUCED_TORCH:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  gemm_backend="torch")
+        params_cpu = model_lib.init_params(cfg, seed=0, device="cpu")
+        params_gpu = to_device(params_cpu, dev)
+        label = f"torch {arch}"
+        vanilla, counts, _ = serve(cfg, params_cpu, params_gpu, label)
+        require(not any(counts.values()), f"[{label}] kernels of the port "
+                f"launched on the torch backend: {counts}")
+        path_counts[f"reduced-torch-{arch}"] = counts
+        if arch == "gemma_2b":
+            counts = reduced_spec_check(dev, f"[{label}]", cfg, params_cpu,
+                                        params_gpu, prompts, kw, vanilla)
+            require(not any(counts.values()), f"[{label}] spec_k={SPEC_K}: "
+                    f"kernels of the port launched: {counts}")
+            path_counts["reduced-torch-spec"] = counts
+    cfg = dataclasses.replace(get_config("gemma_2b").reduced(),
+                              cache_quant=True)
+    params_cpu = model_lib.init_params(cfg, seed=0, device="cpu")
+    _, counts, eng = serve(cfg, params_cpu, to_device(params_cpu, dev),
+                           "kvq gemma_2b")
+    pages = eng.cache["layers"][0]
+    require(eng.cfg.kv_cache_format == "int8pt" and not eng.cfg.cache_quant
+            and pages["k_pages"].dtype == torch.int8 and "k_scale" in pages,
+            f"[kvq] the engine serves {eng.cfg.kv_cache_format} pages of "
+            f"{pages['k_pages'].dtype}")
+    require(counts["flash_decode_paged"] > 0, "[kvq] B4's int8-page engine "
+            "(flash_decode_paged) not launched on the card")
+    path_counts["reduced-kvq"] = counts
+    return path_counts
+
+
 MAX_TOKENS = 24
 
 
@@ -4367,7 +4522,62 @@ def serve_prompts(eng, name, prompts, cfg):
     return out, counts, wall, torch.cuda.max_memory_allocated()
 
 
-def serving_phase(dev, name):
+def against_default(name, eng, prompts, out_b, reckoning, default, dev):
+    """[``name``] beside [default]'s run on the same weights: for
+    ``torch`` the share of greedy tokens equal to [default]'s (the two
+    backends compute other products, so equality is not required) and
+    the largest logit difference of a first decode step after a
+    512-token prefill chunk, the same engine weights run through both
+    backends; for ``kvq`` the paged KV bytes held against [default]'s
+    (int8 values and f32 scales against bf16)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as model_lib
+
+    if name == "kvq":
+        kv, kv_default = (r["paged_kv"] for r in (
+            reckoning, default["async"]["memory_reckoning"]))
+        log(f"  [kvq] paged KV held {kv:.4f} GB against [default]'s "
+            f"{kv_default:.4f} GB ({kv / kv_default:.4f}x)")
+        require(kv < 0.7 * kv_default, f"[kvq] int8pt pages hold {kv} GB "
+                f"against {kv_default}")
+        return {"paged_kv_gb": kv, "default_paged_kv_gb": kv_default,
+                "ratio": kv / kv_default}
+    same = sum(a == b for rid, toks in default["streams"].items()
+               for a, b in zip(toks, out_b[rid]))
+    total = sum(len(toks) for toks in default["streams"].values())
+    logits = {}
+    for backend in ("torch", "kernels"):
+        cfg = dataclasses.replace(eng.cfg, gemm_backend=backend)
+        cache = model_lib.init_paged_cache(cfg, 1, 1024, num_pages=65,
+                                           page_size=16, device=dev)
+        table = torch.arange(1, 65, dtype=torch.int32, device=dev)[None]
+        toks = torch.as_tensor(prompts[1][:512].astype(np.int64),
+                               device=dev)
+        first, cache = model_lib.prefill_chunk(
+            eng.params, {"tokens": toks[None], "page_table": table}, cache,
+            cfg, pos0=0)
+        step, _ = model_lib.decode(
+            eng.params, {"tokens": first.argmax(-1)[:, None].int(),
+                         "pos": torch.tensor([512], device=dev),
+                         "page_table": table}, cache, cfg)
+        logits[backend] = (first, step)
+        del cache
+    diff = float((logits["torch"][1] - logits["kernels"][1]).abs().max())
+    span = float(logits["kernels"][1].abs().max())
+    same_first = bool(torch.equal(logits["torch"][0].argmax(-1),
+                                  logits["kernels"][0].argmax(-1)))
+    log(f"  [torch] greedy tokens equal to [default]'s: {same} of {total} "
+        f"({same / total:.4f}); first decode step after a 512-token chunk, "
+        f"the same weights on both backends: max |logit diff| {diff:.4e} "
+        f"(max |logit| {span:.4e}), the chunk's argmax equal: {same_first}")
+    return {"tokens_equal": same, "tokens": total,
+            "share_equal": same / total,
+            "first_decode_max_abs_logit_diff": diff,
+            "first_decode_max_abs_logit": span}
+
+
+def serving_phase(dev, name, serving=None):
     """Serve configuration ``name`` at full width (bf16, seed 0) on its
     arch's workload (``WORKLOADS``), twice: (a) synchronous with the eager
     decode step (``async_steps=False, cuda_graph=False``), synchronised
@@ -4376,7 +4586,9 @@ def serving_phase(dev, name):
     defaults (async, depth 2, the decode step replayed as a CUDA graph)
     with nothing synchronised inside.  Launch counters are zeroed just
     before each run and read just after; the greedy tokens of (a) and (b)
-    must be equal request for request."""
+    must be equal request for request.  A configuration of ``B_ONLY``
+    runs (b) alone and is compared with [default]'s run in ``serving``
+    (``against_default``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -4431,25 +4643,29 @@ def serving_phase(dev, name):
     def serve(eng):
         return serve_prompts(eng, name, prompts, cfg)
 
-    eng = build_engine(TimedEngine, async_steps=False, cuda_graph=False)
-    eng.label = " (a) sync eager"
-    out_a, counts_a, wall_a, peak_a = serve(eng)
-    m = eng.metrics()
-    log(f"  [{name} (a)] prefill: {timing['prefill_tokens']} tokens in "
-        f"{timing['prefill_s']:.3f} s = "
-        f"{timing['prefill_tokens'] / timing['prefill_s']:.1f} tokens/s")
-    log(f"  [{name} (a)] decode: {timing['decode_tokens']} tokens in "
-        f"{timing['decode_steps']} steps, {timing['decode_s']:.3f} s = "
-        f"{timing['decode_tokens'] / timing['decode_s']:.1f} tokens/s, "
-        f"{1e3 * timing['decode_s'] / timing['decode_steps']:.3f} ms/step")
-    log(f"  [{name} (a)] peak memory: {peak_a / 2**30:.2f} GiB; "
-        f"prefix_hit_pages={m['prefix_hit_pages']}, prefill_tokens="
-        f"{m['prefill_tokens']}, cached_prefill_tokens="
-        f"{m['cached_prefill_tokens']}")
-    if work["shared"]:
-        require(m["prefix_hit_pages"] > 0, m)
-    del eng
-    free_card()
+    b_only = name in B_ONLY
+    out_a = counts_a = wall_a = peak_a = None
+    if not b_only:
+        eng = build_engine(TimedEngine, async_steps=False, cuda_graph=False)
+        eng.label = " (a) sync eager"
+        out_a, counts_a, wall_a, peak_a = serve(eng)
+        m = eng.metrics()
+        log(f"  [{name} (a)] prefill: {timing['prefill_tokens']} tokens in "
+            f"{timing['prefill_s']:.3f} s = "
+            f"{timing['prefill_tokens'] / timing['prefill_s']:.1f} tokens/s")
+        log(f"  [{name} (a)] decode: {timing['decode_tokens']} tokens in "
+            f"{timing['decode_steps']} steps, {timing['decode_s']:.3f} s = "
+            f"{timing['decode_tokens'] / timing['decode_s']:.1f} tokens/s, "
+            f"{1e3 * timing['decode_s'] / timing['decode_steps']:.3f} "
+            f"ms/step")
+        log(f"  [{name} (a)] peak memory: {peak_a / 2**30:.2f} GiB; "
+            f"prefix_hit_pages={m['prefix_hit_pages']}, prefill_tokens="
+            f"{m['prefill_tokens']}, cached_prefill_tokens="
+            f"{m['cached_prefill_tokens']}")
+        if work["shared"]:
+            require(m["prefix_hit_pages"] > 0, m)
+        del eng
+        free_card()
 
     eng = build_engine(step_timed_engine())
     eng.label = " (b) async graph"
@@ -4461,7 +4677,7 @@ def serving_phase(dev, name):
         f"{ {k: round(v, 3) for k, v in reckoning.items()} }; peak "
         f"allocated {peak_b / 1e9:.3f} GB = {peak_b / 2**30:.2f} GiB")
     m = eng.metrics()
-    for rid in out_a:
+    for rid in out_a or ():
         require(list(out_b[rid]) == list(out_a[rid]),
                 f"[{name}] request {rid}: the async + graph run's greedy "
                 f"tokens differ from the synchronous eager run's")
@@ -4490,12 +4706,14 @@ def serving_phase(dev, name):
         "captured_deltas": {str(k): v[2]
                             for k, v in eng.decode_step.graphs.items()},
         "peak_memory_gib": peak_b / 2**30, "memory_reckoning": reckoning}
-    log(f"  [{name} (b)] greedy tokens equal to (a) for all {len(out_a)} "
-        f"requests; steps_in_flight_max {eng.steps_in_flight_max}, "
+    log(f"  [{name} (b)] "
+        + (f"greedy tokens equal to (a) for all {len(out_a)} requests; "
+           if out_a else "")
+        + f"steps_in_flight_max {eng.steps_in_flight_max}, "
         f"delivery_lag_mean {m['delivery_lag_mean']:.3f}; step "
         f"{eng.sync_checked_at} ran under set_sync_debug_mode('error') "
         f"with no sync but the retire's event wait")
-    log(f"  [{name} (b)] run wall {wall_b:.3f} s (a: {wall_a:.3f} s), "
+    log(f"  [{name} (b)] run wall {wall_b:.3f} s (a: {wall_a} s), "
         f"{async_run['decode_tokens_per_s']:.1f} decode tokens/s over the "
         f"run; {len(steady)} steady steps (no prefill chunk): "
         f"{async_run['steady_ms_per_step_mean']:.3f} ms/step mean, "
@@ -4555,7 +4773,7 @@ def serving_phase(dev, name):
     require(profile["decode_replay"]["wrapper_launches"]
             == profile["decode_step"]["wrapper_launches"],
             f"[{name}] a replay counts other launches than the eager step")
-    if kinds.count("attn"):
+    if kinds.count("attn") and PATH_KERNELS[name]:
         require(per_chunk.get("flash_attention_wgmma") == kinds.count("attn"),
                 f"[{name}] {per_chunk.get('flash_attention_wgmma')} wgmma "
                 f"B5 launches per prefill chunk, want {kinds.count('attn')}")
@@ -4577,8 +4795,8 @@ def serving_phase(dev, name):
     if not PATH_KERNELS[name]:
         require(not per_chunk, f"[{name}] prefill chunk: kernel launches "
                 f"{per_chunk}; the path runs none")
-        log(f"  [{name}] no kernel counter moved in (a), (b) or the "
-            f"profiled calls: the SSD path is plain PyTorch, as JAX's is "
+        log(f"  [{name}] no kernel counter moved in the runs or the "
+            f"profiled calls: the path is plain PyTorch, as JAX's is "
             f"plain jnp")
     if name in CHUNK_LAUNCHES:
         for kernel, want in CHUNK_LAUNCHES[name].items():
@@ -4589,21 +4807,30 @@ def serving_phase(dev, name):
             f"engine ({per_chunk}) and no int8 tile loop; the decode "
             f"step's launches by counter: "
             f"{profile['decode_step']['wrapper_launches']}")
+    # After the plans and programs above are listed: the torch check
+    # runs the kernels on the same weights.
+    against = (against_default(name, eng, prompts, out_b, reckoning,
+                               serving["default"], dev)
+               if b_only else {})
     summary = {
         "config": name, "arch": arch, "requests": len(out_b),
         "max_tokens": MAX_TOKENS,
         "streams": {rid: list(resp) for rid, resp in out_b.items()},
-        "prefill_tokens_per_s": timing["prefill_tokens"]
-        / timing["prefill_s"],
-        "decode_tokens_per_s": timing["decode_tokens"] / timing["decode_s"],
-        "ms_per_decode_step": 1e3 * timing["decode_s"]
-        / timing["decode_steps"],
-        "decode_steps": timing["decode_steps"],
-        "prefill_chunks": timing["prefill_tokens"] // 512,
-        "peak_memory_gib": peak_a / 2**30, "wall_s": wall_a,
         "prefix_hit_pages": m["prefix_hit_pages"],
         "launch_counts_sync": counts_a, "launch_counts": counts,
-        "async": async_run, "programs": programs, "profile": profile}
+        "async": async_run, "programs": programs, "profile": profile,
+        "against_default": against}
+    if out_a is not None:
+        summary.update({
+            "prefill_tokens_per_s": timing["prefill_tokens"]
+            / timing["prefill_s"],
+            "decode_tokens_per_s": timing["decode_tokens"]
+            / timing["decode_s"],
+            "ms_per_decode_step": 1e3 * timing["decode_s"]
+            / timing["decode_steps"],
+            "decode_steps": timing["decode_steps"],
+            "prefill_chunks": timing["prefill_tokens"] // 512,
+            "peak_memory_gib": peak_a / 2**30, "wall_s": wall_a})
     del eng
     free_card()
     return counts, summary
@@ -4643,7 +4870,8 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
     q/k/v), the f32 LM-head copy, the KV the step attends to (a global
     layer's whole prefix, a local layer's ring slots inside the window),
     and each RG-LRU and SSD state row (an SSD layer's f32 state and its
-    conv ring) read and written.  Operations: the GEMMs, the (query, key)
+    conv ring) read and written; int8 KV pages at a byte a value and four
+    a scale.  Operations: the GEMMs, the (query, key)
     pairs the masks let through and the SSD's scan (``ssd_bounds``).
     Under an int8 format the peak is int8's (1979 TOPS), and
     ``int8_weights_bound_ms`` counts each weight at one byte (what int8 weights held on the card
@@ -4684,6 +4912,9 @@ def step_bounds(eng, positions, chunk: int, pos0: int, *,
     head_bytes = head.numel() * head.element_size()
     elt = to_torch_dtype(cfg.compute_dtype).itemsize
     kv_row = 2 * cfg.n_kv_heads * cfg.hd * elt    # one position, one layer
+    if cfg.kv_cache_format in ("int8", "int8pt"):
+        # int8 pages: a byte a value and an f32 scale a (position, head).
+        kv_row = 2 * cfg.n_kv_heads * (cfg.hd + 4)
     pair = 4 * cfg.n_heads * cfg.hd               # FLOP per (q, kv) pair
     kinds = [mixer for mixer, _ in cfg.layer_kinds]
     n_attn, n_local = kinds.count("attn"), kinds.count("local")
@@ -5564,7 +5795,13 @@ def model_level_bounds(cfg, batch, frames, prefix, decode_pos, cache_len):
     dec_flops = 2.0 * batch * (nl * layer_w + d * v) \
         + nl * 4.0 * batch * h * hd * (decode_pos + 1)
     dec_bytes = weights + live + 2 * batch * d + 4 * batch * v
+    # cache_quant: a byte a value and an f32 scale a (position, head).
+    q_bytes = dec_bytes - live + live * (hd + 4) / (2 * hd)
     return {
+        "decode_step_cache_quant": {
+            "bound_ms": bound_ms(dec_flops, q_bytes, PEAK["bf16"]),
+            "bound_by": bound_by(dec_flops, q_bytes, PEAK["bf16"]),
+            "flops": dec_flops, "bytes": q_bytes},
         "forward": call(batch * frames, frames, batch * frames, 0),
         "prefill": call(batch * prefix, prefix, batch, caches),
         "decode_step": {
@@ -5587,6 +5824,77 @@ def model_level_reckoning(cfg, bounds, batch, frames):
             "caches_gb": bounds["caches_gb"],
             "forward_logits_gb": 4 * batch * frames * cfg.vocab / 1e9,
             "head_f32_gb": 4 * cfg.d_model * cfg.vocab / 1e9}
+
+
+# Phase 6's archs also decoded over int8 caches (``cache_quant``), held
+# to the reference's contract (``tests/test_decode_consistency.py:85-112``):
+# max |Δlogits| / max |logits| below 0.05, argmax equal on at least 95%
+# of the (step, row) entries, the caches below 0.7x the bf16 caches'
+# bytes.
+CACHE_QUANT_RUNS = ("musicgen_medium",)
+
+
+def cache_quant_run(params, cfg, emb, prefix, cache_len, decoded, cache,
+                    short, nl, bound):
+    """``prefill`` over the same first ``prefix`` frames into int8 caches
+    (``cache_quant=True``), then the same decode steps, beside the bf16
+    caches' ``decoded`` logits and ``cache`` (after its steps): the
+    reference's contract (``CACHE_QUANT_RUNS``), B6's launches per step
+    (over the cache dequantized to bf16 each step, so the mma engine),
+    and one decode step's device ms (``profile_call``) against ``bound``
+    (``model_level_bounds``: the live KV at a byte a value)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import model as model_lib
+
+    cfg_q = dataclasses.replace(cfg, cache_quant=True)
+
+    def nbytes(c):
+        return sum(x.numel() * x.element_size() for layer in c["layers"]
+                   for x in layer.values())
+
+    with torch.no_grad():
+        _, cache_q = model_lib.prefill(
+            params, {"embeddings": emb[:, :prefix]}, cfg_q,
+            cache_len=cache_len)
+        build.reset_launch_counts()
+        got = []
+        for i in range(len(decoded)):
+            logits, cache_q = model_lib.decode(
+                params, {"embeddings": emb[:, prefix + i:prefix + i + 1],
+                         "pos": prefix + i}, cache_q, cfg_q)
+            got.append(logits)
+        torch.cuda.synchronize()
+        counts = {k: v / len(decoded) for k, v in
+                  build.launch_counts().items() if v}
+    got, want = torch.stack(got, 1), torch.stack(decoded, 1)
+    rel = float((got - want).abs().max() / want.abs().max())
+    argmax = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    ratio = nbytes(cache_q) / nbytes(cache)
+    require(cache_q["layers"][0]["k"].dtype == torch.int8,
+            f"{short}: cache_quant built a {cache_q['layers'][0]['k'].dtype}"
+            f" cache")
+    step_batch = {"embeddings": emb[:, -1:],
+                  "pos": torch.tensor(emb.shape[1] - 1, device=emb.device)}
+    with torch.no_grad():
+        prof = {**profile_call(lambda: model_lib.decode(
+            params, step_batch, cache_q, cfg_q), 10), **bound}
+    log_profile("decode_step cache_quant", prof)
+    log(f"  [{short} cache_quant] {len(decoded)} decode steps over int8 "
+        f"caches against the bf16 caches': max |diff| / max |logit| "
+        f"{rel:.4e} (tol 0.05), argmax agreement {argmax:.4f} (tol 0.95), "
+        f"cache bytes {nbytes(cache_q) / 1e9:.4f} GB against "
+        f"{nbytes(cache) / 1e9:.4f} GB ({ratio:.4f}x, tol 0.7); launches "
+        f"per step {counts}")
+    require(rel < 0.05 and argmax >= 0.95 and ratio < 0.7,
+            f"{short} cache_quant: {rel}, {argmax}, {ratio}")
+    require(counts.get("flash_decode_mma") == nl,
+            f"{short} cache_quant: {counts.get('flash_decode_mma')} B6 "
+            f"launches per step, want {nl}")
+    del cache_q
+    return {"max_rel_diff": rel, "argmax_agreement": argmax,
+            "cache_bytes_ratio": ratio, "launches_per_step": counts,
+            "profile": prof}
 
 
 def model_level_phase(dev, arch):
@@ -5694,7 +6002,13 @@ def model_level_phase(dev, arch):
     require(rel <= MODEL_LEVEL_TOL and rms <= MODEL_LEVEL_RMS,
             f"{short}: prefill/decode logits differ from forward's "
             f"({rel}, {rms})")
-    del full, first, decoded, got, want, diff
+    del full, first, got, want, diff
+    quant = None
+    if arch in CACHE_QUANT_RUNS:
+        quant = cache_quant_run(params, cfg, emb, prefix, cache_len,
+                                decoded, cache, short, nl,
+                                bounds["decode_step_cache_quant"])
+    del decoded
 
     pos = torch.tensor(frames - 1, device=dev)
     step_batch = {"embeddings": emb[:, -1:], "pos": pos}
@@ -5732,7 +6046,7 @@ def model_level_phase(dev, arch):
                     "launches_forward_prefill": before,
                     "programs": programs,
                     "max_rel_err": rel, "rms_ratio": rms,
-                    "argmax_agreement": argmax,
+                    "argmax_agreement": argmax, "cache_quant": quant,
                     "peak_bytes": peak, "peak_bytes_profiles": peak_profiles,
                     "held_gb": held,
                     "profile": profiles, "bounds": bounds}
@@ -5982,7 +6296,18 @@ def backward_gemms(cfg) -> int:
     return cfg.n_layers * (2 * (4 + (3 if gated else 2)) + 1)
 
 
-def training_phase(dev, policy="mte", ref_loss=None):
+def kept_gemm_gb(cfg, batch, seq) -> float:
+    """What ``remat="dots"`` keeps beyond ``"full"``: every GEMM output of
+    every layer (q, k, v, o and the MLP's), in the compute dtype, GB."""
+    d, f, h, hkv, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.hd
+    mlp = (2 if cfg.mlp_type in ("swiglu", "geglu") else 1) * f + d
+    per_token = (h + 2 * hkv) * hd + d + mlp
+    return 2.0 * cfg.n_layers * batch * seq * per_token / 1e9
+
+
+def training_phase(dev, policy="mte", ref_loss=None, *, label=None,
+                   ref=None, **overrides):
     """Phase 7b (``policy="mte"``) and 7c (``"amx"``, the rigid baseline):
     gemma_2b trained at full width on the card (``TRAIN``): one warm
     step, ``timed`` steps timed by the host clock around a synchronise,
@@ -5998,8 +6323,16 @@ def training_phase(dev, policy="mte", ref_loss=None):
     |ref|) of ``ref_loss`` (7b's first loss, the same seed).  Prints each
     step's wall ms, the step's bound (``train_bounds``), the launches per
     step per counter, each compiled program's grouping decision, and the
-    peak memory beside the reckoning.  Returns (launch counts of the
-    timed steps, summary)."""
+    peak memory beside the reckoning.  ``overrides`` change the config:
+    7d (``label="dots"``, ``remat="dots"``) must give 7b's (``ref``)
+    first loss and grad norm bit for bit and launch B1's wgmma engine
+    126 times fewer a step (the forward's GEMMs are not recomputed),
+    every backward GEMM still on the SIMT engine, peak memory at step 2
+    as at step 1, printed beside what the kept GEMM outputs hold
+    (``kept_gemm_gb``); 7e (``label="torch"``, ``gemm_backend="torch"``)
+    launches no kernel of the port, its first loss within 2e-2 x (1 +
+    |ref|) of 7b's.  Returns (launch counts of the timed steps,
+    summary)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticDataset
@@ -6008,8 +6341,11 @@ def training_phase(dev, policy="mte", ref_loss=None):
     from repro_torch.optim import optimizer as opt_lib
     from repro_torch.training import trainer
 
-    cfg = dataclasses.replace(get_config(TRAIN["arch"]), gemm_policy=policy)
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), gemm_policy=policy,
+                              **overrides)
+    label = label or policy
     batch, seq, timed = TRAIN["batch"], TRAIN["seq"], TRAIN["timed"]
+    peaks = []
     reset_planning()
     free_card()
     torch.cuda.reset_peak_memory_stats()
@@ -6029,14 +6365,16 @@ def training_phase(dev, policy="mte", ref_loss=None):
 
     def step():
         nonlocal params, opt_state
+        torch.cuda.reset_peak_memory_stats()
         params, opt_state, m = step_fn(params, opt_state, data.batch())
+        peaks.append(torch.cuda.max_memory_allocated())
         return m
 
     def record(m, wall_ms=None):
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         metrics_log.append({"loss": loss, "grad_norm": gnorm,
                             "wall_ms": wall_ms})
-        log(f"  [train {policy}] step {len(metrics_log) - 1}: loss "
+        log(f"  [train {label}] step {len(metrics_log) - 1}: loss "
             f"{loss:.4f}, grad "
             f"norm {gnorm:.4f}"
             + (f", wall {wall_ms:.1f} ms" if wall_ms is not None else ""))
@@ -6046,13 +6384,27 @@ def training_phase(dev, policy="mte", ref_loss=None):
 
     t = time.perf_counter()
     record(step(), 1e3 * (time.perf_counter() - t))       # warm
-    programs = log_programs(f"train {policy}")
+    programs = log_programs(f"train {label}")
     if ref_loss is not None:
         first = metrics_log[0]["loss"]
-        log(f"  [train {policy}] first loss {first:.6f} against the mte "
+        log(f"  [train {label}] first loss {first:.6f} against the mte "
             f"run's {ref_loss:.6f} (tol 2e-2 x (1 + |ref|))")
         require(abs(first - ref_loss) <= 2e-2 * (1 + abs(ref_loss)),
-                f"[train {policy}] first loss {first} against {ref_loss}")
+                f"[train {label}] first loss {first} against {ref_loss}")
+    if label == "dots":
+        first, want = metrics_log[0], ref["steps"][0]
+        same = (first["loss"] == want["loss"]
+                and first["grad_norm"] == want["grad_norm"])
+        rel = max(abs(first[k] - want[k]) / abs(want[k])
+                  for k in ("loss", "grad_norm"))
+        log(f"  [train dots] first loss {first['loss']!r}, grad norm "
+            f"{first['grad_norm']!r} against 7b's {want['loss']!r}, "
+            f"{want['grad_norm']!r}: "
+            + ("equal bit for bit" if same else
+               f"not bit-equal, {rel:.3e} relative (a kernel of the step "
+               f"is not deterministic)"))
+        require(same or rel <= 1e-6, f"[train dots] first step "
+                f"{first} against 7b's {want}")
     torch.cuda.synchronize()
     build.reset_launch_counts()
     for _ in range(timed):
@@ -6063,20 +6415,21 @@ def training_phase(dev, policy="mte", ref_loss=None):
         record(m, 1e3 * (time.perf_counter() - t))
     counts = build.launch_counts()
     per_step = {k: v / timed for k, v in counts.items() if v}
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peaks)
     bounds = train_bounds(cfg, batch, seq)
     prof = {**profile_call(lambda: record(step()), 1), **bounds}
-    log_profile(f"train_step {policy}", prof)
+    log_profile(f"train_step {label}", prof)
     for r in prof["kernels"]:
         if r["ms"] >= 0.5:
-            log(f"    [train {policy}] {r['ms']:.3f} ms x{r['calls']} "
+            log(f"    [train {label}] {r['ms']:.3f} ms x{r['calls']} "
                 f"{r['kernel']}")
     changed = {k: max_err(v, before[k]) for k, v in watched().items()}
     held = bounds["reckoning_gb"]
-    log(f"  [train {policy}] launches per step {per_step}; backward GEMMs "
+    log(f"  [train {label}] launches per step {per_step}; backward GEMMs "
         f"per step "
-        f"{backward_gemms(cfg)}")
-    log(f"  [train {policy}] peak memory {peak / 2**30:.2f} GiB "
+        f"{backward_gemms(cfg)}; peak memory by step "
+        f"{[round(p / 1e9, 3) for p in peaks]} GB")
+    log(f"  [train {label}] peak memory {peak / 2**30:.2f} GiB "
         f"({peak / 1e9:.3f} "
         f"GB) beside the reckoning {held} ({sum(held.values()):.3f} GB, "
         f"activations and layer transients apart); bound "
@@ -6086,32 +6439,63 @@ def training_phase(dev, policy="mte", ref_loss=None):
         f"{changed}")
     require(all(v > 0 for v in changed.values()),
             f"the parameters did not change: {changed}")
-    if policy == "amx":
-        simt = per_step.get("rigid_gemm_simt", 0)
-        off = ("rigid_gemm", "mte_gemm", "splitk_gemm", "mte_gemm_simt",
-               "splitk_gemm_simt", "mte_gemm_wgmma")
-        on = ("rigid_gemm_wgmma", "epilogue_pass", "flash_attention_wgmma")
-    else:
-        simt = (per_step.get("mte_gemm_simt", 0)
-                + per_step.get("splitk_gemm_simt", 0))
-        off = ("mte_gemm", "splitk_gemm")
-        on = ("mte_gemm_wgmma", "flash_attention_wgmma")
-    require(simt == backward_gemms(cfg),
-            f"[{policy}] backward GEMMs per step on the SIMT f32 engine: "
-            f"{simt}, want {backward_gemms(cfg)}")
-    for kernel in off:
-        require(per_step.get(kernel, 0) == 0, f"[{policy}] "
-                f"{per_step.get(kernel)} launches of {kernel} per step")
-    for kernel in on:
-        require(per_step.get(kernel, 0) > 0, f"train {policy}: {kernel} "
-                f"not launched")
+    summary_extra = {}
+    if label == "torch":
+        require(not per_step and not prof["wrapper_launches"],
+                f"[train torch] kernels of the port launched: {per_step}, "
+                f"{prof['wrapper_launches']}")
+        log(f"  [train torch] no kernel of the port launched in "
+            f"{timed + 2} steps")
+    if label == "dots":
+        kept = kept_gemm_gb(cfg, batch, seq)
+        ref_peak = ref["peak_bytes"]
+        log(f"  [train dots] peak {peak / 1e9:.3f} GB against 7b's "
+            f"{ref_peak / 1e9:.3f} GB (+{(peak - ref_peak) / 1e9:.3f} GB); "
+            f"the kept GEMM outputs reckon {kept:.3f} GB; step 1 "
+            f"{peaks[0] / 1e9:.3f} GB, step 2 {peaks[1] / 1e9:.3f} GB")
+        require(abs(peaks[1] - peaks[0]) <= 0.01 * peaks[0],
+                f"[train dots] peak memory moved from step 1 to step 2: "
+                f"{peaks[:2]}")
+        fwd_b1 = (ref["launches_per_step"].get("mte_gemm_wgmma", 0)
+                  - per_step.get("mte_gemm_wgmma", 0))
+        n_gemms = cfg.n_layers * (4 + (3 if cfg.mlp_type in (
+            "swiglu", "geglu") else 2))
+        log(f"  [train dots] B1 wgmma launches per step "
+            f"{per_step.get('mte_gemm_wgmma')} against 7b's "
+            f"{ref['launches_per_step'].get('mte_gemm_wgmma')}: "
+            f"{fwd_b1:g} fewer (the forward's {n_gemms} not recomputed)")
+        require(fwd_b1 == n_gemms, f"[train dots] {fwd_b1} fewer B1 "
+                f"launches a step than 7b, want {n_gemms}")
+        summary_extra = {"kept_gemm_gb": kept, "peaks_by_step": peaks,
+                         "b1_fewer_per_step": fwd_b1}
+    if label != "torch":
+        if policy == "amx":
+            simt = per_step.get("rigid_gemm_simt", 0)
+            off = ("rigid_gemm", "mte_gemm", "splitk_gemm", "mte_gemm_simt",
+                   "splitk_gemm_simt", "mte_gemm_wgmma")
+            on = ("rigid_gemm_wgmma", "epilogue_pass",
+                  "flash_attention_wgmma")
+        else:
+            simt = (per_step.get("mte_gemm_simt", 0)
+                    + per_step.get("splitk_gemm_simt", 0))
+            off = ("mte_gemm", "splitk_gemm")
+            on = ("mte_gemm_wgmma", "flash_attention_wgmma")
+        require(simt == backward_gemms(cfg),
+                f"[{label}] backward GEMMs per step on the SIMT f32 engine: "
+                f"{simt}, want {backward_gemms(cfg)}")
+        for kernel in off:
+            require(per_step.get(kernel, 0) == 0, f"[{label}] "
+                    f"{per_step.get(kernel)} launches of {kernel} per step")
+        for kernel in on:
+            require(per_step.get(kernel, 0) > 0, f"train {label}: {kernel} "
+                    f"not launched")
     walls = [r["wall_ms"] for r in metrics_log[1:1 + timed]]
     summary = {"steps": metrics_log, "step_wall_ms": walls,
                "launches_per_step": per_step,
                "backward_gemms_per_step": backward_gemms(cfg),
                "programs": programs, "peak_bytes": peak,
                "profile": prof, "bounds": bounds,
-               "param_change": changed}
+               "param_change": changed, **summary_extra}
     del params, opt_state, before
     free_card()
     return counts, summary
@@ -7019,6 +7403,12 @@ KERNELS = [
 ]
 
 
+# The phase-2 row of B4's SIMT kernel at phase 4's kvq decode (gemma_2b's
+# step over int8pt pages; launches from phase 4's kvq run).
+KVQ_ROWS = {"flash_decode_paged":
+            "kvq 4 slots x 8 heads x 256 int8 pages, ~1035 tokens"}
+
+
 # The phase-2 row of each s8 kernel at granite_moe_1b's shapes (launches
 # from phase 4's granite run): the prefill q/o on B1, the experts' down
 # at C = 160 on B3's wgmma entry, the decode o on B2, the decode experts'
@@ -7527,12 +7917,16 @@ def main() -> int:
         "exception, allocation failures, a straggle past the watchdog): "
         "card against CPU")
     counts.update(reduced_fault_phase(dev))
+    log("== 3. reduced gemma_2b, recurrentgemma_9b and granite_moe_1b "
+        "(fp32) on the torch GEMM backend, and gemma_2b with cache_quant: "
+        "card against CPU")
+    counts.update(reduced_torch_phase(dev))
     for name, (arch, overrides) in CONFIGS.items():
         fmt = ENGINE_KW.get(name, {}).get(
             "format_policy", get_config(arch).format_policy or "bf16")
         log(f"== 4. full-width {arch} serving ({fmt}), configuration "
             f"[{name}] {overrides or ENGINE_KW.get(name) or '(defaults)'}")
-        counts[name], serving[name] = serving_phase(dev, name)
+        counts[name], serving[name] = serving_phase(dev, name, serving)
         log(f"  [{name}] serving summary: {json.dumps(serving[name])}")
     isa_ratio = int8_isa_ratio(serving)
     speculative = {}
@@ -7561,6 +7955,16 @@ def main() -> int:
         f"rigid amx baseline: {TRAIN['batch']} x {TRAIN['seq']} tokens")
     counts["train-amx"], training_amx = training_phase(
         dev, "amx", training["steps"][0]["loss"])
+    log(f"== 7d. training gemma_2b at full width under remat='dots' (the "
+        f"GEMMs' outputs kept): {TRAIN['batch']} x {TRAIN['seq']} tokens")
+    counts["train-dots"], training_dots = training_phase(
+        dev, label="dots", ref=training, remat="dots")
+    log(f"== 7e. training gemma_2b at full width on the torch GEMM backend "
+        f"(the library's products): {TRAIN['batch']} x {TRAIN['seq']} "
+        f"tokens")
+    counts["train-torch"], training_torch = training_phase(
+        dev, ref_loss=training["steps"][0]["loss"], label="torch",
+        gemm_backend="torch")
     free_card()
     log(f"== 8. the paper's {len(CONV_SUITE)} convolutions at minibatch "
         f"{CONV_MB} through core.conv.conv2d_direct: one B3 launch each "
@@ -7600,6 +8004,7 @@ def main() -> int:
                                  CHAMELEON_ROWS),
                                 ("at_int8", "int8", INT8_ROWS),
                                 ("at_granite", "granite", GRANITE_ROWS),
+                                ("at_kvq", "kvq", KVQ_ROWS),
                                 ("at_decode", "amx-int8",
                                  AMX_INT8_DECODE_ROWS)):
             if name in at:
@@ -7646,6 +8051,8 @@ def main() -> int:
                    "int8_isa_ratio": isa_ratio,
                    "speculative": speculative, "model_level": model_level,
                    "training": training, "training_amx": training_amx,
+                   "training_dots": training_dots,
+                   "training_torch": training_torch,
                    "telemetry": telemetry, "resilience": resilience,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)

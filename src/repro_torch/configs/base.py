@@ -2,10 +2,10 @@
 
 ``ArchConfig`` carries the same fields as the JAX package's, with one
 default changed: ``gemm_backend`` is ``"kernels"`` (the hand-written
-Hopper kernels, the counterpart of JAX's ``"pallas"``; the plain
-formulation ``"torch"``, JAX's ``"xla"``, is queued).  ``use_graph``
-defaults to True, as in JAX: the MLP and q/k/v projections run as
-compiled :mod:`repro_torch.graph` programs.
+Hopper kernels, the counterpart of JAX's ``"pallas"``; ``"torch"``, the
+plain formulation on the library's products, is JAX's ``"xla"``).
+``use_graph`` defaults to True, as in JAX: the MLP and q/k/v projections
+run as compiled :mod:`repro_torch.graph` programs.
 ``input_specs`` returns ``(shape, dtype-name)`` tuples instead of
 ``jax.ShapeDtypeStruct``s.
 
@@ -48,6 +48,12 @@ class RGLRUConfig:
     c: float = 8.0
 
 
+# The GEMM backends and remat modes the port runs: the hand-written
+# kernels (JAX's "pallas") and the library's products (JAX's "xla").
+GEMM_BACKENDS = ("kernels", "torch")
+REMATS = ("full", "dots", "none")
+
+
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
@@ -81,8 +87,8 @@ class ArchConfig:
     param_dtype: str = "float32"
     format_policy: Optional[str] = None
     gemm_policy: str = "mte"
-    gemm_backend: str = "kernels"           # kernels | torch (queued, A5)
-    remat: str = "full"
+    gemm_backend: str = "kernels"           # kernels | torch
+    remat: str = "full"                     # full | dots | none
     scan_layers: bool = True
     moe_impl: str = "scatter"
     attn_chunk: int = 1024
@@ -108,6 +114,11 @@ class ArchConfig:
             value = getattr(self, field)
             require(value is None or value in FORMATS,
                     f"unknown {field} {value!r}; known: {sorted(FORMATS)}")
+        for field, known in (("gemm_backend", GEMM_BACKENDS),
+                             ("remat", REMATS)):
+            require(getattr(self, field) in known,
+                    f"unknown {field} {getattr(self, field)!r}; the port's "
+                    f"are {known}")
         for mixer, ffn in self.pattern:
             require(mixer in ("attn", "local", "rglru", "ssd"),
                     f"unknown mixer {mixer!r}")

@@ -655,10 +655,11 @@ def _torch_route(sig: GemmSignature, a, b, c, bias, out_dtype):
     grant only, never a kernel's stand-in.  On the card bf16 operands go
     to cuBLAS as they are (``torch.mm(out_dtype=float32)`` for an f32
     accumulator) and int8 ones to ``torch._int_mm``; the CPU, which has
-    no bf16 product into f32, widens them.  Raises ValueError where the
-    library or the kernels cannot run the signature."""
-    import torch
-
+    no bf16 product into f32, widens them (``formats.library_product``,
+    ``formats.int_product``: the ``"torch"`` GEMM backend's products).
+    Raises ValueError where one library call cannot run the signature:
+    no padded rows for ``torch._int_mm`` here, a measured grant times one
+    call."""
     from repro_torch.core import formats
     if sig.group > 1:
         raise ValueError("route 'torch' is a 2-D product; grouped "
@@ -667,20 +668,12 @@ def _torch_route(sig: GemmSignature, a, b, c, bias, out_dtype):
         if not sig.epilogue.is_identity:
             raise ValueError("int8 GEMMs fuse no epilogue (the s8 kernels "
                              "refuse one too)")
-        if not a.is_cuda:
-            return formats.int_matmul(a, b)
         m, k = a.shape
-        if m <= 16 or k % 8 or b.shape[1] % 8:
+        if a.is_cuda and (m <= 16 or k % 8 or b.shape[1] % 8):
             raise ValueError(f"torch._int_mm takes M > 16 and K, N "
                              f"multiples of 8, not {m}x{b.shape[1]}x{k}")
-        return torch._int_mm(a, b)
-    acc_dtype = sig.format_policy.accum_torch
-    if not a.is_cuda:
-        acc = torch.matmul(a.float(), b.float()).to(acc_dtype)
-    elif a.dtype != acc_dtype:
-        acc = torch.mm(a, b, out_dtype=acc_dtype)
-    else:
-        acc = torch.mm(a, b)
+        return formats.int_product(a, b)
+    acc = formats.library_product(a, b, sig.format_policy.accum_torch)
     return sig.epilogue.apply(acc, c_in=c, bias=bias).to(out_dtype)
 
 

@@ -30,7 +30,7 @@ __all__ = [
     "FormatPolicy", "FORMATS", "FP32", "BF16", "BF16_ACCUM", "INT8",
     "INT8_PT", "resolve_format", "infer_format", "quantize", "dequantize",
     "quantize_operands", "torch_gemm", "torch_grouped", "to_torch_dtype",
-    "int_matmul",
+    "int_matmul", "library_product", "int_product",
 ]
 
 
@@ -161,6 +161,60 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.double(), b.double()).round().to(torch.int32)
 
 
+class _LibraryProduct(torch.autograd.Function):
+    """The card's product of two same-dtype float operands into a wider
+    accumulator, ``torch.mm``/``torch.bmm(..., out_dtype=)`` (cuBLAS on
+    the operands as they are, JAX's ``preferred_element_type``), which
+    has no derivative of its own.  The backward is JAX's transpose of
+    ``dot_general``: each cotangent product in the accumulator's dtype on
+    the other operand widened to it, cast to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b, acc_dtype):
+        ctx.save_for_backward(a, b)
+        mm = torch.bmm if a.ndim == 3 else torch.mm
+        return mm(a, b, out_dtype=acc_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g, b.to(g.dtype).transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.matmul(a.to(g.dtype).transpose(-1, -2), g).to(b.dtype)
+        return da, db, None
+
+
+def library_product(a: torch.Tensor, b: torch.Tensor,
+                    acc_dtype: torch.dtype) -> torch.Tensor:
+    """``a @ b`` (2-D, or batched (G, C, K) @ (G, K, N)) by the library,
+    on float operands of one dtype, at ``acc_dtype``: on the card cuBLAS
+    on the operands as they are (into a wider accumulator through
+    :class:`_LibraryProduct`), on the CPU, which has no bf16 product into
+    f32, the f32 product of the widened operands.  Differentiable."""
+    if not a.is_cuda:
+        return torch.matmul(a.float(), b.float()).to(acc_dtype)
+    if a.dtype == acc_dtype:
+        return torch.matmul(a, b)
+    return _LibraryProduct.apply(a, b, acc_dtype)
+
+
+def int_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 ``a @ b`` → int32, 2-D: ``torch._int_mm`` on the card
+    where it takes the shape (K and N multiples of 8; M ≤ 16 padded with
+    zero rows to 32, as it takes M > 16 only), :func:`int_matmul`
+    elsewhere."""
+    m, k = a.shape
+    if not a.is_cuda or k % 8 or b.shape[1] % 8:
+        return int_matmul(a, b)
+    if m > 16:
+        return torch._int_mm(a, b)
+    pad = a.new_zeros(32, k)
+    pad[:m] = a
+    return torch._int_mm(pad, b)[:m]
+
+
 def _record_plain(kind: str, x, w, fmt: FormatPolicy) -> None:
     """One ``unplanned`` record of a plain product for the active per-GEMM
     accountant (repro_torch.telemetry), unless a seam that records itself
@@ -179,25 +233,24 @@ def _record_plain(kind: str, x, w, fmt: FormatPolicy) -> None:
 
 
 def torch_gemm(a: torch.Tensor, b: torch.Tensor, fmt: FormatPolicy):
-    """2-D ``a @ b`` under the policy, in plain torch.  Returns the
+    """2-D ``a @ b`` under the policy, the library's product
+    (:func:`library_product`, :func:`int_product`).  Returns the
     accumulator — f32 for the dequantized int8 route, the policy's
     accumulator dtype otherwise."""
     _record_plain("gemm", a, b, fmt)
     if fmt.quantized:
         aq, bq, sa, sb = quantize_operands(a, b, fmt)
-        return dequantize(int_matmul(aq, bq), sa, sb)
-    ac = a.to(fmt.operand_torch).float()
-    bc = b.to(fmt.operand_torch).float()
-    return torch.matmul(ac, bc).to(fmt.accum_torch)
+        return dequantize(int_product(aq, bq), sa, sb)
+    return library_product(a.to(fmt.operand_torch), b.to(fmt.operand_torch),
+                           fmt.accum_torch)
 
 
 def torch_grouped(x: torch.Tensor, w: torch.Tensor, fmt: FormatPolicy):
-    """Grouped ``(G,C,K) @ (G,K,N)`` under the policy, in plain torch
-    (per-group per-channel scales for int8)."""
+    """Grouped ``(G,C,K) @ (G,K,N)`` under the policy, the library's
+    batched product (per-group per-channel scales for int8)."""
     _record_plain("grouped", x, w, fmt)
     if fmt.quantized:
         xq, wq, sx, sw = quantize_operands(x, w, fmt)
         return dequantize(int_matmul(xq, wq), sx, sw)
-    xc = x.to(fmt.operand_torch).float()
-    wc = w.to(fmt.operand_torch).float()
-    return torch.matmul(xc, wc).to(fmt.accum_torch)
+    return library_product(x.to(fmt.operand_torch), w.to(fmt.operand_torch),
+                           fmt.accum_torch)

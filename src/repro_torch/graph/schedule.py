@@ -476,7 +476,8 @@ def _group_member_gemm(x, ws, biases, widths, fmt_name: str, epilogues,
 
 class _GroupMemberGemm(torch.autograd.Function):
     """The member-wise grouped GEMM with the straight-through backward of
-    ``kernels/autodiff.py``, as JAX's ``_group_member_bwd``: each
+    ``kernels/autodiff.py``, as JAX's ``_group_member_bwd`` (its forward
+    output kept under ``remat="dots"``, ``autodiff.stashed``): each
     member's accumulator recomputed at f32 (where its epilogue's
     derivative reads it), the epilogue differentiated there, and the
     operand grads formed by the unfused per-member GEMMs, f32 on the
@@ -492,10 +493,15 @@ class _GroupMemberGemm(torch.autograd.Function):
         ws = tensors[:len(epilogues)]
         live = iter(tensors[len(epilogues):])
         biases = tuple(next(live) if h else None for h in has_bias)
+        from repro_torch.kernels.autodiff import stashed
         ctx.save_for_backward(x, *tensors)
         ctx.spec = spec
-        return _group_member_fwd(x, ws, biases, widths, fmt_name, epilogues,
-                                 geom, plan_rows)
+        fmt = formats_lib.FORMATS[fmt_name]
+        dt = torch.float32 if fmt.quantized else fmt.accum_torch
+        return stashed(
+            lambda: _group_member_fwd(x, ws, biases, widths, fmt_name,
+                                      epilogues, geom, plan_rows),
+            tuple(((x.shape[0], w), dt) for w in widths))
 
     @staticmethod
     def backward(ctx, *gs):

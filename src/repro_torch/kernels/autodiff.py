@@ -34,10 +34,21 @@ same forward with no graph recorded, so serving launches what it did.
   (:func:`repro_torch.models.attention._xla_attention`) and differentiates
   it, as JAX recomputes through its ``_xla_attention`` (plain jnp, no
   Pallas kernel): plain PyTorch here too.
+- **remat="dots"**: JAX's ``checkpoint_dots`` keeps the products' outputs
+  and recomputes the rest.  A selective-checkpoint policy sees PyTorch's
+  operators, and these Functions launch kernels outside them, so the
+  policy is keyed on the Functions instead: inside a :class:`GemmStash`
+  (one per checkpointed layer call) each GEMM Function's forward output
+  is recorded, and in the checkpoint's recompute handed back in order,
+  checked by shape and dtype, without a launch (:func:`stashed`).
+  Outside a stash the Functions run as they always do.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+from collections import deque
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -47,7 +58,66 @@ from repro_torch.core.epilogue import Epilogue
 
 __all__ = ["wants_grad", "reads_acc", "raw_gemm", "raw_grouped",
            "epilogue_vjp", "gemm_vjp", "MteGemm", "GroupedGemm",
-           "FlashAttention"]
+           "FlashAttention", "GemmStash", "stashed"]
+
+
+class GemmStash:
+    """The GEMM Functions' forward outputs of one checkpointed call under
+    ``remat="dots"``.  The first :meth:`active` block (the forward)
+    records each output; the second (the checkpoint's recompute) hands
+    them back in order and is emptied when it ends, whether the recompute
+    ran to its end or stopped early, so nothing is held past the layer's
+    backward."""
+
+    def __init__(self):
+        self.outs = deque()
+        self.recorded = False
+
+    @contextlib.contextmanager
+    def active(self):
+        prev = getattr(_STASH, "current", None)
+        _STASH.current = self
+        try:
+            yield
+        finally:
+            _STASH.current = prev
+            if self.recorded:
+                self.outs.clear()
+            self.recorded = True
+
+
+_STASH = threading.local()
+
+
+def _like(out, want) -> bool:
+    if isinstance(out, tuple):
+        return len(out) == len(want) and all(
+            _like(o, w) for o, w in zip(out, want))
+    return tuple(out.shape) == tuple(want[0]) and out.dtype == want[1]
+
+
+def stashed(forward_fn: Callable, want):
+    """``forward_fn()``, a GEMM Function's forward, whose output has
+    (shape, dtype) ``want`` (a tuple of them for a tuple of outputs).
+    Inside a recording :class:`GemmStash` the output is also kept; inside
+    a replaying one the kept output is returned instead of launching,
+    after its shape and dtype are checked."""
+    stash = getattr(_STASH, "current", None)
+    if stash is None:
+        return forward_fn()
+    if stash.recorded:
+        if not stash.outs:
+            raise RuntimeError("remat='dots': the recompute ran more GEMMs "
+                               "than the forward")
+        out = stash.outs.popleft()
+        if not _like(out, want):
+            raise RuntimeError("remat='dots': a kept GEMM output does not "
+                               "match the recompute's")
+        return out
+    out = forward_fn()
+    stash.outs.append(tuple(o.detach() for o in out)
+                      if isinstance(out, tuple) else out.detach())
+    return out
 
 
 def wants_grad(*tensors) -> bool:
@@ -159,7 +229,7 @@ class MteGemm(torch.autograd.Function):
                 epilogue: Epilogue, policy: str, out_dtype):
         ctx.save_for_backward(a, b, c, bias)
         ctx.epilogue, ctx.policy, ctx.out_dtype = epilogue, policy, out_dtype
-        return forward_fn()
+        return stashed(forward_fn, ((a.shape[0], b.shape[1]), out_dtype))
 
     @staticmethod
     def backward(ctx, g):
@@ -188,7 +258,8 @@ class GroupedGemm(torch.autograd.Function):
                 widths: Optional[Sequence[int]]):
         ctx.save_for_backward(x, w)
         ctx.epilogue, ctx.out_dtype, ctx.widths = epilogue, out_dtype, widths
-        return forward_fn()
+        return stashed(forward_fn,
+                       ((x.shape[0], x.shape[1], w.shape[2]), out_dtype))
 
     @staticmethod
     def backward(ctx, g):

@@ -14,6 +14,10 @@ Examples::
     # gemma_2b at full width on the card, with checkpoints:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma_2b \\
         --steps 4 --batch 1 --seq 4096 --ckpt-dir ckpt
+
+    # the same on the library's products (JAX's "xla" backend):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma_2b \\
+        --steps 4 --batch 1 --seq 4096 --gemm-backend torch
 """
 from __future__ import annotations
 
@@ -109,7 +113,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     return params, losses
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser(description="Train a config of the port.")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -121,6 +125,11 @@ def main():
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--supervise", action="store_true")
+    ap.add_argument("--gemm-backend", default=None,
+                    choices=[None, "kernels", "torch"],
+                    help="kernels (the default: the hand-written kernels) "
+                         "or torch (the plain formulation on the library's "
+                         "products)")
     ap.add_argument("--format-policy", default=None,
                     choices=[None, "fp32", "bf16", "bf16acc", "int8"])
     ap.add_argument("--no-graph", action="store_true",
@@ -129,11 +138,13 @@ def main():
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu (the kernels' plain "
                          "versions)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.gemm_backend:
+        cfg = dataclasses.replace(cfg, gemm_backend=args.gemm_backend)
     if args.format_policy:
         cfg = dataclasses.replace(cfg, format_policy=args.format_policy)
     if args.no_graph:

@@ -20,9 +20,17 @@ whole sequence through B5 (:func:`attention`, with the window mask on
 local layers), builds its decode cache from the K/V it computed
 (:func:`prefill_cache`: a flat (B, cache_len, Hkv, D) cache for global
 layers, a ring for local ones) and decodes over it through B6
-(:func:`decode_attention`).  The KV scatter
+(:func:`decode_attention`); under ``cfg.cache_quant`` that cache is
+int8 with per-(slot, head) scales, quantized as it is written and
+dequantized whole before each read, as in JAX.  The KV scatter
 into pages and rings, the prefix-page gather and the dequantize outside
 the kernels stay plain PyTorch, as they are plain jnp in JAX.
+
+On the ``"torch"`` backend (JAX's ``"xla"``) no kernel runs: every
+attention above is the plain :func:`_xla_attention` over the same
+positions (paged reads over the gathered table pages), which scans kv
+chunks of ``cfg.attn_chunk`` past 2048 kv positions on both backends, as
+JAX's does.
 
 Unlike JAX, the port updates the page slabs and rings **in place**
 (``index_put_``) instead of returning fresh arrays: a decode step then
@@ -36,12 +44,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.formats import resolve_format, to_torch_dtype
 from repro_torch.models.layers import (compute_dtype, dense, init_dense,
-                                       init_norm, model_format, rmsnorm,
-                                       rope, use_graph)
+                                       init_norm, model_format, on_kernels,
+                                       rmsnorm, rope, use_graph)
 
 __all__ = ["init_attention", "attention", "prefill_cache",
            "init_attn_cache", "decode_attention",
@@ -223,7 +232,9 @@ def _quantize_kv(x: torch.Tensor, per_channel: bool = True):
     (kv, hd), broadcast to the (..., kv, 1) layout."""
     xf = x.float()
     dims = (-1,) if per_channel else (-2, -1)
-    scale = xf.abs().amax(dim=dims, keepdim=True) / 127.0
+    amax = xf.abs().amax(dim=dims, keepdim=True)
+    # A true division on every device, as ``formats.quantize``.
+    scale = amax / torch.full_like(amax, 127.0)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(xf / scale), -127, 127)
     scale = scale.expand(*x.shape[:-1], 1)
@@ -244,33 +255,60 @@ def _scale(cfg) -> float:
 
 
 _NEG_INF = -1e30
+# Above this many kv positions the plain attention scans kv chunks
+# (``attention.py:190-191`` of the JAX package).
+_CHUNK_THRESHOLD = 2048
+_KV_CHUNK = 1024
 
 
-def _xla_attention(q, k, v, *, causal, window, softcap, scale,
-                   kv_positions, q_positions):
-    """Plain attention in the BHSD layout with the flash kernels' mask
-    semantics (``kvpos ≥ 0``, causal, window) over explicit (B, Skv) kv
-    and (B, Sq) query positions: the mirror of ``_xla_attention``
-    (``attention.py:215-253`` of the JAX package).
-    GQA runs as a grouped einsum, KV heads never repeated.  Always the
-    unchunked formulation: above 2048 kv positions JAX switches to an
-    online-softmax scan over kv chunks, which differs from this only in
-    rounding (f32 logits either way; the bf16 cast of the probabilities
-    here, as JAX's unchunked path does)."""
-    b, h, sq, hd = q.shape
-    hkv = k.shape[1]
-    g = h // hkv
-    qp = q_positions[:, :, None]
-    kp = kv_positions[:, None, :]
-    mask = kp >= 0
-    if causal:
-        mask = mask & (kp <= qp)
-    if window is not None:
-        mask = mask & (kp > qp - window)
-    qg = q.reshape(b, hkv, g, sq, hd)
+def _grouped_logits(qg, k, scale, softcap):
+    """f32 logits (B, Hkv, G, Sq, Skv) of qg (B, Hkv, G, Sq, D) against k
+    (B, Hkv, Skv, D), KV heads never repeated, softcapped."""
     logits = torch.einsum("bngqd,bnkd->bngqk", qg.float(), k.float()) * scale
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
+    return logits
+
+
+def _mask(qp, kp, causal, window):
+    m = kp >= 0
+    if causal:
+        m = m & (kp <= qp)
+    if window is not None:
+        m = m & (kp > qp - window)
+    return m
+
+
+def _xla_attention(q, k, v, *, causal, window, softcap, scale,
+                   kv_positions=None, q_positions=None,
+                   chunk: int = _KV_CHUNK):
+    """Plain attention in the BHSD layout with the flash kernels' mask
+    semantics (``kvpos ≥ 0``, causal, window) over (B, Skv) kv and
+    (B, Sq) query positions — by default queries right-aligned to the
+    keys: the mirror of ``_xla_attention`` (``attention.py:215-253`` of
+    the JAX package).  GQA runs as a grouped einsum, KV heads never
+    repeated.  Above ``_CHUNK_THRESHOLD`` kv positions it scans kv chunks
+    of ``chunk`` with an online softmax (:func:`_chunked_attention`), as
+    JAX does; below, the probabilities are cast to v's dtype before the
+    value product, as JAX's unchunked path does."""
+    b, h, sq, hd = q.shape
+    hkv = k.shape[1]
+    skv = k.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, sq, hd)
+    if q_positions is None:
+        q_positions = torch.arange(sq, device=q.device) + (skv - sq)
+    if kv_positions is None:
+        kv_positions = torch.arange(skv, device=q.device)
+    q_positions = torch.atleast_2d(q_positions).expand(b, sq)
+    kv_positions = torch.atleast_2d(kv_positions).expand(b, skv)
+    if skv > _CHUNK_THRESHOLD:
+        out = _chunked_attention(qg, k, v, q_positions, kv_positions,
+                                 causal=causal, window=window,
+                                 softcap=softcap, scale=scale, chunk=chunk)
+        return out.reshape(b, h, sq, hd)
+    logits = _grouped_logits(qg, k, scale, softcap)
+    mask = _mask(q_positions[:, :, None], kv_positions[:, None, :], causal,
+                 window)
     logits = torch.where(mask[:, None, None], logits,
                          torch.full((), _NEG_INF, device=q.device))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -278,21 +316,90 @@ def _xla_attention(q, k, v, *, causal, window, softcap, scale,
     return out.reshape(b, h, sq, hd)
 
 
+def _chunked_attention(qg, k, v, q_positions, kv_positions, *, causal,
+                       window, softcap, scale, chunk: int = _KV_CHUNK):
+    """The online-softmax scan over kv chunks (``attention.py:256-300``
+    of the JAX package): qg (B, Hkv, G, Sq, D), k/v (B, Hkv, Skv, D),
+    the kv axis padded to whole chunks with masked (−1) positions.  Each
+    chunk's running max, sum and f32 accumulator update is JAX's; under
+    autograd each chunk runs under ``torch.utils.checkpoint``, as JAX
+    wraps its scan body in ``jax.checkpoint``: the backward recomputes
+    the (…, Sq, chunk) logits instead of keeping them."""
+    b, hkv, g, sq, hd = qg.shape
+    skv = k.shape[2]
+    nc = -(-skv // chunk)
+    pad = nc * chunk - skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
+                                               value=-1)
+    qp = q_positions[:, :, None]
+    neg = torch.full((), _NEG_INF, device=qg.device)
+
+    def body(m_prev, l_prev, acc, k_blk, v_blk, kp_blk):
+        logits = _grouped_logits(qg, k_blk, scale, softcap)
+        emask = _mask(qp, kp_blk[:, None, :], causal, window)[:, None, None]
+        logits = torch.where(emask, logits, neg)
+        m_new = torch.maximum(m_prev, logits.amax(dim=-1, keepdim=True))
+        p = torch.where(emask, torch.exp(logits - m_new),
+                        torch.zeros((), device=qg.device))
+        alpha = torch.exp(m_prev - m_new)
+        l_new = alpha * l_prev + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bngqk,bnkd->bngqd", p,
+                                         v_blk.float())
+        return m_new, l_new, acc
+
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (qg, k, v))
+    m = torch.full((b, hkv, g, sq, 1), _NEG_INF, device=qg.device)
+    l = torch.zeros((b, hkv, g, sq, 1), device=qg.device)
+    acc = torch.zeros((b, hkv, g, sq, hd), device=qg.device)
+    for c in range(nc):
+        blk = (k[:, :, c * chunk:(c + 1) * chunk],
+               v[:, :, c * chunk:(c + 1) * chunk],
+               kv_positions[:, c * chunk:(c + 1) * chunk])
+        if grad:
+            m, l, acc = torch.utils.checkpoint.checkpoint(
+                body, m, l, acc, *blk, use_reentrant=False)
+        else:
+            m, l, acc = body(m, l, acc, *blk)
+    l = torch.where(l == 0.0, torch.ones((), device=qg.device), l)
+    return (acc / l).to(qg.dtype)
+
+
+def _chunk(cfg) -> int:
+    return getattr(cfg, "attn_chunk", _KV_CHUNK)
+
+
+def _full_attention(cfg, q, k, v, *, window: Optional[int]):
+    """Causal attention of q (B, H, Sq, D) over k/v (B, Hkv, Skv, D),
+    queries right-aligned to the keys: B5 (``ops.flash_attention``) on
+    the kernel backend, the plain attention (:func:`_xla_attention`, kv
+    chunks of ``cfg.attn_chunk``) on ``"torch"``, as JAX's two branches
+    (``attention.py:310-323`` there)."""
+    if not on_kernels(cfg):
+        return _xla_attention(q, k, v, causal=True, window=window,
+                              softcap=cfg.attn_softcap, scale=_scale(cfg),
+                              chunk=_chunk(cfg))
+    from repro_torch.kernels import ops
+    return ops.flash_attention(q, k, v, causal=True, window=window,
+                               softcap=cfg.attn_softcap, scale=_scale(cfg))
+
+
 def attention(x, p, cfg, positions, *, window: Optional[int] = None,
               return_kv: bool = False):
     """Full-sequence causal attention, the training forward's and the
     prefill's (``attention.py:304-327`` of the JAX package): x (B, S, D)
-    at positions 0..S−1, q/k/v projected over the B·S rows, B5
-    (``flash_attention``) over the whole sequence with the window mask
-    on local layers, then ``o``.  With ``return_kv`` → (out, (k, v)), the
+    at positions 0..S−1, q/k/v projected over the B·S rows, the
+    attention over the whole sequence with the window mask on local
+    layers (:func:`_full_attention`: B5, or the plain attention on
+    ``"torch"``), then ``o``.  With ``return_kv`` → (out, (k, v)), the
     roped k and v (B, S, Hkv, D) that :func:`prefill_cache` stores."""
-    from repro_torch.kernels import ops
     b, s, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg, positions)
-    out = ops.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=True, window=window, softcap=cfg.attn_softcap,
-        scale=_scale(cfg))
+    out = _full_attention(cfg, q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), window=window)
     y = dense(out.transpose(1, 2).reshape(b, s, -1), p["o"], cfg)
     return (y, (k, v)) if return_kv else y
 
@@ -305,24 +412,28 @@ def prefill_cache(k, v, cfg, seq_len: int, window: Optional[int], dtype):
     ring of L = min(window, seq_len) slots, which holds the last L
     positions each at its slot (position mod L) when S ≥ L, as
     :func:`ring_chunk_attention` leaves it, else the S positions at
-    slots 0..S−1."""
-    if getattr(cfg, "cache_quant", False):
-        raise NotImplementedError("int8 decode caches (cache_quant) are "
-                                  "ROADMAP A10")
+    slots 0..S−1.  Under ``cfg.cache_quant`` that whole cache, zero
+    slots included, is quantized as JAX quantizes it: int8 ``k``/``v``
+    with f32 ``k_scale``/``v_scale`` (B, L, Hkv, 1), one per (slot,
+    head)."""
     b, s = k.shape[:2]
     length = min(window, seq_len) if window else seq_len
     if window and s >= length:
         start = s - length
         order = (torch.arange(length, device=k.device) - start) % length
-        return {"k": k[:, start:][:, order].to(dtype),
-                "v": v[:, start:][:, order].to(dtype)}
-    if s > length:
+        kf, vf = k[:, start:][:, order], v[:, start:][:, order]
+    elif s > length:
         raise ValueError(f"prefill_cache: {s} positions do not fit a "
                          f"{length}-slot cache")
-    cache = init_attn_cache(cfg, b, length, None, dtype, k.device)
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
-    return cache
+    else:
+        pad = (0, 0, 0, 0, 0, length - s)
+        kf = torch.nn.functional.pad(k, pad)
+        vf = torch.nn.functional.pad(v, pad)
+    if getattr(cfg, "cache_quant", False):
+        kq, ks = _quantize_kv(kf)
+        vq, vs = _quantize_kv(vf)
+        return {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
+    return {"k": kf.to(dtype), "v": vf.to(dtype)}
 
 
 def init_attn_cache(cfg, batch: int, seq_len: int, window: Optional[int],
@@ -330,14 +441,49 @@ def init_attn_cache(cfg, batch: int, seq_len: int, window: Optional[int],
     """A decode cache (B, L, Hkv, D) of zeros: a local layer's ring of
     L = min(window, seq_len) slots, or with ``window`` None a global
     layer's flat cache of L = seq_len slots (the serving engine keeps
-    global layers' KV in the paged pool instead)."""
-    if getattr(cfg, "cache_quant", False):
-        raise NotImplementedError("int8 decode caches (cache_quant) are "
-                                  "ROADMAP A10")
+    global layers' KV in the paged pool instead).  Under
+    ``cfg.cache_quant`` (``attention.py:355-369`` of the JAX package)
+    int8 ``k``/``v`` and f32 ``k_scale``/``v_scale`` (B, L, Hkv, 1):
+    about 0.53x the bytes of a bf16 cache at D = 64."""
     length = min(window, seq_len) if window else seq_len
     shape = (batch, length, cfg.n_kv_heads, cfg.hd)
+    if getattr(cfg, "cache_quant", False):
+        sshape = (batch, length, cfg.n_kv_heads, 1)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_scale": torch.zeros(sshape, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _write_slots(cache, rows, slot_b, k, v, row_valid):
+    """Write k/v (B, Hkv, D) at (row, slot) of a flat or ring cache, in
+    place, quantized (per (token, head), ``_quantize_kv``) where the
+    cache holds int8; rows whose ``row_valid`` is False keep what they
+    held."""
+    if "k_scale" in cache:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        new = {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
+    else:
+        new = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+    for name, leaf in new.items():
+        if row_valid is not None:
+            keep = row_valid.reshape(-1, 1, 1)
+            leaf = torch.where(keep, leaf, cache[name][rows, slot_b])
+        cache[name][rows, slot_b] = leaf
+
+
+def _cache_kv(cache, cfg):
+    """The cache's k and v (B, L, Hkv, D) to attend over: as stored, or
+    an int8 cache dequantized whole to the compute dtype
+    (``attention.py:383-395`` of the JAX package)."""
+    if "k_scale" not in cache:
+        return cache["k"], cache["v"]
+    cdt = compute_dtype(cfg)
+    return (_dequantize_kv(cache["k"], cache["k_scale"], cdt),
+            _dequantize_kv(cache["v"], cache["v_scale"], cdt))
 
 
 def decode_attention(x, p, cfg, cache, pos, *,
@@ -354,8 +500,12 @@ def decode_attention(x, p, cfg, cache, pos, *,
     in a ring, slot j holds absolute position p − ((p − j) mod L) for
     p = pos + i; in a flat cache, slot j holds position j if j ≤ p and is
     masked (−1) past it.  (Writing the whole window first would overwrite
-    keys an earlier position still sees.)  Returns (out, cache)."""
-    from repro_torch.kernels import ops
+    keys an earlier position still sees.)  Under ``cfg.cache_quant`` the
+    position's K/V are quantized as they are written and the whole cache
+    is dequantized to the compute dtype before it is read, JAX's order.
+    The attention is B6 (``ops.flash_decode``) on the kernel backend, the
+    plain attention over the same positions on ``"torch"``.  Returns
+    (out, cache)."""
     b, klen, _ = x.shape
     pos_b = torch.as_tensor(pos, dtype=torch.int64,
                             device=x.device).reshape(-1).expand(b)
@@ -369,22 +519,34 @@ def decode_attention(x, p, cfg, cache, pos, *,
     for i in range(klen):
         pos_i = positions[:, i]
         slot_b = pos_i % length
-        for name, new in (("k", k[:, i]), ("v", v[:, i])):
-            new = new.to(cache[name].dtype)
-            if row_valid is not None:
-                keep = row_valid.reshape(b, 1, 1)
-                new = torch.where(keep, new, cache[name][rows, slot_b])
-            cache[name][rows, slot_b] = new
+        _write_slots(cache, rows, slot_b, k[:, i], v[:, i], row_valid)
         if window is None:
             kv_positions = torch.where(idx <= pos_i[:, None], idx, -1)
         else:
             kv_positions = pos_i[:, None] - (pos_i[:, None] - idx) % length
-        outs.append(ops.flash_decode(
-            q[:, i], cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
-            kv_positions, pos_i, window=window, softcap=cfg.attn_softcap,
-            scale=_scale(cfg)))
+        kc, vc = _cache_kv(cache, cfg)
+        outs.append(_one_query(cfg, q[:, i], kc.transpose(1, 2),
+                               vc.transpose(1, 2), kv_positions, pos_i,
+                               window))
     out = torch.stack(outs, dim=1) if klen > 1 else outs[0][:, None]
     return dense(out.reshape(b, klen, -1), p["o"], cfg, plan_rows=b), cache
+
+
+def _one_query(cfg, q, k, v, kv_positions, q_pos, window):
+    """One query per row, q (B, H, D), over k/v (B, Hkv, L, D) at
+    ``kv_positions`` (B, L), the row's query at ``q_pos`` (B,): B6
+    (``ops.flash_decode``) on the kernel backend, the plain attention on
+    ``"torch"`` (``attention.py:409-426`` of the JAX package) → (B, H,
+    D)."""
+    if on_kernels(cfg):
+        from repro_torch.kernels import ops
+        return ops.flash_decode(q, k, v, kv_positions, q_pos, window=window,
+                                softcap=cfg.attn_softcap, scale=_scale(cfg))
+    return _xla_attention(q[:, :, None], k, v, causal=True, window=window,
+                          softcap=cfg.attn_softcap, scale=_scale(cfg),
+                          kv_positions=kv_positions,
+                          q_positions=q_pos[:, None],
+                          chunk=_chunk(cfg))[:, :, 0]
 
 
 def ring_chunk_attention(x, p, cfg, cache, positions, *, pos0: int,
@@ -413,7 +575,7 @@ def ring_chunk_attention(x, p, cfg, cache, positions, *, pos0: int,
         q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
         causal=True, window=window, softcap=cfg.attn_softcap,
         scale=_scale(cfg), kv_positions=kv_positions,
-        q_positions=positions)
+        q_positions=positions, chunk=_chunk(cfg))
     out = out.transpose(1, 2)
     keep = min(c_len, length)
     slots = (pos0 + c_len - keep
@@ -463,14 +625,60 @@ def _write_kv(cache, cfg, phys, slot, k, v):
         cache["v_pages"][phys, slot] = v.to(dt)
 
 
+def _paged_plain(cfg, q, cache, page_table, pos, window):
+    """The ``"torch"`` backend's attention of one query per row, q (B, H,
+    D) at positions ``pos`` (B,), over the paged pool: JAX's xla branch
+    (``attention.py:506-538`` there).  Every table page is gathered in
+    logical order (slot j of the view is position j; unmapped rows clamp
+    to the null page 0), int8 pages are dequantized to the compute
+    dtype, and positions past ``pos`` or on an unmapped page are masked.
+    Static shapes and device-side masks only: a decode step holding it
+    is captured as a CUDA graph.  → (B, H, D)."""
+    b, maxp = page_table.shape
+    page = cache["k_pages"].shape[1]
+    idx = page_table.long().clamp(min=0)
+
+    def gather(leaf):
+        return leaf[idx].reshape(b, maxp * page, *leaf.shape[2:])
+
+    kg, vg = gather(cache["k_pages"]), gather(cache["v_pages"])
+    if "k_scale" in cache:
+        cdt = compute_dtype(cfg)
+        kg = _dequantize_kv(kg, gather(cache["k_scale"]), cdt)
+        vg = _dequantize_kv(vg, gather(cache["v_scale"]), cdt)
+    slots = torch.arange(maxp * page, device=q.device)[None, :]
+    mapped = (page_table >= 0)[:, :, None].expand(b, maxp, page).reshape(
+        b, maxp * page)
+    kv_positions = torch.where((slots <= pos[:, None]) & mapped, slots, -1)
+    return _xla_attention(q[:, :, None], kg.transpose(1, 2),
+                          vg.transpose(1, 2), causal=True, window=window,
+                          softcap=cfg.attn_softcap, scale=_scale(cfg),
+                          kv_positions=kv_positions,
+                          q_positions=pos[:, None],
+                          chunk=_chunk(cfg))[:, :, 0]
+
+
+def _paged_query(cfg, q, cache, page_table, pos, window):
+    """One query per row at positions ``pos`` over the paged pool: B4
+    (``ops.flash_decode_paged``, ``seq_lens = pos + 1``) on the kernel
+    backend, :func:`_paged_plain` on ``"torch"`` → (B, H, D)."""
+    if not on_kernels(cfg):
+        return _paged_plain(cfg, q, cache, page_table, pos, window)
+    from repro_torch.kernels import ops
+    return ops.flash_decode_paged(
+        q, cache["k_pages"], cache["v_pages"], page_table, pos + 1,
+        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+        window=window, softcap=cfg.attn_softcap, scale=_scale(cfg))
+
+
 def paged_decode_attention(x, p, cfg, cache, pos, page_table, *,
                            window: Optional[int] = None):
     """One-token decode over the paged pool.  x: (B, 1, D); pos: (B,)
     positions; page_table: (B, max_pages) int32 (−1 unmapped; inactive
     rows write their garbage token into the null page 0).  The new
-    token's K/V are scattered first, then B4 reads the table-selected
-    pages.  Returns (out, cache)."""
-    from repro_torch.kernels import ops
+    token's K/V are scattered first, then B4 (the plain attention over
+    the gathered pages on ``"torch"``, :func:`_paged_query`) reads the
+    table-selected pages.  Returns (out, cache)."""
     b = x.shape[0]
     pos_b = torch.as_tensor(pos, dtype=torch.int64,
                             device=x.device).reshape(-1).expand(b)
@@ -479,10 +687,7 @@ def paged_decode_attention(x, p, cfg, cache, pos, page_table, *,
     rows = torch.arange(b, device=x.device)
     phys = page_table[rows, pos_b // page].long().clamp(min=0)
     _write_kv(cache, cfg, phys, pos_b % page, k[:, 0], v[:, 0])
-    out = ops.flash_decode_paged(
-        q[:, 0], cache["k_pages"], cache["v_pages"], page_table, pos_b + 1,
-        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-        window=window, softcap=cfg.attn_softcap, scale=_scale(cfg))
+    out = _paged_query(cfg, q[:, 0], cache, page_table, pos_b, window)
     return dense(out.reshape(b, 1, -1), p["o"], cfg), cache
 
 
@@ -496,12 +701,15 @@ def verify_paged_attention(x, p, cfg, cache, pos, page_table):
     and o over the B·K rows on the plans of the decode step's B rows
     (``plan_rows``), so every row gets the bits a decode step at its
     position gets.  The window's K/V are scattered into their (page,
-    slot) targets first; then B4 runs once per window position i with
-    ``seq_lens = pos + i + 1``, as JAX's kernel branch does: the launch a
-    decode step at that position makes, over the same visible keys.  A
-    rejected suffix is never unwritten: the slots past the accepted point
-    hold garbage the next window overwrites.  Returns (out, cache)."""
-    from repro_torch.kernels import ops
+    slot) targets first; then the attention runs once per window
+    position i at position pos + i, as JAX's kernel branch does: B4 with
+    ``seq_lens = pos + i + 1``, the launch a decode step at that position
+    makes, over the same visible keys, or on ``"torch"`` the decode
+    step's plain attention (JAX's xla branch scores the K queries in one
+    batched pass, whose products have other shapes than a decode
+    step's).  A rejected suffix is never unwritten: the slots past the
+    accepted point hold garbage the next window overwrites.  Returns
+    (out, cache)."""
     b, klen, _ = x.shape
     pos_b = torch.as_tensor(pos, dtype=torch.int64,
                             device=x.device).reshape(-1).expand(b)
@@ -511,12 +719,9 @@ def verify_paged_attention(x, p, cfg, cache, pos, page_table):
     rows = torch.arange(b, device=x.device)[:, None]
     phys = page_table[rows, positions // page].long().clamp(min=0)
     _write_kv(cache, cfg, phys, positions % page, k, v)
-    out = torch.stack([ops.flash_decode_paged(
-        q[:, i], cache["k_pages"], cache["v_pages"], page_table,
-        pos_b + i + 1, k_scale=cache.get("k_scale"),
-        v_scale=cache.get("v_scale"), window=None,
-        softcap=cfg.attn_softcap, scale=_scale(cfg))
-        for i in range(klen)], dim=1)
+    out = torch.stack([_paged_query(cfg, q[:, i], cache, page_table,
+                                    pos_b + i, None)
+                       for i in range(klen)], dim=1)
     return dense(out.reshape(b, klen, -1), p["o"], cfg, plan_rows=b), cache
 
 
@@ -527,8 +732,8 @@ def paged_prefill_attention(x, p, cfg, cache, positions, page_table, *,
     chunk's K/V are stored (quantized under the KV format); attention
     reads the prior prefix's pages (aliased prefix-cache pages included,
     dequantized to the compute dtype) followed by the chunk's own
-    full-precision K/V, through B5.  Returns (out, cache)."""
-    from repro_torch.kernels import ops
+    full-precision K/V, through B5 (the plain attention on ``"torch"``,
+    JAX's ``attention.py:702-717``).  Returns (out, cache)."""
     b, c_len, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg, positions)
     page = cache["k_pages"].shape[1]
@@ -554,9 +759,6 @@ def paged_prefill_attention(x, p, cfg, cache, positions, page_table, *,
         vg = torch.cat([vg.to(cdt), v.to(cdt)], dim=1)
     else:
         kg, vg = k.to(cdt), v.to(cdt)
-    out = ops.flash_attention(
-        q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
-        causal=True, window=None, softcap=cfg.attn_softcap,
-        scale=_scale(cfg))
-    out = out.transpose(1, 2)
+    out = _full_attention(cfg, q.transpose(1, 2), kg.transpose(1, 2),
+                          vg.transpose(1, 2), window=None).transpose(1, 2)
     return dense(out.reshape(b, c_len, -1), p["o"], cfg), cache

@@ -1,13 +1,16 @@
 """Shared layers (the port of ``repro/models/layers.py``).
 
-Every projection goes through :func:`repro_torch.kernels.ops.mte_gemm`
-under the model's :class:`~repro_torch.core.formats.FormatPolicy`, with
-bias and activation fused into the kernel's epilogue.  With
-``cfg.use_graph`` (the default) the MLP block runs as ONE compiled
-:mod:`repro_torch.graph` program (:func:`_mlp_compiled`).  Parameters are
-plain dictionaries of tensors, as in the JAX package.  ``init_*``
-functions draw from the same distributions as JAX's, from an explicit
-``torch.Generator`` (so not the same bits).
+Every projection goes through :func:`dense` under the model's
+:class:`~repro_torch.core.formats.FormatPolicy`: on the kernel backend
+(``cfg.gemm_backend="kernels"``, the default) one
+:func:`repro_torch.kernels.ops.mte_gemm` with bias and activation fused
+into the kernel's epilogue, on ``"torch"`` (JAX's ``"xla"``) the
+library's product and the epilogue in plain PyTorch.  With
+``cfg.use_graph`` (the default) the kernel backend runs the MLP block as
+ONE compiled :mod:`repro_torch.graph` program (:func:`_mlp_compiled`).
+Parameters are plain dictionaries of tensors, as in the JAX package.
+``init_*`` functions draw from the same distributions as JAX's, from an
+explicit ``torch.Generator`` (so not the same bits).
 """
 from __future__ import annotations
 
@@ -16,14 +19,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.configs.base import GEMM_BACKENDS
 from repro_torch.core import formats as formats_lib
-from repro_torch.core.epilogue import Epilogue
+from repro_torch.core.epilogue import ACTIVATIONS, Epilogue
 from repro_torch.core.formats import to_torch_dtype
 
 __all__ = ["dense", "rmsnorm", "layernorm", "norm", "rope", "init_dense",
            "init_norm", "mlp", "init_mlp", "init_embedding", "embed",
-           "unembed", "model_format", "check_backend", "compute_dtype",
-           "use_graph"]
+           "unembed", "model_format", "check_backend", "on_kernels",
+           "compute_dtype", "use_graph"]
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -37,13 +41,20 @@ def model_format(cfg) -> formats_lib.FormatPolicy:
 
 
 def check_backend(cfg) -> None:
-    """Raise for the execution knobs the port does not run yet."""
-    if cfg.gemm_backend == "torch":
-        raise NotImplementedError(
-            "gemm_backend='torch' (the JAX 'xla' formulation) is queued "
-            "(ROADMAP queue A: the 'torch' backend)")
-    if cfg.gemm_backend != "kernels":
-        raise ValueError(f"unknown gemm_backend {cfg.gemm_backend!r}")
+    """Raise ValueError for a GEMM backend the port does not have: the
+    hand-written kernels (``"kernels"``, JAX's ``"pallas"``) or the plain
+    formulation on the library's products (``"torch"``, JAX's
+    ``"xla"``)."""
+    if cfg.gemm_backend not in GEMM_BACKENDS:
+        raise ValueError(f"unknown gemm_backend {cfg.gemm_backend!r}; the "
+                         f"port's are {GEMM_BACKENDS}")
+
+
+def on_kernels(cfg) -> bool:
+    """True on the kernel backend, False on ``"torch"`` (ValueError for
+    any other name)."""
+    check_backend(cfg)
+    return cfg.gemm_backend == "kernels"
 
 
 def use_graph(cfg) -> bool:
@@ -68,14 +79,32 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, *,
 
 def dense(x: torch.Tensor, p, cfg, *, activation: str = "none",
           plan_rows: Optional[int] = None):
-    """``act(x @ w + b)`` through the kernel GEMM; x: (..., d_in).
-    ``plan_rows`` runs the GEMM on the plan of that many rows
-    (``ops.mte_gemm``): a verify window on the decode step's plan."""
-    check_backend(cfg)
-    from repro_torch.kernels import ops
+    """``act(x @ w + b)``; x: (..., d_in).  On the kernel backend one
+    kernel GEMM with bias and activation fused into its epilogue;
+    ``plan_rows`` runs it on the plan of that many rows
+    (``ops.mte_gemm``): a verify window on the decode step's plan.  On
+    the ``"torch"`` backend JAX's xla branch (``layers.py:81-86`` there):
+    the library's product at the format's accumulator
+    (``formats.torch_gemm``), then in f32 the bias and the activation,
+    then the cast; with ``plan_rows`` a (B, K, d_in) window of B =
+    ``plan_rows`` rows runs as K products of its B rows, one per
+    position, so each row gets the product a decode step makes."""
     b = p.get("b")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    if not on_kernels(cfg):
+        def run(rows):
+            y = formats_lib.torch_gemm(rows, p["w"], model_format(cfg))
+            y = y.float()
+            if b is not None:
+                y = y + b.float()
+            return ACTIVATIONS[activation](y).to(compute_dtype(cfg))
+
+        if plan_rows is not None and x.ndim == 3 and x.shape[1] > 1:
+            return torch.stack([run(x[:, i].contiguous())
+                                for i in range(x.shape[1])], dim=1)
+        return run(x2).reshape(*lead, -1)
+    from repro_torch.kernels import ops
     epi = Epilogue(has_bias=b is not None, activation=activation)
     y = ops.mte_gemm(x2, p["w"], bias=b.float() if b is not None else None,
                      epilogue=epi, policy=cfg.gemm_policy,
@@ -223,7 +252,6 @@ def _mlp_compiled(x: torch.Tensor, p, cfg,
     from repro_torch.graph import schedule as graph_schedule
     from repro_torch.graph.trace import GraphBuilder
 
-    check_backend(cfg)
     cdt = compute_dtype(cfg)
     fmt = model_format(cfg)
     lead = x.shape[:-1]

@@ -25,7 +25,8 @@ tokens, :func:`_inputs_to_x`).
 
 Entry points: :func:`init_params`; the model level — :func:`forward`
 (the training forward; differentiable, with each layer rematerialised
-under ``cfg.remat="full"``), :func:`loss_fn` (next-token cross
+under ``cfg.remat="full"``, or all but its GEMMs' outputs under
+``"dots"``), :func:`loss_fn` (next-token cross
 entropy), :func:`prefill` (which returns a contiguous
 decode cache, :func:`init_cache`'s layout) and :func:`decode` over it;
 serving — :func:`init_paged_cache`, :func:`prefill_chunk`,
@@ -37,6 +38,7 @@ and SSD state rows.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -44,6 +46,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import REMATS
 from repro_torch.core.formats import to_torch_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -51,7 +54,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (check_backend, compute_dtype, embed,
                                        init_embedding, init_mlp, init_norm,
-                                       mlp, norm, unembed)
+                                       mlp, norm, on_kernels, unembed)
 from repro_torch.tree import leaves
 
 __all__ = ["init_params", "forward", "loss_fn", "prefill", "init_cache",
@@ -112,7 +115,9 @@ def init_cache(cfg, batch: int, seq_len: int, *, device=None):
     of the JAX package), what :func:`prefill` returns: global attention
     layers a flat (batch, seq_len, Hkv, D) cache, local layers a ring of
     min(window, seq_len) slots, RG-LRU layers their ``{"h", "conv"}``
-    rows, SSD layers their ``{"state", "conv"}`` rows."""
+    rows, SSD layers their ``{"state", "conv"}`` rows.  Under
+    ``cfg.cache_quant`` the flat caches and rings are int8 with f32
+    per-(slot, head) scales (``attention.init_attn_cache``)."""
     _check_kinds(cfg)
     dev = resolve_device(device)
     cdt = compute_dtype(cfg)
@@ -270,21 +275,63 @@ def _apply_layer(x, lp, cfg, kinds, positions, mode, cache, *, pos=None,
     return x + out, cache, aux
 
 
-def _remat(cfg):
-    """Whether a differentiated ``"train"`` layer is rematerialised
-    (``model.py:299-305`` of the JAX package): ``cfg.remat="full"`` keeps
-    only each layer's input and recomputes the layer in the backward
-    (``torch.utils.checkpoint``, non-reentrant); ``"none"`` keeps every
-    activation.  ``"dots"`` (keep the GEMM outputs) needs a policy that
-    sees the kernels' launches, which run outside PyTorch's operators:
-    ROADMAP A11."""
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (keep the GEMM outputs, recompute the rest) is "
-            "queued: ROADMAP A11")
-    if cfg.remat not in ("full", "none"):
-        raise ValueError(f"unknown remat {cfg.remat!r}")
-    return cfg.remat == "full"
+def _remat(cfg) -> Optional[str]:
+    """How a differentiated ``"train"`` layer is rematerialised
+    (``model.py:299-305`` of the JAX package), or None: ``cfg.remat=
+    "full"`` keeps only each layer's input and recomputes the layer in
+    the backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"``
+    keeps the GEMMs' outputs too and recomputes the rest
+    (:func:`_checkpoint`); ``"none"`` keeps every activation."""
+    if cfg.remat not in REMATS:
+        raise ValueError(f"unknown remat {cfg.remat!r}; the port's are "
+                         f"{REMATS}")
+    return None if cfg.remat == "none" else cfg.remat
+
+
+@functools.lru_cache(maxsize=None)
+def _products():
+    """The library's matrix products, the operators ``remat="dots"``
+    keeps on the ``"torch"`` backend (JAX's ``checkpoint_dots`` keeps
+    every ``dot_general``): the projections' ``torch.mm``/``torch.bmm``
+    (with ``out_dtype`` on the card), ``torch._int_mm``, and the plain
+    attention's einsums, which run as ``bmm``."""
+    aten = torch.ops.aten
+    return {getattr(op, name) for op in (aten.mm, aten.bmm)
+            for name in ("default", "dtype") if hasattr(op, name)} | {
+        aten.addmm.default, aten._int_mm.default}
+
+
+def _keep_products(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _products()
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint(remat: str, cfg, fn, *args, **kw):
+    """``fn(*args, **kw)`` under ``torch.utils.checkpoint`` as
+    ``remat`` says.  ``"dots"`` on the ``"torch"`` backend: a
+    selective-checkpoint policy that must save every matrix product
+    (:func:`_products`).  ``"dots"`` on the kernel backend, whose GEMMs
+    launch inside autograd Functions that such a policy does not see: a
+    :class:`~repro_torch.kernels.autodiff.GemmStash` of this call keeps
+    each GEMM Function's output and hands it back in the recompute
+    without a launch; B5 and everything else is recomputed."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    if not on_kernels(cfg):
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda:
+                          create_selective_checkpoint_contexts(
+                              _keep_products), **kw)
+    from repro_torch.kernels.autodiff import GemmStash
+    stash = GemmStash()
+
+    def run(*a, **k):
+        with stash.active():
+            return fn(*a, **k)
+
+    return checkpoint(run, *args, use_reentrant=False, **kw)
 
 
 def _run_stack(x, params, cfg, positions, mode, cache, **kw):
@@ -294,20 +341,21 @@ def _run_stack(x, params, cfg, positions, mode, cache, **kw):
     ``"prefill"``) a new one collects what the layers return.  A
     ``"train"`` stack under autograd rematerialises each layer as
     ``cfg.remat`` says (:func:`_remat`): the recompute runs the same
-    plans and draws no random numbers, so it gives the forward's bits."""
+    plans and draws no random numbers, so it gives the forward's bits,
+    and ``"dots"`` gives ``"full"``'s."""
     check_backend(cfg)
     _check_kinds(cfg)
     out = cache if cache is not None else {
         "layers": [None] * len(params["layers"])}
-    remat = (mode == "train" and torch.is_grad_enabled()
-             and _remat(cfg))
+    remat = (_remat(cfg) if mode == "train" and torch.is_grad_enabled()
+             else None)
     aux_total = torch.zeros((), device=x.device)
     for i, (lp, kinds) in enumerate(zip(params["layers"], cfg.layer_kinds)):
         layer_cache = None if cache is None else cache["layers"][i]
         if remat:
-            x, out["layers"][i], aux = torch.utils.checkpoint.checkpoint(
-                _apply_layer, x, lp, cfg, kinds, positions, mode,
-                layer_cache, use_reentrant=False, **kw)
+            x, out["layers"][i], aux = _checkpoint(
+                remat, cfg, _apply_layer, x, lp, cfg, kinds, positions, mode,
+                layer_cache, **kw)
         else:
             x, out["layers"][i], aux = _apply_layer(
                 x, lp, cfg, kinds, positions, mode, layer_cache, **kw)

@@ -6,7 +6,8 @@ d_model 1024), so the experts run as three grouped GEMMs (B3,
 :func:`repro_torch.kernels.ops.grouped_gemm`) over an (E, C, D) dispatch
 buffer, each expert its own x: gate with the SiLU in its epilogue, up,
 and down over ``g * u``, under the model's format policy (per-expert,
-per-channel scales under int8).
+per-channel scales under int8); on the ``"torch"`` backend the library's
+batched products in their place.
 
 The dispatch is JAX's ``apply_moe`` (``moe.py:107-135`` of the JAX
 package) with static shapes and no host sync, so a decode step holding
@@ -33,11 +34,13 @@ all-to-all path waits for ROADMAP A12.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core import formats as formats_lib
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.formats import to_torch_dtype
-from repro_torch.models.layers import (check_backend, compute_dtype,
-                                       init_dense, model_format)
+from repro_torch.models.layers import (compute_dtype, init_dense,
+                                       model_format, on_kernels)
 
 __all__ = ["init_moe", "moe_capacity", "apply_moe", "dispatch",
            "route_stats"]
@@ -117,11 +120,17 @@ def _slots(x2, p, cfg):
 def _expert_ffn(buf, p, cfg):
     """The experts' SwiGLU over the (E, C, D) dispatch buffer: three
     grouped GEMMs with a per-expert x under the model's format policy
-    (``moe.py:80-97`` of the JAX package)."""
-    from repro_torch.kernels import ops
-    check_backend(cfg)
+    (``moe.py:80-104`` of the JAX package), B3 on the kernel backend; on
+    ``"torch"`` the library's batched products, silu of the f32 gate
+    times the f32 up, cast, then down."""
     cdt = compute_dtype(cfg)
     fmt = model_format(cfg)
+    if not on_kernels(cfg):
+        g = F.silu(formats_lib.torch_grouped(buf, p["gate"], fmt).float())
+        u = formats_lib.torch_grouped(buf, p["up"], fmt).float()
+        return formats_lib.torch_grouped((g * u).to(cdt), p["down"],
+                                         fmt).to(cdt)
+    from repro_torch.kernels import ops
     g = ops.grouped_gemm(buf, p["gate"],
                          epilogue=Epilogue(activation="silu"),
                          out_dtype=cdt, format_policy=fmt)

@@ -10,12 +10,12 @@ Recurrent Unit; their product goes through an output projection::
     a_t = exp(-c · softplus(Λ) · r_t)
     h_t = a_t · h_{t-1} + sqrt(1 - a_t²) · (i_t · x_t)
 
-Every projection runs through the kernel GEMMs (:func:`dense`).  A
-prefill chunk evaluates the recurrence through B7 (``ops.rglru_scan``,
-from the carried state), the training forward as a differentiable plain
-scan (:func:`_plain_scan`), a decode step or a speculative window as one
-element-wise update per position (plain PyTorch: it runs no kernel in
-JAX either).  The serving cache of a layer
+Every projection runs through :func:`dense`.  A prefill chunk evaluates
+the recurrence through B7 (``ops.rglru_scan``, from the carried state),
+the training forward, and every scan on the ``"torch"`` backend, as a
+differentiable plain scan (:func:`_plain_scan`), a decode step or a
+speculative window as one element-wise update per position (plain
+PyTorch: it runs no kernel in JAX either).  The serving cache of a layer
 is ``{"h": (B, W) f32, "conv": (B, conv_width, W)}``: the state and the
 raw-projection tail the conv of the next chunk or step needs.
 """
@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.formats import to_torch_dtype
 from repro_torch.models.layers import (causal_conv, compute_dtype, dense,
-                                       init_dense, keep_rows)
+                                       init_dense, keep_rows, on_kernels)
 
 __all__ = ["init_rglru", "rglru_forward", "init_rglru_cache",
            "rglru_decode"]
@@ -94,7 +94,9 @@ def rglru_forward(x, p, cfg, *, cache: Optional[dict] = None,
     """One prefill chunk x (B, S, D) → (out (B, S, D), new cache).
     ``train`` (the training forward, from a zero state) runs the
     recurrence as :func:`_plain_scan`, differentiable, where serving runs
-    B7, as JAX runs its Pallas scan only when a cache is returned.
+    B7, as JAX runs its Pallas scan only when a cache is returned; the
+    ``"torch"`` backend scans with :func:`_plain_scan` everywhere and
+    folds a carried state in as JAX does (``rglru.py:98-110`` there).
 
     ``cache`` (the previous chunk's ``{"h", "conv"}``) resumes the
     recurrence mid-sequence: the conv sees the previous chunk's raw tail
@@ -114,10 +116,13 @@ def rglru_forward(x, p, cfg, *, cache: Optional[dict] = None,
     u = causal_conv(conv_in.float(), p["conv_w"].float(),
                     p["conv_b"].float())[:, hist:].to(u_raw.dtype)
     log_a, gated = _gates(u, p, cfg)
-    if train:
+    if train and cache is not None:
+        raise ValueError("the training forward starts from a zero state")
+    if not on_kernels(cfg):
+        h = _plain_scan(*_scan_inputs(log_a, gated))
         if cache is not None:
-            raise ValueError("the training forward starts from a zero "
-                             "state")
+            h = h + torch.exp(torch.cumsum(log_a, dim=1)) * cache["h"][:, None]
+    elif train:
         h = _plain_scan(*_scan_inputs(log_a, gated))
     else:
         h = ops.rglru_scan(*_scan_inputs(log_a, gated),

@@ -269,18 +269,20 @@ def test_remat_recompute_is_bit_equal():
 
 
 def test_remat_dots_is_refused():
+    """``remat="dots"`` runs (its gradients equal ``"none"``'s: see
+    ``tests/test_torch_remat_dots.py``), and without autograd no layer is
+    differentiated, so remat is not read; a remat the port does not have
+    raises ValueError."""
     cfg = dataclasses.replace(tconfigs.get_config("gemma_2b").reduced(),
                               n_layers=1, remat="dots")
     params = tmodel.init_params(cfg, seed=0, device="cpu")
     leaf = params["final_norm"]["scale"].requires_grad_()
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmodel.loss_fn(params, {"tokens": torch.zeros(1, 4,
-                                                      dtype=torch.long)},
-                       cfg)
+    tokens = torch.zeros(1, 4, dtype=torch.long)
+    loss, _ = tmodel.loss_fn(params, {"tokens": tokens}, cfg)
+    (grad,) = torch.autograd.grad(loss, [leaf])
+    assert bool(torch.isfinite(grad).all())
     leaf.requires_grad_(False)
-    # Without autograd no layer is differentiated, so remat is not read.
     with torch.no_grad():
-        tmodel.loss_fn(params, {"tokens": torch.zeros(1, 4,
-                                                      dtype=torch.long)},
-                       cfg)
-
+        tmodel.loss_fn(params, {"tokens": tokens}, cfg)
+    with pytest.raises(ValueError, match="remat"):
+        dataclasses.replace(cfg, remat="bogus")

@@ -2690,3 +2690,67 @@ def test_stack_on_engine_replays_add_no_records(card):
     n_attn = sum(1 for mixer, _ in cfg.layer_kinds if mixer == "attn")
     assert sum(r.kind == "grouped" and r.group == 3
                for r in decode) == n_attn
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_library_product_on_the_card_and_its_transpose(card, grouped):
+    """The ``"torch"`` backend's product on the card (``formats.
+    library_product``): cuBLAS on the bf16 operands into f32 agrees with
+    the f32 product of the widened operands, and its hand-written
+    backward (JAX's transpose of ``dot_general``) gives the cotangent
+    products in f32 cast to bf16; int8 through ``int_product`` equals
+    ``int_matmul`` at M ≤ 16 (rows padded) and past it."""
+    gen = torch.Generator().manual_seed(0)
+    shape_a, shape_b = ((3, 40, 256), (3, 256, 96)) if grouped else (
+        (40, 256), (256, 96))
+    a = torch.randn(shape_a, generator=gen).to(torch.bfloat16)
+    b = torch.randn(shape_b, generator=gen).to(torch.bfloat16)
+    g = torch.randn((*shape_a[:-1], shape_b[-1]), generator=gen)
+    ac, bc = (x.to(card).clone().requires_grad_() for x in (a, b))
+    out = tformats.library_product(ac, bc, torch.float32)
+    assert out.dtype == torch.float32
+    out.backward(g.to(card))
+    want = torch.matmul(a.float(), b.float())
+    _close(out.detach(), want, 1e-3)
+    da = torch.matmul(g, b.float().transpose(-1, -2)).to(torch.bfloat16)
+    db = torch.matmul(a.float().transpose(-1, -2), g).to(torch.bfloat16)
+    assert ac.grad.dtype == bc.grad.dtype == torch.bfloat16
+    _close(ac.grad, da, 1e-2)
+    _close(bc.grad, db, 1e-2)
+    ai = torch.randint(-127, 128, (40, 256), dtype=torch.int8)
+    bi = torch.randint(-127, 128, (256, 96), dtype=torch.int8)
+    for m in (4, 40):
+        got = tformats.int_product(ai[:m].to(card), bi.to(card)).cpu()
+        assert torch.equal(got, tformats.int_matmul(ai[:m], bi))
+
+
+def test_torch_backend_decode_step_on_the_card(card):
+    """Reduced gemma_2b on ``gemm_backend="torch"``: a prefill chunk and
+    a decode step over the paged pool on the card within 1e-3 of the
+    CPU's, not one kernel of the port launched."""
+    tmodel = LazyModule("repro_torch.models.model")
+    tconfigs = LazyModule("repro_torch.configs")
+    ttree = LazyModule("repro_torch.tree")
+    cfg = dataclasses.replace(tconfigs.get_config("gemma_2b").reduced(),
+                              gemm_backend="torch")
+    params = tmodel.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (1, 16),
+                           generator=torch.Generator().manual_seed(1))
+    logits = {}
+    before = build.launch_counts()
+    for device in ("cpu", card):
+        p = ttree.tree_map(lambda x: x.to(device), params)
+        cache = tmodel.init_paged_cache(cfg, 1, 32, num_pages=5,
+                                        page_size=8, device=device)
+        table = torch.arange(1, 5, dtype=torch.int32, device=device)[None]
+        first, cache = tmodel.prefill_chunk(
+            p, {"tokens": tokens.to(device), "page_table": table}, cache,
+            cfg, pos0=0)
+        step, _ = tmodel.decode(
+            p, {"tokens": first.argmax(-1)[:, None].int(),
+                "pos": torch.tensor([16], device=device),
+                "page_table": table}, cache, cfg)
+        logits[str(device)] = (first.cpu(), step.cpu())
+    assert build.launch_counts() == before
+    for got, want in zip(logits[str(card)], logits["cpu"]):
+        _close(got, want, 1e-3)

@@ -54,8 +54,9 @@ def test_gemma_2b_config_matches_jax(reduced):
 def test_port_refuses_unported_layer_kinds_and_configs():
     """Every assigned config resolves (``ARCH_NAMES``, all ten ported);
     what stays unported raises: a layer kind outside ``_PORTED_KINDS``
-    (an SSD mixer with an MLP, which no config has), the ``torch`` GEMM
-    backend, and the int8 model-level decode cache (``cache_quant``)."""
+    (an SSD mixer with an MLP, which no config has).  The ``"torch"``
+    GEMM backend and the int8 model-level decode cache (``cache_quant``)
+    run; a GEMM backend the port does not have raises ValueError."""
     import dataclasses
     from repro_torch.configs import ARCH_NAMES, get_config
     assert sorted(get_config(name).name for name in ARCH_NAMES) == sorted(
@@ -65,15 +66,19 @@ def test_port_refuses_unported_layer_kinds_and_configs():
     cfg = dataclasses.replace(torch_cfg(), pattern=(("ssd", "mlp"),))
     with pytest.raises(NotImplementedError, match="not ported"):
         torch_model.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A"):
-        torch_model.prefill_chunk(
-            torch_model.init_params(torch_cfg(), device="cpu"),
-            {"tokens": torch.zeros(1, 4, dtype=torch.int64),
-             "page_table": torch.ones(1, 2, dtype=torch.int32)},
-            torch_model.init_paged_cache(torch_cfg(), 1, 8, num_pages=3,
-                                         page_size=4, device="cpu"),
-            dataclasses.replace(torch_cfg(), gemm_backend="torch"), pos0=0)
-    with pytest.raises(NotImplementedError, match="cache_quant"):
-        torch_model.init_cache(dataclasses.replace(torch_cfg(),
-                                                   cache_quant=True),
-                               1, 8, device="cpu")
+    tcfg = dataclasses.replace(torch_cfg(), gemm_backend="torch")
+    logits, _ = torch_model.prefill_chunk(
+        torch_model.init_params(tcfg, device="cpu"),
+        {"tokens": torch.zeros(1, 4, dtype=torch.int64),
+         "page_table": torch.ones(1, 2, dtype=torch.int32)},
+        torch_model.init_paged_cache(tcfg, 1, 8, num_pages=3, page_size=4,
+                                     device="cpu"), tcfg, pos0=0)
+    assert logits.shape == (1, tcfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    cache = torch_model.init_cache(dataclasses.replace(torch_cfg(),
+                                                       cache_quant=True),
+                                   1, 8, device="cpu")
+    assert all(layer["k"].dtype == torch.int8 and "k_scale" in layer
+               for layer in cache["layers"])
+    with pytest.raises(ValueError, match="gemm_backend"):
+        dataclasses.replace(torch_cfg(), gemm_backend="xla")
